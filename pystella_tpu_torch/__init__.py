@@ -1,0 +1,56 @@
+"""pystella_tpu_torch: the PyTorch/CUDA port of pystella_tpu.
+
+A second package beside the JAX one. It imports ``torch`` and never
+``jax`` or ``pystella_tpu``; the JAX package is the reference its tests
+hold it to. This slice runs the 2-field scalar-preheating hot loop,
+:meth:`FusedScalarStepper.multi_step`, on an NVIDIA H100 with two
+hand-written CUDA kernels (``ops/csrc``).
+
+Entry points run on the GPU unless the caller asks for the CPU
+(``device="cpu"``); without CUDA and without that request they raise.
+"""
+
+from pystella_tpu_torch._device import resolve_device
+from pystella_tpu_torch.convert import (
+    carry_from_numpy, state_from_numpy, to_numpy,
+)
+from pystella_tpu_torch.field import (
+    Call, Constant, DynamicField, Expr, Field, Indexed, Power, Product,
+    Quotient, Shifted, Sum, Var, diff, evaluate, field_names, shift_fields,
+    simplify, substitute,
+)
+from pystella_tpu_torch.grid import Lattice
+from pystella_tpu_torch.models.sectors import (
+    ScalarSector, Sector, get_rho_and_p, tensor_index,
+)
+from pystella_tpu_torch.ops.derivs import (
+    FiniteDifferencer, FirstCenteredDifference, SecondCenteredDifference,
+)
+from pystella_tpu_torch.ops.fused import FusedScalarStepper
+from pystella_tpu_torch.step import (
+    LowStorageRK3Inhomogeneous, LowStorageRK3PredictorCorrector,
+    LowStorageRK3SSP, LowStorageRK3Symmetric, LowStorageRK3Williamson,
+    LowStorageRK54, LowStorageRK124, LowStorageRK134, LowStorageRK144,
+    LowStorageRKStepper, RungeKutta2Heun, RungeKutta2Midpoint,
+    RungeKutta2Ralston, RungeKutta3Heun, RungeKutta3Nystrom,
+    RungeKutta3Ralston, RungeKutta3SSP, RungeKutta4, RungeKuttaStepper,
+    Stepper, all_steppers, compile_rhs_dict,
+)
+
+__all__ = [
+    "resolve_device", "state_from_numpy", "carry_from_numpy", "to_numpy",
+    "Expr", "Constant", "Sum", "Product", "Quotient", "Power", "Call", "Var",
+    "Field", "Indexed", "Shifted", "DynamicField", "diff", "evaluate",
+    "field_names", "shift_fields", "simplify", "substitute",
+    "Lattice", "Sector", "ScalarSector", "get_rho_and_p", "tensor_index",
+    "FiniteDifferencer", "FirstCenteredDifference",
+    "SecondCenteredDifference", "FusedScalarStepper",
+    "Stepper", "RungeKuttaStepper", "LowStorageRKStepper",
+    "compile_rhs_dict", "RungeKutta4", "RungeKutta3Heun",
+    "RungeKutta3Nystrom", "RungeKutta3Ralston", "RungeKutta3SSP",
+    "RungeKutta2Midpoint", "RungeKutta2Heun", "RungeKutta2Ralston",
+    "LowStorageRK54", "LowStorageRK144", "LowStorageRK134",
+    "LowStorageRK124", "LowStorageRK3Williamson",
+    "LowStorageRK3Inhomogeneous", "LowStorageRK3Symmetric",
+    "LowStorageRK3PredictorCorrector", "LowStorageRK3SSP", "all_steppers",
+]

@@ -1,0 +1,42 @@
+"""Carry state across from the JAX package and back.
+
+The system has no weights: what carries across is the state and carry
+dicts (``(F, X, Y, Z)`` arrays, the same layout in both packages), the
+tableau coefficients (copied digit for digit in :mod:`.step`) and the model
+(the same ``potential`` callable applied to each package's own
+``DynamicField``). A JAX array arrives here as a numpy array
+(``np.asarray``) and leaves as one.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pystella_tpu_torch._device import resolve_device, torch_dtype
+from pystella_tpu_torch.step import _tree_map
+
+__all__ = ["state_from_numpy", "carry_from_numpy", "to_numpy"]
+
+
+def state_from_numpy(state, device=None, dtype=None):
+    """A dict of arrays -> a dict of contiguous tensors on ``device``
+    (default the GPU), copied, in ``dtype`` (default: the arrays' own)."""
+    dev = resolve_device(device)
+    dt = None if dtype is None else torch_dtype(dtype)
+    return {k: torch.tensor(np.asarray(v), dtype=dt, device=dev)
+            for k, v in state.items()}
+
+
+def carry_from_numpy(carry, device=None, dtype=None):
+    """A ``(state, k)`` carry of array dicts -> the same of tensors."""
+    state, k = carry
+    return (state_from_numpy(state, device, dtype),
+            state_from_numpy(k, device, dtype))
+
+
+def to_numpy(tree):
+    """Tensors (in dicts, lists, tuples) -> numpy arrays on the host."""
+    return _tree_map(lambda t: (t.detach().cpu().numpy()
+                                if isinstance(t, torch.Tensor)
+                                else np.asarray(t)), tree)

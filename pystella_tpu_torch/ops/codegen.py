@@ -1,0 +1,185 @@
+"""Print :mod:`~pystella_tpu_torch.field` expressions as CUDA C.
+
+The fused kernels in ``ops/csrc`` evaluate the model's ``dV/df`` at every
+lattice site. The model is a user expression, so it is printed into the
+kernel source here, the way loopy printed it for pystella's GPU kernels.
+
+The printer follows :func:`~pystella_tpu_torch.field.evaluate` operation
+by operation, so that the kernel rounds where the plain PyTorch version
+rounds:
+
+- a subtree whose leaves are all numbers is folded here, in Python (double)
+  arithmetic, exactly where ``evaluate`` would fold it; the result becomes
+  one literal;
+- every literal is written ``T(...)``, a cast to the kernel's template type
+  ``T``, so an ``f32`` kernel never promotes to double (a Python float meets
+  an ``f32`` tensor the same way in PyTorch);
+- sums and products associate left to right, as ``reduce`` does;
+- ``x**n`` for integer ``0 <= n <= 8`` is repeated multiplication in the
+  order ``evaluate`` uses (``((x * x) * x)``); any other power takes the
+  special cases of PyTorch's ``pow(tensor, scalar)`` (``x ** 1`` is ``x``,
+  ``x ** 2`` is ``x * x``, ...) or is ``pk_pow``;
+- a :class:`~pystella_tpu_torch.field.Call` prints as the ``pk_<name>``
+  device function of ``csrc/pk_common.cuh``, which maps to the CUDA math
+  library's ``float`` or ``double`` version.
+"""
+
+from __future__ import annotations
+
+import math
+import numbers
+
+from pystella_tpu_torch import field as _field
+
+__all__ = ["print_c", "C_FUNCS", "dvdf_header"]
+
+#: field.py function name -> device function in csrc/pk_common.cuh
+C_FUNCS = {name: f"pk_{name}" for name in _field._FUNCS}
+
+
+def _literal(v):
+    if isinstance(v, bool):
+        v = int(v)
+    if isinstance(v, numbers.Integral):
+        return f"T({int(v)})"
+    if isinstance(v, numbers.Real):
+        v = float(v)
+        if not math.isfinite(v):
+            raise ValueError(f"cannot print non-finite constant {v}")
+        return f"T({v!r})"
+    raise TypeError(f"cannot print constant of type {type(v)}")
+
+
+def _is_num(x):
+    return isinstance(x, numbers.Number)
+
+
+def _binary(a, b, op):
+    """``a op b`` where each side is a folded number or a C string."""
+    if _is_num(a) and _is_num(b):
+        return {"+": lambda: a + b, "*": lambda: a * b,
+                "/": lambda: a / b}[op]()
+    sa = _literal(a) if _is_num(a) else a
+    sb = _literal(b) if _is_num(b) else b
+    return f"({sa} {op} {sb})"
+
+
+def _pow(base, ev):
+    """``base ** ev`` for a C ``base`` and a numeric exponent, with the
+    special cases PyTorch's ``pow(tensor, scalar)`` takes (so ``x ** 1`` is
+    ``x`` exactly and ``x ** 2`` is ``x * x``)."""
+    if ev == 0:
+        return 1
+    if ev == 1:
+        return base
+    sq = _binary(base, base, "*")
+    special = {2: sq, 3: _binary(sq, base, "*"), 0.5: f"pk_sqrt({base})",
+               -1: _binary(1, base, "/"), -2: _binary(1, sq, "/"),
+               -0.5: _binary(1, f"pk_sqrt({base})", "/")}
+    if ev in special:
+        return special[ev]
+    return f"pk_pow({base}, {_literal(ev)})"
+
+
+def _emit(expr, fields, variables):
+    rec = lambda e: _emit(e, fields, variables)  # noqa: E731
+    if _is_num(expr):
+        return expr
+    if isinstance(expr, _field.Constant):
+        if not _is_num(expr.value):
+            raise TypeError("array-valued constants cannot be printed")
+        return expr.value
+    if isinstance(expr, _field.Indexed):
+        name = expr.field.name
+        if name not in fields or len(expr.index) != 1:
+            raise ValueError(f"no kernel symbol for {expr!r}")
+        return f"{fields[name]}[{int(expr.index[0])}]"
+    if isinstance(expr, _field.Var):
+        if expr.name not in variables:
+            raise ValueError(f"no kernel symbol for variable {expr.name!r}")
+        return variables[expr.name]
+    if isinstance(expr, _field.Field):
+        raise ValueError(f"whole field {expr.name!r} has no kernel symbol; "
+                         "index its components")
+    if isinstance(expr, _field.Shifted):
+        raise ValueError("shifted fields cannot be printed: the kernel "
+                         "evaluates the expression at its own site")
+    if isinstance(expr, (_field.Sum, _field.Product)):
+        op = "+" if isinstance(expr, _field.Sum) else "*"
+        parts = [rec(c) for c in expr.children]
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = _binary(acc, p, op)
+        return acc
+    if isinstance(expr, _field.Quotient):
+        return _binary(rec(expr.num), rec(expr.den), "/")
+    if isinstance(expr, _field.Power):
+        base = rec(expr.base)
+        expo = expr.exponent
+        if isinstance(expo, _field.Constant) and _is_num(expo.value):
+            ev = expo.value
+            if isinstance(ev, int) or (isinstance(ev, float)
+                                       and ev.is_integer()):
+                iv = int(ev)
+                if 0 <= iv <= 8:
+                    if _is_num(base):
+                        result = 1
+                        for _ in range(iv):
+                            result = result * base
+                        return result
+                    if iv == 0:
+                        return 1
+                    # 1 * x == x exactly, so the leading 1 is dropped
+                    result = base
+                    for _ in range(iv - 1):
+                        result = _binary(result, base, "*")
+                    return result
+            if _is_num(base):
+                return base ** ev
+            return _pow(base, ev)
+        e = rec(expo)
+        if _is_num(e):
+            return base ** e if _is_num(base) else _pow(base, e)
+        sb = _literal(base) if _is_num(base) else base
+        return f"pk_pow({sb}, {e})"
+    if isinstance(expr, _field.Call):
+        (arg,) = [rec(a) for a in expr.args]
+        if _is_num(arg):
+            return float(_field._apply(expr.func, arg))
+        return f"{C_FUNCS[expr.func]}({arg})"
+    raise TypeError(f"cannot print {type(expr)}")
+
+
+def print_c(expr, fields=None, variables=None):
+    """A CUDA C expression of type ``T`` computing ``expr``.
+
+    :arg fields: field name -> C array name; component ``f[i]`` of field
+        ``f`` prints as ``<name>[i]``.
+    :arg variables: :class:`~pystella_tpu_torch.field.Var` name -> C name.
+    """
+    out = _emit(_field._wrap(expr), dict(fields or {}), dict(variables or {}))
+    return _literal(out) if _is_num(out) else out
+
+
+def dvdf_header(dvdf, nfields, halo, field_name="f"):
+    """The generated header the fused kernels include: the number of
+    fields ``PK_F``, the stencil radius ``PK_H`` and the device function
+    ``pk_dvdf`` computing ``dV/df_i`` for every component at one site,
+    from the site's field values and the scalars ``a`` and ``hubble``."""
+    lines = [
+        "// Generated by pystella_tpu_torch.ops.codegen; do not edit.",
+        "#pragma once",
+        f"#define PK_F {int(nfields)}",
+        f"#define PK_H {int(halo)}",
+        "",
+        "template <typename T>",
+        "__device__ __forceinline__ void pk_dvdf(",
+        "    const T (&f)[PK_F], const T a, const T hubble, T (&out)[PK_F]) {",
+        "  (void)f; (void)a; (void)hubble;",
+    ]
+    syms = {"fields": {field_name: "f"},
+            "variables": {"a": "a", "hubble": "hubble"}}
+    for i, e in enumerate(dvdf):
+        lines.append(f"  out[{i}] = {print_c(e, **syms)};")
+    lines.append("}")
+    return "\n".join(lines) + "\n"

@@ -1,0 +1,162 @@
+"""Stencil taps and the build of the hand-written CUDA stencil kernels.
+
+PyTorch counterpart of ``pystella_tpu/ops/pallas_stencil.py``. Two parts:
+
+- The plain side: :func:`lap_from_taps` and :func:`grad_from_taps` in the
+  JAX package's accumulation order, and :class:`RollTaps`, the
+  periodic-roll tap accessor the plain PyTorch kernel bodies read from
+  (``taps(sx, sy, sz)[..., i] == f[..., i + s]``, the JAX convention).
+- The kernel side: :func:`build_kernels` compiles CUDA sources from
+  ``ops/csrc`` against a header generated from the model
+  (:mod:`~pystella_tpu_torch.ops.codegen`), with ``nvcc`` for ``sm_90a``,
+  into shared libraries with a plain C interface that are loaded with
+  :mod:`ctypes`. A built library is keyed by a hash of everything that
+  went into it, so a second run reuses it.
+
+The TPU's blocking machinery (VMEM rings, y slabs, lane rolls, block
+choice) has no counterpart: a CUDA kernel computes its own periodic
+offsets for any lattice shape.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+__all__ = ["lap_from_taps", "grad_from_taps", "RollTaps", "build_kernels",
+           "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS"]
+
+CSRC_DIR = Path(__file__).resolve().with_name("csrc")
+#: where built libraries go (listed in .gitignore)
+BUILD_DIR = Path(__file__).resolve().with_name("_build")
+#: -fmad=false keeps every multiply and add separately rounded, as in the
+#: plain PyTorch bodies, so kernel and plain version differ only where
+#: PyTorch itself reorders (see ops/fused.py for the stated tolerances)
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+
+def lap_from_taps(taps, coefs, inv_dx2):
+    """Laplacian from centered-difference taps: ``coefs`` maps offset ->
+    coefficient (offset 0 included), ``inv_dx2`` is ``1/dx**2`` per axis.
+    The centre term first, then per offset the x, y and z pairs."""
+    acc = coefs[0] * sum(inv_dx2) * taps()
+    for s, c in coefs.items():
+        if s == 0:
+            continue
+        acc = acc + c * inv_dx2[0] * (taps(s) + taps(-s))
+        acc = acc + c * inv_dx2[1] * (taps(0, s) + taps(0, -s))
+        acc = acc + c * inv_dx2[2] * (taps(0, 0, s) + taps(0, 0, -s))
+    return acc
+
+
+def grad_from_taps(taps, coefs, inv_dx):
+    """Per-axis first derivatives from antisymmetric centered taps; returns
+    a list of three arrays."""
+    grads = []
+    for d in range(3):
+        acc = 0
+        for s, c in coefs.items():
+            plus = [0, 0, 0]
+            plus[d] = s
+            minus = [0, 0, 0]
+            minus[d] = -s
+            acc = acc + c * inv_dx[d] * (taps(*plus) - taps(*minus))
+        grads.append(acc)
+    return grads
+
+
+class RollTaps:
+    """Taps of a ``(C, X, Y, Z)`` tensor under periodic wrap:
+    ``taps(sx, sy, sz)[:, i, j, k] == w[:, i + sx, j + sy, k + sz]``, i.e.
+    ``torch.roll`` by ``-s``. Unlike the JAX accessor it does not memoize:
+    at 512^3 the memoized whole-lattice copies of a stage pair would hold
+    tens of GiB, and a roll is cheap to redo."""
+
+    def __init__(self, w):
+        self._w = w
+
+    @staticmethod
+    def _roll1(arr, s, axis):
+        return arr if s == 0 else torch.roll(arr, -s, axis)
+
+    def __call__(self, sx=0, sy=0, sz=0):
+        return self._roll1(self._roll1(self._roll1(
+            self._w, sx, 1), sy, 2), sz, 3)
+
+    def roll(self, arr, sz):
+        """Periodic z-shift of a computed block (same convention)."""
+        return self._roll1(arr, sz, 3)
+
+
+# ---------------------------------------------------------------------------
+# building CUDA kernels
+# ---------------------------------------------------------------------------
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+    home = CUDA_HOME or os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built at "
+                           "first use and need the CUDA toolkit")
+    return found
+
+
+def _library_path(source, header):
+    common = (CSRC_DIR / "pk_common.cuh").read_text()
+    text = (CSRC_DIR / source).read_text()
+    key = hashlib.sha256("\0".join(
+        (text, common, header, " ".join(NVCC_FLAGS))).encode()).hexdigest()
+    stem = Path(source).stem
+    return BUILD_DIR / f"{stem}-{key[:16]}" / f"lib{stem}.so"
+
+
+def build_kernels(sources, header):
+    """Build each CUDA source of ``ops/csrc`` against the generated
+    ``header`` (included as ``pk_model.cuh``) and load it.
+
+    Every source that is not built yet gets its own ``nvcc``; all of them
+    start together and run in parallel. A library lands under
+    :data:`BUILD_DIR` at a path keyed by the hash of the source, the shared
+    header, the generated header and the flags, and is moved there only
+    once complete, so concurrent builds never load a partial file.
+
+    :returns: ``{source: ctypes.CDLL}``.
+    :raises RuntimeError: if ``nvcc`` is missing or a compilation fails.
+    """
+    paths = {src: _library_path(src, header) for src in sources}
+    jobs = []
+    for src, lib in paths.items():
+        if lib.exists():
+            continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        (lib.parent / "pk_model.cuh").write_text(header)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, f"-I{lib.parent}", f"-I{CSRC_DIR}",
+               "-o", tmp, str(CSRC_DIR / src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, lib, tmp, proc))
+    failures = []
+    for src, lib, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{src}:\n{out}")
+            Path(tmp).unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib)
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return {src: ctypes.CDLL(str(lib)) for src, lib in paths.items()}
