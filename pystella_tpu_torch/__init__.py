@@ -2,9 +2,11 @@
 
 A second package beside the JAX one. It imports ``torch`` and never
 ``jax`` or ``pystella_tpu``; the JAX package is the reference its tests
-hold it to. This slice runs the 2-field scalar-preheating hot loop,
-:meth:`FusedScalarStepper.multi_step`, on an NVIDIA H100 with two
-hand-written CUDA kernels (``ops/csrc``).
+hold it to. It runs the 2-field scalar-preheating hot loop,
+:meth:`FusedScalarStepper.multi_step`, and the energy-coupled driver,
+:meth:`FusedScalarStepper.coupled_multi_step` with :class:`Expansion` and
+:class:`Reduction`, on an NVIDIA H100 with hand-written CUDA kernels
+(``ops/csrc``).
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); without CUDA and without that request they raise.
@@ -12,7 +14,7 @@ Entry points run on the GPU unless the caller asks for the CPU
 
 from pystella_tpu_torch._device import resolve_device
 from pystella_tpu_torch.convert import (
-    carry_from_numpy, state_from_numpy, to_numpy,
+    carry_from_numpy, expansion_from_numpy, state_from_numpy, to_numpy,
 )
 from pystella_tpu_torch.field import (
     Call, Constant, DynamicField, Expr, Field, Indexed, Power, Product,
@@ -20,6 +22,7 @@ from pystella_tpu_torch.field import (
     simplify, substitute,
 )
 from pystella_tpu_torch.grid import Lattice
+from pystella_tpu_torch.models.expansion import Expansion
 from pystella_tpu_torch.models.sectors import (
     ScalarSector, Sector, get_rho_and_p, tensor_index,
 )
@@ -27,6 +30,7 @@ from pystella_tpu_torch.ops.derivs import (
     FiniteDifferencer, FirstCenteredDifference, SecondCenteredDifference,
 )
 from pystella_tpu_torch.ops.fused import FusedScalarStepper
+from pystella_tpu_torch.ops.reduction import FieldStatistics, Reduction
 from pystella_tpu_torch.step import (
     LowStorageRK3Inhomogeneous, LowStorageRK3PredictorCorrector,
     LowStorageRK3SSP, LowStorageRK3Symmetric, LowStorageRK3Williamson,
@@ -39,6 +43,7 @@ from pystella_tpu_torch.step import (
 
 __all__ = [
     "resolve_device", "state_from_numpy", "carry_from_numpy", "to_numpy",
+    "expansion_from_numpy", "Expansion", "Reduction", "FieldStatistics",
     "Expr", "Constant", "Sum", "Product", "Quotient", "Power", "Call", "Var",
     "Field", "Indexed", "Shifted", "DynamicField", "diff", "evaluate",
     "field_names", "shift_fields", "simplify", "substitute",

@@ -2,10 +2,11 @@
 
 The system has no weights: what carries across is the state and carry
 dicts (``(F, X, Y, Z)`` arrays, the same layout in both packages), the
-tableau coefficients (copied digit for digit in :mod:`.step`) and the model
-(the same ``potential`` callable applied to each package's own
-``DynamicField``). A JAX array arrives here as a numpy array
-(``np.asarray``) and leaves as one.
+expansion background (``a``, ``adot``, ``mpl``), the tableau coefficients
+(copied digit for digit in :mod:`.step`) and the model (the same
+``potential`` callable applied to each package's own ``DynamicField``). A
+JAX array arrives here as a numpy array (``np.asarray``) and leaves as
+one.
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ import numpy as np
 import torch
 
 from pystella_tpu_torch._device import resolve_device, torch_dtype
-from pystella_tpu_torch.step import _tree_map
+from pystella_tpu_torch.models.expansion import Expansion
+from pystella_tpu_torch.step import LowStorageRK54, _tree_map
 
-__all__ = ["state_from_numpy", "carry_from_numpy", "to_numpy"]
+__all__ = ["state_from_numpy", "carry_from_numpy", "to_numpy",
+           "expansion_from_numpy"]
 
 
 def state_from_numpy(state, device=None, dtype=None):
@@ -33,6 +36,17 @@ def carry_from_numpy(carry, device=None, dtype=None):
     state, k = carry
     return (state_from_numpy(state, device, dtype),
             state_from_numpy(k, device, dtype))
+
+
+def expansion_from_numpy(values, Stepper=LowStorageRK54, dtype=np.float64):
+    """An :class:`~pystella_tpu_torch.Expansion` holding the background
+    ``values`` (``{"a", "adot", "mpl"}``, e.g. read off the JAX package's
+    ``Expansion``), with ``hubble = adot / a`` and a fresh stage carry."""
+    exp = Expansion(0.0, Stepper, mpl=float(values["mpl"]), dtype=dtype)
+    exp.a = exp.dtype.type(values["a"])
+    exp.adot = exp.dtype.type(values["adot"])
+    exp.hubble = exp.adot / exp.a
+    return exp
 
 
 def to_numpy(tree):

@@ -1,8 +1,9 @@
 """Print :mod:`~pystella_tpu_torch.field` expressions as CUDA C.
 
-The fused kernels in ``ops/csrc`` evaluate the model's ``dV/df`` at every
-lattice site. The model is a user expression, so it is printed into the
-kernel source here, the way loopy printed it for pystella's GPU kernels.
+The fused kernels in ``ops/csrc`` evaluate the model's ``dV/df`` (and, for
+the energy sums, ``V``) at every lattice site. The model is a user
+expression, so it is printed into the kernel source here, the way loopy
+printed it for pystella's GPU kernels.
 
 The printer follows :func:`~pystella_tpu_torch.field.evaluate` operation
 by operation, so that the kernel rounds where the plain PyTorch version
@@ -31,10 +32,18 @@ import numbers
 
 from pystella_tpu_torch import field as _field
 
-__all__ = ["print_c", "C_FUNCS", "dvdf_header"]
+__all__ = ["print_c", "C_FUNCS", "model_header", "STAGE_VARIABLES",
+           "HUBBLE_FREE_VARIABLES"]
 
 #: field.py function name -> device function in csrc/pk_common.cuh
 C_FUNCS = {name: f"pk_{name}" for name in _field._FUNCS}
+
+#: the scalars a stage kernel has in scope (Var name -> C name)
+STAGE_VARIABLES = {"a": "a", "hubble": "hubble"}
+#: the scalars in scope where the Hubble rate is not known yet (the
+#: deferred-drag pair's second stage): printing an expression that reads
+#: ``hubble`` here raises instead of binding some value to it
+HUBBLE_FREE_VARIABLES = {"a": "a"}
 
 
 def _literal(v):
@@ -161,25 +170,63 @@ def print_c(expr, fields=None, variables=None):
     return _literal(out) if _is_num(out) else out
 
 
-def dvdf_header(dvdf, nfields, halo, field_name="f"):
+def _site_functions(suffix, dvdf, potential, fields, variables):
+    """``pk_dvdf<suffix>`` (dV/df_i for every component) and
+    ``pk_v<suffix>`` (V) at one site, over the scalars ``variables``."""
+    params = "".join(f", const T {c}" for c in variables.values())
+    unused = " ".join(f"(void){c};" for c in ("f", *variables.values()))
+    lines = [
+        "template <typename T>",
+        f"__device__ __forceinline__ void pk_dvdf{suffix}(",
+        f"    const T (&f)[PK_F]{params}, T (&out)[PK_F]) {{",
+        f"  {unused}",
+    ]
+    for i, e in enumerate(dvdf):
+        lines.append(f"  out[{i}] = {print_c(e, fields, variables)};")
+    lines += [
+        "}",
+        "",
+        "template <typename T>",
+        f"__device__ __forceinline__ T pk_v{suffix}(",
+        f"    const T (&f)[PK_F]{params}) {{",
+        f"  {unused}",
+        f"  return {print_c(potential, fields, variables)};",
+        "}",
+        "",
+    ]
+    return lines
+
+
+def model_header(dvdf, potential, nfields, halo, field_name="f",
+                 hubble_free=False):
     """The generated header the fused kernels include: the number of
-    fields ``PK_F``, the stencil radius ``PK_H`` and the device function
-    ``pk_dvdf`` computing ``dV/df_i`` for every component at one site,
-    from the site's field values and the scalars ``a`` and ``hubble``."""
+    fields ``PK_F``, the stencil radius ``PK_H``, and the model at one site
+    from the site's field values ``f[PK_F]``:
+
+    - ``pk_dvdf<T>(f, a, hubble, out)``: ``dV/df_i`` for every component;
+    - ``pk_v<T>(f, a, hubble)``: the potential ``V``;
+    - with ``hubble_free``, ``PK_HUBBLE_FREE`` and the same two functions
+      without ``hubble``, ``pk_dvdf_nohub<T>(f, a, out)`` and
+      ``pk_v_nohub<T>(f, a)``, which the deferred-drag coupled pair
+      evaluates before the stage's Hubble rate exists. They are printed
+      over :data:`HUBBLE_FREE_VARIABLES`, so an expression that reads
+      ``hubble`` raises ``ValueError`` here.
+
+    A ``V`` or ``dV/df_i`` that does not depend on ``f`` prints as a
+    constant; the kernel still evaluates it at (and sums it over) every
+    site, as the plain versions broadcast it.
+    """
+    fields = {field_name: "f"}
     lines = [
         "// Generated by pystella_tpu_torch.ops.codegen; do not edit.",
         "#pragma once",
         f"#define PK_F {int(nfields)}",
         f"#define PK_H {int(halo)}",
         "",
-        "template <typename T>",
-        "__device__ __forceinline__ void pk_dvdf(",
-        "    const T (&f)[PK_F], const T a, const T hubble, T (&out)[PK_F]) {",
-        "  (void)f; (void)a; (void)hubble;",
     ]
-    syms = {"fields": {field_name: "f"},
-            "variables": {"a": "a", "hubble": "hubble"}}
-    for i, e in enumerate(dvdf):
-        lines.append(f"  out[{i}] = {print_c(e, **syms)};")
-    lines.append("}")
-    return "\n".join(lines) + "\n"
+    lines += _site_functions("", dvdf, potential, fields, STAGE_VARIABLES)
+    if hubble_free:
+        lines += ["#define PK_HUBBLE_FREE 1", ""]
+        lines += _site_functions("_nohub", dvdf, potential, fields,
+                                 HUBBLE_FREE_VARIABLES)
+    return "\n".join(lines)

@@ -1,0 +1,207 @@
+// K6: the deferred-drag coupled stage pair, for the energy-coupled driver
+// (FusedScalarStepper.coupled_multi_step).
+//
+// Replaces the Pallas body FusedScalarStepper._deferred_body /
+// _deferred_pair_core (+ _completed_taps, _axpy_taps, _esums, _dV) of
+// pystella_tpu/ops/fused.py, in both variants _build_coupled_pair_call
+// builds, with the sums of StreamingStencil._accumulate_sums
+// (pystella_tpu/ops/pallas_stencil.py). It is K3 (fused_pair.cu) with two
+// changes that let the Friedmann background advance exactly between
+// launches:
+//
+// - stage 2 is everything but its Hubble drag: kf2 = A2*kf1 + dt*df1,
+//   f2 = f1 + B2*kf2, kdfp = A2*kdf1 + dt*(lap f1 - a2*a2*dV(f1)), with dV
+//   evaluated without hubble (pk_dvdf_nohub). The outputs are f2, dfp = df1,
+//   kf2 and kdfp; the drag -2*dt*hubble2*df1 is completed by the next launch
+//   (or the chunk-end finalize, a plain elementwise pass) once hubble2 is
+//   known;
+// - it emits two sets of energy sums: esums1 of the entry state (f0, df0,
+//   lap f0 at a1, hubble1) and esums2 of the stage-1 state (f1, df1, lap f1
+//   at a2, no hubble), lap f1 being the Laplacian recomposed from the taps.
+//
+// IN_DEFERRED selects the input:
+// - false ("normal", a chunk's first pair): f, dfdt, kf, kdfdt;
+// - true: the previous pair's f, dfp, kdfp, kf, with scalars hubfix and B2p.
+//   The incoming carry is kdf0 = kdfp - (2*dt*hubfix)*dfp, the velocity
+//   df0 = dfp + B2p*kdf0, and at every tap the stage-1 composition reads the
+//   velocity is completed the same way (PkCompleted), so the pair equals the
+//   one that would have run with the completed state as input.
+//
+// Bound: memory, as K3: four arrays read and four written per site (8 * F *
+// sites * sizeof(T) bytes for two stages), plus one partial per sum term and
+// block. f, kf and the velocity arrays are also read at the 6h neighbour
+// taps, through L1/L2. Design as in fused_pair.cu: one thread per site, z
+// fastest, f1 recomposed at each of its 6h taps and never materialized,
+// periodic wrap by index arithmetic, 64-bit offsets, outputs to separate
+// buffers, -fmad=false; the sums are reduced in a fixed order in T
+// (pk_block_sums, pk_finish_sums).
+#include "pk_common.cuh"
+
+#ifdef PK_HUBBLE_FREE
+
+template <typename T>
+struct PkCoupledParams {
+  T dt, a1, hubble1, A1, B1, a2, A2, B2, hubfix, B2p;
+  PkLapWeights<T> w;
+};
+
+template <typename T, bool IN_DEFERRED>
+__global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
+pk_coupled_pair_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
+                       const T* __restrict__ in2, const T* __restrict__ in3,
+                       T* __restrict__ f_out, T* __restrict__ dfp_out,
+                       T* __restrict__ kf_out, T* __restrict__ kdfp_out,
+                       int X, int Y, int Z, PkCoupledParams<T> p,
+                       T* __restrict__ partials, int64_t nblocks) {
+  const int z = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int x = blockIdx.z;
+  // normal: in0..3 = f, dfdt, kf, kdfdt; deferred: f, dfp, kdfp, kf
+  const T* __restrict__ f = in0;
+  const T* __restrict__ kf = IN_DEFERRED ? in3 : in2;
+  // esums1 in terms[0, PK_NT), esums2 in terms[PK_NT, 2 PK_NT)
+  T terms[2 * PK_NT];
+#pragma unroll
+  for (int t = 0; t < 2 * PK_NT; ++t) terms[t] = T(0);
+
+  if (z < Z && y < Y) {
+    const int64_t N = (int64_t)X * Y * Z;
+    const int64_t site = ((int64_t)x * Y + y) * Z + z;
+    const T c_def = (T(2) * p.dt) * p.hubfix;
+
+    // stage 1 on the site (the arithmetic of fused_pair.cu, exact scalars)
+    T f0[PK_F], df0[PK_F], kdf0[PK_F], kf1[PK_F], f1[PK_F], kdf1[PK_F];
+    T df1[PK_F], lap[PK_F], dv[PK_F];
+#pragma unroll
+    for (int c = 0; c < PK_F; ++c) {
+      const int64_t i = c * N + site;
+      f0[c] = f[i];
+      if (IN_DEFERRED) {
+        const T d = in1[i];
+        kdf0[c] = in2[i] - c_def * d;
+        df0[c] = d + p.B2p * kdf0[c];
+      } else {
+        df0[c] = in1[i];
+        kdf0[c] = in3[i];
+      }
+      lap[c] = pk_lap(PkLoad<T>{f + c * N, Y, Z}, f0[c], x, y, z, X, Y, Z,
+                      p.w);
+      kf1[c] = p.A1 * kf[i] + p.dt * df0[c];
+      f1[c] = f0[c] + p.B1 * kf1[c];
+    }
+    pk_dvdf<T>(f0, p.a1, p.hubble1, dv);
+    {
+      const T two_hub = T(2) * p.hubble1;
+      const T a1sq = p.a1 * p.a1;
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c) {
+        kdf1[c] = p.A1 * kdf0[c]
+                  + p.dt * ((lap[c] - two_hub * df0[c]) - a1sq * dv[c]);
+        df1[c] = df0[c] + p.B1 * kdf1[c];
+        terms[c] = df0[c] * df0[c];
+        terms[PK_F + c] = (-f0[c]) * lap[c];
+      }
+    }
+    terms[2 * PK_F] = pk_v<T>(f0, p.a1, p.hubble1);
+
+    // the stage-2 Laplacian, from f1 recomposed at every tap
+#pragma unroll
+    for (int c = 0; c < PK_F; ++c) {
+      if (IN_DEFERRED) {
+        const PkAxpyLoad<T, PkCompleted<T>> load{
+            f + c * N, kf + c * N, {in1 + c * N, in2 + c * N, p.B2p, c_def},
+            p.B1, p.A1, p.dt, Y, Z};
+        lap[c] = pk_lap(load, f1[c], x, y, z, X, Y, Z, p.w);
+      } else {
+        const PkAxpyLoad<T> load{f + c * N, kf + c * N, {in1 + c * N},
+                                 p.B1, p.A1, p.dt, Y, Z};
+        lap[c] = pk_lap(load, f1[c], x, y, z, X, Y, Z, p.w);
+      }
+    }
+
+    // stage 2 on the site, its Hubble drag deferred
+    pk_dvdf_nohub<T>(f1, p.a2, dv);
+    const T a2sq = p.a2 * p.a2;
+#pragma unroll
+    for (int c = 0; c < PK_F; ++c) {
+      const int64_t i = c * N + site;
+      const T kf2 = p.A2 * kf1[c] + p.dt * df1[c];
+      f_out[i] = f1[c] + p.B2 * kf2;
+      dfp_out[i] = df1[c];
+      kf_out[i] = kf2;
+      kdfp_out[i] = p.A2 * kdf1[c] + p.dt * (lap[c] - a2sq * dv[c]);
+      terms[PK_NT + c] = df1[c] * df1[c];
+      terms[PK_NT + PK_F + c] = (-f1[c]) * lap[c];
+    }
+    terms[PK_NT + 2 * PK_F] = pk_v_nohub<T>(f1, p.a2);
+  }
+  pk_block_sums<T, 2 * PK_NT>(terms, partials, nblocks);
+}
+
+// params: dt, a1, hubble1, A1, B1, a2, A2, B2, [hubfix, B2p if
+// IN_DEFERRED], then the Laplacian weights (pk_lap_weights). partials holds
+// 2 * PK_NT * pk_num_blocks(X, Y, Z) values; sums receives esums1 then
+// esums2, PK_NT each.
+template <typename T, bool IN_DEFERRED>
+static int pk_launch_coupled(const void* in0, const void* in1,
+                             const void* in2, const void* in3, void* f_out,
+                             void* dfp_out, void* kf_out, void* kdfp_out,
+                             int X, int Y, int Z, const double* params,
+                             void* partials, void* sums, void* stream) {
+  PkCoupledParams<T> p;
+  p.dt = T(params[0]);
+  p.a1 = T(params[1]);
+  p.hubble1 = T(params[2]);
+  p.A1 = T(params[3]);
+  p.B1 = T(params[4]);
+  p.a2 = T(params[5]);
+  p.A2 = T(params[6]);
+  p.B2 = T(params[7]);
+  int n = 8;
+  p.hubfix = T(0);
+  p.B2p = T(0);
+  if (IN_DEFERRED) {
+    p.hubfix = T(params[8]);
+    p.B2p = T(params[9]);
+    n = 10;
+  }
+  p.w = pk_lap_weights<T>(params + n);
+  pk_coupled_pair_kernel<T, IN_DEFERRED>
+      <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
+         (cudaStream_t)stream>>>(
+          (const T*)in0, (const T*)in1, (const T*)in2, (const T*)in3,
+          (T*)f_out, (T*)dfp_out, (T*)kf_out, (T*)kdfp_out, X, Y, Z, p,
+          (T*)partials, pk_num_blocks(X, Y, Z));
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return pk_finish_sums<T>(partials, sums, 2 * PK_NT, X, Y, Z,
+                           (cudaStream_t)stream);
+}
+
+#define PK_COUPLED_ARGS                                                     \
+  const void *i0, const void *i1, const void *i2, const void *i3, void *fo, \
+      void *dfo, void *kfo, void *kdfo, int X, int Y, int Z,                \
+      const double *params, void *partials, void *sums, void *stream
+#define PK_COUPLED_CALL                                                     \
+  (i0, i1, i2, i3, fo, dfo, kfo, kdfo, X, Y, Z, params, partials, sums,     \
+   stream)
+
+extern "C" int pk_coupled_pair_f32(PK_COUPLED_ARGS) {
+  return pk_launch_coupled<float, false> PK_COUPLED_CALL;
+}
+
+extern "C" int pk_coupled_pair_f64(PK_COUPLED_ARGS) {
+  return pk_launch_coupled<double, false> PK_COUPLED_CALL;
+}
+
+extern "C" int pk_coupled_pair_deferred_f32(PK_COUPLED_ARGS) {
+  return pk_launch_coupled<float, true> PK_COUPLED_CALL;
+}
+
+extern "C" int pk_coupled_pair_deferred_f64(PK_COUPLED_ARGS) {
+  return pk_launch_coupled<double, true> PK_COUPLED_CALL;
+}
+
+#else
+#error "fused_coupled_pair.cu needs a model whose V and dV/df do not read hubble"
+#endif

@@ -64,7 +64,7 @@ pk_fused_pair_kernel(const T* __restrict__ f, const T* __restrict__ dfdt,
   // the stage-2 Laplacian, from f1 recomposed at every tap
 #pragma unroll
   for (int c = 0; c < PK_F; ++c) {
-    const PkAxpyLoad<T> load{f + c * N, kf + c * N, dfdt + c * N,
+    const PkAxpyLoad<T> load{f + c * N, kf + c * N, {dfdt + c * N},
                              p.B1, p.A1, p.dt, Y, Z};
     lap[c] = pk_lap(load, f1[c], x, y, z, X, Y, Z, p.w);
   }

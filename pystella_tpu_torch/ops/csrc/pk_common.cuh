@@ -1,11 +1,16 @@
 // Shared pieces of the fused Runge-Kutta stencil kernels (fused_stage.cu,
-// fused_pair.cu): the math functions that ops/codegen.py prints, periodic
-// index wrap, the tap loaders and the Laplacian in the accumulation order of
-// the JAX package's lap_from_taps (pystella_tpu/ops/pallas_stencil.py).
+// fused_pair.cu, fused_coupled_pair.cu): the math functions that
+// ops/codegen.py prints, periodic index wrap, the tap loaders, the Laplacian
+// in the accumulation order of the JAX package's lap_from_taps
+// (pystella_tpu/ops/pallas_stencil.py), and the deterministic lattice sums
+// of the energy-emitting kernels.
 //
 // Every kernel is compiled against a generated header, pk_model.cuh, which
-// defines PK_F (number of fields), PK_H (stencil radius) and
-// pk_dvdf<T>(f, a, hubble, out), the model's dV/df_i at one site.
+// defines PK_F (number of fields), PK_H (stencil radius),
+// pk_dvdf<T>(f, a, hubble, out) and pk_v<T>(f, a, hubble), the model's
+// dV/df_i and V at one site, and, for a model whose V does not read the
+// Hubble rate, PK_HUBBLE_FREE with pk_dvdf_nohub<T>(f, a, out) and
+// pk_v_nohub<T>(f, a).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,20 +76,43 @@ struct PkLoad {
   }
 };
 
+// A lattice array read at a linear index.
+template <typename T>
+struct PkAt {
+  const T* __restrict__ p;
+  __device__ __forceinline__ T operator()(int64_t i) const { return p[i]; }
+};
+
+// The velocity a deferred-drag coupled pair left incomplete, completed at a
+// linear index: dfp + B2p * (kdfp - c * dfp) with c = (2 * dt) * hubfix, the
+// arithmetic of the JAX package's _completed_taps
+// (pystella_tpu/ops/fused.py).
+template <typename T>
+struct PkCompleted {
+  const T* __restrict__ dfp;
+  const T* __restrict__ kdfp;
+  T B2p, c;
+  __device__ __forceinline__ T operator()(int64_t i) const {
+    const T d = dfp[i];
+    return d + B2p * (kdfp[i] - c * d);
+  }
+};
+
 // The stage-updated field f1 = f + B * (A * kf + dt * dfdt) of the first
 // stage of a pair, recomposed at (x, y, z) from the raw arrays instead of
 // read from a materialized f1: the arithmetic of the JAX package's
-// _axpy_taps (pystella_tpu/ops/fused.py).
-template <typename T>
+// _axpy_taps (pystella_tpu/ops/fused.py). DF reads dfdt (PkAt, or
+// PkCompleted for a deferred input).
+template <typename T, typename DF = PkAt<T>>
 struct PkAxpyLoad {
   const T* __restrict__ f;
   const T* __restrict__ kf;
-  const T* __restrict__ df;
+  DF df;
   T B, A, dt;
   int Y, Z;
   __device__ __forceinline__ T operator()(int x, int y, int z) const {
     const int64_t i = ((int64_t)x * Y + y) * Z + z;
-    return f[i] + B * (A * kf[i] + dt * df[i]);
+    return f[i] + B * (A * kf[i] + dt * df(i));
   }
 };
 
@@ -127,4 +155,101 @@ static inline PkLapWeights<T> pk_lap_weights(const double* w) {
 static inline dim3 pk_grid(int X, int Y, int Z) {
   return dim3((Z + PK_BLOCK_Z - 1) / PK_BLOCK_Z,
               (Y + PK_BLOCK_Y - 1) / PK_BLOCK_Y, X);
+}
+
+// Linear index of the block, and the number of blocks, of pk_grid.
+__device__ __forceinline__ int64_t pk_block_index() {
+  return ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
+         + blockIdx.x;
+}
+
+extern "C" long long pk_num_blocks(int X, int Y, int Z) {
+  const dim3 g = pk_grid(X, Y, Z);
+  return (long long)g.x * g.y * g.z;
+}
+
+// ---------------------------------------------------------------------------
+// Deterministic lattice sums (the energy-emitting kernels K5, K6).
+//
+// The TPU kernels carry their sums across a sequential grid in a revisited
+// accumulator tile (pallas_stencil.py:_accumulate_sums); blocks on the card
+// run in no order, so a sum takes two launches and no atomics:
+//
+// 1. pk_block_sums: each block of the stencil kernel reduces its 256 sites'
+//    terms in a fixed tree (a shuffle-down tree in each warp, then the 8 warp
+//    sums pairwise) and writes one partial per term into a (terms, blocks)
+//    buffer;
+// 2. pk_reduce_partials_kernel: one block per term sums that term's
+//    partials in a fixed order (per thread, pairwise groups of 8 folded in
+//    sequence; then a tree over the threads).
+//
+// The order depends on the lattice shape only, so two launches on the same
+// inputs give bit-equal sums. Sums are kept in T, as the JAX accumulator is.
+// ---------------------------------------------------------------------------
+
+// terms of one energy sum set: per component sum(dfdt^2), then per
+// component sum(-f lap f), then sum(V)
+#define PK_NT (2 * PK_F + 1)
+#define PK_REDUCE_THREADS 1024
+
+static_assert(PK_BLOCK_Z == 32 && PK_BLOCK_Y == 8,
+              "pk_block_sums reduces one warp per y row, 8 warps a block");
+
+template <typename T, int NT>
+__device__ __forceinline__ void pk_block_sums(T (&v)[NT],
+                                              T* __restrict__ partials,
+                                              int64_t nblocks) {
+  __shared__ T warp_sums[NT][PK_BLOCK_Y];
+  const int lane = threadIdx.x, warp = threadIdx.y;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      v[t] = v[t] + __shfl_down_sync(0xffffffffu, v[t], o);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) warp_sums[t][warp] = v[t];
+  }
+  __syncthreads();
+  const int t = warp * PK_BLOCK_Z + lane;
+  if (t < NT) {
+    const T* w = warp_sums[t];
+    partials[t * nblocks + pk_block_index()] =
+        ((w[0] + w[1]) + (w[2] + w[3])) + ((w[4] + w[5]) + (w[6] + w[7]));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PK_REDUCE_THREADS)
+pk_reduce_partials_kernel(const T* __restrict__ partials,
+                          T* __restrict__ sums, int64_t nblocks) {
+  __shared__ T part[PK_REDUCE_THREADS];
+  const T* p = partials + blockIdx.x * nblocks;
+  T acc = T(0);
+  for (int64_t base = (int64_t)threadIdx.x * 8; base < nblocks;
+       base += (int64_t)PK_REDUCE_THREADS * 8) {
+    T v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = base + j < nblocks ? p[base + j] : T(0);
+    acc = acc + (((v[0] + v[1]) + (v[2] + v[3]))
+                 + ((v[4] + v[5]) + (v[6] + v[7])));
+  }
+  part[threadIdx.x] = acc;
+  __syncthreads();
+  for (int s = PK_REDUCE_THREADS / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) part[threadIdx.x] = part[threadIdx.x]
+                                             + part[threadIdx.x + s];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) sums[blockIdx.x] = part[0];
+}
+
+// Second launch of a sum: the (nterms, nblocks) partials -> nterms sums.
+template <typename T>
+static int pk_finish_sums(void* partials, void* sums, int nterms, int X,
+                          int Y, int Z, cudaStream_t stream) {
+  pk_reduce_partials_kernel<T><<<nterms, PK_REDUCE_THREADS, 0, stream>>>(
+      (const T*)partials, (T*)sums, pk_num_blocks(X, Y, Z));
+  return (int)cudaGetLastError();
 }

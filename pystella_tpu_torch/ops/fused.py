@@ -1,30 +1,37 @@
 """Fused Runge-Kutta stages for Klein-Gordon-form systems, on CUDA.
 
 PyTorch counterpart of the ``FusedScalarStepper`` subset of
-``pystella_tpu/ops/fused.py`` that the 2-field preheating hot loop runs.
-A stage of ``f'' = lap f - 2 H f' - a^2 dV/df`` under a low-storage (2N)
-Runge-Kutta tableau is one kernel: each site reads f (with its stencil
-neighbours), dfdt, kf and kdfdt once, computes the Laplacian, the
-right-hand side with the model's ``dV/df`` (printed into the kernel source
-by :mod:`~pystella_tpu_torch.ops.codegen`) and the 2N update, and writes
-the four new arrays.
+``pystella_tpu/ops/fused.py`` that the 2-field preheating hot loop and the
+energy-coupled science driver run. A stage of ``f'' = lap f - 2 H f' - a^2
+dV/df`` under a low-storage (2N) Runge-Kutta tableau is one kernel: each
+site reads f (with its stencil neighbours), dfdt, kf and kdfdt once,
+computes the Laplacian, the right-hand side with the model's ``dV/df``
+(printed into the kernel source by :mod:`~pystella_tpu_torch.ops.codegen`)
+and the 2N update, and writes the four new arrays.
 
-Two hand-written CUDA kernels (``ops/csrc``):
+Hand-written CUDA kernels (``ops/csrc``):
 
 - ``fused_stage`` (K2): one stage;
 - ``fused_pair`` (K3): two consecutive stages in one pass, the second
   stage's Laplacian recomposed from the raw taps. :meth:`multi_step` pairs
   stages across step boundaries (legal when ``A[0] == 0``), so RK54 runs
-  5 pair launches per 2 steps and no single stage at all.
+  5 pair launches per 2 steps and no single stage at all;
+- ``fused_stage_energy`` (K5): K2 that also emits the energy sums of its
+  entry state, for :meth:`coupled_multi_step`;
+- ``coupled_pair`` / ``coupled_pair_deferred`` (K6): the deferred-drag
+  stage pair of :meth:`coupled_multi_step`, which emits both stages' energy
+  sums and leaves the second stage's Hubble drag to the next launch.
 
 Beside each kernel sits its plain PyTorch version (``_scalar_body``,
-``_scalar_pair_core``), the same per-site arithmetic in the same order on
+``_scalar_pair_core``, ``_esums``, ``_deferred_pair_core``), the same
+per-site arithmetic in the same order on
 :class:`~pystella_tpu_torch.ops.stencil.RollTaps`. A launch wrapper runs
 the kernel for CUDA tensors and the plain version for CPU tensors; it
 never substitutes one for the other. Kernel and plain version agree to
 rounding: PyTorch's CUDA division by a scalar multiplies by the reciprocal
 (one rounding more than the kernel's division), which the model's
-``dV/df`` can reach; everything else is op-for-op identical.
+``dV/df`` can reach, and the lattice sums add in another order; everything
+else is op-for-op identical.
 """
 
 from __future__ import annotations
@@ -42,11 +49,7 @@ from pystella_tpu_torch.ops import stencil as _stencil
 from pystella_tpu_torch.ops.derivs import _lap_coefs
 
 __all__ = ["FusedScalarStepper", "LAUNCHES", "reset_launch_counts",
-           "KERNELS"]
-
-#: kernel name -> number of launches since the last reset; each wrapper
-#: adds one where it launches its kernel, and nowhere else
-LAUNCHES = {"fused_stage": 0, "fused_pair": 0}
+           "KERNELS", "SUM_SETS"]
 
 #: kernel name -> (CUDA source in ops/csrc, the Pallas body it replaces)
 KERNELS = {
@@ -54,7 +57,43 @@ KERNELS = {
                     "pystella_tpu/ops/fused.py:549 (_scalar_body)"),
     "fused_pair": ("fused_pair.cu",
                    "pystella_tpu/ops/fused.py:920 (_scalar_pair_core)"),
+    "fused_stage_energy": (
+        "fused_stage.cu",
+        "pystella_tpu/ops/fused.py:995 (_ensure_energy_call: "
+        "_scalar_body(energy=True) + _esums)"),
+    "coupled_pair": (
+        "fused_coupled_pair.cu",
+        "pystella_tpu/ops/fused.py:1321 (_deferred_pair_core, "
+        "normal input)"),
+    "coupled_pair_deferred": (
+        "fused_coupled_pair.cu",
+        "pystella_tpu/ops/fused.py:1321 (_deferred_pair_core + "
+        "_completed_taps, deferred input)"),
 }
+
+#: kernel name -> number of (2F+1,) energy-sum vectors it emits
+SUM_SETS = {"fused_stage": 0, "fused_pair": 0, "fused_stage_energy": 1,
+            "coupled_pair": 2, "coupled_pair_deferred": 2}
+
+#: the kernels that need a model whose V and dV/df do not read hubble
+_COUPLED = ("coupled_pair", "coupled_pair_deferred")
+
+#: kernel name -> its scalars, in the order the C entry point takes them
+#: (the Laplacian weights follow)
+_STAGE_PARAMS = ("dt", "a", "hubble", "A", "B")
+_COUPLED_PARAMS = ("dt", "a1", "hubble1", "A1", "B1", "a2", "A2", "B2")
+_PARAMS = {
+    "fused_stage": _STAGE_PARAMS,
+    "fused_stage_energy": _STAGE_PARAMS,
+    "fused_pair": ("dt", "a1", "hubble1", "A1", "B1",
+                   "a2", "hubble2", "A2", "B2"),
+    "coupled_pair": _COUPLED_PARAMS,
+    "coupled_pair_deferred": _COUPLED_PARAMS + ("hubfix", "B2p"),
+}
+
+#: kernel name -> number of launches since the last reset; each wrapper
+#: adds one where it launches its kernel, and nowhere else
+LAUNCHES = {name: 0 for name in KERNELS}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -80,9 +119,9 @@ class FusedScalarStepper(_step.Stepper):
     :arg tableau: a :class:`~pystella_tpu_torch.step.LowStorageRKStepper`
         subclass providing ``_A``/``_B``/``_C``; default ``LowStorageRK54``.
     :arg dtype: ``torch.float32`` or ``torch.float64``.
-    :arg pair_stages: when True (default) :meth:`step` and
-        :meth:`multi_step` fuse consecutive stage pairs into one kernel;
-        :meth:`stage` always runs the single-stage kernel.
+    :arg pair_stages: when True (default) :meth:`step`, :meth:`multi_step`
+        and :meth:`coupled_multi_step` fuse consecutive stage pairs into one
+        kernel; :meth:`stage` always runs the single-stage kernel.
     :arg device: ``None`` (the GPU), ``"cuda"`` or ``"cpu"``. On a CUDA
         device the kernels are built here (first use; cached on disk).
 
@@ -123,8 +162,8 @@ class FusedScalarStepper(_step.Stepper):
         F = sector.nscalars
         self.F = F
         f = sector.f
-        V = sector.potential(f)
-        self._dvdf = [_field.diff(V, f[i]) for i in range(F)]
+        self._V = sector.potential(f)
+        self._dvdf = [_field.diff(self._V, f[i]) for i in range(F)]
         self._pair_stages = bool(pair_stages) and self.num_stages >= 2
 
         inv_dx2 = [1.0 / d**2 for d in self.dx]
@@ -136,31 +175,62 @@ class FusedScalarStepper(_step.Stepper):
                for s in range(1, self.h + 1)])
 
         self._buffers = None  # two sets of four arrays, made at first use
+        self._partials = None  # the sum kernels' per-block scratch
         self._libs = None
+        self._num_blocks = None
         if self.device.type == "cuda":
             self.build_kernels()
 
     # -- kernels -------------------------------------------------------------
 
+    @property
+    def _hubble_free(self):
+        """True when V and every dV/df are hubble-independent (the
+        deferred-drag factorization's soundness condition)."""
+        return all("hubble" not in _field.field_names(e)
+                   for e in [self._V] + list(self._dvdf))
+
+    @property
+    def coupled_pair_available(self):
+        """Whether :meth:`coupled_multi_step` can run the deferred-drag
+        pair kernels: pairing is on, the tableau's ``A[0] == 0`` (the
+        cross-boundary k-carry reset is a no-op) and the potential does not
+        read ``hubble``."""
+        return self._pair_stages and self._A[0] == 0 and self._hubble_free
+
+    def kernel_names(self):
+        """The kernels this stepper's model can run."""
+        return [n for n in KERNELS
+                if n not in _COUPLED or self.coupled_pair_available]
+
     def kernel_header(self):
         """The generated C header the kernels are compiled against."""
-        return _codegen.dvdf_header(self._dvdf, self.F, self.h,
-                                    field_name=self.sector.f.name)
+        return _codegen.model_header(self._dvdf, self._V, self.F, self.h,
+                                     field_name=self.sector.f.name,
+                                     hubble_free=self._hubble_free)
 
     def build_kernels(self):
-        """Compile (or load from the build cache) both kernels for float32
-        and float64; raises if ``nvcc`` fails."""
+        """Compile (or load from the build cache) this model's kernels for
+        float32 and float64, one ``nvcc`` per source, all in parallel;
+        raises if ``nvcc`` fails."""
+        names = self.kernel_names()
         libs = _stencil.build_kernels(
-            [src for src, _ in KERNELS.values()], self.kernel_header())
+            sorted({KERNELS[n][0] for n in names}), self.kernel_header())
         fns = {}
-        argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-                    + [ctypes.c_void_p, ctypes.c_void_p])
-        for name, (src, _) in KERNELS.items():
+        for name in names:
+            src = KERNELS[name][0]
+            # inputs, outputs, X, Y, Z, params, [partials, sums], stream
+            argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+            argtypes += [ctypes.c_void_p] * (4 if SUM_SETS[name] else 2)
             for dtype, suffix in _SUFFIX.items():
                 fn = getattr(libs[src], f"pk_{name}_{suffix}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 fns[name, dtype] = fn
+        num_blocks = libs[KERNELS["fused_stage"][0]].pk_num_blocks
+        num_blocks.argtypes = [ctypes.c_int] * 3
+        num_blocks.restype = ctypes.c_longlong
+        self._num_blocks = num_blocks
         self._libs = fns
 
     def _check(self, tensors):
@@ -175,36 +245,70 @@ class FusedScalarStepper(_step.Stepper):
                     f"{t.dtype} {tuple(t.shape)} on {t.device}"
                     f"{'' if t.is_contiguous() else ' (non-contiguous)'}")
 
+    def _partials_buffer(self, nterms, ref):
+        """The sum kernels' scratch: ``nterms`` partials per thread block.
+        One buffer serves every launch: each launch's second kernel has
+        consumed it before the next launch (same stream) writes it."""
+        X, Y, Z = self.grid_shape
+        n = nterms * self._num_blocks(X, Y, Z)
+        buf = self._partials
+        if (buf is None or buf.numel() < n or buf.dtype != ref.dtype
+                or buf.device != ref.device):
+            buf = self._partials = torch.empty(n, dtype=ref.dtype,
+                                               device=ref.device)
+        return buf
+
     def launch(self, name, ins, outs, params):
         """Run kernel ``name`` on CUDA tensors (counting the launch) or its
-        plain version on CPU tensors, writing ``outs``."""
+        plain version on CPU tensors.
+
+        :arg ins: the four lattice inputs.
+        :arg outs: the four lattice outputs, written.
+        :arg params: the scalars, in the order of ``_PARAMS[name]``.
+        :returns: ``outs``, followed by the kernel's ``SUM_SETS[name]``
+            energy-sum vectors of ``2F + 1`` entries each (new tensors).
+        """
         self._check(list(ins) + list(outs))
+        if len(params) != len(_PARAMS[name]):
+            raise ValueError(f"{name} takes the scalars {_PARAMS[name]}; got "
+                             f"{len(params)} values")
+        nsums = SUM_SETS[name] * (2 * self.F + 1)
         dev = ins[0].device
         if dev.type == "cuda":
-            if self._libs is None:
-                raise RuntimeError("kernels not built: construct the "
-                                   "stepper with a CUDA device")
+            fn = (self._libs or {}).get((name, self.dtype))
+            if fn is None:
+                raise RuntimeError(
+                    f"kernel {name} is not built on this stepper (construct "
+                    "it with a CUDA device; the coupled pair kernels need a "
+                    "hubble-free potential)")
             X, Y, Z = self.grid_shape
             if X > 65535 or (Y + 7) // 8 > 65535:
                 raise ValueError(f"lattice {self.grid_shape} exceeds the "
                                  "kernels' launch grid")
             prm = (ctypes.c_double * (len(params) + len(self._lap_weights)))(
                 *params, *self._lap_weights)
+            args = [*(t.data_ptr() for t in ins),
+                    *(t.data_ptr() for t in outs), X, Y, Z, prm]
+            sums = []
+            if nsums:
+                flat = torch.empty(nsums, dtype=self.dtype, device=dev)
+                args += [self._partials_buffer(nsums, flat).data_ptr(),
+                         flat.data_ptr()]
+                sums = list(flat.split(2 * self.F + 1))
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev).cuda_stream
-                rc = self._libs[name, self.dtype](
-                    *(t.data_ptr() for t in ins),
-                    *(t.data_ptr() for t in outs), X, Y, Z, prm, stream)
+                rc = fn(*args, stream)
             if rc != 0:
                 raise RuntimeError(f"{name} kernel launch failed with CUDA "
                                    f"error {rc}")
             LAUNCHES[name] += 1
-        elif dev.type == "cpu":
-            for o, r in zip(outs, self.plain(name, ins, params)):
+            return list(outs) + sums
+        if dev.type == "cpu":
+            res = self.plain(name, ins, params)
+            for o, r in zip(outs, res):
                 o.copy_(r)
-        else:
-            raise ValueError(f"no fused kernel for device {dev}")
-        return outs
+            return list(outs) + res[4:]
+        raise ValueError(f"no fused kernel for device {dev}")
 
     def _out_set(self, ins):
         """A buffer set sharing no storage with the launch's inputs."""
@@ -229,32 +333,41 @@ class FusedScalarStepper(_step.Stepper):
                 for n, v in values.items()}
 
     def plain(self, name, ins, params):
-        """Kernel ``name``'s plain version on ``ins`` (any device); returns
-        the four outputs."""
-        return (self.plain_stage if name == "fused_stage"
-                else self.plain_pair)(ins, params)
+        """Kernel ``name``'s plain version on ``ins`` (any device): the
+        four lattice outputs, then its energy-sum vectors."""
+        sc = self._scalars(dict(zip(_PARAMS[name], params)), ins[0])
+        R = _stencil.RollTaps
+        if name in ("fused_stage", "fused_stage_energy"):
+            f, dfdt, kf, kdf = ins
+            energy = name == "fused_stage_energy"
+            outs = self._scalar_body(
+                R(f), {"dfdt": dfdt, "kf": kf, "kdfdt": kdf}, sc,
+                energy=energy)
+            keys = ("f", "dfdt", "kf", "kdfdt")
+            if energy:
+                keys += ("esums",)
+        elif name == "fused_pair":
+            f, dfdt, kf, kdf = ins
+            outs, _ = self._scalar_pair_core(
+                {"f": R(f), "dfdt": R(dfdt), "kf": R(kf)}, {"kdfdt": kdf},
+                sc)
+            keys = ("f", "dfdt", "kf", "kdfdt")
+        else:
+            deferred = name == "coupled_pair_deferred"
+            if deferred:
+                f, dfp, kdfp, kf = ins
+                taps = {"f": R(f), "dfp": R(dfp), "kdfp": R(kdfp),
+                        "kf": R(kf)}
+                extras = {}
+            else:
+                f, dfdt, kf, kdf = ins
+                taps = {"f": R(f), "dfdt": R(dfdt), "kf": R(kf)}
+                extras = {"kdfdt": kdf}
+            outs = self._deferred_pair_core(taps, extras, sc, deferred)
+            keys = ("f", "dfp", "kf", "kdfp", "esums1", "esums2")
+        return [outs[k] for k in keys]
 
-    def plain_stage(self, ins, params):
-        """K2's plain version: ``_scalar_body`` on :class:`RollTaps`."""
-        f, dfdt, kf, kdf = ins
-        names = ("dt", "a", "hubble", "A", "B")
-        outs = self._scalar_body(
-            _stencil.RollTaps(f), {"dfdt": dfdt, "kf": kf, "kdfdt": kdf},
-            self._scalars(dict(zip(names, params)), f))
-        return [outs[n] for n in ("f", "dfdt", "kf", "kdfdt")]
-
-    def plain_pair(self, ins, params):
-        """K3's plain version: ``_scalar_pair_core`` on :class:`RollTaps`."""
-        f, dfdt, kf, kdf = ins
-        names = ("dt", "a1", "hubble1", "A1", "B1",
-                 "a2", "hubble2", "A2", "B2")
-        taps = {"f": _stencil.RollTaps(f), "dfdt": _stencil.RollTaps(dfdt),
-                "kf": _stencil.RollTaps(kf)}
-        outs, _ = self._scalar_pair_core(
-            taps, {"kdfdt": kdf}, self._scalars(dict(zip(names, params)), f))
-        return [outs[n] for n in ("f", "dfdt", "kf", "kdfdt")]
-
-    def _scalar_body(self, taps, extras, scalars):
+    def _scalar_body(self, taps, extras, scalars, energy=False):
         inv_dx2 = [1.0 / d**2 for d in self.dx]
         coefs = _lap_coefs[self.h]
         dt, a, hub = scalars["dt"], scalars["a"], scalars["hubble"]
@@ -273,7 +386,24 @@ class FusedScalarStepper(_step.Stepper):
         f2 = fint + B * kf2
         kdf2 = A * kdf + dt * rhs_df
         df2 = dfdt + B * kdf2
-        return {"f": f2, "dfdt": df2, "kf": kf2, "kdfdt": kdf2}
+        outs = {"f": f2, "dfdt": df2, "kf": kf2, "kdfdt": kdf2}
+        if energy:
+            outs["esums"] = self._esums(fint, dfdt, lap, a, hub)
+        return outs
+
+    def _esums(self, fv, dfdt, lap, a, hub):
+        """Raw energy sums of a stage's ENTRY state: per component
+        ``sum(dfdt**2)`` and ``sum(-f * lap f)``, then ``sum(V(f))`` (a V
+        that does not depend on f is broadcast over the lattice first) --
+        the inputs of ``get_rho_and_p`` up to the ``1/(2 a**2)`` factors
+        :meth:`_combine_esums` applies. Summed in the lattice dtype."""
+        kin = torch.sum(dfdt * dfdt, dim=(1, 2, 3))
+        grad = torch.sum(-fv * lap, dim=(1, 2, 3))
+        env = {self.sector.f.name: fv, "a": a, "hubble": hub}
+        V = torch.as_tensor(_field.evaluate(self._V, env), dtype=fv.dtype,
+                            device=fv.device)
+        pot = torch.sum(torch.broadcast_to(V, fv.shape[1:]))
+        return torch.cat([kin, grad, pot.reshape(1)])
 
     def _dV(self, fv, a, hub):
         env = {self.sector.f.name: fv, "a": a, "hubble": hub}
@@ -335,6 +465,76 @@ class FusedScalarStepper(_step.Stepper):
         df2 = df1 + B2 * kdf2
         outs = {"f": f2, "dfdt": df2, "kf": kf2, "kdfdt": kdf2}
         return outs, f1_taps
+
+    @staticmethod
+    def _completed_taps(tdfp, tkdfp, dt, hubfix, B2p):
+        """Taps-like view of the previous pair's completed velocity
+        ``df = dfp + B2p (kdfp - 2 dt hubfix dfp)``, composed from the
+        deferred inputs at each offset."""
+        def taps(sx=0, sy=0, sz=0):
+            dfp = tdfp(sx, sy, sz)
+            return dfp + B2p * (tkdfp(sx, sy, sz) - 2 * dt * hubfix * dfp)
+        return taps
+
+    def _deferred_pair_core(self, taps, extras, scalars, in_deferred):
+        """The deferred-drag coupled pair: the stage-pair arithmetic of
+        :meth:`_scalar_pair_core` with (a) the incoming state optionally
+        reconstructed from the previous pair's deferred representation
+        (``in_deferred``: taps ``f, dfp, kdfp, kf`` and scalars ``hubfix,
+        B2p``) and (b) the second stage's Hubble drag left out, its ``dV``
+        and ``V`` evaluated with no ``hubble``. Returns ``f, dfp (= df1),
+        kf, kdfp`` and the energy sums ``esums1`` (entry state) and
+        ``esums2`` (the stage-1 state, with the recomposed lap f1)."""
+        tf, tkf = taps["f"], taps["kf"]
+        inv_dx2 = [1.0 / d**2 for d in self.dx]
+        coefs = _lap_coefs[self.h]
+        dt = scalars["dt"]
+        a1, hub1 = scalars["a1"], scalars["hubble1"]
+        A1, B1 = scalars["A1"], scalars["B1"]
+        a2 = scalars["a2"]
+        A2, B2 = scalars["A2"], scalars["B2"]
+
+        if in_deferred:
+            tdf = self._completed_taps(taps["dfp"], taps["kdfp"], dt,
+                                       scalars["hubfix"], scalars["B2p"])
+            kdf0 = (taps["kdfp"]() - 2 * dt * scalars["hubfix"]
+                    * taps["dfp"]())
+        else:
+            tdf = taps["dfdt"]
+            kdf0 = extras["kdfdt"]
+
+        # stage 1 (identical arithmetic to _scalar_body, exact scalars)
+        f0, df0 = tf(), tdf()
+        lap_f = _stencil.lap_from_taps(tf, coefs, inv_dx2)
+        kf1 = A1 * tkf() + dt * df0
+        f1 = f0 + B1 * kf1
+        kdf1 = A1 * kdf0 + dt * (lap_f - 2 * hub1 * df0
+                                 - a1 * a1 * self._dV(f0, a1, hub1))
+        df1 = df0 + B1 * kdf1
+
+        f1_taps = self._axpy_taps(tf, tkf, tdf, B1, A1, dt, f1)
+        lap_f1 = _stencil.lap_from_taps(f1_taps, coefs, inv_dx2)
+
+        # stage 2: everything but the Hubble drag (deferred; a2 is exact,
+        # its update never touches rho); hubble=None, so a potential that
+        # read it would fail here (coupled_pair_available gates on that)
+        kf2 = A2 * kf1 + dt * df1
+        f2 = f1 + B2 * kf2
+        kdfp = A2 * kdf1 + dt * (lap_f1 - a2 * a2 * self._dV(f1, a2, None))
+        return {"f": f2, "dfp": df1, "kf": kf2, "kdfp": kdfp,
+                "esums1": self._esums(f0, df0, lap_f, a1, hub1),
+                "esums2": self._esums(f1, df1, lap_f1, a2, None)}
+
+    def _finalize_deferred(self, carry, dt, hubfix, B2p):
+        """Complete the deferred stage-2 Hubble drag of a pair with the (by
+        now exact) ``hubfix``: one elementwise pass, in the working dtype,
+        with the arithmetic the next deferred kernel would have applied."""
+        state, k = carry
+        sc = self._scalars({"dt": dt, "hubfix": hubfix, "B2p": B2p},
+                           state["f"])
+        kdf = k["dfdt"] - 2 * sc["dt"] * sc["hubfix"] * state["dfdt"]
+        df = state["dfdt"] + sc["B2p"] * kdf
+        return ({"f": state["f"], "dfdt": df}, {"f": k["f"], "dfdt": kdf})
 
     # -- Stepper interface -------------------------------------------------
 
@@ -494,3 +694,178 @@ class FusedScalarStepper(_step.Stepper):
             carry = self.stage(flat[i], carry, t, dt, args_at(i))
             i += 1
         return self.extract(carry)
+
+    # -- energy-coupled driver (Friedmann background on the host) -----------
+    #
+    # The JAX package integrates (a, adot) on traced scalars between kernels,
+    # on the device. Here the kernels hand their energy sums to the host
+    # (one read of 2F+1 values, or 2(2F+1) for a pair, per launch) and the
+    # background advances in Python floats (float64) in exactly the
+    # operation order of the JAX package's _combine_esums and
+    # _friedmann_stage, so that both packages feed bit-equal scalars to
+    # bit-equal sums. No predictor, no stale background.
+
+    def _stage_energy(self, s, carry, t, dt, rhs_args):
+        """Like :meth:`stage` (K5 in place of K2), additionally returning
+        the raw energy sums of the stage's entry state (:meth:`_esums`)."""
+        ins = self._inputs(carry)
+        outs = self.launch("fused_stage_energy", ins, self._out_set(ins),
+                           self._stage_params(s, dt, rhs_args))
+        return self._carry_of(outs), outs[4]
+
+    def _coupled_pair(self, carry, deferred, params):
+        """One K6 launch on a normal or deferred carry; returns the carry
+        in the deferred representation and the two energy-sum vectors."""
+        f, dfdt, kf, kdf = self._inputs(carry)
+        # deferred: the previous pair's f, dfp, kdfp, kf
+        ins = [f, dfdt, kdf, kf] if deferred else [f, dfdt, kf, kdf]
+        name = "coupled_pair_deferred" if deferred else "coupled_pair"
+        outs = self.launch(name, ins, self._out_set(ins), params)
+        return self._carry_of(outs), outs[4], outs[5]
+
+    def _combine_esums(self, es, a, grid_size):
+        """Raw energy sums -> (rho, p) with the CURRENT scale factor: the
+        arithmetic of ``get_rho_and_p`` on the energy a per-stage driver
+        loop reduces after every stage."""
+        F = self.F
+        es = es.double().tolist()
+        inv = 1.0 / (2.0 * a * a * grid_size)
+        kin = sum(es[:F]) * inv
+        grad = sum(es[F:2 * F]) * inv
+        pot = es[2 * F] / grid_size
+        return kin + grad + pot, kin - grad / 3.0 - pot
+
+    def _friedmann_stage(self, s, a, adot, ka, kadot, rho, p, dt, mpl):
+        """One 2N-storage stage of the expansion ODE (the JAX package's
+        ``_friedmann_stage``; ``a**3`` there is ``lax.integer_pow``, i.e.
+        ``a * (a * a)``)."""
+        addot = 4 * np.pi * (a * a * a) / 3 / mpl**2 * (rho - 3 * p)
+        ka = self._A[s] * ka + dt * adot
+        kadot = self._A[s] * kadot + dt * addot
+        return a + self._B[s] * ka, adot + self._B[s] * kadot, ka, kadot
+
+    def _coupled_impl(self, state, t, dt, a, adot, nsteps, grid_size, mpl):
+        """``nsteps`` steps of single-stage energy kernels (K5): each
+        stage's entry-state sums feed the matching expansion stage -- the
+        arithmetic sequence of the per-stage driver loop."""
+        carry = self.init_carry(state)
+        ka = kadot = 0.0
+        for _ in range(nsteps):
+            for s in range(self.num_stages):
+                if s == 0:  # fresh expansion k-carry each step
+                    ka = kadot = 0.0
+                hub = adot / a
+                carry, es = self._stage_energy(s, carry, t, dt,
+                                               {"a": a, "hubble": hub})
+                rho, p = self._combine_esums(es, a, grid_size)
+                a, adot, ka, kadot = self._friedmann_stage(
+                    s, a, adot, ka, kadot, rho, p, dt, mpl)
+        return self.extract(carry), a, adot
+
+    def _coupled_pair_impl(self, state, t, dt, a, adot, nsteps, grid_size,
+                           mpl):
+        """The pair-fused energy-coupled chunk (K6), exact by deferred
+        drag: each pair runs its first stage with exact scalars (and the
+        rho-independent ``a2``), leaves the second stage's Hubble drag out
+        and emits both stages' entry-state sums; the Friedmann ODE then
+        advances through both stages, giving the exact ``hubble2`` the next
+        pair (or the finalize) completes the drag with. Pairs cross step
+        boundaries (``A[0] == 0``); an odd trailing stage finalizes and runs
+        K5. The schedule of the JAX package's ``_coupled_pair_impl``."""
+        carry = self.init_carry(state)
+        ka = kadot = 0.0
+        ns = self.num_stages
+        flat = [s for _ in range(nsteps) for s in range(ns)]
+        deferred = False
+        hubfix = None  # exact hub completing the pending deferred stage
+        B2p = 0.0      # that stage's tableau B
+
+        i = 0
+        while i < len(flat):
+            s = flat[i]
+            if s == 0:
+                ka = kadot = 0.0
+            hub = adot / a
+            if i + 1 >= len(flat):
+                # odd trailing stage: complete the pending deferred drag,
+                # then one exact single-stage energy kernel
+                if deferred:
+                    carry = self._finalize_deferred(carry, dt, hubfix, B2p)
+                    deferred = False
+                carry, es = self._stage_energy(s, carry, t, dt,
+                                               {"a": a, "hubble": hub})
+                rho, p = self._combine_esums(es, a, grid_size)
+                a, adot, ka, kadot = self._friedmann_stage(
+                    s, a, adot, ka, kadot, rho, p, dt, mpl)
+                i += 1
+                continue
+            s2 = flat[i + 1]
+            # a2 never touches rho: computed at launch with the operations
+            # of the Friedmann stage below, so the two agree bitwise
+            a2 = a + self._B[s] * (self._A[s] * ka + dt * adot)
+            params = (dt, a, hub, self._A[s], self._B[s],
+                      a2, self._A[s2], self._B[s2])
+            if deferred:
+                params += (hubfix, B2p)
+            carry, es1, es2 = self._coupled_pair(carry, deferred, params)
+            deferred = True
+            # exact background integration from the true esums
+            rho, p = self._combine_esums(es1, a, grid_size)
+            a, adot, ka, kadot = self._friedmann_stage(
+                s, a, adot, ka, kadot, rho, p, dt, mpl)
+            if s2 == 0:
+                ka = kadot = 0.0
+            hubfix = adot / a  # exact hub entering stage s2
+            B2p = self._B[s2]
+            rho2, p2 = self._combine_esums(es2, a, grid_size)
+            a, adot, ka, kadot = self._friedmann_stage(
+                s2, a, adot, ka, kadot, rho2, p2, dt, mpl)
+            i += 2
+        if deferred:
+            carry = self._finalize_deferred(carry, dt, hubfix, B2p)
+        return self.extract(carry), a, adot
+
+    def coupled_multi_step(self, state, nsteps, expansion, t=0.0, dt=None,
+                           grid_size=None, pair=None):
+        """Advance ``nsteps`` steps with the scale factor evolved
+        self-consistently: every stage's entry-state energy, summed inside
+        the stage kernel, feeds the matching stage of the Friedmann ODE,
+        whose exact ``a`` and ``hubble`` the next stage runs with. The
+        counterpart of the JAX package's ``coupled_multi_step``.
+
+        By default (``pair=None``) the chunk runs the deferred-drag
+        stage-pair kernels (K6) when :attr:`coupled_pair_available`, else
+        the single-stage energy kernel (K5) at every stage; ``pair=False``
+        forces K5; ``pair=True`` requires K6 and raises ``RuntimeError``
+        when it is unavailable (pairing disabled, ``A[0] != 0`` or a
+        potential that reads ``hubble``). Both paths reproduce the
+        per-stage driver loop (field stage, expansion stage on the entering
+        energy, re-reduce) to rounding.
+
+        :arg expansion: an :class:`~pystella_tpu_torch.Expansion`; provides
+            the entry ``(a, adot)`` and is ADVANCED to the chunk end
+            (``a``, ``adot``, ``hubble``).
+        :arg grid_size: the energy sums' divisor; default the number of
+            sites.
+
+        The returned tensors are the stepper's buffers (see the class
+        docstring)."""
+        dt = _float(dt if dt is not None else self.dt)
+        nsteps = int(nsteps)
+        if grid_size is None:
+            grid_size = float(np.prod(self.grid_shape))
+        if pair is None:
+            pair = self.coupled_pair_available
+        elif pair and not self.coupled_pair_available:
+            raise RuntimeError(
+                "pair=True but the deferred-drag coupled pair kernels are "
+                "unavailable on this stepper (pair_stages=False, A[0] != 0, "
+                "or a hubble-referencing potential)")
+        impl = self._coupled_pair_impl if pair else self._coupled_impl
+        state, a, adot = impl(state, t, dt, float(expansion.a),
+                              float(expansion.adot), nsteps,
+                              float(grid_size), float(expansion.mpl))
+        expansion.a = expansion.dtype.type(a)
+        expansion.adot = expansion.dtype.type(adot)
+        expansion.hubble = expansion.adot / expansion.a
+        return state

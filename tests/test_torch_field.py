@@ -159,7 +159,14 @@ def test_printer_edge_cases():
         codegen.print_c(pt.Var("t"))
     with pytest.raises(ValueError):
         codegen.print_c(pt.shift_fields(ft[0], (1, 0, 0)), fields={"f": "f"})
-    header = codegen.dvdf_header([pt.diff(bench_potential(ft), ft[i])
-                                  for i in range(2)], 2, 2)
+    V = bench_potential(ft)
+    dvdf = [pt.diff(V, ft[i]) for i in range(2)]
+    header = codegen.model_header(dvdf, V, 2, 2)
     assert "#define PK_F 2" in header and "#define PK_H 2" in header
-    assert header.count("out[") == 2
+    assert header.count("out[") == 2 and "PK_HUBBLE_FREE" not in header
+    # dV/df and V also printed without hubble in scope
+    header = codegen.model_header(dvdf, V, 2, 2, hubble_free=True)
+    assert header.count("out[") == 4 and "PK_HUBBLE_FREE" in header
+    with pytest.raises(ValueError, match="hubble"):
+        codegen.model_header(dvdf, V * pt.Var("hubble"), 2, 2,
+                             hubble_free=True)

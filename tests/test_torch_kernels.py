@@ -98,3 +98,157 @@ def test_kernel_pair_equals_two_singles(cuda, dtype):
     ref = single.step(_copy(state), 0.0, 0.01, {"a": 1.0, "hubble": 0.5})
     for name in ("f", "dfdt"):
         assert _rel(got[name], ref[name]) <= 1e-14
+
+
+A, B = pt.LowStorageRK54._A, pt.LowStorageRK54._B
+
+#: sums, kernel vs plain, relative to sum |term| (in float64): f32 sums of
+#: ~1e5 (tests) to ~1e8 (512^3) terms in two different orders differ by a
+#: few ulp times log2 of the count; -f lap f has mixed signs, so the sum
+#: itself is no scale
+SUM_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _params(kernel, dx):
+    dt = 0.1 * dx
+    if kernel == "fused_stage_energy":
+        return (dt, 1.0, 0.5, A[1], B[1])
+    params = (dt, 1.0, 0.5, A[1], B[1], 1.0001, A[2], B[2])
+    if kernel == "coupled_pair_deferred":
+        params += (0.49, B[0])
+    return params
+
+
+def term_scale(st, f, df, a, hub):
+    """sum |term| of each energy sum of the state (f, df), in float64."""
+    f, df = f.double(), df.double()
+    lap = pt.FiniteDifferencer(st.h, st.dx).lap(f)
+    V = pt.evaluate(st._V, {"f": f, "a": a, "hubble": hub})
+    V = torch.as_tensor(V, dtype=torch.float64, device=f.device)
+    return torch.cat([(df * df).sum((1, 2, 3)),
+                      (f * lap).abs().sum((1, 2, 3)),
+                      torch.broadcast_to(V, f.shape[1:]).abs().sum()[None]])
+
+
+def sum_scales(st, kernel, ins, outs, params):
+    """The term scale of each sum set a kernel emits: the entry state's
+    and, for a pair, the stage-1 state's (f1 = f2 - B2 kf2 to rounding;
+    the velocity df1 is the dfp output)."""
+    f, v = ins[0], ins[1]
+    if kernel == "coupled_pair_deferred":
+        dt, hubfix, B2p = params[0], params[8], params[9]
+        v = v + B2p * (ins[2] - 2 * dt * hubfix * v)
+    scales = [term_scale(st, f, v, params[1], params[2])]
+    if kernel != "fused_stage_energy":
+        f1 = outs[0].double() - params[7] * outs[2].double()
+        scales.append(term_scale(st, f1, outs[1], params[5], None))
+    return scales
+
+
+def _energy_case(cuda, kernel, grid, dtype, seed=0):
+    st = pt.FusedScalarStepper(pt.ScalarSector(2, potential=bench_potential),
+                               grid, 5.0 / grid[0], H, dtype=dtype,
+                               device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    amps = (1e-3, 1e-4, 1e-5, 1e-3)
+    ins = [a * torch.randn((2,) + grid, generator=g, device=cuda,
+                           dtype=dtype) for a in amps]
+    return st, ins, _params(kernel, 5.0 / grid[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", [(16, 16, 16), (48, 40, 36)],
+                         ids=["16cubed", "48x40x36"])
+@pytest.mark.parametrize("kernel", ["fused_stage_energy", "coupled_pair",
+                                    "coupled_pair_deferred"])
+def test_energy_kernel_matches_plain(cuda, kernel, grid, dtype):
+    """K5 and both K6 variants vs their plain versions: lattice outputs
+    at KERNEL_TOL, sums at SUM_TOL of sum |term|; the launch is counted."""
+    st, ins, params = _energy_case(cuda, kernel, grid, dtype)
+    plain = st.plain(kernel, ins, params)
+    before = tfused.LAUNCHES[kernel]
+    outs = st.launch(kernel, ins, [torch.empty_like(ins[0])
+                                    for _ in range(4)], params)
+    torch.cuda.synchronize()
+    assert tfused.LAUNCHES[kernel] == before + 1
+    assert len(outs) == len(plain) == 4 + tfused.SUM_SETS[kernel]
+    for o, p in zip(outs[:4], plain[:4]):
+        assert _rel(o, p) <= KERNEL_TOL[dtype]
+    scales = sum_scales(st, kernel, ins, outs, params)
+    for got, ref, scale in zip(outs[4:], plain[4:], scales):
+        err = ((got.double() - ref.double()).abs() / scale).max().item()
+        assert err <= SUM_TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel", ["fused_stage_energy", "coupled_pair",
+                                    "coupled_pair_deferred"])
+def test_sums_bitwise_repeatable(cuda, kernel, dtype):
+    """Two launches on the same inputs give bit-equal sums (fixed
+    reduction order, no atomics) and bit-equal lattice outputs."""
+    st, ins, params = _energy_case(cuda, kernel, (48, 40, 36), dtype, 1)
+    new = lambda: [torch.empty_like(ins[0]) for _ in range(4)]  # noqa
+    one = st.launch(kernel, ins, new(), params)
+    two = st.launch(kernel, ins, new(), params)
+    torch.cuda.synchronize()
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_kernel_identities(cuda, dtype):
+    """K5's lattice outputs are bitwise K2's; the K6 pair + the finalize
+    equals the K3 pair with hubble2 = hubfix to rounding."""
+    st, ins, params = _energy_case(cuda, "coupled_pair", (48, 40, 36),
+                                   dtype, 2)
+    new = lambda: [torch.empty_like(ins[0]) for _ in range(4)]  # noqa
+    k2 = st.launch("fused_stage", ins, new(), params[:5])
+    k5 = st.launch("fused_stage_energy", ins, new(), params[:5])
+    for a, b in zip(k2, k5):
+        assert torch.equal(a, b)
+    hubfix = 0.49
+    pair = st.launch("coupled_pair", ins, new(), params)
+    state, k = st._finalize_deferred(st._carry_of(pair[:4]), params[0],
+                                     hubfix, params[7])
+    ref = st.launch("fused_pair", ins, new(), params[:5] + (
+        params[5], hubfix, params[6], params[7]))
+    torch.cuda.synchronize()
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}[dtype]
+    for got, r in zip((state["f"], state["dfdt"], k["f"], k["dfdt"]), ref):
+        assert _rel(got, r) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [True, False], ids=["pair", "single"])
+def test_coupled_multi_step_card_matches_cpu(cuda, pair):
+    """coupled_multi_step on the card (K6 / K5) vs the plain versions on
+    the CPU, 16^3 f64, two steps: 1e-12 in f, dfdt, a and adot."""
+    grid = (16, 16, 16)
+    sector = pt.ScalarSector(2, potential=bench_potential)
+    g = torch.Generator().manual_seed(4)
+    state = {"f": torch.tensor([0.193, 0.0], dtype=torch.float64)[
+                 :, None, None, None] + 1e-5 * torch.randn(
+                     (2,) + grid, generator=g, dtype=torch.float64),
+             "dfdt": torch.tensor([-0.142231, 0.0], dtype=torch.float64)[
+                 :, None, None, None] + 1e-5 * torch.randn(
+                     (2,) + grid, generator=g, dtype=torch.float64)}
+    res = {}
+    for dev in ("cpu", cuda):
+        st = pt.FusedScalarStepper(sector, grid, 5.0 / 16, H,
+                                   dtype=torch.float64, device=dev)
+        exp = pt.Expansion(0.03, pt.LowStorageRK54)
+        out = st.coupled_multi_step({k: v.to(dev) for k, v in
+                                     state.items()}, 2, exp, 0.0,
+                                    0.1 * 5.0 / 16, pair=pair)
+        res[str(dev)] = ({k: v.cpu() for k, v in out.items()}, exp)
+    (ref, e_ref), (got, e_got) = res["cpu"], res[str(cuda)]
+    for name in ("f", "dfdt"):
+        assert _rel(got[name], ref[name]) <= 1e-12
+    assert abs(e_got.a - e_ref.a) / e_ref.a <= 1e-12
+    assert abs(e_got.adot - e_ref.adot) / abs(e_ref.adot) <= 1e-12
