@@ -5,14 +5,20 @@
 
 Builds the port's CUDA kernels from ``pystella_tpu_torch/ops/csrc`` (into
 the ignored ``pystella_tpu_torch/ops/_build``), holds each kernel against
-its plain PyTorch version, and drives the port's two main paths through the
-entry points a user calls, at 512^3 in float32:
+its plain PyTorch version, and drives the port's four main paths through
+the entry points a user calls, at 512^3 in float32:
 
 - the 2-field scalar-preheating hot loop, ``FusedScalarStepper.multi_step``
   (kernels ``fused_pair`` and ``fused_stage``);
 - the energy-coupled driver, ``FusedScalarStepper.coupled_multi_step`` with
   ``Expansion`` and ``Reduction`` (kernels ``coupled_pair``,
-  ``coupled_pair_deferred`` and ``fused_stage_energy``).
+  ``coupled_pair_deferred`` and ``fused_stage_energy``);
+- the same two for the gravitational-wave system, ``FusedPreheatStepper``
+  with a ``TensorPerturbationSector`` (2 scalar fields and 6 ``hij``
+  components; 48 GiB of state, carries and buffers): ``multi_step``
+  (kernels ``preheat_pair`` and ``preheat_stage``) and
+  ``coupled_multi_step`` (``preheat_coupled_pair``,
+  ``preheat_coupled_pair_deferred`` and ``preheat_stage_energy``).
 
 Every phase prints one JSON line; the run fails (non-zero exit, no result
 line) if any phase fails. Then come the ``{"kernels": [...]}`` line, the
@@ -29,6 +35,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -68,6 +75,12 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS = 67e12
 
 SUM_KERNELS = ("fused_stage_energy", "coupled_pair", "coupled_pair_deferred")
+GW_KERNELS = ("preheat_stage", "preheat_pair", "preheat_stage_energy",
+              "preheat_coupled_pair", "preheat_coupled_pair_deferred")
+GW_SUM_KERNELS = GW_KERNELS[2:]
+#: the GW fused multi_step vs the generic GW stepper (the bar of
+#: tests/test_fused.py:634: S_ij's products of gradients add rounding)
+GW_REFERENCE_TOL = 1e-11
 
 
 def emit(obj):
@@ -100,17 +113,25 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def kernel_inputs(shape, dtype, seed, F=2):
+def kernel_inputs(shape, dtype, seed, F=2, gw=False):
     """Four lattice inputs at bench-like amplitudes from a seeded generator
-    (f, dfdt, kf, kdfdt; for the deferred pair f, dfp, kdfp, kf)."""
+    (f, dfdt, kf, kdfdt; for the deferred pair f, dfp, kdfp, kf); with
+    ``gw`` four more of 6 components, the tensor system's: hij 1e-3 N(0, 1),
+    dhijdt 1e-4 N(0, 1) and small k-carries."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    amps = (1e-3, 1e-4, 1e-5, 1e-3)
-    return [a * torch.randn((F,) + shape, generator=g, device="cuda",
-                            dtype=dtype) for a in amps]
+    amps = [(F, a) for a in (1e-3, 1e-4, 1e-5, 1e-3)]
+    if gw:
+        amps += [(6, a) for a in (1e-3, 1e-4, 1e-5, 1e-4)]
+    return [a * torch.randn((c,) + shape, generator=g, device="cuda",
+                            dtype=dtype) for c, a in amps]
 
 
 def kernel_params(name, dx):
+    """The scalars of a launch (a GW kernel takes its scalar
+    counterpart's)."""
     import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import fused as tfused
+    name = tfused._GW_OF.get(name, name)
     A, B = pt.LowStorageRK54._A, pt.LowStorageRK54._B
     dt = 0.1 * dx
     if name in ("fused_stage", "fused_stage_energy"):
@@ -123,9 +144,11 @@ def kernel_params(name, dx):
     return params
 
 
-def background_state(shape, dtype, seed):
+def background_state(shape, dtype, seed, gw=False):
     """The example's homogeneous background plus 1e-5 N(0, 1) fluctuations
-    from a seeded generator (stands in for the WKB initial state)."""
+    from a seeded generator (stands in for the WKB initial state); with
+    ``gw``, hij = dhijdt = 0, the example's GW initial condition
+    (examples/scalar_preheating.py:317-320)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
     for name, mean in (("f", F0), ("dfdt", DF0)):
@@ -134,7 +157,17 @@ def background_state(shape, dtype, seed):
         for c, m in enumerate(mean):
             v[c] += m
         out[name] = v
+    if gw:
+        for name in ("hij", "dhijdt"):
+            out[name] = torch.zeros((6,) + shape, device="cuda", dtype=dtype)
     return out
+
+
+def count_ops(exprs, fields, variables):
+    """Arithmetic operations of the printed expressions."""
+    from pystella_tpu_torch.ops import codegen
+    src = " ".join(codegen.print_c(e, fields, variables) for e in exprs)
+    return sum(src.count(op) for op in (" * ", " + ", " / ", " - ", "pk_"))
 
 
 def printed_ops(sector):
@@ -144,14 +177,8 @@ def printed_ops(sector):
     from pystella_tpu_torch.ops import codegen
     V = sector.potential(sector.f)
     dvdf = [pt.diff(V, sector.f[i]) for i in range(sector.nscalars)]
-
-    def count(exprs):
-        src = " ".join(codegen.print_c(e, {"f": "f"},
-                                       codegen.STAGE_VARIABLES)
-                       for e in exprs)
-        return sum(src.count(op) for op in (" * ", " + ", " / ", " - ",
-                                             "pk_"))
-    return count(dvdf), count([V])
+    return (count_ops(dvdf, {"f": "f"}, codegen.STAGE_VARIABLES),
+            count_ops([V], {"f": "f"}, codegen.STAGE_VARIABLES))
 
 
 def ops_per_site(name, stepper):
@@ -163,16 +190,39 @@ def ops_per_site(name, stepper):
     V and one add per term into the block tree. The coupled pair's second
     stage has no drag (2 operations fewer per component); its deferred
     input completes the velocity (4 operations) at the site and at each of
-    the 6h taps the f1 composition reads."""
+    the 6h taps the f1 composition reads.
+
+    A GW kernel adds, per stage, the gradients of f (9h per component),
+    the printed S_ij and per hij component a Laplacian (1 + 9h) and the
+    stage update (14, one shared 2*hubble); its pair recomposes f1 once
+    more for the gradients and h1 for the Laplacian (5 per tap), the
+    coupled pair's second tensor stage has no drag (2 fewer per
+    component) and its deferred input completes both velocities at the
+    taps it reads."""
     F, h = stepper.F, stepper.h
     dv, v = printed_ops(stepper.sector)
     stage = F * (1 + 9 * h + 14) + 2 + dv
     sums = 3 * F + v + (2 * F + 1)
     pair = 2 * stage + F * 5 * 6 * h
     coupled = pair - 2 * F + 2 * sums
-    return {"fused_stage": stage, "fused_stage_energy": stage + sums,
-            "fused_pair": pair, "coupled_pair": coupled,
-            "coupled_pair_deferred": coupled + F * 4 * (6 * h + 1) + 2}[name]
+    deferred = F * 4 * (6 * h + 1) + 2
+    ops = {"fused_stage": stage, "fused_stage_energy": stage + sums,
+           "fused_pair": pair, "coupled_pair": coupled,
+           "coupled_pair_deferred": coupled + deferred}
+    if name in ops:
+        return ops[name]
+    from pystella_tpu_torch.ops import codegen
+    from pystella_tpu_torch.ops import fused as tfused
+    NH = stepper.n_hij
+    sij = count_ops(stepper._sij_exprs, {"dfdx": "dfdx"},
+                    codegen.STAGE_VARIABLES)
+    gw_stage = F * 9 * h + sij + NH * (1 + 9 * h + 14) + 1
+    gw_pair = 2 * gw_stage + F * 5 * 6 * h + NH * 5 * 6 * h
+    gw = {"preheat_stage": gw_stage, "preheat_stage_energy": gw_stage,
+          "preheat_pair": gw_pair, "preheat_coupled_pair": gw_pair - 2 * NH,
+          "preheat_coupled_pair_deferred": gw_pair - 2 * NH
+          + F * 4 * 6 * h + NH * 4 * (6 * h + 1)}[name]
+    return ops[tfused._GW_OF[name]] + gw
 
 
 def term_scale(st, f, df, a, hub):
@@ -191,7 +241,10 @@ def term_scale(st, f, df, a, hub):
 def sum_errors(st, name, ins, outs, plain, params):
     """max |kernel sum - plain sum| / sum |term| over a kernel's sum sets:
     the entry state's and, for a pair, the stage-1 state's (f1 = f2 - B2
-    kf2 to rounding; the velocity df1 is the dfp output)."""
+    kf2 to rounding; the velocity df1 is the dfp output). The GW kernels'
+    sums are the scalar sector's."""
+    from pystella_tpu_torch.ops import fused as tfused
+    name = tfused._GW_OF.get(name, name)
     f, v = ins[0], ins[1]
     if name == "coupled_pair_deferred":
         dt, hubfix, B2p = params[0], params[8], params[9]
@@ -200,22 +253,40 @@ def sum_errors(st, name, ins, outs, plain, params):
     if name != "fused_stage_energy":
         f1 = outs[0].double() - params[7] * outs[2].double()
         scales.append(term_scale(st, f1, outs[1], params[5], None))
+    n = len(ins)
     return max(((k.double() - p.double()).abs() / s).max().item()
-               for k, p, s in zip(outs[4:], plain[4:], scales))
+               for k, p, s in zip(outs[n:], plain[n:], scales))
 
 
-def driver_loop(sector, state, nsteps, dx, dt):
-    """The reference per-stage driver loop (tests/test_fused.py:206-219)
-    on the port's generic pieces: LowStorageRK54 + FiniteDifferencer.lap,
-    the energy re-reduced by Reduction after every stage, Expansion
-    stepped on the entering energy. Returns the final state and Expansion
-    and the initial energy."""
+def generic_stepper(sector, dx, gw=False):
+    """The port's generic LowStorageRK54 over the sector's rhs_dict (with
+    ``gw``, merged with the TensorPerturbationSector's) on
+    FiniteDifferencer's lap (and grad)."""
     import pystella_tpu_torch as pt
     fd = pt.FiniteDifferencer(HALO, dx)
-    rhs = pt.compile_rhs_dict(sector.rhs_dict)
-    gen = pt.LowStorageRK54(
-        lambda s, t, a, hubble: rhs(s, t, lap_f=fd.lap(s["f"]), a=a,
-                                    hubble=hubble))
+    merged = dict(sector.rhs_dict)
+    if gw:
+        merged.update(pt.TensorPerturbationSector([sector]).rhs_dict)
+    rhs = pt.compile_rhs_dict(merged)
+
+    def full_rhs(s, t, a, hubble):
+        aux = {"lap_f": fd.lap(s["f"]), "a": a, "hubble": hubble}
+        if gw:
+            aux["dfdx"] = fd.grad(s["f"])
+            aux["lap_hij"] = fd.lap(s["hij"])
+        return rhs(s, t, **aux)
+    return pt.LowStorageRK54(full_rhs)
+
+
+def driver_loop(sector, state, nsteps, dx, dt, gw=False):
+    """The reference per-stage driver loop (tests/test_fused.py:206-219)
+    on the port's generic pieces: LowStorageRK54 + FiniteDifferencer
+    (:func:`generic_stepper`), the scalar energy re-reduced by Reduction
+    after every stage, Expansion stepped on the entering energy. Returns
+    the final state and Expansion and the initial energy."""
+    import pystella_tpu_torch as pt
+    fd = pt.FiniteDifferencer(HALO, dx)
+    gen = generic_stepper(sector, dx, gw)
     grid_size = float(math.prod(state["f"].shape[1:]))
     reduce_energy = pt.Reduction(sector, callback=pt.get_rho_and_p,
                                  grid_size=grid_size)
@@ -269,6 +340,402 @@ def trace_chunk(run, untraced_s):
                 by_name.items(), key=lambda kv: -kv[1])}}
 
 
+def sourced(final):
+    """The GW paths start from hij = 0: the source S_ij must have reached
+    hij by the end."""
+    hmax = final["hij"].abs().max().item()
+    return {"hij_max_abs": hmax}, hmax > 0
+
+
+def case_tag(shape, dtype):
+    return "x".join(map(str, shape)) + ":" + str(dtype)[6:]
+
+
+def kernels_vs_plain(phase, make_stepper, names, cases, errs, gw=False):
+    """Each kernel vs its plain version on seeded inputs, at every (shape,
+    dtype) of ``cases``; every sum-emitting kernel twice for bit-equal
+    sums. Fills ``errs[name][case_tag]`` and fails on a disagreement."""
+    from pystella_tpu_torch.ops import fused as tfused
+    for shape, dtype in cases:
+        st = make_stepper(shape, dtype)
+        for seed, name in enumerate(names):
+            ins = kernel_inputs(shape, dtype, seed, gw=gw)
+            params = kernel_params(name, BOX / shape[0])
+            plain = st.plain(name, ins, params)
+            outs = st.launch(name, ins, [torch.empty_like(t) for t in ins],
+                             params)
+            torch.cuda.synchronize()
+            labels = ("f", "dfdt", "kf", "kdfdt", "hij", "dhijdt", "khij",
+                      "kdhijdt")
+            n = len(ins)  # the lattice outputs; the sum vectors follow
+            per_output = {lbl: rel_err(o, p) for lbl, o, p in
+                          zip(labels[:n], outs[:n], plain[:n])}
+            worst_rel = max(r for r, _ in per_output.values())
+            worst_abs = max(a for _, a in per_output.values())
+            row = {"max_rel_err": worst_rel, "max_abs_err": worst_abs,
+                   "tol": KERNEL_TOL[dtype]}
+            ok = worst_rel <= KERNEL_TOL[dtype]
+            if tfused.SUM_SETS[name]:
+                row["sum_err"] = sum_errors(st, name, ins, outs, plain,
+                                            params)
+                row["sum_tol"] = SUM_TOL[dtype]
+                del plain
+                again = st.launch(name, ins, [torch.empty_like(t)
+                                              for t in ins], params)
+                torch.cuda.synchronize()
+                row["sums_bitwise_repeatable"] = all(
+                    torch.equal(a, b) for a, b in zip(outs, again))
+                ok = (ok and row["sum_err"] <= SUM_TOL[dtype]
+                      and row["sums_bitwise_repeatable"])
+                del again
+            else:
+                del plain
+            errs[name][case_tag(shape, dtype)] = row
+            emit({"phase": phase, "kernel": name, "shape": shape,
+                  "dtype": str(dtype),
+                  "rel_err": {n: r for n, (r, _) in per_output.items()},
+                  **row})
+            if not ok:
+                raise SystemExit(f"{name} disagrees with its plain version "
+                                 f"at {shape} {dtype}: {row}")
+            del ins, outs
+            torch.cuda.empty_cache()
+        del st
+        torch.cuda.empty_cache()
+
+
+def identities(phase, make_stepper, gw=False):
+    """On the card, at 256^3 in f64 and f32: one pair launch == two
+    single-stage launches; the energy stage's lattice outputs == the
+    stage's, bitwise; the coupled pair + finalize == the pair with hubble2
+    = hubfix."""
+    for dtype in (torch.float64, torch.float32):
+        shape = ALT_SHAPES[0]
+        st = make_stepper(shape, dtype)
+        kn = st._KERNEL
+        ins = kernel_inputs(shape, dtype, 7, gw=gw)
+        p = kernel_params("fused_pair", BOX / shape[0])
+        new = lambda: [torch.empty_like(t) for t in ins]  # noqa
+        pair = st.launch(kn["pair"], ins, new(), p)
+        mid = st.launch(kn["stage"], ins, new(), p[:5])
+        two = st.launch(kn["stage"], mid, new(), (p[0],) + p[5:])
+        energy = st.launch(kn["stage_energy"], ins, new(), p[:5])
+        torch.cuda.synchronize()
+        worst = max(rel_err(a, b)[0] for a, b in zip(pair, two))
+        energy_bitwise = all(torch.equal(a, b) for a, b in zip(energy, mid))
+        del mid, two, energy
+        cp = kernel_params("coupled_pair", BOX / shape[0])
+        hubfix = 0.49
+        coupled = st.launch(kn["coupled_pair"], ins, new(), cp)
+        n = len(ins)
+        state, k = st._finalize_deferred(st._carry_of(coupled[:n]), cp[0],
+                                         hubfix, cp[7])
+        ref = st.launch(kn["pair"], ins, new(),
+                        cp[:5] + (cp[5], hubfix, cp[6], cp[7]))
+        torch.cuda.synchronize()
+        deferred = max(rel_err(a, b)[0] for a, b in zip(
+            st._inputs((state, k)), ref))
+        emit({"phase": phase, "dtype": str(dtype), "shape": shape,
+              "max_rel_err": worst, "tol": IDENTITY_TOL[dtype],
+              "energy_stage_bitwise_stage": energy_bitwise,
+              "deferred_pair_vs_pair_rel_err": deferred,
+              "deferred_tol": DEFERRED_TOL[dtype]})
+        if not worst <= IDENTITY_TOL[dtype]:
+            raise SystemExit(f"pair != two singles ({dtype}): {worst}")
+        if not energy_bitwise:
+            raise SystemExit(f"{kn['stage_energy']} != {kn['stage']} "
+                             f"({dtype})")
+        if not deferred <= DEFERRED_TOL[dtype]:
+            raise SystemExit(f"coupled pair + finalize != fused pair "
+                             f"({dtype}): {deferred}")
+        del st, ins, pair, coupled, state, k, ref
+        torch.cuda.empty_cache()
+
+
+def small_state(gw, seed=3):
+    """The reference phases' random state at 32^3 f64 (with ``gw``, hij
+    1e-3 N(0, 1) and dhijdt 1e-4 N(0, 1) too)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    comps = [("f", 2, 1e-3), ("dfdt", 2, 1e-4)]
+    if gw:
+        comps += [("hij", 6, 1e-3), ("dhijdt", 6, 1e-4)]
+    return {n: a * torch.randn((c,) + SMALL, generator=g, device="cuda",
+                               dtype=torch.float64) for n, c, a in comps}
+
+
+def reference(phase, st, sector, tol, gw=False):
+    """multi_step(3) of the fused kernels vs the generic stepper, 32^3
+    f64."""
+    small_dx = BOX / SMALL[0]
+    gen = generic_stepper(sector, small_dx, gw)
+    state = small_state(gw)
+    args = {"a": 1.0, "hubble": 0.5}
+    ref = dict(state)
+    for _ in range(3):
+        ref = gen.step(ref, 0.0, 0.1 * small_dx, args)
+    got = st.multi_step({k: v.clone() for k, v in state.items()}, 3, 0.0,
+                        0.1 * small_dx, args)
+    errs = {k: rel_err(got[k], ref[k])[0] for k in state}
+    worst = max(errs.values())
+    emit({"phase": phase, "shape": SMALL, "dtype": "torch.float64",
+          "nsteps": 3, "max_rel_err_vs_generic": worst,
+          "rel_err_vs_generic": errs, "tol": tol})
+    if not worst <= tol:
+        raise SystemExit(f"fused multi_step disagrees with the generic "
+                         f"stepper: {worst}")
+
+
+def coupled_reference(phase, st, sector, gw=False):
+    """coupled_multi_step (pair and single, nsteps 1 and 2) vs the
+    per-stage driver loop, 32^3 f64: the scalar system from the example's
+    background, the GW system from the random state of
+    :func:`small_state`. (From the background, S_ij is the product of the
+    fluctuations' gradients, 2e4 times smaller than f: a rounding-level
+    difference in f between the two paths becomes a ~1e-12 one in hij.)"""
+    import pystella_tpu_torch as pt
+    small_dx = BOX / SMALL[0]
+    dt_small = 0.1 * small_dx
+    state = (small_state(True, seed=5) if gw
+             else background_state(SMALL, torch.float64, 5))
+    for nsteps in (1, 2):
+        ref, exp_ref, energy0 = driver_loop(
+            sector, {k: v.clone() for k, v in state.items()}, nsteps,
+            small_dx, dt_small, gw)
+        for pair in (True, False):
+            exp = pt.Expansion(energy0, pt.LowStorageRK54)
+            got = st.coupled_multi_step(
+                {k: v.clone() for k, v in state.items()}, nsteps, exp, 0.0,
+                dt_small, pair=pair)
+            row = {k: rel_err(got[k], ref[k])[0] for k in state}
+            row["a"] = abs(exp.a - exp_ref.a) / exp_ref.a
+            row["adot"] = abs(exp.adot - exp_ref.adot) / abs(exp_ref.adot)
+            emit({"phase": phase, "shape": SMALL,
+                  "dtype": "torch.float64", "nsteps": nsteps, "pair": pair,
+                  "rel_err_vs_driver_loop": row, "tol": 1e-12})
+            if not max(row.values()) <= 1e-12:
+                raise SystemExit(f"coupled_multi_step(pair={pair}, "
+                                 f"nsteps={nsteps}) disagrees with the "
+                                 f"driver loop: {row}")
+
+
+def time_kernels(phase, st, names, seed0, timing):
+    """Each kernel at the main path's shape (512^3 f32), timed with CUDA
+    events over 20 launches alternating two output sets, and its plain
+    version; with the bound: the larger of the bytes (each input read
+    once, each output written once, the sum vectors) over the HBM rate
+    and the operations over the f32 peak."""
+    from pystella_tpu_torch.ops import fused as tfused
+    sites = math.prod(GRID)
+    gw = len(st._comps) > 4
+    for seed, name in enumerate(names):
+        ins = kernel_inputs(GRID, torch.float32, seed0 + seed, gw=gw)
+        params = kernel_params(name, BOX / GRID[0])
+        sets = [[torch.empty_like(t) for t in ins] for _ in range(2)]
+        n = [0]
+
+        def launch():
+            n[0] += 1
+            st.launch(name, ins, sets[n[0] % 2], params)
+        ms = cuda_ms(launch, reps=20, warmup=2)
+        del sets
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = cuda_ms(lambda: st.plain(name, ins, params),
+                           reps=2 if gw else 3)
+        plain_peak = torch.cuda.max_memory_allocated() / 2**30
+        nbytes = (2 * sum(st._comps) * sites
+                  + tfused.SUM_SETS[name] * (2 * st.F + 1)) * 4
+        ops = ops_per_site(name, st) * sites
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_F32_OPS * 1e3
+        bound = max(bytes_ms, ops_ms)
+        timing[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": "bytes" if bytes_ms >= ops_ms
+                        else "operations",
+                        "bytes": nbytes, "ops": ops}
+        row = dict(timing[name])
+        if gw:
+            row["share_of_bound"] = bound / ms
+            row["plain_peak_memory_GiB"] = plain_peak
+        emit({"phase": phase, "kernel": name, "shape": GRID,
+              "dtype": "torch.float32", **row})
+        del ins
+        torch.cuda.empty_cache()
+
+
+def main_path(phase, st, state, names, timing, launches, extra_check=None):
+    """``multi_step(NSTEPS)`` at 512^3 f32: a warm-up chunk, a timed
+    chunk and one tail step (2 pair launches + 1 single stage, the odd
+    remainder of a run whose length is not a multiple of the chunk); the
+    launch counts of the whole run go to ``launches``."""
+    from pystella_tpu_torch.ops import fused as tfused
+    sites = math.prod(GRID)
+    dt = 0.1 * BOX / GRID[0]
+    args = {"a": 1.0, "hubble": 0.5}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfused.reset_launch_counts()
+    state = st.multi_step(state, NSTEPS, 0.0, dt, args)  # warmup chunk
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    host0 = time.perf_counter()
+    start.record()
+    state = st.multi_step(state, NSTEPS, 0.0, dt, args)  # timed chunk
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - host0
+    elapsed = start.elapsed_time(end) / 1e3
+    state = st.multi_step(state, 1, 0.0, dt, args)  # the tail step
+    torch.cuda.synchronize()
+    path_launches = dict(tfused.LAUNCHES)
+    for name in names:
+        launches[name] = path_launches[name]
+
+    pair = st._KERNEL["pair"]
+    npairs = -(-st.num_stages * NSTEPS // 2)
+    # component arrays a pair launch reads and writes
+    transfers = 2 * sum(st._comps)
+    finite = all(bool(torch.isfinite(v).all()) for v in state.values())
+    shapes_ok = all(tuple(v.shape[1:]) == GRID for v in state.values())
+    row = {"phase": phase, "grid": GRID, "dtype": "torch.float32",
+           "nsteps_timed": NSTEPS,
+           "ms_per_step": elapsed / NSTEPS * 1e3,
+           "site_updates_per_s": sites * NSTEPS / elapsed,
+           "effective_GB_per_s": transfers * npairs * sites * 4 / elapsed
+           / 1e9,
+           "host_s": host_s, "launches": path_launches,
+           # the chunk's pair launches at the separately timed per-launch
+           # cost, over the chunk's device time: the share the card spent
+           # in the kernel (1 minus it is launch gaps and other work)
+           "kernel_share_est": npairs * timing[pair]["ms"] / 1e3 / elapsed,
+           "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30,
+           "finite": finite, "f_rms": state["f"].double().pow(2).mean()
+           .sqrt().item()}
+    ok = finite and shapes_ok
+    if extra_check is not None:
+        extra, extra_ok = extra_check(state)
+        row.update(extra)
+        ok = ok and extra_ok
+    emit(row)
+    if not ok:
+        raise SystemExit(f"{phase} produced a non-finite, misshapen or "
+                         "unsourced state")
+    for name in names:
+        if launches[name] < 1:
+            raise SystemExit(f"{phase} never launched {name}")
+
+
+def coupled_main_path(phase, st, state, names, launches, trace=None,
+                      extra_check=None):
+    """``coupled_multi_step(NSTEPS)`` at 512^3 f32 from ``state``: a
+    warm-up chunk, a timed chunk (25 pairs, ending on a deferred pair and
+    the chunk-end finalize) and the odd tail (2 pairs, a mid-chunk
+    finalize and one energy stage); the Friedmann constraint of the final
+    state must hold, and so must ``extra_check`` (as in
+    :func:`main_path`). With ``trace`` (a phase name), one more chunk under
+    torch.profiler."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import fused as tfused
+    sites = math.prod(GRID)
+    dx = BOX / GRID[0]
+    dt = 0.1 * dx
+    fd = pt.FiniteDifferencer(HALO, dx)
+    reduce_energy = pt.Reduction(st.sector, callback=pt.get_rho_and_p,
+                                 grid_size=float(sites))
+
+    def energy_of(s, a):
+        return reduce_energy(f=s["f"], dfdt=s["dfdt"],
+                             lap_f=fd.lap(s["f"]), a=np.float64(a))
+
+    energy0 = energy_of(state, 1.0)
+    expand = pt.Expansion(energy0["total"], pt.LowStorageRK54, mpl=1.0)
+    a0, adot0 = float(expand.a), float(expand.adot)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfused.reset_launch_counts()
+    state = st.coupled_multi_step(state, NSTEPS, expand, 0.0, dt)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    host0 = time.perf_counter()
+    start.record()
+    state = st.coupled_multi_step(state, NSTEPS, expand, 0.0, dt)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - host0
+    device_s = start.elapsed_time(end) / 1e3
+    state = st.coupled_multi_step(state, 1, expand, 0.0, dt)
+    torch.cuda.synchronize()
+    path_launches = dict(tfused.LAUNCHES)
+    for name in names:
+        launches[name] = path_launches[name]
+
+    npairs = -(-st.num_stages * NSTEPS // 2)
+    transfers = 2 * sum(st._comps)
+    energy = energy_of(state, expand.a)
+    constraint = float(expand.constraint(energy["total"]))
+    finite = all(bool(torch.isfinite(v).all()) for v in state.values())
+    shapes_ok = all(tuple(v.shape[1:]) == GRID for v in state.values())
+    extra, extra_ok = ({}, True) if extra_check is None else extra_check(
+        state)
+    emit({"phase": phase, "grid": GRID,
+          "dtype": "torch.float32", "nsteps_timed": NSTEPS,
+          "ms_per_step": device_s / NSTEPS * 1e3,
+          "site_updates_per_s": sites * NSTEPS / device_s,
+          "effective_GB_per_s": transfers * npairs * sites * 4 / device_s
+          / 1e9,
+          # wall clock of the chunk (ending in a synchronize) and the CUDA
+          # events around it; the host waits for every pair's sums, so the
+          # two agree and the device's idle gaps are inside both
+          "host_s": host_s, "device_s": device_s,
+          "launches": path_launches,
+          "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30,
+          "a0": a0, "adot0": adot0, "a": float(expand.a),
+          "adot": float(expand.adot), "energy_total": float(energy["total"]),
+          "constraint": constraint, "constraint_tol": CONSTRAINT_TOL,
+          "finite": finite, **extra})
+    if not (finite and shapes_ok and extra_ok):
+        raise SystemExit(f"{phase} produced a non-finite, misshapen or "
+                         "unsourced state")
+    if not constraint <= CONSTRAINT_TOL:
+        raise SystemExit(f"{phase} violates the Friedmann constraint: "
+                         f"{constraint}")
+    for name in names:
+        if launches[name] < 1:
+            raise SystemExit(f"{phase} never launched {name}")
+    if trace:
+        emit({"phase": trace, **trace_chunk(
+            lambda: st.coupled_multi_step(state, NSTEPS, expand, 0.0, dt),
+            device_s)})
+
+
+def ptxas_report(*steppers):
+    """Registers and spill bytes of every kernel each stepper built, from
+    the build's -Xptxas -v output (names demangled by c++filt where the
+    toolkit's host has it)."""
+    from pystella_tpu_torch.ops import fused as tfused
+    from pystella_tpu_torch.ops import stencil
+    report = {}
+    for st in steppers:
+        header = st.kernel_header()
+        usage = {}
+        for src in sorted({tfused.KERNELS[n][0] for n in st.kernel_names()}):
+            usage.update(stencil.ptxas_usage(stencil.build_log(src, header)))
+        names = list(usage)
+        try:
+            demangled = subprocess.run(
+                ["c++filt"], input="\n".join(names), capture_output=True,
+                text=True, timeout=60).stdout.splitlines()
+        except OSError:
+            demangled = names
+        if len(demangled) != len(names):
+            demangled = names
+        report[type(st).__name__] = {d: usage[n]
+                                     for n, d in zip(names, demangled)}
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -289,19 +756,30 @@ def main():
           "cuda": torch.version.cuda})
 
     sector = pt.ScalarSector(2, potential=potential)
+    gw_sector = pt.TensorPerturbationSector([sector])
     dx = BOX / GRID[0]
+    scalar_kernels = list(pt.FusedScalarStepper._KERNEL.values())
 
-    # -- 2. build (every kernel, float32 and float64, one nvcc a source) -----
+    # -- 2. build (every kernel, float32 and float64, one nvcc a source;
+    #       the scalar and the GW model's sources all at once) ---------------
     t0 = time.perf_counter()
-    main_st = pt.FusedScalarStepper(sector, GRID, dx, HALO,
-                                    dtype=torch.float32, device="cuda")
+    with ThreadPoolExecutor(2) as pool:
+        scalar_build = pool.submit(pt.FusedScalarStepper, sector, GRID, dx,
+                                   HALO, dtype=torch.float32, device="cuda")
+        gw_build = pool.submit(pt.FusedPreheatStepper, sector, gw_sector,
+                               GRID, dx, HALO, dtype=torch.float32,
+                               device="cuda")
+        main_st, gw_st = scalar_build.result(), gw_build.result()
     build_s = time.perf_counter() - t0
     emit({"phase": "build", "seconds": build_s,
           "sources": sorted({src for src, _ in tfused.KERNELS.values()}),
-          "kernels": main_st.kernel_names(),
-          "build_dir": str(pt.ops.stencil.BUILD_DIR)})
-    if main_st.kernel_names() != list(tfused.KERNELS):
+          "kernels": main_st.kernel_names() + gw_st.kernel_names(),
+          "build_dir": str(pt.ops.stencil.BUILD_DIR),
+          "ptxas": ptxas_report(main_st, gw_st)})
+    if main_st.kernel_names() != scalar_kernels:
         raise SystemExit("the main model did not build every kernel")
+    if gw_st.kernel_names() != list(GW_KERNELS):
+        raise SystemExit("the GW model did not build every kernel")
 
     # -- 3. kernels vs plain, at the main path's shape and others; every
     #       sum-emitting kernel twice for bit-equal sums ----------------------
@@ -309,176 +787,35 @@ def main():
     cases = [(GRID, torch.float32)] + [
         (shape, dtype) for shape in ALT_SHAPES
         for dtype in (torch.float32, torch.float64)]
-    for shape, dtype in cases:
-        st = pt.FusedScalarStepper(sector, shape, BOX / shape[0], HALO,
-                                   dtype=dtype, device="cuda")
-        for seed, name in enumerate(tfused.KERNELS):
-            ins = kernel_inputs(shape, dtype, seed)
-            params = kernel_params(name, BOX / shape[0])
-            plain = st.plain(name, ins, params)
-            outs = st.launch(name, ins, [torch.empty_like(ins[0])
-                                          for _ in range(4)], params)
-            torch.cuda.synchronize()
-            per_output = {n: rel_err(o, p) for n, o, p in
-                          zip(("f", "dfdt", "kf", "kdfdt"), outs, plain)}
-            worst_rel = max(r for r, _ in per_output.values())
-            worst_abs = max(a for _, a in per_output.values())
-            tag = "x".join(map(str, shape)) + ":" + str(dtype)[6:]
-            row = {"max_rel_err": worst_rel, "max_abs_err": worst_abs,
-                   "tol": KERNEL_TOL[dtype]}
-            ok = worst_rel <= KERNEL_TOL[dtype]
-            if name in SUM_KERNELS:
-                row["sum_err"] = sum_errors(st, name, ins, outs, plain,
-                                            params)
-                row["sum_tol"] = SUM_TOL[dtype]
-                again = st.launch(name, ins, [torch.empty_like(ins[0])
-                                               for _ in range(4)], params)
-                torch.cuda.synchronize()
-                row["sums_bitwise_repeatable"] = all(
-                    torch.equal(a, b) for a, b in zip(outs, again))
-                ok = (ok and row["sum_err"] <= SUM_TOL[dtype]
-                      and row["sums_bitwise_repeatable"])
-                del again
-            errs[name][tag] = row
-            emit({"phase": "kernel_vs_plain", "kernel": name, "shape": shape,
-                  "dtype": str(dtype),
-                  "rel_err": {n: r for n, (r, _) in per_output.items()},
-                  **row})
-            if not ok:
-                raise SystemExit(f"{name} disagrees with its plain version "
-                                 f"at {shape} {dtype}: {row}")
-            del ins, plain, outs
-        del st
-        torch.cuda.empty_cache()
+
+    def scalar_stepper(shape, dtype):
+        return pt.FusedScalarStepper(sector, shape, BOX / shape[0], HALO,
+                                     dtype=dtype, device="cuda")
+
+    def gw_stepper(shape, dtype):
+        return pt.FusedPreheatStepper(sector, gw_sector, shape,
+                                      BOX / shape[0], HALO, dtype=dtype,
+                                      device="cuda")
+
+    kernels_vs_plain("kernel_vs_plain", scalar_stepper, scalar_kernels,
+                     cases, errs)
 
     # -- 4. identities on the card ------------------------------------------
     # one pair launch == two single-stage launches; K5's lattice outputs ==
     # K2's, bitwise; K6 pair + finalize == K3 pair with hubble2 = hubfix
-    for dtype in (torch.float64, torch.float32):
-        shape = ALT_SHAPES[0]
-        st = pt.FusedScalarStepper(sector, shape, BOX / shape[0], HALO,
-                                   dtype=dtype, device="cuda")
-        ins = kernel_inputs(shape, dtype, 7)
-        p = kernel_params("fused_pair", BOX / shape[0])
-        new = lambda: [torch.empty_like(ins[0]) for _ in range(4)]  # noqa
-        pair = st.launch("fused_pair", ins, new(), p)
-        mid = st.launch("fused_stage", ins, new(), p[:5])
-        two = st.launch("fused_stage", mid, new(), (p[0],) + p[5:])
-        energy = st.launch("fused_stage_energy", ins, new(), p[:5])
-        torch.cuda.synchronize()
-        worst = max(rel_err(a, b)[0] for a, b in zip(pair, two))
-        k5_bitwise = all(torch.equal(a, b) for a, b in zip(energy, mid))
-        del mid, two, energy
-        cp = kernel_params("coupled_pair", BOX / shape[0])
-        hubfix = 0.49
-        coupled = st.launch("coupled_pair", ins, new(), cp)
-        state, k = st._finalize_deferred(st._carry_of(coupled[:4]), cp[0],
-                                         hubfix, cp[7])
-        ref = st.launch("fused_pair", ins, new(),
-                        cp[:5] + (cp[5], hubfix, cp[6], cp[7]))
-        torch.cuda.synchronize()
-        deferred = max(rel_err(a, b)[0] for a, b in zip(
-            (state["f"], state["dfdt"], k["f"], k["dfdt"]), ref))
-        emit({"phase": "identity", "dtype": str(dtype), "shape": shape,
-              "max_rel_err": worst, "tol": IDENTITY_TOL[dtype],
-              "energy_stage_bitwise_stage": k5_bitwise,
-              "deferred_pair_vs_pair_rel_err": deferred,
-              "deferred_tol": DEFERRED_TOL[dtype]})
-        if not worst <= IDENTITY_TOL[dtype]:
-            raise SystemExit(f"pair != two singles ({dtype}): {worst}")
-        if not k5_bitwise:
-            raise SystemExit(f"fused_stage_energy != fused_stage ({dtype})")
-        if not deferred <= DEFERRED_TOL[dtype]:
-            raise SystemExit(f"coupled pair + finalize != fused pair "
-                             f"({dtype}): {deferred}")
-        del st, ins, pair, coupled, state, k, ref
-    torch.cuda.empty_cache()
+    identities("identity", scalar_stepper)
 
     # -- 5. reference: fused kernels vs the generic path, small input --------
-    small = SMALL
-    small_dx = BOX / small[0]
-    st = pt.FusedScalarStepper(sector, small, small_dx, HALO,
-                               dtype=torch.float64, device="cuda")
-    fd = pt.FiniteDifferencer(HALO, small_dx)
-    rhs = pt.compile_rhs_dict(sector.rhs_dict)
-    gen = pt.LowStorageRK54(
-        lambda s, t, a, hubble: rhs(s, t, lap_f=fd.lap(s["f"]), a=a,
-                                    hubble=hubble))
-    g = torch.Generator(device="cuda").manual_seed(3)
-    state = {"f": 1e-3 * torch.randn((2,) + small, generator=g,
-                                     device="cuda", dtype=torch.float64),
-             "dfdt": 1e-4 * torch.randn((2,) + small, generator=g,
-                                        device="cuda", dtype=torch.float64)}
-    args = {"a": 1.0, "hubble": 0.5}
-    ref = dict(state)
-    for _ in range(3):
-        ref = gen.step(ref, 0.0, 0.1 * small_dx, args)
-    got = st.multi_step({k: v.clone() for k, v in state.items()}, 3, 0.0,
-                        0.1 * small_dx, args)
-    worst = max(rel_err(got[k], ref[k])[0] for k in ("f", "dfdt"))
-    emit({"phase": "reference", "shape": small, "dtype": "torch.float64",
-          "nsteps": 3, "max_rel_err_vs_generic": worst, "tol": 1e-12})
-    if not worst <= 1e-12:
-        raise SystemExit(f"fused multi_step disagrees with the generic "
-                         f"stepper: {worst}")
-    del state, ref, got
+    st = scalar_stepper(SMALL, torch.float64)
+    reference("reference", st, sector, 1e-12)
 
     # -- 6. coupled reference: coupled_multi_step vs the per-stage loop -----
-    dt_small = 0.1 * small_dx
-    state = background_state(small, torch.float64, 5)
-    for nsteps in (1, 2):
-        ref, exp_ref, energy0 = driver_loop(
-            sector, {k: v.clone() for k, v in state.items()}, nsteps,
-            small_dx, dt_small)
-        for pair in (True, False):
-            exp = pt.Expansion(energy0, pt.LowStorageRK54)
-            got = st.coupled_multi_step(
-                {k: v.clone() for k, v in state.items()}, nsteps, exp, 0.0,
-                dt_small, pair=pair)
-            row = {k: rel_err(got[k], ref[k])[0] for k in ("f", "dfdt")}
-            row["a"] = abs(exp.a - exp_ref.a) / exp_ref.a
-            row["adot"] = abs(exp.adot - exp_ref.adot) / abs(exp_ref.adot)
-            emit({"phase": "coupled_reference", "shape": small,
-                  "dtype": "torch.float64", "nsteps": nsteps, "pair": pair,
-                  "rel_err_vs_driver_loop": row, "tol": 1e-12})
-            if not max(row.values()) <= 1e-12:
-                raise SystemExit(f"coupled_multi_step(pair={pair}, "
-                                 f"nsteps={nsteps}) disagrees with the "
-                                 f"driver loop: {row}")
-    del st, state, ref, got
+    coupled_reference("coupled_reference", st, sector)
+    del st
 
     # -- 7. kernel and plain times at the main path's shape ------------------
     timing = {}
-    sites = math.prod(GRID)
-    for seed, name in enumerate(tfused.KERNELS):
-        ins = kernel_inputs(GRID, torch.float32, 10 + seed)
-        params = kernel_params(name, dx)
-        sets = [[torch.empty_like(ins[0]) for _ in range(4)]
-                for _ in range(2)]
-        n = [0]
-
-        def launch():
-            n[0] += 1
-            main_st.launch(name, ins, sets[n[0] % 2], params)
-        ms = cuda_ms(launch, reps=20, warmup=2)
-        del sets
-        plain_ms = cuda_ms(lambda: main_st.plain(name, ins, params), reps=3)
-        # each input read once, each output written once: four lattice
-        # arrays in, four out, and the (2F+1)-term sum vectors
-        nbytes = (8 * main_st.F * sites
-                  + tfused.SUM_SETS[name] * (2 * main_st.F + 1)) * 4
-        ops = ops_per_site(name, main_st) * sites
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / PEAK_F32_OPS * 1e3
-        timing[name] = {"ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": max(bytes_ms, ops_ms),
-                        "bound_by": "bytes" if bytes_ms >= ops_ms
-                        else "operations",
-                        "bytes": nbytes, "ops": ops}
-        emit({"phase": "kernel_time", "kernel": name, "shape": GRID,
-              "dtype": "torch.float32", **timing[name]})
-        del ins
-    torch.cuda.empty_cache()
+    time_kernels("kernel_time", main_st, scalar_kernels, 10, timing)
 
     launches = {}
 
@@ -488,130 +825,69 @@ def main():
                                      device="cuda", dtype=torch.float32),
              "dfdt": 1e-4 * torch.randn((2,) + GRID, generator=g,
                                         device="cuda", dtype=torch.float32)}
-    dt = 0.1 * dx
-    args = {"a": 1.0, "hubble": 0.5}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    tfused.reset_launch_counts()
-    state = main_st.multi_step(state, NSTEPS, 0.0, dt, args)  # warmup chunk
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    host0 = time.perf_counter()
-    start.record()
-    state = main_st.multi_step(state, NSTEPS, 0.0, dt, args)  # timed chunk
-    end.record()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - host0
-    elapsed = start.elapsed_time(end) / 1e3
-    # the odd remainder of a run whose length is not a multiple of the
-    # chunk: one step = 2 pair launches + 1 single-stage launch
-    state = main_st.multi_step(state, 1, 0.0, dt, args)
-    torch.cuda.synchronize()
-    path_launches = dict(tfused.LAUNCHES)
-    for name in ("fused_pair", "fused_stage"):
-        launches[name] = path_launches[name]
-
-    npairs = -(-main_st.num_stages * NSTEPS // 2)
-    finite = all(bool(torch.isfinite(v).all()) for v in state.values())
-    shapes_ok = all(tuple(v.shape) == (2,) + GRID for v in state.values())
-    emit({"phase": "main_path", "grid": GRID, "dtype": "torch.float32",
-          "nsteps_timed": NSTEPS,
-          "ms_per_step": elapsed / NSTEPS * 1e3,
-          "site_updates_per_s": sites * NSTEPS / elapsed,
-          "effective_GB_per_s": 8 * npairs * sites * 2 * 4 / elapsed / 1e9,
-          "host_s": host_s, "launches": path_launches,
-          # the chunk's pair launches at the separately timed per-launch
-          # cost, over the chunk's device time: the share the card spent
-          # in the kernel (1 minus it is launch gaps and other work)
-          "kernel_share_est": npairs * timing["fused_pair"]["ms"] / 1e3
-          / elapsed,
-          "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30,
-          "finite": finite, "f_rms": state["f"].double().pow(2).mean()
-          .sqrt().item()})
-    if not (finite and shapes_ok):
-        raise SystemExit("main path produced a non-finite or misshapen "
-                         "state")
-    for name in ("fused_pair", "fused_stage"):
-        if launches[name] < 1:
-            raise SystemExit(f"main path never launched {name}")
+    main_path("main_path", main_st, state, ("fused_pair", "fused_stage"),
+              timing, launches)
     del state
     torch.cuda.empty_cache()
 
-    # -- 9. coupled main path: the example model, 512^3 f32 -----------------
-    fd = pt.FiniteDifferencer(HALO, dx)
-    reduce_energy = pt.Reduction(sector, callback=pt.get_rho_and_p,
-                                 grid_size=float(sites))
+    # -- 9. coupled main path: the example model, 512^3 f32, and
+    # -- 10. where its chunk's device time goes (torch.profiler) ------------
+    coupled_main_path("coupled_main_path", main_st,
+                      background_state(GRID, torch.float32, 11),
+                      SUM_KERNELS, launches, trace="coupled_trace")
+    # the scalar paths' buffers (12 GiB) make room for the GW system's 48
+    del main_st
+    torch.cuda.empty_cache()
 
-    def energy_of(st, a):
-        return reduce_energy(f=st["f"], dfdt=st["dfdt"],
-                             lap_f=fd.lap(st["f"]), a=np.float64(a))
+    # -- 11. the GW kernels vs plain (the main path's shape and others) ----
+    kernels_vs_plain("preheat_kernel_vs_plain", gw_stepper, GW_KERNELS,
+                     cases, errs, gw=True)
 
-    state = background_state(GRID, torch.float32, 11)
-    energy0 = energy_of(state, 1.0)
-    expand = pt.Expansion(energy0["total"], pt.LowStorageRK54, mpl=1.0)
-    a0, adot0 = float(expand.a), float(expand.adot)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    tfused.reset_launch_counts()
-    state = main_st.coupled_multi_step(state, NSTEPS, expand, 0.0, dt)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    host0 = time.perf_counter()
-    start.record()
-    # timed chunk: 25 pairs, ends on a deferred pair (chunk-end finalize)
-    state = main_st.coupled_multi_step(state, NSTEPS, expand, 0.0, dt)
-    end.record()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - host0
-    device_s = start.elapsed_time(end) / 1e3
-    # the odd tail: 2 pairs, a mid-chunk finalize and one K5 stage
-    state = main_st.coupled_multi_step(state, 1, expand, 0.0, dt)
-    torch.cuda.synchronize()
-    path_launches = dict(tfused.LAUNCHES)
-    for name in SUM_KERNELS:
-        launches[name] = path_launches[name]
+    # -- 12. GW identities: K8 == two K7, K5' == K7 bitwise, K9 + finalize
+    #        == K8 with hubble2 = hubfix --------------------------------------
+    identities("preheat_identity", gw_stepper, gw=True)
 
-    energy = energy_of(state, expand.a)
-    constraint = float(expand.constraint(energy["total"]))
-    finite = all(bool(torch.isfinite(v).all()) for v in state.values())
-    shapes_ok = all(tuple(v.shape) == (2,) + GRID for v in state.values())
-    emit({"phase": "coupled_main_path", "grid": GRID,
-          "dtype": "torch.float32", "nsteps_timed": NSTEPS,
-          "ms_per_step": device_s / NSTEPS * 1e3,
-          "site_updates_per_s": sites * NSTEPS / device_s,
-          "effective_GB_per_s": 8 * npairs * sites * 2 * 4 / device_s / 1e9,
-          # wall clock of the chunk (ending in a synchronize) and the CUDA
-          # events around it; the host waits for every pair's sums, so the
-          # two agree and the device's idle gaps are inside both
-          "host_s": host_s, "device_s": device_s,
-          "launches": path_launches,
-          "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30,
-          "a0": a0, "adot0": adot0, "a": float(expand.a),
-          "adot": float(expand.adot), "energy_total": float(energy["total"]),
-          "constraint": constraint, "constraint_tol": CONSTRAINT_TOL,
-          "finite": finite})
-    if not (finite and shapes_ok):
-        raise SystemExit("coupled main path produced a non-finite or "
-                         "misshapen state")
-    if not constraint <= CONSTRAINT_TOL:
-        raise SystemExit(f"coupled main path violates the Friedmann "
-                         f"constraint: {constraint}")
-    for name in SUM_KERNELS:
-        if launches[name] < 1:
-            raise SystemExit(f"coupled main path never launched {name}")
+    # -- 13. GW reference: multi_step vs the generic GW stepper, and
+    #        coupled_multi_step vs the per-stage driver loop, 32^3 f64 -------
+    st = gw_stepper(SMALL, torch.float64)
+    reference("preheat_reference", st, sector, GW_REFERENCE_TOL, gw=True)
+    coupled_reference("preheat_coupled_reference", st, sector, gw=True)
+    del st
 
-    # -- 10. where the coupled chunk's device time goes (torch.profiler) ----
-    emit({"phase": "coupled_trace", **trace_chunk(
-        lambda: main_st.coupled_multi_step(state, NSTEPS, expand, 0.0, dt),
-        device_s)})
+    # -- 14. GW kernel and plain times at 512^3 f32 ---------------------------
+    time_kernels("preheat_kernel_time", gw_st, GW_KERNELS, 20, timing)
+
+    # -- 15. GW main path: multi_step at 512^3 f32 from the bench state for
+    #        f and hij = dhijdt = 0; the source must reach hij ---------------
+    g = torch.Generator(device="cuda").manual_seed(7)
+    state = {"f": 1e-3 * torch.randn((2,) + GRID, generator=g,
+                                     device="cuda", dtype=torch.float32),
+             "dfdt": 1e-4 * torch.randn((2,) + GRID, generator=g,
+                                        device="cuda", dtype=torch.float32),
+             "hij": torch.zeros((6,) + GRID, device="cuda",
+                                dtype=torch.float32),
+             "dhijdt": torch.zeros((6,) + GRID, device="cuda",
+                                   dtype=torch.float32)}
+
+    main_path("preheat_main_path", gw_st, state,
+              ("preheat_pair", "preheat_stage"), timing, launches,
+              extra_check=sourced)
     del state
+    torch.cuda.empty_cache()
+
+    # -- 16. GW coupled main path: coupled_multi_step at 512^3 f32 from the
+    #        coupled path's background and hij = dhijdt = 0 -----------------
+    coupled_main_path("preheat_coupled_main_path", gw_st,
+                      background_state(GRID, torch.float32, 11, gw=True),
+                      GW_SUM_KERNELS, launches,
+                      trace="preheat_coupled_trace", extra_check=sourced)
+    del gw_st
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, (src, replaces) in tfused.KERNELS.items():
         t = timing[name]
-        main_case = errs[name]["x".join(map(str, GRID)) + ":float32"]
+        main_case = errs[name][case_tag(GRID, torch.float32)]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"pystella_tpu_torch/ops/csrc/{src}",

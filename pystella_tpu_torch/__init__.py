@@ -3,10 +3,11 @@
 A second package beside the JAX one. It imports ``torch`` and never
 ``jax`` or ``pystella_tpu``; the JAX package is the reference its tests
 hold it to. It runs the 2-field scalar-preheating hot loop,
-:meth:`FusedScalarStepper.multi_step`, and the energy-coupled driver,
+:meth:`FusedScalarStepper.multi_step`, the energy-coupled driver,
 :meth:`FusedScalarStepper.coupled_multi_step` with :class:`Expansion` and
-:class:`Reduction`, on an NVIDIA H100 with hand-written CUDA kernels
-(``ops/csrc``).
+:class:`Reduction`, and the same two for the gravitational-wave system
+(:class:`FusedPreheatStepper` with a :class:`TensorPerturbationSector`), on
+an NVIDIA H100 with hand-written CUDA kernels (``ops/csrc``).
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); without CUDA and without that request they raise.
@@ -24,12 +25,15 @@ from pystella_tpu_torch.field import (
 from pystella_tpu_torch.grid import Lattice
 from pystella_tpu_torch.models.expansion import Expansion
 from pystella_tpu_torch.models.sectors import (
-    ScalarSector, Sector, get_rho_and_p, tensor_index,
+    ScalarSector, Sector, TensorPerturbationSector, get_rho_and_p,
+    tensor_index,
 )
 from pystella_tpu_torch.ops.derivs import (
     FiniteDifferencer, FirstCenteredDifference, SecondCenteredDifference,
 )
-from pystella_tpu_torch.ops.fused import FusedScalarStepper
+from pystella_tpu_torch.ops.fused import (
+    FusedPreheatStepper, FusedScalarStepper,
+)
 from pystella_tpu_torch.ops.reduction import FieldStatistics, Reduction
 from pystella_tpu_torch.step import (
     LowStorageRK3Inhomogeneous, LowStorageRK3PredictorCorrector,
@@ -47,9 +51,10 @@ __all__ = [
     "Expr", "Constant", "Sum", "Product", "Quotient", "Power", "Call", "Var",
     "Field", "Indexed", "Shifted", "DynamicField", "diff", "evaluate",
     "field_names", "shift_fields", "simplify", "substitute",
-    "Lattice", "Sector", "ScalarSector", "get_rho_and_p", "tensor_index",
+    "Lattice", "Sector", "ScalarSector", "TensorPerturbationSector",
+    "get_rho_and_p", "tensor_index",
     "FiniteDifferencer", "FirstCenteredDifference",
-    "SecondCenteredDifference", "FusedScalarStepper",
+    "SecondCenteredDifference", "FusedScalarStepper", "FusedPreheatStepper",
     "Stepper", "RungeKuttaStepper", "LowStorageRKStepper",
     "compile_rhs_dict", "RungeKutta4", "RungeKutta3Heun",
     "RungeKutta3Nystrom", "RungeKutta3Ralston", "RungeKutta3SSP",

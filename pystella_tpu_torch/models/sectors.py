@@ -1,11 +1,11 @@
 """Physics sectors: symbolic equation systems for preheating simulations.
 
-PyTorch counterpart of the scalar subset of
-``pystella_tpu/models/sectors.py``. A Sector bundles a symbolic
-``rhs_dict`` (consumed by :class:`~pystella_tpu_torch.step.Stepper`) and
-energy ``reducers``. Expressions evaluate against state environments holding
-the field tensors plus auxiliary names (``lap_f``, ``a``, ``hubble``)
-supplied by the caller.
+PyTorch counterpart of ``pystella_tpu/models/sectors.py``. A Sector bundles
+a symbolic ``rhs_dict`` (consumed by :class:`~pystella_tpu_torch.step.Stepper`),
+energy ``reducers`` and a ``stress_tensor`` method (consumed by
+:class:`TensorPerturbationSector`). Expressions evaluate against state
+environments holding the field tensors plus auxiliary names (``lap_f``,
+``dfdx``, ``a``, ``hubble``) supplied by the caller.
 """
 
 from __future__ import annotations
@@ -14,7 +14,8 @@ import numpy as np
 
 from pystella_tpu_torch.field import DynamicField, Var, diff
 
-__all__ = ["Sector", "ScalarSector", "tensor_index", "get_rho_and_p"]
+__all__ = ["Sector", "ScalarSector", "TensorPerturbationSector",
+           "tensor_index", "get_rho_and_p"]
 
 
 def tensor_index(i, j):
@@ -35,6 +36,10 @@ class Sector:
     @property
     def reducers(self):
         """Quantities to reduce over the lattice (energy components etc.)."""
+        raise NotImplementedError
+
+    def stress_tensor(self, mu, nu, drop_trace=True):
+        """The component ``T_{mu nu}`` of this sector's stress-energy."""
         raise NotImplementedError
 
 
@@ -84,6 +89,60 @@ class ScalarSector(Sector):
             "gradient": [-f[fld] * f.lap[fld] / 2 / a**2
                          for fld in range(self.nscalars)],
         }
+
+    def stress_tensor(self, mu, nu, drop_trace=False):
+        f = self.f
+        a = Var("a")
+
+        tmunu = sum(f.d(fld, mu) * f.d(fld, nu)
+                    for fld in range(self.nscalars))
+        if drop_trace:
+            return tmunu
+
+        metric_inv = np.diag((-1, 1, 1, 1))  # times 1/a^2 (contravariant)
+        lag = (- sum(sum(metric_inv[alpha, beta] / a**2
+                         * f.d(fld, alpha) * f.d(fld, beta)
+                         for alpha in range(4) for beta in range(4))
+                     for fld in range(self.nscalars)) / 2
+               - self.potential(f))
+        metric = np.diag((-1, 1, 1, 1))  # times a^2 (covariant)
+        return tmunu + metric[mu, nu] * a**2 * lag
+
+
+class TensorPerturbationSector(Sector):
+    """Transverse-traceless metric perturbations ``h_ij`` sourced by the
+    anisotropic stress of other sectors:
+    ``h_ij'' = lap h_ij - 2 H h_ij' + 16 pi S_ij``.
+
+    :arg sectors: list of Sectors whose ``stress_tensor`` sources ``hij``.
+    :arg hij: defaults to ``DynamicField("hij", shape=(6,))``; component
+        ``tensor_index(i, j)`` holds ``h_ij``.
+    """
+
+    def __init__(self, sectors, **kwargs):
+        self.hij = kwargs.pop("hij", DynamicField("hij", shape=(6,)))
+        self.sectors = sectors
+
+    @property
+    def rhs_dict(self):
+        hij = self.hij
+        H = Var("hubble")
+
+        rhs_dict = {}
+        for i in range(1, 4):
+            for j in range(i, 4):
+                fld = tensor_index(i, j)
+                sij = sum(sector.stress_tensor(i, j, drop_trace=True)
+                          for sector in self.sectors)
+                rhs_dict[hij[fld]] = hij.dot[fld]
+                rhs_dict[hij.dot[fld]] = (hij.lap[fld]
+                                          - 2 * H * hij.dot[fld]
+                                          + 16 * np.pi * sij)
+        return rhs_dict
+
+    @property
+    def reducers(self):
+        return {}
 
 
 def get_rho_and_p(energy):

@@ -1,7 +1,8 @@
 """Print :mod:`~pystella_tpu_torch.field` expressions as CUDA C.
 
 The fused kernels in ``ops/csrc`` evaluate the model's ``dV/df`` (and, for
-the energy sums, ``V``) at every lattice site. The model is a user
+the energy sums, ``V``; for the gravitational-wave system, the anisotropic
+stress ``S_ij``) at every lattice site. The model is a user
 expression, so it is printed into the kernel source here, the way loopy
 printed it for pystella's GPU kernels.
 
@@ -100,9 +101,9 @@ def _emit(expr, fields, variables):
         return expr.value
     if isinstance(expr, _field.Indexed):
         name = expr.field.name
-        if name not in fields or len(expr.index) != 1:
+        if name not in fields or not expr.index:
             raise ValueError(f"no kernel symbol for {expr!r}")
-        return f"{fields[name]}[{int(expr.index[0])}]"
+        return fields[name] + "".join(f"[{int(i)}]" for i in expr.index)
     if isinstance(expr, _field.Var):
         if expr.name not in variables:
             raise ValueError(f"no kernel symbol for variable {expr.name!r}")
@@ -163,7 +164,7 @@ def print_c(expr, fields=None, variables=None):
     """A CUDA C expression of type ``T`` computing ``expr``.
 
     :arg fields: field name -> C array name; component ``f[i]`` of field
-        ``f`` prints as ``<name>[i]``.
+        ``f`` prints as ``<name>[i]``, ``dfdx[i, j]`` as ``<name>[i][j]``.
     :arg variables: :class:`~pystella_tpu_torch.field.Var` name -> C name.
     """
     out = _emit(_field._wrap(expr), dict(fields or {}), dict(variables or {}))
@@ -197,8 +198,26 @@ def _site_functions(suffix, dvdf, potential, fields, variables):
     return lines
 
 
+def _sij_functions(suffix, sij, variables):
+    """``pk_sij<suffix>``: every ``S_ij`` component at one site from the
+    site's field gradients ``dfdx[PK_F][3]`` (``dfdx[i][j]`` is
+    ``d f_i / d x_j``), over the scalars ``variables``."""
+    params = "".join(f", const T {c}" for c in variables.values())
+    unused = " ".join(f"(void){c};" for c in ("dfdx", *variables.values()))
+    lines = [
+        "template <typename T>",
+        f"__device__ __forceinline__ void pk_sij{suffix}(",
+        f"    const T (&dfdx)[PK_F][3]{params}, T (&out)[PK_NH]) {{",
+        f"  {unused}",
+    ]
+    for i, e in enumerate(sij):
+        lines.append(
+            f"  out[{i}] = {print_c(e, {'dfdx': 'dfdx'}, variables)};")
+    return lines + ["}", ""]
+
+
 def model_header(dvdf, potential, nfields, halo, field_name="f",
-                 hubble_free=False):
+                 hubble_free=False, sij=None):
     """The generated header the fused kernels include: the number of
     fields ``PK_F``, the stencil radius ``PK_H``, and the model at one site
     from the site's field values ``f[PK_F]``:
@@ -211,6 +230,15 @@ def model_header(dvdf, potential, nfields, halo, field_name="f",
       evaluates before the stage's Hubble rate exists. They are printed
       over :data:`HUBBLE_FREE_VARIABLES`, so an expression that reads
       ``hubble`` raises ``ValueError`` here.
+
+    With ``sij`` (the gravitational-wave system's anisotropic stress, one
+    expression per ``hij`` component, reading the gradients ``dfdx``) it
+    also prints ``PK_NH`` (the number of components), the source
+    coefficient ``PK_GW_COEF`` (the Python double ``16 * pi``, which the
+    kernels cast to ``T`` as the plain version's Python float meets a
+    tensor), ``pk_sij<T>(dfdx, a, hubble, out)`` and, with
+    ``hubble_free``, ``pk_sij_nohub<T>(dfdx, a, out)``. Without ``sij``
+    the header is the scalar system's alone.
 
     A ``V`` or ``dV/df_i`` that does not depend on ``f`` prints as a
     constant; the kernel still evaluates it at (and sums it over) every
@@ -229,4 +257,10 @@ def model_header(dvdf, potential, nfields, halo, field_name="f",
         lines += ["#define PK_HUBBLE_FREE 1", ""]
         lines += _site_functions("_nohub", dvdf, potential, fields,
                                  HUBBLE_FREE_VARIABLES)
+    if sij is not None:
+        lines += [f"#define PK_NH {len(sij)}",
+                  f"#define PK_GW_COEF {16 * math.pi!r}", ""]
+        lines += _sij_functions("", sij, STAGE_VARIABLES)
+        if hubble_free:
+            lines += _sij_functions("_nohub", sij, HUBBLE_FREE_VARIABLES)
     return "\n".join(lines)

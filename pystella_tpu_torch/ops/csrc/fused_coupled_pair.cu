@@ -1,7 +1,8 @@
 // K6: the deferred-drag coupled stage pair, for the energy-coupled driver
-// (FusedScalarStepper.coupled_multi_step).
+// (FusedScalarStepper.coupled_multi_step); K9: the same for the scalar +
+// gravitational-wave system (FusedPreheatStepper.coupled_multi_step).
 //
-// Replaces the Pallas body FusedScalarStepper._deferred_body /
+// K6 replaces the Pallas body FusedScalarStepper._deferred_body /
 // _deferred_pair_core (+ _completed_taps, _axpy_taps, _esums, _dV) of
 // pystella_tpu/ops/fused.py, in both variants _build_coupled_pair_call
 // builds, with the sums of StreamingStencil._accumulate_sums
@@ -27,14 +28,24 @@
 //   velocity is completed the same way (PkCompleted), so the pair equals the
 //   one that would have run with the completed state as input.
 //
+// K9 (GW = true) replaces FusedPreheatStepper._deferred_body: K6 on f (the
+// same two sum sets, of the scalar sector only), then per hij component the
+// tensor pair with the same deferral -- stage 1 as in K8 (S_ij1 from the f
+// window), stage 2 without its Hubble drag, kdhp = A2*kdh1 + dt*(lap h1 +
+// 16 pi S_ij2) with S_ij2 from the gradients of the recomposed f1 and
+// printed without hubble (pk_sij_nohub); the outputs hij2, dhp = dh1, khij2,
+// kdhp. With IN_DEFERRED the tensor inputs are hij, dhp, kdhp, khij, and dhp
+// is completed like dfp at the site and at every tap.
+//
 // Bound: memory, as K3: four arrays read and four written per site (8 * F *
-// sites * sizeof(T) bytes for two stages), plus one partial per sum term and
-// block. f, kf and the velocity arrays are also read at the 6h neighbour
-// taps, through L1/L2. Design as in fused_pair.cu: one thread per site, z
-// fastest, f1 recomposed at each of its 6h taps and never materialized,
-// periodic wrap by index arithmetic, 64-bit offsets, outputs to separate
-// buffers, -fmad=false; the sums are reduced in a fixed order in T
-// (pk_block_sums, pk_finish_sums).
+// sites * sizeof(T) bytes for two stages; K9 8 * (F + 6)), plus one partial
+// per sum term and block. f, kf and the velocity arrays (and their tensor
+// counterparts) are also read at the 6h neighbour taps, through L1/L2.
+// Design as in fused_pair.cu: one thread per site, z fastest, f1 (h1)
+// recomposed at each of its 6h taps and never materialized, periodic wrap
+// by index arithmetic, 64-bit offsets, outputs to separate buffers,
+// -fmad=false, the tensor components one after another; the sums are
+// reduced in a fixed order in T (pk_block_sums, pk_finish_sums).
 #include "pk_common.cuh"
 
 #ifdef PK_HUBBLE_FREE
@@ -43,22 +54,104 @@ template <typename T>
 struct PkCoupledParams {
   T dt, a1, hubble1, A1, B1, a2, A2, B2, hubfix, B2p;
   PkLapWeights<T> w;
+  PkGradWeights<T> g;  // K9 only
 };
 
+#ifdef PK_NH
+// K9's tensor pair at one site, for every hij component; DF reads the
+// incoming tensor velocity (PkAt, or PkCompleted for a deferred input).
 template <typename T, bool IN_DEFERRED>
+__device__ __forceinline__ void pk_coupled_gw(
+    const PkArrays<T>& io, const T* __restrict__ f, const T* __restrict__ kf,
+    int x, int y, int z, int X, int Y, int Z, int64_t N, int64_t site,
+    const PkCoupledParams<T>& p, T c_def) {
+  // S_ij of both stages: from the f window, and from f1 recomposed at every
+  // tap (its velocity completed there in the deferred variant)
+  T dfdx[PK_F][3], sij1[PK_NH], sij2[PK_NH];
+#pragma unroll
+  for (int c = 0; c < PK_F; ++c)
+    pk_grad(PkLoad<T>{f + c * N, Y, Z}, x, y, z, X, Y, Z, p.g, dfdx[c]);
+  pk_sij<T>(dfdx, p.a1, p.hubble1, sij1);
+#pragma unroll
+  for (int c = 0; c < PK_F; ++c) {
+    if (IN_DEFERRED) {
+      const PkAxpyLoad<T, PkCompleted<T>> load{
+          f + c * N, kf + c * N,
+          {io.in[1] + c * N, io.in[2] + c * N, p.B2p, c_def},
+          p.B1, p.A1, p.dt, Y, Z};
+      pk_grad(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
+    } else {
+      const PkAxpyLoad<T> load{f + c * N, kf + c * N, {io.in[1] + c * N},
+                               p.B1, p.A1, p.dt, Y, Z};
+      pk_grad(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
+    }
+  }
+  pk_sij_nohub<T>(dfdx, p.a2, sij2);
+
+  // normal: in4..7 = hij, dhijdt, khij, kdhijdt; deferred: hij, dhp, kdhp,
+  // khij
+  const T* __restrict__ h = io.in[4];
+  const T* __restrict__ dh_in = io.in[5];
+  const T* __restrict__ kh = IN_DEFERRED ? io.in[7] : io.in[6];
+  const T* __restrict__ k_in = IN_DEFERRED ? io.in[6] : io.in[7];
+  const T two_hub1 = T(2) * p.hubble1;
+#pragma unroll 1
+  for (int c = 0; c < PK_NH; ++c) {
+    const int64_t i = c * N + site;
+    const T h0 = h[i];
+    T dh0, kdh0;
+    if (IN_DEFERRED) {
+      const T d = dh_in[i];
+      kdh0 = k_in[i] - c_def * d;
+      dh0 = d + p.B2p * kdh0;
+    } else {
+      dh0 = dh_in[i];
+      kdh0 = k_in[i];
+    }
+    const T lap_h = pk_lap(PkLoad<T>{h + c * N, Y, Z}, h0, x, y, z, X, Y, Z,
+                           p.w);
+    T h1, dh1, kh1, kdh1;
+    pk_gw_stage(h0, dh0, kh[i], kdh0, lap_h, sij1[c], p.A1, p.B1, p.dt,
+                two_hub1, h1, dh1, kh1, kdh1);
+    T lap_h1;
+    if (IN_DEFERRED) {
+      const PkAxpyLoad<T, PkCompleted<T>> load{
+          h + c * N, kh + c * N, {dh_in + c * N, k_in + c * N, p.B2p, c_def},
+          p.B1, p.A1, p.dt, Y, Z};
+      lap_h1 = pk_lap(load, h1, x, y, z, X, Y, Z, p.w);
+    } else {
+      const PkAxpyLoad<T> load{h + c * N, kh + c * N, {dh_in + c * N},
+                               p.B1, p.A1, p.dt, Y, Z};
+      lap_h1 = pk_lap(load, h1, x, y, z, X, Y, Z, p.w);
+    }
+    // tensor stage 2 with the Hubble drag deferred
+    const T kh2 = p.A2 * kh1 + p.dt * dh1;
+    io.out[4][i] = h1 + p.B2 * kh2;
+    io.out[5][i] = dh1;
+    io.out[6][i] = kh2;
+    io.out[7][i] = p.A2 * kdh1 + p.dt * (lap_h1 + T(PK_GW_COEF) * sij2[c]);
+  }
+}
+#endif
+
+template <typename T, bool IN_DEFERRED, bool GW>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
-pk_coupled_pair_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
-                       const T* __restrict__ in2, const T* __restrict__ in3,
-                       T* __restrict__ f_out, T* __restrict__ dfp_out,
-                       T* __restrict__ kf_out, T* __restrict__ kdfp_out,
-                       int X, int Y, int Z, PkCoupledParams<T> p,
-                       T* __restrict__ partials, int64_t nblocks) {
+pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
+                       PkCoupledParams<T> p, T* __restrict__ partials,
+                       int64_t nblocks) {
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int x = blockIdx.z;
   // normal: in0..3 = f, dfdt, kf, kdfdt; deferred: f, dfp, kdfp, kf
-  const T* __restrict__ f = in0;
+  const T* __restrict__ f = io.in[0];
+  const T* __restrict__ in1 = io.in[1];
+  const T* __restrict__ in2 = io.in[2];
+  const T* __restrict__ in3 = io.in[3];
   const T* __restrict__ kf = IN_DEFERRED ? in3 : in2;
+  T* __restrict__ f_out = io.out[0];
+  T* __restrict__ dfp_out = io.out[1];
+  T* __restrict__ kf_out = io.out[2];
+  T* __restrict__ kdfp_out = io.out[3];
   // esums1 in terms[0, PK_NT), esums2 in terms[PK_NT, 2 PK_NT)
   T terms[2 * PK_NT];
 #pragma unroll
@@ -134,18 +227,24 @@ pk_coupled_pair_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
       terms[PK_NT + PK_F + c] = (-f1[c]) * lap[c];
     }
     terms[PK_NT + 2 * PK_F] = pk_v_nohub<T>(f1, p.a2);
+
+#ifdef PK_NH
+    if constexpr (GW)
+      pk_coupled_gw<T, IN_DEFERRED>(io, f, kf, x, y, z, X, Y, Z, N, site, p,
+                                    c_def);
+#endif
   }
   pk_block_sums<T, 2 * PK_NT>(terms, partials, nblocks);
 }
 
-// params: dt, a1, hubble1, A1, B1, a2, A2, B2, [hubfix, B2p if
-// IN_DEFERRED], then the Laplacian weights (pk_lap_weights). partials holds
-// 2 * PK_NT * pk_num_blocks(X, Y, Z) values; sums receives esums1 then
-// esums2, PK_NT each.
-template <typename T, bool IN_DEFERRED>
-static int pk_launch_coupled(const void* in0, const void* in1,
-                             const void* in2, const void* in3, void* f_out,
-                             void* dfp_out, void* kf_out, void* kdfp_out,
+// ins / outs: host arrays of 4 (scalar) or 8 (GW: then the tensor system's
+// four, in the same roles) device pointers. params: dt, a1, hubble1, A1, B1,
+// a2, A2, B2, [hubfix, B2p if IN_DEFERRED], then the Laplacian weights
+// (pk_lap_weights) and, for GW, the gradient weights (pk_grad_weights).
+// partials holds 2 * PK_NT * pk_num_blocks(X, Y, Z) values; sums receives
+// esums1 then esums2, PK_NT each.
+template <typename T, bool IN_DEFERRED, bool GW>
+static int pk_launch_coupled(const void* const* ins, void* const* outs,
                              int X, int Y, int Z, const double* params,
                              void* partials, void* sums, void* stream) {
   PkCoupledParams<T> p;
@@ -166,12 +265,11 @@ static int pk_launch_coupled(const void* in0, const void* in1,
     n = 10;
   }
   p.w = pk_lap_weights<T>(params + n);
-  pk_coupled_pair_kernel<T, IN_DEFERRED>
+  if (GW) p.g = pk_grad_weights<T>(params + n + PK_NLAPW);
+  pk_coupled_pair_kernel<T, IN_DEFERRED, GW>
       <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
-         (cudaStream_t)stream>>>(
-          (const T*)in0, (const T*)in1, (const T*)in2, (const T*)in3,
-          (T*)f_out, (T*)dfp_out, (T*)kf_out, (T*)kdfp_out, X, Y, Z, p,
-          (T*)partials, pk_num_blocks(X, Y, Z));
+         (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X, Y,
+                                 Z, p, (T*)partials, pk_num_blocks(X, Y, Z));
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   return pk_finish_sums<T>(partials, sums, 2 * PK_NT, X, Y, Z,
@@ -179,28 +277,43 @@ static int pk_launch_coupled(const void* in0, const void* in1,
 }
 
 #define PK_COUPLED_ARGS                                                     \
-  const void *i0, const void *i1, const void *i2, const void *i3, void *fo, \
-      void *dfo, void *kfo, void *kdfo, int X, int Y, int Z,                \
+  const void *const *ins, void *const *outs, int X, int Y, int Z,           \
       const double *params, void *partials, void *sums, void *stream
-#define PK_COUPLED_CALL                                                     \
-  (i0, i1, i2, i3, fo, dfo, kfo, kdfo, X, Y, Z, params, partials, sums,     \
-   stream)
+#define PK_COUPLED_CALL (ins, outs, X, Y, Z, params, partials, sums, stream)
 
 extern "C" int pk_coupled_pair_f32(PK_COUPLED_ARGS) {
-  return pk_launch_coupled<float, false> PK_COUPLED_CALL;
+  return pk_launch_coupled<float, false, false> PK_COUPLED_CALL;
 }
 
 extern "C" int pk_coupled_pair_f64(PK_COUPLED_ARGS) {
-  return pk_launch_coupled<double, false> PK_COUPLED_CALL;
+  return pk_launch_coupled<double, false, false> PK_COUPLED_CALL;
 }
 
 extern "C" int pk_coupled_pair_deferred_f32(PK_COUPLED_ARGS) {
-  return pk_launch_coupled<float, true> PK_COUPLED_CALL;
+  return pk_launch_coupled<float, true, false> PK_COUPLED_CALL;
 }
 
 extern "C" int pk_coupled_pair_deferred_f64(PK_COUPLED_ARGS) {
-  return pk_launch_coupled<double, true> PK_COUPLED_CALL;
+  return pk_launch_coupled<double, true, false> PK_COUPLED_CALL;
 }
+
+#ifdef PK_NH
+extern "C" int pk_preheat_coupled_pair_f32(PK_COUPLED_ARGS) {
+  return pk_launch_coupled<float, false, true> PK_COUPLED_CALL;
+}
+
+extern "C" int pk_preheat_coupled_pair_f64(PK_COUPLED_ARGS) {
+  return pk_launch_coupled<double, false, true> PK_COUPLED_CALL;
+}
+
+extern "C" int pk_preheat_coupled_pair_deferred_f32(PK_COUPLED_ARGS) {
+  return pk_launch_coupled<float, true, true> PK_COUPLED_CALL;
+}
+
+extern "C" int pk_preheat_coupled_pair_deferred_f64(PK_COUPLED_ARGS) {
+  return pk_launch_coupled<double, true, true> PK_COUPLED_CALL;
+}
+#endif
 
 #else
 #error "fused_coupled_pair.cu needs a model whose V and dV/df do not read hubble"

@@ -1,6 +1,7 @@
-// K3: two consecutive fused 2N-storage Runge-Kutta stages in one pass.
+// K3: two consecutive fused 2N-storage Runge-Kutta stages in one pass;
+// K8: the same for the scalar + gravitational-wave system.
 //
-// Replaces the Pallas body FusedScalarStepper._pair_body /
+// K3 replaces the Pallas body FusedScalarStepper._pair_body /
 // _scalar_pair_core (+ _axpy_taps, _dV) of pystella_tpu/ops/fused.py, run by
 // StreamingStencil / ResidentStencil (pystella_tpu/ops/pallas_stencil.py).
 // Stage 1 is K2's arithmetic on (f, dfdt, kf, kdfdt). Stage 2 needs the
@@ -10,32 +11,45 @@
 // two K2 launches operation for operation, and a stage pair costs one pass
 // over memory instead of two.
 //
+// K8 (GW = true) replaces FusedPreheatStepper._pair_body: K3 on f, then per
+// hij component two tensor stages (pk_gw_stage), stage 1 with lap h from the
+// hij window and S_ij1 from the gradients of the f window, stage 2 with
+// lap h1 recomposed from the hij, khij and dhijdt taps and S_ij2 from the
+// gradients of the recomposed f1 -- so K8 equals two K7 launches.
+//
 // Bound: memory. Four arrays are read and four written per site (8 * F *
-// sites * sizeof(T) bytes for two stages); f, kf and dfdt are also read at
-// the 6h neighbour taps, through L1/L2. Design as in fused_stage.cu: one
-// thread per site, z fastest, periodic wrap by index arithmetic, 64-bit
-// offsets, outputs to separate buffers, -fmad=false.
+// sites * sizeof(T) bytes for two stages; K8 8 * (F + 6)); f, kf and dfdt
+// (and hij, khij, dhijdt) are also read at the 6h neighbour taps, through
+// L1/L2. Design as in fused_stage.cu: one thread per site, z fastest,
+// periodic wrap by index arithmetic, 64-bit offsets, outputs to separate
+// buffers, -fmad=false, the tensor components one after another.
 #include "pk_common.cuh"
 
 template <typename T>
 struct PkPairParams {
   T dt, a1, hubble1, A1, B1, a2, hubble2, A2, B2;
   PkLapWeights<T> w;
+  PkGradWeights<T> g;  // K8 only
 };
 
-template <typename T>
+template <typename T, bool GW>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
-pk_fused_pair_kernel(const T* __restrict__ f, const T* __restrict__ dfdt,
-                     const T* __restrict__ kf, const T* __restrict__ kdf,
-                     T* __restrict__ f_out, T* __restrict__ dfdt_out,
-                     T* __restrict__ kf_out, T* __restrict__ kdf_out,
-                     int X, int Y, int Z, PkPairParams<T> p) {
+pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
+                     PkPairParams<T> p) {
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int x = blockIdx.z;
   if (z >= Z || y >= Y) return;
   const int64_t N = (int64_t)X * Y * Z;
   const int64_t site = ((int64_t)x * Y + y) * Z + z;
+  const T* __restrict__ f = io.in[0];
+  const T* __restrict__ dfdt = io.in[1];
+  const T* __restrict__ kf = io.in[2];
+  const T* __restrict__ kdf = io.in[3];
+  T* __restrict__ f_out = io.out[0];
+  T* __restrict__ dfdt_out = io.out[1];
+  T* __restrict__ kf_out = io.out[2];
+  T* __restrict__ kdf_out = io.out[3];
 
   // stage 1 on the site (the arithmetic of fused_stage.cu)
   T f0[PK_F], df1[PK_F], kf1[PK_F], kdf1[PK_F], f1[PK_F], dv[PK_F];
@@ -84,15 +98,60 @@ pk_fused_pair_kernel(const T* __restrict__ f, const T* __restrict__ dfdt,
     kf_out[i] = kf2;
     kdf_out[i] = kdf2;
   }
+
+#ifdef PK_NH
+  if constexpr (GW) {
+    // S_ij of both stages: from the f window, and from f1 recomposed at
+    // every tap
+    T dfdx[PK_F][3], sij1[PK_NH], sij2[PK_NH];
+#pragma unroll
+    for (int c = 0; c < PK_F; ++c)
+      pk_grad(PkLoad<T>{f + c * N, Y, Z}, x, y, z, X, Y, Z, p.g, dfdx[c]);
+    pk_sij<T>(dfdx, p.a1, p.hubble1, sij1);
+#pragma unroll
+    for (int c = 0; c < PK_F; ++c) {
+      const PkAxpyLoad<T> load{f + c * N, kf + c * N, {dfdt + c * N},
+                               p.B1, p.A1, p.dt, Y, Z};
+      pk_grad(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
+    }
+    pk_sij<T>(dfdx, p.a2, p.hubble2, sij2);
+
+    const T* __restrict__ h = io.in[4];
+    const T* __restrict__ dh = io.in[5];
+    const T* __restrict__ kh = io.in[6];
+    const T* __restrict__ kdh = io.in[7];
+    const T two_hub1 = T(2) * p.hubble1;
+#pragma unroll 1
+    for (int c = 0; c < PK_NH; ++c) {
+      const int64_t i = c * N + site;
+      const T h0 = h[i];
+      const T lap_h = pk_lap(PkLoad<T>{h + c * N, Y, Z}, h0, x, y, z, X, Y,
+                             Z, p.w);
+      T h1, dh1, kh1, kdh1;
+      pk_gw_stage(h0, dh[i], kh[i], kdh[i], lap_h, sij1[c], p.A1, p.B1, p.dt,
+                  two_hub1, h1, dh1, kh1, kdh1);
+      const PkAxpyLoad<T> load{h + c * N, kh + c * N, {dh + c * N},
+                               p.B1, p.A1, p.dt, Y, Z};
+      const T lap_h1 = pk_lap(load, h1, x, y, z, X, Y, Z, p.w);
+      T h2, dh2, kh2, kdh2;
+      pk_gw_stage(h1, dh1, kh1, kdh1, lap_h1, sij2[c], p.A2, p.B2, p.dt,
+                  two_hub, h2, dh2, kh2, kdh2);
+      io.out[4][i] = h2;
+      io.out[5][i] = dh2;
+      io.out[6][i] = kh2;
+      io.out[7][i] = kdh2;
+    }
+  }
+#endif
 }
 
-// params: dt, a1, hubble1, A1, B1, a2, hubble2, A2, B2, then the Laplacian
-// weights (pk_lap_weights).
-template <typename T>
-static int pk_launch_pair(const void* f, const void* dfdt, const void* kf,
-                          const void* kdf, void* f_out, void* dfdt_out,
-                          void* kf_out, void* kdf_out, int X, int Y, int Z,
-                          const double* params, void* stream) {
+// ins / outs: host arrays of 4 (scalar) or 8 (GW: then hij, dhijdt, khij,
+// kdhijdt) device pointers. params: dt, a1, hubble1, A1, B1, a2, hubble2,
+// A2, B2, then the Laplacian weights (pk_lap_weights) and, for GW, the
+// gradient weights (pk_grad_weights).
+template <typename T, bool GW>
+static int pk_launch_pair(const void* const* ins, void* const* outs, int X,
+                          int Y, int Z, const double* params, void* stream) {
   PkPairParams<T> p;
   p.dt = T(params[0]);
   p.a1 = T(params[1]);
@@ -104,28 +163,32 @@ static int pk_launch_pair(const void* f, const void* dfdt, const void* kf,
   p.A2 = T(params[7]);
   p.B2 = T(params[8]);
   p.w = pk_lap_weights<T>(params + 9);
-  pk_fused_pair_kernel<T>
+  if (GW) p.g = pk_grad_weights<T>(params + 9 + PK_NLAPW);
+  pk_fused_pair_kernel<T, GW>
       <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
-         (cudaStream_t)stream>>>(
-          (const T*)f, (const T*)dfdt, (const T*)kf, (const T*)kdf,
-          (T*)f_out, (T*)dfdt_out, (T*)kf_out, (T*)kdf_out, X, Y, Z, p);
+         (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X, Y,
+                                 Z, p);
   return (int)cudaGetLastError();
 }
 
-extern "C" int pk_fused_pair_f32(const void* f, const void* dfdt,
-                                 const void* kf, const void* kdf, void* fo,
-                                 void* dfo, void* kfo, void* kdfo, int X,
-                                 int Y, int Z, const double* params,
-                                 void* stream) {
-  return pk_launch_pair<float>(f, dfdt, kf, kdf, fo, dfo, kfo, kdfo, X, Y, Z,
-                               params, stream);
+#define PK_PAIR_ARGS                                                        \
+  const void *const *ins, void *const *outs, int X, int Y, int Z,           \
+      const double *params, void *stream
+
+extern "C" int pk_fused_pair_f32(PK_PAIR_ARGS) {
+  return pk_launch_pair<float, false>(ins, outs, X, Y, Z, params, stream);
 }
 
-extern "C" int pk_fused_pair_f64(const void* f, const void* dfdt,
-                                 const void* kf, const void* kdf, void* fo,
-                                 void* dfo, void* kfo, void* kdfo, int X,
-                                 int Y, int Z, const double* params,
-                                 void* stream) {
-  return pk_launch_pair<double>(f, dfdt, kf, kdf, fo, dfo, kfo, kdfo, X, Y, Z,
-                                params, stream);
+extern "C" int pk_fused_pair_f64(PK_PAIR_ARGS) {
+  return pk_launch_pair<double, false>(ins, outs, X, Y, Z, params, stream);
 }
+
+#ifdef PK_NH
+extern "C" int pk_preheat_pair_f32(PK_PAIR_ARGS) {
+  return pk_launch_pair<float, true>(ins, outs, X, Y, Z, params, stream);
+}
+
+extern "C" int pk_preheat_pair_f64(PK_PAIR_ARGS) {
+  return pk_launch_pair<double, true>(ins, outs, X, Y, Z, params, stream);
+}
+#endif

@@ -1,5 +1,6 @@
-// K2: one fused 2N-storage Runge-Kutta stage of a ScalarSector system, and
-// K5: the same stage emitting the energy sums of its entry state.
+// K2: one fused 2N-storage Runge-Kutta stage of a ScalarSector system;
+// K5: the same stage emitting the energy sums of its entry state;
+// K7 and K5': both for the scalar + gravitational-wave system.
 //
 // K2 replaces the Pallas body FusedScalarStepper._scalar_body (+ _dV) of
 // pystella_tpu/ops/fused.py, run by StreamingStencil / ResidentStencil
@@ -12,47 +13,63 @@
 //
 // K5 (ENERGY = true) replaces _scalar_body(energy=True) + _esums, built by
 // _ensure_energy_call, whose sums StreamingStencil._accumulate_sums carries
-// across the TPU grid. It is K2 with the same arithmetic for the four lattice
+// across the TPU grid. It is K2 with the same arithmetic for the lattice
 // outputs (the template flag adds code after it, never inside it), plus, from
 // values the site already holds, the terms dfdt*dfdt and (-f)*lap per
 // component and V(f) -- summed over the lattice in a fixed order
 // (pk_block_sums, pk_finish_sums in pk_common.cuh), in T.
 //
+// K7 (GW = true) replaces FusedPreheatStepper._preheat_body (+ _gw_stage,
+// _sij_eval): K2 on f, then per hij component the tensor stage
+// (pk_gw_stage) with lap h from the hij window and the source S_ij printed
+// from the gradients of the same f window (pk_grad, grad_from_taps order).
+// K5' (GW and ENERGY) replaces FusedPreheatStepper._ensure_energy_call: K7
+// plus the scalar sector's sums only (the expansion couples to the f
+// energy), so its lattice outputs are K7's bit for bit.
+//
 // Bound: memory. Four arrays are read and four written per site (8 * F *
-// sites * sizeof(T) bytes); the arithmetic is ~20 + 9h operations per
-// component (K5 adds ~3 per component, V and the block tree). Design: one
-// thread per site with z fastest, so every load and store is coalesced; the
-// 6h neighbour taps of f are re-read through L1/L2 rather than staged in
-// shared memory; periodic wrap by index arithmetic on all three axes, so any
-// lattice shape runs (the JAX package needed a second, VMEM-resident kernel
-// for small lattices). Offsets are 64-bit. Outputs go to separate buffers: a
-// stencil cannot update its own input in place. The arithmetic order is the
-// JAX body's, and the build uses -fmad=false, so no multiply-add is
-// contracted where the plain PyTorch version rounds twice. K5 writes one
-// partial per term and block (a few MB at 512^3) and reduces them in a
-// second, small launch.
+// sites * sizeof(T) bytes; the GW variants 8 * (F + 6)); the arithmetic is
+// ~20 + 9h operations per component (K5 adds ~3 per component, V and the
+// block tree; K7 adds the 6h-tap gradients and S_ij). Design: one thread per
+// site with z fastest, so every load and store is coalesced; the 6h
+// neighbour taps of f (and hij) are re-read through L1/L2 rather than staged
+// in shared memory; periodic wrap by index arithmetic on all three axes, so
+// any lattice shape runs (the JAX package needed a second, VMEM-resident
+// kernel for small lattices). Offsets are 64-bit. Outputs go to separate
+// buffers: a stencil cannot update its own input in place. The arithmetic
+// order is the JAX body's, and the build uses -fmad=false, so no
+// multiply-add is contracted where the plain PyTorch version rounds twice.
+// The tensor components are updated one after another, so a thread holds one
+// component's values at a time. K5 writes one partial per term and block (a
+// few MB at 512^3) and reduces them in a second, small launch.
 #include "pk_common.cuh"
 
 template <typename T>
 struct PkStageParams {
   T dt, a, hubble, A, B;
   PkLapWeights<T> w;
+  PkGradWeights<T> g;  // the GW variants only
 };
 
-template <typename T, bool ENERGY>
+template <typename T, bool ENERGY, bool GW>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
-pk_fused_stage_kernel(const T* __restrict__ f, const T* __restrict__ dfdt,
-                      const T* __restrict__ kf, const T* __restrict__ kdf,
-                      T* __restrict__ f_out, T* __restrict__ dfdt_out,
-                      T* __restrict__ kf_out, T* __restrict__ kdf_out,
-                      int X, int Y, int Z, PkStageParams<T> p,
-                      T* __restrict__ partials, int64_t nblocks) {
+pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
+                      PkStageParams<T> p, T* __restrict__ partials,
+                      int64_t nblocks) {
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int x = blockIdx.z;
   const bool active = z < Z && y < Y;
   // ENERGY: the block reduction needs every thread of the block
   if (!ENERGY && !active) return;
+  const T* __restrict__ f = io.in[0];
+  const T* __restrict__ dfdt = io.in[1];
+  const T* __restrict__ kf = io.in[2];
+  const T* __restrict__ kdf = io.in[3];
+  T* __restrict__ f_out = io.out[0];
+  T* __restrict__ dfdt_out = io.out[1];
+  T* __restrict__ kf_out = io.out[2];
+  T* __restrict__ kdf_out = io.out[3];
   T terms[PK_NT];
 #pragma unroll
   for (int t = 0; t < PK_NT; ++t) terms[t] = T(0);
@@ -89,19 +106,48 @@ pk_fused_stage_kernel(const T* __restrict__ f, const T* __restrict__ dfdt,
       }
     }
     if (ENERGY) terms[2 * PK_F] = pk_v<T>(fc, p.a, p.hubble);
+
+#ifdef PK_NH
+    if constexpr (GW) {
+      // the tensor stage: S_ij from the gradients of the f window
+      T dfdx[PK_F][3], sij[PK_NH];
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c)
+        pk_grad(PkLoad<T>{f + c * N, Y, Z}, x, y, z, X, Y, Z, p.g, dfdx[c]);
+      pk_sij<T>(dfdx, p.a, p.hubble, sij);
+      const T* __restrict__ h = io.in[4];
+      const T* __restrict__ dh = io.in[5];
+      const T* __restrict__ kh = io.in[6];
+      const T* __restrict__ kdh = io.in[7];
+#pragma unroll 1
+      for (int c = 0; c < PK_NH; ++c) {
+        const int64_t i = c * N + site;
+        const T h0 = h[i];
+        const T lap_h = pk_lap(PkLoad<T>{h + c * N, Y, Z}, h0, x, y, z, X,
+                               Y, Z, p.w);
+        T h1, dh1, kh1, kdh1;
+        pk_gw_stage(h0, dh[i], kh[i], kdh[i], lap_h, sij[c], p.A, p.B, p.dt,
+                    two_hub, h1, dh1, kh1, kdh1);
+        io.out[4][i] = h1;
+        io.out[5][i] = dh1;
+        io.out[6][i] = kh1;
+        io.out[7][i] = kdh1;
+      }
+    }
+#endif
   }
   if (ENERGY) pk_block_sums<T, PK_NT>(terms, partials, nblocks);
 }
 
-// params: dt, a, hubble, A, B, then the Laplacian weights (pk_lap_weights).
-// With ENERGY, partials holds PK_NT * pk_num_blocks(X, Y, Z) values and sums
-// receives the PK_NT entry-state sums.
-template <typename T, bool ENERGY>
-static int pk_launch_stage(const void* f, const void* dfdt, const void* kf,
-                           const void* kdf, void* f_out, void* dfdt_out,
-                           void* kf_out, void* kdf_out, int X, int Y, int Z,
-                           const double* params, void* partials, void* sums,
-                           void* stream) {
+// ins / outs: host arrays of 4 (scalar) or 8 (GW: then hij, dhijdt, khij,
+// kdhijdt) device pointers. params: dt, a, hubble, A, B, then the Laplacian
+// weights (pk_lap_weights) and, for GW, the gradient weights
+// (pk_grad_weights). With ENERGY, partials holds PK_NT * pk_num_blocks(X, Y,
+// Z) values and sums receives the PK_NT entry-state sums.
+template <typename T, bool ENERGY, bool GW>
+static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
+                           int Y, int Z, const double* params,
+                           void* partials, void* sums, void* stream) {
   PkStageParams<T> p;
   p.dt = T(params[0]);
   p.a = T(params[1]);
@@ -109,12 +155,11 @@ static int pk_launch_stage(const void* f, const void* dfdt, const void* kf,
   p.A = T(params[3]);
   p.B = T(params[4]);
   p.w = pk_lap_weights<T>(params + 5);
-  pk_fused_stage_kernel<T, ENERGY>
+  if (GW) p.g = pk_grad_weights<T>(params + 5 + PK_NLAPW);
+  pk_fused_stage_kernel<T, ENERGY, GW>
       <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
-         (cudaStream_t)stream>>>(
-          (const T*)f, (const T*)dfdt, (const T*)kf, (const T*)kdf,
-          (T*)f_out, (T*)dfdt_out, (T*)kf_out, (T*)kdf_out, X, Y, Z, p,
-          (T*)partials, pk_num_blocks(X, Y, Z));
+         (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X, Y,
+                                 Z, p, (T*)partials, pk_num_blocks(X, Y, Z));
   const int rc = (int)cudaGetLastError();
   if (!ENERGY || rc != 0) return rc;
   return pk_finish_sums<T>(partials, sums, PK_NT, X, Y, Z,
@@ -122,31 +167,51 @@ static int pk_launch_stage(const void* f, const void* dfdt, const void* kf,
 }
 
 #define PK_STAGE_ARGS                                                       \
-  const void *f, const void *dfdt, const void *kf, const void *kdf,         \
-      void *fo, void *dfo, void *kfo, void *kdfo, int X, int Y, int Z,      \
+  const void *const *ins, void *const *outs, int X, int Y, int Z,           \
       const double *params
 
 extern "C" int pk_fused_stage_f32(PK_STAGE_ARGS, void* stream) {
-  return pk_launch_stage<float, false>(f, dfdt, kf, kdf, fo, dfo, kfo, kdfo,
-                                       X, Y, Z, params, nullptr, nullptr,
-                                       stream);
+  return pk_launch_stage<float, false, false>(ins, outs, X, Y, Z, params,
+                                              nullptr, nullptr, stream);
 }
 
 extern "C" int pk_fused_stage_f64(PK_STAGE_ARGS, void* stream) {
-  return pk_launch_stage<double, false>(f, dfdt, kf, kdf, fo, dfo, kfo, kdfo,
-                                        X, Y, Z, params, nullptr, nullptr,
-                                        stream);
+  return pk_launch_stage<double, false, false>(ins, outs, X, Y, Z, params,
+                                               nullptr, nullptr, stream);
 }
 
 extern "C" int pk_fused_stage_energy_f32(PK_STAGE_ARGS, void* partials,
                                          void* sums, void* stream) {
-  return pk_launch_stage<float, true>(f, dfdt, kf, kdf, fo, dfo, kfo, kdfo,
-                                      X, Y, Z, params, partials, sums, stream);
+  return pk_launch_stage<float, true, false>(ins, outs, X, Y, Z, params,
+                                             partials, sums, stream);
 }
 
 extern "C" int pk_fused_stage_energy_f64(PK_STAGE_ARGS, void* partials,
                                          void* sums, void* stream) {
-  return pk_launch_stage<double, true>(f, dfdt, kf, kdf, fo, dfo, kfo, kdfo,
-                                       X, Y, Z, params, partials, sums,
-                                       stream);
+  return pk_launch_stage<double, true, false>(ins, outs, X, Y, Z, params,
+                                              partials, sums, stream);
 }
+
+#ifdef PK_NH
+extern "C" int pk_preheat_stage_f32(PK_STAGE_ARGS, void* stream) {
+  return pk_launch_stage<float, false, true>(ins, outs, X, Y, Z, params,
+                                             nullptr, nullptr, stream);
+}
+
+extern "C" int pk_preheat_stage_f64(PK_STAGE_ARGS, void* stream) {
+  return pk_launch_stage<double, false, true>(ins, outs, X, Y, Z, params,
+                                              nullptr, nullptr, stream);
+}
+
+extern "C" int pk_preheat_stage_energy_f32(PK_STAGE_ARGS, void* partials,
+                                           void* sums, void* stream) {
+  return pk_launch_stage<float, true, true>(ins, outs, X, Y, Z, params,
+                                            partials, sums, stream);
+}
+
+extern "C" int pk_preheat_stage_energy_f64(PK_STAGE_ARGS, void* partials,
+                                           void* sums, void* stream) {
+  return pk_launch_stage<double, true, true>(ins, outs, X, Y, Z, params,
+                                             partials, sums, stream);
+}
+#endif

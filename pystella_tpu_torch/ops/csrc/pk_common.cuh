@@ -1,16 +1,21 @@
 // Shared pieces of the fused Runge-Kutta stencil kernels (fused_stage.cu,
 // fused_pair.cu, fused_coupled_pair.cu): the math functions that
 // ops/codegen.py prints, periodic index wrap, the tap loaders, the Laplacian
-// in the accumulation order of the JAX package's lap_from_taps
-// (pystella_tpu/ops/pallas_stencil.py), and the deterministic lattice sums
-// of the energy-emitting kernels.
+// and the gradient in the accumulation order of the JAX package's
+// lap_from_taps and grad_from_taps (pystella_tpu/ops/pallas_stencil.py), the
+// lattice arrays a launch passes, and the deterministic lattice sums of the
+// energy-emitting kernels.
 //
 // Every kernel is compiled against a generated header, pk_model.cuh, which
 // defines PK_F (number of fields), PK_H (stencil radius),
 // pk_dvdf<T>(f, a, hubble, out) and pk_v<T>(f, a, hubble), the model's
 // dV/df_i and V at one site, and, for a model whose V does not read the
 // Hubble rate, PK_HUBBLE_FREE with pk_dvdf_nohub<T>(f, a, out) and
-// pk_v_nohub<T>(f, a).
+// pk_v_nohub<T>(f, a). For the gravitational-wave system it also defines
+// PK_NH (number of hij components), PK_GW_COEF (16 pi) and
+// pk_sij<T>(dfdx, a, hubble, out), the anisotropic stress S_ij from the
+// site's field gradients (with PK_HUBBLE_FREE also pk_sij_nohub); the
+// kernels' GW variants are compiled only then.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -135,6 +140,46 @@ __device__ __forceinline__ T pk_lap(const Load& load, T centre, int x, int y,
   return acc;
 }
 
+// Gradient weights: per axis and offset s = 1..H, coefs[s] * (1 / dx_axis)
+// (host-computed in double, then cast to T, as grad_from_taps forms them).
+template <typename T>
+struct PkGradWeights {
+  T wx[PK_H], wy[PK_H], wz[PK_H];
+};
+
+// grad per axis: acc = 0, then for s = 1..H acc + w * (tap(+s) - tap(-s)) --
+// grad_from_taps term by term; out[d] is the derivative along axis d.
+template <typename T, typename Load>
+__device__ __forceinline__ void pk_grad(const Load& load, int x, int y,
+                                        int z, int X, int Y, int Z,
+                                        const PkGradWeights<T>& w,
+                                        T (&out)[3]) {
+  T gx = T(0), gy = T(0), gz = T(0);
+#pragma unroll
+  for (int s = 1; s <= PK_H; ++s) {
+    gx = gx + w.wx[s - 1] * (load(pk_wrap(x + s, X), y, z)
+                             - load(pk_wrap(x - s, X), y, z));
+    gy = gy + w.wy[s - 1] * (load(x, pk_wrap(y + s, Y), z)
+                             - load(x, pk_wrap(y - s, Y), z));
+    gz = gz + w.wz[s - 1] * (load(x, y, pk_wrap(z + s, Z))
+                             - load(x, y, pk_wrap(z - s, Z)));
+  }
+  out[0] = gx;
+  out[1] = gy;
+  out[2] = gz;
+}
+
+template <typename T>
+static inline PkGradWeights<T> pk_grad_weights(const double* w) {
+  PkGradWeights<T> out;
+  for (int s = 0; s < PK_H; ++s) {
+    out.wx[s] = T(w[s]);
+    out.wy[s] = T(w[PK_H + s]);
+    out.wz[s] = T(w[2 * PK_H + s]);
+  }
+  return out;
+}
+
 template <typename T>
 static inline PkLapWeights<T> pk_lap_weights(const double* w) {
   PkLapWeights<T> out;
@@ -145,6 +190,33 @@ static inline PkLapWeights<T> pk_lap_weights(const double* w) {
     out.wz[s] = T(w[1 + 2 * PK_H + s]);
   }
   return out;
+}
+
+// Number of Laplacian weights in a launch's params (gradient weights, for
+// the GW variants, follow them: 3 * PK_H more).
+#define PK_NLAPW (1 + 3 * PK_H)
+
+// The lattice arrays of a launch, passed to the kernel by value: the C entry
+// points take host arrays of pointers (in order: the scalar system's four,
+// then, for the GW variants, the tensor system's four) and copy them here.
+// Scalar arrays are (PK_F, X, Y, Z), tensor arrays (PK_NH, X, Y, Z).
+#define PK_MAX_ARRAYS 8
+
+template <typename T>
+struct PkArrays {
+  const T* in[PK_MAX_ARRAYS];
+  T* out[PK_MAX_ARRAYS];
+};
+
+template <typename T>
+static inline PkArrays<T> pk_arrays(const void* const* ins,
+                                    void* const* outs, int n) {
+  PkArrays<T> a;
+  for (int k = 0; k < PK_MAX_ARRAYS; ++k) {
+    a.in[k] = k < n ? (const T*)ins[k] : nullptr;
+    a.out[k] = k < n ? (T*)outs[k] : nullptr;
+  }
+  return a;
 }
 
 // One thread per lattice site: z (the contiguous axis) is the fastest
@@ -167,6 +239,23 @@ extern "C" long long pk_num_blocks(int X, int Y, int Z) {
   const dim3 g = pk_grid(X, Y, Z);
   return (long long)g.x * g.y * g.z;
 }
+
+#ifdef PK_NH
+// One 2N-storage stage of a tensor component at a site: the arithmetic of
+// the JAX package's FusedPreheatStepper._gw_stage (pystella_tpu/ops/fused.py),
+// kdh1 = A*kdh0 + dt*((lap_h - (2*hubble)*dh0) + (16 pi)*S_ij), 16 pi being
+// the Python double cast to T. two_hub is T(2) * hubble.
+template <typename T>
+__device__ __forceinline__ void pk_gw_stage(T h0, T dh0, T kh0, T kdh0,
+                                            T lap_h, T sij, T A, T B, T dt,
+                                            T two_hub, T& h1, T& dh1, T& kh1,
+                                            T& kdh1) {
+  kh1 = A * kh0 + dt * dh0;
+  h1 = h0 + B * kh1;
+  kdh1 = A * kdh0 + dt * ((lap_h - two_hub * dh0) + T(PK_GW_COEF) * sij);
+  dh1 = dh0 + B * kdh1;
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // Deterministic lattice sums (the energy-emitting kernels K5, K6).

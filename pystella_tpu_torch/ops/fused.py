@@ -1,13 +1,16 @@
 """Fused Runge-Kutta stages for Klein-Gordon-form systems, on CUDA.
 
-PyTorch counterpart of the ``FusedScalarStepper`` subset of
-``pystella_tpu/ops/fused.py`` that the 2-field preheating hot loop and the
-energy-coupled science driver run. A stage of ``f'' = lap f - 2 H f' - a^2
-dV/df`` under a low-storage (2N) Runge-Kutta tableau is one kernel: each
-site reads f (with its stencil neighbours), dfdt, kf and kdfdt once,
-computes the Laplacian, the right-hand side with the model's ``dV/df``
-(printed into the kernel source by :mod:`~pystella_tpu_torch.ops.codegen`)
-and the 2N update, and writes the four new arrays.
+PyTorch counterpart of ``FusedScalarStepper`` and ``FusedPreheatStepper``
+of ``pystella_tpu/ops/fused.py``, in the parts that the 2-field preheating
+hot loop, the energy-coupled science driver and the gravitational-wave
+system run. A stage of ``f'' = lap f - 2 H f' - a^2 dV/df`` under a
+low-storage (2N) Runge-Kutta tableau is one kernel: each site reads f (with
+its stencil neighbours), dfdt, kf and kdfdt once, computes the Laplacian,
+the right-hand side with the model's ``dV/df`` (printed into the kernel
+source by :mod:`~pystella_tpu_torch.ops.codegen`) and the 2N update, and
+writes the four new arrays. :class:`FusedPreheatStepper` adds the tensor
+perturbations ``h_ij'' = lap h_ij - 2 H h_ij' + 16 pi S_ij`` to the same
+kernel, ``S_ij`` printed from the gradients of the same f window.
 
 Hand-written CUDA kernels (``ops/csrc``):
 
@@ -20,10 +23,16 @@ Hand-written CUDA kernels (``ops/csrc``):
   entry state, for :meth:`coupled_multi_step`;
 - ``coupled_pair`` / ``coupled_pair_deferred`` (K6): the deferred-drag
   stage pair of :meth:`coupled_multi_step`, which emits both stages' energy
-  sums and leaves the second stage's Hubble drag to the next launch.
+  sums and leaves the second stage's Hubble drag to the next launch;
+- ``preheat_stage`` (K7), ``preheat_pair`` (K8), ``preheat_stage_energy``
+  (K5') and ``preheat_coupled_pair`` / ``preheat_coupled_pair_deferred``
+  (K9): the same five for the scalar + gravitational-wave system, a
+  template flag on each scalar kernel that adds the tensor stages after the
+  scalar ones.
 
 Beside each kernel sits its plain PyTorch version (``_scalar_body``,
-``_scalar_pair_core``, ``_esums``, ``_deferred_pair_core``), the same
+``_scalar_pair_core``, ``_esums``, ``_deferred_pair_core``; for the GW
+system ``_preheat_body``, ``_pair_body``, ``_deferred_body``), the same
 per-site arithmetic in the same order on
 :class:`~pystella_tpu_torch.ops.stencil.RollTaps`. A launch wrapper runs
 the kernel for CUDA tensors and the plain version for CPU tensors; it
@@ -46,10 +55,11 @@ from pystella_tpu_torch import step as _step
 from pystella_tpu_torch._device import resolve_device, torch_dtype
 from pystella_tpu_torch.ops import codegen as _codegen
 from pystella_tpu_torch.ops import stencil as _stencil
-from pystella_tpu_torch.ops.derivs import _lap_coefs
+from pystella_tpu_torch.models.sectors import tensor_index
+from pystella_tpu_torch.ops.derivs import _grad_coefs, _lap_coefs
 
-__all__ = ["FusedScalarStepper", "LAUNCHES", "reset_launch_counts",
-           "KERNELS", "SUM_SETS"]
+__all__ = ["FusedScalarStepper", "FusedPreheatStepper", "LAUNCHES",
+           "reset_launch_counts", "KERNELS", "SUM_SETS"]
 
 #: kernel name -> (CUDA source in ops/csrc, the Pallas body it replaces)
 KERNELS = {
@@ -69,17 +79,41 @@ KERNELS = {
         "fused_coupled_pair.cu",
         "pystella_tpu/ops/fused.py:1321 (_deferred_pair_core + "
         "_completed_taps, deferred input)"),
+    "preheat_stage": (
+        "fused_stage.cu",
+        "pystella_tpu/ops/fused.py:1746 (FusedPreheatStepper._preheat_body "
+        "+ _gw_stage :1720, _sij_eval :1732)"),
+    "preheat_pair": (
+        "fused_pair.cu",
+        "pystella_tpu/ops/fused.py:1771 (FusedPreheatStepper._pair_body)"),
+    "preheat_stage_energy": (
+        "fused_stage.cu",
+        "pystella_tpu/ops/fused.py:1932 (FusedPreheatStepper."
+        "_ensure_energy_call: _preheat_body(energy=True))"),
+    "preheat_coupled_pair": (
+        "fused_coupled_pair.cu",
+        "pystella_tpu/ops/fused.py:1891 (FusedPreheatStepper._deferred_body, "
+        "normal input)"),
+    "preheat_coupled_pair_deferred": (
+        "fused_coupled_pair.cu",
+        "pystella_tpu/ops/fused.py:1891 (FusedPreheatStepper._deferred_body, "
+        "deferred input)"),
 }
 
 #: kernel name -> number of (2F+1,) energy-sum vectors it emits
 SUM_SETS = {"fused_stage": 0, "fused_pair": 0, "fused_stage_energy": 1,
-            "coupled_pair": 2, "coupled_pair_deferred": 2}
+            "coupled_pair": 2, "coupled_pair_deferred": 2,
+            "preheat_stage": 0, "preheat_pair": 0, "preheat_stage_energy": 1,
+            "preheat_coupled_pair": 2, "preheat_coupled_pair_deferred": 2}
 
-#: the kernels that need a model whose V and dV/df do not read hubble
-_COUPLED = ("coupled_pair", "coupled_pair_deferred")
+#: the kernels that need a model whose V and dV/df (and S_ij) do not read
+#: hubble
+_COUPLED = ("coupled_pair", "coupled_pair_deferred", "preheat_coupled_pair",
+            "preheat_coupled_pair_deferred")
 
 #: kernel name -> its scalars, in the order the C entry point takes them
-#: (the Laplacian weights follow)
+#: (the Laplacian weights follow them; for the GW kernels, then the
+#: gradient weights)
 _STAGE_PARAMS = ("dt", "a", "hubble", "A", "B")
 _COUPLED_PARAMS = ("dt", "a1", "hubble1", "A1", "B1", "a2", "A2", "B2")
 _PARAMS = {
@@ -90,6 +124,12 @@ _PARAMS = {
     "coupled_pair": _COUPLED_PARAMS,
     "coupled_pair_deferred": _COUPLED_PARAMS + ("hubfix", "B2p"),
 }
+#: the GW kernels take their scalar counterparts' scalars
+_GW_OF = {"preheat_stage": "fused_stage", "preheat_pair": "fused_pair",
+          "preheat_stage_energy": "fused_stage_energy",
+          "preheat_coupled_pair": "coupled_pair",
+          "preheat_coupled_pair_deferred": "coupled_pair_deferred"}
+_PARAMS.update({gw: _PARAMS[sc] for gw, sc in _GW_OF.items()})
 
 #: kernel name -> number of launches since the last reset; each wrapper
 #: adds one where it launches its kernel, and nowhere else
@@ -127,12 +167,23 @@ class FusedScalarStepper(_step.Stepper):
 
     States are dicts ``{"f": (F, X, Y, Z), "dfdt": (F, X, Y, Z)}``. A stencil
     cannot write its own input, so every launch writes into one of two
-    preallocated sets of four arrays (the other set, or the caller's
-    arrays, being its input). The tensors a call returns are therefore the
+    preallocated sets of arrays (the other set, or the caller's arrays,
+    being its input). The tensors a call returns are therefore the
     stepper's own buffers, overwritten by the call after next at the
     latest -- clone what must outlive it (the JAX package's ``multi_step``
     donates its input for the same reason).
     """
+
+    #: the kernel each role runs
+    _KERNEL = {"stage": "fused_stage", "pair": "fused_pair",
+               "stage_energy": "fused_stage_energy",
+               "coupled_pair": "coupled_pair",
+               "coupled_pair_deferred": "coupled_pair_deferred"}
+    #: (field, velocity) state names of each system a kernel updates; a
+    #: launch takes, per system, the field, velocity and their two k-carries
+    _SYSTEMS = (("f", "dfdt"),)
+    #: the anisotropic-stress expressions printed into the kernels (none)
+    _sij_exprs = None
 
     def __init__(self, sector, grid_shape, dx, halo_shape=2, tableau=None,
                  dtype=torch.float32, dt=None, pair_stages=True,
@@ -173,8 +224,12 @@ class FusedScalarStepper(_step.Stepper):
             [coefs[0] * sum(inv_dx2)]
             + [coefs[s] * inv_dx2[ax] for ax in range(3)
                for s in range(1, self.h + 1)])
+        #: the weights a launch passes after its scalars
+        self._weights = list(self._lap_weights)
+        #: component count of each array a kernel reads (and writes)
+        self._comps = (F,) * 4
 
-        self._buffers = None  # two sets of four arrays, made at first use
+        self._buffers = None  # two sets of arrays, made at first use
         self._partials = None  # the sum kernels' per-block scratch
         self._libs = None
         self._num_blocks = None
@@ -200,14 +255,15 @@ class FusedScalarStepper(_step.Stepper):
 
     def kernel_names(self):
         """The kernels this stepper's model can run."""
-        return [n for n in KERNELS
+        return [n for n in self._KERNEL.values()
                 if n not in _COUPLED or self.coupled_pair_available]
 
     def kernel_header(self):
         """The generated C header the kernels are compiled against."""
         return _codegen.model_header(self._dvdf, self._V, self.F, self.h,
                                      field_name=self.sector.f.name,
-                                     hubble_free=self._hubble_free)
+                                     hubble_free=self._hubble_free,
+                                     sij=self._sij_exprs)
 
     def build_kernels(self):
         """Compile (or load from the build cache) this model's kernels for
@@ -219,24 +275,29 @@ class FusedScalarStepper(_step.Stepper):
         fns = {}
         for name in names:
             src = KERNELS[name][0]
-            # inputs, outputs, X, Y, Z, params, [partials, sums], stream
-            argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+            # input and output pointer arrays, X, Y, Z, params, [partials,
+            # sums], stream
+            argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
             argtypes += [ctypes.c_void_p] * (4 if SUM_SETS[name] else 2)
             for dtype, suffix in _SUFFIX.items():
                 fn = getattr(libs[src], f"pk_{name}_{suffix}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 fns[name, dtype] = fn
-        num_blocks = libs[KERNELS["fused_stage"][0]].pk_num_blocks
+        num_blocks = libs[KERNELS[self._KERNEL["stage"]][0]].pk_num_blocks
         num_blocks.argtypes = [ctypes.c_int] * 3
         num_blocks.restype = ctypes.c_longlong
         self._num_blocks = num_blocks
         self._libs = fns
 
-    def _check(self, tensors):
-        ref = tensors[0]
-        shape = (self.F,) + self.grid_shape
-        for t in tensors:
+    def _check(self, ins, outs):
+        n = len(self._comps)
+        if len(ins) != n or len(outs) != n:
+            raise ValueError(f"the fused kernels take {n} arrays in and {n} "
+                             f"out; got {len(ins)} and {len(outs)}")
+        ref = ins[0]
+        for t, c in zip(list(ins) + list(outs), self._comps * 2):
+            shape = (c,) + self.grid_shape
             if (t.device != ref.device or t.dtype != self.dtype
                     or tuple(t.shape) != shape or not t.is_contiguous()):
                 raise ValueError(
@@ -262,13 +323,17 @@ class FusedScalarStepper(_step.Stepper):
         """Run kernel ``name`` on CUDA tensors (counting the launch) or its
         plain version on CPU tensors.
 
-        :arg ins: the four lattice inputs.
-        :arg outs: the four lattice outputs, written.
+        :arg ins: the lattice inputs: per system (:attr:`_SYSTEMS`) the
+            field, the velocity and their k-carries (the deferred pairs:
+            field, velocity, velocity carry, field carry).
+        :arg outs: as many lattice outputs, written.
         :arg params: the scalars, in the order of ``_PARAMS[name]``.
         :returns: ``outs``, followed by the kernel's ``SUM_SETS[name]``
             energy-sum vectors of ``2F + 1`` entries each (new tensors).
         """
-        self._check(list(ins) + list(outs))
+        if name not in self._KERNEL.values():
+            raise ValueError(f"{name} is not a kernel of this stepper")
+        self._check(ins, outs)
         if len(params) != len(_PARAMS[name]):
             raise ValueError(f"{name} takes the scalars {_PARAMS[name]}; got "
                              f"{len(params)} values")
@@ -285,10 +350,11 @@ class FusedScalarStepper(_step.Stepper):
             if X > 65535 or (Y + 7) // 8 > 65535:
                 raise ValueError(f"lattice {self.grid_shape} exceeds the "
                                  "kernels' launch grid")
-            prm = (ctypes.c_double * (len(params) + len(self._lap_weights)))(
-                *params, *self._lap_weights)
-            args = [*(t.data_ptr() for t in ins),
-                    *(t.data_ptr() for t in outs), X, Y, Z, prm]
+            prm = (ctypes.c_double * (len(params) + len(self._weights)))(
+                *params, *self._weights)
+            ptrs = ctypes.c_void_p * len(ins)
+            args = [ptrs(*(t.data_ptr() for t in ins)),
+                    ptrs(*(t.data_ptr() for t in outs)), X, Y, Z, prm]
             sums = []
             if nsums:
                 flat = torch.empty(nsums, dtype=self.dtype, device=dev)
@@ -307,22 +373,23 @@ class FusedScalarStepper(_step.Stepper):
             res = self.plain(name, ins, params)
             for o, r in zip(outs, res):
                 o.copy_(r)
-            return list(outs) + res[4:]
+            return list(outs) + res[len(outs):]
         raise ValueError(f"no fused kernel for device {dev}")
 
     def _out_set(self, ins):
         """A buffer set sharing no storage with the launch's inputs."""
-        ref = ins[0]
-        key = (tuple(ref.shape), ref.dtype, ref.device)
+        key = (tuple(tuple(t.shape) for t in ins), ins[0].dtype,
+               ins[0].device)
         if self._buffers is None or self._buffers[0] != key:
-            self._buffers = (key, [[torch.empty_like(ref) for _ in range(4)]
+            self._buffers = None  # release the old sets first
+            self._buffers = (key, [[torch.empty_like(t) for t in ins]
                                    for _ in range(2)])
         used = {t.untyped_storage().data_ptr() for t in ins}
         for bufs in self._buffers[1]:
             if not used & {b.untyped_storage().data_ptr() for b in bufs}:
                 return bufs
         # inputs mixed from both sets: write fresh arrays instead
-        return [torch.empty_like(ref) for _ in range(4)]
+        return [torch.empty_like(t) for t in ins]
 
     # -- plain PyTorch versions (the kernels' arithmetic) --------------------
 
@@ -334,7 +401,9 @@ class FusedScalarStepper(_step.Stepper):
 
     def plain(self, name, ins, params):
         """Kernel ``name``'s plain version on ``ins`` (any device): the
-        four lattice outputs, then its energy-sum vectors."""
+        lattice outputs, then its energy-sum vectors."""
+        if name not in self._KERNEL.values():
+            raise ValueError(f"{name} is not a kernel of this stepper")
         sc = self._scalars(dict(zip(_PARAMS[name], params)), ins[0])
         R = _stencil.RollTaps
         if name in ("fused_stage", "fused_stage_energy"):
@@ -363,7 +432,7 @@ class FusedScalarStepper(_step.Stepper):
                 f, dfdt, kf, kdf = ins
                 taps = {"f": R(f), "dfdt": R(dfdt), "kf": R(kf)}
                 extras = {"kdfdt": kdf}
-            outs = self._deferred_pair_core(taps, extras, sc, deferred)
+            outs, _ = self._deferred_pair_core(taps, extras, sc, deferred)
             keys = ("f", "dfp", "kf", "kdfp", "esums1", "esums2")
         return [outs[k] for k in keys]
 
@@ -484,7 +553,8 @@ class FusedScalarStepper(_step.Stepper):
         B2p``) and (b) the second stage's Hubble drag left out, its ``dV``
         and ``V`` evaluated with no ``hubble``. Returns ``f, dfp (= df1),
         kf, kdfp`` and the energy sums ``esums1`` (entry state) and
-        ``esums2`` (the stage-1 state, with the recomposed lap f1)."""
+        ``esums2`` (the stage-1 state, with the recomposed lap f1), and the
+        stage-1 field's composed taps."""
         tf, tkf = taps["f"], taps["kf"]
         inv_dx2 = [1.0 / d**2 for d in self.dx]
         coefs = _lap_coefs[self.h]
@@ -521,9 +591,9 @@ class FusedScalarStepper(_step.Stepper):
         kf2 = A2 * kf1 + dt * df1
         f2 = f1 + B2 * kf2
         kdfp = A2 * kdf1 + dt * (lap_f1 - a2 * a2 * self._dV(f1, a2, None))
-        return {"f": f2, "dfp": df1, "kf": kf2, "kdfp": kdfp,
-                "esums1": self._esums(f0, df0, lap_f, a1, hub1),
-                "esums2": self._esums(f1, df1, lap_f1, a2, None)}
+        return ({"f": f2, "dfp": df1, "kf": kf2, "kdfp": kdfp,
+                 "esums1": self._esums(f0, df0, lap_f, a1, hub1),
+                 "esums2": self._esums(f1, df1, lap_f1, a2, None)}, f1_taps)
 
     def _finalize_deferred(self, carry, dt, hubfix, B2p):
         """Complete the deferred stage-2 Hubble drag of a pair with the (by
@@ -532,9 +602,12 @@ class FusedScalarStepper(_step.Stepper):
         state, k = carry
         sc = self._scalars({"dt": dt, "hubfix": hubfix, "B2p": B2p},
                            state["f"])
-        kdf = k["dfdt"] - 2 * sc["dt"] * sc["hubfix"] * state["dfdt"]
-        df = state["dfdt"] + sc["B2p"] * kdf
-        return ({"f": state["f"], "dfdt": df}, {"f": k["f"], "dfdt": kdf})
+        state, k = dict(state), dict(k)
+        for _, v in self._SYSTEMS:
+            kv = k[v] - 2 * sc["dt"] * sc["hubfix"] * state[v]
+            state[v] = state[v] + sc["B2p"] * kv
+            k[v] = kv
+        return state, k
 
     # -- Stepper interface -------------------------------------------------
 
@@ -550,16 +623,20 @@ class FusedScalarStepper(_step.Stepper):
 
     def _inputs(self, carry):
         state, k = carry
-        ins = [state["f"], state["dfdt"], k["f"], k["dfdt"]]
+        ins = [a for y, v in self._SYSTEMS
+               for a in (state[y], state[v], k[y], k[v])]
         if ins[0].device != self.device:
             raise ValueError(f"state is on {ins[0].device}, but this "
                              f"stepper runs on {self.device}")
         return ins
 
-    @staticmethod
-    def _carry_of(outs):
-        return ({"f": outs[0], "dfdt": outs[1]},
-                {"f": outs[2], "dfdt": outs[3]})
+    def _carry_of(self, outs):
+        """The carry a launch's lattice outputs (in :meth:`_inputs` order)
+        make; anything after them is ignored."""
+        state, k = {}, {}
+        for j, (y, v) in enumerate(self._SYSTEMS):
+            state[y], state[v], k[y], k[v] = outs[4 * j:4 * j + 4]
+        return state, k
 
     def _stage_params(self, s, dt, rhs_args):
         return (_float(dt), _float(rhs_args.get("a", 1.0)),
@@ -568,8 +645,8 @@ class FusedScalarStepper(_step.Stepper):
 
     def stage(self, s, carry, t, dt, rhs_args):
         ins = self._inputs(carry)
-        outs = self.launch("fused_stage", ins, self._out_set(ins),
-                            self._stage_params(s, dt, rhs_args))
+        outs = self.launch(self._KERNEL["stage"], ins, self._out_set(ins),
+                           self._stage_params(s, dt, rhs_args))
         return self._carry_of(outs)
 
     def _pair_params(self, s, dt, rhs_args, rhs_args2=None, s2=None):
@@ -607,8 +684,8 @@ class FusedScalarStepper(_step.Stepper):
         step when ``A[0] == 0`` -- see :meth:`multi_step`."""
         self._check_pair(s, s + 1 if s2 is None else s2)
         ins = self._inputs(carry)
-        outs = self.launch("fused_pair", ins, self._out_set(ins),
-                            self._pair_params(s, dt, rhs_args, rhs_args2, s2))
+        outs = self.launch(self._KERNEL["pair"], ins, self._out_set(ins),
+                           self._pair_params(s, dt, rhs_args, rhs_args2, s2))
         return self._carry_of(outs)
 
     def _step_impl(self, state, t, dt, rhs_args):
@@ -709,19 +786,24 @@ class FusedScalarStepper(_step.Stepper):
         """Like :meth:`stage` (K5 in place of K2), additionally returning
         the raw energy sums of the stage's entry state (:meth:`_esums`)."""
         ins = self._inputs(carry)
-        outs = self.launch("fused_stage_energy", ins, self._out_set(ins),
+        outs = self.launch(self._KERNEL["stage_energy"], ins,
+                           self._out_set(ins),
                            self._stage_params(s, dt, rhs_args))
-        return self._carry_of(outs), outs[4]
+        return self._carry_of(outs), outs[len(ins)]
 
     def _coupled_pair(self, carry, deferred, params):
         """One K6 launch on a normal or deferred carry; returns the carry
         in the deferred representation and the two energy-sum vectors."""
-        f, dfdt, kf, kdf = self._inputs(carry)
-        # deferred: the previous pair's f, dfp, kdfp, kf
-        ins = [f, dfdt, kdf, kf] if deferred else [f, dfdt, kf, kdf]
-        name = "coupled_pair_deferred" if deferred else "coupled_pair"
+        ins = self._inputs(carry)
+        if deferred:
+            # per system the previous pair's field, dfp, kdfp, field carry
+            ins = [ins[g + j] for g in range(0, len(ins), 4)
+                   for j in (0, 1, 3, 2)]
+        name = self._KERNEL["coupled_pair_deferred" if deferred
+                            else "coupled_pair"]
         outs = self.launch(name, ins, self._out_set(ins), params)
-        return self._carry_of(outs), outs[4], outs[5]
+        n = len(ins)
+        return self._carry_of(outs), outs[n], outs[n + 1]
 
     def _combine_esums(self, es, a, grid_size):
         """Raw energy sums -> (rho, p) with the CURRENT scale factor: the
@@ -869,3 +951,257 @@ class FusedScalarStepper(_step.Stepper):
         expansion.adot = expansion.dtype.type(adot)
         expansion.hubble = expansion.adot / expansion.a
         return state
+
+
+class FusedPreheatStepper(FusedScalarStepper):
+    """Fused stages for the full preheating system: scalar fields plus
+    transverse metric perturbations sourced by their anisotropic stress,
+    ``h_ij'' = lap h_ij - 2 H h_ij' + 16 pi S_ij``.
+
+    Each stage (and each stage pair) is **one** kernel over both systems:
+    the scalar Laplacian, the gradients ``S_ij`` is printed from and the
+    tensor Laplacian all read the same f and hij taps. The f -> hij coupling
+    is one-way and uses the stage-entry ``f``. The energy sums the coupled
+    driver reads cover the scalar sector only (the expansion couples to the
+    f energy), as in the JAX package.
+
+    :arg gw_sector: a
+        :class:`~pystella_tpu_torch.models.sectors.TensorPerturbationSector`.
+
+    The other arguments are :class:`FusedScalarStepper`'s. States are dicts
+    ``{"f", "dfdt": (F, X, Y, Z), "hij", "dhijdt": (6, X, Y, Z)}``.
+    """
+
+    _KERNEL = {"stage": "preheat_stage", "pair": "preheat_pair",
+               "stage_energy": "preheat_stage_energy",
+               "coupled_pair": "preheat_coupled_pair",
+               "coupled_pair_deferred": "preheat_coupled_pair_deferred"}
+    _SYSTEMS = (("f", "dfdt"), ("hij", "dhijdt"))
+
+    def __init__(self, sector, gw_sector, grid_shape, dx, halo_shape=2,
+                 tableau=None, dtype=torch.float32, dt=None,
+                 pair_stages=True, device=None):
+        # set before super().__init__, which builds the kernels
+        self.gw_sector = gw_sector
+        self.n_hij = gw_sector.hij.shape[0]
+        # symbolic anisotropic-stress components S_ij in terms of dfdx
+        self._sij = {}
+        for i in range(1, 4):
+            for j in range(i, 4):
+                self._sij[tensor_index(i, j)] = sum(
+                    sec.stress_tensor(i, j, drop_trace=True)
+                    for sec in gw_sector.sectors)
+        self._sij_exprs = [self._sij[c] for c in range(self.n_hij)]
+        super().__init__(sector, grid_shape, dx, halo_shape=halo_shape,
+                         tableau=tableau, dtype=dtype, dt=dt,
+                         pair_stages=pair_stages, device=device)
+        self._comps = (self.F,) * 4 + (self.n_hij,) * 4
+        # the gradient weights exactly as grad_from_taps forms them
+        inv_dx = [1.0 / d for d in self.dx]
+        coefs = _grad_coefs[self.h]
+        self._weights += [coefs[s] * inv_dx[ax] for ax in range(3)
+                          for s in range(1, self.h + 1)]
+
+    @property
+    def _hubble_free(self):
+        exprs = [self._V] + list(self._dvdf) + self._sij_exprs
+        return all("hubble" not in _field.field_names(e) for e in exprs)
+
+    # -- plain PyTorch versions (the kernels' arithmetic) --------------------
+
+    def plain(self, name, ins, params):
+        if name not in self._KERNEL.values():
+            raise ValueError(f"{name} is not a kernel of this stepper")
+        sc = self._scalars(dict(zip(_PARAMS[name], params)), ins[0])
+        R = _stencil.RollTaps
+        keys = ("f", "dfdt", "kf", "kdfdt", "hij", "dhijdt", "khij",
+                "kdhijdt")
+        if name in ("preheat_stage", "preheat_stage_energy"):
+            f, dfdt, kf, kdf, h, dh, kh, kdh = ins
+            energy = name == "preheat_stage_energy"
+            outs = self._preheat_body(
+                {"f": R(f), "hij": R(h)},
+                {"dfdt": dfdt, "kf": kf, "kdfdt": kdf, "dhijdt": dh,
+                 "khij": kh, "kdhijdt": kdh}, sc, energy=energy)
+            if energy:
+                keys += ("esums",)
+        elif name == "preheat_pair":
+            f, dfdt, kf, kdf, h, dh, kh, kdh = ins
+            outs = self._pair_body(
+                {"f": R(f), "dfdt": R(dfdt), "kf": R(kf), "hij": R(h),
+                 "dhijdt": R(dh), "khij": R(kh)},
+                {"kdfdt": kdf, "kdhijdt": kdh}, sc)
+        else:
+            deferred = name == "preheat_coupled_pair_deferred"
+            if deferred:
+                names = ("f", "dfp", "kdfp", "kf", "hij", "dhp", "kdhp",
+                         "khij")
+                taps = {n: R(t) for n, t in zip(names, ins)}
+                extras = {}
+            else:
+                f, dfdt, kf, kdf, h, dh, kh, kdh = ins
+                taps = {"f": R(f), "dfdt": R(dfdt), "kf": R(kf),
+                        "hij": R(h), "dhijdt": R(dh), "khij": R(kh)}
+                extras = {"kdfdt": kdf, "kdhijdt": kdh}
+            outs = self._deferred_body(taps, extras, sc, deferred)
+            keys = ("f", "dfp", "kf", "kdfp", "hij", "dhp", "khij", "kdhp",
+                    "esums1", "esums2")
+        return [outs[k] for k in keys]
+
+    @staticmethod
+    def _gw_stage(h0, dh0, kh0, kdh0, lap_h, sij, A, B, dt, hub):
+        """One 2N-storage tensor-sector stage (the identical arithmetic
+        sequence everywhere it appears: single-stage body and both halves
+        of the pair body)."""
+        kh1 = A * kh0 + dt * dh0
+        h1 = h0 + B * kh1
+        kdh1 = A * kdh0 + dt * (lap_h - 2 * hub * dh0
+                                + 16 * np.pi * sij)
+        dh1 = dh0 + B * kdh1
+        return h1, dh1, kh1, kdh1
+
+    def _dfdx(self, ftaps_like):
+        """The field gradients ``(F, 3, X, Y, Z)`` taken through
+        ``ftaps_like`` (raw taps or a composed intermediate field's view),
+        in ``grad_from_taps`` order."""
+        inv_dx = [1.0 / d for d in self.dx]
+        return torch.stack(_stencil.grad_from_taps(
+            ftaps_like, _grad_coefs[self.h], inv_dx), dim=1)
+
+    def _sij_at(self, c, dfdx, a, hub, ref):
+        """Anisotropic-stress component ``c`` from the gradients, shaped
+        like ``ref`` (one component, ``(1, X, Y, Z)``)."""
+        v = _field.evaluate(self._sij_exprs[c],
+                            {"dfdx": dfdx, "a": a, "hubble": hub})
+        return torch.broadcast_to(torch.as_tensor(
+            v, dtype=ref.dtype, device=ref.device), ref.shape)
+
+    def _per_component(self, ref, update):
+        """The tensor outputs ``(hij, dhijdt, khij, kdhijdt)`` (or their
+        deferred counterparts), each ``(n_hij, X, Y, Z)`` like ``ref``,
+        from ``update(c)``, which returns the four for component ``c``.
+        Every operation is elementwise across components, so taking them
+        one at a time changes no value; it keeps the whole-lattice rolls of
+        one component alive at a time, not of six (at 512^3 those of all
+        six at once would not fit beside the inputs)."""
+        outs = [torch.empty_like(ref) for _ in range(4)]
+        for c in range(self.n_hij):
+            for o, r in zip(outs, update(c)):
+                o[c] = r[0]
+        return outs
+
+    def _preheat_body(self, taps, extras, scalars, energy=False):
+        ftaps, htaps = taps["f"], taps["hij"]
+
+        # scalar-system update from the f taps (inherited body; the
+        # expansion couples to the scalar-sector energy only, so the esums
+        # come from the f parts)
+        souts = self._scalar_body(
+            ftaps, {n: extras[n] for n in ("dfdt", "kf", "kdfdt")},
+            scalars, energy=energy)
+
+        inv_dx2 = [1.0 / d**2 for d in self.dx]
+        lap_coefs = _lap_coefs[self.h]
+        dt, a, hub = scalars["dt"], scalars["a"], scalars["hubble"]
+        A, B = scalars["A"], scalars["B"]
+        dh, kh, kdh = extras["dhijdt"], extras["khij"], extras["kdhijdt"]
+        dfdx = self._dfdx(ftaps)
+
+        def update(c):
+            th = htaps.component(c)
+            h0 = th()
+            lap_h = _stencil.lap_from_taps(th, lap_coefs, inv_dx2)
+            return self._gw_stage(h0, dh[c:c + 1], kh[c:c + 1],
+                                  kdh[c:c + 1], lap_h,
+                                  self._sij_at(c, dfdx, a, hub, h0), A, B, dt,
+                                  hub)
+        h2, dh2, kh2, kdh2 = self._per_component(htaps(), update)
+        return {**souts,
+                "hij": h2, "dhijdt": dh2, "khij": kh2, "kdhijdt": kdh2}
+
+    def _pair_body(self, taps, extras, scalars):
+        """Two consecutive stages of the full scalar+GW system (the
+        stage-1 fields are pointwise axpys of the taps, so their Laplacians
+        and gradients compose from the same taps)."""
+        souts, f1_taps = self._scalar_pair_core(taps, extras, scalars)
+
+        kdh = extras["kdhijdt"]
+        inv_dx2 = [1.0 / d**2 for d in self.dx]
+        lap_coefs = _lap_coefs[self.h]
+        dt = scalars["dt"]
+        a1, hub1 = scalars["a1"], scalars["hubble1"]
+        A1, B1 = scalars["A1"], scalars["B1"]
+        a2, hub2 = scalars["a2"], scalars["hubble2"]
+        A2, B2 = scalars["A2"], scalars["B2"]
+        dfdx1 = self._dfdx(taps["f"])
+        dfdx2 = self._dfdx(f1_taps)
+
+        def update(c):
+            th, tdh, tkh = (taps[n].component(c)
+                            for n in ("hij", "dhijdt", "khij"))
+            # stage 1 (identical arithmetic to _preheat_body)
+            h0, dh0 = th(), tdh()
+            lap_h = _stencil.lap_from_taps(th, lap_coefs, inv_dx2)
+            h1, dh1, kh1, kdh1 = self._gw_stage(
+                h0, dh0, tkh(), kdh[c:c + 1], lap_h,
+                self._sij_at(c, dfdx1, a1, hub1, h0), A1, B1, dt, hub1)
+
+            h1_taps = self._axpy_taps(th, tkh, tdh, B1, A1, dt, h1)
+            lap_h1 = _stencil.lap_from_taps(h1_taps, lap_coefs, inv_dx2)
+
+            # stage 2
+            return self._gw_stage(h1, dh1, kh1, kdh1, lap_h1,
+                                  self._sij_at(c, dfdx2, a2, hub2, h0), A2, B2,
+                                  dt, hub2)
+        h2, dh2, kh2, kdh2 = self._per_component(taps["hij"](), update)
+        return {**souts,
+                "hij": h2, "dhijdt": dh2, "khij": kh2, "kdhijdt": kdh2}
+
+    def _deferred_body(self, taps, extras, scalars, in_deferred):
+        """The deferred-drag coupled pair of the full system: the scalar
+        core (:meth:`_deferred_pair_core`) and the tensor pair with the
+        same deferral (stage 2 without its Hubble drag, ``S_ij2`` without
+        ``hubble``)."""
+        souts, f1_taps = self._deferred_pair_core(
+            taps, extras, scalars, in_deferred)
+
+        inv_dx2 = [1.0 / d**2 for d in self.dx]
+        lap_coefs = _lap_coefs[self.h]
+        dt = scalars["dt"]
+        a1, hub1 = scalars["a1"], scalars["hubble1"]
+        A1, B1 = scalars["A1"], scalars["B1"]
+        a2 = scalars["a2"]
+        A2, B2 = scalars["A2"], scalars["B2"]
+        dfdx1 = self._dfdx(taps["f"])
+        dfdx2 = self._dfdx(f1_taps)
+
+        def update(c):
+            th, tkh = taps["hij"].component(c), taps["khij"].component(c)
+            if in_deferred:
+                tdhp, tkdhp = (taps[n].component(c) for n in ("dhp", "kdhp"))
+                tdh = self._completed_taps(tdhp, tkdhp, dt,
+                                           scalars["hubfix"], scalars["B2p"])
+                kdh0 = tkdhp() - 2 * dt * scalars["hubfix"] * tdhp()
+            else:
+                tdh = taps["dhijdt"].component(c)
+                kdh0 = extras["kdhijdt"][c:c + 1]
+
+            # tensor stage 1 (exact scalars; identical arithmetic to
+            # _preheat_body)
+            h0, dh0 = th(), tdh()
+            lap_h = _stencil.lap_from_taps(th, lap_coefs, inv_dx2)
+            h1, dh1, kh1, kdh1 = self._gw_stage(
+                h0, dh0, tkh(), kdh0, lap_h,
+                self._sij_at(c, dfdx1, a1, hub1, h0), A1, B1, dt, hub1)
+
+            h1_taps = self._axpy_taps(th, tkh, tdh, B1, A1, dt, h1)
+            lap_h1 = _stencil.lap_from_taps(h1_taps, lap_coefs, inv_dx2)
+
+            # tensor stage 2 with the Hubble drag deferred
+            kh2 = A2 * kh1 + dt * dh1
+            h2 = h1 + B2 * kh2
+            kdhp = A2 * kdh1 + dt * (lap_h1 + 16 * np.pi
+                                     * self._sij_at(c, dfdx2, a2, None, h0))
+            return h2, dh1, kh2, kdhp
+        h2, dhp, kh2, kdhp = self._per_component(taps["hij"](), update)
+        return {**souts, "hij": h2, "dhp": dhp, "khij": kh2, "kdhp": kdhp}

@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -31,7 +32,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["lap_from_taps", "grad_from_taps", "RollTaps", "build_kernels",
-           "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS"]
+           "build_log", "ptxas_usage", "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC_DIR = Path(__file__).resolve().with_name("csrc")
 #: where built libraries go (listed in .gitignore)
@@ -40,7 +41,8 @@ BUILD_DIR = Path(__file__).resolve().with_name("_build")
 #: plain PyTorch bodies, so kernel and plain version differ only where
 #: PyTorch itself reorders (see ops/fused.py for the stated tolerances)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
 
 
 def lap_from_taps(taps, coefs, inv_dx2):
@@ -94,6 +96,10 @@ class RollTaps:
     def roll(self, arr, sz):
         """Periodic z-shift of a computed block (same convention)."""
         return self._roll1(arr, sz, 3)
+
+    def component(self, c):
+        """The taps of component ``c`` alone, ``(1, X, Y, Z)``."""
+        return RollTaps(self._w[c:c + 1])
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +162,41 @@ def build_kernels(sources, header):
             failures.append(f"{src}:\n{out}")
             Path(tmp).unlink(missing_ok=True)
         else:
+            (lib.parent / "build.log").write_text(out)
             os.replace(tmp, lib)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return {src: ctypes.CDLL(str(lib)) for src, lib in paths.items()}
+
+
+def build_log(source, header):
+    """The compiler output kept from building ``source`` against
+    ``header`` (empty if the library was built before logs were kept)."""
+    log = _library_path(source, header).parent / "build.log"
+    return log.read_text() if log.exists() else ""
+
+
+def ptxas_usage(log):
+    """Registers and spill bytes per kernel from ``-Xptxas -v`` output:
+    ``{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}``
+    (device functions that are not kernels are left out)."""
+    usage, entry, target = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = target = m.group(1)
+            usage[entry] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            target = entry if m.group(1) == entry else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and target is not None:
+            usage[target]["spill_stores"] = int(m.group(1))
+            usage[target]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            usage[entry]["registers"] = int(m.group(1))
+    return usage

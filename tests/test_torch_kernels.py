@@ -252,3 +252,121 @@ def test_coupled_multi_step_card_matches_cpu(cuda, pair):
         assert _rel(got[name], ref[name]) <= 1e-12
     assert abs(e_got.a - e_ref.a) / e_ref.a <= 1e-12
     assert abs(e_got.adot - e_ref.adot) / abs(e_ref.adot) <= 1e-12
+
+
+# -- the gravitational-wave system: K7, K8, K5', K9 --------------------------
+
+GW_KERNELS = ("preheat_stage", "preheat_pair", "preheat_stage_energy",
+              "preheat_coupled_pair", "preheat_coupled_pair_deferred")
+
+
+def _preheat_case(cuda, kernel, grid, dtype, seed=0):
+    """A GW stepper of the bench model and the kernel's eight inputs:
+    bench-like scalar arrays, hij 1e-3 N(0, 1), dhijdt 1e-4 N(0, 1) and
+    small tensor k-carries (the deferred pair takes them as f, dfp, kdfp,
+    kf, hij, dhp, kdhp, khij)."""
+    sector = pt.ScalarSector(2, potential=bench_potential)
+    st = pt.FusedPreheatStepper(sector, pt.TensorPerturbationSector(
+        [sector]), grid, 5.0 / grid[0], H, dtype=dtype, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    amps = (1e-3, 1e-4, 1e-5, 1e-3, 1e-3, 1e-4, 1e-5, 1e-4)
+    ins = [a * torch.randn((2 if j < 4 else 6,) + grid, generator=g,
+                           device=cuda, dtype=dtype)
+           for j, a in enumerate(amps)]
+    return st, ins, _gw_params(kernel, 5.0 / grid[0])
+
+
+def _gw_params(kernel, dx):
+    """A GW kernel takes its scalar counterpart's scalars."""
+    scalar = tfused._GW_OF[kernel]
+    if scalar == "fused_pair":
+        return (0.1 * dx, 1.0, 0.5, A[1], B[1], 1.0, 0.5, A[2], B[2])
+    return _params("fused_stage_energy" if scalar == "fused_stage"
+                   else scalar, dx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", [(16, 16, 16), (48, 40, 36)],
+                         ids=["16cubed", "48x40x36"])
+@pytest.mark.parametrize("kernel", GW_KERNELS)
+def test_preheat_kernel_matches_plain(cuda, kernel, grid, dtype):
+    """K7, K8, K5' and both K9 variants vs their plain versions: the eight
+    lattice outputs at KERNEL_TOL, the scalar sector's sums at SUM_TOL of
+    sum |term|; the launch is counted."""
+    st, ins, params = _preheat_case(cuda, kernel, grid, dtype)
+    plain = st.plain(kernel, ins, params)
+    before = tfused.LAUNCHES[kernel]
+    outs = st.launch(kernel, ins, [torch.empty_like(t) for t in ins],
+                     params)
+    torch.cuda.synchronize()
+    assert tfused.LAUNCHES[kernel] == before + 1
+    assert len(outs) == len(plain) == 8 + tfused.SUM_SETS[kernel]
+    for o, p in zip(outs[:8], plain[:8]):
+        assert _rel(o, p) <= KERNEL_TOL[dtype]
+    if not tfused.SUM_SETS[kernel]:
+        return
+    scales = sum_scales(st, tfused._GW_OF[kernel], ins, outs, params)
+    for got, ref, scale in zip(outs[8:], plain[8:], scales):
+        err = ((got.double() - ref.double()).abs() / scale).max().item()
+        assert err <= SUM_TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel", ["preheat_stage_energy",
+                                    "preheat_coupled_pair",
+                                    "preheat_coupled_pair_deferred"])
+def test_preheat_sums_bitwise_repeatable(cuda, kernel, dtype):
+    """Two launches on the same inputs give bit-equal sums and lattice
+    outputs; K5''s lattice outputs are K7's bit for bit."""
+    st, ins, params = _preheat_case(cuda, kernel, (48, 40, 36), dtype, 1)
+    new = lambda: [torch.empty_like(t) for t in ins]  # noqa
+    one = st.launch(kernel, ins, new(), params)
+    two = st.launch(kernel, ins, new(), params)
+    torch.cuda.synchronize()
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    if kernel == "preheat_stage_energy":
+        k7 = st.launch("preheat_stage", ins, new(), params)
+        torch.cuda.synchronize()
+        for a, b in zip(one[:8], k7):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [True, False], ids=["pair", "single"])
+def test_preheat_coupled_card_matches_cpu(cuda, pair):
+    """FusedPreheatStepper.coupled_multi_step on the card (K9, K5') vs
+    the plain versions on the CPU, 16^3 f64, two steps: 1e-12 in every
+    field, a and adot."""
+    grid = (16, 16, 16)
+    sector = pt.ScalarSector(2, potential=bench_potential)
+    gw = pt.TensorPerturbationSector([sector])
+    g = torch.Generator().manual_seed(4)
+    state = {"f": torch.tensor([0.193, 0.0], dtype=torch.float64)[
+                 :, None, None, None] + 1e-5 * torch.randn(
+                     (2,) + grid, generator=g, dtype=torch.float64),
+             "dfdt": torch.tensor([-0.142231, 0.0], dtype=torch.float64)[
+                 :, None, None, None] + 1e-5 * torch.randn(
+                     (2,) + grid, generator=g, dtype=torch.float64),
+             "hij": 1e-6 * torch.randn((6,) + grid, generator=g,
+                                       dtype=torch.float64),
+             "dhijdt": 1e-7 * torch.randn((6,) + grid, generator=g,
+                                          dtype=torch.float64)}
+    res = {}
+    for dev in ("cpu", cuda):
+        st = pt.FusedPreheatStepper(sector, gw, grid, 5.0 / 16, H,
+                                    dtype=torch.float64, device=dev)
+        exp = pt.Expansion(0.03, pt.LowStorageRK54)
+        out = st.coupled_multi_step({k: v.to(dev) for k, v in
+                                     state.items()}, 2, exp, 0.0,
+                                    0.1 * 5.0 / 16, pair=pair)
+        res[str(dev)] = ({k: v.cpu() for k, v in out.items()}, exp)
+    (ref, e_ref), (got, e_got) = res["cpu"], res[str(cuda)]
+    for name in ("f", "dfdt", "hij", "dhijdt"):
+        assert _rel(got[name], ref[name]) <= 1e-12
+    assert abs(e_got.a - e_ref.a) / e_ref.a <= 1e-12
+    assert abs(e_got.adot - e_ref.adot) / abs(e_ref.adot) <= 1e-12
