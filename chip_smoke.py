@@ -9,7 +9,10 @@ its plain PyTorch version, and drives the port's four main paths through
 the entry points a user calls, at 512^3 in float32:
 
 - the 2-field scalar-preheating hot loop, ``FusedScalarStepper.multi_step``
-  (kernels ``fused_pair`` and ``fused_stage``);
+  (kernels ``fused_pair`` and ``fused_stage``), and the same with the
+  whole-RK-chunk tier, ``chunk_stages=4`` (``fused_chunk`` first), with
+  float32 and with bfloat16 carries (``carry_dtype=torch.bfloat16``: the
+  ``:bf16`` variants of the three kernels);
 - the energy-coupled driver, ``FusedScalarStepper.coupled_multi_step`` with
   ``Expansion`` and ``Reduction`` (kernels ``coupled_pair``,
   ``coupled_pair_deferred`` and ``fused_stage_energy``);
@@ -62,9 +65,16 @@ KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
 #: two add ~1e8 terms in different orders (about log2(n) ulp apart), and
 #: -f lap f has mixed signs, so the sum itself is no scale
 SUM_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
-#: one pair launch vs two single-stage launches: the same operations in
-#: the same order (tests/test_fused.py:64 holds the JAX pair to 1e-14)
+#: one pair launch vs two single-stage launches, one chunk launch vs two
+#: pair launches, and the chunk path's final state vs the pair path's: the
+#: same operations in the same order (tests/test_fused.py:64 holds the JAX
+#: pair to 1e-14; 0.0 is expected under -fmad=false)
 IDENTITY_TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
+#: the bf16-carry main path vs the f32-carry one: the carry quantization's
+#: accuracy bar (tests/test_fused.py:416)
+BF16_PATH_TOL = 1e-2
+#: the chunk depth the chunk paths run
+CHUNK = 4
 #: the deferred-drag pair + finalize vs the K3 pair with hubble2 = hubfix:
 #: one dt distribution re-associated (rounding level)
 DEFERRED_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -113,17 +123,19 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def kernel_inputs(shape, dtype, seed, F=2, gw=False):
+def kernel_inputs(shape, dtype, seed, F=2, gw=False, dtypes=None):
     """Four lattice inputs at bench-like amplitudes from a seeded generator
     (f, dfdt, kf, kdfdt; for the deferred pair f, dfp, kdfp, kf); with
     ``gw`` four more of 6 components, the tensor system's: hij 1e-3 N(0, 1),
-    dhijdt 1e-4 N(0, 1) and small k-carries."""
+    dhijdt 1e-4 N(0, 1) and small k-carries. ``dtypes``: each array's
+    storage dtype (bf16 carries are drawn in ``dtype`` and rounded)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     amps = [(F, a) for a in (1e-3, 1e-4, 1e-5, 1e-3)]
     if gw:
         amps += [(6, a) for a in (1e-3, 1e-4, 1e-5, 1e-4)]
-    return [a * torch.randn((c,) + shape, generator=g, device="cuda",
-                            dtype=dtype) for c, a in amps]
+    out = [a * torch.randn((c,) + shape, generator=g, device="cuda",
+                           dtype=dtype) for c, a in amps]
+    return out if dtypes is None else [t.to(d) for t, d in zip(out, dtypes)]
 
 
 def kernel_params(name, dx):
@@ -134,6 +146,12 @@ def kernel_params(name, dx):
     name = tfused._GW_OF.get(name, name)
     A, B = pt.LowStorageRK54._A, pt.LowStorageRK54._B
     dt = 0.1 * dx
+    if name == "fused_chunk":
+        # stages 1-4 of RK54 with a slowly varying background
+        params = [dt]
+        for k, s in enumerate(range(1, CHUNK + 1)):
+            params += [1.0 + 0.01 * k, 0.5 - 0.01 * k, A[s % 5], B[s % 5]]
+        return tuple(params)
     if name in ("fused_stage", "fused_stage_energy"):
         return (dt, 1.0, 0.5, A[1], B[1])
     if name == "fused_pair":
@@ -207,6 +225,8 @@ def ops_per_site(name, stepper):
     coupled = pair - 2 * F + 2 * sums
     deferred = F * 4 * (6 * h + 1) + 2
     ops = {"fused_stage": stage, "fused_stage_energy": stage + sums,
+           # the chunk's stages without the halo's redundant recompute
+           "fused_chunk": CHUNK * stage,
            "fused_pair": pair, "coupled_pair": coupled,
            "coupled_pair_deferred": coupled + deferred}
     if name in ops:
@@ -354,12 +374,15 @@ def case_tag(shape, dtype):
 def kernels_vs_plain(phase, make_stepper, names, cases, errs, gw=False):
     """Each kernel vs its plain version on seeded inputs, at every (shape,
     dtype) of ``cases``; every sum-emitting kernel twice for bit-equal
-    sums. Fills ``errs[name][case_tag]`` and fails on a disagreement."""
+    sums. Fills ``errs[key][case_tag]`` (``key``: the kernel's LAUNCHES
+    name, ``<name>:bf16`` on a bf16-carry stepper) and fails on a
+    disagreement."""
     from pystella_tpu_torch.ops import fused as tfused
     for shape, dtype in cases:
         st = make_stepper(shape, dtype)
         for seed, name in enumerate(names):
-            ins = kernel_inputs(shape, dtype, seed, gw=gw)
+            ins = kernel_inputs(shape, dtype, seed, gw=gw,
+                                dtypes=st._dtypes)
             params = kernel_params(name, BOX / shape[0])
             plain = st.plain(name, ins, params)
             outs = st.launch(name, ins, [torch.empty_like(t) for t in ins],
@@ -390,13 +413,14 @@ def kernels_vs_plain(phase, make_stepper, names, cases, errs, gw=False):
                 del again
             else:
                 del plain
-            errs[name][case_tag(shape, dtype)] = row
-            emit({"phase": phase, "kernel": name, "shape": shape,
+            key = st.counted_name(name)
+            errs.setdefault(key, {})[case_tag(shape, dtype)] = row
+            emit({"phase": phase, "kernel": key, "shape": shape,
                   "dtype": str(dtype),
                   "rel_err": {n: r for n, (r, _) in per_output.items()},
                   **row})
             if not ok:
-                raise SystemExit(f"{name} disagrees with its plain version "
+                raise SystemExit(f"{key} disagrees with its plain version "
                                  f"at {shape} {dtype}: {row}")
             del ins, outs
             torch.cuda.empty_cache()
@@ -449,6 +473,38 @@ def identities(phase, make_stepper, gw=False):
             raise SystemExit(f"coupled pair + finalize != fused pair "
                              f"({dtype}): {deferred}")
         del st, ins, pair, coupled, state, k, ref
+        torch.cuda.empty_cache()
+
+
+def chunk_identity(phase, make_stepper):
+    """On the card, at 256^3: one chunk launch (K10) == two pair launches
+    (K3), state and carries, in f64, f32 and f32 with bf16 carries; the
+    gap is recorded (0.0 expected) and the bf16 carries must be bit-equal."""
+    shape = ALT_SHAPES[0]
+    for dtype, cd in ((torch.float64, None), (torch.float32, None),
+                      (torch.float32, torch.bfloat16)):
+        st = make_stepper(shape, dtype, cd)
+        ins = kernel_inputs(shape, dtype, 8, dtypes=st._dtypes)
+        p = kernel_params("fused_chunk", BOX / shape[0])
+        new = lambda: [torch.empty_like(t) for t in ins]  # noqa
+        chunk = st.launch("fused_chunk", ins, new(), p)
+        mid = st.launch("fused_pair", ins, new(), p[:9])
+        two = st.launch("fused_pair", mid, new(), p[:1] + p[9:])
+        torch.cuda.synchronize()
+        labels = ("f", "dfdt", "kf", "kdfdt")
+        errs = {n: rel_err(a, b)[0] for n, a, b in zip(labels, chunk, two)}
+        bitwise = {n: torch.equal(a, b)
+                   for n, a, b in zip(labels, chunk, two)}
+        worst = max(errs.values())
+        emit({"phase": phase, "shape": shape, "dtype": str(dtype),
+              "carry_dtype": str(cd or dtype),
+              "chunk_vs_two_pairs_rel_err": errs, "max_rel_err": worst,
+              "bitwise": bitwise, "tol": IDENTITY_TOL[dtype]})
+        if not worst <= IDENTITY_TOL[dtype]:
+            raise SystemExit(f"chunk != two pairs ({dtype}, {cd}): {errs}")
+        if cd is not None and not (bitwise["kf"] and bitwise["kdfdt"]):
+            raise SystemExit(f"chunk carries != two pairs' ({dtype}, {cd})")
+        del st, ins, chunk, mid, two
         torch.cuda.empty_cache()
 
 
@@ -528,7 +584,8 @@ def time_kernels(phase, st, names, seed0, timing):
     sites = math.prod(GRID)
     gw = len(st._comps) > 4
     for seed, name in enumerate(names):
-        ins = kernel_inputs(GRID, torch.float32, seed0 + seed, gw=gw)
+        ins = kernel_inputs(GRID, torch.float32, seed0 + seed, gw=gw,
+                            dtypes=st._dtypes)
         params = kernel_params(name, BOX / GRID[0])
         sets = [[torch.empty_like(t) for t in ins] for _ in range(2)]
         n = [0]
@@ -543,37 +600,64 @@ def time_kernels(phase, st, names, seed0, timing):
         plain_ms = cuda_ms(lambda: st.plain(name, ins, params),
                            reps=2 if gw else 3)
         plain_peak = torch.cuda.max_memory_allocated() / 2**30
-        nbytes = (2 * sum(st._comps) * sites
-                  + tfused.SUM_SETS[name] * (2 * st.F + 1)) * 4
+        # each array once in and once out at its storage width (the bf16
+        # carries at 2 bytes), plus the f32 sum vectors
+        nbytes = (2 * sites * sum(c * d.itemsize
+                                  for c, d in zip(st._comps, st._dtypes))
+                  + tfused.SUM_SETS[name] * (2 * st.F + 1) * 4)
         ops = ops_per_site(name, st) * sites
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / PEAK_F32_OPS * 1e3
         bound = max(bytes_ms, ops_ms)
-        timing[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": "bytes" if bytes_ms >= ops_ms
-                        else "operations",
-                        "bytes": nbytes, "ops": ops}
-        row = dict(timing[name])
+        key = st.counted_name(name)
+        timing[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": "bytes" if bytes_ms >= ops_ms
+                       else "operations",
+                       "bytes": nbytes, "ops": ops,
+                       "share_of_bound": bound / ms}
+        row = dict(timing[key])
         if gw:
-            row["share_of_bound"] = bound / ms
             row["plain_peak_memory_GiB"] = plain_peak
-        emit({"phase": phase, "kernel": name, "shape": GRID,
+        emit({"phase": phase, "kernel": key, "shape": GRID,
               "dtype": "torch.float32", **row})
         del ins
         torch.cuda.empty_cache()
 
 
-def main_path(phase, st, state, names, timing, launches, extra_check=None):
-    """``multi_step(NSTEPS)`` at 512^3 f32: a warm-up chunk, a timed
-    chunk and one tail step (2 pair launches + 1 single stage, the odd
-    remainder of a run whose length is not a multiple of the chunk); the
-    launch counts of the whole run go to ``launches``."""
+def schedule(st, nsteps):
+    """Launches by role of ``multi_step(nsteps)`` (A[0] == 0: chunks, then
+    pairs, then a single stage, across step boundaries)."""
+    counts = {}
+    for role, _, _ in st._plan(st.num_stages * nsteps):
+        counts[role] = counts.get(role, 0) + 1
+    return counts
+
+
+def main_path(phase, st, state, timing, launches, extra_check=None):
+    """``multi_step(NSTEPS)`` at 512^3 f32: a warm-up chunk, a timed chunk
+    and one tail step (the odd remainder of a run whose length is not a
+    multiple of the chunk). The launch counts of the whole run must be
+    the schedule's (for RK54 on the pair tier 2 x 25 pairs + 2 pairs and 1
+    single stage; with ``chunk_stages=4`` 2 x (12 chunks + 1 pair) + 1
+    chunk and 1 single) and go to ``launches`` for each kernel a path
+    before has not counted; bytes and kernel share follow the tier report.
+    Returns the final state."""
     from pystella_tpu_torch.ops import fused as tfused
     sites = math.prod(GRID)
     dt = 0.1 * BOX / GRID[0]
     args = {"a": 1.0, "hubble": 0.5}
+    report = st.kernel_tier_report()
+    names = {r: st.counted_name(st._KERNEL[k]) for r, k in st._ROLE.items()
+             if k in st._KERNEL}
+    expected = {}
+    for n in (NSTEPS, NSTEPS, 1):
+        for r, c in schedule(st, n).items():
+            expected[names[r]] = expected.get(names[r], 0) + c
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # what the path holds: its input state, the k-carry and two buffer sets
+    held_before = torch.cuda.memory_allocated() - sum(
+        v.numel() * v.element_size() for v in state.values())
     tfused.reset_launch_counts()
     state = st.multi_step(state, NSTEPS, 0.0, dt, args)  # warmup chunk
     start = torch.cuda.Event(enable_timing=True)
@@ -588,28 +672,35 @@ def main_path(phase, st, state, names, timing, launches, extra_check=None):
     elapsed = start.elapsed_time(end) / 1e3
     state = st.multi_step(state, 1, 0.0, dt, args)  # the tail step
     torch.cuda.synchronize()
-    path_launches = dict(tfused.LAUNCHES)
-    for name in names:
-        launches[name] = path_launches[name]
+    path_launches = {k: v for k, v in tfused.LAUNCHES.items() if v}
+    for name in expected:
+        launches.setdefault(name, path_launches.get(name, 0))
 
-    pair = st._KERNEL["pair"]
-    npairs = -(-st.num_stages * NSTEPS // 2)
-    # component arrays a pair launch reads and writes
-    transfers = 2 * sum(st._comps)
+    timed = schedule(st, NSTEPS)
+    # the timed chunk's bytes: its launches, each array once in and once out
+    timed_bytes = report["bytes_per_launch"] * sum(timed.values())
     finite = all(bool(torch.isfinite(v).all()) for v in state.values())
     shapes_ok = all(tuple(v.shape[1:]) == GRID for v in state.values())
     row = {"phase": phase, "grid": GRID, "dtype": "torch.float32",
-           "nsteps_timed": NSTEPS,
+           "carry_dtype": str(st.carry_dtype or st.dtype),
+           "tier": report["tier"], "nsteps_timed": NSTEPS,
            "ms_per_step": elapsed / NSTEPS * 1e3,
            "site_updates_per_s": sites * NSTEPS / elapsed,
-           "effective_GB_per_s": transfers * npairs * sites * 4 / elapsed
-           / 1e9,
+           "effective_GB_per_s": timed_bytes / elapsed / 1e9,
+           "bytes_floor_ms_per_step": timed_bytes / NSTEPS
+           / HBM_BYTES_PER_S * 1e3,
+           "tier_report": report,
            "host_s": host_s, "launches": path_launches,
-           # the chunk's pair launches at the separately timed per-launch
-           # cost, over the chunk's device time: the share the card spent
-           # in the kernel (1 minus it is launch gaps and other work)
-           "kernel_share_est": npairs * timing[pair]["ms"] / 1e3 / elapsed,
+           "expected_launches": expected,
+           # the timed chunk's launches at the separately timed per-launch
+           # costs, over the chunk's device time: the share the card spent
+           # in the kernels (1 minus it is launch gaps and other work)
+           "kernel_share_est": sum(
+               c * timing[names[r]]["ms"] for r, c in timed.items())
+           / 1e3 / elapsed,
            "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30,
+           "path_memory_GiB": (torch.cuda.max_memory_allocated()
+                               - held_before) / 2**30,
            "finite": finite, "f_rms": state["f"].double().pow(2).mean()
            .sqrt().item()}
     ok = finite and shapes_ok
@@ -621,9 +712,10 @@ def main_path(phase, st, state, names, timing, launches, extra_check=None):
     if not ok:
         raise SystemExit(f"{phase} produced a non-finite, misshapen or "
                          "unsourced state")
-    for name in names:
-        if launches[name] < 1:
-            raise SystemExit(f"{phase} never launched {name}")
+    if path_launches != expected:
+        raise SystemExit(f"{phase} launched {path_launches}, not the "
+                         f"schedule's {expected}")
+    return state
 
 
 def coupled_main_path(phase, st, state, names, launches, trace=None,
@@ -758,39 +850,61 @@ def main():
     sector = pt.ScalarSector(2, potential=potential)
     gw_sector = pt.TensorPerturbationSector([sector])
     dx = BOX / GRID[0]
-    scalar_kernels = list(pt.FusedScalarStepper._KERNEL.values())
+    scalar_kernels = [n for r, n in pt.FusedScalarStepper._KERNEL.items()
+                      if r != "chunk"]
+    chunk_kernels = ["fused_stage", "fused_pair", "fused_chunk"]
 
-    # -- 2. build (every kernel, float32 and float64, one nvcc a source;
-    #       the scalar and the GW model's sources all at once) ---------------
+    # -- 2. build (every kernel, float32 and float64, with and without bf16
+    #       carries, one nvcc a source; the scalar model's sources, the
+    #       chunk's included, and the GW model's all at once) ----------------
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
-        scalar_build = pool.submit(pt.FusedScalarStepper, sector, GRID, dx,
-                                   HALO, dtype=torch.float32, device="cuda")
-        gw_build = pool.submit(pt.FusedPreheatStepper, sector, gw_sector,
-                               GRID, dx, HALO, dtype=torch.float32,
-                               device="cuda")
-        main_st, gw_st = scalar_build.result(), gw_build.result()
+        # no future outlives this line: a future would keep its stepper,
+        # and so its buffers, alive after the stepper is deleted
+        chunk_st, gw_st = (f.result() for f in (
+            pool.submit(pt.FusedScalarStepper, sector, GRID, dx, HALO,
+                        dtype=torch.float32, chunk_stages=CHUNK,
+                        device="cuda"),
+            pool.submit(pt.FusedPreheatStepper, sector, gw_sector, GRID, dx,
+                        HALO, dtype=torch.float32, device="cuda")))
     build_s = time.perf_counter() - t0
+    main_st = pt.FusedScalarStepper(sector, GRID, dx, HALO,
+                                    dtype=torch.float32, device="cuda")
+    tiles = {str(d): chunk_st.chunk_kernel_tile(d)
+             for d in (torch.float32, torch.float64)}
     emit({"phase": "build", "seconds": build_s,
           "sources": sorted({src for src, _ in tfused.KERNELS.values()}),
-          "kernels": main_st.kernel_names() + gw_st.kernel_names(),
+          "kernels": chunk_st.kernel_names() + gw_st.kernel_names(),
           "build_dir": str(pt.ops.stencil.BUILD_DIR),
-          "ptxas": ptxas_report(main_st, gw_st)})
+          "ptxas": ptxas_report(chunk_st, gw_st),
+          # K10's dynamic shared memory: the output tile and bytes a block
+          "fused_chunk_tile": {d: {"tile": t[0], "smem_bytes_per_block":
+                                   t[1]} for d, t in tiles.items()}})
     if main_st.kernel_names() != scalar_kernels:
         raise SystemExit("the main model did not build every kernel")
+    if chunk_st.kernel_names() != scalar_kernels[:2] + ["fused_chunk"] + \
+            scalar_kernels[2:]:
+        raise SystemExit("the chunk stepper did not build the chunk kernel")
     if gw_st.kernel_names() != list(GW_KERNELS):
         raise SystemExit("the GW model did not build every kernel")
 
     # -- 3. kernels vs plain, at the main path's shape and others; every
     #       sum-emitting kernel twice for bit-equal sums ----------------------
-    errs = {name: {} for name in tfused.KERNELS}
+    errs = {}
     cases = [(GRID, torch.float32)] + [
         (shape, dtype) for shape in ALT_SHAPES
         for dtype in (torch.float32, torch.float64)]
 
-    def scalar_stepper(shape, dtype):
+    def scalar_stepper(shape, dtype, carry_dtype=None, chunk=0):
         return pt.FusedScalarStepper(sector, shape, BOX / shape[0], HALO,
-                                     dtype=dtype, device="cuda")
+                                     dtype=dtype, carry_dtype=carry_dtype,
+                                     chunk_stages=chunk, device="cuda")
+
+    def chunk_stepper(shape, dtype, carry_dtype=None):
+        return scalar_stepper(shape, dtype, carry_dtype, CHUNK)
+
+    def bf16_stepper(shape, dtype):
+        return chunk_stepper(shape, dtype, torch.bfloat16)
 
     def gw_stepper(shape, dtype):
         return pt.FusedPreheatStepper(sector, gw_sector, shape,
@@ -813,25 +927,78 @@ def main():
     coupled_reference("coupled_reference", st, sector)
     del st
 
-    # -- 7. kernel and plain times at the main path's shape ------------------
+    # -- 7. the chunk kernel (K10) vs plain at the main path's shape and the
+    #       others; the bf16-carry K2, K3 and K10 in f32 at 512^3 and
+    #       48x40x36 ---------------------------------------------------------
+    kernels_vs_plain("chunk_kernel_vs_plain", chunk_stepper, ["fused_chunk"],
+                     cases, errs)
+    kernels_vs_plain("chunk_kernel_vs_plain", bf16_stepper, chunk_kernels,
+                     [(GRID, torch.float32), (ALT_SHAPES[1], torch.float32)],
+                     errs)
+
+    # -- 8. chunk identity: one K10 == two K3, state and carries ------------
+    chunk_identity("chunk_identity", chunk_stepper)
+
+    # -- 9. chunk reference: chunk multi_step(3) vs the generic stepper ----
+    st = chunk_stepper(SMALL, torch.float64)
+    reference("chunk_reference", st, sector, 1e-12)
+    del st
+
+    # -- 10. kernel and plain times at the main path's shape -----------------
     timing = {}
     time_kernels("kernel_time", main_st, scalar_kernels, 10, timing)
+    time_kernels("chunk_kernel_time", chunk_st, ["fused_chunk"], 30, timing)
+    bf16_st = bf16_stepper(GRID, torch.float32)
+    time_kernels("chunk_kernel_time", bf16_st, chunk_kernels, 40, timing)
 
     launches = {}
 
-    # -- 8. main path: bench model, 512^3 f32, multi_step --------------------
-    g = torch.Generator(device="cuda").manual_seed(7)
-    state = {"f": 1e-3 * torch.randn((2,) + GRID, generator=g,
-                                     device="cuda", dtype=torch.float32),
-             "dfdt": 1e-4 * torch.randn((2,) + GRID, generator=g,
-                                        device="cuda", dtype=torch.float32)}
-    main_path("main_path", main_st, state, ("fused_pair", "fused_stage"),
-              timing, launches)
-    del state
+    # -- 11. main path: bench model, 512^3 f32, multi_step on the pair tier,
+    #        then on the chunk tier from the same state (the final states
+    #        must agree) and with bf16 carries -------------------------------
+    def bench_state():
+        g = torch.Generator(device="cuda").manual_seed(7)
+        return {"f": 1e-3 * torch.randn((2,) + GRID, generator=g,
+                                        device="cuda", dtype=torch.float32),
+                "dfdt": 1e-4 * torch.randn((2,) + GRID, generator=g,
+                                           device="cuda",
+                                           dtype=torch.float32)}
+
+    pair_final = {k: v.clone() for k, v in main_path(
+        "main_path", main_st, bench_state(), timing, launches).items()}
+    torch.cuda.empty_cache()
+    chunk_final = {k: v.clone() for k, v in main_path(
+        "chunk_main_path", chunk_st, bench_state(), timing, launches).items()}
+    del chunk_st
+    torch.cuda.empty_cache()
+    errs_vs_pair = {k: rel_err(chunk_final[k], pair_final[k])[0]
+                    for k in pair_final}
+    emit({"phase": "chunk_main_path_vs_pair", "rel_err": errs_vs_pair,
+          "bitwise": {k: torch.equal(chunk_final[k], pair_final[k])
+                      for k in pair_final},
+          "tol": IDENTITY_TOL[torch.float32]})
+    if not max(errs_vs_pair.values()) <= IDENTITY_TOL[torch.float32]:
+        raise SystemExit(f"the chunk path's final state differs from the "
+                         f"pair path's: {errs_vs_pair}")
+    del pair_final
+    bf16_final = main_path("chunk_bf16_main_path", bf16_st, bench_state(),
+                           timing, launches)
+    errs_vs_f32 = {k: rel_err(bf16_final[k], chunk_final[k])[0]
+                   for k in chunk_final}
+    differs = any(not torch.equal(bf16_final[k], chunk_final[k])
+                  for k in chunk_final)
+    emit({"phase": "chunk_bf16_main_path_vs_f32_carries",
+          "rel_err": errs_vs_f32, "differs": differs,
+          "tol": BF16_PATH_TOL})
+    if not (max(errs_vs_f32.values()) <= BF16_PATH_TOL and differs):
+        raise SystemExit(f"the bf16-carry path is not within "
+                         f"{BF16_PATH_TOL} of the f32-carry one, or equals "
+                         f"it: {errs_vs_f32}")
+    del bf16_st, bf16_final, chunk_final
     torch.cuda.empty_cache()
 
-    # -- 9. coupled main path: the example model, 512^3 f32, and
-    # -- 10. where its chunk's device time goes (torch.profiler) ------------
+    # -- 12. coupled main path: the example model, 512^3 f32, and
+    # -- 13. where its chunk's device time goes (torch.profiler) ------------
     coupled_main_path("coupled_main_path", main_st,
                       background_state(GRID, torch.float32, 11),
                       SUM_KERNELS, launches, trace="coupled_trace")
@@ -839,25 +1006,25 @@ def main():
     del main_st
     torch.cuda.empty_cache()
 
-    # -- 11. the GW kernels vs plain (the main path's shape and others) ----
+    # -- 14. the GW kernels vs plain (the main path's shape and others) ----
     kernels_vs_plain("preheat_kernel_vs_plain", gw_stepper, GW_KERNELS,
                      cases, errs, gw=True)
 
-    # -- 12. GW identities: K8 == two K7, K5' == K7 bitwise, K9 + finalize
+    # -- 15. GW identities: K8 == two K7, K5' == K7 bitwise, K9 + finalize
     #        == K8 with hubble2 = hubfix --------------------------------------
     identities("preheat_identity", gw_stepper, gw=True)
 
-    # -- 13. GW reference: multi_step vs the generic GW stepper, and
+    # -- 16. GW reference: multi_step vs the generic GW stepper, and
     #        coupled_multi_step vs the per-stage driver loop, 32^3 f64 -------
     st = gw_stepper(SMALL, torch.float64)
     reference("preheat_reference", st, sector, GW_REFERENCE_TOL, gw=True)
     coupled_reference("preheat_coupled_reference", st, sector, gw=True)
     del st
 
-    # -- 14. GW kernel and plain times at 512^3 f32 ---------------------------
+    # -- 17. GW kernel and plain times at 512^3 f32 ---------------------------
     time_kernels("preheat_kernel_time", gw_st, GW_KERNELS, 20, timing)
 
-    # -- 15. GW main path: multi_step at 512^3 f32 from the bench state for
+    # -- 18. GW main path: multi_step at 512^3 f32 from the bench state for
     #        f and hij = dhijdt = 0; the source must reach hij ---------------
     g = torch.Generator(device="cuda").manual_seed(7)
     state = {"f": 1e-3 * torch.randn((2,) + GRID, generator=g,
@@ -869,13 +1036,12 @@ def main():
              "dhijdt": torch.zeros((6,) + GRID, device="cuda",
                                    dtype=torch.float32)}
 
-    main_path("preheat_main_path", gw_st, state,
-              ("preheat_pair", "preheat_stage"), timing, launches,
+    main_path("preheat_main_path", gw_st, state, timing, launches,
               extra_check=sourced)
     del state
     torch.cuda.empty_cache()
 
-    # -- 16. GW coupled main path: coupled_multi_step at 512^3 f32 from the
+    # -- 19. GW coupled main path: coupled_multi_step at 512^3 f32 from the
     #        coupled path's background and hij = dhijdt = 0 -----------------
     coupled_main_path("preheat_coupled_main_path", gw_st,
                       background_state(GRID, torch.float32, 11, gw=True),
@@ -885,7 +1051,10 @@ def main():
     torch.cuda.empty_cache()
 
     kernels = []
-    for name, (src, replaces) in tfused.KERNELS.items():
+    names = list(tfused.KERNELS) + [n + tfused.BF16
+                                    for n in tfused.CARRY_KERNELS]
+    for name in names:
+        src, replaces = tfused.KERNELS[name.split(":")[0]]
         t = timing[name]
         main_case = errs[name][case_tag(GRID, torch.float32)]
         kernels.append({

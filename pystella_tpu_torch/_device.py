@@ -40,10 +40,20 @@ _NUMPY_TO_TORCH = {
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """Normalize a numpy or torch floating dtype to a :class:`torch.dtype`."""
+    """Normalize a numpy or torch floating dtype to a :class:`torch.dtype`.
+
+    bfloat16 is recognized by name: numpy has no bfloat16 of its own, and
+    the one a JAX array converts to (``np.asarray`` of a bf16 array)
+    comes from a package the port does not import."""
     if isinstance(dtype, torch.dtype):
         return dtype
     try:
-        return _NUMPY_TO_TORCH[np.dtype(dtype)]
-    except (KeyError, TypeError):
+        npd = np.dtype(dtype)
+    except TypeError:
+        raise TypeError(f"unsupported dtype {dtype!r}") from None
+    if npd.name == "bfloat16":
+        return torch.bfloat16
+    try:
+        return _NUMPY_TO_TORCH[npd]
+    except KeyError:
         raise TypeError(f"unsupported dtype {dtype!r}") from None

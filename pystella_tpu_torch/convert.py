@@ -22,13 +22,25 @@ __all__ = ["state_from_numpy", "carry_from_numpy", "to_numpy",
            "expansion_from_numpy"]
 
 
+def _tensor(v, dtype, device):
+    """One array -> a tensor. A bfloat16 array (what ``np.asarray`` of a
+    JAX bf16 array gives) goes through float32, which ``torch.tensor``
+    takes and which holds every bfloat16 value exactly, so the round trip
+    changes no bit."""
+    a = np.asarray(v)
+    if a.dtype.name == "bfloat16":
+        t = torch.tensor(a.astype(np.float32), device=device)
+        return t.to(torch.bfloat16 if dtype is None else dtype)
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
 def state_from_numpy(state, device=None, dtype=None):
     """A dict of arrays -> a dict of contiguous tensors on ``device``
-    (default the GPU), copied, in ``dtype`` (default: the arrays' own)."""
+    (default the GPU), copied, in ``dtype`` (default: the arrays' own;
+    bfloat16 arrays included)."""
     dev = resolve_device(device)
     dt = None if dtype is None else torch_dtype(dtype)
-    return {k: torch.tensor(np.asarray(v), dtype=dt, device=dev)
-            for k, v in state.items()}
+    return {k: _tensor(v, dt, dev) for k, v in state.items()}
 
 
 def carry_from_numpy(carry, device=None, dtype=None):
@@ -49,8 +61,16 @@ def expansion_from_numpy(values, Stepper=LowStorageRK54, dtype=np.float64):
     return exp
 
 
+def _array(t):
+    """One tensor -> a numpy array. numpy has no bfloat16 (``.numpy()``
+    refuses one), so a bfloat16 tensor is widened to float32, exactly."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def to_numpy(tree):
-    """Tensors (in dicts, lists, tuples) -> numpy arrays on the host."""
-    return _tree_map(lambda t: (t.detach().cpu().numpy()
-                                if isinstance(t, torch.Tensor)
-                                else np.asarray(t)), tree)
+    """Tensors (in dicts, lists, tuples) -> numpy arrays on the host
+    (bfloat16 ones as float32)."""
+    return _tree_map(_array, tree)

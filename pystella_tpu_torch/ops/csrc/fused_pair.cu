@@ -11,6 +11,13 @@
 // two K2 launches operation for operation, and a stage pair costs one pass
 // over memory instead of two.
 //
+// With bfloat16 carries (C = __nv_bfloat16, the _bf16 entry points) kf and
+// kdfdt are read widened to T -- at the site and, for kf, at every tap the
+// f1 recomposition reads -- and only the outputs kf2, kdf2 are rounded, after
+// f2 and dfdt2 have been formed from them: stage 1's kf1, kdf1 and the
+// recomposed f1 stay unrounded, as in the JAX package's pair body under
+// _quantize_carries.
+//
 // K8 (GW = true) replaces FusedPreheatStepper._pair_body: K3 on f, then per
 // hij component two tensor stages (pk_gw_stage), stage 1 with lap h from the
 // hij window and S_ij1 from the gradients of the f window, stage 2 with
@@ -32,7 +39,7 @@ struct PkPairParams {
   PkGradWeights<T> g;  // K8 only
 };
 
-template <typename T, bool GW>
+template <typename T, typename C, bool GW>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
                      PkPairParams<T> p) {
@@ -44,12 +51,12 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
   const int64_t site = ((int64_t)x * Y + y) * Z + z;
   const T* __restrict__ f = io.in[0];
   const T* __restrict__ dfdt = io.in[1];
-  const T* __restrict__ kf = io.in[2];
-  const T* __restrict__ kdf = io.in[3];
+  const C* __restrict__ kf = pk_carry_in<C>(io, 0);
+  const C* __restrict__ kdf = pk_carry_in<C>(io, 1);
   T* __restrict__ f_out = io.out[0];
   T* __restrict__ dfdt_out = io.out[1];
-  T* __restrict__ kf_out = io.out[2];
-  T* __restrict__ kdf_out = io.out[3];
+  C* __restrict__ kf_out = pk_carry_out<C>(io, 0);
+  C* __restrict__ kdf_out = pk_carry_out<C>(io, 1);
 
   // stage 1 on the site (the arithmetic of fused_stage.cu)
   T f0[PK_F], df1[PK_F], kf1[PK_F], kdf1[PK_F], f1[PK_F], dv[PK_F];
@@ -59,7 +66,7 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
     const int64_t i = c * N + site;
     f0[c] = f[i];
     lap[c] = pk_lap(PkLoad<T>{f + c * N, Y, Z}, f0[c], x, y, z, X, Y, Z, p.w);
-    kf1[c] = p.A1 * kf[i] + p.dt * dfdt[i];
+    kf1[c] = p.A1 * PkCarry<T, C>::load(kf[i]) + p.dt * dfdt[i];
     f1[c] = f0[c] + p.B1 * kf1[c];
   }
   pk_dvdf<T>(f0, p.a1, p.hubble1, dv);
@@ -70,7 +77,8 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
     for (int c = 0; c < PK_F; ++c) {
       const int64_t i = c * N + site;
       const T df0 = dfdt[i];
-      kdf1[c] = p.A1 * kdf[i] + p.dt * ((lap[c] - two_hub * df0) - a2 * dv[c]);
+      kdf1[c] = p.A1 * PkCarry<T, C>::load(kdf[i])
+                + p.dt * ((lap[c] - two_hub * df0) - a2 * dv[c]);
       df1[c] = df0 + p.B1 * kdf1[c];
     }
   }
@@ -78,8 +86,9 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
   // the stage-2 Laplacian, from f1 recomposed at every tap
 #pragma unroll
   for (int c = 0; c < PK_F; ++c) {
-    const PkAxpyLoad<T> load{f + c * N, kf + c * N, {dfdt + c * N},
-                             p.B1, p.A1, p.dt, Y, Z};
+    const PkAxpyLoad<T, PkAt<T>, C> load{f + c * N, kf + c * N,
+                                         {dfdt + c * N}, p.B1, p.A1, p.dt,
+                                         Y, Z};
     lap[c] = pk_lap(load, f1[c], x, y, z, X, Y, Z, p.w);
   }
 
@@ -95,8 +104,8 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
                    + p.dt * ((lap[c] - two_hub * df1[c]) - a2 * dv[c]);
     f_out[i] = f1[c] + p.B2 * kf2;
     dfdt_out[i] = df1[c] + p.B2 * kdf2;
-    kf_out[i] = kf2;
-    kdf_out[i] = kdf2;
+    kf_out[i] = PkCarry<T, C>::store(kf2);
+    kdf_out[i] = PkCarry<T, C>::store(kdf2);
   }
 
 #ifdef PK_NH
@@ -149,7 +158,7 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
 // kdhijdt) device pointers. params: dt, a1, hubble1, A1, B1, a2, hubble2,
 // A2, B2, then the Laplacian weights (pk_lap_weights) and, for GW, the
 // gradient weights (pk_grad_weights).
-template <typename T, bool GW>
+template <typename T, typename C, bool GW>
 static int pk_launch_pair(const void* const* ins, void* const* outs, int X,
                           int Y, int Z, const double* params, void* stream) {
   PkPairParams<T> p;
@@ -164,10 +173,10 @@ static int pk_launch_pair(const void* const* ins, void* const* outs, int X,
   p.B2 = T(params[8]);
   p.w = pk_lap_weights<T>(params + 9);
   if (GW) p.g = pk_grad_weights<T>(params + 9 + PK_NLAPW);
-  pk_fused_pair_kernel<T, GW>
+  pk_fused_pair_kernel<T, C, GW>
       <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
-         (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X, Y,
-                                 Z, p);
+         (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X,
+                                 Y, Z, p);
   return (int)cudaGetLastError();
 }
 
@@ -175,20 +184,19 @@ static int pk_launch_pair(const void* const* ins, void* const* outs, int X,
   const void *const *ins, void *const *outs, int X, int Y, int Z,           \
       const double *params, void *stream
 
-extern "C" int pk_fused_pair_f32(PK_PAIR_ARGS) {
-  return pk_launch_pair<float, false>(ins, outs, X, Y, Z, params, stream);
-}
+// One entry point per (T, C, GW) instantiation; the _bf16 ones store the
+// carries kf, kdfdt in bfloat16.
+#define PK_PAIR_ENTRY(name, T, C, GW)                                       \
+  extern "C" int name(PK_PAIR_ARGS) {                                       \
+    return pk_launch_pair<T, C, GW>(ins, outs, X, Y, Z, params, stream);    \
+  }
 
-extern "C" int pk_fused_pair_f64(PK_PAIR_ARGS) {
-  return pk_launch_pair<double, false>(ins, outs, X, Y, Z, params, stream);
-}
+PK_PAIR_ENTRY(pk_fused_pair_f32, float, float, false)
+PK_PAIR_ENTRY(pk_fused_pair_f64, double, double, false)
+PK_PAIR_ENTRY(pk_fused_pair_f32_bf16, float, __nv_bfloat16, false)
+PK_PAIR_ENTRY(pk_fused_pair_f64_bf16, double, __nv_bfloat16, false)
 
 #ifdef PK_NH
-extern "C" int pk_preheat_pair_f32(PK_PAIR_ARGS) {
-  return pk_launch_pair<float, true>(ins, outs, X, Y, Z, params, stream);
-}
-
-extern "C" int pk_preheat_pair_f64(PK_PAIR_ARGS) {
-  return pk_launch_pair<double, true>(ins, outs, X, Y, Z, params, stream);
-}
+PK_PAIR_ENTRY(pk_preheat_pair_f32, float, float, true)
+PK_PAIR_ENTRY(pk_preheat_pair_f64, double, double, true)
 #endif

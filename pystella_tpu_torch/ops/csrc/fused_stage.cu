@@ -27,6 +27,13 @@
 // plus the scalar sector's sums only (the expansion couples to the f
 // energy), so its lattice outputs are K7's bit for bit.
 //
+// K2 with bfloat16 carries (C = __nv_bfloat16, the _bf16 entry points, for
+// carry_dtype=bfloat16) reads kf and kdfdt widened to T and writes them
+// rounded to nearest even (PkCarry), after f and dfdt have been formed from
+// the unrounded values: the order of the JAX package's _quantize_carries
+// (pystella_tpu/ops/fused.py:76). It moves 2F of its 8F component-arrays
+// at 2 bytes a value.
+//
 // Bound: memory. Four arrays are read and four written per site (8 * F *
 // sites * sizeof(T) bytes; the GW variants 8 * (F + 6)); the arithmetic is
 // ~20 + 9h operations per component (K5 adds ~3 per component, V and the
@@ -51,7 +58,7 @@ struct PkStageParams {
   PkGradWeights<T> g;  // the GW variants only
 };
 
-template <typename T, bool ENERGY, bool GW>
+template <typename T, typename C, bool ENERGY, bool GW>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
                       PkStageParams<T> p, T* __restrict__ partials,
@@ -64,12 +71,12 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
   if (!ENERGY && !active) return;
   const T* __restrict__ f = io.in[0];
   const T* __restrict__ dfdt = io.in[1];
-  const T* __restrict__ kf = io.in[2];
-  const T* __restrict__ kdf = io.in[3];
+  const C* __restrict__ kf = pk_carry_in<C>(io, 0);
+  const C* __restrict__ kdf = pk_carry_in<C>(io, 1);
   T* __restrict__ f_out = io.out[0];
   T* __restrict__ dfdt_out = io.out[1];
-  T* __restrict__ kf_out = io.out[2];
-  T* __restrict__ kdf_out = io.out[3];
+  C* __restrict__ kf_out = pk_carry_out<C>(io, 0);
+  C* __restrict__ kdf_out = pk_carry_out<C>(io, 1);
   T terms[PK_NT];
 #pragma unroll
   for (int t = 0; t < PK_NT; ++t) terms[t] = T(0);
@@ -94,12 +101,12 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
       const int64_t i = c * N + site;
       const T df0 = dfdt[i];
       const T rhs_df = (lap[c] - two_hub * df0) - a2 * dv[c];
-      const T kf2 = p.A * kf[i] + p.dt * df0;
-      const T kdf2 = p.A * kdf[i] + p.dt * rhs_df;
+      const T kf2 = p.A * PkCarry<T, C>::load(kf[i]) + p.dt * df0;
+      const T kdf2 = p.A * PkCarry<T, C>::load(kdf[i]) + p.dt * rhs_df;
       f_out[i] = fc[c] + p.B * kf2;
       dfdt_out[i] = df0 + p.B * kdf2;
-      kf_out[i] = kf2;
-      kdf_out[i] = kdf2;
+      kf_out[i] = PkCarry<T, C>::store(kf2);
+      kdf_out[i] = PkCarry<T, C>::store(kdf2);
       if (ENERGY) {
         terms[c] = df0 * df0;
         terms[PK_F + c] = (-fc[c]) * lap[c];
@@ -144,7 +151,7 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
 // weights (pk_lap_weights) and, for GW, the gradient weights
 // (pk_grad_weights). With ENERGY, partials holds PK_NT * pk_num_blocks(X, Y,
 // Z) values and sums receives the PK_NT entry-state sums.
-template <typename T, bool ENERGY, bool GW>
+template <typename T, typename C, bool ENERGY, bool GW>
 static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
                            int Y, int Z, const double* params,
                            void* partials, void* sums, void* stream) {
@@ -156,10 +163,11 @@ static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
   p.B = T(params[4]);
   p.w = pk_lap_weights<T>(params + 5);
   if (GW) p.g = pk_grad_weights<T>(params + 5 + PK_NLAPW);
-  pk_fused_stage_kernel<T, ENERGY, GW>
+  pk_fused_stage_kernel<T, C, ENERGY, GW>
       <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
-         (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X, Y,
-                                 Z, p, (T*)partials, pk_num_blocks(X, Y, Z));
+         (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X,
+                                 Y, Z, p, (T*)partials,
+                                 pk_num_blocks(X, Y, Z));
   const int rc = (int)cudaGetLastError();
   if (!ENERGY || rc != 0) return rc;
   return pk_finish_sums<T>(partials, sums, PK_NT, X, Y, Z,
@@ -170,48 +178,30 @@ static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
   const void *const *ins, void *const *outs, int X, int Y, int Z,           \
       const double *params
 
-extern "C" int pk_fused_stage_f32(PK_STAGE_ARGS, void* stream) {
-  return pk_launch_stage<float, false, false>(ins, outs, X, Y, Z, params,
-                                              nullptr, nullptr, stream);
-}
+// One entry point per (T, C, ENERGY, GW) instantiation; the _bf16 ones store
+// the carries kf, kdfdt in bfloat16.
+#define PK_STAGE_ENTRY(name, T, C, GW)                                      \
+  extern "C" int name(PK_STAGE_ARGS, void* stream) {                        \
+    return pk_launch_stage<T, C, false, GW>(ins, outs, X, Y, Z, params,     \
+                                            nullptr, nullptr, stream);      \
+  }
+#define PK_STAGE_ENERGY_ENTRY(name, T, GW)                                  \
+  extern "C" int name(PK_STAGE_ARGS, void* partials, void* sums,            \
+                      void* stream) {                                       \
+    return pk_launch_stage<T, T, true, GW>(ins, outs, X, Y, Z, params,      \
+                                           partials, sums, stream);         \
+  }
 
-extern "C" int pk_fused_stage_f64(PK_STAGE_ARGS, void* stream) {
-  return pk_launch_stage<double, false, false>(ins, outs, X, Y, Z, params,
-                                               nullptr, nullptr, stream);
-}
-
-extern "C" int pk_fused_stage_energy_f32(PK_STAGE_ARGS, void* partials,
-                                         void* sums, void* stream) {
-  return pk_launch_stage<float, true, false>(ins, outs, X, Y, Z, params,
-                                             partials, sums, stream);
-}
-
-extern "C" int pk_fused_stage_energy_f64(PK_STAGE_ARGS, void* partials,
-                                         void* sums, void* stream) {
-  return pk_launch_stage<double, true, false>(ins, outs, X, Y, Z, params,
-                                              partials, sums, stream);
-}
+PK_STAGE_ENTRY(pk_fused_stage_f32, float, float, false)
+PK_STAGE_ENTRY(pk_fused_stage_f64, double, double, false)
+PK_STAGE_ENTRY(pk_fused_stage_f32_bf16, float, __nv_bfloat16, false)
+PK_STAGE_ENTRY(pk_fused_stage_f64_bf16, double, __nv_bfloat16, false)
+PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f32, float, false)
+PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f64, double, false)
 
 #ifdef PK_NH
-extern "C" int pk_preheat_stage_f32(PK_STAGE_ARGS, void* stream) {
-  return pk_launch_stage<float, false, true>(ins, outs, X, Y, Z, params,
-                                             nullptr, nullptr, stream);
-}
-
-extern "C" int pk_preheat_stage_f64(PK_STAGE_ARGS, void* stream) {
-  return pk_launch_stage<double, false, true>(ins, outs, X, Y, Z, params,
-                                              nullptr, nullptr, stream);
-}
-
-extern "C" int pk_preheat_stage_energy_f32(PK_STAGE_ARGS, void* partials,
-                                           void* sums, void* stream) {
-  return pk_launch_stage<float, true, true>(ins, outs, X, Y, Z, params,
-                                            partials, sums, stream);
-}
-
-extern "C" int pk_preheat_stage_energy_f64(PK_STAGE_ARGS, void* partials,
-                                           void* sums, void* stream) {
-  return pk_launch_stage<double, true, true>(ins, outs, X, Y, Z, params,
-                                             partials, sums, stream);
-}
+PK_STAGE_ENTRY(pk_preheat_stage_f32, float, float, true)
+PK_STAGE_ENTRY(pk_preheat_stage_f64, double, double, true)
+PK_STAGE_ENERGY_ENTRY(pk_preheat_stage_energy_f32, float, true)
+PK_STAGE_ENERGY_ENTRY(pk_preheat_stage_energy_f64, double, true)
 #endif

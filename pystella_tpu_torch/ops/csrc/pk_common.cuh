@@ -1,10 +1,10 @@
 // Shared pieces of the fused Runge-Kutta stencil kernels (fused_stage.cu,
-// fused_pair.cu, fused_coupled_pair.cu): the math functions that
-// ops/codegen.py prints, periodic index wrap, the tap loaders, the Laplacian
-// and the gradient in the accumulation order of the JAX package's
-// lap_from_taps and grad_from_taps (pystella_tpu/ops/pallas_stencil.py), the
-// lattice arrays a launch passes, and the deterministic lattice sums of the
-// energy-emitting kernels.
+// fused_pair.cu, fused_coupled_pair.cu, fused_chunk.cu): the math functions
+// that ops/codegen.py prints, periodic index wrap, the carry storage type,
+// the tap loaders, the Laplacian and the gradient in the accumulation order
+// of the JAX package's lap_from_taps and grad_from_taps
+// (pystella_tpu/ops/pallas_stencil.py), the lattice arrays a launch passes,
+// and the deterministic lattice sums of the energy-emitting kernels.
 //
 // Every kernel is compiled against a generated header, pk_model.cuh, which
 // defines PK_F (number of fields), PK_H (stencil radius),
@@ -18,6 +18,7 @@
 // kernels' GW variants are compiled only then.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -103,21 +104,61 @@ struct PkCompleted {
   }
 };
 
+// RK carries (the k arrays) stored in C, computed in T. With C = T both
+// conversions are the identity, so a kernel instantiated that way is the
+// working-precision kernel unchanged. With C = __nv_bfloat16 (the
+// steppers' carry_dtype=torch.bfloat16) a load widens exactly and a store
+// rounds to nearest even -- what the JAX package's astype and torch's .to
+// do. From double, the store rounds through float first, as c10::BFloat16
+// does, so kernel and plain PyTorch version round alike.
+template <typename T, typename C>
+struct PkCarry {
+  __device__ __forceinline__ static T load(C v) { return v; }
+  __device__ __forceinline__ static C store(T v) { return v; }
+};
+
+template <>
+struct PkCarry<float, __nv_bfloat16> {
+  __device__ __forceinline__ static float load(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  __device__ __forceinline__ static __nv_bfloat16 store(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
+
+template <>
+struct PkCarry<double, __nv_bfloat16> {
+  __device__ __forceinline__ static double load(__nv_bfloat16 v) {
+    return (double)__bfloat162float(v);
+  }
+  __device__ __forceinline__ static __nv_bfloat16 store(double v) {
+    return __float2bfloat16_rn((float)v);
+  }
+};
+
+// v rounded to the carry type and widened back: the value a carry has
+// after a round trip through device memory.
+template <typename T, typename C>
+__device__ __forceinline__ T pk_carry_round(T v) {
+  return PkCarry<T, C>::load(PkCarry<T, C>::store(v));
+}
+
 // The stage-updated field f1 = f + B * (A * kf + dt * dfdt) of the first
 // stage of a pair, recomposed at (x, y, z) from the raw arrays instead of
 // read from a materialized f1: the arithmetic of the JAX package's
 // _axpy_taps (pystella_tpu/ops/fused.py). DF reads dfdt (PkAt, or
-// PkCompleted for a deferred input).
-template <typename T, typename DF = PkAt<T>>
+// PkCompleted for a deferred input); kf is stored in C and widened.
+template <typename T, typename DF = PkAt<T>, typename C = T>
 struct PkAxpyLoad {
   const T* __restrict__ f;
-  const T* __restrict__ kf;
+  const C* __restrict__ kf;
   DF df;
   T B, A, dt;
   int Y, Z;
   __device__ __forceinline__ T operator()(int x, int y, int z) const {
     const int64_t i = ((int64_t)x * Y + y) * Z + z;
-    return f[i] + B * (A * kf[i] + dt * df(i));
+    return f[i] + B * (A * PkCarry<T, C>::load(kf[i]) + dt * df(i));
   }
 };
 
@@ -217,6 +258,19 @@ static inline PkArrays<T> pk_arrays(const void* const* ins,
     a.out[k] = k < n ? (T*)outs[k] : nullptr;
   }
   return a;
+}
+
+// The scalar system's carries (kf, kdfdt: arrays 2 + k, k = 0, 1) as
+// pointers of their storage type C: the same addresses, read as C.
+template <typename C, typename T>
+__device__ __forceinline__ const C* pk_carry_in(const PkArrays<T>& io,
+                                                int k) {
+  return reinterpret_cast<const C*>(io.in[2 + k]);
+}
+
+template <typename C, typename T>
+__device__ __forceinline__ C* pk_carry_out(const PkArrays<T>& io, int k) {
+  return reinterpret_cast<C*>(io.out[2 + k]);
 }
 
 // One thread per lattice site: z (the contiguous axis) is the fastest

@@ -19,6 +19,13 @@ Hand-written CUDA kernels (``ops/csrc``):
   stage's Laplacian recomposed from the raw taps. :meth:`multi_step` pairs
   stages across step boundaries (legal when ``A[0] == 0``), so RK54 runs
   5 pair launches per 2 steps and no single stage at all;
+- ``fused_chunk`` (K10): ``chunk_stages`` (4) consecutive stages in one
+  pass, the intermediate stages held in shared memory; :meth:`multi_step`
+  runs chunks first, then pairs, then a single stage, across step
+  boundaries;
+- ``fused_stage``, ``fused_pair`` and ``fused_chunk`` with ``carry_dtype=
+  torch.bfloat16``: the same kernels storing the k-carries in bfloat16
+  (counted as ``<name>:bf16``);
 - ``fused_stage_energy`` (K5): K2 that also emits the energy sums of its
   entry state, for :meth:`coupled_multi_step`;
 - ``coupled_pair`` / ``coupled_pair_deferred`` (K6): the deferred-drag
@@ -31,9 +38,9 @@ Hand-written CUDA kernels (``ops/csrc``):
   scalar ones.
 
 Beside each kernel sits its plain PyTorch version (``_scalar_body``,
-``_scalar_pair_core``, ``_esums``, ``_deferred_pair_core``; for the GW
-system ``_preheat_body``, ``_pair_body``, ``_deferred_body``), the same
-per-site arithmetic in the same order on
+``_scalar_pair_core``, ``_chunk_body``, ``_esums``, ``_deferred_pair_core``;
+for the GW system ``_preheat_body``, ``_pair_body``, ``_deferred_body``), the
+same per-site arithmetic in the same order on
 :class:`~pystella_tpu_torch.ops.stencil.RollTaps`. A launch wrapper runs
 the kernel for CUDA tensors and the plain version for CPU tensors; it
 never substitutes one for the other. Kernel and plain version agree to
@@ -46,10 +53,12 @@ else is op-for-op identical.
 from __future__ import annotations
 
 import ctypes
+import warnings
 
 import numpy as np
 import torch
 
+from pystella_tpu_torch import config as _config
 from pystella_tpu_torch import field as _field
 from pystella_tpu_torch import step as _step
 from pystella_tpu_torch._device import resolve_device, torch_dtype
@@ -67,6 +76,10 @@ KERNELS = {
                     "pystella_tpu/ops/fused.py:549 (_scalar_body)"),
     "fused_pair": ("fused_pair.cu",
                    "pystella_tpu/ops/fused.py:920 (_scalar_pair_core)"),
+    "fused_chunk": ("fused_chunk.cu",
+                    "pystella_tpu/ops/fused.py:699 (_chunk_body + "
+                    "_compose_scalar_stage :679, _lap_at :663, _memo_taps "
+                    ":642)"),
     "fused_stage_energy": (
         "fused_stage.cu",
         "pystella_tpu/ops/fused.py:995 (_ensure_energy_call: "
@@ -101,7 +114,8 @@ KERNELS = {
 }
 
 #: kernel name -> number of (2F+1,) energy-sum vectors it emits
-SUM_SETS = {"fused_stage": 0, "fused_pair": 0, "fused_stage_energy": 1,
+SUM_SETS = {"fused_stage": 0, "fused_pair": 0, "fused_chunk": 0,
+            "fused_stage_energy": 1,
             "coupled_pair": 2, "coupled_pair_deferred": 2,
             "preheat_stage": 0, "preheat_pair": 0, "preheat_stage_energy": 1,
             "preheat_coupled_pair": 2, "preheat_coupled_pair_deferred": 2}
@@ -124,6 +138,11 @@ _PARAMS = {
     "coupled_pair": _COUPLED_PARAMS,
     "coupled_pair_deferred": _COUPLED_PARAMS + ("hubfix", "B2p"),
 }
+#: the chunk depths fused_chunk.cu instantiates
+CHUNK_DEPTHS = (4,)
+_PARAMS["fused_chunk"] = ("dt",) + tuple(
+    f"{n}{i}" for i in range(1, CHUNK_DEPTHS[0] + 1)
+    for n in ("a", "hubble", "A", "B"))
 #: the GW kernels take their scalar counterparts' scalars
 _GW_OF = {"preheat_stage": "fused_stage", "preheat_pair": "fused_pair",
           "preheat_stage_energy": "fused_stage_energy",
@@ -131,11 +150,41 @@ _GW_OF = {"preheat_stage": "fused_stage", "preheat_pair": "fused_pair",
           "preheat_coupled_pair_deferred": "coupled_pair_deferred"}
 _PARAMS.update({gw: _PARAMS[sc] for gw, sc in _GW_OF.items()})
 
-#: kernel name -> number of launches since the last reset; each wrapper
-#: adds one where it launches its kernel, and nowhere else
-LAUNCHES = {name: 0 for name in KERNELS}
+#: the kernels that also come with bfloat16 carries; a launch of that
+#: variant counts under ``name + BF16``
+CARRY_KERNELS = ("fused_stage", "fused_pair", "fused_chunk")
+BF16 = ":bf16"
+
+#: kernel name (and ``<name>:bf16``) -> number of launches since the last
+#: reset; each wrapper adds one where it launches its kernel, and nowhere
+#: else
+LAUNCHES = {name: 0 for name in
+            list(KERNELS) + [n + BF16 for n in CARRY_KERNELS]}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+#: the most dynamic shared memory a block may use on sm_90, and the chunk
+#: kernel's candidate output tiles in order of preference (the list and
+#: rule of fused_chunk.cu)
+_SMEM_MAX = 232448
+_CHUNK_TILES = ((8, 8, 16), (4, 8, 16), (4, 4, 16), (4, 4, 8), (2, 4, 8),
+                (2, 2, 8))
+
+
+def chunk_tile(F, h, itemsize, depth):
+    """The output tile ``(tx, ty, tz)`` and the shared memory per block
+    (bytes) of the chunk kernel for ``F`` fields, stencil radius ``h``,
+    working type of ``itemsize`` bytes and ``depth`` stages, or ``None``
+    when no kernel of that depth exists or no tile's box (f, dfdt, kf, kdfdt
+    over the tile grown by ``(depth/2)*h`` on each side) fits."""
+    if depth not in CHUNK_DEPTHS:
+        return None
+    R = (depth // 2) * h
+    for t in _CHUNK_TILES:
+        nbytes = 4 * F * itemsize * int(np.prod([n + 2 * R for n in t]))
+        if nbytes <= _SMEM_MAX:
+            return t, nbytes
+    return None
 
 
 def reset_launch_counts():
@@ -162,6 +211,26 @@ class FusedScalarStepper(_step.Stepper):
     :arg pair_stages: when True (default) :meth:`step`, :meth:`multi_step`
         and :meth:`coupled_multi_step` fuse consecutive stage pairs into one
         kernel; :meth:`stage` always runs the single-stage kernel.
+    :arg carry_dtype: ``None`` (default: the k-carries in ``dtype``) or
+        ``torch.bfloat16``: the 2N-storage k arrays are stored in bfloat16
+        while every kernel computes in ``dtype`` (carries widen on load and
+        round to nearest even on store) -- the JAX package's memory flag for
+        the 512^3 GW system, at an accuracy cost bounded by the carry
+        quantization. :meth:`step`, :meth:`multi_step` and the per-stage
+        calls take it; :meth:`coupled_multi_step` and
+        :class:`FusedPreheatStepper` do not yet (their kernels have no
+        bfloat16 variant) and raise ``NotImplementedError``.
+    :arg chunk_stages: whole-RK-chunk depth: an even number >= 4 of
+        consecutive stages advanced by one kernel (K10), which
+        :meth:`step` and :meth:`multi_step` dispatch first, then pairs,
+        then single stages. ``None`` (default) reads
+        ``PYSTELLA_CHUNK_STAGES`` (:mod:`~pystella_tpu_torch.config`); ``0``
+        keeps the pair tier. A stepper without a chunk body
+        (:class:`FusedPreheatStepper`), a tableau with ``A[0] != 0`` and a
+        depth beyond its stages, a depth the kernel is not instantiated for
+        (:data:`CHUNK_DEPTHS`) or a model whose shared-memory box fits no
+        tile (:func:`chunk_tile`) warns and runs pairs instead, on the CPU
+        as on the GPU.
     :arg device: ``None`` (the GPU), ``"cuda"`` or ``"cpu"``. On a CUDA
         device the kernels are built here (first use; cached on disk).
 
@@ -176,6 +245,7 @@ class FusedScalarStepper(_step.Stepper):
 
     #: the kernel each role runs
     _KERNEL = {"stage": "fused_stage", "pair": "fused_pair",
+               "chunk": "fused_chunk",
                "stage_energy": "fused_stage_energy",
                "coupled_pair": "coupled_pair",
                "coupled_pair_deferred": "coupled_pair_deferred"}
@@ -184,10 +254,13 @@ class FusedScalarStepper(_step.Stepper):
     _SYSTEMS = (("f", "dfdt"),)
     #: the anisotropic-stress expressions printed into the kernels (none)
     _sij_exprs = None
+    #: whether the stepper has a whole-RK-chunk body (the GW stepper does
+    #: not, as in the JAX package: a chunk request there runs pairs)
+    _chunk_supported = True
 
     def __init__(self, sector, grid_shape, dx, halo_shape=2, tableau=None,
                  dtype=torch.float32, dt=None, pair_stages=True,
-                 device=None):
+                 carry_dtype=None, chunk_stages=None, device=None):
         self.device = resolve_device(device)
         tableau = tableau or _step.LowStorageRK54
         self._A = tableau._A
@@ -209,6 +282,12 @@ class FusedScalarStepper(_step.Stepper):
         self.dtype = torch_dtype(dtype)
         if self.dtype not in _SUFFIX:
             raise TypeError("the fused kernels take float32 or float64")
+        cd = None if carry_dtype is None else torch_dtype(carry_dtype)
+        if cd not in (None, self.dtype, torch.bfloat16):
+            raise TypeError("carry_dtype must be None, the working dtype or "
+                            f"torch.bfloat16; got {carry_dtype!r}")
+        #: the k-carries' storage dtype when it differs from ``dtype``
+        self.carry_dtype = None if cd == self.dtype else cd
 
         F = sector.nscalars
         self.F = F
@@ -226,8 +305,22 @@ class FusedScalarStepper(_step.Stepper):
                for s in range(1, self.h + 1)])
         #: the weights a launch passes after its scalars
         self._weights = list(self._lap_weights)
-        #: component count of each array a kernel reads (and writes)
+        #: component count and dtype of each array a kernel reads (and
+        #: writes): per system field, velocity and their two carries
         self._comps = (F,) * 4
+        self._dtypes = (self.dtype,) * 2 + (self.carry_dtype
+                                            or self.dtype,) * 2
+
+        if chunk_stages is None:
+            chunk_stages = _config.get_int("PYSTELLA_CHUNK_STAGES")
+        depth = int(chunk_stages or 0)
+        if depth and (depth % 2 or depth < 4):
+            raise ValueError(
+                f"chunk_stages must be an even number >= 4 (got {depth}); "
+                "depth 2 is the pair tier (pair_stages=True)")
+        #: the chunk depth multi_step dispatches (0: no chunk kernel)
+        self._chunk_depth = 0
+        self._maybe_build_chunk(depth)
 
         self._buffers = None  # two sets of arrays, made at first use
         self._partials = None  # the sum kernels' per-block scratch
@@ -254,9 +347,16 @@ class FusedScalarStepper(_step.Stepper):
         return self._pair_stages and self._A[0] == 0 and self._hubble_free
 
     def kernel_names(self):
-        """The kernels this stepper's model can run."""
-        return [n for n in self._KERNEL.values()
-                if n not in _COUPLED or self.coupled_pair_available]
+        """The kernels this stepper's model can run (the chunk kernel when
+        a chunk depth is in force)."""
+        return [n for role, n in self._KERNEL.items()
+                if (role != "chunk" or self._chunk_depth)
+                and (n not in _COUPLED or self.coupled_pair_available)]
+
+    def counted_name(self, name):
+        """The key of :data:`LAUNCHES` a launch of kernel ``name`` on this
+        stepper counts under (``<name>:bf16`` with bfloat16 carries)."""
+        return name + BF16 if self.carry_dtype is not None else name
 
     def kernel_header(self):
         """The generated C header the kernels are compiled against."""
@@ -279,16 +379,45 @@ class FusedScalarStepper(_step.Stepper):
             # sums], stream
             argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
             argtypes += [ctypes.c_void_p] * (4 if SUM_SETS[name] else 2)
+            carries = (None, torch.bfloat16) if name in CARRY_KERNELS \
+                else (None,)
             for dtype, suffix in _SUFFIX.items():
-                fn = getattr(libs[src], f"pk_{name}_{suffix}")
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                fns[name, dtype] = fn
+                for cd in carries:
+                    fn = getattr(libs[src], f"pk_{name}_{suffix}"
+                                 + ("_bf16" if cd is not None else ""))
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[name, dtype, cd] = fn
+        if self._chunk_depth:
+            # the kernel's compile-time tile must be the one chunk_tile
+            # predicts (the CPU path's fallback decisions rest on it)
+            query = libs[KERNELS["fused_chunk"][0]].pk_fused_chunk_tile
+            query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            query.restype = ctypes.c_int
+            self._chunk_query = query
+            for dtype in _SUFFIX:
+                got = self.chunk_kernel_tile(dtype)
+                want = chunk_tile(self.F, self.h, dtype.itemsize,
+                                  self._chunk_depth)
+                if got != want:
+                    raise RuntimeError(
+                        f"fused_chunk.cu instantiates the tile {got} for "
+                        f"{dtype}; ops/fused.py:chunk_tile predicts {want}")
         num_blocks = libs[KERNELS[self._KERNEL["stage"]][0]].pk_num_blocks
         num_blocks.argtypes = [ctypes.c_int] * 3
         num_blocks.restype = ctypes.c_longlong
         self._num_blocks = num_blocks
         self._libs = fns
+
+    def chunk_kernel_tile(self, dtype):
+        """The built chunk kernel's output tile and shared memory per
+        block for working type ``dtype``, as the library reports them:
+        ``((tx, ty, tz), bytes)``, or ``None`` without one."""
+        out = (ctypes.c_int * 4)()
+        if self._chunk_query(self._chunk_depth,
+                             int(dtype == torch.float64), out) != 0:
+            return None
+        return tuple(out[:3]), out[3]
 
     def _check(self, ins, outs):
         n = len(self._comps)
@@ -296,12 +425,13 @@ class FusedScalarStepper(_step.Stepper):
             raise ValueError(f"the fused kernels take {n} arrays in and {n} "
                              f"out; got {len(ins)} and {len(outs)}")
         ref = ins[0]
-        for t, c in zip(list(ins) + list(outs), self._comps * 2):
+        for t, c, dt in zip(list(ins) + list(outs), self._comps * 2,
+                            self._dtypes * 2):
             shape = (c,) + self.grid_shape
-            if (t.device != ref.device or t.dtype != self.dtype
+            if (t.device != ref.device or t.dtype != dt
                     or tuple(t.shape) != shape or not t.is_contiguous()):
                 raise ValueError(
-                    f"the fused kernels take contiguous {self.dtype} tensors "
+                    f"the fused kernels take contiguous {dt} tensors "
                     f"of shape {shape} on one device; got "
                     f"{t.dtype} {tuple(t.shape)} on {t.device}"
                     f"{'' if t.is_contiguous() else ' (non-contiguous)'}")
@@ -340,7 +470,7 @@ class FusedScalarStepper(_step.Stepper):
         nsums = SUM_SETS[name] * (2 * self.F + 1)
         dev = ins[0].device
         if dev.type == "cuda":
-            fn = (self._libs or {}).get((name, self.dtype))
+            fn = (self._libs or {}).get((name, self.dtype, self.carry_dtype))
             if fn is None:
                 raise RuntimeError(
                     f"kernel {name} is not built on this stepper (construct "
@@ -367,7 +497,7 @@ class FusedScalarStepper(_step.Stepper):
             if rc != 0:
                 raise RuntimeError(f"{name} kernel launch failed with CUDA "
                                    f"error {rc}")
-            LAUNCHES[name] += 1
+            LAUNCHES[self.counted_name(name)] += 1
             return list(outs) + sums
         if dev.type == "cpu":
             res = self.plain(name, ins, params)
@@ -378,7 +508,7 @@ class FusedScalarStepper(_step.Stepper):
 
     def _out_set(self, ins):
         """A buffer set sharing no storage with the launch's inputs."""
-        key = (tuple(tuple(t.shape) for t in ins), ins[0].dtype,
+        key = (tuple((tuple(t.shape), t.dtype) for t in ins),
                ins[0].device)
         if self._buffers is None or self._buffers[0] != key:
             self._buffers = None  # release the old sets first
@@ -401,12 +531,24 @@ class FusedScalarStepper(_step.Stepper):
 
     def plain(self, name, ins, params):
         """Kernel ``name``'s plain version on ``ins`` (any device): the
-        lattice outputs, then its energy-sum vectors."""
+        lattice outputs, then its energy-sum vectors. Carries stored in
+        ``carry_dtype`` are widened first and the carry outputs rounded to
+        it last, as the kernels load and store them (in PyTorch a 0-d
+        float32 scalar times a bfloat16 tensor stays bfloat16, so without
+        the widening the arithmetic would run in bfloat16)."""
         if name not in self._KERNEL.values():
             raise ValueError(f"{name} is not a kernel of this stepper")
+        n = len(ins)
+        res = self._plain(name, [t.to(self.dtype) for t in ins], params)
+        return [r.to(dt) for r, dt in zip(res[:n], self._dtypes)] + res[n:]
+
+    def _plain(self, name, ins, params):
         sc = self._scalars(dict(zip(_PARAMS[name], params)), ins[0])
         R = _stencil.RollTaps
-        if name in ("fused_stage", "fused_stage_energy"):
+        if name == "fused_chunk":
+            outs = self._chunk_body(ins, sc, self._chunk_depth)
+            keys = ("f", "dfdt", "kf", "kdfdt")
+        elif name in ("fused_stage", "fused_stage_energy"):
             f, dfdt, kf, kdf = ins
             energy = name == "fused_stage_energy"
             outs = self._scalar_body(
@@ -535,6 +677,31 @@ class FusedScalarStepper(_step.Stepper):
         outs = {"f": f2, "dfdt": df2, "kf": kf2, "kdfdt": kdf2}
         return outs, f1_taps
 
+    def _chunk_body(self, ins, scalars, depth):
+        """``depth`` consecutive stages: the plain version of K10, written
+        as the ``depth / 2`` pair bodies it must equal, on whole-lattice
+        rolls. With ``carry_dtype`` the carries are rounded to it at every
+        interior pair boundary -- where the pair-kernel sequence stores, and
+        so rounds, them; the last pair's carries round when they are
+        stored (:meth:`plain`). The JAX package's ``_chunk_body`` composes
+        memoized whole-window views instead; at 512^3 each memoized offset
+        would be a 1 GiB array, so the port keeps the pair sequence, whose
+        per-element arithmetic is the same."""
+        f, dfdt, kf, kdf = ins
+        R = _stencil.RollTaps
+        cd = self.carry_dtype
+        for j in range(0, depth, 2):
+            sc = {"dt": scalars["dt"]}
+            for k, i in ((1, j + 1), (2, j + 2)):
+                for n in ("a", "hubble", "A", "B"):
+                    sc[f"{n}{k}"] = scalars[f"{n}{i}"]
+            outs, _ = self._scalar_pair_core(
+                {"f": R(f), "dfdt": R(dfdt), "kf": R(kf)}, {"kdfdt": kdf}, sc)
+            f, dfdt, kf, kdf = (outs[n] for n in ("f", "dfdt", "kf", "kdfdt"))
+            if cd is not None and j + 2 < depth:
+                kf, kdf = (k.to(cd).to(self.dtype) for k in (kf, kdf))
+        return {"f": f, "dfdt": dfdt, "kf": kf, "kdfdt": kdf}
+
     @staticmethod
     def _completed_taps(tdfp, tkdfp, dt, hubfix, B2p):
         """Taps-like view of the previous pair's completed velocity
@@ -612,7 +779,11 @@ class FusedScalarStepper(_step.Stepper):
     # -- Stepper interface -------------------------------------------------
 
     def init_carry(self, state):
-        k = {n: torch.zeros_like(v) for n, v in state.items()}
+        """``(state, k)`` with zero k-carries, stored in ``carry_dtype``
+        when one is set."""
+        cd = self.carry_dtype
+        k = {n: torch.zeros_like(v) if cd is None
+             else torch.zeros_like(v, dtype=cd) for n, v in state.items()}
         return (state, k)
 
     def extract(self, carry):
@@ -688,31 +859,170 @@ class FusedScalarStepper(_step.Stepper):
                            self._pair_params(s, dt, rhs_args, rhs_args2, s2))
         return self._carry_of(outs)
 
+    # -- whole-RK-chunk tier (K10) -------------------------------------------
+
+    def _chunk_fallback(self, reason):
+        """The chunk tier's fallback, in the JAX package's words: a
+        warning, and the stepper runs pairs (or single stages)."""
+        to = "pair" if self._pair_stages else "single"
+        warnings.warn(
+            f"whole-RK-chunk fusion disabled ({reason}); step() will run "
+            f"{to}-stage fused kernels", stacklevel=4)
+
+    def _maybe_build_chunk(self, depth):
+        """Put the requested chunk depth in force, or warn and leave the
+        stepper on pairs: without a chunk body, for a wrapped chunk the
+        tableau cannot take (``A[0] != 0``), for a depth the kernel has no
+        instantiation for and for a model whose box fits no tile. The
+        same decisions on the CPU and on the GPU."""
+        if not depth:
+            return
+        if not self._chunk_supported:
+            self._chunk_fallback(f"no chunk body for {type(self).__name__}")
+        elif self._A[0] != 0 and depth > self.num_stages:
+            self._chunk_fallback(
+                f"tableau A[0] != 0: a depth-{depth} chunk would cross a "
+                "step boundary whose k-carry reset is not a no-op")
+        elif depth not in CHUNK_DEPTHS:
+            self._chunk_fallback(
+                f"no depth-{depth} chunk kernel: fused_chunk.cu instantiates "
+                f"depths {CHUNK_DEPTHS}")
+        elif chunk_tile(self.F, self.h, self.dtype.itemsize, depth) is None:
+            self._chunk_fallback(
+                f"no shared-memory tile holds F={self.F}, h={self.h} in "
+                f"{self.dtype} at depth {depth}")
+        else:
+            self._chunk_depth = depth
+
+    def _check_chunk(self, stages):
+        if not self._chunk_depth:
+            raise RuntimeError(
+                "whole-RK-chunk fusion is not available on this stepper "
+                "(chunk_stages unset/0, or a model or depth the chunk kernel "
+                "cannot take); use stage_pair()/stage()/step()")
+        if len(stages) != self._chunk_depth:
+            raise ValueError(
+                f"stage_chunk takes exactly {self._chunk_depth} stage "
+                f"indices (got {len(stages)})")
+        for prev, cur in zip(stages, stages[1:]):
+            if cur < prev and self._A[cur] != 0:
+                raise ValueError(
+                    f"cross-boundary chunking needs A[{cur}] == 0 so the "
+                    "step-boundary k-carry reset is a no-op; this tableau "
+                    f"has A[{cur}] = {self._A[cur]}")
+
+    def _chunk_params(self, stages, dt, rhs_args_seq):
+        params = [_float(dt)]
+        for s, ra in zip(stages, rhs_args_seq):
+            ra = ra or {}
+            params += [_float(ra.get("a", 1.0)),
+                       _float(ra.get("hubble", 0.0)),
+                       float(self._A[s]), float(self._B[s])]
+        return tuple(params)
+
+    def stage_chunk(self, stages, carry, t, dt, rhs_args_seq):
+        """Run the listed stages (``len == chunk_stages``) as one kernel.
+        ``rhs_args_seq`` gives each stage's expansion scalars; stage
+        indices may wrap to the next step as in :meth:`stage_pair` (when
+        the wrapped stage's ``A == 0``)."""
+        stages = list(stages)
+        self._check_chunk(stages)
+        ins = self._inputs(carry)
+        outs = self.launch(self._KERNEL["chunk"], ins, self._out_set(ins),
+                           self._chunk_params(stages, dt, rhs_args_seq))
+        return self._carry_of(outs)
+
+    def kernel_tier_report(self):
+        """Which kernels :meth:`multi_step` dispatches and the lattice
+        traffic they imply: ``tier`` ("chunk", "pair" or "single"),
+        ``chunk_depth``, ``kernels_per_2_steps`` (counts by role: "chunk",
+        "pair", "single", consumed chunks first across step boundaries when
+        ``A[0] == 0``, as :meth:`multi_step` does), ``kernel_names`` (the
+        :data:`LAUNCHES` key of each role), ``bytes_per_launch`` (each
+        array read once and written once, carries at their storage width)
+        and ``bytes_per_step``. The JAX package's report, without its
+        autotune record."""
+        sites = int(np.prod(self.grid_shape))
+        per_launch = 2 * sites * sum(
+            c * dt.itemsize for c, dt in zip(self._comps, self._dtypes))
+        if self._A[0] == 0:
+            plan = self._plan(2 * self.num_stages)  # across the boundary
+        else:
+            plan = self._plan(self.num_stages) * 2  # per-step carry reset
+        kernels = {}
+        for role, _, _ in plan:
+            kernels[role] = kernels.get(role, 0) + 1
+        D = self._chunk_depth
+        tier = "chunk" if D else "pair" if self._pair_stages else "single"
+        return {
+            "tier": tier,
+            "chunk_depth": D or None,
+            "kernels_per_2_steps": kernels,
+            "kernel_names": {r: self.counted_name(self._KERNEL[self._ROLE[r]])
+                             for r in kernels},
+            "bytes_per_launch": per_launch,
+            "bytes_per_step": per_launch * len(plan) // 2,
+            "grid_shape": list(self.grid_shape),
+        }
+
+    #: the kernel role (:attr:`_KERNEL`) of each entry of a plan
+    _ROLE = {"chunk": "chunk", "pair": "pair", "single": "stage"}
+
+    def _plan(self, n):
+        """The launches that run ``n`` consecutive flat stages, as
+        ``(role, first, count)`` with role "chunk", "pair" or "single":
+        chunks first, then pairs, then single stages (the order of the JAX
+        package's ``_multi_step_impl``)."""
+        D, i, plan = self._chunk_depth, 0, []
+        while D and i + D <= n:
+            plan.append(("chunk", i, D))
+            i += D
+        while self._pair_stages and i + 1 < n:
+            plan.append(("pair", i, 2))
+            i += 2
+        while i < n:
+            plan.append(("single", i, 1))
+            i += 1
+        return plan
+
+    def _run_stages(self, carry, stages, t, dt, args_of, cross=False):
+        """Run the flat stage list ``stages`` from ``carry`` as
+        :meth:`_plan` schedules it; ``args_of(i)`` gives flat stage ``i``'s
+        expansion scalars. ``cross``: the list crosses step boundaries,
+        so each pair names its second stage."""
+        for role, i, n in self._plan(len(stages)):
+            if role == "chunk":
+                carry = self.stage_chunk(stages[i:i + n], carry, t, dt,
+                                         [args_of(i + j) for j in range(n)])
+            elif role == "pair":
+                s2 = {"s2": stages[i + 1]} if cross else {}
+                carry = self.stage_pair(stages[i], carry, t, dt, args_of(i),
+                                        rhs_args2=args_of(i + 1), **s2)
+            else:
+                carry = self.stage(stages[i], carry, t, dt, args_of(i))
+        return carry
+
     def _step_impl(self, state, t, dt, rhs_args):
-        carry = self.init_carry(state)
-        s = 0
-        if self._pair_stages:
-            while s + 1 < self.num_stages:
-                carry = self.stage_pair(s, carry, t, dt, rhs_args)
-                s += 2
-        while s < self.num_stages:
-            carry = self.stage(s, carry, t, dt, rhs_args)
-            s += 1
+        carry = self._run_stages(self.init_carry(state),
+                                 list(range(self.num_stages)), t, dt,
+                                 lambda i: rhs_args)
         return self.extract(carry)
 
     def step(self, state, t=0.0, dt=None, rhs_args=None):
-        """Advance ``state`` by one full RK step: stage pairs, then the odd
-        stage left over (RK54: 2 pair launches + 1 single)."""
+        """Advance ``state`` by one full RK step: a chunk, then stage
+        pairs, then the odd stage left over (RK54: 2 pair launches + 1
+        single; with ``chunk_stages=4``, 1 chunk + 1 single)."""
         dt = dt if dt is not None else self.dt
         return self._step_impl(state, t, dt, rhs_args or {})
 
     def multi_step(self, state, nsteps, t=0.0, dt=None, rhs_args=None,
                    rhs_seq=None):
-        """Advance ``nsteps`` full RK steps, pairing stages ACROSS step
-        boundaries when ``A[0] == 0``: RK54 then runs
-        ``ceil(5 * nsteps / 2)`` pair launches and, for odd ``nsteps``,
-        one trailing single stage. Equal, launch for launch in arithmetic,
-        to the JAX package's ``FusedScalarStepper.multi_step``.
+        """Advance ``nsteps`` full RK steps, running chunks, then pairs,
+        then single stages ACROSS step boundaries when ``A[0] == 0``: RK54
+        runs ``ceil(5 * nsteps / 2)`` pair launches and, for odd
+        ``nsteps``, one trailing single stage; with ``chunk_stages=4``,
+        ``5 * nsteps // 4`` chunks before them. Equal, launch for launch in
+        arithmetic, to the JAX package's ``FusedScalarStepper.multi_step``.
 
         ``rhs_seq`` maps scalar names (``"a"``, ``"hubble"``) to per-stage
         values, one per flat stage (``nsteps * num_stages``), overlaying the
@@ -739,37 +1049,23 @@ class FusedScalarStepper(_step.Stepper):
                 return rhs_args
             return {**rhs_args, **{n: float(v[i]) for n, v in seq.items()}}
 
-        if not self._pair_stages or self._A[0] != 0:
+        if (not self._pair_stages and not self._chunk_depth) \
+                or self._A[0] != 0:
             # no cross-boundary fusion possible: sequential steps, each
-            # with its own k-carry reset, pairing within the step
+            # with its own k-carry reset, chunking and pairing within it
             for step in range(nsteps):
-                carry = self.init_carry(state)
-                s, base = 0, step * nstages
-                if self._pair_stages:
-                    while s + 1 < nstages:
-                        carry = self.stage_pair(
-                            s, carry, t, dt, args_at(base + s),
-                            rhs_args2=args_at(base + s + 1))
-                        s += 2
-                while s < nstages:
-                    carry = self.stage(s, carry, t, dt, args_at(base + s))
-                    s += 1
+                base = step * nstages
+                carry = self._run_stages(
+                    self.init_carry(state), list(range(nstages)), t, dt,
+                    lambda i, base=base: args_at(base + i))
                 state = self.extract(carry)
             return state
-        carry = self.init_carry(state)
+        # across step boundaries: the stage-0 update multiplies the stale
+        # k-carry by A[0] == 0, so skipping the per-step zero reset changes
+        # nothing
         flat = [s for _ in range(nsteps) for s in range(nstages)]
-        i = 0
-        # pair across step boundaries: the stage-0 update multiplies the
-        # stale k-carry by A[0] == 0, so skipping the per-step zero reset
-        # changes nothing
-        while i + 1 < len(flat):
-            carry = self.stage_pair(flat[i], carry, t, dt, args_at(i),
-                                    rhs_args2=args_at(i + 1),
-                                    s2=flat[i + 1])
-            i += 2
-        while i < len(flat):
-            carry = self.stage(flat[i], carry, t, dt, args_at(i))
-            i += 1
+        carry = self._run_stages(self.init_carry(state), flat, t, dt,
+                                 args_at, cross=True)
         return self.extract(carry)
 
     # -- energy-coupled driver (Friedmann background on the host) -----------
@@ -932,6 +1228,11 @@ class FusedScalarStepper(_step.Stepper):
 
         The returned tensors are the stepper's buffers (see the class
         docstring)."""
+        if self.carry_dtype is not None:
+            raise NotImplementedError(
+                "coupled_multi_step with carry_dtype needs bfloat16-carry "
+                "variants of the energy kernels K5 and K6, not ported yet "
+                "(ROADMAP queue 1, item 1)")
         dt = _float(dt if dt is not None else self.dt)
         nsteps = int(nsteps)
         if grid_size is None:
@@ -977,10 +1278,18 @@ class FusedPreheatStepper(FusedScalarStepper):
                "coupled_pair": "preheat_coupled_pair",
                "coupled_pair_deferred": "preheat_coupled_pair_deferred"}
     _SYSTEMS = (("f", "dfdt"), ("hij", "dhijdt"))
+    _chunk_supported = False
 
     def __init__(self, sector, gw_sector, grid_shape, dx, halo_shape=2,
                  tableau=None, dtype=torch.float32, dt=None,
-                 pair_stages=True, device=None):
+                 pair_stages=True, carry_dtype=None, chunk_stages=None,
+                 device=None):
+        if carry_dtype is not None and torch_dtype(carry_dtype) != \
+                torch_dtype(dtype):
+            raise NotImplementedError(
+                "FusedPreheatStepper with carry_dtype needs bfloat16-carry "
+                "variants of K7, K8, K9 and K5', not ported yet (ROADMAP "
+                "queue 1, item 1)")
         # set before super().__init__, which builds the kernels
         self.gw_sector = gw_sector
         self.n_hij = gw_sector.hij.shape[0]
@@ -994,8 +1303,10 @@ class FusedPreheatStepper(FusedScalarStepper):
         self._sij_exprs = [self._sij[c] for c in range(self.n_hij)]
         super().__init__(sector, grid_shape, dx, halo_shape=halo_shape,
                          tableau=tableau, dtype=dtype, dt=dt,
-                         pair_stages=pair_stages, device=device)
+                         pair_stages=pair_stages, chunk_stages=chunk_stages,
+                         device=device)
         self._comps = (self.F,) * 4 + (self.n_hij,) * 4
+        self._dtypes = (self.dtype,) * 8
         # the gradient weights exactly as grad_from_taps forms them
         inv_dx = [1.0 / d for d in self.dx]
         coefs = _grad_coefs[self.h]
@@ -1009,9 +1320,7 @@ class FusedPreheatStepper(FusedScalarStepper):
 
     # -- plain PyTorch versions (the kernels' arithmetic) --------------------
 
-    def plain(self, name, ins, params):
-        if name not in self._KERNEL.values():
-            raise ValueError(f"{name} is not a kernel of this stepper")
+    def _plain(self, name, ins, params):
         sc = self._scalars(dict(zip(_PARAMS[name], params)), ins[0])
         R = _stencil.RollTaps
         keys = ("f", "dfdt", "kf", "kdfdt", "hij", "dhijdt", "khij",

@@ -26,8 +26,9 @@ def bench_potential(f):
 
 
 def _rel(got, ref):
-    got = np.asarray(got.cpu(), np.float64)
-    ref = np.asarray(ref.cpu(), np.float64)
+    # through float64 in torch: numpy has no bfloat16
+    got = got.detach().cpu().double().numpy()
+    ref = ref.detach().cpu().double().numpy()
     return np.max(np.abs(got - ref)) / np.max(np.abs(ref))
 
 
@@ -252,6 +253,115 @@ def test_coupled_multi_step_card_matches_cpu(cuda, pair):
         assert _rel(got[name], ref[name]) <= 1e-12
     assert abs(e_got.a - e_ref.a) / e_ref.a <= 1e-12
     assert abs(e_got.adot - e_ref.adot) / abs(e_ref.adot) <= 1e-12
+
+
+# -- the whole-RK chunk (K10) and the bfloat16-carry variants ----------------
+
+def _chunk_params(dx, stages=(1, 2, 3, 4)):
+    """dt, then per stage a, hubble, A, B (K10's scalars)."""
+    p = [0.1 * dx]
+    for k, s in enumerate(stages):
+        p += [1.0 + 0.01 * k, 0.5 - 0.01 * k, A[s], B[s]]
+    return tuple(p)
+
+
+def _carry_case(cuda, kernel, grid, dtype, carry_dtype, seed=0):
+    """A chunk stepper of the bench model, the kernel's four inputs (the
+    carries in ``carry_dtype``) and its scalars."""
+    st = pt.FusedScalarStepper(pt.ScalarSector(2, potential=bench_potential),
+                               grid, 5.0 / grid[0], H, dtype=dtype,
+                               carry_dtype=carry_dtype, chunk_stages=4,
+                               device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    amps = (1e-3, 1e-4, 1e-5, 1e-3)
+    ins = [(a * torch.randn((2,) + grid, generator=g, device=cuda,
+                            dtype=dtype)).to(dt)
+           for a, dt in zip(amps, st._dtypes)]
+    dx = 5.0 / grid[0]
+    params = {"fused_stage": (0.1 * dx, 1.0, 0.5, A[1], B[1]),
+              "fused_pair": (0.1 * dx, 1.0, 0.5, A[1], B[1], 1.01, 0.49,
+                             A[2], B[2]),
+              "fused_chunk": _chunk_params(dx)}[kernel]
+    return st, ins, params
+
+
+CARRIES = {"f32": (torch.float32, None), "f64": (torch.float64, None),
+           "f32-bf16": (torch.float32, torch.bfloat16),
+           "f64-bf16": (torch.float64, torch.bfloat16)}
+
+
+#: K10 in every working and carry type; K2 and K3 with bfloat16 carries
+#: (in the working type: test_kernel_matches_plain)
+CARRY_CASES = [("fused_chunk", c) for c in CARRIES] + [
+    (k, c) for k in ("fused_stage", "fused_pair")
+    for c in ("f32-bf16", "f64-bf16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(16, 16, 16), (48, 40, 36)],
+                         ids=["16cubed", "48x40x36"])
+@pytest.mark.parametrize("kernel,carry", CARRY_CASES)
+def test_carry_kernel_matches_plain(cuda, kernel, carry, grid):
+    """Each kernel of CARRY_CASES vs its plain version: KERNEL_TOL of the
+    working type on every output (the bf16 carries compared as values),
+    and the launch is counted under its variant's name."""
+    dtype, cd = CARRIES[carry]
+    st, ins, params = _carry_case(cuda, kernel, grid, dtype, cd)
+    plain = st.plain(kernel, ins, params)
+    key = st.counted_name(kernel)
+    before = tfused.LAUNCHES[key]
+    outs = st.launch(kernel, ins, [torch.empty_like(t) for t in ins], params)
+    torch.cuda.synchronize()
+    assert tfused.LAUNCHES[key] == before + 1
+    for o, p, dt in zip(outs, plain, st._dtypes):
+        assert o.dtype == p.dtype == dt
+        assert _rel(o, p) <= KERNEL_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carry", list(CARRIES))
+def test_chunk_equals_two_pairs(cuda, carry):
+    """One K10 launch equals two K3 launches bit for bit, state and
+    carries (the same operations in the same order under -fmad=false; the
+    bf16 carries rounded at the same place)."""
+    dtype, cd = CARRIES[carry]
+    st, ins, params = _carry_case(cuda, "fused_chunk", (48, 40, 36), dtype,
+                                  cd, seed=3)
+    new = lambda: [torch.empty_like(t) for t in ins]  # noqa
+    chunk = st.launch("fused_chunk", ins, new(), params)
+    mid = st.launch("fused_pair", ins, new(), params[:9])
+    two = st.launch("fused_pair", mid, new(), params[:1] + params[9:])
+    torch.cuda.synchronize()
+    for a, b in zip(chunk, two):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carry", ["f64", "f32-bf16"])
+def test_chunk_multi_step_card_matches_cpu(cuda, carry):
+    """multi_step(3) with chunk_stages=4 on the card (K10, K3, K2) vs the
+    plain versions on the CPU, 16^3: f64 to 1e-12; with bf16 carries to
+    1e-5 (the kernels' f32 may differ from the plain versions' by an ulp
+    where PyTorch divides by the reciprocal, which can flip a carry's
+    bf16 rounding: one bf16 ulp of a carry, scaled by B*dt)."""
+    dtype, cd = CARRIES[carry]
+    grid = (16, 16, 16)
+    sector = pt.ScalarSector(2, potential=bench_potential)
+    g = torch.Generator().manual_seed(5)
+    state = {"f": 1e-3 * torch.randn((2,) + grid, generator=g, dtype=dtype),
+             "dfdt": 1e-4 * torch.randn((2,) + grid, generator=g,
+                                        dtype=dtype)}
+    res = {}
+    for dev in ("cpu", cuda):
+        st = pt.FusedScalarStepper(sector, grid, 5.0 / 16, H, dtype=dtype,
+                                   carry_dtype=cd, chunk_stages=4,
+                                   device=dev)
+        out = st.multi_step({k: v.to(dev) for k, v in state.items()}, 3,
+                            0.0, 0.1 * 5.0 / 16, {"a": 1.0, "hubble": 0.5})
+        res[str(dev)] = {k: v.cpu() for k, v in out.items()}
+    tol = 1e-12 if cd is None else 1e-5
+    for name in ("f", "dfdt"):
+        assert _rel(res[str(cuda)][name], res["cpu"][name]) <= tol
 
 
 # -- the gravitational-wave system: K7, K8, K5', K9 --------------------------
