@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels from ``pystella_tpu_torch/ops/csrc`` (into
 the ignored ``pystella_tpu_torch/ops/_build``), holds each kernel against
-its plain PyTorch version, and drives the port's four main paths through
-the entry points a user calls, at 512^3 in float32:
+its plain PyTorch version, and drives the port's main paths through the
+entry points a user calls, at 512^3 in float32:
 
 - the 2-field scalar-preheating hot loop, ``FusedScalarStepper.multi_step``
   (kernels ``fused_pair`` and ``fused_stage``), and the same with the
@@ -21,7 +21,15 @@ the entry points a user calls, at 512^3 in float32:
   components; 48 GiB of state, carries and buffers): ``multi_step``
   (kernels ``preheat_pair`` and ``preheat_stage``) and
   ``coupled_multi_step`` (``preheat_coupled_pair``,
-  ``preheat_coupled_pair_deferred`` and ``preheat_stage_energy``).
+  ``preheat_coupled_pair_deferred`` and ``preheat_stage_energy``);
+- the wave equation through the generic stepper, ``RungeKutta4`` over
+  ``FiniteDifferencer.lap`` (bench.py:run_wave at 512^3 instead of 64^3),
+  and the other operators on its final state (kernels ``fd_lap``,
+  ``fd_grad``, ``fd_grad_lap``, ``fd_pdx``, ``fd_pdy``, ``fd_pdz``,
+  ``fd_div``);
+- the multigrid solver, ``FullApproximationScheme`` over a
+  ``NewtonIterator`` on ``lap f - f + f**3 = rho`` (bench.py:run_multigrid:
+  default V-cycles; kernels ``mg_smooth``, ``mg_residual``, ``mg_tau``).
 
 Every phase prints one JSON line; the run fails (non-zero exit, no result
 line) if any phase fails. Then come the ``{"kernels": [...]}`` line, the
@@ -83,6 +91,29 @@ CONSTRAINT_TOL = 1e-4
 #: H100 SXM data sheet: HBM3 bandwidth and the non-tensor FP32 peak
 HBM_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS = 67e12
+
+#: the wave path (bench.py:run_wave): box (2 pi)^3, order-4 Laplacian,
+#: RungeKutta4, dt = 0.1 dx, 5 warm-up and 50 timed steps
+WAVE_BOX, WAVE_WARMUP, WAVE_STEPS = 2 * math.pi, 5, 50
+#: the wave reference: kernel-mode vs roll-mode drive after 40 steps, and
+#: the RK54 energy-drift ratio at dt vs dt / 2 (5th order: 32)
+WAVE_REFERENCE_TOL, WAVE_DRIFT_RATIO = 1e-12, (25.0, 40.0)
+#: RungeKutta4 damps the modes it does not resolve: the wave path's energy
+#: may fall by this fraction over its 55 steps, and no more
+WAVE_ENERGY_TOL = 1e-2
+#: the multigrid path (bench.py:run_multigrid): dx = 10 / n, h = 1,
+#: omega = 2/3, default V-cycle; 1 warm-up and 2 timed cycles
+MG_BOX, MG_HALO, MG_OMEGA, MG_CYCLES = 10.0, 1, 2 / 3, 2
+#: K12 vs plain: multiplies and adds in one order on both sides (0
+#: expected), and so K11 vs plain -- both held to KERNEL_TOL.
+#: The converged multigrid residual (tests/test_multigrid.py:67) and one
+#: kernel-tier cycle against one plain-tier cycle:
+MG_CONVERGED_TOL, MG_CYCLE_TOL = 5e-14, 1e-12
+#: the stencil radii whose operator kernels are built and checked
+FD_HALOS = (1, 2, 4)
+FD_KERNELS = ("fd_lap", "fd_grad", "fd_grad_lap", "fd_pdx", "fd_pdy",
+              "fd_pdz", "fd_div")
+MG_KERNELS = ("mg_smooth", "mg_residual", "mg_tau")
 
 SUM_KERNELS = ("fused_stage_energy", "coupled_pair", "coupled_pair_deferred")
 GW_KERNELS = ("preheat_stage", "preheat_pair", "preheat_stage_energy",
@@ -802,6 +833,534 @@ def coupled_main_path(phase, st, state, names, launches, trace=None,
             device_s)})
 
 
+def ptxas_of(source, header):
+    """Registers and spill bytes of the kernels of one built library."""
+    from pystella_tpu_torch.ops import stencil
+    return stencil.ptxas_usage(stencil.build_log(source, header))
+
+
+# -- the finite-difference operators (K12) and the wave equation --------------
+
+def fd_input(op, shape, dtype, seed):
+    """A seeded N(0, 1) input of operator ``op``: (2, X, Y, Z), for the
+    divergence a (2, 3, X, Y, Z) vector field, folded to (6, X, Y, Z)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C = 6 if op == "div" else 2
+    return torch.randn((C,) + tuple(shape), generator=g, device="cuda",
+                       dtype=dtype)
+
+
+def fd_kernels_vs_plain(phase, cases, errs):
+    """Each K12 operator's kernel vs its plain version at every (shape,
+    dtype, h) of ``cases``."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import derivs
+    for shape, dtype, h in cases:
+        fd = pt.FiniteDifferencer(h, WAVE_BOX / shape[0])
+        tag = case_tag(shape, dtype) + ("" if h == HALO else f":h{h}")
+        for seed, op in enumerate(derivs.OPS):
+            x = fd_input(op, shape, dtype, 50 + seed)
+            outs = fd.launch(op, x)
+            torch.cuda.synchronize()
+            plain = fd.plain(op, x)
+            per_output = [rel_err(o, p_) for o, p_ in zip(outs, plain)]
+            row = {"max_rel_err": max(r for r, _ in per_output),
+                   "max_abs_err": max(a for _, a in per_output),
+                   "tol": KERNEL_TOL[dtype]}
+            errs.setdefault("fd_" + op, {})[tag] = row
+            emit({"phase": phase, "kernel": "fd_" + op, "shape": shape,
+                  "dtype": str(dtype), "h": h, **row})
+            if not row["max_rel_err"] <= KERNEL_TOL[dtype]:
+                raise SystemExit(f"fd_{op} disagrees with its plain version "
+                                 f"at {shape} {dtype} h={h}: {row}")
+            del x, outs, plain
+            torch.cuda.empty_cache()
+
+
+#: arithmetic per site and input component: the Laplacian 1 + 9h, a
+#: derivative 3h an axis
+FD_OPS_PER_COMPONENT = {
+    "lap": lambda h: 1 + 9 * h, "grad": lambda h: 9 * h,
+    "grad_lap": lambda h: 1 + 18 * h, "pdx": lambda h: 3 * h,
+    "pdy": lambda h: 3 * h, "pdz": lambda h: 3 * h, "div": lambda h: 3 * h}
+#: output component-arrays per input component-array
+FD_OUT_PER_IN = {"lap": 1, "grad": 3, "grad_lap": 4, "pdx": 1, "pdy": 1,
+                 "pdz": 1, "div": 1 / 3}
+
+
+def time_fd_kernels(phase, timing):
+    """Each K12 operator at (2, 512^3) f32, h = 2 (the divergence on (2, 3,
+    512^3)): CUDA-event ms over 20 launches, its plain version, and the
+    bound (each component-array once in and once out over the HBM rate,
+    against the operations over the f32 peak)."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import derivs
+    fd = pt.FiniteDifferencer(HALO, WAVE_BOX / GRID[0])
+    sites = math.prod(GRID)
+    for seed, op in enumerate(derivs.OPS):
+        x = fd_input(op, GRID, torch.float32, 60 + seed)
+        ms = cuda_ms(lambda: fd.launch(op, x), reps=20, warmup=2)
+        torch.cuda.empty_cache()
+        plain_ms = cuda_ms(lambda: fd.plain(op, x), reps=3)
+        C = x.shape[0]
+        nbytes = round(C * (1 + FD_OUT_PER_IN[op])) * sites * 4
+        ops = C * FD_OPS_PER_COMPONENT[op](HALO) * sites
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_F32_OPS * 1e3
+        bound = max(bytes_ms, ops_ms)
+        timing["fd_" + op] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops, "share_of_bound": bound / ms}
+        emit({"phase": phase, "kernel": "fd_" + op,
+              "shape": tuple(x.shape), "dtype": "torch.float32", "h": HALO,
+              **timing["fd_" + op]})
+        del x
+        torch.cuda.empty_cache()
+
+
+def wave_energy(fd, state):
+    """The semi-discrete wave energy mean(dfdt^2 / 2 - f lap f / 2)."""
+    f, dfdt = state["f"].double(), state["dfdt"].double()
+    return (0.5 * dfdt * dfdt
+            - 0.5 * f * fd.lap(state["f"]).double()).mean().item()
+
+
+def wave_reference(phase):
+    """The wave equation {f: f.dot, f.dot: lap f} through compile_rhs_dict
+    and LowStorageRK54 (examples/wave_equation.py:49-55) at 64^3 f64 from a
+    seeded sum of plane waves (modes <= 4): the kernel-mode drive vs the
+    roll-mode drive after 40 steps, and the energy drift at dt against dt /
+    2 over the same time (the order check of a conserved quantity)."""
+    import pystella_tpu_torch as pt
+    n = 64
+    dx = WAVE_BOX / n
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.arange(n, device="cuda", dtype=torch.float64) * dx
+    X, Y, Z = torch.meshgrid(x, x, x, indexing="ij")
+    f0 = torch.zeros((n,) * 3, device="cuda", dtype=torch.float64)
+    modes = torch.randint(-4, 5, (12, 3), generator=g, device="cuda")
+    phases = 2 * math.pi * torch.rand(12, generator=g, device="cuda",
+                                      dtype=torch.float64)
+    for (a, b, c), ph in zip(modes.tolist(), phases.tolist()):
+        f0 += torch.sin(a * X + b * Y + c * Z + ph)
+    field = pt.DynamicField("f")
+    rhs = pt.compile_rhs_dict({field: field.dot, field.dot: field.lap})
+
+    def drive(mode, dt, nsteps):
+        fd = pt.FiniteDifferencer(HALO, dx, mode=mode)
+        stepper = pt.LowStorageRK54(
+            lambda st, t: rhs(st, t, lap_f=fd.lap(st["f"])))
+        state = {"f": f0.clone(), "dfdt": torch.zeros_like(f0)}
+        e0 = wave_energy(fd, state)
+        for _ in range(nsteps):
+            state = stepper.step(state, 0.0, dt)
+        return state, abs(wave_energy(fd, state) - e0) / abs(e0)
+
+    dt = 0.5 * dx
+    kernel, drift = drive("kernel", dt, 40)
+    roll, _ = drive("roll", dt, 40)
+    _, drift_half = drive("kernel", dt / 2, 80)
+    torch.cuda.synchronize()
+    errs = {k: rel_err(kernel[k], roll[k])[0] for k in kernel}
+    ratio = drift / drift_half
+    emit({"phase": phase, "shape": (n,) * 3, "dtype": "torch.float64",
+          "nsteps": 40, "rel_err_kernel_vs_roll": errs,
+          "tol": WAVE_REFERENCE_TOL, "energy_drift": drift,
+          "energy_drift_half_dt": drift_half, "drift_ratio": ratio,
+          "drift_ratio_band": WAVE_DRIFT_RATIO})
+    if not max(errs.values()) <= WAVE_REFERENCE_TOL:
+        raise SystemExit(f"the kernel-mode wave drive disagrees with the "
+                         f"roll-mode one: {errs}")
+    if not WAVE_DRIFT_RATIO[0] <= ratio <= WAVE_DRIFT_RATIO[1]:
+        raise SystemExit(f"wave energy drift ratio {ratio} outside "
+                         f"{WAVE_DRIFT_RATIO}")
+
+
+def wave_main_path(phase, launches):
+    """bench.py:run_wave (RungeKutta4 over FiniteDifferencer.lap, h = 2,
+    box (2 pi)^3, dt = 0.1 dx, f = N(0, 1), dfdt = 0) at 512^3 f32 instead
+    of the bench's 64^3 (a 1 MiB lattice says nothing of the card): 5
+    warm-up and 50 timed steps; then the operators a user takes
+    observables with, on the final state: the batch call (grad_lap), grad,
+    divergence and the three single derivatives, held against each other."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import derivs
+    sites = math.prod(GRID)
+    lattice = pt.Lattice(GRID, (WAVE_BOX,) * 3, dtype=np.float32)
+    dt = float(np.float32(0.1 * min(lattice.dx)))
+    fd = pt.FiniteDifferencer(HALO, lattice.dx)
+
+    def rhs(state, t):
+        return {"f": state["dfdt"], "dfdt": fd.lap(state["f"])}
+
+    stepper = pt.RungeKutta4(rhs, dt=dt)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    state = {"f": torch.randn(GRID, generator=g, device="cuda",
+                              dtype=torch.float32),
+             "dfdt": torch.zeros(GRID, device="cuda", dtype=torch.float32)}
+    # the Laplacian at the path's shape (one component), for its share
+    lap_ms = cuda_ms(lambda: fd.lap(state["f"]), reps=20, warmup=2)
+    torch.cuda.reset_peak_memory_stats()
+    derivs.reset_launch_counts()
+    e0 = wave_energy(fd, state)
+    for _ in range(WAVE_WARMUP):
+        state = stepper.step(state, 0.0, dt)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    host0 = time.perf_counter()
+    start.record()
+    for _ in range(WAVE_STEPS):
+        state = stepper.step(state, 0.0, dt)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - host0
+    elapsed = start.elapsed_time(end) / 1e3
+    e1 = wave_energy(fd, state)
+
+    # observables of the final state
+    f = state["f"]
+    both = fd(f, lap=True, grd=True)
+    lap, grad = fd.lap(f), fd.grad(f)
+    pds = [fd.pdx(f), fd.pdy(f), fd.pdz(f)]
+    div = fd.divergence(grad)
+    div_pd = fd.pdx(grad[0]) + fd.pdy(grad[1]) + fd.pdz(grad[2])
+    torch.cuda.synchronize()
+    path_launches = dict(derivs.LAUNCHES)
+    launches.update(path_launches)
+    nsteps = WAVE_WARMUP + WAVE_STEPS
+    # 4 stages a step, the two energies and the observables' Laplacian
+    expected = {"fd_lap": 4 * nsteps + 3, "fd_grad_lap": 1, "fd_grad": 1,
+                "fd_div": 1, "fd_pdx": 2, "fd_pdy": 2, "fd_pdz": 2}
+    checks = {
+        "grad_lap_grad_equals_grad": torch.equal(both["grd"], grad),
+        "grad_lap_lap_equals_lap": torch.equal(both["lap"], lap),
+        "pd_equals_grad_components": all(
+            torch.equal(pd, grad[d]) for d, pd in enumerate(pds)),
+        "div_grad_vs_sum_of_pd_rel_err": rel_err(div, div_pd)[0]}
+    drift = (e1 - e0) / abs(e0)
+    finite = all(bool(torch.isfinite(v).all()) for v in state.values())
+    shapes_ok = all(tuple(v.shape) == GRID for v in state.values())
+    ms_step = elapsed / WAVE_STEPS * 1e3
+    emit({"phase": phase, "grid": GRID, "dtype": "torch.float32",
+          "stepper": "RungeKutta4", "h": HALO,
+          "source": "bench.py:480-508 at n = 512 (the bench runs 64^3)",
+          "nsteps_timed": WAVE_STEPS, "ms_per_step": ms_step,
+          "site_updates_per_s": sites * WAVE_STEPS / elapsed,
+          "host_s": host_s, "device_s": elapsed,
+          "launches": path_launches, "expected_launches": expected,
+          # 4 Laplacians a step at the separately timed cost, over the step
+          "fd_lap_share_est": 4 * lap_ms / ms_step,
+          "fd_lap_ms_at_path_shape": lap_ms,
+          "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30,
+          "energy0": e0, "energy1": e1, "energy_drift": drift,
+          "energy_tol": WAVE_ENERGY_TOL, "finite": finite, **checks})
+    if not (finite and shapes_ok):
+        raise SystemExit(f"{phase} produced a non-finite or misshapen state")
+    if not -WAVE_ENERGY_TOL <= drift <= 1e-6:
+        raise SystemExit(f"{phase}: wave energy moved by {drift}")
+    if path_launches != expected:
+        raise SystemExit(f"{phase} launched {path_launches}, not "
+                         f"{expected}")
+    if not (checks["grad_lap_grad_equals_grad"]
+            and checks["grad_lap_lap_equals_lap"]
+            and checks["pd_equals_grad_components"]
+            and checks["div_grad_vs_sum_of_pd_rel_err"]
+            <= KERNEL_TOL[torch.float32]):
+        raise SystemExit(f"{phase}: the operators disagree with each "
+                         f"other: {checks}")
+
+
+# -- the multigrid solver (K11) -----------------------------------------------
+
+def mg_problem(kind):
+    """``"newton"``: the bench's nonlinear problem lap f - f + f**3 = rho
+    (NewtonIterator, omega = 2/3); ``"jacobi"``: the tests' Poisson +
+    Helmholtz pair (JacobiIterator, omega = 1/2)."""
+    import pystella_tpu_torch as pt
+    fld = pt.Field
+    if kind == "newton":
+        f = fld("f")
+        return (pt.NewtonIterator,
+                {f: (fld("lap_f") - f + f**3, fld("rho"))}, MG_OMEGA)
+    return (pt.JacobiIterator,
+            {fld("f"): (fld("lap_f"), fld("rho")),
+             fld("f2"): (fld("lap_f2") - fld("f2"), fld("rho2"))}, 1 / 2)
+
+
+def mg_solver(kind, smoother=None, solver_cls=None):
+    cls, lhs, omega = mg_problem(kind)
+    return (solver_cls or cls)(lhs, halo_shape=MG_HALO, omega=omega,
+                               smoother=smoother, device="cuda")
+
+
+def mg_arrays(solver, shape, dtype, seed):
+    """Seeded zero-mean uniform unknowns and sources of a level."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def one():
+        a = torch.rand(tuple(shape), generator=g, device="cuda", dtype=dtype)
+        return a - a.mean()
+    fs = {n: one() for n in solver.f_to_rho_dict}
+    rhos = {r: one() for r in solver.f_to_rho_dict.values()}
+    return fs, rhos
+
+
+def mg_kernels_vs_plain(phase, cases, errs):
+    """mg_smooth (1 and 3 sweeps), mg_residual and mg_tau vs the plain
+    version, for the Newton problem (nf = 1) and the Jacobi pair (nf = 2),
+    at every (shape, dtype) of ``cases``."""
+    from pystella_tpu_torch.multigrid.relax import LevelSpec
+    for kind in ("newton", "jacobi"):
+        kernel, plain = mg_solver(kind), mg_solver(kind, "plain")
+        for shape, dtype in cases:
+            level = LevelSpec(tuple(shape), (MG_BOX / shape[0],) * 3)
+            fs, rhos = mg_arrays(kernel, shape, dtype, 70)
+            rr = {n: rhos[r] for n, r in kernel.f_to_rho_dict.items()}
+            runs = {
+                "mg_smooth": [lambda s: s.smooth(level, fs, rhos, {}, 1),
+                              lambda s: s.smooth(level, fs, rhos, {}, 3)],
+                "mg_residual": [lambda s: s.residual(level, fs, rhos, {})],
+                "mg_tau": [lambda s: s.tau_rhs(level, fs, rr, {})]}
+            for name, calls in runs.items():
+                per_output = []
+                for call in calls:
+                    got, ref = call(kernel), call(plain)
+                    torch.cuda.synchronize()
+                    per_output += [rel_err(got[n], ref[n]) for n in ref]
+                    del got, ref
+                row = {"max_rel_err": max(r for r, _ in per_output),
+                       "max_abs_err": max(a for _, a in per_output),
+                       "tol": KERNEL_TOL[dtype]}
+                tag = case_tag(shape, dtype) + ":" + kind
+                errs.setdefault(name, {})[tag] = row
+                emit({"phase": phase, "kernel": name, "problem": kind,
+                      "nf": len(fs), "shape": shape, "dtype": str(dtype),
+                      **row})
+                if not row["max_rel_err"] <= KERNEL_TOL[dtype]:
+                    raise SystemExit(f"{name} ({kind}) disagrees with its "
+                                     f"plain version at {shape} {dtype}: "
+                                     f"{row}")
+            del fs, rhos, rr
+            torch.cuda.empty_cache()
+
+
+def mg_ops_per_site(solver, name):
+    """Arithmetic of one sweep per site, counted from the generated header:
+    the Laplacian (1 + 9h) per unknown plus the printed update (for tau,
+    plus the added restricted residual)."""
+    fn = {"mg_smooth": "mg_step", "mg_residual": "mg_resid",
+          "mg_tau": "mg_lhs"}[name]
+    body = solver.kernel_header().split(f"void {fn}(")[1].split("}")[0]
+    printed = sum(body.count(op) for op in (" * ", " + ", " / ", " - ",
+                                            "pk_"))
+    nf = len(solver.f_to_rho_dict)
+    return nf * (1 + 9 * solver.halo_shape) + printed + (
+        nf if name == "mg_tau" else 0)
+
+
+def time_mg_kernels(phase, timing):
+    """Each K11 kernel at 512^3 f32 for the Newton problem (the main
+    path's) and the Jacobi pair: CUDA-event ms per launch (the sweep over
+    20 ping-ponged sweeps of one call), the plain version, and the bound
+    (nf unknowns and nf sources in, nf out)."""
+    from pystella_tpu_torch.multigrid.relax import LevelSpec
+    sites = math.prod(GRID)
+    level = LevelSpec(GRID, (MG_BOX / GRID[0],) * 3)
+    for kind in ("newton", "jacobi"):
+        kernel, plain = mg_solver(kind), mg_solver(kind, "plain")
+        fs, rhos = mg_arrays(kernel, GRID, torch.float32, 80)
+        rr = {n: rhos[r] for n, r in kernel.f_to_rho_dict.items()}
+        nf = len(fs)
+        calls = {
+            "mg_smooth": (lambda s, nu: s.smooth(level, fs, rhos, {}, nu),
+                          20),
+            "mg_residual": (lambda s, nu: s.residual(level, fs, rhos, {}),
+                            1),
+            "mg_tau": (lambda s, nu: s.tau_rhs(level, fs, rr, {}), 1)}
+        for name, (call, nu) in calls.items():
+            ms = cuda_ms(lambda: call(kernel, nu), reps=20 // nu,
+                         warmup=1) / nu
+            torch.cuda.empty_cache()
+            plain_ms = cuda_ms(lambda: call(plain, 1), reps=3)
+            nbytes = 3 * nf * sites * 4
+            ops = mg_ops_per_site(kernel, name) * sites
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / PEAK_F32_OPS * 1e3
+            bound = max(bytes_ms, ops_ms)
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations", "bytes": nbytes, "ops": ops,
+                   "share_of_bound": bound / ms}
+            timing[name if kind == "newton" else f"{name}:{kind}"] = row
+            emit({"phase": phase, "kernel": name, "problem": kind, "nf": nf,
+                  "shape": GRID, "dtype": "torch.float32", **row})
+        del fs, rhos, rr
+        torch.cuda.empty_cache()
+
+
+def mg_reference(phase):
+    """tests/test_multigrid.py:33-72 on the card at 32^3 f64: the four
+    Solver x MG combinations on Poisson + Helmholtz converge in 10 default
+    V-cycles; and one kernel-tier cycle against one plain-tier cycle,
+    solution and every recorded error."""
+    import pystella_tpu_torch as pt
+    shape = SMALL
+    dx = MG_BOX / shape[0]
+    for solver_cls in (pt.NewtonIterator, pt.JacobiIterator):
+        solver = mg_solver("jacobi", solver_cls=solver_cls)
+        fs, rhos = mg_arrays(solver, shape, torch.float64, 90)
+        for mg_cls in (pt.FullApproximationScheme, pt.MultiGridSolver):
+            mg = mg_cls(solver=solver, halo_shape=MG_HALO)
+            sol = dict(fs)
+            for _ in range(10):
+                errs, sol = mg(dx0=dx, **sol, **rhos)
+            final = {n: e[1] for n, e in errs[-1][1].items()}
+            emit({"phase": phase, "solver": solver_cls.__name__,
+                  "mg": mg_cls.__name__, "shape": shape,
+                  "dtype": "torch.float64", "cycles": 10,
+                  "final_l2_residual": final, "tol": MG_CONVERGED_TOL})
+            if not max(final.values()) < MG_CONVERGED_TOL:
+                raise SystemExit(f"{mg_cls.__name__} over "
+                                 f"{solver_cls.__name__} did not converge: "
+                                 f"{final}")
+    res = {}
+    for smoother in ("kernel", "plain"):
+        solver = mg_solver("jacobi", smoother)
+        fs, rhos = mg_arrays(solver, shape, torch.float64, 90)
+        res[smoother] = pt.FullApproximationScheme(solver=solver)(
+            dx0=dx, **fs, **rhos)
+    (e_k, s_k), (e_p, s_p) = res["kernel"], res["plain"]
+    sol_err = max(rel_err(s_k[n], s_p[n])[0] for n in s_p)
+    err_err = max(abs(a - b) / abs(b) for (_, got), (_, ref) in zip(e_k, e_p)
+                  for n in ref for a, b in zip(got[n], ref[n]))
+    emit({"phase": phase, "check": "kernel-tier cycle vs plain-tier cycle",
+          "shape": shape, "dtype": "torch.float64",
+          "solution_rel_err": sol_err, "recorded_errors_rel_err": err_err,
+          "entries": len(e_k), "tol": MG_CYCLE_TOL})
+    if not (sol_err <= MG_CYCLE_TOL and err_err <= MG_CYCLE_TOL
+            and len(e_k) == len(e_p)):
+        raise SystemExit(f"the kernel-tier cycle disagrees with the "
+                         f"plain-tier one: {sol_err}, {err_err}")
+
+
+def mg_main_path(phase, timing, launches, trace):
+    """bench.py:run_multigrid as it stands: FAS over NewtonIterator on lap
+    f - f + f**3 = rho at 512^3 f32 (h = 1, omega = 2/3, dx = 10 / n, rho a
+    zero-mean N(0, 1), f = 0, the default V-cycle v_cycle(25, 50, 6)): one
+    warm-up and two timed cycles, then one more under torch.profiler."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.multigrid import relax
+    sites = math.prod(GRID)
+    dx = MG_BOX / GRID[0]
+    solver = mg_solver("newton")
+    mg = pt.FullApproximationScheme(solver=solver, halo_shape=MG_HALO)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rho = torch.randn(GRID, generator=g, device="cuda", dtype=torch.float32)
+    rho -= rho.mean()
+    f = torch.zeros(GRID, device="cuda", dtype=torch.float32)
+    depth = max(1, int(np.log2(min(GRID) / 8)))
+    cycle = pt.v_cycle(25, 50, depth)
+    per_cycle = {"mg_smooth": sum(nu for _, nu in cycle),
+                 "mg_residual": 2 * len(cycle) + depth, "mg_tau": depth}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    relax.reset_launch_counts()
+    residuals = []
+    errs, sol = mg(dx0=dx, f=f, rho=rho)  # warm-up cycle
+    f = sol["f"]
+    residuals.append(errs[-1][1]["f"][1])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    host0 = time.perf_counter()
+    start.record()
+    for _ in range(MG_CYCLES):
+        errs, sol = mg(dx0=dx, f=f, rho=rho)
+        f = sol["f"]
+        residuals.append(errs[-1][1]["f"][1])
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - host0
+    device_s = start.elapsed_time(end) / 1e3
+    path_launches = dict(relax.LAUNCHES)
+    launches.update(path_launches)
+    expected = {k: (1 + MG_CYCLES) * v for k, v in per_cycle.items()}
+    finite = bool(torch.isfinite(f).all()) and all(
+        math.isfinite(r) for r in residuals)
+    falling = all(b < a for a, b in zip(residuals, residuals[1:]))
+    # the last cycle's record, level by level: (level, sweeps, L2 residual
+    # before, after)
+    record = [(lvl, nu, errs[2 * k][1]["f"][1], errs[2 * k + 1][1]["f"][1])
+              for k, (lvl, nu) in enumerate(cycle)]
+    ms_cycle = device_s / MG_CYCLES * 1e3
+    emit({"phase": phase, "grid": GRID, "dtype": "torch.float32",
+          "source": "bench.py:765-801", "cycle": f"v_cycle(25, 50, {depth})",
+          "levels": [GRID[0] >> i for i in range(depth + 1)],
+          "cycles_timed": MG_CYCLES, "ms_per_cycle": ms_cycle,
+          "host_s": host_s, "device_s": device_s,
+          "site_sweeps_per_s": sites * 75 * MG_CYCLES / device_s,
+          "launches": path_launches, "expected_launches": expected,
+          # the level-0 sweeps, residuals and tau at the separately timed
+          # per-launch cost, over the cycle: what the finest level's
+          # kernels take of it
+          "level0_kernel_share_est": (
+              75 * timing["mg_smooth"]["ms"]
+              + 5 * timing["mg_residual"]["ms"]) / ms_cycle,
+          "l2_residual_after_each_cycle": residuals,
+          "last_cycle_record": record,
+          "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30,
+          "finite": finite, "falling": falling})
+    if not finite or tuple(f.shape) != GRID:
+        raise SystemExit(f"{phase} produced a non-finite or misshapen "
+                         "solution")
+    if not falling:
+        raise SystemExit(f"{phase}: the residual did not fall from cycle to "
+                         f"cycle: {residuals}")
+    if path_launches != expected:
+        raise SystemExit(f"{phase} launched {path_launches}, not "
+                         f"{expected}")
+    emit({"phase": trace, **trace_chunk(
+        lambda: mg(dx0=dx, f=f, rho=rho), device_s / MG_CYCLES),
+        "steps": mg_step_times(mg, lambda: mg(dx0=dx, f=f, rho=rho))})
+
+
+def mg_step_times(mg, run):
+    """One more cycle with a CUDA-event pair and a host-clock pair around
+    every step of it (a level visit: the sweeps and the two error records;
+    a transfer down or up): ``[step, level, device ms, host ms]`` in cycle
+    order. The host time is what enqueueing the step took; where it passes
+    the device time, the device waits unless the host was ahead."""
+    marks = []
+
+    def timed(name):
+        inner = getattr(mg, name)
+
+        def step(levels, i, *args):
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            host0 = time.perf_counter()
+            begin.record()
+            out = inner(levels, i, *args)
+            end.record()
+            marks.append((name, i, begin, end, time.perf_counter() - host0))
+            return out
+        setattr(mg, name, step)
+
+    steps = ("smooth", "transfer_down", "transfer_up")
+    for name in steps:
+        timed(name)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for name in steps:
+            delattr(mg, name)  # the instance's wrapper; the method stays
+    return [(name, i, begin.elapsed_time(end), host_s * 1e3)
+            for name, i, begin, end, host_s in marks]
+
+
 def ptxas_report(*steppers):
     """Registers and spill bytes of every kernel each stepper built, from
     the build's -Xptxas -v output (names demangled by c++filt where the
@@ -857,26 +1416,43 @@ def main():
     # -- 2. build (every kernel, float32 and float64, with and without bf16
     #       carries, one nvcc a source; the scalar model's sources, the
     #       chunk's included, and the GW model's all at once) ----------------
+    #       the operators' (one library a stencil radius) and the multigrid
+    #       solvers' (one a set of equations), each source its own nvcc
+    from pystella_tpu_torch.multigrid import relax as trelax
+    from pystella_tpu_torch.ops import derivs as tderivs
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(8) as pool:
         # no future outlives this line: a future would keep its stepper,
         # and so its buffers, alive after the stepper is deleted
-        chunk_st, gw_st = (f.result() for f in (
+        chunk_st, gw_st, newton, jacobi, *_ = [f.result() for f in [
             pool.submit(pt.FusedScalarStepper, sector, GRID, dx, HALO,
                         dtype=torch.float32, chunk_stages=CHUNK,
                         device="cuda"),
             pool.submit(pt.FusedPreheatStepper, sector, gw_sector, GRID, dx,
-                        HALO, dtype=torch.float32, device="cuda")))
+                        HALO, dtype=torch.float32, device="cuda"),
+            pool.submit(mg_solver, "newton"),
+            pool.submit(mg_solver, "jacobi"),
+            *(pool.submit(tderivs.build_kernels, h) for h in FD_HALOS)]]
     build_s = time.perf_counter() - t0
     main_st = pt.FusedScalarStepper(sector, GRID, dx, HALO,
                                     dtype=torch.float32, device="cuda")
     tiles = {str(d): chunk_st.chunk_kernel_tile(d)
              for d in (torch.float32, torch.float64)}
+    new_kernels = {**tderivs.KERNELS, **trelax.KERNELS}
     emit({"phase": "build", "seconds": build_s,
-          "sources": sorted({src for src, _ in tfused.KERNELS.values()}),
-          "kernels": chunk_st.kernel_names() + gw_st.kernel_names(),
+          "sources": sorted({src for src, _ in tfused.KERNELS.values()}
+                            | {src for src, _ in new_kernels.values()}),
+          "kernels": chunk_st.kernel_names() + gw_st.kernel_names()
+          + list(new_kernels),
           "build_dir": str(pt.ops.stencil.BUILD_DIR),
-          "ptxas": ptxas_report(chunk_st, gw_st),
+          "ptxas": {**ptxas_report(chunk_st, gw_st),
+                    **{f"fd_ops h={h}": ptxas_of(
+                        "fd_ops.cu", tderivs.kernel_header(h))
+                       for h in FD_HALOS},
+                    **{f"mg_relax {kind}": ptxas_of(
+                        "mg_relax.cu", solver.kernel_header())
+                       for kind, solver in (("newton", newton),
+                                            ("jacobi", jacobi))}},
           # K10's dynamic shared memory: the output tile and bytes a block
           "fused_chunk_tile": {d: {"tile": t[0], "smem_bytes_per_block":
                                    t[1]} for d, t in tiles.items()}})
@@ -887,6 +1463,10 @@ def main():
         raise SystemExit("the chunk stepper did not build the chunk kernel")
     if gw_st.kernel_names() != list(GW_KERNELS):
         raise SystemExit("the GW model did not build every kernel")
+    if tuple(new_kernels) != FD_KERNELS + MG_KERNELS:
+        raise SystemExit("the operator and multigrid kernels are not the "
+                         "ones this run checks")
+    del newton, jacobi
 
     # -- 3. kernels vs plain, at the main path's shape and others; every
     #       sum-emitting kernel twice for bit-equal sums ----------------------
@@ -1050,13 +1630,46 @@ def main():
     del gw_st
     torch.cuda.empty_cache()
 
+    # -- 20. the operator kernels (K12) vs plain: the wave path's shape, two
+    #        others in f32 and f64, and h = 1 and 4 at the small shape -------
+    fd_kernels_vs_plain(
+        "fd_kernel_vs_plain",
+        [(shape, dtype, HALO) for shape, dtype in cases]
+        + [(ALT_SHAPES[1], dtype, h) for h in FD_HALOS if h != HALO
+           for dtype in (torch.float32, torch.float64)], errs)
+
+    # -- 21. the sweep kernels (K11) vs plain: the Newton problem and the
+    #        Jacobi pair at the multigrid path's finest level, 256^3 f64,
+    #        48x40x36 and its coarsest level, 8^3 ---------------------------
+    mg_kernels_vs_plain(
+        "mg_kernel_vs_plain",
+        [(GRID, torch.float32), (ALT_SHAPES[0], torch.float64)]
+        + [(shape, dtype) for shape in (ALT_SHAPES[1], (8, 8, 8))
+           for dtype in (torch.float32, torch.float64)], errs)
+
+    # -- 22. their times at 512^3 f32 ----------------------------------------
+    time_fd_kernels("fd_kernel_time", timing)
+    time_mg_kernels("mg_kernel_time", timing)
+
+    # -- 23. wave reference and main path ------------------------------------
+    wave_reference("wave_reference")
+    wave_main_path("wave_main_path", launches)
+
+    # -- 24. multigrid reference, main path and trace ------------------------
+    mg_reference("mg_reference")
+    mg_main_path("mg_main_path", timing, launches, trace="mg_trace")
+
     kernels = []
     names = list(tfused.KERNELS) + [n + tfused.BF16
                                     for n in tfused.CARRY_KERNELS]
-    for name in names:
-        src, replaces = tfused.KERNELS[name.split(":")[0]]
+    sites = {**tfused.KERNELS, **new_kernels}
+    main_tag = {name: case_tag(GRID, torch.float32) + (
+        ":newton" if name in MG_KERNELS else "")
+        for name in names + list(new_kernels)}
+    for name in names + list(new_kernels):
+        src, replaces = sites[name.split(":")[0]]
         t = timing[name]
-        main_case = errs[name][case_tag(GRID, torch.float32)]
+        main_case = errs[name][main_tag[name]]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"pystella_tpu_torch/ops/csrc/{src}",
@@ -1069,6 +1682,9 @@ def main():
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
+    never = [k["name"] for k in kernels if k["launches"] < 1]
+    if never:
+        raise SystemExit(f"no main path launched {never}")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,8 +6,12 @@ hold it to. It runs the 2-field scalar-preheating hot loop,
 :meth:`FusedScalarStepper.multi_step`, the energy-coupled driver,
 :meth:`FusedScalarStepper.coupled_multi_step` with :class:`Expansion` and
 :class:`Reduction`, and the same two for the gravitational-wave system
-(:class:`FusedPreheatStepper` with a :class:`TensorPerturbationSector`), on
-an NVIDIA H100 with hand-written CUDA kernels (``ops/csrc``).
+(:class:`FusedPreheatStepper` with a :class:`TensorPerturbationSector`); the
+finite-difference operators of :class:`FiniteDifferencer` behind the
+generic steppers; and the multigrid solvers (:mod:`.multigrid`:
+:class:`FullApproximationScheme`, :class:`MultiGridSolver` over
+:class:`JacobiIterator` / :class:`NewtonIterator`), on an NVIDIA H100 with
+hand-written CUDA kernels (``ops/csrc``).
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); without CUDA and without that request they raise.
@@ -23,10 +27,16 @@ from pystella_tpu_torch.field import (
     simplify, substitute,
 )
 from pystella_tpu_torch.grid import Lattice
+from pystella_tpu_torch import multigrid
 from pystella_tpu_torch.models.expansion import Expansion
 from pystella_tpu_torch.models.sectors import (
     ScalarSector, Sector, TensorPerturbationSector, get_rho_and_p,
     tensor_index,
+)
+from pystella_tpu_torch.multigrid import (
+    CubicInterpolation, FullApproximationScheme, FullWeighting, Injection,
+    JacobiIterator, LinearInterpolation, MultiGridSolver, NewtonIterator,
+    f_cycle, v_cycle, w_cycle,
 )
 from pystella_tpu_torch.ops.derivs import (
     FiniteDifferencer, FirstCenteredDifference, SecondCenteredDifference,
@@ -55,6 +65,10 @@ __all__ = [
     "get_rho_and_p", "tensor_index",
     "FiniteDifferencer", "FirstCenteredDifference",
     "SecondCenteredDifference", "FusedScalarStepper", "FusedPreheatStepper",
+    "multigrid", "FullApproximationScheme", "MultiGridSolver",
+    "JacobiIterator", "NewtonIterator", "FullWeighting", "Injection",
+    "LinearInterpolation", "CubicInterpolation", "v_cycle", "w_cycle",
+    "f_cycle",
     "Stepper", "RungeKuttaStepper", "LowStorageRKStepper",
     "compile_rhs_dict", "RungeKutta4", "RungeKutta3Heun",
     "RungeKutta3Nystrom", "RungeKutta3Ralston", "RungeKutta3SSP",

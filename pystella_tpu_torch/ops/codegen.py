@@ -23,7 +23,13 @@ rounds:
   ``x ** 2`` is ``x * x``, ...) or is ``pk_pow``;
 - a :class:`~pystella_tpu_torch.field.Call` prints as the ``pk_<name>``
   device function of ``csrc/pk_common.cuh``, which maps to the CUDA math
-  library's ``float`` or ``double`` version.
+  library's ``float`` or ``double`` version;
+- a scalar that ``evaluate`` meets as a Python float (the multigrid
+  solvers' ``omega`` and ``_lap_diag``) is a C ``double``
+  (:class:`DoubleExpr`): a subtree of numbers and such scalars alone is
+  computed in double, as Python computes it, and cast to ``T`` where it
+  meets a lattice value, as PyTorch casts a Python scalar to the tensor's
+  type.
 """
 
 from __future__ import annotations
@@ -33,8 +39,8 @@ import numbers
 
 from pystella_tpu_torch import field as _field
 
-__all__ = ["print_c", "C_FUNCS", "model_header", "STAGE_VARIABLES",
-           "HUBBLE_FREE_VARIABLES"]
+__all__ = ["print_c", "C_FUNCS", "model_header", "relax_header",
+           "DoubleExpr", "STAGE_VARIABLES", "HUBBLE_FREE_VARIABLES"]
 
 #: field.py function name -> device function in csrc/pk_common.cuh
 C_FUNCS = {name: f"pk_{name}" for name in _field._FUNCS}
@@ -60,18 +66,55 @@ def _literal(v):
     raise TypeError(f"cannot print constant of type {type(v)}")
 
 
+class DoubleExpr(str):
+    """A C expression of type ``double``: a scalar that ``evaluate`` sees
+    as a Python float, or arithmetic on such scalars and numbers alone.
+    Map a variable to one (``variables={"omega": DoubleExpr("s.omega")}``)
+    to have it printed that way."""
+
+
 def _is_num(x):
     return isinstance(x, numbers.Number)
 
 
+def _is_host(x):
+    """A value Python would hold as a float: a number or a double."""
+    return _is_num(x) or isinstance(x, DoubleExpr)
+
+
+def _double(v):
+    """A folded number or a :class:`DoubleExpr` as a C double."""
+    if isinstance(v, DoubleExpr):
+        return v
+    v = float(v)
+    if not math.isfinite(v):
+        raise ValueError(f"cannot print non-finite constant {v}")
+    return repr(v)
+
+
+def _typed(v):
+    """A folded number, a :class:`DoubleExpr` or a C string as a ``T``."""
+    if _is_num(v):
+        return _literal(v)
+    return f"T({v})" if isinstance(v, DoubleExpr) else v
+
+
 def _binary(a, b, op):
-    """``a op b`` where each side is a folded number or a C string."""
+    """``a op b`` where each side is a folded number, a double or a C
+    string of type ``T``."""
     if _is_num(a) and _is_num(b):
         return {"+": lambda: a + b, "*": lambda: a * b,
                 "/": lambda: a / b}[op]()
-    sa = _literal(a) if _is_num(a) else a
-    sb = _literal(b) if _is_num(b) else b
-    return f"({sa} {op} {sb})"
+    if _is_host(a) and _is_host(b):
+        return DoubleExpr(f"({_double(a)} {op} {_double(b)})")
+    return f"({_typed(a)} {op} {_typed(b)})"
+
+
+def _call(fn, *args):
+    """``fn(args)``: in double when every argument is one, else in ``T``."""
+    if all(_is_host(a) for a in args):
+        return DoubleExpr(f"{fn}({', '.join(_double(a) for a in args)})")
+    return f"{fn}({', '.join(_typed(a) for a in args)})"
 
 
 def _pow(base, ev):
@@ -83,12 +126,13 @@ def _pow(base, ev):
     if ev == 1:
         return base
     sq = _binary(base, base, "*")
-    special = {2: sq, 3: _binary(sq, base, "*"), 0.5: f"pk_sqrt({base})",
+    special = {2: sq, 3: _binary(sq, base, "*"),
+               0.5: _call("pk_sqrt", base),
                -1: _binary(1, base, "/"), -2: _binary(1, sq, "/"),
-               -0.5: _binary(1, f"pk_sqrt({base})", "/")}
+               -0.5: _binary(1, _call("pk_sqrt", base), "/")}
     if ev in special:
         return special[ev]
-    return f"pk_pow({base}, {_literal(ev)})"
+    return _call("pk_pow", base, ev)
 
 
 def _emit(expr, fields, variables):
@@ -109,6 +153,8 @@ def _emit(expr, fields, variables):
             raise ValueError(f"no kernel symbol for variable {expr.name!r}")
         return variables[expr.name]
     if isinstance(expr, _field.Field):
+        if not expr.shape and expr.name in variables:
+            return variables[expr.name]
         raise ValueError(f"whole field {expr.name!r} has no kernel symbol; "
                          "index its components")
     if isinstance(expr, _field.Shifted):
@@ -150,13 +196,12 @@ def _emit(expr, fields, variables):
         e = rec(expo)
         if _is_num(e):
             return base ** e if _is_num(base) else _pow(base, e)
-        sb = _literal(base) if _is_num(base) else base
-        return f"pk_pow({sb}, {e})"
+        return _call("pk_pow", base, e)
     if isinstance(expr, _field.Call):
         (arg,) = [rec(a) for a in expr.args]
         if _is_num(arg):
             return float(_field._apply(expr.func, arg))
-        return f"{C_FUNCS[expr.func]}({arg})"
+        return _call(C_FUNCS[expr.func], arg)
     raise TypeError(f"cannot print {type(expr)}")
 
 
@@ -165,10 +210,12 @@ def print_c(expr, fields=None, variables=None):
 
     :arg fields: field name -> C array name; component ``f[i]`` of field
         ``f`` prints as ``<name>[i]``, ``dfdx[i, j]`` as ``<name>[i][j]``.
-    :arg variables: :class:`~pystella_tpu_torch.field.Var` name -> C name.
+    :arg variables: :class:`~pystella_tpu_torch.field.Var` name (or the
+        name of a whole :class:`~pystella_tpu_torch.field.Field` without
+        component axes) -> C name of a ``T``, or a :class:`DoubleExpr`.
     """
     out = _emit(_field._wrap(expr), dict(fields or {}), dict(variables or {}))
-    return _literal(out) if _is_num(out) else out
+    return _typed(out)
 
 
 def _site_functions(suffix, dvdf, potential, fields, variables):
@@ -263,4 +310,67 @@ def model_header(dvdf, potential, nfields, halo, field_name="f",
         lines += _sij_functions("", sij, STAGE_VARIABLES)
         if hubble_free:
             lines += _sij_functions("_nohub", sij, HUBBLE_FREE_VARIABLES)
+    return "\n".join(lines)
+
+
+def relax_header(names, rho_names, step_exprs, resid_exprs, lhs_exprs, halo,
+                 aux_lattice=(), aux_scalar=()):
+    """The generated header the multigrid sweep kernels (``mg_relax.cu``)
+    are compiled against: the stencil radius ``PK_H``, the number of
+    unknowns ``MG_NF``, of lattice-valued and of scalar auxiliary inputs
+    (``MG_NLAT``, ``MG_NSCAL``), the values a site holds,
+
+    - ``s.f[i]``, ``s.lap[i]``, ``s.rho[i]``: unknown ``names[i]``, its
+      Laplacian ``lap_<name>`` and its source ``rho_names[i]``;
+    - ``s.aux[j]``, ``s.scal[j]``: the auxiliary arrays and scalars, in the
+      order given (of type ``T``: the solver hands them over in the
+      working type);
+    - ``s.omega``, ``s.lap_diag``: the damping factor and the Laplacian's
+      centre weight, doubles, as the plain version's Python floats;
+
+    and per kind one function computing, for every unknown from the OLD
+    values of all of them, ``mg_step`` (the relaxation update,
+    ``step_exprs``), ``mg_resid`` (``rho - L(f)``, ``resid_exprs``) and
+    ``mg_lhs`` (``L(f)``, ``lhs_exprs``; it sees no ``rho``: the FAS
+    coarse right-hand side adds the restricted residual outside it).
+    """
+    symbols = {"omega": DoubleExpr("s.omega"),
+               "_lap_diag": DoubleExpr("s.lap_diag")}
+    for j, k in enumerate(aux_lattice):
+        symbols[k] = f"s.aux[{j}]"
+    for j, k in enumerate(aux_scalar):
+        symbols[k] = f"s.scal[{j}]"
+    for i, n in enumerate(names):
+        symbols[n] = f"s.f[{i}]"
+        symbols["lap_" + n] = f"s.lap[{i}]"
+    with_rho = dict(symbols)
+    for i, r in enumerate(rho_names):
+        with_rho[r] = f"s.rho[{i}]"
+    nf = len(names)
+    lines = [
+        "// Generated by pystella_tpu_torch.ops.codegen; do not edit.",
+        "#pragma once",
+        f"#define PK_H {int(halo)}",
+        f"#define MG_NF {nf}",
+        f"#define MG_NLAT {len(aux_lattice)}",
+        f"#define MG_NSCAL {len(aux_scalar)}",
+        "",
+        "template <typename T>",
+        "struct MgSite {",
+        "  T f[MG_NF], lap[MG_NF], rho[MG_NF];",
+        "  T aux[MG_NLAT > 0 ? MG_NLAT : 1], scal[MG_NSCAL > 0 ? MG_NSCAL : 1];",
+        "  double omega, lap_diag;",
+        "};",
+        "",
+    ]
+    for fn, exprs, syms in (("mg_step", step_exprs, with_rho),
+                            ("mg_resid", resid_exprs, with_rho),
+                            ("mg_lhs", lhs_exprs, symbols)):
+        lines += ["template <typename T>",
+                  f"__device__ __forceinline__ void {fn}(",
+                  "    const MgSite<T>& s, T (&out)[MG_NF]) {",
+                  "  (void)s;"]
+        for i, n in enumerate(names):
+            lines.append(f"  out[{i}] = {print_c(exprs[n], None, syms)};")
+        lines += ["}", ""]
     return "\n".join(lines)

@@ -480,3 +480,170 @@ def test_preheat_coupled_card_matches_cpu(cuda, pair):
         assert _rel(got[name], ref[name]) <= 1e-12
     assert abs(e_got.a - e_ref.a) / e_ref.a <= 1e-12
     assert abs(e_got.adot - e_ref.adot) / abs(e_ref.adot) <= 1e-12
+
+
+# -- the finite-difference operators (K12) and the multigrid sweeps (K11) -----
+
+from pystella_tpu_torch import multigrid as tmg  # noqa: E402
+from pystella_tpu_torch.multigrid import relax as trelax  # noqa: E402
+from pystella_tpu_torch.ops import derivs as tderivs  # noqa: E402
+
+#: the operators add and multiply in the plain versions' order and nothing
+#: else: a few ulp of the output's largest value at most (0 expected)
+FD_TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", [(16, 16, 16), (48, 40, 36), (4, 2, 6)],
+                         ids=["16cubed", "48x40x36", "4x2x6"])
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+@pytest.mark.parametrize("op", tderivs.OPS)
+def test_fd_kernel_matches_plain(cuda, op, h, grid, dtype):
+    """Each K12 operator vs its plain version on the same input (also on
+    a lattice narrower than the stencil, where taps wrap more than once),
+    and the launch is counted."""
+    fd = pt.FiniteDifferencer(h, (0.3, 0.25, 0.2))
+    g = torch.Generator(device=cuda).manual_seed(h)
+    x = torch.randn((6,) + grid, generator=g, device=cuda, dtype=dtype)
+    plain = fd.plain(op, x)
+    before = tderivs.LAUNCHES["fd_" + op]
+    outs = fd.launch(op, x)
+    torch.cuda.synchronize()
+    assert tderivs.LAUNCHES["fd_" + op] == before + 1
+    assert len(outs) == len(plain) == (2 if op == "grad_lap" else 1)
+    for o, p in zip(outs, plain):
+        assert o.shape == p.shape and o.dtype == dtype
+        # not _rel: at Y = 2 both y neighbours are one site and pdy is 0
+        assert (o - p).abs().max() <= FD_TOL[dtype] * p.abs().max()
+
+
+@pytest.mark.cuda
+def test_fd_public_operators_on_card(cuda):
+    """The public operators on CUDA tensors with outer axes: the shapes
+    of the CPU path, values within rounding of it, every operator through
+    its kernel; ``mode="roll"`` launches nothing."""
+    fd = pt.FiniteDifferencer(2, 0.1)
+    x = torch.randn((2, 3, 12, 10, 8), dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(3))
+    tderivs.reset_launch_counts()
+    xc = x.to(cuda)
+    g, lap = fd.grad_lap(xc)
+    res = {"lap": fd.lap(xc), "grad": fd.grad(xc), "pdx": fd.pdx(xc),
+           "pdy": fd.pdy(xc), "pdz": fd.pdz(xc),
+           "divergence": fd.divergence(xc), "g": g, "l": lap}
+    ref_g, ref_l = fd.grad_lap(x)
+    ref = {"lap": fd.lap(x), "grad": fd.grad(x), "pdx": fd.pdx(x),
+           "pdy": fd.pdy(x), "pdz": fd.pdz(x),
+           "divergence": fd.divergence(x), "g": ref_g, "l": ref_l}
+    assert set(tderivs.LAUNCHES.values()) == {1}
+    for k in ref:
+        assert res[k].shape == ref[k].shape
+        assert _rel(res[k], ref[k]) <= 1e-14
+    pt.FiniteDifferencer(2, 0.1, mode="roll").lap(xc)
+    assert set(tderivs.LAUNCHES.values()) == {1}
+
+
+def _mg_problem(kind):
+    fld = pt.Field
+    if kind == "newton":
+        f = fld("f")
+        return tmg.NewtonIterator, {f: (fld("lap_f") - f + f**3,
+                                        fld("rho"))}, 2 / 3
+    return tmg.JacobiIterator, {
+        fld("f"): (fld("lap_f"), fld("rho")),
+        fld("f2"): (fld("lap_f2") - fld("f2"), fld("rho2"))}, 1 / 2
+
+
+#: sweeps, kernel vs plain: the same operations in the same order (0
+#: expected; the bar leaves room for a few ulp over three sweeps)
+MG_TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", [(16, 16, 16), (48, 40, 36), (8, 8, 8),
+                                  (2, 2, 2)],
+                         ids=["16cubed", "48x40x36", "8cubed", "2cubed"])
+@pytest.mark.parametrize("problem", ["newton", "jacobi"])
+def test_mg_kernel_matches_plain(cuda, problem, grid, dtype):
+    """mg_smooth (1 and 3 sweeps), mg_residual and mg_tau vs the plain
+    version, down to a 2^3 level; each sweep is one counted launch."""
+    cls, lhs, omega = _mg_problem(problem)
+    solver = cls(lhs, halo_shape=1, omega=omega, device=cuda)
+    plain = cls(lhs, halo_shape=1, omega=omega, smoother="plain",
+                device=cuda)
+    level = trelax.LevelSpec(grid, (10.0 / 16,) * 3)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    fs = {n: torch.rand(grid, generator=g, device=cuda, dtype=dtype) - 0.5
+          for n in solver.f_to_rho_dict}
+    rhos = {r: torch.rand(grid, generator=g, device=cuda, dtype=dtype) - 0.5
+            for r in solver.f_to_rho_dict.values()}
+    rr = {n: rhos[r] for n, r in solver.f_to_rho_dict.items()}
+    trelax.reset_launch_counts()
+    pairs = [(solver.smooth(level, fs, rhos, {}, 1),
+              plain.smooth(level, fs, rhos, {}, 1)),
+             (solver.smooth(level, fs, rhos, {}, 3),
+              plain.smooth(level, fs, rhos, {}, 3)),
+             (solver.residual(level, fs, rhos, {}),
+              plain.residual(level, fs, rhos, {})),
+             (solver.tau_rhs(level, fs, rr, {}),
+              plain.tau_rhs(level, fs, rr, {}))]
+    torch.cuda.synchronize()
+    assert trelax.LAUNCHES == {"mg_smooth": 4, "mg_residual": 1, "mg_tau": 1}
+    for got, ref in pairs:
+        assert set(got) == set(ref)
+        for n in ref:
+            assert got[n].dtype == dtype
+            assert _rel(got[n], ref[n]) <= MG_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_mg_kernel_aux_inputs(cuda):
+    """A lattice-valued and a scalar auxiliary input reach the kernel
+    (a library of its own, built at first use)."""
+    fld = pt.Field
+    lhs = fld("lap_f") - pt.Var("m2") * fld("f") + fld("c") * fld("g")
+    grid = (12, 10, 8)
+    level = trelax.LevelSpec(grid, (0.5, 0.4, 0.3))
+    g = torch.Generator(device=cuda).manual_seed(6)
+    f, rho, aux = (torch.rand(grid, generator=g, device=cuda,
+                              dtype=torch.float64) for _ in range(3))
+    args = (level, {"f": f}, {"rho": rho}, {"g": aux, "m2": 0.5, "c": 2.0})
+    res = {}
+    for smoother in ("kernel", "plain"):
+        solver = tmg.NewtonIterator({fld("f"): (lhs, fld("rho"))},
+                                    omega=2 / 3, smoother=smoother,
+                                    device=cuda)
+        res[smoother] = solver.smooth(*args, 2)["f"]
+    assert _rel(res["kernel"], res["plain"]) <= 1e-13
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("MG", ["FullApproximationScheme",
+                                "MultiGridSolver"])
+def test_mg_cycle_card_matches_cpu(cuda, MG):
+    """One default V-cycle at 32^3 f64 on the card (K11) vs the plain
+    versions on the CPU: solution and every recorded error within 1e-12;
+    the errors come back as floats from the deferred record."""
+    cls, lhs, omega = _mg_problem("jacobi")
+    g = torch.Generator().manual_seed(7)
+    arrays = {}
+    for name in ("f", "rho", "f2", "rho2"):
+        a = torch.rand((32,) * 3, generator=g, dtype=torch.float64)
+        arrays[name] = a - a.mean()
+    res = {}
+    for dev in ("cpu", cuda):
+        solver = cls(lhs, halo_shape=1, omega=omega, device=dev)
+        errs, sol = getattr(tmg, MG)(solver=solver)(dx0=10.0 / 32, **arrays)
+        res[str(dev)] = (errs, {k: v.cpu() for k, v in sol.items()})
+    (e_ref, s_ref), (e_got, s_got) = res["cpu"], res[str(cuda)]
+    for n in s_ref:
+        assert _rel(s_got[n], s_ref[n]) <= 1e-12
+    for (lg, got), (lr, ref) in zip(e_got, e_ref):
+        assert lg == lr
+        for n in ref:
+            for a, b in zip(got[n], ref[n]):
+                assert isinstance(a, float) and abs(a - b) <= 1e-12 * abs(b)
