@@ -16,12 +16,18 @@ entry points a user calls, at 512^3 in float32:
 - the energy-coupled driver, ``FusedScalarStepper.coupled_multi_step`` with
   ``Expansion`` and ``Reduction`` (kernels ``coupled_pair``,
   ``coupled_pair_deferred`` and ``fused_stage_energy``);
+- the same with bfloat16 carries (the ``:bf16`` variants of its kernels,
+  and ``fused_stage_energy:bf16_fin``, the odd trailing stage after a
+  finalize), and a single-stage chunk (``pair=False``, the plain
+  ``:bf16`` energy stage);
 - the same two for the gravitational-wave system, ``FusedPreheatStepper``
   with a ``TensorPerturbationSector`` (2 scalar fields and 6 ``hij``
   components; 48 GiB of state, carries and buffers): ``multi_step``
   (kernels ``preheat_pair`` and ``preheat_stage``) and
   ``coupled_multi_step`` (``preheat_coupled_pair``,
-  ``preheat_coupled_pair_deferred`` and ``preheat_stage_energy``);
+  ``preheat_coupled_pair_deferred`` and ``preheat_stage_energy``), each
+  also with bfloat16 carries (the JAX package's 512^3-on-one-device
+  configuration: the ``:bf16`` variants, 36 GiB);
 - the wave equation through the generic stepper, ``RungeKutta4`` over
   ``FiniteDifferencer.lap`` (bench.py:run_wave at 512^3 instead of 64^3),
   and the other operators on its final state (kernels ``fd_lap``,
@@ -31,10 +37,13 @@ entry points a user calls, at 512^3 in float32:
   ``NewtonIterator`` on ``lap f - f + f**3 = rho`` (bench.py:run_multigrid:
   default V-cycles; kernels ``mg_smooth``, ``mg_residual``, ``mg_tau``).
 
-Every phase prints one JSON line; the run fails (non-zero exit, no result
-line) if any phase fails. Then come the ``{"kernels": [...]}`` line, the
-card's name and power limit as nvidia-smi prints them, and, last, the
-result line ``{"ok": true, "device": {...}}``.
+A non-polynomial potential (exp, tanh, sqrt, cos, powers 2.5 and -2, a
+quotient) compiles the printer's math-function paths into K2, K3 and K5 and
+holds them against their plain versions. Every phase prints one JSON line;
+the run fails (non-zero exit, no result line) if any phase fails. Then come
+the ``{"kernels": [...]}`` line, the card's name and power limit as
+nvidia-smi prints them, and, last, the result line ``{"ok": true,
+"device": {...}}``.
 
 Without a CUDA device, or without the ``pystella_tpu_torch`` package beside
 it, it exits non-zero before printing any result.
@@ -116,9 +125,39 @@ FD_KERNELS = ("fd_lap", "fd_grad", "fd_grad_lap", "fd_pdx", "fd_pdy",
 MG_KERNELS = ("mg_smooth", "mg_residual", "mg_tau")
 
 SUM_KERNELS = ("fused_stage_energy", "coupled_pair", "coupled_pair_deferred")
+#: the bf16-carry variants this run holds against their plain versions and
+#: times, beyond the chunk phases' K2, K3, K10: (kernel, velocity carries
+#: finalized)
+BF16_SUM_KERNELS = [(n, False) for n in SUM_KERNELS] + [
+    ("fused_stage_energy", True)]
 GW_KERNELS = ("preheat_stage", "preheat_pair", "preheat_stage_energy",
               "preheat_coupled_pair", "preheat_coupled_pair_deferred")
 GW_SUM_KERNELS = GW_KERNELS[2:]
+BF16_GW_KERNELS = [(n, False) for n in GW_KERNELS] + [
+    ("preheat_stage_energy", True)]
+#: the coupled paths' launches with bf16 carries: the pairs, the trailing
+#: energy stage on the finalized carries and, from a pair=False chunk, the
+#: energy stage
+BF16_COUPLED = ("coupled_pair:bf16", "coupled_pair_deferred:bf16",
+                "fused_stage_energy:bf16_fin", "fused_stage_energy:bf16")
+BF16_GW_COUPLED = ("preheat_coupled_pair:bf16",
+                   "preheat_coupled_pair_deferred:bf16",
+                   "preheat_stage_energy:bf16_fin",
+                   "preheat_stage_energy:bf16")
+#: the path memory predicted before the first chip run (PERF.md): three
+#: sets of state (4 B a value) and carries (2 B) -- the caller's state with
+#: its zero carries and the stepper's two ping-pong sets -- and, on the
+#: coupled paths, the finalize's float32 velocities, velocity carries and
+#: temporaries (up to 8 GiB for the GW system, 2 for the scalar one)
+PREDICTED_PATH_GIB = {"gw_bf16_main_path": 36.0,
+                      "coupled_gw_bf16_main_path": 44.0,
+                      "coupled_bf16_main_path": 11.0}
+#: the test shape of the non-polynomial case
+NONPOLY_SHAPE = (16, 16, 16)
+#: bench.py:build_gw_step / run_gw_step: its potential, its state (numpy
+#: seed 9: f 0.1 N(0, 1), dfdt 0.01 N(0, 1), hij = dhijdt = 0) and its
+#: background scalars
+GW_BENCH_SEED, GW_BENCH_ARGS = 9, {"a": 1.0, "hubble": 0.1}
 #: the GW fused multi_step vs the generic GW stepper (the bar of
 #: tests/test_fused.py:634: S_ij's products of gradients add rounding)
 GW_REFERENCE_TOL = 1e-11
@@ -131,6 +170,37 @@ def emit(obj):
 def potential(f):
     phi, chi = f[0], f[1]
     return (MPHI**2 / 2 * phi**2 + GSQ / 2 * phi**2 * chi**2) / MPHI**2
+
+
+def gw_bench_potential(f):
+    """The GW bench's model (bench.py:build_gw_step)."""
+    return 0.5 * 1.2e-2 * f[0]**2 + 0.125 * f[0]**2 * f[1]**2
+
+
+def gw_bench_state():
+    """bench.py:build_gw_step's state at 512^3 f32, drawn with its numpy
+    generator and seed, on the host."""
+    rng = np.random.default_rng(GW_BENCH_SEED)
+    f = torch.from_numpy(
+        (0.1 * rng.standard_normal((2,) + GRID)).astype(np.float32))
+    dfdt = torch.from_numpy(
+        (0.01 * rng.standard_normal((2,) + GRID)).astype(np.float32))
+    zeros = torch.zeros((6,) + GRID, dtype=torch.float32)
+    return {"f": f, "dfdt": dfdt, "hij": zeros, "dhijdt": zeros}
+
+
+def on_card(state):
+    return {k: v.to("cuda") for k, v in state.items()}
+
+
+def nonpoly_potential(f):
+    """Every non-polynomial path of the kernel printer: exp, tanh, sin and
+    cos (V and dV/df), sqrt, powers 2.5 (and 1.5), -2 (and -3),
+    quotients."""
+    import pystella_tpu_torch as pt
+    return (0.1 * pt.exp(0.3 * f[0]) + 0.2 * pt.tanh(f[1]) * pt.cos(f[0])
+            + 0.05 * pt.sqrt(1 + f[0] ** 2) + 0.01 * (2 + f[1] ** 2) ** 2.5
+            + 0.02 * (1.5 + f[0] ** 2) ** -2 + f[0] * f[1] / (3 + f[0] ** 2))
 
 
 def rel_err(out, ref):
@@ -280,7 +350,7 @@ def term_scale(st, f, df, a, hub):
     """sum |term| of each energy sum of the state (f, df), in float64."""
     import pystella_tpu_torch as pt
     f, df = f.double(), df.double()
-    lap = pt.FiniteDifferencer(st.h, st.dx).lap(f)
+    lap = pt.FiniteDifferencer(st.h, st.dx, device=f.device).lap(f)
     V = pt.evaluate(st.sector.potential(st.sector.f),
                     {st.sector.f.name: f, "a": a, "hubble": hub})
     V = torch.as_tensor(V, dtype=torch.float64, device=f.device)
@@ -402,22 +472,30 @@ def case_tag(shape, dtype):
     return "x".join(map(str, shape)) + ":" + str(dtype)[6:]
 
 
-def kernels_vs_plain(phase, make_stepper, names, cases, errs, gw=False):
+def kernel_item(item):
+    """``(name, finalized)`` of a kernel list entry: a name, or a name and
+    whether the launch takes finalized velocity carries (the ``_bf16_fin``
+    energy stages)."""
+    return item if isinstance(item, tuple) else (item, False)
+
+
+def kernels_vs_plain(phase, make_stepper, names, cases, errs, gw=False,
+                     tag=""):
     """Each kernel vs its plain version on seeded inputs, at every (shape,
     dtype) of ``cases``; every sum-emitting kernel twice for bit-equal
     sums. Fills ``errs[key][case_tag]`` (``key``: the kernel's LAUNCHES
-    name, ``<name>:bf16`` on a bf16-carry stepper) and fails on a
-    disagreement."""
+    name, ``<name>:bf16`` (``<name>:bf16_fin``) on a bf16-carry stepper)
+    and fails on a disagreement."""
     from pystella_tpu_torch.ops import fused as tfused
     for shape, dtype in cases:
         st = make_stepper(shape, dtype)
-        for seed, name in enumerate(names):
+        for seed, item in enumerate(names):
+            name, fin = kernel_item(item)
             ins = kernel_inputs(shape, dtype, seed, gw=gw,
-                                dtypes=st._dtypes)
+                                dtypes=st._in_dtypes(fin))
             params = kernel_params(name, BOX / shape[0])
             plain = st.plain(name, ins, params)
-            outs = st.launch(name, ins, [torch.empty_like(t) for t in ins],
-                             params)
+            outs = st.launch(name, ins, st._new_set(ins[0].device), params)
             torch.cuda.synchronize()
             labels = ("f", "dfdt", "kf", "kdfdt", "hij", "dhijdt", "khij",
                       "kdhijdt")
@@ -434,8 +512,8 @@ def kernels_vs_plain(phase, make_stepper, names, cases, errs, gw=False):
                                             params)
                 row["sum_tol"] = SUM_TOL[dtype]
                 del plain
-                again = st.launch(name, ins, [torch.empty_like(t)
-                                              for t in ins], params)
+                again = st.launch(name, ins, st._new_set(ins[0].device),
+                                  params)
                 torch.cuda.synchronize()
                 row["sums_bitwise_repeatable"] = all(
                     torch.equal(a, b) for a, b in zip(outs, again))
@@ -444,8 +522,8 @@ def kernels_vs_plain(phase, make_stepper, names, cases, errs, gw=False):
                 del again
             else:
                 del plain
-            key = st.counted_name(name)
-            errs.setdefault(key, {})[case_tag(shape, dtype)] = row
+            key = st.counted_name(name, fin)
+            errs.setdefault(key, {})[case_tag(shape, dtype) + tag] = row
             emit({"phase": phase, "kernel": key, "shape": shape,
                   "dtype": str(dtype),
                   "rel_err": {n: r for n, (r, _) in per_output.items()},
@@ -539,6 +617,133 @@ def chunk_identity(phase, make_stepper):
         torch.cuda.empty_cache()
 
 
+def bf16_identities(phase, make_stepper, gw=False):
+    """On the card, at 256^3 in f64 and f32, with bfloat16 carries: the
+    energy stage's lattice outputs == the stage's, bitwise, and its sums
+    bit-equal on a second launch; the pair across a step boundary (stages
+    4 and 0: A[0] == 0 keeps stage 1's carry rounding out of stage 2) ==
+    two single stages, bitwise; the energy stage on finalized velocity
+    carries (``_bf16_fin``) == the f32-carry stepper's energy stage on the
+    same values, its carries rounded to bf16, bitwise."""
+    import pystella_tpu_torch as pt
+    A, B = pt.LowStorageRK54._A, pt.LowStorageRK54._B
+    shape = ALT_SHAPES[0]
+    for dtype in (torch.float64, torch.float32):
+        st = make_stepper(shape, dtype, torch.bfloat16)
+        kn = st._KERNEL
+        ins = kernel_inputs(shape, dtype, 9, gw=gw, dtypes=st._dtypes)
+        p = kernel_params("fused_stage", BOX / shape[0])
+        new = lambda: st._new_set(ins[0].device)  # noqa
+        one = st.launch(kn["stage_energy"], ins, new(), p)
+        two = st.launch(kn["stage_energy"], ins, new(), p)
+        stage = st.launch(kn["stage"], ins, new(), p)
+        torch.cuda.synchronize()
+        energy_bitwise = all(torch.equal(a, b) for a, b in zip(one, stage))
+        sums_bitwise = all(torch.equal(a, b) for a, b in zip(one, two))
+        del one, two, stage
+        dt = p[0]
+        pair = st.launch(kn["pair"], ins, new(),
+                         (dt, 1.0, 0.5, A[4], B[4], 1.01, 0.49, A[0], B[0]))
+        mid = st.launch(kn["stage"], ins, new(), (dt, 1.0, 0.5, A[4], B[4]))
+        twos = st.launch(kn["stage"], mid, new(), (dt, 1.01, 0.49, A[0], B[0]))
+        torch.cuda.synchronize()
+        pair_bitwise = all(torch.equal(a, b) for a, b in zip(pair, twos))
+        del pair, mid, twos
+        fins = kernel_inputs(shape, dtype, 10, gw=gw,
+                             dtypes=st._in_dtypes(True))
+        pf = kernel_params("fused_stage", BOX / shape[0])[:3] + (A[3], B[3])
+        fin = st.launch(kn["stage_energy"], fins, new(), pf)
+        wide = make_stepper(shape, dtype, None)
+        ref = wide.launch(kn["stage_energy"], [t.to(dtype) for t in fins],
+                          wide._new_set(fins[0].device), pf)
+        torch.cuda.synchronize()
+        n = len(fins)
+        fin_bitwise = all(torch.equal(a, b.to(a.dtype))
+                          for a, b in zip(fin[:n], ref[:n]))
+        fin_sums = max((a - b).abs().max().item()
+                       for a, b in zip(fin[n:], ref[n:]))
+        emit({"phase": phase, "dtype": str(dtype), "shape": shape,
+              "carry_dtype": "torch.bfloat16",
+              "energy_stage_bitwise_stage": energy_bitwise,
+              "sums_bitwise_repeatable": sums_bitwise,
+              "cross_boundary_pair_bitwise_two_stages": pair_bitwise,
+              "finalized_energy_stage_bitwise_f32_carry_stage": fin_bitwise,
+              "finalized_energy_stage_sums_abs_diff": fin_sums})
+        if not (energy_bitwise and sums_bitwise and pair_bitwise
+                and fin_bitwise and fin_sums == 0.0):
+            raise SystemExit(f"{phase}: a bf16-carry identity fails "
+                             f"({dtype})")
+        del st, wide, ins, fins, fin, ref
+        torch.cuda.empty_cache()
+
+
+def nonpoly_kernels_vs_plain(phase, errs):
+    """K2, K3 and K5 with a non-polynomial potential (pk_exp, pk_tanh,
+    pk_sin, pk_cos, pk_sqrt and pk_pow printed into dV/df and V) vs their
+    plain versions at 16^3 in f64 and f32, on O(1) fields: KERNEL_TOL on
+    the lattice outputs, SUM_TOL on K5's sums. Rows go to
+    ``errs[name][<case>:nonpoly]``."""
+    import pystella_tpu_torch as pt
+    sector = pt.ScalarSector(2, potential=nonpoly_potential)
+    shape = NONPOLY_SHAPE
+    for dtype in (torch.float64, torch.float32):
+        st = pt.FusedScalarStepper(sector, shape, BOX / shape[0], HALO,
+                                   dtype=dtype, device="cuda")
+        header = st.kernel_header()
+        funcs = sorted(f for f in ("pk_exp", "pk_tanh", "pk_sin", "pk_cos",
+                                   "pk_sqrt", "pk_pow") if f in header)
+        g = torch.Generator(device="cuda").manual_seed(9)
+        ins = [a * torch.randn((2,) + shape, generator=g, device="cuda",
+                               dtype=dtype) for a in (0.8, 0.3, 0.01, 0.02)]
+        for name in ("fused_stage", "fused_pair", "fused_stage_energy"):
+            params = kernel_params(name, BOX / shape[0])
+            plain = st.plain(name, ins, params)
+            outs = st.launch(name, ins, st._new_set(ins[0].device), params)
+            torch.cuda.synchronize()
+            worst = max(rel_err(o, q)[0] for o, q in zip(outs[:4],
+                                                        plain[:4]))
+            row = {"max_rel_err": worst,
+                   "max_abs_err": max(rel_err(o, q)[1] for o, q in
+                                      zip(outs[:4], plain[:4])),
+                   "tol": KERNEL_TOL[dtype]}
+            ok = worst <= KERNEL_TOL[dtype]
+            if len(outs) > 4:
+                row["sum_err"] = sum_errors(st, name, ins, outs, plain,
+                                            params)
+                row["sum_tol"] = SUM_TOL[dtype]
+                ok = ok and row["sum_err"] <= SUM_TOL[dtype]
+            errs.setdefault(name, {})[case_tag(shape, dtype)
+                                      + ":nonpoly"] = row
+            emit({"phase": phase, "kernel": name, "shape": shape,
+                  "dtype": str(dtype), "math_functions": funcs, **row})
+            if not ok:
+                raise SystemExit(f"{name} with the non-polynomial potential "
+                                 f"disagrees with its plain version: {row}")
+        if len(funcs) != 6:
+            raise SystemExit(f"the non-polynomial header prints {funcs}")
+
+
+def on_host(state):
+    """A copy of a state in host memory (room on the card for the next
+    path)."""
+    return {k: v.to("cpu", copy=True) for k, v in state.items()}
+
+
+def bf16_gap(phase, final, ref, held=("f", "dfdt", "hij", "dhijdt")):
+    """The bf16-carry path's final state against the f32-carry path's
+    (moved back from the host): the fields ``held`` within BF16_PATH_TOL,
+    and the two not equal; the others' gap is recorded."""
+    errs = {k: rel_err(final[k], ref[k].to(final[k].device))[0]
+            for k in ref}
+    differs = any(not torch.equal(final[k].cpu(), ref[k]) for k in ref)
+    held = [k for k in held if k in errs]
+    emit({"phase": phase + "_vs_f32_carries", "rel_err": errs,
+          "held_to_tol": held, "differs": differs, "tol": BF16_PATH_TOL})
+    if not (max(errs[k] for k in held) <= BF16_PATH_TOL and differs):
+        raise SystemExit(f"{phase} is not within {BF16_PATH_TOL} of the "
+                         f"f32-carry path, or equals it: {errs}")
+
+
 def small_state(gw, seed=3):
     """The reference phases' random state at 32^3 f64 (with ``gw``, hij
     1e-3 N(0, 1) and dhijdt 1e-4 N(0, 1) too)."""
@@ -614,11 +819,12 @@ def time_kernels(phase, st, names, seed0, timing):
     from pystella_tpu_torch.ops import fused as tfused
     sites = math.prod(GRID)
     gw = len(st._comps) > 4
-    for seed, name in enumerate(names):
+    for seed, item in enumerate(names):
+        name, fin = kernel_item(item)
         ins = kernel_inputs(GRID, torch.float32, seed0 + seed, gw=gw,
-                            dtypes=st._dtypes)
+                            dtypes=st._in_dtypes(fin))
         params = kernel_params(name, BOX / GRID[0])
-        sets = [[torch.empty_like(t) for t in ins] for _ in range(2)]
+        sets = [st._new_set(ins[0].device) for _ in range(2)]
         n = [0]
 
         def launch():
@@ -633,14 +839,15 @@ def time_kernels(phase, st, names, seed0, timing):
         plain_peak = torch.cuda.max_memory_allocated() / 2**30
         # each array once in and once out at its storage width (the bf16
         # carries at 2 bytes), plus the f32 sum vectors
-        nbytes = (2 * sites * sum(c * d.itemsize
-                                  for c, d in zip(st._comps, st._dtypes))
+        nbytes = (sites * sum(c * (di.itemsize + do.itemsize) for c, di, do
+                              in zip(st._comps, st._in_dtypes(fin),
+                                     st._dtypes))
                   + tfused.SUM_SETS[name] * (2 * st.F + 1) * 4)
         ops = ops_per_site(name, st) * sites
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / PEAK_F32_OPS * 1e3
         bound = max(bytes_ms, ops_ms)
-        key = st.counted_name(name)
+        key = st.counted_name(name, fin)
         timing[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": "bytes" if bytes_ms >= ops_ms
                        else "operations",
@@ -664,7 +871,8 @@ def schedule(st, nsteps):
     return counts
 
 
-def main_path(phase, st, state, timing, launches, extra_check=None):
+def main_path(phase, st, state, timing, launches, extra_check=None,
+              predicted_gib=None, args=None):
     """``multi_step(NSTEPS)`` at 512^3 f32: a warm-up chunk, a timed chunk
     and one tail step (the odd remainder of a run whose length is not a
     multiple of the chunk). The launch counts of the whole run must be
@@ -676,7 +884,7 @@ def main_path(phase, st, state, timing, launches, extra_check=None):
     from pystella_tpu_torch.ops import fused as tfused
     sites = math.prod(GRID)
     dt = 0.1 * BOX / GRID[0]
-    args = {"a": 1.0, "hubble": 0.5}
+    args = args or {"a": 1.0, "hubble": 0.5}
     report = st.kernel_tier_report()
     names = {r: st.counted_name(st._KERNEL[k]) for r, k in st._ROLE.items()
              if k in st._KERNEL}
@@ -732,6 +940,7 @@ def main_path(phase, st, state, timing, launches, extra_check=None):
            "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30,
            "path_memory_GiB": (torch.cuda.max_memory_allocated()
                                - held_before) / 2**30,
+           "predicted_path_memory_GiB": predicted_gib,
            "finite": finite, "f_rms": state["f"].double().pow(2).mean()
            .sqrt().item()}
     ok = finite and shapes_ok
@@ -750,14 +959,17 @@ def main_path(phase, st, state, timing, launches, extra_check=None):
 
 
 def coupled_main_path(phase, st, state, names, launches, trace=None,
-                      extra_check=None):
+                      extra_check=None, single=False, predicted_gib=None):
     """``coupled_multi_step(NSTEPS)`` at 512^3 f32 from ``state``: a
     warm-up chunk, a timed chunk (25 pairs, ending on a deferred pair and
     the chunk-end finalize) and the odd tail (2 pairs, a mid-chunk
     finalize and one energy stage); the Friedmann constraint of the final
     state must hold, and so must ``extra_check`` (as in
-    :func:`main_path`). With ``trace`` (a phase name), one more chunk under
-    torch.profiler."""
+    :func:`main_path`). With ``single``, then one step of single-stage
+    energy kernels (``pair=False``) from a copy of the final state and
+    background, which must stay finite. With ``trace`` (a phase name), one
+    more chunk under torch.profiler. Returns the final state (a copy of it
+    taken before those, the stepper's buffers being theirs to write)."""
     import pystella_tpu_torch as pt
     from pystella_tpu_torch.ops import fused as tfused
     sites = math.prod(GRID)
@@ -776,6 +988,10 @@ def coupled_main_path(phase, st, state, names, launches, trace=None,
     a0, adot0 = float(expand.a), float(expand.adot)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # what the path holds: its input state, the k-carry, two buffer sets and
+    # the finalize's arrays
+    held_before = torch.cuda.memory_allocated() - sum(
+        v.numel() * v.element_size() for v in state.values())
     tfused.reset_launch_counts()
     state = st.coupled_multi_step(state, NSTEPS, expand, 0.0, dt)
     start = torch.cuda.Event(enable_timing=True)
@@ -790,12 +1006,28 @@ def coupled_main_path(phase, st, state, names, launches, trace=None,
     device_s = start.elapsed_time(end) / 1e3
     state = st.coupled_multi_step(state, 1, expand, 0.0, dt)
     torch.cuda.synchronize()
+    # a copy: the steps below write into the stepper's buffers, the state
+    state = {k: v.clone() for k, v in state.items()}
+    path_memory = (torch.cuda.max_memory_allocated() - held_before) / 2**30
+    single_row = {}
+    if single:
+        exp1 = pt.Expansion(energy0["total"], pt.LowStorageRK54, mpl=1.0)
+        exp1.a, exp1.adot, exp1.hubble = expand.a, expand.adot, expand.hubble
+        t1 = time.perf_counter()
+        out = st.coupled_multi_step({k: v.clone() for k, v in state.items()},
+                                    1, exp1, 0.0, dt, pair=False)
+        torch.cuda.synchronize()
+        single_row = {"single_stage_step_s": time.perf_counter() - t1,
+                      "single_stage_finite": all(
+                          bool(torch.isfinite(v).all())
+                          for v in out.values())}
+        del out
     path_launches = dict(tfused.LAUNCHES)
     for name in names:
         launches[name] = path_launches[name]
 
     npairs = -(-st.num_stages * NSTEPS // 2)
-    transfers = 2 * sum(st._comps)
+    bytes_per_pair = st.kernel_tier_report()["bytes_per_launch"]
     energy = energy_of(state, expand.a)
     constraint = float(expand.constraint(energy["total"]))
     finite = all(bool(torch.isfinite(v).all()) for v in state.values())
@@ -803,22 +1035,26 @@ def coupled_main_path(phase, st, state, names, launches, trace=None,
     extra, extra_ok = ({}, True) if extra_check is None else extra_check(
         state)
     emit({"phase": phase, "grid": GRID,
-          "dtype": "torch.float32", "nsteps_timed": NSTEPS,
+          "dtype": "torch.float32",
+          "carry_dtype": str(st.carry_dtype or st.dtype),
+          "nsteps_timed": NSTEPS,
           "ms_per_step": device_s / NSTEPS * 1e3,
           "site_updates_per_s": sites * NSTEPS / device_s,
-          "effective_GB_per_s": transfers * npairs * sites * 4 / device_s
-          / 1e9,
+          "effective_GB_per_s": bytes_per_pair * npairs / device_s / 1e9,
           # wall clock of the chunk (ending in a synchronize) and the CUDA
           # events around it; the host waits for every pair's sums, so the
           # two agree and the device's idle gaps are inside both
           "host_s": host_s, "device_s": device_s,
-          "launches": path_launches,
+          "launches": {k: v for k, v in path_launches.items() if v},
           "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30,
+          "path_memory_GiB": path_memory,
+          "predicted_path_memory_GiB": predicted_gib, **single_row,
           "a0": a0, "adot0": adot0, "a": float(expand.a),
           "adot": float(expand.adot), "energy_total": float(energy["total"]),
           "constraint": constraint, "constraint_tol": CONSTRAINT_TOL,
           "finite": finite, **extra})
-    if not (finite and shapes_ok and extra_ok):
+    if not (finite and shapes_ok and extra_ok
+            and single_row.get("single_stage_finite", True)):
         raise SystemExit(f"{phase} produced a non-finite, misshapen or "
                          "unsourced state")
     if not constraint <= CONSTRAINT_TOL:
@@ -831,6 +1067,7 @@ def coupled_main_path(phase, st, state, names, launches, trace=None,
         emit({"phase": trace, **trace_chunk(
             lambda: st.coupled_multi_step(state, NSTEPS, expand, 0.0, dt),
             device_s)})
+    return state
 
 
 def ptxas_of(source, header):
@@ -1371,7 +1608,8 @@ def ptxas_report(*steppers):
     for st in steppers:
         header = st.kernel_header()
         usage = {}
-        for src in sorted({tfused.KERNELS[n][0] for n in st.kernel_names()}):
+        for src in sorted({tfused.KERNELS[n][0]
+                           for n in st._kernel_bases()}):
             usage.update(stencil.ptxas_usage(stencil.build_log(src, header)))
         names = list(usage)
         try:
@@ -1408,6 +1646,8 @@ def main():
 
     sector = pt.ScalarSector(2, potential=potential)
     gw_sector = pt.TensorPerturbationSector([sector])
+    gw_bench_sector = pt.ScalarSector(2, potential=gw_bench_potential)
+    gw_bench_gw = pt.TensorPerturbationSector([gw_bench_sector])
     dx = BOX / GRID[0]
     scalar_kernels = [n for r, n in pt.FusedScalarStepper._KERNEL.items()
                       if r != "chunk"]
@@ -1424,10 +1664,18 @@ def main():
     with ThreadPoolExecutor(8) as pool:
         # no future outlives this line: a future would keep its stepper,
         # and so its buffers, alive after the stepper is deleted
-        chunk_st, gw_st, newton, jacobi, *_ = [f.result() for f in [
+        chunk_st, _, _, gw_st, newton, jacobi, *_ = [f.result() for f in [
             pool.submit(pt.FusedScalarStepper, sector, GRID, dx, HALO,
                         dtype=torch.float32, chunk_stages=CHUNK,
                         device="cuda"),
+            # the non-polynomial model's kernels (nonpoly_kernel_vs_plain)
+            pool.submit(pt.FusedScalarStepper, pt.ScalarSector(
+                2, potential=nonpoly_potential), NONPOLY_SHAPE, dx, HALO,
+                dtype=torch.float32, device="cuda"),
+            # the GW bench's model (gw_bf16_main_path)
+            pool.submit(pt.FusedPreheatStepper, gw_bench_sector,
+                        gw_bench_gw, NONPOLY_SHAPE, dx, HALO,
+                        dtype=torch.float32, device="cuda"),
             pool.submit(pt.FusedPreheatStepper, sector, gw_sector, GRID, dx,
                         HALO, dtype=torch.float32, device="cuda"),
             pool.submit(mg_solver, "newton"),
@@ -1486,10 +1734,16 @@ def main():
     def bf16_stepper(shape, dtype):
         return chunk_stepper(shape, dtype, torch.bfloat16)
 
-    def gw_stepper(shape, dtype):
+    def gw_stepper(shape, dtype, carry_dtype=None):
         return pt.FusedPreheatStepper(sector, gw_sector, shape,
                                       BOX / shape[0], HALO, dtype=dtype,
-                                      device="cuda")
+                                      carry_dtype=carry_dtype, device="cuda")
+
+    def bf16_scalar(shape, dtype):
+        return scalar_stepper(shape, dtype, torch.bfloat16)
+
+    def bf16_gw(shape, dtype):
+        return gw_stepper(shape, dtype, torch.bfloat16)
 
     kernels_vs_plain("kernel_vs_plain", scalar_stepper, scalar_kernels,
                      cases, errs)
@@ -1498,6 +1752,9 @@ def main():
     # one pair launch == two single-stage launches; K5's lattice outputs ==
     # K2's, bitwise; K6 pair + finalize == K3 pair with hubble2 = hubfix
     identities("identity", scalar_stepper)
+
+    # -- 4b. the printer's non-polynomial paths compiled into K2, K3, K5 ----
+    nonpoly_kernels_vs_plain("nonpoly_kernel_vs_plain", errs)
 
     # -- 5. reference: fused kernels vs the generic path, small input --------
     st = scalar_stepper(SMALL, torch.float64)
@@ -1577,13 +1834,34 @@ def main():
     del bf16_st, bf16_final, chunk_final
     torch.cuda.empty_cache()
 
+    # -- 11b. the energy kernels with bf16 carries (K5, K6 and K5 on
+    #         finalized carries) vs plain, their identities and times -------
+    kernels_vs_plain("bf16_kernel_vs_plain", bf16_scalar, BF16_SUM_KERNELS,
+                     [(GRID, torch.float32), (ALT_SHAPES[1], torch.float32),
+                      (ALT_SHAPES[1], torch.float64)], errs)
+    bf16_identities("bf16_identity", scalar_stepper)
+    coupled_bf16_st = bf16_scalar(GRID, torch.float32)
+    time_kernels("bf16_kernel_time", coupled_bf16_st, BF16_SUM_KERNELS, 50,
+                 timing)
+
     # -- 12. coupled main path: the example model, 512^3 f32, and
     # -- 13. where its chunk's device time goes (torch.profiler) ------------
-    coupled_main_path("coupled_main_path", main_st,
-                      background_state(GRID, torch.float32, 11),
-                      SUM_KERNELS, launches, trace="coupled_trace")
+    coupled_f32_final = coupled_main_path(
+        "coupled_main_path", main_st,
+        background_state(GRID, torch.float32, 11), SUM_KERNELS, launches,
+        trace="coupled_trace")
     # the scalar paths' buffers (12 GiB) make room for the GW system's 48
     del main_st
+    torch.cuda.empty_cache()
+
+    # -- 13b. the coupled main path with bf16 carries (K6, the finalize, K5
+    #         on finalized carries; one pair=False step: K5) ---------------
+    bf16_gap("coupled_bf16_main_path", coupled_main_path(
+        "coupled_bf16_main_path", coupled_bf16_st,
+        background_state(GRID, torch.float32, 11), BF16_COUPLED, launches,
+        single=True, predicted_gib=PREDICTED_PATH_GIB[
+            "coupled_bf16_main_path"]), on_host(coupled_f32_final))
+    del coupled_bf16_st, coupled_f32_final
     torch.cuda.empty_cache()
 
     # -- 14. the GW kernels vs plain (the main path's shape and others) ----
@@ -1623,11 +1901,80 @@ def main():
 
     # -- 19. GW coupled main path: coupled_multi_step at 512^3 f32 from the
     #        coupled path's background and hij = dhijdt = 0 -----------------
-    coupled_main_path("preheat_coupled_main_path", gw_st,
-                      background_state(GRID, torch.float32, 11, gw=True),
-                      GW_SUM_KERNELS, launches,
-                      trace="preheat_coupled_trace", extra_check=sourced)
+    # the f32-carry final state waits on the host for the bf16 path
+    cgw_f32_final = on_host(coupled_main_path(
+        "preheat_coupled_main_path", gw_st,
+        background_state(GRID, torch.float32, 11, gw=True), GW_SUM_KERNELS,
+        launches, trace="preheat_coupled_trace", extra_check=sourced))
     del gw_st
+    torch.cuda.empty_cache()
+
+    # -- 19b. the GW kernels with bf16 carries (K7, K8, K9, K5', and K5' on
+    #         finalized carries) vs plain, their identities and times -------
+    kernels_vs_plain("preheat_bf16_kernel_vs_plain", bf16_gw,
+                     BF16_GW_KERNELS, [(GRID, torch.float32),
+                                       (ALT_SHAPES[1], torch.float64)],
+                     errs, gw=True)
+    bf16_identities("preheat_bf16_identity", gw_stepper, gw=True)
+    gw_bf16_st = bf16_gw(GRID, torch.float32)
+    time_kernels("preheat_bf16_kernel_time", gw_bf16_st, BF16_GW_KERNELS, 60,
+                 timing)
+
+    del gw_bf16_st
+    torch.cuda.empty_cache()
+
+    # -- 19c. the GW main path with bf16 carries: bench.py's gw-step bf16
+    #         configuration (build_gw_step: its model, numpy seed 9 state,
+    #         a = 1, hubble = 0.1) at 512^3 f32 through multi_step (K8, K7),
+    #         after the same path with f32 carries; its two kernels held
+    #         against their plain versions on this model too ------------
+    def gw_bench_stepper(shape, dtype, carry_dtype=None):
+        return pt.FusedPreheatStepper(gw_bench_sector, gw_bench_gw, shape,
+                                      BOX / shape[0], HALO, dtype=dtype,
+                                      carry_dtype=carry_dtype, device="cuda")
+
+    # the model's own kernel times (each model prints its own dV/df, so its
+    # kernels compile apart): the two paths' kernel shares read them
+    bench_timing = {}
+    bench_state = gw_bench_state()
+    st = gw_bench_stepper(GRID, torch.float32)
+    time_kernels("gw_bench_kernel_time", st, ["preheat_stage",
+                                              "preheat_pair"], 80,
+                 bench_timing)
+    gwb_f32_final = on_host(main_path(
+        "gw_bench_f32_main_path", st, on_card(bench_state), bench_timing,
+        launches, extra_check=sourced, args=GW_BENCH_ARGS))
+    del st
+    torch.cuda.empty_cache()
+    kernels_vs_plain("gw_bf16_kernel_vs_plain",
+                     lambda sh, dt: gw_bench_stepper(sh, dt, torch.bfloat16),
+                     ["preheat_stage", "preheat_pair"],
+                     [(GRID, torch.float32)], errs, gw=True, tag=":bench")
+    st = gw_bench_stepper(GRID, torch.float32, torch.bfloat16)
+    time_kernels("gw_bench_kernel_time", st, ["preheat_stage",
+                                              "preheat_pair"], 82,
+                 bench_timing)
+    bf16_gap("gw_bf16_main_path", main_path(
+        "gw_bf16_main_path", st, on_card(bench_state), bench_timing, launches,
+        extra_check=sourced, args=GW_BENCH_ARGS,
+        predicted_gib=PREDICTED_PATH_GIB["gw_bf16_main_path"]),
+        gwb_f32_final)
+    del st, bench_state, gwb_f32_final
+    torch.cuda.empty_cache()
+    gw_bf16_st = bf16_gw(GRID, torch.float32)
+
+    # -- 19d. the GW coupled main path with bf16 carries (K9, the finalize,
+    #         K5' on finalized carries; one pair=False step: K5') ----------
+    # (from the homogeneous background, the fluctuation part of a carry --
+    # 1e-4 of it -- lies below bf16's resolution, so the S_ij that hij
+    # integrates is mostly carry rounding: hij's gap is recorded, not held)
+    bf16_gap("coupled_gw_bf16_main_path", coupled_main_path(
+        "coupled_gw_bf16_main_path", gw_bf16_st,
+        background_state(GRID, torch.float32, 11, gw=True), BF16_GW_COUPLED,
+        launches, extra_check=sourced, single=True,
+        predicted_gib=PREDICTED_PATH_GIB["coupled_gw_bf16_main_path"]),
+        cgw_f32_final, held=("f", "dfdt"))
+    del gw_bf16_st, cgw_f32_final
     torch.cuda.empty_cache()
 
     # -- 20. the operator kernels (K12) vs plain: the wave path's shape, two
@@ -1660,8 +2007,7 @@ def main():
     mg_main_path("mg_main_path", timing, launches, trace="mg_trace")
 
     kernels = []
-    names = list(tfused.KERNELS) + [n + tfused.BF16
-                                    for n in tfused.CARRY_KERNELS]
+    names = list(tfused.LAUNCHES)
     sites = {**tfused.KERNELS, **new_kernels}
     main_tag = {name: case_tag(GRID, torch.float32) + (
         ":newton" if name in MG_KERNELS else "")

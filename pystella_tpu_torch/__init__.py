@@ -25,6 +25,8 @@ from pystella_tpu_torch.field import (
     Call, Constant, DynamicField, Expr, Field, Indexed, Power, Product,
     Quotient, Shifted, Sum, Var, diff, evaluate, field_names, shift_fields,
     simplify, substitute,
+    exp, log, sin, cos, tan, sinh, cosh, tanh, sqrt, fabs, sign,
+    t, x, y, z,
 )
 from pystella_tpu_torch.grid import Lattice
 from pystella_tpu_torch import multigrid
@@ -40,6 +42,7 @@ from pystella_tpu_torch.multigrid import (
 )
 from pystella_tpu_torch.ops.derivs import (
     FiniteDifferencer, FirstCenteredDifference, SecondCenteredDifference,
+    centered_diff, expand_stencil,
 )
 from pystella_tpu_torch.ops.fused import (
     FusedPreheatStepper, FusedScalarStepper,
@@ -61,10 +64,13 @@ __all__ = [
     "Expr", "Constant", "Sum", "Product", "Quotient", "Power", "Call", "Var",
     "Field", "Indexed", "Shifted", "DynamicField", "diff", "evaluate",
     "field_names", "shift_fields", "simplify", "substitute",
+    "exp", "log", "sin", "cos", "tan", "sinh", "cosh", "tanh", "sqrt",
+    "fabs", "sign", "t", "x", "y", "z",
     "Lattice", "Sector", "ScalarSector", "TensorPerturbationSector",
     "get_rho_and_p", "tensor_index",
     "FiniteDifferencer", "FirstCenteredDifference",
-    "SecondCenteredDifference", "FusedScalarStepper", "FusedPreheatStepper",
+    "SecondCenteredDifference", "expand_stencil", "centered_diff",
+    "FusedScalarStepper", "FusedPreheatStepper",
     "multigrid", "FullApproximationScheme", "MultiGridSolver",
     "JacobiIterator", "NewtonIterator", "FullWeighting", "Injection",
     "LinearInterpolation", "CubicInterpolation", "v_cycle", "w_cycle",

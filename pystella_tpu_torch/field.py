@@ -408,7 +408,19 @@ def evaluate(expr, env):
         return reduce(lambda a, b: a * b,
                       (evaluate(c, env) for c in expr.children))
     if isinstance(expr, Quotient):
-        return evaluate(expr.num, env) / evaluate(expr.den, env)
+        num, den = evaluate(expr.num, env), evaluate(expr.den, env)
+        # a division, as the kernels and the JAX package compute it: PyTorch
+        # multiplies by the reciprocal of a Python number (on CUDA), and
+        # divides a Python number by a tensor as the tensor's reciprocal
+        # times it (everywhere) -- one rounding more. A 0-d tensor of the
+        # other operand's dtype (the kernels' T(c)) makes both a division.
+        if (isinstance(num, torch.Tensor) and num.is_floating_point()
+                and isinstance(den, numbers.Number)):
+            den = torch.tensor(den, dtype=num.dtype, device=num.device)
+        elif (isinstance(den, torch.Tensor) and den.is_floating_point()
+              and isinstance(num, numbers.Number)):
+            num = torch.tensor(num, dtype=den.dtype, device=den.device)
+        return num / den
     if isinstance(expr, Power):
         base = evaluate(expr.base, env)
         expo = expr.exponent

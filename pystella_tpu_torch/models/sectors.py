@@ -90,6 +90,35 @@ class ScalarSector(Sector):
                          for fld in range(self.nscalars)],
         }
 
+    def energy_means(self, f, dfdt, a=1.0, lap_f=None):
+        """Mean energy densities of the scalar system: ``kinetic`` and
+        ``potential`` (plus ``gradient`` when ``lap_f`` is given, in the
+        reducers' integration-by-parts form) and their ``total``, matching
+        :attr:`reducers` up to the lattice average. Tensor operations only
+        (0-d tensors, no host sync), in the arithmetic order of the JAX
+        package's ``energy_means``.
+
+        :arg f, dfdt: field tensors ``(nscalars, ...)``.
+        :arg a: scale factor.
+        :arg lap_f: optional Laplacian of ``f``; without it the gradient
+            energy is left out rather than paid for with a stencil pass.
+        """
+        import torch
+
+        from pystella_tpu_torch.field import evaluate
+
+        out = {"kinetic": torch.mean(torch.sum(dfdt * dfdt, dim=0))
+               / 2 / a**2}
+        if lap_f is not None:
+            out["gradient"] = (torch.mean(torch.sum(-f * lap_f, dim=0))
+                               / 2 / a**2)
+        pot = torch.as_tensor(evaluate(self.potential(self.f),
+                                       {self.f.name: f}),
+                              dtype=f.dtype, device=f.device)
+        out["potential"] = torch.mean(torch.broadcast_to(pot, f.shape[1:]))
+        out["total"] = sum(out.values())
+        return out
+
     def stress_tensor(self, mu, nu, drop_trace=False):
         f = self.f
         a = Var("a")

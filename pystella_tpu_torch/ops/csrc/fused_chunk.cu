@@ -179,8 +179,8 @@ __device__ __forceinline__ void pk_chunk_stage(const PkBox<T>& box,
                        + dt * ((lap[c] - two_hub * df0) - a2 * dv[c]);
         io.out[0][c * N + g] = fc[c] + B * kf1[c];
         io.out[1][c * N + g] = df0 + B * kdf1;
-        pk_carry_out<C>(io, 0)[c * N + g] = PkCarry<T, C>::store(kf1[c]);
-        pk_carry_out<C>(io, 1)[c * N + g] = PkCarry<T, C>::store(kdf1);
+        pk_out_as<C>(io, 2)[c * N + g] = PkCarry<T, C>::store(kf1[c]);
+        pk_out_as<C>(io, 3)[c * N + g] = PkCarry<T, C>::store(kdf1);
       }
     } else {
 #pragma unroll
@@ -235,8 +235,8 @@ pk_fused_chunk_kernel(PkArrays<T> io, int X, int Y, int Z,
   const int y0 = (int)((b / ntz) % nty) * Tile::TY;
   const int z0 = (int)(b % ntz) * Tile::TZ;
   const int64_t N = (int64_t)X * Y * Z;
-  const C* __restrict__ kf = pk_carry_in<C>(io, 0);
-  const C* __restrict__ kdf = pk_carry_in<C>(io, 1);
+  const C* __restrict__ kf = pk_in_as<C>(io, 2);
+  const C* __restrict__ kdf = pk_in_as<C>(io, 3);
 
   // the box: every array over the tile grown by R, periodically wrapped
   for (int s = threadIdx.x; s < S; s += blockDim.x) {

@@ -37,6 +37,14 @@
 // kdhp. With IN_DEFERRED the tensor inputs are hij, dhp, kdhp, khij, and dhp
 // is completed like dfp at the site and at every tap.
 //
+// With bfloat16 carries (C = __nv_bfloat16, the _bf16 entry points) the
+// carries kf, kdfdt (deferred input: kdfp, kf) and their tensor counterparts
+// are read widened to T, at the site and at every tap that reads them, and
+// only the stored outputs kf2, kdfp (kh2, kdhp) are rounded, after f2 (h2)
+// has been formed: the order of the JAX package's _quantize_carries. The
+// velocities dfp, dhp are state, not carries, and stay in T; the sums come
+// from the widened values.
+//
 // Bound: memory, as K3: four arrays read and four written per site (8 * F *
 // sites * sizeof(T) bytes for two stages; K9 8 * (F + 6)), plus one partial
 // per sum term and block. f, kf and the velocity arrays (and their tensor
@@ -58,11 +66,12 @@ struct PkCoupledParams {
 };
 
 #ifdef PK_NH
-// K9's tensor pair at one site, for every hij component; DF reads the
-// incoming tensor velocity (PkAt, or PkCompleted for a deferred input).
-template <typename T, bool IN_DEFERRED>
+// K9's tensor pair at one site, for every hij component; the incoming
+// tensor velocity is read as it is (normal input) or completed
+// (PkCompleted, deferred input). Carries are stored in C.
+template <typename T, typename C, bool IN_DEFERRED>
 __device__ __forceinline__ void pk_coupled_gw(
-    const PkArrays<T>& io, const T* __restrict__ f, const T* __restrict__ kf,
+    const PkArrays<T>& io, const T* __restrict__ f, const C* __restrict__ kf,
     int x, int y, int z, int X, int Y, int Z, int64_t N, int64_t site,
     const PkCoupledParams<T>& p, T c_def) {
   // S_ij of both stages: from the f window, and from f1 recomposed at every
@@ -75,14 +84,15 @@ __device__ __forceinline__ void pk_coupled_gw(
 #pragma unroll
   for (int c = 0; c < PK_F; ++c) {
     if (IN_DEFERRED) {
-      const PkAxpyLoad<T, PkCompleted<T>> load{
+      const PkAxpyLoad<T, PkCompleted<T, C>, C> load{
           f + c * N, kf + c * N,
-          {io.in[1] + c * N, io.in[2] + c * N, p.B2p, c_def},
+          {io.in[1] + c * N, pk_in_as<C>(io, 2) + c * N, p.B2p, c_def},
           p.B1, p.A1, p.dt, Y, Z};
       pk_grad(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
     } else {
-      const PkAxpyLoad<T> load{f + c * N, kf + c * N, {io.in[1] + c * N},
-                               p.B1, p.A1, p.dt, Y, Z};
+      const PkAxpyLoad<T, PkAt<T>, C> load{f + c * N, kf + c * N,
+                                           {io.in[1] + c * N}, p.B1, p.A1,
+                                           p.dt, Y, Z};
       pk_grad(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
     }
   }
@@ -92,8 +102,10 @@ __device__ __forceinline__ void pk_coupled_gw(
   // khij
   const T* __restrict__ h = io.in[4];
   const T* __restrict__ dh_in = io.in[5];
-  const T* __restrict__ kh = IN_DEFERRED ? io.in[7] : io.in[6];
-  const T* __restrict__ k_in = IN_DEFERRED ? io.in[6] : io.in[7];
+  const C* __restrict__ kh = pk_in_as<C>(io, IN_DEFERRED ? 7 : 6);
+  const C* __restrict__ k_in = pk_in_as<C>(io, IN_DEFERRED ? 6 : 7);
+  C* __restrict__ kh_out = pk_out_as<C>(io, 6);
+  C* __restrict__ kdhp_out = pk_out_as<C>(io, 7);
   const T two_hub1 = T(2) * p.hubble1;
 #pragma unroll 1
   for (int c = 0; c < PK_NH; ++c) {
@@ -102,39 +114,41 @@ __device__ __forceinline__ void pk_coupled_gw(
     T dh0, kdh0;
     if (IN_DEFERRED) {
       const T d = dh_in[i];
-      kdh0 = k_in[i] - c_def * d;
+      kdh0 = PkCarry<T, C>::load(k_in[i]) - c_def * d;
       dh0 = d + p.B2p * kdh0;
     } else {
       dh0 = dh_in[i];
-      kdh0 = k_in[i];
+      kdh0 = PkCarry<T, C>::load(k_in[i]);
     }
     const T lap_h = pk_lap(PkLoad<T>{h + c * N, Y, Z}, h0, x, y, z, X, Y, Z,
                            p.w);
     T h1, dh1, kh1, kdh1;
-    pk_gw_stage(h0, dh0, kh[i], kdh0, lap_h, sij1[c], p.A1, p.B1, p.dt,
-                two_hub1, h1, dh1, kh1, kdh1);
+    pk_gw_stage(h0, dh0, PkCarry<T, C>::load(kh[i]), kdh0, lap_h, sij1[c],
+                p.A1, p.B1, p.dt, two_hub1, h1, dh1, kh1, kdh1);
     T lap_h1;
     if (IN_DEFERRED) {
-      const PkAxpyLoad<T, PkCompleted<T>> load{
+      const PkAxpyLoad<T, PkCompleted<T, C>, C> load{
           h + c * N, kh + c * N, {dh_in + c * N, k_in + c * N, p.B2p, c_def},
           p.B1, p.A1, p.dt, Y, Z};
       lap_h1 = pk_lap(load, h1, x, y, z, X, Y, Z, p.w);
     } else {
-      const PkAxpyLoad<T> load{h + c * N, kh + c * N, {dh_in + c * N},
-                               p.B1, p.A1, p.dt, Y, Z};
+      const PkAxpyLoad<T, PkAt<T>, C> load{h + c * N, kh + c * N,
+                                           {dh_in + c * N}, p.B1, p.A1,
+                                           p.dt, Y, Z};
       lap_h1 = pk_lap(load, h1, x, y, z, X, Y, Z, p.w);
     }
     // tensor stage 2 with the Hubble drag deferred
     const T kh2 = p.A2 * kh1 + p.dt * dh1;
     io.out[4][i] = h1 + p.B2 * kh2;
     io.out[5][i] = dh1;
-    io.out[6][i] = kh2;
-    io.out[7][i] = p.A2 * kdh1 + p.dt * (lap_h1 + T(PK_GW_COEF) * sij2[c]);
+    kh_out[i] = PkCarry<T, C>::store(kh2);
+    kdhp_out[i] = PkCarry<T, C>::store(
+        p.A2 * kdh1 + p.dt * (lap_h1 + T(PK_GW_COEF) * sij2[c]));
   }
 }
 #endif
 
-template <typename T, bool IN_DEFERRED, bool GW>
+template <typename T, typename C, bool IN_DEFERRED, bool GW>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
                        PkCoupledParams<T> p, T* __restrict__ partials,
@@ -142,16 +156,17 @@ pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int x = blockIdx.z;
-  // normal: in0..3 = f, dfdt, kf, kdfdt; deferred: f, dfp, kdfp, kf
+  // normal: in0..3 = f, dfdt, kf, kdfdt; deferred: f, dfp, kdfp, kf (the
+  // last two carries, stored in C)
   const T* __restrict__ f = io.in[0];
   const T* __restrict__ in1 = io.in[1];
-  const T* __restrict__ in2 = io.in[2];
-  const T* __restrict__ in3 = io.in[3];
-  const T* __restrict__ kf = IN_DEFERRED ? in3 : in2;
+  const C* __restrict__ in2 = pk_in_as<C>(io, 2);
+  const C* __restrict__ in3 = pk_in_as<C>(io, 3);
+  const C* __restrict__ kf = IN_DEFERRED ? in3 : in2;
   T* __restrict__ f_out = io.out[0];
   T* __restrict__ dfp_out = io.out[1];
-  T* __restrict__ kf_out = io.out[2];
-  T* __restrict__ kdfp_out = io.out[3];
+  C* __restrict__ kf_out = pk_out_as<C>(io, 2);
+  C* __restrict__ kdfp_out = pk_out_as<C>(io, 3);
   // esums1 in terms[0, PK_NT), esums2 in terms[PK_NT, 2 PK_NT)
   T terms[2 * PK_NT];
 #pragma unroll
@@ -171,15 +186,15 @@ pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
       f0[c] = f[i];
       if (IN_DEFERRED) {
         const T d = in1[i];
-        kdf0[c] = in2[i] - c_def * d;
+        kdf0[c] = PkCarry<T, C>::load(in2[i]) - c_def * d;
         df0[c] = d + p.B2p * kdf0[c];
       } else {
         df0[c] = in1[i];
-        kdf0[c] = in3[i];
+        kdf0[c] = PkCarry<T, C>::load(in3[i]);
       }
       lap[c] = pk_lap(PkLoad<T>{f + c * N, Y, Z}, f0[c], x, y, z, X, Y, Z,
                       p.w);
-      kf1[c] = p.A1 * kf[i] + p.dt * df0[c];
+      kf1[c] = p.A1 * PkCarry<T, C>::load(kf[i]) + p.dt * df0[c];
       f1[c] = f0[c] + p.B1 * kf1[c];
     }
     pk_dvdf<T>(f0, p.a1, p.hubble1, dv);
@@ -201,13 +216,14 @@ pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
 #pragma unroll
     for (int c = 0; c < PK_F; ++c) {
       if (IN_DEFERRED) {
-        const PkAxpyLoad<T, PkCompleted<T>> load{
+        const PkAxpyLoad<T, PkCompleted<T, C>, C> load{
             f + c * N, kf + c * N, {in1 + c * N, in2 + c * N, p.B2p, c_def},
             p.B1, p.A1, p.dt, Y, Z};
         lap[c] = pk_lap(load, f1[c], x, y, z, X, Y, Z, p.w);
       } else {
-        const PkAxpyLoad<T> load{f + c * N, kf + c * N, {in1 + c * N},
-                                 p.B1, p.A1, p.dt, Y, Z};
+        const PkAxpyLoad<T, PkAt<T>, C> load{f + c * N, kf + c * N,
+                                             {in1 + c * N}, p.B1, p.A1,
+                                             p.dt, Y, Z};
         lap[c] = pk_lap(load, f1[c], x, y, z, X, Y, Z, p.w);
       }
     }
@@ -221,8 +237,9 @@ pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
       const T kf2 = p.A2 * kf1[c] + p.dt * df1[c];
       f_out[i] = f1[c] + p.B2 * kf2;
       dfp_out[i] = df1[c];
-      kf_out[i] = kf2;
-      kdfp_out[i] = p.A2 * kdf1[c] + p.dt * (lap[c] - a2sq * dv[c]);
+      kf_out[i] = PkCarry<T, C>::store(kf2);
+      kdfp_out[i] = PkCarry<T, C>::store(
+          p.A2 * kdf1[c] + p.dt * (lap[c] - a2sq * dv[c]));
       terms[PK_NT + c] = df1[c] * df1[c];
       terms[PK_NT + PK_F + c] = (-f1[c]) * lap[c];
     }
@@ -230,8 +247,8 @@ pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
 
 #ifdef PK_NH
     if constexpr (GW)
-      pk_coupled_gw<T, IN_DEFERRED>(io, f, kf, x, y, z, X, Y, Z, N, site, p,
-                                    c_def);
+      pk_coupled_gw<T, C, IN_DEFERRED>(io, f, kf, x, y, z, X, Y, Z, N, site,
+                                       p, c_def);
 #endif
   }
   pk_block_sums<T, 2 * PK_NT>(terms, partials, nblocks);
@@ -243,7 +260,7 @@ pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
 // (pk_lap_weights) and, for GW, the gradient weights (pk_grad_weights).
 // partials holds 2 * PK_NT * pk_num_blocks(X, Y, Z) values; sums receives
 // esums1 then esums2, PK_NT each.
-template <typename T, bool IN_DEFERRED, bool GW>
+template <typename T, typename C, bool IN_DEFERRED, bool GW>
 static int pk_launch_coupled(const void* const* ins, void* const* outs,
                              int X, int Y, int Z, const double* params,
                              void* partials, void* sums, void* stream) {
@@ -266,7 +283,7 @@ static int pk_launch_coupled(const void* const* ins, void* const* outs,
   }
   p.w = pk_lap_weights<T>(params + n);
   if (GW) p.g = pk_grad_weights<T>(params + n + PK_NLAPW);
-  pk_coupled_pair_kernel<T, IN_DEFERRED, GW>
+  pk_coupled_pair_kernel<T, C, IN_DEFERRED, GW>
       <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
          (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X, Y,
                                  Z, p, (T*)partials, pk_num_blocks(X, Y, Z));
@@ -281,38 +298,40 @@ static int pk_launch_coupled(const void* const* ins, void* const* outs,
       const double *params, void *partials, void *sums, void *stream
 #define PK_COUPLED_CALL (ins, outs, X, Y, Z, params, partials, sums, stream)
 
-extern "C" int pk_coupled_pair_f32(PK_COUPLED_ARGS) {
-  return pk_launch_coupled<float, false, false> PK_COUPLED_CALL;
-}
+// One entry point per (T, C, IN_DEFERRED, GW) instantiation; the _bf16 ones
+// store the carries in bfloat16.
+#define PK_COUPLED_ENTRY(name, T, C, IN_DEFERRED, GW)                       \
+  extern "C" int name(PK_COUPLED_ARGS) {                                    \
+    return pk_launch_coupled<T, C, IN_DEFERRED, GW> PK_COUPLED_CALL;        \
+  }
+#define PK_BF16 __nv_bfloat16
 
-extern "C" int pk_coupled_pair_f64(PK_COUPLED_ARGS) {
-  return pk_launch_coupled<double, false, false> PK_COUPLED_CALL;
-}
-
-extern "C" int pk_coupled_pair_deferred_f32(PK_COUPLED_ARGS) {
-  return pk_launch_coupled<float, true, false> PK_COUPLED_CALL;
-}
-
-extern "C" int pk_coupled_pair_deferred_f64(PK_COUPLED_ARGS) {
-  return pk_launch_coupled<double, true, false> PK_COUPLED_CALL;
-}
+PK_COUPLED_ENTRY(pk_coupled_pair_f32, float, float, false, false)
+PK_COUPLED_ENTRY(pk_coupled_pair_f64, double, double, false, false)
+PK_COUPLED_ENTRY(pk_coupled_pair_deferred_f32, float, float, true, false)
+PK_COUPLED_ENTRY(pk_coupled_pair_deferred_f64, double, double, true, false)
+PK_COUPLED_ENTRY(pk_coupled_pair_f32_bf16, float, PK_BF16, false, false)
+PK_COUPLED_ENTRY(pk_coupled_pair_f64_bf16, double, PK_BF16, false, false)
+PK_COUPLED_ENTRY(pk_coupled_pair_deferred_f32_bf16, float, PK_BF16, true,
+                 false)
+PK_COUPLED_ENTRY(pk_coupled_pair_deferred_f64_bf16, double, PK_BF16, true,
+                 false)
 
 #ifdef PK_NH
-extern "C" int pk_preheat_coupled_pair_f32(PK_COUPLED_ARGS) {
-  return pk_launch_coupled<float, false, true> PK_COUPLED_CALL;
-}
-
-extern "C" int pk_preheat_coupled_pair_f64(PK_COUPLED_ARGS) {
-  return pk_launch_coupled<double, false, true> PK_COUPLED_CALL;
-}
-
-extern "C" int pk_preheat_coupled_pair_deferred_f32(PK_COUPLED_ARGS) {
-  return pk_launch_coupled<float, true, true> PK_COUPLED_CALL;
-}
-
-extern "C" int pk_preheat_coupled_pair_deferred_f64(PK_COUPLED_ARGS) {
-  return pk_launch_coupled<double, true, true> PK_COUPLED_CALL;
-}
+PK_COUPLED_ENTRY(pk_preheat_coupled_pair_f32, float, float, false, true)
+PK_COUPLED_ENTRY(pk_preheat_coupled_pair_f64, double, double, false, true)
+PK_COUPLED_ENTRY(pk_preheat_coupled_pair_deferred_f32, float, float, true,
+                 true)
+PK_COUPLED_ENTRY(pk_preheat_coupled_pair_deferred_f64, double, double, true,
+                 true)
+PK_COUPLED_ENTRY(pk_preheat_coupled_pair_f32_bf16, float, PK_BF16, false,
+                 true)
+PK_COUPLED_ENTRY(pk_preheat_coupled_pair_f64_bf16, double, PK_BF16, false,
+                 true)
+PK_COUPLED_ENTRY(pk_preheat_coupled_pair_deferred_f32_bf16, float, PK_BF16,
+                 true, true)
+PK_COUPLED_ENTRY(pk_preheat_coupled_pair_deferred_f64_bf16, double, PK_BF16,
+                 true, true)
 #endif
 
 #else

@@ -12,11 +12,11 @@
 // over memory instead of two.
 //
 // With bfloat16 carries (C = __nv_bfloat16, the _bf16 entry points) kf and
-// kdfdt are read widened to T -- at the site and, for kf, at every tap the
-// f1 recomposition reads -- and only the outputs kf2, kdf2 are rounded, after
-// f2 and dfdt2 have been formed from them: stage 1's kf1, kdf1 and the
-// recomposed f1 stay unrounded, as in the JAX package's pair body under
-// _quantize_carries.
+// kdfdt (and khij, kdhijdt) are read widened to T -- at the site and, for
+// kf (khij), at every tap the f1 (h1) recomposition reads -- and only the
+// outputs kf2, kdf2 (kh2, kdh2) are rounded, after f2 and dfdt2 (h2, dh2)
+// have been formed from them: stage 1's carries and the recomposed f1 and h1
+// stay unrounded, as in the JAX package's pair body under _quantize_carries.
 //
 // K8 (GW = true) replaces FusedPreheatStepper._pair_body: K3 on f, then per
 // hij component two tensor stages (pk_gw_stage), stage 1 with lap h from the
@@ -51,12 +51,12 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
   const int64_t site = ((int64_t)x * Y + y) * Z + z;
   const T* __restrict__ f = io.in[0];
   const T* __restrict__ dfdt = io.in[1];
-  const C* __restrict__ kf = pk_carry_in<C>(io, 0);
-  const C* __restrict__ kdf = pk_carry_in<C>(io, 1);
+  const C* __restrict__ kf = pk_in_as<C>(io, 2);
+  const C* __restrict__ kdf = pk_in_as<C>(io, 3);
   T* __restrict__ f_out = io.out[0];
   T* __restrict__ dfdt_out = io.out[1];
-  C* __restrict__ kf_out = pk_carry_out<C>(io, 0);
-  C* __restrict__ kdf_out = pk_carry_out<C>(io, 1);
+  C* __restrict__ kf_out = pk_out_as<C>(io, 2);
+  C* __restrict__ kdf_out = pk_out_as<C>(io, 3);
 
   // stage 1 on the site (the arithmetic of fused_stage.cu)
   T f0[PK_F], df1[PK_F], kf1[PK_F], kdf1[PK_F], f1[PK_F], dv[PK_F];
@@ -119,16 +119,19 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
     pk_sij<T>(dfdx, p.a1, p.hubble1, sij1);
 #pragma unroll
     for (int c = 0; c < PK_F; ++c) {
-      const PkAxpyLoad<T> load{f + c * N, kf + c * N, {dfdt + c * N},
-                               p.B1, p.A1, p.dt, Y, Z};
+      const PkAxpyLoad<T, PkAt<T>, C> load{f + c * N, kf + c * N,
+                                           {dfdt + c * N}, p.B1, p.A1,
+                                           p.dt, Y, Z};
       pk_grad(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
     }
     pk_sij<T>(dfdx, p.a2, p.hubble2, sij2);
 
     const T* __restrict__ h = io.in[4];
     const T* __restrict__ dh = io.in[5];
-    const T* __restrict__ kh = io.in[6];
-    const T* __restrict__ kdh = io.in[7];
+    const C* __restrict__ kh = pk_in_as<C>(io, 6);
+    const C* __restrict__ kdh = pk_in_as<C>(io, 7);
+    C* __restrict__ kh_out = pk_out_as<C>(io, 6);
+    C* __restrict__ kdh_out = pk_out_as<C>(io, 7);
     const T two_hub1 = T(2) * p.hubble1;
 #pragma unroll 1
     for (int c = 0; c < PK_NH; ++c) {
@@ -137,18 +140,20 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
       const T lap_h = pk_lap(PkLoad<T>{h + c * N, Y, Z}, h0, x, y, z, X, Y,
                              Z, p.w);
       T h1, dh1, kh1, kdh1;
-      pk_gw_stage(h0, dh[i], kh[i], kdh[i], lap_h, sij1[c], p.A1, p.B1, p.dt,
-                  two_hub1, h1, dh1, kh1, kdh1);
-      const PkAxpyLoad<T> load{h + c * N, kh + c * N, {dh + c * N},
-                               p.B1, p.A1, p.dt, Y, Z};
+      pk_gw_stage(h0, dh[i], PkCarry<T, C>::load(kh[i]),
+                  PkCarry<T, C>::load(kdh[i]), lap_h, sij1[c], p.A1, p.B1,
+                  p.dt, two_hub1, h1, dh1, kh1, kdh1);
+      const PkAxpyLoad<T, PkAt<T>, C> load{h + c * N, kh + c * N,
+                                           {dh + c * N}, p.B1, p.A1, p.dt,
+                                           Y, Z};
       const T lap_h1 = pk_lap(load, h1, x, y, z, X, Y, Z, p.w);
       T h2, dh2, kh2, kdh2;
       pk_gw_stage(h1, dh1, kh1, kdh1, lap_h1, sij2[c], p.A2, p.B2, p.dt,
                   two_hub, h2, dh2, kh2, kdh2);
       io.out[4][i] = h2;
       io.out[5][i] = dh2;
-      io.out[6][i] = kh2;
-      io.out[7][i] = kdh2;
+      kh_out[i] = PkCarry<T, C>::store(kh2);
+      kdh_out[i] = PkCarry<T, C>::store(kdh2);
     }
   }
 #endif
@@ -185,7 +190,7 @@ static int pk_launch_pair(const void* const* ins, void* const* outs, int X,
       const double *params, void *stream
 
 // One entry point per (T, C, GW) instantiation; the _bf16 ones store the
-// carries kf, kdfdt in bfloat16.
+// carries in bfloat16.
 #define PK_PAIR_ENTRY(name, T, C, GW)                                       \
   extern "C" int name(PK_PAIR_ARGS) {                                       \
     return pk_launch_pair<T, C, GW>(ins, outs, X, Y, Z, params, stream);    \
@@ -199,4 +204,6 @@ PK_PAIR_ENTRY(pk_fused_pair_f64_bf16, double, __nv_bfloat16, false)
 #ifdef PK_NH
 PK_PAIR_ENTRY(pk_preheat_pair_f32, float, float, true)
 PK_PAIR_ENTRY(pk_preheat_pair_f64, double, double, true)
+PK_PAIR_ENTRY(pk_preheat_pair_f32_bf16, float, __nv_bfloat16, true)
+PK_PAIR_ENTRY(pk_preheat_pair_f64_bf16, double, __nv_bfloat16, true)
 #endif

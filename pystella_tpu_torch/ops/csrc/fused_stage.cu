@@ -27,12 +27,20 @@
 // plus the scalar sector's sums only (the expansion couples to the f
 // energy), so its lattice outputs are K7's bit for bit.
 //
-// K2 with bfloat16 carries (C = __nv_bfloat16, the _bf16 entry points, for
-// carry_dtype=bfloat16) reads kf and kdfdt widened to T and writes them
-// rounded to nearest even (PkCarry), after f and dfdt have been formed from
-// the unrounded values: the order of the JAX package's _quantize_carries
-// (pystella_tpu/ops/fused.py:76). It moves 2F of its 8F component-arrays
-// at 2 bytes a value.
+// With bfloat16 carries (C = __nv_bfloat16, the _bf16 entry points, for
+// carry_dtype=bfloat16) every variant reads its carries (kf, kdfdt, and
+// khij, kdhijdt) widened to T and writes them rounded to nearest even
+// (PkCarry), after f and dfdt (hij, dhijdt) have been formed from the
+// unrounded values: the order of the JAX package's _quantize_carries
+// (pystella_tpu/ops/fused.py:76). K5 and K5' take their energy sums from the
+// widened working-type values, as the JAX body takes them before the cast.
+// K2 moves 2F of its 8F component-arrays at 2 bytes a value, K7 8 of 16.
+//
+// The velocity carries come in a type of their own, KD: C, except in the
+// _bf16_fin energy stages, where they are T. Those run the coupled driver's
+// odd trailing stage, after the finalize that completed the last pair's
+// deferred Hubble drag: the JAX package's finalize leaves kdfdt (kdhijdt)
+// unrounded, in the working type, and its energy stage reads it so.
 //
 // Bound: memory. Four arrays are read and four written per site (8 * F *
 // sites * sizeof(T) bytes; the GW variants 8 * (F + 6)); the arithmetic is
@@ -58,7 +66,7 @@ struct PkStageParams {
   PkGradWeights<T> g;  // the GW variants only
 };
 
-template <typename T, typename C, bool ENERGY, bool GW>
+template <typename T, typename C, typename KD, bool ENERGY, bool GW>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
                       PkStageParams<T> p, T* __restrict__ partials,
@@ -71,12 +79,12 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
   if (!ENERGY && !active) return;
   const T* __restrict__ f = io.in[0];
   const T* __restrict__ dfdt = io.in[1];
-  const C* __restrict__ kf = pk_carry_in<C>(io, 0);
-  const C* __restrict__ kdf = pk_carry_in<C>(io, 1);
+  const C* __restrict__ kf = pk_in_as<C>(io, 2);
+  const KD* __restrict__ kdf = pk_in_as<KD>(io, 3);
   T* __restrict__ f_out = io.out[0];
   T* __restrict__ dfdt_out = io.out[1];
-  C* __restrict__ kf_out = pk_carry_out<C>(io, 0);
-  C* __restrict__ kdf_out = pk_carry_out<C>(io, 1);
+  C* __restrict__ kf_out = pk_out_as<C>(io, 2);
+  C* __restrict__ kdf_out = pk_out_as<C>(io, 3);
   T terms[PK_NT];
 #pragma unroll
   for (int t = 0; t < PK_NT; ++t) terms[t] = T(0);
@@ -102,7 +110,7 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
       const T df0 = dfdt[i];
       const T rhs_df = (lap[c] - two_hub * df0) - a2 * dv[c];
       const T kf2 = p.A * PkCarry<T, C>::load(kf[i]) + p.dt * df0;
-      const T kdf2 = p.A * PkCarry<T, C>::load(kdf[i]) + p.dt * rhs_df;
+      const T kdf2 = p.A * PkCarry<T, KD>::load(kdf[i]) + p.dt * rhs_df;
       f_out[i] = fc[c] + p.B * kf2;
       dfdt_out[i] = df0 + p.B * kdf2;
       kf_out[i] = PkCarry<T, C>::store(kf2);
@@ -124,8 +132,10 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
       pk_sij<T>(dfdx, p.a, p.hubble, sij);
       const T* __restrict__ h = io.in[4];
       const T* __restrict__ dh = io.in[5];
-      const T* __restrict__ kh = io.in[6];
-      const T* __restrict__ kdh = io.in[7];
+      const C* __restrict__ kh = pk_in_as<C>(io, 6);
+      const KD* __restrict__ kdh = pk_in_as<KD>(io, 7);
+      C* __restrict__ kh_out = pk_out_as<C>(io, 6);
+      C* __restrict__ kdh_out = pk_out_as<C>(io, 7);
 #pragma unroll 1
       for (int c = 0; c < PK_NH; ++c) {
         const int64_t i = c * N + site;
@@ -133,12 +143,13 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
         const T lap_h = pk_lap(PkLoad<T>{h + c * N, Y, Z}, h0, x, y, z, X,
                                Y, Z, p.w);
         T h1, dh1, kh1, kdh1;
-        pk_gw_stage(h0, dh[i], kh[i], kdh[i], lap_h, sij[c], p.A, p.B, p.dt,
-                    two_hub, h1, dh1, kh1, kdh1);
+        pk_gw_stage(h0, dh[i], PkCarry<T, C>::load(kh[i]),
+                    PkCarry<T, KD>::load(kdh[i]), lap_h, sij[c], p.A, p.B,
+                    p.dt, two_hub, h1, dh1, kh1, kdh1);
         io.out[4][i] = h1;
         io.out[5][i] = dh1;
-        io.out[6][i] = kh1;
-        io.out[7][i] = kdh1;
+        kh_out[i] = PkCarry<T, C>::store(kh1);
+        kdh_out[i] = PkCarry<T, C>::store(kdh1);
       }
     }
 #endif
@@ -151,7 +162,7 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
 // weights (pk_lap_weights) and, for GW, the gradient weights
 // (pk_grad_weights). With ENERGY, partials holds PK_NT * pk_num_blocks(X, Y,
 // Z) values and sums receives the PK_NT entry-state sums.
-template <typename T, typename C, bool ENERGY, bool GW>
+template <typename T, typename C, typename KD, bool ENERGY, bool GW>
 static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
                            int Y, int Z, const double* params,
                            void* partials, void* sums, void* stream) {
@@ -163,7 +174,7 @@ static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
   p.B = T(params[4]);
   p.w = pk_lap_weights<T>(params + 5);
   if (GW) p.g = pk_grad_weights<T>(params + 5 + PK_NLAPW);
-  pk_fused_stage_kernel<T, C, ENERGY, GW>
+  pk_fused_stage_kernel<T, C, KD, ENERGY, GW>
       <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
          (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X,
                                  Y, Z, p, (T*)partials,
@@ -178,30 +189,52 @@ static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
   const void *const *ins, void *const *outs, int X, int Y, int Z,           \
       const double *params
 
-// One entry point per (T, C, ENERGY, GW) instantiation; the _bf16 ones store
-// the carries kf, kdfdt in bfloat16.
+// One entry point per (T, C, KD, ENERGY, GW) instantiation; the _bf16 ones
+// store the carries in bfloat16, the _bf16_fin ones also read the velocity
+// carries in T.
 #define PK_STAGE_ENTRY(name, T, C, GW)                                      \
   extern "C" int name(PK_STAGE_ARGS, void* stream) {                        \
-    return pk_launch_stage<T, C, false, GW>(ins, outs, X, Y, Z, params,     \
-                                            nullptr, nullptr, stream);      \
+    return pk_launch_stage<T, C, C, false, GW>(ins, outs, X, Y, Z, params,  \
+                                               nullptr, nullptr, stream);   \
   }
-#define PK_STAGE_ENERGY_ENTRY(name, T, GW)                                  \
+#define PK_STAGE_ENERGY_ENTRY(name, T, C, KD, GW)                           \
   extern "C" int name(PK_STAGE_ARGS, void* partials, void* sums,            \
                       void* stream) {                                       \
-    return pk_launch_stage<T, T, true, GW>(ins, outs, X, Y, Z, params,      \
-                                           partials, sums, stream);         \
+    return pk_launch_stage<T, C, KD, true, GW>(ins, outs, X, Y, Z, params,  \
+                                               partials, sums, stream);     \
   }
+#define PK_BF16 __nv_bfloat16
 
 PK_STAGE_ENTRY(pk_fused_stage_f32, float, float, false)
 PK_STAGE_ENTRY(pk_fused_stage_f64, double, double, false)
-PK_STAGE_ENTRY(pk_fused_stage_f32_bf16, float, __nv_bfloat16, false)
-PK_STAGE_ENTRY(pk_fused_stage_f64_bf16, double, __nv_bfloat16, false)
-PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f32, float, false)
-PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f64, double, false)
+PK_STAGE_ENTRY(pk_fused_stage_f32_bf16, float, PK_BF16, false)
+PK_STAGE_ENTRY(pk_fused_stage_f64_bf16, double, PK_BF16, false)
+PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f32, float, float, float, false)
+PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f64, double, double, double,
+                      false)
+PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f32_bf16, float, PK_BF16,
+                      PK_BF16, false)
+PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f64_bf16, double, PK_BF16,
+                      PK_BF16, false)
+PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f32_bf16_fin, float, PK_BF16,
+                      float, false)
+PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f64_bf16_fin, double, PK_BF16,
+                      double, false)
 
 #ifdef PK_NH
 PK_STAGE_ENTRY(pk_preheat_stage_f32, float, float, true)
 PK_STAGE_ENTRY(pk_preheat_stage_f64, double, double, true)
-PK_STAGE_ENERGY_ENTRY(pk_preheat_stage_energy_f32, float, true)
-PK_STAGE_ENERGY_ENTRY(pk_preheat_stage_energy_f64, double, true)
+PK_STAGE_ENTRY(pk_preheat_stage_f32_bf16, float, PK_BF16, true)
+PK_STAGE_ENTRY(pk_preheat_stage_f64_bf16, double, PK_BF16, true)
+PK_STAGE_ENERGY_ENTRY(pk_preheat_stage_energy_f32, float, float, float, true)
+PK_STAGE_ENERGY_ENTRY(pk_preheat_stage_energy_f64, double, double, double,
+                      true)
+PK_STAGE_ENERGY_ENTRY(pk_preheat_stage_energy_f32_bf16, float, PK_BF16,
+                      PK_BF16, true)
+PK_STAGE_ENERGY_ENTRY(pk_preheat_stage_energy_f64_bf16, double, PK_BF16,
+                      PK_BF16, true)
+PK_STAGE_ENERGY_ENTRY(pk_preheat_stage_energy_f32_bf16_fin, float, PK_BF16,
+                      float, true)
+PK_STAGE_ENERGY_ENTRY(pk_preheat_stage_energy_f64_bf16_fin, double, PK_BF16,
+                      double, true)
 #endif

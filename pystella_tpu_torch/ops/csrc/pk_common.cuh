@@ -89,21 +89,6 @@ struct PkAt {
   __device__ __forceinline__ T operator()(int64_t i) const { return p[i]; }
 };
 
-// The velocity a deferred-drag coupled pair left incomplete, completed at a
-// linear index: dfp + B2p * (kdfp - c * dfp) with c = (2 * dt) * hubfix, the
-// arithmetic of the JAX package's _completed_taps
-// (pystella_tpu/ops/fused.py).
-template <typename T>
-struct PkCompleted {
-  const T* __restrict__ dfp;
-  const T* __restrict__ kdfp;
-  T B2p, c;
-  __device__ __forceinline__ T operator()(int64_t i) const {
-    const T d = dfp[i];
-    return d + B2p * (kdfp[i] - c * d);
-  }
-};
-
 // RK carries (the k arrays) stored in C, computed in T. With C = T both
 // conversions are the identity, so a kernel instantiated that way is the
 // working-precision kernel unchanged. With C = __nv_bfloat16 (the
@@ -134,6 +119,21 @@ struct PkCarry<double, __nv_bfloat16> {
   }
   __device__ __forceinline__ static __nv_bfloat16 store(double v) {
     return __float2bfloat16_rn((float)v);
+  }
+};
+
+// The velocity a deferred-drag coupled pair left incomplete, completed at a
+// linear index: dfp + B2p * (kdfp - c * dfp) with c = (2 * dt) * hubfix, the
+// arithmetic of the JAX package's _completed_taps
+// (pystella_tpu/ops/fused.py). kdfp is a carry, stored in C and widened.
+template <typename T, typename C = T>
+struct PkCompleted {
+  const T* __restrict__ dfp;
+  const C* __restrict__ kdfp;
+  T B2p, c;
+  __device__ __forceinline__ T operator()(int64_t i) const {
+    const T d = dfp[i];
+    return d + B2p * (PkCarry<T, C>::load(kdfp[i]) - c * d);
   }
 };
 
@@ -260,17 +260,18 @@ static inline PkArrays<T> pk_arrays(const void* const* ins,
   return a;
 }
 
-// The scalar system's carries (kf, kdfdt: arrays 2 + k, k = 0, 1) as
-// pointers of their storage type C: the same addresses, read as C.
+// Array k of a launch as a pointer of storage type C: the same address,
+// read or written as C. The carries (arrays 2, 3 and, for the GW variants,
+// 6, 7) are stored in C; a new carry type is such a view of the same
+// pointers, never a field of PkArrays.
 template <typename C, typename T>
-__device__ __forceinline__ const C* pk_carry_in(const PkArrays<T>& io,
-                                                int k) {
-  return reinterpret_cast<const C*>(io.in[2 + k]);
+__device__ __forceinline__ const C* pk_in_as(const PkArrays<T>& io, int k) {
+  return reinterpret_cast<const C*>(io.in[k]);
 }
 
 template <typename C, typename T>
-__device__ __forceinline__ C* pk_carry_out(const PkArrays<T>& io, int k) {
-  return reinterpret_cast<C*>(io.out[2 + k]);
+__device__ __forceinline__ C* pk_out_as(const PkArrays<T>& io, int k) {
+  return reinterpret_cast<C*>(io.out[k]);
 }
 
 // One thread per lattice site: z (the contiguous axis) is the fastest

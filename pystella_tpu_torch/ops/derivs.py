@@ -28,12 +28,13 @@ import ctypes
 import numpy as np
 import torch
 
+from pystella_tpu_torch._device import resolve_device
 from pystella_tpu_torch.ops import stencil as _stencil
 
 __all__ = [
     "FirstCenteredDifference", "SecondCenteredDifference",
     "FiniteDifferencer", "LAUNCHES", "reset_launch_counts", "KERNELS",
-    "OPS",
+    "OPS", "expand_stencil", "centered_diff",
 ]
 
 #: operator -> index of its kernel in fd_ops.cu (the order of its entry
@@ -86,6 +87,32 @@ def build_kernels(h):
                 fns[op, dtype] = fn
         _LIBS[h] = fns
     return fns
+
+
+def expand_stencil(f, coefs):
+    """Expand a symbolic stencil over a field: ``sum_s coefs[s] * f@s``
+    where ``s`` ranges over 3-tuple site offsets. The result evaluates to
+    periodic rolls under :func:`~pystella_tpu_torch.field.evaluate`: a
+    custom operator without a kernel of its own."""
+    from pystella_tpu_torch.field import shift_fields
+    return sum(c * shift_fields(f, offset) for offset, c in coefs.items())
+
+
+def centered_diff(f, coefs, direction, order):
+    """Centered-difference stencil from its non-redundant coefficients:
+    ``direction`` in (1, 2, 3) picks the axis, ``order``'s parity sets the
+    sign of the mirrored coefficients."""
+    all_coefs = {}
+    for s, c in coefs.items():
+        offset = [0, 0, 0]
+        if s != 0 or order % 2 == 0:
+            offset[direction - 1] = s
+            all_coefs[tuple(offset)] = c
+        if s != 0:
+            offset = [0, 0, 0]
+            offset[direction - 1] = -s
+            all_coefs[tuple(offset)] = (-1) ** order * c
+    return expand_stencil(f, all_coefs)
 
 
 class FiniteDifferenceStencil:
@@ -163,24 +190,29 @@ class FiniteDifferencer:
 
     :arg halo_shape: the stencil radius ``h`` (1..4 -> order 2..8).
     :arg dx: lattice spacing per axis (scalar or 3-tuple).
-    :arg mode: ``"kernel"`` (default): a CUDA tensor goes through the
+    :arg mode: ``"kernel"`` (default): on the card each operator is the
         hand-written kernel (built at first use; a kernel that does not
-        build or launch raises) and a CPU tensor through the kernel's plain
-        version. ``"roll"``: the per-axis ``torch.roll`` sums of the JAX
-        package's ``mode="roll"``, on any device.
+        build or launch raises), on the CPU the kernel's plain version.
+        ``"roll"``: the per-axis ``torch.roll`` sums of the JAX package's
+        ``mode="roll"``.
+    :arg device: ``None`` (the GPU), ``"cuda"`` or ``"cpu"``, as every
+        entry point of the port takes it. The operators take tensors on
+        that device only and raise ``ValueError`` on another.
     """
 
     def __init__(self, halo_shape, dx, *,
                  first_stencil_factory=FirstCenteredDifference,
-                 stencil_factory=SecondCenteredDifference, mode="kernel"):
+                 stencil_factory=SecondCenteredDifference, mode="kernel",
+                 device=None):
+        if mode not in ("kernel", "roll"):
+            raise ValueError(f"unknown mode {mode}")
+        self.device = resolve_device(device)
         self.h = int(halo_shape)
         if np.isscalar(dx):
             dx = (dx,) * 3
         self.dx = tuple(float(d) for d in dx)
         self.first = first_stencil_factory(self.h)
         self.second = stencil_factory(self.h)
-        if mode not in ("kernel", "roll"):
-            raise ValueError(f"unknown mode {mode}")
         self.mode = mode
         self._inv_dx = [1.0 / d for d in self.dx]
         self._inv_dx2 = [1.0 / d**2 for d in self.dx]
@@ -291,6 +323,9 @@ class FiniteDifferencer:
     def _dispatch(self, name, x):
         """Fold every leading axis (for ``div`` the vector axis too) into
         one component axis, run the operator, and unfold."""
+        if x.device != self.device:
+            raise ValueError(f"the operand is on {x.device}, but this "
+                             f"FiniteDifferencer runs on {self.device}")
         if self.mode == "roll":
             return self._roll_dispatch(name, x)
         if x.ndim < 3 + (name == "div"):

@@ -23,9 +23,6 @@ Hand-written CUDA kernels (``ops/csrc``):
   pass, the intermediate stages held in shared memory; :meth:`multi_step`
   runs chunks first, then pairs, then a single stage, across step
   boundaries;
-- ``fused_stage``, ``fused_pair`` and ``fused_chunk`` with ``carry_dtype=
-  torch.bfloat16``: the same kernels storing the k-carries in bfloat16
-  (counted as ``<name>:bf16``);
 - ``fused_stage_energy`` (K5): K2 that also emits the energy sums of its
   entry state, for :meth:`coupled_multi_step`;
 - ``coupled_pair`` / ``coupled_pair_deferred`` (K6): the deferred-drag
@@ -36,6 +33,10 @@ Hand-written CUDA kernels (``ops/csrc``):
   (K9): the same five for the scalar + gravitational-wave system, a
   template flag on each scalar kernel that adds the tensor stages after the
   scalar ones.
+
+Every kernel also comes with ``carry_dtype=torch.bfloat16``: the same kernel
+storing the k-carries in bfloat16 (widened on load, rounded on store, the
+energy sums taken from the widened values), counted as ``<name>:bf16``.
 
 Beside each kernel sits its plain PyTorch version (``_scalar_body``,
 ``_scalar_pair_core``, ``_chunk_body``, ``_esums``, ``_deferred_pair_core``;
@@ -150,16 +151,23 @@ _GW_OF = {"preheat_stage": "fused_stage", "preheat_pair": "fused_pair",
           "preheat_coupled_pair_deferred": "coupled_pair_deferred"}
 _PARAMS.update({gw: _PARAMS[sc] for gw, sc in _GW_OF.items()})
 
-#: the kernels that also come with bfloat16 carries; a launch of that
-#: variant counts under ``name + BF16``
-CARRY_KERNELS = ("fused_stage", "fused_pair", "fused_chunk")
+#: every kernel also comes with bfloat16 carries; a launch of that variant
+#: counts under ``name + BF16``
 BF16 = ":bf16"
+#: the energy stages, which with bfloat16 carries also come in a variant
+#: (``_bf16_fin``, counted as ``<name>:bf16_fin``) that reads the velocity
+#: carries in the working dtype: the coupled driver's odd trailing stage,
+#: after the finalize that completed the last pair's deferred drag (see
+#: ``_finalize_deferred``)
+_FINALIZED = ("fused_stage_energy", "preheat_stage_energy")
+FIN = "_fin"
 
 #: kernel name (and ``<name>:bf16``) -> number of launches since the last
 #: reset; each wrapper adds one where it launches its kernel, and nowhere
 #: else
 LAUNCHES = {name: 0 for name in
-            list(KERNELS) + [n + BF16 for n in CARRY_KERNELS]}
+            list(KERNELS) + [n + BF16 for n in KERNELS]
+            + [n + BF16 + FIN for n in _FINALIZED]}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -216,10 +224,9 @@ class FusedScalarStepper(_step.Stepper):
         while every kernel computes in ``dtype`` (carries widen on load and
         round to nearest even on store) -- the JAX package's memory flag for
         the 512^3 GW system, at an accuracy cost bounded by the carry
-        quantization. :meth:`step`, :meth:`multi_step` and the per-stage
-        calls take it; :meth:`coupled_multi_step` and
-        :class:`FusedPreheatStepper` do not yet (their kernels have no
-        bfloat16 variant) and raise ``NotImplementedError``.
+        quantization. Every entry point takes it: :meth:`step`,
+        :meth:`multi_step`, :meth:`coupled_multi_step`, the per-stage calls
+        and :class:`FusedPreheatStepper`'s.
     :arg chunk_stages: whole-RK-chunk depth: an even number >= 4 of
         consecutive stages advanced by one kernel (K10), which
         :meth:`step` and :meth:`multi_step` dispatch first, then pairs,
@@ -346,17 +353,27 @@ class FusedScalarStepper(_step.Stepper):
         read ``hubble``."""
         return self._pair_stages and self._A[0] == 0 and self._hubble_free
 
-    def kernel_names(self):
-        """The kernels this stepper's model can run (the chunk kernel when
-        a chunk depth is in force)."""
+    def _kernel_bases(self):
+        """The kernels (by :data:`KERNELS` name) this stepper's model can
+        run: the chunk kernel when a chunk depth is in force, the coupled
+        pairs when :attr:`coupled_pair_available`."""
         return [n for role, n in self._KERNEL.items()
                 if (role != "chunk" or self._chunk_depth)
                 and (n not in _COUPLED or self.coupled_pair_available)]
 
-    def counted_name(self, name):
+    def kernel_names(self):
+        """The kernels this stepper's model can run, as their launches
+        count (:data:`LAUNCHES`: ``<name>:bf16`` with bfloat16 carries)."""
+        return [self.counted_name(n) for n in self._kernel_bases()]
+
+    def counted_name(self, name, finalized=False):
         """The key of :data:`LAUNCHES` a launch of kernel ``name`` on this
-        stepper counts under (``<name>:bf16`` with bfloat16 carries)."""
-        return name + BF16 if self.carry_dtype is not None else name
+        stepper counts under (``<name>:bf16`` with bfloat16 carries,
+        ``<name>:bf16_fin`` for an energy stage on finalized carries,
+        :meth:`_finalized`)."""
+        if self.carry_dtype is None:
+            return name
+        return name + BF16 + (FIN if finalized else "")
 
     def kernel_header(self):
         """The generated C header the kernels are compiled against."""
@@ -369,7 +386,7 @@ class FusedScalarStepper(_step.Stepper):
         """Compile (or load from the build cache) this model's kernels for
         float32 and float64, one ``nvcc`` per source, all in parallel;
         raises if ``nvcc`` fails."""
-        names = self.kernel_names()
+        names = self._kernel_bases()
         libs = _stencil.build_kernels(
             sorted({KERNELS[n][0] for n in names}), self.kernel_header())
         fns = {}
@@ -379,15 +396,18 @@ class FusedScalarStepper(_step.Stepper):
             # sums], stream
             argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
             argtypes += [ctypes.c_void_p] * (4 if SUM_SETS[name] else 2)
-            carries = (None, torch.bfloat16) if name in CARRY_KERNELS \
-                else (None,)
+            # (carry dtype, velocity carries in the working dtype)
+            variants = [(None, False), (torch.bfloat16, False)]
+            if name in _FINALIZED:
+                variants.append((torch.bfloat16, True))
             for dtype, suffix in _SUFFIX.items():
-                for cd in carries:
+                for cd, fin in variants:
                     fn = getattr(libs[src], f"pk_{name}_{suffix}"
-                                 + ("_bf16" if cd is not None else ""))
+                                 + ("_bf16" if cd is not None else "")
+                                 + (FIN if fin else ""))
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
-                    fns[name, dtype, cd] = fn
+                    fns[name, dtype, cd, fin] = fn
         if self._chunk_depth:
             # the kernel's compile-time tile must be the one chunk_tile
             # predicts (the CPU path's fallback decisions rest on it)
@@ -419,14 +439,29 @@ class FusedScalarStepper(_step.Stepper):
             return None
         return tuple(out[:3]), out[3]
 
-    def _check(self, ins, outs):
+    def _finalized(self, name, ins):
+        """Whether a launch of ``name`` takes its velocity carries (kdfdt,
+        kdhijdt) in the working dtype while the other carries are stored in
+        ``carry_dtype``: the energy stage after the coupled driver's
+        finalize (:meth:`_finalize_deferred`), the ``_bf16_fin`` kernels."""
+        return (self.carry_dtype is not None and name in _FINALIZED
+                and len(ins) > 3 and ins[3].dtype == self.dtype)
+
+    def _in_dtypes(self, finalized):
+        """The storage dtype of each lattice input of a launch."""
+        if not finalized:
+            return self._dtypes
+        return tuple(self.dtype if j % 4 == 3 else d
+                     for j, d in enumerate(self._dtypes))
+
+    def _check(self, ins, outs, in_dtypes):
         n = len(self._comps)
         if len(ins) != n or len(outs) != n:
             raise ValueError(f"the fused kernels take {n} arrays in and {n} "
                              f"out; got {len(ins)} and {len(outs)}")
         ref = ins[0]
         for t, c, dt in zip(list(ins) + list(outs), self._comps * 2,
-                            self._dtypes * 2):
+                            tuple(in_dtypes) + self._dtypes):
             shape = (c,) + self.grid_shape
             if (t.device != ref.device or t.dtype != dt
                     or tuple(t.shape) != shape or not t.is_contiguous()):
@@ -455,7 +490,9 @@ class FusedScalarStepper(_step.Stepper):
 
         :arg ins: the lattice inputs: per system (:attr:`_SYSTEMS`) the
             field, the velocity and their k-carries (the deferred pairs:
-            field, velocity, velocity carry, field carry).
+            field, velocity, velocity carry, field carry). The energy stage
+            also takes the velocity carries in the working dtype with the
+            others in ``carry_dtype`` (:meth:`_finalized`).
         :arg outs: as many lattice outputs, written.
         :arg params: the scalars, in the order of ``_PARAMS[name]``.
         :returns: ``outs``, followed by the kernel's ``SUM_SETS[name]``
@@ -463,14 +500,16 @@ class FusedScalarStepper(_step.Stepper):
         """
         if name not in self._KERNEL.values():
             raise ValueError(f"{name} is not a kernel of this stepper")
-        self._check(ins, outs)
+        fin = self._finalized(name, ins)
+        self._check(ins, outs, self._in_dtypes(fin))
         if len(params) != len(_PARAMS[name]):
             raise ValueError(f"{name} takes the scalars {_PARAMS[name]}; got "
                              f"{len(params)} values")
         nsums = SUM_SETS[name] * (2 * self.F + 1)
         dev = ins[0].device
         if dev.type == "cuda":
-            fn = (self._libs or {}).get((name, self.dtype, self.carry_dtype))
+            fn = (self._libs or {}).get((name, self.dtype, self.carry_dtype,
+                                         fin))
             if fn is None:
                 raise RuntimeError(
                     f"kernel {name} is not built on this stepper (construct "
@@ -497,7 +536,7 @@ class FusedScalarStepper(_step.Stepper):
             if rc != 0:
                 raise RuntimeError(f"{name} kernel launch failed with CUDA "
                                    f"error {rc}")
-            LAUNCHES[self.counted_name(name)] += 1
+            LAUNCHES[self.counted_name(name, fin)] += 1
             return list(outs) + sums
         if dev.type == "cpu":
             res = self.plain(name, ins, params)
@@ -506,20 +545,27 @@ class FusedScalarStepper(_step.Stepper):
             return list(outs) + res[len(outs):]
         raise ValueError(f"no fused kernel for device {dev}")
 
+    def _new_set(self, device):
+        """One set of a launch's lattice outputs, in :meth:`_inputs`
+        order and storage dtypes."""
+        return [torch.empty((c,) + self.grid_shape, dtype=d, device=device)
+                for c, d in zip(self._comps, self._dtypes)]
+
     def _out_set(self, ins):
-        """A buffer set sharing no storage with the launch's inputs."""
-        key = (tuple((tuple(t.shape), t.dtype) for t in ins),
-               ins[0].device)
-        if self._buffers is None or self._buffers[0] != key:
+        """A buffer set sharing no storage with the launch's inputs. The
+        sets are made in the outputs' dtypes, so an input in another dtype
+        (the velocity carries after a finalize) reuses them."""
+        device = ins[0].device
+        if self._buffers is None or self._buffers[0] != device:
             self._buffers = None  # release the old sets first
-            self._buffers = (key, [[torch.empty_like(t) for t in ins]
-                                   for _ in range(2)])
+            self._buffers = (device, [self._new_set(device)
+                                      for _ in range(2)])
         used = {t.untyped_storage().data_ptr() for t in ins}
         for bufs in self._buffers[1]:
             if not used & {b.untyped_storage().data_ptr() for b in bufs}:
                 return bufs
         # inputs mixed from both sets: write fresh arrays instead
-        return [torch.empty_like(t) for t in ins]
+        return self._new_set(device)
 
     # -- plain PyTorch versions (the kernels' arithmetic) --------------------
 
@@ -765,7 +811,15 @@ class FusedScalarStepper(_step.Stepper):
     def _finalize_deferred(self, carry, dt, hubfix, B2p):
         """Complete the deferred stage-2 Hubble drag of a pair with the (by
         now exact) ``hubfix``: one elementwise pass, in the working dtype,
-        with the arithmetic the next deferred kernel would have applied."""
+        with the arithmetic the next deferred kernel would have applied.
+
+        With bfloat16 carries the completed velocity carry is left in the
+        working dtype, unrounded, as the JAX package's finalize leaves it
+        (``k["dfdt"] - 2 * dt * hubfix * state["dfdt"]`` promotes the bf16
+        carry); the odd trailing energy stage reads it so (the ``_bf16_fin``
+        kernels). The JAX package with x64 enabled takes the two products in
+        float64 (its ``hubfix`` is a float64 scalar there); here they are
+        taken in the working dtype, as with x64 off."""
         state, k = carry
         sc = self._scalars({"dt": dt, "hubfix": hubfix, "B2p": B2p},
                            state["f"])
@@ -1068,6 +1122,19 @@ class FusedScalarStepper(_step.Stepper):
                                  args_at, cross=True)
         return self.extract(carry)
 
+    def multi_step_fn(self, nsteps):
+        """The fused chunk body as a ``(state, t, dt, rhs_args) -> state``
+        function: :meth:`multi_step` without ``rhs_seq`` (stages chunked and
+        paired across step boundaries), the single-member body of the JAX
+        package's ensemble tier. It runs :meth:`multi_step`'s launches, so
+        a member advanced through it is bit-equal to one advanced by
+        :meth:`multi_step`."""
+        nsteps = int(nsteps)
+
+        def fn(state, t, dt, rhs_args):
+            return self.multi_step(state, nsteps, t, dt, rhs_args)
+        return fn
+
     # -- energy-coupled driver (Friedmann background on the host) -----------
     #
     # The JAX package integrates (a, adot) on traced scalars between kernels,
@@ -1226,13 +1293,13 @@ class FusedScalarStepper(_step.Stepper):
         :arg grid_size: the energy sums' divisor; default the number of
             sites.
 
+        With ``carry_dtype`` the pairs store their carries (``kf``,
+        ``kdfp``) in bfloat16 like every other kernel; the finalize leaves
+        the velocity carry in the working dtype, and an odd trailing stage
+        reads it so (:meth:`_finalize_deferred`).
+
         The returned tensors are the stepper's buffers (see the class
         docstring)."""
-        if self.carry_dtype is not None:
-            raise NotImplementedError(
-                "coupled_multi_step with carry_dtype needs bfloat16-carry "
-                "variants of the energy kernels K5 and K6, not ported yet "
-                "(ROADMAP queue 1, item 1)")
         dt = _float(dt if dt is not None else self.dt)
         nsteps = int(nsteps)
         if grid_size is None:
@@ -1269,8 +1336,11 @@ class FusedPreheatStepper(FusedScalarStepper):
     :arg gw_sector: a
         :class:`~pystella_tpu_torch.models.sectors.TensorPerturbationSector`.
 
-    The other arguments are :class:`FusedScalarStepper`'s. States are dicts
-    ``{"f", "dfdt": (F, X, Y, Z), "hij", "dhijdt": (6, X, Y, Z)}``.
+    The other arguments are :class:`FusedScalarStepper`'s, ``carry_dtype``
+    included: with ``torch.bfloat16`` the tensor carries ``khij``,
+    ``kdhijdt`` (``kdhp``) are stored in bfloat16 too, the JAX package's
+    512^3-on-one-device configuration. States are dicts ``{"f", "dfdt": (F,
+    X, Y, Z), "hij", "dhijdt": (6, X, Y, Z)}``.
     """
 
     _KERNEL = {"stage": "preheat_stage", "pair": "preheat_pair",
@@ -1284,12 +1354,6 @@ class FusedPreheatStepper(FusedScalarStepper):
                  tableau=None, dtype=torch.float32, dt=None,
                  pair_stages=True, carry_dtype=None, chunk_stages=None,
                  device=None):
-        if carry_dtype is not None and torch_dtype(carry_dtype) != \
-                torch_dtype(dtype):
-            raise NotImplementedError(
-                "FusedPreheatStepper with carry_dtype needs bfloat16-carry "
-                "variants of K7, K8, K9 and K5', not ported yet (ROADMAP "
-                "queue 1, item 1)")
         # set before super().__init__, which builds the kernels
         self.gw_sector = gw_sector
         self.n_hij = gw_sector.hij.shape[0]
@@ -1303,10 +1367,10 @@ class FusedPreheatStepper(FusedScalarStepper):
         self._sij_exprs = [self._sij[c] for c in range(self.n_hij)]
         super().__init__(sector, grid_shape, dx, halo_shape=halo_shape,
                          tableau=tableau, dtype=dtype, dt=dt,
-                         pair_stages=pair_stages, chunk_stages=chunk_stages,
-                         device=device)
+                         pair_stages=pair_stages, carry_dtype=carry_dtype,
+                         chunk_stages=chunk_stages, device=device)
         self._comps = (self.F,) * 4 + (self.n_hij,) * 4
-        self._dtypes = (self.dtype,) * 8
+        self._dtypes = self._dtypes * 2
         # the gradient weights exactly as grad_from_taps forms them
         inv_dx = [1.0 / d for d in self.dx]
         coefs = _grad_coefs[self.h]

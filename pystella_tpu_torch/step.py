@@ -107,7 +107,10 @@ class Stepper:
     num_stages = NotImplemented
     expected_order = NotImplemented
 
-    def __init__(self, rhs, dt=None):
+    def __init__(self, rhs, dt=None, **kwargs):
+        # ``kwargs``: the JAX package's stepper options (``donate``), taken
+        # and ignored so that a constructor call written for it runs here;
+        # PyTorch runs eagerly and donates nothing
         if isinstance(rhs, dict) and rhs and not callable(rhs):
             rhs = compile_rhs_dict(rhs)
         elif hasattr(rhs, "rhs_dict"):  # a Sector (or list of Sectors)
@@ -132,6 +135,23 @@ class Stepper:
         """Advance ``state`` by one full RK step; returns the new state."""
         dt = dt if dt is not None else self.dt
         return self._step_impl(state, t, dt, rhs_args or {})
+
+    # -- ensemble (member-axis) interface ----------------------------------
+
+    def multi_step_fn(self, nsteps):
+        """A ``(state, t, dt, rhs_args) -> state`` function advancing
+        ``nsteps`` full RK steps, the time argument advanced by ``dt`` per
+        step: the single-member body of the JAX package's ensemble tier.
+        Fused steppers override it with their stage-paired chunk body.
+        (The batched driver, ``batched``, comes with the port's
+        ``ensemble``.)"""
+        nsteps = int(nsteps)
+
+        def fn(state, t, dt, rhs_args):
+            for i in range(nsteps):
+                state = self._step_impl(state, t + i * dt, dt, rhs_args)
+            return state
+        return fn
 
     # -- per-stage interface (reference-style stepping loops) --------------
 

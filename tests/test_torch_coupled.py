@@ -131,7 +131,7 @@ def _driver_loop(state, nsteps, potential):
     the final state and Expansion, and the initial energy the Expansion
     started from."""
     sector = pt.ScalarSector(2, potential=potential)
-    fd = pt.FiniteDifferencer(H, DX)
+    fd = pt.FiniteDifferencer(H, DX, device="cpu")
     rhs = pt.compile_rhs_dict(sector.rhs_dict)
     gen = pt.LowStorageRK54(
         lambda s, t, a, hubble: rhs(s, t, lap_f=fd.lap(s["f"]), a=a,

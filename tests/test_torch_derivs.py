@@ -27,7 +27,7 @@ def test_lap_grad_match_jax(h):
     f = np.random.default_rng(8).standard_normal((2,) + grid_shape)
     decomp = ps.DomainDecomposition((1, 1, 1), devices=jax.devices()[:1])
     fdj = ps.FiniteDifferencer(decomp, h, dx, mode="halo")
-    fdt = pt.FiniteDifferencer(h, dx)
+    fdt = pt.FiniteDifferencer(h, dx, device="cpu")
     for op in ("lap", "grad"):
         ref = np.asarray(getattr(fdj, op)(jnp.asarray(f)))
         got = getattr(fdt, op)(torch.tensor(f)).numpy()
@@ -40,7 +40,7 @@ def test_lap_grad_match_jax(h):
 def test_plane_wave_eigenvalues(h):
     lattice, f, cosph, ks = make_plane_wave((16, 16, 16), (5.0, 4.0, 7.0),
                                             (2, 3, 1))
-    fd = pt.FiniteDifferencer(h, lattice.dx)
+    fd = pt.FiniteDifferencer(h, lattice.dx, device="cpu")
     lap = fd.lap(torch.tensor(f)).numpy()
     eig = sum(pt.SecondCenteredDifference(h).get_eigenvalues(k, d)
               for k, d in zip(ks, lattice.dx))
@@ -75,12 +75,13 @@ def test_taps_lap_matches_difference_operator(h):
     inv_dx2 = [1 / d**2 for d in dx]
     got = stencil.lap_from_taps(taps, pt.SecondCenteredDifference(h).coefs,
                                 inv_dx2).numpy()
-    ref = pt.FiniteDifferencer(h, dx).lap(torch.tensor(f)).numpy()
+    fd = pt.FiniteDifferencer(h, dx, device="cpu")
+    ref = fd.lap(torch.tensor(f)).numpy()
     assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) < 1e-13
     inv_dx = [1 / d for d in dx]
     grads = stencil.grad_from_taps(taps, pt.FirstCenteredDifference(h).coefs,
                                    inv_dx)
-    ref = pt.FiniteDifferencer(h, dx).grad(torch.tensor(f)).numpy()
+    ref = fd.grad(torch.tensor(f)).numpy()
     for d in range(3):
         assert np.max(np.abs(grads[d].numpy() - ref[:, d])) \
             / np.max(np.abs(ref[:, d])) < 1e-13
@@ -136,7 +137,8 @@ def test_operators_match_jax(jax_operators, h, mode):
     """grad_lap, pdx/pdy/pdz, divergence, outer axes and the batch call
     against the JAX package, <= 1e-12 of the output's largest value."""
     ref = jax_operators[h, mode]
-    got = port_operators(pt.FiniteDifferencer(h, jax_operators["dx"]),
+    got = port_operators(pt.FiniteDifferencer(h, jax_operators["dx"],
+                                              device="cpu"),
                          jax_operators["f"], jax_operators["vec"])
     assert set(ref) <= set(got) and ("call.grd" in ref) == (h == OUTER_H)
     for op in ref:
@@ -155,8 +157,9 @@ def test_plain_versions_match_roll_mode(h):
     f = rng.standard_normal((2, 12, 10, 8))
     vec = rng.standard_normal((2, 3, 12, 10, 8))
     dx = (0.3, 0.25, 0.2)
-    got = port_operators(pt.FiniteDifferencer(h, dx), f, vec)
-    ref = port_operators(pt.FiniteDifferencer(h, dx, mode="roll"), f, vec)
+    got = port_operators(pt.FiniteDifferencer(h, dx, device="cpu"), f, vec)
+    ref = port_operators(pt.FiniteDifferencer(h, dx, mode="roll",
+                                                device="cpu"), f, vec)
     for op in ref:
         err = np.max(np.abs(got[op] - ref[op])) / np.max(np.abs(ref[op]))
         assert err < 1e-13, f"{op}, h={h}: rel err {err}"
@@ -170,7 +173,7 @@ def test_operator_contracts():
     have length 3; unknown modes and operators and non-float inputs are
     refused; nothing is counted as a launch on the CPU."""
     from pystella_tpu_torch.ops import derivs
-    fd = pt.FiniteDifferencer(2, 0.1)
+    fd = pt.FiniteDifferencer(2, 0.1, device="cpu")
     x = torch.tensor(np.random.default_rng(1).standard_normal((8, 6, 4)))
     derivs.reset_launch_counts()
     assert fd.lap(x).shape == (8, 6, 4)

@@ -89,7 +89,7 @@ def test_reduction_energy_matches_jax():
     ref = red_j(f=fj, dfdt=jax.numpy.asarray(st["dfdt"]),
                 lap_f=fd_j.lap(fj), a=np.float64(1.3))
 
-    fd_t = pt.FiniteDifferencer(H, DX)
+    fd_t = pt.FiniteDifferencer(H, DX, device="cpu")
     red_t = pt.Reduction(sector_t, callback=pt.get_rho_and_p,
                          grid_size=grid_size)
     t = pt.state_from_numpy(st, device="cpu")

@@ -209,7 +209,7 @@ def test_fused_matches_generic(potential):
     potential covers a dV/df that does not depend on f."""
     st = _port(potential)
     sector = pt.ScalarSector(2, potential=potential)
-    fd = pt.FiniteDifferencer(H, DX)
+    fd = pt.FiniteDifferencer(H, DX, device="cpu")
     rhs = pt.compile_rhs_dict(sector.rhs_dict)
     gen = pt.LowStorageRK54(
         lambda s, t, a, hubble: rhs(s, t, lap_f=fd.lap(s["f"]), a=a,

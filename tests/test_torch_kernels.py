@@ -123,7 +123,7 @@ def _params(kernel, dx):
 def term_scale(st, f, df, a, hub):
     """sum |term| of each energy sum of the state (f, df), in float64."""
     f, df = f.double(), df.double()
-    lap = pt.FiniteDifferencer(st.h, st.dx).lap(f)
+    lap = pt.FiniteDifferencer(st.h, st.dx, device=f.device).lap(f)
     V = pt.evaluate(st._V, {"f": f, "a": a, "hubble": hub})
     V = torch.as_tensor(V, dtype=torch.float64, device=f.device)
     return torch.cat([(df * df).sum((1, 2, 3)),
@@ -525,6 +525,7 @@ def test_fd_public_operators_on_card(cuda):
     of the CPU path, values within rounding of it, every operator through
     its kernel; ``mode="roll"`` launches nothing."""
     fd = pt.FiniteDifferencer(2, 0.1)
+    fd_cpu = pt.FiniteDifferencer(2, 0.1, device="cpu")
     x = torch.randn((2, 3, 12, 10, 8), dtype=torch.float64,
                     generator=torch.Generator().manual_seed(3))
     tderivs.reset_launch_counts()
@@ -533,10 +534,10 @@ def test_fd_public_operators_on_card(cuda):
     res = {"lap": fd.lap(xc), "grad": fd.grad(xc), "pdx": fd.pdx(xc),
            "pdy": fd.pdy(xc), "pdz": fd.pdz(xc),
            "divergence": fd.divergence(xc), "g": g, "l": lap}
-    ref_g, ref_l = fd.grad_lap(x)
-    ref = {"lap": fd.lap(x), "grad": fd.grad(x), "pdx": fd.pdx(x),
-           "pdy": fd.pdy(x), "pdz": fd.pdz(x),
-           "divergence": fd.divergence(x), "g": ref_g, "l": ref_l}
+    ref_g, ref_l = fd_cpu.grad_lap(x)
+    ref = {"lap": fd_cpu.lap(x), "grad": fd_cpu.grad(x),
+           "pdx": fd_cpu.pdx(x), "pdy": fd_cpu.pdy(x), "pdz": fd_cpu.pdz(x),
+           "divergence": fd_cpu.divergence(x), "g": ref_g, "l": ref_l}
     assert set(tderivs.LAUNCHES.values()) == {1}
     for k in ref:
         assert res[k].shape == ref[k].shape
@@ -647,3 +648,179 @@ def test_mg_cycle_card_matches_cpu(cuda, MG):
         for n in ref:
             for a, b in zip(got[n], ref[n]):
                 assert isinstance(a, float) and abs(a - b) <= 1e-12 * abs(b)
+
+
+# -- bfloat16 carries on the energy and GW kernels (K5, K6, K7, K8, K9, K5') --
+
+#: (kernel, velocity carries in the working type): every bf16 entry point
+#: of the energy-coupled and GW kernels; the energy stages also in their
+#: _bf16_fin variant, which the coupled driver runs after a finalize
+BF16_CASES = [(k, False) for k in ("fused_stage_energy", "coupled_pair",
+                                   "coupled_pair_deferred") + GW_KERNELS] + [
+    ("fused_stage_energy", True), ("preheat_stage_energy", True)]
+
+
+def _bf16_case(cuda, kernel, fin, grid, dtype, seed=0):
+    """A bf16-carry stepper of the bench model (the GW one for a GW
+    kernel), the kernel's inputs at bench-like amplitudes (carries in
+    bf16; with ``fin`` the velocity carries in the working type) and its
+    scalars."""
+    sector = pt.ScalarSector(2, potential=bench_potential)
+    kw = dict(dtype=dtype, carry_dtype=torch.bfloat16, device=cuda)
+    if kernel in GW_KERNELS:
+        st = pt.FusedPreheatStepper(sector, pt.TensorPerturbationSector(
+            [sector]), grid, 5.0 / grid[0], H, **kw)
+        params = _gw_params(kernel, 5.0 / grid[0])
+    else:
+        st = pt.FusedScalarStepper(sector, grid, 5.0 / grid[0], H, **kw)
+        params = _params(kernel, 5.0 / grid[0])
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    amps = (1e-3, 1e-4, 1e-5, 1e-3, 1e-3, 1e-4, 1e-5, 1e-4)
+    ins = [(a * torch.randn((c,) + grid, generator=g, device=cuda,
+                            dtype=dtype)).to(d)
+           for a, c, d in zip(amps, st._comps, st._in_dtypes(fin))]
+    return st, ins, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel,fin", BF16_CASES)
+def test_bf16_kernel_matches_plain(cuda, kernel, fin, dtype):
+    """Each bf16 variant of K5, K6, K7, K8, K9 and K5' (and the _bf16_fin
+    energy stages) vs its plain version at 16^3: every lattice output at
+    KERNEL_TOL of the working type (the bf16 carries compared as values),
+    the sums at SUM_TOL of sum |term|; the launch is counted under
+    ``<name>:bf16`` (``<name>:bf16_fin``); the storage dtypes are the
+    stepper's."""
+    st, ins, params = _bf16_case(cuda, kernel, fin, (16, 16, 16), dtype)
+    assert st._finalized(kernel, ins) == fin
+    n = len(ins)
+    plain = st.plain(kernel, ins, params)
+    key = st.counted_name(kernel, fin)
+    assert key == kernel + tfused.BF16 + (tfused.FIN if fin else "")
+    before = tfused.LAUNCHES[key]
+    outs = st.launch(kernel, ins, st._new_set(cuda), params)
+    torch.cuda.synchronize()
+    assert tfused.LAUNCHES[key] == before + 1
+    assert len(outs) == len(plain) == n + tfused.SUM_SETS[kernel]
+    for o, p, d in zip(outs[:n], plain[:n], st._dtypes):
+        assert o.dtype == p.dtype == d
+        assert _rel(o, p) <= KERNEL_TOL[dtype]
+    if not tfused.SUM_SETS[kernel]:
+        return
+    scalar = tfused._GW_OF.get(kernel, kernel)
+    wide = [t.to(dtype) for t in ins]
+    scales = sum_scales(st, scalar, wide, [t.to(dtype) for t in outs[:n]]
+                        + outs[n:], params)
+    for got, ref, scale in zip(outs[n:], plain[n:], scales):
+        err = ((got.double() - ref.double()).abs() / scale).max().item()
+        assert err <= SUM_TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("gw", [False, True], ids=["scalar", "gw"])
+def test_bf16_kernel_identities(cuda, gw, dtype):
+    """With bf16 carries on the card: the energy stage's lattice outputs
+    are the stage's bit for bit (K5 == K2, K5' == K7), its sums bit-equal
+    on a second launch; the pair across a step boundary (stages 4 and 0,
+    A[0] == 0) equals two single stages bit for bit (K3, K8)."""
+    energy = "preheat_stage_energy" if gw else "fused_stage_energy"
+    st, ins, params = _bf16_case(cuda, energy, False, (48, 40, 36), dtype, 2)
+    kn = st._KERNEL
+    one = st.launch(kn["stage_energy"], ins, st._new_set(cuda), params)
+    two = st.launch(kn["stage_energy"], ins, st._new_set(cuda), params)
+    stage = st.launch(kn["stage"], ins, st._new_set(cuda), params)
+    dt = params[0]
+    pair = st.launch(kn["pair"], ins, st._new_set(cuda),
+                     (dt, 1.0, 0.5, A[4], B[4], 1.01, 0.49, A[0], B[0]))
+    mid = st.launch(kn["stage"], ins, st._new_set(cuda),
+                    (dt, 1.0, 0.5, A[4], B[4]))
+    two_stages = st.launch(kn["stage"], mid, st._new_set(cuda),
+                           (dt, 1.01, 0.49, A[0], B[0]))
+    torch.cuda.synchronize()
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    for a, b in zip(one, stage):
+        assert torch.equal(a, b)
+    for a, b in zip(pair, two_stages):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gw", [False, True], ids=["scalar", "gw"])
+def test_bf16_coupled_card_matches_cpu(cuda, gw):
+    """coupled_multi_step with bf16 carries on the card (K6 / K9, the
+    finalize, K5 / K5' _bf16_fin) vs the plain versions on the CPU, 16^3
+    f32, three steps: within 1e-5 (an ulp where PyTorch divides by the
+    reciprocal can flip a carry's bf16 rounding: one bf16 ulp of a carry,
+    scaled by B*dt), a and adot within 1e-6."""
+    grid = (16, 16, 16)
+    sector = pt.ScalarSector(2, potential=bench_potential)
+    g = torch.Generator().manual_seed(4)
+    state = {"f": torch.tensor([0.193, 0.0])[:, None, None, None]
+             + 1e-5 * torch.randn((2,) + grid, generator=g),
+             "dfdt": torch.tensor([-0.142231, 0.0])[:, None, None, None]
+             + 1e-5 * torch.randn((2,) + grid, generator=g)}
+    if gw:
+        state["hij"] = 1e-6 * torch.randn((6,) + grid, generator=g)
+        state["dhijdt"] = 1e-7 * torch.randn((6,) + grid, generator=g)
+    res = {}
+    for dev in ("cpu", cuda):
+        kw = dict(dtype=torch.float32, carry_dtype=torch.bfloat16,
+                  device=dev)
+        st = (pt.FusedPreheatStepper(sector, pt.TensorPerturbationSector(
+            [sector]), grid, 5.0 / 16, H, **kw) if gw else
+            pt.FusedScalarStepper(sector, grid, 5.0 / 16, H, **kw))
+        exp = pt.Expansion(0.03, pt.LowStorageRK54)
+        out = st.coupled_multi_step({k: v.to(dev) for k, v in
+                                     state.items()}, 3, exp, 0.0,
+                                    0.1 * 5.0 / 16)
+        res[str(dev)] = ({k: v.cpu() for k, v in out.items()}, exp)
+    (ref, e_ref), (got, e_got) = res["cpu"], res[str(cuda)]
+    for name in ref:
+        assert _rel(got[name], ref[name]) <= 1e-5, name
+    assert abs(e_got.a - e_ref.a) / e_ref.a <= 1e-6
+    assert abs(e_got.adot - e_ref.adot) / abs(e_ref.adot) <= 1e-6
+
+
+def nonpoly_potential(f):
+    # every non-polynomial path of the printer: exp, tanh, sin and cos (V
+    # and dV/df), sqrt, powers 2.5 (and 1.5), -2 (and -3), quotients
+    return (0.1 * pt.exp(0.3 * f[0]) + 0.2 * pt.tanh(f[1]) * pt.cos(f[0])
+            + 0.05 * pt.sqrt(1 + f[0] ** 2) + 0.01 * (2 + f[1] ** 2) ** 2.5
+            + 0.02 * (1.5 + f[0] ** 2) ** -2 + f[0] * f[1] / (3 + f[0] ** 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel", ["fused_stage", "fused_pair",
+                                    "fused_stage_energy"])
+def test_nonpoly_kernel_matches_plain(cuda, kernel, dtype):
+    """K2, K3 and K5 with a non-polynomial potential (pk_exp, pk_tanh,
+    pk_sin, pk_cos, pk_sqrt, pk_pow in the printed dV/df and V) vs their
+    plain versions at 16^3, O(1) fields: KERNEL_TOL (CUDA's math functions
+    and PyTorch's may differ by an ulp or two in dV/df, which enters the
+    outputs scaled by dt a^2)."""
+    grid = (16, 16, 16)
+    st = pt.FusedScalarStepper(pt.ScalarSector(2, potential=nonpoly_potential),
+                               grid, 5.0 / 16, H, dtype=dtype, device=cuda)
+    assert "pk_pow" in st.kernel_header() and "pk_exp" in st.kernel_header()
+    g = torch.Generator(device=cuda).manual_seed(9)
+    ins = [a * torch.randn((2,) + grid, generator=g, device=cuda,
+                           dtype=dtype) for a in (0.8, 0.3, 0.01, 0.02)]
+    params = _params("fused_stage_energy", 5.0 / 16)
+    if kernel == "fused_pair":
+        params += (1.0, 0.5, A[2], B[2])
+    plain = st.plain(kernel, ins, params)
+    outs = st.launch(kernel, ins, st._new_set(cuda), params)
+    torch.cuda.synchronize()
+    for o, p in zip(outs[:4], plain[:4]):
+        assert _rel(o, p) <= KERNEL_TOL[dtype]
+    if kernel == "fused_stage_energy":
+        scale = term_scale(st, ins[0], ins[1], params[1], params[2])
+        err = ((outs[4].double() - plain[4].double()).abs() / scale).max()
+        assert err.item() <= SUM_TOL[dtype]

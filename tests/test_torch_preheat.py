@@ -129,7 +129,7 @@ def _port_generic_stepper(potential=fused_test_potential):
     for s in (sector, pt.TensorPerturbationSector([sector])):
         merged.update(s.rhs_dict)
     rhs = pt.compile_rhs_dict(merged)
-    fd = pt.FiniteDifferencer(H, DX)
+    fd = pt.FiniteDifferencer(H, DX, device="cpu")
     return pt.LowStorageRK54(
         lambda s, t, a, hubble: rhs(s, t, lap_f=fd.lap(s["f"]),
                                     dfdx=fd.grad(s["f"]),

@@ -110,7 +110,7 @@ def _driver_loop(st, state, nsteps):
     """The per-stage driver loop of tests/test_fused.py:283-295 on the
     port: the fused stepper's single stages, the expansion stepped on the
     entering scalar energy (Reduction with FiniteDifferencer.lap)."""
-    fd = pt.FiniteDifferencer(H, DX)
+    fd = pt.FiniteDifferencer(H, DX, device="cpu")
     reduce_energy = pt.Reduction(st.sector, callback=pt.get_rho_and_p,
                                  grid_size=float(np.prod(GRID)))
 

@@ -107,7 +107,7 @@ def test_wave_equation_step_matches_jax():
         lambda s, t: {"f": s["dfdt"], "dfdt": fdj.lap(s["f"])}, dt=dt)
     ref = jst.step({"f": jnp.asarray(f0), "dfdt": jnp.asarray(df0)}, 0.0, dt)
 
-    fdt = pt.FiniteDifferencer(h, dx)
+    fdt = pt.FiniteDifferencer(h, dx, device="cpu")
     tst = pt.LowStorageRK54(
         lambda s, t: {"f": s["dfdt"], "dfdt": fdt.lap(s["f"])}, dt=dt)
     got = tst.step({"f": torch.tensor(f0), "dfdt": torch.tensor(df0)},
@@ -139,7 +139,7 @@ def test_sector_rhs_dict_steps_like_jax():
     ref = jst.step({"f": jnp.asarray(f0), "dfdt": jnp.asarray(df0)},
                    0.0, dt, args)
 
-    fdt = pt.FiniteDifferencer(h, dx)
+    fdt = pt.FiniteDifferencer(h, dx, device="cpu")
     rt = pt.compile_rhs_dict(pt.ScalarSector(2, potential=potential).rhs_dict)
     tst = pt.LowStorageRK54(
         lambda s, t, a, hubble: rt(s, t, lap_f=fdt.lap(s["f"]), a=a,
