@@ -35,7 +35,15 @@ entry points a user calls, at 512^3 in float32:
   ``fd_div``);
 - the multigrid solver, ``FullApproximationScheme`` over a
   ``NewtonIterator`` on ``lap f - f + f**3 = rho`` (bench.py:run_multigrid:
-  default V-cycles; kernels ``mg_smooth``, ``mg_residual``, ``mg_tau``).
+  default V-cycles; kernels ``mg_smooth``, ``mg_residual``, ``mg_tau``);
+- the sharded tier, every shard on the one card
+  (``DomainDecomposition(proc_shape)``): the hot loop,
+  ``FusedScalarStepper(decomp=...).multi_step``, on ``(2, 1, 1)`` padded
+  and overlapped, ``(2, 2, 1)``, ``(4, 1, 1)`` overlapped and ``(1, 2, 1)``,
+  each final state bit-equal to the single-block run's, and every
+  ``FiniteDifferencer`` operator on it (kernels ``<name>:xpad``,
+  ``:ypad``, ``:xypad``, ``:interior``, ``:shell`` of ``fused_stage``,
+  ``fused_pair`` and the seven ``fd_*``).
 
 A non-polynomial potential (exp, tanh, sqrt, cos, powers 2.5 and -2, a
 quotient) compiles the printer's math-function paths into K2, K3 and K5 and
@@ -948,6 +956,7 @@ def main_path(phase, st, state, timing, launches, extra_check=None,
         extra, extra_ok = extra_check(state)
         row.update(extra)
         ok = ok and extra_ok
+    PATH_ROWS[phase] = row
     emit(row)
     if not ok:
         raise SystemExit(f"{phase} produced a non-finite, misshapen or "
@@ -1264,7 +1273,7 @@ def wave_main_path(phase, launches):
     div = fd.divergence(grad)
     div_pd = fd.pdx(grad[0]) + fd.pdy(grad[1]) + fd.pdz(grad[2])
     torch.cuda.synchronize()
-    path_launches = dict(derivs.LAUNCHES)
+    path_launches = {k: v for k, v in derivs.LAUNCHES.items() if v}
     launches.update(path_launches)
     nsteps = WAVE_WARMUP + WAVE_STEPS
     # 4 stages a step, the two energies and the observables' Laplacian
@@ -1625,6 +1634,541 @@ def ptxas_report(*steppers):
     return report
 
 
+# -- the sharded tier: halo-input and overlapped launches (several shards on
+#    the one card) -------------------------------------------------------------
+
+#: the sharded configurations, every shard on the one card: (mesh, overlap);
+#: the first three are the sharded main paths (timed), the others checked
+#: against the single-device final state too
+SHARDED_CONFIGS = [((2, 1, 1), False), ((2, 1, 1), True), ((2, 2, 1), False),
+                   ((4, 1, 1), True), ((1, 2, 1), False)]
+SHARDED_TIMED = 3
+#: each kind of sharded launch and the mesh whose 512^3 block it runs on in
+#: those paths
+SHARDED_KIND_MESH = {"xpad": (2, 1, 1), "ypad": (1, 2, 1),
+                     "xypad": (2, 2, 1), "interior": (2, 1, 1),
+                     "shell": (2, 1, 1)}
+#: the path rows by phase (the sharded paths' ms/step against the preheat
+#: cell's of the same run)
+PATH_ROWS = {}
+#: the profiler labels of the exchange and the overlap regions
+SHARDED_LABELS = ("halo_exchange", "halo_overlap", "halo_overlap_interior",
+                  "halo_overlap_shells")
+
+
+def sharded_kernel_names():
+    """The kernels of the sharded tier, as the ``<name>:<kind>`` they are
+    counted under: the fused stage and pair, and the seven operators."""
+    from pystella_tpu_torch.ops import derivs, fused
+    return list(fused.SHARDED_KERNELS) + list(derivs.SHARDED_KERNELS)
+
+
+def block_of(mesh):
+    """The block of the 512^3 lattice on ``mesh``."""
+    return tuple(n // p for n, p in zip(GRID, mesh))
+
+
+def pad_periodic(t, hx, hy):
+    """A (C, X, Y, Z) tensor padded by its own periodic rows along x and y:
+    what a sharded window holds when one block is the whole lattice."""
+    if hx:
+        t = torch.cat([t[:, -hx:], t, t[:, :hx]], 1)
+    if hy:
+        t = torch.cat([t[:, :, -hy:], t, t[:, :, :hy]], 2)
+    return t.contiguous()
+
+
+class ShardedCase:
+    """One kernel of the sharded tier on a lattice held whole (seeded
+    inputs): its unsharded launch, a launch of any kind on windows built by
+    hand, and the plain version of the same."""
+
+    def __init__(self, kernel, shape, dtype, seed):
+        import pystella_tpu_torch as pt
+        from pystella_tpu_torch.ops import fused as tfused
+        self.kernel, self.shape, self.dtype = kernel, shape, dtype
+        self.fd = kernel.startswith("fd_")
+        if self.fd:
+            self.op = kernel[3:]
+            self.st = pt.FiniteDifferencer(HALO, WAVE_BOX / shape[0])
+            self.ins = [fd_input(self.op, shape, dtype, seed)]
+            self.wins = (0,)
+        else:
+            self.st = pt.FusedScalarStepper(
+                pt.ScalarSector(2, potential=potential), shape,
+                BOX / shape[0], HALO, dtype=dtype, device="cuda")
+            self.ins = kernel_inputs(shape, dtype, seed)
+            self.params = kernel_params(kernel, BOX / shape[0])
+            self.wins = tfused._WINDOWS[kernel]
+
+    def outs(self):
+        if self.fd:
+            return [torch.empty(s, dtype=self.dtype, device="cuda")
+                    for s in self.st._out_shapes(
+                        self.op, self.ins[0].shape[0], self.shape)]
+        return self.st._new_set(self.ins[0].device)
+
+    def windows(self, fn):
+        return [fn(t) if j in self.wins else t
+                for j, t in enumerate(self.ins)]
+
+    def unsharded(self):
+        if self.fd:
+            return self.st.launch(self.op, self.ins[0])
+        return self.st.launch(self.kernel, self.ins, self.outs(),
+                              self.params)
+
+    def run(self, kind, ins, outs, x0=0):
+        if self.fd:
+            return self.st.launch_block(self.op, kind, ins[0], outs, x0)
+        return self.st.launch_block(self.kernel, kind, ins, outs,
+                                    self.params, x0)
+
+    def plain(self, ins, pad, x0=0, rows=None):
+        """The plain version on windows ``ins`` padded by ``pad``; the
+        block-wise inputs cut to the ``rows`` x rows from ``x0`` that the
+        windows compute (the interior and shell regions)."""
+        if self.fd:
+            return self.st.plain(self.op, ins[0], pad=pad)
+        if rows is not None:
+            ins = [t if j in self.wins else t[:, x0:x0 + rows]
+                   for j, t in enumerate(ins)]
+        return self.st.plain(self.kernel, ins, self.params, pad=pad)
+
+    def region_bytes_ops(self, kind):
+        """Bytes (windows at their padded storage extent, the block-wise
+        inputs and the outputs over the computed region, each once) and
+        operations of one launch of ``kind`` on this lattice."""
+        from pystella_tpu_torch.ops import derivs
+        bits = derivs.PAD_KINDS[kind]
+        h = HALO
+        X, Y, Z = self.shape
+        rows = {"interior": X - 2 * h, "shell": h}.get(kind, X)
+        wrows = {"interior": X, "shell": 3 * h}.get(kind, X + 2 * h)
+        ycols = Y + (2 * h if bits & 2 else 0)
+        item = 4 if self.dtype == torch.float32 else 8
+        region = rows * Y * Z
+        if self.fd:
+            C = self.ins[0].shape[0]
+            out_per_in = FD_OUT_PER_IN[self.op]
+            nbytes = item * (C * wrows * ycols * Z
+                             + round(C * out_per_in) * region)
+            ops = C * FD_OPS_PER_COMPONENT[self.op](h) * region
+        else:
+            F = self.st.F
+            nwin = len(self.wins)
+            nbytes = item * F * (nwin * wrows * ycols * Z
+                                 + (4 - nwin) * region + 4 * region)
+            ops = ops_per_site(self.kernel, self.st) * region
+        return nbytes, ops
+
+
+def sharded_main_tag(name):
+    """The case tag of a sharded kernel's row at the main path's size."""
+    return case_tag(block_of(SHARDED_KIND_MESH[name.split(":")[1]]),
+                    torch.float32)
+
+
+def sharded_kernels_vs_plain(phase, errs):
+    """Each kernel of the sharded tier, on lattices held whole and windows
+    built by hand from their own periodic rows: the padded launches
+    (``xpad``, ``ypad``, ``xypad``) vs their plain versions and bit for bit
+    vs the unsharded kernel; the interior launch (on the raw block) and the
+    two x-shell launches (on ``concat(halo, 2h rows)``) vs their plain
+    versions, and together bit for bit vs the x-padded launch. At the
+    block each kind runs on in the 512^3 sharded paths (f32), and at
+    48x40x36 in f32 and f64. Rows go to ``errs["<name>:<kind>"]``."""
+    from pystella_tpu_torch.ops import derivs
+    h = HALO
+    names = sorted({n.split(":")[0] for n in sharded_kernel_names()})
+    cases = [(block_of(SHARDED_KIND_MESH[k]), torch.float32, (k,))
+             for k in ("xpad", "ypad", "xypad")]
+    cases[0] = cases[0][:2] + (("xpad", "interior", "shell"),)
+    cases += [(ALT_SHAPES[1], dtype, tuple(derivs.PAD_KINDS))
+              for dtype in (torch.float32, torch.float64)]
+    for seed, kernel in enumerate(names):
+        for shape, dtype, kinds in cases:
+            case = ShardedCase(kernel, shape, dtype, 70 + seed)
+            ref = case.unsharded()
+            rows = {}
+            for kind in kinds:
+                if kind in ("interior", "shell"):
+                    continue
+                bits = derivs.PAD_KINDS[kind]
+                pad = (h if bits & 1 else 0, h if bits & 2 else 0)
+                ins = case.windows(lambda t: pad_periodic(t, *pad))
+                outs = case.run(kind, ins, case.outs())
+                torch.cuda.synchronize()
+                plain = case.plain(ins, pad)
+                n = len(plain)
+                errs_ = [rel_err(o, p) for o, p in zip(outs[:n], plain)]
+                rows[kind] = {
+                    "max_rel_err": max(e for e, _ in errs_),
+                    "max_abs_err": max(a for _, a in errs_),
+                    "tol": KERNEL_TOL[dtype],
+                    "bitwise_unsharded_kernel": all(
+                        torch.equal(o, r) for o, r in zip(outs, ref))}
+                del ins, plain
+                if kind == "xpad":
+                    xpad_outs = outs
+                else:
+                    del outs
+            if "interior" in kinds:
+                X = shape[0]
+                outs = case.outs()
+                ins_lo = case.windows(lambda t: pad_periodic(t, h, 0)[
+                    :, :3 * h].contiguous())
+                ins_hi = case.windows(lambda t: pad_periodic(t, h, 0)[
+                    :, X - h:X + 2 * h].contiguous())
+                case.run("interior", case.ins, outs, x0=h)
+                case.run("shell", ins_lo, outs, x0=0)
+                case.run("shell", ins_hi, outs, x0=X - h)
+                torch.cuda.synchronize()
+                n = len(outs)
+                bitwise = all(torch.equal(o, r)
+                              for o, r in zip(outs, xpad_outs))
+                for kind, ins, pieces in (
+                        ("interior", case.ins, [(h, X - h)]),
+                        ("shell", None, [(0, h), (X - h, X)])):
+                    errs_ = []
+                    for (a, b), wins in zip(
+                            pieces, [ins] if ins is not None
+                            else [ins_lo, ins_hi]):
+                        plain = case.plain(wins, (h, 0), a, b - a)
+                        errs_ += [rel_err(o[:, a:b] if o.ndim == 4 else
+                                          o[:, :, a:b], p)
+                                  for o, p in zip(outs, plain)]
+                    rows[kind] = {
+                        "max_rel_err": max(e for e, _ in errs_),
+                        "max_abs_err": max(a for _, a in errs_),
+                        "tol": KERNEL_TOL[dtype],
+                        "interior_and_shells_bitwise_xpad": bitwise}
+                del outs, xpad_outs, ins_lo, ins_hi
+            for kind, row in rows.items():
+                name = f"{kernel}:{kind}"
+                errs.setdefault(name, {})[case_tag(shape, dtype)] = row
+                emit({"phase": phase, "kernel": name, "shape": shape,
+                      "dtype": str(dtype), **row})
+                exact = row.get("bitwise_unsharded_kernel",
+                                row.get("interior_and_shells_bitwise_xpad"))
+                if not (row["max_rel_err"] <= KERNEL_TOL[dtype] and exact):
+                    raise SystemExit(f"{name} disagrees at {shape} "
+                                     f"{dtype}: {row}")
+            del case, ref
+            torch.cuda.empty_cache()
+
+
+def time_sharded_kernels(phase, timing):
+    """Each kernel of the sharded tier at the block its kind runs on in the
+    512^3 paths (the interior and one shell launch alone): CUDA-event ms
+    over 20 launches, its plain version, and the bound (the windows at
+    their padded storage extent, the block-wise inputs and the outputs
+    over the computed region, each once, over the HBM rate, against the
+    operations over the f32 peak)."""
+    from pystella_tpu_torch.ops import derivs
+    h = HALO
+    for seed, name in enumerate(sharded_kernel_names()):
+        kernel, kind = name.split(":")
+        bits = derivs.PAD_KINDS[kind]
+        shape = block_of(SHARDED_KIND_MESH[kind])
+        case = ShardedCase(kernel, shape, torch.float32, 90 + seed)
+        X = shape[0]
+        if kind == "interior":
+            ins, x0, pad = case.ins, h, (h, 0)
+        elif kind == "shell":
+            ins = case.windows(lambda t: pad_periodic(t, h, 0)[
+                :, :3 * h].contiguous())
+            x0, pad = 0, (h, 0)
+        else:
+            pad = (h if bits & 1 else 0, h if bits & 2 else 0)
+            ins, x0 = case.windows(lambda t: pad_periodic(t, *pad)), 0
+        outs = case.outs()
+        ms = cuda_ms(lambda: case.run(kind, ins, outs, x0), reps=20,
+                     warmup=2)
+        rows = {"interior": X - 2 * h, "shell": h}.get(kind)
+        plain_ms = cuda_ms(lambda: case.plain(ins, pad, x0, rows), reps=3)
+        nbytes, ops = case.region_bytes_ops(kind)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_F32_OPS * 1e3
+        bound = max(bytes_ms, ops_ms)
+        timing[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": "bytes" if bytes_ms >= ops_ms
+                        else "operations", "bytes": nbytes, "ops": ops,
+                        "share_of_bound": bound / ms,
+                        "region_rows": rows or X}
+        emit({"phase": phase, "kernel": name, "block": shape,
+              "dtype": "torch.float32", **timing[name]})
+        del case, ins, outs
+        torch.cuda.empty_cache()
+
+
+def host_block(ref, decomp, r):
+    """Rank ``r``'s block of a whole host tensor, on the card."""
+    lat = decomp.rank_shape(tuple(ref.shape[-3:]))
+    idx = [slice(None)] * (ref.ndim - 3) + [
+        slice(i * n, (i + 1) * n) for i, n in zip(decomp.coords(r), lat)]
+    return ref[tuple(idx)].to("cuda")
+
+
+def equals_whole(sharded, ref):
+    """Every block of a ShardedArray equals its slab of the whole tensor
+    ``ref`` (on the host or the card), bit for bit."""
+    return all(torch.equal(b, host_block(ref, sharded.decomp, r))
+               for r, b in enumerate(sharded.blocks))
+
+
+def sharded_expected(st, nsteps_list):
+    """Launches by counted name of ``multi_step`` runs of ``nsteps_list``
+    on a sharded stepper: each launch of the plan once per block per kind
+    (the overlapped path: an interior and two shells)."""
+    names = {r: st._KERNEL[k] for r, k in st._ROLE.items()
+             if k in st._KERNEL}
+    out = {}
+    for n in nsteps_list:
+        for role, c in schedule(st, n).items():
+            for kind, m in st.sharded_kinds().items():
+                key = names[role] + ("" if kind is None else f":{kind}")
+                out[key] = out.get(key, 0) + c * m * st.decomp.nshards
+    return out
+
+
+def sharded_paths(make_state, ref_final, launches):
+    """The scalar hot loop on each of SHARDED_CONFIGS, every shard on the
+    one card, from the preheat path's initial state: ``multi_step`` 10
+    warm-up + 10 timed + 1 steps (the preheat cell's run), its launches
+    against the plan and the mesh, its final state bit for bit against the
+    single-device path's (``ref_final``, on the host); then every operator
+    of FiniteDifferencer on the final state, sharded, bit for bit against
+    the single-device operator. The first SHARDED_TIMED configurations are
+    the sharded main paths (phase ``sharded_main_path``: ms/step against
+    the preheat cell's in this run, exchanged bytes, memory); every one
+    has a ``sharded_identity`` row."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import derivs
+    from pystella_tpu_torch.ops import fused as tfused
+    sector = pt.ScalarSector(2, potential=potential)
+    sites = math.prod(GRID)
+    dt = 0.1 * BOX / GRID[0]
+    args = {"a": 1.0, "hubble": 0.5}
+    preheat_ms = PATH_ROWS["main_path"]["ms_per_step"]
+    fd = pt.FiniteDifferencer(HALO, WAVE_BOX / GRID[0])
+    ops = ("lap", "grad", "grad_lap", "pdx", "pdy", "pdz")
+    emit({"phase": "sharded_meshes", "configs": [
+        {"mesh": m, "overlap": o, "devices": [
+            str(d) for d in pt.DomainDecomposition(m).devices]}
+        for m, o in SHARDED_CONFIGS]})
+    for i, (mesh, overlap) in enumerate(SHARDED_CONFIGS):
+        decomp = pt.DomainDecomposition(mesh)
+        st = pt.FusedScalarStepper(sector, GRID, BOX / GRID[0], HALO,
+                                   dtype=torch.float32, decomp=decomp,
+                                   overlap=overlap)
+        whole = make_state()
+        state = {k: decomp.shard(v) for k, v in whole.items()}
+        del whole
+        expected = sharded_expected(st, (NSTEPS, NSTEPS, 1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated() - sum(
+            b.numel() * b.element_size() for v in state.values()
+            for b in v.blocks)
+        tfused.reset_launch_counts()
+        state = st.multi_step(state, NSTEPS, 0.0, dt, args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        bytes0 = decomp.bytes_exchanged
+        host0 = time.perf_counter()
+        start.record()
+        state = st.multi_step(state, NSTEPS, 0.0, dt, args)
+        end.record()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - host0
+        elapsed = start.elapsed_time(end) / 1e3
+        step_bytes = (decomp.bytes_exchanged - bytes0) / NSTEPS
+        state = st.multi_step(state, 1, 0.0, dt, args)
+        torch.cuda.synchronize()
+        path_launches = {k: v for k, v in tfused.LAUNCHES.items() if v}
+        for name, c in path_launches.items():
+            launches.setdefault(name, c)
+        bitwise = {k: equals_whole(state[k], ref_final[k])
+                   for k in ref_final}
+        finite = all(bool(torch.isfinite(b).all())
+                     for v in state.values() for b in v.blocks)
+        ms = elapsed / NSTEPS * 1e3
+        report = st.kernel_tier_report()
+        row = {"grid": GRID, "dtype": "torch.float32", "mesh": mesh,
+               "overlap_requested": overlap,
+               "launch_kinds": {str(k): m for k, m in
+                                st.sharded_kinds().items()},
+               "devices": [str(d) for d in decomp.devices],
+               "nsteps_timed": NSTEPS, "ms_per_step": ms,
+               "site_updates_per_s": sites * NSTEPS / elapsed,
+               "ms_per_step_vs_preheat": ms / preheat_ms,
+               "preheat_ms_per_step": preheat_ms, "host_s": host_s,
+               "launches": path_launches, "expected_launches": expected,
+               "exchanged_bytes_per_step": step_bytes,
+               "traced_halo_bytes": decomp.traced_halo_bytes(),
+               "tier_report": report,
+               "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30,
+               "path_memory_GiB": (torch.cuda.max_memory_allocated()
+                                   - held_before) / 2**30,
+               "finite": finite, "bitwise_single_device": bitwise}
+        if i < SHARDED_TIMED:
+            emit({"phase": "sharded_main_path", **row})
+            PATH_ROWS[f"sharded_main_path{mesh}{overlap}"] = row
+        if path_launches != expected:
+            raise SystemExit(f"sharded path {mesh} overlap={overlap} "
+                             f"launched {path_launches}, not {expected}")
+        # every operator of the final state, sharded vs single-device
+        sfd = pt.FiniteDifferencer(HALO, WAVE_BOX / GRID[0], decomp=decomp,
+                                   overlap=overlap)
+        derivs.reset_launch_counts()
+        f1 = ref_final["f"].to("cuda")
+        fd_bitwise = {}
+        grads = None
+        for op in ops:
+            got, want = getattr(sfd, op)(state["f"]), getattr(fd, op)(f1)
+            if op == "grad_lap":
+                fd_bitwise[op] = (equals_whole(got[0], want[0])
+                                  and equals_whole(got[1], want[1]))
+            else:
+                fd_bitwise[op] = equals_whole(got, want)
+            if op == "grad":
+                grads = (got, want)
+            del got, want
+        fd_bitwise["divergence"] = equals_whole(
+            sfd.divergence(grads[0]), fd.divergence(grads[1]))
+        torch.cuda.synchronize()
+        fd_launches = {k: v for k, v in derivs.LAUNCHES.items()
+                       if v and ":" in k}
+        for name, c in fd_launches.items():
+            launches.setdefault(name, c)
+        del f1, grads, sfd
+        emit({"phase": "sharded_identity", "mesh": mesh,
+              "overlap_requested": overlap,
+              "devices": [str(d) for d in decomp.devices],
+              "launch_kinds": row["launch_kinds"], "nsteps": 2 * NSTEPS + 1,
+              "bitwise_single_device_preheat": bitwise,
+              "fd_bitwise_single_device": fd_bitwise,
+              "fd_launches": fd_launches, "finite": finite})
+        if not (finite and all(bitwise.values())
+                and all(fd_bitwise.values())):
+            raise SystemExit(f"sharded path {mesh} overlap={overlap} is not "
+                             f"the single-device path: {bitwise} "
+                             f"{fd_bitwise}")
+        del st, state
+        torch.cuda.empty_cache()
+
+
+def device_intervals(events):
+    """Merged (start, end) busy intervals of device events, in us."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    merged = []
+    for s, e in spans:
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return merged
+
+
+def sharded_trace(phase, make_state):
+    """One sharded RK54 step (2 pairs and a stage) under torch.profiler on
+    (2, 1, 1), padded and overlapped: the device time of the exchange
+    copies, of the interior and of the shell launches (in launch order on
+    the compute stream: per launch both blocks' interiors, then their four
+    shells), as shares of the step's device span, and the idle share (1 -
+    the union of busy intervals over the span)."""
+    import pystella_tpu_torch as pt
+    from torch.profiler import ProfilerActivity, profile
+    sector = pt.ScalarSector(2, potential=potential)
+    dt = 0.1 * BOX / GRID[0]
+    args = {"a": 1.0, "hubble": 0.5}
+    for overlap in (False, True):
+        decomp = pt.DomainDecomposition((2, 1, 1))
+        st = pt.FusedScalarStepper(sector, GRID, BOX / GRID[0], HALO,
+                                   dtype=torch.float32, decomp=decomp,
+                                   overlap=overlap)
+        whole = make_state()
+        state = {k: decomp.shard(v) for k, v in whole.items()}
+        del whole
+        state = st.multi_step(state, 1, 0.0, dt, args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state = st.multi_step(state, 1, 0.0, dt, args)
+            torch.cuda.synchronize()
+        # the device's kernels and copies (the profiler also lays the
+        # record_function labels on the device timeline: their spans are
+        # reported apart)
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        labels = [e for e in device if e.name in SHARDED_LABELS]
+        events = sorted((e for e in device if e.name not in SHARDED_LABELS),
+                        key=lambda e: e.time_range.start)
+        if not events:
+            emit({"phase": phase, "overlap": overlap, "device_events": 0,
+                  "idle_share": "not measured"})
+            continue
+        kern = [e for e in events if "pk_fused" in e.name]
+        copies = [e for e in events if "pk_fused" not in e.name]
+        groups = {"halo_exchange": copies}
+        if overlap:
+            per = 3 * decomp.nshards  # an interior and two shells a block
+            groups["interior"] = [e for i, e in enumerate(kern)
+                                  if i % per < decomp.nshards]
+            groups["shells"] = [e for i, e in enumerate(kern)
+                                if i % per >= decomp.nshards]
+        else:
+            groups["padded_launches"] = kern
+        span = (events[-1].time_range.end
+                - min(e.time_range.start for e in events))
+        busy = sum(e - s for s, e in device_intervals(events))
+        emit({"phase": phase, "mesh": (2, 1, 1), "overlap": overlap,
+              "devices": [str(d) for d in decomp.devices],
+              "device_events": len(events), "span_ms": span / 1e3,
+              "busy_ms": busy / 1e3, "idle_share": 1 - busy / span,
+              "busy_ms_by_group": {
+                  g: sum(e.time_range.elapsed_us() for e in evs) / 1e3
+                  for g, evs in groups.items()},
+              "share_of_span_by_group": {
+                  g: sum(e.time_range.elapsed_us() for e in evs) / span
+                  for g, evs in groups.items()},
+              "launches_by_group": {g: len(evs) for g, evs in
+                                    groups.items()},
+              "label_span_ms": {n: sum(e.time_range.elapsed_us()
+                                       for e in labels if e.name == n) / 1e3
+                                for n in sorted({e.name for e in labels})},
+              "copy_event_names": sorted({e.name[:60] for e in copies})})
+        del st, state
+        torch.cuda.empty_cache()
+
+
+def sharded_fd_kernel_time(phase):
+    """``lap`` of a (2, 512^3) f32 field on (2, 1, 1), padded and
+    overlapped (the whole operator: exchange copies and launches), against
+    the single-device ``fd_lap`` in the same run: CUDA-event ms over 20
+    calls."""
+    import pystella_tpu_torch as pt
+    x = fd_input("lap", GRID, torch.float32, 66)
+    fd = pt.FiniteDifferencer(HALO, WAVE_BOX / GRID[0])
+    single_ms = cuda_ms(lambda: fd.lap(x), reps=20, warmup=2)
+    row = {"phase": phase, "shape": tuple(x.shape), "mesh": (2, 1, 1),
+           "dtype": "torch.float32", "fd_lap_ms": single_ms}
+    decomp = pt.DomainDecomposition((2, 1, 1))
+    xs = decomp.shard(x)
+    row["devices"] = [str(d) for d in decomp.devices]
+    for overlap in (False, True):
+        sfd = pt.FiniteDifferencer(HALO, WAVE_BOX / GRID[0], decomp=decomp,
+                                   overlap=overlap)
+        key = "overlapped" if overlap else "padded"
+        row[f"{key}_ms"] = cuda_ms(lambda: sfd.lap(xs), reps=20, warmup=2)
+        row[f"{key}_vs_fd_lap"] = row[f"{key}_ms"] / single_ms
+    emit(row)
+    del x, xs
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1803,6 +2347,10 @@ def main():
 
     pair_final = {k: v.clone() for k, v in main_path(
         "main_path", main_st, bench_state(), timing, launches).items()}
+    # the sharded paths' reference waits on the host (and their initial
+    # state is this one's)
+    preheat_final = on_host(pair_final)
+    preheat_state = bench_state
     torch.cuda.empty_cache()
     chunk_final = {k: v.clone() for k, v in main_path(
         "chunk_main_path", chunk_st, bench_state(), timing, launches).items()}
@@ -2006,14 +2554,29 @@ def main():
     mg_reference("mg_reference")
     mg_main_path("mg_main_path", timing, launches, trace="mg_trace")
 
+    # -- 25. the sharded tier (several shards on the one card): the padded,
+    #        interior and shell launches vs their plain versions and vs the
+    #        unsharded kernels; the sharded hot loop on five meshes, bit for
+    #        bit the preheat path, and the operators on its final state;
+    #        a traced sharded step; the sharded Laplacian's time --------------
+    sharded_kernels_vs_plain("xpad_kernel_vs_plain", errs)
+    time_sharded_kernels("sharded_kernel_time", timing)
+    sharded_paths(preheat_state, preheat_final, launches)
+    del preheat_final
+    sharded_trace("sharded_trace", preheat_state)
+    sharded_fd_kernel_time("sharded_fd_kernel_time")
+
     kernels = []
-    names = list(tfused.LAUNCHES)
-    sites = {**tfused.KERNELS, **new_kernels}
+    sharded = sharded_kernel_names()
+    names = [n for n in tfused.LAUNCHES if n not in sharded]
+    sites = {**tfused.KERNELS, **new_kernels, **tfused.SHARDED_KERNELS,
+             **tderivs.SHARDED_KERNELS}
     main_tag = {name: case_tag(GRID, torch.float32) + (
         ":newton" if name in MG_KERNELS else "")
         for name in names + list(new_kernels)}
-    for name in names + list(new_kernels):
-        src, replaces = sites[name.split(":")[0]]
+    main_tag.update({name: sharded_main_tag(name) for name in sharded})
+    for name in names + list(new_kernels) + sharded:
+        src, replaces = sites.get(name) or sites[name.split(":")[0]]
         t = timing[name]
         main_case = errs[name][main_tag[name]]
         kernels.append({

@@ -11,7 +11,11 @@ finite-difference operators of :class:`FiniteDifferencer` behind the
 generic steppers; and the multigrid solvers (:mod:`.multigrid`:
 :class:`FullApproximationScheme`, :class:`MultiGridSolver` over
 :class:`JacobiIterator` / :class:`NewtonIterator`), on an NVIDIA H100 with
-hand-written CUDA kernels (``ops/csrc``).
+hand-written CUDA kernels (``ops/csrc``). With a
+:class:`DomainDecomposition` (one process driving a grid of devices, several
+shards per card allowed) the fused scalar stepper, :class:`FiniteDifferencer`
+and :class:`Reduction` take :class:`ShardedArray` s: halo-padded and
+overlapped (interior + shell) launches of the same kernels.
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); without CUDA and without that request they raise.
@@ -19,7 +23,8 @@ Entry points run on the GPU unless the caller asks for the CPU
 
 from pystella_tpu_torch._device import resolve_device
 from pystella_tpu_torch.convert import (
-    carry_from_numpy, expansion_from_numpy, state_from_numpy, to_numpy,
+    carry_from_numpy, expansion_from_numpy, shard_state, state_from_numpy,
+    to_numpy,
 )
 from pystella_tpu_torch.field import (
     Call, Constant, DynamicField, Expr, Field, Indexed, Power, Product,
@@ -48,6 +53,9 @@ from pystella_tpu_torch.ops.fused import (
     FusedPreheatStepper, FusedScalarStepper,
 )
 from pystella_tpu_torch.ops.reduction import FieldStatistics, Reduction
+from pystella_tpu_torch.parallel import (
+    DomainDecomposition, HaloShells, ShardedArray,
+)
 from pystella_tpu_torch.step import (
     LowStorageRK3Inhomogeneous, LowStorageRK3PredictorCorrector,
     LowStorageRK3SSP, LowStorageRK3Symmetric, LowStorageRK3Williamson,
@@ -60,7 +68,9 @@ from pystella_tpu_torch.step import (
 
 __all__ = [
     "resolve_device", "state_from_numpy", "carry_from_numpy", "to_numpy",
-    "expansion_from_numpy", "Expansion", "Reduction", "FieldStatistics",
+    "expansion_from_numpy", "shard_state", "DomainDecomposition",
+    "HaloShells", "ShardedArray", "Expansion", "Reduction",
+    "FieldStatistics",
     "Expr", "Constant", "Sum", "Product", "Quotient", "Power", "Call", "Var",
     "Field", "Indexed", "Shifted", "DynamicField", "diff", "evaluate",
     "field_names", "shift_fields", "simplify", "substitute",

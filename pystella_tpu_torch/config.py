@@ -6,8 +6,9 @@ one-line description, and read through :func:`getenv` or :func:`get_int`.
 Reads are live (no caching at import), so a variable set between two
 stepper builds in one process takes effect at the second.
 
-Registered so far: ``PYSTELLA_CHUNK_STAGES`` only (the JAX package's
-autotune table, which may also set the chunk depth there, is not ported).
+Registered so far: ``PYSTELLA_CHUNK_STAGES`` (the JAX package's autotune
+table, which may also set the chunk depth there, is not ported) and
+``PYSTELLA_HALO_OVERLAP`` (:mod:`~pystella_tpu_torch.parallel.overlap`).
 """
 
 from __future__ import annotations
@@ -69,3 +70,7 @@ register("PYSTELLA_CHUNK_STAGES", default="0",
               "RK stages advanced per kernel launch (K10); a depth or model "
               "the kernel cannot take degrades to the pair kernels with a "
               "warning; 0 (default) keeps the pair tier")
+register("PYSTELLA_HALO_OVERLAP", default="auto",
+         help="halo-exchange/compute overlap policy for sharded stencils: "
+              "1/0 force on/off, unset/'auto' enables exactly when the "
+              "mesh shards a lattice axis (parallel.overlap.enabled)")

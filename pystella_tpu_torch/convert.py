@@ -16,10 +16,11 @@ import torch
 
 from pystella_tpu_torch._device import resolve_device, torch_dtype
 from pystella_tpu_torch.models.expansion import Expansion
+from pystella_tpu_torch.parallel.decomp import ShardedArray
 from pystella_tpu_torch.step import LowStorageRK54, _tree_map
 
 __all__ = ["state_from_numpy", "carry_from_numpy", "to_numpy",
-           "expansion_from_numpy"]
+           "expansion_from_numpy", "shard_state"]
 
 
 def _tensor(v, dtype, device):
@@ -43,6 +44,17 @@ def state_from_numpy(state, device=None, dtype=None):
     return {k: _tensor(v, dt, dev) for k, v in state.items()}
 
 
+def shard_state(decomp, state, dtype=None):
+    """A dict of global arrays (numpy; a JAX array through ``np.asarray``
+    by the caller) -> a dict of
+    :class:`~pystella_tpu_torch.parallel.ShardedArray` s over ``decomp``,
+    each block copied to its rank's device, in ``dtype`` (default: the
+    arrays' own; bfloat16 arrays through float32, exactly): the state
+    carrier of a sharded run."""
+    dt = None if dtype is None else torch_dtype(dtype)
+    return {k: decomp.shard(_tensor(v, dt, "cpu")) for k, v in state.items()}
+
+
 def carry_from_numpy(carry, device=None, dtype=None):
     """A ``(state, k)`` carry of array dicts -> the same of tensors."""
     state, k = carry
@@ -62,8 +74,11 @@ def expansion_from_numpy(values, Stepper=LowStorageRK54, dtype=np.float64):
 
 
 def _array(t):
-    """One tensor -> a numpy array. numpy has no bfloat16 (``.numpy()``
-    refuses one), so a bfloat16 tensor is widened to float32, exactly."""
+    """One tensor (or sharded array, gathered) -> a numpy array. numpy has
+    no bfloat16 (``.numpy()`` refuses one), so a bfloat16 tensor is widened
+    to float32, exactly."""
+    if isinstance(t, ShardedArray):
+        return t.decomp.gather_array(t)
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
     t = t.detach().cpu()

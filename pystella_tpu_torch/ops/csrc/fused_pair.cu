@@ -30,6 +30,18 @@
 // L1/L2. Design as in fused_stage.cu: one thread per site, z fastest,
 // periodic wrap by index arithmetic, 64-bit offsets, outputs to separate
 // buffers, -fmad=false, the tensor components one after another.
+//
+// The sharded tier (K3 only: the _xpad, _ypad, _xypad entry points)
+// replaces StreamingStencil._build_xhalo (pystella_tpu/ops/pallas_stencil.py:
+// 789) and, through the interior and shell launches, OverlapStreamingStencil
+// (:931) on _pair_body, as _make_call (pystella_tpu/ops/fused.py:458) runs
+// it on a sharded lattice. The three windows f, dfdt and kf (the JAX pair's
+// windows, pystella_tpu/ops/fused.py:456) are padded along x and/or y by the
+// neighbours' rows and read unwrapped there, at the site and by PkAxpyLoad at
+// every tap (PAD, PkGeom in pk_common.cuh); kdfdt and the outputs are the
+// full block, the region's rows from its first x row. The arithmetic is
+// K3's, so a padded launch equals K3 on the whole lattice bit for bit, and
+// an interior plus two shell launches equal a padded launch.
 #include "pk_common.cuh"
 
 template <typename T>
@@ -39,16 +51,22 @@ struct PkPairParams {
   PkGradWeights<T> g;  // K8 only
 };
 
-template <typename T, typename C, bool GW>
+template <typename T, typename C, bool GW, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
-                     PkPairParams<T> p) {
+                     PkPairParams<T> p, PkGeom g) {
+  static_assert(PAD == 0 || !GW, "the sharded tier pads the scalar pair only");
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int x = blockIdx.z;
   if (z >= Z || y >= Y) return;
-  const int64_t N = (int64_t)X * Y * Z;
+  // the blockwise arrays (kdfdt, the outputs) and the windows (f, dfdt, kf),
+  // each with its own geometry
+  const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
   const int64_t site = ((int64_t)x * Y + y) * Z + z;
+  const int64_t Nw = PAD ? g.Nw : N;
+  const int Yw = PAD ? g.Ys : Y;
+  const int64_t wsite = PAD ? ((int64_t)x * Yw + y) * Z + z : site;
   const T* __restrict__ f = io.in[0];
   const T* __restrict__ dfdt = io.in[1];
   const C* __restrict__ kf = pk_in_as<C>(io, 2);
@@ -63,10 +81,11 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
   T lap[PK_F];
 #pragma unroll
   for (int c = 0; c < PK_F; ++c) {
-    const int64_t i = c * N + site;
-    f0[c] = f[i];
-    lap[c] = pk_lap(PkLoad<T>{f + c * N, Y, Z}, f0[c], x, y, z, X, Y, Z, p.w);
-    kf1[c] = p.A1 * PkCarry<T, C>::load(kf[i]) + p.dt * dfdt[i];
+    const int64_t wi = c * Nw + wsite;
+    f0[c] = f[wi];
+    lap[c] = pk_lap<PAD>(PkLoad<T>{f + c * Nw, Yw, Z}, f0[c], x, y, z, X, Y,
+                         Z, p.w);
+    kf1[c] = p.A1 * PkCarry<T, C>::load(kf[wi]) + p.dt * dfdt[wi];
     f1[c] = f0[c] + p.B1 * kf1[c];
   }
   pk_dvdf<T>(f0, p.a1, p.hubble1, dv);
@@ -76,7 +95,7 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
 #pragma unroll
     for (int c = 0; c < PK_F; ++c) {
       const int64_t i = c * N + site;
-      const T df0 = dfdt[i];
+      const T df0 = dfdt[c * Nw + wsite];
       kdf1[c] = p.A1 * PkCarry<T, C>::load(kdf[i])
                 + p.dt * ((lap[c] - two_hub * df0) - a2 * dv[c]);
       df1[c] = df0 + p.B1 * kdf1[c];
@@ -86,10 +105,10 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
   // the stage-2 Laplacian, from f1 recomposed at every tap
 #pragma unroll
   for (int c = 0; c < PK_F; ++c) {
-    const PkAxpyLoad<T, PkAt<T>, C> load{f + c * N, kf + c * N,
-                                         {dfdt + c * N}, p.B1, p.A1, p.dt,
-                                         Y, Z};
-    lap[c] = pk_lap(load, f1[c], x, y, z, X, Y, Z, p.w);
+    const PkAxpyLoad<T, PkAt<T>, C> load{f + c * Nw, kf + c * Nw,
+                                         {dfdt + c * Nw}, p.B1, p.A1, p.dt,
+                                         Yw, Z};
+    lap[c] = pk_lap<PAD>(load, f1[c], x, y, z, X, Y, Z, p.w);
   }
 
   // stage 2 on the site
@@ -163,9 +182,10 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
 // kdhijdt) device pointers. params: dt, a1, hubble1, A1, B1, a2, hubble2,
 // A2, B2, then the Laplacian weights (pk_lap_weights) and, for GW, the
 // gradient weights (pk_grad_weights).
-template <typename T, typename C, bool GW>
+template <typename T, typename C, bool GW, int PAD = 0>
 static int pk_launch_pair(const void* const* ins, void* const* outs, int X,
-                          int Y, int Z, const double* params, void* stream) {
+                          int Y, int Z, const double* params, void* stream,
+                          PkGeom g = PkGeom{0, 0, 0}) {
   PkPairParams<T> p;
   p.dt = T(params[0]);
   p.a1 = T(params[1]);
@@ -178,10 +198,10 @@ static int pk_launch_pair(const void* const* ins, void* const* outs, int X,
   p.B2 = T(params[8]);
   p.w = pk_lap_weights<T>(params + 9);
   if (GW) p.g = pk_grad_weights<T>(params + 9 + PK_NLAPW);
-  pk_fused_pair_kernel<T, C, GW>
+  pk_fused_pair_kernel<T, C, GW, PAD>
       <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
          (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X,
-                                 Y, Z, p);
+                                 Y, Z, p, g);
   return (int)cudaGetLastError();
 }
 
@@ -196,6 +216,23 @@ static int pk_launch_pair(const void* const* ins, void* const* outs, int X,
     return pk_launch_pair<T, C, GW>(ins, outs, X, Y, Z, params, stream);    \
   }
 
+// The sharded tier: the scalar pair on windows padded along x, y or both
+// (interior and shell launches take the x-padded entry point). Nb, Nw, Ys:
+// PkGeom.
+#define PK_PAIR_PAD_ENTRY(name, T, PAD)                                     \
+  extern "C" int name(const void* const* ins, void* const* outs, int X,     \
+                      int Y, int Z, const double* params, int64_t Nb,       \
+                      int64_t Nw, int Ys, void* stream) {                   \
+    return pk_launch_pair<T, T, false, PAD>(ins, outs, X, Y, Z, params,     \
+                                            stream, PkGeom{Nb, Nw, Ys});    \
+  }
+
+PK_PAIR_PAD_ENTRY(pk_fused_pair_f32_xpad, float, PK_PAD_X)
+PK_PAIR_PAD_ENTRY(pk_fused_pair_f32_ypad, float, PK_PAD_Y)
+PK_PAIR_PAD_ENTRY(pk_fused_pair_f32_xypad, float, PK_PAD_X | PK_PAD_Y)
+PK_PAIR_PAD_ENTRY(pk_fused_pair_f64_xpad, double, PK_PAD_X)
+PK_PAIR_PAD_ENTRY(pk_fused_pair_f64_ypad, double, PK_PAD_Y)
+PK_PAIR_PAD_ENTRY(pk_fused_pair_f64_xypad, double, PK_PAD_X | PK_PAD_Y)
 PK_PAIR_ENTRY(pk_fused_pair_f32, float, float, false)
 PK_PAIR_ENTRY(pk_fused_pair_f64, double, double, false)
 PK_PAIR_ENTRY(pk_fused_pair_f32_bf16, float, __nv_bfloat16, false)

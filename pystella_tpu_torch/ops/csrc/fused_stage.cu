@@ -57,6 +57,17 @@
 // The tensor components are updated one after another, so a thread holds one
 // component's values at a time. K5 writes one partial per term and block (a
 // few MB at 512^3) and reduces them in a second, small launch.
+//
+// The sharded tier (K2 only: the _xpad, _ypad, _xypad entry points)
+// replaces StreamingStencil._build_xhalo (pystella_tpu/ops/pallas_stencil.py:
+// 789) and, through the interior and shell launches, OverlapStreamingStencil
+// (:931) on _scalar_body, as _make_call (pystella_tpu/ops/fused.py:458) runs
+// it on a sharded lattice. The window f is padded along x and/or y by the
+// neighbours' rows and read unwrapped there (PAD, PkGeom in pk_common.cuh);
+// dfdt, kf, kdfdt and the outputs are the full block, the region's rows
+// from its first x row. The arithmetic is K2's, so a padded launch equals K2
+// on the whole lattice bit for bit, and an interior plus two shell launches
+// equal a padded launch.
 #include "pk_common.cuh"
 
 template <typename T>
@@ -66,11 +77,14 @@ struct PkStageParams {
   PkGradWeights<T> g;  // the GW variants only
 };
 
-template <typename T, typename C, typename KD, bool ENERGY, bool GW>
+template <typename T, typename C, typename KD, bool ENERGY, bool GW,
+          int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
                       PkStageParams<T> p, T* __restrict__ partials,
-                      int64_t nblocks) {
+                      int64_t nblocks, PkGeom g) {
+  static_assert(PAD == 0 || (!ENERGY && !GW),
+                "the sharded tier pads the scalar stage only");
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int x = blockIdx.z;
@@ -90,15 +104,19 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
   for (int t = 0; t < PK_NT; ++t) terms[t] = T(0);
 
   if (active) {
-    const int64_t N = (int64_t)X * Y * Z;
+    // the blockwise arrays and the window f, each with its own geometry
+    const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
     const int64_t site = ((int64_t)x * Y + y) * Z + z;
+    const int64_t Nw = PAD ? g.Nw : N;
+    const int Yw = PAD ? g.Ys : Y;
+    const int64_t wsite = PAD ? ((int64_t)x * Yw + y) * Z + z : site;
 
     T fc[PK_F], lap[PK_F], dv[PK_F];
 #pragma unroll
     for (int c = 0; c < PK_F; ++c) {
-      fc[c] = f[c * N + site];
-      lap[c] = pk_lap(PkLoad<T>{f + c * N, Y, Z}, fc[c], x, y, z, X, Y, Z,
-                      p.w);
+      fc[c] = f[c * Nw + wsite];
+      lap[c] = pk_lap<PAD>(PkLoad<T>{f + c * Nw, Yw, Z}, fc[c], x, y, z, X,
+                           Y, Z, p.w);
     }
     pk_dvdf<T>(fc, p.a, p.hubble, dv);
 
@@ -162,10 +180,12 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
 // weights (pk_lap_weights) and, for GW, the gradient weights
 // (pk_grad_weights). With ENERGY, partials holds PK_NT * pk_num_blocks(X, Y,
 // Z) values and sums receives the PK_NT entry-state sums.
-template <typename T, typename C, typename KD, bool ENERGY, bool GW>
+template <typename T, typename C, typename KD, bool ENERGY, bool GW,
+          int PAD = 0>
 static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
                            int Y, int Z, const double* params,
-                           void* partials, void* sums, void* stream) {
+                           void* partials, void* sums, void* stream,
+                           PkGeom g = PkGeom{0, 0, 0}) {
   PkStageParams<T> p;
   p.dt = T(params[0]);
   p.a = T(params[1]);
@@ -174,11 +194,11 @@ static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
   p.B = T(params[4]);
   p.w = pk_lap_weights<T>(params + 5);
   if (GW) p.g = pk_grad_weights<T>(params + 5 + PK_NLAPW);
-  pk_fused_stage_kernel<T, C, KD, ENERGY, GW>
+  pk_fused_stage_kernel<T, C, KD, ENERGY, GW, PAD>
       <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
          (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X,
                                  Y, Z, p, (T*)partials,
-                                 pk_num_blocks(X, Y, Z));
+                                 pk_num_blocks(X, Y, Z), g);
   const int rc = (int)cudaGetLastError();
   if (!ENERGY || rc != 0) return rc;
   return pk_finish_sums<T>(partials, sums, PK_NT, X, Y, Z,
@@ -203,12 +223,28 @@ static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
     return pk_launch_stage<T, C, KD, true, GW>(ins, outs, X, Y, Z, params,  \
                                                partials, sums, stream);     \
   }
+// The sharded tier: the scalar stage on a window padded along x, y or both
+// (interior and shell launches take the x-padded entry point). Nb, Nw, Ys:
+// PkGeom.
+#define PK_STAGE_PAD_ENTRY(name, T, PAD)                                    \
+  extern "C" int name(PK_STAGE_ARGS, int64_t Nb, int64_t Nw, int Ys,       \
+                      void* stream) {                                       \
+    return pk_launch_stage<T, T, T, false, false, PAD>(                     \
+        ins, outs, X, Y, Z, params, nullptr, nullptr, stream,               \
+        PkGeom{Nb, Nw, Ys});                                                \
+  }
 #define PK_BF16 __nv_bfloat16
 
 PK_STAGE_ENTRY(pk_fused_stage_f32, float, float, false)
 PK_STAGE_ENTRY(pk_fused_stage_f64, double, double, false)
 PK_STAGE_ENTRY(pk_fused_stage_f32_bf16, float, PK_BF16, false)
 PK_STAGE_ENTRY(pk_fused_stage_f64_bf16, double, PK_BF16, false)
+PK_STAGE_PAD_ENTRY(pk_fused_stage_f32_xpad, float, PK_PAD_X)
+PK_STAGE_PAD_ENTRY(pk_fused_stage_f32_ypad, float, PK_PAD_Y)
+PK_STAGE_PAD_ENTRY(pk_fused_stage_f32_xypad, float, PK_PAD_X | PK_PAD_Y)
+PK_STAGE_PAD_ENTRY(pk_fused_stage_f64_xpad, double, PK_PAD_X)
+PK_STAGE_PAD_ENTRY(pk_fused_stage_f64_ypad, double, PK_PAD_Y)
+PK_STAGE_PAD_ENTRY(pk_fused_stage_f64_xypad, double, PK_PAD_X | PK_PAD_Y)
 PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f32, float, float, float, false)
 PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f64, double, double, double,
                       false)

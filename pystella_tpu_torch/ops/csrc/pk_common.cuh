@@ -63,6 +63,39 @@ __device__ __forceinline__ int pk_wrap(int i, int n) {
   return i;
 }
 
+// The sharded tier (the halo-input kernel, StreamingStencil.
+// _build_xhalo of pystella_tpu/ops/pallas_stencil.py): a window input may be
+// padded along x (PK_PAD_X) and/or y (PK_PAD_Y) with its neighbours' rows.
+// Along a padded axis a tap is read at its offset from the window's origin
+// and never wrapped; along the others it wraps periodically as before. PAD
+// is a compile-time bit set (0: the unsharded kernels, unchanged).
+#define PK_PAD_X 1
+#define PK_PAD_Y 2
+
+// A neighbour index i along an axis of extent n: wrapped, unless the axis is
+// padded. Unpadded, the call is pk_wrap's on the same expression, so the
+// unsharded kernels compile as they did before the sharded tier.
+template <bool PADDED>
+__device__ __forceinline__ int pk_tap(int i, int n) {
+  if constexpr (PADDED)
+    return i;
+  else
+    return pk_wrap(i, n);
+}
+
+// Geometry of a launch in the sharded tier, passed by value beside X, Y, Z
+// (PkArrays does not grow). The kernel computes an (X, Y, Z) region. Window
+// inputs are read through their storage, whose component stride is Nw and
+// y extent Ys, from pointers the host set to the region's origin (padded
+// rows lie at negative offsets). Blockwise inputs and outputs are the full
+// block (component stride Nb), their pointers set to the region's first x
+// row, so an interior or shell launch writes into the full output block in
+// place. An unpadded launch has Nb = Nw = X * Y * Z and Ys = Y.
+struct PkGeom {
+  int64_t Nb, Nw;
+  int Ys;
+};
+
 // Laplacian weights: w0 = coefs[0] * sum(1/dx^2), and per offset s = 1..H
 // and axis, coefs[s] / dx_axis^2 (host-computed in double, then cast to T,
 // exactly as the JAX body's Python-float coefficients meet an f32 array).
@@ -164,17 +197,19 @@ struct PkAxpyLoad {
 
 // lap = w0 * centre, then for s = 1..H: the x pair, the y pair, the z pair,
 // each as acc + w * (tap(+s) + tap(-s)) -- lap_from_taps term by term.
-template <typename T, typename Load>
+// PAD: the window's padded axes (PK_PAD_X, PK_PAD_Y), read unwrapped.
+template <int PAD = 0, typename T, typename Load>
 __device__ __forceinline__ T pk_lap(const Load& load, T centre, int x, int y,
                                     int z, int X, int Y, int Z,
                                     const PkLapWeights<T>& w) {
+  constexpr bool PX = PAD & PK_PAD_X, PY = PAD & PK_PAD_Y;
   T acc = w.w0 * centre;
 #pragma unroll
   for (int s = 1; s <= PK_H; ++s) {
-    acc = acc + w.wx[s - 1] * (load(pk_wrap(x + s, X), y, z)
-                               + load(pk_wrap(x - s, X), y, z));
-    acc = acc + w.wy[s - 1] * (load(x, pk_wrap(y + s, Y), z)
-                               + load(x, pk_wrap(y - s, Y), z));
+    acc = acc + w.wx[s - 1] * (load(pk_tap<PX>(x + s, X), y, z)
+                               + load(pk_tap<PX>(x - s, X), y, z));
+    acc = acc + w.wy[s - 1] * (load(x, pk_tap<PY>(y + s, Y), z)
+                               + load(x, pk_tap<PY>(y - s, Y), z));
     acc = acc + w.wz[s - 1] * (load(x, y, pk_wrap(z + s, Z))
                                + load(x, y, pk_wrap(z - s, Z)));
   }
@@ -190,18 +225,19 @@ struct PkGradWeights {
 
 // grad per axis: acc = 0, then for s = 1..H acc + w * (tap(+s) - tap(-s)) --
 // grad_from_taps term by term; out[d] is the derivative along axis d.
-template <typename T, typename Load>
+template <int PAD = 0, typename T, typename Load>
 __device__ __forceinline__ void pk_grad(const Load& load, int x, int y,
                                         int z, int X, int Y, int Z,
                                         const PkGradWeights<T>& w,
                                         T (&out)[3]) {
+  constexpr bool PX = PAD & PK_PAD_X, PY = PAD & PK_PAD_Y;
   T gx = T(0), gy = T(0), gz = T(0);
 #pragma unroll
   for (int s = 1; s <= PK_H; ++s) {
-    gx = gx + w.wx[s - 1] * (load(pk_wrap(x + s, X), y, z)
-                             - load(pk_wrap(x - s, X), y, z));
-    gy = gy + w.wy[s - 1] * (load(x, pk_wrap(y + s, Y), z)
-                             - load(x, pk_wrap(y - s, Y), z));
+    gx = gx + w.wx[s - 1] * (load(pk_tap<PX>(x + s, X), y, z)
+                             - load(pk_tap<PX>(x - s, X), y, z));
+    gy = gy + w.wy[s - 1] * (load(x, pk_tap<PY>(y + s, Y), z)
+                             - load(x, pk_tap<PY>(y - s, Y), z));
     gz = gz + w.wz[s - 1] * (load(x, y, pk_wrap(z + s, Z))
                              - load(x, y, pk_wrap(z - s, Z)));
   }

@@ -16,9 +16,19 @@ which a CPU tensor takes. ``mode="roll"`` asks for the JAX package's
 device. Kernel and plain version agree to rounding: both round every
 multiply and add separately (``-fmad=false``), in the same order.
 
-The multi-device variants of the JAX operators (x-padded inputs, the
-interior + shell launches of the halo overlap) wait for the port of the
-domain decomposition.
+With ``decomp=`` (a :class:`~pystella_tpu_torch.parallel.DomainDecomposition`)
+the operators take :class:`~pystella_tpu_torch.parallel.ShardedArray` s and
+run once per block, as the JAX package's ``_pallas_op`` runs them under
+``shard_map``. On an ``(px, py, 1)`` mesh the kernel reads a window padded
+by the neighbours' rows along the sharded axes (``fd_<op>:xpad``, ``:ypad``,
+``:xypad``: the halo-input kernel ``StreamingStencil._build_xhalo``); on an
+x-only mesh with the overlap on (:mod:`~pystella_tpu_torch.parallel.overlap`)
+an interior launch on the raw block and two x-shell launches once the halos
+have landed (``:interior``, ``:shell``: ``OverlapStreamingStencil``), each
+writing its rows of the full output block in place. On a mesh that shards z
+the ``mode="roll"`` bodies run on the padded blocks, as the JAX package's
+halo tier there, and no kernel. Every sharded result equals the unsharded
+operator's bit for bit (the same taps, the same sums).
 """
 
 from __future__ import annotations
@@ -28,8 +38,12 @@ import ctypes
 import numpy as np
 import torch
 
+from torch.profiler import record_function
+
 from pystella_tpu_torch._device import resolve_device
 from pystella_tpu_torch.ops import stencil as _stencil
+from pystella_tpu_torch.parallel import overlap as _overlap
+from pystella_tpu_torch.parallel.decomp import ShardedArray
 
 __all__ = [
     "FirstCenteredDifference", "SecondCenteredDifference",
@@ -46,11 +60,28 @@ _JAX_SITE = "pystella_tpu/ops/derivs.py:354 (FiniteDifferencer._pallas_bodies"
 #: kernel name -> (CUDA source in ops/csrc, the Pallas body it replaces)
 KERNELS = {f"fd_{op}": (_SOURCE, f"{_JAX_SITE}, {op})") for op in OPS}
 
+#: the sharded tier's launches, counted apart as ``<kernel>:<kind>``: on a
+#: window padded along x, y or both, and the overlapped path's interior and
+#: x-shell launches (x-padded windows on a region of the block) -> the bits
+#: of the padded axes (1: x, 2: y)
+PAD_KINDS = {"xpad": 1, "ypad": 2, "xypad": 3, "interior": 1, "shell": 1}
+_XHALO_SITE = "pystella_tpu/ops/pallas_stencil.py:789 (StreamingStencil." \
+    "_build_xhalo, call :840"
+_OVERLAP_SITE = "pystella_tpu/ops/pallas_stencil.py:993 (" \
+    "OverlapStreamingStencil.__call__, class :931"
+#: sharded kernel name -> (CUDA source, the TPU kernel it replaces)
+SHARDED_KERNELS = {
+    f"fd_{op}:{kind}": (_SOURCE, (_OVERLAP_SITE if kind in (
+        "interior", "shell") else _XHALO_SITE) + f"; body fd_{op})")
+    for op in OPS for kind in PAD_KINDS}
+
 #: kernel name -> number of launches since the last reset; the wrapper adds
 #: one where it launches the kernel, and nowhere else
-LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES = {name: 0 for name in list(KERNELS) + list(SHARDED_KERNELS)}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+#: the entry point of each padding (interior and shell: the x-padded one)
+_PAD_SUFFIX = {1: "_xpad", 2: "_ypad", 3: "_xypad"}
 
 
 def reset_launch_counts():
@@ -77,14 +108,18 @@ def build_kernels(h):
     if fns is None:
         lib = _stencil.build_kernels([_SOURCE], kernel_header(h))[_SOURCE]
         fns = {}
+        # in, out0, out1, C, X, Y, Z, weights, [Nb, Nw, Ys], stream
+        base = ([ctypes.c_void_p] * 3 + [ctypes.c_int64]
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         for op in OPS:
             for dtype, suffix in _SUFFIX.items():
-                fn = getattr(lib, f"pk_fd_{op}_{suffix}")
-                # in, out0, out1, C, X, Y, Z, weights, stream
-                fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64]
-                               + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
-                fn.restype = ctypes.c_int
-                fns[op, dtype] = fn
+                for pad, psuffix in [(0, "")] + list(_PAD_SUFFIX.items()):
+                    fn = getattr(lib, f"pk_fd_{op}_{suffix}{psuffix}")
+                    fn.argtypes = base + (
+                        [ctypes.c_int64] * 2 + [ctypes.c_int] if pad
+                        else []) + [ctypes.c_void_p]
+                    fn.restype = ctypes.c_int
+                    fns[op, dtype, pad] = fn
         _LIBS[h] = fns
     return fns
 
@@ -184,9 +219,11 @@ class SecondCenteredDifference(FiniteDifferenceStencil):
 
 
 class FiniteDifferencer:
-    """Gradient, Laplacian and divergence on a periodic lattice held whole
-    on one device. Operators return new tensors; lattice axes trail, and
-    every leading axis is a component axis.
+    """Gradient, Laplacian and divergence on a periodic lattice, held whole
+    on one device or sharded over a
+    :class:`~pystella_tpu_torch.parallel.DomainDecomposition`. Operators
+    return new tensors (or :class:`ShardedArray` s); lattice axes trail,
+    and every leading axis is a component axis.
 
     :arg halo_shape: the stencil radius ``h`` (1..4 -> order 2..8).
     :arg dx: lattice spacing per axis (scalar or 3-tuple).
@@ -194,19 +231,39 @@ class FiniteDifferencer:
         hand-written kernel (built at first use; a kernel that does not
         build or launch raises), on the CPU the kernel's plain version.
         ``"roll"``: the per-axis ``torch.roll`` sums of the JAX package's
-        ``mode="roll"``.
+        ``mode="roll"`` (on a sharded array: the same sums on the padded
+        blocks).
     :arg device: ``None`` (the GPU), ``"cuda"`` or ``"cpu"``, as every
         entry point of the port takes it. The operators take tensors on
-        that device only and raise ``ValueError`` on another.
+        that device only and raise ``ValueError`` on another. With a
+        ``decomp``, its devices (``device`` may name their type).
+    :arg decomp: a :class:`~pystella_tpu_torch.parallel.DomainDecomposition`
+        whose :class:`ShardedArray` s the operators take (they take plain
+        tensors too).
+    :arg overlap: the interior/shell split on x-sharded meshes
+        (:func:`~pystella_tpu_torch.parallel.overlap.enabled`: ``None``
+        reads ``PYSTELLA_HALO_OVERLAP``, auto: on for sharded meshes).
+        Where no split exists (a y- or z-sharded mesh, a block thinner than
+        ``3h`` along x) the padded launch runs, as in the JAX package.
     """
 
     def __init__(self, halo_shape, dx, *,
                  first_stencil_factory=FirstCenteredDifference,
                  stencil_factory=SecondCenteredDifference, mode="kernel",
-                 device=None):
+                 device=None, decomp=None, overlap=None):
         if mode not in ("kernel", "roll"):
             raise ValueError(f"unknown mode {mode}")
+        self.decomp = decomp
+        if decomp is not None:
+            types = {d.type for d in decomp.devices}
+            if len(types) != 1 or (device is not None and torch.device(
+                    device).type not in types):
+                raise ValueError(
+                    f"the decomposition's devices {decomp.devices} are not "
+                    f"all of one type{'' if device is None else ' ' + str(device)}")
+            device = decomp.devices[0]
         self.device = resolve_device(device)
+        self.overlap = _overlap.enabled(decomp, override=overlap)
         self.h = int(halo_shape)
         if np.isscalar(dx):
             dx = (dx,) * 3
@@ -242,11 +299,8 @@ class FiniteDifferencer:
             return [(C // 3,) + lat]
         return [(C,) + lat]
 
-    def launch(self, name, xf):
-        """Operator ``name`` of ``xf``, a contiguous ``(C, X, Y, Z)``
-        tensor (``C = 3 n`` for ``div``): the kernel on a CUDA tensor
-        (counting the launch), the plain version on a CPU tensor. Returns
-        the list of outputs (``grad_lap``: gradient, then Laplacian)."""
+    @staticmethod
+    def _check_operand(name, xf):
         if name not in OPS:
             raise ValueError(f"unknown operator {name}")
         if xf.ndim != 4 or not xf.is_contiguous() \
@@ -256,32 +310,72 @@ class FiniteDifferencer:
                 f"or float64 (C, X, Y, Z) tensor; got {xf.dtype} "
                 f"{tuple(xf.shape)}"
                 f"{'' if xf.is_contiguous() else ' (non-contiguous)'}")
-        C, lat = xf.shape[0], tuple(xf.shape[1:])
-        if name == "div" and C % 3:
+        if name == "div" and xf.shape[0] % 3:
             raise ValueError("divergence takes 3 n components")
-        if xf.device.type == "cuda":
-            X, Y, Z = lat
+
+    def launch(self, name, xf):
+        """Operator ``name`` of ``xf``, a contiguous ``(C, X, Y, Z)``
+        tensor (``C = 3 n`` for ``div``): the kernel on a CUDA tensor
+        (counting the launch), the plain version on a CPU tensor. Returns
+        the list of outputs (``grad_lap``: gradient, then Laplacian)."""
+        self._check_operand(name, xf)
+        C, lat = xf.shape[0], tuple(xf.shape[1:])
+        outs = [torch.empty(s, dtype=xf.dtype, device=xf.device)
+                for s in self._out_shapes(name, C, lat)]
+        return self.launch_block(name, None, xf, outs)
+
+    def launch_block(self, name, kind, win, outs, x0=0):
+        """One launch of the sharded tier (``kind`` in :data:`PAD_KINDS`;
+        ``None``: the unsharded kernel on the whole of ``win``). ``win`` is
+        the window, ``(C, X + 2 hx, Y + 2 hy, Z)`` with ``hx`` (``hy``) the
+        radius ``h`` where ``kind`` pads x (y), else 0: the padded block, or
+        for the overlapped path the raw block (interior) or a ``(C, 3h, Y,
+        Z)`` shell input. The launch computes the ``(X, Y, Z)`` region and
+        writes it into ``outs`` (the full output blocks) from x row ``x0``
+        on. On a CPU tensor the plain version does the same. Counts the
+        launch under ``fd_<name>[:<kind>]``; returns ``outs``."""
+        self._check_operand(name, win)
+        bits = PAD_KINDS[kind] if kind is not None else 0
+        hx, hy = (self.h if bits & 1 else 0), (self.h if bits & 2 else 0)
+        C, Xw, Yw, Z = win.shape
+        X, Y = Xw - 2 * hx, Yw - 2 * hy
+        want = self._out_shapes(name, C, (outs[0].shape[-3], Y, Z))
+        if X < 1 or x0 < 0 or x0 + X > outs[0].shape[-3] or \
+                [tuple(o.shape) for o in outs] != want or any(
+                    o.dtype != win.dtype or o.device != win.device
+                    or not o.is_contiguous() for o in outs):
+            raise ValueError(
+                f"outputs {[tuple(o.shape) for o in outs]} do not hold the "
+                f"region of {X} x rows from row {x0} of {name} on a window "
+                f"{tuple(win.shape)} ({kind or 'unpadded'})")
+        label = f"fd_{name}" + (f":{kind}" if kind else "")
+        if win.device.type == "cuda":
             if X > 65535 or (Y + 7) // 8 > 65535:
-                raise ValueError(f"lattice {lat} exceeds the kernels' "
+                raise ValueError(f"lattice {(X, Y, Z)} exceeds the kernels' "
                                  "launch grid")
-            fn = build_kernels(self.h)[name, xf.dtype]
-            outs = [torch.empty(s, dtype=xf.dtype, device=xf.device)
-                    for s in self._out_shapes(name, C, lat)]
+            fn = build_kernels(self.h)[name, win.dtype, bits]
+            item = win.element_size()
+            Xb = outs[0].shape[-3]
+            optr = [o.data_ptr() + x0 * Y * Z * item for o in outs]
             weights = (ctypes.c_double * len(self._weights))(*self._weights)
-            with torch.cuda.device(xf.device):
-                stream = torch.cuda.current_stream(xf.device).cuda_stream
-                rc = fn(xf.data_ptr(), outs[0].data_ptr(),
-                        outs[1].data_ptr() if len(outs) > 1 else None,
-                        C, X, Y, Z, weights, stream)
+            geom = ((Xb * Y * Z, Xw * Yw * Z, Yw) if bits else ())
+            with torch.cuda.device(win.device):
+                stream = torch.cuda.current_stream(win.device).cuda_stream
+                rc = fn(win.data_ptr() + (hx * Yw + hy) * Z * item, optr[0],
+                        optr[1] if len(optr) > 1 else None, C, X, Y, Z,
+                        weights, *geom, stream)
             if rc != 0:
-                raise RuntimeError(f"fd_{name} kernel launch failed with "
-                                   f"CUDA error {rc}")
-            LAUNCHES[f"fd_{name}"] += 1
+                raise RuntimeError(f"{label} kernel launch failed with CUDA "
+                                   f"error {rc}")
+            LAUNCHES[label] += 1
             return outs
-        if xf.device.type == "cpu":
-            return self.plain(name, xf)
+        if win.device.type == "cpu":
+            res = self.plain(name, win, pad=(hx, hy))
+            for o, r in zip(outs, res):
+                o.narrow(o.ndim - 3, x0, X).copy_(r)
+            return outs
         raise ValueError(f"no finite-difference kernel for device "
-                         f"{xf.device}")
+                         f"{win.device}")
 
     def _pd_plain(self, taps, d):
         """``pd_body`` of the JAX package: offsets accumulated from 0."""
@@ -292,10 +386,17 @@ class FiniteDifferencer:
             acc = acc + c * self._inv_dx[d] * (taps(*plus) - taps(*minus))
         return acc
 
-    def plain(self, name, xf):
+    def plain(self, name, xf, pad=None):
         """The kernel's plain version on ``xf`` (any device): the JAX
-        bodies' sums, term by term, on periodic rolls."""
-        taps = _stencil.RollTaps(xf)
+        bodies' sums, term by term, on periodic rolls -- or, with ``pad =
+        (hx, hy)``, on a window padded by that many rows along x and y
+        (:class:`~pystella_tpu_torch.ops.stencil.PaddedTaps`)."""
+        if pad is None or pad == (0, 0):
+            Taps = _stencil.RollTaps
+        else:
+            def Taps(w):
+                return _stencil.PaddedTaps(w, pad)
+        taps = Taps(xf)
         lap = lambda: _stencil.lap_from_taps(  # noqa: E731
             taps, self.second.coefs, self._inv_dx2)
         grad = lambda: torch.stack(_stencil.grad_from_taps(  # noqa: E731
@@ -313,21 +414,17 @@ class FiniteDifferencer:
         comps = xf.reshape((xf.shape[0] // 3, 3) + tuple(xf.shape[1:]))
         acc = 0
         for d in range(3):
-            td = _stencil.RollTaps(comps[:, d])
+            td = Taps(comps[:, d])
             for s, c in self.first.coefs.items():
                 plus, minus = [0, 0, 0], [0, 0, 0]
                 plus[d], minus[d] = s, -s
                 acc = acc + c * self._inv_dx[d] * (td(*plus) - td(*minus))
         return [acc]
 
-    def _dispatch(self, name, x):
-        """Fold every leading axis (for ``div`` the vector axis too) into
-        one component axis, run the operator, and unfold."""
-        if x.device != self.device:
-            raise ValueError(f"the operand is on {x.device}, but this "
-                             f"FiniteDifferencer runs on {self.device}")
-        if self.mode == "roll":
-            return self._roll_dispatch(name, x)
+    def _fold(self, name, x):
+        """Every leading axis (for ``div`` the vector axis too) folded into
+        one component axis: the contiguous ``(C, X, Y, Z)`` operand and the
+        outer shape the outputs unfold to."""
         if x.ndim < 3 + (name == "div"):
             raise ValueError(f"{name} takes at least "
                              f"{3 + (name == 'div')} axes")
@@ -338,46 +435,137 @@ class FiniteDifferencer:
                 raise ValueError("divergence takes a vector axis of length "
                                  "3 just before the lattice axes")
             outer = outer[:-1]
-        xf = x.reshape((-1,) + lat).contiguous()
+        return x.reshape((-1,) + lat).contiguous(), outer
+
+    def _dispatch(self, name, x):
+        """Fold, run the operator, and unfold."""
+        if isinstance(x, ShardedArray):
+            return self._sharded_dispatch(name, x)
+        if x.device != self.device:
+            raise ValueError(f"the operand is on {x.device}, but this "
+                             f"FiniteDifferencer runs on {self.device}")
+        if self.mode == "roll":
+            return self._roll_dispatch(name, x)
+        xf, outer = self._fold(name, x)
         outs = [o.reshape(outer + tuple(o.shape[1:]))
                 for o in self.launch(name, xf)]
         return tuple(outs) if name == "grad_lap" else outs[0]
 
+    # -- the sharded tier -----------------------------------------------------
+
+    def _sharded_dispatch(self, name, x):
+        """The operator on every block of ``x``, its windows padded by the
+        neighbours' rows (or split into an interior and two x shells), the
+        outputs assembled into :class:`ShardedArray` s."""
+        d = self.decomp
+        if d is None or x.decomp is not d:
+            raise ValueError("a ShardedArray operand needs the "
+                             "FiniteDifferencer of its decomposition "
+                             "(decomp=)")
+        if self.mode == "roll" or d.proc_shape[2] > 1:
+            return self._sharded_roll(name, x)
+        blocks, outer = [], None
+        for b in x.blocks:
+            xf, outer = self._fold(name, b)
+            blocks.append(xf)
+        C, lat = blocks[0].shape[0], tuple(blocks[0].shape[1:])
+        outs = [[torch.empty(s, dtype=b.dtype, device=b.device)
+                 for s in self._out_shapes(name, C, lat)] for b in blocks]
+        kinds = _stencil.launch_kinds(d, self.h, lat, self.overlap)
+        if None in kinds:
+            for b, o in zip(blocks, outs):
+                self.launch_block(name, None, b, o)
+        elif "interior" in kinds:
+            h, X = self.h, lat[0]
+            lows = [b.new_empty((C, 3 * h) + lat[1:]) for b in blocks]
+            highs = [b.new_empty((C, 3 * h) + lat[1:]) for b in blocks]
+            with record_function("halo_overlap"):
+                with d.side_exchange(blocks, lows + highs) as ex:
+                    d.x_shells_into(blocks, lows, highs, h)
+                with record_function("halo_overlap_interior"):
+                    for b, o in zip(blocks, outs):
+                        self.launch_block(name, "interior", b, o, x0=h)
+                ex.wait()
+                with record_function("halo_overlap_shells"):
+                    for lo, hi, o in zip(lows, highs, outs):
+                        self.launch_block(name, "shell", lo, o, x0=0)
+                        self.launch_block(name, "shell", hi, o, x0=X - h)
+        else:
+            (kind,) = kinds
+            padded = d._pad_blocks(
+                blocks, _stencil.sharded_halo(self.h, *d.proc_shape[:2]),
+                None)
+            for p, o in zip(padded, outs):
+                self.launch_block(name, kind, p, o)
+        res = tuple(ShardedArray(
+            [o[j].reshape(outer + tuple(o[j].shape[1:])) for o in outs], d)
+            for j in range(len(outs[0])))
+        return res if name == "grad_lap" else res[0]
+
+    def _sharded_roll(self, name, x):
+        """The ``mode="roll"`` sums on blocks padded by ``h`` along every
+        axis (local wrap along the unsharded ones): a tap is a slice of
+        the padded block, the values those of the unsharded rolls, so the
+        result equals the unsharded roll-mode operator bit for bit."""
+        h = self.h
+        padded = self.decomp.pad_with_halos(x, (h, h, h))
+
+        def shift(p, axis, s):
+            idx = [slice(None)] * p.ndim
+            for a in range(p.ndim - 3, p.ndim):
+                n = p.shape[a] - 2 * h
+                idx[a] = slice(h + s, h + s + n) if a == axis \
+                    else slice(h, h + n)
+            return p[tuple(idx)]
+        res = [self._roll_dispatch(name, p, shift) for p in padded.blocks]
+        if name == "grad_lap":
+            return tuple(ShardedArray([r[j] for r in res], self.decomp)
+                         for j in range(2))
+        return ShardedArray(res, self.decomp)
+
     # -- roll-mode bodies ---------------------------------------------------
 
     @staticmethod
-    def _roll_apply(x, axis, coefs, order, inv_dx):
+    def _roll(x, axis, s):
+        """``x`` shifted by ``s`` along ``axis``: ``result[i] = x[i + s]``,
+        periodically."""
+        return torch.roll(x, -s, axis) if s else x
+
+    @staticmethod
+    def _roll_apply(x, axis, coefs, order, inv_dx, shift):
         sgn = (-1) ** order
         acc = None
         for s, c in sorted(coefs.items()):
             if s == 0:
-                term = c * x
+                term = c * shift(x, axis, 0)
             else:
-                term = c * (torch.roll(x, -s, axis)
-                            + sgn * torch.roll(x, s, axis))
+                term = c * (shift(x, axis, s) + sgn * shift(x, axis, -s))
             acc = term if acc is None else acc + term
         return acc * inv_dx
 
-    def _roll_dispatch(self, name, x):
+    def _roll_dispatch(self, name, x, shift=None):
+        shift = shift or self._roll
         la = x.ndim - 3
         if name == "lap":
             return sum(self._roll_apply(x, la + d, self.second.coefs, 2,
-                                        1 / self.dx[d]**2) for d in range(3))
+                                        1 / self.dx[d]**2, shift)
+                       for d in range(3))
         if name == "grad":
             return torch.stack([
                 self._roll_apply(x, la + d, self.first.coefs, 1,
-                                 1 / self.dx[d]) for d in range(3)], dim=la)
+                                 1 / self.dx[d], shift)
+                for d in range(3)], dim=la)
         if name == "grad_lap":
-            return (self._roll_dispatch("grad", x),
-                    self._roll_dispatch("lap", x))
+            return (self._roll_dispatch("grad", x, shift),
+                    self._roll_dispatch("lap", x, shift))
         if name in ("pdx", "pdy", "pdz"):
             d = OPS.index(name) - 3
             return self._roll_apply(x, la + d, self.first.coefs, 1,
-                                    1 / self.dx[d])
+                                    1 / self.dx[d], shift)
         if name == "div":
             return sum(self._roll_apply(
                 x.select(la - 1, d), la - 1 + d, self.first.coefs, 1,
-                1 / self.dx[d]) for d in range(3))
+                1 / self.dx[d], shift) for d in range(3))
         raise ValueError(name)
 
     # -- public operators ---------------------------------------------------

@@ -38,6 +38,19 @@ Every kernel also comes with ``carry_dtype=torch.bfloat16``: the same kernel
 storing the k-carries in bfloat16 (widened on load, rounded on store, the
 energy sums taken from the widened values), counted as ``<name>:bf16``.
 
+With ``decomp=`` (a :class:`~pystella_tpu_torch.parallel.DomainDecomposition`
+of an ``(px, py, 1)`` mesh) :class:`FusedScalarStepper` steps
+:class:`~pystella_tpu_torch.parallel.ShardedArray` states: per stage the
+window inputs (f; for a pair f, dfdt and kf) are exchanged on a side CUDA
+stream into persistent padded buffers, one launch per block reads them
+(``fused_stage:xpad`` / ``:ypad`` / ``:xypad``, the same for ``fused_pair``:
+the JAX package's halo-input kernel), or, on an x-only mesh with the
+overlap on, an interior launch per block on the raw block runs while the
+x slabs are copied, then two shell launches per block (``:interior``,
+``:shell``: ``OverlapStreamingStencil``). Every sharded launch equals the
+unsharded kernel on the whole lattice bit for bit, so a sharded
+:meth:`~FusedScalarStepper.multi_step` equals the single-device one.
+
 Beside each kernel sits its plain PyTorch version (``_scalar_body``,
 ``_scalar_pair_core``, ``_chunk_body``, ``_esums``, ``_deferred_pair_core``;
 for the GW system ``_preheat_body``, ``_pair_body``, ``_deferred_body``), the
@@ -65,11 +78,15 @@ from pystella_tpu_torch import step as _step
 from pystella_tpu_torch._device import resolve_device, torch_dtype
 from pystella_tpu_torch.ops import codegen as _codegen
 from pystella_tpu_torch.ops import stencil as _stencil
+from torch.profiler import record_function
+
 from pystella_tpu_torch.models.sectors import tensor_index
-from pystella_tpu_torch.ops.derivs import _grad_coefs, _lap_coefs
+from pystella_tpu_torch.ops.derivs import _grad_coefs, _lap_coefs, PAD_KINDS
+from pystella_tpu_torch.parallel import overlap as _overlap
+from pystella_tpu_torch.parallel.decomp import ShardedArray
 
 __all__ = ["FusedScalarStepper", "FusedPreheatStepper", "LAUNCHES",
-           "reset_launch_counts", "KERNELS", "SUM_SETS"]
+           "reset_launch_counts", "KERNELS", "SHARDED_KERNELS", "SUM_SETS"]
 
 #: kernel name -> (CUDA source in ops/csrc, the Pallas body it replaces)
 KERNELS = {
@@ -162,12 +179,30 @@ BF16 = ":bf16"
 _FINALIZED = ("fused_stage_energy", "preheat_stage_energy")
 FIN = "_fin"
 
-#: kernel name (and ``<name>:bf16``) -> number of launches since the last
-#: reset; each wrapper adds one where it launches its kernel, and nowhere
-#: else
+#: the kernels of the sharded tier and, per kernel, which of its lattice
+#: inputs are windows (read with a halo: padded on a sharded mesh); the
+#: others, and the outputs, are read and written at the site only
+#: (pystella_tpu/ops/fused.py:426-456)
+_WINDOWS = {"fused_stage": (0,), "fused_pair": (0, 1, 2)}
+#: sharded kernel name (``<kernel>:<kind>``, ``kind`` in
+#: :data:`~pystella_tpu_torch.ops.derivs.PAD_KINDS`) -> (CUDA source, the
+#: TPU kernel it replaces)
+SHARDED_KERNELS = {
+    f"{name}:{kind}": (KERNELS[name][0], (
+        "pystella_tpu/ops/pallas_stencil.py:993 (OverlapStreamingStencil."
+        "__call__, class :931" if kind in ("interior", "shell") else
+        "pystella_tpu/ops/pallas_stencil.py:789 (StreamingStencil."
+        "_build_xhalo, call :840") + f"; body {KERNELS[name][1]})")
+    for name in _WINDOWS for kind in PAD_KINDS}
+#: the entry point of each padding (interior and shell: the x-padded one)
+_PAD_SUFFIX = {1: "_xpad", 2: "_ypad", 3: "_xypad"}
+
+#: kernel name (and ``<name>:bf16``, and the sharded ``<name>:<kind>``) ->
+#: number of launches since the last reset; each wrapper adds one where it
+#: launches its kernel, and nowhere else
 LAUNCHES = {name: 0 for name in
             list(KERNELS) + [n + BF16 for n in KERNELS]
-            + [n + BF16 + FIN for n in _FINALIZED]}
+            + [n + BF16 + FIN for n in _FINALIZED] + list(SHARDED_KERNELS)}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -240,6 +275,23 @@ class FusedScalarStepper(_step.Stepper):
         as on the GPU.
     :arg device: ``None`` (the GPU), ``"cuda"`` or ``"cpu"``. On a CUDA
         device the kernels are built here (first use; cached on disk).
+    :arg decomp: a :class:`~pystella_tpu_torch.parallel.DomainDecomposition`
+        of an ``(px, py, 1)`` mesh: the states are then dicts of
+        :class:`~pystella_tpu_torch.parallel.ShardedArray` s (see
+        :func:`~pystella_tpu_torch.convert.shard_state`), and the stepper
+        runs on the decomposition's devices. :meth:`stage`,
+        :meth:`stage_pair`, :meth:`step`, :meth:`multi_step` and
+        :meth:`multi_step_fn` take them; a chunk request runs pairs (the
+        JAX package's rule: a chunk's windows would need wider halos);
+        :meth:`coupled_multi_step` and ``carry_dtype`` wait for a later
+        slice of the port (ROADMAP queue 1 item 6) and raise
+        ``NotImplementedError``.
+    :arg overlap: on an x-only mesh, split every launch into an interior
+        launch that runs while the halos are copied and two x-shell
+        launches (:func:`~pystella_tpu_torch.parallel.overlap.enabled`:
+        ``None`` reads ``PYSTELLA_HALO_OVERLAP``, auto on for sharded
+        meshes); bit-exact with the padded launch, which runs where no
+        split exists (a y-sharded mesh, a block thinner than ``3h``).
 
     States are dicts ``{"f": (F, X, Y, Z), "dfdt": (F, X, Y, Z)}``. A stencil
     cannot write its own input, so every launch writes into one of two
@@ -267,8 +319,27 @@ class FusedScalarStepper(_step.Stepper):
 
     def __init__(self, sector, grid_shape, dx, halo_shape=2, tableau=None,
                  dtype=torch.float32, dt=None, pair_stages=True,
-                 carry_dtype=None, chunk_stages=None, device=None):
+                 carry_dtype=None, chunk_stages=None, device=None,
+                 decomp=None, overlap=None):
+        self.decomp = decomp
+        if decomp is not None:
+            if decomp.proc_shape[2] != 1:
+                raise NotImplementedError(
+                    "fused steppers support x/y sharding (proc_shape "
+                    "(px, py, 1)); the z axis is the VMEM lane dimension "
+                    "(kept whole per device) -- use the generic LowStorageRK "
+                    "steppers with FiniteDifferencer for z-sharded meshes "
+                    "(pystella_tpu.advise_shapes lists which meshes keep "
+                    "the fused tier available)")
+            types = {d.type for d in decomp.devices}
+            if len(types) != 1 or (device is not None and torch.device(
+                    device).type not in types):
+                raise ValueError(f"the decomposition's devices "
+                                 f"{decomp.devices} are not all of one type"
+                                 f"{'' if device is None else ' ' + str(device)}")
+            device = decomp.devices[0]
         self.device = resolve_device(device)
+        self._overlap = _overlap.enabled(decomp, override=overlap)
         tableau = tableau or _step.LowStorageRK54
         self._A = tableau._A
         self._B = tableau._B
@@ -280,6 +351,9 @@ class FusedScalarStepper(_step.Stepper):
         self.grid_shape = tuple(int(n) for n in grid_shape)
         if len(self.grid_shape) != 3:
             raise ValueError("grid_shape must have three axes")
+        #: the lattice of one block (the whole lattice when unsharded)
+        self.local_shape = (self.grid_shape if decomp is None
+                            else decomp.rank_shape(self.grid_shape))
         if np.isscalar(dx):
             dx = (dx,) * 3
         self.dx = tuple(float(d) for d in dx)
@@ -295,6 +369,10 @@ class FusedScalarStepper(_step.Stepper):
                             f"torch.bfloat16; got {carry_dtype!r}")
         #: the k-carries' storage dtype when it differs from ``dtype``
         self.carry_dtype = None if cd == self.dtype else cd
+        if decomp is not None and self.carry_dtype is not None:
+            raise NotImplementedError(
+                "carry_dtype on a sharded stepper waits for a later slice "
+                "of the port (ROADMAP queue 1 item 6)")
 
         F = sector.nscalars
         self.F = F
@@ -330,6 +408,10 @@ class FusedScalarStepper(_step.Stepper):
         self._maybe_build_chunk(depth)
 
         self._buffers = None  # two sets of arrays, made at first use
+        # the sharded tier's persistent exchange buffers, per window slot
+        # (_WINDOWS) and block: padded windows, or the x shells' inputs
+        self._pad_bufs = {}
+        self._shell_bufs = {}
         self._partials = None  # the sum kernels' per-block scratch
         self._libs = None
         self._num_blocks = None
@@ -408,6 +490,15 @@ class FusedScalarStepper(_step.Stepper):
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
                     fns[name, dtype, cd, fin] = fn
+                # the sharded tier: params, then Nb, Nw, Ys (PkGeom), stream
+                for bits, psuffix in (_PAD_SUFFIX.items()
+                                      if name in _WINDOWS else ()):
+                    fn = getattr(libs[src], f"pk_{name}_{suffix}{psuffix}")
+                    fn.argtypes = argtypes[:-1] + [
+                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_void_p]
+                    fn.restype = ctypes.c_int
+                    fns[name, dtype, bits] = fn
         if self._chunk_depth:
             # the kernel's compile-time tile must be the one chunk_tile
             # predicts (the CPU path's fallback decisions rest on it)
@@ -462,7 +553,7 @@ class FusedScalarStepper(_step.Stepper):
         ref = ins[0]
         for t, c, dt in zip(list(ins) + list(outs), self._comps * 2,
                             tuple(in_dtypes) + self._dtypes):
-            shape = (c,) + self.grid_shape
+            shape = (c,) + self.local_shape
             if (t.device != ref.device or t.dtype != dt
                     or tuple(t.shape) != shape or not t.is_contiguous()):
                 raise ValueError(
@@ -475,7 +566,7 @@ class FusedScalarStepper(_step.Stepper):
         """The sum kernels' scratch: ``nterms`` partials per thread block.
         One buffer serves every launch: each launch's second kernel has
         consumed it before the next launch (same stream) writes it."""
-        X, Y, Z = self.grid_shape
+        X, Y, Z = self.local_shape
         n = nterms * self._num_blocks(X, Y, Z)
         buf = self._partials
         if (buf is None or buf.numel() < n or buf.dtype != ref.dtype
@@ -500,6 +591,8 @@ class FusedScalarStepper(_step.Stepper):
         """
         if name not in self._KERNEL.values():
             raise ValueError(f"{name} is not a kernel of this stepper")
+        if isinstance(ins[0], ShardedArray):
+            return self._launch_sharded(name, ins, outs, params)
         fin = self._finalized(name, ins)
         self._check(ins, outs, self._in_dtypes(fin))
         if len(params) != len(_PARAMS[name]):
@@ -515,9 +608,9 @@ class FusedScalarStepper(_step.Stepper):
                     f"kernel {name} is not built on this stepper (construct "
                     "it with a CUDA device; the coupled pair kernels need a "
                     "hubble-free potential)")
-            X, Y, Z = self.grid_shape
+            X, Y, Z = self.local_shape
             if X > 65535 or (Y + 7) // 8 > 65535:
-                raise ValueError(f"lattice {self.grid_shape} exceeds the "
+                raise ValueError(f"lattice {self.local_shape} exceeds the "
                                  "kernels' launch grid")
             prm = (ctypes.c_double * (len(params) + len(self._weights)))(
                 *params, *self._weights)
@@ -547,25 +640,194 @@ class FusedScalarStepper(_step.Stepper):
 
     def _new_set(self, device):
         """One set of a launch's lattice outputs, in :meth:`_inputs`
-        order and storage dtypes."""
-        return [torch.empty((c,) + self.grid_shape, dtype=d, device=device)
+        order and storage dtypes (``device`` ``"sharded"``: of
+        :class:`ShardedArray` s on the decomposition's devices)."""
+        if device == "sharded":
+            return [ShardedArray(
+                [torch.empty((c,) + self.local_shape, dtype=d, device=dev)
+                 for dev in self.decomp.devices], self.decomp)
                 for c, d in zip(self._comps, self._dtypes)]
+        return [torch.empty((c,) + self.local_shape, dtype=d, device=device)
+                for c, d in zip(self._comps, self._dtypes)]
+
+    @staticmethod
+    def _storages(arrays):
+        return {b.untyped_storage().data_ptr() for a in arrays
+                for b in (a.blocks if isinstance(a, ShardedArray) else [a])}
 
     def _out_set(self, ins):
         """A buffer set sharing no storage with the launch's inputs. The
         sets are made in the outputs' dtypes, so an input in another dtype
         (the velocity carries after a finalize) reuses them."""
-        device = ins[0].device
+        device = ("sharded" if isinstance(ins[0], ShardedArray)
+                  else ins[0].device)
         if self._buffers is None or self._buffers[0] != device:
             self._buffers = None  # release the old sets first
             self._buffers = (device, [self._new_set(device)
                                       for _ in range(2)])
-        used = {t.untyped_storage().data_ptr() for t in ins}
+        used = self._storages(ins)
         for bufs in self._buffers[1]:
-            if not used & {b.untyped_storage().data_ptr() for b in bufs}:
+            if not used & self._storages(bufs):
                 return bufs
         # inputs mixed from both sets: write fresh arrays instead
         return self._new_set(device)
+
+    # -- the sharded tier ------------------------------------------------------
+
+    def launch_block(self, name, kind, ins, outs, params, x0=0):
+        """One launch of the sharded tier on one block: kernel ``name``
+        (a key of :data:`_WINDOWS`) of ``kind`` (a key of
+        :data:`~pystella_tpu_torch.ops.derivs.PAD_KINDS`). ``ins`` are the
+        lattice inputs in kernel order: at the window slots windows ``(F, X
+        + 2 hx, Y + 2 hy, Z)``, ``hx`` (``hy``) the radius where ``kind``
+        pads x (y) -- the padded block, or for the overlapped path the raw
+        block (interior) or an ``(F, 3h, Y, Z)`` shell input --, elsewhere
+        the full block, as ``outs``. The launch computes the ``(X, Y, Z)``
+        region and writes its rows of ``outs`` from x row ``x0`` on: the
+        kernel on CUDA tensors (counted as ``<name>:<kind>``), the plain
+        version on CPU tensors. Returns ``outs``."""
+        wins = _WINDOWS.get(name)
+        if wins is None or name not in self._KERNEL.values():
+            raise ValueError(f"{name} has no sharded launch on this stepper")
+        bits = PAD_KINDS[kind]
+        hx, hy = (self.h if bits & 1 else 0), (self.h if bits & 2 else 0)
+        Xb, Y, Z = self.local_shape
+        Xw, Yw = ins[wins[0]].shape[1:3]
+        X = Xw - 2 * hx
+        dev = ins[0].device
+        for j, t in enumerate(list(ins) + list(outs)):
+            shape = ((self.F, Xw, Yw, Z) if j in wins
+                     else (self.F,) + self.local_shape)
+            if (tuple(t.shape) != shape or t.dtype != self.dtype
+                    or t.device != dev or not t.is_contiguous()):
+                raise ValueError(
+                    f"{name}:{kind} takes contiguous {self.dtype} tensors on "
+                    f"one device, windows {(self.F, Xw, Yw, Z)} and blocks "
+                    f"{(self.F,) + self.local_shape}; got {t.dtype} "
+                    f"{tuple(t.shape)} on {t.device}")
+        if len(ins) != 4 or len(outs) != 4 or Yw - 2 * hy != Y or X < 1 \
+                or x0 < 0 or x0 + X > Xb:
+            raise ValueError(f"{name}:{kind}: a window of {Xw} x {Yw} rows "
+                             f"has no region of {self.local_shape} at x row "
+                             f"{x0}")
+        if dev.type == "cuda":
+            fn = (self._libs or {}).get((name, self.dtype, bits))
+            if fn is None:
+                raise RuntimeError(f"kernel {name} is not built on this "
+                                   "stepper (construct it with a CUDA "
+                                   "device)")
+            item = self.dtype.itemsize
+            woff, boff = (hx * Yw + hy) * Z * item, x0 * Y * Z * item
+            ptrs = ctypes.c_void_p * 4
+            prm = (ctypes.c_double * (len(params) + len(self._weights)))(
+                *params, *self._weights)
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                rc = fn(ptrs(*(t.data_ptr() + (woff if j in wins else boff)
+                               for j, t in enumerate(ins))),
+                        ptrs(*(o.data_ptr() + boff for o in outs)), X, Y, Z,
+                        prm, Xb * Y * Z, Xw * Yw * Z, Yw, stream)
+            if rc != 0:
+                raise RuntimeError(f"{name}:{kind} kernel launch failed "
+                                   f"with CUDA error {rc}")
+            LAUNCHES[f"{name}:{kind}"] += 1
+            return outs
+        if dev.type == "cpu":
+            res = self.plain(name, [t if j in wins else t.narrow(1, x0, X)
+                                    for j, t in enumerate(ins)], params,
+                             pad=(hx, hy))
+            for o, r in zip(outs, res):
+                o.narrow(1, x0, X).copy_(r)
+            return outs
+        raise ValueError(f"no fused kernel for device {dev}")
+
+    def sharded_kinds(self):
+        """The launches one kernel launch of this stepper makes per block,
+        by kind: ``{}`` unsharded; ``{None: 1}`` on a mesh that shards
+        nothing (the unsharded kernels, per block); ``{"interior": 1,
+        "shell": 2}`` on the overlapped path; else the padding's kind."""
+        if self.decomp is None:
+            return {}
+        return _stencil.launch_kinds(self.decomp, self.h, self.local_shape,
+                                     self._overlap)
+
+    def _exchange_buffers(self, cache, slot, shape):
+        """Persistent per-block tensors of ``shape`` for window slot
+        ``slot`` (reused by every launch; the exchange overwrites them)."""
+        bufs = cache.get(slot)
+        if bufs is None or tuple(bufs[0].shape) != shape:
+            bufs = cache[slot] = [
+                torch.empty(shape, dtype=self.dtype, device=dev)
+                for dev in self.decomp.devices]
+        return bufs
+
+    def _launch_sharded(self, name, ins, outs, params):
+        """Kernel ``name`` on every block of the :class:`ShardedArray`
+        inputs ``ins``, into ``outs``: the window inputs exchanged on a side
+        stream into persistent buffers, then one padded launch per block;
+        or, on the overlapped path, the x slabs copied on the side stream
+        while an interior launch per block reads the raw blocks, then two
+        shell launches per block."""
+        d = self.decomp
+        if d is None or any(not isinstance(a, ShardedArray)
+                            or a.decomp is not d for a in list(ins) + outs):
+            raise ValueError("sharded inputs need the stepper of their "
+                             "decomposition (decomp=)")
+        kinds = self.sharded_kinds()
+
+        def blocks(r, subst=None):
+            ins_r = [a.blocks[r] for a in ins]
+            for j, t in (subst or {}).items():
+                ins_r[j] = t
+            return ins_r, [o.blocks[r] for o in outs]
+
+        if None in kinds:
+            for r in range(d.nshards):
+                self.launch(name, *blocks(r), params)
+            return list(outs)
+        wins = _WINDOWS.get(name)
+        if wins is None:
+            raise NotImplementedError(
+                f"{name} on a sharded stepper waits for a later slice of "
+                "the port (ROADMAP queue 1 item 6)")
+        raw = [ins[j] for j in wins]
+        reads = [b for a in raw for b in a.blocks]
+        F, (X, Y, Z), h = self.F, self.local_shape, self.h
+        if "interior" in kinds:
+            shells = [(self._exchange_buffers(self._shell_bufs, (j, 0),
+                                              (F, 3 * h, Y, Z)),
+                       self._exchange_buffers(self._shell_bufs, (j, 1),
+                                              (F, 3 * h, Y, Z)))
+                      for j in wins]
+            with record_function("halo_overlap"):
+                with d.side_exchange(reads, [t for lo, hi in shells
+                                             for t in lo + hi]) as ex:
+                    for a, (lo, hi) in zip(raw, shells):
+                        d.x_shells_into(a.blocks, lo, hi, h)
+                with record_function("halo_overlap_interior"):
+                    for r in range(d.nshards):
+                        self.launch_block(name, "interior", *blocks(r),
+                                          params, x0=h)
+                ex.wait()
+                with record_function("halo_overlap_shells"):
+                    for r in range(d.nshards):
+                        for side, x0 in ((0, 0), (1, X - h)):
+                            self.launch_block(name, "shell", *blocks(r, {
+                                j: sh[side][r] for j, sh in zip(wins, shells)
+                            }), params, x0=x0)
+            return list(outs)
+        (kind,) = kinds
+        halo = _stencil.sharded_halo(h, *d.proc_shape[:2])
+        pads = [self._exchange_buffers(self._pad_bufs, j, (
+            F, X + 2 * halo[0], Y + 2 * halo[1], Z)) for j in wins]
+        with d.side_exchange(reads, [t for p in pads for t in p]) as ex:
+            for a, p in zip(raw, pads):
+                d.pad_into(a.blocks, p, halo)
+        ex.wait()
+        for r in range(d.nshards):
+            self.launch_block(name, kind, *blocks(r, {
+                j: p[r] for j, p in zip(wins, pads)}), params)
+        return list(outs)
 
     # -- plain PyTorch versions (the kernels' arithmetic) --------------------
 
@@ -575,22 +837,30 @@ class FusedScalarStepper(_step.Stepper):
         return {n: torch.tensor(v, dtype=ref.dtype, device=ref.device)
                 for n, v in values.items()}
 
-    def plain(self, name, ins, params):
+    def plain(self, name, ins, params, pad=None):
         """Kernel ``name``'s plain version on ``ins`` (any device): the
         lattice outputs, then its energy-sum vectors. Carries stored in
         ``carry_dtype`` are widened first and the carry outputs rounded to
         it last, as the kernels load and store them (in PyTorch a 0-d
         float32 scalar times a bfloat16 tensor stays bfloat16, so without
-        the widening the arithmetic would run in bfloat16)."""
+        the widening the arithmetic would run in bfloat16). With ``pad =
+        (hx, hy)`` the window inputs are padded by that many rows along x
+        and y (:class:`~pystella_tpu_torch.ops.stencil.PaddedTaps`), the
+        sharded tier's plain version."""
         if name not in self._KERNEL.values():
             raise ValueError(f"{name} is not a kernel of this stepper")
         n = len(ins)
-        res = self._plain(name, [t.to(self.dtype) for t in ins], params)
+        taps = _stencil.RollTaps
+        if pad is not None and tuple(pad) != (0, 0):
+            def taps(w):
+                return _stencil.PaddedTaps(w, pad)
+        res = self._plain(name, [t.to(self.dtype) for t in ins], params,
+                          taps)
         return [r.to(dt) for r, dt in zip(res[:n], self._dtypes)] + res[n:]
 
-    def _plain(self, name, ins, params):
+    def _plain(self, name, ins, params, taps=_stencil.RollTaps):
         sc = self._scalars(dict(zip(_PARAMS[name], params)), ins[0])
-        R = _stencil.RollTaps
+        R = taps
         if name == "fused_chunk":
             outs = self._chunk_body(ins, sc, self._chunk_depth)
             keys = ("f", "dfdt", "kf", "kdfdt")
@@ -836,8 +1106,12 @@ class FusedScalarStepper(_step.Stepper):
         """``(state, k)`` with zero k-carries, stored in ``carry_dtype``
         when one is set."""
         cd = self.carry_dtype
-        k = {n: torch.zeros_like(v) if cd is None
-             else torch.zeros_like(v, dtype=cd) for n, v in state.items()}
+
+        def zeros(v):
+            return (torch.zeros_like(v) if cd is None
+                    else torch.zeros_like(v, dtype=cd))
+        k = {n: v.map(zeros) if isinstance(v, ShardedArray) else zeros(v)
+             for n, v in state.items()}
         return (state, k)
 
     def extract(self, carry):
@@ -850,9 +1124,14 @@ class FusedScalarStepper(_step.Stepper):
         state, k = carry
         ins = [a for y, v in self._SYSTEMS
                for a in (state[y], state[v], k[y], k[v])]
-        if ins[0].device != self.device:
-            raise ValueError(f"state is on {ins[0].device}, but this "
-                             f"stepper runs on {self.device}")
+        if self.decomp is not None:
+            if any(not isinstance(a, ShardedArray) or a.decomp is not
+                   self.decomp for a in ins):
+                raise ValueError("a sharded stepper steps ShardedArrays of "
+                                 "its decomposition (convert.shard_state)")
+        elif isinstance(ins[0], ShardedArray) or ins[0].device != self.device:
+            raise ValueError(f"state is on {getattr(ins[0], 'device', ins[0])}"
+                             f", but this stepper runs on {self.device}")
         return ins
 
     def _carry_of(self, outs):
@@ -931,8 +1210,16 @@ class FusedScalarStepper(_step.Stepper):
         same decisions on the CPU and on the GPU."""
         if not depth:
             return
+        px, py = (1, 1) if self.decomp is None else self.decomp.proc_shape[:2]
         if not self._chunk_supported:
             self._chunk_fallback(f"no chunk body for {type(self).__name__}")
+        elif px > 1 or py > 1:
+            # the JAX package's rule: a chunk would need ceil(depth/2)*h-wide
+            # halos, and the overlap split does not compose with composed-
+            # stage windows -- the sharded hot loop stays on the pair tier
+            self._chunk_fallback(
+                f"sharded mesh ({px},{py}): chunk windows need "
+                "ceil(depth/2)*h-wide halos")
         elif self._A[0] != 0 and depth > self.num_stages:
             self._chunk_fallback(
                 f"tableau A[0] != 0: a depth-{depth} chunk would cross a "
@@ -1008,16 +1295,26 @@ class FusedScalarStepper(_step.Stepper):
             kernels[role] = kernels.get(role, 0) + 1
         D = self._chunk_depth
         tier = "chunk" if D else "pair" if self._pair_stages else "single"
-        return {
+        names = {r: self.counted_name(self._KERNEL[self._ROLE[r]])
+                 for r in kernels}
+        report = {
             "tier": tier,
             "chunk_depth": D or None,
             "kernels_per_2_steps": kernels,
-            "kernel_names": {r: self.counted_name(self._KERNEL[self._ROLE[r]])
-                             for r in kernels},
+            "kernel_names": names,
             "bytes_per_launch": per_launch,
             "bytes_per_step": per_launch * len(plan) // 2,
             "grid_shape": list(self.grid_shape),
         }
+        if self.decomp is not None:
+            # every launch runs on each block, as sharded_kinds says
+            report["proc_shape"] = list(self.decomp.proc_shape)
+            report["sharded_launches_per_2_steps"] = {
+                names[r] + ("" if kind is None else f":{kind}"):
+                    c * m * self.decomp.nshards
+                for r, c in kernels.items()
+                for kind, m in self.sharded_kinds().items()}
+        return report
 
     #: the kernel role (:attr:`_KERNEL`) of each entry of a plan
     _ROLE = {"chunk": "chunk", "pair": "pair", "single": "stage"}
@@ -1300,6 +1597,11 @@ class FusedScalarStepper(_step.Stepper):
 
         The returned tensors are the stepper's buffers (see the class
         docstring)."""
+        if self.decomp is not None:
+            raise NotImplementedError(
+                "coupled_multi_step on a sharded stepper waits for a later "
+                "slice of the port (ROADMAP queue 1 item 6: the padded K5 "
+                "and K6 with per-block sums)")
         dt = _float(dt if dt is not None else self.dt)
         nsteps = int(nsteps)
         if grid_size is None:
@@ -1353,7 +1655,12 @@ class FusedPreheatStepper(FusedScalarStepper):
     def __init__(self, sector, gw_sector, grid_shape, dx, halo_shape=2,
                  tableau=None, dtype=torch.float32, dt=None,
                  pair_stages=True, carry_dtype=None, chunk_stages=None,
-                 device=None):
+                 device=None, decomp=None, overlap=None):
+        if decomp is not None:
+            raise NotImplementedError(
+                "FusedPreheatStepper(decomp=...) waits for a later slice of "
+                "the port (ROADMAP queue 1 item 6: the padded K7, K8, K9 and "
+                "K5')")
         # set before super().__init__, which builds the kernels
         self.gw_sector = gw_sector
         self.n_hij = gw_sector.hij.shape[0]
@@ -1384,9 +1691,9 @@ class FusedPreheatStepper(FusedScalarStepper):
 
     # -- plain PyTorch versions (the kernels' arithmetic) --------------------
 
-    def _plain(self, name, ins, params):
+    def _plain(self, name, ins, params, taps=_stencil.RollTaps):
         sc = self._scalars(dict(zip(_PARAMS[name], params)), ins[0])
-        R = _stencil.RollTaps
+        R = taps
         keys = ("f", "dfdt", "kf", "kdfdt", "hij", "dhijdt", "khij",
                 "kdhijdt")
         if name in ("preheat_stage", "preheat_stage_energy"):

@@ -5,6 +5,11 @@ Each reduction is a plain ``torch`` reduction over the whole lattice tensor
 (the JAX package's are ``jnp`` reductions under ``jit``); results come back
 to the host as numpy values, as there. No Pallas kernel is involved, so
 there is no kernel here either.
+
+A :class:`~pystella_tpu_torch.parallel.ShardedArray` argument is reduced
+block by block, and the per-block partials are combined in rank order (the
+JAX package's reductions over a sharded global array, where XLA inserts
+the cross-device reduce).
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ import numpy as np
 import torch
 
 from pystella_tpu_torch import field as _field
+from pystella_tpu_torch.parallel.decomp import ShardedArray
 
 __all__ = ["Reduction", "FieldStatistics"]
 
@@ -39,6 +45,30 @@ def _normalize_input(input):
 
 def _to_numpy(v):
     return v.detach().cpu().numpy()
+
+
+#: how per-block partials of each op combine
+_COMBINE = {"avg": "sum", "sum": "sum", "prod": "prod", "max": "max",
+            "min": "min"}
+
+
+def _reduce(env, fn, op):
+    """``op``-reduction of ``fn(env)`` over the lattice: directly, or, when
+    ``env`` holds :class:`ShardedArray` s, block by block (a value with no
+    lattice axes once, from rank 0) with the partials combined in rank
+    order."""
+    sharded = [v for v in env.values() if isinstance(v, ShardedArray)]
+    if not sharded:
+        return _OPS[op](torch.as_tensor(fn(env)))
+    decomp = sharded[0].decomp
+    parts = []
+    for r in range(decomp.nshards):
+        arr = torch.as_tensor(fn({k: v.blocks[r] if isinstance(
+            v, ShardedArray) else v for k, v in env.items()}))
+        if arr.ndim < 3:
+            return _OPS[op](arr)
+        parts.append(_OPS[op](arr))
+    return decomp._combine(parts, _COMBINE[op])
 
 
 class Reduction:
@@ -93,10 +123,12 @@ class Reduction:
             vals = []
             for expr, op in entries:
                 if isinstance(expr, _field.Expr):
-                    arr = _field.evaluate(expr, env)
+                    def fn(e, expr=expr):
+                        return _field.evaluate(expr, e)
                 else:
-                    arr = expr(env) if callable(expr) else expr
-                red = _OPS[op](torch.as_tensor(arr))
+                    def fn(e, expr=expr):
+                        return expr(e) if callable(expr) else expr
+                red = _reduce(env, fn, op)
                 if op == "avg":
                     red = red / grid_size
                 vals.append(red)
@@ -111,7 +143,9 @@ class FieldStatistics(Reduction):
     """Mean and variance (plus optional extrema) of a field, per outer-axis
     component.
 
-    Call with ``stats(f=tensor)``; returns a dict with keys ``mean``,
+    Call with ``stats(f=tensor)`` (or a :class:`ShardedArray`, reduced
+    block by block, the partials combined in rank order); returns a dict
+    with keys ``mean``,
     ``variance`` and, if requested, ``max``, ``min``, ``abs_max``,
     ``abs_min``, each a numpy array over the outer axes.
     """
@@ -124,12 +158,24 @@ class FieldStatistics(Reduction):
     def __call__(self, f):
         grid_size = self.grid_size or int(np.prod(f.shape[-3:]))
         lat = (-3, -2, -1)
-        mean = torch.sum(f, dim=lat) / grid_size
-        mean_sq = torch.sum(f * f, dim=lat) / grid_size
+        if isinstance(f, ShardedArray):
+            blocks, combine = f.blocks, f.decomp._combine
+        else:
+            blocks = [f]
+
+            def combine(parts, op):
+                return parts[0]
+
+        def red(fn, op):
+            return combine([fn(b) for b in blocks], op)
+        mean = red(lambda b: torch.sum(b, dim=lat), "sum") / grid_size
+        mean_sq = red(lambda b: torch.sum(b * b, dim=lat), "sum") / grid_size
         out = {"mean": mean, "variance": mean_sq - mean * mean}
         if self.max_min:
-            out["max"] = torch.amax(f, dim=lat)
-            out["min"] = torch.amin(f, dim=lat)
-            out["abs_max"] = torch.amax(torch.abs(f), dim=lat)
-            out["abs_min"] = torch.amin(torch.abs(f), dim=lat)
+            out["max"] = red(lambda b: torch.amax(b, dim=lat), "max")
+            out["min"] = red(lambda b: torch.amin(b, dim=lat), "min")
+            out["abs_max"] = red(lambda b: torch.amax(torch.abs(b), dim=lat),
+                                 "max")
+            out["abs_min"] = red(lambda b: torch.amin(torch.abs(b), dim=lat),
+                                 "min")
         return {k: _to_numpy(v) for k, v in out.items()}

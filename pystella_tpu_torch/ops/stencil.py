@@ -5,7 +5,11 @@ PyTorch counterpart of ``pystella_tpu/ops/pallas_stencil.py``. Two parts:
 - The plain side: :func:`lap_from_taps` and :func:`grad_from_taps` in the
   JAX package's accumulation order, and :class:`RollTaps`, the
   periodic-roll tap accessor the plain PyTorch kernel bodies read from
-  (``taps(sx, sy, sz)[..., i] == f[..., i + s]``, the JAX convention).
+  (``taps(sx, sy, sz)[..., i] == f[..., i + s]``, the JAX convention);
+  :class:`PaddedTaps`, the same on a block padded with its neighbours'
+  rows along the sharded axes (slices there, rolls elsewhere), and
+  :func:`sharded_halo`, the padding a sharded mesh gives the window
+  inputs.
 - The kernel side: :func:`build_kernels` compiles CUDA sources from
   ``ops/csrc`` against a header generated from the model
   (:mod:`~pystella_tpu_torch.ops.codegen`), with ``nvcc`` for ``sm_90a``,
@@ -31,7 +35,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["lap_from_taps", "grad_from_taps", "RollTaps", "build_kernels",
+__all__ = ["lap_from_taps", "grad_from_taps", "RollTaps", "PaddedTaps",
+           "sharded_halo", "launch_kinds", "build_kernels",
            "build_log", "ptxas_usage", "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC_DIR = Path(__file__).resolve().with_name("csrc")
@@ -100,6 +105,61 @@ class RollTaps:
     def component(self, c):
         """The taps of component ``c`` alone, ``(1, X, Y, Z)``."""
         return RollTaps(self._w[c:c + 1])
+
+
+class PaddedTaps(RollTaps):
+    """Taps of a ``(C, X + 2 hx, Y + 2 hy, Z)`` window padded by ``pad =
+    (hx, hy)`` rows along x and y (the neighbours' rows on a sharded
+    mesh): ``taps(sx, sy, sz)`` is the ``(C, X, Y, Z)`` block shifted by
+    ``s``, a slice along a padded axis and a periodic roll along an
+    unpadded one (z always). The values are those :class:`RollTaps` gives
+    on the whole lattice: only the data movement differs, so a plain body
+    on these taps equals the same body on the unsharded lattice bit for
+    bit. The window of an interior or shell launch is such a window too
+    (the raw block, or a shell input, with ``hx = h``)."""
+
+    def __init__(self, w, pad):
+        super().__init__(w)
+        self._pad = (int(pad[0]), int(pad[1]))
+
+    def _shift(self, arr, s, axis, h):
+        if h == 0:
+            return self._roll1(arr, s, axis)
+        n = arr.shape[axis] - 2 * h
+        return arr.narrow(axis, h + s, n)
+
+    def __call__(self, sx=0, sy=0, sz=0):
+        hx, hy = self._pad
+        return self._roll1(self._shift(self._shift(
+            self._w, sx, 1, hx), sy, 2, hy), sz, 3)
+
+    def component(self, c):
+        return PaddedTaps(self._w[c:c + 1], self._pad)
+
+
+def sharded_halo(h, px, py):
+    """Halo widths ``(x, y, z)`` of the window inputs of a stencil on an
+    ``(px, py, 1)`` mesh: the radius ``h`` along each sharded axis, none
+    along the others, which the kernels wrap periodically. (The TPU pads y
+    by the 8-row ``HY`` for its sublane alignment; a CUDA kernel needs
+    no alignment rows.)"""
+    return (h if px > 1 else 0, h if py > 1 else 0, 0)
+
+
+def launch_kinds(decomp, h, block, overlap):
+    """The launches one sharded stencil update makes per block of
+    ``decomp`` (radius ``h``, blocks of lattice shape ``block``), by kind:
+    ``{None: 1}`` on a mesh that shards nothing (the unsharded kernel);
+    ``{"interior": 1, "shell": 2}`` where ``overlap`` is asked for and the
+    JAX package's split exists along x alone; else the padded launch of
+    the sharded axes' kind (``xpad``, ``ypad`` or ``xypad``)."""
+    halo = sharded_halo(h, *decomp.proc_shape[:2])
+    if halo == (0, 0, 0):
+        return {None: 1}
+    if overlap and decomp.split_axes(halo, block) == (0,):
+        return {"interior": 1, "shell": 2}
+    return {("xpad", "ypad", "xypad")[(halo[0] > 0) + 2 * (halo[1] > 0)
+                                      - 1]: 1}
 
 
 # ---------------------------------------------------------------------------

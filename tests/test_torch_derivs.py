@@ -184,7 +184,9 @@ def test_operator_contracts():
     torch.testing.assert_close(fd.lap(xt), fd.lap(xt.contiguous()),
                                rtol=0, atol=0)
     assert fd(x) == {}
-    assert set(derivs.LAUNCHES) == {"fd_" + op for op in derivs.OPS}
+    assert set(derivs.KERNELS) == {"fd_" + op for op in derivs.OPS}
+    assert set(derivs.LAUNCHES) == set(derivs.KERNELS) | {
+        f"fd_{op}:{kind}" for op in derivs.OPS for kind in derivs.PAD_KINDS}
     assert set(derivs.LAUNCHES.values()) == {0}
     with pytest.raises(ValueError):
         fd.divergence(torch.zeros(2, 8, 6, 4, dtype=torch.float64))

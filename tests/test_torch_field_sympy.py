@@ -15,6 +15,17 @@ from pystella_tpu_torch import field_sympy
 sympy = pytest.importorskip("sympy")
 
 
+@pytest.fixture(autouse=True)
+def _jax_registry():
+    """Leave the JAX package's process-wide symbol registry as this file
+    found it empty: a ``Field("f")`` converted here would otherwise collide
+    with a later JAX test's ``Field("f", shape=(3,))`` in the same
+    process."""
+    jax_sympy.reset_field_registry()
+    yield
+    jax_sympy.reset_field_registry()
+
+
 def _value(expr, env):
     return float(pt.evaluate(expr, {k: torch.tensor(v)
                                     for k, v in env.items()}))

@@ -538,12 +538,15 @@ def test_fd_public_operators_on_card(cuda):
     ref = {"lap": fd_cpu.lap(x), "grad": fd_cpu.grad(x),
            "pdx": fd_cpu.pdx(x), "pdy": fd_cpu.pdy(x), "pdz": fd_cpu.pdz(x),
            "divergence": fd_cpu.divergence(x), "g": ref_g, "l": ref_l}
-    assert set(tderivs.LAUNCHES.values()) == {1}
+    unsharded = {k: v for k, v in tderivs.LAUNCHES.items()
+                 if k in tderivs.KERNELS}
+    assert set(unsharded.values()) == {1}
+    assert sum(tderivs.LAUNCHES.values()) == len(unsharded)
     for k in ref:
         assert res[k].shape == ref[k].shape
         assert _rel(res[k], ref[k]) <= 1e-14
     pt.FiniteDifferencer(2, 0.1, mode="roll").lap(xc)
-    assert set(tderivs.LAUNCHES.values()) == {1}
+    assert sum(tderivs.LAUNCHES.values()) == len(unsharded)
 
 
 def _mg_problem(kind):
@@ -824,3 +827,216 @@ def test_nonpoly_kernel_matches_plain(cuda, kernel, dtype):
         scale = term_scale(st, ins[0], ins[1], params[1], params[2])
         err = ((outs[4].double() - plain[4].double()).abs() / scale).max()
         assert err.item() <= SUM_TOL[dtype]
+
+
+# -- the sharded tier: padded, interior and shell launches ------------------
+
+#: the sharded tier's kernels: the fused stage and pair, and the operators
+SHARDED_KERNELS = ["fused_stage", "fused_pair"] + list(tderivs.OPS)
+SHARDED_GRIDS = [(16, 16, 16), (48, 40, 36), (256, 256, 256)]
+SHARDED_IDS = ["16cubed", "48x40x36", "256cubed"]
+
+
+def _pad_periodic(t, hx, hy):
+    """A (..., X, Y, Z) tensor padded by its own periodic rows: what a
+    sharded window holds when one block is the whole lattice."""
+    ax = t.ndim - 3
+    if hx:
+        t = torch.cat([t.narrow(ax, t.shape[ax] - hx, hx), t,
+                       t.narrow(ax, 0, hx)], ax)
+    if hy:
+        t = torch.cat([t.narrow(ax + 1, t.shape[ax + 1] - hy, hy), t,
+                       t.narrow(ax + 1, 0, hy)], ax + 1)
+    return t.contiguous()
+
+
+class _Sharded:
+    """One kernel of the sharded tier on a lattice ``grid`` held whole: its
+    unsharded launch, and the padded, interior or shell launch on windows
+    padded by hand (``run``), with the plain version of the same."""
+
+    def __init__(self, kernel, grid, dtype, device):
+        self.kernel, self.grid, self.dtype = kernel, grid, dtype
+        g = torch.Generator(device=device).manual_seed(5)
+        if kernel in tderivs.OPS:
+            self.st = pt.FiniteDifferencer(H, (0.3, 0.25, 0.2), device=device)
+            self.x = torch.randn((6,) + grid, generator=g, device=device,
+                                 dtype=dtype)
+            self.wins = (0,)
+        else:
+            self.st = pt.FusedScalarStepper(
+                pt.ScalarSector(2, potential=bench_potential), grid,
+                5.0 / grid[0], H, dtype=dtype, device=device)
+            self.x = [a * torch.randn((2,) + grid, generator=g,
+                                      device=device, dtype=dtype)
+                      for a in (1e-3, 1e-4, 1e-5, 1e-3)]
+            self.params = (0.1 * 5.0 / grid[0], 1.0, 0.5, A[1], B[1])
+            if kernel == "fused_pair":
+                self.params += (1.0, 0.5, A[2], B[2])
+            self.wins = tfused._WINDOWS[kernel]
+
+    def outs(self):
+        if self.kernel in tderivs.OPS:
+            C = self.x.shape[0]
+            return [torch.empty(s, dtype=self.dtype, device=self.x.device)
+                    for s in self.st._out_shapes(self.kernel, C, self.grid)]
+        return [torch.empty_like(t) for t in self.x]
+
+    def unsharded(self):
+        if self.kernel in tderivs.OPS:
+            return self.st.launch(self.kernel, self.x)
+        return self.st.launch(self.kernel, self.x, self.outs(), self.params)
+
+    def windows(self, fn):
+        """The inputs with ``fn`` applied to the windows."""
+        if self.kernel in tderivs.OPS:
+            return fn(self.x)
+        return [fn(t) if j in self.wins else t
+                for j, t in enumerate(self.x)]
+
+    def run(self, kind, ins, outs, x0=0):
+        if self.kernel in tderivs.OPS:
+            return self.st.launch_block(self.kernel, kind, ins, outs, x0)
+        return self.st.launch_block(self.kernel, kind, ins, outs,
+                                    self.params, x0)
+
+    def plain(self, ins, pad):
+        if self.kernel in tderivs.OPS:
+            return self.st.plain(self.kernel, ins, pad=pad)
+        return self.st.plain(self.kernel, ins, self.params, pad=pad)
+
+    def counted(self, kind):
+        name = (f"fd_{self.kernel}" if self.kernel in tderivs.OPS
+                else self.kernel)
+        launches = (tderivs.LAUNCHES if self.kernel in tderivs.OPS
+                    else tfused.LAUNCHES)
+        return launches[f"{name}:{kind}"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", SHARDED_GRIDS, ids=SHARDED_IDS)
+@pytest.mark.parametrize("kind", ["xpad", "ypad", "xypad"])
+@pytest.mark.parametrize("kernel", SHARDED_KERNELS)
+def test_padded_kernel_matches_plain_and_unpadded(cuda, kernel, kind, grid,
+                                                  dtype):
+    """A padded launch on a window padded by hand with the lattice's own
+    periodic rows: equal to its plain version, and bit for bit to the
+    unsharded kernel on the whole lattice (a sharded update checked
+    without any exchange); the launch is counted under its kind."""
+    case = _Sharded(kernel, grid, dtype, cuda)
+    bits = tderivs.PAD_KINDS[kind]
+    pad = (H if bits & 1 else 0, H if bits & 2 else 0)
+    ins = case.windows(lambda t: _pad_periodic(t, *pad))
+    before = case.counted(kind)
+    outs = case.run(kind, ins, case.outs())
+    torch.cuda.synchronize()
+    assert case.counted(kind) == before + 1
+    ref = case.unsharded()
+    plain = case.plain(ins, pad)
+    for o, r, p in zip(outs, ref, plain):
+        assert torch.equal(o, r)
+        assert (o - p).abs().max() <= FD_TOL[dtype] * p.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", SHARDED_GRIDS, ids=SHARDED_IDS)
+@pytest.mark.parametrize("kernel", SHARDED_KERNELS)
+def test_interior_and_shells_equal_padded_launch(cuda, kernel, grid, dtype):
+    """An interior launch on the raw block and two x-shell launches on
+    ``concat(halo, 2h rows)`` write the same output block as one x-padded
+    launch, bit for bit, each launch counted under its kind."""
+    case = _Sharded(kernel, grid, dtype, cuda)
+    X, h = grid[0], H
+    padded = case.windows(lambda t: _pad_periodic(t, h, 0))
+    ref = case.run("xpad", padded, case.outs())
+    ax = 1
+    lows = case.windows(lambda t: _pad_periodic(t, h, 0).narrow(
+        ax, 0, 3 * h).contiguous())
+    highs = case.windows(lambda t: _pad_periodic(t, h, 0).narrow(
+        ax, X - h, 3 * h).contiguous())
+    n_int, n_shell = case.counted("interior"), case.counted("shell")
+    outs = case.outs()
+    case.run("interior", case.x, outs, x0=h)
+    case.run("shell", lows, outs, x0=0)
+    case.run("shell", highs, outs, x0=X - h)
+    torch.cuda.synchronize()
+    assert case.counted("interior") == n_int + 1
+    assert case.counted("shell") == n_shell + 2
+    for o, r in zip(outs, ref):
+        assert torch.equal(o, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh,overlap", [((2, 1, 1), False),
+                                          ((2, 1, 1), True),
+                                          ((2, 2, 1), False),
+                                          ((1, 2, 1), False),
+                                          ((4, 1, 1), True)],
+                         ids=["211-padded", "211-overlap", "221", "121",
+                              "411-overlap"])
+def test_sharded_multi_step_on_card(cuda, mesh, overlap):
+    """multi_step(3) on shards that share the card equals the unsharded
+    multi_step bit for bit, through the launches its mesh implies."""
+    grid, dtype = (48, 40, 36), torch.float64
+    sector = pt.ScalarSector(2, potential=bench_potential)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    state = {k: 1e-3 * torch.randn((2,) + grid, generator=g, device=cuda,
+                                   dtype=dtype) for k in ("f", "dfdt")}
+    args = {"a": 1.0, "hubble": 0.5}
+    ref = pt.FusedScalarStepper(sector, grid, 0.1, H, dtype=dtype,
+                                device=cuda).multi_step(
+        _copy(state), 3, 0.0, 0.01, args)
+    decomp = pt.DomainDecomposition(mesh)
+    st = pt.FusedScalarStepper(sector, grid, 0.1, H, dtype=dtype,
+                               decomp=decomp, overlap=overlap)
+    tfused.reset_launch_counts()
+    out = st.multi_step({k: decomp.shard(v) for k, v in state.items()}, 3,
+                        0.0, 0.01, args)
+    torch.cuda.synchronize()
+    # RK54 over 3 steps: 7 pairs across step boundaries, then one stage
+    want = {f"{name}:{kind}": n * m * decomp.nshards
+            for name, n in (("fused_pair", 7), ("fused_stage", 1))
+            for kind, m in st.sharded_kinds().items()}
+    assert {k: v for k, v in tfused.LAUNCHES.items() if v} == want
+    for k in ref:
+        assert torch.equal(torch.from_numpy(decomp.gather_array(out[k])),
+                           ref[k].cpu()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh,overlap", [((2, 1, 1), False),
+                                          ((2, 1, 1), True),
+                                          ((2, 2, 1), False),
+                                          ((1, 2, 1), False)],
+                         ids=["211-padded", "211-overlap", "221", "121"])
+def test_sharded_operators_on_card(cuda, mesh, overlap):
+    """Every operator on shards that share the card equals the unsharded
+    operator bit for bit, launched as its mesh implies."""
+    grid = (48, 40, 36)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((2,) + grid, generator=g, device=cuda,
+                    dtype=torch.float64)
+    v = torch.randn((2, 3) + grid, generator=g, device=cuda,
+                    dtype=torch.float64)
+    fd = pt.FiniteDifferencer(H, (0.3, 0.25, 0.2))
+    decomp = pt.DomainDecomposition(mesh)
+    sfd = pt.FiniteDifferencer(H, (0.3, 0.25, 0.2), decomp=decomp,
+                               overlap=overlap)
+    xs, vs = decomp.shard(x), decomp.shard(v)
+    tderivs.reset_launch_counts()
+    for op in ("lap", "grad", "pdx", "pdy", "pdz", "divergence"):
+        arg, sarg = (v, vs) if op == "divergence" else (x, xs)
+        got = getattr(sfd, op)(sarg)
+        assert torch.equal(torch.from_numpy(decomp.gather_array(got)),
+                           getattr(fd, op)(arg).cpu()), op
+    kinds = ({"interior": 1, "shell": 2} if overlap else
+             {{(2, 1, 1): "xpad", (2, 2, 1): "xypad",
+               (1, 2, 1): "ypad"}[mesh]: 1})
+    for op in ("lap", "grad", "pdx", "pdy", "pdz", "div"):
+        for kind, m in kinds.items():
+            assert tderivs.LAUNCHES[f"fd_{op}:{kind}"] == \
+                m * decomp.nshards, (op, kind)
