@@ -43,7 +43,17 @@ entry points a user calls, at 512^3 in float32:
   each final state bit-equal to the single-block run's, and every
   ``FiniteDifferencer`` operator on it (kernels ``<name>:xpad``,
   ``:ypad``, ``:xypad``, ``:interior``, ``:shell`` of ``fused_stage``,
-  ``fused_pair`` and the seven ``fd_*``).
+  ``fused_pair`` and the seven ``fd_*``);
+- the sharded energy-coupled driver,
+  ``FusedScalarStepper(decomp=...).coupled_multi_step``, on ``(2, 1, 1)``,
+  ``(2, 2, 1)``, ``(4, 1, 1)`` and ``(1, 2, 1)``, and the sharded GW
+  stepper, ``FusedPreheatStepper(decomp=...)``'s ``multi_step`` (on
+  ``(2, 1, 1)`` overlapped and padded, ``(2, 2, 1)``, ``(1, 2, 1)``) and
+  ``coupled_multi_step`` (on the coupled driver's four meshes), each final
+  state (and a, adot) bit-equal to the single-device run's (the padded
+  entry points of ``fused_stage_energy``, ``coupled_pair``,
+  ``coupled_pair_deferred`` and of the five GW kernels, the interior and
+  shell ones of ``preheat_stage`` and ``preheat_pair``).
 
 A non-polynomial potential (exp, tanh, sqrt, cos, powers 2.5 and -2, a
 quotient) compiles the printer's math-function paths into K2, K3 and K5 and
@@ -1043,6 +1053,10 @@ def coupled_main_path(phase, st, state, names, launches, trace=None,
     shapes_ok = all(tuple(v.shape[1:]) == GRID for v in state.values())
     extra, extra_ok = ({}, True) if extra_check is None else extra_check(
         state)
+    # what the sharded paths of this model start from and are held to
+    PATH_ROWS[phase] = {"ms_per_step": device_s / NSTEPS * 1e3,
+                        "energy0": energy0["total"], "a": float(expand.a),
+                        "adot": float(expand.adot)}
     emit({"phase": phase, "grid": GRID,
           "dtype": "torch.float32",
           "carry_dtype": str(st.carry_dtype or st.dtype),
@@ -1681,7 +1695,9 @@ def pad_periodic(t, hx, hy):
 class ShardedCase:
     """One kernel of the sharded tier on a lattice held whole (seeded
     inputs): its unsharded launch, a launch of any kind on windows built by
-    hand, and the plain version of the same."""
+    hand, and the plain version of the same. A sum kernel's launch of any
+    kind on such a block finishes its own sums (its partials at the block's
+    own places), which are then the unsharded launch's."""
 
     def __init__(self, kernel, shape, dtype, seed):
         import pystella_tpu_torch as pt
@@ -1694,12 +1710,17 @@ class ShardedCase:
             self.ins = [fd_input(self.op, shape, dtype, seed)]
             self.wins = (0,)
         else:
-            self.st = pt.FusedScalarStepper(
-                pt.ScalarSector(2, potential=potential), shape,
-                BOX / shape[0], HALO, dtype=dtype, device="cuda")
-            self.ins = kernel_inputs(shape, dtype, seed)
+            sector = pt.ScalarSector(2, potential=potential)
+            gw = kernel.startswith("preheat")
+            self.st = (pt.FusedPreheatStepper(
+                sector, pt.TensorPerturbationSector([sector]), shape,
+                BOX / shape[0], HALO, dtype=dtype, device="cuda") if gw
+                else pt.FusedScalarStepper(sector, shape, BOX / shape[0],
+                                           HALO, dtype=dtype, device="cuda"))
+            self.ins = kernel_inputs(shape, dtype, seed, gw=gw)
             self.params = kernel_params(kernel, BOX / shape[0])
             self.wins = tfused._WINDOWS[kernel]
+            self.sums = bool(tfused.SUM_SETS[kernel])
 
     def outs(self):
         if self.fd:
@@ -1737,9 +1758,11 @@ class ShardedCase:
 
     def region_bytes_ops(self, kind):
         """Bytes (windows at their padded storage extent, the block-wise
-        inputs and the outputs over the computed region, each once) and
-        operations of one launch of ``kind`` on this lattice."""
+        inputs and the outputs over the computed region, each once, and the
+        sum vectors) and operations of one launch of ``kind`` on this
+        lattice."""
         from pystella_tpu_torch.ops import derivs
+        from pystella_tpu_torch.ops import fused as tfused
         bits = derivs.PAD_KINDS[kind]
         h = HALO
         X, Y, Z = self.shape
@@ -1755,10 +1778,13 @@ class ShardedCase:
                              + round(C * out_per_in) * region)
             ops = C * FD_OPS_PER_COMPONENT[self.op](h) * region
         else:
-            F = self.st.F
-            nwin = len(self.wins)
-            nbytes = item * F * (nwin * wrows * ycols * Z
-                                 + (4 - nwin) * region + 4 * region)
+            comps = self.st._comps
+            nbytes = item * (sum(c * (wrows * ycols * Z if j in self.wins
+                                      else region)
+                                 for j, c in enumerate(comps))
+                             + sum(comps) * region
+                             + tfused.SUM_SETS[self.kernel]
+                             * (2 * self.st.F + 1))
             ops = ops_per_site(self.kernel, self.st) * region
         return nbytes, ops
 
@@ -1773,14 +1799,17 @@ def sharded_kernels_vs_plain(phase, errs):
     """Each kernel of the sharded tier, on lattices held whole and windows
     built by hand from their own periodic rows: the padded launches
     (``xpad``, ``ypad``, ``xypad``) vs their plain versions and bit for bit
-    vs the unsharded kernel; the interior launch (on the raw block) and the
-    two x-shell launches (on ``concat(halo, 2h rows)``) vs their plain
-    versions, and together bit for bit vs the x-padded launch. At the
-    block each kind runs on in the 512^3 sharded paths (f32), and at
-    48x40x36 in f32 and f64. Rows go to ``errs["<name>:<kind>"]``."""
+    vs the unsharded kernel (a sum kernel's sums included, and launched
+    twice for bit-equal sums); the interior launch (on the raw block) and
+    the two x-shell launches (on ``concat(halo, 2h rows)``) of the kernels
+    without sums vs their plain versions, and together bit for bit vs the
+    x-padded launch. At the block each kind runs on in the 512^3 sharded
+    paths (f32), and at 48x40x36 in f32 and f64. Rows go to
+    ``errs["<name>:<kind>"]``."""
     from pystella_tpu_torch.ops import derivs
     h = HALO
-    names = sorted({n.split(":")[0] for n in sharded_kernel_names()})
+    sharded = sharded_kernel_names()
+    names = sorted({n.split(":")[0] for n in sharded})
     cases = [(block_of(SHARDED_KIND_MESH[k]), torch.float32, (k,))
              for k in ("xpad", "ypad", "xypad")]
     cases[0] = cases[0][:2] + (("xpad", "interior", "shell"),)
@@ -1788,7 +1817,9 @@ def sharded_kernels_vs_plain(phase, errs):
               for dtype in (torch.float32, torch.float64)]
     for seed, kernel in enumerate(names):
         for shape, dtype, kinds in cases:
+            kinds = [k for k in kinds if f"{kernel}:{k}" in sharded]
             case = ShardedCase(kernel, shape, dtype, 70 + seed)
+            sums = not case.fd and case.sums
             ref = case.unsharded()
             rows = {}
             for kind in kinds:
@@ -1800,7 +1831,7 @@ def sharded_kernels_vs_plain(phase, errs):
                 outs = case.run(kind, ins, case.outs())
                 torch.cuda.synchronize()
                 plain = case.plain(ins, pad)
-                n = len(plain)
+                n = len(case.ins) if sums else len(plain)
                 errs_ = [rel_err(o, p) for o, p in zip(outs[:n], plain)]
                 rows[kind] = {
                     "max_rel_err": max(e for e, _ in errs_),
@@ -1808,6 +1839,19 @@ def sharded_kernels_vs_plain(phase, errs):
                     "tol": KERNEL_TOL[dtype],
                     "bitwise_unsharded_kernel": all(
                         torch.equal(o, r) for o, r in zip(outs, ref))}
+                if sums:
+                    rows[kind]["sum_err"] = sum_errors(
+                        case.st, kernel, case.ins, outs, plain, case.params)
+                    rows[kind]["sum_tol"] = SUM_TOL[dtype]
+                    again = case.run(kind, ins, case.outs())
+                    torch.cuda.synchronize()
+                    rows[kind]["sums_bitwise_repeatable"] = all(
+                        torch.equal(a, b) for a, b in zip(outs[n:],
+                                                          again[n:]))
+                    rows[kind]["sums_bitwise_unsharded_kernel"] = all(
+                        torch.equal(a, b) for a, b in zip(outs[n:],
+                                                          ref[n:]))
+                    del again
                 del ins, plain
                 if kind == "xpad":
                     xpad_outs = outs
@@ -1843,7 +1887,8 @@ def sharded_kernels_vs_plain(phase, errs):
                         "max_abs_err": max(a for _, a in errs_),
                         "tol": KERNEL_TOL[dtype],
                         "interior_and_shells_bitwise_xpad": bitwise}
-                del outs, xpad_outs, ins_lo, ins_hi
+                del outs, ins_lo, ins_hi
+            xpad_outs = None
             for kind, row in rows.items():
                 name = f"{kernel}:{kind}"
                 errs.setdefault(name, {})[case_tag(shape, dtype)] = row
@@ -1851,7 +1896,12 @@ def sharded_kernels_vs_plain(phase, errs):
                       "dtype": str(dtype), **row})
                 exact = row.get("bitwise_unsharded_kernel",
                                 row.get("interior_and_shells_bitwise_xpad"))
-                if not (row["max_rel_err"] <= KERNEL_TOL[dtype] and exact):
+                ok = row["max_rel_err"] <= KERNEL_TOL[dtype] and exact
+                if "sum_err" in row:
+                    ok = (ok and row["sum_err"] <= row["sum_tol"]
+                          and row["sums_bitwise_repeatable"]
+                          and row["sums_bitwise_unsharded_kernel"])
+                if not ok:
                     raise SystemExit(f"{name} disagrees at {shape} "
                                      f"{dtype}: {row}")
             del case, ref
@@ -1861,10 +1911,11 @@ def sharded_kernels_vs_plain(phase, errs):
 def time_sharded_kernels(phase, timing):
     """Each kernel of the sharded tier at the block its kind runs on in the
     512^3 paths (the interior and one shell launch alone): CUDA-event ms
-    over 20 launches, its plain version, and the bound (the windows at
-    their padded storage extent, the block-wise inputs and the outputs
-    over the computed region, each once, over the HBM rate, against the
-    operations over the f32 peak)."""
+    over 20 launches (a sum kernel's with its second launch, as unsharded),
+    its plain version, and the bound (the windows at their padded storage
+    extent, the block-wise inputs and the outputs over the computed region,
+    each once, over the HBM rate, against the operations over the f32
+    peak)."""
     from pystella_tpu_torch.ops import derivs
     h = HALO
     for seed, name in enumerate(sharded_kernel_names()):
@@ -1886,7 +1937,8 @@ def time_sharded_kernels(phase, timing):
         ms = cuda_ms(lambda: case.run(kind, ins, outs, x0), reps=20,
                      warmup=2)
         rows = {"interior": X - 2 * h, "shell": h}.get(kind)
-        plain_ms = cuda_ms(lambda: case.plain(ins, pad, x0, rows), reps=3)
+        plain_ms = cuda_ms(lambda: case.plain(ins, pad, x0, rows),
+                           reps=2 if kernel.startswith("preheat") else 3)
         nbytes, ops = case.region_bytes_ops(kind)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / PEAK_F32_OPS * 1e3
@@ -2058,6 +2110,226 @@ def sharded_paths(make_state, ref_final, launches):
                              f"{fd_bitwise}")
         del st, state
         torch.cuda.empty_cache()
+
+
+#: the sharded coupled driver and GW stepper, every shard on the one card:
+#: (mesh, overlap) per path; the first SHARDED_*_TIMED of each list are its
+#: main paths (timed against the single-device cell of the same run), every
+#: one is held to the single-device final state bit for bit and launches
+#: the padded (or interior and shell) entry points its mesh implies
+SHARDED_COUPLED_CONFIGS = [((2, 1, 1), False), ((2, 2, 1), False),
+                           ((4, 1, 1), False), ((1, 2, 1), False)]
+SHARDED_COUPLED_TIMED = 2
+SHARDED_GW_CONFIGS = [((2, 1, 1), True), ((2, 1, 1), False),
+                      ((2, 2, 1), False), ((1, 2, 1), False)]
+SHARDED_GW_COUPLED_CONFIGS = [((2, 1, 1), False), ((2, 2, 1), False),
+                              ((1, 2, 1), False), ((4, 1, 1), False)]
+SHARDED_GW_TIMED = 1
+
+
+def coupled_expected(st):
+    """Launches by counted name of the coupled paths' run (10 + 10 + 1
+    steps: 3 normal pairs, 49 deferred pairs, 1 energy stage) on a sharded
+    stepper: each once per block, padded."""
+    (kind,) = st.sharded_kinds(st._KERNEL["stage_energy"])
+    n = st.decomp.nshards
+    return {f"{st._KERNEL['coupled_pair']}:{kind}": 3 * n,
+            f"{st._KERNEL['coupled_pair_deferred']}:{kind}": 49 * n,
+            f"{st._KERNEL['stage_energy']}:{kind}": n}
+
+
+def sharded_energy(st, decomp, state, a):
+    """The scalar energy (Reduction with the sharded Laplacian) of a
+    sharded state, for the Friedmann constraint."""
+    import pystella_tpu_torch as pt
+    sfd = pt.FiniteDifferencer(HALO, BOX / GRID[0], decomp=decomp)
+    red = pt.Reduction(st.sector, callback=pt.get_rho_and_p,
+                       grid_size=float(math.prod(GRID)))
+    return red(f=state["f"], dfdt=state["dfdt"], lap_f=sfd.lap(state["f"]),
+               a=np.float64(a))
+
+
+def sharded_stepping_paths(phase, configs, ntimed, make_stepper, make_state,
+                           ref, launches, coupled, cell):
+    """A path on each of ``configs``, every shard on the one card, from the
+    single-device path's initial state (``make_state``, whole on the card,
+    then sharded) and, for ``coupled``, its initial background
+    (``PATH_ROWS[cell]["energy0"]``): 10 warm-up + 10 timed + 1 steps of
+    ``multi_step`` or ``coupled_multi_step`` (the single-device cell's run,
+    ``cell``), its launches against the mesh's, the final state (and a,
+    adot) bit for bit against the single-device path's (``ref``, on the
+    host), and for ``coupled`` the Friedmann constraint. The first
+    ``ntimed`` configurations are main paths (phase ``phase``: ms/step
+    against the cell's in this run, exchanged bytes, memory); every one has
+    a ``sharded_coupled_identity`` row."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import fused as tfused
+    sites = math.prod(GRID)
+    dt = 0.1 * BOX / GRID[0]
+    args = {"a": 1.0, "hubble": 0.5}
+    cell_row = PATH_ROWS[cell]
+    for i, (mesh, overlap) in enumerate(configs):
+        decomp = pt.DomainDecomposition(mesh)
+        st = make_stepper(decomp, overlap)
+        whole = make_state()
+        state = {k: decomp.shard(v) for k, v in whole.items()}
+        del whole
+        torch.cuda.empty_cache()
+        free_before = torch.cuda.mem_get_info()[0]
+        if coupled:
+            expand = pt.Expansion(cell_row["energy0"], pt.LowStorageRK54,
+                                  mpl=1.0)
+            expected = coupled_expected(st)
+
+            def run(state, n):
+                return st.coupled_multi_step(state, n, expand, 0.0, dt)
+        else:
+            expected = sharded_expected(st, (NSTEPS, NSTEPS, 1))
+
+            def run(state, n):
+                return st.multi_step(state, n, 0.0, dt, args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated() - sum(
+            b.numel() * b.element_size() for v in state.values()
+            for b in v.blocks)
+        tfused.reset_launch_counts()
+        state = run(state, NSTEPS)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        bytes0 = decomp.bytes_exchanged
+        host0 = time.perf_counter()
+        start.record()
+        state = run(state, NSTEPS)
+        end.record()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - host0
+        elapsed = start.elapsed_time(end) / 1e3
+        step_bytes = (decomp.bytes_exchanged - bytes0) / NSTEPS
+        state = run(state, 1)
+        torch.cuda.synchronize()
+        path_launches = {k: v for k, v in tfused.LAUNCHES.items() if v}
+        for name, c in path_launches.items():
+            launches.setdefault(name, c)
+        bitwise = {k: equals_whole(state[k], ref[k]) for k in ref}
+        finite = all(bool(torch.isfinite(b).all())
+                     for v in state.values() for b in v.blocks)
+        ms = elapsed / NSTEPS * 1e3
+        row = {"grid": GRID, "dtype": "torch.float32", "mesh": mesh,
+               "overlap_requested": overlap,
+               "launch_kinds": {str(k): m for k, m in
+                                st.sharded_kinds().items()},
+               "devices": [str(d) for d in decomp.devices],
+               "nsteps_timed": NSTEPS, "ms_per_step": ms,
+               "site_updates_per_s": sites * NSTEPS / elapsed,
+               "ms_per_step_vs_single_device": ms / cell_row["ms_per_step"],
+               "single_device_ms_per_step": cell_row["ms_per_step"],
+               "host_s": host_s, "launches": path_launches,
+               "expected_launches": expected,
+               "exchanged_bytes_per_step": step_bytes,
+               "tier_report": st.kernel_tier_report(),
+               "free_before_GiB": free_before / 2**30,
+               "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30,
+               "path_memory_GiB": (torch.cuda.max_memory_allocated()
+                                   - held_before) / 2**30,
+               "finite": finite, "bitwise_single_device": bitwise}
+        ok = finite and all(bitwise.values()) and path_launches == expected
+        if coupled:
+            energy = sharded_energy(st, decomp, state, expand.a)
+            row.update({"a": float(expand.a), "adot": float(expand.adot),
+                        "a_adot_bitwise_single_device": (
+                            float(expand.a) == cell_row["a"]
+                            and float(expand.adot) == cell_row["adot"]),
+                        "constraint": float(expand.constraint(
+                            energy["total"])),
+                        "constraint_tol": CONSTRAINT_TOL})
+            ok = (ok and row["a_adot_bitwise_single_device"]
+                  and row["constraint"] <= CONSTRAINT_TOL)
+        if "hij" in state:
+            row["hij_max_abs"] = max(b.abs().max().item()
+                                     for b in state["hij"].blocks)
+            ok = ok and row["hij_max_abs"] > 0
+        if i < ntimed:
+            emit({"phase": phase, "path": cell, **row})
+            PATH_ROWS[f"{phase}:{cell}{mesh}{overlap}"] = row
+        emit({"phase": "sharded_coupled_identity", "path": cell,
+              "mesh": mesh,
+              "overlap_requested": overlap, "nsteps": 2 * NSTEPS + 1,
+              "launch_kinds": row["launch_kinds"],
+              "bitwise_single_device": bitwise,
+              **{k: row[k] for k in ("a_adot_bitwise_single_device",
+                                     "constraint", "launches") if k in row},
+              "finite": finite})
+        if not ok:
+            raise SystemExit(f"{phase} {mesh} overlap={overlap} is not the "
+                             f"single-device path or launched "
+                             f"{path_launches}, not {expected}: {row}")
+        del st, state
+        torch.cuda.empty_cache()
+
+
+def sharded_coupled_trace(phase, make_state):
+    """One sharded coupled chunk (10 steps: 25 padded pairs) on (2, 1, 1)
+    under torch.profiler: the device time of the exchange copies and of
+    the padded launches as shares of the chunk's device span, the idle
+    share (1 - the union of busy intervals over the span) and the host
+    syncs (device-to-host copies of the energy sums: one a launch)."""
+    import pystella_tpu_torch as pt
+    from torch.profiler import ProfilerActivity, profile
+    dt = 0.1 * BOX / GRID[0]
+    decomp = pt.DomainDecomposition((2, 1, 1))
+    st = pt.FusedScalarStepper(pt.ScalarSector(2, potential=potential),
+                               GRID, BOX / GRID[0], HALO,
+                               dtype=torch.float32, decomp=decomp,
+                               overlap=False)
+    whole = make_state()
+    state = {k: decomp.shard(v) for k, v in whole.items()}
+    del whole
+    expand = pt.Expansion(PATH_ROWS["coupled_main_path"]["energy0"],
+                          pt.LowStorageRK54, mpl=1.0)
+    state = st.coupled_multi_step(state, 1, expand, 0.0, dt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state = st.coupled_multi_step(state, NSTEPS, expand, 0.0, dt)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = sorted((e for e in device if e.name not in SHARDED_LABELS),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        emit({"phase": phase, "device_events": 0,
+              "idle_share": "not measured"})
+        return
+    syncs = [e for e in events if "DtoH" in e.name
+             or "Device -> Pageable" in e.name]
+    kern = [e for e in events if e.name.startswith("void pk_")
+            and "reduce_partials" not in e.name]
+    finish = [e for e in events if "reduce_partials" in e.name]
+    copies = [e for e in events if e not in kern and e not in finish
+              and e not in syncs]
+    groups = {"padded_launches": kern, "sum_finish": finish,
+              "exchange_and_other": copies, "sum_reads": syncs}
+    span = (events[-1].time_range.end
+            - min(e.time_range.start for e in events))
+    busy = sum(e - s for s, e in device_intervals(events))
+    emit({"phase": phase, "mesh": (2, 1, 1),
+          "devices": [str(d) for d in decomp.devices],
+          "nsteps": NSTEPS, "device_events": len(events),
+          "span_ms": span / 1e3, "busy_ms": busy / 1e3,
+          "idle_share": 1 - busy / span,
+          "host_syncs": len(syncs),
+          "busy_ms_by_group": {
+              g: sum(e.time_range.elapsed_us() for e in evs) / 1e3
+              for g, evs in groups.items()},
+          "share_of_span_by_group": {
+              g: sum(e.time_range.elapsed_us() for e in evs) / span
+              for g, evs in groups.items()},
+          "launches_by_group": {g: len(evs) for g, evs in groups.items()},
+          "other_event_names": sorted({e.name[:60] for e in copies})})
+    del st, state
+    torch.cuda.empty_cache()
 
 
 def device_intervals(events):
@@ -2398,6 +2670,8 @@ def main():
         "coupled_main_path", main_st,
         background_state(GRID, torch.float32, 11), SUM_KERNELS, launches,
         trace="coupled_trace")
+    # the sharded coupled paths' reference waits on the host
+    coupled_ref = on_host(coupled_f32_final)
     # the scalar paths' buffers (12 GiB) make room for the GW system's 48
     del main_st
     torch.cuda.empty_cache()
@@ -2432,19 +2706,22 @@ def main():
 
     # -- 18. GW main path: multi_step at 512^3 f32 from the bench state for
     #        f and hij = dhijdt = 0; the source must reach hij ---------------
-    g = torch.Generator(device="cuda").manual_seed(7)
-    state = {"f": 1e-3 * torch.randn((2,) + GRID, generator=g,
-                                     device="cuda", dtype=torch.float32),
-             "dfdt": 1e-4 * torch.randn((2,) + GRID, generator=g,
+    def gw_main_state():
+        g = torch.Generator(device="cuda").manual_seed(7)
+        return {"f": 1e-3 * torch.randn((2,) + GRID, generator=g,
                                         device="cuda", dtype=torch.float32),
-             "hij": torch.zeros((6,) + GRID, device="cuda",
-                                dtype=torch.float32),
-             "dhijdt": torch.zeros((6,) + GRID, device="cuda",
-                                   dtype=torch.float32)}
+                "dfdt": 1e-4 * torch.randn((2,) + GRID, generator=g,
+                                           device="cuda",
+                                           dtype=torch.float32),
+                "hij": torch.zeros((6,) + GRID, device="cuda",
+                                   dtype=torch.float32),
+                "dhijdt": torch.zeros((6,) + GRID, device="cuda",
+                                      dtype=torch.float32)}
 
-    main_path("preheat_main_path", gw_st, state, timing, launches,
-              extra_check=sourced)
-    del state
+    # the final state waits on the host for the sharded GW paths
+    gw_multi_ref = on_host(main_path("preheat_main_path", gw_st,
+                                     gw_main_state(), timing, launches,
+                                     extra_check=sourced))
     torch.cuda.empty_cache()
 
     # -- 19. GW coupled main path: coupled_multi_step at 512^3 f32 from the
@@ -2522,6 +2799,8 @@ def main():
         launches, extra_check=sourced, single=True,
         predicted_gib=PREDICTED_PATH_GIB["coupled_gw_bf16_main_path"]),
         cgw_f32_final, held=("f", "dfdt"))
+    # (the f32-carry final state stays on the host for the sharded GW paths)
+    cgw_ref = cgw_f32_final
     del gw_bf16_st, cgw_f32_final
     torch.cuda.empty_cache()
 
@@ -2566,6 +2845,42 @@ def main():
     sharded_trace("sharded_trace", preheat_state)
     sharded_fd_kernel_time("sharded_fd_kernel_time")
 
+    # -- 26. the sharded energy-coupled driver and GW stepper (several shards
+    #        on the one card): the coupled-preheat run on four meshes, the
+    #        preheat-gw multi_step and the coupled-preheat-gw run on four
+    #        each, every final state (and a, adot) bit for bit the
+    #        single-device path's; a traced sharded coupled chunk -------------
+    def sharded_scalar(decomp, overlap):
+        return pt.FusedScalarStepper(sector, GRID, dx, HALO,
+                                     dtype=torch.float32, decomp=decomp,
+                                     overlap=overlap)
+
+    def sharded_gw(decomp, overlap):
+        return pt.FusedPreheatStepper(sector, gw_sector, GRID, dx, HALO,
+                                      dtype=torch.float32, decomp=decomp,
+                                      overlap=overlap)
+
+    def coupled_state():
+        return background_state(GRID, torch.float32, 11)
+
+    sharded_stepping_paths(
+        "sharded_coupled_main_path", SHARDED_COUPLED_CONFIGS,
+        SHARDED_COUPLED_TIMED, sharded_scalar, coupled_state, coupled_ref,
+        launches, True, "coupled_main_path")
+    del coupled_ref
+    sharded_coupled_trace("sharded_coupled_trace", coupled_state)
+    sharded_stepping_paths(
+        "sharded_gw_main_path", SHARDED_GW_CONFIGS, SHARDED_GW_TIMED,
+        sharded_gw, gw_main_state, gw_multi_ref, launches, False,
+        "preheat_main_path")
+    del gw_multi_ref
+    sharded_stepping_paths(
+        "sharded_gw_main_path", SHARDED_GW_COUPLED_CONFIGS, SHARDED_GW_TIMED,
+        sharded_gw, lambda: background_state(GRID, torch.float32, 11,
+                                             gw=True),
+        cgw_ref, launches, True, "preheat_coupled_main_path")
+    del cgw_ref
+
     kernels = []
     sharded = sharded_kernel_names()
     names = [n for n in tfused.LAUNCHES if n not in sharded]
@@ -2584,7 +2899,7 @@ def main():
             "source": f"pystella_tpu_torch/ops/csrc/{src}",
             "replaces": replaces.split(" ")[0],
             "jax_site": replaces,
-            "launches": launches[name],
+            "launches": launches.get(name, 0),
             "max_abs_err": main_case["max_abs_err"],
             "max_rel_err": main_case["max_rel_err"],
             "parity": errs[name],

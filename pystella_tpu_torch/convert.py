@@ -50,7 +50,8 @@ def shard_state(decomp, state, dtype=None):
     :class:`~pystella_tpu_torch.parallel.ShardedArray` s over ``decomp``,
     each block copied to its rank's device, in ``dtype`` (default: the
     arrays' own; bfloat16 arrays through float32, exactly): the state
-    carrier of a sharded run."""
+    carrier of a sharded run, the scalar system's or the GW system's
+    (hij, dhijdt: six components a block) alike."""
     dt = None if dtype is None else torch_dtype(dtype)
     return {k: decomp.shard(_tensor(v, dt, "cpu")) for k, v in state.items()}
 
@@ -87,5 +88,8 @@ def _array(t):
 
 def to_numpy(tree):
     """Tensors (in dicts, lists, tuples) -> numpy arrays on the host
-    (bfloat16 ones as float32)."""
+    (bfloat16 ones as float32); a
+    :class:`~pystella_tpu_torch.parallel.ShardedArray` comes back whole, so
+    ``to_numpy`` of a sharded state (scalar or GW) is the inverse of
+    :func:`shard_state`."""
     return _tree_map(_array, tree)

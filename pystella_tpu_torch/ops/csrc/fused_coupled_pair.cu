@@ -54,6 +54,21 @@
 // by index arithmetic, 64-bit offsets, outputs to separate buffers,
 // -fmad=false, the tensor components one after another; the sums are
 // reduced in a fixed order in T (pk_block_sums, pk_finish_sums).
+//
+// The sharded tier (the _xpad, _ypad, _xypad entry points of both variants
+// of K6 and K9) replaces StreamingStencil._build_xhalo
+// (pystella_tpu/ops/pallas_stencil.py:789) on _deferred_body, as _make_call
+// (pystella_tpu/ops/fused.py:483) runs it on a sharded lattice: always the
+// padded launch (a kernel with sums takes no interior/shell split there).
+// The windows are the JAX pair's (_def_win_defs, pystella_tpu/ops/fused.py:
+// 1272 and :1847): normal input f, dfdt, kf (and hij, dhijdt, khij), read
+// through a window's geometry, kdfdt (kdhijdt) the full block; deferred
+// input all four (eight), every one a window, since the completed velocity
+// is recomposed at every tap (PkCompleted) from dfp and kdfp. The arithmetic
+// is the unpadded kernel's, and each block's partials go to the index it
+// has in the whole lattice's launch (pk_partial_index), so the padded
+// launches of every shard followed by one second launch equal the unpadded
+// kernel, sums included, bit for bit.
 #include "pk_common.cuh"
 
 #ifdef PK_HUBBLE_FREE
@@ -68,32 +83,36 @@ struct PkCoupledParams {
 #ifdef PK_NH
 // K9's tensor pair at one site, for every hij component; the incoming
 // tensor velocity is read as it is (normal input) or completed
-// (PkCompleted, deferred input). Carries are stored in C.
-template <typename T, typename C, bool IN_DEFERRED>
+// (PkCompleted, deferred input). Carries are stored in C. The windows (PAD)
+// are read at wsite with component stride Nw and y extent Yw; the full
+// blocks at site with stride N.
+template <typename T, typename C, bool IN_DEFERRED, int PAD>
 __device__ __forceinline__ void pk_coupled_gw(
     const PkArrays<T>& io, const T* __restrict__ f, const C* __restrict__ kf,
     int x, int y, int z, int X, int Y, int Z, int64_t N, int64_t site,
-    const PkCoupledParams<T>& p, T c_def) {
+    int64_t Nw, int64_t wsite, int Yw, const PkCoupledParams<T>& p,
+    T c_def) {
   // S_ij of both stages: from the f window, and from f1 recomposed at every
   // tap (its velocity completed there in the deferred variant)
   T dfdx[PK_F][3], sij1[PK_NH], sij2[PK_NH];
 #pragma unroll
   for (int c = 0; c < PK_F; ++c)
-    pk_grad(PkLoad<T>{f + c * N, Y, Z}, x, y, z, X, Y, Z, p.g, dfdx[c]);
+    pk_grad<PAD>(PkLoad<T>{f + c * Nw, Yw, Z}, x, y, z, X, Y, Z, p.g,
+                 dfdx[c]);
   pk_sij<T>(dfdx, p.a1, p.hubble1, sij1);
 #pragma unroll
   for (int c = 0; c < PK_F; ++c) {
     if (IN_DEFERRED) {
       const PkAxpyLoad<T, PkCompleted<T, C>, C> load{
-          f + c * N, kf + c * N,
-          {io.in[1] + c * N, pk_in_as<C>(io, 2) + c * N, p.B2p, c_def},
-          p.B1, p.A1, p.dt, Y, Z};
-      pk_grad(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
+          f + c * Nw, kf + c * Nw,
+          {io.in[1] + c * Nw, pk_in_as<C>(io, 2) + c * Nw, p.B2p, c_def},
+          p.B1, p.A1, p.dt, Yw, Z};
+      pk_grad<PAD>(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
     } else {
-      const PkAxpyLoad<T, PkAt<T>, C> load{f + c * N, kf + c * N,
-                                           {io.in[1] + c * N}, p.B1, p.A1,
-                                           p.dt, Y, Z};
-      pk_grad(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
+      const PkAxpyLoad<T, PkAt<T>, C> load{f + c * Nw, kf + c * Nw,
+                                           {io.in[1] + c * Nw}, p.B1, p.A1,
+                                           p.dt, Yw, Z};
+      pk_grad<PAD>(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
     }
   }
   pk_sij_nohub<T>(dfdx, p.a2, sij2);
@@ -110,32 +129,34 @@ __device__ __forceinline__ void pk_coupled_gw(
 #pragma unroll 1
   for (int c = 0; c < PK_NH; ++c) {
     const int64_t i = c * N + site;
-    const T h0 = h[i];
+    const int64_t wi = c * Nw + wsite;
+    const T h0 = h[wi];
     T dh0, kdh0;
     if (IN_DEFERRED) {
-      const T d = dh_in[i];
-      kdh0 = PkCarry<T, C>::load(k_in[i]) - c_def * d;
+      const T d = dh_in[wi];
+      kdh0 = PkCarry<T, C>::load(k_in[wi]) - c_def * d;
       dh0 = d + p.B2p * kdh0;
     } else {
-      dh0 = dh_in[i];
+      dh0 = dh_in[wi];
       kdh0 = PkCarry<T, C>::load(k_in[i]);
     }
-    const T lap_h = pk_lap(PkLoad<T>{h + c * N, Y, Z}, h0, x, y, z, X, Y, Z,
-                           p.w);
+    const T lap_h = pk_lap<PAD>(PkLoad<T>{h + c * Nw, Yw, Z}, h0, x, y, z, X,
+                                Y, Z, p.w);
     T h1, dh1, kh1, kdh1;
-    pk_gw_stage(h0, dh0, PkCarry<T, C>::load(kh[i]), kdh0, lap_h, sij1[c],
+    pk_gw_stage(h0, dh0, PkCarry<T, C>::load(kh[wi]), kdh0, lap_h, sij1[c],
                 p.A1, p.B1, p.dt, two_hub1, h1, dh1, kh1, kdh1);
     T lap_h1;
     if (IN_DEFERRED) {
       const PkAxpyLoad<T, PkCompleted<T, C>, C> load{
-          h + c * N, kh + c * N, {dh_in + c * N, k_in + c * N, p.B2p, c_def},
-          p.B1, p.A1, p.dt, Y, Z};
-      lap_h1 = pk_lap(load, h1, x, y, z, X, Y, Z, p.w);
+          h + c * Nw, kh + c * Nw,
+          {dh_in + c * Nw, k_in + c * Nw, p.B2p, c_def}, p.B1, p.A1, p.dt,
+          Yw, Z};
+      lap_h1 = pk_lap<PAD>(load, h1, x, y, z, X, Y, Z, p.w);
     } else {
-      const PkAxpyLoad<T, PkAt<T>, C> load{h + c * N, kh + c * N,
-                                           {dh_in + c * N}, p.B1, p.A1,
-                                           p.dt, Y, Z};
-      lap_h1 = pk_lap(load, h1, x, y, z, X, Y, Z, p.w);
+      const PkAxpyLoad<T, PkAt<T>, C> load{h + c * Nw, kh + c * Nw,
+                                           {dh_in + c * Nw}, p.B1, p.A1,
+                                           p.dt, Yw, Z};
+      lap_h1 = pk_lap<PAD>(load, h1, x, y, z, X, Y, Z, p.w);
     }
     // tensor stage 2 with the Hubble drag deferred
     const T kh2 = p.A2 * kh1 + p.dt * dh1;
@@ -148,11 +169,11 @@ __device__ __forceinline__ void pk_coupled_gw(
 }
 #endif
 
-template <typename T, typename C, bool IN_DEFERRED, bool GW>
+template <typename T, typename C, bool IN_DEFERRED, bool GW, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
                        PkCoupledParams<T> p, T* __restrict__ partials,
-                       int64_t nblocks) {
+                       int64_t nblocks, PkGeom g) {
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int x = blockIdx.z;
@@ -173,8 +194,13 @@ pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
   for (int t = 0; t < 2 * PK_NT; ++t) terms[t] = T(0);
 
   if (z < Z && y < Y) {
-    const int64_t N = (int64_t)X * Y * Z;
+    // the full blocks (kdfdt of the normal input, the outputs) and the
+    // windows, each with its own geometry
+    const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
     const int64_t site = ((int64_t)x * Y + y) * Z + z;
+    const int64_t Nw = PAD ? g.Nw : N;
+    const int Yw = PAD ? g.Ys : Y;
+    const int64_t wsite = PAD ? ((int64_t)x * Yw + y) * Z + z : site;
     const T c_def = (T(2) * p.dt) * p.hubfix;
 
     // stage 1 on the site (the arithmetic of fused_pair.cu, exact scalars)
@@ -182,19 +208,19 @@ pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
     T df1[PK_F], lap[PK_F], dv[PK_F];
 #pragma unroll
     for (int c = 0; c < PK_F; ++c) {
-      const int64_t i = c * N + site;
-      f0[c] = f[i];
+      const int64_t wi = c * Nw + wsite;
+      f0[c] = f[wi];
       if (IN_DEFERRED) {
-        const T d = in1[i];
-        kdf0[c] = PkCarry<T, C>::load(in2[i]) - c_def * d;
+        const T d = in1[wi];
+        kdf0[c] = PkCarry<T, C>::load(in2[wi]) - c_def * d;
         df0[c] = d + p.B2p * kdf0[c];
       } else {
-        df0[c] = in1[i];
-        kdf0[c] = PkCarry<T, C>::load(in3[i]);
+        df0[c] = in1[wi];
+        kdf0[c] = PkCarry<T, C>::load(in3[c * N + site]);
       }
-      lap[c] = pk_lap(PkLoad<T>{f + c * N, Y, Z}, f0[c], x, y, z, X, Y, Z,
-                      p.w);
-      kf1[c] = p.A1 * PkCarry<T, C>::load(kf[i]) + p.dt * df0[c];
+      lap[c] = pk_lap<PAD>(PkLoad<T>{f + c * Nw, Yw, Z}, f0[c], x, y, z, X,
+                           Y, Z, p.w);
+      kf1[c] = p.A1 * PkCarry<T, C>::load(kf[wi]) + p.dt * df0[c];
       f1[c] = f0[c] + p.B1 * kf1[c];
     }
     pk_dvdf<T>(f0, p.a1, p.hubble1, dv);
@@ -217,14 +243,15 @@ pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
     for (int c = 0; c < PK_F; ++c) {
       if (IN_DEFERRED) {
         const PkAxpyLoad<T, PkCompleted<T, C>, C> load{
-            f + c * N, kf + c * N, {in1 + c * N, in2 + c * N, p.B2p, c_def},
-            p.B1, p.A1, p.dt, Y, Z};
-        lap[c] = pk_lap(load, f1[c], x, y, z, X, Y, Z, p.w);
+            f + c * Nw, kf + c * Nw,
+            {in1 + c * Nw, in2 + c * Nw, p.B2p, c_def}, p.B1, p.A1, p.dt,
+            Yw, Z};
+        lap[c] = pk_lap<PAD>(load, f1[c], x, y, z, X, Y, Z, p.w);
       } else {
-        const PkAxpyLoad<T, PkAt<T>, C> load{f + c * N, kf + c * N,
-                                             {in1 + c * N}, p.B1, p.A1,
-                                             p.dt, Y, Z};
-        lap[c] = pk_lap(load, f1[c], x, y, z, X, Y, Z, p.w);
+        const PkAxpyLoad<T, PkAt<T>, C> load{f + c * Nw, kf + c * Nw,
+                                             {in1 + c * Nw}, p.B1, p.A1,
+                                             p.dt, Yw, Z};
+        lap[c] = pk_lap<PAD>(load, f1[c], x, y, z, X, Y, Z, p.w);
       }
     }
 
@@ -247,23 +274,27 @@ pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
 
 #ifdef PK_NH
     if constexpr (GW)
-      pk_coupled_gw<T, C, IN_DEFERRED>(io, f, kf, x, y, z, X, Y, Z, N, site,
-                                       p, c_def);
+      pk_coupled_gw<T, C, IN_DEFERRED, PAD>(io, f, kf, x, y, z, X, Y, Z, N,
+                                            site, Nw, wsite, Yw, p, c_def);
 #endif
   }
-  pk_block_sums<T, 2 * PK_NT>(terms, partials, nblocks);
+  pk_block_sums<T, 2 * PK_NT, PAD>(terms, partials, nblocks, g);
 }
 
 // ins / outs: host arrays of 4 (scalar) or 8 (GW: then the tensor system's
 // four, in the same roles) device pointers. params: dt, a1, hubble1, A1, B1,
 // a2, A2, B2, [hubfix, B2p if IN_DEFERRED], then the Laplacian weights
 // (pk_lap_weights) and, for GW, the gradient weights (pk_grad_weights).
-// partials holds 2 * PK_NT * pk_num_blocks(X, Y, Z) values; sums receives
-// esums1 then esums2, PK_NT each.
-template <typename T, typename C, bool IN_DEFERRED, bool GW>
+// partials holds 2 * PK_NT * nblocks values; sums receives esums1 then
+// esums2, PK_NT each: unpadded, nblocks is pk_num_blocks(X, Y, Z) and the
+// second launch follows; padded, nblocks is the whole lattice's count
+// (PkGeom) and sums is null, the host finishing.
+template <typename T, typename C, bool IN_DEFERRED, bool GW, int PAD = 0>
 static int pk_launch_coupled(const void* const* ins, void* const* outs,
                              int X, int Y, int Z, const double* params,
-                             void* partials, void* sums, void* stream) {
+                             void* partials, void* sums, void* stream,
+                             PkGeom g = PkGeom{0, 0, 0, 0, 0, 0},
+                             int64_t nblocks = 0) {
   PkCoupledParams<T> p;
   p.dt = T(params[0]);
   p.a1 = T(params[1]);
@@ -283,13 +314,14 @@ static int pk_launch_coupled(const void* const* ins, void* const* outs,
   }
   p.w = pk_lap_weights<T>(params + n);
   if (GW) p.g = pk_grad_weights<T>(params + n + PK_NLAPW);
-  pk_coupled_pair_kernel<T, C, IN_DEFERRED, GW>
+  if (!PAD) nblocks = pk_num_blocks(X, Y, Z);
+  pk_coupled_pair_kernel<T, C, IN_DEFERRED, GW, PAD>
       <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
          (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X, Y,
-                                 Z, p, (T*)partials, pk_num_blocks(X, Y, Z));
+                                 Z, p, (T*)partials, nblocks, g);
   const int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  return pk_finish_sums<T>(partials, sums, 2 * PK_NT, X, Y, Z,
+  if (PAD || rc != 0) return rc;
+  return pk_finish_sums<T>(partials, sums, 2 * PK_NT, nblocks,
                            (cudaStream_t)stream);
 }
 
@@ -304,7 +336,30 @@ static int pk_launch_coupled(const void* const* ins, void* const* outs,
   extern "C" int name(PK_COUPLED_ARGS) {                                    \
     return pk_launch_coupled<T, C, IN_DEFERRED, GW> PK_COUPLED_CALL;        \
   }
+// The sharded tier: the padded launch, with the arguments of every padded
+// entry point of the fused sources (fused_stage.cu): partials, nblocks, then
+// Nb, Nw, Ys, x0, yb0, GYb (PkGeom).
+#define PK_COUPLED_PAD_ENTRY(name, T, IN_DEFERRED, GW, PAD)                 \
+  extern "C" int name(const void* const* ins, void* const* outs, int X,     \
+                      int Y, int Z, const double* params, void* partials,   \
+                      int64_t nblocks, int64_t Nb, int64_t Nw, int Ys,      \
+                      int x0, int yb0, int GYb, void* stream) {             \
+    return pk_launch_coupled<T, T, IN_DEFERRED, GW, PAD>(                   \
+        ins, outs, X, Y, Z, params, partials, nullptr, stream,              \
+        PkGeom{Nb, Nw, Ys, x0, yb0, GYb}, nblocks);                         \
+  }
+#define PK_COUPLED_PAD_ENTRIES(name, IN_DEFERRED, GW)                       \
+  PK_COUPLED_PAD_ENTRY(name##_f32_xpad, float, IN_DEFERRED, GW, PK_PAD_X)   \
+  PK_COUPLED_PAD_ENTRY(name##_f32_ypad, float, IN_DEFERRED, GW, PK_PAD_Y)   \
+  PK_COUPLED_PAD_ENTRY(name##_f32_xypad, float, IN_DEFERRED, GW,            \
+                       PK_PAD_X | PK_PAD_Y)                                 \
+  PK_COUPLED_PAD_ENTRY(name##_f64_xpad, double, IN_DEFERRED, GW, PK_PAD_X)  \
+  PK_COUPLED_PAD_ENTRY(name##_f64_ypad, double, IN_DEFERRED, GW, PK_PAD_Y)  \
+  PK_COUPLED_PAD_ENTRY(name##_f64_xypad, double, IN_DEFERRED, GW,           \
+                       PK_PAD_X | PK_PAD_Y)
 #define PK_BF16 __nv_bfloat16
+
+PK_FINISH_ENTRIES
 
 PK_COUPLED_ENTRY(pk_coupled_pair_f32, float, float, false, false)
 PK_COUPLED_ENTRY(pk_coupled_pair_f64, double, double, false, false)
@@ -316,6 +371,8 @@ PK_COUPLED_ENTRY(pk_coupled_pair_deferred_f32_bf16, float, PK_BF16, true,
                  false)
 PK_COUPLED_ENTRY(pk_coupled_pair_deferred_f64_bf16, double, PK_BF16, true,
                  false)
+PK_COUPLED_PAD_ENTRIES(pk_coupled_pair, false, false)
+PK_COUPLED_PAD_ENTRIES(pk_coupled_pair_deferred, true, false)
 
 #ifdef PK_NH
 PK_COUPLED_ENTRY(pk_preheat_coupled_pair_f32, float, float, false, true)
@@ -332,6 +389,8 @@ PK_COUPLED_ENTRY(pk_preheat_coupled_pair_deferred_f32_bf16, float, PK_BF16,
                  true, true)
 PK_COUPLED_ENTRY(pk_preheat_coupled_pair_deferred_f64_bf16, double, PK_BF16,
                  true, true)
+PK_COUPLED_PAD_ENTRIES(pk_preheat_coupled_pair, false, true)
+PK_COUPLED_PAD_ENTRIES(pk_preheat_coupled_pair_deferred, true, true)
 #endif
 
 #else

@@ -31,17 +31,19 @@
 // periodic wrap by index arithmetic, 64-bit offsets, outputs to separate
 // buffers, -fmad=false, the tensor components one after another.
 //
-// The sharded tier (K3 only: the _xpad, _ypad, _xypad entry points)
+// The sharded tier (the _xpad, _ypad, _xypad entry points of K3 and K8)
 // replaces StreamingStencil._build_xhalo (pystella_tpu/ops/pallas_stencil.py:
-// 789) and, through the interior and shell launches, OverlapStreamingStencil
-// (:931) on _pair_body, as _make_call (pystella_tpu/ops/fused.py:458) runs
-// it on a sharded lattice. The three windows f, dfdt and kf (the JAX pair's
-// windows, pystella_tpu/ops/fused.py:456) are padded along x and/or y by the
-// neighbours' rows and read unwrapped there, at the site and by PkAxpyLoad at
-// every tap (PAD, PkGeom in pk_common.cuh); kdfdt and the outputs are the
-// full block, the region's rows from its first x row. The arithmetic is
-// K3's, so a padded launch equals K3 on the whole lattice bit for bit, and
-// an interior plus two shell launches equal a padded launch.
+// 789) and, through the interior and shell launches,
+// OverlapStreamingStencil (:931) on _pair_body, as _make_call
+// (pystella_tpu/ops/fused.py:483) runs it on a sharded lattice. The windows
+// -- f, dfdt and kf, and for K8 also hij, dhijdt and khij: the JAX pairs'
+// windows (pystella_tpu/ops/fused.py:456, :1771) -- are padded along x
+// and/or y by the neighbours' rows and read unwrapped there, at the site and
+// by PkAxpyLoad at every tap of the Laplacians and gradients (PAD, PkGeom in
+// pk_common.cuh); kdfdt, kdhijdt and the outputs are the full block, the
+// region's rows from its first x row. The arithmetic is the unpadded
+// kernel's, so a padded launch equals it on the whole lattice bit for bit,
+// and an interior plus two shell launches equal a padded launch.
 #include "pk_common.cuh"
 
 template <typename T>
@@ -55,7 +57,6 @@ template <typename T, typename C, bool GW, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
                      PkPairParams<T> p, PkGeom g) {
-  static_assert(PAD == 0 || !GW, "the sharded tier pads the scalar pair only");
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int x = blockIdx.z;
@@ -134,14 +135,15 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
     T dfdx[PK_F][3], sij1[PK_NH], sij2[PK_NH];
 #pragma unroll
     for (int c = 0; c < PK_F; ++c)
-      pk_grad(PkLoad<T>{f + c * N, Y, Z}, x, y, z, X, Y, Z, p.g, dfdx[c]);
+      pk_grad<PAD>(PkLoad<T>{f + c * Nw, Yw, Z}, x, y, z, X, Y, Z, p.g,
+                   dfdx[c]);
     pk_sij<T>(dfdx, p.a1, p.hubble1, sij1);
 #pragma unroll
     for (int c = 0; c < PK_F; ++c) {
-      const PkAxpyLoad<T, PkAt<T>, C> load{f + c * N, kf + c * N,
-                                           {dfdt + c * N}, p.B1, p.A1,
-                                           p.dt, Y, Z};
-      pk_grad(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
+      const PkAxpyLoad<T, PkAt<T>, C> load{f + c * Nw, kf + c * Nw,
+                                           {dfdt + c * Nw}, p.B1, p.A1,
+                                           p.dt, Yw, Z};
+      pk_grad<PAD>(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
     }
     pk_sij<T>(dfdx, p.a2, p.hubble2, sij2);
 
@@ -155,17 +157,18 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
 #pragma unroll 1
     for (int c = 0; c < PK_NH; ++c) {
       const int64_t i = c * N + site;
-      const T h0 = h[i];
-      const T lap_h = pk_lap(PkLoad<T>{h + c * N, Y, Z}, h0, x, y, z, X, Y,
-                             Z, p.w);
+      const int64_t wi = c * Nw + wsite;
+      const T h0 = h[wi];
+      const T lap_h = pk_lap<PAD>(PkLoad<T>{h + c * Nw, Yw, Z}, h0, x, y, z,
+                                  X, Y, Z, p.w);
       T h1, dh1, kh1, kdh1;
-      pk_gw_stage(h0, dh[i], PkCarry<T, C>::load(kh[i]),
+      pk_gw_stage(h0, dh[wi], PkCarry<T, C>::load(kh[wi]),
                   PkCarry<T, C>::load(kdh[i]), lap_h, sij1[c], p.A1, p.B1,
                   p.dt, two_hub1, h1, dh1, kh1, kdh1);
-      const PkAxpyLoad<T, PkAt<T>, C> load{h + c * N, kh + c * N,
-                                           {dh + c * N}, p.B1, p.A1, p.dt,
-                                           Y, Z};
-      const T lap_h1 = pk_lap(load, h1, x, y, z, X, Y, Z, p.w);
+      const PkAxpyLoad<T, PkAt<T>, C> load{h + c * Nw, kh + c * Nw,
+                                           {dh + c * Nw}, p.B1, p.A1, p.dt,
+                                           Yw, Z};
+      const T lap_h1 = pk_lap<PAD>(load, h1, x, y, z, X, Y, Z, p.w);
       T h2, dh2, kh2, kdh2;
       pk_gw_stage(h1, dh1, kh1, kdh1, lap_h1, sij2[c], p.A2, p.B2, p.dt,
                   two_hub, h2, dh2, kh2, kdh2);
@@ -185,7 +188,7 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
 template <typename T, typename C, bool GW, int PAD = 0>
 static int pk_launch_pair(const void* const* ins, void* const* outs, int X,
                           int Y, int Z, const double* params, void* stream,
-                          PkGeom g = PkGeom{0, 0, 0}) {
+                          PkGeom g = PkGeom{0, 0, 0, 0, 0, 0}) {
   PkPairParams<T> p;
   p.dt = T(params[0]);
   p.a1 = T(params[1]);
@@ -216,23 +219,29 @@ static int pk_launch_pair(const void* const* ins, void* const* outs, int X,
     return pk_launch_pair<T, C, GW>(ins, outs, X, Y, Z, params, stream);    \
   }
 
-// The sharded tier: the scalar pair on windows padded along x, y or both
-// (interior and shell launches take the x-padded entry point). Nb, Nw, Ys:
-// PkGeom.
-#define PK_PAIR_PAD_ENTRY(name, T, PAD)                                     \
+// The sharded tier: a pair on windows padded along x, y or both (interior
+// and shell launches take the x-padded entry point). The arguments of every
+// padded entry point of the fused sources (fused_stage.cu): partials and
+// nblocks (no sums here: null and 0), then Nb, Nw, Ys (PkGeom; x0, yb0, GYb
+// unused).
+#define PK_PAIR_PAD_ENTRY(name, T, GW, PAD)                                 \
   extern "C" int name(const void* const* ins, void* const* outs, int X,     \
-                      int Y, int Z, const double* params, int64_t Nb,       \
-                      int64_t Nw, int Ys, void* stream) {                   \
-    return pk_launch_pair<T, T, false, PAD>(ins, outs, X, Y, Z, params,     \
-                                            stream, PkGeom{Nb, Nw, Ys});    \
+                      int Y, int Z, const double* params, void* partials,   \
+                      int64_t nblocks, int64_t Nb, int64_t Nw, int Ys,      \
+                      int x0, int yb0, int GYb, void* stream) {             \
+    return pk_launch_pair<T, T, GW, PAD>(                                   \
+        ins, outs, X, Y, Z, params, stream,                                 \
+        PkGeom{Nb, Nw, Ys, x0, yb0, GYb});                                  \
   }
+#define PK_PAIR_PAD_ENTRIES(name, GW)                                       \
+  PK_PAIR_PAD_ENTRY(name##_f32_xpad, float, GW, PK_PAD_X)                   \
+  PK_PAIR_PAD_ENTRY(name##_f32_ypad, float, GW, PK_PAD_Y)                   \
+  PK_PAIR_PAD_ENTRY(name##_f32_xypad, float, GW, PK_PAD_X | PK_PAD_Y)       \
+  PK_PAIR_PAD_ENTRY(name##_f64_xpad, double, GW, PK_PAD_X)                  \
+  PK_PAIR_PAD_ENTRY(name##_f64_ypad, double, GW, PK_PAD_Y)                  \
+  PK_PAIR_PAD_ENTRY(name##_f64_xypad, double, GW, PK_PAD_X | PK_PAD_Y)
 
-PK_PAIR_PAD_ENTRY(pk_fused_pair_f32_xpad, float, PK_PAD_X)
-PK_PAIR_PAD_ENTRY(pk_fused_pair_f32_ypad, float, PK_PAD_Y)
-PK_PAIR_PAD_ENTRY(pk_fused_pair_f32_xypad, float, PK_PAD_X | PK_PAD_Y)
-PK_PAIR_PAD_ENTRY(pk_fused_pair_f64_xpad, double, PK_PAD_X)
-PK_PAIR_PAD_ENTRY(pk_fused_pair_f64_ypad, double, PK_PAD_Y)
-PK_PAIR_PAD_ENTRY(pk_fused_pair_f64_xypad, double, PK_PAD_X | PK_PAD_Y)
+PK_PAIR_PAD_ENTRIES(pk_fused_pair, false)
 PK_PAIR_ENTRY(pk_fused_pair_f32, float, float, false)
 PK_PAIR_ENTRY(pk_fused_pair_f64, double, double, false)
 PK_PAIR_ENTRY(pk_fused_pair_f32_bf16, float, __nv_bfloat16, false)
@@ -243,4 +252,5 @@ PK_PAIR_ENTRY(pk_preheat_pair_f32, float, float, true)
 PK_PAIR_ENTRY(pk_preheat_pair_f64, double, double, true)
 PK_PAIR_ENTRY(pk_preheat_pair_f32_bf16, float, __nv_bfloat16, true)
 PK_PAIR_ENTRY(pk_preheat_pair_f64_bf16, double, __nv_bfloat16, true)
+PK_PAIR_PAD_ENTRIES(pk_preheat_pair, true)
 #endif

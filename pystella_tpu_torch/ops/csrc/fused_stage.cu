@@ -58,16 +58,22 @@
 // component's values at a time. K5 writes one partial per term and block (a
 // few MB at 512^3) and reduces them in a second, small launch.
 //
-// The sharded tier (K2 only: the _xpad, _ypad, _xypad entry points)
+// The sharded tier (the _xpad, _ypad, _xypad entry points of every variant)
 // replaces StreamingStencil._build_xhalo (pystella_tpu/ops/pallas_stencil.py:
-// 789) and, through the interior and shell launches, OverlapStreamingStencil
-// (:931) on _scalar_body, as _make_call (pystella_tpu/ops/fused.py:458) runs
-// it on a sharded lattice. The window f is padded along x and/or y by the
-// neighbours' rows and read unwrapped there (PAD, PkGeom in pk_common.cuh);
-// dfdt, kf, kdfdt and the outputs are the full block, the region's rows
-// from its first x row. The arithmetic is K2's, so a padded launch equals K2
-// on the whole lattice bit for bit, and an interior plus two shell launches
-// equal a padded launch.
+// 789) and, through the interior and shell launches of K2 and K7,
+// OverlapStreamingStencil (:931) on _scalar_body and _preheat_body, as
+// _make_call (pystella_tpu/ops/fused.py:483) runs them on a sharded lattice.
+// The windows (f; for K7 and K5' also hij: the JAX stage's windows) are
+// padded along x and/or y by the neighbours' rows and read unwrapped there
+// (PAD, PkGeom in pk_common.cuh), by the Laplacians and the gradients;
+// dfdt, the carries, dhijdt and the outputs are the full block, the region's
+// rows from its first x row. The arithmetic is the unpadded kernel's, so a
+// padded launch equals it on the whole lattice bit for bit, and an interior
+// plus two shell launches equal a padded launch. K5 and K5' keep the padded
+// launch on every mesh (the JAX package's rule for kernels with sums): a
+// block's partials go to the index it has in the whole lattice's launch
+// (pk_partial_index), threads past the region's edge adding zeros, and the
+// host runs the second launch once after every shard's first.
 #include "pk_common.cuh"
 
 template <typename T>
@@ -83,8 +89,6 @@ __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
                       PkStageParams<T> p, T* __restrict__ partials,
                       int64_t nblocks, PkGeom g) {
-  static_assert(PAD == 0 || (!ENERGY && !GW),
-                "the sharded tier pads the scalar stage only");
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int x = blockIdx.z;
@@ -146,7 +150,8 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
       T dfdx[PK_F][3], sij[PK_NH];
 #pragma unroll
       for (int c = 0; c < PK_F; ++c)
-        pk_grad(PkLoad<T>{f + c * N, Y, Z}, x, y, z, X, Y, Z, p.g, dfdx[c]);
+        pk_grad<PAD>(PkLoad<T>{f + c * Nw, Yw, Z}, x, y, z, X, Y, Z, p.g,
+                     dfdx[c]);
       pk_sij<T>(dfdx, p.a, p.hubble, sij);
       const T* __restrict__ h = io.in[4];
       const T* __restrict__ dh = io.in[5];
@@ -157,9 +162,9 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
 #pragma unroll 1
       for (int c = 0; c < PK_NH; ++c) {
         const int64_t i = c * N + site;
-        const T h0 = h[i];
-        const T lap_h = pk_lap(PkLoad<T>{h + c * N, Y, Z}, h0, x, y, z, X,
-                               Y, Z, p.w);
+        const T h0 = h[c * Nw + wsite];
+        const T lap_h = pk_lap<PAD>(PkLoad<T>{h + c * Nw, Yw, Z}, h0, x, y,
+                                    z, X, Y, Z, p.w);
         T h1, dh1, kh1, kdh1;
         pk_gw_stage(h0, dh[i], PkCarry<T, C>::load(kh[i]),
                     PkCarry<T, KD>::load(kdh[i]), lap_h, sij[c], p.A, p.B,
@@ -172,20 +177,23 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
     }
 #endif
   }
-  if (ENERGY) pk_block_sums<T, PK_NT>(terms, partials, nblocks);
+  if (ENERGY) pk_block_sums<T, PK_NT, PAD>(terms, partials, nblocks, g);
 }
 
 // ins / outs: host arrays of 4 (scalar) or 8 (GW: then hij, dhijdt, khij,
 // kdhijdt) device pointers. params: dt, a, hubble, A, B, then the Laplacian
 // weights (pk_lap_weights) and, for GW, the gradient weights
-// (pk_grad_weights). With ENERGY, partials holds PK_NT * pk_num_blocks(X, Y,
-// Z) values and sums receives the PK_NT entry-state sums.
+// (pk_grad_weights). With ENERGY, partials holds PK_NT * nblocks values and
+// sums receives the PK_NT entry-state sums: unpadded, nblocks is
+// pk_num_blocks(X, Y, Z) and the second launch follows; padded, nblocks is
+// the whole lattice's count (PkGeom) and sums is null, the host finishing.
 template <typename T, typename C, typename KD, bool ENERGY, bool GW,
           int PAD = 0>
 static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
                            int Y, int Z, const double* params,
                            void* partials, void* sums, void* stream,
-                           PkGeom g = PkGeom{0, 0, 0}) {
+                           PkGeom g = PkGeom{0, 0, 0, 0, 0, 0},
+                           int64_t nblocks = 0) {
   PkStageParams<T> p;
   p.dt = T(params[0]);
   p.a = T(params[1]);
@@ -194,14 +202,14 @@ static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
   p.B = T(params[4]);
   p.w = pk_lap_weights<T>(params + 5);
   if (GW) p.g = pk_grad_weights<T>(params + 5 + PK_NLAPW);
+  if (!PAD) nblocks = pk_num_blocks(X, Y, Z);
   pk_fused_stage_kernel<T, C, KD, ENERGY, GW, PAD>
       <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
          (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X,
-                                 Y, Z, p, (T*)partials,
-                                 pk_num_blocks(X, Y, Z), g);
+                                 Y, Z, p, (T*)partials, nblocks, g);
   const int rc = (int)cudaGetLastError();
-  if (!ENERGY || rc != 0) return rc;
-  return pk_finish_sums<T>(partials, sums, PK_NT, X, Y, Z,
+  if (!ENERGY || PAD || rc != 0) return rc;
+  return pk_finish_sums<T>(partials, sums, PK_NT, nblocks,
                            (cudaStream_t)stream);
 }
 
@@ -223,28 +231,39 @@ static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
     return pk_launch_stage<T, C, KD, true, GW>(ins, outs, X, Y, Z, params,  \
                                                partials, sums, stream);     \
   }
-// The sharded tier: the scalar stage on a window padded along x, y or both
-// (interior and shell launches take the x-padded entry point). Nb, Nw, Ys:
-// PkGeom.
-#define PK_STAGE_PAD_ENTRY(name, T, PAD)                                    \
-  extern "C" int name(PK_STAGE_ARGS, int64_t Nb, int64_t Nw, int Ys,       \
-                      void* stream) {                                       \
-    return pk_launch_stage<T, T, T, false, false, PAD>(                     \
-        ins, outs, X, Y, Z, params, nullptr, nullptr, stream,               \
-        PkGeom{Nb, Nw, Ys});                                                \
+// The sharded tier: a stage on windows padded along x, y or both (interior
+// and shell launches take the x-padded entry point). partials, nblocks (the
+// sum kernels only; null and 0 otherwise) and Nb, Nw, Ys, x0, yb0, GYb
+// (PkGeom): the same arguments for every padded entry point of the fused
+// sources.
+#define PK_PAD_ARGS                                                         \
+  PK_STAGE_ARGS, void *partials, int64_t nblocks, int64_t Nb, int64_t Nw,   \
+      int Ys, int x0, int yb0, int GYb, void *stream
+#define PK_STAGE_PAD_ENTRY(name, T, ENERGY, GW, PAD)                        \
+  extern "C" int name(PK_PAD_ARGS) {                                        \
+    return pk_launch_stage<T, T, T, ENERGY, GW, PAD>(                       \
+        ins, outs, X, Y, Z, params, partials, nullptr, stream,              \
+        PkGeom{Nb, Nw, Ys, x0, yb0, GYb}, nblocks);                         \
   }
+#define PK_STAGE_PAD_ENTRIES(name, ENERGY, GW)                              \
+  PK_STAGE_PAD_ENTRY(name##_f32_xpad, float, ENERGY, GW, PK_PAD_X)          \
+  PK_STAGE_PAD_ENTRY(name##_f32_ypad, float, ENERGY, GW, PK_PAD_Y)          \
+  PK_STAGE_PAD_ENTRY(name##_f32_xypad, float, ENERGY, GW,                   \
+                     PK_PAD_X | PK_PAD_Y)                                   \
+  PK_STAGE_PAD_ENTRY(name##_f64_xpad, double, ENERGY, GW, PK_PAD_X)         \
+  PK_STAGE_PAD_ENTRY(name##_f64_ypad, double, ENERGY, GW, PK_PAD_Y)         \
+  PK_STAGE_PAD_ENTRY(name##_f64_xypad, double, ENERGY, GW,                  \
+                     PK_PAD_X | PK_PAD_Y)
 #define PK_BF16 __nv_bfloat16
+
+PK_FINISH_ENTRIES
 
 PK_STAGE_ENTRY(pk_fused_stage_f32, float, float, false)
 PK_STAGE_ENTRY(pk_fused_stage_f64, double, double, false)
 PK_STAGE_ENTRY(pk_fused_stage_f32_bf16, float, PK_BF16, false)
 PK_STAGE_ENTRY(pk_fused_stage_f64_bf16, double, PK_BF16, false)
-PK_STAGE_PAD_ENTRY(pk_fused_stage_f32_xpad, float, PK_PAD_X)
-PK_STAGE_PAD_ENTRY(pk_fused_stage_f32_ypad, float, PK_PAD_Y)
-PK_STAGE_PAD_ENTRY(pk_fused_stage_f32_xypad, float, PK_PAD_X | PK_PAD_Y)
-PK_STAGE_PAD_ENTRY(pk_fused_stage_f64_xpad, double, PK_PAD_X)
-PK_STAGE_PAD_ENTRY(pk_fused_stage_f64_ypad, double, PK_PAD_Y)
-PK_STAGE_PAD_ENTRY(pk_fused_stage_f64_xypad, double, PK_PAD_X | PK_PAD_Y)
+PK_STAGE_PAD_ENTRIES(pk_fused_stage, false, false)
+PK_STAGE_PAD_ENTRIES(pk_fused_stage_energy, true, false)
 PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f32, float, float, float, false)
 PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f64, double, double, double,
                       false)
@@ -262,6 +281,8 @@ PK_STAGE_ENTRY(pk_preheat_stage_f32, float, float, true)
 PK_STAGE_ENTRY(pk_preheat_stage_f64, double, double, true)
 PK_STAGE_ENTRY(pk_preheat_stage_f32_bf16, float, PK_BF16, true)
 PK_STAGE_ENTRY(pk_preheat_stage_f64_bf16, double, PK_BF16, true)
+PK_STAGE_PAD_ENTRIES(pk_preheat_stage, false, true)
+PK_STAGE_PAD_ENTRIES(pk_preheat_stage_energy, true, true)
 PK_STAGE_ENERGY_ENTRY(pk_preheat_stage_energy_f32, float, float, float, true)
 PK_STAGE_ENERGY_ENTRY(pk_preheat_stage_energy_f64, double, double, double,
                       true)

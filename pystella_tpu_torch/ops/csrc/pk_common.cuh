@@ -91,9 +91,19 @@ __device__ __forceinline__ int pk_tap(int i, int n) {
 // block (component stride Nb), their pointers set to the region's first x
 // row, so an interior or shell launch writes into the full output block in
 // place. An unpadded launch has Nb = Nw = X * Y * Z and Ys = Y.
+//
+// The sum kernels (K5, K6, K9, K5') place each block's partial sums at the
+// index the block has in the launch over the whole lattice (pk_partial_index):
+// x0 is the region's first x row in the lattice, yb0 its first y block and
+// GYb the lattice's number of y blocks. One pk_reduce_partials_kernel over
+// the lattice's partials then gives the unsharded launch's sums bit for bit,
+// when every shard's y blocks are the lattice's (its Y a multiple of
+// PK_BLOCK_Y, or y unsharded). x0 = yb0 = 0 with GYb the region's own count
+// index the region's partials alone.
 struct PkGeom {
   int64_t Nb, Nw;
   int Ys;
+  int x0, yb0, GYb;
 };
 
 // Laplacian weights: w0 = coefs[0] * sum(1/dx^2), and per offset s = 1..H
@@ -326,6 +336,17 @@ __device__ __forceinline__ int64_t pk_block_index() {
          + blockIdx.x;
 }
 
+// Where a block writes its partial sums: its own index in an unpadded
+// launch, its index in the whole lattice's launch in a padded one (PkGeom).
+template <int PAD>
+__device__ __forceinline__ int64_t pk_partial_index(const PkGeom& g) {
+  if constexpr (PAD == 0)
+    return pk_block_index();
+  else
+    return ((int64_t)(g.x0 + (int)blockIdx.z) * g.GYb + g.yb0
+            + (int)blockIdx.y) * gridDim.x + blockIdx.x;
+}
+
 extern "C" long long pk_num_blocks(int X, int Y, int Z) {
   const dim3 g = pk_grid(X, Y, Z);
   return (long long)g.x * g.y * g.z;
@@ -358,13 +379,15 @@ __device__ __forceinline__ void pk_gw_stage(T h0, T dh0, T kh0, T kdh0,
 // 1. pk_block_sums: each block of the stencil kernel reduces its 256 sites'
 //    terms in a fixed tree (a shuffle-down tree in each warp, then the 8 warp
 //    sums pairwise) and writes one partial per term into a (terms, blocks)
-//    buffer;
+//    buffer, at the block's index there (pk_partial_index);
 // 2. pk_reduce_partials_kernel: one block per term sums that term's
 //    partials in a fixed order (per thread, pairwise groups of 8 folded in
 //    sequence; then a tree over the threads).
 //
 // The order depends on the lattice shape only, so two launches on the same
-// inputs give bit-equal sums. Sums are kept in T, as the JAX accumulator is.
+// inputs give bit-equal sums, and so do the padded launches of a sharded
+// lattice whose partials land in one buffer at their unsharded indices. Sums
+// are kept in T, as the JAX accumulator is.
 // ---------------------------------------------------------------------------
 
 // terms of one energy sum set: per component sum(dfdt^2), then per
@@ -375,10 +398,11 @@ __device__ __forceinline__ void pk_gw_stage(T h0, T dh0, T kh0, T kdh0,
 static_assert(PK_BLOCK_Z == 32 && PK_BLOCK_Y == 8,
               "pk_block_sums reduces one warp per y row, 8 warps a block");
 
-template <typename T, int NT>
+template <typename T, int NT, int PAD = 0>
 __device__ __forceinline__ void pk_block_sums(T (&v)[NT],
                                               T* __restrict__ partials,
-                                              int64_t nblocks) {
+                                              int64_t nblocks,
+                                              const PkGeom& g) {
   __shared__ T warp_sums[NT][PK_BLOCK_Y];
   const int lane = threadIdx.x, warp = threadIdx.y;
 #pragma unroll
@@ -395,7 +419,7 @@ __device__ __forceinline__ void pk_block_sums(T (&v)[NT],
   const int t = warp * PK_BLOCK_Z + lane;
   if (t < NT) {
     const T* w = warp_sums[t];
-    partials[t * nblocks + pk_block_index()] =
+    partials[t * nblocks + pk_partial_index<PAD>(g)] =
         ((w[0] + w[1]) + (w[2] + w[3])) + ((w[4] + w[5]) + (w[6] + w[7]));
   }
 }
@@ -427,9 +451,24 @@ pk_reduce_partials_kernel(const T* __restrict__ partials,
 
 // Second launch of a sum: the (nterms, nblocks) partials -> nterms sums.
 template <typename T>
-static int pk_finish_sums(void* partials, void* sums, int nterms, int X,
-                          int Y, int Z, cudaStream_t stream) {
+static int pk_finish_sums(void* partials, void* sums, int nterms,
+                          int64_t nblocks, cudaStream_t stream) {
   pk_reduce_partials_kernel<T><<<nterms, PK_REDUCE_THREADS, 0, stream>>>(
-      (const T*)partials, (T*)sums, pk_num_blocks(X, Y, Z));
+      (const T*)partials, (T*)sums, nblocks);
   return (int)cudaGetLastError();
 }
+
+// The second launch as an entry point of the sources with sum kernels: the
+// sharded tier runs it once, after the padded launches of every shard have
+// written their partials.
+#define PK_FINISH_ENTRIES                                                   \
+  extern "C" int pk_finish_sums_f32(void* partials, void* sums, int nterms, \
+                                    int64_t nblocks, void* stream) {        \
+    return pk_finish_sums<float>(partials, sums, nterms, nblocks,           \
+                                 (cudaStream_t)stream);                     \
+  }                                                                         \
+  extern "C" int pk_finish_sums_f64(void* partials, void* sums, int nterms, \
+                                    int64_t nblocks, void* stream) {        \
+    return pk_finish_sums<double>(partials, sums, nterms, nblocks,          \
+                                  (cudaStream_t)stream);                    \
+  }

@@ -39,17 +39,22 @@ storing the k-carries in bfloat16 (widened on load, rounded on store, the
 energy sums taken from the widened values), counted as ``<name>:bf16``.
 
 With ``decomp=`` (a :class:`~pystella_tpu_torch.parallel.DomainDecomposition`
-of an ``(px, py, 1)`` mesh) :class:`FusedScalarStepper` steps
-:class:`~pystella_tpu_torch.parallel.ShardedArray` states: per stage the
-window inputs (f; for a pair f, dfdt and kf) are exchanged on a side CUDA
-stream into persistent padded buffers, one launch per block reads them
-(``fused_stage:xpad`` / ``:ypad`` / ``:xypad``, the same for ``fused_pair``:
-the JAX package's halo-input kernel), or, on an x-only mesh with the
-overlap on, an interior launch per block on the raw block runs while the
-x slabs are copied, then two shell launches per block (``:interior``,
+of an ``(px, py, 1)`` mesh) both steppers step
+:class:`~pystella_tpu_torch.parallel.ShardedArray` states: per launch the
+window inputs (those the JAX package pads, :data:`_WINDOWS`) are exchanged
+on a side CUDA stream into persistent padded buffers, one launch per block
+reads them (``<kernel>:xpad`` / ``:ypad`` / ``:xypad``: the JAX package's
+halo-input kernel), or, for a kernel without sums on an x-only mesh with
+the overlap on, an interior launch per block on the raw block runs while
+the x slabs are copied, then two shell launches per block (``:interior``,
 ``:shell``: ``OverlapStreamingStencil``). Every sharded launch equals the
-unsharded kernel on the whole lattice bit for bit, so a sharded
-:meth:`~FusedScalarStepper.multi_step` equals the single-device one.
+unsharded kernel on the whole lattice bit for bit. A sum kernel's blocks
+write their partial sums where the whole lattice's launch puts them, and
+one second launch after every shard's reduces them, so its sums are the
+unsharded kernel's too (:meth:`~FusedScalarStepper.sum_order`). A sharded
+:meth:`~FusedScalarStepper.multi_step` or
+:meth:`~FusedScalarStepper.coupled_multi_step` on one card therefore equals
+the single-device one.
 
 Beside each kernel sits its plain PyTorch version (``_scalar_body``,
 ``_scalar_pair_core``, ``_chunk_body``, ``_esums``, ``_deferred_pair_core``;
@@ -180,20 +185,37 @@ _FINALIZED = ("fused_stage_energy", "preheat_stage_energy")
 FIN = "_fin"
 
 #: the kernels of the sharded tier and, per kernel, which of its lattice
-#: inputs are windows (read with a halo: padded on a sharded mesh); the
-#: others, and the outputs, are read and written at the site only
-#: (pystella_tpu/ops/fused.py:426-456)
-_WINDOWS = {"fused_stage": (0,), "fused_pair": (0, 1, 2)}
+#: inputs (in launch order) are windows, read with a halo and so padded on a
+#: sharded mesh: the windows the JAX package's ``_make_call`` pads
+#: (pystella_tpu/ops/fused.py:426-456, the coupled pairs' ``_def_win_defs``
+#: :1272 and :1847, the GW kernels' :1700-1771, :1932). The others, and the
+#: outputs, are read and written at the site only.
+_WINDOWS = {"fused_stage": (0,), "fused_pair": (0, 1, 2),
+            "fused_stage_energy": (0,),
+            "coupled_pair": (0, 1, 2), "coupled_pair_deferred": (0, 1, 2, 3),
+            "preheat_stage": (0, 4), "preheat_pair": (0, 1, 2, 4, 5, 6),
+            "preheat_stage_energy": (0, 4),
+            "preheat_coupled_pair": (0, 1, 2, 4, 5, 6),
+            "preheat_coupled_pair_deferred": tuple(range(8))}
+#: the launch kinds of the overlapped path; a kernel with sums never takes
+#: them (the JAX package's rule, pystella_tpu/ops/fused.py:493-496: the
+#: split would change the sums' order), so it runs padded on every mesh
+_OVERLAP_KINDS = ("interior", "shell")
 #: sharded kernel name (``<kernel>:<kind>``, ``kind`` in
 #: :data:`~pystella_tpu_torch.ops.derivs.PAD_KINDS`) -> (CUDA source, the
 #: TPU kernel it replaces)
 SHARDED_KERNELS = {
     f"{name}:{kind}": (KERNELS[name][0], (
         "pystella_tpu/ops/pallas_stencil.py:993 (OverlapStreamingStencil."
-        "__call__, class :931" if kind in ("interior", "shell") else
+        "__call__, class :931" if kind in _OVERLAP_KINDS else
         "pystella_tpu/ops/pallas_stencil.py:789 (StreamingStencil."
         "_build_xhalo, call :840") + f"; body {KERNELS[name][1]})")
-    for name in _WINDOWS for kind in PAD_KINDS}
+    for name in _WINDOWS for kind in PAD_KINDS
+    if not (SUM_SETS[name] and kind in _OVERLAP_KINDS)}
+#: the threads of a kernel block along y (pk_common.cuh: PK_BLOCK_Y): a
+#: sharded sum launch lands its partials at their whole-lattice places when
+#: every shard's y blocks are the lattice's
+_BLOCK_Y = 8
 #: the entry point of each padding (interior and shell: the x-padded one)
 _PAD_SUFFIX = {1: "_xpad", 2: "_ypad", 3: "_xypad"}
 
@@ -280,18 +302,19 @@ class FusedScalarStepper(_step.Stepper):
         :class:`~pystella_tpu_torch.parallel.ShardedArray` s (see
         :func:`~pystella_tpu_torch.convert.shard_state`), and the stepper
         runs on the decomposition's devices. :meth:`stage`,
-        :meth:`stage_pair`, :meth:`step`, :meth:`multi_step` and
-        :meth:`multi_step_fn` take them; a chunk request runs pairs (the
-        JAX package's rule: a chunk's windows would need wider halos);
-        :meth:`coupled_multi_step` and ``carry_dtype`` wait for a later
-        slice of the port (ROADMAP queue 1 item 6) and raise
-        ``NotImplementedError``.
+        :meth:`stage_pair`, :meth:`step`, :meth:`multi_step`,
+        :meth:`multi_step_fn` and :meth:`coupled_multi_step` take them; a
+        chunk request runs pairs (the JAX package's rule: a chunk's windows
+        would need wider halos); ``carry_dtype`` waits for a later slice of
+        the port (ROADMAP queue 2: the ``_bf16`` halo-input variants) and
+        raises ``NotImplementedError``.
     :arg overlap: on an x-only mesh, split every launch into an interior
         launch that runs while the halos are copied and two x-shell
         launches (:func:`~pystella_tpu_torch.parallel.overlap.enabled`:
         ``None`` reads ``PYSTELLA_HALO_OVERLAP``, auto on for sharded
         meshes); bit-exact with the padded launch, which runs where no
-        split exists (a y-sharded mesh, a block thinner than ``3h``).
+        split exists (a y-sharded mesh, a block thinner than ``3h``) and
+        for the kernels with sums.
 
     States are dicts ``{"f": (F, X, Y, Z), "dfdt": (F, X, Y, Z)}``. A stencil
     cannot write its own input, so every launch writes into one of two
@@ -372,7 +395,8 @@ class FusedScalarStepper(_step.Stepper):
         if decomp is not None and self.carry_dtype is not None:
             raise NotImplementedError(
                 "carry_dtype on a sharded stepper waits for a later slice "
-                "of the port (ROADMAP queue 1 item 6)")
+                "of the port (ROADMAP queue 2: the _bf16 halo-input "
+                "variants)")
 
         F = sector.nscalars
         self.F = F
@@ -412,7 +436,7 @@ class FusedScalarStepper(_step.Stepper):
         # (_WINDOWS) and block: padded windows, or the x shells' inputs
         self._pad_bufs = {}
         self._shell_bufs = {}
-        self._partials = None  # the sum kernels' per-block scratch
+        self._partials = {}  # the sum kernels' partials, per device
         self._libs = None
         self._num_blocks = None
         if self.device.type == "cuda":
@@ -490,15 +514,25 @@ class FusedScalarStepper(_step.Stepper):
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
                     fns[name, dtype, cd, fin] = fn
-                # the sharded tier: params, then Nb, Nw, Ys (PkGeom), stream
+                # the sharded tier: params, then partials, nblocks, Nb, Nw,
+                # Ys, x0, yb0, GYb (PkGeom), stream
                 for bits, psuffix in (_PAD_SUFFIX.items()
                                       if name in _WINDOWS else ()):
                     fn = getattr(libs[src], f"pk_{name}_{suffix}{psuffix}")
-                    fn.argtypes = argtypes[:-1] + [
-                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                    fn.argtypes = argtypes[:6] + [
+                        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                        ctypes.c_int64] + [ctypes.c_int] * 4 + [
                         ctypes.c_void_p]
                     fn.restype = ctypes.c_int
                     fns[name, dtype, bits] = fn
+                if SUM_SETS[name]:
+                    # the sums' second launch alone: partials, sums,
+                    # nterms, nblocks, stream
+                    fn = getattr(libs[src], f"pk_finish_sums_{suffix}")
+                    fn.argtypes = [ctypes.c_void_p] * 2 + [
+                        ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
+                    fn.restype = ctypes.c_int
+                    fns[name, dtype, "finish"] = fn
         if self._chunk_depth:
             # the kernel's compile-time tile must be the one chunk_tile
             # predicts (the CPU path's fallback decisions rest on it)
@@ -562,18 +596,32 @@ class FusedScalarStepper(_step.Stepper):
                     f"{t.dtype} {tuple(t.shape)} on {t.device}"
                     f"{'' if t.is_contiguous() else ' (non-contiguous)'}")
 
-    def _partials_buffer(self, nterms, ref):
-        """The sum kernels' scratch: ``nterms`` partials per thread block.
-        One buffer serves every launch: each launch's second kernel has
-        consumed it before the next launch (same stream) writes it."""
-        X, Y, Z = self.local_shape
-        n = nterms * self._num_blocks(X, Y, Z)
-        buf = self._partials
-        if (buf is None or buf.numel() < n or buf.dtype != ref.dtype
-                or buf.device != ref.device):
-            buf = self._partials = torch.empty(n, dtype=ref.dtype,
-                                               device=ref.device)
+    def _partials_buffer(self, n, ref):
+        """The sum kernels' scratch on ``ref``'s device: ``n`` partials
+        (one per sum term and thread block of a launch, or of the whole
+        lattice's launch in the sharded tier). One buffer a device serves
+        every launch: each launch's second kernel has consumed it before
+        the next launch (same stream) writes it."""
+        buf = self._partials.get(ref.device)
+        if buf is None or buf.numel() < n or buf.dtype != ref.dtype:
+            buf = self._partials[ref.device] = torch.empty(
+                n, dtype=ref.dtype, device=ref.device)
         return buf
+
+    def _finish_sums(self, name, partials, nblocks, device):
+        """The second launch of kernel ``name``'s sums on its own: the
+        ``(terms, nblocks)`` partials on ``device`` -> a new vector of the
+        terms, split into its ``(2F+1,)`` sum sets."""
+        nsums = SUM_SETS[name] * (2 * self.F + 1)
+        flat = torch.empty(nsums, dtype=self.dtype, device=device)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = self._libs[name, self.dtype, "finish"](
+                partials.data_ptr(), flat.data_ptr(), nsums, nblocks, stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} sums' second launch failed with CUDA "
+                               f"error {rc}")
+        return list(flat.split(2 * self.F + 1))
 
     def launch(self, name, ins, outs, params):
         """Run kernel ``name`` on CUDA tensors (counting the launch) or its
@@ -620,8 +668,9 @@ class FusedScalarStepper(_step.Stepper):
             sums = []
             if nsums:
                 flat = torch.empty(nsums, dtype=self.dtype, device=dev)
-                args += [self._partials_buffer(nsums, flat).data_ptr(),
-                         flat.data_ptr()]
+                args += [self._partials_buffer(
+                    nsums * self._num_blocks(X, Y, Z), flat).data_ptr(),
+                    flat.data_ptr()]
                 sums = list(flat.split(2 * self.F + 1))
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev).cuda_stream
@@ -674,42 +723,54 @@ class FusedScalarStepper(_step.Stepper):
 
     # -- the sharded tier ------------------------------------------------------
 
-    def launch_block(self, name, kind, ins, outs, params, x0=0):
+    def launch_block(self, name, kind, ins, outs, params, x0=0,
+                     partials=None):
         """One launch of the sharded tier on one block: kernel ``name``
         (a key of :data:`_WINDOWS`) of ``kind`` (a key of
-        :data:`~pystella_tpu_torch.ops.derivs.PAD_KINDS`). ``ins`` are the
-        lattice inputs in kernel order: at the window slots windows ``(F, X
-        + 2 hx, Y + 2 hy, Z)``, ``hx`` (``hy``) the radius where ``kind``
-        pads x (y) -- the padded block, or for the overlapped path the raw
-        block (interior) or an ``(F, 3h, Y, Z)`` shell input --, elsewhere
-        the full block, as ``outs``. The launch computes the ``(X, Y, Z)``
-        region and writes its rows of ``outs`` from x row ``x0`` on: the
-        kernel on CUDA tensors (counted as ``<name>:<kind>``), the plain
-        version on CPU tensors. Returns ``outs``."""
+        :data:`~pystella_tpu_torch.ops.derivs.PAD_KINDS`; ``interior`` and
+        ``shell`` only for a kernel without sums). ``ins`` are the lattice
+        inputs in kernel order: at the window slots windows ``(C, X + 2 hx,
+        Y + 2 hy, Z)``, ``hx`` (``hy``) the radius where ``kind`` pads x (y)
+        -- the padded block, or for the overlapped path the raw block
+        (interior) or a ``(C, 3h, Y, Z)`` shell input --, elsewhere the full
+        block, as ``outs``. The launch computes the ``(X, Y, Z)`` region and
+        writes its rows of ``outs`` from x row ``x0`` on: the kernel on CUDA
+        tensors (counted as ``<name>:<kind>``), the plain version on CPU
+        tensors. Returns ``outs``, followed, for a kernel with sums, by the
+        region's own energy-sum vectors -- unless ``partials`` (CUDA only)
+        is ``(buffer, nblocks, x0, yb0, GYb)``: then the launch writes its
+        blocks' partial sums into ``buffer`` at their places in a launch
+        over ``nblocks`` blocks (PkGeom in pk_common.cuh: the region's
+        first x row and y block there, and its y-block count), and the
+        caller runs the second launch (:meth:`_finish_sums`) once every
+        block has written."""
         wins = _WINDOWS.get(name)
-        if wins is None or name not in self._KERNEL.values():
-            raise ValueError(f"{name} has no sharded launch on this stepper")
+        if wins is None or name not in self._KERNEL.values() or (
+                SUM_SETS[name] and kind in _OVERLAP_KINDS):
+            raise ValueError(f"{name} has no {kind} launch on this stepper")
         bits = PAD_KINDS[kind]
         hx, hy = (self.h if bits & 1 else 0), (self.h if bits & 2 else 0)
         Xb, Y, Z = self.local_shape
         Xw, Yw = ins[wins[0]].shape[1:3]
         X = Xw - 2 * hx
         dev = ins[0].device
+        n = len(self._comps)
         for j, t in enumerate(list(ins) + list(outs)):
-            shape = ((self.F, Xw, Yw, Z) if j in wins
-                     else (self.F,) + self.local_shape)
+            c = self._comps[j % n]
+            shape = ((c, Xw, Yw, Z) if j in wins else (c,) + self.local_shape)
             if (tuple(t.shape) != shape or t.dtype != self.dtype
                     or t.device != dev or not t.is_contiguous()):
                 raise ValueError(
                     f"{name}:{kind} takes contiguous {self.dtype} tensors on "
-                    f"one device, windows {(self.F, Xw, Yw, Z)} and blocks "
-                    f"{(self.F,) + self.local_shape}; got {t.dtype} "
+                    f"one device, windows {(c, Xw, Yw, Z)} and blocks "
+                    f"{(c,) + self.local_shape}; got {t.dtype} "
                     f"{tuple(t.shape)} on {t.device}")
-        if len(ins) != 4 or len(outs) != 4 or Yw - 2 * hy != Y or X < 1 \
+        if len(ins) != n or len(outs) != n or Yw - 2 * hy != Y or X < 1 \
                 or x0 < 0 or x0 + X > Xb:
             raise ValueError(f"{name}:{kind}: a window of {Xw} x {Yw} rows "
                              f"has no region of {self.local_shape} at x row "
                              f"{x0}")
+        nsums = SUM_SETS[name] * (2 * self.F + 1)
         if dev.type == "cuda":
             fn = (self._libs or {}).get((name, self.dtype, bits))
             if fn is None:
@@ -718,48 +779,90 @@ class FusedScalarStepper(_step.Stepper):
                                    "device)")
             item = self.dtype.itemsize
             woff, boff = (hx * Yw + hy) * Z * item, x0 * Y * Z * item
-            ptrs = ctypes.c_void_p * 4
+            ptrs = ctypes.c_void_p * n
             prm = (ctypes.c_double * (len(params) + len(self._weights)))(
                 *params, *self._weights)
+            own = nsums and partials is None
+            if own:
+                nb = self._num_blocks(X, Y, Z)
+                partials = (self._partials_buffer(nsums * nb, ins[0]), nb,
+                            0, 0, -(-Y // _BLOCK_Y))
+            buf, nb, *geo = partials if nsums else (None, 0, 0, 0, 0)
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev).cuda_stream
                 rc = fn(ptrs(*(t.data_ptr() + (woff if j in wins else boff)
                                for j, t in enumerate(ins))),
                         ptrs(*(o.data_ptr() + boff for o in outs)), X, Y, Z,
-                        prm, Xb * Y * Z, Xw * Yw * Z, Yw, stream)
+                        prm, None if buf is None else buf.data_ptr(), nb,
+                        Xb * Y * Z, Xw * Yw * Z, Yw, *geo, stream)
             if rc != 0:
                 raise RuntimeError(f"{name}:{kind} kernel launch failed "
                                    f"with CUDA error {rc}")
             LAUNCHES[f"{name}:{kind}"] += 1
-            return outs
+            if own:
+                return list(outs) + self._finish_sums(name, buf, nb, dev)
+            return list(outs)
         if dev.type == "cpu":
             res = self.plain(name, [t if j in wins else t.narrow(1, x0, X)
                                     for j, t in enumerate(ins)], params,
                              pad=(hx, hy))
             for o, r in zip(outs, res):
                 o.narrow(1, x0, X).copy_(r)
-            return outs
+            return list(outs) + res[len(outs):]
         raise ValueError(f"no fused kernel for device {dev}")
 
-    def sharded_kinds(self):
+    def sharded_kinds(self, name=None):
         """The launches one kernel launch of this stepper makes per block,
         by kind: ``{}`` unsharded; ``{None: 1}`` on a mesh that shards
         nothing (the unsharded kernels, per block); ``{"interior": 1,
-        "shell": 2}`` on the overlapped path; else the padding's kind."""
+        "shell": 2}`` on the overlapped path; else the padding's kind. For
+        a kernel ``name`` with sums, the padding's kind even where the
+        others overlap."""
         if self.decomp is None:
             return {}
+        overlap = self._overlap and not (name and SUM_SETS[name])
         return _stencil.launch_kinds(self.decomp, self.h, self.local_shape,
-                                     self._overlap)
+                                     overlap)
+
+    def sum_order(self):
+        """How a sharded sum kernel's sums come together: ``"single-device"``
+        when every block lies on one card and its y blocks are the
+        lattice's (y unsharded, or a local Y that is a multiple of the
+        kernel block's 8 rows) -- every block writes its partials where the
+        whole lattice's launch does and one second launch reduces them, so
+        the sums are the unsharded kernel's bit for bit --, else
+        ``"rank"``: each block's sums finished apart and added in rank
+        order (the JAX package's ``psum``; the plain versions, on the CPU,
+        always). ``None`` unsharded."""
+        d = self.decomp
+        if d is None:
+            return None
+        if (len(set(d.devices)) == 1 and d.devices[0].type == "cuda"
+                and (d.proc_shape[1] == 1
+                     or self.local_shape[1] % _BLOCK_Y == 0)):
+            return "single-device"
+        return "rank"
 
     def _exchange_buffers(self, cache, slot, shape):
         """Persistent per-block tensors of ``shape`` for window slot
-        ``slot`` (reused by every launch; the exchange overwrites them)."""
+        ``slot`` (reused by every launch; the exchange overwrites them).
+        A slot's buffers serve whichever window a kernel has there (the
+        deferred pair's kf sits where the normal pair has none), so a
+        stepper holds one padded set per slot, up to its widest kernel's
+        windows (the GW deferred pair's eight: 4F + 24 components)."""
         bufs = cache.get(slot)
         if bufs is None or tuple(bufs[0].shape) != shape:
+            cache[slot] = None  # release the old set first
             bufs = cache[slot] = [
                 torch.empty(shape, dtype=self.dtype, device=dev)
                 for dev in self.decomp.devices]
         return bufs
+
+    def _combine_sums(self, per_block):
+        """Per-block lists of sum vectors -> one list, each vector the
+        blocks' added in rank order."""
+        return [self.decomp.psum([p[k] for p in per_block])
+                for k in range(len(per_block[0]))]
 
     def _launch_sharded(self, name, ins, outs, params):
         """Kernel ``name`` on every block of the :class:`ShardedArray`
@@ -767,13 +870,15 @@ class FusedScalarStepper(_step.Stepper):
         stream into persistent buffers, then one padded launch per block;
         or, on the overlapped path, the x slabs copied on the side stream
         while an interior launch per block reads the raw blocks, then two
-        shell launches per block."""
+        shell launches per block. A kernel with sums then reduces them as
+        :meth:`sum_order` says. Returns ``outs`` and the sums."""
         d = self.decomp
         if d is None or any(not isinstance(a, ShardedArray)
                             or a.decomp is not d for a in list(ins) + outs):
             raise ValueError("sharded inputs need the stepper of their "
                              "decomposition (decomp=)")
-        kinds = self.sharded_kinds()
+        kinds = self.sharded_kinds(name)
+        nsums = SUM_SETS[name]
 
         def blocks(r, subst=None):
             ins_r = [a.blocks[r] for a in ins]
@@ -782,22 +887,21 @@ class FusedScalarStepper(_step.Stepper):
             return ins_r, [o.blocks[r] for o in outs]
 
         if None in kinds:
-            for r in range(d.nshards):
-                self.launch(name, *blocks(r), params)
-            return list(outs)
-        wins = _WINDOWS.get(name)
-        if wins is None:
-            raise NotImplementedError(
-                f"{name} on a sharded stepper waits for a later slice of "
-                "the port (ROADMAP queue 1 item 6)")
+            res = [self.launch(name, *blocks(r), params)
+                   for r in range(d.nshards)]
+            sums = self._combine_sums([r[len(outs):] for r in res]) \
+                if nsums else []
+            return list(outs) + sums
+        wins = _WINDOWS[name]
         raw = [ins[j] for j in wins]
         reads = [b for a in raw for b in a.blocks]
-        F, (X, Y, Z), h = self.F, self.local_shape, self.h
+        (X, Y, Z), h = self.local_shape, self.h
+        comps = self._comps
         if "interior" in kinds:
             shells = [(self._exchange_buffers(self._shell_bufs, (j, 0),
-                                              (F, 3 * h, Y, Z)),
+                                              (comps[j], 3 * h, Y, Z)),
                        self._exchange_buffers(self._shell_bufs, (j, 1),
-                                              (F, 3 * h, Y, Z)))
+                                              (comps[j], 3 * h, Y, Z)))
                       for j in wins]
             with record_function("halo_overlap"):
                 with d.side_exchange(reads, [t for lo, hi in shells
@@ -819,15 +923,35 @@ class FusedScalarStepper(_step.Stepper):
         (kind,) = kinds
         halo = _stencil.sharded_halo(h, *d.proc_shape[:2])
         pads = [self._exchange_buffers(self._pad_bufs, j, (
-            F, X + 2 * halo[0], Y + 2 * halo[1], Z)) for j in wins]
+            comps[j], X + 2 * halo[0], Y + 2 * halo[1], Z)) for j in wins]
         with d.side_exchange(reads, [t for p in pads for t in p]) as ex:
             for a, p in zip(raw, pads):
                 d.pad_into(a.blocks, p, halo)
         ex.wait()
+
+        def padded(r, **kw):
+            return self.launch_block(name, kind, *blocks(r, {
+                j: p[r] for j, p in zip(wins, pads)}), params, **kw)
+
+        if not nsums:
+            for r in range(d.nshards):
+                padded(r)
+            return list(outs)
+        if self.sum_order() == "rank":
+            per = [padded(r)[len(outs):] for r in range(d.nshards)]
+            return list(outs) + self._combine_sums(per)
+        # every block's partials at their places in the whole lattice's
+        # launch, then one second launch
+        Xg, Yg, Zg = self.grid_shape
+        nb = self._num_blocks(Xg, Yg, Zg)
+        dev = d.devices[0]
+        buf = self._partials_buffer(nsums * (2 * self.F + 1) * nb,
+                                    outs[0].blocks[0])
         for r in range(d.nshards):
-            self.launch_block(name, kind, *blocks(r, {
-                j: p[r] for j, p in zip(wins, pads)}), params)
-        return list(outs)
+            cx, cy, _ = d.coords(r)
+            padded(r, partials=(buf, nb, cx * X, cy * Y // _BLOCK_Y,
+                                -(-Yg // _BLOCK_Y)))
+        return list(outs) + self._finish_sums(name, buf, nb, dev)
 
     # -- plain PyTorch versions (the kernels' arithmetic) --------------------
 
@@ -1089,12 +1213,24 @@ class FusedScalarStepper(_step.Stepper):
         carry); the odd trailing energy stage reads it so (the ``_bf16_fin``
         kernels). The JAX package with x64 enabled takes the two products in
         float64 (its ``hubfix`` is a float64 scalar there); here they are
-        taken in the working dtype, as with x64 off."""
+        taken in the working dtype, as with x64 off.
+
+        A sharded carry is completed block by block, in place: the
+        velocities and their carries are the last pair's outputs, the
+        stepper's own buffers, and the padded windows already hold the
+        memory new arrays would take (the same arithmetic, so the same
+        bits)."""
         state, k = carry
-        sc = self._scalars({"dt": dt, "hubfix": hubfix, "B2p": B2p},
-                           state["f"])
+        values = {"dt": dt, "hubfix": hubfix, "B2p": B2p}
         state, k = dict(state), dict(k)
         for _, v in self._SYSTEMS:
+            if isinstance(state[v], ShardedArray):
+                for sb, kb in zip(state[v].blocks, k[v].blocks):
+                    sc = self._scalars(values, sb)
+                    kb.sub_(2 * sc["dt"] * sc["hubfix"] * sb)
+                    sb.add_(sc["B2p"] * kb)
+                continue
+            sc = self._scalars(values, state[v])
             kv = k[v] - 2 * sc["dt"] * sc["hubfix"] * state[v]
             state[v] = state[v] + sc["B2p"] * kv
             k[v] = kv
@@ -1314,6 +1450,11 @@ class FusedScalarStepper(_step.Stepper):
                     c * m * self.decomp.nshards
                 for r, c in kernels.items()
                 for kind, m in self.sharded_kinds().items()}
+            # coupled_multi_step's kernels (they have sums): their launch
+            # kind per block and how their sums come together
+            report["sum_kernel_launch_kinds"] = self.sharded_kinds(
+                self._KERNEL["stage_energy"])
+            report["sum_order"] = self.sum_order()
         return report
 
     #: the kernel role (:attr:`_KERNEL`) of each entry of a plan
@@ -1595,13 +1736,15 @@ class FusedScalarStepper(_step.Stepper):
         the velocity carry in the working dtype, and an odd trailing stage
         reads it so (:meth:`_finalize_deferred`).
 
+        On a sharded stepper (``decomp=``) every launch is the padded one
+        of its kernel, whose sums come together as :meth:`sum_order` says
+        (on one card, the unsharded kernel's bit for bit); the host reads
+        them once per launch, as unsharded, and the background advances in
+        the same order, so the chunk equals the single-device one where the
+        sums do.
+
         The returned tensors are the stepper's buffers (see the class
         docstring)."""
-        if self.decomp is not None:
-            raise NotImplementedError(
-                "coupled_multi_step on a sharded stepper waits for a later "
-                "slice of the port (ROADMAP queue 1 item 6: the padded K5 "
-                "and K6 with per-block sums)")
         dt = _float(dt if dt is not None else self.dt)
         nsteps = int(nsteps)
         if grid_size is None:
@@ -1641,8 +1784,11 @@ class FusedPreheatStepper(FusedScalarStepper):
     The other arguments are :class:`FusedScalarStepper`'s, ``carry_dtype``
     included: with ``torch.bfloat16`` the tensor carries ``khij``,
     ``kdhijdt`` (``kdhp``) are stored in bfloat16 too, the JAX package's
-    512^3-on-one-device configuration. States are dicts ``{"f", "dfdt": (F,
-    X, Y, Z), "hij", "dhijdt": (6, X, Y, Z)}``.
+    512^3-on-one-device configuration; and ``decomp``/``overlap``: the
+    windows of the GW kernels take hij (the stage) and hij, dhijdt, khij
+    (the pairs; the deferred pair every input) beside the scalar ones.
+    States are dicts ``{"f", "dfdt": (F, X, Y, Z), "hij", "dhijdt": (6, X,
+    Y, Z)}``.
     """
 
     _KERNEL = {"stage": "preheat_stage", "pair": "preheat_pair",
@@ -1656,11 +1802,6 @@ class FusedPreheatStepper(FusedScalarStepper):
                  tableau=None, dtype=torch.float32, dt=None,
                  pair_stages=True, carry_dtype=None, chunk_stages=None,
                  device=None, decomp=None, overlap=None):
-        if decomp is not None:
-            raise NotImplementedError(
-                "FusedPreheatStepper(decomp=...) waits for a later slice of "
-                "the port (ROADMAP queue 1 item 6: the padded K7, K8, K9 and "
-                "K5')")
         # set before super().__init__, which builds the kernels
         self.gw_sector = gw_sector
         self.n_hij = gw_sector.hij.shape[0]
@@ -1675,7 +1816,8 @@ class FusedPreheatStepper(FusedScalarStepper):
         super().__init__(sector, grid_shape, dx, halo_shape=halo_shape,
                          tableau=tableau, dtype=dtype, dt=dt,
                          pair_stages=pair_stages, carry_dtype=carry_dtype,
-                         chunk_stages=chunk_stages, device=device)
+                         chunk_stages=chunk_stages, device=device,
+                         decomp=decomp, overlap=overlap)
         self._comps = (self.F,) * 4 + (self.n_hij,) * 4
         self._dtypes = self._dtypes * 2
         # the gradient weights exactly as grad_from_taps forms them

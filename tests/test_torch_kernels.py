@@ -1040,3 +1040,211 @@ def test_sharded_operators_on_card(cuda, mesh, overlap):
         for kind, m in kinds.items():
             assert tderivs.LAUNCHES[f"fd_{op}:{kind}"] == \
                 m * decomp.nshards, (op, kind)
+
+
+# -- the sharded tier of the energy-coupled and GW kernels -------------------
+
+#: the kernels with a sharded tier since the sharded coupled driver and GW
+#: stepper: padded launches of all, interior and shell ones of K7 and K8
+NEW_SHARDED = ["fused_stage_energy", "coupled_pair", "coupled_pair_deferred",
+               "preheat_stage", "preheat_pair", "preheat_stage_energy",
+               "preheat_coupled_pair", "preheat_coupled_pair_deferred"]
+
+
+def _new_sharded_case(cuda, kernel, grid, dtype, seed=0):
+    """A stepper, the inputs and the scalars of one of NEW_SHARDED."""
+    if kernel.startswith("preheat"):
+        return _preheat_case(cuda, kernel, grid, dtype, seed)
+    return _energy_case(cuda, kernel, grid, dtype, seed)
+
+
+def _sum_errs(st, kernel, ins, outs, plain, params):
+    """Each sum vector's largest gap to the plain version's, relative to
+    sum |term|."""
+    n = len(ins)
+    scales = sum_scales(st, tfused._GW_OF.get(kernel, kernel), ins, outs,
+                        params)
+    return [((o.double() - p.double()).abs() / s).max().item()
+            for o, p, s in zip(outs[n:], plain[n:], scales)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", [(16, 16, 16), (48, 40, 36)],
+                         ids=["16cubed", "48x40x36"])
+@pytest.mark.parametrize("kind", ["xpad", "ypad", "xypad"])
+@pytest.mark.parametrize("kernel", NEW_SHARDED)
+def test_new_padded_kernel_matches_plain_and_unpadded(cuda, kernel, kind,
+                                                      grid, dtype):
+    """A padded launch of the coupled and GW kernels on windows padded by
+    hand with the lattice's own periodic rows: its lattice outputs equal
+    the unsharded kernel's bit for bit and the plain version's at
+    KERNEL_TOL; a sum kernel's own sums (its partials at the block's own
+    places, then the second launch) equal the unsharded launch's bit for
+    bit and the plain version's at SUM_TOL; the launch is counted."""
+    st, ins, params = _new_sharded_case(cuda, kernel, grid, dtype)
+    wins = tfused._WINDOWS[kernel]
+    bits = tderivs.PAD_KINDS[kind]
+    pad = (H if bits & 1 else 0, H if bits & 2 else 0)
+    padded = [_pad_periodic(t, *pad) if j in wins else t
+              for j, t in enumerate(ins)]
+    before = tfused.LAUNCHES[f"{kernel}:{kind}"]
+    outs = st.launch_block(kernel, kind, padded,
+                           [torch.empty_like(t) for t in ins], params)
+    ref = st.launch(kernel, ins, [torch.empty_like(t) for t in ins], params)
+    torch.cuda.synchronize()
+    assert tfused.LAUNCHES[f"{kernel}:{kind}"] == before + 1
+    assert len(outs) == len(ref)
+    for o, r in zip(outs, ref):
+        assert torch.equal(o, r)
+    plain = st.plain(kernel, padded, params, pad=pad)
+    n = len(ins)
+    for o, p in zip(outs[:n], plain[:n]):
+        assert _rel(o, p) <= KERNEL_TOL[dtype]
+    if tfused.SUM_SETS[kernel]:
+        assert max(_sum_errs(st, kernel, ins, outs, plain, params)) \
+            <= SUM_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", [(16, 16, 16), (48, 40, 36)],
+                         ids=["16cubed", "48x40x36"])
+@pytest.mark.parametrize("kernel", ["preheat_stage", "preheat_pair"])
+def test_gw_interior_and_shells_equal_padded_launch(cuda, kernel, grid,
+                                                    dtype):
+    """K7 and K8: an interior launch on the raw block and two x-shell
+    launches on ``concat(halo, 2h rows)`` write the output block of one
+    x-padded launch bit for bit, each counted under its kind; a sum kernel
+    has no such launch."""
+    st, ins, params = _new_sharded_case(cuda, kernel, grid, dtype)
+    wins, X, h = tfused._WINDOWS[kernel], grid[0], H
+
+    def windows(fn):
+        return [fn(t) if j in wins else t for j, t in enumerate(ins)]
+    ref = st.launch_block(kernel, "xpad",
+                          windows(lambda t: _pad_periodic(t, h, 0)),
+                          [torch.empty_like(t) for t in ins], params)
+    lows = windows(lambda t: _pad_periodic(t, h, 0)[:, :3 * h].contiguous())
+    highs = windows(lambda t: _pad_periodic(t, h, 0)[
+        :, X - h:X + 2 * h].contiguous())
+    n_int = tfused.LAUNCHES[f"{kernel}:interior"]
+    n_shell = tfused.LAUNCHES[f"{kernel}:shell"]
+    outs = [torch.empty_like(t) for t in ins]
+    st.launch_block(kernel, "interior", ins, outs, params, x0=h)
+    st.launch_block(kernel, "shell", lows, outs, params, x0=0)
+    st.launch_block(kernel, "shell", highs, outs, params, x0=X - h)
+    torch.cuda.synchronize()
+    assert tfused.LAUNCHES[f"{kernel}:interior"] == n_int + 1
+    assert tfused.LAUNCHES[f"{kernel}:shell"] == n_shell + 2
+    for o, r in zip(outs, ref):
+        assert torch.equal(o, r)
+    with pytest.raises(ValueError, match="no interior launch"):
+        st.launch_block("preheat_stage_energy", "interior", ins, outs,
+                        _gw_params("preheat_stage_energy", 5.0 / X), x0=h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [(2, 1, 1), (2, 2, 1), (1, 2, 1)],
+                         ids=["211", "221", "121"])
+@pytest.mark.parametrize("kernel", ["fused_stage_energy", "coupled_pair",
+                                    "coupled_pair_deferred",
+                                    "preheat_stage_energy",
+                                    "preheat_coupled_pair",
+                                    "preheat_coupled_pair_deferred"])
+def test_sharded_sums_equal_unsharded(cuda, kernel, mesh):
+    """A sum kernel on shards that share the card: every block's partials
+    at their places in the whole lattice's launch and one second launch
+    give the unsharded launch's sums bit for bit (local Y = 24, a multiple
+    of the kernel block's 8 rows), and its lattice outputs; the stepper
+    says so (sum_order)."""
+    grid, dtype = (32, 48, 36), torch.float64
+    st, ins, params = _new_sharded_case(cuda, kernel, grid, dtype, 3)
+    ref = st.launch(kernel, ins, [torch.empty_like(t) for t in ins], params)
+    decomp = pt.DomainDecomposition(mesh)
+    if kernel.startswith("preheat"):
+        sector = pt.ScalarSector(2, potential=bench_potential)
+        sh = pt.FusedPreheatStepper(sector, pt.TensorPerturbationSector(
+            [sector]), grid, 5.0 / grid[0], H, dtype=dtype, decomp=decomp)
+    else:
+        sh = pt.FusedScalarStepper(pt.ScalarSector(
+            2, potential=bench_potential), grid, 5.0 / grid[0], H,
+            dtype=dtype, decomp=decomp)
+    assert sh.sum_order() == "single-device"
+    got = sh.launch(kernel, [decomp.shard(t) for t in ins],
+                    sh._new_set("sharded"), params)
+    torch.cuda.synchronize()
+    n = len(ins)
+    for g, r in zip(got[:n], ref[:n]):
+        assert torch.equal(torch.from_numpy(decomp.gather_array(g)), r.cpu())
+    assert len(got) == len(ref)
+    for g, r in zip(got[n:], ref[n:]):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [True, False], ids=["pair", "single"])
+@pytest.mark.parametrize("gw", [False, True], ids=["scalar", "gw"])
+@pytest.mark.parametrize("mesh", [(2, 1, 1), (2, 2, 1), (4, 1, 1)],
+                         ids=["211", "221", "411"])
+def test_sharded_coupled_on_card(cuda, mesh, gw, pair):
+    """coupled_multi_step(1) (two pairs, the finalize and the odd tail, or
+    five energy stages) on shards that share the card equals the unsharded
+    chunk bit for bit, a and adot included, through the padded launches of
+    the sum kernels (every block's y extent, 48 or 24, a multiple of 8)."""
+    _sharded_coupled_case(cuda, mesh, gw, pair, (48, 48, 36), exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gw", [False, True], ids=["scalar", "gw"])
+def test_sharded_coupled_rank_order_on_card(cuda, gw):
+    """On (2, 2, 1) with blocks 20 rows wide along y (not a multiple of the
+    kernel block's 8), each block finishes its own sums and they add in
+    rank order: the chunk agrees with the unsharded one to 1e-13, as the
+    JAX package's psum does."""
+    _sharded_coupled_case(cuda, (2, 2, 1), gw, True, (48, 40, 36),
+                          exact=False)
+
+
+def _sharded_coupled_case(cuda, mesh, gw, pair, grid, exact):
+    dtype = torch.float64
+    sector = pt.ScalarSector(2, potential=bench_potential)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    names = ("f", "dfdt") + (("hij", "dhijdt") if gw else ())
+    state = {k: 1e-3 * torch.randn(((6 if k in ("hij", "dhijdt") else 2),)
+                                   + grid, generator=g, device=cuda,
+                                   dtype=dtype) for k in names}
+    state["f"] += 0.2
+
+    def make(**kw):
+        if gw:
+            return pt.FusedPreheatStepper(sector, pt.TensorPerturbationSector(
+                [sector]), grid, 0.1, H, dtype=dtype, **kw)
+        return pt.FusedScalarStepper(sector, grid, 0.1, H, dtype=dtype, **kw)
+    e1 = pt.Expansion(1.0, pt.LowStorageRK54)
+    ref = make(device=cuda).coupled_multi_step(_copy(state), 1, e1, 0.0,
+                                               0.01, pair=pair)
+    decomp = pt.DomainDecomposition(mesh)
+    st = make(decomp=decomp, overlap=True)
+    e2 = pt.Expansion(1.0, pt.LowStorageRK54)
+    tfused.reset_launch_counts()
+    out = st.coupled_multi_step({k: decomp.shard(v) for k, v in
+                                 state.items()}, 1, e2, 0.0, 0.01, pair=pair)
+    torch.cuda.synchronize()
+    (kind,) = st.sharded_kinds(st._KERNEL["stage_energy"])
+    counted = {k for k, v in tfused.LAUNCHES.items() if v}
+    assert counted and all(k.endswith(f":{kind}") for k in counted)
+    assert st.sum_order() == ("single-device" if exact else "rank")
+    for k in ref:
+        got = torch.from_numpy(decomp.gather_array(out[k]))
+        if exact:
+            assert torch.equal(got, ref[k].cpu()), k
+        else:
+            assert _rel(got, ref[k]) < 1e-13, k
+    if exact:
+        assert (e2.a, e2.adot) == (e1.a, e1.adot)
+    else:
+        assert abs(e2.a - e1.a) / e1.a < 1e-13
+        assert abs(e2.adot - e1.adot) / abs(e1.adot) < 1e-13

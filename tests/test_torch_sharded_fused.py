@@ -218,22 +218,32 @@ def test_kernel_tier_report_counts_sharded_launches():
 
 
 def test_refusals():
-    """What the JAX package refuses, with its text, and what this slice
-    leaves out, naming the ROADMAP item; a chunk request on a sharded mesh
-    warns and runs pairs."""
+    """What the JAX package refuses, with its text, and what the port
+    leaves out so far (carry_dtype on a sharded stepper), naming the
+    ROADMAP item; a chunk request on a sharded mesh warns and runs pairs.
+    The sharded GW stepper and the sharded coupled driver are no longer
+    refused (tests/test_torch_sharded_gw.py, _coupled.py hold them)."""
     with pytest.raises(NotImplementedError, match=r"x/y sharding"):
         _port(_decomp((2, 2, 2)))
     d = _decomp((2, 1, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 2: the "
+                       r"_bf16 halo-input variants"):
         _port(d, carry_dtype=torch.bfloat16)
     sec = pt.ScalarSector(2, potential=potential)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        pt.FusedPreheatStepper(sec, pt.TensorPerturbationSector([sec]),
-                               GRID, DX, H, device="cpu", decomp=d)
+    gw = pt.TensorPerturbationSector([sec])
+    with pytest.raises(NotImplementedError, match=r"x/y sharding"):
+        pt.FusedPreheatStepper(sec, gw, GRID, DX, H, device="cpu",
+                               decomp=_decomp((1, 1, 2)))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 2: the "
+                       r"_bf16 halo-input variants"):
+        pt.FusedPreheatStepper(sec, gw, GRID, DX, H, device="cpu",
+                               decomp=d, carry_dtype=torch.bfloat16)
+    assert pt.FusedPreheatStepper(sec, gw, GRID, DX, H, device="cpu",
+                                  decomp=d).decomp is d
     st = _port(d)
     exp = pt.Expansion(1.0, pt.LowStorageRK54)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        st.coupled_multi_step(pt.shard_state(d, _state()), 1, exp, 0.0, DT)
+    out = st.coupled_multi_step(pt.shard_state(d, _state()), 1, exp, 0.0, DT)
+    assert all(isinstance(v, pt.ShardedArray) for v in out.values())
     with pytest.warns(UserWarning, match=r"whole-RK-chunk fusion disabled "
                       r"\(sharded mesh \(2,1\): chunk windows need "
                       r"ceil\(depth/2\)\*h-wide halos\); step\(\) will run "
