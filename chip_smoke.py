@@ -53,7 +53,14 @@ entry points a user calls, at 512^3 in float32:
   state (and a, adot) bit-equal to the single-device run's (the padded
   entry points of ``fused_stage_energy``, ``coupled_pair``,
   ``coupled_pair_deferred`` and of the five GW kernels, the interior and
-  shell ones of ``preheat_stage`` and ``preheat_pair``).
+  shell ones of ``preheat_stage`` and ``preheat_pair``);
+- the multigrid solver on a sharded lattice: the bench cycle through
+  ``FullApproximationScheme`` over ``NewtonIterator(decomp=...)`` on
+  ``(2, 1, 1)`` overlapped and padded, ``(2, 2, 1)`` and ``(1, 2, 1)``,
+  each final f bit-equal to the single-device cycle's, and the identity
+  cycles at 256^3 f64 (replicated coarse levels, the linear scheme)
+  (kernels ``mg_smooth``, ``mg_residual`` and ``mg_tau`` as ``:xpad``,
+  ``:ypad``, ``:xypad``, ``:interior`` and ``:shell``).
 
 A non-polynomial potential (exp, tanh, sqrt, cos, powers 2.5 and -2, a
 quotient) compiles the printer's math-function paths into K2, K3 and K5 and
@@ -461,8 +468,11 @@ def trace_chunk(run, untraced_s):
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    # (the profiler also lays the record_function labels on the device
+    # timeline; they are spans around work counted already)
     events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name not in SHARDED_LABELS + ("mg_transfer",)]
     if not events:
         return {"device_events": 0, "idle_share": "not measured"}
     by_name = {}
@@ -1509,7 +1519,9 @@ def mg_main_path(phase, timing, launches, trace):
     """bench.py:run_multigrid as it stands: FAS over NewtonIterator on lap
     f - f + f**3 = rho at 512^3 f32 (h = 1, omega = 2/3, dx = 10 / n, rho a
     zero-mean N(0, 1), f = 0, the default V-cycle v_cycle(25, 50, 6)): one
-    warm-up and two timed cycles, then one more under torch.profiler."""
+    warm-up and two timed cycles, then one more under torch.profiler.
+    Returns the solution after the three cycles, rho, the residuals and
+    the ms per cycle (the sharded paths' reference)."""
     import pystella_tpu_torch as pt
     from pystella_tpu_torch.multigrid import relax
     sites = math.prod(GRID)
@@ -1544,7 +1556,7 @@ def mg_main_path(phase, timing, launches, trace):
     torch.cuda.synchronize()
     host_s = time.perf_counter() - host0
     device_s = start.elapsed_time(end) / 1e3
-    path_launches = dict(relax.LAUNCHES)
+    path_launches = {k: v for k, v in relax.LAUNCHES.items() if v}
     launches.update(path_launches)
     expected = {k: (1 + MG_CYCLES) * v for k, v in per_cycle.items()}
     finite = bool(torch.isfinite(f).all()) and all(
@@ -1584,6 +1596,7 @@ def mg_main_path(phase, timing, launches, trace):
     emit({"phase": trace, **trace_chunk(
         lambda: mg(dx0=dx, f=f, rho=rho), device_s / MG_CYCLES),
         "steps": mg_step_times(mg, lambda: mg(dx0=dx, f=f, rho=rho))})
+    return f, rho, residuals, ms_cycle
 
 
 def mg_step_times(mg, run):
@@ -1619,6 +1632,479 @@ def mg_step_times(mg, run):
             delattr(mg, name)  # the instance's wrapper; the method stays
     return [(name, i, begin.elapsed_time(end), host_s * 1e3)
             for name, i, begin, end, host_s in marks]
+
+
+# -- the multigrid solver on sharded levels (K11 padded, interior, shell) -----
+
+#: the sharded multigrid main paths: (mesh, overlap), every shard on the
+#: one card; each final f bit-equal to mg_main_path's. overlap None is the
+#: solver's default (auto: the split on the 512^3 level's blocks only)
+SHARDED_MG_CONFIGS = [((2, 1, 1), True), ((2, 1, 1), False),
+                      ((2, 1, 1), None), ((2, 2, 1), False),
+                      ((1, 2, 1), False)]
+#: the identity phase: 256^3 f64 (the L2 records held to 1e-13), FAS over
+#: the bench problem with the default cycle on (1, 2, 1) and (2, 2, 1), a
+#: cycle one level deeper on (4, 1, 1) (its 4^3 level's blocks are 1 wide:
+#: replicated), and the linear MultiGridSolver over the Jacobi pair on
+#: (2, 1, 1) overlapped: (mesh, overlap, problem, scheme, depth)
+MG_IDENTITY_SHAPE = (256, 256, 256)
+MG_IDENTITY_CASES = [((1, 2, 1), False, "newton", "FullApproximationScheme",
+                      5),
+                     ((2, 2, 1), False, "newton", "FullApproximationScheme",
+                      5),
+                     ((4, 1, 1), True, "newton", "FullApproximationScheme",
+                      6),
+                     ((2, 1, 1), True, "jacobi", "MultiGridSolver", 5)]
+#: the sharded L2 records: per-block sums added in rank order
+MG_L2_TOL = 1e-13
+MG_KINDS = ("xpad", "ypad", "xypad", "interior", "shell")
+
+
+def sharded_mg_kernel_names():
+    """``mg_<kind>:<launch kind>`` of every sharded K11 launch."""
+    from pystella_tpu_torch.multigrid import relax
+    return list(relax.SHARDED_KERNELS)
+
+
+def mg_padded_window(t, hx, hy):
+    """An (X, Y, Z) lattice padded by its own periodic rows: a sharded
+    level's window when one block is the whole lattice."""
+    return pad_periodic(t[None], hx, hy)[0].contiguous()
+
+
+def mg_block_case(kind, shape, dtype, seed):
+    """A solver of ``kind`` and seeded unknowns, sources and restricted
+    residuals (as lists in the unknowns' order) on a lattice held whole."""
+    from pystella_tpu_torch.multigrid.relax import LevelSpec
+    solver = mg_solver(kind)
+    fs, rhos = mg_arrays(solver, shape, dtype, seed)
+    names = list(solver.f_to_rho_dict)
+    rr = [rhos[solver.f_to_rho_dict[n]].flip(0).contiguous()
+          for n in names]
+    level = LevelSpec(tuple(shape), (MG_BOX / shape[0],) * 3)
+    return (solver, level, [fs[n] for n in names],
+            {"smooth": [rhos[solver.f_to_rho_dict[n]] for n in names],
+             "residual": [rhos[solver.f_to_rho_dict[n]] for n in names],
+             "tau": rr})
+
+
+def sharded_mg_kernels_vs_plain(phase, errs):
+    """Each sharded K11 launch of ``mg_smooth``, ``mg_residual`` and
+    ``mg_tau`` on lattices held whole and windows built from their own
+    periodic rows: ``:xpad``, ``:ypad``, ``:xypad`` against their plain
+    versions on the same windows and bit for bit against the unpadded
+    launch on the whole lattice; ``:interior`` (the raw block) and the two
+    ``:shell`` launches (``(3h, Y, Z)`` slabs) against their plain
+    versions on their regions, and together bit for bit against the
+    x-padded launch. The Newton problem (nf = 1) and the Jacobi pair (nf =
+    2); f32 at the block each kind runs on in the 512^3 paths, f32 and f64
+    at 48x40x36. Rows go to ``errs["mg_<kind>:<launch kind>"]``."""
+    h = MG_HALO
+    cases = [(block_of(SHARDED_KIND_MESH[k]), torch.float32, (k,))
+             for k in ("xpad", "ypad", "xypad")]
+    cases[0] = cases[0][:2] + (("xpad", "interior", "shell"),)
+    cases += [(ALT_SHAPES[1], dtype, MG_KINDS)
+              for dtype in (torch.float32, torch.float64)]
+    for problem in ("newton", "jacobi"):
+        for shape, dtype, kinds in cases:
+            solver, level, fs, rhos = mg_block_case(problem, shape, dtype,
+                                                    60)
+            X = shape[0]
+            for kind in ("smooth", "residual", "tau"):
+                name = f"mg_{kind}"
+
+                def new():
+                    return [torch.empty_like(f) for f in fs]
+                ref = solver.launch_block(kind, level, fs, rhos[kind], {},
+                                          new())
+                rows = {}
+                for pad in ("xpad", "ypad", "xypad"):
+                    if pad not in kinds:
+                        continue
+                    hx = h if pad != "ypad" else 0
+                    hy = h if pad != "xpad" else 0
+                    wins = [mg_padded_window(f, hx, hy) for f in fs]
+                    outs = solver.launch_block(kind, level, wins,
+                                               rhos[kind], {}, new(), pad)
+                    torch.cuda.synchronize()
+                    plain = solver.plain(kind, level, wins, rhos[kind], {},
+                                         {}, pad=(hx, hy))
+                    e = [rel_err(o, q) for o, q in zip(outs, plain)]
+                    rows[pad] = {
+                        "max_rel_err": max(a for a, _ in e),
+                        "max_abs_err": max(b for _, b in e),
+                        "tol": KERNEL_TOL[dtype],
+                        "bitwise_unsharded_kernel": all(
+                            torch.equal(o, r) for o, r in zip(outs, ref))}
+                    del wins, outs, plain
+                if "interior" in kinds:
+                    padded = [mg_padded_window(f, h, 0) for f in fs]
+                    lows = [t[:3 * h].contiguous() for t in padded]
+                    highs = [t[X - h:X + 2 * h].contiguous() for t in padded]
+                    del padded
+                    outs = new()
+                    solver.launch_block(kind, level, fs, rhos[kind], {},
+                                        outs, "interior", h)
+                    solver.launch_block(kind, level, lows, rhos[kind], {},
+                                        outs, "shell", 0)
+                    solver.launch_block(kind, level, highs, rhos[kind], {},
+                                        outs, "shell", X - h)
+                    torch.cuda.synchronize()
+                    bitwise = all(torch.equal(o, r)
+                                  for o, r in zip(outs, ref))
+                    for launch, pieces in (
+                            ("interior", [(fs, h, X - h)]),
+                            ("shell", [(lows, 0, h), (highs, X - h, X)])):
+                        e = []
+                        for wins, a, b in pieces:
+                            plain = solver.plain(
+                                kind, level, wins,
+                                [r[a:b] for r in rhos[kind]], {}, {},
+                                pad=(h, 0))
+                            e += [rel_err(o[a:b], q)
+                                  for o, q in zip(outs, plain)]
+                        rows[launch] = {
+                            "max_rel_err": max(a for a, _ in e),
+                            "max_abs_err": max(b for _, b in e),
+                            "tol": KERNEL_TOL[dtype],
+                            "interior_and_shells_bitwise_unsharded": bitwise}
+                    del outs, lows, highs
+                for launch, row in rows.items():
+                    key = f"{name}:{launch}"
+                    errs.setdefault(key, {})[
+                        case_tag(shape, dtype) + ":" + problem] = row
+                    emit({"phase": phase, "kernel": key, "problem": problem,
+                          "shape": shape, "dtype": str(dtype), **row})
+                    exact = row.get(
+                        "bitwise_unsharded_kernel",
+                        row.get("interior_and_shells_bitwise_unsharded"))
+                    if not (row["max_rel_err"] <= KERNEL_TOL[dtype]
+                            and exact):
+                        raise SystemExit(f"{key} ({problem}) disagrees at "
+                                         f"{shape} {dtype}: {row}")
+                del ref
+            del solver, fs, rhos
+            torch.cuda.empty_cache()
+
+
+def mg_expected_launches(mg, cycle, shape, dx):
+    """Launches by counted name of one cycle of ``mg``: per level visit
+    ``nu`` sweeps and two residuals (the error records), per transfer down
+    a residual on the finer level and a tau on the coarser (the linear
+    scheme: no tau); each a launch per block and kind on a sharded level
+    (the solver's ``level_kinds``), one unsharded launch on a replicated
+    one."""
+    import pystella_tpu_torch as pt
+    solver = mg.solver
+    d = solver.decomp
+    depth = max(i for i, _ in cycle)
+    levels = mg._make_levels(shape, dx, depth)
+    fas = not isinstance(mg, pt.MultiGridSolver)
+    out = {}
+
+    def add(name, i, n=1):
+        lv = levels[i]
+        if not lv.sharded:
+            out[name] = out.get(name, 0) + n
+            return
+        for k, c in solver.level_kinds(lv).items():
+            key = name + ("" if k is None else f":{k}")
+            out[key] = out.get(key, 0) + n * c * d.nshards
+
+    previous = cycle[0][0]
+    for j, (i, nu) in enumerate(cycle):
+        if j and i == previous + 1:
+            add("mg_residual", previous)
+            if fas:
+                add("mg_tau", i)
+        add("mg_smooth", i, nu)
+        add("mg_residual", i, 2)
+        previous = i
+    return out
+
+
+def time_sharded_mg_kernels(phase, timing, per_cycle):
+    """Each sharded K11 launch of the Newton problem at the block its kind
+    runs on in the 512^3 paths (f32; the interior and one shell launch
+    alone): CUDA-event ms over 20 launches, its plain version, and the
+    bound: the window at its padded storage extent, rho (or the restricted
+    residual) and the output over the computed region, each once, over the
+    HBM rate, against the operations over the f32 peak. ``per_cycle``: the
+    launches of one V-cycle on its main path."""
+    h = MG_HALO
+    for seed, name in enumerate(sharded_mg_kernel_names()):
+        kind, launch = name.split(":")
+        kind = kind[3:]
+        shape = block_of(SHARDED_KIND_MESH[launch])
+        solver, level, fs, rhos = mg_block_case("newton", shape,
+                                                torch.float32, 90 + seed)
+        X = shape[0]
+        hx = h if launch != "ypad" else 0
+        hy = h if launch in ("ypad", "xypad") else 0
+        if launch == "interior":
+            wins, x0 = fs, h
+        elif launch == "shell":
+            wins = [mg_padded_window(f, h, 0)[:3 * h].contiguous()
+                    for f in fs]
+            x0 = 0
+        else:
+            wins, x0 = [mg_padded_window(f, hx, hy) for f in fs], 0
+        outs = [torch.empty_like(f) for f in fs]
+        ms = cuda_ms(lambda: solver.launch_block(
+            kind, level, wins, rhos[kind], {}, outs, launch, x0), reps=20,
+            warmup=2)
+        rows = {"interior": X - 2 * h, "shell": h}.get(launch, X)
+        plain_ms = cuda_ms(lambda: solver.plain(
+            kind, level, wins, [r[x0:x0 + rows] for r in rhos[kind]], {},
+            {}, pad=(hx, hy)), reps=3)
+        region = rows * shape[1] * shape[2]
+        nf = len(fs)
+        nbytes = 4 * nf * (wins[0].numel() + 2 * region)
+        ops = mg_ops_per_site(solver, f"mg_{kind}") * region
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_F32_OPS * 1e3
+        bound = max(bytes_ms, ops_ms)
+        timing[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": "bytes" if bytes_ms >= ops_ms
+                        else "operations", "bytes": nbytes, "ops": ops,
+                        "share_of_bound": bound / ms, "region_rows": rows,
+                        "launches_per_cycle": per_cycle.get(name, 0)}
+        emit({"phase": phase, "kernel": name, "block": shape,
+              "dtype": "torch.float32", **timing[name]})
+        del solver, fs, rhos, wins, outs
+        torch.cuda.empty_cache()
+
+
+def sharded_mg_main_path(phase, ref_f, rho, ref_residuals, single_ms,
+                         launches):
+    """mg_main_path's run (FAS over NewtonIterator, 512^3 f32, h = 1,
+    omega = 2/3, v_cycle(25, 50, 6); one warm-up and two timed cycles from
+    f = 0 and the same rho, sharded) on each of SHARDED_MG_CONFIGS, every
+    shard on the one card: ms per V-cycle against the single-device cycle,
+    site-sweeps/s, launches by kind against the expected count, exchanged
+    bytes a cycle, peak memory, the L2 residual after each cycle (it must
+    fall), and the final f bit-equal to the single-device path's. The
+    first config that launches a kind gives its launch count."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.multigrid import relax
+    sites = math.prod(GRID)
+    dx = MG_BOX / GRID[0]
+    depth = max(1, int(np.log2(min(GRID) / 8)))
+    cycle = pt.v_cycle(25, 50, depth)
+    sweeps = sum(nu for _, nu in cycle)
+    rows = {}
+    for mesh, overlap in SHARDED_MG_CONFIGS:
+        decomp = pt.DomainDecomposition(mesh)
+        mg = pt.FullApproximationScheme(solver=mg_solver_on(
+            "newton", decomp, overlap), halo_shape=MG_HALO)
+        rho_s = decomp.shard(rho)
+        f = decomp.zeros(GRID, torch.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        relax.reset_launch_counts()
+        residuals = []
+        errs, sol = mg(dx0=dx, f=f, rho=rho_s)  # warm-up cycle
+        f = sol["f"]
+        residuals.append(errs[-1][1]["f"][1])
+        bytes0 = decomp.bytes_exchanged
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        host0 = time.perf_counter()
+        start.record()
+        for _ in range(MG_CYCLES):
+            errs, sol = mg(dx0=dx, f=f, rho=rho_s)
+            f = sol["f"]
+            residuals.append(errs[-1][1]["f"][1])
+        end.record()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - host0
+        device_s = start.elapsed_time(end) / 1e3
+        path_launches = {k: v for k, v in relax.LAUNCHES.items() if v}
+        per_cycle = mg_expected_launches(mg, cycle, GRID, dx)
+        expected = {k: (1 + MG_CYCLES) * v for k, v in per_cycle.items()}
+        for k, v in path_launches.items():
+            launches.setdefault(k, v)
+        whole = decomp.unshard(f)
+        bitwise = torch.equal(whole, ref_f)
+        falling = all(b < a for a, b in zip(residuals, residuals[1:]))
+        finite = bool(torch.isfinite(whole).all()) and all(
+            math.isfinite(r) for r in residuals)
+        ms_cycle = device_s / MG_CYCLES * 1e3
+        row = {"mesh": mesh, "overlap": overlap,
+               "devices": [str(dv) for dv in decomp.devices],
+               "tiers": [r["tier"] for r in mg.kernel_tier_report(
+                   GRID, dx, depth)],
+               "ms_per_cycle": ms_cycle,
+               "vs_single_device": ms_cycle / single_ms,
+               "host_s": host_s, "device_s": device_s,
+               "site_sweeps_per_s": sites * sweeps * MG_CYCLES / device_s,
+               "launches": path_launches, "expected_launches": expected,
+               "exchanged_bytes_per_cycle": (decomp.bytes_exchanged
+                                             - bytes0) / MG_CYCLES,
+               "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30,
+               "l2_residual_after_each_cycle": residuals,
+               "single_device_residuals": ref_residuals,
+               "final_f_bitwise_single_device": bitwise,
+               "finite": finite, "falling": falling}
+        rows[(mesh, overlap)] = row
+        emit({"phase": phase, "grid": GRID, "dtype": "torch.float32",
+              "cycle": f"v_cycle(25, 50, {depth})", **row})
+        if not (finite and falling and bitwise):
+            raise SystemExit(f"{phase} on {mesh} (overlap {overlap}): "
+                             f"finite {finite}, falling {residuals}, "
+                             f"bitwise {bitwise}")
+        if path_launches != expected:
+            raise SystemExit(f"{phase} on {mesh} launched {path_launches}, "
+                             f"not {expected}")
+        del mg, rho_s, f, sol, errs, whole
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mg_solver_on(kind, decomp, overlap):
+    """The solver of ``kind`` (mg_problem) over ``decomp``."""
+    cls, lhs, omega = mg_problem(kind)
+    return cls(lhs, halo_shape=MG_HALO, omega=omega, decomp=decomp,
+               overlap=overlap)
+
+
+def sharded_mg_identity(phase, launches):
+    """Each of MG_IDENTITY_CASES at 256^3 f64, every shard on the one card,
+    against the same cycle on one device from the same arrays: the
+    unknowns and every L-infinity record bit for bit, every L2 record
+    within MG_L2_TOL (rank-order sums); replicated levels named in the
+    tier report."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.multigrid import relax
+    shape = MG_IDENTITY_SHAPE
+    dx = MG_BOX / shape[0]
+    for mesh, overlap, problem, scheme, depth in MG_IDENTITY_CASES:
+        cycle = pt.v_cycle(25, 50, depth)
+        single = mg_solver(problem)
+        fs, rhos = mg_arrays(single, shape, torch.float64, 40)
+        arrays = {**fs, **rhos}
+        ref_errs, ref = getattr(pt, scheme)(solver=single)(
+            dx0=dx, cycle=cycle, **arrays)
+        decomp = pt.DomainDecomposition(mesh)
+        mg = getattr(pt, scheme)(solver=mg_solver_on(problem, decomp,
+                                                     overlap))
+        relax.reset_launch_counts()
+        errs, sol = mg(dx0=dx, cycle=cycle, **arrays)
+        torch.cuda.synchronize()
+        path_launches = {k: v for k, v in relax.LAUNCHES.items() if v}
+        for k, v in path_launches.items():
+            launches.setdefault(k, v)
+        expected = mg_expected_launches(mg, cycle, shape, dx)
+        bitwise = all(torch.equal(decomp.unshard(sol[n]), ref[n])
+                      for n in ref)
+        linf = all(g[n][0] == r[n][0] for (_, g), (_, r)
+                   in zip(errs, ref_errs) for n in r)
+        l2 = max(abs(g[n][1] - r[n][1]) / r[n][1] for (_, g), (_, r)
+                 in zip(errs, ref_errs) for n in r)
+        report = mg.kernel_tier_report(shape, dx, depth)
+        row = {"phase": phase, "mesh": mesh, "overlap": overlap,
+               "problem": problem, "scheme": scheme, "shape": shape,
+               "dtype": "torch.float64", "cycle": f"v_cycle(25, 50, {depth})",
+               "levels": [(r["grid_shape"][0], r["sharded"], r["tier"])
+                          for r in report],
+               "replicated_levels": sum(not r["sharded"] for r in report),
+               "unknowns_bitwise": bitwise, "linf_records_bitwise": linf,
+               "l2_records_max_rel_err": l2, "l2_tol": MG_L2_TOL,
+               "launches": path_launches,
+               "launches_as_expected": path_launches == expected}
+        emit(row)
+        if not (bitwise and linf and l2 <= MG_L2_TOL
+                and path_launches == expected
+                and len(errs) == len(ref_errs)):
+            raise SystemExit(f"{phase} failed: {row}")
+        del mg, sol, ref, fs, rhos, arrays
+        torch.cuda.empty_cache()
+
+
+def sharded_mg_trace(phase, rho):
+    """One V-cycle of the sharded main path under torch.profiler on (2, 1,
+    1), padded, overlapped at every level and by default (auto): the
+    device's busy time in the K11 launches, in the halo exchange's copies
+    (kernels and copies launched inside the ``halo_exchange`` labels), in
+    the transfers (inside ``mg_transfer``)
+    and the rest (the error norms), as shares of the cycle's device span,
+    and the idle share (1 - the union of busy intervals over the span);
+    then one more cycle with CUDA events and the host clock around every
+    step, and the host time spent on the levels below 64^3."""
+    import pystella_tpu_torch as pt
+    from torch.profiler import ProfilerActivity, profile
+    dx = MG_BOX / GRID[0]
+    for overlap in (False, True, None):
+        decomp = pt.DomainDecomposition((2, 1, 1))
+        mg = pt.FullApproximationScheme(solver=mg_solver_on(
+            "newton", decomp, overlap), halo_shape=MG_HALO)
+        rho_s = decomp.shard(rho)
+        f = decomp.zeros(GRID, torch.float32)
+        _, sol = mg(dx0=dx, f=f, rho=rho_s)
+        f = sol["f"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            mg(dx0=dx, f=f, rho=rho_s)
+            torch.cuda.synchronize()
+        events = prof.events()
+        device = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        labels = SHARDED_LABELS + ("mg_transfer",)
+        work = sorted((e for e in device if e.name not in labels),
+                      key=lambda e: e.time_range.start)
+        if not work:
+            emit({"phase": phase, "overlap": overlap, "device_events": 0,
+                  "idle_share": "not measured"})
+            continue
+        span = (max(e.time_range.end for e in work)
+                - work[0].time_range.start)
+        busy = sum(e - s for s, e in device_intervals(work))
+        kernels = sum(e.time_range.elapsed_us() for e in work
+                      if "mg_relax" in e.name)
+
+        def under(label):
+            """Device time of the kernels and copies launched inside
+            ``label`` (host-side spans; the profiler links each launch to
+            the ranges open on its thread)."""
+            spans = [(e.time_range.start, e.time_range.end)
+                     for e in events if e.name == label
+                     and e.device_type == torch.autograd.DeviceType.CPU]
+            total = 0.0
+            for e in events:
+                if e.device_type != torch.autograd.DeviceType.CPU:
+                    continue
+                if not any(a <= e.time_range.start and e.time_range.end <= b
+                           for a, b in spans) or e.name == label:
+                    continue
+                total += sum(k.duration for k in e.kernels)
+            return total
+        exchange = under("halo_exchange")
+        transfers = under("mg_transfer")
+        steps = mg_step_times(mg, lambda: mg(dx0=dx, f=f, rho=rho_s))
+        coarse = [s for s in steps if GRID[0] >> s[1] < 64]
+        emit({"phase": phase, "mesh": (2, 1, 1), "overlap": overlap,
+              "device_events": len(work), "span_ms": span / 1e3,
+              "busy_ms": busy / 1e3, "idle_share": 1 - busy / span,
+              "share_of_span": {
+                  "mg_relax_launches": kernels / span,
+                  "halo_exchange_copies": exchange / span,
+                  "transfers": transfers / span,
+                  "other": (busy - kernels - exchange - transfers) / span},
+              "busy_ms_by_group": {"mg_relax_launches": kernels / 1e3,
+                                   "halo_exchange_copies": exchange / 1e3,
+                                   "transfers": transfers / 1e3},
+              "mg_relax_launches": sum("mg_relax" in e.name for e in work),
+              "below_64_cubed": {
+                  "steps": len(coarse),
+                  "host_ms": sum(s[3] for s in coarse),
+                  "device_ms": sum(s[2] for s in coarse)},
+              "cycle_host_ms": sum(s[3] for s in steps),
+              "cycle_device_ms": sum(s[2] for s in steps),
+              "steps": steps})
+        del mg, rho_s, f, sol
+        torch.cuda.empty_cache()
 
 
 def ptxas_report(*steppers):
@@ -2356,7 +2842,7 @@ def sharded_trace(phase, make_state):
     sector = pt.ScalarSector(2, potential=potential)
     dt = 0.1 * BOX / GRID[0]
     args = {"a": 1.0, "hubble": 0.5}
-    for overlap in (False, True):
+    for overlap in (False, True, None):
         decomp = pt.DomainDecomposition((2, 1, 1))
         st = pt.FusedScalarStepper(sector, GRID, BOX / GRID[0], HALO,
                                    dtype=torch.float32, decomp=decomp,
@@ -2831,7 +3317,30 @@ def main():
 
     # -- 24. multigrid reference, main path and trace ------------------------
     mg_reference("mg_reference")
-    mg_main_path("mg_main_path", timing, launches, trace="mg_trace")
+    mg_f, mg_rho, mg_residuals, mg_ms = mg_main_path(
+        "mg_main_path", timing, launches, trace="mg_trace")
+
+    # -- 24b. the multigrid solver on sharded levels (several shards on the
+    #         one card): the padded, interior and shell launches of K11 vs
+    #         their plain versions and the unpadded launch; the sharded
+    #         bench cycle on four meshes, its final f bit for bit the
+    #         single-device path's; the launches' times; the identity
+    #         meshes at 256^3 f64 (replicated coarse levels, the linear
+    #         scheme); two traced sharded cycles ------------------------------
+    sharded_mg_kernels_vs_plain("sharded_mg_kernel_vs_plain", errs)
+    mg_rows = sharded_mg_main_path("sharded_mg_main_path", mg_f, mg_rho,
+                                   mg_residuals, mg_ms, launches)
+    mg_per_cycle = {}
+    for row in mg_rows.values():
+        for k, v in row["expected_launches"].items():
+            mg_per_cycle.setdefault(k, v // (1 + MG_CYCLES))
+    del mg_f
+    torch.cuda.empty_cache()
+    time_sharded_mg_kernels("sharded_mg_kernel_time", timing, mg_per_cycle)
+    sharded_mg_identity("sharded_mg_identity", launches)
+    sharded_mg_trace("sharded_mg_trace", mg_rho)
+    del mg_rho
+    torch.cuda.empty_cache()
 
     # -- 25. the sharded tier (several shards on the one card): the padded,
     #        interior and shell launches vs their plain versions and vs the
@@ -2883,14 +3392,18 @@ def main():
 
     kernels = []
     sharded = sharded_kernel_names()
+    sharded_mg = sharded_mg_kernel_names()
     names = [n for n in tfused.LAUNCHES if n not in sharded]
     sites = {**tfused.KERNELS, **new_kernels, **tfused.SHARDED_KERNELS,
-             **tderivs.SHARDED_KERNELS}
+             **tderivs.SHARDED_KERNELS, **trelax.SHARDED_KERNELS}
     main_tag = {name: case_tag(GRID, torch.float32) + (
         ":newton" if name in MG_KERNELS else "")
         for name in names + list(new_kernels)}
-    main_tag.update({name: sharded_main_tag(name) for name in sharded})
-    for name in names + list(new_kernels) + sharded:
+    main_tag.update({name: sharded_main_tag(name)
+                     for name in sharded + sharded_mg})
+    main_tag.update({name: main_tag[name] + ":newton"
+                     for name in sharded_mg})
+    for name in names + list(new_kernels) + sharded + sharded_mg:
         src, replaces = sites.get(name) or sites[name.split(":")[0]]
         t = timing[name]
         main_case = errs[name][main_tag[name]]

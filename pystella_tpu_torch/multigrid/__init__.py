@@ -1,20 +1,32 @@
-"""Geometric multigrid solvers on 3-D periodic lattices, on one device.
+"""Geometric multigrid solvers on 3-D periodic lattices.
 
 PyTorch counterpart of ``pystella_tpu/multigrid/__init__.py``. Cycles are
 the same ``(level, iterations)`` walks; the Full Approximation Scheme and
 linear multigrid keep the JAX package's transfer semantics (restrict
 unknowns + tau-corrected right-hand side going down, correction
 interpolation going up) and are *functional*: a cycle maps input arrays to
-output arrays. Every level lives whole on the solver's device; sweeps,
-residuals and coarse right-hand sides are the solver's kernels
-(:mod:`~pystella_tpu_torch.multigrid.relax`), transfers plain tensor
-operations (:mod:`~pystella_tpu_torch.multigrid.transfer`).
+output arrays. Sweeps, residuals and coarse right-hand sides are the
+solver's kernels (:mod:`~pystella_tpu_torch.multigrid.relax`), transfers
+plain tensor operations (:mod:`~pystella_tpu_torch.multigrid.transfer`).
+
+Without a decomposition every level lives whole on the solver's device.
+With one (the solver's ``decomp=``) the levels are placed by the JAX
+package's rule: a level is sharded (its arrays
+:class:`~pystella_tpu_torch.parallel.ShardedArray` s) when the mesh shards
+an axis and every block is even and at least as wide as every halo pad;
+the coarser levels, from the first that is not, are replicated: held whole
+on the decomposition's first device, assembled there by device-to-device
+copies and cut back into blocks going up. Transfers between sharded levels
+run per block with the neighbours' rows as halos. A sharded cycle equals
+the single-device one bit for bit, but for the L2 error norms (per-block
+sums added in rank order).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from pystella_tpu_torch.multigrid.relax import (
     LevelSpec, RelaxationBase, JacobiIterator, NewtonIterator)
@@ -22,6 +34,7 @@ from pystella_tpu_torch.multigrid.transfer import (
     RestrictionBase, FullWeighting, Injection,
     InterpolationBase, LinearInterpolation, CubicInterpolation,
     periodic_pad)
+from pystella_tpu_torch.parallel.decomp import ShardedArray
 
 __all__ = [
     "mu_cycle", "v_cycle", "w_cycle", "f_cycle",
@@ -70,8 +83,8 @@ class FullApproximationScheme:
     """Nonlinear multigrid via the Full Approximation Scheme.
 
     :arg solver: a :class:`RelaxationBase` subclass instance
-        (:class:`JacobiIterator` or :class:`NewtonIterator`); its device is
-        where the cycle runs.
+        (:class:`JacobiIterator` or :class:`NewtonIterator`); its device,
+        or its decomposition (``decomp=``), is where the cycle runs.
     :arg halo_shape: stencil/transfer halo width; defaults to the solver's.
     :arg Restrictor: defaults to :class:`FullWeighting`.
     :arg Interpolator: defaults to :class:`LinearInterpolation`.
@@ -87,7 +100,12 @@ class FullApproximationScheme:
     Call with the fine grid spacing, an optional cycle, and all arrays by
     keyword; returns ``(errors, unknowns)`` where ``errors`` is the list of
     ``(level, {name: [Linf, L2]})`` entries and ``unknowns`` the updated
-    solution arrays (functional: the inputs are not written).
+    solution arrays (functional: the inputs are not written). With a
+    decomposition the arrays may be numpy arrays, tensors or
+    :class:`ShardedArray` s, and the unknowns come back as the finest
+    level holds them (:class:`ShardedArray` s where it is sharded). The
+    JAX package takes the decomposition as the call's first argument; the
+    port takes the solver's.
     """
 
     def __init__(self, solver, halo_shape=None, **kwargs):
@@ -107,9 +125,16 @@ class FullApproximationScheme:
     # -- level geometry -----------------------------------------------------
 
     def _make_levels(self, grid_shape, dx0, depth):
+        """The levels' geometry; with a decomposition, the JAX package's
+        placement: sharded iff the mesh shards an axis and every block is
+        even and at least ``max(h, restriction pad, interpolation pad,
+        2)`` wide; once a level is replicated, so are the coarser ones."""
         if np.isscalar(dx0):
             dx0 = (float(dx0),) * 3
         dx0 = tuple(float(d) for d in dx0)
+        decomp = self.solver.decomp
+        min_block = max(self.halo_shape, self.restrictor.pad,
+                        self.interpolator.pad, 2)
         levels = []
         for i in range(depth + 1):
             shape_i = tuple(n >> i for n in grid_shape)
@@ -117,19 +142,50 @@ class FullApproximationScheme:
                 raise ValueError(
                     f"grid {grid_shape} not divisible by 2**{i} for "
                     f"multigrid depth {depth}")
+            sharded = decomp is not None and any(
+                p > 1 for p in decomp.proc_shape) and all(
+                n % p == 0 and n // p >= min_block and (n // p) % 2 == 0
+                for n, p in zip(shape_i, decomp.proc_shape))
+            if levels and not levels[-1].sharded:
+                sharded = False
             levels.append(LevelSpec(
-                shape_i, tuple(d * 2 ** i for d in dx0), False))
+                shape_i, tuple(d * 2 ** i for d in dx0), sharded))
         return levels
+
+    def kernel_tier_report(self, grid_shape, dx0, depth):
+        """Per level of a cycle of ``depth`` on ``grid_shape``: its lattice,
+        whether it is sharded, the block a rank holds and how its sweeps
+        run (:meth:`RelaxationBase.level_tier`)."""
+        decomp = self.solver.decomp
+        return [{"grid_shape": lv.grid_shape, "sharded": lv.sharded,
+                 "block": (decomp.rank_shape(lv.grid_shape) if lv.sharded
+                           else lv.grid_shape),
+                 "tier": self.solver.level_tier(lv)}
+                for lv in self._make_levels(grid_shape, dx0, depth)]
 
     # -- transfers ----------------------------------------------------------
 
+    def _transfer(self, op, src, dst, x):
+        """``op`` of ``x`` from level ``src`` to level ``dst``: per block
+        between sharded levels, else on the whole array (a sharded input
+        assembled on the solver's device first, a sharded output cut into
+        blocks after), as the JAX package's cases. Under the profiler label
+        ``mg_transfer``."""
+        with record_function("mg_transfer"):
+            if src.sharded and dst.sharded:
+                return op(x, decomp=self.solver.decomp)
+            if isinstance(x, ShardedArray):
+                x = x.decomp.unshard(x, self.solver.device)
+            out = op.apply_local(x)
+            return self.solver.decomp.shard(out) if dst.sharded else out
+
     def _restrict(self, lf, lc, x):
         """Restrict ``x`` from (fine) level ``lf`` to (coarse) ``lc``."""
-        return self.restrictor.apply_local(x)
+        return self._transfer(self.restrictor, lf, lc, x)
 
     def _interpolate(self, lc, lf, x):
         """Interpolate ``x`` from (coarse) level ``lc`` to (fine) ``lf``."""
-        return self.interpolator.apply_local(x)
+        return self._transfer(self.interpolator, lc, lf, x)
 
     # -- cycle steps ----------------------------------------------------------
 
@@ -184,11 +240,8 @@ class FullApproximationScheme:
 
     def __call__(self, dx0=None, cycle=None, **kwargs):
         solver = self.solver
-        unknowns0 = solver._cast({n: kwargs.pop(n)
-                                  for n in solver.f_to_rho_dict})
-        rhos0 = solver._cast({r: kwargs.pop(r)
-                              for r in solver.f_to_rho_dict.values()})
-        aux0 = solver._cast(kwargs)
+        unknowns0 = {n: kwargs.pop(n) for n in solver.f_to_rho_dict}
+        rhos0 = {r: kwargs.pop(r) for r in solver.f_to_rho_dict.values()}
         grid_shape = tuple(next(iter(unknowns0.values())).shape[-3:])
         if dx0 is None:
             raise ValueError("dx0 is required")
@@ -199,6 +252,9 @@ class FullApproximationScheme:
         depth = max(i for i, _ in cycle)
 
         levels = self._make_levels(grid_shape, dx0, depth)
+        unknowns0 = solver._cast(unknowns0, levels[0])
+        rhos0 = solver._cast(rhos0, levels[0])
+        aux0 = solver._cast(kwargs, levels[0])
 
         aux = {0: aux0}
         for i in range(1, depth + 1):
@@ -238,7 +294,9 @@ class MultiGridSolver(FullApproximationScheme):
         for n, r in r_fine.items():
             rr = self._restrict(levels[i - 1], levels[i], r)
             rhos[i][solver.f_to_rho_dict[n]] = rr
-            unknowns[i][n] = torch.zeros_like(rr)
+            unknowns[i][n] = (rr.map(torch.zeros_like)
+                              if isinstance(rr, ShardedArray)
+                              else torch.zeros_like(rr))
 
     def transfer_up(self, levels, i, unknowns, rhos, aux):
         for n, f_fine in unknowns[i].items():

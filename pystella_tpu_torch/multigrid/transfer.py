@@ -1,11 +1,16 @@
 """Grid-transfer operators (restriction and interpolation) for multigrid.
 
 PyTorch counterpart of ``pystella_tpu/multigrid/transfer.py``. Both are
-tensor-product per-axis operations on whole arrays held on one device:
-restriction is a strided slice of a periodically padded array,
-interpolation an interleave (``stack`` + ``reshape``) of even and odd
-parts. The sums run in the JAX package's order (``sorted(coefs)``, axis by
-axis), so the two agree to rounding.
+tensor-product per-axis operations on local blocks: restriction is a
+strided slice of a padded array, interpolation an interleave (``stack`` +
+``reshape``) of even and odd parts. A whole array is padded by periodic
+wraps (:func:`periodic_pad`); a
+:class:`~pystella_tpu_torch.parallel.ShardedArray` block by block, each
+block padded by its neighbours' rows (``decomp.pad_with_halos``, the
+operator's ``pad`` along all three axes), as the JAX package runs the
+operators under ``shard_map``. The sums run in the JAX package's order
+(``sorted(coefs)``, axis by axis), so the two agree to rounding; a sharded
+result equals the whole array's bit for bit.
 
 These are plain tensor operations in the JAX package too (outside any
 Pallas kernel), so plain PyTorch is their port.
@@ -15,6 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from pystella_tpu_torch.parallel.decomp import ShardedArray
 
 __all__ = ["RestrictionBase", "FullWeighting", "Injection",
            "InterpolationBase", "LinearInterpolation", "CubicInterpolation",
@@ -36,6 +43,44 @@ def periodic_pad(x, halo, lattice_axes=None):
         x = torch.cat([x.narrow(ax, n - h, h), x, x.narrow(ax, 0, h)],
                       dim=ax)
     return x
+
+
+def _padded(x, halo):
+    """A block that arrives padded already (by :func:`_run_local`)."""
+    return x
+
+
+def _run_local(op, x, decomp):
+    """``op.apply_local`` of a whole tensor, or, for a
+    :class:`ShardedArray`, of every block padded by the neighbours' rows
+    (the operator's ``pad`` along each axis; ``decomp`` defaults to the
+    array's). The padded blocks of each device are the slices of one
+    stacked tensor, and the operator runs once per device on its stack
+    (its passes are elementwise along the stacked axis, so each block's
+    result is the one it gives alone): one pass's launches serve all of a
+    device's blocks."""
+    if not isinstance(x, ShardedArray):
+        return op.apply_local(x)
+    decomp = x.decomp if decomp is None else decomp
+    if x.decomp is not decomp:
+        raise ValueError("the array is sharded over another decomposition")
+    ranks = {}
+    for r, b in enumerate(x.blocks):
+        ranks.setdefault(b.device, []).append(r)
+    blk = x.blocks[0]
+    shape = blk.shape[:-3] + tuple(n + 2 * op.pad for n in blk.shape[-3:])
+    stacks = {dev: blk.new_empty((len(rs),) + shape, device=dev)
+              for dev, rs in ranks.items()}
+    padded, out = [None] * len(x.blocks), [None] * len(x.blocks)
+    for dev, rs in ranks.items():
+        for r, p in zip(rs, stacks[dev].unbind(0)):
+            padded[r] = p
+    decomp.pad_into(x.blocks, padded, (op.pad,) * 3)
+    for dev, rs in ranks.items():
+        for r, o in zip(rs, op.apply_local(stacks[dev],
+                                           pad_fn=_padded).unbind(0)):
+            out[r] = o
+    return ShardedArray(out, decomp)
 
 
 def _strided(x, ax, start, count, stride=1):
@@ -82,9 +127,11 @@ class RestrictionBase:
             x = acc
         return x
 
-    def __call__(self, f1, f2=None):
-        """Restrict ``f1``; with ``correct=True`` returns ``f2 - R(f1)``."""
-        out = self.apply_local(f1)
+    def __call__(self, f1, f2=None, decomp=None):
+        """Restrict ``f1`` (a tensor, or a :class:`ShardedArray` block by
+        block, its halos from ``decomp``, default the array's); with
+        ``correct=True`` returns ``f2 - R(f1)``."""
+        out = _run_local(self, f1, decomp)
         if self.correct:
             if f2 is None:
                 raise ValueError("correct=True requires f2")
@@ -147,10 +194,11 @@ class InterpolationBase:
             x = torch.stack([even, odd], dim=ax + 1).reshape(shape)
         return x
 
-    def __call__(self, f2, f1=None):
-        """Interpolate the coarse array ``f2``; with ``correct=True``
+    def __call__(self, f2, f1=None, decomp=None):
+        """Interpolate the coarse array ``f2`` (a tensor, or a
+        :class:`ShardedArray` block by block); with ``correct=True``
         returns ``f1 + I(f2)``."""
-        out = self.apply_local(f2)
+        out = _run_local(self, f2, decomp)
         if self.correct:
             if f1 is None:
                 raise ValueError("correct=True requires f1")

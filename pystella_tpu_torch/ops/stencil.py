@@ -108,19 +108,19 @@ class RollTaps:
 
 
 class PaddedTaps(RollTaps):
-    """Taps of a ``(C, X + 2 hx, Y + 2 hy, Z)`` window padded by ``pad =
-    (hx, hy)`` rows along x and y (the neighbours' rows on a sharded
-    mesh): ``taps(sx, sy, sz)`` is the ``(C, X, Y, Z)`` block shifted by
-    ``s``, a slice along a padded axis and a periodic roll along an
-    unpadded one (z always). The values are those :class:`RollTaps` gives
-    on the whole lattice: only the data movement differs, so a plain body
-    on these taps equals the same body on the unsharded lattice bit for
-    bit. The window of an interior or shell launch is such a window too
-    (the raw block, or a shell input, with ``hx = h``)."""
+    """Taps of a ``(C, X + 2 hx, Y + 2 hy, Z + 2 hz)`` window padded by
+    ``pad = (hx, hy[, hz])`` rows along x, y (and z) (the neighbours' rows
+    on a sharded mesh): ``taps(sx, sy, sz)`` is the ``(C, X, Y, Z)`` block
+    shifted by ``s``, a slice along a padded axis and a periodic roll along
+    an unpadded one. The values are those :class:`RollTaps` gives on the
+    whole lattice: only the data movement differs, so a plain body on these
+    taps equals the same body on the unsharded lattice bit for bit. The
+    window of an interior or shell launch is such a window too (the raw
+    block, or a shell input, with ``hx = h``)."""
 
     def __init__(self, w, pad):
         super().__init__(w)
-        self._pad = (int(pad[0]), int(pad[1]))
+        self._pad = tuple(int(p) for p in pad) + (0,) * (3 - len(pad))
 
     def _shift(self, arr, s, axis, h):
         if h == 0:
@@ -129,9 +129,9 @@ class PaddedTaps(RollTaps):
         return arr.narrow(axis, h + s, n)
 
     def __call__(self, sx=0, sy=0, sz=0):
-        hx, hy = self._pad
-        return self._roll1(self._shift(self._shift(
-            self._w, sx, 1, hx), sy, 2, hy), sz, 3)
+        hx, hy, hz = self._pad
+        return self._shift(self._shift(self._shift(
+            self._w, sx, 1, hx), sy, 2, hy), sz, 3, hz)
 
     def component(self, c):
         return PaddedTaps(self._w[c:c + 1], self._pad)

@@ -45,7 +45,7 @@ from torch.profiler import record_function
 from pystella_tpu_torch._device import resolve_device, torch_dtype
 from pystella_tpu_torch.parallel.overlap import MIN_INTERIOR_FACTOR
 
-__all__ = ["DomainDecomposition", "HaloShells", "ShardedArray"]
+__all__ = ["DomainDecomposition", "HaloPlan", "HaloShells", "ShardedArray"]
 
 
 class ShardedArray:
@@ -84,6 +84,22 @@ class ShardedArray:
     def map(self, fn):
         """A new array of ``fn(block)`` per block."""
         return ShardedArray([fn(b) for b in self.blocks], self.decomp)
+
+    def _zip(self, other, fn):
+        if not isinstance(other, ShardedArray) or other.decomp is not \
+                self.decomp:
+            raise TypeError("blockwise arithmetic takes two ShardedArrays "
+                            "of one decomposition")
+        return ShardedArray([fn(a, b) for a, b in
+                             zip(self.blocks, other.blocks)], self.decomp)
+
+    def __add__(self, other):
+        """Blockwise sum (the JAX array's ``+``)."""
+        return self._zip(other, torch.add)
+
+    def __sub__(self, other):
+        """Blockwise difference."""
+        return self._zip(other, torch.sub)
 
     def __repr__(self):
         return (f"ShardedArray(shape={self.shape}, dtype={self.dtype}, "
@@ -176,6 +192,13 @@ class DomainDecomposition:
                 "devices")
         self.proc_shape = proc_shape
         self.devices = devices
+        #: mesh coordinates of every rank, and its neighbours one step
+        #: along each axis (the exchange looks them up per copy)
+        self._coords = [tuple(int(i) for i in np.unravel_index(
+            r, proc_shape)) for r in range(len(devices))]
+        self._neighbors = {(r, d, s): self._neighbor(r, d, s)
+                           for r in range(len(devices)) for d in range(3)
+                           for s in (-1, 1)}
         self.axis_names = ("x", "y", "z")
         if np.isscalar(halo_shape):
             halo_shape = (halo_shape,) * 3
@@ -201,12 +224,16 @@ class DomainDecomposition:
 
     def coords(self, r):
         """Mesh coordinates of rank ``r`` (C order over ``proc_shape``)."""
-        return tuple(int(i) for i in np.unravel_index(r, self.proc_shape))
+        return self._coords[r]
 
     def neighbor(self, r, d, shift):
         """The rank ``shift`` steps from rank ``r`` along axis ``d``, with
         periodic wrap."""
-        c = list(self.coords(r))
+        n = self._neighbors.get((r, d, shift))
+        return self._neighbor(r, d, shift) if n is None else n
+
+    def _neighbor(self, r, d, shift):
+        c = list(self._coords[r])
         c[d] = (c[d] + shift) % self.proc_shape[d]
         return int(np.ravel_multi_index(c, self.proc_shape))
 
@@ -299,6 +326,22 @@ class DomainDecomposition:
                 slice(i * n, (i + 1) * n)
                 for i, n in zip(self.coords(r), lat)]
             out[tuple(idx)] = blk
+        return out
+
+    def unshard(self, array, device=None):
+        """The whole lattice array of a :class:`ShardedArray` as one tensor
+        on ``device`` (default: rank 0's), each block copied into its place
+        device to device (no host round trip, no sync): how a replicated
+        multigrid level is assembled. :meth:`shard` of a tensor cuts one
+        back into blocks the same way."""
+        dev = self.devices[0] if device is None else resolve_device(device)
+        out = torch.empty(array.shape, dtype=array.dtype, device=dev)
+        b = array.block_shape
+        for r, blk in enumerate(array.blocks):
+            idx = [slice(None)] * (len(b) - 3) + [
+                slice(i * n, (i + 1) * n)
+                for i, n in zip(self.coords(r), b[-3:])]
+            out[tuple(idx)].copy_(blk)
         return out
 
     def zeros(self, grid_shape, dtype, outer_shape=()):
@@ -439,12 +482,16 @@ class DomainDecomposition:
         radius). Later axes' slabs include earlier axes' halos, as in the
         JAX ``pad_with_halos``; the result equals it element for
         element."""
+        self.pad_plan(blocks, outs, halo, exchange)()
+        return outs
+
+    def pad_plan(self, blocks, outs, halo, exchange=None):
+        """The copies of :meth:`pad_into` as a :class:`HaloPlan`: built
+        once, run (``plan()``) for every exchange between the same
+        tensors, as a smoother's sweeps exchange the same buffers."""
         halo, exchange = self._canon_halo(halo, exchange)
         lat = tuple(blocks[0].shape[-3:])
         nout = blocks[0].ndim - 3
-        key = (tuple(blocks[0].shape), str(blocks[0].dtype), halo, exchange)
-        self._record_halo_bytes(key, self.halo_bytes(
-            blocks[0].shape, blocks[0].element_size(), halo, exchange))
         for d in range(3):
             if (halo[d] if self.proc_shape[d] == 1
                     else min(exchange[d], halo[d])) > lat[d]:
@@ -466,26 +513,31 @@ class DomainDecomposition:
                     idx.append(slice(halo[a], halo[a] + lat[a]))
             return tuple(idx)
 
-        with record_function("halo_exchange"):
-            centre = region(-1, None, full_before=False)
-            for blk, out in zip(blocks, outs):
-                out[centre] = blk
-            for d in range(3):
-                h, n = halo[d], lat[d]
-                if h == 0:
-                    continue
-                e = h if self.proc_shape[d] == 1 else min(exchange[d], h)
-                for r, out in enumerate(outs):
-                    lo = outs[self.neighbor(r, d, -1)]
-                    hi = outs[self.neighbor(r, d, +1)]
-                    out[region(d, slice(h - e, h))] = \
-                        lo[region(d, slice(h + n - e, h + n))]
-                    out[region(d, slice(h + n, h + n + e))] = \
-                        hi[region(d, slice(h, h + e))]
-                    if e < h:
-                        out[region(d, slice(0, h - e))] = 0
-                        out[region(d, slice(h + n + e, n + 2 * h))] = 0
-        return outs
+        centre = region(-1, None, full_before=False)
+        # the centres, then axis by axis the halo rows (each stage reads
+        # what the earlier ones wrote)
+        stages = [[(out[centre], blk) for blk, out in zip(blocks, outs)]]
+        for d in range(3):
+            h, n = halo[d], lat[d]
+            if h == 0:
+                continue
+            e = h if self.proc_shape[d] == 1 else min(exchange[d], h)
+            stage = []
+            for r, out in enumerate(outs):
+                lo = outs[self.neighbor(r, d, -1)]
+                hi = outs[self.neighbor(r, d, +1)]
+                stage.append((out[region(d, slice(h - e, h))],
+                              lo[region(d, slice(h + n - e, h + n))]))
+                stage.append((out[region(d, slice(h + n, h + n + e))],
+                              hi[region(d, slice(h, h + e))]))
+                if e < h:
+                    stage.append((out[region(d, slice(0, h - e))], None))
+                    stage.append((out[region(d, slice(h + n + e,
+                                                      n + 2 * h))], None))
+            stages.append(stage)
+        key = (tuple(blocks[0].shape), str(blocks[0].dtype), halo, exchange)
+        return HaloPlan(self, stages, key, self.halo_bytes(
+            blocks[0].shape, blocks[0].element_size(), halo, exchange))
 
     def _pad_blocks(self, blocks, halo, exchange):
         halo, exchange = self._canon_halo(halo, exchange)
@@ -564,32 +616,38 @@ class DomainDecomposition:
         ``highs[r]`` the block's last ``2h`` rows then the right
         neighbour's first ``h`` (``concat(halo, 2h rows)`` of the JAX
         ``OverlapStreamingStencil``)."""
+        self.x_shells_plan(blocks, lows, highs, h)()
+        return lows, highs
+
+    def x_shells_plan(self, blocks, lows, highs, h):
+        """The copies of :meth:`x_shells_into` as a :class:`HaloPlan`."""
         ax = blocks[0].ndim - 3
         n = blocks[0].shape[ax]
         blk = blocks[0]
         nbytes = 2 * h * blk.element_size() * int(
             np.prod([m for a, m in enumerate(blk.shape) if a != ax]))
-        self._record_halo_bytes(("slabs", tuple(blk.shape), str(blk.dtype),
-                                 0, h), nbytes)
-        with record_function("halo_exchange"):
-            for r, (blk, lo, hi) in enumerate(zip(blocks, lows, highs)):
-                left = blocks[self.neighbor(r, 0, -1)]
-                right = blocks[self.neighbor(r, 0, +1)]
-                lo.narrow(ax, 0, h).copy_(left.narrow(ax, n - h, h))
-                lo.narrow(ax, h, 2 * h).copy_(blk.narrow(ax, 0, 2 * h))
-                hi.narrow(ax, 0, 2 * h).copy_(blk.narrow(ax, n - 2 * h, 2 * h))
-                hi.narrow(ax, 2 * h, h).copy_(right.narrow(ax, 0, h))
-        return lows, highs
+        copies = []
+        for r, (blk, lo, hi) in enumerate(zip(blocks, lows, highs)):
+            left = blocks[self.neighbor(r, 0, -1)]
+            right = blocks[self.neighbor(r, 0, +1)]
+            copies += [(lo.narrow(ax, 0, h), left.narrow(ax, n - h, h)),
+                       (lo.narrow(ax, h, 2 * h), blk.narrow(ax, 0, 2 * h)),
+                       (hi.narrow(ax, 0, 2 * h),
+                        blk.narrow(ax, n - 2 * h, 2 * h)),
+                       (hi.narrow(ax, 2 * h, h), right.narrow(ax, 0, h))]
+        return HaloPlan(self, [copies], ("slabs", tuple(blk.shape),
+                                         str(blk.dtype), 0, h), nbytes)
 
     def side_exchange(self, reads=(), writes=()):
         """A context for exchange copies on a side stream of each card of
-        the mesh: on entry the side streams wait for the work queued so far
-        on the current streams, and every CUDA tensor in ``reads`` and
-        ``writes`` is marked as used on its side stream
-        (``record_stream``); inside, copies go to the side streams; the
+        the mesh: every CUDA tensor in ``reads`` and ``writes`` is marked as
+        used on its side stream (``record_stream``, once); on entry the side
+        streams wait for the work queued so far on the current streams;
+        inside, copies go to the side streams; the
         returned object's ``wait()`` makes the current streams wait for
         them. Without a card it runs the copies in place and ``wait()`` does
-        nothing."""
+        nothing. The object may be entered again for later exchanges
+        between the same tensors."""
         return _SideExchange(self, reads, writes)
 
     def _side_stream(self, dev):
@@ -678,23 +736,57 @@ class DomainDecomposition:
         return f"DomainDecomposition(proc_shape={self.proc_shape})"
 
 
+class HaloPlan:
+    """The copies of one halo exchange between fixed tensors, as stages of
+    ``(destination, source)`` views (a ``None`` source writes zeros; a
+    stage reads what earlier stages wrote, never its own destinations),
+    and the bytes one execution moves between ranks. Calling it runs each
+    stage as one ``torch._foreach_copy_`` on the current stream under the
+    ``halo_exchange`` label and counts the bytes
+    (:attr:`DomainDecomposition.bytes_exchanged`); a caller that exchanges
+    the same buffers many times builds it once and saves the indexing and
+    the per-copy dispatch of every call."""
+
+    def __init__(self, decomp, stages, key, nbytes):
+        self.decomp = decomp
+        self.stages = []
+        for stage in stages:
+            copies = [(d, s) for d, s in stage if s is not None]
+            self.stages.append(([d for d, _ in copies],
+                                [s for _, s in copies],
+                                [d for d, s in stage if s is None]))
+        self._key = key
+        self.nbytes = nbytes
+
+    def __call__(self):
+        self.decomp._record_halo_bytes(self._key, self.nbytes)
+        with record_function("halo_exchange"):
+            for dsts, srcs, zeros in self.stages:
+                if dsts:
+                    torch._foreach_copy_(dsts, srcs)
+                if zeros:
+                    torch._foreach_zero_(zeros)
+
+
 class _SideExchange:
-    """See :meth:`DomainDecomposition.side_exchange`."""
+    """See :meth:`DomainDecomposition.side_exchange`. The tensors are
+    marked as used on the side streams once, here, so one object can serve
+    as the context of many exchanges between the same tensors."""
 
     def __init__(self, decomp, reads, writes):
         self._devs = sorted({t.device for t in list(reads) + list(writes)
                              if t.is_cuda}, key=str)
         self._streams = [decomp._side_stream(d) for d in self._devs]
-        self._tensors = [t for t in list(reads) + list(writes) if t.is_cuda]
+        side = dict(zip(self._devs, self._streams))
+        for t in list(reads) + list(writes):
+            if t.is_cuda:
+                t.record_stream(side[t.device])
         self._stack = None
         self._events = []
 
     def __enter__(self):
         for dev, s in zip(self._devs, self._streams):
             s.wait_stream(torch.cuda.current_stream(dev))
-        side = dict(zip(self._devs, self._streams))
-        for t in self._tensors:
-            t.record_stream(side[t.device])
         self._stack = contextlib.ExitStack()
         for s in self._streams:
             self._stack.enter_context(torch.cuda.stream(s))

@@ -377,6 +377,41 @@ def test_fas_cycle_matches_jax(jax_fas_cycle, key, defer):
                 assert abs(g - r) <= 1e-10 * abs(r)
 
 
+@pytest.fixture(scope="module")
+def jax_linear_cycle(decomp):
+    """One linear ``MultiGridSolver`` ``v_cycle(5, 10, 2)`` of the Poisson
+    + Helmholtz pair in the JAX package (its correction scheme: the
+    restricted residual as the coarse source, a zero coarse guess)."""
+    cls, problems, omega = PROBLEMS["jacobi-linear"]
+    fs, rhos, _ = problem_arrays("jacobi-linear", np.float64, seed=6)
+    solver = getattr(jmg, cls)(decomp, problems(ps), halo_shape=1,
+                               dtype=np.float64, omega=omega)
+    errs, sol = jmg.MultiGridSolver(solver=solver, halo_shape=1)(
+        decomp, dx0=DX, cycle=jmg.v_cycle(5, 10, 2), **fs, **rhos)
+    return errs, {n: np.asarray(v) for n, v in sol.items()}
+
+
+def test_multigrid_solver_matches_jax(jax_linear_cycle):
+    """The linear ``MultiGridSolver`` on one device against the JAX
+    package's, f64: the solution within 1e-12 of its largest value and
+    every recorded ``(level, {name: [Linf, L2]})`` within 1e-12 relative
+    (the same sums; XLA orders the Laplacian axis by axis)."""
+    cls, problems, omega = PROBLEMS["jacobi-linear"]
+    fs, rhos, _ = problem_arrays("jacobi-linear", np.float64, seed=6)
+    solver = getattr(tmg, cls)(problems(pt), halo_shape=1,
+                               dtype=np.float64, omega=omega, device="cpu")
+    errs, sol = tmg.MultiGridSolver(solver=solver, halo_shape=1)(
+        dx0=DX, cycle=tmg.v_cycle(5, 10, 2), **fs, **rhos)
+    ref_errs, ref_sol = jax_linear_cycle
+    for n in ref_sol:
+        assert rel(sol[n].numpy(), ref_sol[n]) <= 1e-12
+    assert [lvl for lvl, _ in errs] == [lvl for lvl, _ in ref_errs]
+    for (_, got), (_, ref) in zip(errs, ref_errs):
+        for n in ref:
+            for g, r in zip(got[n], ref[n]):
+                assert abs(g - r) <= 1e-12 * abs(r)
+
+
 @pytest.mark.parametrize("Solver", ["NewtonIterator", "JacobiIterator"])
 @pytest.mark.parametrize("MG", ["FullApproximationScheme",
                                 "MultiGridSolver"])
