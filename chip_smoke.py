@@ -60,7 +60,15 @@ entry points a user calls, at 512^3 in float32:
   each final f bit-equal to the single-device cycle's, and the identity
   cycles at 256^3 f64 (replicated coarse levels, the linear scheme)
   (kernels ``mg_smooth``, ``mg_residual`` and ``mg_tau`` as ``:xpad``,
-  ``:ypad``, ``:xypad``, ``:interior`` and ``:shell``).
+  ``:ypad``, ``:xypad``, ``:interior`` and ``:shell``);
+- the sharded steppers with bfloat16 carries, every shard on the one card:
+  the bench hot loop on ``(2, 1, 1)`` overlapped and ``(2, 2, 1)``, the
+  coupled driver on ``(2, 1, 1)`` and ``(2, 2, 1)``, the GW bench's
+  ``multi_step`` on ``(2, 1, 1)`` overlapped and the coupled GW driver on
+  ``(2, 1, 1)`` padded, each final state (and a, adot) bit-equal to the
+  single-device bf16 run's (kernels ``<name>:bf16:<kind>`` of every kernel
+  with a sharded tier, and ``fused_stage_energy:bf16_fin:<kind>``,
+  ``preheat_stage_energy:bf16_fin:<kind>``).
 
 A non-polynomial potential (exp, tanh, sqrt, cos, powers 2.5 and -2, a
 quotient) compiles the printer's math-function paths into K2, K3 and K5 and
@@ -77,6 +85,7 @@ it, it exits non-zero before printing any result.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1038,7 +1047,7 @@ def coupled_main_path(phase, st, state, names, launches, trace=None,
     # a copy: the steps below write into the stepper's buffers, the state
     state = {k: v.clone() for k, v in state.items()}
     path_memory = (torch.cuda.max_memory_allocated() - held_before) / 2**30
-    single_row = {}
+    single_row, single_ref = {}, {}
     if single:
         exp1 = pt.Expansion(energy0["total"], pt.LowStorageRK54, mpl=1.0)
         exp1.a, exp1.adot, exp1.hubble = expand.a, expand.adot, expand.hubble
@@ -1050,6 +1059,9 @@ def coupled_main_path(phase, st, state, names, launches, trace=None,
                       "single_stage_finite": all(
                           bool(torch.isfinite(v).all())
                           for v in out.values())}
+        # what the sharded paths' single-stage step is held to
+        single_ref = {"single_final": on_host(out), "single_a":
+                      float(exp1.a), "single_adot": float(exp1.adot)}
         del out
     path_launches = dict(tfused.LAUNCHES)
     for name in names:
@@ -1066,7 +1078,7 @@ def coupled_main_path(phase, st, state, names, launches, trace=None,
     # what the sharded paths of this model start from and are held to
     PATH_ROWS[phase] = {"ms_per_step": device_s / NSTEPS * 1e3,
                         "energy0": energy0["total"], "a": float(expand.a),
-                        "adot": float(expand.adot)}
+                        "adot": float(expand.adot), **single_ref}
     emit({"phase": phase, "grid": GRID,
           "dtype": "torch.float32",
           "carry_dtype": str(st.carry_dtype or st.dtype),
@@ -2134,6 +2146,22 @@ def ptxas_report(*steppers):
     return report
 
 
+def bf16_padded_ptxas(report):
+    """The rows of a :func:`ptxas_report` that are padded bfloat16-carry
+    instantiations of the stage, pair and coupled pair kernels (template
+    arguments ``<T, __nv_bfloat16, ..., PAD>`` with PAD 1, 2 or 3), with
+    their registers and spill bytes."""
+    rows = {}
+    for usage in report.values():
+        for name, u in usage.items():
+            m = re.search(r"(pk_(?:fused_stage|fused_pair|coupled_pair)"
+                          r"_kernel<[^<>]*__nv_bfloat16[^<>]*, ([123])>)",
+                          name)
+            if m:
+                rows[m.group(1)] = u
+    return rows
+
+
 # -- the sharded tier: halo-input and overlapped launches (several shards on
 #    the one card) -------------------------------------------------------------
 
@@ -2157,10 +2185,27 @@ SHARDED_LABELS = ("halo_exchange", "halo_overlap", "halo_overlap_interior",
 
 
 def sharded_kernel_names():
-    """The kernels of the sharded tier, as the ``<name>:<kind>`` they are
-    counted under: the fused stage and pair, and the seven operators."""
+    """The kernels of the sharded tier with working-dtype carries, as the
+    ``<name>:<kind>`` they are counted under: the fused kernels and the
+    seven operators."""
     from pystella_tpu_torch.ops import derivs, fused
-    return list(fused.SHARDED_KERNELS) + list(derivs.SHARDED_KERNELS)
+    return [n for n in fused.SHARDED_KERNELS if fused.BF16 not in n] + list(
+        derivs.SHARDED_KERNELS)
+
+
+def sharded_bf16_kernel_names():
+    """The sharded tier's bfloat16-carry entry points, as counted:
+    ``<name>:bf16:<kind>`` and ``<name>:bf16_fin:<kind>``."""
+    from pystella_tpu_torch.ops import fused
+    return [n for n in fused.SHARDED_KERNELS if fused.BF16 in n]
+
+
+def split_sharded(name):
+    """``(kernel, carry variant, kind)`` of a sharded tier's counted name
+    ``<kernel>[:bf16[_fin]]:<kind>`` (variant ``""``, ``"bf16"`` or
+    ``"bf16_fin"``)."""
+    kernel, *variant, kind = name.split(":")
+    return kernel, "".join(variant), kind
 
 
 def block_of(mesh):
@@ -2183,9 +2228,11 @@ class ShardedCase:
     inputs): its unsharded launch, a launch of any kind on windows built by
     hand, and the plain version of the same. A sum kernel's launch of any
     kind on such a block finishes its own sums (its partials at the block's
-    own places), which are then the unsharded launch's."""
+    own places), which are then the unsharded launch's. With ``variant``
+    ``"bf16"`` the stepper stores its carries in bfloat16 (``"bf16_fin"``:
+    an energy stage on finalized velocity carries)."""
 
-    def __init__(self, kernel, shape, dtype, seed):
+    def __init__(self, kernel, shape, dtype, seed, variant=""):
         import pystella_tpu_torch as pt
         from pystella_tpu_torch.ops import fused as tfused
         self.kernel, self.shape, self.dtype = kernel, shape, dtype
@@ -2198,12 +2245,16 @@ class ShardedCase:
         else:
             sector = pt.ScalarSector(2, potential=potential)
             gw = kernel.startswith("preheat")
+            kw = dict(dtype=dtype, device="cuda",
+                      carry_dtype=torch.bfloat16 if variant else None)
             self.st = (pt.FusedPreheatStepper(
                 sector, pt.TensorPerturbationSector([sector]), shape,
-                BOX / shape[0], HALO, dtype=dtype, device="cuda") if gw
+                BOX / shape[0], HALO, **kw) if gw
                 else pt.FusedScalarStepper(sector, shape, BOX / shape[0],
-                                           HALO, dtype=dtype, device="cuda"))
-            self.ins = kernel_inputs(shape, dtype, seed, gw=gw)
+                                           HALO, **kw))
+            self.ins = kernel_inputs(shape, dtype, seed, gw=gw,
+                                     dtypes=self.st._in_dtypes(
+                                         variant == "bf16_fin"))
             self.params = kernel_params(kernel, BOX / shape[0])
             self.wins = tfused._WINDOWS[kernel]
             self.sums = bool(tfused.SUM_SETS[kernel])
@@ -2244,9 +2295,9 @@ class ShardedCase:
 
     def region_bytes_ops(self, kind):
         """Bytes (windows at their padded storage extent, the block-wise
-        inputs and the outputs over the computed region, each once, and the
-        sum vectors) and operations of one launch of ``kind`` on this
-        lattice."""
+        inputs and the outputs over the computed region, each once at its
+        storage width, and the sum vectors) and operations of one launch of
+        ``kind`` on this lattice."""
         from pystella_tpu_torch.ops import derivs
         from pystella_tpu_torch.ops import fused as tfused
         bits = derivs.PAD_KINDS[kind]
@@ -2265,23 +2316,24 @@ class ShardedCase:
             ops = C * FD_OPS_PER_COMPONENT[self.op](h) * region
         else:
             comps = self.st._comps
-            nbytes = item * (sum(c * (wrows * ycols * Z if j in self.wins
-                                      else region)
-                                 for j, c in enumerate(comps))
-                             + sum(comps) * region
-                             + tfused.SUM_SETS[self.kernel]
-                             * (2 * self.st.F + 1))
+            nbytes = (sum(c * t.element_size()
+                          * (wrows * ycols * Z if j in self.wins else region)
+                          for j, (c, t) in enumerate(zip(comps, self.ins)))
+                      + sum(c * d.itemsize for c, d in
+                            zip(comps, self.st._dtypes)) * region
+                      + item * tfused.SUM_SETS[self.kernel]
+                      * (2 * self.st.F + 1))
             ops = ops_per_site(self.kernel, self.st) * region
         return nbytes, ops
 
 
 def sharded_main_tag(name):
     """The case tag of a sharded kernel's row at the main path's size."""
-    return case_tag(block_of(SHARDED_KIND_MESH[name.split(":")[1]]),
+    return case_tag(block_of(SHARDED_KIND_MESH[split_sharded(name)[2]]),
                     torch.float32)
 
 
-def sharded_kernels_vs_plain(phase, errs):
+def sharded_kernels_vs_plain(phase, errs, sharded):
     """Each kernel of the sharded tier, on lattices held whole and windows
     built by hand from their own periodic rows: the padded launches
     (``xpad``, ``ypad``, ``xypad``) vs their plain versions and bit for bit
@@ -2290,21 +2342,22 @@ def sharded_kernels_vs_plain(phase, errs):
     the two x-shell launches (on ``concat(halo, 2h rows)``) of the kernels
     without sums vs their plain versions, and together bit for bit vs the
     x-padded launch. At the block each kind runs on in the 512^3 sharded
-    paths (f32), and at 48x40x36 in f32 and f64. Rows go to
+    paths (f32), and at 48x40x36 in f32 and f64. ``sharded``: the counted
+    names checked (:func:`split_sharded`). Rows go to
     ``errs["<name>:<kind>"]``."""
     from pystella_tpu_torch.ops import derivs
     h = HALO
-    sharded = sharded_kernel_names()
-    names = sorted({n.split(":")[0] for n in sharded})
+    names = sorted({split_sharded(n)[:2] for n in sharded})
     cases = [(block_of(SHARDED_KIND_MESH[k]), torch.float32, (k,))
              for k in ("xpad", "ypad", "xypad")]
     cases[0] = cases[0][:2] + (("xpad", "interior", "shell"),)
     cases += [(ALT_SHAPES[1], dtype, tuple(derivs.PAD_KINDS))
               for dtype in (torch.float32, torch.float64)]
-    for seed, kernel in enumerate(names):
+    for seed, (kernel, variant) in enumerate(names):
+        prefix = kernel + (f":{variant}" if variant else "")
         for shape, dtype, kinds in cases:
-            kinds = [k for k in kinds if f"{kernel}:{k}" in sharded]
-            case = ShardedCase(kernel, shape, dtype, 70 + seed)
+            kinds = [k for k in kinds if f"{prefix}:{k}" in sharded]
+            case = ShardedCase(kernel, shape, dtype, 70 + seed, variant)
             sums = not case.fd and case.sums
             ref = case.unsharded()
             rows = {}
@@ -2376,7 +2429,7 @@ def sharded_kernels_vs_plain(phase, errs):
                 del outs, ins_lo, ins_hi
             xpad_outs = None
             for kind, row in rows.items():
-                name = f"{kernel}:{kind}"
+                name = f"{prefix}:{kind}"
                 errs.setdefault(name, {})[case_tag(shape, dtype)] = row
                 emit({"phase": phase, "kernel": name, "shape": shape,
                       "dtype": str(dtype), **row})
@@ -2394,21 +2447,21 @@ def sharded_kernels_vs_plain(phase, errs):
             torch.cuda.empty_cache()
 
 
-def time_sharded_kernels(phase, timing):
-    """Each kernel of the sharded tier at the block its kind runs on in the
-    512^3 paths (the interior and one shell launch alone): CUDA-event ms
-    over 20 launches (a sum kernel's with its second launch, as unsharded),
-    its plain version, and the bound (the windows at their padded storage
-    extent, the block-wise inputs and the outputs over the computed region,
-    each once, over the HBM rate, against the operations over the f32
-    peak)."""
+def time_sharded_kernels(phase, timing, sharded):
+    """Each kernel of ``sharded`` (counted names, :func:`split_sharded`) at
+    the block its kind runs on in the 512^3 paths (the interior and one
+    shell launch alone): CUDA-event ms over 20 launches (a sum kernel's
+    with its second launch, as unsharded), its plain version, and the bound
+    (the windows at their padded storage extent, the block-wise inputs and
+    the outputs over the computed region, each once at its storage width,
+    over the HBM rate, against the operations over the f32 peak)."""
     from pystella_tpu_torch.ops import derivs
     h = HALO
-    for seed, name in enumerate(sharded_kernel_names()):
-        kernel, kind = name.split(":")
+    for seed, name in enumerate(sharded):
+        kernel, variant, kind = split_sharded(name)
         bits = derivs.PAD_KINDS[kind]
         shape = block_of(SHARDED_KIND_MESH[kind])
-        case = ShardedCase(kernel, shape, torch.float32, 90 + seed)
+        case = ShardedCase(kernel, shape, torch.float32, 90 + seed, variant)
         X = shape[0]
         if kind == "interior":
             ins, x0, pad = case.ins, h, (h, 0)
@@ -2465,7 +2518,7 @@ def sharded_expected(st, nsteps_list):
     for n in nsteps_list:
         for role, c in schedule(st, n).items():
             for kind, m in st.sharded_kinds().items():
-                key = names[role] + ("" if kind is None else f":{kind}")
+                key = st.counted_name(names[role], kind=kind)
                 out[key] = out.get(key, 0) + c * m * st.decomp.nshards
     return out
 
@@ -2611,17 +2664,27 @@ SHARDED_GW_CONFIGS = [((2, 1, 1), True), ((2, 1, 1), False),
 SHARDED_GW_COUPLED_CONFIGS = [((2, 1, 1), False), ((2, 2, 1), False),
                               ((1, 2, 1), False), ((4, 1, 1), False)]
 SHARDED_GW_TIMED = 1
+#: the sharded paths with bf16 carries: the hot loops' meshes (the bench
+#: model's first two timed, the GW bench's first), the coupled drivers'
+#: (the scalar one's first two timed, the GW one's first); together they
+#: launch every bf16 entry point of the sharded tier
+SHARDED_BF16_CONFIGS = [((2, 1, 1), True), ((2, 2, 1), False),
+                        ((2, 1, 1), False), ((1, 2, 1), False)]
+SHARDED_BF16_COUPLED_CONFIGS = [((2, 1, 1), False), ((2, 2, 1), False),
+                                ((1, 2, 1), False)]
+SHARDED_BF16_GW_COUPLED_CONFIGS = SHARDED_BF16_COUPLED_CONFIGS
 
 
 def coupled_expected(st):
     """Launches by counted name of the coupled paths' run (10 + 10 + 1
-    steps: 3 normal pairs, 49 deferred pairs, 1 energy stage) on a sharded
-    stepper: each once per block, padded."""
+    steps: 3 normal pairs, 49 deferred pairs, 1 energy stage, on finalized
+    carries) on a sharded stepper: each once per block, padded."""
     (kind,) = st.sharded_kinds(st._KERNEL["stage_energy"])
     n = st.decomp.nshards
-    return {f"{st._KERNEL['coupled_pair']}:{kind}": 3 * n,
-            f"{st._KERNEL['coupled_pair_deferred']}:{kind}": 49 * n,
-            f"{st._KERNEL['stage_energy']}:{kind}": n}
+    kn = st._KERNEL
+    return {st.counted_name(kn["coupled_pair"], kind=kind): 3 * n,
+            st.counted_name(kn["coupled_pair_deferred"], kind=kind): 49 * n,
+            st.counted_name(kn["stage_energy"], True, kind): n}
 
 
 def sharded_energy(st, decomp, state, a):
@@ -2636,7 +2699,8 @@ def sharded_energy(st, decomp, state, a):
 
 
 def sharded_stepping_paths(phase, configs, ntimed, make_stepper, make_state,
-                           ref, launches, coupled, cell):
+                           ref, launches, coupled, cell, args=None,
+                           compare=None, single=False):
     """A path on each of ``configs``, every shard on the one card, from the
     single-device path's initial state (``make_state``, whole on the card,
     then sharded) and, for ``coupled``, its initial background
@@ -2647,12 +2711,18 @@ def sharded_stepping_paths(phase, configs, ntimed, make_stepper, make_state,
     host), and for ``coupled`` the Friedmann constraint. The first
     ``ntimed`` configurations are main paths (phase ``phase``: ms/step
     against the cell's in this run, exchanged bytes, memory); every one has
-    a ``sharded_coupled_identity`` row."""
+    a ``sharded_coupled_identity`` row. ``args``: ``multi_step``'s background
+    scalars; ``compare``: ``{(mesh, overlap): PATH_ROWS key}`` of another
+    sharded cell of this run (the f32-carry one) whose ms/step and
+    exchanged bytes the row reports beside its own. ``single`` (coupled):
+    then one step of single-stage energy kernels (``pair=False``) from the
+    final state and background, held bit for bit to the single-device
+    cell's (``PATH_ROWS[cell]["single_final"]``)."""
     import pystella_tpu_torch as pt
     from pystella_tpu_torch.ops import fused as tfused
     sites = math.prod(GRID)
     dt = 0.1 * BOX / GRID[0]
-    args = {"a": 1.0, "hubble": 0.5}
+    args = args or {"a": 1.0, "hubble": 0.5}
     cell_row = PATH_ROWS[cell]
     for i, (mesh, overlap) in enumerate(configs):
         decomp = pt.DomainDecomposition(mesh)
@@ -2720,6 +2790,16 @@ def sharded_stepping_paths(phase, configs, ntimed, make_stepper, make_state,
                "path_memory_GiB": (torch.cuda.max_memory_allocated()
                                    - held_before) / 2**30,
                "finite": finite, "bitwise_single_device": bitwise}
+        other = PATH_ROWS.get((compare or {}).get((mesh, overlap)))
+        if other is not None:
+            row.update({
+                "compared_cell": compare[mesh, overlap],
+                "compared_ms_per_step": other["ms_per_step"],
+                "ms_per_step_vs_compared": ms / other["ms_per_step"],
+                "compared_exchanged_bytes_per_step":
+                    other["exchanged_bytes_per_step"],
+                "exchanged_bytes_vs_compared":
+                    step_bytes / other["exchanged_bytes_per_step"]})
         ok = finite and all(bitwise.values()) and path_launches == expected
         if coupled:
             energy = sharded_energy(st, decomp, state, expand.a)
@@ -2732,6 +2812,33 @@ def sharded_stepping_paths(phase, configs, ntimed, make_stepper, make_state,
                         "constraint_tol": CONSTRAINT_TOL})
             ok = (ok and row["a_adot_bitwise_single_device"]
                   and row["constraint"] <= CONSTRAINT_TOL)
+        if single:
+            exp1 = pt.Expansion(cell_row["energy0"], pt.LowStorageRK54,
+                                mpl=1.0)
+            exp1.a, exp1.adot = expand.a, expand.adot
+            exp1.hubble = expand.hubble
+            tfused.reset_launch_counts()
+            out = st.coupled_multi_step(state, 1, exp1, 0.0, dt, pair=False)
+            torch.cuda.synchronize()
+            single_launches = {k: v for k, v in tfused.LAUNCHES.items() if v}
+            for name, c in single_launches.items():
+                launches.setdefault(name, c)
+            (kind,) = st.sharded_kinds(st._KERNEL["stage_energy"])
+            want = {st.counted_name(st._KERNEL["stage_energy"], kind=kind):
+                    st.num_stages * decomp.nshards}
+            row["single_stage_step"] = {
+                "launches": single_launches, "expected_launches": want,
+                "bitwise_single_device": {
+                    k: equals_whole(out[k], cell_row["single_final"][k])
+                    for k in cell_row["single_final"]},
+                "a_adot_bitwise_single_device": (
+                    float(exp1.a) == cell_row["single_a"]
+                    and float(exp1.adot) == cell_row["single_adot"])}
+            one = row["single_stage_step"]
+            ok = (ok and single_launches == want
+                  and all(one["bitwise_single_device"].values())
+                  and one["a_adot_bitwise_single_device"])
+            del out
         if "hij" in state:
             row["hij_max_abs"] = max(b.abs().max().item()
                                      for b in state["hij"].blocks)
@@ -2745,7 +2852,8 @@ def sharded_stepping_paths(phase, configs, ntimed, make_stepper, make_state,
               "launch_kinds": row["launch_kinds"],
               "bitwise_single_device": bitwise,
               **{k: row[k] for k in ("a_adot_bitwise_single_device",
-                                     "constraint", "launches") if k in row},
+                                     "constraint", "launches",
+                                     "single_stage_step") if k in row},
               "finite": finite})
         if not ok:
             raise SystemExit(f"{phase} {mesh} overlap={overlap} is not the "
@@ -2928,6 +3036,7 @@ def sharded_fd_kernel_time(phase):
 
 
 def main():
+    start_s = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2966,7 +3075,8 @@ def main():
     with ThreadPoolExecutor(8) as pool:
         # no future outlives this line: a future would keep its stepper,
         # and so its buffers, alive after the stepper is deleted
-        chunk_st, _, _, gw_st, newton, jacobi, *_ = [f.result() for f in [
+        chunk_st, nonpoly_st, gwb_st, gw_st, newton, jacobi, *_ = [
+            f.result() for f in [
             pool.submit(pt.FusedScalarStepper, sector, GRID, dx, HALO,
                         dtype=torch.float32, chunk_stages=CHUNK,
                         device="cuda"),
@@ -2989,13 +3099,32 @@ def main():
     tiles = {str(d): chunk_st.chunk_kernel_tile(d)
              for d in (torch.float32, torch.float64)}
     new_kernels = {**tderivs.KERNELS, **trelax.KERNELS}
+    # each nvcc's wall seconds (they ran together), by source and model
+    source_s = {}
+    for label, st in (("bench", chunk_st), ("nonpoly", nonpoly_st),
+                      ("gw_bench", gwb_st), ("gw", gw_st)):
+        header = st.kernel_header()
+        for src in sorted({tfused.KERNELS[n][0]
+                           for n in st._kernel_bases()}):
+            source_s[f"{src} ({label})"] = pt.ops.stencil.build_seconds(
+                src, header)
+    for h in FD_HALOS:
+        source_s[f"fd_ops.cu (h={h})"] = pt.ops.stencil.build_seconds(
+            "fd_ops.cu", tderivs.kernel_header(h))
+    for label, solver in (("newton", newton), ("jacobi", jacobi)):
+        source_s[f"mg_relax.cu ({label})"] = pt.ops.stencil.build_seconds(
+            "mg_relax.cu", solver.kernel_header())
+    ptxas = ptxas_report(chunk_st, gw_st)
     emit({"phase": "build", "seconds": build_s,
           "sources": sorted({src for src, _ in tfused.KERNELS.values()}
                             | {src for src, _ in new_kernels.values()}),
           "kernels": chunk_st.kernel_names() + gw_st.kernel_names()
           + list(new_kernels),
+          "sharded_kernels": sharded_kernel_names(),
+          "sharded_bf16_kernels": sharded_bf16_kernel_names(),
           "build_dir": str(pt.ops.stencil.BUILD_DIR),
-          "ptxas": {**ptxas_report(chunk_st, gw_st),
+          "seconds_per_source": source_s,
+          "ptxas": {**ptxas,
                     **{f"fd_ops h={h}": ptxas_of(
                         "fd_ops.cu", tderivs.kernel_header(h))
                        for h in FD_HALOS},
@@ -3006,6 +3135,9 @@ def main():
           # K10's dynamic shared memory: the output tile and bytes a block
           "fused_chunk_tile": {d: {"tile": t[0], "smem_bytes_per_block":
                                    t[1]} for d, t in tiles.items()}})
+    emit({"phase": "build_sharded_bf16_ptxas",
+          "kernels": bf16_padded_ptxas(ptxas)})
+    del nonpoly_st, gwb_st
     if main_st.kernel_names() != scalar_kernels:
         raise SystemExit("the main model did not build every kernel")
     if chunk_st.kernel_names() != scalar_kernels[:2] + ["fused_chunk"] + \
@@ -3139,6 +3271,13 @@ def main():
                          f"it: {errs_vs_f32}")
     del bf16_st, bf16_final, chunk_final
     torch.cuda.empty_cache()
+    # the same with bf16 carries on the pair tier (the sharded bf16 paths'
+    # reference waits on the host)
+    st = bf16_scalar(GRID, torch.float32)
+    preheat_bf16_ref = on_host(main_path(
+        "preheat_bf16_main_path", st, bench_state(), timing, launches))
+    del st
+    torch.cuda.empty_cache()
 
     # -- 11b. the energy kernels with bf16 carries (K5, K6 and K5 on
     #         finalized carries) vs plain, their identities and times -------
@@ -3164,12 +3303,15 @@ def main():
 
     # -- 13b. the coupled main path with bf16 carries (K6, the finalize, K5
     #         on finalized carries; one pair=False step: K5) ---------------
-    bf16_gap("coupled_bf16_main_path", coupled_main_path(
+    final = coupled_main_path(
         "coupled_bf16_main_path", coupled_bf16_st,
         background_state(GRID, torch.float32, 11), BF16_COUPLED, launches,
         single=True, predicted_gib=PREDICTED_PATH_GIB[
-            "coupled_bf16_main_path"]), on_host(coupled_f32_final))
-    del coupled_bf16_st, coupled_f32_final
+            "coupled_bf16_main_path"])
+    bf16_gap("coupled_bf16_main_path", final, on_host(coupled_f32_final))
+    # the sharded bf16 coupled paths' reference waits on the host
+    coupled_bf16_ref = on_host(final)
+    del coupled_bf16_st, coupled_f32_final, final
     torch.cuda.empty_cache()
 
     # -- 14. the GW kernels vs plain (the main path's shape and others) ----
@@ -3265,12 +3407,16 @@ def main():
     time_kernels("gw_bench_kernel_time", st, ["preheat_stage",
                                               "preheat_pair"], 82,
                  bench_timing)
-    bf16_gap("gw_bf16_main_path", main_path(
+    final = main_path(
         "gw_bf16_main_path", st, on_card(bench_state), bench_timing, launches,
         extra_check=sourced, args=GW_BENCH_ARGS,
-        predicted_gib=PREDICTED_PATH_GIB["gw_bf16_main_path"]),
-        gwb_f32_final)
-    del st, bench_state, gwb_f32_final
+        predicted_gib=PREDICTED_PATH_GIB["gw_bf16_main_path"])
+    bf16_gap("gw_bf16_main_path", final, gwb_f32_final)
+    # the sharded gw-bf16 paths' reference and initial state wait on the
+    # host
+    gw_bf16_ref = on_host(final)
+    gw_bench_host = bench_state
+    del st, bench_state, gwb_f32_final, final
     torch.cuda.empty_cache()
     gw_bf16_st = bf16_gw(GRID, torch.float32)
 
@@ -3279,12 +3425,16 @@ def main():
     # (from the homogeneous background, the fluctuation part of a carry --
     # 1e-4 of it -- lies below bf16's resolution, so the S_ij that hij
     # integrates is mostly carry rounding: hij's gap is recorded, not held)
-    bf16_gap("coupled_gw_bf16_main_path", coupled_main_path(
+    final = coupled_main_path(
         "coupled_gw_bf16_main_path", gw_bf16_st,
         background_state(GRID, torch.float32, 11, gw=True), BF16_GW_COUPLED,
         launches, extra_check=sourced, single=True,
-        predicted_gib=PREDICTED_PATH_GIB["coupled_gw_bf16_main_path"]),
-        cgw_f32_final, held=("f", "dfdt"))
+        predicted_gib=PREDICTED_PATH_GIB["coupled_gw_bf16_main_path"])
+    bf16_gap("coupled_gw_bf16_main_path", final, cgw_f32_final,
+             held=("f", "dfdt"))
+    # the sharded bf16 GW coupled paths' reference waits on the host
+    cgw_bf16_ref = on_host(final)
+    del final
     # (the f32-carry final state stays on the host for the sharded GW paths)
     cgw_ref = cgw_f32_final
     del gw_bf16_st, cgw_f32_final
@@ -3347,8 +3497,10 @@ def main():
     #        unsharded kernels; the sharded hot loop on five meshes, bit for
     #        bit the preheat path, and the operators on its final state;
     #        a traced sharded step; the sharded Laplacian's time --------------
-    sharded_kernels_vs_plain("xpad_kernel_vs_plain", errs)
-    time_sharded_kernels("sharded_kernel_time", timing)
+    sharded_kernels_vs_plain("xpad_kernel_vs_plain", errs,
+                             sharded_kernel_names())
+    time_sharded_kernels("sharded_kernel_time", timing,
+                         sharded_kernel_names())
     sharded_paths(preheat_state, preheat_final, launches)
     del preheat_final
     sharded_trace("sharded_trace", preheat_state)
@@ -3389,9 +3541,71 @@ def main():
                                              gw=True),
         cgw_ref, launches, True, "preheat_coupled_main_path")
     del cgw_ref
+    torch.cuda.empty_cache()
+
+    # -- 27. the sharded tier with bf16 carries (several shards on the one
+    #        card): every padded, interior and shell bf16 entry point vs its
+    #        plain version and the unpadded bf16 kernel, and its time; the
+    #        bench hot loop, the coupled driver, the GW bench's multi_step
+    #        and the coupled GW driver with bf16 carries on their meshes,
+    #        each final state (and a, adot) bit for bit the single-device
+    #        bf16 path's, the first of each timed against it and against
+    #        the sharded f32-carry cell; the coupled meshes also run one
+    #        pair=False step ------------------------------------------------
+    sharded_kernels_vs_plain("sharded_bf16_kernel_vs_plain", errs,
+                             sharded_bf16_kernel_names())
+    time_sharded_kernels("sharded_bf16_kernel_time", timing,
+                         sharded_bf16_kernel_names())
+    bf16 = torch.bfloat16
+
+    def sharded_bf16_scalar(decomp, overlap):
+        return pt.FusedScalarStepper(sector, GRID, dx, HALO,
+                                     dtype=torch.float32, carry_dtype=bf16,
+                                     decomp=decomp, overlap=overlap)
+
+    def sharded_bf16_gw(decomp, overlap, bench=False):
+        s, g = (gw_bench_sector, gw_bench_gw) if bench else (sector,
+                                                             gw_sector)
+        return pt.FusedPreheatStepper(s, g, GRID, dx, HALO,
+                                      dtype=torch.float32, carry_dtype=bf16,
+                                      decomp=decomp, overlap=overlap)
+
+    def f32_cells(key):
+        return {(m, o): key.format(m, o) for m, o in
+                [((2, 1, 1), True), ((2, 1, 1), False), ((2, 2, 1), False)]}
+
+    sharded_stepping_paths(
+        "sharded_bf16_main_path", SHARDED_BF16_CONFIGS, 2,
+        sharded_bf16_scalar, preheat_state, preheat_bf16_ref, launches, False,
+        "preheat_bf16_main_path", compare=f32_cells("sharded_main_path{}{}"))
+    del preheat_bf16_ref
+    sharded_stepping_paths(
+        "sharded_bf16_main_path", SHARDED_BF16_COUPLED_CONFIGS, 2,
+        sharded_bf16_scalar, coupled_state, coupled_bf16_ref, launches, True,
+        "coupled_bf16_main_path", compare=f32_cells(
+            "sharded_coupled_main_path:coupled_main_path{}{}"), single=True)
+    del coupled_bf16_ref
+    PATH_ROWS["coupled_bf16_main_path"].pop("single_final")
+    sharded_stepping_paths(
+        "sharded_bf16_main_path", SHARDED_BF16_CONFIGS, 1,
+        lambda d, o: sharded_bf16_gw(d, o, bench=True),
+        lambda: on_card(gw_bench_host), gw_bf16_ref, launches, False,
+        "gw_bf16_main_path", args=GW_BENCH_ARGS, compare=f32_cells(
+            "sharded_gw_main_path:preheat_main_path{}{}"))
+    del gw_bf16_ref, gw_bench_host
+    sharded_stepping_paths(
+        "sharded_bf16_main_path", SHARDED_BF16_GW_COUPLED_CONFIGS, 1,
+        sharded_bf16_gw, lambda: background_state(GRID, torch.float32, 11,
+                                                  gw=True),
+        cgw_bf16_ref, launches, True, "coupled_gw_bf16_main_path",
+        compare=f32_cells(
+            "sharded_gw_main_path:preheat_coupled_main_path{}{}"),
+        single=True)
+    del cgw_bf16_ref
+    PATH_ROWS["coupled_gw_bf16_main_path"].pop("single_final")
 
     kernels = []
-    sharded = sharded_kernel_names()
+    sharded = sharded_kernel_names() + sharded_bf16_kernel_names()
     sharded_mg = sharded_mg_kernel_names()
     names = [n for n in tfused.LAUNCHES if n not in sharded]
     sites = {**tfused.KERNELS, **new_kernels, **tfused.SHARDED_KERNELS,
@@ -3422,6 +3636,13 @@ def main():
     never = [k["name"] for k in kernels if k["launches"] < 1]
     if never:
         raise SystemExit(f"no main path launched {never}")
+    # where a faster kernel would save the most on this run's main paths:
+    # launches x (ms - bound ms), largest first
+    emit({"phase": "rule2_ranking", "excess_ms": sorted(
+        ([k["name"], k["launches"] * (k["ms"] - k["bound_ms"])]
+         for k in kernels), key=lambda r: -r[1])})
+    emit({"phase": "total", "seconds": time.perf_counter() - start_s,
+          "build_seconds": build_s})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

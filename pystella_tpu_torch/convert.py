@@ -27,7 +27,11 @@ def _tensor(v, dtype, device):
     """One array -> a tensor. A bfloat16 array (what ``np.asarray`` of a
     JAX bf16 array gives) goes through float32, which ``torch.tensor``
     takes and which holds every bfloat16 value exactly, so the round trip
-    changes no bit."""
+    changes no bit; a tensor (a bfloat16 carry included) is copied as it
+    is."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(device=device, dtype=dtype or v.dtype,
+                             copy=True).contiguous()
     a = np.asarray(v)
     if a.dtype.name == "bfloat16":
         t = torch.tensor(a.astype(np.float32), device=device)
@@ -45,8 +49,8 @@ def state_from_numpy(state, device=None, dtype=None):
 
 
 def shard_state(decomp, state, dtype=None):
-    """A dict of global arrays (numpy; a JAX array through ``np.asarray``
-    by the caller) -> a dict of
+    """A dict of global arrays (numpy, or tensors; a JAX array through
+    ``np.asarray`` by the caller) -> a dict of
     :class:`~pystella_tpu_torch.parallel.ShardedArray` s over ``decomp``,
     each block copied to its rank's device, in ``dtype`` (default: the
     arrays' own; bfloat16 arrays through float32, exactly): the state

@@ -68,7 +68,10 @@
 // is the unpadded kernel's, and each block's partials go to the index it
 // has in the whole lattice's launch (pk_partial_index), so the padded
 // launches of every shard followed by one second launch equal the unpadded
-// kernel, sums included, bit for bit.
+// kernel, sums included, bit for bit. With bfloat16 carries (_bf16_xpad,
+// ...) the carry windows (kf; deferred input also kdfp; their tensor
+// counterparts) are padded in bfloat16 and read as C with the window's
+// geometry, counted in elements of C.
 #include "pk_common.cuh"
 
 #ifdef PK_HUBBLE_FREE
@@ -339,24 +342,27 @@ static int pk_launch_coupled(const void* const* ins, void* const* outs,
 // The sharded tier: the padded launch, with the arguments of every padded
 // entry point of the fused sources (fused_stage.cu): partials, nblocks, then
 // Nb, Nw, Ys, x0, yb0, GYb (PkGeom).
-#define PK_COUPLED_PAD_ENTRY(name, T, IN_DEFERRED, GW, PAD)                 \
+#define PK_COUPLED_PAD_ENTRY(name, T, C, IN_DEFERRED, GW, PAD)              \
   extern "C" int name(const void* const* ins, void* const* outs, int X,     \
                       int Y, int Z, const double* params, void* partials,   \
                       int64_t nblocks, int64_t Nb, int64_t Nw, int Ys,      \
                       int x0, int yb0, int GYb, void* stream) {             \
-    return pk_launch_coupled<T, T, IN_DEFERRED, GW, PAD>(                   \
+    return pk_launch_coupled<T, C, IN_DEFERRED, GW, PAD>(                   \
         ins, outs, X, Y, Z, params, partials, nullptr, stream,              \
         PkGeom{Nb, Nw, Ys, x0, yb0, GYb}, nblocks);                         \
   }
-#define PK_COUPLED_PAD_ENTRIES(name, IN_DEFERRED, GW)                       \
-  PK_COUPLED_PAD_ENTRY(name##_f32_xpad, float, IN_DEFERRED, GW, PK_PAD_X)   \
-  PK_COUPLED_PAD_ENTRY(name##_f32_ypad, float, IN_DEFERRED, GW, PK_PAD_Y)   \
-  PK_COUPLED_PAD_ENTRY(name##_f32_xypad, float, IN_DEFERRED, GW,            \
-                       PK_PAD_X | PK_PAD_Y)                                 \
-  PK_COUPLED_PAD_ENTRY(name##_f64_xpad, double, IN_DEFERRED, GW, PK_PAD_X)  \
-  PK_COUPLED_PAD_ENTRY(name##_f64_ypad, double, IN_DEFERRED, GW, PK_PAD_Y)  \
-  PK_COUPLED_PAD_ENTRY(name##_f64_xypad, double, IN_DEFERRED, GW,           \
+// the three paddings of one (T, C) instantiation
+#define PK_COUPLED_PADS(name, T, C, IN_DEFERRED, GW)                        \
+  PK_COUPLED_PAD_ENTRY(name##_xpad, T, C, IN_DEFERRED, GW, PK_PAD_X)        \
+  PK_COUPLED_PAD_ENTRY(name##_ypad, T, C, IN_DEFERRED, GW, PK_PAD_Y)        \
+  PK_COUPLED_PAD_ENTRY(name##_xypad, T, C, IN_DEFERRED, GW,                 \
                        PK_PAD_X | PK_PAD_Y)
+// f32 and f64, the carries in T and in bfloat16 (_bf16)
+#define PK_COUPLED_PAD_ENTRIES(name, IN_DEFERRED, GW)                       \
+  PK_COUPLED_PADS(name##_f32, float, float, IN_DEFERRED, GW)                \
+  PK_COUPLED_PADS(name##_f64, double, double, IN_DEFERRED, GW)              \
+  PK_COUPLED_PADS(name##_f32_bf16, float, PK_BF16, IN_DEFERRED, GW)         \
+  PK_COUPLED_PADS(name##_f64_bf16, double, PK_BF16, IN_DEFERRED, GW)
 #define PK_BF16 __nv_bfloat16
 
 PK_FINISH_ENTRIES

@@ -43,7 +43,10 @@
 // pk_common.cuh); kdfdt, kdhijdt and the outputs are the full block, the
 // region's rows from its first x row. The arithmetic is the unpadded
 // kernel's, so a padded launch equals it on the whole lattice bit for bit,
-// and an interior plus two shell launches equal a padded launch.
+// and an interior plus two shell launches equal a padded launch. With
+// bfloat16 carries (_bf16_xpad, ...) the kf (khij) window is padded in
+// bfloat16 and read as C with the window's geometry, counted in elements of
+// C; the padded _bf16 launch equals the unpadded _bf16 kernel bit for bit.
 #include "pk_common.cuh"
 
 template <typename T>
@@ -224,22 +227,26 @@ static int pk_launch_pair(const void* const* ins, void* const* outs, int X,
 // padded entry point of the fused sources (fused_stage.cu): partials and
 // nblocks (no sums here: null and 0), then Nb, Nw, Ys (PkGeom; x0, yb0, GYb
 // unused).
-#define PK_PAIR_PAD_ENTRY(name, T, GW, PAD)                                 \
+#define PK_PAIR_PAD_ENTRY(name, T, C, GW, PAD)                              \
   extern "C" int name(const void* const* ins, void* const* outs, int X,     \
                       int Y, int Z, const double* params, void* partials,   \
                       int64_t nblocks, int64_t Nb, int64_t Nw, int Ys,      \
                       int x0, int yb0, int GYb, void* stream) {             \
-    return pk_launch_pair<T, T, GW, PAD>(                                   \
-        ins, outs, X, Y, Z, params, stream,                                 \
-        PkGeom{Nb, Nw, Ys, x0, yb0, GYb});                                  \
+    return pk_launch_pair<T, C, GW, PAD>(ins, outs, X, Y, Z, params,        \
+                                         stream,                            \
+                                         PkGeom{Nb, Nw, Ys, x0, yb0, GYb}); \
   }
+// the three paddings of one (T, C) instantiation
+#define PK_PAIR_PADS(name, T, C, GW)                                        \
+  PK_PAIR_PAD_ENTRY(name##_xpad, T, C, GW, PK_PAD_X)                        \
+  PK_PAIR_PAD_ENTRY(name##_ypad, T, C, GW, PK_PAD_Y)                        \
+  PK_PAIR_PAD_ENTRY(name##_xypad, T, C, GW, PK_PAD_X | PK_PAD_Y)
+// f32 and f64, the carries in T and in bfloat16 (_bf16)
 #define PK_PAIR_PAD_ENTRIES(name, GW)                                       \
-  PK_PAIR_PAD_ENTRY(name##_f32_xpad, float, GW, PK_PAD_X)                   \
-  PK_PAIR_PAD_ENTRY(name##_f32_ypad, float, GW, PK_PAD_Y)                   \
-  PK_PAIR_PAD_ENTRY(name##_f32_xypad, float, GW, PK_PAD_X | PK_PAD_Y)       \
-  PK_PAIR_PAD_ENTRY(name##_f64_xpad, double, GW, PK_PAD_X)                  \
-  PK_PAIR_PAD_ENTRY(name##_f64_ypad, double, GW, PK_PAD_Y)                  \
-  PK_PAIR_PAD_ENTRY(name##_f64_xypad, double, GW, PK_PAD_X | PK_PAD_Y)
+  PK_PAIR_PADS(name##_f32, float, float, GW)                                \
+  PK_PAIR_PADS(name##_f64, double, double, GW)                              \
+  PK_PAIR_PADS(name##_f32_bf16, float, __nv_bfloat16, GW)                   \
+  PK_PAIR_PADS(name##_f64_bf16, double, __nv_bfloat16, GW)
 
 PK_PAIR_PAD_ENTRIES(pk_fused_pair, false)
 PK_PAIR_ENTRY(pk_fused_pair_f32, float, float, false)

@@ -73,7 +73,11 @@
 // launch on every mesh (the JAX package's rule for kernels with sums): a
 // block's partials go to the index it has in the whole lattice's launch
 // (pk_partial_index), threads past the region's edge adding zeros, and the
-// host runs the second launch once after every shard's first.
+// host runs the second launch once after every shard's first. Every
+// padding also comes with bfloat16 carries (_bf16_xpad, ...; the energy
+// stages also _bf16_fin_xpad, ...): the carries are full blocks here, read
+// widened and stored rounded as unpadded, so a sharded bf16 launch equals
+// the unpadded _bf16 (_bf16_fin) kernel on the whole lattice bit for bit.
 #include "pk_common.cuh"
 
 template <typename T>
@@ -239,21 +243,29 @@ static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
 #define PK_PAD_ARGS                                                         \
   PK_STAGE_ARGS, void *partials, int64_t nblocks, int64_t Nb, int64_t Nw,   \
       int Ys, int x0, int yb0, int GYb, void *stream
-#define PK_STAGE_PAD_ENTRY(name, T, ENERGY, GW, PAD)                        \
+#define PK_STAGE_PAD_ENTRY(name, T, C, KD, ENERGY, GW, PAD)                \
   extern "C" int name(PK_PAD_ARGS) {                                        \
-    return pk_launch_stage<T, T, T, ENERGY, GW, PAD>(                       \
+    return pk_launch_stage<T, C, KD, ENERGY, GW, PAD>(                      \
         ins, outs, X, Y, Z, params, partials, nullptr, stream,              \
         PkGeom{Nb, Nw, Ys, x0, yb0, GYb}, nblocks);                         \
   }
-#define PK_STAGE_PAD_ENTRIES(name, ENERGY, GW)                              \
-  PK_STAGE_PAD_ENTRY(name##_f32_xpad, float, ENERGY, GW, PK_PAD_X)          \
-  PK_STAGE_PAD_ENTRY(name##_f32_ypad, float, ENERGY, GW, PK_PAD_Y)          \
-  PK_STAGE_PAD_ENTRY(name##_f32_xypad, float, ENERGY, GW,                   \
-                     PK_PAD_X | PK_PAD_Y)                                   \
-  PK_STAGE_PAD_ENTRY(name##_f64_xpad, double, ENERGY, GW, PK_PAD_X)         \
-  PK_STAGE_PAD_ENTRY(name##_f64_ypad, double, ENERGY, GW, PK_PAD_Y)         \
-  PK_STAGE_PAD_ENTRY(name##_f64_xypad, double, ENERGY, GW,                  \
+// the three paddings of one (T, C, KD) instantiation
+#define PK_STAGE_PADS(name, T, C, KD, ENERGY, GW)                           \
+  PK_STAGE_PAD_ENTRY(name##_xpad, T, C, KD, ENERGY, GW, PK_PAD_X)           \
+  PK_STAGE_PAD_ENTRY(name##_ypad, T, C, KD, ENERGY, GW, PK_PAD_Y)           \
+  PK_STAGE_PAD_ENTRY(name##_xypad, T, C, KD, ENERGY, GW,                    \
                      PK_PAD_X | PK_PAD_Y)
+// f32 and f64, the carries in T and in bfloat16 (_bf16)
+#define PK_STAGE_PAD_ENTRIES(name, ENERGY, GW)                              \
+  PK_STAGE_PADS(name##_f32, float, float, float, ENERGY, GW)                \
+  PK_STAGE_PADS(name##_f64, double, double, double, ENERGY, GW)             \
+  PK_STAGE_PADS(name##_f32_bf16, float, PK_BF16, PK_BF16, ENERGY, GW)       \
+  PK_STAGE_PADS(name##_f64_bf16, double, PK_BF16, PK_BF16, ENERGY, GW)
+// the energy stages on finalized carries (_bf16_fin): the velocity carries
+// in T, the others in bfloat16
+#define PK_STAGE_FIN_PAD_ENTRIES(name, GW)                                  \
+  PK_STAGE_PADS(name##_f32_bf16_fin, float, PK_BF16, float, true, GW)       \
+  PK_STAGE_PADS(name##_f64_bf16_fin, double, PK_BF16, double, true, GW)
 #define PK_BF16 __nv_bfloat16
 
 PK_FINISH_ENTRIES
@@ -264,6 +276,7 @@ PK_STAGE_ENTRY(pk_fused_stage_f32_bf16, float, PK_BF16, false)
 PK_STAGE_ENTRY(pk_fused_stage_f64_bf16, double, PK_BF16, false)
 PK_STAGE_PAD_ENTRIES(pk_fused_stage, false, false)
 PK_STAGE_PAD_ENTRIES(pk_fused_stage_energy, true, false)
+PK_STAGE_FIN_PAD_ENTRIES(pk_fused_stage_energy, false)
 PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f32, float, float, float, false)
 PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f64, double, double, double,
                       false)
@@ -283,6 +296,7 @@ PK_STAGE_ENTRY(pk_preheat_stage_f32_bf16, float, PK_BF16, true)
 PK_STAGE_ENTRY(pk_preheat_stage_f64_bf16, double, PK_BF16, true)
 PK_STAGE_PAD_ENTRIES(pk_preheat_stage, false, true)
 PK_STAGE_PAD_ENTRIES(pk_preheat_stage_energy, true, true)
+PK_STAGE_FIN_PAD_ENTRIES(pk_preheat_stage_energy, true)
 PK_STAGE_ENERGY_ENTRY(pk_preheat_stage_energy_f32, float, float, float, true)
 PK_STAGE_ENERGY_ENTRY(pk_preheat_stage_energy_f64, double, double, double,
                       true)

@@ -54,7 +54,10 @@ one second launch after every shard's reduces them, so its sums are the
 unsharded kernel's too (:meth:`~FusedScalarStepper.sum_order`). A sharded
 :meth:`~FusedScalarStepper.multi_step` or
 :meth:`~FusedScalarStepper.coupled_multi_step` on one card therefore equals
-the single-device one.
+the single-device one. The sharded tier also comes with bfloat16 carries
+(``<kernel>:bf16:<kind>``, and ``<kernel>:bf16_fin:<kind>`` for the energy
+stages on finalized carries): the carry windows are exchanged in bfloat16,
+so they move half the bytes.
 
 Beside each kernel sits its plain PyTorch version (``_scalar_body``,
 ``_scalar_pair_core``, ``_chunk_body``, ``_esums``, ``_deferred_pair_core``;
@@ -201,16 +204,22 @@ _WINDOWS = {"fused_stage": (0,), "fused_pair": (0, 1, 2),
 #: them (the JAX package's rule, pystella_tpu/ops/fused.py:493-496: the
 #: split would change the sums' order), so it runs padded on every mesh
 _OVERLAP_KINDS = ("interior", "shell")
-#: sharded kernel name (``<kernel>:<kind>``, ``kind`` in
-#: :data:`~pystella_tpu_torch.ops.derivs.PAD_KINDS`) -> (CUDA source, the
-#: TPU kernel it replaces)
+#: sharded kernel name (``<kernel>[:bf16[_fin]]:<kind>``, ``kind`` in
+#: :data:`~pystella_tpu_torch.ops.derivs.PAD_KINDS`; ``:bf16`` with bfloat16
+#: carries, ``:bf16_fin`` the energy stages on finalized carries) -> (CUDA
+#: source, the TPU kernel it replaces)
 SHARDED_KERNELS = {
-    f"{name}:{kind}": (KERNELS[name][0], (
+    f"{name}{variant}:{kind}": (KERNELS[name][0], (
         "pystella_tpu/ops/pallas_stencil.py:993 (OverlapStreamingStencil."
         "__call__, class :931" if kind in _OVERLAP_KINDS else
         "pystella_tpu/ops/pallas_stencil.py:789 (StreamingStencil."
-        "_build_xhalo, call :840") + f"; body {KERNELS[name][1]})")
-    for name in _WINDOWS for kind in PAD_KINDS
+        "_build_xhalo, call :840") + f"; body {KERNELS[name][1]}" + (
+        "; carries under _quantize_carries pystella_tpu/ops/fused.py:76"
+        if variant else "") + ")")
+    for name in _WINDOWS
+    for variant in ("", BF16) + ((BF16 + FIN,) if name in _FINALIZED
+                                 else ())
+    for kind in PAD_KINDS
     if not (SUM_SETS[name] and kind in _OVERLAP_KINDS)}
 #: the threads of a kernel block along y (pk_common.cuh: PK_BLOCK_Y): a
 #: sharded sum launch lands its partials at their whole-lattice places when
@@ -219,7 +228,8 @@ _BLOCK_Y = 8
 #: the entry point of each padding (interior and shell: the x-padded one)
 _PAD_SUFFIX = {1: "_xpad", 2: "_ypad", 3: "_xypad"}
 
-#: kernel name (and ``<name>:bf16``, and the sharded ``<name>:<kind>``) ->
+#: kernel name (and ``<name>:bf16``, and the sharded ``<name>:<kind>``,
+#: ``<name>:bf16:<kind>``) ->
 #: number of launches since the last reset; each wrapper adds one where it
 #: launches its kernel, and nowhere else
 LAUNCHES = {name: 0 for name in
@@ -305,9 +315,8 @@ class FusedScalarStepper(_step.Stepper):
         :meth:`stage_pair`, :meth:`step`, :meth:`multi_step`,
         :meth:`multi_step_fn` and :meth:`coupled_multi_step` take them; a
         chunk request runs pairs (the JAX package's rule: a chunk's windows
-        would need wider halos); ``carry_dtype`` waits for a later slice of
-        the port (ROADMAP queue 2: the ``_bf16`` halo-input variants) and
-        raises ``NotImplementedError``.
+        would need wider halos); ``carry_dtype`` works there too, the carry
+        windows exchanged in bfloat16.
     :arg overlap: on an x-only mesh, split every launch into an interior
         launch that runs while the halos are copied and two x-shell
         launches (:func:`~pystella_tpu_torch.parallel.overlap.enabled`:
@@ -392,11 +401,6 @@ class FusedScalarStepper(_step.Stepper):
                             f"torch.bfloat16; got {carry_dtype!r}")
         #: the k-carries' storage dtype when it differs from ``dtype``
         self.carry_dtype = None if cd == self.dtype else cd
-        if decomp is not None and self.carry_dtype is not None:
-            raise NotImplementedError(
-                "carry_dtype on a sharded stepper waits for a later slice "
-                "of the port (ROADMAP queue 2: the _bf16 halo-input "
-                "variants)")
 
         F = sector.nscalars
         self.F = F
@@ -433,9 +437,13 @@ class FusedScalarStepper(_step.Stepper):
 
         self._buffers = None  # two sets of arrays, made at first use
         # the sharded tier's persistent exchange buffers, per window slot
-        # (_WINDOWS) and block: padded windows, or the x shells' inputs
+        # (_WINDOWS), dtype and block: padded windows, or the x shells'
+        # inputs
         self._pad_bufs = {}
         self._shell_bufs = {}
+        # the velocity carries a sharded finalize completes, in the working
+        # dtype (bfloat16 carries only; _finalize_deferred)
+        self._fin_carries = {}
         self._partials = {}  # the sum kernels' partials, per device
         self._libs = None
         self._num_blocks = None
@@ -472,14 +480,15 @@ class FusedScalarStepper(_step.Stepper):
         count (:data:`LAUNCHES`: ``<name>:bf16`` with bfloat16 carries)."""
         return [self.counted_name(n) for n in self._kernel_bases()]
 
-    def counted_name(self, name, finalized=False):
+    def counted_name(self, name, finalized=False, kind=None):
         """The key of :data:`LAUNCHES` a launch of kernel ``name`` on this
         stepper counts under (``<name>:bf16`` with bfloat16 carries,
         ``<name>:bf16_fin`` for an energy stage on finalized carries,
-        :meth:`_finalized`)."""
-        if self.carry_dtype is None:
-            return name
-        return name + BF16 + (FIN if finalized else "")
+        :meth:`_finalized`), with ``:<kind>`` for a launch of the sharded
+        tier (:meth:`launch_block`)."""
+        if self.carry_dtype is not None:
+            name += BF16 + (FIN if finalized else "")
+        return name if kind is None else f"{name}:{kind}"
 
     def kernel_header(self):
         """The generated C header the kernels are compiled against."""
@@ -508,23 +517,24 @@ class FusedScalarStepper(_step.Stepper):
                 variants.append((torch.bfloat16, True))
             for dtype, suffix in _SUFFIX.items():
                 for cd, fin in variants:
-                    fn = getattr(libs[src], f"pk_{name}_{suffix}"
-                                 + ("_bf16" if cd is not None else "")
-                                 + (FIN if fin else ""))
+                    entry = (f"pk_{name}_{suffix}"
+                             + ("_bf16" if cd is not None else "")
+                             + (FIN if fin else ""))
+                    fn = getattr(libs[src], entry)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
                     fns[name, dtype, cd, fin] = fn
-                # the sharded tier: params, then partials, nblocks, Nb, Nw,
-                # Ys, x0, yb0, GYb (PkGeom), stream
-                for bits, psuffix in (_PAD_SUFFIX.items()
-                                      if name in _WINDOWS else ()):
-                    fn = getattr(libs[src], f"pk_{name}_{suffix}{psuffix}")
-                    fn.argtypes = argtypes[:6] + [
-                        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                        ctypes.c_int64] + [ctypes.c_int] * 4 + [
-                        ctypes.c_void_p]
-                    fn.restype = ctypes.c_int
-                    fns[name, dtype, bits] = fn
+                    # the sharded tier: params, then partials, nblocks, Nb,
+                    # Nw, Ys, x0, yb0, GYb (PkGeom), stream
+                    for bits, psuffix in (_PAD_SUFFIX.items()
+                                          if name in _WINDOWS else ()):
+                        fn = getattr(libs[src], entry + psuffix)
+                        fn.argtypes = argtypes[:6] + [
+                            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                            ctypes.c_int64] + [ctypes.c_int] * 4 + [
+                            ctypes.c_void_p]
+                        fn.restype = ctypes.c_int
+                        fns[name, dtype, cd, fin, bits] = fn
                 if SUM_SETS[name]:
                     # the sums' second launch alone: partials, sums,
                     # nterms, nblocks, stream
@@ -735,8 +745,11 @@ class FusedScalarStepper(_step.Stepper):
         (interior) or a ``(C, 3h, Y, Z)`` shell input --, elsewhere the full
         block, as ``outs``. The launch computes the ``(X, Y, Z)`` region and
         writes its rows of ``outs`` from x row ``x0`` on: the kernel on CUDA
-        tensors (counted as ``<name>:<kind>``), the plain version on CPU
-        tensors. Returns ``outs``, followed, for a kernel with sums, by the
+        tensors (counted as :meth:`counted_name` gives it:
+        ``<name>[:bf16[_fin]]:<kind>``), the plain version on CPU
+        tensors. Every array is in its slot's storage dtype (the carries in
+        ``carry_dtype``; :meth:`_in_dtypes`), a window's too. Returns
+        ``outs``, followed, for a kernel with sums, by the
         region's own energy-sum vectors -- unless ``partials`` (CUDA only)
         is ``(buffer, nblocks, x0, yb0, GYb)``: then the launch writes its
         blocks' partial sums into ``buffer`` at their places in a launch
@@ -755,30 +768,36 @@ class FusedScalarStepper(_step.Stepper):
         X = Xw - 2 * hx
         dev = ins[0].device
         n = len(self._comps)
+        if len(ins) != n or len(outs) != n:
+            raise ValueError(f"{name}:{kind} takes {n} arrays in and {n} "
+                             f"out; got {len(ins)} and {len(outs)}")
+        fin = self._finalized(name, ins)
+        dtypes = tuple(self._in_dtypes(fin)) + self._dtypes
         for j, t in enumerate(list(ins) + list(outs)):
             c = self._comps[j % n]
             shape = ((c, Xw, Yw, Z) if j in wins else (c,) + self.local_shape)
-            if (tuple(t.shape) != shape or t.dtype != self.dtype
+            if (tuple(t.shape) != shape or t.dtype != dtypes[j]
                     or t.device != dev or not t.is_contiguous()):
                 raise ValueError(
-                    f"{name}:{kind} takes contiguous {self.dtype} tensors on "
-                    f"one device, windows {(c, Xw, Yw, Z)} and blocks "
-                    f"{(c,) + self.local_shape}; got {t.dtype} "
-                    f"{tuple(t.shape)} on {t.device}")
-        if len(ins) != n or len(outs) != n or Yw - 2 * hy != Y or X < 1 \
-                or x0 < 0 or x0 + X > Xb:
+                    f"{name}:{kind} takes contiguous tensors on one device, "
+                    f"windows {(c, Xw, Yw, Z)} and blocks "
+                    f"{(c,) + self.local_shape}, array {j} in {dtypes[j]}; "
+                    f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if Yw - 2 * hy != Y or X < 1 or x0 < 0 or x0 + X > Xb:
             raise ValueError(f"{name}:{kind}: a window of {Xw} x {Yw} rows "
                              f"has no region of {self.local_shape} at x row "
                              f"{x0}")
         nsums = SUM_SETS[name] * (2 * self.F + 1)
         if dev.type == "cuda":
-            fn = (self._libs or {}).get((name, self.dtype, bits))
+            fn = (self._libs or {}).get((name, self.dtype, self.carry_dtype,
+                                         fin, bits))
             if fn is None:
                 raise RuntimeError(f"kernel {name} is not built on this "
                                    "stepper (construct it with a CUDA "
                                    "device)")
-            item = self.dtype.itemsize
-            woff, boff = (hx * Yw + hy) * Z * item, x0 * Y * Z * item
+            # the region's first element of each array, in bytes of the
+            # array's own storage dtype
+            woff, boff = (hx * Yw + hy) * Z, x0 * Y * Z
             ptrs = ctypes.c_void_p * n
             prm = (ctypes.c_double * (len(params) + len(self._weights)))(
                 *params, *self._weights)
@@ -790,15 +809,16 @@ class FusedScalarStepper(_step.Stepper):
             buf, nb, *geo = partials if nsums else (None, 0, 0, 0, 0)
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev).cuda_stream
-                rc = fn(ptrs(*(t.data_ptr() + (woff if j in wins else boff)
-                               for j, t in enumerate(ins))),
-                        ptrs(*(o.data_ptr() + boff for o in outs)), X, Y, Z,
+                rc = fn(ptrs(*(t.data_ptr() + t.element_size() * (
+                    woff if j in wins else boff) for j, t in enumerate(ins))),
+                        ptrs(*(o.data_ptr() + o.element_size() * boff
+                               for o in outs)), X, Y, Z,
                         prm, None if buf is None else buf.data_ptr(), nb,
                         Xb * Y * Z, Xw * Yw * Z, Yw, *geo, stream)
             if rc != 0:
                 raise RuntimeError(f"{name}:{kind} kernel launch failed "
                                    f"with CUDA error {rc}")
-            LAUNCHES[f"{name}:{kind}"] += 1
+            LAUNCHES[self.counted_name(name, fin, kind)] += 1
             if own:
                 return list(outs) + self._finish_sums(name, buf, nb, dev)
             return list(outs)
@@ -843,18 +863,21 @@ class FusedScalarStepper(_step.Stepper):
             return "single-device"
         return "rank"
 
-    def _exchange_buffers(self, cache, slot, shape):
-        """Persistent per-block tensors of ``shape`` for window slot
-        ``slot`` (reused by every launch; the exchange overwrites them).
-        A slot's buffers serve whichever window a kernel has there (the
-        deferred pair's kf sits where the normal pair has none), so a
-        stepper holds one padded set per slot, up to its widest kernel's
-        windows (the GW deferred pair's eight: 4F + 24 components)."""
-        bufs = cache.get(slot)
+    def _exchange_buffers(self, cache, slot, shape, dtype):
+        """Persistent per-block tensors of ``shape`` and ``dtype`` (the
+        window's own: bfloat16 for a carry window with bfloat16 carries)
+        for window slot ``slot`` (reused by every launch; the exchange
+        overwrites them). A slot's buffers serve whichever window a kernel
+        has there (the deferred pair's kf sits where the normal pair has
+        none; with bfloat16 carries both are carries), so a stepper holds
+        one padded set per slot and dtype, up to its widest kernel's windows
+        (the GW deferred pair's eight: 4F + 24 components)."""
+        key = (slot, dtype)
+        bufs = cache.get(key)
         if bufs is None or tuple(bufs[0].shape) != shape:
-            cache[slot] = None  # release the old set first
-            bufs = cache[slot] = [
-                torch.empty(shape, dtype=self.dtype, device=dev)
+            cache[key] = None  # release the old set first
+            bufs = cache[key] = [
+                torch.empty(shape, dtype=dtype, device=dev)
                 for dev in self.decomp.devices]
         return bufs
 
@@ -898,11 +921,9 @@ class FusedScalarStepper(_step.Stepper):
         (X, Y, Z), h = self.local_shape, self.h
         comps = self._comps
         if "interior" in kinds:
-            shells = [(self._exchange_buffers(self._shell_bufs, (j, 0),
-                                              (comps[j], 3 * h, Y, Z)),
-                       self._exchange_buffers(self._shell_bufs, (j, 1),
-                                              (comps[j], 3 * h, Y, Z)))
-                      for j in wins]
+            shells = [tuple(self._exchange_buffers(
+                self._shell_bufs, (j, side), (comps[j], 3 * h, Y, Z),
+                ins[j].dtype) for side in (0, 1)) for j in wins]
             with record_function("halo_overlap"):
                 with d.side_exchange(reads, [t for lo, hi in shells
                                              for t in lo + hi]) as ex:
@@ -923,7 +944,8 @@ class FusedScalarStepper(_step.Stepper):
         (kind,) = kinds
         halo = _stencil.sharded_halo(h, *d.proc_shape[:2])
         pads = [self._exchange_buffers(self._pad_bufs, j, (
-            comps[j], X + 2 * halo[0], Y + 2 * halo[1], Z)) for j in wins]
+            comps[j], X + 2 * halo[0], Y + 2 * halo[1], Z), ins[j].dtype)
+            for j in wins]
         with d.side_exchange(reads, [t for p in pads for t in p]) as ex:
             for a, p in zip(raw, pads):
                 d.pad_into(a.blocks, p, halo)
@@ -1219,16 +1241,27 @@ class FusedScalarStepper(_step.Stepper):
         velocities and their carries are the last pair's outputs, the
         stepper's own buffers, and the padded windows already hold the
         memory new arrays would take (the same arithmetic, so the same
-        bits)."""
+        bits). With bfloat16 carries the completed velocity carry goes to
+        a working-dtype :class:`ShardedArray` of the stepper's own, one per
+        system, reused by every finalize: completed in place, it would be
+        rounded to bfloat16."""
         state, k = carry
         values = {"dt": dt, "hubfix": hubfix, "B2p": B2p}
         state, k = dict(state), dict(k)
         for _, v in self._SYSTEMS:
             if isinstance(state[v], ShardedArray):
-                for sb, kb in zip(state[v].blocks, k[v].blocks):
+                kout = k[v]
+                if self.carry_dtype is not None:
+                    kout = self._fin_carries.get(v)
+                    if kout is None:
+                        kout = self._fin_carries[v] = state[v].map(
+                            torch.empty_like)
+                for sb, kb, ob in zip(state[v].blocks, k[v].blocks,
+                                      kout.blocks):
                     sc = self._scalars(values, sb)
-                    kb.sub_(2 * sc["dt"] * sc["hubfix"] * sb)
-                    sb.add_(sc["B2p"] * kb)
+                    torch.sub(kb, 2 * sc["dt"] * sc["hubfix"] * sb, out=ob)
+                    sb.add_(sc["B2p"] * ob)
+                k[v] = kout
                 continue
             sc = self._scalars(values, state[v])
             kv = k[v] - 2 * sc["dt"] * sc["hubfix"] * state[v]

@@ -31,13 +31,15 @@ import re
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
 
 __all__ = ["lap_from_taps", "grad_from_taps", "RollTaps", "PaddedTaps",
            "sharded_halo", "launch_kinds", "build_kernels",
-           "build_log", "ptxas_usage", "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS"]
+           "build_log", "build_seconds", "ptxas_usage", "CSRC_DIR",
+           "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC_DIR = Path(__file__).resolve().with_name("csrc")
 #: where built libraries go (listed in .gitignore)
@@ -48,6 +50,8 @@ BUILD_DIR = Path(__file__).resolve().with_name("_build")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC")
+#: wall seconds of each nvcc this process ran, by library path
+_BUILD_SECONDS = {}
 
 
 def lap_from_taps(taps, coefs, inv_dx2):
@@ -193,7 +197,8 @@ def build_kernels(sources, header):
     ``header`` (included as ``pk_model.cuh``) and load it.
 
     Every source that is not built yet gets its own ``nvcc``; all of them
-    start together and run in parallel. A library lands under
+    start together and run in parallel (each one's wall time is kept:
+    :func:`build_seconds`). A library lands under
     :data:`BUILD_DIR` at a path keyed by the hash of the source, the shared
     header, the generated header and the flags, and is moved there only
     once complete, so concurrent builds never load a partial file.
@@ -212,12 +217,24 @@ def build_kernels(sources, header):
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, f"-I{lib.parent}", f"-I{CSRC_DIR}",
                "-o", tmp, str(CSRC_DIR / src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((src, lib, tmp, proc))
+        # the compiler's output goes to a file, so every job runs to its
+        # end unread and its wall time is taken when it ends
+        log = tempfile.TemporaryFile("w+", dir=lib.parent)
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((src, lib, tmp, proc, log, time.perf_counter()))
+    pending = list(jobs)
+    while pending:
+        for job in [j for j in pending if j[3].poll() is not None]:
+            _BUILD_SECONDS[str(job[1])] = time.perf_counter() - job[5]
+            pending.remove(job)
+        if pending:
+            time.sleep(0.05)
     failures = []
-    for src, lib, tmp, proc in jobs:
-        out, _ = proc.communicate()
+    for src, lib, tmp, proc, log, _ in jobs:
+        log.seek(0)
+        out = log.read()
+        log.close()
         if proc.returncode != 0:
             failures.append(f"{src}:\n{out}")
             Path(tmp).unlink(missing_ok=True)
@@ -234,6 +251,13 @@ def build_log(source, header):
     ``header`` (empty if the library was built before logs were kept)."""
     log = _library_path(source, header).parent / "build.log"
     return log.read_text() if log.exists() else ""
+
+
+def build_seconds(source, header):
+    """Wall seconds of the ``nvcc`` that built ``source`` against
+    ``header`` in this process (``None`` if this process loaded it
+    built)."""
+    return _BUILD_SECONDS.get(str(_library_path(source, header)))
 
 
 def ptxas_usage(log):

@@ -387,8 +387,9 @@ def _preheat_case(cuda, kernel, grid, dtype, seed=0):
 
 
 def _gw_params(kernel, dx):
-    """A GW kernel takes its scalar counterpart's scalars."""
-    scalar = tfused._GW_OF[kernel]
+    """A GW kernel takes its scalar counterpart's scalars (a scalar kernel
+    its own)."""
+    scalar = tfused._GW_OF.get(kernel, kernel)
     if scalar == "fused_pair":
         return (0.1 * dx, 1.0, 0.5, A[1], B[1], 1.0, 0.5, A[2], B[2])
     return _params("fused_stage_energy" if scalar == "fused_stage"
@@ -838,7 +839,7 @@ def _bf16_case(cuda, kernel, fin, grid, dtype, seed=0):
         params = _gw_params(kernel, 5.0 / grid[0])
     else:
         st = pt.FusedScalarStepper(sector, grid, 5.0 / grid[0], H, **kw)
-        params = _params(kernel, 5.0 / grid[0])
+        params = _gw_params(kernel, 5.0 / grid[0])
     g = torch.Generator(device=cuda).manual_seed(seed)
     amps = (1e-3, 1e-4, 1e-5, 1e-3, 1e-3, 1e-4, 1e-5, 1e-4)
     ins = [(a * torch.randn((c,) + grid, generator=g, device=cuda,
@@ -1410,3 +1411,158 @@ def _sharded_coupled_case(cuda, mesh, gw, pair, grid, exact):
     else:
         assert abs(e2.a - e1.a) / e1.a < 1e-13
         assert abs(e2.adot - e1.adot) / abs(e1.adot) < 1e-13
+
+
+# -- the sharded tier with bf16 carries --------------------------------------
+
+#: every bf16 entry point of the sharded tier: (kernel, velocity carries in
+#: the working type); each in its three paddings and in f32 and f64
+BF16_SHARDED = [(k, False) for k in tfused._WINDOWS] + [
+    (k, True) for k in tfused._FINALIZED]
+BF16_SHARDED_IDS = [k + ("-fin" if fin else "") for k, fin in BF16_SHARDED]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kind", ["xpad", "ypad", "xypad"])
+@pytest.mark.parametrize("kernel,fin", BF16_SHARDED, ids=BF16_SHARDED_IDS)
+def test_bf16_padded_kernel_matches_plain_and_unpadded(cuda, kernel, fin,
+                                                       kind, dtype):
+    """A padded bf16 launch (``_bf16_<pad>``, ``_bf16_fin_<pad>``) on
+    windows padded by hand with the lattice's own periodic rows (the carry
+    windows in bf16) at 48x40x36: its lattice outputs equal the unpadded
+    bf16 kernel's on the whole lattice bit for bit and the plain version's
+    at KERNEL_TOL (the bf16 carries compared as values); a sum kernel's own
+    sums equal the unpadded launch's and a second launch's bit for bit and
+    the plain version's at SUM_TOL; counted under
+    ``<name>:bf16[_fin]:<kind>``."""
+    grid = (48, 40, 36)
+    st, ins, params = _bf16_case(cuda, kernel, fin, grid, dtype, 1)
+    wins = tfused._WINDOWS[kernel]
+    bits = tderivs.PAD_KINDS[kind]
+    pad = (H if bits & 1 else 0, H if bits & 2 else 0)
+    padded = [_pad_periodic(t, *pad) if j in wins else t
+              for j, t in enumerate(ins)]
+    key = st.counted_name(kernel, fin, kind)
+    assert key == f"{kernel}:bf16{'_fin' if fin else ''}:{kind}"
+    before = tfused.LAUNCHES[key]
+    outs = st.launch_block(kernel, kind, padded, st._new_set(cuda), params)
+    again = st.launch_block(kernel, kind, padded, st._new_set(cuda), params)
+    ref = st.launch(kernel, ins, st._new_set(cuda), params)
+    torch.cuda.synchronize()
+    assert tfused.LAUNCHES[key] == before + 2
+    assert len(outs) == len(ref) == len(ins) + tfused.SUM_SETS[kernel]
+    for o, a, r in zip(outs, again, ref):
+        assert torch.equal(o, r) and torch.equal(a, r)
+    plain = st.plain(kernel, padded, params, pad=pad)
+    n = len(ins)
+    for o, p, d in zip(outs[:n], plain[:n], st._dtypes):
+        assert o.dtype == p.dtype == d
+        assert _rel(o, p) <= KERNEL_TOL[dtype]
+    if tfused.SUM_SETS[kernel]:
+        wide = [t.to(dtype) for t in ins]
+        assert max(_sum_errs(st, kernel, wide, [t.to(dtype) for t in
+                                                outs[:n]] + outs[n:],
+                             plain, params)) <= SUM_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel", ["fused_stage", "fused_pair",
+                                    "preheat_stage", "preheat_pair"])
+def test_bf16_interior_and_shells_equal_padded_launch(cuda, kernel, dtype):
+    """K2, K3, K7 and K8 with bf16 carries: an interior launch on the raw
+    block and two x-shell launches on ``concat(halo, 2h rows)`` (the kf
+    and khij windows in bf16) write the output block of one x-padded bf16
+    launch bit for bit, each counted under ``<name>:bf16:<kind>``."""
+    grid = (48, 40, 36)
+    st, ins, params = _bf16_case(cuda, kernel, False, grid, dtype, 2)
+    wins, X, h = tfused._WINDOWS[kernel], grid[0], H
+
+    def windows(fn):
+        return [fn(t) if j in wins else t for j, t in enumerate(ins)]
+    ref = st.launch_block(kernel, "xpad",
+                          windows(lambda t: _pad_periodic(t, h, 0)),
+                          st._new_set(cuda), params)
+    lows = windows(lambda t: _pad_periodic(t, h, 0)[:, :3 * h].contiguous())
+    highs = windows(lambda t: _pad_periodic(t, h, 0)[
+        :, X - h:X + 2 * h].contiguous())
+    n_int = tfused.LAUNCHES[f"{kernel}:bf16:interior"]
+    n_shell = tfused.LAUNCHES[f"{kernel}:bf16:shell"]
+    outs = st._new_set(cuda)
+    st.launch_block(kernel, "interior", ins, outs, params, x0=h)
+    st.launch_block(kernel, "shell", lows, outs, params, x0=0)
+    st.launch_block(kernel, "shell", highs, outs, params, x0=X - h)
+    torch.cuda.synchronize()
+    assert tfused.LAUNCHES[f"{kernel}:bf16:interior"] == n_int + 1
+    assert tfused.LAUNCHES[f"{kernel}:bf16:shell"] == n_shell + 2
+    for o, r in zip(outs, ref):
+        assert torch.equal(o, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gw", [False, True], ids=["scalar", "gw"])
+@pytest.mark.parametrize("mesh,overlap", [((2, 1, 1), False),
+                                          ((2, 1, 1), True),
+                                          ((2, 2, 1), False),
+                                          ((1, 2, 1), False),
+                                          ((4, 1, 1), True)],
+                         ids=["211-padded", "211-overlap", "221", "121",
+                              "411-overlap"])
+def test_sharded_bf16_on_card(cuda, mesh, overlap, gw):
+    """With bf16 carries on shards that share the card: multi_step(3) and
+    coupled_multi_step(1) (two pairs, the finalize, the odd _bf16_fin
+    tail) equal the unsharded bf16 runs bit for bit, a and adot included
+    (every block's y extent a multiple of 8), each launch counted under
+    ``<name>:bf16[_fin]:<kind>``."""
+    grid, dtype = (48, 48, 36), torch.float32
+    sector = pt.ScalarSector(2, potential=bench_potential)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    names = ("f", "dfdt") + (("hij", "dhijdt") if gw else ())
+    state = {k: 1e-3 * torch.randn(((6 if k in ("hij", "dhijdt") else 2),)
+                                   + grid, generator=g, device=cuda,
+                                   dtype=dtype) for k in names}
+    state["f"] += 0.2
+
+    def make(**kw):
+        kw.update(dtype=dtype, carry_dtype=torch.bfloat16)
+        if gw:
+            return pt.FusedPreheatStepper(sector, pt.TensorPerturbationSector(
+                [sector]), grid, 0.1, H, **kw)
+        return pt.FusedScalarStepper(sector, grid, 0.1, H, **kw)
+    one = make(device=cuda)
+    args = {"a": 1.0, "hubble": 0.5}
+    ref = _copy(one.multi_step(_copy(state), 3, 0.0, 0.01, args))
+    e1 = pt.Expansion(1.0, pt.LowStorageRK54)
+    cref = _copy(one.coupled_multi_step(_copy(state), 1, e1, 0.0, 0.01))
+    decomp = pt.DomainDecomposition(mesh)
+    st = make(decomp=decomp, overlap=overlap)
+    assert st.sum_order() == "single-device"
+    tfused.reset_launch_counts()
+    out = st.multi_step({k: decomp.shard(v) for k, v in state.items()}, 3,
+                        0.0, 0.01, args)
+    torch.cuda.synchronize()
+    kinds = st.sharded_kinds()
+    counted = {k for k, v in tfused.LAUNCHES.items() if v}
+    assert counted == {st.counted_name(st._KERNEL[r], kind=k)
+                       for r in ("pair", "stage") for k in kinds}
+    for k in ref:
+        assert torch.equal(torch.from_numpy(decomp.gather_array(out[k])),
+                           ref[k].cpu()), k
+    e2 = pt.Expansion(1.0, pt.LowStorageRK54)
+    tfused.reset_launch_counts()
+    out = st.coupled_multi_step({k: decomp.shard(v) for k, v in
+                                 state.items()}, 1, e2, 0.0, 0.01)
+    torch.cuda.synchronize()
+    (kind,) = st.sharded_kinds(st._KERNEL["stage_energy"])
+    kn = st._KERNEL
+    assert {k for k, v in tfused.LAUNCHES.items() if v} == {
+        st.counted_name(kn["coupled_pair"], kind=kind),
+        st.counted_name(kn["coupled_pair_deferred"], kind=kind),
+        st.counted_name(kn["stage_energy"], True, kind)}
+    for k in cref:
+        assert torch.equal(torch.from_numpy(decomp.gather_array(out[k])),
+                           cref[k].cpu()), k
+    assert (e2.a, e2.adot) == (e1.a, e1.adot)

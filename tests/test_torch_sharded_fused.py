@@ -218,26 +218,23 @@ def test_kernel_tier_report_counts_sharded_launches():
 
 
 def test_refusals():
-    """What the JAX package refuses, with its text, and what the port
-    leaves out so far (carry_dtype on a sharded stepper), naming the
-    ROADMAP item; a chunk request on a sharded mesh warns and runs pairs.
-    The sharded GW stepper and the sharded coupled driver are no longer
-    refused (tests/test_torch_sharded_gw.py, _coupled.py hold them)."""
+    """What the JAX package refuses, with its text; a chunk request on a
+    sharded mesh warns and runs pairs. The sharded GW stepper, the sharded
+    coupled driver and bf16 carries on a sharded stepper are no longer
+    refused (tests/test_torch_sharded_gw.py, _coupled.py, _bf16.py hold
+    them)."""
     with pytest.raises(NotImplementedError, match=r"x/y sharding"):
         _port(_decomp((2, 2, 2)))
     d = _decomp((2, 1, 1))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 2: the "
-                       r"_bf16 halo-input variants"):
-        _port(d, carry_dtype=torch.bfloat16)
+    assert _port(d, carry_dtype=torch.bfloat16).carry_dtype == torch.bfloat16
     sec = pt.ScalarSector(2, potential=potential)
     gw = pt.TensorPerturbationSector([sec])
     with pytest.raises(NotImplementedError, match=r"x/y sharding"):
         pt.FusedPreheatStepper(sec, gw, GRID, DX, H, device="cpu",
                                decomp=_decomp((1, 1, 2)))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 2: the "
-                       r"_bf16 halo-input variants"):
-        pt.FusedPreheatStepper(sec, gw, GRID, DX, H, device="cpu",
-                               decomp=d, carry_dtype=torch.bfloat16)
+    st = pt.FusedPreheatStepper(sec, gw, GRID, DX, H, device="cpu",
+                                decomp=d, carry_dtype=torch.bfloat16)
+    assert st.decomp is d and st.carry_dtype == torch.bfloat16
     assert pt.FusedPreheatStepper(sec, gw, GRID, DX, H, device="cpu",
                                   decomp=d).decomp is d
     st = _port(d)
