@@ -1170,13 +1170,62 @@ FD_OUT_PER_IN = {"lap": 1, "grad": 3, "grad_lap": 4, "pdx": 1, "pdy": 1,
                  "pdz": 1, "div": 1 / 3}
 
 
+#: the K12 operators one PyTorch call also computes: a convolution with
+#: circular padding, (output channels, kernel extent per axis)
+FD_LIBRARY = {"lap": (1, (1, 1, 1)), "grad": (3, (1, 1, 1)),
+              "pdx": (1, (1, 0, 0)), "pdy": (1, (0, 1, 0)),
+              "pdz": (1, (0, 0, 1))}
+
+
+def fd_library_conv(fd, op):
+    """The yardstick of K12 operator ``op``: ``torch.nn.Conv3d`` with
+    ``padding_mode="circular"`` (one call; the port never calls it) whose
+    weights are the operator's stencil -- cross-correlation, so weight h + s
+    of an axis multiplies the tap at +s. Input (C, 1, X, Y, Z), output (C,
+    channels, X, Y, Z). cuDNN's default TF32 is off for it (the caller sets
+    ``torch.backends.cudnn.allow_tf32 = False``)."""
+    nout, axes = FD_LIBRARY[op]
+    h = fd.h
+    size = tuple(2 * h + 1 if a else 1 for a in axes)
+    conv = torch.nn.Conv3d(1, nout, size, padding=tuple(h * a for a in axes),
+                           padding_mode="circular", bias=False,
+                           device="cuda", dtype=torch.float32)
+    w = torch.zeros((nout, 1) + size, dtype=torch.float64)
+    centre = tuple(h * a for a in axes)
+
+    def at(d, s):  # the weight index of offset s along axis d
+        i = list(centre)
+        i[d] += s
+        return tuple(i)
+    if op == "lap":
+        for s, c in fd.second.coefs.items():
+            for d in range(3):
+                if s == 0:
+                    w[(0, 0) + centre] = c * sum(fd._inv_dx2)
+                else:
+                    w[(0, 0) + at(d, s)] += c * fd._inv_dx2[d]
+                    w[(0, 0) + at(d, -s)] += c * fd._inv_dx2[d]
+    else:
+        dirs = range(3) if op == "grad" else [axes.index(1)]
+        for k, d in enumerate(dirs):
+            for s, c in fd.first.coefs.items():
+                w[(k, 0) + at(d, s)] += c * fd._inv_dx[d]
+                w[(k, 0) + at(d, -s)] -= c * fd._inv_dx[d]
+    with torch.no_grad():
+        conv.weight.copy_(w.to(torch.float32))
+    return conv
+
+
 def time_fd_kernels(phase, timing):
     """Each K12 operator at (2, 512^3) f32, h = 2 (the divergence on (2, 3,
-    512^3)): CUDA-event ms over 20 launches, its plain version, and the
-    bound (each component-array once in and once out over the HBM rate,
-    against the operations over the f32 peak)."""
+    512^3)): CUDA-event ms over 20 launches, its plain version, the bound
+    (each component-array once in and once out over the HBM rate, against
+    the operations over the f32 peak) and, for the operators one PyTorch
+    call computes (FD_LIBRARY), that call's time and its gap from the
+    kernel, with cuDNN's TF32 off."""
     import pystella_tpu_torch as pt
     from pystella_tpu_torch.ops import derivs
+    torch.backends.cudnn.allow_tf32 = False
     fd = pt.FiniteDifferencer(HALO, WAVE_BOX / GRID[0])
     sites = math.prod(GRID)
     for seed, op in enumerate(derivs.OPS):
@@ -1184,6 +1233,23 @@ def time_fd_kernels(phase, timing):
         ms = cuda_ms(lambda: fd.launch(op, x), reps=20, warmup=2)
         torch.cuda.empty_cache()
         plain_ms = cuda_ms(lambda: fd.plain(op, x), reps=3)
+        library = {"library_ms": None}
+        if op in FD_LIBRARY:
+            conv = fd_library_conv(fd, op)
+            xin = x.view((x.shape[0], 1) + tuple(x.shape[1:]))
+            with torch.no_grad():
+                library["library_ms"] = cuda_ms(lambda: conv(xin), reps=5)
+                got = conv(xin)
+            ref = fd.launch(op, x)[0]
+            if op != "grad":
+                ref = ref.view(got.shape)
+            library["library_call"] = (
+                f"torch.nn.Conv3d(1, {FD_LIBRARY[op][0]}, "
+                f"{tuple(conv.kernel_size)}, padding_mode='circular')")
+            library["library_rel_err_vs_kernel"] = rel_err(got, ref)[0]
+            library["cudnn_allow_tf32"] = torch.backends.cudnn.allow_tf32
+            del conv, got, ref
+            torch.cuda.empty_cache()
         C = x.shape[0]
         nbytes = round(C * (1 + FD_OUT_PER_IN[op])) * sites * 4
         ops = C * FD_OPS_PER_COMPONENT[op](HALO) * sites
@@ -1193,7 +1259,8 @@ def time_fd_kernels(phase, timing):
         timing["fd_" + op] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "ops": ops, "share_of_bound": bound / ms}
+            "bytes": nbytes, "ops": ops, "share_of_bound": bound / ms,
+            **library}
         emit({"phase": phase, "kernel": "fd_" + op,
               "shape": tuple(x.shape), "dtype": "torch.float32", "h": HALO,
               **timing["fd_" + op]})
@@ -2132,18 +2199,23 @@ def ptxas_report(*steppers):
         for src in sorted({tfused.KERNELS[n][0]
                            for n in st._kernel_bases()}):
             usage.update(stencil.ptxas_usage(stencil.build_log(src, header)))
-        names = list(usage)
-        try:
-            demangled = subprocess.run(
-                ["c++filt"], input="\n".join(names), capture_output=True,
-                text=True, timeout=60).stdout.splitlines()
-        except OSError:
-            demangled = names
-        if len(demangled) != len(names):
-            demangled = names
-        report[type(st).__name__] = {d: usage[n]
-                                     for n, d in zip(names, demangled)}
+        report[type(st).__name__] = demangled(usage)
     return report
+
+
+def demangled(usage):
+    """A ptxas usage dict with its kernel names demangled by c++filt (where
+    the toolkit's host has it)."""
+    names = list(usage)
+    try:
+        out = subprocess.run(
+            ["c++filt"], input="\n".join(names), capture_output=True,
+            text=True, timeout=60).stdout.splitlines()
+    except OSError:
+        out = names
+    if len(out) != len(names):
+        out = names
+    return {d: usage[n] for n, d in zip(names, out)}
 
 
 def bf16_padded_ptxas(report):
@@ -2154,7 +2226,8 @@ def bf16_padded_ptxas(report):
     rows = {}
     for usage in report.values():
         for name, u in usage.items():
-            m = re.search(r"(pk_(?:fused_stage|fused_pair|coupled_pair)"
+            m = re.search(r"(pk_(?:fused_stage|fused_pair|coupled_pair|"
+                          r"preheat_pair|preheat_coupled_pair)"
                           r"_kernel<[^<>]*__nv_bfloat16[^<>]*, ([123])>)",
                           name)
             if m:
@@ -2162,8 +2235,136 @@ def bf16_padded_ptxas(report):
     return rows
 
 
+def march_ptxas(report):
+    """The rows of a :func:`ptxas_report` that are instantiations of the
+    x-marching GW pairs (K8 ``pk_preheat_pair_kernel``, K9
+    ``pk_preheat_coupled_pair_kernel``), with their registers and spill
+    bytes."""
+    rows = {}
+    for usage in report.values():
+        for name, u in usage.items():
+            m = re.search(r"(pk_preheat_(?:coupled_)?pair_kernel<[^<>]*>)",
+                          name)
+            if m:
+                rows[m.group(1)] = u
+    return rows
+
+
+#: the x-march variants march_variants builds and times: the x planes a
+#: block marches (PK_MARCH_LX); one of them is the sources' default
+MARCH_VARIANTS = (16, 24, 32, 64)
+#: its kernels (each with f32 and with bf16 carries), and the rounds of
+#: launches each variant gets in turn
+MARCH_KERNELS = ("preheat_pair", "preheat_coupled_pair_deferred")
+MARCH_ROUNDS, MARCH_REPS = 3, 5
+
+
+def march_defines(lx):
+    return f"\n#define PK_MARCH_LX {lx}\n"
+
+
+def march_variants(phase, sector, gw_sector, dx):
+    """K8 and K9 deferred at 512^3 f32, with f32 and with bf16 carries,
+    through each x-march variant of MARCH_VARIANTS. Each variant is built
+    from the same sources into libraries of its own (the model header with
+    its PK_MARCH_LX define: one nvcc a source and variant, all at once),
+    its tile is held to ops/fused.py:march_tile, its registers and spills
+    come from ptxas, and its outputs must equal the default build's bit
+    for bit. Then the variants are timed in turns (MARCH_ROUNDS rounds of
+    MARCH_REPS launches each) on one set of arrays, so every variant runs
+    on the same placement."""
+    import ctypes
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import fused as tfused
+    from pystella_tpu_torch.ops import stencil
+    srcs = sorted({tfused.KERNELS[n][0] for n in MARCH_KERNELS})
+    sites = math.prod(GRID)
+    builds = {}
+    for carry in (None, torch.bfloat16):
+        st = pt.FusedPreheatStepper(sector, gw_sector, GRID, dx, HALO,
+                                    dtype=torch.float32, carry_dtype=carry,
+                                    device="cuda")
+        header = st.kernel_header()
+        if not builds:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(MARCH_VARIANTS)) as pool:
+                libs = list(pool.map(lambda v: stencil.build_kernels(
+                    srcs, header + march_defines(v)), MARCH_VARIANTS))
+            build_s = time.perf_counter() - t0
+            for v, lib in zip(MARCH_VARIANTS, libs):
+                query = lib[srcs[0]].pk_preheat_march_tile
+                query.argtypes = [ctypes.c_int, ctypes.c_void_p]
+                out = (ctypes.c_int * 5)()
+                query(0, out)
+                got = (tuple(out[:4]), out[4])
+                want = tfused.march_tile(st.F, st.h, 4, st.n_hij, lx=v)
+                usage = march_ptxas({src: demangled(stencil.ptxas_usage(
+                    stencil.build_log(src, header + march_defines(v))))
+                    for src in srcs})
+                builds[v] = {"lib": lib, "tile": got, "mirror": want,
+                             "ptxas": usage}
+                if got != want:
+                    raise SystemExit(f"march variant {v}: the library's "
+                                     f"tile {got}, the mirror's {want}")
+            emit({"phase": phase + "_build", "seconds": build_s,
+                  "variants": [{"lx": v, "tile": b["tile"][0],
+                                "smem_bytes_per_block": b["tile"][1],
+                                "ptxas": b["ptxas"]}
+                               for v, b in builds.items()]})
+        for seed, name in enumerate(MARCH_KERNELS):
+            key = (name, torch.float32, st.carry_dtype, False)
+            default = st._libs[key]
+            entry = f"pk_{name}_f32" + ("_bf16" if carry else "")
+            fns = {}
+            for v, b in builds.items():
+                fn = getattr(b["lib"][tfused.KERNELS[name][0]], entry)
+                fn.argtypes = default.argtypes
+                fn.restype = ctypes.c_int
+                fns[v] = fn
+            ins = kernel_inputs(GRID, torch.float32, 90 + seed, gw=True,
+                                dtypes=st._in_dtypes(False))
+            params = kernel_params(name, dx)
+            ref = [t.clone() for t in st.launch(name, ins, st._new_set(
+                ins[0].device), params)]
+            outs = st._new_set(ins[0].device)
+            equal = {}
+            for v, fn in fns.items():
+                st._libs[key] = fn
+                got = st.launch(name, ins, outs, params)
+                torch.cuda.synchronize()
+                equal[v] = all(torch.equal(a, b) for a, b in zip(got, ref))
+            del ref
+            rounds = {v: [] for v in fns}
+            for _ in range(MARCH_ROUNDS):
+                for v, fn in fns.items():
+                    st._libs[key] = fn
+                    rounds[v].append(cuda_ms(
+                        lambda: st.launch(name, ins, outs, params),
+                        reps=MARCH_REPS, warmup=1))
+            st._libs[key] = default
+            nbytes = (sites * sum(c * (di.itemsize + do.itemsize)
+                                  for c, di, do in zip(
+                                      st._comps, st._in_dtypes(False),
+                                      st._dtypes))
+                      + tfused.SUM_SETS[name] * (2 * st.F + 1) * 4)
+            emit({"phase": phase, "kernel": st.counted_name(name),
+                  "shape": GRID, "dtype": "torch.float32",
+                  "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                  "variants": [{"lx": v, "ms": sum(r) / len(r),
+                                "ms_rounds": r,
+                                "equal_to_default": equal[v]}
+                               for v, r in rounds.items()]})
+            if not all(equal.values()):
+                raise SystemExit(f"{name}: a march variant's outputs differ "
+                                 f"from the default build's: {equal}")
+            del ins, outs
+            torch.cuda.empty_cache()
+        del st
+        torch.cuda.empty_cache()
+
+
 # -- the sharded tier: halo-input and overlapped launches (several shards on
-#    the one card) -------------------------------------------------------------
+#    the one card) ------------------------------------------------------------
 
 #: the sharded configurations, every shard on the one card: (mesh, overlap);
 #: the first three are the sharded main paths (timed), the others checked
@@ -3035,8 +3236,69 @@ def sharded_fd_kernel_time(phase):
     torch.cuda.empty_cache()
 
 
-def main():
+#: the phase groups of a run, in run order, each with the groups whose
+#: results it reads; with no selection a run takes every one of PHASES
+PHASES = ("scalar", "gw", "fd", "mg", "sharded_mg", "sharded",
+          "sharded_coupled", "sharded_gw", "sharded_bf16")
+PHASE_DEPS = {"sharded_mg": ("mg",), "sharded": ("scalar",),
+              "sharded_coupled": ("scalar",), "sharded_gw": ("gw",),
+              "sharded_bf16": ("scalar", "gw")}
+#: phases a run takes only when selected: march_variants builds the x-march
+#: variants of K8 and K9 into libraries of their own and times them
+OPT_IN_PHASES = ("march_variants",)
+PHASE_HELP = {
+    "scalar": "the scalar system: kernels vs plain, identities, references, "
+              "kernel times, the pair, chunk, bf16 and coupled main paths",
+    "gw": "the GW system: the same, and the gw-bf16 and coupled-gw-bf16 "
+          "paths",
+    "fd": "the operators (K12) vs plain, their times (and the circular "
+          "convolution's), the wave reference and main path",
+    "mg": "the multigrid sweeps (K11) vs plain, their times, reference, "
+          "main path and trace",
+    "sharded_mg": "the sharded multigrid phases",
+    "sharded": "the padded launches vs plain and their times, the sharded "
+               "hot loop, its trace and the sharded operators",
+    "sharded_coupled": "the sharded coupled driver and its trace",
+    "sharded_gw": "the sharded GW multi_step and coupled driver",
+    "sharded_bf16": "the sharded bf16-carry launches and paths",
+    "march_variants": "the x-march tile variants of K8 and K9 deferred, "
+                      "built apart and timed against each other"}
+
+
+def selected_phases(argv):
+    """The phase groups a run takes: ``--phases a,b,...`` (or the
+    environment's ``PYSTELLA_SMOKE_PHASES``) and every group they read;
+    every group of :data:`PHASES` without either. An unknown name exits
+    with status 2."""
+    import argparse
+    parser = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch/CUDA port on one GPU.",
+        epilog="phases: " + "; ".join(f"{k}: {v}"
+                                      for k, v in PHASE_HELP.items()))
+    parser.add_argument(
+        "--phases", default=os.environ.get("PYSTELLA_SMOKE_PHASES"),
+        help="comma-separated phase groups (default: all of "
+             f"{', '.join(PHASES)})")
+    args = parser.parse_args(argv)
+    if not args.phases:
+        return set(PHASES)
+    wanted = [p.strip() for p in args.phases.split(",") if p.strip()]
+    unknown = [p for p in wanted if p not in PHASE_HELP]
+    if unknown or not wanted:
+        parser.error(f"unknown phases {unknown}; choose from "
+                     f"{', '.join(PHASE_HELP)}")
+    out = set()
+    while wanted:
+        p = wanted.pop()
+        if p not in out:
+            out.add(p)
+            wanted.extend(PHASE_DEPS.get(p, ()))
+    return out
+
+
+def main(argv=None):
     start_s = time.perf_counter()
+    phases = selected_phases(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3053,7 +3315,8 @@ def main():
         timeout=60).stdout.strip().splitlines()[0]
     emit({"phase": "device", "name": kind, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda,
+          "phases": [p for p in PHASES + OPT_IN_PHASES if p in phases]})
 
     sector = pt.ScalarSector(2, potential=potential)
     gw_sector = pt.TensorPerturbationSector([sector])
@@ -3137,6 +3400,20 @@ def main():
                                    t[1]} for d, t in tiles.items()}})
     emit({"phase": "build_sharded_bf16_ptxas",
           "kernels": bf16_padded_ptxas(ptxas)})
+    # the x-marching GW pairs: each source's tile and dynamic shared memory
+    # as the library reports it (build_kernels held it to the host
+    # mirror), and each instantiation's registers and spills; none of the
+    # float ones may spill
+    march_rows = march_ptxas(ptxas)
+    f32_spills = [n for n, u in march_rows.items() if "<float," in n
+                  and (u.get("spill_stores") or u.get("spill_loads"))]
+    emit({"phase": "build_march_ptxas",
+          "tiles": {src: {str(d): gw_st.march_kernel_tile(d, src)
+                          for d in (torch.float32, torch.float64)}
+                    for src in gw_st._march_sources()},
+          "kernels": march_rows, "f32_spills": f32_spills})
+    if f32_spills:
+        raise SystemExit(f"float x-march instantiations spill: {f32_spills}")
     del nonpoly_st, gwb_st
     if main_st.kernel_names() != scalar_kernels:
         raise SystemExit("the main model did not build every kernel")
@@ -3179,296 +3456,324 @@ def main():
     def bf16_gw(shape, dtype):
         return gw_stepper(shape, dtype, torch.bfloat16)
 
-    kernels_vs_plain("kernel_vs_plain", scalar_stepper, scalar_kernels,
-                     cases, errs)
-
-    # -- 4. identities on the card ------------------------------------------
-    # one pair launch == two single-stage launches; K5's lattice outputs ==
-    # K2's, bitwise; K6 pair + finalize == K3 pair with hubble2 = hubfix
-    identities("identity", scalar_stepper)
-
-    # -- 4b. the printer's non-polynomial paths compiled into K2, K3, K5 ----
-    nonpoly_kernels_vs_plain("nonpoly_kernel_vs_plain", errs)
-
-    # -- 5. reference: fused kernels vs the generic path, small input --------
-    st = scalar_stepper(SMALL, torch.float64)
-    reference("reference", st, sector, 1e-12)
-
-    # -- 6. coupled reference: coupled_multi_step vs the per-stage loop -----
-    coupled_reference("coupled_reference", st, sector)
-    del st
-
-    # -- 7. the chunk kernel (K10) vs plain at the main path's shape and the
-    #       others; the bf16-carry K2, K3 and K10 in f32 at 512^3 and
-    #       48x40x36 ---------------------------------------------------------
-    kernels_vs_plain("chunk_kernel_vs_plain", chunk_stepper, ["fused_chunk"],
-                     cases, errs)
-    kernels_vs_plain("chunk_kernel_vs_plain", bf16_stepper, chunk_kernels,
-                     [(GRID, torch.float32), (ALT_SHAPES[1], torch.float32)],
-                     errs)
-
-    # -- 8. chunk identity: one K10 == two K3, state and carries ------------
-    chunk_identity("chunk_identity", chunk_stepper)
-
-    # -- 9. chunk reference: chunk multi_step(3) vs the generic stepper ----
-    st = chunk_stepper(SMALL, torch.float64)
-    reference("chunk_reference", st, sector, 1e-12)
-    del st
-
-    # -- 10. kernel and plain times at the main path's shape -----------------
     timing = {}
-    time_kernels("kernel_time", main_st, scalar_kernels, 10, timing)
-    time_kernels("chunk_kernel_time", chunk_st, ["fused_chunk"], 30, timing)
-    bf16_st = bf16_stepper(GRID, torch.float32)
-    time_kernels("chunk_kernel_time", bf16_st, chunk_kernels, 40, timing)
-
     launches = {}
 
-    # -- 11. main path: bench model, 512^3 f32, multi_step on the pair tier,
-    #        then on the chunk tier from the same state (the final states
-    #        must agree) and with bf16 carries -------------------------------
-    def bench_state():
-        g = torch.Generator(device="cuda").manual_seed(7)
-        return {"f": 1e-3 * torch.randn((2,) + GRID, generator=g,
-                                        device="cuda", dtype=torch.float32),
-                "dfdt": 1e-4 * torch.randn((2,) + GRID, generator=g,
-                                           device="cuda",
-                                           dtype=torch.float32)}
+    # -- 2b. the x-march variants of K8 and K9 (opt-in) ----------------------
+    if "march_variants" in phases:
+        march_variants("march_variants", sector, gw_sector, dx)
 
-    pair_final = {k: v.clone() for k, v in main_path(
-        "main_path", main_st, bench_state(), timing, launches).items()}
-    # the sharded paths' reference waits on the host (and their initial
-    # state is this one's)
-    preheat_final = on_host(pair_final)
-    preheat_state = bench_state
-    torch.cuda.empty_cache()
-    chunk_final = {k: v.clone() for k, v in main_path(
-        "chunk_main_path", chunk_st, bench_state(), timing, launches).items()}
-    del chunk_st
-    torch.cuda.empty_cache()
-    errs_vs_pair = {k: rel_err(chunk_final[k], pair_final[k])[0]
-                    for k in pair_final}
-    emit({"phase": "chunk_main_path_vs_pair", "rel_err": errs_vs_pair,
-          "bitwise": {k: torch.equal(chunk_final[k], pair_final[k])
-                      for k in pair_final},
-          "tol": IDENTITY_TOL[torch.float32]})
-    if not max(errs_vs_pair.values()) <= IDENTITY_TOL[torch.float32]:
-        raise SystemExit(f"the chunk path's final state differs from the "
-                         f"pair path's: {errs_vs_pair}")
-    del pair_final
-    bf16_final = main_path("chunk_bf16_main_path", bf16_st, bench_state(),
-                           timing, launches)
-    errs_vs_f32 = {k: rel_err(bf16_final[k], chunk_final[k])[0]
-                   for k in chunk_final}
-    differs = any(not torch.equal(bf16_final[k], chunk_final[k])
-                  for k in chunk_final)
-    emit({"phase": "chunk_bf16_main_path_vs_f32_carries",
-          "rel_err": errs_vs_f32, "differs": differs,
-          "tol": BF16_PATH_TOL})
-    if not (max(errs_vs_f32.values()) <= BF16_PATH_TOL and differs):
-        raise SystemExit(f"the bf16-carry path is not within "
-                         f"{BF16_PATH_TOL} of the f32-carry one, or equals "
-                         f"it: {errs_vs_f32}")
-    del bf16_st, bf16_final, chunk_final
-    torch.cuda.empty_cache()
-    # the same with bf16 carries on the pair tier (the sharded bf16 paths'
-    # reference waits on the host)
-    st = bf16_scalar(GRID, torch.float32)
-    preheat_bf16_ref = on_host(main_path(
-        "preheat_bf16_main_path", st, bench_state(), timing, launches))
-    del st
-    torch.cuda.empty_cache()
+    if "scalar" in phases:
+        kernels_vs_plain("kernel_vs_plain", scalar_stepper, scalar_kernels,
+                         cases, errs)
 
-    # -- 11b. the energy kernels with bf16 carries (K5, K6 and K5 on
-    #         finalized carries) vs plain, their identities and times -------
-    kernels_vs_plain("bf16_kernel_vs_plain", bf16_scalar, BF16_SUM_KERNELS,
-                     [(GRID, torch.float32), (ALT_SHAPES[1], torch.float32),
-                      (ALT_SHAPES[1], torch.float64)], errs)
-    bf16_identities("bf16_identity", scalar_stepper)
-    coupled_bf16_st = bf16_scalar(GRID, torch.float32)
-    time_kernels("bf16_kernel_time", coupled_bf16_st, BF16_SUM_KERNELS, 50,
-                 timing)
+        # -- 4. identities on the card ----------------------------------------
+        # one pair launch == two single-stage launches; K5's lattice outputs ==
+        # K2's, bitwise; K6 pair + finalize == K3 pair with hubble2 = hubfix
+        identities("identity", scalar_stepper)
 
-    # -- 12. coupled main path: the example model, 512^3 f32, and
-    # -- 13. where its chunk's device time goes (torch.profiler) ------------
-    coupled_f32_final = coupled_main_path(
-        "coupled_main_path", main_st,
-        background_state(GRID, torch.float32, 11), SUM_KERNELS, launches,
-        trace="coupled_trace")
-    # the sharded coupled paths' reference waits on the host
-    coupled_ref = on_host(coupled_f32_final)
-    # the scalar paths' buffers (12 GiB) make room for the GW system's 48
-    del main_st
-    torch.cuda.empty_cache()
+        # -- 4b. the printer's non-polynomial paths compiled into K2, K3, K5 --
+        nonpoly_kernels_vs_plain("nonpoly_kernel_vs_plain", errs)
 
-    # -- 13b. the coupled main path with bf16 carries (K6, the finalize, K5
-    #         on finalized carries; one pair=False step: K5) ---------------
-    final = coupled_main_path(
-        "coupled_bf16_main_path", coupled_bf16_st,
-        background_state(GRID, torch.float32, 11), BF16_COUPLED, launches,
-        single=True, predicted_gib=PREDICTED_PATH_GIB[
-            "coupled_bf16_main_path"])
-    bf16_gap("coupled_bf16_main_path", final, on_host(coupled_f32_final))
-    # the sharded bf16 coupled paths' reference waits on the host
-    coupled_bf16_ref = on_host(final)
-    del coupled_bf16_st, coupled_f32_final, final
+        # -- 5. reference: fused kernels vs the generic path, small input -----
+        st = scalar_stepper(SMALL, torch.float64)
+        reference("reference", st, sector, 1e-12)
+
+        # -- 6. coupled reference: coupled_multi_step vs the per-stage loop ---
+        coupled_reference("coupled_reference", st, sector)
+        del st
+
+        # -- 7. the chunk kernel (K10) vs plain at the main path's shape and
+        #       the others; the bf16-carry K2, K3 and K10 in f32 at 512^3 and
+        #       48x40x36 ------------------------------------------------------
+        kernels_vs_plain("chunk_kernel_vs_plain", chunk_stepper,
+                         ["fused_chunk"], cases, errs)
+        kernels_vs_plain("chunk_kernel_vs_plain", bf16_stepper, chunk_kernels,
+                         [(GRID, torch.float32),
+                          (ALT_SHAPES[1], torch.float32)], errs)
+
+        # -- 8. chunk identity: one K10 == two K3, state and carries ----------
+        chunk_identity("chunk_identity", chunk_stepper)
+
+        # -- 9. chunk reference: chunk multi_step(3) vs the generic stepper ---
+        st = chunk_stepper(SMALL, torch.float64)
+        reference("chunk_reference", st, sector, 1e-12)
+        del st
+
+        # -- 10. kernel and plain times at the main path's shape --------------
+        time_kernels("kernel_time", main_st, scalar_kernels, 10, timing)
+        time_kernels("chunk_kernel_time", chunk_st, ["fused_chunk"], 30,
+                     timing)
+        bf16_st = bf16_stepper(GRID, torch.float32)
+        time_kernels("chunk_kernel_time", bf16_st, chunk_kernels, 40, timing)
+
+        # -- 11. main path: bench model, 512^3 f32, multi_step on the pair
+        #        tier, then on the chunk tier from the same state (the final
+        #        states must agree) and with bf16 carries --------------------
+        def bench_state():
+            g = torch.Generator(device="cuda").manual_seed(7)
+            return {"f": 1e-3 * torch.randn((2,) + GRID, generator=g,
+                                            device="cuda",
+                                            dtype=torch.float32),
+                    "dfdt": 1e-4 * torch.randn((2,) + GRID, generator=g,
+                                               device="cuda",
+                                               dtype=torch.float32)}
+
+        pair_final = {k: v.clone() for k, v in main_path(
+            "main_path", main_st, bench_state(), timing, launches).items()}
+        # the sharded paths' reference waits on the host (and their initial
+        # state is this one's)
+        preheat_final = on_host(pair_final)
+        preheat_state = bench_state
+        torch.cuda.empty_cache()
+        chunk_final = {k: v.clone() for k, v in main_path(
+            "chunk_main_path", chunk_st, bench_state(), timing,
+            launches).items()}
+        del chunk_st
+        torch.cuda.empty_cache()
+        errs_vs_pair = {k: rel_err(chunk_final[k], pair_final[k])[0]
+                        for k in pair_final}
+        emit({"phase": "chunk_main_path_vs_pair", "rel_err": errs_vs_pair,
+              "bitwise": {k: torch.equal(chunk_final[k], pair_final[k])
+                          for k in pair_final},
+              "tol": IDENTITY_TOL[torch.float32]})
+        if not max(errs_vs_pair.values()) <= IDENTITY_TOL[torch.float32]:
+            raise SystemExit(f"the chunk path's final state differs from the "
+                             f"pair path's: {errs_vs_pair}")
+        del pair_final
+        bf16_final = main_path("chunk_bf16_main_path", bf16_st, bench_state(),
+                               timing, launches)
+        errs_vs_f32 = {k: rel_err(bf16_final[k], chunk_final[k])[0]
+                       for k in chunk_final}
+        differs = any(not torch.equal(bf16_final[k], chunk_final[k])
+                      for k in chunk_final)
+        emit({"phase": "chunk_bf16_main_path_vs_f32_carries",
+              "rel_err": errs_vs_f32, "differs": differs,
+              "tol": BF16_PATH_TOL})
+        if not (max(errs_vs_f32.values()) <= BF16_PATH_TOL and differs):
+            raise SystemExit(f"the bf16-carry path is not within "
+                             f"{BF16_PATH_TOL} of the f32-carry one, or "
+                             f"equals it: {errs_vs_f32}")
+        del bf16_st, bf16_final, chunk_final
+        torch.cuda.empty_cache()
+        # the same with bf16 carries on the pair tier (the sharded bf16 paths'
+        # reference waits on the host)
+        st = bf16_scalar(GRID, torch.float32)
+        preheat_bf16_ref = on_host(main_path(
+            "preheat_bf16_main_path", st, bench_state(), timing, launches))
+        del st
+        torch.cuda.empty_cache()
+
+        # -- 11b. the energy kernels with bf16 carries (K5, K6 and K5 on
+        #         finalized carries) vs plain, their identities and times -----
+        kernels_vs_plain("bf16_kernel_vs_plain", bf16_scalar,
+                         BF16_SUM_KERNELS,
+                         [(GRID, torch.float32),
+                          (ALT_SHAPES[1], torch.float32),
+                          (ALT_SHAPES[1], torch.float64)], errs)
+        bf16_identities("bf16_identity", scalar_stepper)
+        coupled_bf16_st = bf16_scalar(GRID, torch.float32)
+        time_kernels("bf16_kernel_time", coupled_bf16_st, BF16_SUM_KERNELS, 50,
+                     timing)
+
+        # -- 12. coupled main path: the example model, 512^3 f32, and
+        # -- 13. where its chunk's device time goes (torch.profiler) ----------
+        coupled_f32_final = coupled_main_path(
+            "coupled_main_path", main_st,
+            background_state(GRID, torch.float32, 11), SUM_KERNELS, launches,
+            trace="coupled_trace")
+        # the sharded coupled paths' reference waits on the host
+        coupled_ref = on_host(coupled_f32_final)
+        # the scalar paths' buffers (12 GiB) make room for the GW system's 48
+        del main_st
+        torch.cuda.empty_cache()
+
+        # -- 13b. the coupled main path with bf16 carries (K6, the finalize, K5
+        #         on finalized carries; one pair=False step: K5) --------------
+        final = coupled_main_path(
+            "coupled_bf16_main_path", coupled_bf16_st,
+            background_state(GRID, torch.float32, 11), BF16_COUPLED, launches,
+            single=True, predicted_gib=PREDICTED_PATH_GIB[
+                "coupled_bf16_main_path"])
+        bf16_gap("coupled_bf16_main_path", final, on_host(coupled_f32_final))
+        # the sharded bf16 coupled paths' reference waits on the host
+        coupled_bf16_ref = on_host(final)
+        del coupled_bf16_st, coupled_f32_final, final
+        torch.cuda.empty_cache()
+
+    # (the scalar group released them; without it they hold no buffers)
+    main_st = chunk_st = None
     torch.cuda.empty_cache()
 
     # -- 14. the GW kernels vs plain (the main path's shape and others) ----
-    kernels_vs_plain("preheat_kernel_vs_plain", gw_stepper, GW_KERNELS,
-                     cases, errs, gw=True)
+    if "gw" in phases:
+        kernels_vs_plain("preheat_kernel_vs_plain", gw_stepper, GW_KERNELS,
+                         cases, errs, gw=True)
 
-    # -- 15. GW identities: K8 == two K7, K5' == K7 bitwise, K9 + finalize
-    #        == K8 with hubble2 = hubfix --------------------------------------
-    identities("preheat_identity", gw_stepper, gw=True)
+        # -- 15. GW identities: K8 == two K7, K5' == K7 bitwise, K9 + finalize
+        #        == K8 with hubble2 = hubfix ----------------------------------
+        identities("preheat_identity", gw_stepper, gw=True)
 
-    # -- 16. GW reference: multi_step vs the generic GW stepper, and
-    #        coupled_multi_step vs the per-stage driver loop, 32^3 f64 -------
-    st = gw_stepper(SMALL, torch.float64)
-    reference("preheat_reference", st, sector, GW_REFERENCE_TOL, gw=True)
-    coupled_reference("preheat_coupled_reference", st, sector, gw=True)
-    del st
+        # -- 16. GW reference: multi_step vs the generic GW stepper, and
+        #        coupled_multi_step vs the per-stage driver loop, 32^3 f64 ----
+        st = gw_stepper(SMALL, torch.float64)
+        reference("preheat_reference", st, sector, GW_REFERENCE_TOL, gw=True)
+        coupled_reference("preheat_coupled_reference", st, sector, gw=True)
+        del st
 
-    # -- 17. GW kernel and plain times at 512^3 f32 ---------------------------
-    time_kernels("preheat_kernel_time", gw_st, GW_KERNELS, 20, timing)
+        # -- 17. GW kernel and plain times at 512^3 f32 -----------------------
+        time_kernels("preheat_kernel_time", gw_st, GW_KERNELS, 20, timing)
 
-    # -- 18. GW main path: multi_step at 512^3 f32 from the bench state for
-    #        f and hij = dhijdt = 0; the source must reach hij ---------------
-    def gw_main_state():
-        g = torch.Generator(device="cuda").manual_seed(7)
-        return {"f": 1e-3 * torch.randn((2,) + GRID, generator=g,
-                                        device="cuda", dtype=torch.float32),
-                "dfdt": 1e-4 * torch.randn((2,) + GRID, generator=g,
-                                           device="cuda",
-                                           dtype=torch.float32),
-                "hij": torch.zeros((6,) + GRID, device="cuda",
-                                   dtype=torch.float32),
-                "dhijdt": torch.zeros((6,) + GRID, device="cuda",
-                                      dtype=torch.float32)}
+        # -- 18. GW main path: multi_step at 512^3 f32 from the bench state for
+        #        f and hij = dhijdt = 0; the source must reach hij ------------
+        def gw_main_state():
+            g = torch.Generator(device="cuda").manual_seed(7)
+            return {"f": 1e-3 * torch.randn((2,) + GRID, generator=g,
+                                            device="cuda",
+                                            dtype=torch.float32),
+                    "dfdt": 1e-4 * torch.randn((2,) + GRID, generator=g,
+                                               device="cuda",
+                                               dtype=torch.float32),
+                    "hij": torch.zeros((6,) + GRID, device="cuda",
+                                       dtype=torch.float32),
+                    "dhijdt": torch.zeros((6,) + GRID, device="cuda",
+                                          dtype=torch.float32)}
 
-    # the final state waits on the host for the sharded GW paths
-    gw_multi_ref = on_host(main_path("preheat_main_path", gw_st,
-                                     gw_main_state(), timing, launches,
-                                     extra_check=sourced))
-    torch.cuda.empty_cache()
+        # the final state waits on the host for the sharded GW paths
+        gw_multi_ref = on_host(main_path("preheat_main_path", gw_st,
+                                         gw_main_state(), timing, launches,
+                                         extra_check=sourced))
+        torch.cuda.empty_cache()
 
-    # -- 19. GW coupled main path: coupled_multi_step at 512^3 f32 from the
-    #        coupled path's background and hij = dhijdt = 0 -----------------
-    # the f32-carry final state waits on the host for the bf16 path
-    cgw_f32_final = on_host(coupled_main_path(
-        "preheat_coupled_main_path", gw_st,
-        background_state(GRID, torch.float32, 11, gw=True), GW_SUM_KERNELS,
-        launches, trace="preheat_coupled_trace", extra_check=sourced))
-    del gw_st
-    torch.cuda.empty_cache()
+        # -- 19. GW coupled main path: coupled_multi_step at 512^3 f32 from the
+        #        coupled path's background and hij = dhijdt = 0 ---------------
+        # the f32-carry final state waits on the host for the bf16 path
+        cgw_f32_final = on_host(coupled_main_path(
+            "preheat_coupled_main_path", gw_st,
+            background_state(GRID, torch.float32, 11, gw=True), GW_SUM_KERNELS,
+            launches, trace="preheat_coupled_trace", extra_check=sourced))
+        del gw_st
+        torch.cuda.empty_cache()
 
-    # -- 19b. the GW kernels with bf16 carries (K7, K8, K9, K5', and K5' on
-    #         finalized carries) vs plain, their identities and times -------
-    kernels_vs_plain("preheat_bf16_kernel_vs_plain", bf16_gw,
-                     BF16_GW_KERNELS, [(GRID, torch.float32),
-                                       (ALT_SHAPES[1], torch.float64)],
-                     errs, gw=True)
-    bf16_identities("preheat_bf16_identity", gw_stepper, gw=True)
-    gw_bf16_st = bf16_gw(GRID, torch.float32)
-    time_kernels("preheat_bf16_kernel_time", gw_bf16_st, BF16_GW_KERNELS, 60,
-                 timing)
+        # -- 19b. the GW kernels with bf16 carries (K7, K8, K9, K5', and K5' on
+        #         finalized carries) vs plain, their identities and times -----
+        kernels_vs_plain("preheat_bf16_kernel_vs_plain", bf16_gw,
+                         BF16_GW_KERNELS, [(GRID, torch.float32),
+                                           (ALT_SHAPES[1], torch.float64)],
+                         errs, gw=True)
+        bf16_identities("preheat_bf16_identity", gw_stepper, gw=True)
+        gw_bf16_st = bf16_gw(GRID, torch.float32)
+        time_kernels("preheat_bf16_kernel_time", gw_bf16_st, BF16_GW_KERNELS,
+                     60, timing)
 
-    del gw_bf16_st
-    torch.cuda.empty_cache()
+        del gw_bf16_st
+        torch.cuda.empty_cache()
 
-    # -- 19c. the GW main path with bf16 carries: bench.py's gw-step bf16
-    #         configuration (build_gw_step: its model, numpy seed 9 state,
-    #         a = 1, hubble = 0.1) at 512^3 f32 through multi_step (K8, K7),
-    #         after the same path with f32 carries; its two kernels held
-    #         against their plain versions on this model too ------------
-    def gw_bench_stepper(shape, dtype, carry_dtype=None):
-        return pt.FusedPreheatStepper(gw_bench_sector, gw_bench_gw, shape,
-                                      BOX / shape[0], HALO, dtype=dtype,
-                                      carry_dtype=carry_dtype, device="cuda")
+        # -- 19c. the GW main path with bf16 carries: bench.py's gw-step bf16
+        #         configuration (build_gw_step: its model, numpy seed 9 state,
+        #         a = 1, hubble = 0.1) at 512^3 f32 through multi_step (K8,
+        #         K7), after the same path with f32 carries; its two kernels
+        #         held against their plain versions on this model too -------
+        def gw_bench_stepper(shape, dtype, carry_dtype=None):
+            return pt.FusedPreheatStepper(gw_bench_sector, gw_bench_gw, shape,
+                                          BOX / shape[0], HALO, dtype=dtype,
+                                          carry_dtype=carry_dtype,
+                                          device="cuda")
 
-    # the model's own kernel times (each model prints its own dV/df, so its
-    # kernels compile apart): the two paths' kernel shares read them
-    bench_timing = {}
-    bench_state = gw_bench_state()
-    st = gw_bench_stepper(GRID, torch.float32)
-    time_kernels("gw_bench_kernel_time", st, ["preheat_stage",
-                                              "preheat_pair"], 80,
-                 bench_timing)
-    gwb_f32_final = on_host(main_path(
-        "gw_bench_f32_main_path", st, on_card(bench_state), bench_timing,
-        launches, extra_check=sourced, args=GW_BENCH_ARGS))
-    del st
-    torch.cuda.empty_cache()
-    kernels_vs_plain("gw_bf16_kernel_vs_plain",
-                     lambda sh, dt: gw_bench_stepper(sh, dt, torch.bfloat16),
-                     ["preheat_stage", "preheat_pair"],
-                     [(GRID, torch.float32)], errs, gw=True, tag=":bench")
-    st = gw_bench_stepper(GRID, torch.float32, torch.bfloat16)
-    time_kernels("gw_bench_kernel_time", st, ["preheat_stage",
-                                              "preheat_pair"], 82,
-                 bench_timing)
-    final = main_path(
-        "gw_bf16_main_path", st, on_card(bench_state), bench_timing, launches,
-        extra_check=sourced, args=GW_BENCH_ARGS,
-        predicted_gib=PREDICTED_PATH_GIB["gw_bf16_main_path"])
-    bf16_gap("gw_bf16_main_path", final, gwb_f32_final)
-    # the sharded gw-bf16 paths' reference and initial state wait on the
-    # host
-    gw_bf16_ref = on_host(final)
-    gw_bench_host = bench_state
-    del st, bench_state, gwb_f32_final, final
-    torch.cuda.empty_cache()
-    gw_bf16_st = bf16_gw(GRID, torch.float32)
+        # the model's own kernel times (each model prints its own dV/df, so its
+        # kernels compile apart): the two paths' kernel shares read them
+        bench_timing = {}
+        bench_state = gw_bench_state()
+        st = gw_bench_stepper(GRID, torch.float32)
+        time_kernels("gw_bench_kernel_time", st, ["preheat_stage",
+                                                  "preheat_pair"], 80,
+                     bench_timing)
+        gwb_f32_final = on_host(main_path(
+            "gw_bench_f32_main_path", st, on_card(bench_state), bench_timing,
+            launches, extra_check=sourced, args=GW_BENCH_ARGS))
+        del st
+        torch.cuda.empty_cache()
+        kernels_vs_plain("gw_bf16_kernel_vs_plain",
+                         lambda sh, dt: gw_bench_stepper(sh, dt,
+                                                         torch.bfloat16),
+                         ["preheat_stage", "preheat_pair"],
+                         [(GRID, torch.float32)], errs, gw=True, tag=":bench")
+        st = gw_bench_stepper(GRID, torch.float32, torch.bfloat16)
+        time_kernels("gw_bench_kernel_time", st, ["preheat_stage",
+                                                  "preheat_pair"], 82,
+                     bench_timing)
+        final = main_path(
+            "gw_bf16_main_path", st, on_card(bench_state), bench_timing,
+            launches, extra_check=sourced, args=GW_BENCH_ARGS,
+            predicted_gib=PREDICTED_PATH_GIB["gw_bf16_main_path"])
+        bf16_gap("gw_bf16_main_path", final, gwb_f32_final)
+        # the sharded gw-bf16 paths' reference and initial state wait on the
+        # host
+        gw_bf16_ref = on_host(final)
+        gw_bench_host = bench_state
+        del st, bench_state, gwb_f32_final, final
+        torch.cuda.empty_cache()
+        gw_bf16_st = bf16_gw(GRID, torch.float32)
 
-    # -- 19d. the GW coupled main path with bf16 carries (K9, the finalize,
-    #         K5' on finalized carries; one pair=False step: K5') ----------
-    # (from the homogeneous background, the fluctuation part of a carry --
-    # 1e-4 of it -- lies below bf16's resolution, so the S_ij that hij
-    # integrates is mostly carry rounding: hij's gap is recorded, not held)
-    final = coupled_main_path(
-        "coupled_gw_bf16_main_path", gw_bf16_st,
-        background_state(GRID, torch.float32, 11, gw=True), BF16_GW_COUPLED,
-        launches, extra_check=sourced, single=True,
-        predicted_gib=PREDICTED_PATH_GIB["coupled_gw_bf16_main_path"])
-    bf16_gap("coupled_gw_bf16_main_path", final, cgw_f32_final,
-             held=("f", "dfdt"))
-    # the sharded bf16 GW coupled paths' reference waits on the host
-    cgw_bf16_ref = on_host(final)
-    del final
-    # (the f32-carry final state stays on the host for the sharded GW paths)
-    cgw_ref = cgw_f32_final
-    del gw_bf16_st, cgw_f32_final
+        # -- 19d. the GW coupled main path with bf16 carries (K9, the finalize,
+        #         K5' on finalized carries; one pair=False step: K5') ---------
+        # (from the homogeneous background, the fluctuation part of a carry --
+        # 1e-4 of it -- lies below bf16's resolution, so the S_ij that hij
+        # integrates is mostly carry rounding: hij's gap is recorded, not held)
+        final = coupled_main_path(
+            "coupled_gw_bf16_main_path", gw_bf16_st,
+            background_state(GRID, torch.float32, 11, gw=True),
+            BF16_GW_COUPLED, launches, extra_check=sourced, single=True,
+            predicted_gib=PREDICTED_PATH_GIB["coupled_gw_bf16_main_path"])
+        bf16_gap("coupled_gw_bf16_main_path", final, cgw_f32_final,
+                 held=("f", "dfdt"))
+        # the sharded bf16 GW coupled paths' reference waits on the host
+        cgw_bf16_ref = on_host(final)
+        del final
+        # (the f32-carry final state stays on the host for the sharded GW
+        # paths)
+        cgw_ref = cgw_f32_final
+        del gw_bf16_st, cgw_f32_final
+        torch.cuda.empty_cache()
+
+    gw_st = None
     torch.cuda.empty_cache()
 
     # -- 20. the operator kernels (K12) vs plain: the wave path's shape, two
     #        others in f32 and f64, and h = 1 and 4 at the small shape -------
-    fd_kernels_vs_plain(
-        "fd_kernel_vs_plain",
-        [(shape, dtype, HALO) for shape, dtype in cases]
-        + [(ALT_SHAPES[1], dtype, h) for h in FD_HALOS if h != HALO
-           for dtype in (torch.float32, torch.float64)], errs)
+    if "fd" in phases:
+        fd_kernels_vs_plain(
+            "fd_kernel_vs_plain",
+            [(shape, dtype, HALO) for shape, dtype in cases]
+            + [(ALT_SHAPES[1], dtype, h) for h in FD_HALOS if h != HALO
+               for dtype in (torch.float32, torch.float64)], errs)
 
     # -- 21. the sweep kernels (K11) vs plain: the Newton problem and the
     #        Jacobi pair at the multigrid path's finest level, 256^3 f64,
     #        48x40x36 and its coarsest level, 8^3 ---------------------------
-    mg_kernels_vs_plain(
-        "mg_kernel_vs_plain",
-        [(GRID, torch.float32), (ALT_SHAPES[0], torch.float64)]
-        + [(shape, dtype) for shape in (ALT_SHAPES[1], (8, 8, 8))
-           for dtype in (torch.float32, torch.float64)], errs)
+    if "mg" in phases:
+        mg_kernels_vs_plain(
+            "mg_kernel_vs_plain",
+            [(GRID, torch.float32), (ALT_SHAPES[0], torch.float64)]
+            + [(shape, dtype) for shape in (ALT_SHAPES[1], (8, 8, 8))
+               for dtype in (torch.float32, torch.float64)], errs)
 
     # -- 22. their times at 512^3 f32 ----------------------------------------
-    time_fd_kernels("fd_kernel_time", timing)
-    time_mg_kernels("mg_kernel_time", timing)
+    if "fd" in phases:
+        time_fd_kernels("fd_kernel_time", timing)
+    if "mg" in phases:
+        time_mg_kernels("mg_kernel_time", timing)
 
     # -- 23. wave reference and main path ------------------------------------
-    wave_reference("wave_reference")
-    wave_main_path("wave_main_path", launches)
+    if "fd" in phases:
+        wave_reference("wave_reference")
+        wave_main_path("wave_main_path", launches)
 
     # -- 24. multigrid reference, main path and trace ------------------------
-    mg_reference("mg_reference")
-    mg_f, mg_rho, mg_residuals, mg_ms = mg_main_path(
-        "mg_main_path", timing, launches, trace="mg_trace")
+    if "mg" in phases:
+        mg_reference("mg_reference")
+        mg_f, mg_rho, mg_residuals, mg_ms = mg_main_path(
+            "mg_main_path", timing, launches, trace="mg_trace")
 
     # -- 24b. the multigrid solver on sharded levels (several shards on the
     #         one card): the padded, interior and shell launches of K11 vs
@@ -3477,34 +3782,36 @@ def main():
     #         single-device path's; the launches' times; the identity
     #         meshes at 256^3 f64 (replicated coarse levels, the linear
     #         scheme); two traced sharded cycles ------------------------------
-    sharded_mg_kernels_vs_plain("sharded_mg_kernel_vs_plain", errs)
-    mg_rows = sharded_mg_main_path("sharded_mg_main_path", mg_f, mg_rho,
-                                   mg_residuals, mg_ms, launches)
-    mg_per_cycle = {}
-    for row in mg_rows.values():
-        for k, v in row["expected_launches"].items():
-            mg_per_cycle.setdefault(k, v // (1 + MG_CYCLES))
-    del mg_f
-    torch.cuda.empty_cache()
-    time_sharded_mg_kernels("sharded_mg_kernel_time", timing, mg_per_cycle)
-    sharded_mg_identity("sharded_mg_identity", launches)
-    sharded_mg_trace("sharded_mg_trace", mg_rho)
-    del mg_rho
-    torch.cuda.empty_cache()
+    if "sharded_mg" in phases:
+        sharded_mg_kernels_vs_plain("sharded_mg_kernel_vs_plain", errs)
+        mg_rows = sharded_mg_main_path("sharded_mg_main_path", mg_f, mg_rho,
+                                       mg_residuals, mg_ms, launches)
+        mg_per_cycle = {}
+        for row in mg_rows.values():
+            for k, v in row["expected_launches"].items():
+                mg_per_cycle.setdefault(k, v // (1 + MG_CYCLES))
+        del mg_f
+        torch.cuda.empty_cache()
+        time_sharded_mg_kernels("sharded_mg_kernel_time", timing, mg_per_cycle)
+        sharded_mg_identity("sharded_mg_identity", launches)
+        sharded_mg_trace("sharded_mg_trace", mg_rho)
+        del mg_rho
+        torch.cuda.empty_cache()
 
     # -- 25. the sharded tier (several shards on the one card): the padded,
     #        interior and shell launches vs their plain versions and vs the
     #        unsharded kernels; the sharded hot loop on five meshes, bit for
     #        bit the preheat path, and the operators on its final state;
     #        a traced sharded step; the sharded Laplacian's time --------------
-    sharded_kernels_vs_plain("xpad_kernel_vs_plain", errs,
+    if "sharded" in phases:
+        sharded_kernels_vs_plain("xpad_kernel_vs_plain", errs,
+                                 sharded_kernel_names())
+        time_sharded_kernels("sharded_kernel_time", timing,
                              sharded_kernel_names())
-    time_sharded_kernels("sharded_kernel_time", timing,
-                         sharded_kernel_names())
-    sharded_paths(preheat_state, preheat_final, launches)
-    del preheat_final
-    sharded_trace("sharded_trace", preheat_state)
-    sharded_fd_kernel_time("sharded_fd_kernel_time")
+        sharded_paths(preheat_state, preheat_final, launches)
+        del preheat_final
+        sharded_trace("sharded_trace", preheat_state)
+        sharded_fd_kernel_time("sharded_fd_kernel_time")
 
     # -- 26. the sharded energy-coupled driver and GW stepper (several shards
     #        on the one card): the coupled-preheat run on four meshes, the
@@ -3524,23 +3831,26 @@ def main():
     def coupled_state():
         return background_state(GRID, torch.float32, 11)
 
-    sharded_stepping_paths(
-        "sharded_coupled_main_path", SHARDED_COUPLED_CONFIGS,
-        SHARDED_COUPLED_TIMED, sharded_scalar, coupled_state, coupled_ref,
-        launches, True, "coupled_main_path")
-    del coupled_ref
-    sharded_coupled_trace("sharded_coupled_trace", coupled_state)
-    sharded_stepping_paths(
-        "sharded_gw_main_path", SHARDED_GW_CONFIGS, SHARDED_GW_TIMED,
-        sharded_gw, gw_main_state, gw_multi_ref, launches, False,
-        "preheat_main_path")
-    del gw_multi_ref
-    sharded_stepping_paths(
-        "sharded_gw_main_path", SHARDED_GW_COUPLED_CONFIGS, SHARDED_GW_TIMED,
-        sharded_gw, lambda: background_state(GRID, torch.float32, 11,
-                                             gw=True),
-        cgw_ref, launches, True, "preheat_coupled_main_path")
-    del cgw_ref
+    if "sharded_coupled" in phases:
+        sharded_stepping_paths(
+            "sharded_coupled_main_path", SHARDED_COUPLED_CONFIGS,
+            SHARDED_COUPLED_TIMED, sharded_scalar, coupled_state, coupled_ref,
+            launches, True, "coupled_main_path")
+        del coupled_ref
+        sharded_coupled_trace("sharded_coupled_trace", coupled_state)
+    if "sharded_gw" in phases:
+        sharded_stepping_paths(
+            "sharded_gw_main_path", SHARDED_GW_CONFIGS, SHARDED_GW_TIMED,
+            sharded_gw, gw_main_state, gw_multi_ref, launches, False,
+            "preheat_main_path")
+        del gw_multi_ref
+        sharded_stepping_paths(
+            "sharded_gw_main_path", SHARDED_GW_COUPLED_CONFIGS,
+            SHARDED_GW_TIMED,
+            sharded_gw, lambda: background_state(GRID, torch.float32, 11,
+                                                 gw=True),
+            cgw_ref, launches, True, "preheat_coupled_main_path")
+        del cgw_ref
     torch.cuda.empty_cache()
 
     # -- 27. the sharded tier with bf16 carries (several shards on the one
@@ -3552,57 +3862,62 @@ def main():
     #        bf16 path's, the first of each timed against it and against
     #        the sharded f32-carry cell; the coupled meshes also run one
     #        pair=False step ------------------------------------------------
-    sharded_kernels_vs_plain("sharded_bf16_kernel_vs_plain", errs,
+    if "sharded_bf16" in phases:
+        sharded_kernels_vs_plain("sharded_bf16_kernel_vs_plain", errs,
+                                 sharded_bf16_kernel_names())
+        time_sharded_kernels("sharded_bf16_kernel_time", timing,
                              sharded_bf16_kernel_names())
-    time_sharded_kernels("sharded_bf16_kernel_time", timing,
-                         sharded_bf16_kernel_names())
-    bf16 = torch.bfloat16
+        bf16 = torch.bfloat16
 
-    def sharded_bf16_scalar(decomp, overlap):
-        return pt.FusedScalarStepper(sector, GRID, dx, HALO,
-                                     dtype=torch.float32, carry_dtype=bf16,
-                                     decomp=decomp, overlap=overlap)
+        def sharded_bf16_scalar(decomp, overlap):
+            return pt.FusedScalarStepper(sector, GRID, dx, HALO,
+                                         dtype=torch.float32, carry_dtype=bf16,
+                                         decomp=decomp, overlap=overlap)
 
-    def sharded_bf16_gw(decomp, overlap, bench=False):
-        s, g = (gw_bench_sector, gw_bench_gw) if bench else (sector,
-                                                             gw_sector)
-        return pt.FusedPreheatStepper(s, g, GRID, dx, HALO,
-                                      dtype=torch.float32, carry_dtype=bf16,
-                                      decomp=decomp, overlap=overlap)
+        def sharded_bf16_gw(decomp, overlap, bench=False):
+            s, g = (gw_bench_sector, gw_bench_gw) if bench else (sector,
+                                                                 gw_sector)
+            return pt.FusedPreheatStepper(s, g, GRID, dx, HALO,
+                                          dtype=torch.float32,
+                                          carry_dtype=bf16, decomp=decomp,
+                                          overlap=overlap)
 
-    def f32_cells(key):
-        return {(m, o): key.format(m, o) for m, o in
-                [((2, 1, 1), True), ((2, 1, 1), False), ((2, 2, 1), False)]}
+        def f32_cells(key):
+            return {(m, o): key.format(m, o) for m, o in
+                    [((2, 1, 1), True), ((2, 1, 1), False),
+                     ((2, 2, 1), False)]}
 
-    sharded_stepping_paths(
-        "sharded_bf16_main_path", SHARDED_BF16_CONFIGS, 2,
-        sharded_bf16_scalar, preheat_state, preheat_bf16_ref, launches, False,
-        "preheat_bf16_main_path", compare=f32_cells("sharded_main_path{}{}"))
-    del preheat_bf16_ref
-    sharded_stepping_paths(
-        "sharded_bf16_main_path", SHARDED_BF16_COUPLED_CONFIGS, 2,
-        sharded_bf16_scalar, coupled_state, coupled_bf16_ref, launches, True,
-        "coupled_bf16_main_path", compare=f32_cells(
-            "sharded_coupled_main_path:coupled_main_path{}{}"), single=True)
-    del coupled_bf16_ref
-    PATH_ROWS["coupled_bf16_main_path"].pop("single_final")
-    sharded_stepping_paths(
-        "sharded_bf16_main_path", SHARDED_BF16_CONFIGS, 1,
-        lambda d, o: sharded_bf16_gw(d, o, bench=True),
-        lambda: on_card(gw_bench_host), gw_bf16_ref, launches, False,
-        "gw_bf16_main_path", args=GW_BENCH_ARGS, compare=f32_cells(
-            "sharded_gw_main_path:preheat_main_path{}{}"))
-    del gw_bf16_ref, gw_bench_host
-    sharded_stepping_paths(
-        "sharded_bf16_main_path", SHARDED_BF16_GW_COUPLED_CONFIGS, 1,
-        sharded_bf16_gw, lambda: background_state(GRID, torch.float32, 11,
-                                                  gw=True),
-        cgw_bf16_ref, launches, True, "coupled_gw_bf16_main_path",
-        compare=f32_cells(
-            "sharded_gw_main_path:preheat_coupled_main_path{}{}"),
-        single=True)
-    del cgw_bf16_ref
-    PATH_ROWS["coupled_gw_bf16_main_path"].pop("single_final")
+        sharded_stepping_paths(
+            "sharded_bf16_main_path", SHARDED_BF16_CONFIGS, 2,
+            sharded_bf16_scalar, preheat_state, preheat_bf16_ref, launches,
+            False, "preheat_bf16_main_path",
+            compare=f32_cells("sharded_main_path{}{}"))
+        del preheat_bf16_ref
+        sharded_stepping_paths(
+            "sharded_bf16_main_path", SHARDED_BF16_COUPLED_CONFIGS, 2,
+            sharded_bf16_scalar, coupled_state, coupled_bf16_ref, launches,
+            True, "coupled_bf16_main_path", compare=f32_cells(
+                "sharded_coupled_main_path:coupled_main_path{}{}"),
+            single=True)
+        del coupled_bf16_ref
+        PATH_ROWS["coupled_bf16_main_path"].pop("single_final")
+        sharded_stepping_paths(
+            "sharded_bf16_main_path", SHARDED_BF16_CONFIGS, 1,
+            lambda d, o: sharded_bf16_gw(d, o, bench=True),
+            lambda: on_card(gw_bench_host), gw_bf16_ref, launches, False,
+            "gw_bf16_main_path", args=GW_BENCH_ARGS, compare=f32_cells(
+                "sharded_gw_main_path:preheat_main_path{}{}"))
+        del gw_bf16_ref, gw_bench_host
+        sharded_stepping_paths(
+            "sharded_bf16_main_path", SHARDED_BF16_GW_COUPLED_CONFIGS, 1,
+            sharded_bf16_gw, lambda: background_state(GRID, torch.float32, 11,
+                                                      gw=True),
+            cgw_bf16_ref, launches, True, "coupled_gw_bf16_main_path",
+            compare=f32_cells(
+                "sharded_gw_main_path:preheat_coupled_main_path{}{}"),
+            single=True)
+        del cgw_bf16_ref
+        PATH_ROWS["coupled_gw_bf16_main_path"].pop("single_final")
 
     kernels = []
     sharded = sharded_kernel_names() + sharded_bf16_kernel_names()
@@ -3617,7 +3932,10 @@ def main():
                      for name in sharded + sharded_mg})
     main_tag.update({name: main_tag[name] + ":newton"
                      for name in sharded_mg})
+    full = set(PHASES) <= phases
     for name in names + list(new_kernels) + sharded + sharded_mg:
+        if not full and (name not in timing or name not in errs):
+            continue  # a phase this run did not select
         src, replaces = sites.get(name) or sites[name.split(":")[0]]
         t = timing[name]
         main_case = errs[name][main_tag[name]]
@@ -3632,8 +3950,10 @@ def main():
             "parity": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
-    never = [k["name"] for k in kernels if k["launches"] < 1]
+            "library_ms": t.get("library_ms")})
+    # a subset run holds to it the kernels its selected main paths launch
+    never = [k["name"] for k in kernels if k["launches"] < 1
+             and (full or k["name"] in launches)]
     if never:
         raise SystemExit(f"no main path launched {never}")
     # where a faster kernel would save the most on this run's main paths:
@@ -3651,4 +3971,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -28,14 +28,16 @@
 //   velocity is completed the same way (PkCompleted), so the pair equals the
 //   one that would have run with the completed state as input.
 //
-// K9 (GW = true) replaces FusedPreheatStepper._deferred_body: K6 on f (the
-// same two sum sets, of the scalar sector only), then per hij component the
-// tensor pair with the same deferral -- stage 1 as in K8 (S_ij1 from the f
-// window), stage 2 without its Hubble drag, kdhp = A2*kdh1 + dt*(lap h1 +
-// 16 pi S_ij2) with S_ij2 from the gradients of the recomposed f1 and
-// printed without hubble (pk_sij_nohub); the outputs hij2, dhp = dh1, khij2,
-// kdhp. With IN_DEFERRED the tensor inputs are hij, dhp, kdhp, khij, and dhp
-// is completed like dfp at the site and at every tap.
+// K9 (GW = true) replaces the Pallas body FusedPreheatStepper._deferred_body
+// (pystella_tpu/ops/fused.py:1891), run by StreamingStencil._build
+// (pystella_tpu/ops/pallas_stencil.py:709) and, sharded, _build_xhalo
+// (:789): K6 on f (the same two sum sets, of the scalar sector only), then
+// per hij component the tensor pair with the same deferral -- stage 1 as in
+// K8 (S_ij1 from grad f), stage 2 without its Hubble drag, kdhp = A2*kdh1 +
+// dt*(lap h1 + 16 pi S_ij2) with S_ij2 from grad f1 and printed without
+// hubble (pk_sij_nohub); the outputs hij2, dhp = dh1, khij2, kdhp. With
+// IN_DEFERRED the tensor inputs are hij, dhp, kdhp, khij, and dhp is
+// completed like dfp, at the site and wherever h1 is composed.
 //
 // With bfloat16 carries (C = __nv_bfloat16, the _bf16 entry points) the
 // carries kf, kdfdt (deferred input: kdfp, kf) and their tensor counterparts
@@ -47,13 +49,18 @@
 //
 // Bound: memory, as K3: four arrays read and four written per site (8 * F *
 // sites * sizeof(T) bytes for two stages; K9 8 * (F + 6)), plus one partial
-// per sum term and block. f, kf and the velocity arrays (and their tensor
-// counterparts) are also read at the 6h neighbour taps, through L1/L2.
-// Design as in fused_pair.cu: one thread per site, z fastest, f1 (h1)
-// recomposed at each of its 6h taps and never materialized, periodic wrap
-// by index arithmetic, 64-bit offsets, outputs to separate buffers,
-// -fmad=false, the tensor components one after another; the sums are
-// reduced in a fixed order in T (pk_block_sums, pk_finish_sums).
+// per sum term and 32 x 8 tile. K6 keeps the per-site design of
+// fused_pair.cu (one thread per site, f1 recomposed at each of its 6h taps,
+// its velocity completed there for a deferred input: PkCompleted). K9 runs
+// the x-march of pk_common.cuh (pk_march; see fused_pair.cu's K8): the
+// shared planes hold f, f1, h and h1, composed once an element (the
+// velocity completed first, in PkCompleted's arithmetic, for a deferred
+// input), and each plane's sums are reduced per 32 x 8 tile in
+// pk_block_sums' tree and written where the per-site kernel's block of that
+// plane wrote them (pk_march_sums), so the sums, like the lattice outputs,
+// are the per-site kernel's bit for bit. -fmad=false; outputs to separate
+// buffers; the tensor components one after another; the sums reduced in a
+// fixed order in T (pk_finish_sums).
 //
 // The sharded tier (the _xpad, _ypad, _xypad entry points of both variants
 // of K6 and K9) replaces StreamingStencil._build_xhalo
@@ -64,9 +71,10 @@
 // 1272 and :1847): normal input f, dfdt, kf (and hij, dhijdt, khij), read
 // through a window's geometry, kdfdt (kdhijdt) the full block; deferred
 // input all four (eight), every one a window, since the completed velocity
-// is recomposed at every tap (PkCompleted) from dfp and kdfp. The arithmetic
-// is the unpadded kernel's, and each block's partials go to the index it
-// has in the whole lattice's launch (pk_partial_index), so the padded
+// is composed at every tap from dfp and kdfp. The arithmetic is the
+// unpadded kernel's, and each block's partials (K9: each plane's tiles') go
+// to the index they have in the whole lattice's launch (pk_partial_index,
+// pk_march_sums), so the padded
 // launches of every shard followed by one second launch equal the unpadded
 // kernel, sums included, bit for bit. With bfloat16 carries (_bf16_xpad,
 // ...) the carry windows (kf; deferred input also kdfp; their tensor
@@ -83,96 +91,7 @@ struct PkCoupledParams {
   PkGradWeights<T> g;  // K9 only
 };
 
-#ifdef PK_NH
-// K9's tensor pair at one site, for every hij component; the incoming
-// tensor velocity is read as it is (normal input) or completed
-// (PkCompleted, deferred input). Carries are stored in C. The windows (PAD)
-// are read at wsite with component stride Nw and y extent Yw; the full
-// blocks at site with stride N.
 template <typename T, typename C, bool IN_DEFERRED, int PAD>
-__device__ __forceinline__ void pk_coupled_gw(
-    const PkArrays<T>& io, const T* __restrict__ f, const C* __restrict__ kf,
-    int x, int y, int z, int X, int Y, int Z, int64_t N, int64_t site,
-    int64_t Nw, int64_t wsite, int Yw, const PkCoupledParams<T>& p,
-    T c_def) {
-  // S_ij of both stages: from the f window, and from f1 recomposed at every
-  // tap (its velocity completed there in the deferred variant)
-  T dfdx[PK_F][3], sij1[PK_NH], sij2[PK_NH];
-#pragma unroll
-  for (int c = 0; c < PK_F; ++c)
-    pk_grad<PAD>(PkLoad<T>{f + c * Nw, Yw, Z}, x, y, z, X, Y, Z, p.g,
-                 dfdx[c]);
-  pk_sij<T>(dfdx, p.a1, p.hubble1, sij1);
-#pragma unroll
-  for (int c = 0; c < PK_F; ++c) {
-    if (IN_DEFERRED) {
-      const PkAxpyLoad<T, PkCompleted<T, C>, C> load{
-          f + c * Nw, kf + c * Nw,
-          {io.in[1] + c * Nw, pk_in_as<C>(io, 2) + c * Nw, p.B2p, c_def},
-          p.B1, p.A1, p.dt, Yw, Z};
-      pk_grad<PAD>(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
-    } else {
-      const PkAxpyLoad<T, PkAt<T>, C> load{f + c * Nw, kf + c * Nw,
-                                           {io.in[1] + c * Nw}, p.B1, p.A1,
-                                           p.dt, Yw, Z};
-      pk_grad<PAD>(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
-    }
-  }
-  pk_sij_nohub<T>(dfdx, p.a2, sij2);
-
-  // normal: in4..7 = hij, dhijdt, khij, kdhijdt; deferred: hij, dhp, kdhp,
-  // khij
-  const T* __restrict__ h = io.in[4];
-  const T* __restrict__ dh_in = io.in[5];
-  const C* __restrict__ kh = pk_in_as<C>(io, IN_DEFERRED ? 7 : 6);
-  const C* __restrict__ k_in = pk_in_as<C>(io, IN_DEFERRED ? 6 : 7);
-  C* __restrict__ kh_out = pk_out_as<C>(io, 6);
-  C* __restrict__ kdhp_out = pk_out_as<C>(io, 7);
-  const T two_hub1 = T(2) * p.hubble1;
-#pragma unroll 1
-  for (int c = 0; c < PK_NH; ++c) {
-    const int64_t i = c * N + site;
-    const int64_t wi = c * Nw + wsite;
-    const T h0 = h[wi];
-    T dh0, kdh0;
-    if (IN_DEFERRED) {
-      const T d = dh_in[wi];
-      kdh0 = PkCarry<T, C>::load(k_in[wi]) - c_def * d;
-      dh0 = d + p.B2p * kdh0;
-    } else {
-      dh0 = dh_in[wi];
-      kdh0 = PkCarry<T, C>::load(k_in[i]);
-    }
-    const T lap_h = pk_lap<PAD>(PkLoad<T>{h + c * Nw, Yw, Z}, h0, x, y, z, X,
-                                Y, Z, p.w);
-    T h1, dh1, kh1, kdh1;
-    pk_gw_stage(h0, dh0, PkCarry<T, C>::load(kh[wi]), kdh0, lap_h, sij1[c],
-                p.A1, p.B1, p.dt, two_hub1, h1, dh1, kh1, kdh1);
-    T lap_h1;
-    if (IN_DEFERRED) {
-      const PkAxpyLoad<T, PkCompleted<T, C>, C> load{
-          h + c * Nw, kh + c * Nw,
-          {dh_in + c * Nw, k_in + c * Nw, p.B2p, c_def}, p.B1, p.A1, p.dt,
-          Yw, Z};
-      lap_h1 = pk_lap<PAD>(load, h1, x, y, z, X, Y, Z, p.w);
-    } else {
-      const PkAxpyLoad<T, PkAt<T>, C> load{h + c * Nw, kh + c * Nw,
-                                           {dh_in + c * Nw}, p.B1, p.A1,
-                                           p.dt, Yw, Z};
-      lap_h1 = pk_lap<PAD>(load, h1, x, y, z, X, Y, Z, p.w);
-    }
-    // tensor stage 2 with the Hubble drag deferred
-    const T kh2 = p.A2 * kh1 + p.dt * dh1;
-    io.out[4][i] = h1 + p.B2 * kh2;
-    io.out[5][i] = dh1;
-    kh_out[i] = PkCarry<T, C>::store(kh2);
-    kdhp_out[i] = PkCarry<T, C>::store(
-        p.A2 * kdh1 + p.dt * (lap_h1 + T(PK_GW_COEF) * sij2[c]));
-  }
-}
-#endif
-
-template <typename T, typename C, bool IN_DEFERRED, bool GW, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
                        PkCoupledParams<T> p, T* __restrict__ partials,
@@ -274,15 +193,225 @@ pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
       terms[PK_NT + PK_F + c] = (-f1[c]) * lap[c];
     }
     terms[PK_NT + 2 * PK_F] = pk_v_nohub<T>(f1, p.a2);
-
-#ifdef PK_NH
-    if constexpr (GW)
-      pk_coupled_gw<T, C, IN_DEFERRED, PAD>(io, f, kf, x, y, z, X, Y, Z, N,
-                                            site, Nw, wsite, Yw, p, c_def);
-#endif
   }
   pk_block_sums<T, 2 * PK_NT, PAD>(terms, partials, nblocks, g);
 }
+
+#ifdef PK_NH
+// K9: the x-march (pk_march, pk_common.cuh). Per plane and site, K6's
+// arithmetic on f -- lap f and lap f1 from the shared f and f1 planes, the
+// two sum sets --, then S_ij of both stages from grad f and grad f1, then
+// per hij component the tensor pair with stage 2's drag deferred, lap h and
+// lap h1 from the shared h and h1 planes. The site's own velocity and
+// carries (in the split layout also f) are read from device memory with
+// the plane's loads (PkCoupledSite) and completed at the site for a
+// deferred input, as K6 does; in the joint layout f and hij come from the
+// centre plane. Each plane's sums go where the per-site kernel's block of
+// that plane put them (pk_march_sums): in the split layout each scalar
+// pass writes its fields' terms, the first also the potential's. So the
+// two launches give the per-site kernel's sums.
+template <typename T, int G>
+struct PkCoupledSite {
+  // normal input: dfdt, kf, kdfdt; deferred: dfp, kdfp, kf (widened)
+  T f[PK_F], a[PK_F], b[PK_F], c[PK_F];
+  T ha[G], hb[G], hc[G];  // the same for each hij held
+};
+
+template <typename T, typename C, bool IN_DEFERRED, int PAD>
+__global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y, 1)
+pk_preheat_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
+                               PkCoupledParams<T> p,
+                               T* __restrict__ partials, int64_t nblocks,
+                               PkGeom g) {
+  using Tl = PkMarchTile<T>;
+  const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
+  const int64_t Nw = PAD ? g.Nw : N;
+  const int Yw = PAD ? g.Ys : Y;
+  const T c_def = (T(2) * p.dt) * p.hubfix;
+  // normal: in0..3 = f, dfdt, kf, kdfdt; deferred: f, dfp, kdfp, kf
+  // (the last two carries, stored in C); in4..7 likewise for hij
+  const PkMarchInputs<T, C, IN_DEFERRED> in{
+      {io.in[0], io.in[4]}, {io.in[1], io.in[5]},
+      {pk_in_as<C>(io, IN_DEFERRED ? 3 : 2),
+       pk_in_as<C>(io, IN_DEFERRED ? 7 : 6)},
+      {IN_DEFERRED ? pk_in_as<C>(io, 2) : nullptr,
+       IN_DEFERRED ? pk_in_as<C>(io, 6) : nullptr},
+      p.B1, p.A1, p.dt, p.B2p, c_def};
+  const int z = blockIdx.x * Tl::TZ + threadIdx.x;
+  const int y = blockIdx.y * Tl::TY + threadIdx.y;
+  const bool valid = z < Z && y < Y;
+  // the shared arrays: f, f1 of each field a pass holds, then h, h1 of
+  // each component it holds
+  constexpr int F1 = Tl::GF, H0 = Tl::HS, H1 = Tl::HS + Tl::G;
+  const int ctr = (threadIdx.y + PK_H) * Tl::SZ + threadIdx.x + PK_H;
+  // split layout: grad f and grad f1 of every field at each plane of the
+  // run, parked by the scalar passes for the tensor passes' S_ij
+  T grads[Tl::JOINT ? 1 : Tl::LX][2][PK_F][3];
+  // unpadded, a plane's partials index the launch's own blocks
+  if (!PAD) g = PkGeom{0, 0, 0, 0, 0, (Y + PK_BLOCK_Y - 1) / PK_BLOCK_Y};
+  auto pre = [&](int x, const PkMarchPass<T> ps) {
+    PkCoupledSite<T, Tl::G> s{};
+    if (!valid) return s;
+    const int64_t site = ((int64_t)x * Y + y) * Z + z;
+    const int64_t wsite = PAD ? ((int64_t)x * Yw + y) * Z + z : site;
+    if (ps.scalar) {
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c) {
+        const int64_t wi = c * Nw + wsite;
+        if (!Tl::JOINT) s.f[c] = io.in[0][wi];
+        s.a[c] = io.in[1][wi];
+        s.b[c] = PkCarry<T, C>::load(pk_in_as<C>(io, 2)[wi]);
+        s.c[c] = PkCarry<T, C>::load(
+            pk_in_as<C>(io, 3)[IN_DEFERRED ? wi : c * N + site]);
+      }
+    }
+    if (ps.tensors()) {
+#pragma unroll
+      for (int j = 0; j < Tl::G; ++j) {
+        const int c = ps.c0 + j;
+        const int64_t wi = c * Nw + wsite;
+        s.ha[j] = io.in[5][wi];
+        s.hb[j] = PkCarry<T, C>::load(pk_in_as<C>(io, 6)[wi]);
+        s.hc[j] = PkCarry<T, C>::load(
+            pk_in_as<C>(io, 7)[IN_DEFERRED ? wi : c * N + site]);
+      }
+    }
+    return s;
+  };
+  pk_march<T, PAD>(in, X, Y, Z, Nw, Yw, pre, [&](
+      int x, int px, const PkMarchPass<T> ps, const PkMarchView<T>& v,
+      const PkCoupledSite<T, Tl::G>& s) {
+    // esums1 in terms[0, PK_NT), esums2 in terms[PK_NT, 2 PK_NT)
+    T terms[2 * PK_NT];
+#pragma unroll
+    for (int t = 0; t < 2 * PK_NT; ++t) terms[t] = T(0);
+    const int64_t site = ((int64_t)x * Y + y) * Z + z;
+    if (valid && ps.scalar) {
+      // stage 1 on the site (the arithmetic of fused_pair.cu, exact
+      // scalars); normal: a, b, c = dfdt, kf, kdfdt; deferred: dfp,
+      // kdfp, kf
+      T f0[PK_F], df0[PK_F], kdf0[PK_F], kf1[PK_F], f1[PK_F], kdf1[PK_F];
+      T df1[PK_F], lap[PK_F], dv[PK_F];
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c) {
+        f0[c] = Tl::JOINT ? v.sm[c * Tl::SITES + ctr] : s.f[c];
+        T kf;
+        if (IN_DEFERRED) {
+          const T d = s.a[c];
+          kdf0[c] = s.b[c] - c_def * d;
+          df0[c] = d + p.B2p * kdf0[c];
+          kf = s.c[c];
+        } else {
+          df0[c] = s.a[c];
+          kdf0[c] = s.c[c];
+          kf = s.b[c];
+        }
+        if (ps.held(c)) lap[c] = pk_march_lap(v, c - ps.k0, f0[c], p.w);
+        kf1[c] = p.A1 * kf + p.dt * df0[c];
+        f1[c] = f0[c] + p.B1 * kf1[c];
+      }
+      pk_dvdf<T>(f0, p.a1, p.hubble1, dv);
+      {
+        const T two_hub = T(2) * p.hubble1;
+        const T a1sq = p.a1 * p.a1;
+#pragma unroll
+        for (int c = 0; c < PK_F; ++c) {
+          if (!ps.held(c)) continue;
+          kdf1[c] = p.A1 * kdf0[c]
+                    + p.dt * ((lap[c] - two_hub * df0[c]) - a1sq * dv[c]);
+          df1[c] = df0[c] + p.B1 * kdf1[c];
+          terms[c] = df0[c] * df0[c];
+          terms[PK_F + c] = (-f0[c]) * lap[c];
+        }
+      }
+      terms[2 * PK_F] = pk_v<T>(f0, p.a1, p.hubble1);
+      // the stage-2 Laplacian, from the shared f1
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c)
+        if (ps.held(c)) lap[c] = pk_march_lap(v, F1 + c - ps.k0, f1[c], p.w);
+      // stage 2 on the site, its Hubble drag deferred
+      pk_dvdf_nohub<T>(f1, p.a2, dv);
+      const T a2sq = p.a2 * p.a2;
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c) {
+        if (!ps.held(c)) continue;
+        const int64_t i = c * N + site;
+        const T kf2 = p.A2 * kf1[c] + p.dt * df1[c];
+        io.out[0][i] = f1[c] + p.B2 * kf2;
+        io.out[1][i] = df1[c];
+        pk_out_as<C>(io, 2)[i] = PkCarry<T, C>::store(kf2);
+        pk_out_as<C>(io, 3)[i] = PkCarry<T, C>::store(
+            p.A2 * kdf1[c] + p.dt * (lap[c] - a2sq * dv[c]));
+        terms[PK_NT + c] = df1[c] * df1[c];
+        terms[PK_NT + PK_F + c] = (-f1[c]) * lap[c];
+      }
+      terms[PK_NT + 2 * PK_F] = pk_v_nohub<T>(f1, p.a2);
+    }
+    if (valid) {
+      // S_ij of both stages: from grad f and grad f1
+      T sij1[PK_NH], sij2[PK_NH];
+      if constexpr (Tl::JOINT) {
+        T dfdx[PK_F][3];
+#pragma unroll
+        for (int c = 0; c < PK_F; ++c) pk_march_grad(v, c, p.g, dfdx[c]);
+        pk_sij<T>(dfdx, p.a1, p.hubble1, sij1);
+#pragma unroll
+        for (int c = 0; c < PK_F; ++c)
+          pk_march_grad(v, F1 + c, p.g, dfdx[c]);
+        pk_sij_nohub<T>(dfdx, p.a2, sij2);
+      } else if (ps.scalar) {
+#pragma unroll
+        for (int c = 0; c < PK_F; ++c) {
+          if (!ps.held(c)) continue;
+          pk_march_grad(v, c - ps.k0, p.g, grads[px][0][c]);
+          pk_march_grad(v, F1 + c - ps.k0, p.g, grads[px][1][c]);
+        }
+      } else {
+        pk_sij<T>(grads[px][0], p.a1, p.hubble1, sij1);
+        pk_sij_nohub<T>(grads[px][1], p.a2, sij2);
+      }
+
+      const T two_hub1 = T(2) * p.hubble1;
+#pragma unroll
+      for (int j = 0; j < Tl::G; ++j) {
+        if (!ps.tensors()) break;
+        const int c = ps.c0 + j;
+        const int64_t i = c * N + site;
+        const T h0 = v.sm[(H0 + j) * Tl::SITES + ctr];
+        // normal: ha, hb, hc = dhijdt, khij, kdhijdt; deferred: dhp,
+        // kdhp, khij
+        T dh0, kdh0, kh;
+        if (IN_DEFERRED) {
+          const T d = s.ha[j];
+          kdh0 = s.hb[j] - c_def * d;
+          dh0 = d + p.B2p * kdh0;
+          kh = s.hc[j];
+        } else {
+          dh0 = s.ha[j];
+          kdh0 = s.hc[j];
+          kh = s.hb[j];
+        }
+        const T lap_h = pk_march_lap(v, H0 + j, h0, p.w);
+        T h1, dh1, kh1, kdh1;
+        pk_gw_stage(h0, dh0, kh, kdh0, lap_h, sij1[c], p.A1, p.B1, p.dt,
+                    two_hub1, h1, dh1, kh1, kdh1);
+        const T lap_h1 = pk_march_lap(v, H1 + j, h1, p.w);
+        // tensor stage 2 with the Hubble drag deferred
+        const T kh2 = p.A2 * kh1 + p.dt * dh1;
+        io.out[4][i] = h1 + p.B2 * kh2;
+        io.out[5][i] = dh1;
+        pk_out_as<C>(io, 6)[i] = PkCarry<T, C>::store(kh2);
+        pk_out_as<C>(io, 7)[i] = PkCarry<T, C>::store(
+            p.A2 * kdh1 + p.dt * (lap_h1 + T(PK_GW_COEF) * sij2[c]));
+      }
+    }
+    // a scalar pass's terms: its fields', and the potential's in the first
+    if (ps.scalar)
+      pk_march_sums<T, 2 * PK_NT>(terms, partials, nblocks, g, x,
+                                  [&](int t) { return ps.sums(t); });
+  });
+}
+#endif
 
 // ins / outs: host arrays of 4 (scalar) or 8 (GW: then the tensor system's
 // four, in the same roles) device pointers. params: dt, a1, hubble1, A1, B1,
@@ -316,13 +445,24 @@ static int pk_launch_coupled(const void* const* ins, void* const* outs,
     n = 10;
   }
   p.w = pk_lap_weights<T>(params + n);
-  if (GW) p.g = pk_grad_weights<T>(params + n + PK_NLAPW);
   if (!PAD) nblocks = pk_num_blocks(X, Y, Z);
-  pk_coupled_pair_kernel<T, C, IN_DEFERRED, GW, PAD>
-      <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
-         (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X, Y,
-                                 Z, p, (T*)partials, nblocks, g);
-  const int rc = (int)cudaGetLastError();
+  int rc;
+#ifdef PK_NH
+  if constexpr (GW) {
+    p.g = pk_grad_weights<T>(params + n + PK_NLAPW);
+    rc = pk_march_launch<T>(
+        pk_preheat_coupled_pair_kernel<T, C, IN_DEFERRED, PAD>, X, Y, Z,
+        stream, pk_arrays<T>(ins, outs, 8), X, Y, Z, p, (T*)partials,
+        nblocks, g);
+  } else
+#endif
+  {
+    pk_coupled_pair_kernel<T, C, IN_DEFERRED, PAD>
+        <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
+           (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, 4), X, Y, Z, p,
+                                   (T*)partials, nblocks, g);
+    rc = (int)cudaGetLastError();
+  }
   if (PAD || rc != 0) return rc;
   return pk_finish_sums<T>(partials, sums, 2 * PK_NT, nblocks,
                            (cudaStream_t)stream);

@@ -13,23 +13,37 @@
 //
 // With bfloat16 carries (C = __nv_bfloat16, the _bf16 entry points) kf and
 // kdfdt (and khij, kdhijdt) are read widened to T -- at the site and, for
-// kf (khij), at every tap the f1 (h1) recomposition reads -- and only the
+// kf (khij), wherever the f1 (h1) composition reads them -- and only the
 // outputs kf2, kdf2 (kh2, kdh2) are rounded, after f2 and dfdt2 (h2, dh2)
-// have been formed from them: stage 1's carries and the recomposed f1 and h1
+// have been formed from them: stage 1's carries and the composed f1 and h1
 // stay unrounded, as in the JAX package's pair body under _quantize_carries.
 //
-// K8 (GW = true) replaces FusedPreheatStepper._pair_body: K3 on f, then per
-// hij component two tensor stages (pk_gw_stage), stage 1 with lap h from the
-// hij window and S_ij1 from the gradients of the f window, stage 2 with
-// lap h1 recomposed from the hij, khij and dhijdt taps and S_ij2 from the
-// gradients of the recomposed f1 -- so K8 equals two K7 launches.
+// K8 (GW = true) replaces the Pallas body FusedPreheatStepper._pair_body
+// (pystella_tpu/ops/fused.py:1771), run by the streaming builder
+// StreamingStencil._build (pystella_tpu/ops/pallas_stencil.py:709) and, on
+// a sharded lattice, its halo-input variant _build_xhalo (:789): K3 on f,
+// then per hij component two tensor stages (pk_gw_stage), stage 1 with lap h
+// and S_ij1 from grad f, stage 2 with lap h1 and S_ij2 from grad f1 -- so
+// K8 equals two K7 launches.
 //
-// Bound: memory. Four arrays are read and four written per site (8 * F *
-// sites * sizeof(T) bytes for two stages; K8 8 * (F + 6)); f, kf and dfdt
-// (and hij, khij, dhijdt) are also read at the 6h neighbour taps, through
-// L1/L2. Design as in fused_stage.cu: one thread per site, z fastest,
-// periodic wrap by index arithmetic, 64-bit offsets, outputs to separate
-// buffers, -fmad=false, the tensor components one after another.
+// Bound: memory. Four arrays are read and four written per site for two
+// stages: 8 * F * sites * sizeof(T) bytes (K8 8 * (F + 6); 10.3 ms at
+// 512^3 f32 on an H100's 3.35 TB/s). K3 keeps the per-site design of
+// fused_stage.cu: one thread per site, z fastest, f1 recomposed at each of
+// its 6h taps from the f, kf and dfdt taps (PkAxpyLoad), every tap read
+// through L1/L2, periodic wrap by index arithmetic. K8's taps are 16 arrays
+// (f, f1, h, h1): per site about 500 loads that way, against 64 element
+// reads and writes the bound counts, so K8 runs the x-march of
+// pk_common.cuh instead (pk_march): a block walks a 32 x 8 (z, y) tile
+// along x, holds a ring of 2h+1 planes and the haloed centre plane of every
+// tapped array in shared memory, and composes f1 and h1 once an element as
+// they are loaded, so device memory is read about once a launch (the y-z
+// halo, 1.69x at h = 2, mostly from L2) and lap and grad read shared
+// memory in lap_from_taps' order. A model whose arrays do not fit one
+// block's shared memory marches once per group of tensor components or,
+// wider still, per group of fields first (pk_common.cuh's split layout).
+// -fmad=false throughout; outputs to separate buffers; the tensor
+// components one after another.
 //
 // The sharded tier (the _xpad, _ypad, _xypad entry points of K3 and K8)
 // replaces StreamingStencil._build_xhalo (pystella_tpu/ops/pallas_stencil.py:
@@ -39,8 +53,9 @@
 // -- f, dfdt and kf, and for K8 also hij, dhijdt and khij: the JAX pairs'
 // windows (pystella_tpu/ops/fused.py:456, :1771) -- are padded along x
 // and/or y by the neighbours' rows and read unwrapped there, at the site and
-// by PkAxpyLoad at every tap of the Laplacians and gradients (PAD, PkGeom in
-// pk_common.cuh); kdfdt, kdhijdt and the outputs are the full block, the
+// at every tap of the Laplacians and gradients (PAD, PkGeom in
+// pk_common.cuh; K8 loads a padded window's planes and rows where the march
+// reaches them); kdfdt, kdhijdt and the outputs are the full block, the
 // region's rows from its first x row. The arithmetic is the unpadded
 // kernel's, so a padded launch equals it on the whole lattice bit for bit,
 // and an interior plus two shell launches equal a padded launch. With
@@ -56,7 +71,7 @@ struct PkPairParams {
   PkGradWeights<T> g;  // K8 only
 };
 
-template <typename T, typename C, bool GW, int PAD>
+template <typename T, typename C, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
                      PkPairParams<T> p, PkGeom g) {
@@ -130,59 +145,170 @@ pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
     kf_out[i] = PkCarry<T, C>::store(kf2);
     kdf_out[i] = PkCarry<T, C>::store(kdf2);
   }
+}
 
 #ifdef PK_NH
-  if constexpr (GW) {
-    // S_ij of both stages: from the f window, and from f1 recomposed at
-    // every tap
-    T dfdx[PK_F][3], sij1[PK_NH], sij2[PK_NH];
-#pragma unroll
-    for (int c = 0; c < PK_F; ++c)
-      pk_grad<PAD>(PkLoad<T>{f + c * Nw, Yw, Z}, x, y, z, X, Y, Z, p.g,
-                   dfdx[c]);
-    pk_sij<T>(dfdx, p.a1, p.hubble1, sij1);
-#pragma unroll
-    for (int c = 0; c < PK_F; ++c) {
-      const PkAxpyLoad<T, PkAt<T>, C> load{f + c * Nw, kf + c * Nw,
-                                           {dfdt + c * Nw}, p.B1, p.A1,
-                                           p.dt, Yw, Z};
-      pk_grad<PAD>(load, x, y, z, X, Y, Z, p.g, dfdx[c]);
-    }
-    pk_sij<T>(dfdx, p.a2, p.hubble2, sij2);
+// K8: the x-march (pk_march, pk_common.cuh). Per plane and site, K3's
+// arithmetic on f -- lap f and lap f1 from the shared f and f1 planes --,
+// then S_ij of both stages from grad f and grad f1, then per hij component
+// the two tensor stages (pk_gw_stage), lap h and lap h1 from the shared h
+// and h1 planes. The site's own dfdt, kf, kdfdt (and dhijdt, khij,
+// kdhijdt; in the split layout also f) are read from device memory with
+// the plane's loads (PkPairSite); in the joint layout f and hij come from
+// the centre plane, which holds exactly what the window holds there. In
+// the split layout a scalar pass evaluates dV/df of both stages from every
+// field's site values, and runs the rest of the stage for its own fields.
+template <typename T, int G>
+struct PkPairSite {
+  T f[PK_F], df[PK_F], kf[PK_F], kdf[PK_F];  // f, dfdt, kf, kdfdt (widened)
+  T dh[G], kh[G], kdh[G];  // dhijdt, khij, kdhijdt of each hij held
+};
 
-    const T* __restrict__ h = io.in[4];
-    const T* __restrict__ dh = io.in[5];
-    const C* __restrict__ kh = pk_in_as<C>(io, 6);
-    const C* __restrict__ kdh = pk_in_as<C>(io, 7);
-    C* __restrict__ kh_out = pk_out_as<C>(io, 6);
-    C* __restrict__ kdh_out = pk_out_as<C>(io, 7);
+template <typename T, typename C, int PAD>
+__global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y, 1)
+pk_preheat_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
+                       PkPairParams<T> p, PkGeom g) {
+  using Tl = PkMarchTile<T>;
+  const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
+  const int64_t Nw = PAD ? g.Nw : N;
+  const int Yw = PAD ? g.Ys : Y;
+  const PkMarchInputs<T, C, false> in{
+      {io.in[0], io.in[4]}, {io.in[1], io.in[5]},
+      {pk_in_as<C>(io, 2), pk_in_as<C>(io, 6)}, {nullptr, nullptr},
+      p.B1, p.A1, p.dt, T(0), T(0)};
+  const int z = blockIdx.x * Tl::TZ + threadIdx.x;
+  const int y = blockIdx.y * Tl::TY + threadIdx.y;
+  const bool valid = z < Z && y < Y;
+  // the shared arrays: f, f1 of each field a pass holds, then h, h1 of
+  // each component it holds
+  constexpr int F1 = Tl::GF, H0 = Tl::HS, H1 = Tl::HS + Tl::G;
+  const int ctr = (threadIdx.y + PK_H) * Tl::SZ + threadIdx.x + PK_H;
+  // split layout: grad f and grad f1 of every field at each plane of the
+  // run, parked by the scalar passes for the tensor passes' S_ij
+  T grads[Tl::JOINT ? 1 : Tl::LX][2][PK_F][3];
+  auto pre = [&](int x, const PkMarchPass<T> ps) {
+    PkPairSite<T, Tl::G> s{};
+    if (!valid) return s;
+    const int64_t site = ((int64_t)x * Y + y) * Z + z;
+    const int64_t wsite = PAD ? ((int64_t)x * Yw + y) * Z + z : site;
+    if (ps.scalar) {
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c) {
+        const int64_t wi = c * Nw + wsite;
+        if (!Tl::JOINT) s.f[c] = io.in[0][wi];
+        s.df[c] = io.in[1][wi];
+        s.kf[c] = PkCarry<T, C>::load(pk_in_as<C>(io, 2)[wi]);
+        s.kdf[c] = PkCarry<T, C>::load(pk_in_as<C>(io, 3)[c * N + site]);
+      }
+    }
+    if (ps.tensors()) {
+#pragma unroll
+      for (int j = 0; j < Tl::G; ++j) {
+        const int c = ps.c0 + j;
+        const int64_t wi = c * Nw + wsite;
+        s.dh[j] = io.in[5][wi];
+        s.kh[j] = PkCarry<T, C>::load(pk_in_as<C>(io, 6)[wi]);
+        s.kdh[j] = PkCarry<T, C>::load(pk_in_as<C>(io, 7)[c * N + site]);
+      }
+    }
+    return s;
+  };
+  pk_march<T, PAD>(in, X, Y, Z, Nw, Yw, pre, [&](
+      int x, int px, const PkMarchPass<T> ps, const PkMarchView<T>& v,
+      const PkPairSite<T, Tl::G>& s) {
+    if (!valid) return;
+    const int64_t site = ((int64_t)x * Y + y) * Z + z;
+    const T two_hub = T(2) * p.hubble2;
+    if (ps.scalar) {
+      // stage 1 on the site (the arithmetic of fused_stage.cu)
+      T f0[PK_F], df1[PK_F], kf1[PK_F], kdf1[PK_F], f1[PK_F], dv[PK_F];
+      T lap[PK_F];
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c) {
+        f0[c] = Tl::JOINT ? v.sm[c * Tl::SITES + ctr] : s.f[c];
+        if (ps.held(c)) lap[c] = pk_march_lap(v, c - ps.k0, f0[c], p.w);
+        kf1[c] = p.A1 * s.kf[c] + p.dt * s.df[c];
+        f1[c] = f0[c] + p.B1 * kf1[c];
+      }
+      pk_dvdf<T>(f0, p.a1, p.hubble1, dv);
+      {
+        const T two_hub1 = T(2) * p.hubble1;
+        const T a2 = p.a1 * p.a1;
+#pragma unroll
+        for (int c = 0; c < PK_F; ++c) {
+          if (!ps.held(c)) continue;
+          const T df0 = s.df[c];
+          kdf1[c] = p.A1 * s.kdf[c]
+                    + p.dt * ((lap[c] - two_hub1 * df0) - a2 * dv[c]);
+          df1[c] = df0 + p.B1 * kdf1[c];
+        }
+      }
+      // the stage-2 Laplacian, from the shared f1
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c)
+        if (ps.held(c)) lap[c] = pk_march_lap(v, F1 + c - ps.k0, f1[c], p.w);
+      // stage 2 on the site
+      pk_dvdf<T>(f1, p.a2, p.hubble2, dv);
+      const T a2 = p.a2 * p.a2;
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c) {
+        if (!ps.held(c)) continue;
+        const int64_t i = c * N + site;
+        const T kf2 = p.A2 * kf1[c] + p.dt * df1[c];
+        const T kdf2 = p.A2 * kdf1[c]
+                       + p.dt * ((lap[c] - two_hub * df1[c]) - a2 * dv[c]);
+        io.out[0][i] = f1[c] + p.B2 * kf2;
+        io.out[1][i] = df1[c] + p.B2 * kdf2;
+        pk_out_as<C>(io, 2)[i] = PkCarry<T, C>::store(kf2);
+        pk_out_as<C>(io, 3)[i] = PkCarry<T, C>::store(kdf2);
+      }
+    }
+
+    // S_ij of both stages: from grad f and grad f1
+    T sij1[PK_NH], sij2[PK_NH];
+    if constexpr (Tl::JOINT) {
+      T dfdx[PK_F][3];
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c) pk_march_grad(v, c, p.g, dfdx[c]);
+      pk_sij<T>(dfdx, p.a1, p.hubble1, sij1);
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c) pk_march_grad(v, F1 + c, p.g, dfdx[c]);
+      pk_sij<T>(dfdx, p.a2, p.hubble2, sij2);
+    } else if (ps.scalar) {
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c) {
+        if (!ps.held(c)) continue;
+        pk_march_grad(v, c - ps.k0, p.g, grads[px][0][c]);
+        pk_march_grad(v, F1 + c - ps.k0, p.g, grads[px][1][c]);
+      }
+    } else {
+      pk_sij<T>(grads[px][0], p.a1, p.hubble1, sij1);
+      pk_sij<T>(grads[px][1], p.a2, p.hubble2, sij2);
+    }
+
+    if (!ps.tensors()) return;
     const T two_hub1 = T(2) * p.hubble1;
-#pragma unroll 1
-    for (int c = 0; c < PK_NH; ++c) {
+#pragma unroll
+    for (int j = 0; j < Tl::G; ++j) {
+      const int c = ps.c0 + j;
       const int64_t i = c * N + site;
-      const int64_t wi = c * Nw + wsite;
-      const T h0 = h[wi];
-      const T lap_h = pk_lap<PAD>(PkLoad<T>{h + c * Nw, Yw, Z}, h0, x, y, z,
-                                  X, Y, Z, p.w);
+      const T h0 = v.sm[(H0 + j) * Tl::SITES + ctr];
+      const T lap_h = pk_march_lap(v, H0 + j, h0, p.w);
       T h1, dh1, kh1, kdh1;
-      pk_gw_stage(h0, dh[wi], PkCarry<T, C>::load(kh[wi]),
-                  PkCarry<T, C>::load(kdh[i]), lap_h, sij1[c], p.A1, p.B1,
-                  p.dt, two_hub1, h1, dh1, kh1, kdh1);
-      const PkAxpyLoad<T, PkAt<T>, C> load{h + c * Nw, kh + c * Nw,
-                                           {dh + c * Nw}, p.B1, p.A1, p.dt,
-                                           Yw, Z};
-      const T lap_h1 = pk_lap<PAD>(load, h1, x, y, z, X, Y, Z, p.w);
+      pk_gw_stage(h0, s.dh[j], s.kh[j], s.kdh[j], lap_h, sij1[c], p.A1,
+                  p.B1, p.dt, two_hub1, h1, dh1, kh1, kdh1);
+      const T lap_h1 = pk_march_lap(v, H1 + j, h1, p.w);
       T h2, dh2, kh2, kdh2;
       pk_gw_stage(h1, dh1, kh1, kdh1, lap_h1, sij2[c], p.A2, p.B2, p.dt,
                   two_hub, h2, dh2, kh2, kdh2);
       io.out[4][i] = h2;
       io.out[5][i] = dh2;
-      kh_out[i] = PkCarry<T, C>::store(kh2);
-      kdh_out[i] = PkCarry<T, C>::store(kdh2);
+      pk_out_as<C>(io, 6)[i] = PkCarry<T, C>::store(kh2);
+      pk_out_as<C>(io, 7)[i] = PkCarry<T, C>::store(kdh2);
     }
-  }
-#endif
+  });
 }
+#endif
 
 // ins / outs: host arrays of 4 (scalar) or 8 (GW: then hij, dhijdt, khij,
 // kdhijdt) device pointers. params: dt, a1, hubble1, A1, B1, a2, hubble2,
@@ -203,12 +329,21 @@ static int pk_launch_pair(const void* const* ins, void* const* outs, int X,
   p.A2 = T(params[7]);
   p.B2 = T(params[8]);
   p.w = pk_lap_weights<T>(params + 9);
-  if (GW) p.g = pk_grad_weights<T>(params + 9 + PK_NLAPW);
-  pk_fused_pair_kernel<T, C, GW, PAD>
-      <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
-         (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X,
-                                 Y, Z, p, g);
-  return (int)cudaGetLastError();
+#ifdef PK_NH
+  if constexpr (GW) {
+    p.g = pk_grad_weights<T>(params + 9 + PK_NLAPW);
+    return pk_march_launch<T>(pk_preheat_pair_kernel<T, C, PAD>, X, Y, Z,
+                              stream, pk_arrays<T>(ins, outs, 8), X, Y, Z,
+                              p, g);
+  } else
+#endif
+  {
+    pk_fused_pair_kernel<T, C, PAD>
+        <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
+           (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, 4), X, Y, Z, p,
+                                   g);
+    return (int)cudaGetLastError();
+  }
 }
 
 #define PK_PAIR_ARGS                                                        \

@@ -71,6 +71,10 @@ __device__ __forceinline__ int pk_wrap(int i, int n) {
 // is a compile-time bit set (0: the unsharded kernels, unchanged).
 #define PK_PAD_X 1
 #define PK_PAD_Y 2
+// A loader in box coordinates (the x-march's shared planes, below): no axis
+// wraps. Only pk_lap and pk_grad take this bit.
+#define PK_PAD_Z 4
+#define PK_BOX (PK_PAD_X | PK_PAD_Y | PK_PAD_Z)
 
 // A neighbour index i along an axis of extent n: wrapped, unless the axis is
 // padded. Unpadded, the call is pk_wrap's on the same expression, so the
@@ -207,12 +211,14 @@ struct PkAxpyLoad {
 
 // lap = w0 * centre, then for s = 1..H: the x pair, the y pair, the z pair,
 // each as acc + w * (tap(+s) + tap(-s)) -- lap_from_taps term by term.
-// PAD: the window's padded axes (PK_PAD_X, PK_PAD_Y), read unwrapped.
+// PAD: the window's padded axes (PK_PAD_X, PK_PAD_Y), read unwrapped;
+// PK_BOX: a loader in box coordinates, nothing wrapped.
 template <int PAD = 0, typename T, typename Load>
 __device__ __forceinline__ T pk_lap(const Load& load, T centre, int x, int y,
                                     int z, int X, int Y, int Z,
                                     const PkLapWeights<T>& w) {
   constexpr bool PX = PAD & PK_PAD_X, PY = PAD & PK_PAD_Y;
+  constexpr bool PZ = PAD & PK_PAD_Z;
   T acc = w.w0 * centre;
 #pragma unroll
   for (int s = 1; s <= PK_H; ++s) {
@@ -220,8 +226,8 @@ __device__ __forceinline__ T pk_lap(const Load& load, T centre, int x, int y,
                                + load(pk_tap<PX>(x - s, X), y, z));
     acc = acc + w.wy[s - 1] * (load(x, pk_tap<PY>(y + s, Y), z)
                                + load(x, pk_tap<PY>(y - s, Y), z));
-    acc = acc + w.wz[s - 1] * (load(x, y, pk_wrap(z + s, Z))
-                               + load(x, y, pk_wrap(z - s, Z)));
+    acc = acc + w.wz[s - 1] * (load(x, y, pk_tap<PZ>(z + s, Z))
+                               + load(x, y, pk_tap<PZ>(z - s, Z)));
   }
   return acc;
 }
@@ -241,6 +247,7 @@ __device__ __forceinline__ void pk_grad(const Load& load, int x, int y,
                                         const PkGradWeights<T>& w,
                                         T (&out)[3]) {
   constexpr bool PX = PAD & PK_PAD_X, PY = PAD & PK_PAD_Y;
+  constexpr bool PZ = PAD & PK_PAD_Z;
   T gx = T(0), gy = T(0), gz = T(0);
 #pragma unroll
   for (int s = 1; s <= PK_H; ++s) {
@@ -248,8 +255,8 @@ __device__ __forceinline__ void pk_grad(const Load& load, int x, int y,
                              - load(pk_tap<PX>(x - s, X), y, z));
     gy = gy + w.wy[s - 1] * (load(x, pk_tap<PY>(y + s, Y), z)
                              - load(x, pk_tap<PY>(y - s, Y), z));
-    gz = gz + w.wz[s - 1] * (load(x, y, pk_wrap(z + s, Z))
-                             - load(x, y, pk_wrap(z - s, Z)));
+    gz = gz + w.wz[s - 1] * (load(x, y, pk_tap<PZ>(z + s, Z))
+                             - load(x, y, pk_tap<PZ>(z - s, Z)));
   }
   out[0] = gx;
   out[1] = gy;
@@ -472,3 +479,382 @@ static int pk_finish_sums(void* partials, void* sums, int nterms,
     return pk_finish_sums<double>(partials, sums, nterms, nblocks,          \
                                   (cudaStream_t)stream);                    \
   }
+
+#ifdef PK_NH
+// ---------------------------------------------------------------------------
+// The x-march of the GW pair kernels (K8, K9): the streaming design of the
+// TPU builder StreamingStencil._build (pystella_tpu/ops/pallas_stencil.py:
+// 709; its x ring of planes, :719-742) carried to a thread block.
+//
+// A block of 32 (z) x 8 (y) threads owns one y-z tile and walks it along x
+// over a run of PK_MARCH_LX planes. Its dynamic shared memory holds, per
+// tapped array -- f and the stage-1 field f1 of a scalar component, h and
+// h1 of a tensor component --
+//  - a ring of 2h+1 planes of the tile itself (the +-x taps of a thread's
+//    own column; a thread reads only its own column of the ring);
+//  - the centre plane with its y-z halo (the y and z taps);
+// and the budget leaves room for K9's static per-warp partials of one
+// plane's sums (pk_march_sums).
+// Each step brings plane x+h into the ring (where x-h-1 was), copies plane
+// x from the ring into the centre plane and loads that plane's halo frame.
+// f1 = f + B1*(A1*kf + dt*dfdt) and h1 are composed as an element is
+// loaded, once, in PkAxpyLoad's expression (the velocity completed first,
+// as PkCompleted does, for a deferred input), so every tap reads the value
+// the per-site kernels recomposed at each tap. Lap and grad run pk_lap /
+// pk_grad over the shared planes in box coordinates (PK_BOX), so their
+// accumulation order stays lap_from_taps' and grad_from_taps'. Periodic
+// wrap, or a padded window's rows, is resolved where a plane, row or
+// column is loaded.
+//
+// A block marches its run once per pass, of one of two layouts:
+//  - joint, where every field fits beside a group of G tensor components:
+//    each pass holds f, f1 of every field and h, h1 of G components, G the
+//    first of PK_NH, 3, 2, 1 that divides PK_NH and fits; the scalar stage
+//    and the sums run in the first pass, S_ij from the shared planes in
+//    each;
+//  - split, otherwise: first the scalar passes, each holding GF fields
+//    (the most that fit; the last pass the rest), which run the scalar
+//    stage of their fields, emit their sum terms and park their gradients
+//    of both stages in a thread-local buffer of the run; then the tensor
+//    passes, each holding G components (G as above, alone), with S_ij from
+//    that buffer.
+// Every value is the joint march's, so both give the per-site kernels'
+// outputs bit for bit. ops/fused.py:march_tile mirrors the rule;
+// pk_preheat_march_tile reports the instantiated tile.
+// ---------------------------------------------------------------------------
+#ifndef PK_MARCH_LX
+#define PK_MARCH_LX 32
+#endif
+// the most dynamic shared memory a block may use on sm_90
+#define PK_MARCH_SMEM 232448
+
+template <typename T>
+struct PkMarchTile {
+  static constexpr int TZ = PK_BLOCK_Z, TY = PK_BLOCK_Y, LX = PK_MARCH_LX;
+  static constexpr int THREADS = TZ * TY;
+  static constexpr int SY = TY + 2 * PK_H, SZ = TZ + 2 * PK_H;
+  static constexpr int NS = 2 * PK_H + 1;           // ring slots
+  static constexpr int PLANE = TY * TZ;              // one ring slot
+  static constexpr int CENTRE = SY * SZ;             // the haloed plane
+  static constexpr int FRAME = CENTRE - PLANE;       // its halo
+  static constexpr int SITES = CENTRE + NS * PLANE;  // one array's share
+  static constexpr int NSUM = 2 * PK_NT * TY;        // K9's warp partials
+  // dynamic (the arrays) and static (the warp partials) shared memory fit
+  static constexpr bool fits(int arrays) {
+    return ((long long)arrays * SITES + NSUM) * (long long)sizeof(T)
+           <= PK_MARCH_SMEM;
+  }
+  // the tensor components a pass holds beside `arrays` scalar arrays
+  static constexpr int tensors(int arrays) {
+    const int cand[4] = {PK_NH, 3, 2, 1};
+    for (int k = 0; k < 4; ++k)
+      if (cand[k] <= PK_NH && PK_NH % cand[k] == 0
+          && fits(arrays + 2 * cand[k]))
+        return cand[k];
+    return 0;
+  }
+  // the most fields a scalar pass of the split layout holds
+  static constexpr int fields() {
+    int k = PK_F;
+    while (k > 0 && !fits(2 * k)) --k;
+    return k;
+  }
+  static constexpr bool JOINT = tensors(2 * PK_F) > 0;
+  static constexpr int G = JOINT ? tensors(2 * PK_F) : tensors(0);
+  static constexpr int GF = JOINT ? PK_F : fields();
+  static constexpr int HS = JOINT ? 2 * PK_F : 0;  // a pass's first h array
+  static constexpr int NA =                        // arrays in shared memory
+      JOINT ? 2 * PK_F + 2 * G : (GF > G ? 2 * GF : 2 * G);
+  static constexpr int NSP = JOINT ? 0 : (PK_F + GF - 1) / GF;
+  static constexpr int PASSES = NSP + PK_NH / G;
+  static constexpr int SMEM = NA * SITES * (int)sizeof(T);  // dynamic
+};
+
+// Pass p of a march: the fields [k0, k0 + nf) and the tensor components
+// [c0, c0 + ng) it holds; scalar: it runs the scalar stage (and the sums)
+// of its fields. The joint layout's answers are spelled out as constants,
+// and the kernels take a pass by value: where the compiler could not fold
+// them (or read them through a reference), K8 and K9 kept fewer of a
+// plane's loads in flight and ran slower.
+template <typename T>
+struct PkMarchPass {
+  using Tl = PkMarchTile<T>;
+  int p, k0, nf, c0, ng;
+  bool scalar;
+  __device__ __forceinline__ explicit PkMarchPass(int p_) : p(p_) {
+    c0 = Tl::G == PK_NH ? 0 : (p - Tl::NSP) * Tl::G;
+    k0 = Tl::JOINT ? 0 : p * Tl::GF;
+    nf = Tl::JOINT ? PK_F : (p < Tl::NSP ? min(Tl::GF, PK_F - k0) : 0);
+    ng = Tl::JOINT || p >= Tl::NSP ? Tl::G : 0;
+    scalar = Tl::JOINT ? p == 0 : p < Tl::NSP;
+  }
+  // field c is one the pass holds
+  __device__ __forceinline__ bool held(int c) const {
+    return Tl::JOINT || (c >= k0 && c < k0 + nf);
+  }
+  __device__ __forceinline__ bool tensors() const {
+    return Tl::JOINT || ng > 0;
+  }
+  // the pass writes sum term t of a scalar pass (PK_NT a set: dfdt^2 and
+  // -f lap f per field, then V): its fields' terms, V in the first pass
+  __device__ __forceinline__ bool sums(int t) const {
+    const int u = t % PK_NT;
+    return Tl::JOINT
+           || (u == 2 * PK_F ? p == 0 : held(u < PK_F ? u : u - PK_F));
+  }
+};
+
+// One tapped array around the thread's site, in box coordinates: x = PK_H
+// is the centre plane (any y, z of the haloed tile), another x the ring
+// plane x - PK_H away, at the thread's own (y, z).
+template <typename T>
+struct PkMarchLoad {
+  const T* centre;  // the array's haloed centre plane
+  const T* ring;    // its ring slot 0, at the thread's own site
+  int s0;           // the ring slot of box x = 0 (plane x - PK_H)
+  __device__ __forceinline__ T operator()(int x, int y, int z) const {
+    using Tl = PkMarchTile<T>;
+    if (x == PK_H) return centre[y * Tl::SZ + z];
+    int s = s0 + x;
+    if (s >= Tl::NS) s -= Tl::NS;
+    return ring[s * Tl::PLANE];
+  }
+};
+
+// The raw window arrays the march composes from, per system (0: scalar,
+// 1: tensor): the field, the velocity, the field carry and, for a deferred
+// input, the velocity carry (kdfp, kdhp) that completes the velocity; and
+// the stage-1 scalars.
+template <typename T, typename C, bool IN_DEFERRED>
+struct PkMarchInputs {
+  const T* fld[2];
+  const T* vel[2];
+  const C* kf[2];
+  const C* kv[2];
+  T B1, A1, dt, B2p, c_def;
+  // the stage-1 field at window index i, where the field is fv:
+  // PkAxpyLoad's arithmetic, over PkCompleted's for a deferred input
+  __device__ __forceinline__ T composed(int sys, int64_t i, T fv) const {
+    T d = vel[sys][i];
+    if (IN_DEFERRED)
+      d = d + B2p * (PkCarry<T, C>::load(kv[sys][i]) - c_def * d);
+    return fv + B1 * (A1 * PkCarry<T, C>::load(kf[sys][i]) + dt * d);
+  }
+};
+
+// The view of a block's shared planes its per-site body reads: array a's
+// loader around the thread's site.
+template <typename T>
+struct PkMarchView {
+  const T* sm;
+  int own;  // the thread's site in a ring slot
+  int s0;
+  __device__ __forceinline__ PkMarchLoad<T> operator()(int a) const {
+    using Tl = PkMarchTile<T>;
+    const T* base = sm + a * Tl::SITES;
+    return PkMarchLoad<T>{base, base + Tl::CENTRE + own, s0};
+  }
+};
+
+// Lap and grad of array a at the thread's site from the shared planes.
+template <typename T>
+__device__ __forceinline__ T pk_march_lap(const PkMarchView<T>& v, int a,
+                                          T centre,
+                                          const PkLapWeights<T>& w) {
+  return pk_lap<PK_BOX>(v(a), centre, PK_H, (int)threadIdx.y + PK_H,
+                        (int)threadIdx.x + PK_H, 0, 0, 0, w);
+}
+
+template <typename T>
+__device__ __forceinline__ void pk_march_grad(const PkMarchView<T>& v, int a,
+                                              const PkGradWeights<T>& w,
+                                              T (&out)[3]) {
+  pk_grad<PK_BOX>(v(a), PK_H, (int)threadIdx.y + PK_H,
+                  (int)threadIdx.x + PK_H, 0, 0, 0, w, out);
+}
+
+// The march of one block (see above). Per pass, plane x of the block's run
+// (the i-th) and thread of the block (valid site or not): the plane's
+// loads -- the ring's new plane, the centre plane's halo frame and pre(x,
+// pass), the site's own values a body reads from device memory -- are
+// issued together, the composed values stored, and after a barrier
+// body(x, i, pass, view, pre's result) runs; a barrier ends the step.
+// Window inputs are read with component stride Nw and y extent Yw, padded
+// along PAD's axes (a plane of a padded x window lies in [-h, X + h)).
+template <typename T, int PAD, typename In, typename Pre, typename Body>
+__device__ __forceinline__ void pk_march(const In& in, int X, int Y, int Z,
+                                         int64_t Nw, int Yw, Pre&& pre,
+                                         Body&& body) {
+  using Tl = PkMarchTile<T>;
+  static_assert(Tl::G > 0 && Tl::GF > 0,
+                "no x-march tile fits a block's shared memory");
+  extern __shared__ __align__(16) unsigned char pk_march_smem[];
+  T* const sm = reinterpret_cast<T*>(pk_march_smem);
+  const int tz = threadIdx.x, ty = threadIdx.y;
+  const int own = ty * Tl::TZ + tz;
+  const int z0 = blockIdx.x * Tl::TZ, y0 = blockIdx.y * Tl::TY;
+  const int xs = blockIdx.z * Tl::LX;
+  const int nx = min(Tl::LX, X - xs);
+  // the centre plane's halo frame, element k: h rows above and below,
+  // then h columns on either side of each row
+  auto frame_at = [](int k, int& yy, int& zz) {
+    if (k < 2 * PK_H * Tl::SZ) {
+      yy = k / Tl::SZ;
+      zz = k % Tl::SZ;
+      if (yy >= PK_H) yy += Tl::TY;
+    } else {
+      const int r = k - 2 * PK_H * Tl::SZ;
+      yy = PK_H + r / (2 * PK_H);
+      zz = r % (2 * PK_H);
+      if (zz >= PK_H) zz += Tl::TZ;
+    }
+  };
+  auto put = [&](const T (&v)[Tl::NA], int pos) {
+#pragma unroll
+    for (int a = 0; a < Tl::NA; ++a) sm[a * Tl::SITES + pos] = v[a];
+  };
+
+  for (int pass = 0; pass < Tl::PASSES; ++pass) {
+    const PkMarchPass<T> ps(pass);
+    // the tapped arrays the pass holds at lattice point (x, y, z) of the
+    // region, composed into v. A tile hanging past a padded window's last
+    // row (y >= Y + h) feeds no valid site's taps, so it reads the last
+    // row instead: the loads stay unconditional
+    auto gather = [&](int x, int y, int z, T (&v)[Tl::NA]) {
+      if (!(PAD & PK_PAD_X)) x = pk_wrap(x, X);
+      y = (PAD & PK_PAD_Y) ? min(y, Y + PK_H - 1) : pk_wrap(y, Y);
+      const int64_t w = ((int64_t)x * Yw + y) * Z + pk_wrap(z, Z);
+#pragma unroll
+      for (int j = 0; j < Tl::GF; ++j) {
+        if (ps.held(ps.k0 + j)) {
+          const int64_t i = (ps.k0 + j) * Nw + w;
+          v[j] = in.fld[0][i];
+          v[Tl::GF + j] = in.composed(0, i, v[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < Tl::G; ++j) {
+        if (ps.tensors()) {
+          const int64_t i = (ps.c0 + j) * Nw + w;
+          v[Tl::HS + j] = in.fld[1][i];
+          v[Tl::HS + Tl::G + j] = in.composed(1, i, v[Tl::HS + j]);
+        }
+      }
+    };
+    // the ring: planes xs - h .. xs + h - 1 in slots 0 .. 2h - 1
+    for (int q = 0; q < 2 * PK_H; ++q) {
+      T v[Tl::NA];
+      gather(xs - PK_H + q, y0 + ty, z0 + tz, v);
+      put(v, Tl::CENTRE + q * Tl::PLANE + own);
+    }
+    for (int i = 0; i < nx; ++i) {
+      const int x = xs + i;
+      // plane x + h for the ring, the first frame element of this thread,
+      // the site's own values: all loads in flight together
+      T ring[Tl::NA], edge[Tl::NA];
+      gather(x + PK_H, y0 + ty, z0 + tz, ring);
+      int yy = 0, zz = 0;
+      const bool first = own < Tl::FRAME;
+      if (first) {
+        frame_at(own, yy, zz);
+        gather(x, y0 - PK_H + yy, z0 - PK_H + zz, edge);
+      }
+      const auto site = pre(x, ps);
+      put(ring, Tl::CENTRE + ((i + 2 * PK_H) % Tl::NS) * Tl::PLANE + own);
+      {
+        // plane x from the ring into the centre plane
+        const int src = Tl::CENTRE + ((i + PK_H) % Tl::NS) * Tl::PLANE + own;
+        const int dst = (ty + PK_H) * Tl::SZ + tz + PK_H;
+#pragma unroll
+        for (int a = 0; a < Tl::NA; ++a)
+          sm[a * Tl::SITES + dst] = sm[a * Tl::SITES + src];
+      }
+      if (first) put(edge, yy * Tl::SZ + zz);
+      for (int k = own + Tl::THREADS; k < Tl::FRAME; k += Tl::THREADS) {
+        frame_at(k, yy, zz);
+        gather(x, y0 - PK_H + yy, z0 - PK_H + zz, edge);
+        put(edge, yy * Tl::SZ + zz);
+      }
+      __syncthreads();
+      body(x, i, ps, PkMarchView<T>{sm, own, i % Tl::NS}, site);
+      __syncthreads();
+    }
+  }
+}
+
+// The sums of one plane of a march: the block's 32 x 8 tile reduced as
+// pk_block_sums reduces a block (each warp a shuffle-down tree over its
+// row, then the 8 rows pairwise), each term t that keep(t) selects
+// written at the index the tile has in the per-site launch over the whole
+// lattice:
+// plane x0 + x, y block yb0 + blockIdx.y, GYb y blocks (PkGeom; the launch
+// passes x0 = yb0 = 0 and GYb = ceil(Y / 8) unpadded). So the partials,
+// and the sums, are the per-site kernel's bit for bit. Every thread of the
+// block calls it.
+template <typename T, int NT, typename Keep>
+__device__ __forceinline__ void pk_march_sums(T (&v)[NT],
+                                              T* __restrict__ partials,
+                                              int64_t nblocks,
+                                              const PkGeom& g, int x,
+                                              Keep&& keep) {
+  static_assert(NT * PK_BLOCK_Y <= PkMarchTile<T>::NSUM,
+                "the warp partials' room in the march's budget");
+  __shared__ T warp_sums[NT][PK_BLOCK_Y];
+  const int lane = threadIdx.x, warp = threadIdx.y;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      v[t] = v[t] + __shfl_down_sync(0xffffffffu, v[t], o);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) warp_sums[t][warp] = v[t];
+  }
+  __syncthreads();
+  const int t = warp * PK_BLOCK_Z + lane;
+  if (t < NT && keep(t)) {
+    const T* w = warp_sums[t];
+    partials[t * nblocks
+             + ((int64_t)(g.x0 + x) * g.GYb + g.yb0 + blockIdx.y) * gridDim.x
+             + blockIdx.x] =
+        ((w[0] + w[1]) + (w[2] + w[3])) + ((w[4] + w[5]) + (w[6] + w[7]));
+  }
+}
+
+// Launch a march kernel over an (X, Y, Z) region: one block per y-z tile
+// and run of PK_MARCH_LX planes, the tile's shared memory allowed first.
+// Returns the launch's CUDA error.
+template <typename T, typename... P, typename... A>
+static int pk_march_launch(void (*kernel)(P...), int X, int Y, int Z,
+                           void* stream, A... args) {
+  using Tl = PkMarchTile<T>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
+  if (rc != cudaSuccess) return (int)rc;
+  const dim3 grid((Z + Tl::TZ - 1) / Tl::TZ, (Y + Tl::TY - 1) / Tl::TY,
+                  (X + Tl::LX - 1) / Tl::LX);
+  kernel<<<grid, dim3(Tl::TZ, Tl::TY, 1), Tl::SMEM,
+           (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int pk_march_report(int* out) {
+  using Tl = PkMarchTile<T>;
+  out[0] = Tl::LX;
+  out[1] = Tl::GF;
+  out[2] = Tl::G;
+  out[3] = Tl::JOINT;
+  out[4] = Tl::SMEM;
+  return 0;
+}
+
+// The march tile of the float (f64 = 0) or double (f64 = 1) kernels: out =
+// {x planes a run, fields a scalar pass holds, tensor components a pass
+// holds, 1 for the joint layout or 0 for the split one, dynamic shared
+// memory a block in bytes}. Returns 0.
+extern "C" int pk_preheat_march_tile(int f64, int* out) {
+  return f64 ? pk_march_report<double>(out) : pk_march_report<float>(out);
+}
+#endif

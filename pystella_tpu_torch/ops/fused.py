@@ -94,7 +94,8 @@ from pystella_tpu_torch.parallel import overlap as _overlap
 from pystella_tpu_torch.parallel.decomp import ShardedArray
 
 __all__ = ["FusedScalarStepper", "FusedPreheatStepper", "LAUNCHES",
-           "reset_launch_counts", "KERNELS", "SHARDED_KERNELS", "SUM_SETS"]
+           "reset_launch_counts", "KERNELS", "SHARDED_KERNELS", "SUM_SETS",
+           "march_tile"]
 
 #: kernel name -> (CUDA source in ops/csrc, the Pallas body it replaces)
 KERNELS = {
@@ -260,6 +261,46 @@ def chunk_tile(F, h, itemsize, depth):
         if nbytes <= _SMEM_MAX:
             return t, nbytes
     return None
+
+
+#: the x planes a block of the GW pair kernels K8, K9 marches (pk_common.cuh:
+#: PkMarchTile, PK_MARCH_LX); its tile is 32 z columns by 8 y rows
+MARCH_LX = 32
+
+
+def march_tile(F, h, itemsize, nh=6, lx=MARCH_LX):
+    """The x-march tile of the GW pair kernels for ``F`` fields, ``nh``
+    tensor components, stencil radius ``h`` and a working type of
+    ``itemsize`` bytes: ``((lx, gf, g, joint), bytes)`` -- the x planes a
+    block marches, the fields a scalar pass holds, the tensor components a
+    pass holds, the layout (1 joint, 0 split) and the dynamic shared memory
+    a block. The rule of pk_common.cuh: each tapped array (f and f1 of a
+    field, h and h1 of a component) keeps the tile's centre plane with its
+    y-z halo and a ring of 2h+1 planes of the tile, in dynamic shared
+    memory, and what is left must hold K9's static per-warp partials of
+    one plane's 2 (2F + 1) sum terms. Joint: every pass
+    holds all ``F`` fields and ``g`` components, ``g`` the first of ``nh``,
+    3, 2, 1 that divides ``nh`` and fits. Split, where no ``g`` fits beside
+    the fields: scalar passes of the most fields that fit (``gf``), then
+    tensor passes of the first ``g`` that fits alone."""
+    sites = (8 + 2 * h) * (32 + 2 * h) + (2 * h + 1) * 8 * 32
+    sums = 2 * (2 * F + 1) * 8
+
+    def fits(arrays):
+        return (arrays * sites + sums) * itemsize <= _SMEM_MAX
+
+    def tensors(arrays):
+        return next((g for g in (nh, 3, 2, 1)
+                     if g <= nh and nh % g == 0 and fits(arrays + 2 * g)), 0)
+
+    g = tensors(2 * F)
+    if g:
+        gf, joint, arrays = F, 1, 2 * F + 2 * g
+    else:
+        gf = max(k for k in range(1, F + 1) if fits(2 * k))
+        g, joint = tensors(0), 0
+        arrays = 2 * max(gf, g)
+    return (lx, gf, g, joint), arrays * sites * itemsize
 
 
 def reset_launch_counts():
@@ -446,6 +487,7 @@ class FusedScalarStepper(_step.Stepper):
         self._fin_carries = {}
         self._partials = {}  # the sum kernels' partials, per device
         self._libs = None
+        self._built = None  # {source: the loaded library}
         self._num_blocks = None
         if self.device.type == "cuda":
             self.build_kernels()
@@ -558,6 +600,7 @@ class FusedScalarStepper(_step.Stepper):
                     raise RuntimeError(
                         f"fused_chunk.cu instantiates the tile {got} for "
                         f"{dtype}; ops/fused.py:chunk_tile predicts {want}")
+        self._built = libs
         num_blocks = libs[KERNELS[self._KERNEL["stage"]][0]].pk_num_blocks
         num_blocks.argtypes = [ctypes.c_int] * 3
         num_blocks.restype = ctypes.c_longlong
@@ -1858,6 +1901,36 @@ class FusedPreheatStepper(FusedScalarStepper):
         coefs = _grad_coefs[self.h]
         self._weights += [coefs[s] * inv_dx[ax] for ax in range(3)
                           for s in range(1, self.h + 1)]
+
+    def build_kernels(self):
+        """:meth:`FusedScalarStepper.build_kernels`; then each GW pair
+        source's compile-time x-march tile must be the one
+        :func:`march_tile` predicts for both working types."""
+        super().build_kernels()
+        for src in self._march_sources():
+            for dtype in _SUFFIX:
+                got = self.march_kernel_tile(dtype, src)
+                want = march_tile(self.F, self.h, dtype.itemsize, self.n_hij)
+                if got != want:
+                    raise RuntimeError(
+                        f"{src} instantiates the x-march tile {got} for "
+                        f"{dtype}; ops/fused.py:march_tile predicts {want}")
+
+    def _march_sources(self):
+        """The built sources of the x-marching GW pairs (K8, K9)."""
+        return sorted({KERNELS[n][0] for n in self._kernel_bases()
+                       if n in ("preheat_pair", "preheat_coupled_pair")})
+
+    def march_kernel_tile(self, dtype, source="fused_pair.cu"):
+        """The x-march tile of the built GW pair kernels in ``source`` for
+        working type ``dtype``, as the library reports it: ``((lx, gf, g,
+        joint), bytes)`` (:func:`march_tile`)."""
+        fn = self._built[source].pk_preheat_march_tile
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 5)()
+        fn(int(dtype == torch.float64), out)
+        return tuple(out[:4]), out[4]
 
     @property
     def _hubble_free(self):

@@ -109,6 +109,13 @@ A, B = pt.LowStorageRK54._A, pt.LowStorageRK54._B
 #: itself is no scale
 SUM_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
+#: shapes at the edges of the GW pairs' x-march (a block's tile is 32 z by
+#: 8 y sites, its run 32 x planes; ops/fused.py:march_tile): X not a
+#: multiple of the run with Y and Z not multiples of the tile; X below the
+#: run and Y below the tile; and 16^3
+MARCH_GRIDS = [(70, 12, 40), (5, 9, 33), (16, 16, 16)]
+MARCH_IDS = ["70x12x40", "5x9x33", "16cubed"]
+
 
 def _params(kernel, dx):
     dt = 0.1 * dx
@@ -203,11 +210,29 @@ def test_sums_bitwise_repeatable(cuda, kernel, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-def test_kernel_identities(cuda, dtype):
+@pytest.mark.parametrize("grid", [(48, 40, 36)] + MARCH_GRIDS,
+                         ids=["48x40x36"] + MARCH_IDS)
+@pytest.mark.parametrize("gw", [False, True], ids=["scalar", "gw"])
+def test_kernel_identities(cuda, gw, grid, dtype):
     """K5's lattice outputs are bitwise K2's; the K6 pair + the finalize
-    equals the K3 pair with hubble2 = hubfix to rounding."""
-    st, ins, params = _energy_case(cuda, "coupled_pair", (48, 40, 36),
-                                   dtype, 2)
+    equals the K3 pair with hubble2 = hubfix to rounding. GW: the K8 pair
+    equals two K7 stages bit for bit (the x-march's shared f1 and h1 are
+    the values the first stage stores)."""
+    if gw:
+        st, ins, params = _preheat_case(cuda, "preheat_pair", grid, dtype, 2)
+        new = lambda: [torch.empty_like(t) for t in ins]  # noqa
+        dt = params[0]
+        pair = st.launch("preheat_pair", ins, new(),
+                         (dt, 1.0, 0.5, A[1], B[1], 1.01, 0.49, A[2], B[2]))
+        mid = st.launch("preheat_stage", ins, new(),
+                        (dt, 1.0, 0.5, A[1], B[1]))
+        two = st.launch("preheat_stage", mid, new(),
+                        (dt, 1.01, 0.49, A[2], B[2]))
+        torch.cuda.synchronize()
+        for a, b in zip(pair, two):
+            assert torch.equal(a, b)
+        return
+    st, ins, params = _energy_case(cuda, "coupled_pair", grid, dtype, 2)
     new = lambda: [torch.empty_like(ins[0]) for _ in range(4)]  # noqa
     k2 = st.launch("fused_stage", ins, new(), params[:5])
     k5 = st.launch("fused_stage_energy", ins, new(), params[:5])
@@ -422,6 +447,128 @@ def test_preheat_kernel_matches_plain(cuda, kernel, grid, dtype):
     for got, ref, scale in zip(outs[8:], plain[8:], scales):
         err = ((got.double() - ref.double()).abs() / scale).max().item()
         assert err <= SUM_TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", MARCH_GRIDS, ids=MARCH_IDS)
+@pytest.mark.parametrize("carry", ["f32", "f64", "f32-bf16", "f64-bf16"])
+@pytest.mark.parametrize("kernel", ["preheat_pair", "preheat_coupled_pair",
+                                    "preheat_coupled_pair_deferred"])
+def test_march_edges_match_plain(cuda, kernel, carry, grid):
+    """K8 and both K9 inputs at the x-march's edges (runs cut short, tiles
+    hanging over Y and Z), with carries in the working type and in bf16:
+    every lattice output at KERNEL_TOL of the plain version, the sums at
+    SUM_TOL of sum |term|, and a second launch bit-equal to the first."""
+    dtype, carry_dtype = CARRIES[carry]
+    if carry_dtype is None:
+        st, ins, params = _preheat_case(cuda, kernel, grid, dtype, 4)
+    else:
+        st, ins, params = _bf16_case(cuda, kernel, False, grid, dtype, 4)
+    n = len(ins)
+    plain = st.plain(kernel, ins, params)
+    one = st.launch(kernel, ins, st._new_set(cuda), params)
+    two = st.launch(kernel, ins, st._new_set(cuda), params)
+    torch.cuda.synchronize()
+    assert len(one) == len(plain) == n + tfused.SUM_SETS[kernel]
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    for o, p in zip(one[:n], plain[:n]):
+        assert _rel(o, p) <= KERNEL_TOL[dtype]
+    if tfused.SUM_SETS[kernel]:
+        wide = [t.to(dtype) for t in ins]
+        assert max(_sum_errs(st, kernel, wide, [t.to(dtype) for t in
+                                                one[:n]] + one[n:],
+                             plain, params)) <= SUM_TOL[dtype]
+
+
+def many_potential(n):
+    """A potential of ``n`` fields: each massive, the first coupled to the
+    others."""
+    def potential(f):
+        return (sum((0.5 + 0.1 * i) * f[i]**2 / 2 for i in range(n))
+                + 0.25 * f[0]**2 * sum(f[i]**2 for i in range(1, n)))
+    return potential
+
+
+#: a model wide enough for the x-march's split layout (ops/fused.py:
+#: march_tile): five fields at h = 4 leave no room for a tensor component
+#: beside every field's f and f1 in f64, which marches scalar passes of
+#: four fields and one, then tensor passes of three components; f32 stays
+#: joint, three components a pass. The grid's runs and tiles are cut short
+SPLIT_F, SPLIT_H, SPLIT_GRID = 5, 4, (37, 12, 40)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carry", ["f32", "f64", "f32-bf16", "f64-bf16"])
+@pytest.mark.parametrize("kernel", ["preheat_pair", "preheat_coupled_pair",
+                                    "preheat_coupled_pair_deferred"])
+def test_march_split_layout_matches_plain(cuda, kernel, carry):
+    """K8 and both K9 inputs of the five-field model at h = 4, carries in
+    the working type and in bf16: every lattice output at KERNEL_TOL of
+    the plain version, the sums at SUM_TOL of sum |term|; a second launch
+    and the x- and y-padded launch on windows padded by hand equal the
+    first bit for bit; K8 equals two K7 stages across a step boundary
+    bit for bit, and its interior and two x-shell launches its x-padded
+    one."""
+    dtype, carry_dtype = CARRIES[carry]
+    grid, h = SPLIT_GRID, SPLIT_H
+    sector = pt.ScalarSector(SPLIT_F, potential=many_potential(SPLIT_F))
+    st = pt.FusedPreheatStepper(sector, pt.TensorPerturbationSector(
+        [sector]), grid, 5.0 / grid[0], h, dtype=dtype,
+        carry_dtype=carry_dtype, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    amps = (1e-3, 1e-4, 1e-5, 1e-3, 1e-3, 1e-4, 1e-5, 1e-4)
+    ins = [(a * torch.randn((c,) + grid, generator=g, device=cuda,
+                            dtype=dtype)).to(d)
+           for a, c, d in zip(amps, st._comps, st._in_dtypes(False))]
+    params = _gw_params(kernel, 5.0 / grid[0])
+    n = len(ins)
+    plain = st.plain(kernel, ins, params)
+    one = st.launch(kernel, ins, st._new_set(cuda), params)
+    two = st.launch(kernel, ins, st._new_set(cuda), params)
+    wins = tfused._WINDOWS[kernel]
+    padded = st.launch_block(
+        kernel, "xypad", [_pad_periodic(t, h, h) if j in wins else t
+                          for j, t in enumerate(ins)],
+        st._new_set(cuda), params)
+    torch.cuda.synchronize()
+    (_, gf, g_, joint), _ = st.march_kernel_tile(
+        dtype, tfused.KERNELS[kernel][0])
+    assert (joint, gf, g_) == ((1, 5, 3) if dtype == torch.float32
+                               else (0, 4, 3))
+    assert len(one) == len(plain) == n + tfused.SUM_SETS[kernel]
+    for a, b, c in zip(one, two, padded):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    for o, p in zip(one[:n], plain[:n]):
+        assert _rel(o, p) <= KERNEL_TOL[dtype]
+    if tfused.SUM_SETS[kernel]:
+        wide = [t.to(dtype) for t in ins]
+        assert max(_sum_errs(st, kernel, wide, [t.to(dtype) for t in
+                                                one[:n]] + one[n:],
+                             plain, params)) <= SUM_TOL[dtype]
+        return
+    dt = params[0]
+    pair = st.launch(kernel, ins, st._new_set(cuda),
+                     (dt, 1.0, 0.5, A[4], B[4], 1.01, 0.49, A[0], B[0]))
+    mid = st.launch("preheat_stage", ins, st._new_set(cuda),
+                    (dt, 1.0, 0.5, A[4], B[4]))
+    stages = st.launch("preheat_stage", mid, st._new_set(cuda),
+                       (dt, 1.01, 0.49, A[0], B[0]))
+    X = grid[0]
+    xpad = [_pad_periodic(t, h, 0) if j in wins else t
+            for j, t in enumerate(ins)]
+    ref = st.launch_block(kernel, "xpad", xpad, st._new_set(cuda), params)
+    outs = st._new_set(cuda)
+    st.launch_block(kernel, "interior", ins, outs, params, x0=h)
+    for x0 in (0, X - h):
+        st.launch_block(kernel, "shell", [
+            t.narrow(1, x0, 3 * h).contiguous() if j in wins else t
+            for j, t in enumerate(xpad)], outs, params, x0=x0)
+    torch.cuda.synchronize()
+    for a, b in zip(pair, stages):
+        assert torch.equal(a, b)
+    for o, r in zip(outs, ref):
+        assert torch.equal(o, r)
 
 
 @pytest.mark.cuda
@@ -887,14 +1034,16 @@ def test_bf16_kernel_matches_plain(cuda, kernel, fin, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", [(48, 40, 36)] + MARCH_GRIDS,
+                         ids=["48x40x36"] + MARCH_IDS)
 @pytest.mark.parametrize("gw", [False, True], ids=["scalar", "gw"])
-def test_bf16_kernel_identities(cuda, gw, dtype):
+def test_bf16_kernel_identities(cuda, gw, grid, dtype):
     """With bf16 carries on the card: the energy stage's lattice outputs
     are the stage's bit for bit (K5 == K2, K5' == K7), its sums bit-equal
     on a second launch; the pair across a step boundary (stages 4 and 0,
     A[0] == 0) equals two single stages bit for bit (K3, K8)."""
     energy = "preheat_stage_energy" if gw else "fused_stage_energy"
-    st, ins, params = _bf16_case(cuda, energy, False, (48, 40, 36), dtype, 2)
+    st, ins, params = _bf16_case(cuda, energy, False, grid, dtype, 2)
     kn = st._KERNEL
     one = st.launch(kn["stage_energy"], ins, st._new_set(cuda), params)
     two = st.launch(kn["stage_energy"], ins, st._new_set(cuda), params)
@@ -1234,8 +1383,9 @@ def _sum_errs(st, kernel, ins, outs, plain, params):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("grid", [(16, 16, 16), (48, 40, 36)],
-                         ids=["16cubed", "48x40x36"])
+@pytest.mark.parametrize("grid", [(16, 16, 16), (48, 40, 36)]
+                         + MARCH_GRIDS[:2],
+                         ids=["16cubed", "48x40x36"] + MARCH_IDS[:2])
 @pytest.mark.parametrize("kind", ["xpad", "ypad", "xypad"])
 @pytest.mark.parametrize("kernel", NEW_SHARDED)
 def test_new_padded_kernel_matches_plain_and_unpadded(cuda, kernel, kind,
@@ -1273,8 +1423,9 @@ def test_new_padded_kernel_matches_plain_and_unpadded(cuda, kernel, kind,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("grid", [(16, 16, 16), (48, 40, 36)],
-                         ids=["16cubed", "48x40x36"])
+@pytest.mark.parametrize("grid", [(16, 16, 16), (48, 40, 36)]
+                         + MARCH_GRIDS[:2],
+                         ids=["16cubed", "48x40x36"] + MARCH_IDS[:2])
 @pytest.mark.parametrize("kernel", ["preheat_stage", "preheat_pair"])
 def test_gw_interior_and_shells_equal_padded_launch(cuda, kernel, grid,
                                                     dtype):
@@ -1310,6 +1461,8 @@ def test_gw_interior_and_shells_equal_padded_launch(cuda, kernel, grid,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(32, 48, 36), (70, 16, 40)],
+                         ids=["32x48x36", "70x16x40"])
 @pytest.mark.parametrize("mesh", [(2, 1, 1), (2, 2, 1), (1, 2, 1)],
                          ids=["211", "221", "121"])
 @pytest.mark.parametrize("kernel", ["fused_stage_energy", "coupled_pair",
@@ -1317,13 +1470,14 @@ def test_gw_interior_and_shells_equal_padded_launch(cuda, kernel, grid,
                                     "preheat_stage_energy",
                                     "preheat_coupled_pair",
                                     "preheat_coupled_pair_deferred"])
-def test_sharded_sums_equal_unsharded(cuda, kernel, mesh):
+def test_sharded_sums_equal_unsharded(cuda, kernel, mesh, grid):
     """A sum kernel on shards that share the card: every block's partials
     at their places in the whole lattice's launch and one second launch
-    give the unsharded launch's sums bit for bit (local Y = 24, a multiple
-    of the kernel block's 8 rows), and its lattice outputs; the stepper
-    says so (sum_order)."""
-    grid, dtype = (32, 48, 36), torch.float64
+    give the unsharded launch's sums bit for bit (local Y = 24 or 8, a
+    multiple of the kernel block's 8 rows; at 70x16x40 a block's 35 or 70
+    x rows are no multiple of the x-march's run), and its lattice outputs;
+    the stepper says so (sum_order)."""
+    dtype = torch.float64
     st, ins, params = _new_sharded_case(cuda, kernel, grid, dtype, 3)
     ref = st.launch(kernel, ins, [torch.empty_like(t) for t in ins], params)
     decomp = pt.DomainDecomposition(mesh)
@@ -1425,19 +1579,20 @@ BF16_SHARDED_IDS = [k + ("-fin" if fin else "") for k, fin in BF16_SHARDED]
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", [(48, 40, 36)] + MARCH_GRIDS[:2],
+                         ids=["48x40x36"] + MARCH_IDS[:2])
 @pytest.mark.parametrize("kind", ["xpad", "ypad", "xypad"])
 @pytest.mark.parametrize("kernel,fin", BF16_SHARDED, ids=BF16_SHARDED_IDS)
 def test_bf16_padded_kernel_matches_plain_and_unpadded(cuda, kernel, fin,
-                                                       kind, dtype):
+                                                       kind, grid, dtype):
     """A padded bf16 launch (``_bf16_<pad>``, ``_bf16_fin_<pad>``) on
     windows padded by hand with the lattice's own periodic rows (the carry
-    windows in bf16) at 48x40x36: its lattice outputs equal the unpadded
+    windows in bf16): its lattice outputs equal the unpadded
     bf16 kernel's on the whole lattice bit for bit and the plain version's
     at KERNEL_TOL (the bf16 carries compared as values); a sum kernel's own
     sums equal the unpadded launch's and a second launch's bit for bit and
     the plain version's at SUM_TOL; counted under
     ``<name>:bf16[_fin]:<kind>``."""
-    grid = (48, 40, 36)
     st, ins, params = _bf16_case(cuda, kernel, fin, grid, dtype, 1)
     wins = tfused._WINDOWS[kernel]
     bits = tderivs.PAD_KINDS[kind]
@@ -1470,14 +1625,16 @@ def test_bf16_padded_kernel_matches_plain_and_unpadded(cuda, kernel, fin,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", [(48, 40, 36)] + MARCH_GRIDS[:2],
+                         ids=["48x40x36"] + MARCH_IDS[:2])
 @pytest.mark.parametrize("kernel", ["fused_stage", "fused_pair",
                                     "preheat_stage", "preheat_pair"])
-def test_bf16_interior_and_shells_equal_padded_launch(cuda, kernel, dtype):
+def test_bf16_interior_and_shells_equal_padded_launch(cuda, kernel, grid,
+                                                      dtype):
     """K2, K3, K7 and K8 with bf16 carries: an interior launch on the raw
     block and two x-shell launches on ``concat(halo, 2h rows)`` (the kf
     and khij windows in bf16) write the output block of one x-padded bf16
     launch bit for bit, each counted under ``<name>:bf16:<kind>``."""
-    grid = (48, 40, 36)
     st, ins, params = _bf16_case(cuda, kernel, False, grid, dtype, 2)
     wins, X, h = tfused._WINDOWS[kernel], grid[0], H
 

@@ -1,0 +1,127 @@
+"""The x-march tile of the GW pair kernels (K8, K9) as the host mirrors it
+(``pystella_tpu_torch.ops.fused.march_tile``), and the smoke run's phase
+selection (``chip_smoke.py --phases``).
+
+The kernels themselves run only on the card (tests/test_torch_kernels.py);
+their shared memory per block is fixed at compile time by the rule the
+mirror repeats, and a build holds the library's report to the mirror.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+import pystella_tpu_torch as pt
+from pystella_tpu_torch.ops import fused as tfused
+
+#: the most dynamic shared memory a block may use on sm_90
+SMEM_MAX = 232448
+
+
+def many_potential(n):
+    """A potential of ``n`` fields: each massive, the first coupled to the
+    others."""
+    def potential(f):
+        return (sum((0.5 + 0.1 * i) * f[i]**2 / 2 for i in range(n))
+                + 0.25 * f[0]**2 * sum(f[i]**2 for i in range(1, n)))
+    return potential
+
+
+def _stepper(F, h, dtype, carry):
+    sector = pt.ScalarSector(F, potential=many_potential(F))
+    return pt.FusedPreheatStepper(sector, pt.TensorPerturbationSector(
+        [sector]), (8, 8, 8), 0.1, h, dtype=dtype, carry_dtype=carry,
+        device="cpu")
+
+
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+@pytest.mark.parametrize("carry", [None, torch.bfloat16], ids=["T", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("F", [1, 2, 5, 9, 12])
+def test_march_tile_fits_every_accepted_stepper(F, dtype, carry, h):
+    """Every field count, working dtype, carry dtype and stencil radius a
+    GW stepper accepts has a tile: its shared memory -- per tapped array
+    (f, f1 of a field, h, h1 of a component) the haloed centre plane and a
+    ring of 2h+1 planes of the tile, in dynamic shared memory, beside the
+    static per-warp partials of K9's 2 (2F + 1) sum terms -- fits a
+    block's 232,448 bytes. Joint where a
+    group of components fits beside every field (the components a pass
+    holds divide the six, and more of them would not fit); split
+    otherwise, with scalar passes of the most fields that fit and tensor
+    passes of the most components that fit alone. The carries live in
+    device memory only, so the tile is the carry dtype's to share."""
+    st = _stepper(F, h, dtype, carry)
+    (lx, gf, g, joint), nbytes = tfused.march_tile(
+        st.F, st.h, st.dtype.itemsize, st.n_hij)
+    assert lx == tfused.MARCH_LX and st.n_hij % g == 0
+    isz = st.dtype.itemsize
+    sites = (8 + 2 * h) * (32 + 2 * h) + (2 * h + 1) * 8 * 32
+    sums = 2 * (2 * st.F + 1) * 8
+    fits = lambda arrays: (arrays * sites + sums) * isz <= SMEM_MAX  # noqa
+    bigger = [n for n in (6, 3, 2, 1) if n > g]
+    if joint:
+        assert gf == st.F
+        assert nbytes == (2 * st.F + 2 * g) * sites * isz
+        assert not any(fits(2 * st.F + 2 * n) for n in bigger)
+    else:
+        assert not fits(2 * st.F + 2)
+        assert 1 <= gf <= st.F and fits(2 * gf)
+        assert gf == st.F or not fits(2 * gf + 2)
+        assert not any(fits(2 * n) for n in bigger)
+        assert nbytes == 2 * max(gf, g) * sites * isz
+    assert nbytes + sums * isz <= SMEM_MAX
+
+
+def test_march_tile_examples():
+    """The main path's tile (f32, h = 2, two fields: joint, all six
+    components a pass, 109,568 bytes), the f64 one at
+    h = 4 (joint, two components a pass), and twelve fields in f64 at
+    h = 4: split, four fields a scalar pass, three components a tensor
+    pass."""
+    assert tfused.march_tile(2, 2, 4) == ((32, 2, 6, 1), 109568)
+    assert tfused.march_tile(2, 4, 8) == ((32, 2, 2, 1), 188416)
+    assert tfused.march_tile(12, 4, 8) == ((32, 4, 3, 0), 188416)
+
+
+def _smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_phases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("argv,env,want", [
+    ([], None, "all"),
+    (["--phases", "gw"], None, {"gw"}),
+    (["--phases=fd,mg"], None, {"fd", "mg"}),
+    (["--phases", "sharded_bf16"], None, {"sharded_bf16", "scalar", "gw"}),
+    (["--phases", "sharded_mg"], None, {"sharded_mg", "mg"}),
+    (["--phases", "march_variants"], None, {"march_variants"}),
+    ([], "sharded_gw,fd", {"sharded_gw", "gw", "fd"}),
+], ids=["default", "one", "two", "deps", "mg-deps", "opt-in", "env"])
+def test_smoke_phase_selection(monkeypatch, argv, env, want):
+    """``--phases`` (or ``PYSTELLA_SMOKE_PHASES``) selects phase groups and
+    every group whose results they read; with neither, every group of
+    PHASES runs (the opt-in march_variants not among them)."""
+    smoke = _smoke()
+    if env is None:
+        monkeypatch.delenv("PYSTELLA_SMOKE_PHASES", raising=False)
+    else:
+        monkeypatch.setenv("PYSTELLA_SMOKE_PHASES", env)
+    got = smoke.selected_phases(argv)
+    assert got == (set(smoke.PHASES) if want == "all" else want)
+    assert "march_variants" not in set(smoke.PHASES)
+
+
+def test_smoke_unknown_phase_exits_nonzero(monkeypatch, capsys):
+    """An unknown phase name exits with status 2 before anything runs."""
+    smoke = _smoke()
+    monkeypatch.delenv("PYSTELLA_SMOKE_PHASES", raising=False)
+    with pytest.raises(SystemExit) as info:
+        smoke.selected_phases(["--phases", "gw,nonsense"])
+    assert info.value.code == 2
+    assert "nonsense" in capsys.readouterr().err
