@@ -2237,69 +2237,88 @@ def bf16_padded_ptxas(report):
 
 def march_ptxas(report):
     """The rows of a :func:`ptxas_report` that are instantiations of the
-    x-marching GW pairs (K8 ``pk_preheat_pair_kernel``, K9
+    x-marching pairs (K3 ``pk_fused_pair_kernel``, K6
+    ``pk_coupled_pair_kernel``, K8 ``pk_preheat_pair_kernel``, K9
     ``pk_preheat_coupled_pair_kernel``), with their registers and spill
     bytes."""
     rows = {}
     for usage in report.values():
         for name, u in usage.items():
-            m = re.search(r"(pk_preheat_(?:coupled_)?pair_kernel<[^<>]*>)",
-                          name)
+            m = re.search(r"(pk_(?:fused_|coupled_|preheat_|preheat_coupled_)"
+                          r"pair_kernel<[^<>]*>)", name)
             if m:
                 rows[m.group(1)] = u
     return rows
 
 
 #: the x-march variants march_variants builds and times: the x planes a
-#: block marches (PK_MARCH_LX); one of them is the sources' default
+#: block marches (PK_MARCH_LX for the GW pairs, PK_SCALAR_MARCH_LX for the
+#: scalar pairs); one of them is each family's default
 MARCH_VARIANTS = (16, 24, 32, 64)
-#: its kernels (each with f32 and with bf16 carries), and the rounds of
-#: launches each variant gets in turn
+#: the kernels of each family (each with f32 and with bf16 carries), and
+#: the rounds of launches each variant gets in turn
 MARCH_KERNELS = ("preheat_pair", "preheat_coupled_pair_deferred")
+SCALAR_MARCH_KERNELS = ("fused_pair", "coupled_pair_deferred")
 MARCH_ROUNDS, MARCH_REPS = 3, 5
 
 
-def march_defines(lx):
-    return f"\n#define PK_MARCH_LX {lx}\n"
+def march_defines(lx, nh):
+    """The define of run length ``lx`` for a march of ``nh`` tensor
+    components (0: the scalar pairs)."""
+    return f"\n#define {'PK_MARCH_LX' if nh else 'PK_SCALAR_MARCH_LX'} {lx}\n"
 
 
 def march_variants(phase, sector, gw_sector, dx):
-    """K8 and K9 deferred at 512^3 f32, with f32 and with bf16 carries,
-    through each x-march variant of MARCH_VARIANTS. Each variant is built
-    from the same sources into libraries of its own (the model header with
-    its PK_MARCH_LX define: one nvcc a source and variant, all at once),
-    its tile is held to ops/fused.py:march_tile, its registers and spills
-    come from ptxas, and its outputs must equal the default build's bit
-    for bit. Then the variants are timed in turns (MARCH_ROUNDS rounds of
-    MARCH_REPS launches each) on one set of arrays, so every variant runs
-    on the same placement."""
-    import ctypes
+    """The x-marching pairs at 512^3 f32, with f32 and with bf16 carries,
+    through each run length of MARCH_VARIANTS: K3 and K6 deferred, and K8
+    and K9 deferred. Each variant is built from the same sources into
+    libraries of its own (the model header with the variant's define: one
+    nvcc a source and variant, all of a family at once), its tile is held
+    to ops/fused.py:march_tile, its registers and spills come from ptxas,
+    and its outputs must equal the default build's bit for bit. Then the
+    variants are timed in turns (MARCH_ROUNDS rounds of MARCH_REPS
+    launches each) on one set of arrays, so every variant runs on the same
+    placement."""
     import pystella_tpu_torch as pt
+    scalar = lambda carry: pt.FusedScalarStepper(  # noqa: E731
+        sector, GRID, dx, HALO, dtype=torch.float32, carry_dtype=carry,
+        device="cuda")
+    gw = lambda carry: pt.FusedPreheatStepper(  # noqa: E731
+        sector, gw_sector, GRID, dx, HALO, dtype=torch.float32,
+        carry_dtype=carry, device="cuda")
+    for label, make, kernels in (("scalar", scalar, SCALAR_MARCH_KERNELS),
+                                 ("gw", gw, MARCH_KERNELS)):
+        march_family(f"{phase}_{label}", make, kernels)
+
+
+def march_family(phase, make, kernels):
+    """:func:`march_variants` for one family of march kernels."""
+    import ctypes
     from pystella_tpu_torch.ops import fused as tfused
     from pystella_tpu_torch.ops import stencil
-    srcs = sorted({tfused.KERNELS[n][0] for n in MARCH_KERNELS})
+    srcs = sorted({tfused.KERNELS[n][0] for n in kernels})
     sites = math.prod(GRID)
     builds = {}
     for carry in (None, torch.bfloat16):
-        st = pt.FusedPreheatStepper(sector, gw_sector, GRID, dx, HALO,
-                                    dtype=torch.float32, carry_dtype=carry,
-                                    device="cuda")
+        st = make(carry)
         header = st.kernel_header()
+        nh = st._march_nh
         if not builds:
             t0 = time.perf_counter()
             with ThreadPoolExecutor(len(MARCH_VARIANTS)) as pool:
                 libs = list(pool.map(lambda v: stencil.build_kernels(
-                    srcs, header + march_defines(v)), MARCH_VARIANTS))
+                    srcs, header + march_defines(v, nh)), MARCH_VARIANTS))
             build_s = time.perf_counter() - t0
             for v, lib in zip(MARCH_VARIANTS, libs):
-                query = lib[srcs[0]].pk_preheat_march_tile
+                query = getattr(lib[srcs[0]], "pk_preheat_march_tile" if nh
+                                else "pk_scalar_march_tile")
                 query.argtypes = [ctypes.c_int, ctypes.c_void_p]
                 out = (ctypes.c_int * 5)()
                 query(0, out)
                 got = (tuple(out[:4]), out[4])
-                want = tfused.march_tile(st.F, st.h, 4, st.n_hij, lx=v)
+                want = tfused.march_tile(st.F, st.h, 4, nh, lx=v)
                 usage = march_ptxas({src: demangled(stencil.ptxas_usage(
-                    stencil.build_log(src, header + march_defines(v))))
+                    stencil.build_log(src, header + march_defines(v, nh))))
                     for src in srcs})
                 builds[v] = {"lib": lib, "tile": got, "mirror": want,
                              "ptxas": usage}
@@ -2311,7 +2330,7 @@ def march_variants(phase, sector, gw_sector, dx):
                                 "smem_bytes_per_block": b["tile"][1],
                                 "ptxas": b["ptxas"]}
                                for v, b in builds.items()]})
-        for seed, name in enumerate(MARCH_KERNELS):
+        for seed, name in enumerate(kernels):
             key = (name, torch.float32, st.carry_dtype, False)
             default = st._libs[key]
             entry = f"pk_{name}_f32" + ("_bf16" if carry else "")
@@ -2321,9 +2340,9 @@ def march_variants(phase, sector, gw_sector, dx):
                 fn.argtypes = default.argtypes
                 fn.restype = ctypes.c_int
                 fns[v] = fn
-            ins = kernel_inputs(GRID, torch.float32, 90 + seed, gw=True,
-                                dtypes=st._in_dtypes(False))
-            params = kernel_params(name, dx)
+            ins = kernel_inputs(GRID, torch.float32, 90 + seed, F=st.F,
+                                gw=bool(nh), dtypes=st._in_dtypes(False))
+            params = kernel_params(name, st.dx[0])
             ref = [t.clone() for t in st.launch(name, ins, st._new_set(
                 ins[0].device), params)]
             outs = st._new_set(ins[0].device)
@@ -3244,7 +3263,8 @@ PHASE_DEPS = {"sharded_mg": ("mg",), "sharded": ("scalar",),
               "sharded_coupled": ("scalar",), "sharded_gw": ("gw",),
               "sharded_bf16": ("scalar", "gw")}
 #: phases a run takes only when selected: march_variants builds the x-march
-#: variants of K8 and K9 into libraries of their own and times them
+#: variants of K3 and K6 and of K8 and K9 into libraries of their own and
+#: times them
 OPT_IN_PHASES = ("march_variants",)
 PHASE_HELP = {
     "scalar": "the scalar system: kernels vs plain, identities, references, "
@@ -3261,8 +3281,9 @@ PHASE_HELP = {
     "sharded_coupled": "the sharded coupled driver and its trace",
     "sharded_gw": "the sharded GW multi_step and coupled driver",
     "sharded_bf16": "the sharded bf16-carry launches and paths",
-    "march_variants": "the x-march tile variants of K8 and K9 deferred, "
-                      "built apart and timed against each other"}
+    "march_variants": "the x-march tile variants of K3 and K6 deferred "
+                      "and of K8 and K9 deferred, built apart and timed "
+                      "against each other"}
 
 
 def selected_phases(argv):
@@ -3400,17 +3421,19 @@ def main(argv=None):
                                    t[1]} for d, t in tiles.items()}})
     emit({"phase": "build_sharded_bf16_ptxas",
           "kernels": bf16_padded_ptxas(ptxas)})
-    # the x-marching GW pairs: each source's tile and dynamic shared memory
-    # as the library reports it (build_kernels held it to the host
-    # mirror), and each instantiation's registers and spills; none of the
-    # float ones may spill
+    # the x-marching pairs (K3, K6; K8, K9): each source's tile and dynamic
+    # shared memory as the library reports it (build_kernels held it to
+    # the host mirror), and each instantiation's registers and spills;
+    # none of the float ones may spill
     march_rows = march_ptxas(ptxas)
     f32_spills = [n for n, u in march_rows.items() if "<float," in n
                   and (u.get("spill_stores") or u.get("spill_loads"))]
     emit({"phase": "build_march_ptxas",
-          "tiles": {src: {str(d): gw_st.march_kernel_tile(d, src)
-                          for d in (torch.float32, torch.float64)}
-                    for src in gw_st._march_sources()},
+          "tiles": {f"{src} ({label})": {
+              str(d): st.march_kernel_tile(d, src)
+              for d in (torch.float32, torch.float64)}
+              for label, st in (("scalar", chunk_st), ("gw", gw_st))
+              for src in st._march_sources()},
           "kernels": march_rows, "f32_spills": f32_spills})
     if f32_spills:
         raise SystemExit(f"float x-march instantiations spill: {f32_spills}")

@@ -18,15 +18,16 @@
 //   known;
 // - it emits two sets of energy sums: esums1 of the entry state (f0, df0,
 //   lap f0 at a1, hubble1) and esums2 of the stage-1 state (f1, df1, lap f1
-//   at a2, no hubble), lap f1 being the Laplacian recomposed from the taps.
+//   at a2, no hubble), lap f1 being the Laplacian of the composed f1.
 //
 // IN_DEFERRED selects the input:
 // - false ("normal", a chunk's first pair): f, dfdt, kf, kdfdt;
 // - true: the previous pair's f, dfp, kdfp, kf, with scalars hubfix and B2p.
 //   The incoming carry is kdf0 = kdfp - (2*dt*hubfix)*dfp, the velocity
-//   df0 = dfp + B2p*kdf0, and at every tap the stage-1 composition reads the
-//   velocity is completed the same way (PkCompleted), so the pair equals the
-//   one that would have run with the completed state as input.
+//   df0 = dfp + B2p*kdf0, and wherever the stage-1 composition reads the
+//   velocity it is completed the same way (_completed_taps' arithmetic), so
+//   the pair equals the one that would have run with the completed state as
+//   input.
 //
 // K9 (GW = true) replaces the Pallas body FusedPreheatStepper._deferred_body
 // (pystella_tpu/ops/fused.py:1891), run by StreamingStencil._build
@@ -49,16 +50,14 @@
 //
 // Bound: memory, as K3: four arrays read and four written per site (8 * F *
 // sites * sizeof(T) bytes for two stages; K9 8 * (F + 6)), plus one partial
-// per sum term and 32 x 8 tile. K6 keeps the per-site design of
-// fused_pair.cu (one thread per site, f1 recomposed at each of its 6h taps,
-// its velocity completed there for a deferred input: PkCompleted). K9 runs
-// the x-march of pk_common.cuh (pk_march; see fused_pair.cu's K8): the
-// shared planes hold f, f1, h and h1, composed once an element (the
-// velocity completed first, in PkCompleted's arithmetic, for a deferred
-// input), and each plane's sums are reduced per 32 x 8 tile in
-// pk_block_sums' tree and written where the per-site kernel's block of that
-// plane wrote them (pk_march_sums), so the sums, like the lattice outputs,
-// are the per-site kernel's bit for bit. -fmad=false; outputs to separate
+// per sum term and 32 x 8 tile. K6 and K9 run the x-march of pk_common.cuh
+// (pk_march; see fused_pair.cu's K3 and K8): the shared planes hold f and
+// f1 (K9 also h and h1), composed once an element (the velocity completed
+// first for a deferred input: PkMarchInputs::composed), and each
+// plane's sums are reduced per 32 x 8 tile in pk_block_sums' tree and
+// written where a per-site launch's block of that plane wrote them
+// (pk_march_sums), so the sums, like the lattice outputs, are those of the
+// per-site arithmetic bit for bit. -fmad=false; outputs to separate
 // buffers; the tensor components one after another; the sums reduced in a
 // fixed order in T (pk_finish_sums).
 //
@@ -72,14 +71,13 @@
 // through a window's geometry, kdfdt (kdhijdt) the full block; deferred
 // input all four (eight), every one a window, since the completed velocity
 // is composed at every tap from dfp and kdfp. The arithmetic is the
-// unpadded kernel's, and each block's partials (K9: each plane's tiles') go
-// to the index they have in the whole lattice's launch (pk_partial_index,
-// pk_march_sums), so the padded
-// launches of every shard followed by one second launch equal the unpadded
-// kernel, sums included, bit for bit. With bfloat16 carries (_bf16_xpad,
-// ...) the carry windows (kf; deferred input also kdfp; their tensor
-// counterparts) are padded in bfloat16 and read as C with the window's
-// geometry, counted in elements of C.
+// unpadded kernel's, and each plane's tiles' partials go to the index they
+// have in the whole lattice's per-site launch (pk_march_sums), so the
+// padded launches of every shard followed by one second launch equal the
+// unpadded kernel, sums included, bit for bit. With bfloat16 carries
+// (_bf16_xpad, ...) the carry windows (kf; deferred input also kdfp;
+// their tensor counterparts) are padded in bfloat16 and read as C with the
+// window's geometry, counted in elements of C.
 #include "pk_common.cuh"
 
 #ifdef PK_HUBBLE_FREE
@@ -91,125 +89,19 @@ struct PkCoupledParams {
   PkGradWeights<T> g;  // K9 only
 };
 
-template <typename T, typename C, bool IN_DEFERRED, int PAD>
-__global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
-pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
-                       PkCoupledParams<T> p, T* __restrict__ partials,
-                       int64_t nblocks, PkGeom g) {
-  const int z = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int x = blockIdx.z;
-  // normal: in0..3 = f, dfdt, kf, kdfdt; deferred: f, dfp, kdfp, kf (the
-  // last two carries, stored in C)
-  const T* __restrict__ f = io.in[0];
-  const T* __restrict__ in1 = io.in[1];
-  const C* __restrict__ in2 = pk_in_as<C>(io, 2);
-  const C* __restrict__ in3 = pk_in_as<C>(io, 3);
-  const C* __restrict__ kf = IN_DEFERRED ? in3 : in2;
-  T* __restrict__ f_out = io.out[0];
-  T* __restrict__ dfp_out = io.out[1];
-  C* __restrict__ kf_out = pk_out_as<C>(io, 2);
-  C* __restrict__ kdfp_out = pk_out_as<C>(io, 3);
-  // esums1 in terms[0, PK_NT), esums2 in terms[PK_NT, 2 PK_NT)
-  T terms[2 * PK_NT];
-#pragma unroll
-  for (int t = 0; t < 2 * PK_NT; ++t) terms[t] = T(0);
-
-  if (z < Z && y < Y) {
-    // the full blocks (kdfdt of the normal input, the outputs) and the
-    // windows, each with its own geometry
-    const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
-    const int64_t site = ((int64_t)x * Y + y) * Z + z;
-    const int64_t Nw = PAD ? g.Nw : N;
-    const int Yw = PAD ? g.Ys : Y;
-    const int64_t wsite = PAD ? ((int64_t)x * Yw + y) * Z + z : site;
-    const T c_def = (T(2) * p.dt) * p.hubfix;
-
-    // stage 1 on the site (the arithmetic of fused_pair.cu, exact scalars)
-    T f0[PK_F], df0[PK_F], kdf0[PK_F], kf1[PK_F], f1[PK_F], kdf1[PK_F];
-    T df1[PK_F], lap[PK_F], dv[PK_F];
-#pragma unroll
-    for (int c = 0; c < PK_F; ++c) {
-      const int64_t wi = c * Nw + wsite;
-      f0[c] = f[wi];
-      if (IN_DEFERRED) {
-        const T d = in1[wi];
-        kdf0[c] = PkCarry<T, C>::load(in2[wi]) - c_def * d;
-        df0[c] = d + p.B2p * kdf0[c];
-      } else {
-        df0[c] = in1[wi];
-        kdf0[c] = PkCarry<T, C>::load(in3[c * N + site]);
-      }
-      lap[c] = pk_lap<PAD>(PkLoad<T>{f + c * Nw, Yw, Z}, f0[c], x, y, z, X,
-                           Y, Z, p.w);
-      kf1[c] = p.A1 * PkCarry<T, C>::load(kf[wi]) + p.dt * df0[c];
-      f1[c] = f0[c] + p.B1 * kf1[c];
-    }
-    pk_dvdf<T>(f0, p.a1, p.hubble1, dv);
-    {
-      const T two_hub = T(2) * p.hubble1;
-      const T a1sq = p.a1 * p.a1;
-#pragma unroll
-      for (int c = 0; c < PK_F; ++c) {
-        kdf1[c] = p.A1 * kdf0[c]
-                  + p.dt * ((lap[c] - two_hub * df0[c]) - a1sq * dv[c]);
-        df1[c] = df0[c] + p.B1 * kdf1[c];
-        terms[c] = df0[c] * df0[c];
-        terms[PK_F + c] = (-f0[c]) * lap[c];
-      }
-    }
-    terms[2 * PK_F] = pk_v<T>(f0, p.a1, p.hubble1);
-
-    // the stage-2 Laplacian, from f1 recomposed at every tap
-#pragma unroll
-    for (int c = 0; c < PK_F; ++c) {
-      if (IN_DEFERRED) {
-        const PkAxpyLoad<T, PkCompleted<T, C>, C> load{
-            f + c * Nw, kf + c * Nw,
-            {in1 + c * Nw, in2 + c * Nw, p.B2p, c_def}, p.B1, p.A1, p.dt,
-            Yw, Z};
-        lap[c] = pk_lap<PAD>(load, f1[c], x, y, z, X, Y, Z, p.w);
-      } else {
-        const PkAxpyLoad<T, PkAt<T>, C> load{f + c * Nw, kf + c * Nw,
-                                             {in1 + c * Nw}, p.B1, p.A1,
-                                             p.dt, Yw, Z};
-        lap[c] = pk_lap<PAD>(load, f1[c], x, y, z, X, Y, Z, p.w);
-      }
-    }
-
-    // stage 2 on the site, its Hubble drag deferred
-    pk_dvdf_nohub<T>(f1, p.a2, dv);
-    const T a2sq = p.a2 * p.a2;
-#pragma unroll
-    for (int c = 0; c < PK_F; ++c) {
-      const int64_t i = c * N + site;
-      const T kf2 = p.A2 * kf1[c] + p.dt * df1[c];
-      f_out[i] = f1[c] + p.B2 * kf2;
-      dfp_out[i] = df1[c];
-      kf_out[i] = PkCarry<T, C>::store(kf2);
-      kdfp_out[i] = PkCarry<T, C>::store(
-          p.A2 * kdf1[c] + p.dt * (lap[c] - a2sq * dv[c]));
-      terms[PK_NT + c] = df1[c] * df1[c];
-      terms[PK_NT + PK_F + c] = (-f1[c]) * lap[c];
-    }
-    terms[PK_NT + 2 * PK_F] = pk_v_nohub<T>(f1, p.a2);
-  }
-  pk_block_sums<T, 2 * PK_NT, PAD>(terms, partials, nblocks, g);
-}
-
-#ifdef PK_NH
-// K9: the x-march (pk_march, pk_common.cuh). Per plane and site, K6's
-// arithmetic on f -- lap f and lap f1 from the shared f and f1 planes, the
-// two sum sets --, then S_ij of both stages from grad f and grad f1, then
-// per hij component the tensor pair with stage 2's drag deferred, lap h and
-// lap h1 from the shared h and h1 planes. The site's own velocity and
-// carries (in the split layout also f) are read from device memory with
-// the plane's loads (PkCoupledSite) and completed at the site for a
-// deferred input, as K6 does; in the joint layout f and hij come from the
-// centre plane. Each plane's sums go where the per-site kernel's block of
-// that plane put them (pk_march_sums): in the split layout each scalar
-// pass writes its fields' terms, the first also the potential's. So the
-// two launches give the per-site kernel's sums.
+// The x-march (pk_march, pk_common.cuh) of K6 and K9. Per plane and site,
+// K6's arithmetic on f (pk_coupled_scalar) -- lap f and lap f1 from the
+// shared f and f1 planes, the two sum sets --; for K9 then S_ij of both
+// stages from grad f and grad f1, then per hij component the tensor pair
+// with stage 2's drag deferred, lap h and lap h1 from the shared h and h1
+// planes. The site's own velocity and carries (in the split layout also
+// f) are read from device memory with the plane's loads (PkCoupledSite)
+// and completed at the site for a deferred input; in the joint layout f
+// and hij come from the centre plane. Each plane's sums go where a
+// per-site launch's block of that plane puts them (pk_march_sums): in the
+// split layout each scalar pass writes its fields' terms, the first also
+// the potential's. So the two launches give the sums of the per-site
+// arithmetic bit for bit.
 template <typename T, int G>
 struct PkCoupledSite {
   // normal input: dfdt, kf, kdfdt; deferred: dfp, kdfp, kf (widened)
@@ -217,13 +109,155 @@ struct PkCoupledSite {
   T ha[G], hb[G], hc[G];  // the same for each hij held
 };
 
+template <typename T>
+struct PkCoupledSite<T, 0> {
+  T f[PK_F], a[PK_F], b[PK_F], c[PK_F];
+};
+
+// A scalar pass's site values: window index wsite, block index site.
+template <typename C, bool IN_DEFERRED, bool JOINT, typename T, typename S>
+__device__ __forceinline__ void pk_coupled_site(const PkArrays<T>& io,
+                                                int64_t wsite, int64_t site,
+                                                int64_t Nw, int64_t N,
+                                                S& s) {
+#pragma unroll
+  for (int c = 0; c < PK_F; ++c) {
+    const int64_t wi = c * Nw + wsite;
+    if (!JOINT) s.f[c] = io.in[0][wi];
+    s.a[c] = io.in[1][wi];
+    s.b[c] = PkCarry<T, C>::load(pk_in_as<C>(io, 2)[wi]);
+    s.c[c] = PkCarry<T, C>::load(
+        pk_in_as<C>(io, 3)[IN_DEFERRED ? wi : c * N + site]);
+  }
+}
+
+// K6's pair at the thread's site (block index site; ctr its place in the
+// centre plane) in scalar pass ps, its sum terms into terms (esums1 in
+// [0, PK_NT), esums2 in [PK_NT, 2 PK_NT)): stage 1 with the arithmetic
+// of fused_pair.cu (exact scalars), stage 2 with lap f1 from the shared
+// f1 and its Hubble drag deferred.
+template <typename C, bool IN_DEFERRED, typename T, typename Pass,
+          typename S>
+__device__ __forceinline__ void pk_coupled_scalar(
+    const PkArrays<T>& io, int64_t site, int64_t N, const Pass ps,
+    const PkMarchView<T>& v, const S& s, const PkCoupledParams<T>& p,
+    T c_def, int ctr, T (&terms)[2 * PK_NT]) {
+  using Tl = typename Pass::Tl;
+  constexpr int F1 = Tl::GF;
+  // normal: a, b, c = dfdt, kf, kdfdt; deferred: dfp, kdfp, kf
+  T f0[PK_F], df0[PK_F], kdf0[PK_F], kf1[PK_F], f1[PK_F], kdf1[PK_F];
+  T df1[PK_F], lap[PK_F], dv[PK_F];
+#pragma unroll
+  for (int c = 0; c < PK_F; ++c) {
+    f0[c] = Tl::JOINT ? v.sm[c * Tl::SITES + ctr] : s.f[c];
+    T kf;
+    if (IN_DEFERRED) {
+      const T d = s.a[c];
+      kdf0[c] = s.b[c] - c_def * d;
+      df0[c] = d + p.B2p * kdf0[c];
+      kf = s.c[c];
+    } else {
+      df0[c] = s.a[c];
+      kdf0[c] = s.c[c];
+      kf = s.b[c];
+    }
+    if (ps.held(c)) lap[c] = pk_march_lap(v, c - ps.k0, f0[c], p.w);
+    kf1[c] = p.A1 * kf + p.dt * df0[c];
+    f1[c] = f0[c] + p.B1 * kf1[c];
+  }
+  pk_dvdf<T>(f0, p.a1, p.hubble1, dv);
+  {
+    const T two_hub = T(2) * p.hubble1;
+    const T a1sq = p.a1 * p.a1;
+#pragma unroll
+    for (int c = 0; c < PK_F; ++c) {
+      if (!ps.held(c)) continue;
+      kdf1[c] = p.A1 * kdf0[c]
+                + p.dt * ((lap[c] - two_hub * df0[c]) - a1sq * dv[c]);
+      df1[c] = df0[c] + p.B1 * kdf1[c];
+      terms[c] = df0[c] * df0[c];
+      terms[PK_F + c] = (-f0[c]) * lap[c];
+    }
+  }
+  terms[2 * PK_F] = pk_v<T>(f0, p.a1, p.hubble1);
+  // the stage-2 Laplacian, from the shared f1
+#pragma unroll
+  for (int c = 0; c < PK_F; ++c)
+    if (ps.held(c)) lap[c] = pk_march_lap(v, F1 + c - ps.k0, f1[c], p.w);
+  // stage 2 on the site, its Hubble drag deferred
+  pk_dvdf_nohub<T>(f1, p.a2, dv);
+  const T a2sq = p.a2 * p.a2;
+#pragma unroll
+  for (int c = 0; c < PK_F; ++c) {
+    if (!ps.held(c)) continue;
+    const int64_t i = c * N + site;
+    const T kf2 = p.A2 * kf1[c] + p.dt * df1[c];
+    io.out[0][i] = f1[c] + p.B2 * kf2;
+    io.out[1][i] = df1[c];
+    pk_out_as<C>(io, 2)[i] = PkCarry<T, C>::store(kf2);
+    pk_out_as<C>(io, 3)[i] = PkCarry<T, C>::store(
+        p.A2 * kdf1[c] + p.dt * (lap[c] - a2sq * dv[c]));
+    terms[PK_NT + c] = df1[c] * df1[c];
+    terms[PK_NT + PK_F + c] = (-f1[c]) * lap[c];
+  }
+  terms[PK_NT + 2 * PK_F] = pk_v_nohub<T>(f1, p.a2);
+}
+
+// K6: the scalar march (no tensor components).
+template <typename T, typename C, bool IN_DEFERRED, int PAD>
+__global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y, 1)
+pk_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
+                       PkCoupledParams<T> p, T* __restrict__ partials,
+                       int64_t nblocks, PkGeom g) {
+  using Tl = PkMarchTile<T, 0>;
+  const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
+  const int64_t Nw = PAD ? g.Nw : N;
+  const int Yw = PAD ? g.Ys : Y;
+  const T c_def = (T(2) * p.dt) * p.hubfix;
+  // normal: in0..3 = f, dfdt, kf, kdfdt; deferred: f, dfp, kdfp, kf (the
+  // last two carries, stored in C)
+  const PkMarchInputs<T, C, IN_DEFERRED> in{
+      {io.in[0], nullptr}, {io.in[1], nullptr},
+      {pk_in_as<C>(io, IN_DEFERRED ? 3 : 2), nullptr},
+      {IN_DEFERRED ? pk_in_as<C>(io, 2) : nullptr, nullptr},
+      p.B1, p.A1, p.dt, p.B2p, c_def};
+  const int z = blockIdx.x * Tl::TZ + threadIdx.x;
+  const int y = blockIdx.y * Tl::TY + threadIdx.y;
+  const bool valid = z < Z && y < Y;
+  const int ctr = (threadIdx.y + PK_H) * Tl::SZ + threadIdx.x + PK_H;
+  // unpadded, a plane's partials index the launch's own blocks
+  if (!PAD) g = PkGeom{0, 0, 0, 0, 0, (Y + PK_BLOCK_Y - 1) / PK_BLOCK_Y};
+  auto pre = [&](int x, const PkMarchPass<T, 0>) {
+    PkCoupledSite<T, 0> s{};
+    if (!valid) return s;
+    const int64_t site = ((int64_t)x * Y + y) * Z + z;
+    const int64_t wsite = PAD ? ((int64_t)x * Yw + y) * Z + z : site;
+    pk_coupled_site<C, IN_DEFERRED, Tl::JOINT>(io, wsite, site, Nw, N, s);
+    return s;
+  };
+  pk_march<T, 0, PAD>(in, X, Y, Z, Nw, Yw, pre, [&](
+      int x, int, const PkMarchPass<T, 0> ps, const PkMarchView<T>& v,
+      const PkCoupledSite<T, 0>& s) {
+    T terms[2 * PK_NT];
+#pragma unroll
+    for (int t = 0; t < 2 * PK_NT; ++t) terms[t] = T(0);
+    if (valid)
+      pk_coupled_scalar<C, IN_DEFERRED>(io, ((int64_t)x * Y + y) * Z + z,
+                                        N, ps, v, s, p, c_def, ctr, terms);
+    pk_march_sums<T, 2 * PK_NT>(terms, partials, nblocks, g, x,
+                                [&](int t) { return ps.sums(t); });
+  });
+}
+
+#ifdef PK_NH
+// K9: the march with the tensor components.
 template <typename T, typename C, bool IN_DEFERRED, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y, 1)
 pk_preheat_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
                                PkCoupledParams<T> p,
                                T* __restrict__ partials, int64_t nblocks,
                                PkGeom g) {
-  using Tl = PkMarchTile<T>;
+  using Tl = PkMarchTile<T, PK_NH>;
   const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
   const int64_t Nw = PAD ? g.Nw : N;
   const int Yw = PAD ? g.Ys : Y;
@@ -249,22 +283,13 @@ pk_preheat_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
   T grads[Tl::JOINT ? 1 : Tl::LX][2][PK_F][3];
   // unpadded, a plane's partials index the launch's own blocks
   if (!PAD) g = PkGeom{0, 0, 0, 0, 0, (Y + PK_BLOCK_Y - 1) / PK_BLOCK_Y};
-  auto pre = [&](int x, const PkMarchPass<T> ps) {
+  auto pre = [&](int x, const PkMarchPass<T, PK_NH> ps) {
     PkCoupledSite<T, Tl::G> s{};
     if (!valid) return s;
     const int64_t site = ((int64_t)x * Y + y) * Z + z;
     const int64_t wsite = PAD ? ((int64_t)x * Yw + y) * Z + z : site;
-    if (ps.scalar) {
-#pragma unroll
-      for (int c = 0; c < PK_F; ++c) {
-        const int64_t wi = c * Nw + wsite;
-        if (!Tl::JOINT) s.f[c] = io.in[0][wi];
-        s.a[c] = io.in[1][wi];
-        s.b[c] = PkCarry<T, C>::load(pk_in_as<C>(io, 2)[wi]);
-        s.c[c] = PkCarry<T, C>::load(
-            pk_in_as<C>(io, 3)[IN_DEFERRED ? wi : c * N + site]);
-      }
-    }
+    if (ps.scalar)
+      pk_coupled_site<C, IN_DEFERRED, Tl::JOINT>(io, wsite, site, Nw, N, s);
     if (ps.tensors()) {
 #pragma unroll
       for (int j = 0; j < Tl::G; ++j) {
@@ -278,75 +303,17 @@ pk_preheat_coupled_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
     }
     return s;
   };
-  pk_march<T, PAD>(in, X, Y, Z, Nw, Yw, pre, [&](
-      int x, int px, const PkMarchPass<T> ps, const PkMarchView<T>& v,
-      const PkCoupledSite<T, Tl::G>& s) {
+  pk_march<T, PK_NH, PAD>(in, X, Y, Z, Nw, Yw, pre, [&](
+      int x, int px, const PkMarchPass<T, PK_NH> ps,
+      const PkMarchView<T>& v, const PkCoupledSite<T, Tl::G>& s) {
     // esums1 in terms[0, PK_NT), esums2 in terms[PK_NT, 2 PK_NT)
     T terms[2 * PK_NT];
 #pragma unroll
     for (int t = 0; t < 2 * PK_NT; ++t) terms[t] = T(0);
     const int64_t site = ((int64_t)x * Y + y) * Z + z;
-    if (valid && ps.scalar) {
-      // stage 1 on the site (the arithmetic of fused_pair.cu, exact
-      // scalars); normal: a, b, c = dfdt, kf, kdfdt; deferred: dfp,
-      // kdfp, kf
-      T f0[PK_F], df0[PK_F], kdf0[PK_F], kf1[PK_F], f1[PK_F], kdf1[PK_F];
-      T df1[PK_F], lap[PK_F], dv[PK_F];
-#pragma unroll
-      for (int c = 0; c < PK_F; ++c) {
-        f0[c] = Tl::JOINT ? v.sm[c * Tl::SITES + ctr] : s.f[c];
-        T kf;
-        if (IN_DEFERRED) {
-          const T d = s.a[c];
-          kdf0[c] = s.b[c] - c_def * d;
-          df0[c] = d + p.B2p * kdf0[c];
-          kf = s.c[c];
-        } else {
-          df0[c] = s.a[c];
-          kdf0[c] = s.c[c];
-          kf = s.b[c];
-        }
-        if (ps.held(c)) lap[c] = pk_march_lap(v, c - ps.k0, f0[c], p.w);
-        kf1[c] = p.A1 * kf + p.dt * df0[c];
-        f1[c] = f0[c] + p.B1 * kf1[c];
-      }
-      pk_dvdf<T>(f0, p.a1, p.hubble1, dv);
-      {
-        const T two_hub = T(2) * p.hubble1;
-        const T a1sq = p.a1 * p.a1;
-#pragma unroll
-        for (int c = 0; c < PK_F; ++c) {
-          if (!ps.held(c)) continue;
-          kdf1[c] = p.A1 * kdf0[c]
-                    + p.dt * ((lap[c] - two_hub * df0[c]) - a1sq * dv[c]);
-          df1[c] = df0[c] + p.B1 * kdf1[c];
-          terms[c] = df0[c] * df0[c];
-          terms[PK_F + c] = (-f0[c]) * lap[c];
-        }
-      }
-      terms[2 * PK_F] = pk_v<T>(f0, p.a1, p.hubble1);
-      // the stage-2 Laplacian, from the shared f1
-#pragma unroll
-      for (int c = 0; c < PK_F; ++c)
-        if (ps.held(c)) lap[c] = pk_march_lap(v, F1 + c - ps.k0, f1[c], p.w);
-      // stage 2 on the site, its Hubble drag deferred
-      pk_dvdf_nohub<T>(f1, p.a2, dv);
-      const T a2sq = p.a2 * p.a2;
-#pragma unroll
-      for (int c = 0; c < PK_F; ++c) {
-        if (!ps.held(c)) continue;
-        const int64_t i = c * N + site;
-        const T kf2 = p.A2 * kf1[c] + p.dt * df1[c];
-        io.out[0][i] = f1[c] + p.B2 * kf2;
-        io.out[1][i] = df1[c];
-        pk_out_as<C>(io, 2)[i] = PkCarry<T, C>::store(kf2);
-        pk_out_as<C>(io, 3)[i] = PkCarry<T, C>::store(
-            p.A2 * kdf1[c] + p.dt * (lap[c] - a2sq * dv[c]));
-        terms[PK_NT + c] = df1[c] * df1[c];
-        terms[PK_NT + PK_F + c] = (-f1[c]) * lap[c];
-      }
-      terms[PK_NT + 2 * PK_F] = pk_v_nohub<T>(f1, p.a2);
-    }
+    if (valid && ps.scalar)
+      pk_coupled_scalar<C, IN_DEFERRED>(io, site, N, ps, v, s, p, c_def,
+                                        ctr, terms);
     if (valid) {
       // S_ij of both stages: from grad f and grad f1
       T sij1[PK_NH], sij2[PK_NH];
@@ -450,19 +417,15 @@ static int pk_launch_coupled(const void* const* ins, void* const* outs,
 #ifdef PK_NH
   if constexpr (GW) {
     p.g = pk_grad_weights<T>(params + n + PK_NLAPW);
-    rc = pk_march_launch<T>(
+    rc = pk_march_launch<T, PK_NH>(
         pk_preheat_coupled_pair_kernel<T, C, IN_DEFERRED, PAD>, X, Y, Z,
         stream, pk_arrays<T>(ins, outs, 8), X, Y, Z, p, (T*)partials,
         nblocks, g);
   } else
 #endif
-  {
-    pk_coupled_pair_kernel<T, C, IN_DEFERRED, PAD>
-        <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
-           (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, 4), X, Y, Z, p,
-                                   (T*)partials, nblocks, g);
-    rc = (int)cudaGetLastError();
-  }
+  rc = pk_march_launch<T, 0>(
+      pk_coupled_pair_kernel<T, C, IN_DEFERRED, PAD>, X, Y, Z, stream,
+      pk_arrays<T>(ins, outs, 4), X, Y, Z, p, (T*)partials, nblocks, g);
   if (PAD || rc != 0) return rc;
   return pk_finish_sums<T>(partials, sums, 2 * PK_NT, nblocks,
                            (cudaStream_t)stream);
@@ -506,6 +469,7 @@ static int pk_launch_coupled(const void* const* ins, void* const* outs,
 #define PK_BF16 __nv_bfloat16
 
 PK_FINISH_ENTRIES
+PK_SCALAR_MARCH_ENTRY
 
 PK_COUPLED_ENTRY(pk_coupled_pair_f32, float, float, false, false)
 PK_COUPLED_ENTRY(pk_coupled_pair_f64, double, double, false, false)

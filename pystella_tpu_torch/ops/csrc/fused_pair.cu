@@ -6,10 +6,10 @@
 // StreamingStencil / ResidentStencil (pystella_tpu/ops/pallas_stencil.py).
 // Stage 1 is K2's arithmetic on (f, dfdt, kf, kdfdt). Stage 2 needs the
 // Laplacian of the stage-1 field f1 = f + B1*(A1*kf + dt*dfdt); f1 is never
-// materialized: at each of its 6h taps it is recomposed from the f, kf and
-// dfdt taps with exactly that arithmetic (PkAxpyLoad), so the pair equals
-// two K2 launches operation for operation, and a stage pair costs one pass
-// over memory instead of two.
+// materialized in device memory: it is composed from the f, kf and dfdt
+// taps with exactly that arithmetic (PkMarchInputs::composed, the JAX
+// package's _axpy_taps), so the pair equals two K2 launches operation for
+// operation, and a stage pair costs one pass over memory instead of two.
 //
 // With bfloat16 carries (C = __nv_bfloat16, the _bf16 entry points) kf and
 // kdfdt (and khij, kdhijdt) are read widened to T -- at the site and, for
@@ -27,23 +27,27 @@
 // K8 equals two K7 launches.
 //
 // Bound: memory. Four arrays are read and four written per site for two
-// stages: 8 * F * sites * sizeof(T) bytes (K8 8 * (F + 6); 10.3 ms at
-// 512^3 f32 on an H100's 3.35 TB/s). K3 keeps the per-site design of
-// fused_stage.cu: one thread per site, z fastest, f1 recomposed at each of
-// its 6h taps from the f, kf and dfdt taps (PkAxpyLoad), every tap read
-// through L1/L2, periodic wrap by index arithmetic. K8's taps are 16 arrays
-// (f, f1, h, h1): per site about 500 loads that way, against 64 element
-// reads and writes the bound counts, so K8 runs the x-march of
-// pk_common.cuh instead (pk_march): a block walks a 32 x 8 (z, y) tile
-// along x, holds a ring of 2h+1 planes and the haloed centre plane of every
-// tapped array in shared memory, and composes f1 and h1 once an element as
-// they are loaded, so device memory is read about once a launch (the y-z
-// halo, 1.69x at h = 2, mostly from L2) and lap and grad read shared
-// memory in lap_from_taps' order. A model whose arrays do not fit one
-// block's shared memory marches once per group of tensor components or,
-// wider still, per group of fields first (pk_common.cuh's split layout).
-// -fmad=false throughout; outputs to separate buffers; the tensor
-// components one after another.
+// stages: 8 * F * sites * sizeof(T) bytes (K8 8 * (F + 6); 2.56 ms for K3,
+// 10.3 for K8 at 512^3 f32 on an H100's 3.35 TB/s). One thread a site,
+// every tap read through L1/L2 and f1 recomposed at each of its 6h taps,
+// took about 13 taps of f and 40 of the arrays f1 is composed from per
+// site (K8: about 500) against the 8 (64) element reads and writes the
+// bound counts. So both run the x-march of pk_common.cuh (pk_march), the
+// TPU builder's x ring carried to a block: a block walks a 32 x 8 (z, y)
+// tile along x, holds a ring of 2h+1 planes and the haloed centre plane of
+// every tapped array -- f and f1; for K8 also h and h1 -- in shared
+// memory, and composes f1 (and h1) once an element as they are loaded, so
+// device memory is read about once a launch (the y-z halo, 1.69x at h =
+// 2, mostly from L2) and lap and grad read shared memory in
+// lap_from_taps' order. K3 holds no tensor component (PkMarchTile<T, 0>):
+// 4F planes' worth of tile, 27,392 bytes a block at the main path's F =
+// 2, f32, h = 2, so registers rather than shared memory bound the blocks
+// an SM (74-88 a thread in f32: two or three blocks, whatever minimum
+// __launch_bounds__ asks for; it asks for one, as K8's does). A model
+// whose arrays do not fit one block's shared memory marches once per group
+// of fields (K8: of tensor components or, wider still, of fields first;
+// pk_common.cuh's split layout). -fmad=false throughout; outputs to
+// separate buffers; the tensor components one after another.
 //
 // The sharded tier (the _xpad, _ypad, _xypad entry points of K3 and K8)
 // replaces StreamingStencil._build_xhalo (pystella_tpu/ops/pallas_stencil.py:
@@ -71,104 +75,142 @@ struct PkPairParams {
   PkGradWeights<T> g;  // K8 only
 };
 
-template <typename T, typename C, int PAD>
-__global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
-pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
-                     PkPairParams<T> p, PkGeom g) {
-  const int z = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int x = blockIdx.z;
-  if (z >= Z || y >= Y) return;
-  // the blockwise arrays (kdfdt, the outputs) and the windows (f, dfdt, kf),
-  // each with its own geometry
-  const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
-  const int64_t site = ((int64_t)x * Y + y) * Z + z;
-  const int64_t Nw = PAD ? g.Nw : N;
-  const int Yw = PAD ? g.Ys : Y;
-  const int64_t wsite = PAD ? ((int64_t)x * Yw + y) * Z + z : site;
-  const T* __restrict__ f = io.in[0];
-  const T* __restrict__ dfdt = io.in[1];
-  const C* __restrict__ kf = pk_in_as<C>(io, 2);
-  const C* __restrict__ kdf = pk_in_as<C>(io, 3);
-  T* __restrict__ f_out = io.out[0];
-  T* __restrict__ dfdt_out = io.out[1];
-  C* __restrict__ kf_out = pk_out_as<C>(io, 2);
-  C* __restrict__ kdf_out = pk_out_as<C>(io, 3);
-
-  // stage 1 on the site (the arithmetic of fused_stage.cu)
-  T f0[PK_F], df1[PK_F], kf1[PK_F], kdf1[PK_F], f1[PK_F], dv[PK_F];
-  T lap[PK_F];
-#pragma unroll
-  for (int c = 0; c < PK_F; ++c) {
-    const int64_t wi = c * Nw + wsite;
-    f0[c] = f[wi];
-    lap[c] = pk_lap<PAD>(PkLoad<T>{f + c * Nw, Yw, Z}, f0[c], x, y, z, X, Y,
-                         Z, p.w);
-    kf1[c] = p.A1 * PkCarry<T, C>::load(kf[wi]) + p.dt * dfdt[wi];
-    f1[c] = f0[c] + p.B1 * kf1[c];
-  }
-  pk_dvdf<T>(f0, p.a1, p.hubble1, dv);
-  {
-    const T two_hub = T(2) * p.hubble1;
-    const T a2 = p.a1 * p.a1;
-#pragma unroll
-    for (int c = 0; c < PK_F; ++c) {
-      const int64_t i = c * N + site;
-      const T df0 = dfdt[c * Nw + wsite];
-      kdf1[c] = p.A1 * PkCarry<T, C>::load(kdf[i])
-                + p.dt * ((lap[c] - two_hub * df0) - a2 * dv[c]);
-      df1[c] = df0 + p.B1 * kdf1[c];
-    }
-  }
-
-  // the stage-2 Laplacian, from f1 recomposed at every tap
-#pragma unroll
-  for (int c = 0; c < PK_F; ++c) {
-    const PkAxpyLoad<T, PkAt<T>, C> load{f + c * Nw, kf + c * Nw,
-                                         {dfdt + c * Nw}, p.B1, p.A1, p.dt,
-                                         Yw, Z};
-    lap[c] = pk_lap<PAD>(load, f1[c], x, y, z, X, Y, Z, p.w);
-  }
-
-  // stage 2 on the site
-  pk_dvdf<T>(f1, p.a2, p.hubble2, dv);
-  const T two_hub = T(2) * p.hubble2;
-  const T a2 = p.a2 * p.a2;
-#pragma unroll
-  for (int c = 0; c < PK_F; ++c) {
-    const int64_t i = c * N + site;
-    const T kf2 = p.A2 * kf1[c] + p.dt * df1[c];
-    const T kdf2 = p.A2 * kdf1[c]
-                   + p.dt * ((lap[c] - two_hub * df1[c]) - a2 * dv[c]);
-    f_out[i] = f1[c] + p.B2 * kf2;
-    dfdt_out[i] = df1[c] + p.B2 * kdf2;
-    kf_out[i] = PkCarry<T, C>::store(kf2);
-    kdf_out[i] = PkCarry<T, C>::store(kdf2);
-  }
-}
-
-#ifdef PK_NH
-// K8: the x-march (pk_march, pk_common.cuh). Per plane and site, K3's
-// arithmetic on f -- lap f and lap f1 from the shared f and f1 planes --,
-// then S_ij of both stages from grad f and grad f1, then per hij component
-// the two tensor stages (pk_gw_stage), lap h and lap h1 from the shared h
-// and h1 planes. The site's own dfdt, kf, kdfdt (and dhijdt, khij,
-// kdhijdt; in the split layout also f) are read from device memory with
-// the plane's loads (PkPairSite); in the joint layout f and hij come from
-// the centre plane, which holds exactly what the window holds there. In
-// the split layout a scalar pass evaluates dV/df of both stages from every
-// field's site values, and runs the rest of the stage for its own fields.
+// The x-march (pk_march, pk_common.cuh) of K3 and K8. Per plane and site,
+// K3's arithmetic on f (pk_pair_scalar) -- lap f and lap f1 from the
+// shared f and f1 planes --; for K8 then S_ij of both stages from grad f
+// and grad f1, then per hij component the two tensor stages (pk_gw_stage),
+// lap h and lap h1 from the shared h and h1 planes. The site's own dfdt,
+// kf, kdfdt (and dhijdt, khij, kdhijdt; in the split layout also f) are
+// read from device memory with the plane's loads (PkPairSite); in the
+// joint layout f and hij come from the centre plane, which holds exactly
+// what the window holds there. In the split layout a scalar pass evaluates
+// dV/df of both stages from every field's site values, and runs the rest
+// of the stage for its own fields.
 template <typename T, int G>
 struct PkPairSite {
   T f[PK_F], df[PK_F], kf[PK_F], kdf[PK_F];  // f, dfdt, kf, kdfdt (widened)
   T dh[G], kh[G], kdh[G];  // dhijdt, khij, kdhijdt of each hij held
 };
 
+template <typename T>
+struct PkPairSite<T, 0> {
+  T f[PK_F], df[PK_F], kf[PK_F], kdf[PK_F];
+};
+
+// A scalar pass's site values: window index wsite, block index site.
+template <typename C, bool JOINT, typename T, typename S>
+__device__ __forceinline__ void pk_pair_site(const PkArrays<T>& io,
+                                             int64_t wsite, int64_t site,
+                                             int64_t Nw, int64_t N, S& s) {
+#pragma unroll
+  for (int c = 0; c < PK_F; ++c) {
+    const int64_t wi = c * Nw + wsite;
+    if (!JOINT) s.f[c] = io.in[0][wi];
+    s.df[c] = io.in[1][wi];
+    s.kf[c] = PkCarry<T, C>::load(pk_in_as<C>(io, 2)[wi]);
+    s.kdf[c] = PkCarry<T, C>::load(pk_in_as<C>(io, 3)[c * N + site]);
+  }
+}
+
+// K3's two stages at the thread's site (block index site; ctr its place in
+// the centre plane) in scalar pass ps: stage 1 with the arithmetic of
+// fused_stage.cu, stage 2 with lap f1 from the shared f1.
+template <typename C, typename T, typename Pass, typename S>
+__device__ __forceinline__ void pk_pair_scalar(const PkArrays<T>& io,
+                                               int64_t site, int64_t N,
+                                               const Pass ps,
+                                               const PkMarchView<T>& v,
+                                               const S& s,
+                                               const PkPairParams<T>& p,
+                                               int ctr) {
+  using Tl = typename Pass::Tl;
+  constexpr int F1 = Tl::GF;
+  const T two_hub = T(2) * p.hubble2;
+  // stage 1 on the site (the arithmetic of fused_stage.cu)
+  T f0[PK_F], df1[PK_F], kf1[PK_F], kdf1[PK_F], f1[PK_F], dv[PK_F];
+  T lap[PK_F];
+#pragma unroll
+  for (int c = 0; c < PK_F; ++c) {
+    f0[c] = Tl::JOINT ? v.sm[c * Tl::SITES + ctr] : s.f[c];
+    if (ps.held(c)) lap[c] = pk_march_lap(v, c - ps.k0, f0[c], p.w);
+    kf1[c] = p.A1 * s.kf[c] + p.dt * s.df[c];
+    f1[c] = f0[c] + p.B1 * kf1[c];
+  }
+  pk_dvdf<T>(f0, p.a1, p.hubble1, dv);
+  {
+    const T two_hub1 = T(2) * p.hubble1;
+    const T a2 = p.a1 * p.a1;
+#pragma unroll
+    for (int c = 0; c < PK_F; ++c) {
+      if (!ps.held(c)) continue;
+      const T df0 = s.df[c];
+      kdf1[c] = p.A1 * s.kdf[c]
+                + p.dt * ((lap[c] - two_hub1 * df0) - a2 * dv[c]);
+      df1[c] = df0 + p.B1 * kdf1[c];
+    }
+  }
+  // the stage-2 Laplacian, from the shared f1
+#pragma unroll
+  for (int c = 0; c < PK_F; ++c)
+    if (ps.held(c)) lap[c] = pk_march_lap(v, F1 + c - ps.k0, f1[c], p.w);
+  // stage 2 on the site
+  pk_dvdf<T>(f1, p.a2, p.hubble2, dv);
+  const T a2 = p.a2 * p.a2;
+#pragma unroll
+  for (int c = 0; c < PK_F; ++c) {
+    if (!ps.held(c)) continue;
+    const int64_t i = c * N + site;
+    const T kf2 = p.A2 * kf1[c] + p.dt * df1[c];
+    const T kdf2 = p.A2 * kdf1[c]
+                   + p.dt * ((lap[c] - two_hub * df1[c]) - a2 * dv[c]);
+    io.out[0][i] = f1[c] + p.B2 * kf2;
+    io.out[1][i] = df1[c] + p.B2 * kdf2;
+    pk_out_as<C>(io, 2)[i] = PkCarry<T, C>::store(kf2);
+    pk_out_as<C>(io, 3)[i] = PkCarry<T, C>::store(kdf2);
+  }
+}
+
+// K3: the scalar march (no tensor components).
+template <typename T, typename C, int PAD>
+__global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y, 1)
+pk_fused_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
+                     PkPairParams<T> p, PkGeom g) {
+  using Tl = PkMarchTile<T, 0>;
+  const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
+  const int64_t Nw = PAD ? g.Nw : N;
+  const int Yw = PAD ? g.Ys : Y;
+  const PkMarchInputs<T, C, false> in{
+      {io.in[0], nullptr}, {io.in[1], nullptr},
+      {pk_in_as<C>(io, 2), nullptr}, {nullptr, nullptr},
+      p.B1, p.A1, p.dt, T(0), T(0)};
+  const int z = blockIdx.x * Tl::TZ + threadIdx.x;
+  const int y = blockIdx.y * Tl::TY + threadIdx.y;
+  const bool valid = z < Z && y < Y;
+  const int ctr = (threadIdx.y + PK_H) * Tl::SZ + threadIdx.x + PK_H;
+  auto pre = [&](int x, const PkMarchPass<T, 0>) {
+    PkPairSite<T, 0> s{};
+    if (!valid) return s;
+    const int64_t site = ((int64_t)x * Y + y) * Z + z;
+    const int64_t wsite = PAD ? ((int64_t)x * Yw + y) * Z + z : site;
+    pk_pair_site<C, Tl::JOINT>(io, wsite, site, Nw, N, s);
+    return s;
+  };
+  pk_march<T, 0, PAD>(in, X, Y, Z, Nw, Yw, pre, [&](
+      int x, int, const PkMarchPass<T, 0> ps, const PkMarchView<T>& v,
+      const PkPairSite<T, 0>& s) {
+    if (valid)
+      pk_pair_scalar<C>(io, ((int64_t)x * Y + y) * Z + z, N, ps, v, s, p,
+                        ctr);
+  });
+}
+
+#ifdef PK_NH
+// K8: the march with the tensor components.
 template <typename T, typename C, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y, 1)
 pk_preheat_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
                        PkPairParams<T> p, PkGeom g) {
-  using Tl = PkMarchTile<T>;
+  using Tl = PkMarchTile<T, PK_NH>;
   const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
   const int64_t Nw = PAD ? g.Nw : N;
   const int Yw = PAD ? g.Ys : Y;
@@ -186,21 +228,12 @@ pk_preheat_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
   // split layout: grad f and grad f1 of every field at each plane of the
   // run, parked by the scalar passes for the tensor passes' S_ij
   T grads[Tl::JOINT ? 1 : Tl::LX][2][PK_F][3];
-  auto pre = [&](int x, const PkMarchPass<T> ps) {
+  auto pre = [&](int x, const PkMarchPass<T, PK_NH> ps) {
     PkPairSite<T, Tl::G> s{};
     if (!valid) return s;
     const int64_t site = ((int64_t)x * Y + y) * Z + z;
     const int64_t wsite = PAD ? ((int64_t)x * Yw + y) * Z + z : site;
-    if (ps.scalar) {
-#pragma unroll
-      for (int c = 0; c < PK_F; ++c) {
-        const int64_t wi = c * Nw + wsite;
-        if (!Tl::JOINT) s.f[c] = io.in[0][wi];
-        s.df[c] = io.in[1][wi];
-        s.kf[c] = PkCarry<T, C>::load(pk_in_as<C>(io, 2)[wi]);
-        s.kdf[c] = PkCarry<T, C>::load(pk_in_as<C>(io, 3)[c * N + site]);
-      }
-    }
+    if (ps.scalar) pk_pair_site<C, Tl::JOINT>(io, wsite, site, Nw, N, s);
     if (ps.tensors()) {
 #pragma unroll
       for (int j = 0; j < Tl::G; ++j) {
@@ -213,56 +246,13 @@ pk_preheat_pair_kernel(PkArrays<T> io, int X, int Y, int Z,
     }
     return s;
   };
-  pk_march<T, PAD>(in, X, Y, Z, Nw, Yw, pre, [&](
-      int x, int px, const PkMarchPass<T> ps, const PkMarchView<T>& v,
-      const PkPairSite<T, Tl::G>& s) {
+  pk_march<T, PK_NH, PAD>(in, X, Y, Z, Nw, Yw, pre, [&](
+      int x, int px, const PkMarchPass<T, PK_NH> ps,
+      const PkMarchView<T>& v, const PkPairSite<T, Tl::G>& s) {
     if (!valid) return;
     const int64_t site = ((int64_t)x * Y + y) * Z + z;
     const T two_hub = T(2) * p.hubble2;
-    if (ps.scalar) {
-      // stage 1 on the site (the arithmetic of fused_stage.cu)
-      T f0[PK_F], df1[PK_F], kf1[PK_F], kdf1[PK_F], f1[PK_F], dv[PK_F];
-      T lap[PK_F];
-#pragma unroll
-      for (int c = 0; c < PK_F; ++c) {
-        f0[c] = Tl::JOINT ? v.sm[c * Tl::SITES + ctr] : s.f[c];
-        if (ps.held(c)) lap[c] = pk_march_lap(v, c - ps.k0, f0[c], p.w);
-        kf1[c] = p.A1 * s.kf[c] + p.dt * s.df[c];
-        f1[c] = f0[c] + p.B1 * kf1[c];
-      }
-      pk_dvdf<T>(f0, p.a1, p.hubble1, dv);
-      {
-        const T two_hub1 = T(2) * p.hubble1;
-        const T a2 = p.a1 * p.a1;
-#pragma unroll
-        for (int c = 0; c < PK_F; ++c) {
-          if (!ps.held(c)) continue;
-          const T df0 = s.df[c];
-          kdf1[c] = p.A1 * s.kdf[c]
-                    + p.dt * ((lap[c] - two_hub1 * df0) - a2 * dv[c]);
-          df1[c] = df0 + p.B1 * kdf1[c];
-        }
-      }
-      // the stage-2 Laplacian, from the shared f1
-#pragma unroll
-      for (int c = 0; c < PK_F; ++c)
-        if (ps.held(c)) lap[c] = pk_march_lap(v, F1 + c - ps.k0, f1[c], p.w);
-      // stage 2 on the site
-      pk_dvdf<T>(f1, p.a2, p.hubble2, dv);
-      const T a2 = p.a2 * p.a2;
-#pragma unroll
-      for (int c = 0; c < PK_F; ++c) {
-        if (!ps.held(c)) continue;
-        const int64_t i = c * N + site;
-        const T kf2 = p.A2 * kf1[c] + p.dt * df1[c];
-        const T kdf2 = p.A2 * kdf1[c]
-                       + p.dt * ((lap[c] - two_hub * df1[c]) - a2 * dv[c]);
-        io.out[0][i] = f1[c] + p.B2 * kf2;
-        io.out[1][i] = df1[c] + p.B2 * kdf2;
-        pk_out_as<C>(io, 2)[i] = PkCarry<T, C>::store(kf2);
-        pk_out_as<C>(io, 3)[i] = PkCarry<T, C>::store(kdf2);
-      }
-    }
+    if (ps.scalar) pk_pair_scalar<C>(io, site, N, ps, v, s, p, ctr);
 
     // S_ij of both stages: from grad f and grad f1
     T sij1[PK_NH], sij2[PK_NH];
@@ -332,18 +322,15 @@ static int pk_launch_pair(const void* const* ins, void* const* outs, int X,
 #ifdef PK_NH
   if constexpr (GW) {
     p.g = pk_grad_weights<T>(params + 9 + PK_NLAPW);
-    return pk_march_launch<T>(pk_preheat_pair_kernel<T, C, PAD>, X, Y, Z,
-                              stream, pk_arrays<T>(ins, outs, 8), X, Y, Z,
-                              p, g);
+    return pk_march_launch<T, PK_NH>(pk_preheat_pair_kernel<T, C, PAD>, X,
+                                     Y, Z, stream,
+                                     pk_arrays<T>(ins, outs, 8), X, Y, Z,
+                                     p, g);
   } else
 #endif
-  {
-    pk_fused_pair_kernel<T, C, PAD>
-        <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
-           (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, 4), X, Y, Z, p,
-                                   g);
-    return (int)cudaGetLastError();
-  }
+  return pk_march_launch<T, 0>(pk_fused_pair_kernel<T, C, PAD>, X, Y, Z,
+                               stream, pk_arrays<T>(ins, outs, 4), X, Y, Z,
+                               p, g);
 }
 
 #define PK_PAIR_ARGS                                                        \
@@ -383,6 +370,7 @@ static int pk_launch_pair(const void* const* ins, void* const* outs, int X,
   PK_PAIR_PADS(name##_f32_bf16, float, __nv_bfloat16, GW)                   \
   PK_PAIR_PADS(name##_f64_bf16, double, __nv_bfloat16, GW)
 
+PK_SCALAR_MARCH_ENTRY
 PK_PAIR_PAD_ENTRIES(pk_fused_pair, false)
 PK_PAIR_ENTRY(pk_fused_pair_f32, float, float, false)
 PK_PAIR_ENTRY(pk_fused_pair_f64, double, double, false)

@@ -129,13 +129,6 @@ struct PkLoad {
   }
 };
 
-// A lattice array read at a linear index.
-template <typename T>
-struct PkAt {
-  const T* __restrict__ p;
-  __device__ __forceinline__ T operator()(int64_t i) const { return p[i]; }
-};
-
 // RK carries (the k arrays) stored in C, computed in T. With C = T both
 // conversions are the identity, so a kernel instantiated that way is the
 // working-precision kernel unchanged. With C = __nv_bfloat16 (the
@@ -169,45 +162,12 @@ struct PkCarry<double, __nv_bfloat16> {
   }
 };
 
-// The velocity a deferred-drag coupled pair left incomplete, completed at a
-// linear index: dfp + B2p * (kdfp - c * dfp) with c = (2 * dt) * hubfix, the
-// arithmetic of the JAX package's _completed_taps
-// (pystella_tpu/ops/fused.py). kdfp is a carry, stored in C and widened.
-template <typename T, typename C = T>
-struct PkCompleted {
-  const T* __restrict__ dfp;
-  const C* __restrict__ kdfp;
-  T B2p, c;
-  __device__ __forceinline__ T operator()(int64_t i) const {
-    const T d = dfp[i];
-    return d + B2p * (PkCarry<T, C>::load(kdfp[i]) - c * d);
-  }
-};
-
 // v rounded to the carry type and widened back: the value a carry has
 // after a round trip through device memory.
 template <typename T, typename C>
 __device__ __forceinline__ T pk_carry_round(T v) {
   return PkCarry<T, C>::load(PkCarry<T, C>::store(v));
 }
-
-// The stage-updated field f1 = f + B * (A * kf + dt * dfdt) of the first
-// stage of a pair, recomposed at (x, y, z) from the raw arrays instead of
-// read from a materialized f1: the arithmetic of the JAX package's
-// _axpy_taps (pystella_tpu/ops/fused.py). DF reads dfdt (PkAt, or
-// PkCompleted for a deferred input); kf is stored in C and widened.
-template <typename T, typename DF = PkAt<T>, typename C = T>
-struct PkAxpyLoad {
-  const T* __restrict__ f;
-  const C* __restrict__ kf;
-  DF df;
-  T B, A, dt;
-  int Y, Z;
-  __device__ __forceinline__ T operator()(int x, int y, int z) const {
-    const int64_t i = ((int64_t)x * Y + y) * Z + z;
-    return f[i] + B * (A * PkCarry<T, C>::load(kf[i]) + dt * df(i));
-  }
-};
 
 // lap = w0 * centre, then for s = 1..H: the x pair, the y pair, the z pair,
 // each as acc + w * (tap(+s) + tap(-s)) -- lap_from_taps term by term.
@@ -480,57 +440,66 @@ static int pk_finish_sums(void* partials, void* sums, int nterms,
                                   (cudaStream_t)stream);                    \
   }
 
-#ifdef PK_NH
+#ifdef PK_F
 // ---------------------------------------------------------------------------
-// The x-march of the GW pair kernels (K8, K9): the streaming design of the
-// TPU builder StreamingStencil._build (pystella_tpu/ops/pallas_stencil.py:
-// 709; its x ring of planes, :719-742) carried to a thread block.
+// The x-march of the pair kernels -- K3 and K6 with NH = 0 tensor
+// components, the GW pairs K8 and K9 with NH = PK_NH: the streaming design
+// of the TPU builder StreamingStencil._build (pystella_tpu/ops/
+// pallas_stencil.py:709; its x ring of planes, :719-742) carried to a
+// thread block. (The fused sources only: the model header defines PK_F.)
 //
 // A block of 32 (z) x 8 (y) threads owns one y-z tile and walks it along x
-// over a run of PK_MARCH_LX planes. Its dynamic shared memory holds, per
-// tapped array -- f and the stage-1 field f1 of a scalar component, h and
-// h1 of a tensor component --
+// over a run of LX planes. Its dynamic shared memory holds, per tapped
+// array -- f and the stage-1 field f1 of a scalar component, h and h1 of a
+// tensor component --
 //  - a ring of 2h+1 planes of the tile itself (the +-x taps of a thread's
 //    own column; a thread reads only its own column of the ring);
 //  - the centre plane with its y-z halo (the y and z taps);
-// and the budget leaves room for K9's static per-warp partials of one
-// plane's sums (pk_march_sums).
+// and the budget leaves room for K6's and K9's static per-warp partials of
+// one plane's sums (pk_march_sums).
 // Each step brings plane x+h into the ring (where x-h-1 was), copies plane
 // x from the ring into the centre plane and loads that plane's halo frame.
 // f1 = f + B1*(A1*kf + dt*dfdt) and h1 are composed as an element is
-// loaded, once, in PkAxpyLoad's expression (the velocity completed first,
-// as PkCompleted does, for a deferred input), so every tap reads the value
-// the per-site kernels recomposed at each tap. Lap and grad run pk_lap /
-// pk_grad over the shared planes in box coordinates (PK_BOX), so their
-// accumulation order stays lap_from_taps' and grad_from_taps'. Periodic
+// loaded, once (PkMarchInputs::composed; the velocity completed first for
+// a deferred input), so every tap reads the value the first stage alone
+// would have stored. Lap and grad run pk_lap / pk_grad over the shared
+// planes in box coordinates (PK_BOX), so their accumulation order stays
+// lap_from_taps' and grad_from_taps'. Periodic
 // wrap, or a padded window's rows, is resolved where a plane, row or
 // column is loaded.
 //
 // A block marches its run once per pass, of one of two layouts:
-//  - joint, where every field fits beside a group of G tensor components:
-//    each pass holds f, f1 of every field and h, h1 of G components, G the
-//    first of PK_NH, 3, 2, 1 that divides PK_NH and fits; the scalar stage
-//    and the sums run in the first pass, S_ij from the shared planes in
-//    each;
+//  - joint, where every field fits beside a group of G tensor components
+//    (NH = 0: where every field fits): each pass holds f, f1 of every
+//    field and h, h1 of G components, G the first of NH, 3, 2, 1 that
+//    divides NH and fits; the scalar stage and the sums run in the first
+//    pass (NH = 0: the only one), S_ij from the shared planes in each;
 //  - split, otherwise: first the scalar passes, each holding GF fields
 //    (the most that fit; the last pass the rest), which run the scalar
-//    stage of their fields, emit their sum terms and park their gradients
-//    of both stages in a thread-local buffer of the run; then the tensor
-//    passes, each holding G components (G as above, alone), with S_ij from
-//    that buffer.
-// Every value is the joint march's, so both give the per-site kernels'
-// outputs bit for bit. ops/fused.py:march_tile mirrors the rule;
-// pk_preheat_march_tile reports the instantiated tile.
+//    stage of their fields and emit their sum terms (and, with tensors,
+//    park their gradients of both stages in a thread-local buffer of the
+//    run); then the tensor passes, each holding G components (G as above,
+//    alone), with S_ij from that buffer.
+// Every value is the joint march's, so both give the per-site arithmetic's
+// outputs bit for bit. A block may hold the most dynamic shared memory
+// sm_90 gives one (PK_MARCH_SMEM); ops/fused.py:march_tile mirrors the
+// rule; pk_scalar_march_tile and pk_preheat_march_tile report the
+// instantiated tiles.
 // ---------------------------------------------------------------------------
+// x planes a run of K8 and K9, and of K3 and K6: the fastest variants of
+// chip_smoke.py --phases march_variants on an H100
 #ifndef PK_MARCH_LX
 #define PK_MARCH_LX 32
+#endif
+#ifndef PK_SCALAR_MARCH_LX
+#define PK_SCALAR_MARCH_LX 24
 #endif
 // the most dynamic shared memory a block may use on sm_90
 #define PK_MARCH_SMEM 232448
 
-template <typename T>
-struct PkMarchTile {
-  static constexpr int TZ = PK_BLOCK_Z, TY = PK_BLOCK_Y, LX = PK_MARCH_LX;
+// The geometry of a march tile, whatever it holds.
+struct PkMarchGeo {
+  static constexpr int TZ = PK_BLOCK_Z, TY = PK_BLOCK_Y;
   static constexpr int THREADS = TZ * TY;
   static constexpr int SY = TY + 2 * PK_H, SZ = TZ + 2 * PK_H;
   static constexpr int NS = 2 * PK_H + 1;           // ring slots
@@ -538,7 +507,13 @@ struct PkMarchTile {
   static constexpr int CENTRE = SY * SZ;             // the haloed plane
   static constexpr int FRAME = CENTRE - PLANE;       // its halo
   static constexpr int SITES = CENTRE + NS * PLANE;  // one array's share
-  static constexpr int NSUM = 2 * PK_NT * TY;        // K9's warp partials
+  static constexpr int NSUM = 2 * PK_NT * TY;        // K6's, K9's partials
+};
+
+// The tile of a march with NH tensor components (0: the scalar march).
+template <typename T, int NH>
+struct PkMarchTile : PkMarchGeo {
+  static constexpr int LX = NH ? PK_MARCH_LX : PK_SCALAR_MARCH_LX;
   // dynamic (the arrays) and static (the warp partials) shared memory fit
   static constexpr bool fits(int arrays) {
     return ((long long)arrays * SITES + NSUM) * (long long)sizeof(T)
@@ -546,9 +521,9 @@ struct PkMarchTile {
   }
   // the tensor components a pass holds beside `arrays` scalar arrays
   static constexpr int tensors(int arrays) {
-    const int cand[4] = {PK_NH, 3, 2, 1};
+    const int cand[4] = {NH, 3, 2, 1};
     for (int k = 0; k < 4; ++k)
-      if (cand[k] <= PK_NH && PK_NH % cand[k] == 0
+      if (cand[k] > 0 && cand[k] <= NH && NH % cand[k] == 0
           && fits(arrays + 2 * cand[k]))
         return cand[k];
     return 0;
@@ -559,14 +534,14 @@ struct PkMarchTile {
     while (k > 0 && !fits(2 * k)) --k;
     return k;
   }
-  static constexpr bool JOINT = tensors(2 * PK_F) > 0;
-  static constexpr int G = JOINT ? tensors(2 * PK_F) : tensors(0);
+  static constexpr bool JOINT = NH ? tensors(2 * PK_F) > 0 : fits(2 * PK_F);
+  static constexpr int G = !NH ? 0 : JOINT ? tensors(2 * PK_F) : tensors(0);
   static constexpr int GF = JOINT ? PK_F : fields();
   static constexpr int HS = JOINT ? 2 * PK_F : 0;  // a pass's first h array
   static constexpr int NA =                        // arrays in shared memory
       JOINT ? 2 * PK_F + 2 * G : (GF > G ? 2 * GF : 2 * G);
   static constexpr int NSP = JOINT ? 0 : (PK_F + GF - 1) / GF;
-  static constexpr int PASSES = NSP + PK_NH / G;
+  static constexpr int PASSES = NSP + (NH ? NH / G : JOINT);
   static constexpr int SMEM = NA * SITES * (int)sizeof(T);  // dynamic
 };
 
@@ -576,13 +551,13 @@ struct PkMarchTile {
 // and the kernels take a pass by value: where the compiler could not fold
 // them (or read them through a reference), K8 and K9 kept fewer of a
 // plane's loads in flight and ran slower.
-template <typename T>
+template <typename T, int NH>
 struct PkMarchPass {
-  using Tl = PkMarchTile<T>;
+  using Tl = PkMarchTile<T, NH>;
   int p, k0, nf, c0, ng;
   bool scalar;
   __device__ __forceinline__ explicit PkMarchPass(int p_) : p(p_) {
-    c0 = Tl::G == PK_NH ? 0 : (p - Tl::NSP) * Tl::G;
+    c0 = Tl::G == NH ? 0 : (p - Tl::NSP) * Tl::G;
     k0 = Tl::JOINT ? 0 : p * Tl::GF;
     nf = Tl::JOINT ? PK_F : (p < Tl::NSP ? min(Tl::GF, PK_F - k0) : 0);
     ng = Tl::JOINT || p >= Tl::NSP ? Tl::G : 0;
@@ -593,7 +568,7 @@ struct PkMarchPass {
     return Tl::JOINT || (c >= k0 && c < k0 + nf);
   }
   __device__ __forceinline__ bool tensors() const {
-    return Tl::JOINT || ng > 0;
+    return NH > 0 && (Tl::JOINT || ng > 0);
   }
   // the pass writes sum term t of a scalar pass (PK_NT a set: dfdt^2 and
   // -f lap f per field, then V): its fields' terms, V in the first pass
@@ -613,7 +588,7 @@ struct PkMarchLoad {
   const T* ring;    // its ring slot 0, at the thread's own site
   int s0;           // the ring slot of box x = 0 (plane x - PK_H)
   __device__ __forceinline__ T operator()(int x, int y, int z) const {
-    using Tl = PkMarchTile<T>;
+    using Tl = PkMarchGeo;
     if (x == PK_H) return centre[y * Tl::SZ + z];
     int s = s0 + x;
     if (s >= Tl::NS) s -= Tl::NS;
@@ -632,8 +607,11 @@ struct PkMarchInputs {
   const C* kf[2];
   const C* kv[2];
   T B1, A1, dt, B2p, c_def;
-  // the stage-1 field at window index i, where the field is fv:
-  // PkAxpyLoad's arithmetic, over PkCompleted's for a deferred input
+  // the stage-1 field at window index i, where the field is fv: fv + B1 *
+  // (A1 * kf + dt * v), the arithmetic of the JAX package's _axpy_taps
+  // (pystella_tpu/ops/fused.py); for a deferred input the velocity v =
+  // dfp + B2p * (kdfp - c_def * dfp) with c_def = (2 * dt) * hubfix, that
+  // of its _completed_taps. The carries are stored in C and widened.
   __device__ __forceinline__ T composed(int sys, int64_t i, T fv) const {
     T d = vel[sys][i];
     if (IN_DEFERRED)
@@ -650,7 +628,7 @@ struct PkMarchView {
   int own;  // the thread's site in a ring slot
   int s0;
   __device__ __forceinline__ PkMarchLoad<T> operator()(int a) const {
-    using Tl = PkMarchTile<T>;
+    using Tl = PkMarchGeo;
     const T* base = sm + a * Tl::SITES;
     return PkMarchLoad<T>{base, base + Tl::CENTRE + own, s0};
   }
@@ -681,12 +659,13 @@ __device__ __forceinline__ void pk_march_grad(const PkMarchView<T>& v, int a,
 // body(x, i, pass, view, pre's result) runs; a barrier ends the step.
 // Window inputs are read with component stride Nw and y extent Yw, padded
 // along PAD's axes (a plane of a padded x window lies in [-h, X + h)).
-template <typename T, int PAD, typename In, typename Pre, typename Body>
+template <typename T, int NH, int PAD, typename In, typename Pre,
+          typename Body>
 __device__ __forceinline__ void pk_march(const In& in, int X, int Y, int Z,
                                          int64_t Nw, int Yw, Pre&& pre,
                                          Body&& body) {
-  using Tl = PkMarchTile<T>;
-  static_assert(Tl::G > 0 && Tl::GF > 0,
+  using Tl = PkMarchTile<T, NH>;
+  static_assert((NH == 0 || Tl::G > 0) && Tl::GF > 0,
                 "no x-march tile fits a block's shared memory");
   extern __shared__ __align__(16) unsigned char pk_march_smem[];
   T* const sm = reinterpret_cast<T*>(pk_march_smem);
@@ -715,7 +694,7 @@ __device__ __forceinline__ void pk_march(const In& in, int X, int Y, int Z,
   };
 
   for (int pass = 0; pass < Tl::PASSES; ++pass) {
-    const PkMarchPass<T> ps(pass);
+    const PkMarchPass<T, NH> ps(pass);
     // the tapped arrays the pass holds at lattice point (x, y, z) of the
     // region, composed into v. A tile hanging past a padded window's last
     // row (y >= Y + h) feeds no valid site's taps, so it reads the last
@@ -789,15 +768,15 @@ __device__ __forceinline__ void pk_march(const In& in, int X, int Y, int Z,
 // lattice:
 // plane x0 + x, y block yb0 + blockIdx.y, GYb y blocks (PkGeom; the launch
 // passes x0 = yb0 = 0 and GYb = ceil(Y / 8) unpadded). So the partials,
-// and the sums, are the per-site kernel's bit for bit. Every thread of the
-// block calls it.
+// and the sums, are those of a per-site launch (one 32 x 8 block a plane)
+// bit for bit. Every thread of the block calls it.
 template <typename T, int NT, typename Keep>
 __device__ __forceinline__ void pk_march_sums(T (&v)[NT],
                                               T* __restrict__ partials,
                                               int64_t nblocks,
                                               const PkGeom& g, int x,
                                               Keep&& keep) {
-  static_assert(NT * PK_BLOCK_Y <= PkMarchTile<T>::NSUM,
+  static_assert(NT * PK_BLOCK_Y <= PkMarchGeo::NSUM,
                 "the warp partials' room in the march's budget");
   __shared__ T warp_sums[NT][PK_BLOCK_Y];
   const int lane = threadIdx.x, warp = threadIdx.y;
@@ -822,13 +801,13 @@ __device__ __forceinline__ void pk_march_sums(T (&v)[NT],
   }
 }
 
-// Launch a march kernel over an (X, Y, Z) region: one block per y-z tile
-// and run of PK_MARCH_LX planes, the tile's shared memory allowed first.
-// Returns the launch's CUDA error.
-template <typename T, typename... P, typename... A>
+// Launch a march kernel with NH tensor components over an (X, Y, Z)
+// region: one block per y-z tile and run of LX planes, the tile's shared
+// memory allowed first. Returns the launch's CUDA error.
+template <typename T, int NH, typename... P, typename... A>
 static int pk_march_launch(void (*kernel)(P...), int X, int Y, int Z,
                            void* stream, A... args) {
-  using Tl = PkMarchTile<T>;
+  using Tl = PkMarchTile<T, NH>;
   const cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
   if (rc != cudaSuccess) return (int)rc;
@@ -839,9 +818,9 @@ static int pk_march_launch(void (*kernel)(P...), int X, int Y, int Z,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int NH>
 static int pk_march_report(int* out) {
-  using Tl = PkMarchTile<T>;
+  using Tl = PkMarchTile<T, NH>;
   out[0] = Tl::LX;
   out[1] = Tl::GF;
   out[2] = Tl::G;
@@ -853,8 +832,19 @@ static int pk_march_report(int* out) {
 // The march tile of the float (f64 = 0) or double (f64 = 1) kernels: out =
 // {x planes a run, fields a scalar pass holds, tensor components a pass
 // holds, 1 for the joint layout or 0 for the split one, dynamic shared
-// memory a block in bytes}. Returns 0.
+// memory a block in bytes}. Returns 0. The scalar march's (K3, K6) is an
+// entry point of their sources in every build.
+#define PK_SCALAR_MARCH_ENTRY                                             \
+  extern "C" int pk_scalar_march_tile(int f64, int* out) {                \
+    return f64 ? pk_march_report<double, 0>(out)                          \
+               : pk_march_report<float, 0>(out);                          \
+  }
+
+#ifdef PK_NH
+// The GW pairs' (K8, K9).
 extern "C" int pk_preheat_march_tile(int f64, int* out) {
-  return f64 ? pk_march_report<double>(out) : pk_march_report<float>(out);
+  return f64 ? pk_march_report<double, PK_NH>(out)
+             : pk_march_report<float, PK_NH>(out);
 }
+#endif
 #endif

@@ -263,26 +263,34 @@ def chunk_tile(F, h, itemsize, depth):
     return None
 
 
-#: the x planes a block of the GW pair kernels K8, K9 marches (pk_common.cuh:
-#: PkMarchTile, PK_MARCH_LX); its tile is 32 z columns by 8 y rows
+#: the x-march of the pair kernels (pk_common.cuh: PkMarchTile): the x
+#: planes a block of the GW pairs K8, K9 marches (PK_MARCH_LX) and those of
+#: the scalar pairs K3, K6 (PK_SCALAR_MARCH_LX); a tile is 32 z columns by
+#: 8 y rows
 MARCH_LX = 32
+SCALAR_MARCH_LX = 24
 
 
-def march_tile(F, h, itemsize, nh=6, lx=MARCH_LX):
-    """The x-march tile of the GW pair kernels for ``F`` fields, ``nh``
-    tensor components, stencil radius ``h`` and a working type of
-    ``itemsize`` bytes: ``((lx, gf, g, joint), bytes)`` -- the x planes a
-    block marches, the fields a scalar pass holds, the tensor components a
-    pass holds, the layout (1 joint, 0 split) and the dynamic shared memory
-    a block. The rule of pk_common.cuh: each tapped array (f and f1 of a
-    field, h and h1 of a component) keeps the tile's centre plane with its
-    y-z halo and a ring of 2h+1 planes of the tile, in dynamic shared
-    memory, and what is left must hold K9's static per-warp partials of
-    one plane's 2 (2F + 1) sum terms. Joint: every pass
-    holds all ``F`` fields and ``g`` components, ``g`` the first of ``nh``,
-    3, 2, 1 that divides ``nh`` and fits. Split, where no ``g`` fits beside
-    the fields: scalar passes of the most fields that fit (``gf``), then
-    tensor passes of the first ``g`` that fits alone."""
+def march_tile(F, h, itemsize, nh=6, lx=None):
+    """The x-march tile of the pair kernels for ``F`` fields, ``nh``
+    tensor components (6: the GW pairs; 0: the scalar pairs), stencil
+    radius ``h`` and a working type of ``itemsize`` bytes: ``((lx, gf, g,
+    joint), bytes)`` -- the x planes a block marches, the fields a scalar
+    pass holds, the tensor components a pass holds, the layout (1 joint, 0
+    split) and the dynamic shared memory a block. ``lx`` defaults to the
+    sources' constant. The rule of pk_common.cuh: each tapped array (f and
+    f1 of a field, h and h1 of a component) keeps the tile's centre plane
+    with its y-z halo and a ring of 2h+1 planes of the tile, in dynamic
+    shared memory, and what is left of the most a block may use must hold
+    K6's or K9's static per-warp partials of one plane's 2 (2F + 1) sum
+    terms. Joint: every pass holds all ``F`` fields and
+    ``g`` components, ``g`` the first of ``nh``, 3, 2, 1 that divides
+    ``nh`` and fits (``nh = 0``: one pass, where every field fits). Split,
+    where no ``g`` fits beside the fields: scalar passes of the most
+    fields that fit (``gf``), then tensor passes of the first ``g`` that
+    fits alone."""
+    if lx is None:
+        lx = MARCH_LX if nh else SCALAR_MARCH_LX
     sites = (8 + 2 * h) * (32 + 2 * h) + (2 * h + 1) * 8 * 32
     sums = 2 * (2 * F + 1) * 8
 
@@ -291,10 +299,11 @@ def march_tile(F, h, itemsize, nh=6, lx=MARCH_LX):
 
     def tensors(arrays):
         return next((g for g in (nh, 3, 2, 1)
-                     if g <= nh and nh % g == 0 and fits(arrays + 2 * g)), 0)
+                     if 0 < g <= nh and nh % g == 0
+                     and fits(arrays + 2 * g)), 0)
 
     g = tensors(2 * F)
-    if g:
+    if g or (not nh and fits(2 * F)):
         gf, joint, arrays = F, 1, 2 * F + 2 * g
     else:
         gf = max(k for k in range(1, F + 1) if fits(2 * k))
@@ -601,6 +610,17 @@ class FusedScalarStepper(_step.Stepper):
                         f"fused_chunk.cu instantiates the tile {got} for "
                         f"{dtype}; ops/fused.py:chunk_tile predicts {want}")
         self._built = libs
+        for src in self._march_sources():
+            for dtype in _SUFFIX:
+                # the kernel's compile-time x-march tile must be the one
+                # march_tile predicts
+                got = self.march_kernel_tile(dtype, src)
+                want = march_tile(self.F, self.h, dtype.itemsize,
+                                  self._march_nh)
+                if got != want:
+                    raise RuntimeError(
+                        f"{src} instantiates the x-march tile {got} for "
+                        f"{dtype}; ops/fused.py:march_tile predicts {want}")
         num_blocks = libs[KERNELS[self._KERNEL["stage"]][0]].pk_num_blocks
         num_blocks.argtypes = [ctypes.c_int] * 3
         num_blocks.restype = ctypes.c_longlong
@@ -616,6 +636,31 @@ class FusedScalarStepper(_step.Stepper):
                              int(dtype == torch.float64), out) != 0:
             return None
         return tuple(out[:3]), out[3]
+
+    #: the tensor components of this stepper's pairs' x-march (K3, K6)
+    _march_nh = 0
+
+    def _march_sources(self):
+        """The built sources of this stepper's x-marching pairs (K3 and K6;
+        for the GW system K8 and K9)."""
+        return sorted({KERNELS[n][0] for n in self._kernel_bases()
+                       if n in (self._KERNEL["pair"],
+                                self._KERNEL["coupled_pair"])})
+
+    def march_kernel_tile(self, dtype, source="fused_pair.cu"):
+        """The x-march tile of this stepper's built pair kernels in
+        ``source`` for working type ``dtype``, as the library reports it
+        (``pk_scalar_march_tile``; for the GW system
+        ``pk_preheat_march_tile``): ``((lx, gf, g, joint), bytes)``
+        (:func:`march_tile`)."""
+        lib = self._built[source]
+        fn = (lib.pk_preheat_march_tile if self._march_nh
+              else lib.pk_scalar_march_tile)
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 5)()
+        fn(int(dtype == torch.float64), out)
+        return tuple(out[:4]), out[4]
 
     def _finalized(self, name, ins):
         """Whether a launch of ``name`` takes its velocity carries (kdfdt,
@@ -1902,35 +1947,9 @@ class FusedPreheatStepper(FusedScalarStepper):
         self._weights += [coefs[s] * inv_dx[ax] for ax in range(3)
                           for s in range(1, self.h + 1)]
 
-    def build_kernels(self):
-        """:meth:`FusedScalarStepper.build_kernels`; then each GW pair
-        source's compile-time x-march tile must be the one
-        :func:`march_tile` predicts for both working types."""
-        super().build_kernels()
-        for src in self._march_sources():
-            for dtype in _SUFFIX:
-                got = self.march_kernel_tile(dtype, src)
-                want = march_tile(self.F, self.h, dtype.itemsize, self.n_hij)
-                if got != want:
-                    raise RuntimeError(
-                        f"{src} instantiates the x-march tile {got} for "
-                        f"{dtype}; ops/fused.py:march_tile predicts {want}")
-
-    def _march_sources(self):
-        """The built sources of the x-marching GW pairs (K8, K9)."""
-        return sorted({KERNELS[n][0] for n in self._kernel_bases()
-                       if n in ("preheat_pair", "preheat_coupled_pair")})
-
-    def march_kernel_tile(self, dtype, source="fused_pair.cu"):
-        """The x-march tile of the built GW pair kernels in ``source`` for
-        working type ``dtype``, as the library reports it: ``((lx, gf, g,
-        joint), bytes)`` (:func:`march_tile`)."""
-        fn = self._built[source].pk_preheat_march_tile
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        out = (ctypes.c_int * 5)()
-        fn(int(dtype == torch.float64), out)
-        return tuple(out[:4]), out[4]
+    @property
+    def _march_nh(self):
+        return self.n_hij
 
     @property
     def _hubble_free(self):

@@ -1,0 +1,248 @@
+"""Rehearse the pair kernels' x-march on the CPU, built with g++ behind the
+CUDA stand-in of shim.py.
+
+Every entry point of the scalar pairs K3 and K6 (both inputs) -- f32,
+f64, bf16 carries, unpadded and x-, y- and xy-padded -- is held to its
+plain version (relative 1e-5 in f32, 1e-13 in f64); each padded launch
+must equal the unpadded one bit for bit, K3's interior and shell launches
+its ``:xpad`` launch, and two x blocks' partials of K6 the unsharded
+sums. With ``--gw`` the GW pairs K8 and K9 (both inputs) are held to
+their plain versions and their padded launches to the unpadded ones.
+With ``--against DIR``, the root of another checkout (a parent commit
+unpacked with ``git archive``, say), every launch must also equal that
+checkout's kernels bit for bit, sums included.
+
+Shapes: 16^3, 70x12x40 and 5x9x33 (two fields, h = 2), a five-field model
+at h = 4 (f64: the split layout), three fields at h = 1 and 3, and 2^3,
+where the +-taps wrap onto one site. ``--lx`` is the run length the
+kernels are built with (PK_SCALAR_MARCH_LX; PK_MARCH_LX with ``--gw``):
+the default 4 cuts runs short at every shape and keeps the run to a few
+minutes. Exits 1 if a check fails::
+
+    python pystella_tpu_torch/tools/cpu_shim/rehearse.py [--gw] [--lx N]
+        [--against DIR]
+"""
+
+import argparse
+import itertools
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+from shim import built, pt, shim, tfused
+
+A, B = pt.LowStorageRK54._A, pt.LowStorageRK54._B
+RESULTS = []
+
+
+def bench_potential(f):
+    return (0.5 * f[0]**2 + 0.5 * 0.1 * f[1]**2
+            + 0.25 * f[0]**2 * f[1]**2 + 0.01 * f[0]**4)
+
+
+def many_potential(n):
+    def potential(f):
+        return (sum((0.5 + 0.1 * i) * f[i]**2 / 2 for i in range(n))
+                + 0.25 * f[0]**2 * sum(f[i]**2 for i in range(1, n)))
+    return potential
+
+
+def params(kernel, dx):
+    """A pair's launch parameters (the tableau's stages 1 and 2)."""
+    dt = 0.1 * dx
+    if kernel == "fused_pair":
+        return (dt, 1.0, 0.5, A[1], B[1], 1.01, 0.49, A[2], B[2])
+    p = (dt, 1.0, 0.5, A[1], B[1], 1.0001, A[2], B[2])
+    return p + ((0.49, B[0]) if kernel == "coupled_pair_deferred" else ())
+
+
+def pad(t, hx, hy):
+    """``t`` padded periodically by ``hx`` rows along x, ``hy`` along y."""
+    if hx:
+        t = torch.cat([t[:, -hx:], t, t[:, :hx]], 1)
+    if hy:
+        t = torch.cat([t[:, :, -hy:], t, t[:, :, :hy]], 2)
+    return t.contiguous()
+
+
+def nans(st):
+    return [t.fill_(float("nan")) for t in st._new_set("cpu")]
+
+
+def same(a, b):
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def rel(got, ref):
+    got, ref = got.double(), ref.double()
+    return ((got - ref).abs().max()
+            / ref.abs().max().clamp_min(1e-300)).item()
+
+
+def check(tag, ok):
+    RESULTS.append(ok)
+    print("ok  " if ok else "FAIL", tag, flush=True)
+
+
+class Case:
+    """One model on one lattice: this checkout's kernels (and another
+    checkout's, with ``--against``) and a seeded set of inputs."""
+
+    def __init__(self, args, F, h, grid, dtype, carry, potential, gw=False):
+        sector = pt.ScalarSector(F, potential=potential)
+        self.dx = 5.0 / grid[0]
+        if gw:
+            make = lambda: pt.FusedPreheatStepper(  # noqa: E731
+                sector, pt.TensorPerturbationSector([sector]), grid,
+                self.dx, h, dtype=dtype, carry_dtype=carry, device="cpu")
+        else:
+            make = lambda: pt.FusedScalarStepper(  # noqa: E731
+                sector, grid, self.dx, h, dtype=dtype, carry_dtype=carry,
+                device="cpu")
+        self.new = built(make(), defines=args.defines)
+        self.old = (built(make(), Path(args.against) / "pystella_tpu_torch"
+                          / "ops" / "csrc", args.defines)
+                    if args.against else None)
+        self.grid, self.h, self.F = grid, h, F
+        self.tol = 1e-5 if dtype == torch.float32 else 1e-13
+        g = torch.Generator().manual_seed(0)
+        amps = (1e-3, 1e-4, 1e-5, 1e-3, 1e-3, 1e-4, 1e-5, 1e-4)
+        self.ins = [(a * torch.randn((c,) + grid, generator=g,
+                                     dtype=dtype)).to(d)
+                    for a, c, d in zip(amps, self.new._comps,
+                                       self.new._in_dtypes(False))]
+        tile = self.new.march_kernel_tile(dtype, "fused_pair.cu")
+        self.name = (f"{'GW ' if gw else ''}F{F} h{h} {grid} "
+                     f"{str(dtype)[6:]} {'bf16' if carry else 'T'} tile {tile}")
+
+    def launch(self, K, ins, p, kind=None):
+        """This checkout's launch, and whether the other checkout's equals
+        it (True without one)."""
+        outs = []
+        for st in filter(None, (self.new, self.old)):
+            with shim():
+                outs.append(st.launch(K, ins, nans(st), p) if kind is None
+                            else st.launch_block(K, kind, ins, nans(st), p))
+        return outs[0], len(outs) == 1 or same(*outs)
+
+    def window(self, K, hx, hy):
+        wins = tfused._WINDOWS[K]
+        return [pad(t, hx, hy) if j in wins else t
+                for j, t in enumerate(self.ins)]
+
+    def run(self, kernels, kinds=True):
+        X, h, n = self.grid[0], self.h, len(self.new._comps)
+        other = " and other checkout" if self.old else ""
+        for K in kernels:
+            p = params(tfused._GW_OF.get(K, K), self.dx)
+            tag = f"{self.name} {K}"
+            a, ok = self.launch(K, self.ins, p)
+            if self.old:
+                check(f"{tag} == other checkout", ok)
+            err = max(rel(x, y) for x, y in zip(
+                a[:n], self.new.plain(K, self.ins, p)[:n]))
+            check(f"{tag} vs plain {err:.1e}", err <= self.tol)
+            if not kinds:
+                continue
+            for kind, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
+                                   ("xypad", (h, h))):
+                pa, ok = self.launch(K, self.window(K, hx, hy), p, kind)
+                check(f"{tag}:{kind} == unpadded{other}", ok and same(pa, a))
+            if K == "fused_pair" and X > 2 * h:
+                self.shells(K, p, a)
+            if K.startswith("coupled") and X % 2 == 0:
+                self.two_blocks(K, p, a)
+
+    def shells(self, K, p, a):
+        """The interior launch and the two shells equal ``:xpad``."""
+        X, h, st = self.grid[0], self.h, self.new
+        xpad = self.window(K, h, 0)
+        wins = tfused._WINDOWS[K]
+        outs = nans(st)
+        with shim():
+            st.launch_block(K, "interior", self.ins, outs, p, x0=h)
+            for x0 in (0, X - h):
+                st.launch_block(K, "shell", [
+                    t.narrow(1, x0, 3 * h).contiguous() if j in wins else t
+                    for j, t in enumerate(xpad)], outs, p, x0=x0)
+        check(f"{self.name} {K} interior + shells == xpad",
+              same(outs, a[:len(st._comps)]))
+
+    def two_blocks(self, K, p, a):
+        """Two x blocks writing partials at their whole-lattice places give
+        the unsharded sums."""
+        (X, Y, Z), h, st = self.grid, self.h, self.new
+        nb = st._num_blocks(X, Y, Z)
+        buf = torch.full((2 * (2 * self.F + 1) * nb,), float("nan"),
+                         dtype=st.dtype)
+        xpad = self.window(K, h, 0)
+        wins = tfused._WINDOWS[K]
+        outs = nans(st)
+        with shim():
+            for x0 in (0, X // 2):
+                st.launch_block(K, "xpad", [
+                    t.narrow(1, x0, X // 2 + 2 * h).contiguous()
+                    if j in wins else t for j, t in enumerate(xpad)],
+                    outs, p, x0=x0, partials=(buf, nb, x0, 0, -(-Y // 8)))
+            sums = st._finish_sums(K, buf, nb, "cpu")
+        check(f"{self.name} {K} two x blocks' partials == unsharded",
+              same(outs + sums, a))
+
+
+def scalar(args):
+    kernels = ("fused_pair", "coupled_pair", "coupled_pair_deferred")
+    for grid, dtype, carry in itertools.product(
+            [(16, 16, 16), (70, 12, 40), (5, 9, 33)],
+            [torch.float32, torch.float64], [None, torch.bfloat16]):
+        Case(args, 2, 2, grid, dtype, carry, bench_potential).run(kernels)
+    for dtype, carry in itertools.product([torch.float32, torch.float64],
+                                          [None, torch.bfloat16]):
+        Case(args, 5, 4, (37, 12, 40), dtype, carry,
+             many_potential(5)).run(kernels)
+    for h in (1, 3):
+        Case(args, 3, h, (19, 10, 35), torch.float64, None,
+             many_potential(3)).run(kernels)
+    Case(args, 1, 2, (2, 2, 2), torch.float64, None,
+         lambda f: 0.5 * f[0]**2).run(kernels, kinds=False)
+
+
+def gw(args):
+    kernels = ("preheat_pair", "preheat_coupled_pair",
+               "preheat_coupled_pair_deferred")
+    for grid, dtype, carry in [((16, 16, 16), torch.float32, None),
+                               ((70, 12, 40), torch.float64, None),
+                               ((5, 9, 33), torch.float32, torch.bfloat16)]:
+        Case(args, 2, 2, grid, dtype, carry, bench_potential,
+             gw=True).run(kernels)
+    Case(args, 5, 4, (13, 12, 40), torch.float64, torch.bfloat16,
+         many_potential(5), gw=True).run(kernels)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--gw", action="store_true",
+                        help="the GW pairs K8 and K9 instead of K3 and K6")
+    parser.add_argument("--lx", type=int, default=4,
+                        help="the march's run length to build with")
+    parser.add_argument("--against", metavar="DIR",
+                        help="another checkout's root, held bit for bit")
+    args = parser.parse_args()
+    if args.gw:
+        tfused.MARCH_LX = args.lx
+        args.defines = f"\n#define PK_MARCH_LX {args.lx}\n"
+    else:
+        tfused.SCALAR_MARCH_LX = args.lx
+        args.defines = f"\n#define PK_SCALAR_MARCH_LX {args.lx}\n"
+    t0 = time.time()
+    (gw if args.gw else scalar)(args)
+    failed = RESULTS.count(False)
+    print(f"{len(RESULTS) - failed} ok, {failed} failed, "
+          f"{time.time() - t0:.0f} s")
+    sys.exit(1 if failed else 0)
+
+
+if __name__ == "__main__":
+    main()

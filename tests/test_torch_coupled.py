@@ -86,6 +86,16 @@ def jax_coupled():
             0.0, DT, pair=pair)
         out[pair] = ({n: np.asarray(v) for n, v in res.items()},
                      float(exp.a), float(exp.adot), entry)
+    # the pair path in float32 (K6's f32 arithmetic)
+    fused32 = JaxFused(ps.ScalarSector(2, potential=fused_test_potential),
+                       decomp, GRID, DX, H, dtype=jnp.float32, bx=4, by=8)
+    exp = ps.Expansion(1.0, ps.LowStorageRK54)
+    entry = {"a": exp.a, "adot": exp.adot, "mpl": exp.mpl}
+    res = fused32.coupled_multi_step(
+        {k: jnp.asarray(v, jnp.float32) for k, v in _o1_state().items()},
+        1, exp, 0.0, DT, pair=True)
+    out["f32"] = ({n: np.asarray(v) for n, v in res.items()},
+                  float(exp.a), float(exp.adot), entry)
     return out
 
 
@@ -104,6 +114,25 @@ def test_coupled_matches_jax(jax_coupled, pair):
     assert abs(exp.a - a_ref) / a_ref < 1e-13
     assert abs(exp.adot - adot_ref) / abs(adot_ref) < 1e-13
     assert exp.hubble == exp.adot / exp.a
+
+
+def test_coupled_matches_jax_f32(jax_coupled):
+    """(c) The pair path (K6 in both inputs, then the odd tail) in float32
+    vs the JAX package's, from the same background: f and dfdt to 5e-7
+    relative (eight float32 ulp over the step's five stages, where the two
+    packages round a few operations differently), a and adot to 2e-7 (the
+    float32 energy sums add in other orders; the host's Friedmann stages
+    are the same)."""
+    ref, a_ref, adot_ref, entry = jax_coupled["f32"]
+    exp = pt.expansion_from_numpy(entry)
+    state = {k: v.astype(np.float32) for k, v in _o1_state().items()}
+    got = _coupled(_port(dtype=torch.float32), state, 1, exp, True)
+    for name in ("f", "dfdt"):
+        assert got[name].dtype == torch.float32
+        err = _rel(got[name], ref[name])
+        assert err < 5e-7, f"{name}: rel err {err}"
+    assert abs(exp.a - a_ref) / a_ref < 2e-7
+    assert abs(exp.adot - adot_ref) / abs(adot_ref) < 2e-7
 
 
 @pytest.mark.parametrize("nsteps", [1, 2])

@@ -109,12 +109,16 @@ A, B = pt.LowStorageRK54._A, pt.LowStorageRK54._B
 #: itself is no scale
 SUM_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
-#: shapes at the edges of the GW pairs' x-march (a block's tile is 32 z by
-#: 8 y sites, its run 32 x planes; ops/fused.py:march_tile): X not a
-#: multiple of the run with Y and Z not multiples of the tile; X below the
-#: run and Y below the tile; and 16^3
+#: shapes at the edges of the pairs' x-march (a block's tile is 32 z by
+#: 8 y sites, its run 24 x planes for K3 and K6, 32 for K8 and K9;
+#: ops/fused.py:march_tile): X not a multiple of the run with Y and Z not
+#: multiples of the tile; X below the run and Y below the tile; and 16^3
 MARCH_GRIDS = [(70, 12, 40), (5, 9, 33), (16, 16, 16)]
 MARCH_IDS = ["70x12x40", "5x9x33", "16cubed"]
+#: the x-marching pairs: K3, K6 (both inputs), K8, K9 (both inputs)
+MARCH_KERNELS = ["fused_pair", "coupled_pair", "coupled_pair_deferred",
+                 "preheat_pair", "preheat_coupled_pair",
+                 "preheat_coupled_pair_deferred"]
 
 
 def _params(kernel, dx):
@@ -214,10 +218,11 @@ def test_sums_bitwise_repeatable(cuda, kernel, dtype):
                          ids=["48x40x36"] + MARCH_IDS)
 @pytest.mark.parametrize("gw", [False, True], ids=["scalar", "gw"])
 def test_kernel_identities(cuda, gw, grid, dtype):
-    """K5's lattice outputs are bitwise K2's; the K6 pair + the finalize
-    equals the K3 pair with hubble2 = hubfix to rounding. GW: the K8 pair
-    equals two K7 stages bit for bit (the x-march's shared f1 and h1 are
-    the values the first stage stores)."""
+    """K5's lattice outputs are bitwise K2's; the K3 pair equals two K2
+    stages bit for bit (the x-march's shared f1 is the value the first
+    stage stores); the K6 pair + the finalize equals the K3 pair with
+    hubble2 = hubfix to rounding. GW: the K8 pair equals two K7 stages bit
+    for bit (the shared f1 and h1)."""
     if gw:
         st, ins, params = _preheat_case(cuda, "preheat_pair", grid, dtype, 2)
         new = lambda: [torch.empty_like(t) for t in ins]  # noqa
@@ -237,6 +242,14 @@ def test_kernel_identities(cuda, gw, grid, dtype):
     k2 = st.launch("fused_stage", ins, new(), params[:5])
     k5 = st.launch("fused_stage_energy", ins, new(), params[:5])
     for a, b in zip(k2, k5):
+        assert torch.equal(a, b)
+    dt = params[0]
+    pair = st.launch("fused_pair", ins, new(),
+                     (dt, 1.0, 0.5, A[1], B[1], 1.01, 0.49, A[2], B[2]))
+    mid = st.launch("fused_stage", ins, new(), (dt, 1.0, 0.5, A[1], B[1]))
+    two = st.launch("fused_stage", mid, new(), (dt, 1.01, 0.49, A[2], B[2]))
+    torch.cuda.synchronize()
+    for a, b in zip(pair, two):
         assert torch.equal(a, b)
     hubfix = 0.49
     pair = st.launch("coupled_pair", ins, new(), params)
@@ -452,18 +465,19 @@ def test_preheat_kernel_matches_plain(cuda, kernel, grid, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid", MARCH_GRIDS, ids=MARCH_IDS)
 @pytest.mark.parametrize("carry", ["f32", "f64", "f32-bf16", "f64-bf16"])
-@pytest.mark.parametrize("kernel", ["preheat_pair", "preheat_coupled_pair",
-                                    "preheat_coupled_pair_deferred"])
+@pytest.mark.parametrize("kernel", MARCH_KERNELS)
 def test_march_edges_match_plain(cuda, kernel, carry, grid):
-    """K8 and both K9 inputs at the x-march's edges (runs cut short, tiles
-    hanging over Y and Z), with carries in the working type and in bf16:
-    every lattice output at KERNEL_TOL of the plain version, the sums at
-    SUM_TOL of sum |term|, and a second launch bit-equal to the first."""
+    """K3, K8 and both inputs of K6 and K9 at the x-march's edges (runs cut
+    short, tiles hanging over Y and Z), with carries in the working type
+    and in bf16: every lattice output at KERNEL_TOL of the plain version,
+    the sums at SUM_TOL of sum |term|, and a second launch bit-equal to
+    the first."""
     dtype, carry_dtype = CARRIES[carry]
-    if carry_dtype is None:
+    if carry_dtype is None and kernel in GW_KERNELS:
         st, ins, params = _preheat_case(cuda, kernel, grid, dtype, 4)
     else:
-        st, ins, params = _bf16_case(cuda, kernel, False, grid, dtype, 4)
+        st, ins, params = _bf16_case(cuda, kernel, False, grid, dtype, 4,
+                                     carry_dtype)
     n = len(ins)
     plain = st.plain(kernel, ins, params)
     one = st.launch(kernel, ins, st._new_set(cuda), params)
@@ -494,28 +508,32 @@ def many_potential(n):
 #: march_tile): five fields at h = 4 leave no room for a tensor component
 #: beside every field's f and f1 in f64, which marches scalar passes of
 #: four fields and one, then tensor passes of three components; f32 stays
-#: joint, three components a pass. The grid's runs and tiles are cut short
+#: joint, three components a pass. The scalar march of the same model holds
+#: every field's f and f1 in f32 (at one block an SM) but not in f64, so
+#: it marches scalar passes there. The grid's runs and tiles are cut short
 SPLIT_F, SPLIT_H, SPLIT_GRID = 5, 4, (37, 12, 40)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("carry", ["f32", "f64", "f32-bf16", "f64-bf16"])
-@pytest.mark.parametrize("kernel", ["preheat_pair", "preheat_coupled_pair",
-                                    "preheat_coupled_pair_deferred"])
+@pytest.mark.parametrize("kernel", MARCH_KERNELS)
 def test_march_split_layout_matches_plain(cuda, kernel, carry):
-    """K8 and both K9 inputs of the five-field model at h = 4, carries in
-    the working type and in bf16: every lattice output at KERNEL_TOL of
-    the plain version, the sums at SUM_TOL of sum |term|; a second launch
-    and the x- and y-padded launch on windows padded by hand equal the
-    first bit for bit; K8 equals two K7 stages across a step boundary
-    bit for bit, and its interior and two x-shell launches its x-padded
-    one."""
+    """K3, K8 and both inputs of K6 and K9 of the five-field model at h =
+    4, carries in the working type and in bf16: every lattice output at
+    KERNEL_TOL of the plain version, the sums at SUM_TOL of sum |term|; a
+    second launch and the x- and y-padded launch on windows padded by hand
+    equal the first bit for bit; the pair (K3, K8) equals two single
+    stages (K2, K7) across a step boundary bit for bit, and its interior
+    and two x-shell launches its x-padded one."""
     dtype, carry_dtype = CARRIES[carry]
     grid, h = SPLIT_GRID, SPLIT_H
     sector = pt.ScalarSector(SPLIT_F, potential=many_potential(SPLIT_F))
-    st = pt.FusedPreheatStepper(sector, pt.TensorPerturbationSector(
-        [sector]), grid, 5.0 / grid[0], h, dtype=dtype,
-        carry_dtype=carry_dtype, device=cuda)
+    kw = dict(dtype=dtype, carry_dtype=carry_dtype, device=cuda)
+    if kernel in GW_KERNELS:
+        st = pt.FusedPreheatStepper(sector, pt.TensorPerturbationSector(
+            [sector]), grid, 5.0 / grid[0], h, **kw)
+    else:
+        st = pt.FusedScalarStepper(sector, grid, 5.0 / grid[0], h, **kw)
     g = torch.Generator(device=cuda).manual_seed(6)
     amps = (1e-3, 1e-4, 1e-5, 1e-3, 1e-3, 1e-4, 1e-5, 1e-4)
     ins = [(a * torch.randn((c,) + grid, generator=g, device=cuda,
@@ -532,10 +550,15 @@ def test_march_split_layout_matches_plain(cuda, kernel, carry):
                           for j, t in enumerate(ins)],
         st._new_set(cuda), params)
     torch.cuda.synchronize()
-    (_, gf, g_, joint), _ = st.march_kernel_tile(
-        dtype, tfused.KERNELS[kernel][0])
-    assert (joint, gf, g_) == ((1, 5, 3) if dtype == torch.float32
-                               else (0, 4, 3))
+    tile = st.march_kernel_tile(dtype, tfused.KERNELS[kernel][0])
+    (_, gf, g_, joint), _ = tile
+    assert tile == tfused.march_tile(SPLIT_F, h, dtype.itemsize,
+                                     st._march_nh)
+    if kernel in GW_KERNELS:
+        assert (joint, gf, g_) == ((1, 5, 3) if dtype == torch.float32
+                                   else (0, 4, 3))
+    else:
+        assert g_ == 0 and (dtype == torch.float32 or not joint)
     assert len(one) == len(plain) == n + tfused.SUM_SETS[kernel]
     for a, b, c in zip(one, two, padded):
         assert torch.equal(a, b) and torch.equal(a, c)
@@ -548,11 +571,12 @@ def test_march_split_layout_matches_plain(cuda, kernel, carry):
                              plain, params)) <= SUM_TOL[dtype]
         return
     dt = params[0]
+    stage = st._KERNEL["stage"]
     pair = st.launch(kernel, ins, st._new_set(cuda),
                      (dt, 1.0, 0.5, A[4], B[4], 1.01, 0.49, A[0], B[0]))
-    mid = st.launch("preheat_stage", ins, st._new_set(cuda),
+    mid = st.launch(stage, ins, st._new_set(cuda),
                     (dt, 1.0, 0.5, A[4], B[4]))
-    stages = st.launch("preheat_stage", mid, st._new_set(cuda),
+    stages = st.launch(stage, mid, st._new_set(cuda),
                        (dt, 1.01, 0.49, A[0], B[0]))
     X = grid[0]
     xpad = [_pad_periodic(t, h, 0) if j in wins else t
@@ -973,13 +997,15 @@ BF16_CASES = [(k, False) for k in ("fused_stage_energy", "coupled_pair",
     ("fused_stage_energy", True), ("preheat_stage_energy", True)]
 
 
-def _bf16_case(cuda, kernel, fin, grid, dtype, seed=0):
+def _bf16_case(cuda, kernel, fin, grid, dtype, seed=0,
+               carry_dtype=torch.bfloat16):
     """A bf16-carry stepper of the bench model (the GW one for a GW
     kernel), the kernel's inputs at bench-like amplitudes (carries in
     bf16; with ``fin`` the velocity carries in the working type) and its
-    scalars."""
+    scalars; with ``carry_dtype=None`` the same with carries in the working
+    type."""
     sector = pt.ScalarSector(2, potential=bench_potential)
-    kw = dict(dtype=dtype, carry_dtype=torch.bfloat16, device=cuda)
+    kw = dict(dtype=dtype, carry_dtype=carry_dtype, device=cuda)
     if kernel in GW_KERNELS:
         st = pt.FusedPreheatStepper(sector, pt.TensorPerturbationSector(
             [sector]), grid, 5.0 / grid[0], H, **kw)
@@ -1477,6 +1503,24 @@ def test_sharded_sums_equal_unsharded(cuda, kernel, mesh, grid):
     multiple of the kernel block's 8 rows; at 70x16x40 a block's 35 or 70
     x rows are no multiple of the x-march's run), and its lattice outputs;
     the stepper says so (sum_order)."""
+    _sharded_sums_case(cuda, kernel, mesh, grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(70, 12, 40), (10, 9, 33)],
+                         ids=["70x12x40", "10x9x33"])
+@pytest.mark.parametrize("kernel", ["coupled_pair", "coupled_pair_deferred",
+                                    "preheat_coupled_pair",
+                                    "preheat_coupled_pair_deferred"])
+def test_sharded_sums_equal_unsharded_march_shapes(cuda, kernel, grid):
+    """The same on (2, 1, 1) at the x-march's edge shapes: blocks of
+    35x12x40 and 5x9x33 (runs cut short, y tiles hanging past Y, which is
+    unsharded): the pairs' sums and lattice outputs equal the unsharded
+    launch's bit for bit."""
+    _sharded_sums_case(cuda, kernel, (2, 1, 1), grid)
+
+
+def _sharded_sums_case(cuda, kernel, mesh, grid):
     dtype = torch.float64
     st, ins, params = _new_sharded_case(cuda, kernel, grid, dtype, 3)
     ref = st.launch(kernel, ins, [torch.empty_like(t) for t in ins], params)

@@ -1,4 +1,5 @@
-"""The x-march tile of the GW pair kernels (K8, K9) as the host mirrors it
+"""The x-march tile of the pair kernels (the scalar pairs K3, K6 and the GW
+pairs K8, K9) as the host mirrors it
 (``pystella_tpu_torch.ops.fused.march_tile``), and the smoke run's phase
 selection (``chip_smoke.py --phases``).
 
@@ -75,6 +76,41 @@ def test_march_tile_fits_every_accepted_stepper(F, dtype, carry, h):
     assert nbytes + sums * isz <= SMEM_MAX
 
 
+#: elements of one tapped array in a march tile at stencil radius h: the
+#: 32 x 8 tile's centre plane with its y-z halo, (8 + 2h) (32 + 2h), and a
+#: ring of 2h + 1 planes of 256
+TILE_SITES = {1: 1108, 2: 1712, 3: 2324, 4: 2944}
+
+
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+@pytest.mark.parametrize("carry", [None, torch.bfloat16], ids=["T", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("F", [1, 2, 5, 9, 12])
+def test_scalar_march_tile_fits_every_accepted_stepper(F, dtype, carry, h):
+    """Every field count, working dtype, carry dtype and stencil radius a
+    scalar stepper accepts has a tile for K3 and K6, with no tensor
+    component: f and f1 of each field a pass holds in a block's 232,448
+    bytes, beside K6's per-warp partials. Joint (one pass of every field)
+    below the first field count whose 2F arrays do not fit -- f64 from
+    nine fields at h = 2 (five at h = 4), f32 from ten at h = 4 -- and
+    split from there, with passes of one field fewer than that count. The
+    carries live in device memory only, so the tile is the carry dtype's
+    to share."""
+    st = pt.FusedScalarStepper(pt.ScalarSector(F, potential=many_potential(
+        F)), (8, 8, 8), 0.1, h, dtype=dtype, carry_dtype=carry,
+        device="cpu")
+    assert st._march_nh == 0
+    isz = st.dtype.itemsize
+    (lx, gf, g, joint), nbytes = tfused.march_tile(F, h, isz, st._march_nh)
+    assert lx == tfused.SCALAR_MARCH_LX and g == 0
+    first_split = {4: {1: 26, 2: 17, 3: 13, 4: 10},
+                   8: {1: 13, 2: 9, 3: 7, 4: 5}}[isz][h]
+    assert bool(joint) == (F < first_split)
+    assert gf == (F if joint else first_split - 1)
+    assert nbytes == 2 * gf * TILE_SITES[h] * isz <= SMEM_MAX
+
+
 def test_march_tile_examples():
     """The main path's tile (f32, h = 2, two fields: joint, all six
     components a pass, 109,568 bytes), the f64 one at
@@ -84,6 +120,28 @@ def test_march_tile_examples():
     assert tfused.march_tile(2, 2, 4) == ((32, 2, 6, 1), 109568)
     assert tfused.march_tile(2, 4, 8) == ((32, 2, 2, 1), 188416)
     assert tfused.march_tile(12, 4, 8) == ((32, 4, 3, 0), 188416)
+
+
+@pytest.mark.parametrize("args,lx,want", [
+    ((2, 2, 4), 32, ((32, 2, 0, 1), 27392)),
+    ((5, 4, 8), 32, ((32, 4, 0, 0), 188416)),
+    ((4, 4, 8), 32, ((32, 4, 0, 1), 188416)),
+    ((7, 3, 8), 16, ((16, 6, 0, 0), 223104)),
+    ((10, 4, 4), 24, ((24, 9, 0, 0), 211968)),
+    ((9, 2, 8), 64, ((64, 8, 0, 0), 219136)),
+], ids=["main-path", "f64-h4-split", "f64-h4-joint", "f64-h3-split",
+        "f32-h4-split", "f64-h2-split"])
+def test_scalar_march_tile_examples(args, lx, want):
+    """The scalar march's tile (no tensor component): the main path's (f32,
+    h = 2, two fields: joint, 4 x 1,712 elements, 27,392 bytes); five
+    fields in f64 at h = 4 split four and one, four fields joint; the
+    first split of f64 at h = 3 (seven fields: six and one), of f32 at
+    h = 4 (ten: nine and one) and of f64 at h = 2 (nine: eight and one).
+    Without ``lx`` the tile is the sources' default."""
+    assert tfused.march_tile(*args, nh=0, lx=lx) == want
+    F, h, isz = args
+    assert tfused.march_tile(F, h, isz, 0) == tfused.march_tile(
+        F, h, isz, 0, lx=tfused.SCALAR_MARCH_LX)
 
 
 def _smoke():
