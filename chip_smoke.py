@@ -2237,28 +2237,35 @@ def bf16_padded_ptxas(report):
 
 def march_ptxas(report):
     """The rows of a :func:`ptxas_report` that are instantiations of the
-    x-marching pairs (K3 ``pk_fused_pair_kernel``, K6
+    x-marching kernels (K3 ``pk_fused_pair_kernel``, K6
     ``pk_coupled_pair_kernel``, K8 ``pk_preheat_pair_kernel``, K9
-    ``pk_preheat_coupled_pair_kernel``), with their registers and spill
+    ``pk_preheat_coupled_pair_kernel``, K10
+    ``pk_fused_chunk_march_kernel``), with their registers and spill
     bytes."""
     rows = {}
     for usage in report.values():
         for name, u in usage.items():
-            m = re.search(r"(pk_(?:fused_|coupled_|preheat_|preheat_coupled_)"
-                          r"pair_kernel<[^<>]*>)", name)
+            m = re.search(r"(pk_(?:(?:fused_|coupled_|preheat_|"
+                          r"preheat_coupled_)pair|fused_chunk_march)"
+                          r"_kernel<[^<>]*>)", name)
             if m:
                 rows[m.group(1)] = u
     return rows
 
 
 #: the x-march variants march_variants builds and times: the x planes a
-#: block marches (PK_MARCH_LX for the GW pairs, PK_SCALAR_MARCH_LX for the
-#: scalar pairs); one of them is each family's default
+#: block of the pairs marches (PK_MARCH_LX for the GW pairs,
+#: PK_SCALAR_MARCH_LX for the scalar pairs), and for the chunk those
+#: (PK_CHUNK_LX) by the rows of its first y-z tile (PK_CHUNK_ROWS); one of
+#: them is each family's default
 MARCH_VARIANTS = (16, 24, 32, 64)
+CHUNK_VARIANTS = tuple((lx, rows) for rows in (8, 16)
+                       for lx in MARCH_VARIANTS)
 #: the kernels of each family (each with f32 and with bf16 carries), and
 #: the rounds of launches each variant gets in turn
 MARCH_KERNELS = ("preheat_pair", "preheat_coupled_pair_deferred")
 SCALAR_MARCH_KERNELS = ("fused_pair", "coupled_pair_deferred")
+CHUNK_MARCH_KERNELS = ("fused_chunk",)
 MARCH_ROUNDS, MARCH_REPS = 3, 5
 
 
@@ -2268,31 +2275,71 @@ def march_defines(lx, nh):
     return f"\n#define {'PK_MARCH_LX' if nh else 'PK_SCALAR_MARCH_LX'} {lx}\n"
 
 
+def chunk_defines(variant):
+    """The defines of a chunk march variant ``(lx, rows)``."""
+    lx, rows = variant
+    return f"\n#define PK_CHUNK_LX {lx}\n#define PK_CHUNK_ROWS {rows}\n"
+
+
 def march_variants(phase, sector, gw_sector, dx):
-    """The x-marching pairs at 512^3 f32, with f32 and with bf16 carries,
-    through each run length of MARCH_VARIANTS: K3 and K6 deferred, and K8
-    and K9 deferred. Each variant is built from the same sources into
-    libraries of its own (the model header with the variant's define: one
-    nvcc a source and variant, all of a family at once), its tile is held
-    to ops/fused.py:march_tile, its registers and spills come from ptxas,
-    and its outputs must equal the default build's bit for bit. Then the
-    variants are timed in turns (MARCH_ROUNDS rounds of MARCH_REPS
-    launches each) on one set of arrays, so every variant runs on the same
-    placement."""
+    """The x-marching kernels at 512^3 f32, with f32 and with bf16
+    carries: K3 and K6 deferred, and K8 and K9 deferred, through each run
+    length of MARCH_VARIANTS; K10 through each run length and first-rung
+    rows of CHUNK_VARIANTS. Each variant is built from the same sources
+    into libraries of its own (the model header with the variant's
+    defines: one nvcc a source and variant, all of a family at once), its
+    tile is held to ops/fused.py:march_tile (chunk_tile), its registers
+    and spills come from ptxas, and its outputs must equal the default
+    build's bit for bit. Then the variants are timed in turns
+    (MARCH_ROUNDS rounds of MARCH_REPS launches each) on one set of
+    arrays, so every variant runs on the same placement."""
+    import ctypes
     import pystella_tpu_torch as pt
-    scalar = lambda carry: pt.FusedScalarStepper(  # noqa: E731
-        sector, GRID, dx, HALO, dtype=torch.float32, carry_dtype=carry,
-        device="cuda")
-    gw = lambda carry: pt.FusedPreheatStepper(  # noqa: E731
-        sector, gw_sector, GRID, dx, HALO, dtype=torch.float32,
-        carry_dtype=carry, device="cuda")
-    for label, make, kernels in (("scalar", scalar, SCALAR_MARCH_KERNELS),
-                                 ("gw", gw, MARCH_KERNELS)):
-        march_family(f"{phase}_{label}", make, kernels)
+    from pystella_tpu_torch.ops import fused as tfused
+
+    def stepper(cls, *args, **kw):
+        return lambda carry: cls(*args, GRID, dx, HALO,
+                                 dtype=torch.float32, carry_dtype=carry,
+                                 device="cuda", **kw)
+
+    def pair_family(nh):
+        def tile(st, lib, lx):
+            query = getattr(lib, "pk_preheat_march_tile" if nh
+                            else "pk_scalar_march_tile")
+            query.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            out = (ctypes.c_int * 5)()
+            query(0, out)
+            return ((tuple(out[:4]), out[4]),
+                    tfused.march_tile(st.F, st.h, 4, nh, lx=lx))
+        return (MARCH_VARIANTS, lambda lx: march_defines(lx, nh), tile,
+                lambda lx: {"lx": lx})
+
+    def chunk_tile(st, lib, v):
+        query = lib.pk_fused_chunk_tile
+        query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        out = (ctypes.c_int * 4)()
+        query(CHUNK, 0, out)
+        return ((tuple(out[:3]), out[3]),
+                tfused.chunk_tile(st.F, st.h, 4, CHUNK, lx=v[0], rows=v[1]))
+
+    for label, make, kernels, family in (
+            ("scalar", stepper(pt.FusedScalarStepper, sector),
+             SCALAR_MARCH_KERNELS, pair_family(0)),
+            ("gw", stepper(pt.FusedPreheatStepper, sector, gw_sector),
+             MARCH_KERNELS, pair_family(6)),
+            ("chunk", stepper(pt.FusedScalarStepper, sector,
+                              chunk_stages=CHUNK),
+             CHUNK_MARCH_KERNELS,
+             (CHUNK_VARIANTS, chunk_defines, chunk_tile,
+              lambda v: {"lx": v[0], "rows": v[1]}))):
+        march_family(f"{phase}_{label}", make, kernels, *family)
 
 
-def march_family(phase, make, kernels):
-    """:func:`march_variants` for one family of march kernels."""
+def march_family(phase, make, kernels, variants, defines, tile, label):
+    """:func:`march_variants` for one family of march kernels: its
+    ``variants``, the model header's suffix ``defines(v)`` of each, its
+    ``tile(stepper, library, v)`` as (the library's, the host mirror's),
+    and the ``label(v)`` of its rows."""
     import ctypes
     from pystella_tpu_torch.ops import fused as tfused
     from pystella_tpu_torch.ops import stencil
@@ -2302,23 +2349,16 @@ def march_family(phase, make, kernels):
     for carry in (None, torch.bfloat16):
         st = make(carry)
         header = st.kernel_header()
-        nh = st._march_nh
         if not builds:
             t0 = time.perf_counter()
-            with ThreadPoolExecutor(len(MARCH_VARIANTS)) as pool:
+            with ThreadPoolExecutor(len(variants)) as pool:
                 libs = list(pool.map(lambda v: stencil.build_kernels(
-                    srcs, header + march_defines(v, nh)), MARCH_VARIANTS))
+                    srcs, header + defines(v)), variants))
             build_s = time.perf_counter() - t0
-            for v, lib in zip(MARCH_VARIANTS, libs):
-                query = getattr(lib[srcs[0]], "pk_preheat_march_tile" if nh
-                                else "pk_scalar_march_tile")
-                query.argtypes = [ctypes.c_int, ctypes.c_void_p]
-                out = (ctypes.c_int * 5)()
-                query(0, out)
-                got = (tuple(out[:4]), out[4])
-                want = tfused.march_tile(st.F, st.h, 4, nh, lx=v)
+            for v, lib in zip(variants, libs):
+                got, want = tile(st, lib[srcs[0]], v)
                 usage = march_ptxas({src: demangled(stencil.ptxas_usage(
-                    stencil.build_log(src, header + march_defines(v, nh))))
+                    stencil.build_log(src, header + defines(v))))
                     for src in srcs})
                 builds[v] = {"lib": lib, "tile": got, "mirror": want,
                              "ptxas": usage}
@@ -2326,7 +2366,7 @@ def march_family(phase, make, kernels):
                     raise SystemExit(f"march variant {v}: the library's "
                                      f"tile {got}, the mirror's {want}")
             emit({"phase": phase + "_build", "seconds": build_s,
-                  "variants": [{"lx": v, "tile": b["tile"][0],
+                  "variants": [{**label(v), "tile": b["tile"][0],
                                 "smem_bytes_per_block": b["tile"][1],
                                 "ptxas": b["ptxas"]}
                                for v, b in builds.items()]})
@@ -2341,7 +2381,8 @@ def march_family(phase, make, kernels):
                 fn.restype = ctypes.c_int
                 fns[v] = fn
             ins = kernel_inputs(GRID, torch.float32, 90 + seed, F=st.F,
-                                gw=bool(nh), dtypes=st._in_dtypes(False))
+                                gw=bool(st._march_nh),
+                                dtypes=st._in_dtypes(False))
             params = kernel_params(name, st.dx[0])
             ref = [t.clone() for t in st.launch(name, ins, st._new_set(
                 ins[0].device), params)]
@@ -2369,7 +2410,7 @@ def march_family(phase, make, kernels):
             emit({"phase": phase, "kernel": st.counted_name(name),
                   "shape": GRID, "dtype": "torch.float32",
                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                  "variants": [{"lx": v, "ms": sum(r) / len(r),
+                  "variants": [{**label(v), "ms": sum(r) / len(r),
                                 "ms_rounds": r,
                                 "equal_to_default": equal[v]}
                                for v, r in rounds.items()]})
@@ -3263,8 +3304,8 @@ PHASE_DEPS = {"sharded_mg": ("mg",), "sharded": ("scalar",),
               "sharded_coupled": ("scalar",), "sharded_gw": ("gw",),
               "sharded_bf16": ("scalar", "gw")}
 #: phases a run takes only when selected: march_variants builds the x-march
-#: variants of K3 and K6 and of K8 and K9 into libraries of their own and
-#: times them
+#: variants of K3 and K6, of K8 and K9 and of K10 into libraries of their
+#: own and times them
 OPT_IN_PHASES = ("march_variants",)
 PHASE_HELP = {
     "scalar": "the scalar system: kernels vs plain, identities, references, "
@@ -3281,9 +3322,9 @@ PHASE_HELP = {
     "sharded_coupled": "the sharded coupled driver and its trace",
     "sharded_gw": "the sharded GW multi_step and coupled driver",
     "sharded_bf16": "the sharded bf16-carry launches and paths",
-    "march_variants": "the x-march tile variants of K3 and K6 deferred "
-                      "and of K8 and K9 deferred, built apart and timed "
-                      "against each other"}
+    "march_variants": "the x-march tile variants of K3 and K6 deferred, "
+                      "of K8 and K9 deferred and of K10, built apart and "
+                      "timed against each other"}
 
 
 def selected_phases(argv):
@@ -3416,24 +3457,26 @@ def main(argv=None):
                         "mg_relax.cu", solver.kernel_header())
                        for kind, solver in (("newton", newton),
                                             ("jacobi", jacobi))}},
-          # K10's dynamic shared memory: the output tile and bytes a block
-          "fused_chunk_tile": {d: {"tile": t[0], "smem_bytes_per_block":
-                                   t[1]} for d, t in tiles.items()}})
+          # K10's x-march: run length, y-z tile and bytes a block
+          "fused_chunk_tile": {d: {"lx": t[0][0], "tile": t[0][1:],
+                                   "smem_bytes_per_block": t[1]}
+                               for d, t in tiles.items()}})
     emit({"phase": "build_sharded_bf16_ptxas",
           "kernels": bf16_padded_ptxas(ptxas)})
-    # the x-marching pairs (K3, K6; K8, K9): each source's tile and dynamic
-    # shared memory as the library reports it (build_kernels held it to
-    # the host mirror), and each instantiation's registers and spills;
-    # none of the float ones may spill
+    # the x-marching kernels (K3, K6; K8, K9; K10): each source's tile and
+    # dynamic shared memory as the library reports it (build_kernels held
+    # it to the host mirror), and each instantiation's registers and
+    # spills; none of the float ones may spill
     march_rows = march_ptxas(ptxas)
     f32_spills = [n for n, u in march_rows.items() if "<float," in n
                   and (u.get("spill_stores") or u.get("spill_loads"))]
     emit({"phase": "build_march_ptxas",
-          "tiles": {f"{src} ({label})": {
+          "tiles": {**{f"{src} ({label})": {
               str(d): st.march_kernel_tile(d, src)
               for d in (torch.float32, torch.float64)}
               for label, st in (("scalar", chunk_st), ("gw", gw_st))
               for src in st._march_sources()},
+              "fused_chunk.cu (scalar)": tiles},
           "kernels": march_rows, "f32_spills": f32_spills})
     if f32_spills:
         raise SystemExit(f"float x-march instantiations spill: {f32_spills}")
@@ -3482,7 +3525,7 @@ def main(argv=None):
     timing = {}
     launches = {}
 
-    # -- 2b. the x-march variants of K8 and K9 (opt-in) ----------------------
+    # -- 2b. the x-march variants of K3, K6, K8, K9, K10 (opt-in) ------------
     if "march_variants" in phases:
         march_variants("march_variants", sector, gw_sector, dx)
 

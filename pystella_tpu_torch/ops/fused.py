@@ -20,7 +20,8 @@ Hand-written CUDA kernels (``ops/csrc``):
   stages across step boundaries (legal when ``A[0] == 0``), so RK54 runs
   5 pair launches per 2 steps and no single stage at all;
 - ``fused_chunk`` (K10): ``chunk_stages`` (4) consecutive stages in one
-  pass, the intermediate stages held in shared memory; :meth:`multi_step`
+  pass, an x-march in two levels of shared-memory plane rings (stages 1-2,
+  then 3-4); :meth:`multi_step`
   runs chunks first, then pairs, then a single stage, across step
   boundaries;
 - ``fused_stage_energy`` (K5): K2 that also emits the energy sums of its
@@ -239,27 +240,39 @@ LAUNCHES = {name: 0 for name in
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
-#: the most dynamic shared memory a block may use on sm_90, and the chunk
-#: kernel's candidate output tiles in order of preference (the list and
-#: rule of fused_chunk.cu)
+#: the most dynamic shared memory a block may use on sm_90
 _SMEM_MAX = 232448
-_CHUNK_TILES = ((8, 8, 16), (4, 8, 16), (4, 4, 16), (4, 4, 8), (2, 4, 8),
-                (2, 2, 8))
+#: the chunk kernel's x-march (fused_chunk.cu: PkChunkMarch): the x planes a
+#: block marches (PK_CHUNK_LX), the rows of its first y-z tile
+#: (PK_CHUNK_ROWS, 32 columns) and the lower rungs of its ladder of tiles
+#: (rows, columns), in order of preference
+CHUNK_LX = 64
+CHUNK_ROWS = 8
+_CHUNK_RUNGS = ((4, 32), (8, 16), (4, 16), (2, 16), (2, 8), (1, 8), (2, 4))
 
 
-def chunk_tile(F, h, itemsize, depth):
-    """The output tile ``(tx, ty, tz)`` and the shared memory per block
-    (bytes) of the chunk kernel for ``F`` fields, stencil radius ``h``,
-    working type of ``itemsize`` bytes and ``depth`` stages, or ``None``
-    when no kernel of that depth exists or no tile's box (f, dfdt, kf, kdfdt
-    over the tile grown by ``(depth/2)*h`` on each side) fits."""
+def chunk_tile(F, h, itemsize, depth, lx=None, rows=None):
+    """The chunk kernel's x-march for ``F`` fields, stencil radius ``h``, a
+    working type of ``itemsize`` bytes and ``depth`` stages: ``((lx, rows,
+    columns), bytes)`` -- the x planes a block marches, its y-z tile and
+    the dynamic shared memory a block -- or ``None`` when no kernel of
+    that depth exists or no tile fits. ``lx`` and ``rows`` (the first
+    rung's) default to the source's constants. The rule of fused_chunk.cu:
+    the first tile of the ladder whose planes fit the most a block may
+    use, where per field f and f1 keep a ring of 2h+1 planes of the tile
+    grown by ``h`` and the centre plane grown by ``2h`` (level 0), f2 and
+    f3 a ring of 2h+1 planes of the tile grown by ``h`` (level 1), and
+    dfdt2, kf2 and kdfdt2 a ring of h+1 planes of the tile."""
     if depth not in CHUNK_DEPTHS:
         return None
-    R = (depth // 2) * h
-    for t in _CHUNK_TILES:
-        nbytes = 4 * F * itemsize * int(np.prod([n + 2 * R for n in t]))
+    rungs = ((CHUNK_ROWS if rows is None else rows, 32),) + _CHUNK_RUNGS
+    for ty, tz in rungs:
+        g1 = (ty + 2 * h) * (tz + 2 * h)
+        g2 = (ty + 4 * h) * (tz + 4 * h)
+        nbytes = itemsize * F * (2 * (2 * (2 * h + 1) * g1 + g2)
+                                 + 3 * (h + 1) * ty * tz)
         if nbytes <= _SMEM_MAX:
-            return t, nbytes
+            return (CHUNK_LX if lx is None else lx, ty, tz), nbytes
     return None
 
 
@@ -352,8 +365,8 @@ class FusedScalarStepper(_step.Stepper):
         keeps the pair tier. A stepper without a chunk body
         (:class:`FusedPreheatStepper`), a tableau with ``A[0] != 0`` and a
         depth beyond its stages, a depth the kernel is not instantiated for
-        (:data:`CHUNK_DEPTHS`) or a model whose shared-memory box fits no
-        tile (:func:`chunk_tile`) warns and runs pairs instead, on the CPU
+        (:data:`CHUNK_DEPTHS`) or a model whose shared-memory planes fit
+        no tile (:func:`chunk_tile`) warns and runs pairs instead, on the CPU
         as on the GPU.
     :arg device: ``None`` (the GPU), ``"cuda"`` or ``"cpu"``. On a CUDA
         device the kernels are built here (first use; cached on disk).
@@ -628,9 +641,9 @@ class FusedScalarStepper(_step.Stepper):
         self._libs = fns
 
     def chunk_kernel_tile(self, dtype):
-        """The built chunk kernel's output tile and shared memory per
-        block for working type ``dtype``, as the library reports them:
-        ``((tx, ty, tz), bytes)``, or ``None`` without one."""
+        """The built chunk kernel's x-march for working type ``dtype``, as
+        the library reports it: ``((lx, rows, columns), bytes)``
+        (:func:`chunk_tile`), or ``None`` without one."""
         out = (ctypes.c_int * 4)()
         if self._chunk_query(self._chunk_depth,
                              int(dtype == torch.float64), out) != 0:
@@ -1463,7 +1476,7 @@ class FusedScalarStepper(_step.Stepper):
         """Put the requested chunk depth in force, or warn and leave the
         stepper on pairs: without a chunk body, for a wrapped chunk the
         tableau cannot take (``A[0] != 0``), for a depth the kernel has no
-        instantiation for and for a model whose box fits no tile. The
+        instantiation for and for a model whose planes fit no tile. The
         same decisions on the CPU and on the GPU."""
         if not depth:
             return

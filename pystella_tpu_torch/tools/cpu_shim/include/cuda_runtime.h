@@ -28,6 +28,9 @@ struct dim3 {
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
 struct pk_uint3 { unsigned x, y, z; };
+struct alignas(8) float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
 inline thread_local pk_uint3 threadIdx;
 inline thread_local pk_uint3 blockIdx;
 inline thread_local dim3 blockDim, gridDim;

@@ -8,19 +8,22 @@ must equal the unpadded one bit for bit, K3's interior and shell launches
 its ``:xpad`` launch, and two x blocks' partials of K6 the unsharded
 sums. With ``--gw`` the GW pairs K8 and K9 (both inputs) are held to
 their plain versions and their padded launches to the unpadded ones.
-With ``--against DIR``, the root of another checkout (a parent commit
-unpacked with ``git archive``, say), every launch must also equal that
-checkout's kernels bit for bit, sums included.
+With ``--chunk`` the whole-RK chunk K10 (f32, f64, bf16 carries) is held
+to its plain version and to two K3 launches bit for bit, state and
+carries. With ``--against DIR``, the root of another checkout (a parent
+commit unpacked with ``git archive``, say), every launch must also equal
+that checkout's kernels bit for bit, sums included.
 
 Shapes: 16^3, 70x12x40 and 5x9x33 (two fields, h = 2), a five-field model
-at h = 4 (f64: the split layout), three fields at h = 1 and 3, and 2^3,
-where the +-taps wrap onto one site. ``--lx`` is the run length the
-kernels are built with (PK_SCALAR_MARCH_LX; PK_MARCH_LX with ``--gw``):
-the default 4 cuts runs short at every shape and keeps the run to a few
-minutes. Exits 1 if a check fails::
+at h = 4 (f64: the split layout; K10: a lower rung of its ladder of
+tiles), three fields at h = 1 and 3, and 2^3, where the +-taps wrap onto
+one site. ``--lx`` is the run length the kernels are built with
+(PK_SCALAR_MARCH_LX; PK_MARCH_LX with ``--gw``, PK_CHUNK_LX with
+``--chunk``): the default 4 cuts runs short at every shape and keeps the
+run to a few minutes. Exits 1 if a check fails::
 
-    python pystella_tpu_torch/tools/cpu_shim/rehearse.py [--gw] [--lx N]
-        [--against DIR]
+    python pystella_tpu_torch/tools/cpu_shim/rehearse.py [--gw | --chunk]
+        [--lx N] [--against DIR]
 """
 
 import argparse
@@ -58,6 +61,14 @@ def params(kernel, dx):
     return p + ((0.49, B[0]) if kernel == "coupled_pair_deferred" else ())
 
 
+def chunk_params(dx):
+    """K10's launch parameters: dt, then per stage 1-4 a, hubble, A, B."""
+    p = [0.1 * dx]
+    for k, s in enumerate((1, 2, 3, 4)):
+        p += [1.0 + 0.01 * k, 0.5 - 0.01 * k, A[s], B[s]]
+    return tuple(p)
+
+
 def pad(t, hx, hy):
     """``t`` padded periodically by ``hx`` rows along x, ``hy`` along y."""
     if hx:
@@ -91,7 +102,8 @@ class Case:
     """One model on one lattice: this checkout's kernels (and another
     checkout's, with ``--against``) and a seeded set of inputs."""
 
-    def __init__(self, args, F, h, grid, dtype, carry, potential, gw=False):
+    def __init__(self, args, F, h, grid, dtype, carry, potential, gw=False,
+                 chunk=False):
         sector = pt.ScalarSector(F, potential=potential)
         self.dx = 5.0 / grid[0]
         if gw:
@@ -101,11 +113,14 @@ class Case:
         else:
             make = lambda: pt.FusedScalarStepper(  # noqa: E731
                 sector, grid, self.dx, h, dtype=dtype, carry_dtype=carry,
-                device="cpu")
+                chunk_stages=4 if chunk else 0, device="cpu")
         self.new = built(make(), defines=args.defines)
         self.old = (built(make(), Path(args.against) / "pystella_tpu_torch"
                           / "ops" / "csrc", args.defines)
                     if args.against else None)
+        if chunk and self.old and self.old.chunk_kernel_tile(dtype) is None:
+            # the other checkout has no chunk kernel for this model
+            self.old = None
         self.grid, self.h, self.F = grid, h, F
         self.tol = 1e-5 if dtype == torch.float32 else 1e-13
         g = torch.Generator().manual_seed(0)
@@ -114,7 +129,8 @@ class Case:
                                      dtype=dtype)).to(d)
                     for a, c, d in zip(amps, self.new._comps,
                                        self.new._in_dtypes(False))]
-        tile = self.new.march_kernel_tile(dtype, "fused_pair.cu")
+        tile = (self.new.chunk_kernel_tile(dtype) if chunk else
+                self.new.march_kernel_tile(dtype, "fused_pair.cu"))
         self.name = (f"{'GW ' if gw else ''}F{F} h{h} {grid} "
                      f"{str(dtype)[6:]} {'bf16' if carry else 'T'} tile {tile}")
 
@@ -155,6 +171,23 @@ class Case:
                 self.shells(K, p, a)
             if K.startswith("coupled") and X % 2 == 0:
                 self.two_blocks(K, p, a)
+
+    def run_chunk(self):
+        """K10 vs its plain version, vs two K3 launches and, with
+        ``--against``, vs the other checkout's K10."""
+        p = chunk_params(self.dx)
+        tag = f"{self.name} fused_chunk"
+        a, ok = self.launch("fused_chunk", self.ins, p)
+        if self.old:
+            check(f"{tag} == other checkout", ok)
+        err = max(rel(x, y) for x, y in zip(
+            a, self.new.plain("fused_chunk", self.ins, p)))
+        check(f"{tag} vs plain {err:.1e}", err <= self.tol)
+        st = self.new
+        with shim():
+            mid = st.launch("fused_pair", self.ins, nans(st), p[:9])
+            two = st.launch("fused_pair", mid, nans(st), p[:1] + p[9:])
+        check(f"{tag} == two K3 launches", same(a, two))
 
     def shells(self, K, p, a):
         """The interior launch and the two shells equal ``:xpad``."""
@@ -221,10 +254,27 @@ def gw(args):
          many_potential(5), gw=True).run(kernels)
 
 
+def chunk(args):
+    for grid, dtype, carry in itertools.product(
+            [(16, 16, 16), (70, 12, 40), (5, 9, 33), (2, 2, 2)],
+            [torch.float32, torch.float64], [None, torch.bfloat16]):
+        Case(args, 2, 2, grid, dtype, carry, bench_potential,
+             chunk=True).run_chunk()
+    for h in (1, 3):
+        Case(args, 3, h, (19, 10, 35), torch.float64, None,
+             many_potential(3), chunk=True).run_chunk()
+    for carry in (None, torch.bfloat16):
+        Case(args, 5, 4, (13, 12, 40), torch.float64, carry,
+             many_potential(5), chunk=True).run_chunk()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--gw", action="store_true",
+    family = parser.add_mutually_exclusive_group()
+    family.add_argument("--gw", action="store_true",
                         help="the GW pairs K8 and K9 instead of K3 and K6")
+    family.add_argument("--chunk", action="store_true",
+                        help="the whole-RK chunk K10 instead of K3 and K6")
     parser.add_argument("--lx", type=int, default=4,
                         help="the march's run length to build with")
     parser.add_argument("--against", metavar="DIR",
@@ -233,11 +283,14 @@ def main():
     if args.gw:
         tfused.MARCH_LX = args.lx
         args.defines = f"\n#define PK_MARCH_LX {args.lx}\n"
+    elif args.chunk:
+        tfused.CHUNK_LX = args.lx
+        args.defines = f"\n#define PK_CHUNK_LX {args.lx}\n"
     else:
         tfused.SCALAR_MARCH_LX = args.lx
         args.defines = f"\n#define PK_SCALAR_MARCH_LX {args.lx}\n"
     t0 = time.time()
-    (gw if args.gw else scalar)(args)
+    (gw if args.gw else chunk if args.chunk else scalar)(args)
     failed = RESULTS.count(False)
     print(f"{len(RESULTS) - failed} ok, {failed} failed, "
           f"{time.time() - t0:.0f} s")

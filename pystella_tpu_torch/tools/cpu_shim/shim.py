@@ -109,8 +109,8 @@ from pystella_tpu_torch.ops import fused as tfused  # noqa: E402
 def built(stepper, csrc=CSRC, defines=""):
     """Give a stepper made with ``device="cpu"`` the g++ libraries of the
     sources in ``csrc`` (another checkout's, for a comparison), its model
-    header followed by ``defines``. The x-march tile is held to
-    ``march_tile`` for this checkout's sources only."""
+    header followed by ``defines``. The x-march tiles are held to
+    ``march_tile`` and ``chunk_tile`` for this checkout's sources only."""
     def build_kernels(sources, header):
         with ThreadPoolExecutor(len(sources)) as pool:
             libs = list(pool.map(
@@ -121,11 +121,14 @@ def built(stepper, csrc=CSRC, defines=""):
     tfused._stencil.build_kernels = build_kernels
     if Path(csrc).resolve() != CSRC:
         stepper._march_sources = lambda: []
+        stepper.chunk_kernel_tile = lambda dtype: tfused.chunk_tile(
+            stepper.F, stepper.h, dtype.itemsize, stepper._chunk_depth)
     try:
         stepper.build_kernels()
     finally:
         tfused._stencil.build_kernels = keep
         vars(stepper).pop("_march_sources", None)
+        vars(stepper).pop("chunk_kernel_tile", None)
     return stepper
 
 

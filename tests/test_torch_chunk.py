@@ -264,8 +264,8 @@ def test_wrapped_chunk_needs_zero_A():
 def test_chunk_falls_back_to_pairs(case):
     """What the chunk kernel cannot take warns in the JAX package's words
     and runs pairs: the GW stepper (no chunk body), a depth without a
-    kernel instantiation, a model whose shared-memory box fits no tile
-    (F=2, h=4 in f64)."""
+    kernel instantiation, a model whose shared-memory planes fit no tile
+    of the ladder (eight fields at h=4 in f64)."""
     sector = pt.ScalarSector(2, potential=potential)
     with pytest.warns(UserWarning, match="whole-RK-chunk fusion disabled"):
         if case == "preheat":
@@ -275,7 +275,9 @@ def test_chunk_falls_back_to_pairs(case):
         elif case == "depth6":
             st = _port(chunk_stages=6)
         else:
-            st = pt.FusedScalarStepper(sector, GRID, DX, 4,
+            wide = pt.ScalarSector(8, potential=lambda f: sum(
+                0.5 * f[i] ** 2 for i in range(8)))
+            st = pt.FusedScalarStepper(wide, GRID, DX, 4,
                                        dtype=torch.float64, chunk_stages=4,
                                        device="cpu")
     assert st._chunk_depth == 0
@@ -356,11 +358,67 @@ def test_tier_report_bytes(jax_ref, precision):
 
 
 def test_chunk_tile_rule():
-    """The tile rule the kernel's compile-time choice mirrors."""
-    assert tfused.chunk_tile(2, 2, 4, 4) == ((8, 8, 16), 196608)
-    assert tfused.chunk_tile(2, 2, 8, 4) == ((4, 4, 16), 221184)
-    assert tfused.chunk_tile(2, 4, 8, 4) is None
+    """The x-march the kernel's compile-time choice mirrors: ((run length,
+    tile rows, tile columns), bytes a block), counted by hand. Per field,
+    level 0 holds f and f1 as a ring of 2h+1 planes of the tile grown by h
+    and a centre plane grown by 2h, level 1 f2 and f3 as a ring of 2h+1
+    planes grown by h, the delay ring dfdt2, kf2 and kdfdt2 on h+1 planes
+    of the tile."""
+    # two fields, h = 2, the first rung 8 x 32: planes of 12 x 36 = 432
+    # and 16 x 40 = 640 sites; 4 x (5 x 432 + 640) + 4 x 5 x 432 + 6 x 3 x
+    # 256 = 24,448 elements
+    assert tfused.chunk_tile(2, 2, 4, 4) == ((64, 8, 32), 97792)
+    assert tfused.chunk_tile(2, 2, 8, 4) == ((64, 8, 32), 195584)
+    # the variants' first rung of 16 rows: 20 x 36 = 720 and 24 x 40 = 960
+    # sites; 4 x (5 x 720 + 960) + 4 x 5 x 720 + 6 x 3 x 512 = 41,856
+    assert tfused.chunk_tile(2, 2, 4, 4, lx=16, rows=16) == (
+        (16, 16, 32), 167424)
+    # three fields, h = 3, f64: the rung 4 x 16, planes of 10 x 22 = 220 and
+    # 16 x 28 = 448 sites; 6 x (7 x 220 + 448) + 6 x 7 x 220 + 9 x 4 x 64
+    # = 23,472 elements
+    assert tfused.chunk_tile(3, 3, 8, 4) == ((64, 4, 16), 187776)
+    # five fields, h = 4, f64: 1 x 8 would take 10 x (9 x 144 + 408) + 10 x
+    # 9 x 144 + 15 x 5 x 8 = 30,600 elements (244,800 bytes), the last
+    # rung 2 x 4 takes 10 x (9 x 120 + 360) + 10 x 9 x 120 + 15 x 5 x 8 =
+    # 25,800
+    assert tfused.chunk_tile(5, 4, 8, 4) == ((64, 2, 4), 206400)
+    # eight fields: 41,280 elements on the last rung, 330,240 bytes
+    assert tfused.chunk_tile(8, 4, 8, 4) is None
     assert tfused.chunk_tile(2, 2, 4, 6) is None
+
+
+#: the parent design's rule (a box of f, dfdt, kf and kdfdt over the
+#: output tile grown by 2h on every face, the smallest tile 2 x 2 x 8):
+#: the first field count whose box exceeded 232,448 bytes, per (h,
+#: itemsize), counted by hand; 13: every count up to 12 fitted. For
+#: example h = 2 in f64: 10 x 10 x 16 sites x 4 arrays x 8 bytes = 51,200
+#: bytes a field, so four fields fit and five do not.
+BOX_FIRST_REJECTED = {(1, 4): 13, (2, 4): 10, (3, 4): 4, (4, 4): 2,
+                      (1, 8): 13, (2, 8): 5, (3, 8): 2, (4, 8): 1}
+#: the chunk march's ladder of y-z tiles (rows, columns), first to last
+CHUNK_LADDER = [(8, 32), (4, 32), (8, 16), (4, 16), (2, 16), (2, 8), (1, 8),
+                (2, 4)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+@pytest.mark.parametrize("F", range(1, 13))
+def test_chunk_tile_covers_the_box_rule(F, h, itemsize):
+    """Every model the box design gave a chunk kernel gets one from the
+    march; where the march has a tile, it is a rung of the ladder within
+    a block's shared memory, no higher than one field fewer gets."""
+    tile = tfused.chunk_tile(F, h, itemsize, 4)
+    if F < BOX_FIRST_REJECTED[h, itemsize]:
+        assert tile is not None
+    if tile is None:
+        return
+    (lx, rows, cols), nbytes = tile
+    assert lx == tfused.CHUNK_LX and nbytes <= 232448
+    assert (rows, cols) in CHUNK_LADDER
+    if F > 1:
+        fewer = tfused.chunk_tile(F - 1, h, itemsize, 4)
+        assert CHUNK_LADDER.index(fewer[0][1:]) <= CHUNK_LADDER.index(
+            (rows, cols))
 
 
 # -- bfloat16 across the package boundary -------------------------------------

@@ -356,15 +356,50 @@ def test_carry_kernel_matches_plain(cuda, kernel, carry, grid):
         assert _rel(o, p) <= KERNEL_TOL[dtype]
 
 
+#: K10's march (ops/fused.py:chunk_tile) at its edges: the bench model at
+#: 48x40x36 and the pairs' march shapes (runs cut short, tiles hanging over
+#: Y and Z), and at 2^3, where the grown tiles wrap several times; and the
+#: five-field model at h = 4 (SPLIT_F, SPLIT_H, SPLIT_GRID below), whose
+#: planes take a lower rung of the ladder of tiles, in f32 and in f64
+CHUNK_CASES = [("bench", (48, 40, 36)), ("bench", (70, 12, 40)),
+               ("bench", (5, 9, 33)), ("bench", (2, 2, 2)),
+               ("wide", (37, 12, 40))]
+CHUNK_IDS = ["48x40x36", "70x12x40", "5x9x33", "2cubed", "wide-h4"]
+
+
+def _chunk_stepper(cuda, model, grid, dtype, carry_dtype):
+    """A chunk stepper of the bench model (two fields, h = 2) or of the
+    wide one (five fields, h = 4), on ``cuda`` or the CPU."""
+    if model == "bench":
+        sector, h = pt.ScalarSector(2, potential=bench_potential), H
+    else:
+        sector = pt.ScalarSector(SPLIT_F, potential=many_potential(SPLIT_F))
+        h = SPLIT_H
+    return pt.FusedScalarStepper(sector, grid, 5.0 / grid[0], h, dtype=dtype,
+                                 carry_dtype=carry_dtype, chunk_stages=4,
+                                 device=cuda)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("model,grid", CHUNK_CASES, ids=CHUNK_IDS)
 @pytest.mark.parametrize("carry", list(CARRIES))
-def test_chunk_equals_two_pairs(cuda, carry):
+def test_chunk_equals_two_pairs(cuda, carry, model, grid):
     """One K10 launch equals two K3 launches bit for bit, state and
     carries (the same operations in the same order under -fmad=false; the
-    bf16 carries rounded at the same place)."""
+    bf16 carries rounded at the same place), at the march's edges; the
+    wide model runs on a lower rung of the ladder than the first, the
+    tile the host mirror predicts."""
     dtype, cd = CARRIES[carry]
-    st, ins, params = _carry_case(cuda, "fused_chunk", (48, 40, 36), dtype,
-                                  cd, seed=3)
+    st = _chunk_stepper(cuda, model, grid, dtype, cd)
+    tile = st.chunk_kernel_tile(dtype)
+    assert tile == tfused.chunk_tile(st.F, st.h, dtype.itemsize, 4)
+    assert (tile[0][1:] == (tfused.CHUNK_ROWS, 32)) == (model == "bench")
+    g = torch.Generator(device=cuda).manual_seed(3)
+    amps = (1e-3, 1e-4, 1e-5, 1e-3)
+    ins = [(a * torch.randn((st.F,) + grid, generator=g, device=cuda,
+                            dtype=dtype)).to(d)
+           for a, d in zip(amps, st._dtypes)]
+    params = _chunk_params(5.0 / grid[0])
     new = lambda: [torch.empty_like(t) for t in ins]  # noqa
     chunk = st.launch("fused_chunk", ins, new(), params)
     mid = st.launch("fused_pair", ins, new(), params[:9])
@@ -375,27 +410,28 @@ def test_chunk_equals_two_pairs(cuda, carry):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("model,grid", [("bench", (16, 16, 16))]
+                         + CHUNK_CASES[1:], ids=["16cubed"] + CHUNK_IDS[1:])
 @pytest.mark.parametrize("carry", ["f64", "f32-bf16"])
-def test_chunk_multi_step_card_matches_cpu(cuda, carry):
+def test_chunk_multi_step_card_matches_cpu(cuda, carry, model, grid):
     """multi_step(3) with chunk_stages=4 on the card (K10, K3, K2) vs the
-    plain versions on the CPU, 16^3: f64 to 1e-12; with bf16 carries to
-    1e-5 (the kernels' f32 may differ from the plain versions' by an ulp
-    where PyTorch divides by the reciprocal, which can flip a carry's
-    bf16 rounding: one bf16 ulp of a carry, scaled by B*dt)."""
+    plain versions on the CPU, at 16^3 and the march's edges: f64 to
+    1e-12; with bf16 carries to 1e-5 (the kernels' f32 may differ from the
+    plain versions' by an ulp where PyTorch divides by the reciprocal,
+    which can flip a carry's bf16 rounding: one bf16 ulp of a carry,
+    scaled by B*dt)."""
     dtype, cd = CARRIES[carry]
-    grid = (16, 16, 16)
-    sector = pt.ScalarSector(2, potential=bench_potential)
+    F = 2 if model == "bench" else SPLIT_F
     g = torch.Generator().manual_seed(5)
-    state = {"f": 1e-3 * torch.randn((2,) + grid, generator=g, dtype=dtype),
-             "dfdt": 1e-4 * torch.randn((2,) + grid, generator=g,
+    state = {"f": 1e-3 * torch.randn((F,) + grid, generator=g, dtype=dtype),
+             "dfdt": 1e-4 * torch.randn((F,) + grid, generator=g,
                                         dtype=dtype)}
     res = {}
     for dev in ("cpu", cuda):
-        st = pt.FusedScalarStepper(sector, grid, 5.0 / 16, H, dtype=dtype,
-                                   carry_dtype=cd, chunk_stages=4,
-                                   device=dev)
+        st = _chunk_stepper(dev, model, grid, dtype, cd)
         out = st.multi_step({k: v.to(dev) for k, v in state.items()}, 3,
-                            0.0, 0.1 * 5.0 / 16, {"a": 1.0, "hubble": 0.5})
+                            0.0, 0.1 * 5.0 / grid[0],
+                            {"a": 1.0, "hubble": 0.5})
         res[str(dev)] = {k: v.cpu() for k, v in out.items()}
     tol = 1e-12 if cd is None else 1e-5
     for name in ("f", "dfdt"):
