@@ -154,6 +154,16 @@ MG_BOX, MG_HALO, MG_OMEGA, MG_CYCLES = 10.0, 1, 2 / 3, 2
 MG_CONVERGED_TOL, MG_CYCLE_TOL = 5e-14, 1e-12
 #: the stencil radii whose operator kernels are built and checked
 FD_HALOS = (1, 2, 4)
+#: the spill bytes (stores, and as many loads) ptxas gives each float
+#: instantiation of fd_lap's march that spills at all, by demangled name and
+#: stencil radius, as an H100 build measured them: a few bytes in padded
+#: instantiations, which a register floor removed at a 10% cost (PERF.md).
+#: The build fails if one spills more or another starts to spill.
+FD_LAP_F32_SPILLS = {"pk_fd_lap_kernel<float, 3> (h=1)": 4,
+                     "pk_fd_lap_kernel<float, 3> (h=2)": 8,
+                     "pk_fd_lap_kernel<float, 2> (h=2)": 8,
+                     "pk_fd_lap_kernel<float, 3> (h=4)": 4,
+                     "pk_fd_lap_kernel<float, 2> (h=4)": 8}
 FD_KERNELS = ("fd_lap", "fd_grad", "fd_grad_lap", "fd_pdx", "fd_pdy",
               "fd_pdz", "fd_div")
 MG_KERNELS = ("mg_smooth", "mg_residual", "mg_tau")
@@ -619,6 +629,43 @@ def identities(phase, make_stepper, gw=False):
             raise SystemExit(f"coupled pair + finalize != fused pair "
                              f"({dtype}): {deferred}")
         del st, ins, pair, coupled, state, k, ref
+        torch.cuda.empty_cache()
+
+
+def stage_march_identity(phase, gw_stepper, scalar_stepper):
+    """On the card, at 256^3 in f64, f32 and f32 with bfloat16 carries (and
+    on finalized velocity carries): K5' (the x-march) == the per-site
+    kernels on the same inputs, bit for bit -- its scalar outputs and its
+    sums those of K5 (``fused_stage_energy`` of the same sector's scalar
+    stepper), its tensor outputs K7's (``preheat_stage``; not on finalized
+    carries, which K7 does not take)."""
+    shape = ALT_SHAPES[0]
+    for dtype, cd, fin in ((torch.float64, None, False),
+                           (torch.float32, None, False),
+                           (torch.float32, torch.bfloat16, False),
+                           (torch.float32, torch.bfloat16, True)):
+        gst = gw_stepper(shape, dtype, cd)
+        sst = scalar_stepper(shape, dtype, cd)
+        ins = kernel_inputs(shape, dtype, 12, gw=True,
+                            dtypes=gst._in_dtypes(fin))
+        p = kernel_params("fused_stage", BOX / shape[0])
+        dev = ins[0].device
+        k5p = gst.launch("preheat_stage_energy", ins, gst._new_set(dev), p)
+        k5 = sst.launch("fused_stage_energy", ins[:4], sst._new_set(dev), p)
+        k7 = (None if fin else
+              gst.launch("preheat_stage", ins, gst._new_set(dev), p))
+        torch.cuda.synchronize()
+        row = {"scalar_outputs_bitwise_k5": all(
+                   torch.equal(a, b) for a, b in zip(k5p[:4], k5[:4])),
+               "sums_bitwise_k5": torch.equal(k5p[8], k5[4]),
+               "tensor_outputs_bitwise_k7": fin or all(
+                   torch.equal(a, b) for a, b in zip(k5p[4:8], k7[4:8]))}
+        emit({"phase": phase, "shape": shape, "dtype": str(dtype),
+              "carry_dtype": str(cd or dtype), "finalized": fin, **row})
+        if not all(row.values()):
+            raise SystemExit(f"{phase}: K5' differs from the per-site "
+                             f"kernels ({dtype}, {cd}, fin={fin}): {row}")
+        del gst, sst, ins, k5p, k5, k7
         torch.cuda.empty_cache()
 
 
@@ -1123,11 +1170,13 @@ def ptxas_of(source, header):
 
 # -- the finite-difference operators (K12) and the wave equation --------------
 
-def fd_input(op, shape, dtype, seed):
+def fd_input(op, shape, dtype, seed, C=None):
     """A seeded N(0, 1) input of operator ``op``: (2, X, Y, Z), for the
-    divergence a (2, 3, X, Y, Z) vector field, folded to (6, X, Y, Z)."""
+    divergence a (2, 3, X, Y, Z) vector field, folded to (6, X, Y, Z); or
+    ``C`` components."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    C = 6 if op == "div" else 2
+    if C is None:
+        C = 6 if op == "div" else 2
     return torch.randn((C,) + tuple(shape), generator=g, device="cuda",
                        dtype=dtype)
 
@@ -1149,12 +1198,18 @@ def fd_kernels_vs_plain(phase, cases, errs):
             row = {"max_rel_err": max(r for r, _ in per_output),
                    "max_abs_err": max(a for _, a in per_output),
                    "tol": KERNEL_TOL[dtype]}
+            if op == "lap":
+                # the march vs the per-site template's Laplacian
+                row["bitwise_grad_lap_lap"] = torch.equal(
+                    outs[0], fd.launch("grad_lap", x)[1])
             errs.setdefault("fd_" + op, {})[tag] = row
             emit({"phase": phase, "kernel": "fd_" + op, "shape": shape,
                   "dtype": str(dtype), "h": h, **row})
-            if not row["max_rel_err"] <= KERNEL_TOL[dtype]:
+            if not (row["max_rel_err"] <= KERNEL_TOL[dtype]
+                    and row.get("bitwise_grad_lap_lap", True)):
                 raise SystemExit(f"fd_{op} disagrees with its plain version "
-                                 f"at {shape} {dtype} h={h}: {row}")
+                                 f"or fd_grad_lap's Laplacian at {shape} "
+                                 f"{dtype} h={h}: {row}")
             del x, outs, plain
             torch.cuda.empty_cache()
 
@@ -1216,56 +1271,81 @@ def fd_library_conv(fd, op):
     return conv
 
 
-def time_fd_kernels(phase, timing):
+#: fd_lap's row at the shape the wave path launches it (one component,
+#: (1, 512^3) f32); the K12 rows under their own names are at (2, 512^3)
+FD_LAP_ONE = "fd_lap:one_component"
+
+
+def time_fd_kernels(phase, timing, errs):
     """Each K12 operator at (2, 512^3) f32, h = 2 (the divergence on (2, 3,
-    512^3)): CUDA-event ms over 20 launches, its plain version, the bound
-    (each component-array once in and once out over the HBM rate, against
-    the operations over the f32 peak) and, for the operators one PyTorch
-    call computes (FD_LIBRARY), that call's time and its gap from the
-    kernel, with cuDNN's TF32 off."""
+    512^3)), and fd_lap at the wave path's (1, 512^3) as FD_LAP_ONE (held
+    to its plain version there into ``errs``): CUDA-event ms over 20
+    launches, its plain version, the bound (each component-array once in
+    and once out over the HBM rate, against the operations over the f32
+    peak) and, for the operators one PyTorch call computes (FD_LIBRARY),
+    that call's time and its gap from the kernel, with cuDNN's TF32 off."""
     import pystella_tpu_torch as pt
     from pystella_tpu_torch.ops import derivs
     torch.backends.cudnn.allow_tf32 = False
     fd = pt.FiniteDifferencer(HALO, WAVE_BOX / GRID[0])
-    sites = math.prod(GRID)
     for seed, op in enumerate(derivs.OPS):
         x = fd_input(op, GRID, torch.float32, 60 + seed)
-        ms = cuda_ms(lambda: fd.launch(op, x), reps=20, warmup=2)
-        torch.cuda.empty_cache()
-        plain_ms = cuda_ms(lambda: fd.plain(op, x), reps=3)
-        library = {"library_ms": None}
-        if op in FD_LIBRARY:
-            conv = fd_library_conv(fd, op)
-            xin = x.view((x.shape[0], 1) + tuple(x.shape[1:]))
-            with torch.no_grad():
-                library["library_ms"] = cuda_ms(lambda: conv(xin), reps=5)
-                got = conv(xin)
-            ref = fd.launch(op, x)[0]
-            if op != "grad":
-                ref = ref.view(got.shape)
-            library["library_call"] = (
-                f"torch.nn.Conv3d(1, {FD_LIBRARY[op][0]}, "
-                f"{tuple(conv.kernel_size)}, padding_mode='circular')")
-            library["library_rel_err_vs_kernel"] = rel_err(got, ref)[0]
-            library["cudnn_allow_tf32"] = torch.backends.cudnn.allow_tf32
-            del conv, got, ref
-            torch.cuda.empty_cache()
-        C = x.shape[0]
-        nbytes = round(C * (1 + FD_OUT_PER_IN[op])) * sites * 4
-        ops = C * FD_OPS_PER_COMPONENT[op](HALO) * sites
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / PEAK_F32_OPS * 1e3
-        bound = max(bytes_ms, ops_ms)
-        timing["fd_" + op] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "ops": ops, "share_of_bound": bound / ms,
-            **library}
-        emit({"phase": phase, "kernel": "fd_" + op,
-              "shape": tuple(x.shape), "dtype": "torch.float32", "h": HALO,
-              **timing["fd_" + op]})
+        time_fd_op(phase, fd, op, x, "fd_" + op, timing)
         del x
         torch.cuda.empty_cache()
+    x = fd_input("lap", GRID, torch.float32, 67, C=1)
+    out = fd.launch("lap", x)[0]
+    torch.cuda.synchronize()
+    rel, abs_ = rel_err(out, fd.plain("lap", x)[0])
+    row = {"max_rel_err": rel, "max_abs_err": abs_,
+           "tol": KERNEL_TOL[torch.float32]}
+    errs.setdefault(FD_LAP_ONE, {})[case_tag(GRID, torch.float32)] = row
+    del out
+    if not rel <= KERNEL_TOL[torch.float32]:
+        raise SystemExit(f"fd_lap disagrees with its plain version at "
+                         f"{tuple(x.shape)}: {row}")
+    time_fd_op(phase, fd, "lap", x, FD_LAP_ONE, timing)
+    del x
+    torch.cuda.empty_cache()
+
+
+def time_fd_op(phase, fd, op, x, name, timing):
+    """:func:`time_fd_kernels` for operator ``op`` on the input ``x``, its
+    row under ``name``."""
+    sites = math.prod(GRID)
+    ms = cuda_ms(lambda: fd.launch(op, x), reps=20, warmup=2)
+    torch.cuda.empty_cache()
+    plain_ms = cuda_ms(lambda: fd.plain(op, x), reps=3)
+    library = {"library_ms": None}
+    if op in FD_LIBRARY:
+        conv = fd_library_conv(fd, op)
+        xin = x.view((x.shape[0], 1) + tuple(x.shape[1:]))
+        with torch.no_grad():
+            library["library_ms"] = cuda_ms(lambda: conv(xin), reps=5)
+            got = conv(xin)
+        ref = fd.launch(op, x)[0]
+        if op != "grad":
+            ref = ref.view(got.shape)
+        library["library_call"] = (
+            f"torch.nn.Conv3d(1, {FD_LIBRARY[op][0]}, "
+            f"{tuple(conv.kernel_size)}, padding_mode='circular')")
+        library["library_rel_err_vs_kernel"] = rel_err(got, ref)[0]
+        library["cudnn_allow_tf32"] = torch.backends.cudnn.allow_tf32
+        del conv, got, ref
+        torch.cuda.empty_cache()
+    C = x.shape[0]
+    nbytes = round(C * (1 + FD_OUT_PER_IN[op])) * sites * 4
+    ops = C * FD_OPS_PER_COMPONENT[op](HALO) * sites
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_F32_OPS * 1e3
+    bound = max(bytes_ms, ops_ms)
+    timing[name] = {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes, "ops": ops, "share_of_bound": bound / ms,
+        **library}
+    emit({"phase": phase, "kernel": name, "shape": tuple(x.shape),
+          "dtype": "torch.float32", "h": HALO, **timing[name]})
 
 
 def wave_energy(fd, state):
@@ -2240,13 +2320,15 @@ def march_ptxas(report):
     x-marching kernels (K3 ``pk_fused_pair_kernel``, K6
     ``pk_coupled_pair_kernel``, K8 ``pk_preheat_pair_kernel``, K9
     ``pk_preheat_coupled_pair_kernel``, K10
-    ``pk_fused_chunk_march_kernel``), with their registers and spill
-    bytes."""
+    ``pk_fused_chunk_march_kernel``, K5'
+    ``pk_preheat_stage_energy_kernel``, fd_lap ``pk_fd_lap_kernel``), with
+    their registers and spill bytes."""
     rows = {}
     for usage in report.values():
         for name, u in usage.items():
             m = re.search(r"(pk_(?:(?:fused_|coupled_|preheat_|"
-                          r"preheat_coupled_)pair|fused_chunk_march)"
+                          r"preheat_coupled_)pair|fused_chunk_march|"
+                          r"preheat_stage_energy|fd_lap)"
                           r"_kernel<[^<>]*>)", name)
             if m:
                 rows[m.group(1)] = u
@@ -2261,11 +2343,16 @@ def march_ptxas(report):
 MARCH_VARIANTS = (16, 24, 32, 64)
 CHUNK_VARIANTS = tuple((lx, rows) for rows in (8, 16)
                        for lx in MARCH_VARIANTS)
+#: the run lengths of the K5' march (PK_STAGE_MARCH_LX) and of fd_lap's
+#: (PK_FD_LAP_LX)
+STAGE_VARIANTS = (16, 32, 64)
+FD_LAP_VARIANTS = STAGE_VARIANTS
 #: the kernels of each family (each with f32 and with bf16 carries), and
 #: the rounds of launches each variant gets in turn
 MARCH_KERNELS = ("preheat_pair", "preheat_coupled_pair_deferred")
 SCALAR_MARCH_KERNELS = ("fused_pair", "coupled_pair_deferred")
 CHUNK_MARCH_KERNELS = ("fused_chunk",)
+STAGE_MARCH_KERNELS = ("preheat_stage_energy",)
 MARCH_ROUNDS, MARCH_REPS = 3, 5
 
 
@@ -2281,12 +2368,19 @@ def chunk_defines(variant):
     return f"\n#define PK_CHUNK_LX {lx}\n#define PK_CHUNK_ROWS {rows}\n"
 
 
+def fd_lap_defines(lx):
+    """The define of fd_lap's march run length ``lx``."""
+    return f"\n#define PK_FD_LAP_LX {lx}\n"
+
+
 def march_variants(phase, sector, gw_sector, dx):
     """The x-marching kernels at 512^3 f32, with f32 and with bf16
     carries: K3 and K6 deferred, and K8 and K9 deferred, through each run
     length of MARCH_VARIANTS; K10 through each run length and first-rung
-    rows of CHUNK_VARIANTS. Each variant is built from the same sources
-    into libraries of its own (the model header with the variant's
+    rows of CHUNK_VARIANTS; K5' through each run length of
+    STAGE_VARIANTS (fd_lap: :func:`fd_lap_variants`). Each variant is
+    built from the same sources into libraries of its own (the model
+    header with the variant's
     defines: one nvcc a source and variant, all of a family at once), its
     tile is held to ops/fused.py:march_tile (chunk_tile), its registers
     and spills come from ptxas, and its outputs must equal the default
@@ -2302,15 +2396,21 @@ def march_variants(phase, sector, gw_sector, dx):
                                  dtype=torch.float32, carry_dtype=carry,
                                  device="cuda", **kw)
 
-    def pair_family(nh):
+    def pair_family(nh, values=2):
         def tile(st, lib, lx):
-            query = getattr(lib, "pk_preheat_march_tile" if nh
+            query = getattr(lib, "pk_stage_march_tile" if values == 1
+                            else "pk_preheat_march_tile" if nh
                             else "pk_scalar_march_tile")
             query.argtypes = [ctypes.c_int, ctypes.c_void_p]
             out = (ctypes.c_int * 5)()
             query(0, out)
             return ((tuple(out[:4]), out[4]),
-                    tfused.march_tile(st.F, st.h, 4, nh, lx=lx))
+                    tfused.march_tile(st.F, st.h, 4, nh, lx=lx,
+                                      values=values))
+        if values == 1:
+            return (STAGE_VARIANTS,
+                    lambda lx: f"\n#define PK_STAGE_MARCH_LX {lx}\n", tile,
+                    lambda lx: {"lx": lx})
         return (MARCH_VARIANTS, lambda lx: march_defines(lx, nh), tile,
                 lambda lx: {"lx": lx})
 
@@ -2331,8 +2431,72 @@ def march_variants(phase, sector, gw_sector, dx):
                               chunk_stages=CHUNK),
              CHUNK_MARCH_KERNELS,
              (CHUNK_VARIANTS, chunk_defines, chunk_tile,
-              lambda v: {"lx": v[0], "rows": v[1]}))):
+              lambda v: {"lx": v[0], "rows": v[1]})),
+            ("stage", stepper(pt.FusedPreheatStepper, sector, gw_sector),
+             STAGE_MARCH_KERNELS, pair_family(6, values=1))):
         march_family(f"{phase}_{label}", make, kernels, *family)
+    fd_lap_variants(f"{phase}_fd_lap")
+
+
+def fd_lap_variants(phase):
+    """fd_lap at h = 2 on (1, 512^3) and (2, 512^3) f32 through each
+    variant of FD_LAP_VARIANTS: each built from the same source into a
+    library of its own (one nvcc a variant, all at once), its tile held to
+    ops/derivs.py:lap_tile, its registers and spills from ptxas, its output
+    the default build's bit for bit; then the variants timed in turns
+    (MARCH_ROUNDS rounds of MARCH_REPS launches each) on one input."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import derivs
+    from pystella_tpu_torch.ops import stencil
+    header = derivs.kernel_header(HALO)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(FD_LAP_VARIANTS)) as pool:
+        libs = list(pool.map(lambda v: stencil.build_kernels(
+            ["fd_ops.cu"], header + fd_lap_defines(v))["fd_ops.cu"],
+            FD_LAP_VARIANTS))
+    build_s = time.perf_counter() - t0
+    builds = {}
+    for v, lib in zip(FD_LAP_VARIANTS, libs):
+        got = derivs.reported_lap_tile(lib.pk_fd_lap_tile, torch.float32)
+        want = derivs.lap_tile(HALO, 4, lx=v)
+        builds[v] = {"fn": derivs.bind_kernels(lib)["lap", torch.float32, 0],
+                     "tile": got, "ptxas": march_ptxas({"fd_ops": demangled(
+                         stencil.ptxas_usage(stencil.build_log(
+                             "fd_ops.cu", header + fd_lap_defines(v))))})}
+        if got != want:
+            raise SystemExit(f"fd_lap variant {v}: the library's tile {got}, "
+                             f"the mirror's {want}")
+    emit({"phase": phase + "_build", "seconds": build_s,
+          "variants": [{"lx": v, "smem_bytes_per_block": b["tile"][1],
+                        "ptxas": b["ptxas"]} for v, b in builds.items()]})
+    fd = pt.FiniteDifferencer(HALO, WAVE_BOX / GRID[0])
+    fns = derivs.build_kernels(HALO)
+    key = ("lap", torch.float32, 0)
+    default = fns[key]
+    for C in (1, 2):
+        x = fd_input("lap", GRID, torch.float32, 70 + C, C=C)
+        ref = fd.launch("lap", x)[0].clone()
+        equal, rounds = {}, {v: [] for v in builds}
+        for v, b in builds.items():
+            fns[key] = b["fn"]
+            equal[v] = torch.equal(fd.launch("lap", x)[0], ref)
+        for _ in range(MARCH_ROUNDS):
+            for v, b in builds.items():
+                fns[key] = b["fn"]
+                rounds[v].append(cuda_ms(lambda: fd.launch("lap", x),
+                                         reps=MARCH_REPS, warmup=1))
+        fns[key] = default
+        emit({"phase": phase, "kernel": "fd_lap", "shape": tuple(x.shape),
+              "dtype": "torch.float32", "h": HALO,
+              "bound_ms": 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+              "variants": [{"lx": v, "ms": sum(r) / len(r),
+                            "ms_rounds": r, "equal_to_default": equal[v]}
+                           for v, r in rounds.items()]})
+        if not all(equal.values()):
+            raise SystemExit(f"fd_lap: a march variant's output differs "
+                             f"from the default build's: {equal}")
+        del x, ref
+        torch.cuda.empty_cache()
 
 
 def march_family(phase, make, kernels, variants, defines, tile, label):
@@ -3304,8 +3468,8 @@ PHASE_DEPS = {"sharded_mg": ("mg",), "sharded": ("scalar",),
               "sharded_coupled": ("scalar",), "sharded_gw": ("gw",),
               "sharded_bf16": ("scalar", "gw")}
 #: phases a run takes only when selected: march_variants builds the x-march
-#: variants of K3 and K6, of K8 and K9 and of K10 into libraries of their
-#: own and times them
+#: variants of K3 and K6, of K8 and K9, of K10, of K5' and of fd_lap into
+#: libraries of their own and times them
 OPT_IN_PHASES = ("march_variants",)
 PHASE_HELP = {
     "scalar": "the scalar system: kernels vs plain, identities, references, "
@@ -3323,8 +3487,8 @@ PHASE_HELP = {
     "sharded_gw": "the sharded GW multi_step and coupled driver",
     "sharded_bf16": "the sharded bf16-carry launches and paths",
     "march_variants": "the x-march tile variants of K3 and K6 deferred, "
-                      "of K8 and K9 deferred and of K10, built apart and "
-                      "timed against each other"}
+                      "of K8 and K9 deferred, of K10, of K5' and of fd_lap, "
+                      "built apart and timed against each other"}
 
 
 def selected_phases(argv):
@@ -3463,23 +3627,38 @@ def main(argv=None):
                                for d, t in tiles.items()}})
     emit({"phase": "build_sharded_bf16_ptxas",
           "kernels": bf16_padded_ptxas(ptxas)})
-    # the x-marching kernels (K3, K6; K8, K9; K10): each source's tile and
-    # dynamic shared memory as the library reports it (build_kernels held
-    # it to the host mirror), and each instantiation's registers and
+    # the x-marching kernels (K3, K6; K8, K9; K10; K5'): each source's tile
+    # and dynamic shared memory as the library reports it (build_kernels
+    # held it to the host mirror), and each instantiation's registers and
     # spills; none of the float ones may spill
     march_rows = march_ptxas(ptxas)
+    # fd_lap's march: its float instantiations may spill no more than
+    # FD_LAP_F32_SPILLS allows
+    fd_lap_rows = {f"{k} (h={h})": u for h in FD_HALOS
+                   for k, u in march_ptxas({"fd_ops": demangled(ptxas_of(
+                       "fd_ops.cu", tderivs.kernel_header(h)))}).items()}
     f32_spills = [n for n, u in march_rows.items() if "<float," in n
                   and (u.get("spill_stores") or u.get("spill_loads"))]
+    f32_spills += [n for n, u in fd_lap_rows.items() if "<float," in n
+                   and max(u.get("spill_stores", 0), u.get("spill_loads", 0))
+                   > FD_LAP_F32_SPILLS.get(n, 0)]
     emit({"phase": "build_march_ptxas",
           "tiles": {**{f"{src} ({label})": {
               str(d): st.march_kernel_tile(d, src)
               for d in (torch.float32, torch.float64)}
               for label, st in (("scalar", chunk_st), ("gw", gw_st))
-              for src in st._march_sources()},
-              "fused_chunk.cu (scalar)": tiles},
-          "kernels": march_rows, "f32_spills": f32_spills})
+              for src, _ in st._march_sources()},
+              "fused_chunk.cu (scalar)": tiles,
+              **{f"fd_ops.cu (h={h})": {
+                  str(d): tderivs.lap_kernel_tile(h, d)
+                  for d in (torch.float32, torch.float64)}
+                 for h in FD_HALOS}},
+          "kernels": march_rows, "f32_spills": f32_spills,
+          "fd_lap_kernels": fd_lap_rows,
+          "fd_lap_f32_spill_bytes_allowed": FD_LAP_F32_SPILLS})
     if f32_spills:
-        raise SystemExit(f"float x-march instantiations spill: {f32_spills}")
+        raise SystemExit(f"float x-march instantiations spill (fd_lap: "
+                         f"beyond FD_LAP_F32_SPILLS): {f32_spills}")
     del nonpoly_st, gwb_st
     if main_st.kernel_names() != scalar_kernels:
         raise SystemExit("the main model did not build every kernel")
@@ -3679,6 +3858,9 @@ def main(argv=None):
         # -- 15. GW identities: K8 == two K7, K5' == K7 bitwise, K9 + finalize
         #        == K8 with hubble2 = hubfix ----------------------------------
         identities("preheat_identity", gw_stepper, gw=True)
+        # the K5' march == K5 and K7 (per-site) on the same inputs
+        stage_march_identity("preheat_stage_march_identity", gw_stepper,
+                             scalar_stepper)
 
         # -- 16. GW reference: multi_step vs the generic GW stepper, and
         #        coupled_multi_step vs the per-stage driver loop, 32^3 f64 ----
@@ -3826,7 +4008,7 @@ def main(argv=None):
 
     # -- 22. their times at 512^3 f32 ----------------------------------------
     if "fd" in phases:
-        time_fd_kernels("fd_kernel_time", timing)
+        time_fd_kernels("fd_kernel_time", timing, errs)
     if "mg" in phases:
         time_mg_kernels("mg_kernel_time", timing)
 
@@ -3993,13 +4175,14 @@ def main(argv=None):
              **tderivs.SHARDED_KERNELS, **trelax.SHARDED_KERNELS}
     main_tag = {name: case_tag(GRID, torch.float32) + (
         ":newton" if name in MG_KERNELS else "")
-        for name in names + list(new_kernels)}
+        for name in names + list(new_kernels) + [FD_LAP_ONE]}
     main_tag.update({name: sharded_main_tag(name)
                      for name in sharded + sharded_mg})
     main_tag.update({name: main_tag[name] + ":newton"
                      for name in sharded_mg})
     full = set(PHASES) <= phases
-    for name in names + list(new_kernels) + sharded + sharded_mg:
+    for name in names + list(new_kernels) + [FD_LAP_ONE] + sharded \
+            + sharded_mg:
         if not full and (name not in timing or name not in errs):
             continue  # a phase this run did not select
         src, replaces = sites.get(name) or sites[name.split(":")[0]]
@@ -4010,7 +4193,9 @@ def main(argv=None):
             "source": f"pystella_tpu_torch/ops/csrc/{src}",
             "replaces": replaces.split(" ")[0],
             "jax_site": replaces,
-            "launches": launches.get(name, 0),
+            # FD_LAP_ONE: the launches of fd_lap, at its shape
+            "launches": launches.get("fd_lap" if name == FD_LAP_ONE
+                                     else name, 0),
             "max_abs_err": main_case["max_abs_err"],
             "max_rel_err": main_case["max_rel_err"],
             "parity": errs[name],
@@ -4023,10 +4208,11 @@ def main(argv=None):
     if never:
         raise SystemExit(f"no main path launched {never}")
     # where a faster kernel would save the most on this run's main paths:
-    # launches x (ms - bound ms), largest first
+    # launches x (ms - bound ms), largest first; fd_lap's launches (the
+    # wave path's, one component each) on its FD_LAP_ONE row
     emit({"phase": "rule2_ranking", "excess_ms": sorted(
         ([k["name"], k["launches"] * (k["ms"] - k["bound_ms"])]
-         for k in kernels), key=lambda r: -r[1])})
+         for k in kernels if k["name"] != "fd_lap"), key=lambda r: -r[1])})
     emit({"phase": "total", "seconds": time.perf_counter() - start_s,
           "build_seconds": build_s})
     emit({"kernels": kernels})

@@ -25,14 +25,33 @@
 // Bound: memory. Each input component-array is read once and each output
 // written once (lap 2C, grad 4C, grad_lap 5C, pd 2C, div 4n arrays of
 // sites * sizeof(T) bytes) against 3 + 9h (lap) or 9h (grad) operations a
-// site and component. Design: one thread per site, z fastest, so the
-// centre loads and every store are coalesced; the 6h neighbour taps are
-// re-read through L1/L2; periodic wrap by index arithmetic on all three
-// axes, so any lattice shape runs; the components are a loop inside the
-// thread (the wrapped neighbour indices do not depend on the component),
-// with 64-bit offsets (C * 512^3 passes 2^31 at C = 16). grad writes (C, 3, X,
-// Y, Z), div reads (n, 3, X, Y, Z). Built with -fmad=false: no multiply-add
-// is contracted where the plain PyTorch version rounds twice.
+// site and component. Design of all but lap: one thread per site, z
+// fastest, so the centre loads and every store are coalesced; the 6h
+// neighbour taps are re-read through L1/L2; periodic wrap by index
+// arithmetic on all three axes, so any lattice shape runs; the components
+// are a loop inside the thread (the wrapped neighbour indices do not depend
+// on the component), with 64-bit offsets (C * 512^3 passes 2^31 at C = 16).
+// grad writes (C, 3, X, Y, Z), div reads (n, 3, X, Y, Z). Built with
+// -fmad=false: no multiply-add is contracted where the plain PyTorch
+// version rounds twice.
+//
+// lap marches instead (pk_fd_lap_kernel): the TPU builder's x ring
+// (StreamingStencil._build, pystella_tpu/ops/pallas_stencil.py:709, the
+// ring :719-742) carried to a block, as the fused kernels' pk_march carries
+// it. A block of 32 (z) x 8 (y) threads owns one y-z tile of one component
+// and walks it along x over a run of PK_FD_LAP_LX planes. The centre plane
+// with its y-z halo sits in static shared memory (the y and z taps, under
+// 5 KB at f64 and h = 4); the +-x taps of a thread's own column come from
+// a queue of 2h+1 values in its registers (a ring of 2h+1 shared planes,
+// as pk_march keeps, ran 16-19% slower on an H100: PERF.md). Every input
+// element is read from device memory about once (the y-z halo, mostly from
+// L2, aside), and pk_lap runs over the planes in box coordinates
+// (PK_BOX): lap_from_taps' order, so the
+// march equals the per-site arithmetic bit for bit. Periodic wrap, or a
+// padded window's rows, is resolved where a plane, row or column is
+// loaded, so any shape still runs (a run shorter than the tile's, 2^3,
+// the shells' (C, 3h, Y, Z) windows). ops/derivs.py:lap_tile mirrors the
+// tile; pk_fd_lap_tile reports it.
 //
 // The sharded tier (the _xpad, _ypad, _xypad entry points) replaces the
 // halo-input kernel StreamingStencil._build_xhalo
@@ -81,6 +100,100 @@ __device__ __forceinline__ T pk_pd(const Load& load, int x, int y, int z,
   return acc;
 }
 
+// x planes a run of the Laplacian's march: the fastest variant of
+// chip_smoke.py --phases march_variants on an H100
+#ifndef PK_FD_LAP_LX
+#define PK_FD_LAP_LX 32
+#endif
+
+template <typename T>
+struct PkFdLapTile : PkTileGeo {
+  static constexpr int LX = PK_FD_LAP_LX;
+  static constexpr int SMEM = CENTRE * (int)sizeof(T);
+};
+
+// The thread's register queue, as pk_lap's loader: box x = PK_H is the
+// centre plane (any y, z of the haloed tile), another x the queue's value
+// x - PK_H planes away at the thread's own (y, z).
+template <typename T>
+struct PkQueueLoad {
+  const T* centre;
+  T q[2 * PK_H + 1];
+  __device__ __forceinline__ T operator()(int x, int y, int z) const {
+    return x == PK_H ? centre[y * PkTileGeo::SZ + z] : q[x];
+  }
+};
+
+// The Laplacian's march: block (z tile, y tile, run + nruns * component)
+// over an (X, Y, Z) region; window geometry as pk_fd_kernel's.
+template <typename T, int PAD>
+__global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
+pk_fd_lap_kernel(const T* __restrict__ in, T* __restrict__ out, int X, int Y,
+                 int Z, int nruns, PkLapWeights<T> w, PkGeom g) {
+  using Tl = PkFdLapTile<T>;
+  __shared__ T sm[Tl::CENTRE];
+  const int tz = threadIdx.x, ty = threadIdx.y;
+  const int own = ty * Tl::TZ + tz;
+  const int z0 = blockIdx.x * Tl::TZ, y0 = blockIdx.y * Tl::TY;
+  const int c = blockIdx.z / nruns;
+  const int xs = (blockIdx.z - c * nruns) * Tl::LX;
+  const int nx = min(Tl::LX, X - xs);
+  const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
+  const int64_t Nw = PAD ? g.Nw : N;
+  const int Yw = PAD ? g.Ys : Y;
+  const T* __restrict__ src = in + c * Nw;
+  T* __restrict__ dst = out + c * N;
+  const int z = z0 + tz, y = y0 + ty;
+  const bool valid = z < Z && y < Y;
+  // the window's value at point (x, yy, zz) of the region; a tile hanging
+  // past a padded window's last row reads that row (no valid site taps it)
+  auto at = [&](int x, int yy, int zz) {
+    if (!(PAD & PK_PAD_X)) x = pk_wrap(x, X);
+    yy = (PAD & PK_PAD_Y) ? min(yy, Y + PK_H - 1) : pk_wrap(yy, Y);
+    return src[((int64_t)x * Yw + yy) * Z + pk_wrap(zz, Z)];
+  };
+  const int ctr = (ty + PK_H) * Tl::SZ + tz + PK_H;
+  // this thread's first frame element, at the same place every plane
+  const bool first = own < Tl::FRAME;
+  int fy = 0, fz = 0;
+  if (first) pk_frame_at(own, fy, fz);
+  // planes xs - h .. xs + h - 1 of the thread's column: the queue's
+  // 1 .. 2h; then plane xs + h and the first plane's frame element. Each
+  // step stores the loads the step before issued and issues the next
+  // plane's, so they are in flight across a whole step.
+  PkQueueLoad<T> col{sm, {}};
+  T* const q = col.q;
+#pragma unroll
+  for (int k = 0; k < 2 * PK_H; ++k) q[k + 1] = at(xs - PK_H + k, y, z);
+  T next = at(xs + PK_H, y, z);
+  T edge = first ? at(xs, y0 - PK_H + fy, z0 - PK_H + fz) : T(0);
+  for (int i = 0; i < nx; ++i) {
+    const int x = xs + i;
+#pragma unroll
+    for (int k = 0; k < 2 * PK_H; ++k) q[k] = q[k + 1];
+    q[2 * PK_H] = next;
+    sm[ctr] = q[PK_H];
+    if (first) sm[fy * Tl::SZ + fz] = edge;
+    if (i + 1 < nx) {
+      next = at(x + PK_H + 1, y, z);
+      if (first) edge = at(x + 1, y0 - PK_H + fy, z0 - PK_H + fz);
+    }
+    // the rest of the frame (h >= 3: more elements than threads)
+    for (int k = own + Tl::THREADS; k < Tl::FRAME; k += Tl::THREADS) {
+      int yy, zz;
+      pk_frame_at(k, yy, zz);
+      sm[yy * Tl::SZ + zz] = at(x, y0 - PK_H + yy, z0 - PK_H + zz);
+    }
+    __syncthreads();
+    if (valid) {
+      const int by = ty + PK_H, bz = tz + PK_H;
+      dst[((int64_t)x * Y + y) * Z + z] =
+          pk_lap<PK_BOX>(col, q[PK_H], PK_H, by, bz, 0, 0, 0, w);
+    }
+    __syncthreads();
+  }
+}
+
 template <typename T, int OP, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_fd_kernel(const T* __restrict__ in, T* __restrict__ out0,
@@ -115,10 +228,7 @@ pk_fd_kernel(const T* __restrict__ in, T* __restrict__ out0,
 
   for (int64_t c = 0; c < C; ++c) {
     const PkLoad<T> load{in + c * Nw, Yw, Z};
-    if (OP == PK_FD_LAP) {
-      out0[c * N + site] = pk_lap<PAD>(load, in[c * Nw + wsite], x, y, z, X,
-                                       Y, Z, w.lap);
-    } else if (OP == PK_FD_GRAD || OP == PK_FD_GRAD_LAP) {
+    if (OP == PK_FD_GRAD || OP == PK_FD_GRAD_LAP) {
       T g3[3];
       pk_grad<PAD>(load, x, y, z, X, Y, Z, w.grad, g3);
 #pragma unroll
@@ -150,11 +260,33 @@ static int pk_launch_fd(const void* in, void* out0, void* out1, int64_t C,
   PkFdWeights<T> w;
   w.lap = pk_lap_weights<T>(weights);
   w.grad = pk_grad_weights<T>(weights + PK_NLAPW);
-  pk_fd_kernel<T, OP, PAD>
-      <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
-         (cudaStream_t)stream>>>((const T*)in, (T*)out0, (T*)out1, C, X, Y,
-                                 Z, w, g);
-  return (int)cudaGetLastError();
+  if constexpr (OP == PK_FD_LAP) {
+    // the march: components in groups that keep the grid's z extent in
+    // range, each group's pointers at its first component
+    using Tl = PkFdLapTile<T>;
+    const int nruns = (X + Tl::LX - 1) / Tl::LX;
+    const int64_t most = 65535 / nruns;
+    const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
+    const int64_t Nw = PAD ? g.Nw : N;
+    for (int64_t c0 = 0; c0 < C; c0 += most) {
+      const int nc = (int)(C - c0 < most ? C - c0 : most);
+      pk_fd_lap_kernel<T, PAD>
+          <<<dim3((Z + Tl::TZ - 1) / Tl::TZ, (Y + Tl::TY - 1) / Tl::TY,
+                  nc * nruns),
+             dim3(Tl::TZ, Tl::TY, 1), 0, (cudaStream_t)stream>>>(
+              (const T*)in + c0 * Nw, (T*)out0 + c0 * N, X, Y, Z, nruns,
+              w.lap, g);
+      const int err = (int)cudaGetLastError();
+      if (err != 0) return err;
+    }
+    return 0;
+  } else {
+    pk_fd_kernel<T, OP, PAD>
+        <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
+           (cudaStream_t)stream>>>((const T*)in, (T*)out0, (T*)out1, C, X,
+                                   Y, Z, w, g);
+    return (int)cudaGetLastError();
+  }
 }
 
 #define PK_FD_ARGS                                                          \
@@ -182,6 +314,14 @@ static int pk_launch_fd(const void* in, void* out0, void* out1, int64_t C,
 #define PK_FD_ENTRIES(op, OP)                                               \
   PK_FD_TYPED(op, OP, f32, float)                                           \
   PK_FD_TYPED(op, OP, f64, double)
+
+// The Laplacian's march tile for float (f64 = 0) or double (f64 = 1): out
+// = {x planes a run, static shared memory a block in bytes}. Returns 0.
+extern "C" int pk_fd_lap_tile(int f64, int* out) {
+  out[0] = PkFdLapTile<float>::LX;
+  out[1] = f64 ? PkFdLapTile<double>::SMEM : PkFdLapTile<float>::SMEM;
+  return 0;
+}
 
 PK_FD_ENTRIES(lap, PK_FD_LAP)
 PK_FD_ENTRIES(grad, PK_FD_GRAD)

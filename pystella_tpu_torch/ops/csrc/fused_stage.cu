@@ -25,7 +25,9 @@
 // from the gradients of the same f window (pk_grad, grad_from_taps order).
 // K5' (GW and ENERGY) replaces FusedPreheatStepper._ensure_energy_call: K7
 // plus the scalar sector's sums only (the expansion couples to the f
-// energy), so its lattice outputs are K7's bit for bit.
+// energy), so its lattice outputs are K7's bit for bit. K5' runs the x-march
+// of pk_common.cuh (pk_march, one value per tapped array), see below; K2,
+// K5 and K7 keep the per-site template.
 //
 // With bfloat16 carries (C = __nv_bfloat16, the _bf16 entry points, for
 // carry_dtype=bfloat16) every variant reads its carries (kf, kdfdt, and
@@ -57,6 +59,25 @@
 // The tensor components are updated one after another, so a thread holds one
 // component's values at a time. K5 writes one partial per term and block (a
 // few MB at 512^3) and reduces them in a second, small launch.
+//
+// K5' marches instead (pk_march, pk_common.cuh, with V = 1): the TPU
+// builder's x ring (StreamingStencil._build, pystella_tpu/ops/
+// pallas_stencil.py:709, the ring :719-742) carried to a block, as the pairs
+// K8 and K9 carry it. A block walks a 32 x 8 (z, y) tile along x in runs of
+// PK_STAGE_MARCH_LX planes and holds, per tapped array -- f of each field, h
+// of each tensor component -- a ring of 2h+1 planes of the tile and the
+// centre plane with its y-z halo in shared memory (joint: F + 6 arrays,
+// 54,784 bytes at f32, h = 2, F = 2). Lap f, grad f and lap h run pk_lap /
+// pk_grad over those planes in box coordinates (PK_BOX), so their order is
+// lap_from_taps' and grad_from_taps'. Each plane's sum terms are reduced
+// per 32 x 8 tile in pk_block_sums' tree and written where the per-site
+// block of that plane wrote them (pk_march_sums; PkGeom's x0, yb0, GYb on
+// a padded launch), before the tensor stage, so the terms do not stay live
+// through it; the partials and the second launch are the per-site ones,
+// and so are the sums, bit for bit. A model whose f and h arrays do not
+// fit one block marches once per group of components or, wider still, in
+// the split layout (scalar passes that park grad f for the tensor passes),
+// as the pairs do; ops/fused.py:march_tile(values=1) mirrors the tile.
 //
 // The sharded tier (the _xpad, _ypad, _xypad entry points of every variant)
 // replaces StreamingStencil._build_xhalo (pystella_tpu/ops/pallas_stencil.py:
@@ -184,6 +205,144 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
   if (ENERGY) pk_block_sums<T, PK_NT, PAD>(terms, partials, nblocks, g);
 }
 
+#ifdef PK_NH
+// The site values of K5', read from device memory with a plane's loads:
+// dfdt, kf, kdfdt of each field (in the split layout also f, which dV/df and V
+// read for every field), dhijdt, khij, kdhijdt of each component a pass
+// holds; the carries widened.
+template <typename T, int G>
+struct PkStageSite {
+  T f[PK_F], df[PK_F], kf[PK_F], kdf[PK_F];
+  T dh[G], kh[G], kdh[G];
+};
+
+// K5': the x-march (see the file comment). The shared arrays of a pass: f
+// of each field it holds, then h of each component it holds.
+template <typename T, typename C, typename KD, int PAD>
+__global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y, 1)
+pk_preheat_stage_energy_kernel(PkArrays<T> io, int X, int Y, int Z,
+                               PkStageParams<T> p, T* __restrict__ partials,
+                               int64_t nblocks, PkGeom g) {
+  using Tl = PkMarchTile<T, PK_NH, 1>;
+  using Pass = PkMarchPass<T, PK_NH, 1>;
+  const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
+  const int64_t Nw = PAD ? g.Nw : N;
+  const int Yw = PAD ? g.Ys : Y;
+  const PkMarchInputs<T, C, false> in{
+      {io.in[0], io.in[4]}, {nullptr, nullptr}, {nullptr, nullptr},
+      {nullptr, nullptr}, T(0), T(0), T(0), T(0), T(0)};
+  const int z = blockIdx.x * Tl::TZ + threadIdx.x;
+  const int y = blockIdx.y * Tl::TY + threadIdx.y;
+  const bool valid = z < Z && y < Y;
+  const int ctr = (threadIdx.y + PK_H) * Tl::SZ + threadIdx.x + PK_H;
+  // split layout: grad f of every field at each plane of the run, parked
+  // by the scalar passes for the tensor passes' S_ij
+  T grads[Tl::JOINT ? 1 : Tl::LX][PK_F][3];
+  // unpadded, a plane's partials index the launch's own blocks
+  if (!PAD) g = PkGeom{0, 0, 0, 0, 0, (Y + PK_BLOCK_Y - 1) / PK_BLOCK_Y};
+  auto pre = [&](int x, const Pass ps) {
+    PkStageSite<T, Tl::G> s{};
+    if (!valid) return s;
+    const int64_t site = ((int64_t)x * Y + y) * Z + z;
+    if (ps.scalar) {
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c) {
+        if (!Tl::JOINT)
+          s.f[c] = io.in[0][c * Nw + (PAD ? ((int64_t)x * Yw + y) * Z + z
+                                          : site)];
+        if (!ps.held(c)) continue;
+        const int64_t i = c * N + site;
+        s.df[c] = io.in[1][i];
+        s.kf[c] = PkCarry<T, C>::load(pk_in_as<C>(io, 2)[i]);
+        s.kdf[c] = PkCarry<T, KD>::load(pk_in_as<KD>(io, 3)[i]);
+      }
+    }
+    if (ps.tensors()) {
+#pragma unroll
+      for (int j = 0; j < Tl::G; ++j) {
+        const int64_t i = (ps.c0 + j) * N + site;
+        s.dh[j] = io.in[5][i];
+        s.kh[j] = PkCarry<T, C>::load(pk_in_as<C>(io, 6)[i]);
+        s.kdh[j] = PkCarry<T, KD>::load(pk_in_as<KD>(io, 7)[i]);
+      }
+    }
+    return s;
+  };
+  pk_march<T, PK_NH, PAD, 1>(in, X, Y, Z, Nw, Yw, pre, [&](
+      int x, int px, const Pass ps, const PkMarchView<T>& v,
+      const PkStageSite<T, Tl::G>& s) {
+    const int64_t site = ((int64_t)x * Y + y) * Z + z;
+    const T two_hub = T(2) * p.hubble;
+    if (ps.scalar) {
+      // the scalar stage (K2's arithmetic) and its fields' sum terms
+      T terms[PK_NT];
+#pragma unroll
+      for (int t = 0; t < PK_NT; ++t) terms[t] = T(0);
+      if (valid) {
+        T fc[PK_F], lap[PK_F], dv[PK_F];
+#pragma unroll
+        for (int c = 0; c < PK_F; ++c) {
+          fc[c] = Tl::JOINT ? v.sm[c * Tl::SITES + ctr] : s.f[c];
+          if (ps.held(c)) lap[c] = pk_march_lap(v, c - ps.k0, fc[c], p.w);
+        }
+        pk_dvdf<T>(fc, p.a, p.hubble, dv);
+        const T a2 = p.a * p.a;
+#pragma unroll
+        for (int c = 0; c < PK_F; ++c) {
+          if (!ps.held(c)) continue;
+          const int64_t i = c * N + site;
+          const T df0 = s.df[c];
+          const T rhs_df = (lap[c] - two_hub * df0) - a2 * dv[c];
+          const T kf2 = p.A * s.kf[c] + p.dt * df0;
+          const T kdf2 = p.A * s.kdf[c] + p.dt * rhs_df;
+          io.out[0][i] = fc[c] + p.B * kf2;
+          io.out[1][i] = df0 + p.B * kdf2;
+          pk_out_as<C>(io, 2)[i] = PkCarry<T, C>::store(kf2);
+          pk_out_as<C>(io, 3)[i] = PkCarry<T, C>::store(kdf2);
+          terms[c] = df0 * df0;
+          terms[PK_F + c] = (-fc[c]) * lap[c];
+        }
+        terms[2 * PK_F] = pk_v<T>(fc, p.a, p.hubble);
+      }
+      // a scalar pass's terms: its fields', and the potential's in the
+      // first
+      pk_march_sums<T, PK_NT>(terms, partials, nblocks, g, x,
+                              [&](int t) { return ps.sums(t); });
+    }
+    if (!valid) return;
+    // S_ij from grad f
+    T sij[PK_NH];
+    if constexpr (Tl::JOINT) {
+      T dfdx[PK_F][3];
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c) pk_march_grad(v, c, p.g, dfdx[c]);
+      pk_sij<T>(dfdx, p.a, p.hubble, sij);
+    } else if (ps.scalar) {
+#pragma unroll
+      for (int c = 0; c < PK_F; ++c)
+        if (ps.held(c)) pk_march_grad(v, c - ps.k0, p.g, grads[px][c]);
+    } else {
+      pk_sij<T>(grads[px], p.a, p.hubble, sij);
+    }
+    if (!ps.tensors()) return;
+#pragma unroll
+    for (int j = 0; j < Tl::G; ++j) {
+      const int c = ps.c0 + j;
+      const int64_t i = c * N + site;
+      const T h0 = v.sm[(Tl::HS + j) * Tl::SITES + ctr];
+      const T lap_h = pk_march_lap(v, Tl::HS + j, h0, p.w);
+      T h1, dh1, kh1, kdh1;
+      pk_gw_stage(h0, s.dh[j], s.kh[j], s.kdh[j], lap_h, sij[c], p.A, p.B,
+                  p.dt, two_hub, h1, dh1, kh1, kdh1);
+      io.out[4][i] = h1;
+      io.out[5][i] = dh1;
+      pk_out_as<C>(io, 6)[i] = PkCarry<T, C>::store(kh1);
+      pk_out_as<C>(io, 7)[i] = PkCarry<T, C>::store(kdh1);
+    }
+  });
+}
+#endif
+
 // ins / outs: host arrays of 4 (scalar) or 8 (GW: then hij, dhijdt, khij,
 // kdhijdt) device pointers. params: dt, a, hubble, A, B, then the Laplacian
 // weights (pk_lap_weights) and, for GW, the gradient weights
@@ -207,11 +366,21 @@ static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
   p.w = pk_lap_weights<T>(params + 5);
   if (GW) p.g = pk_grad_weights<T>(params + 5 + PK_NLAPW);
   if (!PAD) nblocks = pk_num_blocks(X, Y, Z);
-  pk_fused_stage_kernel<T, C, KD, ENERGY, GW, PAD>
-      <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
-         (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X,
-                                 Y, Z, p, (T*)partials, nblocks, g);
-  const int rc = (int)cudaGetLastError();
+  int rc;
+#ifdef PK_NH
+  if constexpr (ENERGY && GW) {
+    rc = pk_march_launch<T, PK_NH, 1>(
+        pk_preheat_stage_energy_kernel<T, C, KD, PAD>, X, Y, Z, stream,
+        pk_arrays<T>(ins, outs, 8), X, Y, Z, p, (T*)partials, nblocks, g);
+  } else
+#endif
+  {
+    pk_fused_stage_kernel<T, C, KD, ENERGY, GW, PAD>
+        <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
+           (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X,
+                                   Y, Z, p, (T*)partials, nblocks, g);
+    rc = (int)cudaGetLastError();
+  }
   if (!ENERGY || PAD || rc != 0) return rc;
   return pk_finish_sums<T>(partials, sums, PK_NT, nblocks,
                            (cudaStream_t)stream);
@@ -290,6 +459,7 @@ PK_STAGE_ENERGY_ENTRY(pk_fused_stage_energy_f64_bf16_fin, double, PK_BF16,
                       double, false)
 
 #ifdef PK_NH
+PK_STAGE_MARCH_ENTRY
 PK_STAGE_ENTRY(pk_preheat_stage_f32, float, float, true)
 PK_STAGE_ENTRY(pk_preheat_stage_f64, double, double, true)
 PK_STAGE_ENTRY(pk_preheat_stage_f32_bf16, float, PK_BF16, true)

@@ -440,6 +440,44 @@ static int pk_finish_sums(void* partials, void* sums, int nterms,
                                   (cudaStream_t)stream);                    \
   }
 
+// ---------------------------------------------------------------------------
+// The geometry of an x-march tile (pk_march below, and fd_ops.cu's march of
+// the Laplacian, whose header defines PK_H alone): a block of 32 (z) x 8
+// (y) threads owns one y-z tile; per tapped array it holds the centre plane
+// with its y-z halo (SY x SZ) and, in pk_march, a ring of 2h+1 planes of
+// the tile itself (fd_ops.cu keeps the +-x taps in registers).
+// ---------------------------------------------------------------------------
+// the most dynamic shared memory a block may use on sm_90
+#define PK_MARCH_SMEM 232448
+
+struct PkTileGeo {
+  static constexpr int TZ = PK_BLOCK_Z, TY = PK_BLOCK_Y;
+  static constexpr int THREADS = TZ * TY;
+  static constexpr int SY = TY + 2 * PK_H, SZ = TZ + 2 * PK_H;
+  static constexpr int NS = 2 * PK_H + 1;           // ring slots
+  static constexpr int PLANE = TY * TZ;              // one ring slot
+  static constexpr int CENTRE = SY * SZ;             // the haloed plane
+  static constexpr int FRAME = CENTRE - PLANE;       // its halo
+  static constexpr int SITES = CENTRE + NS * PLANE;  // one array's share
+};
+
+// Element k of the centre plane's halo frame, as (row, column) of the
+// haloed plane: h rows above and below, then h columns on either side of
+// each row.
+__device__ __forceinline__ void pk_frame_at(int k, int& yy, int& zz) {
+  using Tl = PkTileGeo;
+  if (k < 2 * PK_H * Tl::SZ) {
+    yy = k / Tl::SZ;
+    zz = k % Tl::SZ;
+    if (yy >= PK_H) yy += Tl::TY;
+  } else {
+    const int r = k - 2 * PK_H * Tl::SZ;
+    yy = PK_H + r / (2 * PK_H);
+    zz = r % (2 * PK_H);
+    if (zz >= PK_H) zz += Tl::TZ;
+  }
+}
+
 #ifdef PK_F
 // ---------------------------------------------------------------------------
 // The x-march of the pair kernels -- K3 and K6 with NH = 0 tensor
@@ -485,35 +523,36 @@ static int pk_finish_sums(void* partials, void* sums, int nterms,
 // sm_90 gives one (PK_MARCH_SMEM); ops/fused.py:march_tile mirrors the
 // rule; pk_scalar_march_tile and pk_preheat_march_tile report the
 // instantiated tiles.
+//
+// The GW energy stage K5' (fused_stage.cu) marches the same way with one
+// value per tapped array (V = 1): f of each field, h of each component, and
+// no stage-1 composition; its tile follows the same rule with one array
+// where the pairs hold two (pk_stage_march_tile reports it).
 // ---------------------------------------------------------------------------
-// x planes a run of K8 and K9, and of K3 and K6: the fastest variants of
-// chip_smoke.py --phases march_variants on an H100
+// x planes a run of K8 and K9, of K3 and K6, and of K5': the fastest
+// variants of chip_smoke.py --phases march_variants on an H100
 #ifndef PK_MARCH_LX
 #define PK_MARCH_LX 32
 #endif
 #ifndef PK_SCALAR_MARCH_LX
 #define PK_SCALAR_MARCH_LX 24
 #endif
-// the most dynamic shared memory a block may use on sm_90
-#define PK_MARCH_SMEM 232448
+#ifndef PK_STAGE_MARCH_LX
+#define PK_STAGE_MARCH_LX 16
+#endif
 
-// The geometry of a march tile, whatever it holds.
-struct PkMarchGeo {
-  static constexpr int TZ = PK_BLOCK_Z, TY = PK_BLOCK_Y;
-  static constexpr int THREADS = TZ * TY;
-  static constexpr int SY = TY + 2 * PK_H, SZ = TZ + 2 * PK_H;
-  static constexpr int NS = 2 * PK_H + 1;           // ring slots
-  static constexpr int PLANE = TY * TZ;              // one ring slot
-  static constexpr int CENTRE = SY * SZ;             // the haloed plane
-  static constexpr int FRAME = CENTRE - PLANE;       // its halo
-  static constexpr int SITES = CENTRE + NS * PLANE;  // one array's share
+// The geometry of a march tile, whatever it holds, and the room it leaves
+// for K6's and K9's warp partials.
+struct PkMarchGeo : PkTileGeo {
   static constexpr int NSUM = 2 * PK_NT * TY;        // K6's, K9's partials
 };
 
-// The tile of a march with NH tensor components (0: the scalar march).
-template <typename T, int NH>
+// The tile of a march with NH tensor components (0: the scalar march) and
+// V values per tapped array (2: the pairs' f and f1, h and h1; 1: K5').
+template <typename T, int NH, int V = 2>
 struct PkMarchTile : PkMarchGeo {
-  static constexpr int LX = NH ? PK_MARCH_LX : PK_SCALAR_MARCH_LX;
+  static constexpr int LX =
+      V == 1 ? PK_STAGE_MARCH_LX : NH ? PK_MARCH_LX : PK_SCALAR_MARCH_LX;
   // dynamic (the arrays) and static (the warp partials) shared memory fit
   static constexpr bool fits(int arrays) {
     return ((long long)arrays * SITES + NSUM) * (long long)sizeof(T)
@@ -524,22 +563,22 @@ struct PkMarchTile : PkMarchGeo {
     const int cand[4] = {NH, 3, 2, 1};
     for (int k = 0; k < 4; ++k)
       if (cand[k] > 0 && cand[k] <= NH && NH % cand[k] == 0
-          && fits(arrays + 2 * cand[k]))
+          && fits(arrays + V * cand[k]))
         return cand[k];
     return 0;
   }
   // the most fields a scalar pass of the split layout holds
   static constexpr int fields() {
     int k = PK_F;
-    while (k > 0 && !fits(2 * k)) --k;
+    while (k > 0 && !fits(V * k)) --k;
     return k;
   }
-  static constexpr bool JOINT = NH ? tensors(2 * PK_F) > 0 : fits(2 * PK_F);
-  static constexpr int G = !NH ? 0 : JOINT ? tensors(2 * PK_F) : tensors(0);
+  static constexpr bool JOINT = NH ? tensors(V * PK_F) > 0 : fits(V * PK_F);
+  static constexpr int G = !NH ? 0 : JOINT ? tensors(V * PK_F) : tensors(0);
   static constexpr int GF = JOINT ? PK_F : fields();
-  static constexpr int HS = JOINT ? 2 * PK_F : 0;  // a pass's first h array
+  static constexpr int HS = JOINT ? V * PK_F : 0;  // a pass's first h array
   static constexpr int NA =                        // arrays in shared memory
-      JOINT ? 2 * PK_F + 2 * G : (GF > G ? 2 * GF : 2 * G);
+      JOINT ? V * PK_F + V * G : (GF > G ? V * GF : V * G);
   static constexpr int NSP = JOINT ? 0 : (PK_F + GF - 1) / GF;
   static constexpr int PASSES = NSP + (NH ? NH / G : JOINT);
   static constexpr int SMEM = NA * SITES * (int)sizeof(T);  // dynamic
@@ -551,9 +590,9 @@ struct PkMarchTile : PkMarchGeo {
 // and the kernels take a pass by value: where the compiler could not fold
 // them (or read them through a reference), K8 and K9 kept fewer of a
 // plane's loads in flight and ran slower.
-template <typename T, int NH>
+template <typename T, int NH, int V = 2>
 struct PkMarchPass {
-  using Tl = PkMarchTile<T, NH>;
+  using Tl = PkMarchTile<T, NH, V>;
   int p, k0, nf, c0, ng;
   bool scalar;
   __device__ __forceinline__ explicit PkMarchPass(int p_) : p(p_) {
@@ -659,12 +698,13 @@ __device__ __forceinline__ void pk_march_grad(const PkMarchView<T>& v, int a,
 // body(x, i, pass, view, pre's result) runs; a barrier ends the step.
 // Window inputs are read with component stride Nw and y extent Yw, padded
 // along PAD's axes (a plane of a padded x window lies in [-h, X + h)).
-template <typename T, int NH, int PAD, typename In, typename Pre,
+// With V = 1 a tapped array holds the window's values as they are.
+template <typename T, int NH, int PAD, int V = 2, typename In, typename Pre,
           typename Body>
 __device__ __forceinline__ void pk_march(const In& in, int X, int Y, int Z,
                                          int64_t Nw, int Yw, Pre&& pre,
                                          Body&& body) {
-  using Tl = PkMarchTile<T, NH>;
+  using Tl = PkMarchTile<T, NH, V>;
   static_assert((NH == 0 || Tl::G > 0) && Tl::GF > 0,
                 "no x-march tile fits a block's shared memory");
   extern __shared__ __align__(16) unsigned char pk_march_smem[];
@@ -674,27 +714,13 @@ __device__ __forceinline__ void pk_march(const In& in, int X, int Y, int Z,
   const int z0 = blockIdx.x * Tl::TZ, y0 = blockIdx.y * Tl::TY;
   const int xs = blockIdx.z * Tl::LX;
   const int nx = min(Tl::LX, X - xs);
-  // the centre plane's halo frame, element k: h rows above and below,
-  // then h columns on either side of each row
-  auto frame_at = [](int k, int& yy, int& zz) {
-    if (k < 2 * PK_H * Tl::SZ) {
-      yy = k / Tl::SZ;
-      zz = k % Tl::SZ;
-      if (yy >= PK_H) yy += Tl::TY;
-    } else {
-      const int r = k - 2 * PK_H * Tl::SZ;
-      yy = PK_H + r / (2 * PK_H);
-      zz = r % (2 * PK_H);
-      if (zz >= PK_H) zz += Tl::TZ;
-    }
-  };
   auto put = [&](const T (&v)[Tl::NA], int pos) {
 #pragma unroll
     for (int a = 0; a < Tl::NA; ++a) sm[a * Tl::SITES + pos] = v[a];
   };
 
   for (int pass = 0; pass < Tl::PASSES; ++pass) {
-    const PkMarchPass<T, NH> ps(pass);
+    const PkMarchPass<T, NH, V> ps(pass);
     // the tapped arrays the pass holds at lattice point (x, y, z) of the
     // region, composed into v. A tile hanging past a padded window's last
     // row (y >= Y + h) feeds no valid site's taps, so it reads the last
@@ -708,7 +734,7 @@ __device__ __forceinline__ void pk_march(const In& in, int X, int Y, int Z,
         if (ps.held(ps.k0 + j)) {
           const int64_t i = (ps.k0 + j) * Nw + w;
           v[j] = in.fld[0][i];
-          v[Tl::GF + j] = in.composed(0, i, v[j]);
+          if constexpr (V == 2) v[Tl::GF + j] = in.composed(0, i, v[j]);
         }
       }
 #pragma unroll
@@ -716,7 +742,8 @@ __device__ __forceinline__ void pk_march(const In& in, int X, int Y, int Z,
         if (ps.tensors()) {
           const int64_t i = (ps.c0 + j) * Nw + w;
           v[Tl::HS + j] = in.fld[1][i];
-          v[Tl::HS + Tl::G + j] = in.composed(1, i, v[Tl::HS + j]);
+          if constexpr (V == 2)
+            v[Tl::HS + Tl::G + j] = in.composed(1, i, v[Tl::HS + j]);
         }
       }
     };
@@ -735,7 +762,7 @@ __device__ __forceinline__ void pk_march(const In& in, int X, int Y, int Z,
       int yy = 0, zz = 0;
       const bool first = own < Tl::FRAME;
       if (first) {
-        frame_at(own, yy, zz);
+        pk_frame_at(own, yy, zz);
         gather(x, y0 - PK_H + yy, z0 - PK_H + zz, edge);
       }
       const auto site = pre(x, ps);
@@ -750,7 +777,7 @@ __device__ __forceinline__ void pk_march(const In& in, int X, int Y, int Z,
       }
       if (first) put(edge, yy * Tl::SZ + zz);
       for (int k = own + Tl::THREADS; k < Tl::FRAME; k += Tl::THREADS) {
-        frame_at(k, yy, zz);
+        pk_frame_at(k, yy, zz);
         gather(x, y0 - PK_H + yy, z0 - PK_H + zz, edge);
         put(edge, yy * Tl::SZ + zz);
       }
@@ -801,13 +828,14 @@ __device__ __forceinline__ void pk_march_sums(T (&v)[NT],
   }
 }
 
-// Launch a march kernel with NH tensor components over an (X, Y, Z)
-// region: one block per y-z tile and run of LX planes, the tile's shared
-// memory allowed first. Returns the launch's CUDA error.
-template <typename T, int NH, typename... P, typename... A>
+// Launch a march kernel with NH tensor components (and V values per
+// tapped array) over an (X, Y, Z) region: one block per y-z tile and run
+// of LX planes, the tile's shared memory allowed first. Returns the
+// launch's CUDA error.
+template <typename T, int NH, int V = 2, typename... P, typename... A>
 static int pk_march_launch(void (*kernel)(P...), int X, int Y, int Z,
                            void* stream, A... args) {
-  using Tl = PkMarchTile<T, NH>;
+  using Tl = PkMarchTile<T, NH, V>;
   const cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
   if (rc != cudaSuccess) return (int)rc;
@@ -818,9 +846,9 @@ static int pk_march_launch(void (*kernel)(P...), int X, int Y, int Z,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NH>
+template <typename T, int NH, int V = 2>
 static int pk_march_report(int* out) {
-  using Tl = PkMarchTile<T, NH>;
+  using Tl = PkMarchTile<T, NH, V>;
   out[0] = Tl::LX;
   out[1] = Tl::GF;
   out[2] = Tl::G;
@@ -846,5 +874,13 @@ extern "C" int pk_preheat_march_tile(int f64, int* out) {
   return f64 ? pk_march_report<double, PK_NH>(out)
              : pk_march_report<float, PK_NH>(out);
 }
+
+// The GW energy stage's (K5', one value per tapped array), in the same
+// form; an entry point of fused_stage.cu.
+#define PK_STAGE_MARCH_ENTRY                                              \
+  extern "C" int pk_stage_march_tile(int f64, int* out) {                 \
+    return f64 ? pk_march_report<double, PK_NH, 1>(out)                   \
+               : pk_march_report<float, PK_NH, 1>(out);                   \
+  }
 #endif
 #endif

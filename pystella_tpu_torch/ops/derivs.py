@@ -7,7 +7,8 @@ the stencils' eigenvalues, and a :class:`FiniteDifferencer` with ``lap``,
 
 On a CUDA tensor every operator is one launch of a hand-written kernel
 (``ops/csrc/fd_ops.cu``, K12: the JAX package's
-``FiniteDifferencer._pallas_bodies``), one thread per site with periodic
+``FiniteDifferencer._pallas_bodies``): ``lap`` an x-march of a shared-memory
+y-z tile (:func:`lap_tile`), the others one thread per site, with periodic
 wrap by index arithmetic. Beside it sits its plain PyTorch version: the
 same sums in the same order (``lap_from_taps`` / ``grad_from_taps`` and the
 ``pd`` / ``div`` bodies) on :class:`~pystella_tpu_torch.ops.stencil.RollTaps`,
@@ -96,6 +97,39 @@ def kernel_header(h):
             f"#pragma once\n#define PK_H {int(h)}\n")
 
 
+#: the x planes a block of the Laplacian's x-march covers (fd_ops.cu:
+#: PkFdLapTile, PK_FD_LAP_LX)
+LAP_LX = 32
+
+
+def lap_tile(h, itemsize, lx=None):
+    """The Laplacian's x-march tile at stencil radius ``h`` for a working
+    type of ``itemsize`` bytes: ``(lx, bytes)`` -- the x planes a block
+    marches and the static shared memory a block, the 32 x 8 tile's
+    centre plane with its y-z halo, ``(8 + 2h) (32 + 2h)`` elements (the
+    +-x taps live in registers). ``lx`` defaults to the source's
+    constant."""
+    lx = LAP_LX if lx is None else lx
+    return lx, (8 + 2 * h) * (32 + 2 * h) * itemsize
+
+
+def lap_kernel_tile(h, dtype):
+    """The built Laplacian's march tile at stencil radius ``h`` for
+    working type ``dtype``, as the library reports it (``pk_fd_lap_tile``;
+    :func:`lap_tile`)."""
+    return reported_lap_tile(build_kernels(h)["tile"], dtype)
+
+
+def reported_lap_tile(query, dtype):
+    """What a library's ``pk_fd_lap_tile`` entry point ``query`` reports
+    for working type ``dtype``, in :func:`lap_tile`'s form."""
+    query.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    query.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    query(int(dtype == torch.float64), out)
+    return out[0], out[1]
+
+
 #: stencil radius -> {(operator, dtype): C entry point}, built at first use
 _LIBS = {}
 
@@ -107,20 +141,37 @@ def build_kernels(h):
     fns = _LIBS.get(h)
     if fns is None:
         lib = _stencil.build_kernels([_SOURCE], kernel_header(h))[_SOURCE]
-        fns = {}
-        # in, out0, out1, C, X, Y, Z, weights, [Nb, Nw, Ys], stream
-        base = ([ctypes.c_void_p] * 3 + [ctypes.c_int64]
-                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        for op in OPS:
-            for dtype, suffix in _SUFFIX.items():
-                for pad, psuffix in [(0, "")] + list(_PAD_SUFFIX.items()):
-                    fn = getattr(lib, f"pk_fd_{op}_{suffix}{psuffix}")
-                    fn.argtypes = base + (
-                        [ctypes.c_int64] * 2 + [ctypes.c_int] if pad
-                        else []) + [ctypes.c_void_p]
-                    fn.restype = ctypes.c_int
-                    fns[op, dtype, pad] = fn
+        fns = bind_kernels(lib)
+        fns["tile"] = lib.pk_fd_lap_tile
+        for dtype in _SUFFIX:
+            # the kernel's compile-time march tile must be the one lap_tile
+            # predicts
+            got = reported_lap_tile(fns["tile"], dtype)
+            want = lap_tile(h, dtype.itemsize)
+            if got != want:
+                raise RuntimeError(
+                    f"fd_ops.cu instantiates the Laplacian's tile {got} for "
+                    f"{dtype}; ops/derivs.py:lap_tile predicts {want}")
         _LIBS[h] = fns
+    return fns
+
+
+def bind_kernels(lib):
+    """The operator entry points of a loaded fd_ops library, typed:
+    ``{(operator, dtype, padding bits): C function}``."""
+    fns = {}
+    # in, out0, out1, C, X, Y, Z, weights, [Nb, Nw, Ys], stream
+    base = ([ctypes.c_void_p] * 3 + [ctypes.c_int64]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    for op in OPS:
+        for dtype, suffix in _SUFFIX.items():
+            for pad, psuffix in [(0, "")] + list(_PAD_SUFFIX.items()):
+                fn = getattr(lib, f"pk_fd_{op}_{suffix}{psuffix}")
+                fn.argtypes = base + (
+                    [ctypes.c_int64] * 2 + [ctypes.c_int] if pad
+                    else []) + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                fns[op, dtype, pad] = fn
     return fns
 
 

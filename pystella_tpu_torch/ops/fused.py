@@ -33,7 +33,8 @@ Hand-written CUDA kernels (``ops/csrc``):
   (K5') and ``preheat_coupled_pair`` / ``preheat_coupled_pair_deferred``
   (K9): the same five for the scalar + gravitational-wave system, a
   template flag on each scalar kernel that adds the tensor stages after the
-  scalar ones.
+  scalar ones (K5', like the pairs, an x-march: :func:`march_tile` with
+  ``values=1``).
 
 Every kernel also comes with ``carry_dtype=torch.bfloat16``: the same kernel
 storing the k-carries in bfloat16 (widened on load, rounded on store, the
@@ -276,34 +277,39 @@ def chunk_tile(F, h, itemsize, depth, lx=None, rows=None):
     return None
 
 
-#: the x-march of the pair kernels (pk_common.cuh: PkMarchTile): the x
-#: planes a block of the GW pairs K8, K9 marches (PK_MARCH_LX) and those of
-#: the scalar pairs K3, K6 (PK_SCALAR_MARCH_LX); a tile is 32 z columns by
-#: 8 y rows
+#: the x-march of the pair kernels and of the GW energy stage
+#: (pk_common.cuh: PkMarchTile): the x planes a block of the GW pairs K8, K9
+#: marches (PK_MARCH_LX), those of the scalar pairs K3, K6
+#: (PK_SCALAR_MARCH_LX) and those of K5' (PK_STAGE_MARCH_LX); a tile is 32
+#: z columns by 8 y rows
 MARCH_LX = 32
 SCALAR_MARCH_LX = 24
+STAGE_MARCH_LX = 16
 
 
-def march_tile(F, h, itemsize, nh=6, lx=None):
+def march_tile(F, h, itemsize, nh=6, lx=None, values=2):
     """The x-march tile of the pair kernels for ``F`` fields, ``nh``
     tensor components (6: the GW pairs; 0: the scalar pairs), stencil
-    radius ``h`` and a working type of ``itemsize`` bytes: ``((lx, gf, g,
-    joint), bytes)`` -- the x planes a block marches, the fields a scalar
-    pass holds, the tensor components a pass holds, the layout (1 joint, 0
-    split) and the dynamic shared memory a block. ``lx`` defaults to the
-    sources' constant. The rule of pk_common.cuh: each tapped array (f and
-    f1 of a field, h and h1 of a component) keeps the tile's centre plane
-    with its y-z halo and a ring of 2h+1 planes of the tile, in dynamic
-    shared memory, and what is left of the most a block may use must hold
-    K6's or K9's static per-warp partials of one plane's 2 (2F + 1) sum
-    terms. Joint: every pass holds all ``F`` fields and
-    ``g`` components, ``g`` the first of ``nh``, 3, 2, 1 that divides
-    ``nh`` and fits (``nh = 0``: one pass, where every field fits). Split,
-    where no ``g`` fits beside the fields: scalar passes of the most
-    fields that fit (``gf``), then tensor passes of the first ``g`` that
-    fits alone."""
+    radius ``h`` and a working type of ``itemsize`` bytes -- or, with
+    ``values=1``, of the GW energy stage K5', which holds one array per
+    tapped value (f, h) where a pair holds two (f and f1, h and h1):
+    ``((lx, gf, g, joint), bytes)`` -- the x planes a block marches, the
+    fields a scalar pass holds, the tensor components a pass holds, the
+    layout (1 joint, 0 split) and the dynamic shared memory a block.
+    ``lx`` defaults to the sources' constant. The rule of pk_common.cuh:
+    each tapped array keeps the tile's centre plane with its y-z halo and
+    a ring of 2h+1 planes of the tile, in dynamic shared memory, and what
+    is left of the most a block may use must hold K6's or K9's static
+    per-warp partials of one plane's 2 (2F + 1) sum terms. Joint: every
+    pass holds all ``F`` fields and ``g`` components, ``g`` the first of
+    ``nh``, 3, 2, 1 that divides ``nh`` and fits (``nh = 0``: one pass,
+    where every field fits). Split, where no ``g`` fits beside the fields:
+    scalar passes of the most fields that fit (``gf``), then tensor passes
+    of the first ``g`` that fits alone."""
     if lx is None:
-        lx = MARCH_LX if nh else SCALAR_MARCH_LX
+        lx = (STAGE_MARCH_LX if values == 1 else MARCH_LX if nh
+              else SCALAR_MARCH_LX)
+    v = values
     sites = (8 + 2 * h) * (32 + 2 * h) + (2 * h + 1) * 8 * 32
     sums = 2 * (2 * F + 1) * 8
 
@@ -313,15 +319,15 @@ def march_tile(F, h, itemsize, nh=6, lx=None):
     def tensors(arrays):
         return next((g for g in (nh, 3, 2, 1)
                      if 0 < g <= nh and nh % g == 0
-                     and fits(arrays + 2 * g)), 0)
+                     and fits(arrays + v * g)), 0)
 
-    g = tensors(2 * F)
-    if g or (not nh and fits(2 * F)):
-        gf, joint, arrays = F, 1, 2 * F + 2 * g
+    g = tensors(v * F)
+    if g or (not nh and fits(v * F)):
+        gf, joint, arrays = F, 1, v * F + v * g
     else:
-        gf = max(k for k in range(1, F + 1) if fits(2 * k))
+        gf = max(k for k in range(1, F + 1) if fits(v * k))
         g, joint = tensors(0), 0
-        arrays = 2 * max(gf, g)
+        arrays = v * max(gf, g)
     return (lx, gf, g, joint), arrays * sites * itemsize
 
 
@@ -623,13 +629,13 @@ class FusedScalarStepper(_step.Stepper):
                         f"fused_chunk.cu instantiates the tile {got} for "
                         f"{dtype}; ops/fused.py:chunk_tile predicts {want}")
         self._built = libs
-        for src in self._march_sources():
+        for src, values in self._march_sources():
             for dtype in _SUFFIX:
                 # the kernel's compile-time x-march tile must be the one
                 # march_tile predicts
                 got = self.march_kernel_tile(dtype, src)
                 want = march_tile(self.F, self.h, dtype.itemsize,
-                                  self._march_nh)
+                                  self._march_nh, values=values)
                 if got != want:
                     raise RuntimeError(
                         f"{src} instantiates the x-march tile {got} for "
@@ -654,21 +660,28 @@ class FusedScalarStepper(_step.Stepper):
     _march_nh = 0
 
     def _march_sources(self):
-        """The built sources of this stepper's x-marching pairs (K3 and K6;
-        for the GW system K8 and K9)."""
-        return sorted({KERNELS[n][0] for n in self._kernel_bases()
-                       if n in (self._KERNEL["pair"],
-                                self._KERNEL["coupled_pair"])})
+        """The built sources of this stepper's x-marching kernels, each
+        with the values its march holds per tapped array (:func:`
+        march_tile`): the pairs' (K3 and K6; for the GW system K8 and K9)
+        2, the GW energy stage's (K5') 1."""
+        srcs = [(KERNELS[n][0], 2) for n in self._kernel_bases()
+                if n in (self._KERNEL["pair"], self._KERNEL["coupled_pair"])]
+        if self._march_nh:
+            srcs.append((KERNELS[self._KERNEL["stage_energy"]][0], 1))
+        return sorted(set(srcs))
 
     def march_kernel_tile(self, dtype, source="fused_pair.cu"):
-        """The x-march tile of this stepper's built pair kernels in
-        ``source`` for working type ``dtype``, as the library reports it
+        """The x-march tile of this stepper's built kernels in ``source``
+        for working type ``dtype``, as the library reports it
         (``pk_scalar_march_tile``; for the GW system
-        ``pk_preheat_march_tile``): ``((lx, gf, g, joint), bytes)``
+        ``pk_preheat_march_tile``, and ``pk_stage_march_tile`` in
+        fused_stage.cu, that of K5'): ``((lx, gf, g, joint), bytes)``
         (:func:`march_tile`)."""
         lib = self._built[source]
-        fn = (lib.pk_preheat_march_tile if self._march_nh
-              else lib.pk_scalar_march_tile)
+        fn = (lib.pk_stage_march_tile if source == KERNELS[
+            "preheat_stage_energy"][0] and self._march_nh
+            else lib.pk_preheat_march_tile if self._march_nh
+            else lib.pk_scalar_march_tile)
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         out = (ctypes.c_int * 5)()

@@ -1,4 +1,4 @@
-"""Rehearse the pair kernels' x-march on the CPU, built with g++ behind the
+"""Rehearse the kernels' x-march on the CPU, built with g++ behind the
 CUDA stand-in of shim.py.
 
 Every entry point of the scalar pairs K3 and K6 (both inputs) -- f32,
@@ -10,23 +10,35 @@ sums. With ``--gw`` the GW pairs K8 and K9 (both inputs) are held to
 their plain versions and their padded launches to the unpadded ones.
 With ``--chunk`` the whole-RK chunk K10 (f32, f64, bf16 carries) is held
 to its plain version and to two K3 launches bit for bit, state and
-carries. With ``--against DIR``, the root of another checkout (a parent
-commit unpacked with ``git archive``, say), every launch must also equal
-that checkout's kernels bit for bit, sums included.
+carries. With ``--stage`` the GW energy stage K5' (f32, f64, bf16 carries
+and the ``_bf16_fin`` carries, every padding) likewise, its lattice
+outputs also to K7's bit for bit and two x blocks' partials to the
+unsharded sums. With ``--fd`` the finite-difference Laplacian ``fd_lap``
+(h = 1-4, f32 and f64, every padding, the interior and shell launches)
+is held to its plain version, its padded, interior and shell launches to
+the unpadded one and every launch to the Laplacian of the per-site
+``fd_grad_lap``, bit for bit. With ``--against DIR``, the root of another
+checkout (a parent commit unpacked with ``git archive``, say), every
+launch must also equal that checkout's kernels bit for bit, sums
+included.
 
 Shapes: 16^3, 70x12x40 and 5x9x33 (two fields, h = 2), a five-field model
-at h = 4 (f64: the split layout; K10: a lower rung of its ladder of
-tiles), three fields at h = 1 and 3, and 2^3, where the +-taps wrap onto
-one site. ``--lx`` is the run length the kernels are built with
-(PK_SCALAR_MARCH_LX; PK_MARCH_LX with ``--gw``, PK_CHUNK_LX with
-``--chunk``): the default 4 cuts runs short at every shape and keeps the
-run to a few minutes. Exits 1 if a check fails::
+at h = 4 (f64: the split layout of the pairs, two groups of three
+components for K5'; K10: a lower rung of its ladder of tiles), ten
+fields at h = 4 in f64 (the split layout of K5'), three fields at h = 1
+and 3, and 2^3, where the +-taps wrap onto one site. ``--lx`` is the run
+length the kernels are built with (PK_SCALAR_MARCH_LX; PK_MARCH_LX with
+``--gw``, PK_CHUNK_LX with ``--chunk``, PK_STAGE_MARCH_LX with
+``--stage``, PK_FD_LAP_LX with ``--fd``): the default 4 cuts runs short
+at every shape and keeps the run to a few minutes. Exits 1 if a check
+fails::
 
-    python pystella_tpu_torch/tools/cpu_shim/rehearse.py [--gw | --chunk]
-        [--lx N] [--against DIR]
+    python pystella_tpu_torch/tools/cpu_shim/rehearse.py
+        [--gw | --chunk | --stage | --fd] [--lx N] [--against DIR]
 """
 
 import argparse
+import ctypes
 import itertools
 import sys
 import time
@@ -34,7 +46,7 @@ from pathlib import Path
 
 import torch
 
-from shim import built, pt, shim, tfused
+from shim import CSRC, build, built, pt, shim, tderivs, tfused
 
 A, B = pt.LowStorageRK54._A, pt.LowStorageRK54._B
 RESULTS = []
@@ -53,8 +65,11 @@ def many_potential(n):
 
 
 def params(kernel, dx):
-    """A pair's launch parameters (the tableau's stages 1 and 2)."""
+    """A pair's launch parameters (the tableau's stages 1 and 2; a single
+    stage's, stage 1)."""
     dt = 0.1 * dx
+    if kernel in ("fused_stage", "fused_stage_energy"):
+        return (dt, 1.0, 0.5, A[1], B[1])
     if kernel == "fused_pair":
         return (dt, 1.0, 0.5, A[1], B[1], 1.01, 0.49, A[2], B[2])
     p = (dt, 1.0, 0.5, A[1], B[1], 1.0001, A[2], B[2])
@@ -103,8 +118,9 @@ class Case:
     checkout's, with ``--against``) and a seeded set of inputs."""
 
     def __init__(self, args, F, h, grid, dtype, carry, potential, gw=False,
-                 chunk=False):
+                 chunk=False, tile_src="fused_pair.cu"):
         sector = pt.ScalarSector(F, potential=potential)
+        self.sector, self.defines = sector, args.defines
         self.dx = 5.0 / grid[0]
         if gw:
             make = lambda: pt.FusedPreheatStepper(  # noqa: E731
@@ -130,7 +146,7 @@ class Case:
                     for a, c, d in zip(amps, self.new._comps,
                                        self.new._in_dtypes(False))]
         tile = (self.new.chunk_kernel_tile(dtype) if chunk else
-                self.new.march_kernel_tile(dtype, "fused_pair.cu"))
+                self.new.march_kernel_tile(dtype, tile_src))
         self.name = (f"{'GW ' if gw else ''}F{F} h{h} {grid} "
                      f"{str(dtype)[6:]} {'bf16' if carry else 'T'} tile {tile}")
 
@@ -144,33 +160,67 @@ class Case:
                             else st.launch_block(K, kind, ins, nans(st), p))
         return outs[0], len(outs) == 1 or same(*outs)
 
-    def window(self, K, hx, hy):
+    def window(self, K, hx, hy, ins=None):
         wins = tfused._WINDOWS[K]
         return [pad(t, hx, hy) if j in wins else t
-                for j, t in enumerate(self.ins)]
+                for j, t in enumerate(ins or self.ins)]
 
-    def run(self, kernels, kinds=True):
+    def run(self, kernels, kinds=True, ins=None, label=""):
+        """Each of ``kernels`` on ``ins`` (the case's inputs by default)."""
         X, h, n = self.grid[0], self.h, len(self.new._comps)
+        ins = ins or self.ins
         other = " and other checkout" if self.old else ""
         for K in kernels:
             p = params(tfused._GW_OF.get(K, K), self.dx)
-            tag = f"{self.name} {K}"
-            a, ok = self.launch(K, self.ins, p)
+            tag = f"{self.name} {K}{label}"
+            a, ok = self.launch(K, ins, p)
             if self.old:
                 check(f"{tag} == other checkout", ok)
             err = max(rel(x, y) for x, y in zip(
-                a[:n], self.new.plain(K, self.ins, p)[:n]))
+                a[:n], self.new.plain(K, ins, p)[:n]))
             check(f"{tag} vs plain {err:.1e}", err <= self.tol)
             if not kinds:
                 continue
             for kind, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
                                    ("xypad", (h, h))):
-                pa, ok = self.launch(K, self.window(K, hx, hy), p, kind)
+                pa, ok = self.launch(K, self.window(K, hx, hy, ins), p, kind)
                 check(f"{tag}:{kind} == unpadded{other}", ok and same(pa, a))
             if K == "fused_pair" and X > 2 * h:
                 self.shells(K, p, a)
-            if K.startswith("coupled") and X % 2 == 0:
-                self.two_blocks(K, p, a)
+            if tfused.SUM_SETS[K] and X % 2 == 0:
+                self.two_blocks(K, p, a, ins)
+
+    def run_stage(self, k5=False):
+        """K5' (and, with bf16 carries, on finalized velocity carries): vs
+        its plain version, padded, two x blocks, and its lattice outputs
+        bit for bit K7's (``preheat_stage``, the per-site template); with
+        ``k5`` also its scalar outputs and sums K5's (``fused_stage_energy``
+        of the same sector's scalar stepper, per-site)."""
+        K, n = "preheat_stage_energy", len(self.new._comps)
+        st = self.new
+        sets = [("", self.ins)]
+        if st.carry_dtype is not None:
+            sets.append((" fin", [t.to(d) for t, d in zip(
+                self.ins, st._in_dtypes(True))]))
+        scalar = k5 and built(pt.FusedScalarStepper(
+            self.sector, self.grid, self.dx, self.h, dtype=st.dtype,
+            carry_dtype=st.carry_dtype, device="cpu"), defines=self.defines)
+        for label, ins in sets:
+            self.run([K], kinds=self.grid != (2, 2, 2), ins=ins, label=label)
+            p = params(tfused._GW_OF[K], self.dx)
+            with shim():
+                a = st.launch(K, ins, nans(st), p)
+                if not label:
+                    b = st.launch("preheat_stage", ins, nans(st), p)
+                if scalar:
+                    c = scalar.launch("fused_stage_energy", ins[:4],
+                                      nans(scalar), p)
+            if not label:
+                check(f"{self.name} {K}{label} lattice outputs == K7's",
+                      same(a[:n], b))
+            if scalar:
+                check(f"{self.name} {K}{label} scalar outputs and sums == "
+                      "K5's", same(a[:4] + a[n:], c))
 
     def run_chunk(self):
         """K10 vs its plain version, vs two K3 launches and, with
@@ -204,14 +254,14 @@ class Case:
         check(f"{self.name} {K} interior + shells == xpad",
               same(outs, a[:len(st._comps)]))
 
-    def two_blocks(self, K, p, a):
+    def two_blocks(self, K, p, a, ins=None):
         """Two x blocks writing partials at their whole-lattice places give
         the unsharded sums."""
         (X, Y, Z), h, st = self.grid, self.h, self.new
         nb = st._num_blocks(X, Y, Z)
-        buf = torch.full((2 * (2 * self.F + 1) * nb,), float("nan"),
-                         dtype=st.dtype)
-        xpad = self.window(K, h, 0)
+        buf = torch.full((tfused.SUM_SETS[K] * (2 * self.F + 1) * nb,),
+                         float("nan"), dtype=st.dtype)
+        xpad = self.window(K, h, 0, ins)
         wins = tfused._WINDOWS[K]
         outs = nans(st)
         with shim():
@@ -268,6 +318,105 @@ def chunk(args):
              many_potential(5), chunk=True).run_chunk()
 
 
+def stage(args):
+    def case(F, h, grid, dtype, carry, potential, k5=False):
+        Case(args, F, h, grid, dtype, carry, potential, gw=True,
+             tile_src="fused_stage.cu").run_stage(k5)
+    for grid, dtype, carry in [((16, 16, 16), torch.float32, None),
+                               ((70, 12, 40), torch.float64, None),
+                               ((5, 9, 33), torch.float32, torch.bfloat16),
+                               ((16, 16, 16), torch.float64, torch.bfloat16),
+                               ((2, 2, 2), torch.float64, None)]:
+        case(2, 2, grid, dtype, carry, bench_potential,
+             k5=grid == (16, 16, 16))
+    for h in (1, 3):
+        case(3, h, (19, 10, 35), torch.float64, None, many_potential(3))
+    case(5, 4, (13, 12, 40), torch.float64, torch.bfloat16,
+         many_potential(5))
+    case(10, 4, (6, 9, 33), torch.float64, None, many_potential(10))
+
+
+class FdCase:
+    """``fd_lap`` at stencil radius ``h`` on a seeded ``(C, X, Y, Z)``
+    input: this checkout's library (and another checkout's, with
+    ``--against``)."""
+
+    def __init__(self, args, h, grid, dtype, C=2):
+        header = tderivs.kernel_header(h)
+        lib = ctypes.CDLL(str(build(CSRC, "fd_ops.cu", header
+                                    + args.defines)))
+        self.libs = [tderivs.bind_kernels(lib)]
+        tile = tderivs.reported_lap_tile(lib.pk_fd_lap_tile, dtype)
+        want = tderivs.lap_tile(h, dtype.itemsize)
+        if tile != want:
+            raise RuntimeError(f"fd_ops.cu's tile {tile}, lap_tile {want}")
+        if args.against:
+            self.libs.append(tderivs.bind_kernels(ctypes.CDLL(str(build(
+                Path(args.against) / "pystella_tpu_torch" / "ops" / "csrc",
+                "fd_ops.cu", header)))))
+        self.fd = pt.FiniteDifferencer(h, 5.0 / grid[0], device="cpu")
+        self.h, self.grid = h, grid
+        self.tol = 1e-5 if dtype == torch.float32 else 1e-13
+        g = torch.Generator().manual_seed(h)
+        self.x = torch.randn((C,) + grid, generator=g, dtype=dtype)
+        self.name = f"fd_lap h{h} {(C,) + grid} {str(dtype)[6:]} tile {tile}"
+
+    def launch(self, name, kind, win, outs, x0=0):
+        """Every library's launch into fresh copies of ``outs``."""
+        got = []
+        for fns in self.libs:
+            tderivs._LIBS[self.h] = fns
+            o = [t.clone() for t in outs]
+            with shim():
+                self.fd.launch_block(name, kind, win, o, x0)
+            got.append(o)
+        tderivs._LIBS.pop(self.h)
+        return got
+
+    def run(self):
+        h, x, X = self.h, self.x, self.grid[0]
+        other = " and other checkout" if len(self.libs) > 1 else ""
+        nan = [torch.full_like(x, float("nan"))]
+        a = self.launch("lap", None, x, nan)
+        if other:
+            check(f"{self.name} == other checkout", same(*a))
+        a = a[0]
+        err = rel(a[0], self.fd.plain("lap", x)[0])
+        check(f"{self.name} vs plain {err:.1e}", err <= self.tol)
+        gl = self.launch("grad_lap", None, x, [torch.full(
+            (x.shape[0], 3) + self.grid, float("nan"), dtype=x.dtype)]
+            + nan)[0]
+        check(f"{self.name} == fd_grad_lap's Laplacian", same(a, gl[1:]))
+        for kind, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
+                               ("xypad", (h, h))):
+            if min(self.grid[:2]) < h:
+                break  # no neighbour holds h rows
+            pa = self.launch("lap", kind, pad(x, hx, hy), nan)
+            check(f"{self.name}:{kind} == unpadded{other}",
+                  all(same(o, a) for o in pa))
+        if X > 2 * h:
+            xpad = pad(x, h, 0)
+            for fns in self.libs:
+                tderivs._LIBS[h] = fns
+                outs = [t.clone() for t in nan]
+                with shim():
+                    self.fd.launch_block("lap", "interior", x, outs, x0=h)
+                    for x0 in (0, X - h):
+                        self.fd.launch_block("lap", "shell", xpad.narrow(
+                            1, x0, 3 * h).contiguous(), outs, x0=x0)
+                check(f"{self.name} interior + shells == unpadded",
+                      same(outs, a))
+            tderivs._LIBS.pop(h)
+
+
+def fd(args):
+    for h, dtype in itertools.product((1, 2, 3, 4),
+                                      (torch.float32, torch.float64)):
+        for grid in ((16, 16, 16), (70, 12, 40), (5, 9, 33), (2, 2, 2)):
+            FdCase(args, h, grid, dtype).run()
+    FdCase(args, 2, (9, 20, 70), torch.float32, C=5).run()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     family = parser.add_mutually_exclusive_group()
@@ -275,6 +424,10 @@ def main():
                         help="the GW pairs K8 and K9 instead of K3 and K6")
     family.add_argument("--chunk", action="store_true",
                         help="the whole-RK chunk K10 instead of K3 and K6")
+    family.add_argument("--stage", action="store_true",
+                        help="the GW energy stage K5' instead of K3 and K6")
+    family.add_argument("--fd", action="store_true",
+                        help="the Laplacian fd_lap instead of K3 and K6")
     parser.add_argument("--lx", type=int, default=4,
                         help="the march's run length to build with")
     parser.add_argument("--against", metavar="DIR",
@@ -286,11 +439,18 @@ def main():
     elif args.chunk:
         tfused.CHUNK_LX = args.lx
         args.defines = f"\n#define PK_CHUNK_LX {args.lx}\n"
+    elif args.stage:
+        tfused.STAGE_MARCH_LX = args.lx
+        args.defines = f"\n#define PK_STAGE_MARCH_LX {args.lx}\n"
+    elif args.fd:
+        tderivs.LAP_LX = args.lx
+        args.defines = f"\n#define PK_FD_LAP_LX {args.lx}\n"
     else:
         tfused.SCALAR_MARCH_LX = args.lx
         args.defines = f"\n#define PK_SCALAR_MARCH_LX {args.lx}\n"
     t0 = time.time()
-    (gw if args.gw else chunk if args.chunk else scalar)(args)
+    (gw if args.gw else chunk if args.chunk else stage if args.stage
+     else fd if args.fd else scalar)(args)
     failed = RESULTS.count(False)
     print(f"{len(RESULTS) - failed} ok, {failed} failed, "
           f"{time.time() - t0:.0f} s")

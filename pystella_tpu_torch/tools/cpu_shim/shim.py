@@ -11,12 +11,13 @@ block, so a read of an element no thread wrote shows as NaN),
 ``kernel<<<grid, block, smem, stream>>>(args)`` becomes ``pk_launch(grid,
 block, smem, stream, lambda)``. With ``-ffp-contract=off`` the kernels
 then round as the card's ``-fmad=false`` builds do. The port's package is
-copied and its ``ops/fused.py`` patched so that its card branches also
-take CPU tensors; everything is written under
+copied and its ``ops/fused.py`` and ``ops/derivs.py`` patched so that
+their card branches also take CPU tensors; everything is written under
 ``pystella_tpu_torch/ops/_build/cpu_shim/`` of the checkout.
 
-Importing this module sets that up and exposes ``pt`` and ``tfused`` (the
-patched package and its ``ops.fused``), :func:`built` and :func:`shim`.
+Importing this module sets that up and exposes ``pt``, ``tfused`` and
+``tderivs`` (the patched package, its ``ops.fused`` and ``ops.derivs``),
+:func:`build`, :func:`built` and :func:`shim`.
 """
 
 import contextlib
@@ -46,6 +47,14 @@ def transform(text):
                   r"pk_launch(\2, [&]() { \1(\3); });", text, flags=re.S)
 
 
+#: g++'s flags; -fno-gnu-unique keeps each library's ``static
+#: thread_local`` locals of a template (a kernel's static shared memory)
+#: its own, where the loader would otherwise bind every loaded library's
+#: copy of one instantiation to the first one's, whatever its size
+GXX_FLAGS = ["-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+             "-pthread", "-w", "-fno-gnu-unique"]
+
+
 def build(csrc, source, header):
     """The shared library of ``source`` from the directory ``csrc`` with
     the model header ``header``, built once and kept by a hash of all
@@ -53,7 +62,7 @@ def build(csrc, source, header):
     csrc = Path(csrc)
     texts = [(csrc / source).read_text(), (csrc / "pk_common.cuh").read_text()]
     key = hashlib.sha1("\0".join(
-        [str(csrc), source, header] + texts
+        [str(csrc), source, header] + texts + GXX_FLAGS
         + [(HERE / "include" / n).read_text()
            for n in ("cuda_runtime.h", "cuda_bf16.h")]).encode()
     ).hexdigest()[:16]
@@ -65,9 +74,9 @@ def build(csrc, source, header):
     (out / "src.cpp").write_text(transform(texts[0]))
     (out / "pk_common.cuh").write_text(transform(texts[1]))
     (out / "pk_model.cuh").write_text(header)
-    cmd = ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
-           "-fPIC", "-pthread", "-w", f"-I{HERE / 'include'}", f"-I{out}",
-           str(out / "src.cpp"), "-o", str(out / "tmp.so")]
+    cmd = ["g++"] + GXX_FLAGS + [f"-I{HERE / 'include'}", f"-I{out}",
+                                 str(out / "src.cpp"), "-o",
+                                 str(out / "tmp.so")]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"g++ failed for {source}:\n{r.stderr[-6000:]}")
@@ -83,16 +92,21 @@ def _package():
         shutil.rmtree(dst)
     shutil.copytree(ROOT / "pystella_tpu_torch", dst, ignore=(
         shutil.ignore_patterns("_build", "__pycache__", "tools")))
-    fused = dst / "ops" / "fused.py"
-    s = fused.read_text()
-    for a, b in (("\nimport ctypes\n", "\nimport ctypes\n_SHIM = False\n"),
-                 ('if dev.type == "cuda":', 'if dev.type == "cuda" or _SHIM:'),
-                 ('d.devices[0].type == "cuda"',
-                  'd.devices[0].type in ("cuda", "cpu")')):
-        if a not in s:
-            raise RuntimeError(f"ops/fused.py no longer holds {a!r}")
-        s = s.replace(a, b)
-    fused.write_text(s)
+    flag = ("\nimport ctypes\n", "\nimport ctypes\n_SHIM = False\n")
+    for name, subs in (
+            ("fused.py", (flag, ('if dev.type == "cuda":',
+                                 'if dev.type == "cuda" or _SHIM:'),
+                          ('d.devices[0].type == "cuda"',
+                           'd.devices[0].type in ("cuda", "cpu")'))),
+            ("derivs.py", (flag, ('if win.device.type == "cuda":',
+                                  'if win.device.type == "cuda" or _SHIM:')))):
+        path = dst / "ops" / name
+        s = path.read_text()
+        for a, b in subs:
+            if a not in s:
+                raise RuntimeError(f"ops/{name} no longer holds {a!r}")
+            s = s.replace(a, b)
+        path.write_text(s)
     return dst.parent
 
 
@@ -103,6 +117,7 @@ torch.cuda.device = lambda d=None: contextlib.nullcontext()
 torch.cuda.current_stream = lambda d=None: types.SimpleNamespace(
     cuda_stream=0)
 import pystella_tpu_torch as pt  # noqa: E402
+from pystella_tpu_torch.ops import derivs as tderivs  # noqa: E402
 from pystella_tpu_torch.ops import fused as tfused  # noqa: E402
 
 
@@ -134,10 +149,10 @@ def built(stepper, csrc=CSRC, defines=""):
 
 @contextlib.contextmanager
 def shim(on=True):
-    """Within, a stepper's launches on CPU tensors run its built
-    libraries instead of its plain versions."""
-    tfused._SHIM = on
+    """Within, a stepper's (a FiniteDifferencer's) launches on CPU tensors
+    run its built libraries instead of its plain versions."""
+    tfused._SHIM = tderivs._SHIM = on
     try:
         yield
     finally:
-        tfused._SHIM = False
+        tfused._SHIM = tderivs._SHIM = False

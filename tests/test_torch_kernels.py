@@ -1803,3 +1803,158 @@ def test_sharded_bf16_on_card(cuda, mesh, overlap, gw):
         assert torch.equal(torch.from_numpy(decomp.gather_array(out[k])),
                            cref[k].cpu()), k
     assert (e2.a, e2.adot) == (e1.a, e1.adot)
+
+
+# -- the x-marches of K5' and fd_lap against the per-site template ------------
+
+#: the K5' march at its edges (runs cut short, tiles hanging over Y and
+#: Z, 16^3) and on 2^3, where the +-taps wrap onto one site
+STAGE_GRIDS = MARCH_GRIDS + [(2, 2, 2)]
+STAGE_IDS = MARCH_IDS + ["2cubed"]
+#: a model whose f64 f and h arrays at h = 4 leave no room for a tensor
+#: component beside every field: the K5' march's split layout
+#: (ops/fused.py: march_tile with values=1), scalar passes of nine fields
+#: and one
+STAGE_SPLIT_F = 10
+
+
+def _stage_vs_per_site(cuda, st, sst, ins, params, grid, h):
+    """K5' on ``ins``: its scalar outputs and sums K5's (``sst``'s
+    fused_stage_energy, per-site), its tensor outputs K7's (per-site; not
+    on finalized carries), every padded launch on windows padded by hand
+    the unpadded one and two x blocks' partials the unpadded sums, bit for
+    bit; the lattice outputs at KERNEL_TOL of the plain version."""
+    kernel = "preheat_stage_energy"
+    n = len(ins)
+    fin = st._finalized(kernel, ins)
+    one = st.launch(kernel, ins, st._new_set(cuda), params)
+    k5 = sst.launch("fused_stage_energy", ins[:4], sst._new_set(cuda),
+                    params)
+    torch.cuda.synchronize()
+    for a, b in zip(one[:4] + one[n:], k5):
+        assert torch.equal(a, b)
+    if not fin:
+        k7 = st.launch("preheat_stage", ins, st._new_set(cuda), params)
+        torch.cuda.synchronize()
+        for a, b in zip(one[4:n], k7[4:]):
+            assert torch.equal(a, b)
+    plain = st.plain(kernel, ins, params)
+    for o, p in zip(one[:n], plain[:n]):
+        assert _rel(o, p) <= KERNEL_TOL[st.dtype]
+    if min(grid[:2]) < h:
+        return
+    wins = tfused._WINDOWS[kernel]
+    for kind, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
+                           ("xypad", (h, h))):
+        padded = st.launch_block(
+            kernel, kind, [_pad_periodic(t, hx, hy) if j in wins else t
+                           for j, t in enumerate(ins)],
+            st._new_set(cuda), params)
+        torch.cuda.synchronize()
+        for a, b in zip(one, padded):
+            assert torch.equal(a, b)
+    X, Y, Z = grid
+    if X % 2:
+        return
+    nb = st._num_blocks(X, Y, Z)
+    buf = torch.full(((2 * st.F + 1) * nb,), float("nan"), dtype=st.dtype,
+                     device=cuda)
+    xpad = [_pad_periodic(t, h, 0) if j in wins else t
+            for j, t in enumerate(ins)]
+    outs = st._new_set(cuda)
+    for x0 in (0, X // 2):
+        st.launch_block(kernel, "xpad", [
+            t.narrow(1, x0, X // 2 + 2 * h).contiguous() if j in wins else t
+            for j, t in enumerate(xpad)], outs, params, x0=x0,
+            partials=(buf, nb, x0, 0, -(-Y // 8)))
+    sums = st._finish_sums(kernel, buf, nb, cuda)
+    torch.cuda.synchronize()
+    for a, b in zip(outs + sums, one):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", STAGE_GRIDS, ids=STAGE_IDS)
+@pytest.mark.parametrize("carry", ["f32", "f64", "f32-bf16", "f64-bf16",
+                                   "f32-bf16-fin", "f64-bf16-fin"])
+def test_stage_march_equals_per_site(cuda, carry, grid):
+    """K5' (the x-march) in every entry point -- carries in the working
+    type, in bf16 and on finalized velocity carries (``_bf16_fin``),
+    unpadded, x-, y- and xy-padded, two x blocks -- equals the per-site
+    kernels bit for bit (:func:`_stage_vs_per_site`) at the march's
+    edges and on 2^3."""
+    fin = carry.endswith("-fin")
+    dtype, carry_dtype = CARRIES[carry[:-4] if fin else carry]
+    st, ins, params = _bf16_case(cuda, "preheat_stage_energy", fin, grid,
+                                 dtype, 7, carry_dtype)
+    sst = pt.FusedScalarStepper(st.sector, grid, 5.0 / grid[0], H,
+                                dtype=dtype, carry_dtype=carry_dtype,
+                                device=cuda)
+    assert st._finalized("preheat_stage_energy", ins) == fin
+    _stage_vs_per_site(cuda, st, sst, ins, params, grid, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carry", ["f32", "f64", "f64-bf16"])
+def test_stage_march_split_layout_equals_per_site(cuda, carry):
+    """Ten fields at h = 4: the K5' march in f64 takes the split layout
+    (scalar passes of nine fields and one, grad f parked for a tensor pass
+    of the six components), in f32 the joint one; either equals the
+    per-site kernels bit for bit (:func:`_stage_vs_per_site`)."""
+    dtype, carry_dtype = CARRIES[carry]
+    F, h, grid = STAGE_SPLIT_F, 4, (13, 12, 40)
+    sector = pt.ScalarSector(F, potential=many_potential(F))
+    kw = dict(dtype=dtype, carry_dtype=carry_dtype, device=cuda)
+    st = pt.FusedPreheatStepper(sector, pt.TensorPerturbationSector(
+        [sector]), grid, 5.0 / grid[0], h, **kw)
+    sst = pt.FusedScalarStepper(sector, grid, 5.0 / grid[0], h, **kw)
+    tile = st.march_kernel_tile(dtype, "fused_stage.cu")
+    assert tile == tfused.march_tile(F, h, dtype.itemsize, values=1)
+    assert tile[0][1:] == ((10, 6, 1) if dtype == torch.float32
+                           else (9, 6, 0))
+    g = torch.Generator(device=cuda).manual_seed(8)
+    amps = (1e-3, 1e-4, 1e-5, 1e-3, 1e-3, 1e-4, 1e-5, 1e-4)
+    ins = [(a * torch.randn((c,) + grid, generator=g, device=cuda,
+                            dtype=dtype)).to(d)
+           for a, c, d in zip(amps, st._comps, st._in_dtypes(False))]
+    _stage_vs_per_site(cuda, st, sst, ins,
+                       _gw_params("preheat_stage_energy", 5.0 / grid[0]),
+                       grid, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", STAGE_GRIDS, ids=STAGE_IDS)
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+def test_fd_lap_march_equals_per_site(cuda, h, grid, dtype):
+    """fd_lap (the x-march) equals the per-site template's Laplacian
+    (``fd_grad_lap``'s) bit for bit, unpadded, x-, y- and xy-padded on
+    windows padded by hand, and as an interior launch plus two x shells,
+    at the march's edges and on 2^3."""
+    fd = pt.FiniteDifferencer(h, (0.3, 0.25, 0.2))
+    g = torch.Generator(device=cuda).manual_seed(h)
+    x = torch.randn((3,) + grid, generator=g, device=cuda, dtype=dtype)
+    lap = fd.launch("lap", x)[0]
+    ref = fd.launch("grad_lap", x)[1]
+    torch.cuda.synchronize()
+    assert torch.equal(lap, ref)
+    X, Y, _ = grid
+    if min(X, Y) < h:
+        return
+    for kind, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
+                           ("xypad", (h, h))):
+        out = [torch.full_like(x, float("nan"))]
+        fd.launch_block("lap", kind, _pad_periodic(x, hx, hy), out)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], lap)
+    if X <= 2 * h:
+        return
+    xpad = _pad_periodic(x, h, 0)
+    out = [torch.full_like(x, float("nan"))]
+    fd.launch_block("lap", "interior", x, out, x0=h)
+    for x0 in (0, X - h):
+        fd.launch_block("lap", "shell",
+                        xpad.narrow(1, x0, 3 * h).contiguous(), out, x0=x0)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], lap)

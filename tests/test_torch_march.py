@@ -1,6 +1,7 @@
 """The x-march tile of the pair kernels (the scalar pairs K3, K6 and the GW
-pairs K8, K9) as the host mirrors it
-(``pystella_tpu_torch.ops.fused.march_tile``), and the smoke run's phase
+pairs K8, K9) and of the GW energy stage K5' as the host mirrors it
+(``pystella_tpu_torch.ops.fused.march_tile``), the Laplacian's
+(``pystella_tpu_torch.ops.derivs.lap_tile``), and the smoke run's phase
 selection (``chip_smoke.py --phases``).
 
 The kernels themselves run only on the card (tests/test_torch_kernels.py);
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 import pystella_tpu_torch as pt
+from pystella_tpu_torch.ops import derivs as tderivs
 from pystella_tpu_torch.ops import fused as tfused
 
 #: the most dynamic shared memory a block may use on sm_90
@@ -142,6 +144,84 @@ def test_scalar_march_tile_examples(args, lx, want):
     F, h, isz = args
     assert tfused.march_tile(F, h, isz, 0) == tfused.march_tile(
         F, h, isz, 0, lx=tfused.SCALAR_MARCH_LX)
+
+
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+@pytest.mark.parametrize("carry", [None, torch.bfloat16], ids=["T", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("F", [1, 2, 5, 9, 10, 12])
+def test_stage_march_tile_fits_every_accepted_stepper(F, dtype, carry, h):
+    """Every field count, working dtype, carry dtype and stencil radius a
+    GW stepper accepts has a tile for K5', which holds one array per
+    tapped value (f of a field, h of a component) where a pair holds two:
+    joint where a group of components (dividing the six, the most that
+    fit) fits beside every field's f, as at f64 h = 4 up to eight fields
+    (h = 3: eleven); split from there, with scalar passes of the most
+    fields that fit and tensor passes of the most components that fit
+    alone. The
+    same budget as the pairs': what is left of a block's 232,448 bytes
+    holds the static per-warp partials of 2 (2F + 1) sum terms."""
+    st = _stepper(F, h, dtype, carry)
+    isz = st.dtype.itemsize
+    (lx, gf, g, joint), nbytes = tfused.march_tile(
+        st.F, st.h, isz, st.n_hij, values=1)
+    assert lx == tfused.STAGE_MARCH_LX and st.n_hij % g == 0
+    sites = TILE_SITES[h]
+    sums = 2 * (2 * F + 1) * 8
+    fits = lambda arrays: (arrays * sites + sums) * isz <= SMEM_MAX  # noqa
+    bigger = [n for n in (6, 3, 2, 1) if n > g]
+    if joint:
+        assert gf == F and nbytes == (F + g) * sites * isz
+        assert not any(fits(F + n) for n in bigger)
+    else:
+        assert not fits(F + 1) and 1 <= gf <= F and fits(gf)
+        assert gf == F or not fits(gf + 1)
+        assert not any(fits(n) for n in bigger)
+        assert nbytes == max(gf, g) * sites * isz
+    split_from = {3: 12, 4: 9}.get(h) if isz == 8 else None
+    assert bool(joint) == (split_from is None or F < split_from)
+    assert nbytes + sums * isz <= SMEM_MAX
+
+
+@pytest.mark.parametrize("args,kw,want", [
+    ((2, 2, 4), {}, ((16, 2, 6, 1), 54784)),
+    ((5, 4, 8), {}, ((16, 5, 3, 1), 188416)),
+    ((10, 4, 8), {}, ((16, 9, 6, 0), 211968)),
+    ((12, 2, 8), {"lx": 32}, ((32, 12, 3, 1), 205440)),
+], ids=["main-path", "f64-h4-five", "f64-h4-split", "f64-h2-twelve"])
+def test_stage_march_tile_examples(args, kw, want):
+    """The K5' march's tile: the main path's (f32, h = 2, two fields: f
+    and h of every field and component, eight arrays of 1,712 elements,
+    54,784 bytes); five fields in f64 at h = 4 (joint, three components a pass:
+    eleven arrays would not fit); ten there (split: nine fields, then the
+    six components); twelve fields in f64 at h = 2 (three components a
+    pass), at a run of 32 planes. Without ``lx`` the tile is the source's
+    default (16 planes)."""
+    assert tfused.march_tile(*args, values=1, **kw) == want
+    F, h, isz = args
+    assert tfused.march_tile(F, h, isz, values=1) == tfused.march_tile(
+        F, h, isz, values=1, lx=tfused.STAGE_MARCH_LX)
+
+
+#: the most static shared memory a block may declare
+STATIC_SMEM_MAX = 48 * 1024
+
+
+@pytest.mark.parametrize("lx", [None, 16], ids=["default", "lx16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+def test_lap_tile(h, dtype, lx):
+    """The Laplacian's march tile at every stencil radius and dtype: the
+    centre plane with its y-z halo in static shared memory, within the
+    48 KB a block may declare statically (the +-x taps live in
+    registers). Without ``lx`` the run is the source's default."""
+    isz = dtype.itemsize
+    got_lx, nbytes = tderivs.lap_tile(h, isz, lx=lx)
+    assert got_lx == (tderivs.LAP_LX if lx is None else lx)
+    assert nbytes == (8 + 2 * h) * (32 + 2 * h) * isz
+    assert nbytes <= STATIC_SMEM_MAX
 
 
 def _smoke():
