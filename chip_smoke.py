@@ -634,12 +634,19 @@ def identities(phase, make_stepper, gw=False):
 
 def stage_march_identity(phase, gw_stepper, scalar_stepper):
     """On the card, at 256^3 in f64, f32 and f32 with bfloat16 carries (and
-    on finalized velocity carries): K5' (the x-march) == the per-site
-    kernels on the same inputs, bit for bit -- its scalar outputs and its
-    sums those of K5 (``fused_stage_energy`` of the same sector's scalar
-    stepper), its tensor outputs K7's (``preheat_stage``; not on finalized
-    carries, which K7 does not take)."""
+    on finalized velocity carries): the stage marches (K5', K7, K5: one
+    template) held to each other and to the per-site K2 on the same inputs,
+    bit for bit -- K5''s scalar outputs and sums K5's (``fused_stage_energy``
+    of the same sector's scalar stepper); and, on carries that are not
+    finalized (which K7, K2 and K8 do not take), K5''s lattice outputs K7's
+    (``preheat_stage``), K5's scalar outputs K2's (``fused_stage``) and one
+    K8 pair launch across a step boundary two K7 stages."""
+    import pystella_tpu_torch as pt
+    A, B = pt.LowStorageRK54._A, pt.LowStorageRK54._B
     shape = ALT_SHAPES[0]
+
+    def equal(xs, ys):
+        return all(torch.equal(a, b) for a, b in zip(xs, ys))
     for dtype, cd, fin in ((torch.float64, None, False),
                            (torch.float32, None, False),
                            (torch.float32, torch.bfloat16, False),
@@ -652,20 +659,34 @@ def stage_march_identity(phase, gw_stepper, scalar_stepper):
         dev = ins[0].device
         k5p = gst.launch("preheat_stage_energy", ins, gst._new_set(dev), p)
         k5 = sst.launch("fused_stage_energy", ins[:4], sst._new_set(dev), p)
-        k7 = (None if fin else
-              gst.launch("preheat_stage", ins, gst._new_set(dev), p))
         torch.cuda.synchronize()
-        row = {"scalar_outputs_bitwise_k5": all(
-                   torch.equal(a, b) for a, b in zip(k5p[:4], k5[:4])),
-               "sums_bitwise_k5": torch.equal(k5p[8], k5[4]),
-               "tensor_outputs_bitwise_k7": fin or all(
-                   torch.equal(a, b) for a, b in zip(k5p[4:8], k7[4:8]))}
+        row = {"scalar_outputs_bitwise_k5": equal(k5p[:4], k5[:4]),
+               "sums_bitwise_k5": torch.equal(k5p[8], k5[4])}
+        if not fin:
+            k7 = gst.launch("preheat_stage", ins, gst._new_set(dev), p)
+            k2 = sst.launch("fused_stage", ins[:4], sst._new_set(dev), p)
+            torch.cuda.synchronize()
+            row["lattice_outputs_bitwise_k7"] = equal(k5p[:8], k7)
+            row["k5_scalar_outputs_bitwise_k2"] = equal(k5[:4], k2)
+            del k7, k2
+            # across a step boundary (stages 4 and 0, A[0] == 0), where a
+            # pair equals two stages with bf16 carries too: the second
+            # stage reads no rounded carry
+            pp = (p[0], 1.0, 0.5, A[4], B[4], 1.01, 0.49, A[0], B[0])
+            pair = gst.launch("preheat_pair", ins, gst._new_set(dev), pp)
+            mid = gst.launch("preheat_stage", ins, gst._new_set(dev), pp[:5])
+            two = gst.launch("preheat_stage", mid, gst._new_set(dev),
+                             (pp[0],) + pp[5:])
+            torch.cuda.synchronize()
+            row["k8_bitwise_two_k7"] = equal(pair, two)
+            del pair, mid, two
         emit({"phase": phase, "shape": shape, "dtype": str(dtype),
               "carry_dtype": str(cd or dtype), "finalized": fin, **row})
         if not all(row.values()):
-            raise SystemExit(f"{phase}: K5' differs from the per-site "
-                             f"kernels ({dtype}, {cd}, fin={fin}): {row}")
-        del gst, sst, ins, k5p, k5, k7
+            raise SystemExit(f"{phase}: the stage marches differ from each "
+                             f"other or from the per-site K2 ({dtype}, "
+                             f"{cd}, fin={fin}): {row}")
+        del gst, sst, ins, k5p, k5
         torch.cuda.empty_cache()
 
 
@@ -2300,14 +2321,14 @@ def demangled(usage):
 
 def bf16_padded_ptxas(report):
     """The rows of a :func:`ptxas_report` that are padded bfloat16-carry
-    instantiations of the stage, pair and coupled pair kernels (template
-    arguments ``<T, __nv_bfloat16, ..., PAD>`` with PAD 1, 2 or 3), with
-    their registers and spill bytes."""
+    instantiations of the stage, stage march, pair and coupled pair kernels
+    (template arguments ``<T, __nv_bfloat16, ..., PAD>`` with PAD 1, 2 or
+    3), with their registers and spill bytes."""
     rows = {}
     for usage in report.values():
         for name, u in usage.items():
-            m = re.search(r"(pk_(?:fused_stage|fused_pair|coupled_pair|"
-                          r"preheat_pair|preheat_coupled_pair)"
+            m = re.search(r"(pk_(?:fused_stage|stage_march|fused_pair|"
+                          r"coupled_pair|preheat_pair|preheat_coupled_pair)"
                           r"_kernel<[^<>]*__nv_bfloat16[^<>]*, ([123])>)",
                           name)
             if m:
@@ -2320,15 +2341,15 @@ def march_ptxas(report):
     x-marching kernels (K3 ``pk_fused_pair_kernel``, K6
     ``pk_coupled_pair_kernel``, K8 ``pk_preheat_pair_kernel``, K9
     ``pk_preheat_coupled_pair_kernel``, K10
-    ``pk_fused_chunk_march_kernel``, K5'
-    ``pk_preheat_stage_energy_kernel``, fd_lap ``pk_fd_lap_kernel``), with
-    their registers and spill bytes."""
+    ``pk_fused_chunk_march_kernel``, K5', K7 and K5
+    ``pk_stage_march_kernel``, fd_lap ``pk_fd_lap_kernel``), with their
+    registers and spill bytes."""
     rows = {}
     for usage in report.values():
         for name, u in usage.items():
             m = re.search(r"(pk_(?:(?:fused_|coupled_|preheat_|"
                           r"preheat_coupled_)pair|fused_chunk_march|"
-                          r"preheat_stage_energy|fd_lap)"
+                          r"stage_march|fd_lap)"
                           r"_kernel<[^<>]*>)", name)
             if m:
                 rows[m.group(1)] = u
@@ -2343,16 +2364,21 @@ def march_ptxas(report):
 MARCH_VARIANTS = (16, 24, 32, 64)
 CHUNK_VARIANTS = tuple((lx, rows) for rows in (8, 16)
                        for lx in MARCH_VARIANTS)
-#: the run lengths of the K5' march (PK_STAGE_MARCH_LX) and of fd_lap's
-#: (PK_FD_LAP_LX)
+#: the run lengths of the stage march (PK_STAGE_MARCH_LX for K5' and K7,
+#: PK_SCALAR_STAGE_MARCH_LX for K5) and of fd_lap's (PK_FD_LAP_LX); K5's
+#: also without the next plane's loads a step ahead
+#: (PK_SCALAR_STAGE_AHEAD 0)
 STAGE_VARIANTS = (16, 32, 64)
 FD_LAP_VARIANTS = STAGE_VARIANTS
+SCALAR_STAGE_VARIANTS = tuple((lx, ahead) for ahead in (1, 0)
+                              for lx in STAGE_VARIANTS)
 #: the kernels of each family (each with f32 and with bf16 carries), and
 #: the rounds of launches each variant gets in turn
 MARCH_KERNELS = ("preheat_pair", "preheat_coupled_pair_deferred")
 SCALAR_MARCH_KERNELS = ("fused_pair", "coupled_pair_deferred")
 CHUNK_MARCH_KERNELS = ("fused_chunk",)
-STAGE_MARCH_KERNELS = ("preheat_stage_energy",)
+STAGE_MARCH_KERNELS = ("preheat_stage_energy", "preheat_stage")
+SCALAR_STAGE_MARCH_KERNELS = ("fused_stage_energy",)
 MARCH_ROUNDS, MARCH_REPS = 3, 5
 
 
@@ -2368,6 +2394,13 @@ def chunk_defines(variant):
     return f"\n#define PK_CHUNK_LX {lx}\n#define PK_CHUNK_ROWS {rows}\n"
 
 
+def stage_defines(variant):
+    """The defines of a variant ``(lx, ahead)`` of K5's march."""
+    lx, ahead = variant
+    return (f"\n#define PK_SCALAR_STAGE_MARCH_LX {lx}\n"
+            f"#define PK_SCALAR_STAGE_AHEAD {ahead}\n")
+
+
 def fd_lap_defines(lx):
     """The define of fd_lap's march run length ``lx``."""
     return f"\n#define PK_FD_LAP_LX {lx}\n"
@@ -2377,8 +2410,9 @@ def march_variants(phase, sector, gw_sector, dx):
     """The x-marching kernels at 512^3 f32, with f32 and with bf16
     carries: K3 and K6 deferred, and K8 and K9 deferred, through each run
     length of MARCH_VARIANTS; K10 through each run length and first-rung
-    rows of CHUNK_VARIANTS; K5' through each run length of
-    STAGE_VARIANTS (fd_lap: :func:`fd_lap_variants`). Each variant is
+    rows of CHUNK_VARIANTS; K5' and K7 through each run length of
+    STAGE_VARIANTS, and K5 through each of SCALAR_STAGE_VARIANTS (fd_lap:
+    :func:`fd_lap_variants`). Each variant is
     built from the same sources into libraries of its own (the model
     header with the variant's
     defines: one nvcc a source and variant, all of a family at once), its
@@ -2397,16 +2431,21 @@ def march_variants(phase, sector, gw_sector, dx):
                                  device="cuda", **kw)
 
     def pair_family(nh, values=2):
-        def tile(st, lib, lx):
-            query = getattr(lib, "pk_stage_march_tile" if values == 1
-                            else "pk_preheat_march_tile" if nh
-                            else "pk_scalar_march_tile")
+        def tile(st, lib, v):
+            lx = v[0] if isinstance(v, tuple) else v
+            query = getattr(lib, ("pk_stage_march_tile" if nh
+                                  else "pk_scalar_stage_march_tile")
+                            if values == 1 else "pk_preheat_march_tile"
+                            if nh else "pk_scalar_march_tile")
             query.argtypes = [ctypes.c_int, ctypes.c_void_p]
             out = (ctypes.c_int * 5)()
             query(0, out)
             return ((tuple(out[:4]), out[4]),
                     tfused.march_tile(st.F, st.h, 4, nh, lx=lx,
                                       values=values))
+        if values == 1 and not nh:
+            return (SCALAR_STAGE_VARIANTS, stage_defines, tile,
+                    lambda v: {"lx": v[0], "ahead": v[1]})
         if values == 1:
             return (STAGE_VARIANTS,
                     lambda lx: f"\n#define PK_STAGE_MARCH_LX {lx}\n", tile,
@@ -2433,7 +2472,9 @@ def march_variants(phase, sector, gw_sector, dx):
              (CHUNK_VARIANTS, chunk_defines, chunk_tile,
               lambda v: {"lx": v[0], "rows": v[1]})),
             ("stage", stepper(pt.FusedPreheatStepper, sector, gw_sector),
-             STAGE_MARCH_KERNELS, pair_family(6, values=1))):
+             STAGE_MARCH_KERNELS, pair_family(6, values=1)),
+            ("scalar_stage", stepper(pt.FusedScalarStepper, sector),
+             SCALAR_STAGE_MARCH_KERNELS, pair_family(0, values=1))):
         march_family(f"{phase}_{label}", make, kernels, *family)
     fd_lap_variants(f"{phase}_fd_lap")
 
@@ -3468,8 +3509,8 @@ PHASE_DEPS = {"sharded_mg": ("mg",), "sharded": ("scalar",),
               "sharded_coupled": ("scalar",), "sharded_gw": ("gw",),
               "sharded_bf16": ("scalar", "gw")}
 #: phases a run takes only when selected: march_variants builds the x-march
-#: variants of K3 and K6, of K8 and K9, of K10, of K5' and of fd_lap into
-#: libraries of their own and times them
+#: variants of K3 and K6, of K8 and K9, of K10, of K5' and K7, of K5 and of
+#: fd_lap into libraries of their own and times them
 OPT_IN_PHASES = ("march_variants",)
 PHASE_HELP = {
     "scalar": "the scalar system: kernels vs plain, identities, references, "
@@ -3487,8 +3528,9 @@ PHASE_HELP = {
     "sharded_gw": "the sharded GW multi_step and coupled driver",
     "sharded_bf16": "the sharded bf16-carry launches and paths",
     "march_variants": "the x-march tile variants of K3 and K6 deferred, "
-                      "of K8 and K9 deferred, of K10, of K5' and of fd_lap, "
-                      "built apart and timed against each other"}
+                      "of K8 and K9 deferred, of K10, of K5' and K7, of K5 "
+                      "and of fd_lap, built apart and timed against each "
+                      "other"}
 
 
 def selected_phases(argv):
@@ -3858,7 +3900,8 @@ def main(argv=None):
         # -- 15. GW identities: K8 == two K7, K5' == K7 bitwise, K9 + finalize
         #        == K8 with hubble2 = hubfix ----------------------------------
         identities("preheat_identity", gw_stepper, gw=True)
-        # the K5' march == K5 and K7 (per-site) on the same inputs
+        # the stage marches K5', K7 and K5 == each other, K2 and, two K7,
+        # K8, bit for bit
         stage_march_identity("preheat_stage_march_identity", gw_stepper,
                              scalar_stepper)
 

@@ -54,7 +54,7 @@
 // (pk_march; see fused_pair.cu's K3 and K8): the shared planes hold f and
 // f1 (K9 also h and h1), composed once an element (the velocity completed
 // first for a deferred input: PkMarchInputs::composed), and each
-// plane's sums are reduced per 32 x 8 tile in pk_block_sums' tree and
+// plane's sums are reduced per 32 x 8 tile in a fixed tree and
 // written where a per-site launch's block of that plane wrote them
 // (pk_march_sums), so the sums, like the lattice outputs, are those of the
 // per-site arithmetic bit for bit. -fmad=false; outputs to separate

@@ -11,23 +11,21 @@
 //   kf'   = A*kf + dt*dfdt        f'    = f + B*kf'
 //   kdf'  = A*kdf + dt*rhs        dfdt' = dfdt + B*kdf'
 //
-// K5 (ENERGY = true) replaces _scalar_body(energy=True) + _esums, built by
+// K5 (ENERGY) replaces _scalar_body(energy=True) + _esums, built by
 // _ensure_energy_call, whose sums StreamingStencil._accumulate_sums carries
 // across the TPU grid. It is K2 with the same arithmetic for the lattice
-// outputs (the template flag adds code after it, never inside it), plus, from
-// values the site already holds, the terms dfdt*dfdt and (-f)*lap per
-// component and V(f) -- summed over the lattice in a fixed order
-// (pk_block_sums, pk_finish_sums in pk_common.cuh), in T.
+// outputs, plus, from values the site already holds, the terms dfdt*dfdt
+// and (-f)*lap per component and V(f) -- summed over the lattice in a fixed
+// order (pk_march_sums, pk_finish_sums in pk_common.cuh), in T.
 //
-// K7 (GW = true) replaces FusedPreheatStepper._preheat_body (+ _gw_stage,
+// K7 (GW) replaces FusedPreheatStepper._preheat_body (+ _gw_stage,
 // _sij_eval): K2 on f, then per hij component the tensor stage
 // (pk_gw_stage) with lap h from the hij window and the source S_ij printed
 // from the gradients of the same f window (pk_grad, grad_from_taps order).
 // K5' (GW and ENERGY) replaces FusedPreheatStepper._ensure_energy_call: K7
 // plus the scalar sector's sums only (the expansion couples to the f
-// energy), so its lattice outputs are K7's bit for bit. K5' runs the x-march
-// of pk_common.cuh (pk_march, one value per tapped array), see below; K2,
-// K5 and K7 keep the per-site template.
+// energy), so its lattice outputs are K7's bit for bit, and its scalar
+// outputs and sums K5's.
 //
 // With bfloat16 carries (C = __nv_bfloat16, the _bf16 entry points, for
 // carry_dtype=bfloat16) every variant reads its carries (kf, kdfdt, and
@@ -47,37 +45,43 @@
 // Bound: memory. Four arrays are read and four written per site (8 * F *
 // sites * sizeof(T) bytes; the GW variants 8 * (F + 6)); the arithmetic is
 // ~20 + 9h operations per component (K5 adds ~3 per component, V and the
-// block tree; K7 adds the 6h-tap gradients and S_ij). Design: one thread per
-// site with z fastest, so every load and store is coalesced; the 6h
-// neighbour taps of f (and hij) are re-read through L1/L2 rather than staged
-// in shared memory; periodic wrap by index arithmetic on all three axes, so
-// any lattice shape runs (the JAX package needed a second, VMEM-resident
-// kernel for small lattices). Offsets are 64-bit. Outputs go to separate
-// buffers: a stencil cannot update its own input in place. The arithmetic
-// order is the JAX body's, and the build uses -fmad=false, so no
-// multiply-add is contracted where the plain PyTorch version rounds twice.
-// The tensor components are updated one after another, so a thread holds one
-// component's values at a time. K5 writes one partial per term and block (a
-// few MB at 512^3) and reduces them in a second, small launch.
+// tile's sum tree; K7 adds the 6h-tap gradients and S_ij). Offsets are
+// 64-bit. Outputs go to separate buffers: a stencil cannot update its own
+// input in place. The arithmetic order is the JAX body's, and the build
+// uses -fmad=false, so no multiply-add is contracted where the plain
+// PyTorch version rounds twice.
 //
-// K5' marches instead (pk_march, pk_common.cuh, with V = 1): the TPU
-// builder's x ring (StreamingStencil._build, pystella_tpu/ops/
-// pallas_stencil.py:709, the ring :719-742) carried to a block, as the pairs
-// K8 and K9 carry it. A block walks a 32 x 8 (z, y) tile along x in runs of
-// PK_STAGE_MARCH_LX planes and holds, per tapped array -- f of each field, h
-// of each tensor component -- a ring of 2h+1 planes of the tile and the
-// centre plane with its y-z halo in shared memory (joint: F + 6 arrays,
-// 54,784 bytes at f32, h = 2, F = 2). Lap f, grad f and lap h run pk_lap /
-// pk_grad over those planes in box coordinates (PK_BOX), so their order is
-// lap_from_taps' and grad_from_taps'. Each plane's sum terms are reduced
-// per 32 x 8 tile in pk_block_sums' tree and written where the per-site
+// K2 keeps the per-site template (pk_fused_stage_kernel): one thread per
+// site with z fastest, so every load and store is coalesced; the 6h
+// neighbour taps of f are re-read through L1/L2; periodic wrap by index
+// arithmetic on all three axes, so any lattice shape runs (the JAX package
+// needed a second, VMEM-resident kernel for small lattices).
+//
+// K5', K7 and K5 march instead, one template (pk_stage_march_kernel over
+// pk_march, pk_common.cuh, with V = 1): the TPU builder's x ring
+// (StreamingStencil._build, pystella_tpu/ops/pallas_stencil.py:709, the
+// ring :719-742) carried to a block, as the pairs K8 and K9 carry it. A
+// block walks a 32 x 8 (z, y) tile along x in runs of PK_STAGE_MARCH_LX
+// planes (K5: PK_SCALAR_STAGE_MARCH_LX) and holds, per tapped array -- f
+// of each field, h of each tensor component (none for K5) -- a ring of
+// 2h+1 planes of the tile and the centre plane with its y-z halo in shared
+// memory (joint: F + 6 arrays, 54,784 bytes at f32, h = 2, F = 2; K5 F
+// arrays, 13,696 bytes). Lap f, grad f and lap h run pk_lap / pk_grad over
+// those planes in box coordinates (PK_BOX), so their order is
+// lap_from_taps' and grad_from_taps', and each tapped element is read from
+// device memory about once. The energy variants reduce each plane's sum
+// terms per 32 x 8 tile in a fixed tree and write them where the per-site
 // block of that plane wrote them (pk_march_sums; PkGeom's x0, yb0, GYb on
 // a padded launch), before the tensor stage, so the terms do not stay live
 // through it; the partials and the second launch are the per-site ones,
-// and so are the sums, bit for bit. A model whose f and h arrays do not
-// fit one block marches once per group of components or, wider still, in
-// the split layout (scalar passes that park grad f for the tensor passes),
-// as the pairs do; ops/fused.py:march_tile(values=1) mirrors the tile.
+// and so are the sums, bit for bit. K5 does little between its barriers,
+// so it loads the next plane's ring and frame a step ahead
+// (PK_SCALAR_STAGE_AHEAD), as fd_ops.cu's march does. A model whose f and
+// h arrays do not fit one block marches once per group of components or,
+// wider still, in the split layout (scalar passes that park grad f for the
+// tensor passes), as the pairs do; ops/fused.py:march_tile(values=1)
+// mirrors the tile. A shell launch's region of h planes is a run cut
+// short.
 //
 // The sharded tier (the _xpad, _ypad, _xypad entry points of every variant)
 // replaces StreamingStencil._build_xhalo (pystella_tpu/ops/pallas_stencil.py:
@@ -92,8 +96,8 @@
 // padded launch equals it on the whole lattice bit for bit, and an interior
 // plus two shell launches equal a padded launch. K5 and K5' keep the padded
 // launch on every mesh (the JAX package's rule for kernels with sums): a
-// block's partials go to the index it has in the whole lattice's launch
-// (pk_partial_index), threads past the region's edge adding zeros, and the
+// tile's partials go to the index the per-site block has in the whole
+// lattice's launch, threads past the region's edge adding zeros, and the
 // host runs the second launch once after every shard's first. Every
 // padding also comes with bfloat16 carries (_bf16_xpad, ...; the energy
 // stages also _bf16_fin_xpad, ...): the carries are full blocks here, read
@@ -108,123 +112,92 @@ struct PkStageParams {
   PkGradWeights<T> g;  // the GW variants only
 };
 
-template <typename T, typename C, typename KD, bool ENERGY, bool GW,
-          int PAD>
+// K2: the per-site template (see the file comment).
+template <typename T, typename C, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
-                      PkStageParams<T> p, T* __restrict__ partials,
-                      int64_t nblocks, PkGeom g) {
+                      PkStageParams<T> p, PkGeom g) {
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int x = blockIdx.z;
-  const bool active = z < Z && y < Y;
-  // ENERGY: the block reduction needs every thread of the block
-  if (!ENERGY && !active) return;
+  if (z >= Z || y >= Y) return;
   const T* __restrict__ f = io.in[0];
   const T* __restrict__ dfdt = io.in[1];
   const C* __restrict__ kf = pk_in_as<C>(io, 2);
-  const KD* __restrict__ kdf = pk_in_as<KD>(io, 3);
+  const C* __restrict__ kdf = pk_in_as<C>(io, 3);
   T* __restrict__ f_out = io.out[0];
   T* __restrict__ dfdt_out = io.out[1];
   C* __restrict__ kf_out = pk_out_as<C>(io, 2);
   C* __restrict__ kdf_out = pk_out_as<C>(io, 3);
-  T terms[PK_NT];
-#pragma unroll
-  for (int t = 0; t < PK_NT; ++t) terms[t] = T(0);
+  // the blockwise arrays and the window f, each with its own geometry
+  const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
+  const int64_t site = ((int64_t)x * Y + y) * Z + z;
+  const int64_t Nw = PAD ? g.Nw : N;
+  const int Yw = PAD ? g.Ys : Y;
+  const int64_t wsite = PAD ? ((int64_t)x * Yw + y) * Z + z : site;
 
-  if (active) {
-    // the blockwise arrays and the window f, each with its own geometry
-    const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
-    const int64_t site = ((int64_t)x * Y + y) * Z + z;
-    const int64_t Nw = PAD ? g.Nw : N;
-    const int Yw = PAD ? g.Ys : Y;
-    const int64_t wsite = PAD ? ((int64_t)x * Yw + y) * Z + z : site;
-
-    T fc[PK_F], lap[PK_F], dv[PK_F];
+  T fc[PK_F], lap[PK_F], dv[PK_F];
 #pragma unroll
-    for (int c = 0; c < PK_F; ++c) {
-      fc[c] = f[c * Nw + wsite];
-      lap[c] = pk_lap<PAD>(PkLoad<T>{f + c * Nw, Yw, Z}, fc[c], x, y, z, X,
-                           Y, Z, p.w);
-    }
-    pk_dvdf<T>(fc, p.a, p.hubble, dv);
-
-    const T two_hub = T(2) * p.hubble;
-    const T a2 = p.a * p.a;
-#pragma unroll
-    for (int c = 0; c < PK_F; ++c) {
-      const int64_t i = c * N + site;
-      const T df0 = dfdt[i];
-      const T rhs_df = (lap[c] - two_hub * df0) - a2 * dv[c];
-      const T kf2 = p.A * PkCarry<T, C>::load(kf[i]) + p.dt * df0;
-      const T kdf2 = p.A * PkCarry<T, KD>::load(kdf[i]) + p.dt * rhs_df;
-      f_out[i] = fc[c] + p.B * kf2;
-      dfdt_out[i] = df0 + p.B * kdf2;
-      kf_out[i] = PkCarry<T, C>::store(kf2);
-      kdf_out[i] = PkCarry<T, C>::store(kdf2);
-      if (ENERGY) {
-        terms[c] = df0 * df0;
-        terms[PK_F + c] = (-fc[c]) * lap[c];
-      }
-    }
-    if (ENERGY) terms[2 * PK_F] = pk_v<T>(fc, p.a, p.hubble);
-
-#ifdef PK_NH
-    if constexpr (GW) {
-      // the tensor stage: S_ij from the gradients of the f window
-      T dfdx[PK_F][3], sij[PK_NH];
-#pragma unroll
-      for (int c = 0; c < PK_F; ++c)
-        pk_grad<PAD>(PkLoad<T>{f + c * Nw, Yw, Z}, x, y, z, X, Y, Z, p.g,
-                     dfdx[c]);
-      pk_sij<T>(dfdx, p.a, p.hubble, sij);
-      const T* __restrict__ h = io.in[4];
-      const T* __restrict__ dh = io.in[5];
-      const C* __restrict__ kh = pk_in_as<C>(io, 6);
-      const KD* __restrict__ kdh = pk_in_as<KD>(io, 7);
-      C* __restrict__ kh_out = pk_out_as<C>(io, 6);
-      C* __restrict__ kdh_out = pk_out_as<C>(io, 7);
-#pragma unroll 1
-      for (int c = 0; c < PK_NH; ++c) {
-        const int64_t i = c * N + site;
-        const T h0 = h[c * Nw + wsite];
-        const T lap_h = pk_lap<PAD>(PkLoad<T>{h + c * Nw, Yw, Z}, h0, x, y,
-                                    z, X, Y, Z, p.w);
-        T h1, dh1, kh1, kdh1;
-        pk_gw_stage(h0, dh[i], PkCarry<T, C>::load(kh[i]),
-                    PkCarry<T, KD>::load(kdh[i]), lap_h, sij[c], p.A, p.B,
-                    p.dt, two_hub, h1, dh1, kh1, kdh1);
-        io.out[4][i] = h1;
-        io.out[5][i] = dh1;
-        kh_out[i] = PkCarry<T, C>::store(kh1);
-        kdh_out[i] = PkCarry<T, C>::store(kdh1);
-      }
-    }
-#endif
+  for (int c = 0; c < PK_F; ++c) {
+    fc[c] = f[c * Nw + wsite];
+    lap[c] = pk_lap<PAD>(PkLoad<T>{f + c * Nw, Yw, Z}, fc[c], x, y, z, X, Y,
+                         Z, p.w);
   }
-  if (ENERGY) pk_block_sums<T, PK_NT, PAD>(terms, partials, nblocks, g);
+  pk_dvdf<T>(fc, p.a, p.hubble, dv);
+
+  const T two_hub = T(2) * p.hubble;
+  const T a2 = p.a * p.a;
+#pragma unroll
+  for (int c = 0; c < PK_F; ++c) {
+    const int64_t i = c * N + site;
+    const T df0 = dfdt[i];
+    const T rhs_df = (lap[c] - two_hub * df0) - a2 * dv[c];
+    const T kf2 = p.A * PkCarry<T, C>::load(kf[i]) + p.dt * df0;
+    const T kdf2 = p.A * PkCarry<T, C>::load(kdf[i]) + p.dt * rhs_df;
+    f_out[i] = fc[c] + p.B * kf2;
+    dfdt_out[i] = df0 + p.B * kdf2;
+    kf_out[i] = PkCarry<T, C>::store(kf2);
+    kdf_out[i] = PkCarry<T, C>::store(kdf2);
+  }
 }
 
+// The tensor components the stage march of a variant holds: the model's
+// with GW, none without (K5; a scalar library has no PK_NH).
 #ifdef PK_NH
-// The site values of K5', read from device memory with a plane's loads:
-// dfdt, kf, kdfdt of each field (in the split layout also f, which dV/df and V
-// read for every field), dhijdt, khij, kdhijdt of each component a pass
-// holds; the carries widened.
+#define PK_STAGE_NH(GW) ((GW) ? PK_NH : 0)
+#else
+#define PK_STAGE_NH(GW) 0
+#endif
+
+// K5 marches with the next plane's ring and frame loads a step ahead
+// (pk_march's AHEAD): faster than without at every run length of
+// chip_smoke.py --phases march_variants on an H100
+#ifndef PK_SCALAR_STAGE_AHEAD
+#define PK_SCALAR_STAGE_AHEAD 1
+#endif
+
+// The site values of the stage march, read from device memory with a
+// plane's loads: dfdt, kf, kdfdt of each field (in the split layout also f,
+// which dV/df and V read for every field), dhijdt, khij, kdhijdt of each
+// component a pass holds (GW); the carries widened.
 template <typename T, int G>
 struct PkStageSite {
   T f[PK_F], df[PK_F], kf[PK_F], kdf[PK_F];
-  T dh[G], kh[G], kdh[G];
+  T dh[G ? G : 1], kh[G ? G : 1], kdh[G ? G : 1];
 };
 
-// K5': the x-march (see the file comment). The shared arrays of a pass: f
-// of each field it holds, then h of each component it holds.
-template <typename T, typename C, typename KD, int PAD>
+// K5', K7 and K5: the x-march (see the file comment), one template. ENERGY:
+// the scalar sector's sum terms, per 32 x 8 tile (pk_march_sums); GW: the
+// tensor stage. The shared arrays of a pass: f of each field it holds,
+// then (GW) h of each component it holds.
+template <typename T, typename C, typename KD, bool ENERGY, bool GW, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y, 1)
-pk_preheat_stage_energy_kernel(PkArrays<T> io, int X, int Y, int Z,
-                               PkStageParams<T> p, T* __restrict__ partials,
-                               int64_t nblocks, PkGeom g) {
-  using Tl = PkMarchTile<T, PK_NH, 1>;
-  using Pass = PkMarchPass<T, PK_NH, 1>;
+pk_stage_march_kernel(PkArrays<T> io, int X, int Y, int Z,
+                      PkStageParams<T> p, T* __restrict__ partials,
+                      int64_t nblocks, PkGeom g) {
+  constexpr int NH = PK_STAGE_NH(GW);
+  using Tl = PkMarchTile<T, NH, 1>;
+  using Pass = PkMarchPass<T, NH, 1>;
   const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
   const int64_t Nw = PAD ? g.Nw : N;
   const int Yw = PAD ? g.Ys : Y;
@@ -237,7 +210,7 @@ pk_preheat_stage_energy_kernel(PkArrays<T> io, int X, int Y, int Z,
   const int ctr = (threadIdx.y + PK_H) * Tl::SZ + threadIdx.x + PK_H;
   // split layout: grad f of every field at each plane of the run, parked
   // by the scalar passes for the tensor passes' S_ij
-  T grads[Tl::JOINT ? 1 : Tl::LX][PK_F][3];
+  T grads[GW && !Tl::JOINT ? Tl::LX : 1][PK_F][3];
   // unpadded, a plane's partials index the launch's own blocks
   if (!PAD) g = PkGeom{0, 0, 0, 0, 0, (Y + PK_BLOCK_Y - 1) / PK_BLOCK_Y};
   auto pre = [&](int x, const Pass ps) {
@@ -268,7 +241,8 @@ pk_preheat_stage_energy_kernel(PkArrays<T> io, int X, int Y, int Z,
     }
     return s;
   };
-  pk_march<T, PK_NH, PAD, 1>(in, X, Y, Z, Nw, Yw, pre, [&](
+  pk_march<T, NH, PAD, 1, !GW && PK_SCALAR_STAGE_AHEAD>(
+      in, X, Y, Z, Nw, Yw, pre, [&](
       int x, int px, const Pass ps, const PkMarchView<T>& v,
       const PkStageSite<T, Tl::G>& s) {
     const int64_t site = ((int64_t)x * Y + y) * Z + z;
@@ -299,49 +273,55 @@ pk_preheat_stage_energy_kernel(PkArrays<T> io, int X, int Y, int Z,
           io.out[1][i] = df0 + p.B * kdf2;
           pk_out_as<C>(io, 2)[i] = PkCarry<T, C>::store(kf2);
           pk_out_as<C>(io, 3)[i] = PkCarry<T, C>::store(kdf2);
-          terms[c] = df0 * df0;
-          terms[PK_F + c] = (-fc[c]) * lap[c];
+          if (ENERGY) {
+            terms[c] = df0 * df0;
+            terms[PK_F + c] = (-fc[c]) * lap[c];
+          }
         }
-        terms[2 * PK_F] = pk_v<T>(fc, p.a, p.hubble);
+        if (ENERGY) terms[2 * PK_F] = pk_v<T>(fc, p.a, p.hubble);
       }
       // a scalar pass's terms: its fields', and the potential's in the
       // first
-      pk_march_sums<T, PK_NT>(terms, partials, nblocks, g, x,
-                              [&](int t) { return ps.sums(t); });
+      if constexpr (ENERGY)
+        pk_march_sums<T, PK_NT>(terms, partials, nblocks, g, x,
+                                [&](int t) { return ps.sums(t); });
     }
-    if (!valid) return;
-    // S_ij from grad f
-    T sij[PK_NH];
-    if constexpr (Tl::JOINT) {
-      T dfdx[PK_F][3];
+#ifdef PK_NH
+    if constexpr (GW) {
+      if (!valid) return;
+      // S_ij from grad f
+      T sij[PK_NH];
+      if constexpr (Tl::JOINT) {
+        T dfdx[PK_F][3];
 #pragma unroll
-      for (int c = 0; c < PK_F; ++c) pk_march_grad(v, c, p.g, dfdx[c]);
-      pk_sij<T>(dfdx, p.a, p.hubble, sij);
-    } else if (ps.scalar) {
+        for (int c = 0; c < PK_F; ++c) pk_march_grad(v, c, p.g, dfdx[c]);
+        pk_sij<T>(dfdx, p.a, p.hubble, sij);
+      } else if (ps.scalar) {
 #pragma unroll
-      for (int c = 0; c < PK_F; ++c)
-        if (ps.held(c)) pk_march_grad(v, c - ps.k0, p.g, grads[px][c]);
-    } else {
-      pk_sij<T>(grads[px], p.a, p.hubble, sij);
+        for (int c = 0; c < PK_F; ++c)
+          if (ps.held(c)) pk_march_grad(v, c - ps.k0, p.g, grads[px][c]);
+      } else {
+        pk_sij<T>(grads[px], p.a, p.hubble, sij);
+      }
+      if (!ps.tensors()) return;
+#pragma unroll
+      for (int j = 0; j < Tl::G; ++j) {
+        const int c = ps.c0 + j;
+        const int64_t i = c * N + site;
+        const T h0 = v.sm[(Tl::HS + j) * Tl::SITES + ctr];
+        const T lap_h = pk_march_lap(v, Tl::HS + j, h0, p.w);
+        T h1, dh1, kh1, kdh1;
+        pk_gw_stage(h0, s.dh[j], s.kh[j], s.kdh[j], lap_h, sij[c], p.A, p.B,
+                    p.dt, two_hub, h1, dh1, kh1, kdh1);
+        io.out[4][i] = h1;
+        io.out[5][i] = dh1;
+        pk_out_as<C>(io, 6)[i] = PkCarry<T, C>::store(kh1);
+        pk_out_as<C>(io, 7)[i] = PkCarry<T, C>::store(kdh1);
+      }
     }
-    if (!ps.tensors()) return;
-#pragma unroll
-    for (int j = 0; j < Tl::G; ++j) {
-      const int c = ps.c0 + j;
-      const int64_t i = c * N + site;
-      const T h0 = v.sm[(Tl::HS + j) * Tl::SITES + ctr];
-      const T lap_h = pk_march_lap(v, Tl::HS + j, h0, p.w);
-      T h1, dh1, kh1, kdh1;
-      pk_gw_stage(h0, s.dh[j], s.kh[j], s.kdh[j], lap_h, sij[c], p.A, p.B,
-                  p.dt, two_hub, h1, dh1, kh1, kdh1);
-      io.out[4][i] = h1;
-      io.out[5][i] = dh1;
-      pk_out_as<C>(io, 6)[i] = PkCarry<T, C>::store(kh1);
-      pk_out_as<C>(io, 7)[i] = PkCarry<T, C>::store(kdh1);
-    }
+#endif
   });
 }
-#endif
 
 // ins / outs: host arrays of 4 (scalar) or 8 (GW: then hij, dhijdt, khij,
 // kdhijdt) device pointers. params: dt, a, hubble, A, B, then the Laplacian
@@ -367,18 +347,16 @@ static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
   if (GW) p.g = pk_grad_weights<T>(params + 5 + PK_NLAPW);
   if (!PAD) nblocks = pk_num_blocks(X, Y, Z);
   int rc;
-#ifdef PK_NH
-  if constexpr (ENERGY && GW) {
-    rc = pk_march_launch<T, PK_NH, 1>(
-        pk_preheat_stage_energy_kernel<T, C, KD, PAD>, X, Y, Z, stream,
-        pk_arrays<T>(ins, outs, 8), X, Y, Z, p, (T*)partials, nblocks, g);
-  } else
-#endif
-  {
-    pk_fused_stage_kernel<T, C, KD, ENERGY, GW, PAD>
+  if constexpr (ENERGY || GW) {
+    rc = pk_march_launch<T, PK_STAGE_NH(GW), 1>(
+        pk_stage_march_kernel<T, C, KD, ENERGY, GW, PAD>, X, Y, Z, stream,
+        pk_arrays<T>(ins, outs, GW ? 8 : 4), X, Y, Z, p, (T*)partials,
+        nblocks, g);
+  } else {
+    pk_fused_stage_kernel<T, C, PAD>
         <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
-           (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, GW ? 8 : 4), X,
-                                   Y, Z, p, (T*)partials, nblocks, g);
+           (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, 4), X, Y, Z, p,
+                                   g);
     rc = (int)cudaGetLastError();
   }
   if (!ENERGY || PAD || rc != 0) return rc;
@@ -438,6 +416,7 @@ static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
 #define PK_BF16 __nv_bfloat16
 
 PK_FINISH_ENTRIES
+PK_SCALAR_STAGE_MARCH_ENTRY
 
 PK_STAGE_ENTRY(pk_fused_stage_f32, float, float, false)
 PK_STAGE_ENTRY(pk_fused_stage_f64, double, double, false)

@@ -96,14 +96,14 @@ __device__ __forceinline__ int pk_tap(int i, int n) {
 // row, so an interior or shell launch writes into the full output block in
 // place. An unpadded launch has Nb = Nw = X * Y * Z and Ys = Y.
 //
-// The sum kernels (K5, K6, K9, K5') place each block's partial sums at the
-// index the block has in the launch over the whole lattice (pk_partial_index):
-// x0 is the region's first x row in the lattice, yb0 its first y block and
-// GYb the lattice's number of y blocks. One pk_reduce_partials_kernel over
-// the lattice's partials then gives the unsharded launch's sums bit for bit,
-// when every shard's y blocks are the lattice's (its Y a multiple of
-// PK_BLOCK_Y, or y unsharded). x0 = yb0 = 0 with GYb the region's own count
-// index the region's partials alone.
+// The sum kernels (K5, K6, K9, K5') place each tile's partial sums at the
+// index the per-site block of that tile has in the launch over the whole
+// lattice (pk_march_sums): x0 is the region's first x row in the lattice,
+// yb0 its first y block and GYb the lattice's number of y blocks. One
+// pk_reduce_partials_kernel over the lattice's partials then gives the
+// unsharded launch's sums bit for bit, when every shard's y blocks are the
+// lattice's (its Y a multiple of PK_BLOCK_Y, or y unsharded). x0 = yb0 = 0
+// with GYb the region's own count index the region's partials alone.
 struct PkGeom {
   int64_t Nb, Nw;
   int Ys;
@@ -297,23 +297,8 @@ static inline dim3 pk_grid(int X, int Y, int Z) {
               (Y + PK_BLOCK_Y - 1) / PK_BLOCK_Y, X);
 }
 
-// Linear index of the block, and the number of blocks, of pk_grid.
-__device__ __forceinline__ int64_t pk_block_index() {
-  return ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
-         + blockIdx.x;
-}
-
-// Where a block writes its partial sums: its own index in an unpadded
-// launch, its index in the whole lattice's launch in a padded one (PkGeom).
-template <int PAD>
-__device__ __forceinline__ int64_t pk_partial_index(const PkGeom& g) {
-  if constexpr (PAD == 0)
-    return pk_block_index();
-  else
-    return ((int64_t)(g.x0 + (int)blockIdx.z) * g.GYb + g.yb0
-            + (int)blockIdx.y) * gridDim.x + blockIdx.x;
-}
-
+// The number of blocks of pk_grid: the partial sums of a lattice's sum
+// kernels are indexed by its blocks (pk_march_sums).
 extern "C" long long pk_num_blocks(int X, int Y, int Z) {
   const dim3 g = pk_grid(X, Y, Z);
   return (long long)g.x * g.y * g.z;
@@ -343,10 +328,11 @@ __device__ __forceinline__ void pk_gw_stage(T h0, T dh0, T kh0, T kdh0,
 // accumulator tile (pallas_stencil.py:_accumulate_sums); blocks on the card
 // run in no order, so a sum takes two launches and no atomics:
 //
-// 1. pk_block_sums: each block of the stencil kernel reduces its 256 sites'
-//    terms in a fixed tree (a shuffle-down tree in each warp, then the 8 warp
-//    sums pairwise) and writes one partial per term into a (terms, blocks)
-//    buffer, at the block's index there (pk_partial_index);
+// 1. pk_march_sums (below, with the x-march): each 32 x 8 tile of a plane
+//    reduces its 256 sites' terms in a fixed tree (a shuffle-down tree in
+//    each warp, then the 8 warp sums pairwise) and writes one partial per
+//    term into a (terms, blocks) buffer, at the index the tile's block has
+//    in the per-site grid pk_grid;
 // 2. pk_reduce_partials_kernel: one block per term sums that term's
 //    partials in a fixed order (per thread, pairwise groups of 8 folded in
 //    sequence; then a tree over the threads).
@@ -361,35 +347,6 @@ __device__ __forceinline__ void pk_gw_stage(T h0, T dh0, T kh0, T kdh0,
 // component sum(-f lap f), then sum(V)
 #define PK_NT (2 * PK_F + 1)
 #define PK_REDUCE_THREADS 1024
-
-static_assert(PK_BLOCK_Z == 32 && PK_BLOCK_Y == 8,
-              "pk_block_sums reduces one warp per y row, 8 warps a block");
-
-template <typename T, int NT, int PAD = 0>
-__device__ __forceinline__ void pk_block_sums(T (&v)[NT],
-                                              T* __restrict__ partials,
-                                              int64_t nblocks,
-                                              const PkGeom& g) {
-  __shared__ T warp_sums[NT][PK_BLOCK_Y];
-  const int lane = threadIdx.x, warp = threadIdx.y;
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      v[t] = v[t] + __shfl_down_sync(0xffffffffu, v[t], o);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int t = 0; t < NT; ++t) warp_sums[t][warp] = v[t];
-  }
-  __syncthreads();
-  const int t = warp * PK_BLOCK_Z + lane;
-  if (t < NT) {
-    const T* w = warp_sums[t];
-    partials[t * nblocks + pk_partial_index<PAD>(g)] =
-        ((w[0] + w[1]) + (w[2] + w[3])) + ((w[4] + w[5]) + (w[6] + w[7]));
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(PK_REDUCE_THREADS)
@@ -524,13 +481,16 @@ __device__ __forceinline__ void pk_frame_at(int k, int& yy, int& zz) {
 // rule; pk_scalar_march_tile and pk_preheat_march_tile report the
 // instantiated tiles.
 //
-// The GW energy stage K5' (fused_stage.cu) marches the same way with one
-// value per tapped array (V = 1): f of each field, h of each component, and
-// no stage-1 composition; its tile follows the same rule with one array
-// where the pairs hold two (pk_stage_march_tile reports it).
+// The single stages of fused_stage.cu that march (pk_stage_march_kernel:
+// the GW energy stage K5', the GW stage K7 and the scalar energy stage K5)
+// march the same way with one value per tapped array (V = 1): f of each
+// field, h of each component (NH = 0 for K5), and no stage-1 composition;
+// their tile follows the same rule with one array where the pairs hold two
+// (pk_stage_march_tile and pk_scalar_stage_march_tile report it).
 // ---------------------------------------------------------------------------
-// x planes a run of K8 and K9, of K3 and K6, and of K5': the fastest
-// variants of chip_smoke.py --phases march_variants on an H100
+// x planes a run of K8 and K9, of K3 and K6, of the GW stage march (K5',
+// K7) and of the scalar one (K5): the fastest variants of chip_smoke.py
+// --phases march_variants on an H100
 #ifndef PK_MARCH_LX
 #define PK_MARCH_LX 32
 #endif
@@ -540,6 +500,9 @@ __device__ __forceinline__ void pk_frame_at(int k, int& yy, int& zz) {
 #ifndef PK_STAGE_MARCH_LX
 #define PK_STAGE_MARCH_LX 16
 #endif
+#ifndef PK_SCALAR_STAGE_MARCH_LX
+#define PK_SCALAR_STAGE_MARCH_LX 32
+#endif
 
 // The geometry of a march tile, whatever it holds, and the room it leaves
 // for K6's and K9's warp partials.
@@ -548,11 +511,13 @@ struct PkMarchGeo : PkTileGeo {
 };
 
 // The tile of a march with NH tensor components (0: the scalar march) and
-// V values per tapped array (2: the pairs' f and f1, h and h1; 1: K5').
+// V values per tapped array (2: the pairs' f and f1, h and h1; 1: the
+// stage march).
 template <typename T, int NH, int V = 2>
 struct PkMarchTile : PkMarchGeo {
   static constexpr int LX =
-      V == 1 ? PK_STAGE_MARCH_LX : NH ? PK_MARCH_LX : PK_SCALAR_MARCH_LX;
+      V == 1 ? (NH ? PK_STAGE_MARCH_LX : PK_SCALAR_STAGE_MARCH_LX)
+             : NH ? PK_MARCH_LX : PK_SCALAR_MARCH_LX;
   // dynamic (the arrays) and static (the warp partials) shared memory fit
   static constexpr bool fits(int arrays) {
     return ((long long)arrays * SITES + NSUM) * (long long)sizeof(T)
@@ -698,9 +663,11 @@ __device__ __forceinline__ void pk_march_grad(const PkMarchView<T>& v, int a,
 // body(x, i, pass, view, pre's result) runs; a barrier ends the step.
 // Window inputs are read with component stride Nw and y extent Yw, padded
 // along PAD's axes (a plane of a padded x window lies in [-h, X + h)).
-// With V = 1 a tapped array holds the window's values as they are.
-template <typename T, int NH, int PAD, int V = 2, typename In, typename Pre,
-          typename Body>
+// With V = 1 a tapped array holds the window's values as they are. AHEAD
+// (the scalar energy stage K5): the ring's next plane and the first frame
+// element are loaded a step ahead, as fd_ops.cu's march loads its planes.
+template <typename T, int NH, int PAD, int V = 2, bool AHEAD = false,
+          typename In, typename Pre, typename Body>
 __device__ __forceinline__ void pk_march(const In& in, int X, int Y, int Z,
                                          int64_t Nw, int Yw, Pre&& pre,
                                          Body&& body) {
@@ -753,6 +720,47 @@ __device__ __forceinline__ void pk_march(const In& in, int X, int Y, int Z,
       gather(xs - PK_H + q, y0 + ty, z0 + tz, v);
       put(v, Tl::CENTRE + q * Tl::PLANE + own);
     }
+    if constexpr (AHEAD) {
+      // plane x + h for the ring and this thread's first frame element of
+      // plane x, loaded a step ahead: each step stores the loads the step
+      // before issued and issues the next plane's, so they are in flight
+      // across the step's barriers and body
+      const bool first = own < Tl::FRAME;
+      int fy = 0, fz = 0;
+      if (first) pk_frame_at(own, fy, fz);
+      T ring[Tl::NA], edge[Tl::NA];
+      gather(xs + PK_H, y0 + ty, z0 + tz, ring);
+      if (first) gather(xs, y0 - PK_H + fy, z0 - PK_H + fz, edge);
+      for (int i = 0; i < nx; ++i) {
+        const int x = xs + i;
+        const auto site = pre(x, ps);
+        put(ring, Tl::CENTRE + ((i + 2 * PK_H) % Tl::NS) * Tl::PLANE + own);
+        {
+          const int src = Tl::CENTRE + ((i + PK_H) % Tl::NS) * Tl::PLANE
+                          + own;
+          const int dst = (ty + PK_H) * Tl::SZ + tz + PK_H;
+#pragma unroll
+          for (int a = 0; a < Tl::NA; ++a)
+            sm[a * Tl::SITES + dst] = sm[a * Tl::SITES + src];
+        }
+        if (first) put(edge, fy * Tl::SZ + fz);
+        if (i + 1 < nx) {
+          gather(x + 1 + PK_H, y0 + ty, z0 + tz, ring);
+          if (first) gather(x + 1, y0 - PK_H + fy, z0 - PK_H + fz, edge);
+        }
+        for (int k = own + Tl::THREADS; k < Tl::FRAME; k += Tl::THREADS) {
+          int yy, zz;
+          T v[Tl::NA];
+          pk_frame_at(k, yy, zz);
+          gather(x, y0 - PK_H + yy, z0 - PK_H + zz, v);
+          put(v, yy * Tl::SZ + zz);
+        }
+        __syncthreads();
+        body(x, i, ps, PkMarchView<T>{sm, own, i % Tl::NS}, site);
+        __syncthreads();
+      }
+      continue;
+    }
     for (int i = 0; i < nx; ++i) {
       const int x = xs + i;
       // plane x + h for the ring, the first frame element of this thread,
@@ -788,9 +796,9 @@ __device__ __forceinline__ void pk_march(const In& in, int X, int Y, int Z,
   }
 }
 
-// The sums of one plane of a march: the block's 32 x 8 tile reduced as
-// pk_block_sums reduces a block (each warp a shuffle-down tree over its
-// row, then the 8 rows pairwise), each term t that keep(t) selects
+// The sums of one plane of a march: the block's 32 x 8 tile reduced in a
+// fixed tree (each warp a shuffle-down tree over its row, then the 8 rows
+// pairwise), each term t that keep(t) selects
 // written at the index the tile has in the per-site launch over the whole
 // lattice:
 // plane x0 + x, y block yb0 + blockIdx.y, GYb y blocks (PkGeom; the launch
@@ -803,6 +811,8 @@ __device__ __forceinline__ void pk_march_sums(T (&v)[NT],
                                               int64_t nblocks,
                                               const PkGeom& g, int x,
                                               Keep&& keep) {
+  static_assert(PK_BLOCK_Z == 32 && PK_BLOCK_Y == 8,
+                "one warp per y row of the tile, 8 warps a block");
   static_assert(NT * PK_BLOCK_Y <= PkMarchGeo::NSUM,
                 "the warp partials' room in the march's budget");
   __shared__ T warp_sums[NT][PK_BLOCK_Y];
@@ -868,6 +878,15 @@ static int pk_march_report(int* out) {
                : pk_march_report<float, 0>(out);                          \
   }
 
+// The scalar energy stage's (K5: one value per tapped array, no tensor
+// component), in the same form; an entry point of fused_stage.cu in every
+// build.
+#define PK_SCALAR_STAGE_MARCH_ENTRY                                       \
+  extern "C" int pk_scalar_stage_march_tile(int f64, int* out) {          \
+    return f64 ? pk_march_report<double, 0, 1>(out)                       \
+               : pk_march_report<float, 0, 1>(out);                       \
+  }
+
 #ifdef PK_NH
 // The GW pairs' (K8, K9).
 extern "C" int pk_preheat_march_tile(int f64, int* out) {
@@ -875,7 +894,7 @@ extern "C" int pk_preheat_march_tile(int f64, int* out) {
              : pk_march_report<float, PK_NH>(out);
 }
 
-// The GW energy stage's (K5', one value per tapped array), in the same
+// The GW stages' (K5' and K7, one value per tapped array), in the same
 // form; an entry point of fused_stage.cu.
 #define PK_STAGE_MARCH_ENTRY                                              \
   extern "C" int pk_stage_march_tile(int f64, int* out) {                 \

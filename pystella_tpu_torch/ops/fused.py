@@ -25,7 +25,8 @@ Hand-written CUDA kernels (``ops/csrc``):
   runs chunks first, then pairs, then a single stage, across step
   boundaries;
 - ``fused_stage_energy`` (K5): K2 that also emits the energy sums of its
-  entry state, for :meth:`coupled_multi_step`;
+  entry state, for :meth:`coupled_multi_step` (an x-march: :func:`
+  march_tile` with ``nh=0, values=1``);
 - ``coupled_pair`` / ``coupled_pair_deferred`` (K6): the deferred-drag
   stage pair of :meth:`coupled_multi_step`, which emits both stages' energy
   sums and leaves the second stage's Hubble drag to the next launch;
@@ -33,8 +34,8 @@ Hand-written CUDA kernels (``ops/csrc``):
   (K5') and ``preheat_coupled_pair`` / ``preheat_coupled_pair_deferred``
   (K9): the same five for the scalar + gravitational-wave system, a
   template flag on each scalar kernel that adds the tensor stages after the
-  scalar ones (K5', like the pairs, an x-march: :func:`march_tile` with
-  ``values=1``).
+  scalar ones (K7 and K5', like the pairs, an x-march: :func:`march_tile`
+  with ``values=1``; K5', K7 and K5 one template).
 
 Every kernel also comes with ``carry_dtype=torch.bfloat16``: the same kernel
 storing the k-carries in bfloat16 (widened on load, rounded on store, the
@@ -277,22 +278,24 @@ def chunk_tile(F, h, itemsize, depth, lx=None, rows=None):
     return None
 
 
-#: the x-march of the pair kernels and of the GW energy stage
+#: the x-march of the pair kernels and of the single stages that march
 #: (pk_common.cuh: PkMarchTile): the x planes a block of the GW pairs K8, K9
 #: marches (PK_MARCH_LX), those of the scalar pairs K3, K6
-#: (PK_SCALAR_MARCH_LX) and those of K5' (PK_STAGE_MARCH_LX); a tile is 32
-#: z columns by 8 y rows
+#: (PK_SCALAR_MARCH_LX), those of K5' and K7 (PK_STAGE_MARCH_LX) and those
+#: of K5 (PK_SCALAR_STAGE_MARCH_LX); a tile is 32 z columns by 8 y rows
 MARCH_LX = 32
 SCALAR_MARCH_LX = 24
 STAGE_MARCH_LX = 16
+SCALAR_STAGE_MARCH_LX = 32
 
 
 def march_tile(F, h, itemsize, nh=6, lx=None, values=2):
     """The x-march tile of the pair kernels for ``F`` fields, ``nh``
     tensor components (6: the GW pairs; 0: the scalar pairs), stencil
     radius ``h`` and a working type of ``itemsize`` bytes -- or, with
-    ``values=1``, of the GW energy stage K5', which holds one array per
-    tapped value (f, h) where a pair holds two (f and f1, h and h1):
+    ``values=1``, of the single stages that march (K5' and K7 with ``nh``
+    components, K5 with none), which hold one array per tapped value (f,
+    h) where a pair holds two (f and f1, h and h1):
     ``((lx, gf, g, joint), bytes)`` -- the x planes a block marches, the
     fields a scalar pass holds, the tensor components a pass holds, the
     layout (1 joint, 0 split) and the dynamic shared memory a block.
@@ -307,8 +310,8 @@ def march_tile(F, h, itemsize, nh=6, lx=None, values=2):
     scalar passes of the most fields that fit (``gf``), then tensor passes
     of the first ``g`` that fits alone."""
     if lx is None:
-        lx = (STAGE_MARCH_LX if values == 1 else MARCH_LX if nh
-              else SCALAR_MARCH_LX)
+        lx = ((STAGE_MARCH_LX if nh else SCALAR_STAGE_MARCH_LX)
+              if values == 1 else MARCH_LX if nh else SCALAR_MARCH_LX)
     v = values
     sites = (8 + 2 * h) * (32 + 2 * h) + (2 * h + 1) * 8 * 32
     sums = 2 * (2 * F + 1) * 8
@@ -663,25 +666,27 @@ class FusedScalarStepper(_step.Stepper):
         """The built sources of this stepper's x-marching kernels, each
         with the values its march holds per tapped array (:func:`
         march_tile`): the pairs' (K3 and K6; for the GW system K8 and K9)
-        2, the GW energy stage's (K5') 1."""
+        2, the energy stage's (K5; for the GW system K5' and K7) 1."""
         srcs = [(KERNELS[n][0], 2) for n in self._kernel_bases()
                 if n in (self._KERNEL["pair"], self._KERNEL["coupled_pair"])]
-        if self._march_nh:
-            srcs.append((KERNELS[self._KERNEL["stage_energy"]][0], 1))
+        srcs.append((KERNELS[self._KERNEL["stage_energy"]][0], 1))
         return sorted(set(srcs))
 
     def march_kernel_tile(self, dtype, source="fused_pair.cu"):
         """The x-march tile of this stepper's built kernels in ``source``
         for working type ``dtype``, as the library reports it
-        (``pk_scalar_march_tile``; for the GW system
-        ``pk_preheat_march_tile``, and ``pk_stage_march_tile`` in
-        fused_stage.cu, that of K5'): ``((lx, gf, g, joint), bytes)``
-        (:func:`march_tile`)."""
+        (``pk_scalar_march_tile``, and ``pk_scalar_stage_march_tile`` in
+        fused_stage.cu, that of K5; for the GW system
+        ``pk_preheat_march_tile`` and ``pk_stage_march_tile``, that of K5'
+        and K7): ``((lx, gf, g, joint), bytes)`` (:func:`march_tile`)."""
         lib = self._built[source]
-        fn = (lib.pk_stage_march_tile if source == KERNELS[
-            "preheat_stage_energy"][0] and self._march_nh
-            else lib.pk_preheat_march_tile if self._march_nh
-            else lib.pk_scalar_march_tile)
+        if source == KERNELS[self._KERNEL["stage_energy"]][0]:
+            name = ("pk_stage_march_tile" if self._march_nh
+                    else "pk_scalar_stage_march_tile")
+        else:
+            name = ("pk_preheat_march_tile" if self._march_nh
+                    else "pk_scalar_march_tile")
+        fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         out = (ctypes.c_int * 5)()

@@ -10,10 +10,13 @@ sums. With ``--gw`` the GW pairs K8 and K9 (both inputs) are held to
 their plain versions and their padded launches to the unpadded ones.
 With ``--chunk`` the whole-RK chunk K10 (f32, f64, bf16 carries) is held
 to its plain version and to two K3 launches bit for bit, state and
-carries. With ``--stage`` the GW energy stage K5' (f32, f64, bf16 carries
-and the ``_bf16_fin`` carries, every padding) likewise, its lattice
-outputs also to K7's bit for bit and two x blocks' partials to the
-unsharded sums. With ``--fd`` the finite-difference Laplacian ``fd_lap``
+carries. With ``--stage`` the single stages that march, the GW energy
+stage K5', the GW stage K7 and the scalar energy stage K5 (f32, f64, bf16
+carries and, for K5' and K5, the ``_bf16_fin`` carries, every padding, K7's
+interior and shell launches) likewise; K5''s lattice outputs also equal
+K7's bit for bit, its scalar outputs and sums K5's, K5's scalar outputs
+the per-site K2's, and two x blocks' partials the unsharded sums. With
+``--fd`` the finite-difference Laplacian ``fd_lap``
 (h = 1-4, f32 and f64, every padding, the interior and shell launches)
 is held to its plain version, its padded, interior and shell launches to
 the unpadded one and every launch to the Laplacian of the per-site
@@ -24,14 +27,14 @@ included.
 
 Shapes: 16^3, 70x12x40 and 5x9x33 (two fields, h = 2), a five-field model
 at h = 4 (f64: the split layout of the pairs, two groups of three
-components for K5'; K10: a lower rung of its ladder of tiles), ten
-fields at h = 4 in f64 (the split layout of K5'), three fields at h = 1
-and 3, and 2^3, where the +-taps wrap onto one site. ``--lx`` is the run
-length the kernels are built with (PK_SCALAR_MARCH_LX; PK_MARCH_LX with
-``--gw``, PK_CHUNK_LX with ``--chunk``, PK_STAGE_MARCH_LX with
-``--stage``, PK_FD_LAP_LX with ``--fd``): the default 4 cuts runs short
-at every shape and keeps the run to a few minutes. Exits 1 if a check
-fails::
+components for K5' and K7; K10: a lower rung of its ladder of tiles), ten
+fields at h = 4 in f64 (the split layout of K5', K7 and K5), three fields
+at h = 1 and 3, and 2^3, where the +-taps wrap onto one site. ``--lx`` is
+the run length the kernels are built with (PK_SCALAR_MARCH_LX;
+PK_MARCH_LX with ``--gw``, PK_CHUNK_LX with ``--chunk``,
+PK_STAGE_MARCH_LX and PK_SCALAR_STAGE_MARCH_LX with ``--stage``,
+PK_FD_LAP_LX with ``--fd``): the default 4 cuts runs short at every shape
+and keeps the run to a few minutes. Exits 1 if a check fails::
 
     python pystella_tpu_torch/tools/cpu_shim/rehearse.py
         [--gw | --chunk | --stage | --fd] [--lx N] [--against DIR]
@@ -120,7 +123,6 @@ class Case:
     def __init__(self, args, F, h, grid, dtype, carry, potential, gw=False,
                  chunk=False, tile_src="fused_pair.cu"):
         sector = pt.ScalarSector(F, potential=potential)
-        self.sector, self.defines = sector, args.defines
         self.dx = 5.0 / grid[0]
         if gw:
             make = lambda: pt.FusedPreheatStepper(  # noqa: E731
@@ -185,42 +187,42 @@ class Case:
                                    ("xypad", (h, h))):
                 pa, ok = self.launch(K, self.window(K, hx, hy, ins), p, kind)
                 check(f"{tag}:{kind} == unpadded{other}", ok and same(pa, a))
-            if K == "fused_pair" and X > 2 * h:
+            if K in ("fused_pair", "preheat_stage") and X > 2 * h:
                 self.shells(K, p, a)
             if tfused.SUM_SETS[K] and X % 2 == 0:
                 self.two_blocks(K, p, a, ins)
 
-    def run_stage(self, k5=False):
-        """K5' (and, with bf16 carries, on finalized velocity carries): vs
-        its plain version, padded, two x blocks, and its lattice outputs
-        bit for bit K7's (``preheat_stage``, the per-site template); with
-        ``k5`` also its scalar outputs and sums K5's (``fused_stage_energy``
-        of the same sector's scalar stepper, per-site)."""
-        K, n = "preheat_stage_energy", len(self.new._comps)
-        st = self.new
+    def run_stage(self, sc):
+        """K5' and K7, and K5 of the scalar case ``sc`` (the same model,
+        lattice and inputs; K5' and K5 also on finalized velocity carries):
+        each vs its plain version, padded, K7's interior and shells, two x
+        blocks; K5''s lattice outputs bit for bit K7's, its scalar outputs
+        and sums K5's, and K5's scalar outputs the per-site K2's."""
+        K5p, K7, K5, K2 = ("preheat_stage_energy", "preheat_stage",
+                           "fused_stage_energy", "fused_stage")
+        n, st = len(self.new._comps), self.new
         sets = [("", self.ins)]
         if st.carry_dtype is not None:
             sets.append((" fin", [t.to(d) for t, d in zip(
                 self.ins, st._in_dtypes(True))]))
-        scalar = k5 and built(pt.FusedScalarStepper(
-            self.sector, self.grid, self.dx, self.h, dtype=st.dtype,
-            carry_dtype=st.carry_dtype, device="cpu"), defines=self.defines)
+        kinds = self.grid != (2, 2, 2)
         for label, ins in sets:
-            self.run([K], kinds=self.grid != (2, 2, 2), ins=ins, label=label)
-            p = params(tfused._GW_OF[K], self.dx)
+            self.run([K5p] + ([] if label else [K7]), kinds, ins, label)
+            sc.run([K5], kinds, ins[:4], label)
+            p = params(K5, self.dx)
             with shim():
-                a = st.launch(K, ins, nans(st), p)
+                a = st.launch(K5p, ins, nans(st), p)
+                c = sc.new.launch(K5, ins[:4], nans(sc.new), p)
                 if not label:
-                    b = st.launch("preheat_stage", ins, nans(st), p)
-                if scalar:
-                    c = scalar.launch("fused_stage_energy", ins[:4],
-                                      nans(scalar), p)
+                    b = st.launch(K7, ins, nans(st), p)
+                    d = sc.new.launch(K2, ins[:4], nans(sc.new), p)
             if not label:
-                check(f"{self.name} {K}{label} lattice outputs == K7's",
+                check(f"{self.name} {K5p} lattice outputs == K7's",
                       same(a[:n], b))
-            if scalar:
-                check(f"{self.name} {K}{label} scalar outputs and sums == "
-                      "K5's", same(a[:4] + a[n:], c))
+                check(f"{sc.name} {K5} scalar outputs == K2's",
+                      same(c[:4], d))
+            check(f"{self.name} {K5p}{label} scalar outputs and sums == "
+                  "K5's", same(a[:4] + a[n:], c))
 
     def run_chunk(self):
         """K10 vs its plain version, vs two K3 launches and, with
@@ -319,16 +321,17 @@ def chunk(args):
 
 
 def stage(args):
-    def case(F, h, grid, dtype, carry, potential, k5=False):
+    def case(F, h, grid, dtype, carry, potential):
+        sc = Case(args, F, h, grid, dtype, carry, potential,
+                  tile_src="fused_stage.cu")
         Case(args, F, h, grid, dtype, carry, potential, gw=True,
-             tile_src="fused_stage.cu").run_stage(k5)
+             tile_src="fused_stage.cu").run_stage(sc)
     for grid, dtype, carry in [((16, 16, 16), torch.float32, None),
                                ((70, 12, 40), torch.float64, None),
                                ((5, 9, 33), torch.float32, torch.bfloat16),
                                ((16, 16, 16), torch.float64, torch.bfloat16),
                                ((2, 2, 2), torch.float64, None)]:
-        case(2, 2, grid, dtype, carry, bench_potential,
-             k5=grid == (16, 16, 16))
+        case(2, 2, grid, dtype, carry, bench_potential)
     for h in (1, 3):
         case(3, h, (19, 10, 35), torch.float64, None, many_potential(3))
     case(5, 4, (13, 12, 40), torch.float64, torch.bfloat16,
@@ -425,7 +428,8 @@ def main():
     family.add_argument("--chunk", action="store_true",
                         help="the whole-RK chunk K10 instead of K3 and K6")
     family.add_argument("--stage", action="store_true",
-                        help="the GW energy stage K5' instead of K3 and K6")
+                        help="the stage marches K5', K7 and K5 instead of "
+                        "K3 and K6")
     family.add_argument("--fd", action="store_true",
                         help="the Laplacian fd_lap instead of K3 and K6")
     parser.add_argument("--lx", type=int, default=4,
@@ -440,8 +444,9 @@ def main():
         tfused.CHUNK_LX = args.lx
         args.defines = f"\n#define PK_CHUNK_LX {args.lx}\n"
     elif args.stage:
-        tfused.STAGE_MARCH_LX = args.lx
-        args.defines = f"\n#define PK_STAGE_MARCH_LX {args.lx}\n"
+        tfused.STAGE_MARCH_LX = tfused.SCALAR_STAGE_MARCH_LX = args.lx
+        args.defines = (f"\n#define PK_STAGE_MARCH_LX {args.lx}\n"
+                        f"#define PK_SCALAR_STAGE_MARCH_LX {args.lx}\n")
     elif args.fd:
         tderivs.LAP_LX = args.lx
         args.defines = f"\n#define PK_FD_LAP_LX {args.lx}\n"

@@ -121,6 +121,11 @@ MARCH_KERNELS = ["fused_pair", "coupled_pair", "coupled_pair_deferred",
                  "preheat_coupled_pair_deferred"]
 
 
+#: the single stages that march: K5, K7, K5'
+STAGE_MARCH_KERNELS = ["fused_stage_energy", "preheat_stage",
+                       "preheat_stage_energy"]
+
+
 def _params(kernel, dx):
     dt = 0.1 * dx
     if kernel == "fused_stage_energy":
@@ -501,13 +506,13 @@ def test_preheat_kernel_matches_plain(cuda, kernel, grid, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid", MARCH_GRIDS, ids=MARCH_IDS)
 @pytest.mark.parametrize("carry", ["f32", "f64", "f32-bf16", "f64-bf16"])
-@pytest.mark.parametrize("kernel", MARCH_KERNELS)
+@pytest.mark.parametrize("kernel", MARCH_KERNELS + STAGE_MARCH_KERNELS)
 def test_march_edges_match_plain(cuda, kernel, carry, grid):
-    """K3, K8 and both inputs of K6 and K9 at the x-march's edges (runs cut
-    short, tiles hanging over Y and Z), with carries in the working type
-    and in bf16: every lattice output at KERNEL_TOL of the plain version,
-    the sums at SUM_TOL of sum |term|, and a second launch bit-equal to
-    the first."""
+    """K3, K8, both inputs of K6 and K9, and the stage marches K5, K7 and
+    K5' at the x-march's edges (runs cut short, tiles hanging over Y and
+    Z), with carries in the working type and in bf16: every lattice output
+    at KERNEL_TOL of the plain version, the sums at SUM_TOL of sum |term|,
+    and a second launch bit-equal to the first."""
     dtype, carry_dtype = CARRIES[carry]
     if carry_dtype is None and kernel in GW_KERNELS:
         st, ins, params = _preheat_case(cuda, kernel, grid, dtype, 4)
@@ -1545,14 +1550,15 @@ def test_sharded_sums_equal_unsharded(cuda, kernel, mesh, grid):
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid", [(70, 12, 40), (10, 9, 33)],
                          ids=["70x12x40", "10x9x33"])
-@pytest.mark.parametrize("kernel", ["coupled_pair", "coupled_pair_deferred",
+@pytest.mark.parametrize("kernel", ["fused_stage_energy", "coupled_pair",
+                                    "coupled_pair_deferred",
                                     "preheat_coupled_pair",
                                     "preheat_coupled_pair_deferred"])
 def test_sharded_sums_equal_unsharded_march_shapes(cuda, kernel, grid):
     """The same on (2, 1, 1) at the x-march's edge shapes: blocks of
     35x12x40 and 5x9x33 (runs cut short, y tiles hanging past Y, which is
-    unsharded): the pairs' sums and lattice outputs equal the unsharded
-    launch's bit for bit."""
+    unsharded): the sums and lattice outputs of the pairs and of K5 equal
+    the unsharded launch's bit for bit."""
     _sharded_sums_case(cuda, kernel, (2, 1, 1), grid)
 
 
@@ -1805,63 +1811,67 @@ def test_sharded_bf16_on_card(cuda, mesh, overlap, gw):
     assert (e2.a, e2.adot) == (e1.a, e1.adot)
 
 
-# -- the x-marches of K5' and fd_lap against the per-site template ------------
+# -- the stage marches (K5', K7, K5) and fd_lap against each other and the
+#    per-site template -------------------------------------------------------
 
-#: the K5' march at its edges (runs cut short, tiles hanging over Y and
-#: Z, 16^3) and on 2^3, where the +-taps wrap onto one site
+#: the stage marches at their edges (runs cut short, tiles hanging over Y
+#: and Z, 16^3) and on 2^3, where the +-taps wrap onto one site
 STAGE_GRIDS = MARCH_GRIDS + [(2, 2, 2)]
 STAGE_IDS = MARCH_IDS + ["2cubed"]
 #: a model whose f64 f and h arrays at h = 4 leave no room for a tensor
-#: component beside every field: the K5' march's split layout
+#: component beside every field: the split layout of the K5' and K7 march
 #: (ops/fused.py: march_tile with values=1), scalar passes of nine fields
-#: and one
+#: and one; K5's ten f arrays do not fit one block either (passes of nine
+#: fields and one)
 STAGE_SPLIT_F = 10
 
 
-def _stage_vs_per_site(cuda, st, sst, ins, params, grid, h):
-    """K5' on ``ins``: its scalar outputs and sums K5's (``sst``'s
-    fused_stage_energy, per-site), its tensor outputs K7's (per-site; not
-    on finalized carries), every padded launch on windows padded by hand
-    the unpadded one and two x blocks' partials the unpadded sums, bit for
-    bit; the lattice outputs at KERNEL_TOL of the plain version."""
-    kernel = "preheat_stage_energy"
+def _stage_launches(cuda, st, kernel, ins, params, grid, h):
+    """``kernel`` on ``ins``: every padded launch on windows padded by hand,
+    the interior and two x-shell launches of a kernel without sums, and
+    two x blocks' partials of a kernel with sums equal the unpadded launch
+    bit for bit; its lattice outputs are at KERNEL_TOL of the plain
+    version. Returns the unpadded launch's outputs."""
     n = len(ins)
-    fin = st._finalized(kernel, ins)
     one = st.launch(kernel, ins, st._new_set(cuda), params)
-    k5 = sst.launch("fused_stage_energy", ins[:4], sst._new_set(cuda),
-                    params)
     torch.cuda.synchronize()
-    for a, b in zip(one[:4] + one[n:], k5):
-        assert torch.equal(a, b)
-    if not fin:
-        k7 = st.launch("preheat_stage", ins, st._new_set(cuda), params)
-        torch.cuda.synchronize()
-        for a, b in zip(one[4:n], k7[4:]):
-            assert torch.equal(a, b)
     plain = st.plain(kernel, ins, params)
     for o, p in zip(one[:n], plain[:n]):
         assert _rel(o, p) <= KERNEL_TOL[st.dtype]
-    if min(grid[:2]) < h:
-        return
+    X, Y, Z = grid
+    if min(X, Y) < h:
+        return one
     wins = tfused._WINDOWS[kernel]
+
+    def windows(fn):
+        return [fn(t) if j in wins else t for j, t in enumerate(ins)]
     for kind, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
                            ("xypad", (h, h))):
         padded = st.launch_block(
-            kernel, kind, [_pad_periodic(t, hx, hy) if j in wins else t
-                           for j, t in enumerate(ins)],
+            kernel, kind, windows(lambda t: _pad_periodic(t, hx, hy)),
             st._new_set(cuda), params)
         torch.cuda.synchronize()
         for a, b in zip(one, padded):
             assert torch.equal(a, b)
-    X, Y, Z = grid
+    xpad = windows(lambda t: _pad_periodic(t, h, 0))
+    outs = st._new_set(cuda)
+    if not tfused.SUM_SETS[kernel]:
+        if X <= 2 * h:
+            return one
+        st.launch_block(kernel, "interior", ins, outs, params, x0=h)
+        for x0 in (0, X - h):
+            st.launch_block(kernel, "shell", [
+                t.narrow(1, x0, 3 * h).contiguous() if j in wins else t
+                for j, t in enumerate(xpad)], outs, params, x0=x0)
+        torch.cuda.synchronize()
+        for a, b in zip(outs, one):
+            assert torch.equal(a, b)
+        return one
     if X % 2:
-        return
+        return one
     nb = st._num_blocks(X, Y, Z)
     buf = torch.full(((2 * st.F + 1) * nb,), float("nan"), dtype=st.dtype,
                      device=cuda)
-    xpad = [_pad_periodic(t, h, 0) if j in wins else t
-            for j, t in enumerate(ins)]
-    outs = st._new_set(cuda)
     for x0 in (0, X // 2):
         st.launch_block(kernel, "xpad", [
             t.narrow(1, x0, X // 2 + 2 * h).contiguous() if j in wins else t
@@ -1871,6 +1881,33 @@ def _stage_vs_per_site(cuda, st, sst, ins, params, grid, h):
     torch.cuda.synchronize()
     for a, b in zip(outs + sums, one):
         assert torch.equal(a, b)
+    return one
+
+
+def _stage_vs_per_site(cuda, st, sst, ins, params, grid, h):
+    """The stage marches on ``ins`` (:func:`_stage_launches` each, every
+    padding, K7's interior and shells, two x blocks' partials of K5' and
+    K5), held to each other and to the per-site K2 bit for bit: K5''s
+    scalar outputs and sums are K5's (``sst``'s fused_stage_energy); on
+    carries that are not finalized K5''s lattice outputs are K7's and K5's
+    scalar outputs K2's."""
+    n = len(ins)
+    fin = st._finalized("preheat_stage_energy", ins)
+    one = _stage_launches(cuda, st, "preheat_stage_energy", ins, params,
+                          grid, h)
+    k5 = _stage_launches(cuda, sst, "fused_stage_energy", ins[:4], params,
+                         grid, h)
+    for a, b in zip(one[:4] + one[n:], k5):
+        assert torch.equal(a, b)
+    if fin:
+        return
+    k7 = _stage_launches(cuda, st, "preheat_stage", ins, params, grid, h)
+    k2 = sst.launch("fused_stage", ins[:4], sst._new_set(cuda), params)
+    torch.cuda.synchronize()
+    for a, b in zip(one[:n], k7):
+        assert torch.equal(a, b)
+    for a, b in zip(k5[:4], k2):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -1878,10 +1915,11 @@ def _stage_vs_per_site(cuda, st, sst, ins, params, grid, h):
 @pytest.mark.parametrize("carry", ["f32", "f64", "f32-bf16", "f64-bf16",
                                    "f32-bf16-fin", "f64-bf16-fin"])
 def test_stage_march_equals_per_site(cuda, carry, grid):
-    """K5' (the x-march) in every entry point -- carries in the working
-    type, in bf16 and on finalized velocity carries (``_bf16_fin``),
-    unpadded, x-, y- and xy-padded, two x blocks -- equals the per-site
-    kernels bit for bit (:func:`_stage_vs_per_site`) at the march's
+    """K5', K7 and K5 (one x-march template) in every entry point --
+    carries in the working type, in bf16 and, for K5' and K5, on finalized
+    velocity carries (``_bf16_fin``), unpadded, x-, y- and xy-padded, K7's
+    interior and shells, two x blocks -- held to each other and to the
+    per-site K2 bit for bit (:func:`_stage_vs_per_site`) at the march's
     edges and on 2^3."""
     fin = carry.endswith("-fin")
     dtype, carry_dtype = CARRIES[carry[:-4] if fin else carry]
@@ -1897,10 +1935,11 @@ def test_stage_march_equals_per_site(cuda, carry, grid):
 @pytest.mark.cuda
 @pytest.mark.parametrize("carry", ["f32", "f64", "f64-bf16"])
 def test_stage_march_split_layout_equals_per_site(cuda, carry):
-    """Ten fields at h = 4: the K5' march in f64 takes the split layout
-    (scalar passes of nine fields and one, grad f parked for a tensor pass
-    of the six components), in f32 the joint one; either equals the
-    per-site kernels bit for bit (:func:`_stage_vs_per_site`)."""
+    """Ten fields at h = 4: the K5' and K7 march in f64 takes the split
+    layout (scalar passes of nine fields and one, grad f parked for a
+    tensor pass of the six components), in f32 the joint one; K5 in f64
+    scalar passes of nine fields and one, in f32 one pass. Each is held
+    as :func:`_stage_vs_per_site` holds it."""
     dtype, carry_dtype = CARRIES[carry]
     F, h, grid = STAGE_SPLIT_F, 4, (13, 12, 40)
     sector = pt.ScalarSector(F, potential=many_potential(F))
@@ -1912,6 +1951,10 @@ def test_stage_march_split_layout_equals_per_site(cuda, carry):
     assert tile == tfused.march_tile(F, h, dtype.itemsize, values=1)
     assert tile[0][1:] == ((10, 6, 1) if dtype == torch.float32
                            else (9, 6, 0))
+    stile = sst.march_kernel_tile(dtype, "fused_stage.cu")
+    assert stile == tfused.march_tile(F, h, dtype.itemsize, nh=0, values=1)
+    assert stile[0][1:] == ((10, 0, 1) if dtype == torch.float32
+                            else (9, 0, 0))
     g = torch.Generator(device=cuda).manual_seed(8)
     amps = (1e-3, 1e-4, 1e-5, 1e-3, 1e-3, 1e-4, 1e-5, 1e-4)
     ins = [(a * torch.randn((c,) + grid, generator=g, device=cuda,

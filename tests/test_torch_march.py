@@ -1,8 +1,9 @@
 """The x-march tile of the pair kernels (the scalar pairs K3, K6 and the GW
-pairs K8, K9) and of the GW energy stage K5' as the host mirrors it
-(``pystella_tpu_torch.ops.fused.march_tile``), the Laplacian's
-(``pystella_tpu_torch.ops.derivs.lap_tile``), and the smoke run's phase
-selection (``chip_smoke.py --phases``).
+pairs K8, K9) and of the single stages that march (K5', K7 and K5) as the
+host mirrors it (``pystella_tpu_torch.ops.fused.march_tile``), the
+Laplacian's (``pystella_tpu_torch.ops.derivs.lap_tile``), and the smoke
+run's phase selection (``chip_smoke.py --phases``), stage-march variants
+and ptxas rows.
 
 The kernels themselves run only on the card (tests/test_torch_kernels.py);
 their shared memory per block is fixed at compile time by the rule the
@@ -204,6 +205,79 @@ def test_stage_march_tile_examples(args, kw, want):
         F, h, isz, values=1, lx=tfused.STAGE_MARCH_LX)
 
 
+#: the first field count whose f arrays do not fit one block of K5's
+#: march, by item size and stencil radius (below it, one joint pass)
+SCALAR_STAGE_FIRST_SPLIT = {4: {1: 51, 2: 34, 3: 25, 4: 20},
+                            8: {1: 26, 2: 17, 3: 13, 4: 10}}
+
+
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+@pytest.mark.parametrize("carry", [None, torch.bfloat16], ids=["T", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("F", [1, 2, 5, 9, 10, 12])
+def test_scalar_stage_march_tile_fits_every_accepted_stepper(F, dtype, carry,
+                                                             h):
+    """Every field count, working dtype, carry dtype and stencil radius a
+    scalar stepper accepts has a tile for K5, the scalar energy stage's
+    march: one array per field (f) and no tensor component, in a block's
+    232,448 bytes beside the static per-warp partials of 2 (2F + 1) sum
+    terms. Joint below SCALAR_STAGE_FIRST_SPLIT (f64 from ten fields at
+    h = 4), split from there with passes of one field fewer; the stepper
+    holds fused_stage.cu's tile to it when it builds. The carries live in
+    device memory only, so the tile is the carry dtype's to share."""
+    st = pt.FusedScalarStepper(pt.ScalarSector(F, potential=many_potential(
+        F)), (8, 8, 8), 0.1, h, dtype=dtype, carry_dtype=carry,
+        device="cpu")
+    assert ("fused_stage.cu", 1) in st._march_sources()
+    isz = st.dtype.itemsize
+    (lx, gf, g, joint), nbytes = tfused.march_tile(F, h, isz, 0, values=1)
+    assert lx == tfused.SCALAR_STAGE_MARCH_LX and g == 0
+    first_split = SCALAR_STAGE_FIRST_SPLIT[isz][h]
+    assert bool(joint) == (F < first_split)
+    assert gf == (F if joint else first_split - 1)
+    assert nbytes == gf * TILE_SITES[h] * isz
+    assert nbytes + 2 * (2 * F + 1) * 8 * isz <= SMEM_MAX
+
+
+@pytest.mark.parametrize("args,kw,want", [
+    ((2, 2, 4), {}, ((32, 2, 0, 1), 13696)),
+    ((2, 2, 4), {"lx": 16}, ((16, 2, 0, 1), 13696)),
+    ((9, 4, 8), {}, ((32, 9, 0, 1), 211968)),
+    ((10, 4, 8), {}, ((32, 9, 0, 0), 211968)),
+    ((17, 2, 8), {}, ((32, 16, 0, 0), 219136)),
+    ((20, 4, 4), {"lx": 64}, ((64, 19, 0, 0), 223744)),
+], ids=["main-path", "main-path-lx16", "f64-h4-nine", "f64-h4-split",
+        "f64-h2-split", "f32-h4-split"])
+def test_scalar_stage_march_tile_examples(args, kw, want):
+    """K5's march tile: the main path's (f32, h = 2, two fields: two arrays
+    of 1,712 elements, 13,696 bytes), at a run of 16 planes too; nine
+    fields in f64 at h = 4 joint, ten split nine and one; seventeen in f64
+    at h = 2 split sixteen and one; twenty in f32 at h = 4 split nineteen
+    and one, at a run of 64. Without ``lx`` the tile is the source's
+    default (32 planes; the GW stages' 16)."""
+    assert tfused.march_tile(*args, nh=0, values=1, **kw) == want
+    F, h, isz = args
+    assert tfused.march_tile(F, h, isz, 0, values=1) == tfused.march_tile(
+        F, h, isz, 0, values=1, lx=tfused.SCALAR_STAGE_MARCH_LX)
+
+
+@pytest.mark.parametrize("gw", [False, True], ids=["scalar", "gw"])
+def test_march_sources_hold_the_stage_march(gw):
+    """Every stepper's build holds fused_stage.cu's stage-march tile (one
+    value per tapped array) to the mirror beside its pairs' tile: K5 for
+    the scalar system, K5' and K7 for the GW one."""
+    if gw:
+        st = _stepper(2, 2, torch.float32, None)
+    else:
+        st = pt.FusedScalarStepper(pt.ScalarSector(
+            2, potential=many_potential(2)), (8, 8, 8), 0.1, 2,
+            device="cpu")
+    assert st._march_sources() == [("fused_coupled_pair.cu", 2),
+                                   ("fused_pair.cu", 2),
+                                   ("fused_stage.cu", 1)]
+
+
 #: the most static shared memory a block may declare
 STATIC_SMEM_MAX = 48 * 1024
 
@@ -253,6 +327,40 @@ def test_smoke_phase_selection(monkeypatch, argv, env, want):
     got = smoke.selected_phases(argv)
     assert got == (set(smoke.PHASES) if want == "all" else want)
     assert "march_variants" not in set(smoke.PHASES)
+
+
+def test_smoke_stage_variants():
+    """march_variants times the stage march at run lengths 16, 32 and 64
+    (K5' and K7), and K5 at each with and without the next plane's loads a
+    step ahead; a variant's defines set both."""
+    smoke = _smoke()
+    assert smoke.STAGE_VARIANTS == (16, 32, 64)
+    assert set(smoke.SCALAR_STAGE_VARIANTS) == {
+        (lx, a) for lx in (16, 32, 64) for a in (0, 1)}
+    assert set(smoke.STAGE_MARCH_KERNELS) == {"preheat_stage_energy",
+                                              "preheat_stage"}
+    assert smoke.SCALAR_STAGE_MARCH_KERNELS == ("fused_stage_energy",)
+    assert smoke.stage_defines((32, 0)).split() == [
+        "#define", "PK_SCALAR_STAGE_MARCH_LX", "32", "#define",
+        "PK_SCALAR_STAGE_AHEAD", "0"]
+
+
+@pytest.mark.parametrize("name,gated", [
+    ("pk_stage_march_kernel<float, float, float, true, true, 0>", True),
+    ("pk_stage_march_kernel<float, float, float, false, true, 1>", True),
+    ("pk_stage_march_kernel<float, __nv_bfloat16, float, true, false, 3>",
+     True),
+    ("pk_fused_pair_kernel<float, float, 2>", True),
+    ("pk_fused_stage_kernel<float, float, 0>", False),
+    ("pk_reduce_partials_kernel<float>", False),
+], ids=["k5prime", "k7-xpad", "k5-bf16-fin-xypad", "k3", "k2", "finish"])
+def test_smoke_march_ptxas_rows(name, gated):
+    """The smoke's build gate reads the spills of every x-marching
+    instantiation -- K5', K7 and K5 (``pk_stage_march_kernel``), padded
+    ones included -- and not the per-site K2 or the sums' finish."""
+    smoke = _smoke()
+    rows = smoke.march_ptxas({"fused_stage": {name: {"registers": 90}}})
+    assert (name in rows) == gated
 
 
 def test_smoke_unknown_phase_exits_nonzero(monkeypatch, capsys):
