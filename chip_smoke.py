@@ -82,6 +82,7 @@ Without a CUDA device, or without the ``pystella_tpu_torch`` package beside
 it, it exits non-zero before printing any result.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -154,19 +155,39 @@ MG_BOX, MG_HALO, MG_OMEGA, MG_CYCLES = 10.0, 1, 2 / 3, 2
 MG_CONVERGED_TOL, MG_CYCLE_TOL = 5e-14, 1e-12
 #: the stencil radii whose operator kernels are built and checked
 FD_HALOS = (1, 2, 4)
-#: the spill bytes (stores, and as many loads) ptxas gives each float
-#: instantiation of fd_lap's march that spills at all, by demangled name and
-#: stencil radius, as an H100 build measured them: a few bytes in padded
-#: instantiations, which a register floor removed at a 10% cost (PERF.md).
-#: The build fails if one spills more or another starts to spill.
-FD_LAP_F32_SPILLS = {"pk_fd_lap_kernel<float, 3> (h=1)": 4,
-                     "pk_fd_lap_kernel<float, 3> (h=2)": 8,
-                     "pk_fd_lap_kernel<float, 2> (h=2)": 8,
-                     "pk_fd_lap_kernel<float, 3> (h=4)": 4,
-                     "pk_fd_lap_kernel<float, 2> (h=4)": 8}
+#: the spill bytes (the larger of stores and loads) ptxas gives each float
+#: instantiation of the register-queue marches (fd_lap, fd_grad_lap, K11)
+#: that spills at all, by demangled name and stencil radius or problem, as
+#: an H100 build measured them: a few bytes at 40-48 registers, mostly in
+#: padded instantiations; a register floor removed fd_lap's at a 10% cost
+#: (PERF.md). The build fails if one spills more or another starts to spill.
+QUEUE_MARCH_F32_SPILLS = {
+    "pk_fd_lap_kernel<float, 3> (h=1)": 4,
+    "pk_fd_lap_kernel<float, 3> (h=2)": 8,
+    "pk_fd_lap_kernel<float, 2> (h=2)": 8,
+    "pk_fd_lap_kernel<float, 3> (h=4)": 4,
+    "pk_fd_lap_kernel<float, 2> (h=4)": 8,
+    "pk_fd_grad_lap_kernel<float, 3> (h=1)": 12,
+    "pk_fd_grad_lap_kernel<float, 2> (h=1)": 12,
+    "pk_fd_grad_lap_kernel<float, 3> (h=4)": 4,
+    "mg_relax_march_kernel<float, 0, 2> (newton)": 4,
+    "mg_relax_march_kernel<float, 2, 2> (jacobi)": 8,
+    "mg_relax_march_kernel<float, 1, 2> (jacobi)": 8,
+    "mg_relax_march_kernel<float, 0, 3> (jacobi)": 20,
+    "mg_relax_march_kernel<float, 0, 2> (jacobi)": 28}
 FD_KERNELS = ("fd_lap", "fd_grad", "fd_grad_lap", "fd_pdx", "fd_pdy",
               "fd_pdz", "fd_div")
 MG_KERNELS = ("mg_smooth", "mg_residual", "mg_tau")
+#: the operators that march (pk_queue_march), and the defines of the build
+#: whose fd_lap and fd_grad_lap run per site: the marches are timed beside
+#: it and held to it bit for bit
+FD_MARCHED = ("lap", "grad_lap")
+FD_PER_SITE = "\n#define PK_FD_PER_SITE 1\n"
+#: the defines of K11 builds that run every launch per site (the site
+#: threshold past any level) and that march every launch, however small
+#: its region
+MG_PER_SITE = f"\n#define MG_MARCH_MIN_SITES {2**31 - 1}\n"
+MG_MARCH_ALL = "\n#define MG_MARCH_MIN_SITES 1\n"
 
 SUM_KERNELS = ("fused_stage_energy", "coupled_pair", "coupled_pair_deferred")
 #: the bf16-carry variants this run holds against their plain versions and
@@ -1183,6 +1204,46 @@ def coupled_main_path(phase, st, state, names, launches, trace=None,
     return state
 
 
+def fd_build(h, defines):
+    """fd_ops.cu's entry points at stencil radius ``h`` built with
+    ``defines`` after the generated header (from the build cache when the
+    build phase made them), bound as ``ops/derivs.py`` binds its own."""
+    from pystella_tpu_torch.ops import derivs, stencil
+    return derivs.bind_kernels(stencil.build_kernels(
+        ["fd_ops.cu"], derivs.kernel_header(h) + defines)["fd_ops.cu"])
+
+
+def mg_build(solver, defines):
+    """mg_relax.cu's entry points for ``solver``'s equations built with
+    ``defines`` (a site threshold last) after its generated header, the
+    tile held to ``mg_tile``."""
+    from pystella_tpu_torch.multigrid import relax
+    from pystella_tpu_torch.ops import stencil
+    lib = stencil.build_kernels(["mg_relax.cu"], solver.kernel_header()
+                                + defines)["mg_relax.cu"]
+    solver.check_tile(lib, min_sites=int(defines.split()[-1]))
+    return relax.bind_kernels(lib)
+
+
+@contextlib.contextmanager
+def swapped(fns, other, keys):
+    """Within, the entry points ``keys`` of the bound library ``fns`` (a
+    dict the launches read) are those of ``other``."""
+    keep = {k: fns[k] for k in keys}
+    fns.update({k: other[k] for k in keys})
+    try:
+        yield
+    finally:
+        fns.update(keep)
+
+
+def per_site_ms(fns, other, keys, run, reps):
+    """CUDA-event ms of ``run`` with the entry points ``keys`` of ``fns``
+    swapped for the per-site build ``other``'s."""
+    with swapped(fns, other, keys):
+        return cuda_ms(run, reps=reps, warmup=2)
+
+
 def ptxas_of(source, header):
     """Registers and spill bytes of the kernels of one built library."""
     from pystella_tpu_torch.ops import stencil
@@ -1204,11 +1265,14 @@ def fd_input(op, shape, dtype, seed, C=None):
 
 def fd_kernels_vs_plain(phase, cases, errs):
     """Each K12 operator's kernel vs its plain version at every (shape,
-    dtype, h) of ``cases``."""
+    dtype, h) of ``cases``; the marches (fd_lap, fd_grad_lap) also bit for
+    bit against the per-site build's, fd_lap against fd_grad_lap's
+    Laplacian, and fd_grad_lap's outputs against fd_grad's and fd_lap's."""
     import pystella_tpu_torch as pt
     from pystella_tpu_torch.ops import derivs
     for shape, dtype, h in cases:
         fd = pt.FiniteDifferencer(h, WAVE_BOX / shape[0])
+        fns, per_site = derivs.build_kernels(h), fd_build(h, FD_PER_SITE)
         tag = case_tag(shape, dtype) + ("" if h == HALO else f":h{h}")
         for seed, op in enumerate(derivs.OPS):
             x = fd_input(op, shape, dtype, 50 + seed)
@@ -1219,18 +1283,29 @@ def fd_kernels_vs_plain(phase, cases, errs):
             row = {"max_rel_err": max(r for r, _ in per_output),
                    "max_abs_err": max(a for _, a in per_output),
                    "tol": KERNEL_TOL[dtype]}
+            if op in FD_MARCHED:
+                with swapped(fns, per_site, [(op, dtype, 0)]):
+                    ref = fd.launch(op, x)
+                row["bitwise_per_site"] = all(
+                    torch.equal(a, b) for a, b in zip(outs, ref))
+                del ref
             if op == "lap":
-                # the march vs the per-site template's Laplacian
                 row["bitwise_grad_lap_lap"] = torch.equal(
                     outs[0], fd.launch("grad_lap", x)[1])
+            if op == "grad_lap":
+                row["bitwise_fd_grad"] = torch.equal(
+                    outs[0], fd.launch("grad", x)[0])
+                row["bitwise_fd_lap"] = torch.equal(
+                    outs[1], fd.launch("lap", x)[0])
             errs.setdefault("fd_" + op, {})[tag] = row
             emit({"phase": phase, "kernel": "fd_" + op, "shape": shape,
                   "dtype": str(dtype), "h": h, **row})
             if not (row["max_rel_err"] <= KERNEL_TOL[dtype]
-                    and row.get("bitwise_grad_lap_lap", True)):
+                    and all(v for k, v in row.items()
+                            if k.startswith("bitwise"))):
                 raise SystemExit(f"fd_{op} disagrees with its plain version "
-                                 f"or fd_grad_lap's Laplacian at {shape} "
-                                 f"{dtype} h={h}: {row}")
+                                 f"or an identity at {shape} {dtype} h={h}: "
+                                 f"{row}")
             del x, outs, plain
             torch.cuda.empty_cache()
 
@@ -1333,8 +1408,13 @@ def time_fd_kernels(phase, timing, errs):
 def time_fd_op(phase, fd, op, x, name, timing):
     """:func:`time_fd_kernels` for operator ``op`` on the input ``x``, its
     row under ``name``."""
+    from pystella_tpu_torch.ops import derivs
     sites = math.prod(GRID)
     ms = cuda_ms(lambda: fd.launch(op, x), reps=20, warmup=2)
+    # a march's per-site build beside it
+    per_site = {} if op not in FD_MARCHED else {"per_site_ms": per_site_ms(
+        derivs.build_kernels(fd.h), fd_build(fd.h, FD_PER_SITE),
+        [(op, x.dtype, 0)], lambda: fd.launch(op, x), 20)}
     torch.cuda.empty_cache()
     plain_ms = cuda_ms(lambda: fd.plain(op, x), reps=3)
     library = {"library_ms": None}
@@ -1364,7 +1444,7 @@ def time_fd_op(phase, fd, op, x, name, timing):
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": nbytes, "ops": ops, "share_of_bound": bound / ms,
-        **library}
+        **per_site, **library}
     emit({"phase": phase, "kernel": name, "shape": tuple(x.shape),
           "dtype": "torch.float32", "h": HALO, **timing[name]})
 
@@ -1539,10 +1619,10 @@ def mg_problem(kind):
              fld("f2"): (fld("lap_f2") - fld("f2"), fld("rho2"))}, 1 / 2)
 
 
-def mg_solver(kind, smoother=None, solver_cls=None):
+def mg_solver(kind, smoother=None, solver_cls=None, device="cuda"):
     cls, lhs, omega = mg_problem(kind)
     return (solver_cls or cls)(lhs, halo_shape=MG_HALO, omega=omega,
-                               smoother=smoother, device="cuda")
+                               smoother=smoother, device=device)
 
 
 def mg_arrays(solver, shape, dtype, seed):
@@ -1560,10 +1640,16 @@ def mg_arrays(solver, shape, dtype, seed):
 def mg_kernels_vs_plain(phase, cases, errs):
     """mg_smooth (1 and 3 sweeps), mg_residual and mg_tau vs the plain
     version, for the Newton problem (nf = 1) and the Jacobi pair (nf = 2),
-    at every (shape, dtype) of ``cases``."""
+    at every (shape, dtype) of ``cases``; and bit for bit, the launch of
+    the default build (the march on a region of
+    ``mg_tile``'s threshold, else per site), of a build that marches every
+    level and of one that runs every level per site against each other."""
     from pystella_tpu_torch.multigrid.relax import LevelSpec
     for kind in ("newton", "jacobi"):
         kernel, plain = mg_solver(kind), mg_solver(kind, "plain")
+        fns = kernel.build_kernels()
+        builds = {"march": mg_build(kernel, MG_MARCH_ALL),
+                  "per_site": mg_build(kernel, MG_PER_SITE)}
         for shape, dtype in cases:
             level = LevelSpec(tuple(shape), (MG_BOX / shape[0],) * 3)
             fs, rhos = mg_arrays(kernel, shape, dtype, 70)
@@ -1574,26 +1660,46 @@ def mg_kernels_vs_plain(phase, cases, errs):
                 "mg_residual": [lambda s: s.residual(level, fs, rhos, {})],
                 "mg_tau": [lambda s: s.tau_rhs(level, fs, rr, {})]}
             for name, calls in runs.items():
-                per_output = []
+                per_output, same = [], {"march": True, "per_site": True}
+                keys = [(name, dtype, 0)]
                 for call in calls:
                     got, ref = call(kernel), call(plain)
+                    for b, other in builds.items():
+                        with swapped(fns, other, keys):
+                            alt = call(kernel)
+                        same[b] = same[b] and all(
+                            torch.equal(got[n], alt[n]) for n in got)
+                        del alt
                     torch.cuda.synchronize()
                     per_output += [rel_err(got[n], ref[n]) for n in ref]
                     del got, ref
                 row = {"max_rel_err": max(r for r, _ in per_output),
                        "max_abs_err": max(a for _, a in per_output),
-                       "tol": KERNEL_TOL[dtype]}
+                       "tol": KERNEL_TOL[dtype],
+                       "marches": kernel_marches(kernel, shape, dtype),
+                       "bitwise_march_every_level": same["march"],
+                       "bitwise_per_site": same["per_site"]}
                 tag = case_tag(shape, dtype) + ":" + kind
                 errs.setdefault(name, {})[tag] = row
                 emit({"phase": phase, "kernel": name, "problem": kind,
                       "nf": len(fs), "shape": shape, "dtype": str(dtype),
                       **row})
-                if not row["max_rel_err"] <= KERNEL_TOL[dtype]:
+                if not (row["max_rel_err"] <= KERNEL_TOL[dtype]
+                        and same["march"] and same["per_site"]):
                     raise SystemExit(f"{name} ({kind}) disagrees with its "
-                                     f"plain version at {shape} {dtype}: "
+                                     f"plain version or the march with the "
+                                     f"per-site kernel at {shape} {dtype}: "
                                      f"{row}")
             del fs, rhos, rr
             torch.cuda.empty_cache()
+
+
+def kernel_marches(solver, shape, dtype):
+    """Whether ``solver``'s default build marches a launch over ``shape``
+    (``mg_tile``)."""
+    from pystella_tpu_torch.multigrid import relax
+    return relax.mg_tile(solver.halo_shape, dtype.itemsize,
+                         len(solver.f_to_rho_dict), shape) is not None
 
 
 def mg_ops_per_site(solver, name):
@@ -1620,6 +1726,7 @@ def time_mg_kernels(phase, timing):
     level = LevelSpec(GRID, (MG_BOX / GRID[0],) * 3)
     for kind in ("newton", "jacobi"):
         kernel, plain = mg_solver(kind), mg_solver(kind, "plain")
+        fns, per_site = kernel.build_kernels(), mg_build(kernel, MG_PER_SITE)
         fs, rhos = mg_arrays(kernel, GRID, torch.float32, 80)
         rr = {n: rhos[r] for n, r in kernel.f_to_rho_dict.items()}
         nf = len(fs)
@@ -1632,6 +1739,10 @@ def time_mg_kernels(phase, timing):
         for name, (call, nu) in calls.items():
             ms = cuda_ms(lambda: call(kernel, nu), reps=20 // nu,
                          warmup=1) / nu
+            # the per-site kernel beside the march
+            with swapped(fns, per_site, [(name, torch.float32, 0)]):
+                site_ms = cuda_ms(lambda: call(kernel, nu), reps=20 // nu,
+                                  warmup=1) / nu
             torch.cuda.empty_cache()
             plain_ms = cuda_ms(lambda: call(plain, 1), reps=3)
             nbytes = 3 * nf * sites * 4
@@ -1642,7 +1753,9 @@ def time_mg_kernels(phase, timing):
             row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                    "bound_by": "bytes" if bytes_ms >= ops_ms
                    else "operations", "bytes": nbytes, "ops": ops,
-                   "share_of_bound": bound / ms}
+                   "share_of_bound": bound / ms,
+                   "marches": kernel_marches(kernel, GRID, torch.float32),
+                   "per_site_ms": site_ms}
             timing[name if kind == "newton" else f"{name}:{kind}"] = row
             emit({"phase": phase, "kernel": name, "problem": kind, "nf": nf,
                   "shape": GRID, "dtype": "torch.float32", **row})
@@ -2010,7 +2123,9 @@ def time_sharded_mg_kernels(phase, timing, per_cycle):
     bound: the window at its padded storage extent, rho (or the restricted
     residual) and the output over the computed region, each once, over the
     HBM rate, against the operations over the f32 peak. ``per_cycle``: the
-    launches of one V-cycle on its main path."""
+    launches of one V-cycle on its main path. The per-site kernel beside
+    each."""
+    from pystella_tpu_torch.ops.derivs import PAD_KINDS
     h = MG_HALO
     for seed, name in enumerate(sharded_mg_kernel_names()):
         kind, launch = name.split(":")
@@ -2030,9 +2145,14 @@ def time_sharded_mg_kernels(phase, timing, per_cycle):
         else:
             wins, x0 = [mg_padded_window(f, hx, hy) for f in fs], 0
         outs = [torch.empty_like(f) for f in fs]
-        ms = cuda_ms(lambda: solver.launch_block(
-            kind, level, wins, rhos[kind], {}, outs, launch, x0), reps=20,
-            warmup=2)
+
+        def run():
+            return solver.launch_block(kind, level, wins, rhos[kind], {},
+                                       outs, launch, x0)
+        ms = cuda_ms(run, reps=20, warmup=2)
+        site_ms = per_site_ms(
+            solver.build_kernels(), mg_build(solver, MG_PER_SITE),
+            [(f"mg_{kind}", torch.float32, PAD_KINDS[launch])], run, 20)
         rows = {"interior": X - 2 * h, "shell": h}.get(launch, X)
         plain_ms = cuda_ms(lambda: solver.plain(
             kind, level, wins, [r[x0:x0 + rows] for r in rhos[kind]], {},
@@ -2048,6 +2168,9 @@ def time_sharded_mg_kernels(phase, timing, per_cycle):
                         "bound_by": "bytes" if bytes_ms >= ops_ms
                         else "operations", "bytes": nbytes, "ops": ops,
                         "share_of_bound": bound / ms, "region_rows": rows,
+                        "marches": kernel_marches(
+                            solver, (rows,) + shape[1:], torch.float32),
+                        "per_site_ms": site_ms,
                         "launches_per_cycle": per_cycle.get(name, 0)}
         emit({"phase": phase, "kernel": name, "block": shape,
               "dtype": "torch.float32", **timing[name]})
@@ -2342,14 +2465,15 @@ def march_ptxas(report):
     ``pk_coupled_pair_kernel``, K8 ``pk_preheat_pair_kernel``, K9
     ``pk_preheat_coupled_pair_kernel``, K10
     ``pk_fused_chunk_march_kernel``, K5', K7 and K5
-    ``pk_stage_march_kernel``, fd_lap ``pk_fd_lap_kernel``), with their
+    ``pk_stage_march_kernel``, fd_lap ``pk_fd_lap_kernel``, fd_grad_lap
+    ``pk_fd_grad_lap_kernel``, K11 ``mg_relax_march_kernel``), with their
     registers and spill bytes."""
     rows = {}
     for usage in report.values():
         for name, u in usage.items():
-            m = re.search(r"(pk_(?:(?:fused_|coupled_|preheat_|"
+            m = re.search(r"((?:pk_(?:(?:fused_|coupled_|preheat_|"
                           r"preheat_coupled_)pair|fused_chunk_march|"
-                          r"stage_march|fd_lap)"
+                          r"stage_march|fd_lap|fd_grad_lap)|mg_relax_march)"
                           r"_kernel<[^<>]*>)", name)
             if m:
                 rows[m.group(1)] = u
@@ -2406,13 +2530,45 @@ def fd_lap_defines(lx):
     return f"\n#define PK_FD_LAP_LX {lx}\n"
 
 
+#: the variants of K11's and fd_grad_lap's marches: run length and whether
+#: the next plane's loads go a step ahead (MG_MARCH_LX, MG_MARCH_AHEAD;
+#: PK_FD_GRAD_LAP_LX, PK_FD_GRAD_LAP_AHEAD); each family is also timed
+#: with the per-site kernel ("per_site")
+QUEUE_VARIANTS = tuple((lx, ahead) for ahead in (1, 0)
+                       for lx in STAGE_VARIANTS)
+#: the multigrid path's levels on which K11's march (a build that marches
+#: every level) and the per-site kernel are timed against each other: where
+#: the per-site kernel wins, the site threshold (MG_MARCH_MIN_SITES) keeps it
+MG_LEVELS = (GRID, (256,) * 3, (128,) * 3, (64,) * 3, (32,) * 3)
+MG_VARIANT_SWEEPS = 10
+
+
+def mg_defines(variant):
+    """The defines of a K11 variant ``(lx, ahead)`` or ``"per_site"``."""
+    if variant == "per_site":
+        return MG_PER_SITE
+    lx, ahead = variant
+    return f"\n#define MG_MARCH_LX {lx}\n#define MG_MARCH_AHEAD {ahead}\n"
+
+
+def fd_grad_lap_defines(variant):
+    """The defines of an fd_grad_lap variant ``(lx, ahead)`` or
+    ``"per_site"``."""
+    if variant == "per_site":
+        return FD_PER_SITE
+    lx, ahead = variant
+    return (f"\n#define PK_FD_GRAD_LAP_LX {lx}\n"
+            f"#define PK_FD_GRAD_LAP_AHEAD {ahead}\n")
+
+
 def march_variants(phase, sector, gw_sector, dx):
     """The x-marching kernels at 512^3 f32, with f32 and with bf16
     carries: K3 and K6 deferred, and K8 and K9 deferred, through each run
     length of MARCH_VARIANTS; K10 through each run length and first-rung
     rows of CHUNK_VARIANTS; K5' and K7 through each run length of
-    STAGE_VARIANTS, and K5 through each of SCALAR_STAGE_VARIANTS (fd_lap:
-    :func:`fd_lap_variants`). Each variant is
+    STAGE_VARIANTS, and K5 through each of SCALAR_STAGE_VARIANTS (fd_lap,
+    fd_grad_lap and K11: :func:`fd_lap_variants`,
+    :func:`fd_grad_lap_variants`, :func:`mg_variants`). Each variant is
     built from the same sources into libraries of its own (the model
     header with the variant's
     defines: one nvcc a source and variant, all of a family at once), its
@@ -2477,6 +2633,178 @@ def march_variants(phase, sector, gw_sector, dx):
              SCALAR_STAGE_MARCH_KERNELS, pair_family(0, values=1))):
         march_family(f"{phase}_{label}", make, kernels, *family)
     fd_lap_variants(f"{phase}_fd_lap")
+    fd_grad_lap_variants(f"{phase}_fd_grad_lap")
+    mg_variants(f"{phase}_mg")
+
+
+def variant_row(label, rounds, equal):
+    """A variant's row of a family's timing: its mean ms over the rounds,
+    each round's ms, and whether its outputs equalled the default
+    build's."""
+    return {**label, "ms": sum(rounds) / len(rounds), "ms_rounds": rounds,
+            "equal_to_default": equal}
+
+
+def queue_label(v):
+    return {"per_site": True} if v == "per_site" else {"lx": v[0],
+                                                       "ahead": v[1]}
+
+
+def fd_grad_lap_variants(phase):
+    """fd_grad_lap at h = 2 on (2, 512^3) f32 through each variant of
+    QUEUE_VARIANTS and the per-site build: each built from the same source
+    into a library of its own (one nvcc a variant, all at once), its tile
+    held to ops/derivs.py:grad_lap_tile, its registers and spills from
+    ptxas, its outputs the default build's bit for bit; then the variants
+    timed in turns (MARCH_ROUNDS rounds of MARCH_REPS launches each) on
+    one input."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import derivs
+    from pystella_tpu_torch.ops import stencil
+    header = derivs.kernel_header(HALO)
+    variants = QUEUE_VARIANTS + ("per_site",)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(variants)) as pool:
+        libs = list(pool.map(lambda v: stencil.build_kernels(
+            ["fd_ops.cu"], header + fd_grad_lap_defines(v))["fd_ops.cu"],
+            variants))
+    build_s = time.perf_counter() - t0
+    builds = {}
+    for v, lib in zip(variants, libs):
+        got = derivs.reported_grad_lap_tile(lib.pk_fd_grad_lap_tile,
+                                            torch.float32)
+        want = (derivs.grad_lap_tile(HALO, 4) if v == "per_site" else
+                derivs.grad_lap_tile(HALO, 4, lx=v[0], ahead=v[1]))
+        if v == "per_site":
+            want = (0,) + want[1:]
+        builds[v] = {"fns": derivs.bind_kernels(lib), "tile": got,
+                     "ptxas": march_ptxas({"fd_ops": demangled(
+                         stencil.ptxas_usage(stencil.build_log(
+                             "fd_ops.cu", header
+                             + fd_grad_lap_defines(v))))})}
+        if got != want:
+            raise SystemExit(f"fd_grad_lap variant {v}: the library's tile "
+                             f"{got}, the mirror's {want}")
+    emit({"phase": phase + "_build", "seconds": build_s,
+          "variants": [{**queue_label(v), "tile": b["tile"],
+                        "ptxas": b["ptxas"]} for v, b in builds.items()]})
+    fd = pt.FiniteDifferencer(HALO, WAVE_BOX / GRID[0])
+    fns = derivs.build_kernels(HALO)
+    keys = [("grad_lap", torch.float32, 0)]
+    x = fd_input("grad_lap", GRID, torch.float32, 74)
+    ref = [t.clone() for t in fd.launch("grad_lap", x)]
+    equal, rounds = {}, {v: [] for v in builds}
+    for v, b in builds.items():
+        with swapped(fns, b["fns"], keys):
+            equal[v] = all(torch.equal(a, r) for a, r in zip(
+                fd.launch("grad_lap", x), ref))
+    for _ in range(MARCH_ROUNDS):
+        for v, b in builds.items():
+            with swapped(fns, b["fns"], keys):
+                rounds[v].append(cuda_ms(lambda: fd.launch("grad_lap", x),
+                                         reps=MARCH_REPS, warmup=1))
+    emit({"phase": phase, "kernel": "fd_grad_lap", "shape": tuple(x.shape),
+          "dtype": "torch.float32", "h": HALO,
+          "bound_ms": 5 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+          "variants": [variant_row(queue_label(v), r, equal[v])
+                       for v, r in rounds.items()]})
+    if not all(equal.values()):
+        raise SystemExit(f"fd_grad_lap: a march variant's output differs "
+                         f"from the default build's: {equal}")
+    del x, ref
+    torch.cuda.empty_cache()
+
+
+def mg_variants(phase):
+    """K11's sweep (mg_smooth) of the Newton problem (nf = 1) and of the
+    Jacobi pair (nf = 2) at 512^3 f32 through each variant of
+    QUEUE_VARIANTS and the per-site build: each built into a library of
+    its own (one nvcc a variant and problem, all at once), its tile held
+    to multigrid/relax.py:mg_tile, its registers and spills from ptxas, its
+    outputs the default build's bit for bit; then the variants timed in
+    turns (MARCH_ROUNDS rounds of MG_VARIANT_SWEEPS sweeps). Then, on every
+    level of MG_LEVELS, the Newton sweep of a build that marches every
+    level against the per-site build's, in turns."""
+    from pystella_tpu_torch.multigrid import relax
+    from pystella_tpu_torch.multigrid.relax import LevelSpec
+    from pystella_tpu_torch.ops import stencil
+    variants = QUEUE_VARIANTS + ("per_site",)
+    solvers = {k: mg_solver(k) for k in ("newton", "jacobi")}
+    jobs = [(k, v) for k in solvers for v in variants]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = list(pool.map(lambda j: stencil.build_kernels(
+            ["mg_relax.cu"], solvers[j[0]].kernel_header()
+            + mg_defines(j[1]))["mg_relax.cu"], jobs))
+    build_s = time.perf_counter() - t0
+    builds = {}
+    for (k, v), lib in zip(jobs, libs):
+        solver = solvers[k]
+        if v == "per_site":
+            solver.check_tile(lib, min_sites=int(MG_PER_SITE.split()[-1]))
+        else:
+            solver.check_tile(lib, lx=v[0], ahead=v[1])
+        builds[k, v] = {
+            "fns": relax.bind_kernels(lib),
+            "tile": relax.reported_mg_tile(lib.pk_mg_tile, torch.float32),
+            "ptxas": march_ptxas({"mg_relax": demangled(stencil.ptxas_usage(
+                stencil.build_log("mg_relax.cu", solver.kernel_header()
+                                  + mg_defines(v))))})}
+    emit({"phase": phase + "_build", "seconds": build_s,
+          "variants": [{"problem": k, **queue_label(v), "tile": b["tile"],
+                        "ptxas": b["ptxas"]} for (k, v), b in builds.items()]})
+    keys = [("mg_smooth", torch.float32, 0)]
+    nu = MG_VARIANT_SWEEPS
+    for k, solver in solvers.items():
+        level = LevelSpec(GRID, (MG_BOX / GRID[0],) * 3)
+        fs, rhos = mg_arrays(solver, GRID, torch.float32, 95)
+        fns = solver.build_kernels()
+        ref = solver.smooth(level, fs, rhos, {}, 1)
+        equal, rounds = {}, {v: [] for v in variants}
+        for v in variants:
+            with swapped(fns, builds[k, v]["fns"], keys):
+                got = solver.smooth(level, fs, rhos, {}, 1)
+            equal[v] = all(torch.equal(got[n], ref[n]) for n in ref)
+            del got
+        for _ in range(MARCH_ROUNDS):
+            for v in variants:
+                with swapped(fns, builds[k, v]["fns"], keys):
+                    rounds[v].append(cuda_ms(
+                        lambda: solver.smooth(level, fs, rhos, {}, nu),
+                        reps=1, warmup=1) / nu)
+        emit({"phase": phase, "kernel": "mg_smooth", "problem": k,
+              "nf": len(fs), "shape": GRID, "dtype": "torch.float32",
+              "bound_ms": 3 * len(fs) * math.prod(GRID) * 4
+              / HBM_BYTES_PER_S * 1e3,
+              "variants": [variant_row(queue_label(v), r, equal[v])
+                           for v, r in rounds.items()]})
+        if not all(equal.values()):
+            raise SystemExit(f"mg_smooth ({k}): a march variant's outputs "
+                             f"differ from the default build's: {equal}")
+        del fs, rhos, ref
+        torch.cuda.empty_cache()
+    solver = solvers["newton"]
+    fns = solver.build_kernels()
+    pair = {"march": mg_build(solver, MG_MARCH_ALL),
+            "per_site": mg_build(solver, MG_PER_SITE)}
+    for shape in MG_LEVELS:
+        level = LevelSpec(shape, (MG_BOX / shape[0],) * 3)
+        fs, rhos = mg_arrays(solver, shape, torch.float32, 96)
+        rounds = {b: [] for b in pair}
+        for _ in range(MARCH_ROUNDS):
+            for b, other in pair.items():
+                with swapped(fns, other, keys):
+                    rounds[b].append(cuda_ms(
+                        lambda: solver.smooth(level, fs, rhos, {}, nu),
+                        reps=1, warmup=1) / nu)
+        emit({"phase": phase + "_levels", "kernel": "mg_smooth",
+              "problem": "newton", "shape": shape,
+              "marches_by_default": kernel_marches(solver, shape,
+                                                   torch.float32),
+              **{f"{b}_ms": sum(r) / len(r) for b, r in rounds.items()},
+              **{f"{b}_ms_rounds": r for b, r in rounds.items()}})
+        del fs, rhos
+        torch.cuda.empty_cache()
 
 
 def fd_lap_variants(phase):
@@ -2941,6 +3269,12 @@ def time_sharded_kernels(phase, timing, sharded):
         outs = case.outs()
         ms = cuda_ms(lambda: case.run(kind, ins, outs, x0), reps=20,
                      warmup=2)
+        per_site = {}
+        if case.fd and case.op in FD_MARCHED:
+            per_site["per_site_ms"] = per_site_ms(
+                derivs.build_kernels(h), fd_build(h, FD_PER_SITE),
+                [(case.op, torch.float32, bits)],
+                lambda: case.run(kind, ins, outs, x0), 20)
         rows = {"interior": X - 2 * h, "shell": h}.get(kind)
         plain_ms = cuda_ms(lambda: case.plain(ins, pad, x0, rows),
                            reps=2 if kernel.startswith("preheat") else 3)
@@ -2952,7 +3286,7 @@ def time_sharded_kernels(phase, timing, sharded):
                         "bound_by": "bytes" if bytes_ms >= ops_ms
                         else "operations", "bytes": nbytes, "ops": ops,
                         "share_of_bound": bound / ms,
-                        "region_rows": rows or X}
+                        "region_rows": rows or X, **per_site}
         emit({"phase": phase, "kernel": name, "block": shape,
               "dtype": "torch.float32", **timing[name]})
         del case, ins, outs
@@ -3509,8 +3843,10 @@ PHASE_DEPS = {"sharded_mg": ("mg",), "sharded": ("scalar",),
               "sharded_coupled": ("scalar",), "sharded_gw": ("gw",),
               "sharded_bf16": ("scalar", "gw")}
 #: phases a run takes only when selected: march_variants builds the x-march
-#: variants of K3 and K6, of K8 and K9, of K10, of K5' and K7, of K5 and of
-#: fd_lap into libraries of their own and times them
+#: variants of K3 and K6, of K8 and K9, of K10, of K5' and K7, of K5, of
+#: fd_lap, of fd_grad_lap and of K11 into libraries of their own and times
+#: them (fd_grad_lap and K11 beside their per-site builds, K11 also on the
+#: multigrid path's levels)
 OPT_IN_PHASES = ("march_variants",)
 PHASE_HELP = {
     "scalar": "the scalar system: kernels vs plain, identities, references, "
@@ -3528,9 +3864,10 @@ PHASE_HELP = {
     "sharded_gw": "the sharded GW multi_step and coupled driver",
     "sharded_bf16": "the sharded bf16-carry launches and paths",
     "march_variants": "the x-march tile variants of K3 and K6 deferred, "
-                      "of K8 and K9 deferred, of K10, of K5' and K7, of K5 "
-                      "and of fd_lap, built apart and timed against each "
-                      "other"}
+                      "of K8 and K9 deferred, of K10, of K5' and K7, of K5, "
+                      "of fd_lap, of fd_grad_lap and of K11, built apart "
+                      "and timed against each other (fd_grad_lap and K11 "
+                      "beside their per-site builds, K11 on each level)"}
 
 
 def selected_phases(argv):
@@ -3602,8 +3939,22 @@ def main(argv=None):
     #       solvers' (one a set of equations), each source its own nvcc
     from pystella_tpu_torch.multigrid import relax as trelax
     from pystella_tpu_torch.ops import derivs as tderivs
+    from pystella_tpu_torch.ops import stencil as tstencil
+    # the per-site builds beside the marches (fd_lap and fd_grad_lap; K11
+    # on every level) and K11's build that marches every level, each its
+    # own nvcc beside the others
+    variant_builds = {
+        f"fd_ops.cu (h={h}, per site)": (
+            ["fd_ops.cu"], tderivs.kernel_header(h) + FD_PER_SITE)
+        for h in FD_HALOS}
+    variant_builds.update({
+        f"mg_relax.cu ({k}, {label})": (
+            ["mg_relax.cu"], mg_solver(k, device="cpu").kernel_header() + d)
+        for k in ("newton", "jacobi")
+        for label, d in (("per site", MG_PER_SITE),
+                         ("march every level", MG_MARCH_ALL))})
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(8) as pool:
+    with ThreadPoolExecutor(16) as pool:
         # no future outlives this line: a future would keep its stepper,
         # and so its buffers, alive after the stepper is deleted
         chunk_st, nonpoly_st, gwb_st, gw_st, newton, jacobi, *_ = [
@@ -3623,7 +3974,9 @@ def main(argv=None):
                         HALO, dtype=torch.float32, device="cuda"),
             pool.submit(mg_solver, "newton"),
             pool.submit(mg_solver, "jacobi"),
-            *(pool.submit(tderivs.build_kernels, h) for h in FD_HALOS)]]
+            *(pool.submit(tderivs.build_kernels, h) for h in FD_HALOS),
+            *(pool.submit(tstencil.build_kernels, *b)
+              for b in variant_builds.values())]]
     build_s = time.perf_counter() - t0
     main_st = pt.FusedScalarStepper(sector, GRID, dx, HALO,
                                     dtype=torch.float32, device="cuda")
@@ -3645,6 +3998,8 @@ def main(argv=None):
     for label, solver in (("newton", newton), ("jacobi", jacobi)):
         source_s[f"mg_relax.cu ({label})"] = pt.ops.stencil.build_seconds(
             "mg_relax.cu", solver.kernel_header())
+    for label, ((src,), header) in variant_builds.items():
+        source_s[label] = pt.ops.stencil.build_seconds(src, header)
     ptxas = ptxas_report(chunk_st, gw_st)
     emit({"phase": "build", "seconds": build_s,
           "sources": sorted({src for src, _ in tfused.KERNELS.values()}
@@ -3674,16 +4029,26 @@ def main(argv=None):
     # held it to the host mirror), and each instantiation's registers and
     # spills; none of the float ones may spill
     march_rows = march_ptxas(ptxas)
-    # fd_lap's march: its float instantiations may spill no more than
-    # FD_LAP_F32_SPILLS allows
-    fd_lap_rows = {f"{k} (h={h})": u for h in FD_HALOS
+    # the register-queue marches (fd_lap, fd_grad_lap, K11): their float
+    # instantiations may spill no more than QUEUE_MARCH_F32_SPILLS allows
+    queue_rows = {f"{k} (h={h})": u for h in FD_HALOS
                    for k, u in march_ptxas({"fd_ops": demangled(ptxas_of(
                        "fd_ops.cu", tderivs.kernel_header(h)))}).items()}
+    queue_rows.update({
+        f"{k} ({label})": u for label, solver in (("newton", newton),
+                                                  ("jacobi", jacobi))
+        for k, u in march_ptxas({"mg_relax": demangled(ptxas_of(
+            "mg_relax.cu", solver.kernel_header()))}).items()})
     f32_spills = [n for n, u in march_rows.items() if "<float," in n
                   and (u.get("spill_stores") or u.get("spill_loads"))]
-    f32_spills += [n for n, u in fd_lap_rows.items() if "<float," in n
+    f32_spills += [n for n, u in queue_rows.items() if "<float," in n
                    and max(u.get("spill_stores", 0), u.get("spill_loads", 0))
-                   > FD_LAP_F32_SPILLS.get(n, 0)]
+                   > QUEUE_MARCH_F32_SPILLS.get(n, 0)]
+    mg_tiles = {label: {str(d): trelax.reported_mg_tile(
+        tstencil.build_kernels(["mg_relax.cu"], solver.kernel_header())[
+            "mg_relax.cu"].pk_mg_tile, d)
+        for d in (torch.float32, torch.float64)}
+        for label, solver in (("newton", newton), ("jacobi", jacobi))}
     emit({"phase": "build_march_ptxas",
           "tiles": {**{f"{src} ({label})": {
               str(d): st.march_kernel_tile(d, src)
@@ -3692,15 +4057,19 @@ def main(argv=None):
               for src, _ in st._march_sources()},
               "fused_chunk.cu (scalar)": tiles,
               **{f"fd_ops.cu (h={h})": {
-                  str(d): tderivs.lap_kernel_tile(h, d)
+                  str(d): {"lap": tderivs.lap_kernel_tile(h, d),
+                           "grad_lap": tderivs.reported_grad_lap_tile(
+                               tderivs.build_kernels(h)["grad_lap_tile"], d)}
                   for d in (torch.float32, torch.float64)}
-                 for h in FD_HALOS}},
+                 for h in FD_HALOS},
+              **{f"mg_relax.cu ({k})": t for k, t in mg_tiles.items()}},
           "kernels": march_rows, "f32_spills": f32_spills,
-          "fd_lap_kernels": fd_lap_rows,
-          "fd_lap_f32_spill_bytes_allowed": FD_LAP_F32_SPILLS})
+          "queue_march_kernels": queue_rows,
+          "queue_march_f32_spill_bytes_allowed": QUEUE_MARCH_F32_SPILLS})
     if f32_spills:
-        raise SystemExit(f"float x-march instantiations spill (fd_lap: "
-                         f"beyond FD_LAP_F32_SPILLS): {f32_spills}")
+        raise SystemExit(f"float x-march instantiations spill (fd_lap, "
+                         f"fd_grad_lap, K11: beyond QUEUE_MARCH_F32_SPILLS): "
+                         f"{f32_spills}")
     del nonpoly_st, gwb_st
     if main_st.kernel_names() != scalar_kernels:
         raise SystemExit("the main model did not build every kernel")
@@ -4244,7 +4613,10 @@ def main(argv=None):
             "parity": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t.get("library_ms")})
+            "library_ms": t.get("library_ms"),
+            # a march's per-site build, timed beside it
+            **({"per_site_ms": t["per_site_ms"]} if "per_site_ms" in t
+               else {})})
     # a subset run holds to it the kernels its selected main paths launch
     never = [k["name"] for k in kernels if k["launches"] < 1
              and (full or k["name"] in launches)]

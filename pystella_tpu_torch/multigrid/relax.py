@@ -12,7 +12,9 @@ is ``diff(lhs, f) + diff(lhs, lap_f) * lap_diag`` where
 
 On a CUDA device a sweep, a residual and a FAS coarse right-hand side are
 each one launch of a hand-written kernel (``ops/csrc/mg_relax.cu``, K11:
-the JAX package's ``RelaxationBase._pallas_level`` body), compiled against
+the JAX package's ``RelaxationBase._pallas_level`` body; an x-march of a
+shared-memory y-z tile, or one thread a site on the small levels:
+:func:`mg_tile`), compiled against
 a header that :func:`~pystella_tpu_torch.ops.codegen.relax_header` prints
 from the solver's expression trees; ``smooth(nu)`` is ``nu`` launches that
 ping-pong two sets of arrays, with no host sync between them. The kernel
@@ -111,6 +113,62 @@ AUTO_OVERLAP_MIN_SITES = 2**24
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 #: the entry point of each padding (interior and shell: the x-padded one)
 _PAD_SUFFIX = {1: "_xpad", 2: "_ypad", 3: "_xypad"}
+
+#: the sweeps' x-march (mg_relax.cu: MgTile, MG_MARCH_LX, MG_MARCH_AHEAD,
+#: MG_MARCH_MIN_SITES): the x planes a block covers, whether its next
+#: plane's loads go a step ahead, and the fewest sites of a region on which
+#: a launch marches (a smaller one -- a level of 128^3 or less, a shell --
+#: runs the per-site kernel, faster there on an H100)
+MG_LX = 32
+MG_AHEAD = 1
+MG_MIN_SITES = 2**22
+#: the most static shared memory a block may declare
+_STATIC_SMEM = 48 * 1024
+
+
+def mg_tile(h, itemsize, nf, shape=None, lx=None):
+    """The sweeps' x-march tile at stencil radius ``h`` for ``nf``
+    unknowns of ``itemsize`` bytes: ``(lx, bytes)`` -- the x planes a block
+    marches and its static shared memory, one 32 x 8 tile's centre plane
+    with its y-z halo per unknown, ``nf (8 + 2h) (32 + 2h)`` elements (the
+    +-x taps live in registers) -- or None where those planes do not fit
+    the 48 KB a block may declare statically, or where a launch over a
+    region of ``shape`` ``(X, Y, Z)`` runs the per-site kernel instead
+    (fewer than :data:`MG_MIN_SITES` sites). ``lx`` defaults to the
+    source's constant."""
+    nbytes = nf * (8 + 2 * h) * (32 + 2 * h) * itemsize
+    if nbytes > _STATIC_SMEM or (
+            shape is not None and math.prod(shape) < MG_MIN_SITES):
+        return None
+    return (MG_LX if lx is None else lx), nbytes
+
+
+def reported_mg_tile(query, dtype):
+    """What a library's ``pk_mg_tile`` entry point ``query`` reports for
+    working type ``dtype``: ``(lx, bytes, min_sites, ahead)``, bytes 0
+    where the per-site kernel runs every launch."""
+    query.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    query.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    query(int(dtype == torch.float64), out)
+    return tuple(out)
+
+
+def bind_kernels(lib):
+    """The sweep entry points of a loaded mg_relax library, typed:
+    ``{(kernel name, dtype, padding bits): C function}``."""
+    fns = {}
+    # f, rho, aux, out pointer arrays, X, Y, Z, params, [Yw], stream
+    base = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    for name in KERNELS:
+        for dtype, suffix in _SUFFIX.items():
+            for bits, psuffix in [(0, "")] + list(_PAD_SUFFIX.items()):
+                fn = getattr(lib, f"{name}_{suffix}{psuffix}")
+                fn.argtypes = base + ([ctypes.c_int] if bits else []) + [
+                    ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                fns[name, dtype, bits] = fn
+    return fns
 
 
 def reset_launch_counts():
@@ -352,23 +410,28 @@ class RelaxationBase:
         if fns is None:
             lib = _stencil.build_kernels(
                 [_SOURCE], self.kernel_header(aux_struct))[_SOURCE]
-            fns = {}
-            # f, rho, aux, out pointer arrays, X, Y, Z, params, [Yw],
-            # stream
-            base = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-                ctypes.c_void_p]
-            for name in KERNELS:
-                for dtype, suffix in _SUFFIX.items():
-                    for bits, psuffix in [(0, "")] + list(
-                            _PAD_SUFFIX.items()):
-                        fn = getattr(lib, f"{name}_{suffix}{psuffix}")
-                        fn.argtypes = base + (
-                            [ctypes.c_int] if bits else []) + [
-                            ctypes.c_void_p]
-                        fn.restype = ctypes.c_int
-                        fns[name, dtype, bits] = fn
-            self._libs[aux_struct] = fns
+            self.check_tile(lib)
+            fns = self._libs[aux_struct] = bind_kernels(lib)
         return fns
+
+    def check_tile(self, lib, lx=None, ahead=None, min_sites=None):
+        """Raise unless the march tile a built library reports
+        (``pk_mg_tile``) is the one :func:`mg_tile` predicts for these
+        equations in both dtypes (at run length ``lx``, look-ahead
+        ``ahead`` and site threshold ``min_sites`` when given; the
+        source's constants by default)."""
+        nf = len(self.f_to_rho_dict)
+        for dtype in _SUFFIX:
+            tile = mg_tile(self.halo_shape, dtype.itemsize, nf, lx=lx)
+            want = (MG_LX if lx is None else lx,
+                    tile[1] if tile else 0,
+                    MG_MIN_SITES if min_sites is None else min_sites,
+                    MG_AHEAD if ahead is None else ahead)
+            got = reported_mg_tile(lib.pk_mg_tile, dtype)
+            if got != want:
+                raise RuntimeError(
+                    f"mg_relax.cu instantiates the march tile {got} for "
+                    f"{dtype}; multigrid/relax.py:mg_tile predicts {want}")
 
     def _launcher(self, kind, level, ref, aux_scal, struct, hz=None):
         """``bind(wins, rhos, auxs, outs, pad=None, x0=0)``: a call of no

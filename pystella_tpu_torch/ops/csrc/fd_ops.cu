@@ -25,7 +25,7 @@
 // Bound: memory. Each input component-array is read once and each output
 // written once (lap 2C, grad 4C, grad_lap 5C, pd 2C, div 4n arrays of
 // sites * sizeof(T) bytes) against 3 + 9h (lap) or 9h (grad) operations a
-// site and component. Design of all but lap: one thread per site, z
+// site and component. Design of grad, pd* and div: one thread per site, z
 // fastest, so the centre loads and every store are coalesced; the 6h
 // neighbour taps are re-read through L1/L2; periodic wrap by index
 // arithmetic on all three axes, so any lattice shape runs; the components
@@ -35,23 +35,24 @@
 // -fmad=false: no multiply-add is contracted where the plain PyTorch
 // version rounds twice.
 //
-// lap marches instead (pk_fd_lap_kernel): the TPU builder's x ring
-// (StreamingStencil._build, pystella_tpu/ops/pallas_stencil.py:709, the
-// ring :719-742) carried to a block, as the fused kernels' pk_march carries
-// it. A block of 32 (z) x 8 (y) threads owns one y-z tile of one component
-// and walks it along x over a run of PK_FD_LAP_LX planes. The centre plane
-// with its y-z halo sits in static shared memory (the y and z taps, under
-// 5 KB at f64 and h = 4); the +-x taps of a thread's own column come from
-// a queue of 2h+1 values in its registers (a ring of 2h+1 shared planes,
-// as pk_march keeps, ran 16-19% slower on an H100: PERF.md). Every input
-// element is read from device memory about once (the y-z halo, mostly from
-// L2, aside), and pk_lap runs over the planes in box coordinates
-// (PK_BOX): lap_from_taps' order, so the
-// march equals the per-site arithmetic bit for bit. Periodic wrap, or a
-// padded window's rows, is resolved where a plane, row or column is
-// loaded, so any shape still runs (a run shorter than the tile's, 2^3,
-// the shells' (C, 3h, Y, Z) windows). ops/derivs.py:lap_tile mirrors the
-// tile; pk_fd_lap_tile reports it.
+// lap and grad_lap march instead (pk_fd_lap_kernel, pk_fd_grad_lap_kernel):
+// the TPU builder's x ring (StreamingStencil._build,
+// pystella_tpu/ops/pallas_stencil.py:709) carried to a block. A block owns
+// one y-z tile of one component and walks it along x over a run of
+// PK_FD_LAP_LX (PK_FD_GRAD_LAP_LX) planes, the centre plane with its y-z
+// halo in static shared memory (under 5 KB at f64 and h = 4), the +-x taps
+// in a queue of 2h+1 values in each thread's registers, the next plane's
+// loads a step ahead (grad_lap: with PK_FD_GRAD_LAP_AHEAD). grad_lap runs
+// pk_queue_march of pk_common.cuh, the march K11 shares; lap keeps its own
+// loop of the same design, since the shared template changed its
+// registers and spills on an H100 (PERF.md). pk_lap and pk_grad run over
+// the planes in box coordinates, so each march equals the per-site
+// arithmetic bit for bit, and grad_lap's outputs equal grad's and lap's.
+// Components go in grid-sized groups. ops/derivs.py:lap_tile and
+// grad_lap_tile mirror the tiles; pk_fd_lap_tile and pk_fd_grad_lap_tile
+// report them.
+// PK_FD_PER_SITE 1 builds both per site, as pk_fd_kernel runs the other
+// operators: the yardstick the smoke times them against.
 //
 // The sharded tier (the _xpad, _ypad, _xypad entry points) replaces the
 // halo-input kernel StreamingStencil._build_xhalo
@@ -100,29 +101,29 @@ __device__ __forceinline__ T pk_pd(const Load& load, int x, int y, int z,
   return acc;
 }
 
-// x planes a run of the Laplacian's march: the fastest variant of
-// chip_smoke.py --phases march_variants on an H100
+// x planes a run of the Laplacian's march and of grad_lap's, and whether
+// grad_lap's loads go a step ahead (fd_lap's always do): the fastest
+// variants of chip_smoke.py --phases march_variants on an H100
 #ifndef PK_FD_LAP_LX
 #define PK_FD_LAP_LX 32
 #endif
+#ifndef PK_FD_GRAD_LAP_LX
+#define PK_FD_GRAD_LAP_LX 32
+#endif
+#ifndef PK_FD_GRAD_LAP_AHEAD
+#define PK_FD_GRAD_LAP_AHEAD 1
+#endif
+// 1: lap and grad_lap run per site too (pk_fd_kernel), as the other
+// operators do: the yardstick the smoke times the marches against and the
+// card tests hold them to
+#ifndef PK_FD_PER_SITE
+#define PK_FD_PER_SITE 0
+#endif
 
 template <typename T>
-struct PkFdLapTile : PkTileGeo {
-  static constexpr int LX = PK_FD_LAP_LX;
-  static constexpr int SMEM = CENTRE * (int)sizeof(T);
-};
-
-// The thread's register queue, as pk_lap's loader: box x = PK_H is the
-// centre plane (any y, z of the haloed tile), another x the queue's value
-// x - PK_H planes away at the thread's own (y, z).
+using PkFdLapTile = PkQueueTile<T, 1, PK_FD_LAP_LX>;
 template <typename T>
-struct PkQueueLoad {
-  const T* centre;
-  T q[2 * PK_H + 1];
-  __device__ __forceinline__ T operator()(int x, int y, int z) const {
-    return x == PK_H ? centre[y * PkTileGeo::SZ + z] : q[x];
-  }
-};
+using PkFdGradLapTile = PkQueueTile<T, 1, PK_FD_GRAD_LAP_LX>;
 
 // The Laplacian's march: block (z tile, y tile, run + nruns * component)
 // over an (X, Y, Z) region; window geometry as pk_fd_kernel's.
@@ -194,6 +195,37 @@ pk_fd_lap_kernel(const T* __restrict__ in, T* __restrict__ out, int X, int Y,
   }
 }
 
+// grad_lap's march, as the Laplacian's: each block writes the three
+// derivatives and the Laplacian of its component from the same taps.
+template <typename T, int PAD>
+__global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
+pk_fd_grad_lap_kernel(const T* __restrict__ in, T* __restrict__ out0,
+                      T* __restrict__ out1, int X, int Y, int Z, int nruns,
+                      PkFdWeights<T> w, PkGeom g) {
+  using Tl = PkFdGradLapTile<T>;
+  const int c = blockIdx.z / nruns;
+  const int xs = (blockIdx.z - c * nruns) * Tl::LX;
+  const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
+  const int64_t Nw = PAD ? g.Nw : N;
+  T* __restrict__ grad = out0 + 3 * c * N;
+  T* __restrict__ lap = out1 + c * N;
+  const int z = blockIdx.x * Tl::TZ + threadIdx.x;
+  const int y = blockIdx.y * Tl::TY + threadIdx.y;
+  const bool valid = z < Z && y < Y;
+  pk_queue_march<T, 1, PAD, PK_FD_GRAD_LAP_AHEAD>(
+      PkQueueSrc<T, 1>{{in + c * Nw}}, X, Y, Z, PAD ? g.Ys : Y, xs,
+      min(Tl::LX, X - xs), [](int) { return PkNoSite{}; },
+      [&](int x, const PkQueueLoad<T> (&col)[1], PkNoSite) {
+        if (!valid) return;
+        const int64_t site = ((int64_t)x * Y + y) * Z + z;
+        T g3[3];
+        pk_queue_grad(col[0], w.grad, g3);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) grad[d * N + site] = g3[d];
+        lap[site] = pk_queue_lap(col[0], w.lap);
+      });
+}
+
 template <typename T, int OP, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_fd_kernel(const T* __restrict__ in, T* __restrict__ out0,
@@ -228,7 +260,10 @@ pk_fd_kernel(const T* __restrict__ in, T* __restrict__ out0,
 
   for (int64_t c = 0; c < C; ++c) {
     const PkLoad<T> load{in + c * Nw, Yw, Z};
-    if (OP == PK_FD_GRAD || OP == PK_FD_GRAD_LAP) {
+    if (OP == PK_FD_LAP) {
+      out0[c * N + site] = pk_lap<PAD>(load, in[c * Nw + wsite], x, y, z, X,
+                                       Y, Z, w.lap);
+    } else if (OP == PK_FD_GRAD || OP == PK_FD_GRAD_LAP) {
       T g3[3];
       pk_grad<PAD>(load, x, y, z, X, Y, Z, w.grad, g3);
 #pragma unroll
@@ -260,22 +295,31 @@ static int pk_launch_fd(const void* in, void* out0, void* out1, int64_t C,
   PkFdWeights<T> w;
   w.lap = pk_lap_weights<T>(weights);
   w.grad = pk_grad_weights<T>(weights + PK_NLAPW);
-  if constexpr (OP == PK_FD_LAP) {
-    // the march: components in groups that keep the grid's z extent in
+  if constexpr (!PK_FD_PER_SITE
+                && (OP == PK_FD_LAP || OP == PK_FD_GRAD_LAP)) {
+    // the marches: components in groups that keep the grid's z extent in
     // range, each group's pointers at its first component
-    using Tl = PkFdLapTile<T>;
-    const int nruns = (X + Tl::LX - 1) / Tl::LX;
+    constexpr int LX = OP == PK_FD_LAP ? PkFdLapTile<T>::LX
+                                       : PkFdGradLapTile<T>::LX;
+    using Tl = PkTileGeo;
+    const int nruns = (X + LX - 1) / LX;
     const int64_t most = 65535 / nruns;
     const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
     const int64_t Nw = PAD ? g.Nw : N;
     for (int64_t c0 = 0; c0 < C; c0 += most) {
       const int nc = (int)(C - c0 < most ? C - c0 : most);
-      pk_fd_lap_kernel<T, PAD>
-          <<<dim3((Z + Tl::TZ - 1) / Tl::TZ, (Y + Tl::TY - 1) / Tl::TY,
-                  nc * nruns),
-             dim3(Tl::TZ, Tl::TY, 1), 0, (cudaStream_t)stream>>>(
-              (const T*)in + c0 * Nw, (T*)out0 + c0 * N, X, Y, Z, nruns,
-              w.lap, g);
+      const dim3 grid((Z + Tl::TZ - 1) / Tl::TZ, (Y + Tl::TY - 1) / Tl::TY,
+                      nc * nruns);
+      if constexpr (OP == PK_FD_LAP)
+        pk_fd_lap_kernel<T, PAD>
+            <<<grid, dim3(Tl::TZ, Tl::TY, 1), 0, (cudaStream_t)stream>>>(
+                (const T*)in + c0 * Nw, (T*)out0 + c0 * N, X, Y, Z, nruns,
+                w.lap, g);
+      else
+        pk_fd_grad_lap_kernel<T, PAD>
+            <<<grid, dim3(Tl::TZ, Tl::TY, 1), 0, (cudaStream_t)stream>>>(
+                (const T*)in + c0 * Nw, (T*)out0 + 3 * c0 * N,
+                (T*)out1 + c0 * N, X, Y, Z, nruns, w, g);
       const int err = (int)cudaGetLastError();
       if (err != 0) return err;
     }
@@ -318,8 +362,18 @@ static int pk_launch_fd(const void* in, void* out0, void* out1, int64_t C,
 // The Laplacian's march tile for float (f64 = 0) or double (f64 = 1): out
 // = {x planes a run, static shared memory a block in bytes}. Returns 0.
 extern "C" int pk_fd_lap_tile(int f64, int* out) {
-  out[0] = PkFdLapTile<float>::LX;
+  out[0] = PK_FD_PER_SITE ? 0 : PkFdLapTile<float>::LX;
   out[1] = f64 ? PkFdLapTile<double>::SMEM : PkFdLapTile<float>::SMEM;
+  return 0;
+}
+
+// grad_lap's, in the same form, then 1 if its loads go a step ahead. x
+// planes 0 in both: a per-site build (PK_FD_PER_SITE).
+extern "C" int pk_fd_grad_lap_tile(int f64, int* out) {
+  out[0] = PK_FD_PER_SITE ? 0 : PkFdGradLapTile<float>::LX;
+  out[1] = f64 ? PkFdGradLapTile<double>::SMEM
+               : PkFdGradLapTile<float>::SMEM;
+  out[2] = PK_FD_GRAD_LAP_AHEAD;
   return 0;
 }
 

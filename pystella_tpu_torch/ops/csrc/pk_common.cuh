@@ -398,11 +398,13 @@ static int pk_finish_sums(void* partials, void* sums, int nterms,
   }
 
 // ---------------------------------------------------------------------------
-// The geometry of an x-march tile (pk_march below, and fd_ops.cu's march of
-// the Laplacian, whose header defines PK_H alone): a block of 32 (z) x 8
-// (y) threads owns one y-z tile; per tapped array it holds the centre plane
-// with its y-z halo (SY x SZ) and, in pk_march, a ring of 2h+1 planes of
-// the tile itself (fd_ops.cu keeps the +-x taps in registers).
+// The geometry of an x-march tile (pk_march below, pk_queue_march, the march
+// of fd_ops.cu's and mg_relax.cu's kernels, whose headers define no PK_F,
+// and fd_lap's own): a block of 32 (z) x 8 (y) threads owns one y-z tile;
+// per tapped
+// array it holds the centre plane with its y-z halo (SY x SZ) and, in
+// pk_march, a ring of 2h+1 planes of the tile itself (pk_queue_march keeps
+// the +-x taps in registers).
 // ---------------------------------------------------------------------------
 // the most dynamic shared memory a block may use on sm_90
 #define PK_MARCH_SMEM 232448
@@ -432,6 +434,176 @@ __device__ __forceinline__ void pk_frame_at(int k, int& yy, int& zz) {
     yy = PK_H + r / (2 * PK_H);
     zz = r % (2 * PK_H);
     if (zz >= PK_H) zz += Tl::TZ;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The register-queue x-march (pk_queue_march): the TPU builder's x ring
+// (StreamingStencil._build, pystella_tpu/ops/pallas_stencil.py:709, the ring
+// :719-742) for kernels that tap NA arrays as they are, one value each:
+// fd_grad_lap (fd_ops.cu, whose fd_lap keeps its own loop of this design)
+// and the multigrid sweeps (mg_relax.cu, NA = MG_NF). A block of 32 (z) x 8
+// (y) threads owns one y-z
+// tile and walks it along x over a run of planes. Per tapped array the
+// centre plane with its y-z halo sits in static shared memory (the y and z
+// taps) and the +-x taps of a thread's own column in a queue of 2h+1 values
+// in its registers (a ring of 2h+1 shared planes, as pk_march keeps, ran
+// 16-19% slower for fd_lap on an H100). Every element is read from device
+// memory about once (the y-z halo, mostly from L2, aside), and pk_lap /
+// pk_grad run over the planes in box coordinates (PK_BOX): lap_from_taps'
+// and grad_from_taps' order, so the march equals the per-site arithmetic
+// bit for bit. Periodic wrap, or a padded window's rows, is resolved where a
+// plane, row or column is loaded, so any shape runs (a run shorter than a
+// kernel's, 2^3, the shells' (3h, Y, Z) windows).
+// ---------------------------------------------------------------------------
+// the most static shared memory a block may declare
+#define PK_STATIC_SMEM 49152
+
+// The tile of a queue march of NA tapped arrays in runs of LX planes: its
+// static shared memory, NA haloed centre planes, and whether they fit.
+template <typename T, int NA, int LX_>
+struct PkQueueTile : PkTileGeo {
+  static constexpr int LX = LX_;
+  static constexpr int SMEM = NA * CENTRE * (int)sizeof(T);
+  static constexpr bool FITS = SMEM <= PK_STATIC_SMEM;
+};
+
+// One tapped array around the thread's site, as pk_lap's and pk_grad's
+// loader: box x = PK_H is the centre plane (any y, z of the haloed tile),
+// another x the queue's value x - PK_H planes away at the thread's own
+// (y, z).
+template <typename T>
+struct PkQueueLoad {
+  const T* centre;
+  T q[2 * PK_H + 1];
+  __device__ __forceinline__ T operator()(int x, int y, int z) const {
+    return x == PK_H ? centre[y * PkTileGeo::SZ + z] : q[x];
+  }
+};
+
+// The window arrays a queue march taps: array a's value at window index i
+// is p[a][i].
+template <typename T, int NA>
+struct PkQueueSrc {
+  const T* p[NA];
+};
+
+// What a march's pre functor returns when a body reads nothing but the
+// taps.
+struct PkNoSite {};
+
+// Lap and grad of one tapped array at the thread's site.
+template <typename T>
+__device__ __forceinline__ T pk_queue_lap(const PkQueueLoad<T>& col,
+                                          const PkLapWeights<T>& w) {
+  return pk_lap<PK_BOX>(col, col.q[PK_H], PK_H, (int)threadIdx.y + PK_H,
+                        (int)threadIdx.x + PK_H, 0, 0, 0, w);
+}
+
+template <typename T>
+__device__ __forceinline__ void pk_queue_grad(const PkQueueLoad<T>& col,
+                                              const PkGradWeights<T>& w,
+                                              T (&out)[3]) {
+  pk_grad<PK_BOX>(col, PK_H, (int)threadIdx.y + PK_H,
+                  (int)threadIdx.x + PK_H, 0, 0, 0, w, out);
+}
+
+// The march of one block over planes xs .. xs + nx - 1 of an (X, Y, Z)
+// region, window y extent Yw, padded along PAD's axes (a plane of a padded x
+// window lies in [-h, X + h)). Per plane and thread (valid site or not):
+// the queues' new values, this thread's first frame element of each
+// centre plane and pre(x), the site's own values a body reads from device
+// memory, are loaded together and stored; after a barrier body(x, col,
+// pre's result) runs, col the NA loaders; a barrier ends the step. AHEAD:
+// those loads are issued a step ahead, so each step stores the loads the
+// step before issued and they are in flight across its barriers and body.
+template <typename T, int NA, int PAD, bool AHEAD, typename Pre,
+          typename Body>
+__device__ __forceinline__ void pk_queue_march(const PkQueueSrc<T, NA> src,
+                                               int X, int Y, int Z, int Yw,
+                                               int xs, int nx, Pre&& pre,
+                                               Body&& body) {
+  using Tl = PkTileGeo;
+  __shared__ T sm[NA * Tl::CENTRE];
+  const int tz = threadIdx.x, ty = threadIdx.y;
+  const int own = ty * Tl::TZ + tz;
+  const int z0 = blockIdx.x * Tl::TZ, y0 = blockIdx.y * Tl::TY;
+  const int z = z0 + tz, y = y0 + ty;
+  const T* __restrict__ p[NA];
+#pragma unroll
+  for (int a = 0; a < NA; ++a) p[a] = src.p[a];
+  // array a's window value at point (x, yy, zz) of the region; a tile
+  // hanging past a padded window's last row reads that row (no valid site
+  // taps it)
+  auto at = [&](int a, int x, int yy, int zz) {
+    if (!(PAD & PK_PAD_X)) x = pk_wrap(x, X);
+    yy = (PAD & PK_PAD_Y) ? min(yy, Y + PK_H - 1) : pk_wrap(yy, Y);
+    return p[a][((int64_t)x * Yw + yy) * Z + pk_wrap(zz, Z)];
+  };
+  const int ctr = (ty + PK_H) * Tl::SZ + tz + PK_H;
+  // this thread's first frame element, at the same place every plane
+  const bool first = own < Tl::FRAME;
+  int fy = 0, fz = 0;
+  if (first) pk_frame_at(own, fy, fz);
+  // planes xs - h .. xs + h - 1 of the thread's column: the queues' 1 ..
+  // 2h; then plane xs + h and the first plane's frame element
+  PkQueueLoad<T> col[NA];
+  T next[NA], edge[NA];
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    col[a] = PkQueueLoad<T>{sm + a * Tl::CENTRE, {}};
+#pragma unroll
+    for (int k = 0; k < 2 * PK_H; ++k)
+      col[a].q[k + 1] = at(a, xs - PK_H + k, y, z);
+  }
+  decltype(pre(xs)) site{};
+  if constexpr (AHEAD) {
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      next[a] = at(a, xs + PK_H, y, z);
+      edge[a] = first ? at(a, xs, y0 - PK_H + fy, z0 - PK_H + fz) : T(0);
+    }
+    site = pre(xs);
+  }
+  for (int i = 0; i < nx; ++i) {
+    const int x = xs + i;
+    if constexpr (!AHEAD) {
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        next[a] = at(a, x + PK_H, y, z);
+        if (first) edge[a] = at(a, x, y0 - PK_H + fy, z0 - PK_H + fz);
+      }
+    }
+    const auto cur = AHEAD ? site : pre(x);
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      T* const q = col[a].q;
+#pragma unroll
+      for (int k = 0; k < 2 * PK_H; ++k) q[k] = q[k + 1];
+      q[2 * PK_H] = next[a];
+      sm[a * Tl::CENTRE + ctr] = q[PK_H];
+      if (first) sm[a * Tl::CENTRE + fy * Tl::SZ + fz] = edge[a];
+    }
+    if (AHEAD && i + 1 < nx) {
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        next[a] = at(a, x + PK_H + 1, y, z);
+        if (first) edge[a] = at(a, x + 1, y0 - PK_H + fy, z0 - PK_H + fz);
+      }
+      site = pre(x + 1);
+    }
+    // the rest of the frame (h >= 3: more elements than threads)
+    for (int k = own + Tl::THREADS; k < Tl::FRAME; k += Tl::THREADS) {
+      int yy, zz;
+      pk_frame_at(k, yy, zz);
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+        sm[a * Tl::CENTRE + yy * Tl::SZ + zz] =
+            at(a, x, y0 - PK_H + yy, z0 - PK_H + zz);
+    }
+    __syncthreads();
+    body(x, (const PkQueueLoad<T>(&)[NA])col, cur);
+    __syncthreads();
   }
 }
 

@@ -7,9 +7,10 @@ the stencils' eigenvalues, and a :class:`FiniteDifferencer` with ``lap``,
 
 On a CUDA tensor every operator is one launch of a hand-written kernel
 (``ops/csrc/fd_ops.cu``, K12: the JAX package's
-``FiniteDifferencer._pallas_bodies``): ``lap`` an x-march of a shared-memory
-y-z tile (:func:`lap_tile`), the others one thread per site, with periodic
-wrap by index arithmetic. Beside it sits its plain PyTorch version: the
+``FiniteDifferencer._pallas_bodies``): ``lap`` and ``grad_lap`` an x-march
+of a shared-memory y-z tile (:func:`lap_tile`, :func:`grad_lap_tile`), the
+others one thread per site, with periodic wrap by index arithmetic. Beside
+it sits its plain PyTorch version: the
 same sums in the same order (``lap_from_taps`` / ``grad_from_taps`` and the
 ``pd`` / ``div`` bodies) on :class:`~pystella_tpu_torch.ops.stencil.RollTaps`,
 which a CPU tensor takes. ``mode="roll"`` asks for the JAX package's
@@ -130,6 +131,35 @@ def reported_lap_tile(query, dtype):
     return out[0], out[1]
 
 
+#: the x planes a block of ``grad_lap``'s march covers, and whether its
+#: next plane's loads go a step ahead (fd_ops.cu: PkFdGradLapTile,
+#: PK_FD_GRAD_LAP_LX, PK_FD_GRAD_LAP_AHEAD)
+GRAD_LAP_LX = 32
+GRAD_LAP_AHEAD = 1
+
+
+def grad_lap_tile(h, itemsize, lx=None, ahead=None):
+    """``grad_lap``'s x-march tile at stencil radius ``h`` for a working
+    type of ``itemsize`` bytes: ``(lx, bytes, ahead)`` -- the Laplacian's
+    tile (:func:`lap_tile`; one tapped array) at its own run length, and
+    1 where the next plane's loads go a step ahead. ``lx`` and ``ahead``
+    default to the source's constants."""
+    lx = GRAD_LAP_LX if lx is None else lx
+    ahead = GRAD_LAP_AHEAD if ahead is None else ahead
+    return lap_tile(h, itemsize, lx) + (ahead,)
+
+
+def reported_grad_lap_tile(query, dtype):
+    """What a library's ``pk_fd_grad_lap_tile`` entry point ``query``
+    reports for working type ``dtype``, in :func:`grad_lap_tile`'s form
+    (x planes 0: a build whose ``grad_lap`` runs per site)."""
+    query.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    query.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    query(int(dtype == torch.float64), out)
+    return tuple(out)
+
+
 #: stencil radius -> {(operator, dtype): C entry point}, built at first use
 _LIBS = {}
 
@@ -143,15 +173,20 @@ def build_kernels(h):
         lib = _stencil.build_kernels([_SOURCE], kernel_header(h))[_SOURCE]
         fns = bind_kernels(lib)
         fns["tile"] = lib.pk_fd_lap_tile
+        fns["grad_lap_tile"] = lib.pk_fd_grad_lap_tile
         for dtype in _SUFFIX:
-            # the kernel's compile-time march tile must be the one lap_tile
-            # predicts
-            got = reported_lap_tile(fns["tile"], dtype)
-            want = lap_tile(h, dtype.itemsize)
-            if got != want:
-                raise RuntimeError(
-                    f"fd_ops.cu instantiates the Laplacian's tile {got} for "
-                    f"{dtype}; ops/derivs.py:lap_tile predicts {want}")
+            # the kernels' compile-time march tiles must be the ones
+            # lap_tile and grad_lap_tile predict
+            for op, got, want in (
+                    ("lap", reported_lap_tile(fns["tile"], dtype),
+                     lap_tile(h, dtype.itemsize)),
+                    ("grad_lap", reported_grad_lap_tile(
+                        fns["grad_lap_tile"], dtype),
+                     grad_lap_tile(h, dtype.itemsize))):
+                if got != want:
+                    raise RuntimeError(
+                        f"fd_ops.cu instantiates {op}'s tile {got} for "
+                        f"{dtype}; ops/derivs.py:{op}_tile predicts {want}")
         _LIBS[h] = fns
     return fns
 

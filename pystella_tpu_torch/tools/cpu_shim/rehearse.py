@@ -16,14 +16,22 @@ carries and, for K5' and K5, the ``_bf16_fin`` carries, every padding, K7's
 interior and shell launches) likewise; K5''s lattice outputs also equal
 K7's bit for bit, its scalar outputs and sums K5's, K5's scalar outputs
 the per-site K2's, and two x blocks' partials the unsharded sums. With
-``--fd`` the finite-difference Laplacian ``fd_lap``
-(h = 1-4, f32 and f64, every padding, the interior and shell launches)
-is held to its plain version, its padded, interior and shell launches to
-the unpadded one and every launch to the Laplacian of the per-site
-``fd_grad_lap``, bit for bit. With ``--against DIR``, the root of another
-checkout (a parent commit unpacked with ``git archive``, say), every
-launch must also equal that checkout's kernels bit for bit, sums
-included.
+``--fd`` the finite-difference marches ``fd_lap`` and ``fd_grad_lap`` (h =
+1-4, f32 and f64, every padding, the interior and shell launches) are
+held to their plain versions, their padded, interior and shell launches to
+the unpadded one, and every launch to a per-site build's
+(``PK_FD_PER_SITE 1``) bit for bit; ``fd_grad_lap``'s outputs also equal
+``fd_grad``'s and ``fd_lap``'s. With ``--mg`` the multigrid sweeps K11
+(``mg_smooth`` one and three sweeps, ``mg_residual``, ``mg_tau``; the
+Newton problem, the Jacobi pair and a Newton problem with a lattice and two
+scalar auxiliary inputs; h = 1, 2 and, for the first two, 4; f32 and f64;
+every padding, the interior and shell launches) are held to their plain
+versions from a build that marches every launch (``MG_MARCH_MIN_SITES
+1``), and bit for bit to one that runs every launch per site and to the
+default build; padded, interior and shell launches equal the unpadded one.
+With ``--against DIR``, the root of another checkout (a parent commit
+unpacked with ``git archive``, say), every launch must also equal that
+checkout's kernels bit for bit, sums included.
 
 Shapes: 16^3, 70x12x40 and 5x9x33 (two fields, h = 2), a five-field model
 at h = 4 (f64: the split layout of the pairs, two groups of three
@@ -33,11 +41,12 @@ at h = 1 and 3, and 2^3, where the +-taps wrap onto one site. ``--lx`` is
 the run length the kernels are built with (PK_SCALAR_MARCH_LX;
 PK_MARCH_LX with ``--gw``, PK_CHUNK_LX with ``--chunk``,
 PK_STAGE_MARCH_LX and PK_SCALAR_STAGE_MARCH_LX with ``--stage``,
-PK_FD_LAP_LX with ``--fd``): the default 4 cuts runs short at every shape
-and keeps the run to a few minutes. Exits 1 if a check fails::
+PK_FD_LAP_LX and PK_FD_GRAD_LAP_LX with ``--fd``, MG_MARCH_LX with
+``--mg``): the default 4 cuts runs short at every shape and keeps the run
+to a few minutes. Exits 1 if a check fails::
 
     python pystella_tpu_torch/tools/cpu_shim/rehearse.py
-        [--gw | --chunk | --stage | --fd] [--lx N] [--against DIR]
+        [--gw | --chunk | --stage | --fd | --mg] [--lx N] [--against DIR]
 """
 
 import argparse
@@ -45,11 +54,12 @@ import ctypes
 import itertools
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
-from shim import CSRC, build, built, pt, shim, tderivs, tfused
+from shim import CSRC, build, built, pt, shim, tderivs, tfused, trelax
 
 A, B = pt.LowStorageRK54._A, pt.LowStorageRK54._B
 RESULTS = []
@@ -340,38 +350,63 @@ def stage(args):
 
 
 class FdCase:
-    """``fd_lap`` at stencil radius ``h`` on a seeded ``(C, X, Y, Z)``
-    input: this checkout's library (and another checkout's, with
-    ``--against``)."""
+    """``fd_lap`` and ``fd_grad_lap`` at stencil radius ``h`` on a seeded
+    ``(C, X, Y, Z)`` input: this checkout's library, one built with both
+    per site (``PK_FD_PER_SITE 1``) and, with ``--against``, another
+    checkout's."""
 
     def __init__(self, args, h, grid, dtype, C=2):
         header = tderivs.kernel_header(h)
-        lib = ctypes.CDLL(str(build(CSRC, "fd_ops.cu", header
-                                    + args.defines)))
-        self.libs = [tderivs.bind_kernels(lib)]
-        tile = tderivs.reported_lap_tile(lib.pk_fd_lap_tile, dtype)
-        want = tderivs.lap_tile(h, dtype.itemsize)
-        if tile != want:
-            raise RuntimeError(f"fd_ops.cu's tile {tile}, lap_tile {want}")
-        if args.against:
-            self.libs.append(tderivs.bind_kernels(ctypes.CDLL(str(build(
-                Path(args.against) / "pystella_tpu_torch" / "ops" / "csrc",
-                "fd_ops.cu", header)))))
+        with ThreadPoolExecutor(3) as pool:
+            libs = list(pool.map(lambda a: ctypes.CDLL(str(build(*a))), [
+                (CSRC, "fd_ops.cu", header + args.defines),
+                (CSRC, "fd_ops.cu", header + args.defines
+                 + "#define PK_FD_PER_SITE 1\n")] + ([
+                (Path(args.against) / "pystella_tpu_torch" / "ops" / "csrc",
+                 "fd_ops.cu", header)] if args.against else [])))
+        tiles = [(tderivs.reported_lap_tile(libs[0].pk_fd_lap_tile, dtype),
+                  tderivs.lap_tile(h, dtype.itemsize)),
+                 (tderivs.reported_grad_lap_tile(
+                     libs[0].pk_fd_grad_lap_tile, dtype),
+                  tderivs.grad_lap_tile(h, dtype.itemsize)),
+                 (tderivs.reported_lap_tile(libs[1].pk_fd_lap_tile, dtype),
+                  (0,) + tderivs.lap_tile(h, dtype.itemsize)[1:]),
+                 (tderivs.reported_grad_lap_tile(
+                     libs[1].pk_fd_grad_lap_tile, dtype),
+                  (0,) + tderivs.grad_lap_tile(h, dtype.itemsize)[1:])]
+        for got, want in tiles:
+            if got != want:
+                raise RuntimeError(f"fd_ops.cu's tile {got}, the mirror's "
+                                   f"{want}")
+        fns = [tderivs.bind_kernels(lib) for lib in libs]
+        self.libs = [fns[0]] + fns[2:]
+        self.per_site = fns[1]
         self.fd = pt.FiniteDifferencer(h, 5.0 / grid[0], device="cpu")
         self.h, self.grid = h, grid
         self.tol = 1e-5 if dtype == torch.float32 else 1e-13
         g = torch.Generator().manual_seed(h)
         self.x = torch.randn((C,) + grid, generator=g, dtype=dtype)
-        self.name = f"fd_lap h{h} {(C,) + grid} {str(dtype)[6:]} tile {tile}"
+        self.name = (f"h{h} {(C,) + grid} {str(dtype)[6:]} tile "
+                     f"{tiles[0][0]} {tiles[1][0]}")
 
-    def launch(self, name, kind, win, outs, x0=0):
-        """Every library's launch into fresh copies of ``outs``."""
+    def nans(self, op):
+        """Fresh outputs of ``op`` (lap, grad or grad_lap), all NaN."""
+        x = self.x
+        grad = torch.full((x.shape[0], 3) + self.grid, float("nan"),
+                          dtype=x.dtype)
+        lap = torch.full_like(x, float("nan"))
+        return {"lap": [lap], "grad": [grad], "grad_lap": [grad, lap]}[op]
+
+    def launch(self, op, kind, win, x0=0, outs=None, libs=None):
+        """Every library's (or ``libs``') launch of ``op``, into fresh
+        outputs or into copies of ``outs``."""
         got = []
-        for fns in self.libs:
+        for fns in libs or self.libs:
             tderivs._LIBS[self.h] = fns
-            o = [t.clone() for t in outs]
+            o = ([t.clone() for t in outs] if outs is not None
+                 else self.nans(op))
             with shim():
-                self.fd.launch_block(name, kind, win, o, x0)
+                self.fd.launch_block(op, kind, win, o, x0)
             got.append(o)
         tderivs._LIBS.pop(self.h)
         return got
@@ -379,37 +414,44 @@ class FdCase:
     def run(self):
         h, x, X = self.h, self.x, self.grid[0]
         other = " and other checkout" if len(self.libs) > 1 else ""
-        nan = [torch.full_like(x, float("nan"))]
-        a = self.launch("lap", None, x, nan)
-        if other:
-            check(f"{self.name} == other checkout", same(*a))
-        a = a[0]
-        err = rel(a[0], self.fd.plain("lap", x)[0])
-        check(f"{self.name} vs plain {err:.1e}", err <= self.tol)
-        gl = self.launch("grad_lap", None, x, [torch.full(
-            (x.shape[0], 3) + self.grid, float("nan"), dtype=x.dtype)]
-            + nan)[0]
-        check(f"{self.name} == fd_grad_lap's Laplacian", same(a, gl[1:]))
-        for kind, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
-                               ("xypad", (h, h))):
-            if min(self.grid[:2]) < h:
-                break  # no neighbour holds h rows
-            pa = self.launch("lap", kind, pad(x, hx, hy), nan)
-            check(f"{self.name}:{kind} == unpadded{other}",
-                  all(same(o, a) for o in pa))
-        if X > 2 * h:
-            xpad = pad(x, h, 0)
-            for fns in self.libs:
-                tderivs._LIBS[h] = fns
-                outs = [t.clone() for t in nan]
-                with shim():
-                    self.fd.launch_block("lap", "interior", x, outs, x0=h)
-                    for x0 in (0, X - h):
-                        self.fd.launch_block("lap", "shell", xpad.narrow(
-                            1, x0, 3 * h).contiguous(), outs, x0=x0)
-                check(f"{self.name} interior + shells == unpadded",
-                      same(outs, a))
-            tderivs._LIBS.pop(h)
+        res = {}
+        for op in ("lap", "grad_lap"):
+            tag = f"fd_{op} {self.name}"
+            a = self.launch(op, None, x)
+            if other:
+                check(f"{tag} == other checkout", same(*a))
+            a = res[op] = a[0]
+            err = max(rel(o, p) for o, p in zip(a, self.fd.plain(op, x)))
+            check(f"{tag} vs plain {err:.1e}", err <= self.tol)
+            ps = self.launch(op, None, x, libs=[self.per_site])[0]
+            check(f"{tag} == the per-site fd_{op}", same(a, ps))
+            for kind, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
+                                   ("xypad", (h, h))):
+                if min(self.grid[:2]) < h:
+                    break  # no neighbour holds h rows
+                pa = self.launch(op, kind, pad(x, hx, hy))
+                check(f"{tag}:{kind} == unpadded{other}",
+                      all(same(o, a) for o in pa))
+            if X > 2 * h:
+                xpad = pad(x, h, 0)
+                outs = self.nans(op)
+                for fns in self.libs:
+                    tderivs._LIBS[h] = fns
+                    o = [t.clone() for t in outs]
+                    with shim():
+                        self.fd.launch_block(op, "interior", x, o, x0=h)
+                        for x0 in (0, X - h):
+                            self.fd.launch_block(op, "shell", xpad.narrow(
+                                1, x0, 3 * h).contiguous(), o, x0=x0)
+                    check(f"{tag} interior + shells == unpadded",
+                          same(o, a))
+                tderivs._LIBS.pop(h)
+        grad = self.launch("grad", None, x, libs=self.libs[:1])[0]
+        ps = self.launch("grad_lap", None, x, libs=[self.per_site])[0]
+        check(f"fd_lap {self.name} == the per-site fd_grad_lap's Laplacian",
+              same(res["lap"], ps[1:]))
+        check(f"fd_grad_lap {self.name} == (fd_grad, fd_lap)",
+              same(res["grad_lap"], grad + res["lap"]))
 
 
 def fd(args):
@@ -418,6 +460,152 @@ def fd(args):
         for grid in ((16, 16, 16), (70, 12, 40), (5, 9, 33), (2, 2, 2)):
             FdCase(args, h, grid, dtype).run()
     FdCase(args, 2, (9, 20, 70), torch.float32, C=5).run()
+
+
+def mg_problem(kind):
+    """A relaxation solver class, its equations, omega and auxiliary
+    inputs: the Newton FAS problem of the multigrid main path (one
+    unknown), the Jacobi Poisson + Helmholtz pair (two) and a Newton
+    problem that reads a lattice array and two scalars."""
+    fld = pt.Field
+    if kind == "newton":
+        f = fld("f")
+        return (pt.NewtonIterator, {f: (fld("lap_f") - f + f**3,
+                                        fld("rho"))}, 2 / 3, {})
+    if kind == "jacobi":
+        return pt.JacobiIterator, {
+            fld("f"): (fld("lap_f"), fld("rho")),
+            fld("f2"): (fld("lap_f2") - fld("f2"), fld("rho2"))}, 1 / 2, {}
+    lhs = fld("lap_f") - pt.Var("m2") * fld("f") + fld("c") * fld("g")
+    return (pt.NewtonIterator, {fld("f"): (lhs, fld("rho"))}, 2 / 3,
+            {"g": None, "m2": 0.5, "c": 2.0})
+
+
+#: the site threshold of a build that marches every launch, and of one
+#: that runs every launch per site
+MG_ALL, MG_NONE = 1, 2**31 - 1
+
+
+class MgCase:
+    """The sweeps (``mg_smooth`` one and three sweeps, ``mg_residual``,
+    ``mg_tau``) of ``problem`` at stencil radius ``h`` on a seeded level:
+    libraries that march every launch (``MG_MARCH_MIN_SITES`` 1), run every
+    launch per site, and keep the source's threshold; with ``--against``
+    another checkout's."""
+
+    def __init__(self, args, problem, h, grid, dtype):
+        cls, lhs, omega, aux = mg_problem(problem)
+        self.solver = cls(lhs, halo_shape=h, omega=omega, device="cpu")
+        g = torch.Generator().manual_seed(h)
+        names = list(self.solver.f_to_rho_dict)
+        rand = lambda: torch.rand(grid, generator=g, dtype=dtype) - 0.5  # noqa
+        self.fs = {n: rand() for n in names}
+        self.rhos = {r: rand() for r in self.solver.f_to_rho_dict.values()}
+        self.aux = {k: rand() if v is None else v for k, v in aux.items()}
+        self.struct = self.solver._aux_struct(self.aux)
+        header = self.solver.kernel_header(self.struct)
+        plane = lambda n: f"#define MG_MARCH_MIN_SITES {n}\n"  # noqa
+        srcs = [(CSRC, header + args.defines + plane(MG_ALL)),
+                (CSRC, header + args.defines + plane(MG_NONE)),
+                (CSRC, header + args.defines)]
+        if args.against:
+            srcs.append((Path(args.against) / "pystella_tpu_torch" / "ops"
+                         / "csrc", header))
+        with ThreadPoolExecutor(len(srcs)) as pool:
+            libs = list(pool.map(lambda a: ctypes.CDLL(str(build(
+                a[0], "mg_relax.cu", a[1]))), srcs))
+        for lib, n in zip(libs, (MG_ALL, MG_NONE, None)):
+            self.solver.check_tile(lib, lx=args.lx, min_sites=n)
+        self.libs = [trelax.bind_kernels(lib) for lib in libs]
+        self.level = trelax.LevelSpec(grid, (5.0 / grid[0], 0.4, 0.3))
+        self.h, self.grid = h, grid
+        self.tol = 1e-5 if dtype == torch.float32 else 1e-13
+        tile = trelax.mg_tile(h, dtype.itemsize, len(names), lx=args.lx)
+        self.name = (f"{problem} h{h} {grid} {str(dtype)[6:]} "
+                     f"tile {tile}")
+
+    def sweep(self, fns, kind, nu=1):
+        """One call of ``kind`` (``nu`` sweeps) with the library ``fns``."""
+        self.solver._libs[self.struct] = fns
+        rhos = self.rhos
+        if kind == "tau":
+            rhos = {r: self.fs[n] * 0.5
+                    for n, r in self.solver.f_to_rho_dict.items()}
+        with shim():
+            out = self.solver.launch(kind, self.level, self.fs, rhos,
+                                     self.aux, nu)
+        return out, rhos
+
+    def block(self, fns, kind, wins, outs, pad_kind, x0=0):
+        self.solver._libs[self.struct] = fns
+        rhos = list(self.rhos.values())
+        with shim():
+            return self.solver.launch_block(kind, self.level, wins, rhos,
+                                            self.aux, outs, pad_kind, x0)
+
+    def run(self):
+        h, (X, Y, _) = self.h, self.grid
+        march, per_site, default, *other = self.libs
+        names = list(self.solver.f_to_rho_dict)
+        for kind, nu in (("smooth", 1), ("smooth", 3), ("residual", 1),
+                         ("tau", 1)):
+            tag = f"mg_{kind} x{nu} {self.name}"
+            a, rhos = self.sweep(march, kind, nu)
+            s = self.solver
+            lat = {k: v for k, v in self.aux.items()
+                   if not isinstance(v, float)}
+            plain = s.plain(kind, self.level, list(self.fs.values()),
+                            [rhos[s.f_to_rho_dict[n]] for n in names], lat,
+                            {k: v for k, v in self.aux.items()
+                             if isinstance(v, float)}, nu)
+            err = max(rel(o, p) for o, p in zip(a, plain))
+            check(f"{tag} vs plain {err:.1e}", err <= self.tol)
+            check(f"{tag} == per-site", same(a, self.sweep(
+                per_site, kind, nu)[0]))
+            check(f"{tag} == the default build", same(a, self.sweep(
+                default, kind, nu)[0]))
+            for fns in other:
+                check(f"{tag} == other checkout", same(a, self.sweep(
+                    fns, kind, nu)[0]))
+        fs = [t.unsqueeze(0) for t in self.fs.values()]
+        nan = lambda: [torch.full(self.grid, float("nan"),  # noqa: E731
+                                  dtype=fs[0].dtype) for _ in names]
+        for kind in ("smooth", "residual", "tau"):
+            tag = f"mg_{kind} {self.name}"
+            ref = self.block(march, kind, [f[0] for f in fs], nan(), None)
+            for pk, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
+                                 ("xypad", (h, h))):
+                if min(X, Y) < h:
+                    break  # no neighbour holds h rows
+                wins = [pad(f, hx, hy)[0] for f in fs]
+                for label, fns in [("", march)] + [
+                        (" (other checkout)", o) for o in other]:
+                    got = self.block(fns, kind, wins, nan(), pk)
+                    check(f"{tag}:{pk}{label} == unpadded", same(got, ref))
+            if X > 2 * h:
+                xp = [pad(f, h, 0)[0] for f in fs]
+                for label, fns in [("", march)] + [
+                        (" (other checkout)", o) for o in other]:
+                    outs = nan()
+                    self.block(fns, kind, [f[0] for f in fs], outs,
+                               "interior", h)
+                    for x0 in (0, X - h):
+                        self.block(fns, kind, [w.narrow(0, x0, 3 * h)
+                                               .contiguous() for w in xp],
+                                   outs, "shell", x0)
+                    check(f"{tag} interior + shells{label} == unpadded",
+                          same(outs, ref))
+
+
+def mg(args):
+    for problem, h in itertools.product(("newton", "jacobi", "aux"),
+                                        (1, 2)):
+        for grid, dtype in itertools.product(
+                ((16, 16, 16), (70, 12, 40), (5, 9, 33), (2, 2, 2)),
+                (torch.float32, torch.float64)):
+            MgCase(args, problem, h, grid, dtype).run()
+    for problem in ("newton", "jacobi"):
+        MgCase(args, problem, 4, (13, 12, 40), torch.float64).run()
 
 
 def main():
@@ -431,7 +619,9 @@ def main():
                         help="the stage marches K5', K7 and K5 instead of "
                         "K3 and K6")
     family.add_argument("--fd", action="store_true",
-                        help="the Laplacian fd_lap instead of K3 and K6")
+                        help="fd_lap and fd_grad_lap instead of K3 and K6")
+    family.add_argument("--mg", action="store_true",
+                        help="the multigrid sweeps K11 instead of K3 and K6")
     parser.add_argument("--lx", type=int, default=4,
                         help="the march's run length to build with")
     parser.add_argument("--against", metavar="DIR",
@@ -448,14 +638,17 @@ def main():
         args.defines = (f"\n#define PK_STAGE_MARCH_LX {args.lx}\n"
                         f"#define PK_SCALAR_STAGE_MARCH_LX {args.lx}\n")
     elif args.fd:
-        tderivs.LAP_LX = args.lx
-        args.defines = f"\n#define PK_FD_LAP_LX {args.lx}\n"
+        tderivs.LAP_LX = tderivs.GRAD_LAP_LX = args.lx
+        args.defines = (f"\n#define PK_FD_LAP_LX {args.lx}\n"
+                        f"#define PK_FD_GRAD_LAP_LX {args.lx}\n")
+    elif args.mg:
+        args.defines = f"\n#define MG_MARCH_LX {args.lx}\n"
     else:
         tfused.SCALAR_MARCH_LX = args.lx
         args.defines = f"\n#define PK_SCALAR_MARCH_LX {args.lx}\n"
     t0 = time.time()
     (gw if args.gw else chunk if args.chunk else stage if args.stage
-     else fd if args.fd else scalar)(args)
+     else fd if args.fd else mg if args.mg else scalar)(args)
     failed = RESULTS.count(False)
     print(f"{len(RESULTS) - failed} ok, {failed} failed, "
           f"{time.time() - t0:.0f} s")

@@ -1,4 +1,4 @@
-"""Build the port's fused CUDA sources with g++ behind a CPU stand-in for
+"""Build the port's CUDA sources with g++ behind a CPU stand-in for
 the CUDA runtime (``include/``), and launch their kernels on CPU tensors
 through the port's own launch code: a rehearsal of the kernels'
 arithmetic where no card is at hand. Nothing here times anything or runs
@@ -11,13 +11,15 @@ block, so a read of an element no thread wrote shows as NaN),
 ``kernel<<<grid, block, smem, stream>>>(args)`` becomes ``pk_launch(grid,
 block, smem, stream, lambda)``. With ``-ffp-contract=off`` the kernels
 then round as the card's ``-fmad=false`` builds do. The port's package is
-copied and its ``ops/fused.py`` and ``ops/derivs.py`` patched so that
-their card branches also take CPU tensors; everything is written under
+copied and its ``ops/fused.py``, ``ops/derivs.py`` and
+``multigrid/relax.py`` patched so that their card branches also take CPU
+tensors; everything is written under
 ``pystella_tpu_torch/ops/_build/cpu_shim/`` of the checkout.
 
-Importing this module sets that up and exposes ``pt``, ``tfused`` and
-``tderivs`` (the patched package, its ``ops.fused`` and ``ops.derivs``),
-:func:`build`, :func:`built` and :func:`shim`.
+Importing this module sets that up and exposes ``pt``, ``tfused``,
+``tderivs`` and ``trelax`` (the patched package, its ``ops.fused``,
+``ops.derivs`` and ``multigrid.relax``), :func:`build`, :func:`built` and
+:func:`shim`.
 """
 
 import contextlib
@@ -85,8 +87,9 @@ def build(csrc, source, header):
 
 
 def _package():
-    """Copy the port's package and let ops/fused.py's card branches take
-    CPU tensors while :func:`shim` is on."""
+    """Copy the port's package and let the card branches of ops/fused.py,
+    ops/derivs.py and multigrid/relax.py take CPU tensors while
+    :func:`shim` is on."""
     dst = OUT / "pkg" / "pystella_tpu_torch"
     if dst.exists():
         shutil.rmtree(dst)
@@ -99,7 +102,13 @@ def _package():
                           ('d.devices[0].type == "cuda"',
                            'd.devices[0].type in ("cuda", "cpu")'))),
             ("derivs.py", (flag, ('if win.device.type == "cuda":',
-                                  'if win.device.type == "cuda" or _SHIM:')))):
+                                  'if win.device.type == "cuda" or _SHIM:'))),
+            ("../multigrid/relax.py", (
+                flag, ('if dev.type == "cpu" or hz is not None:',
+                       'if (dev.type == "cpu" and not _SHIM) '
+                       'or hz is not None:'),
+                ('if dev.type != "cuda":',
+                 'if dev.type != "cuda" and not _SHIM:')))):
         path = dst / "ops" / name
         s = path.read_text()
         for a, b in subs:
@@ -116,7 +125,9 @@ import torch  # noqa: E402
 torch.cuda.device = lambda d=None: contextlib.nullcontext()
 torch.cuda.current_stream = lambda d=None: types.SimpleNamespace(
     cuda_stream=0)
+torch.cuda.current_device = lambda: None
 import pystella_tpu_torch as pt  # noqa: E402
+from pystella_tpu_torch.multigrid import relax as trelax  # noqa: E402
 from pystella_tpu_torch.ops import derivs as tderivs  # noqa: E402
 from pystella_tpu_torch.ops import fused as tfused  # noqa: E402
 
@@ -149,10 +160,11 @@ def built(stepper, csrc=CSRC, defines=""):
 
 @contextlib.contextmanager
 def shim(on=True):
-    """Within, a stepper's (a FiniteDifferencer's) launches on CPU tensors
-    run its built libraries instead of its plain versions."""
-    tfused._SHIM = tderivs._SHIM = on
+    """Within, a stepper's (a FiniteDifferencer's, a relaxation
+    solver's) launches on CPU tensors run its built libraries instead of
+    its plain versions."""
+    tfused._SHIM = tderivs._SHIM = trelax._SHIM = on
     try:
         yield
     finally:
-        tfused._SHIM = tderivs._SHIM = False
+        tfused._SHIM = tderivs._SHIM = trelax._SHIM = False

@@ -8,6 +8,8 @@ so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest tests/test_torch_kernels.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -700,6 +702,7 @@ def test_preheat_coupled_card_matches_cpu(cuda, pair):
 from pystella_tpu_torch import multigrid as tmg  # noqa: E402
 from pystella_tpu_torch.multigrid import relax as trelax  # noqa: E402
 from pystella_tpu_torch.ops import derivs as tderivs  # noqa: E402
+from pystella_tpu_torch.ops import stencil as tstencil  # noqa: E402
 
 #: the operators add and multiply in the plain versions' order and nothing
 #: else: a few ulp of the output's largest value at most (0 expected)
@@ -777,17 +780,70 @@ def _mg_problem(kind):
 #: expected; the bar leaves room for a few ulp over three sweeps)
 MG_TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
 
+#: the defines of K11 builds that march every launch, however small its
+#: level, and that run every launch per site (the site threshold past any
+#: level); of the K12 build whose fd_lap and fd_grad_lap run per site
+MG_MARCH_ALL = "\n#define MG_MARCH_MIN_SITES 1\n"
+MG_PER_SITE = f"\n#define MG_MARCH_MIN_SITES {2**31 - 1}\n"
+FD_PER_SITE = "\n#define PK_FD_PER_SITE 1\n"
+_BUILDS = {}
+
+
+def _mg_build(solver, defines):
+    """The K11 entry points of ``solver``'s equations built with
+    ``defines`` after the generated header, their tile held to
+    ``mg_tile``."""
+    header = solver.kernel_header() + defines
+    if header not in _BUILDS:
+        lib = tstencil.build_kernels(["mg_relax.cu"], header)["mg_relax.cu"]
+        solver.check_tile(lib, min_sites=int(defines.split()[-1]))
+        _BUILDS[header] = trelax.bind_kernels(lib)
+    return _BUILDS[header]
+
+
+@contextlib.contextmanager
+def _mg_lib(solver, defines):
+    """Within, ``solver``'s launches run the build with ``defines`` (None:
+    its own)."""
+    keep = solver.build_kernels()
+    if defines is not None:
+        solver._libs[()] = _mg_build(solver, defines)
+    try:
+        yield
+    finally:
+        solver._libs[()] = keep
+
+
+@contextlib.contextmanager
+def _fd_per_site(h):
+    """Within, the operators of stencil radius ``h`` run the build whose
+    fd_lap and fd_grad_lap run per site."""
+    keep = tderivs.build_kernels(h)
+    header = tderivs.kernel_header(h) + FD_PER_SITE
+    if header not in _BUILDS:
+        _BUILDS[header] = tderivs.bind_kernels(tstencil.build_kernels(
+            ["fd_ops.cu"], header)["fd_ops.cu"])
+    tderivs._LIBS[h] = _BUILDS[header]
+    try:
+        yield
+    finally:
+        tderivs._LIBS[h] = keep
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("grid", [(16, 16, 16), (48, 40, 36), (8, 8, 8),
-                                  (2, 2, 2)],
-                         ids=["16cubed", "48x40x36", "8cubed", "2cubed"])
+                                  (2, 2, 2), (64, 256, 256)],
+                         ids=["16cubed", "48x40x36", "8cubed", "2cubed",
+                              "64x256x256"])
 @pytest.mark.parametrize("problem", ["newton", "jacobi"])
 def test_mg_kernel_matches_plain(cuda, problem, grid, dtype):
     """mg_smooth (1 and 3 sweeps), mg_residual and mg_tau vs the plain
-    version, down to a 2^3 level; each sweep is one counted launch."""
+    version, down to a 2^3 level; each sweep is one counted launch. The
+    default build runs the per-site kernel on the small levels and the
+    march on a region of ``mg_tile``'s threshold (64 x 256^2 sites);
+    a build that marches every launch is held to the plain version too."""
     cls, lhs, omega = _mg_problem(problem)
     solver = cls(lhs, halo_shape=1, omega=omega, device=cuda)
     plain = cls(lhs, halo_shape=1, omega=omega, smoother="plain",
@@ -799,23 +855,25 @@ def test_mg_kernel_matches_plain(cuda, problem, grid, dtype):
     rhos = {r: torch.rand(grid, generator=g, device=cuda, dtype=dtype) - 0.5
             for r in solver.f_to_rho_dict.values()}
     rr = {n: rhos[r] for n, r in solver.f_to_rho_dict.items()}
-    trelax.reset_launch_counts()
-    pairs = [(solver.smooth(level, fs, rhos, {}, 1),
-              plain.smooth(level, fs, rhos, {}, 1)),
-             (solver.smooth(level, fs, rhos, {}, 3),
-              plain.smooth(level, fs, rhos, {}, 3)),
-             (solver.residual(level, fs, rhos, {}),
-              plain.residual(level, fs, rhos, {})),
-             (solver.tau_rhs(level, fs, rr, {}),
-              plain.tau_rhs(level, fs, rr, {}))]
-    torch.cuda.synchronize()
-    assert {k: v for k, v in trelax.LAUNCHES.items() if v} == {
-        "mg_smooth": 4, "mg_residual": 1, "mg_tau": 1}
-    for got, ref in pairs:
-        assert set(got) == set(ref)
-        for n in ref:
-            assert got[n].dtype == dtype
-            assert _rel(got[n], ref[n]) <= MG_TOL[dtype]
+    for build in (None, MG_MARCH_ALL):
+        trelax.reset_launch_counts()
+        with _mg_lib(solver, build):
+            pairs = [(solver.smooth(level, fs, rhos, {}, 1),
+                      plain.smooth(level, fs, rhos, {}, 1)),
+                     (solver.smooth(level, fs, rhos, {}, 3),
+                      plain.smooth(level, fs, rhos, {}, 3)),
+                     (solver.residual(level, fs, rhos, {}),
+                      plain.residual(level, fs, rhos, {})),
+                     (solver.tau_rhs(level, fs, rr, {}),
+                      plain.tau_rhs(level, fs, rr, {}))]
+        torch.cuda.synchronize()
+        assert {k: v for k, v in trelax.LAUNCHES.items() if v} == {
+            "mg_smooth": 4, "mg_residual": 1, "mg_tau": 1}
+        for got, ref in pairs:
+            assert set(got) == set(ref)
+            for n in ref:
+                assert got[n].dtype == dtype
+                assert _rel(got[n], ref[n]) <= MG_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -929,26 +987,34 @@ def test_mg_interior_and_shells_equal_padded(cuda, problem, kind, dtype):
     """The overlapped path's launches: the interior on the raw block and
     the two x shells on ``(3h, Y, Z)`` slabs, each writing its rows of the
     full output block, together equal the x-padded launch bit for bit;
-    each region against its plain version."""
+    each region against its plain version. The default build (per site
+    on this block) and a build that marches every launch (a shell is a
+    run of h planes)."""
     solver, level, fs, rhos = _mg_case(cuda, problem, (12, 10, 8), dtype)
     X, h = fs[0].shape[0], 1
     padded = [_periodic_window(f, h, 0) for f in fs]
-    ref = solver.launch_block(kind, level, padded, rhos, {}, _new(fs),
-                              "xpad")
     lows = [p[:3 * h].contiguous() for p in padded]
     highs = [p[X - h:X + 2 * h].contiguous() for p in padded]
-    outs = _new(fs)
-    solver.launch_block(kind, level, fs, rhos, {}, outs, "interior", h)
-    solver.launch_block(kind, level, lows, rhos, {}, outs, "shell", 0)
-    solver.launch_block(kind, level, highs, rhos, {}, outs, "shell", X - h)
-    torch.cuda.synchronize()
-    for o, r in zip(outs, ref):
-        assert torch.equal(o, r)
-    for wins, a, b in ((fs, h, X - h), (lows, 0, h), (highs, X - h, X)):
-        plain = solver.plain(kind, level, wins, [r[a:b] for r in rhos], {},
-                             {}, pad=(h, 0))
-        for o, p in zip(outs, plain):
-            assert _rel(o[a:b], p) <= MG_TOL[dtype]
+    for build in (None, MG_MARCH_ALL):
+        with _mg_lib(solver, build):
+            ref = solver.launch_block(kind, level, padded, rhos, {},
+                                      _new(fs), "xpad")
+            outs = _new(fs)
+            solver.launch_block(kind, level, fs, rhos, {}, outs, "interior",
+                                h)
+            solver.launch_block(kind, level, lows, rhos, {}, outs, "shell",
+                                0)
+            solver.launch_block(kind, level, highs, rhos, {}, outs, "shell",
+                                X - h)
+        torch.cuda.synchronize()
+        for o, r in zip(outs, ref):
+            assert torch.equal(o, r)
+        for wins, a, b in ((fs, h, X - h), (lows, 0, h),
+                           (highs, X - h, X)):
+            plain = solver.plain(kind, level, wins, [r[a:b] for r in rhos],
+                                 {}, {}, pad=(h, 0))
+            for o, p in zip(outs, plain):
+                assert _rel(o[a:b], p) <= MG_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -1971,17 +2037,19 @@ def test_stage_march_split_layout_equals_per_site(cuda, carry):
 @pytest.mark.parametrize("grid", STAGE_GRIDS, ids=STAGE_IDS)
 @pytest.mark.parametrize("h", [1, 2, 3, 4])
 def test_fd_lap_march_equals_per_site(cuda, h, grid, dtype):
-    """fd_lap (the x-march) equals the per-site template's Laplacian
-    (``fd_grad_lap``'s) bit for bit, unpadded, x-, y- and xy-padded on
-    windows padded by hand, and as an interior launch plus two x shells,
-    at the march's edges and on 2^3."""
+    """fd_lap (the x-march) equals the per-site template's Laplacian (a
+    build's whose fd_lap and fd_grad_lap run per site: both) bit for bit,
+    unpadded, x-, y- and xy-padded on windows padded by hand, and as an
+    interior launch plus two x shells, at the march's edges and on 2^3."""
     fd = pt.FiniteDifferencer(h, (0.3, 0.25, 0.2))
     g = torch.Generator(device=cuda).manual_seed(h)
     x = torch.randn((3,) + grid, generator=g, device=cuda, dtype=dtype)
     lap = fd.launch("lap", x)[0]
-    ref = fd.launch("grad_lap", x)[1]
+    with _fd_per_site(h):
+        ref = fd.launch("lap", x)[0]
+        ref_gl = fd.launch("grad_lap", x)[1]
     torch.cuda.synchronize()
-    assert torch.equal(lap, ref)
+    assert torch.equal(lap, ref) and torch.equal(lap, ref_gl)
     X, Y, _ = grid
     if min(X, Y) < h:
         return
@@ -2001,3 +2069,128 @@ def test_fd_lap_march_equals_per_site(cuda, h, grid, dtype):
                         xpad.narrow(1, x0, 3 * h).contiguous(), out, x0=x0)
     torch.cuda.synchronize()
     assert torch.equal(out[0], lap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", STAGE_GRIDS, ids=STAGE_IDS)
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+def test_fd_grad_lap_march_equals_per_site(cuda, h, grid, dtype):
+    """fd_grad_lap (the x-march) equals the per-site build's fd_grad_lap
+    and, output by output, fd_grad's gradient and fd_lap's Laplacian bit
+    for bit; unpadded, x-, y- and xy-padded on windows padded by hand, and
+    as an interior launch plus two x shells, at the march's edges and on
+    2^3."""
+    fd = pt.FiniteDifferencer(h, (0.3, 0.25, 0.2))
+    g = torch.Generator(device=cuda).manual_seed(h)
+    x = torch.randn((3,) + grid, generator=g, device=cuda, dtype=dtype)
+    got = fd.launch("grad_lap", x)
+    with _fd_per_site(h):
+        ref = fd.launch("grad_lap", x)
+    grad, lap = fd.launch("grad", x)[0], fd.launch("lap", x)[0]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert torch.equal(got[0], grad) and torch.equal(got[1], lap)
+
+    def nans():
+        return [torch.full_like(o, float("nan")) for o in got]
+    X, Y, _ = grid
+    if min(X, Y) < h:
+        return
+    for kind, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
+                           ("xypad", (h, h))):
+        out = fd.launch_block("grad_lap", kind, _pad_periodic(x, hx, hy),
+                              nans())
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, got))
+    if X <= 2 * h:
+        return
+    xpad = _pad_periodic(x, h, 0)
+    out = nans()
+    fd.launch_block("grad_lap", "interior", x, out, x0=h)
+    for x0 in (0, X - h):
+        fd.launch_block("grad_lap", "shell",
+                        xpad.narrow(1, x0, 3 * h).contiguous(), out, x0=x0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, got))
+
+
+#: K11's march at its edges: runs cut short (70 rows: not a multiple of
+#: the run length), tiles hanging over Y and Z, 16^3, 48x40x36, the 8^3
+#: coarsest level of the multigrid path and 2^3
+MG_MARCH_GRIDS = [(16, 16, 16), (48, 40, 36), (8, 8, 8), (2, 2, 2),
+                  (70, 12, 40)]
+MG_MARCH_IDS = ["16cubed", "48x40x36", "8cubed", "2cubed", "70x12x40"]
+
+
+def _flat(out):
+    return list(out.values()) if isinstance(out, dict) else list(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", MG_MARCH_GRIDS, ids=MG_MARCH_IDS)
+@pytest.mark.parametrize("h", [1, 2])
+@pytest.mark.parametrize("problem", ["newton", "jacobi"])
+def test_mg_march_equals_per_site(cuda, problem, h, grid, dtype):
+    """K11's march (a build that marches every launch) equals the per-site
+    kernel (a build that marches none) bit for bit: mg_smooth (1 and 3
+    sweeps), mg_residual and mg_tau, unpadded, x-, y- and xy-padded on
+    windows padded by hand, and as an interior launch plus two x shells;
+    each padded launch and the split equal the unpadded one. nf = 1 (the
+    Newton problem) and 2 (the Jacobi pair)."""
+    cls, lhs, omega = _mg_problem(problem)
+    solver = cls(lhs, halo_shape=h, omega=omega, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(10 + h)
+    names = list(solver.f_to_rho_dict)
+    rnames = list(solver.f_to_rho_dict.values())
+
+    def rand():
+        return torch.rand(grid, generator=g, device=cuda, dtype=dtype) - 0.5
+    fs, rhos, rr = ([rand() for _ in names] for _ in range(3))
+    level = trelax.LevelSpec(grid, (10.0 / 16, 0.5, 0.4))
+    X, Y, _ = grid
+
+    def launches(build):
+        out = {}
+        fd, rd = dict(zip(names, fs)), dict(zip(rnames, rhos))
+        with _mg_lib(solver, build):
+            out["smooth1"] = solver.smooth(level, fd, rd, {}, 1)
+            out["smooth3"] = solver.smooth(level, fd, rd, {}, 3)
+            out["residual"] = solver.residual(level, fd, rd, {})
+            out["tau"] = solver.tau_rhs(level, fd, dict(zip(names, rr)), {})
+            for kind, src in (("smooth", rhos), ("residual", rhos),
+                              ("tau", rr)):
+                out[kind, None] = solver.launch_block(kind, level, fs, src,
+                                                      {}, _new(fs))
+                if min(X, Y) >= h:
+                    for pad, (hx, hy) in (("xpad", (h, 0)),
+                                          ("ypad", (0, h)),
+                                          ("xypad", (h, h))):
+                        wins = [_periodic_window(f, hx, hy) for f in fs]
+                        out[kind, pad] = solver.launch_block(
+                            kind, level, wins, src, {}, _new(fs), pad)
+                if X > 2 * h:
+                    padded = [_periodic_window(f, h, 0) for f in fs]
+                    outs = _new(fs)
+                    solver.launch_block(kind, level, fs, src, {}, outs,
+                                        "interior", h)
+                    for x0 in (0, X - h):
+                        solver.launch_block(
+                            kind, level,
+                            [p[x0:x0 + 3 * h].contiguous() for p in padded],
+                            src, {}, outs, "shell", x0)
+                    out[kind, "split"] = outs
+        torch.cuda.synchronize()
+        return out
+
+    march, per_site = launches(MG_MARCH_ALL), launches(MG_PER_SITE)
+    assert set(march) == set(per_site)
+    for key, got in march.items():
+        assert all(torch.equal(a, b)
+                   for a, b in zip(_flat(got), _flat(per_site[key]))), key
+        if isinstance(key, tuple):
+            assert all(torch.equal(a, b) for a, b in zip(
+                got, march[key[0], None])), key

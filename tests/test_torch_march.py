@@ -1,9 +1,10 @@
 """The x-march tile of the pair kernels (the scalar pairs K3, K6 and the GW
 pairs K8, K9) and of the single stages that march (K5', K7 and K5) as the
 host mirrors it (``pystella_tpu_torch.ops.fused.march_tile``), the
-Laplacian's (``pystella_tpu_torch.ops.derivs.lap_tile``), and the smoke
-run's phase selection (``chip_smoke.py --phases``), stage-march variants
-and ptxas rows.
+Laplacian's (``pystella_tpu_torch.ops.derivs.lap_tile``), the multigrid
+sweeps' (``pystella_tpu_torch.multigrid.relax.mg_tile``), and the smoke
+run's phase selection (``chip_smoke.py --phases``), march variants and
+ptxas rows.
 
 The kernels themselves run only on the card (tests/test_torch_kernels.py);
 their shared memory per block is fixed at compile time by the rule the
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 import pystella_tpu_torch as pt
+from pystella_tpu_torch.multigrid import relax as trelax
 from pystella_tpu_torch.ops import derivs as tderivs
 from pystella_tpu_torch.ops import fused as tfused
 
@@ -298,6 +300,60 @@ def test_lap_tile(h, dtype, lx):
     assert nbytes <= STATIC_SMEM_MAX
 
 
+@pytest.mark.parametrize("nf", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+def test_mg_tile(h, dtype, nf):
+    """The multigrid sweeps' march tile at every stencil radius, dtype and
+    count of unknowns: per unknown the centre plane with its y-z halo in
+    static shared memory, within the 48 KB a block may declare statically
+    (the +-x taps live in registers); a region of fewer sites than the
+    threshold (the multigrid path's levels of 128^3 and below, a one-plane
+    shell of its 512^3 level) runs the per-site kernel (None), and so does
+    every region where the planes do not fit. Without ``lx`` the run is
+    the source's default."""
+    isz = dtype.itemsize
+    nbytes = nf * (8 + 2 * h) * (32 + 2 * h) * isz
+    assert nbytes <= STATIC_SMEM_MAX
+    want = (trelax.MG_LX, nbytes)
+    assert trelax.mg_tile(h, isz, nf) == want
+    assert trelax.mg_tile(h, isz, nf, lx=16) == (16, nbytes)
+    for shape in ((512,) * 3, (256,) * 3, (256, 512, 512), (64, 256, 256)):
+        assert trelax.mg_tile(h, isz, nf, shape) == want
+    for shape in ((128,) * 3, (8,) * 3, (1, 512, 512), (63, 256, 256)):
+        assert trelax.mg_tile(h, isz, nf, shape) is None
+    # the unknowns' planes that no longer fit: every launch per site
+    most = STATIC_SMEM_MAX // ((8 + 2 * h) * (32 + 2 * h) * isz)
+    assert trelax.mg_tile(h, isz, most) is not None
+    assert trelax.mg_tile(h, isz, most + 1) is None
+    assert trelax.mg_tile(h, isz, most + 1, (512,) * 3) is None
+
+
+@pytest.mark.parametrize("src,kernels", [
+    ("fd_ops.cu", ("pk_fd_grad_lap_kernel",)),
+    ("mg_relax.cu", ("mg_relax_march_kernel",))], ids=["fd", "mg"])
+def test_queue_march_sources_launch_the_shared_march(src, kernels):
+    """fd_ops.cu's fd_grad_lap and mg_relax.cu's sweeps march through
+    pk_common.cuh's register-queue march, defined outside the fused
+    sources' PK_F guard (neither header defines PK_F); the queue loader
+    and tile live there alone. fd_lap keeps its own loop (the shared one
+    changed its registers on the card); K11 has none."""
+    csrc = Path(tderivs.__file__).resolve().parent / "csrc"
+    common = (csrc / "pk_common.cuh").read_text()
+    defined = common.index("pk_queue_march(const PkQueueSrc")
+    assert defined < common.index("#ifdef PK_F")
+    assert "struct PkQueueLoad" in common and "struct PkQueueTile" in common
+    text = (csrc / src).read_text()
+    for k in kernels:
+        body = text[text.index(k + "("):]
+        body = body[:body.index("\n}\n")]
+        assert "pk_queue_march<" in body
+    assert "struct PkQueueLoad" not in text and "PkFdLapTile :" not in text
+    if src == "mg_relax.cu":
+        assert "__syncthreads" not in text
+
+
 def _smoke():
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke_phases", path)
@@ -314,7 +370,10 @@ def _smoke():
     (["--phases", "sharded_mg"], None, {"sharded_mg", "mg"}),
     (["--phases", "march_variants"], None, {"march_variants"}),
     ([], "sharded_gw,fd", {"sharded_gw", "gw", "fd"}),
-], ids=["default", "one", "two", "deps", "mg-deps", "opt-in", "env"])
+    (["--phases", "march_variants,sharded_mg"], None,
+     {"march_variants", "sharded_mg", "mg"}),
+], ids=["default", "one", "two", "deps", "mg-deps", "opt-in", "env",
+        "opt-in-mg"])
 def test_smoke_phase_selection(monkeypatch, argv, env, want):
     """``--phases`` (or ``PYSTELLA_SMOKE_PHASES``) selects phase groups and
     every group whose results they read; with neither, every group of
@@ -353,14 +412,60 @@ def test_smoke_stage_variants():
     ("pk_fused_pair_kernel<float, float, 2>", True),
     ("pk_fused_stage_kernel<float, float, 0>", False),
     ("pk_reduce_partials_kernel<float>", False),
-], ids=["k5prime", "k7-xpad", "k5-bf16-fin-xypad", "k3", "k2", "finish"])
+    ("pk_fd_lap_kernel<float, 3>", True),
+    ("pk_fd_grad_lap_kernel<double, 1>", True),
+    ("mg_relax_march_kernel<float, 0, 0>", True),
+    ("mg_relax_march_kernel<double, 2, 3>", True),
+    ("mg_relax_kernel<float, 0, 0>", False),
+    ("pk_fd_kernel<float, 1, 0>", False),
+], ids=["k5prime", "k7-xpad", "k5-bf16-fin-xypad", "k3", "k2", "finish",
+        "fd-lap-xypad", "fd-grad-lap-xpad", "k11-smooth", "k11-tau-xypad",
+        "k11-per-site", "fd-per-site"])
 def test_smoke_march_ptxas_rows(name, gated):
     """The smoke's build gate reads the spills of every x-marching
-    instantiation -- K5', K7 and K5 (``pk_stage_march_kernel``), padded
-    ones included -- and not the per-site K2 or the sums' finish."""
+    instantiation -- K5', K7 and K5 (``pk_stage_march_kernel``), fd_lap,
+    fd_grad_lap and K11's march, padded ones included -- and not the
+    per-site K2, K11, K12 kernels or the sums' finish."""
     smoke = _smoke()
     rows = smoke.march_ptxas({"fused_stage": {name: {"registers": 90}}})
     assert (name in rows) == gated
+
+
+def test_smoke_queue_variants():
+    """march_variants times fd_grad_lap and K11's sweep at run lengths 16,
+    32 and 64, each with and without the next plane's loads a step ahead,
+    beside their per-site builds, and K11 on the multigrid path's levels
+    from 512^3 down; a variant's defines set both knobs, a per-site
+    build's the threshold (K11) or the per-site switch (K12)."""
+    smoke = _smoke()
+    assert set(smoke.QUEUE_VARIANTS) == {
+        (lx, a) for lx in (16, 32, 64) for a in (0, 1)}
+    assert smoke.mg_defines((16, 0)).split() == [
+        "#define", "MG_MARCH_LX", "16", "#define", "MG_MARCH_AHEAD", "0"]
+    assert smoke.fd_grad_lap_defines((64, 1)).split() == [
+        "#define", "PK_FD_GRAD_LAP_LX", "64", "#define",
+        "PK_FD_GRAD_LAP_AHEAD", "1"]
+    assert smoke.mg_defines("per_site") == smoke.MG_PER_SITE
+    assert smoke.fd_grad_lap_defines("per_site") == smoke.FD_PER_SITE
+    assert int(smoke.MG_PER_SITE.split()[-1]) > 512 * 512
+    assert int(smoke.MG_MARCH_ALL.split()[-1]) == 1
+    assert smoke.MG_LEVELS[0] == smoke.GRID
+    assert [s[0] for s in smoke.MG_LEVELS] == sorted(
+        (s[0] for s in smoke.MG_LEVELS), reverse=True)
+
+
+@pytest.mark.parametrize("lx", [None, 16], ids=["default", "lx16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+def test_grad_lap_tile(h, dtype, lx):
+    """fd_grad_lap's march tile: the Laplacian's (one tapped array) at its
+    own run length, and whether its loads go a step ahead."""
+    isz = dtype.itemsize
+    got = tderivs.grad_lap_tile(h, isz, lx=lx)
+    assert got == ((tderivs.GRAD_LAP_LX if lx is None else lx),
+                   (8 + 2 * h) * (32 + 2 * h) * isz, tderivs.GRAD_LAP_AHEAD)
+    assert tderivs.grad_lap_tile(h, isz, lx=lx, ahead=0)[2] == 0
 
 
 def test_smoke_unknown_phase_exits_nonzero(monkeypatch, capsys):

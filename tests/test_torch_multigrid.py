@@ -175,10 +175,9 @@ def test_periodic_pad_matches_jax():
 
 # -- sweeps, residuals and coarse right-hand sides ----------------------------
 
-@pytest.fixture(scope="module")
-def jax_sweeps(decomp):
-    """smooth(3), residual and tau_rhs of both problems through both JAX
-    tiers, in f64 and (the XLA tier) f32, computed once."""
+def _jax_sweeps(decomp, h):
+    """smooth(3), residual and tau_rhs of both problems at stencil radius
+    ``h`` through both JAX tiers, in f64 and (the XLA tier) f32."""
     level = JLevelSpec(GRID, (DX,) * 3, False)
     out = {}
     for key, (cls, problems, omega) in PROBLEMS.items():
@@ -186,7 +185,7 @@ def jax_sweeps(decomp):
                                 ("xla", np.float32)):
             fs, rhos, rr = problem_arrays(key, dtype)
             solver = getattr(jmg, cls)(
-                decomp, problems(ps), halo_shape=1, dtype=dtype,
+                decomp, problems(ps), halo_shape=h, dtype=dtype,
                 smoother=smoother, fixed_parameters=dict(omega=omega))
             res = {
                 "smooth": solver.smooth(level, fs, rhos, {}, 3, decomp),
@@ -199,11 +198,23 @@ def jax_sweeps(decomp):
     return out
 
 
-def port_sweeps(key, dtype, smoother=None):
+@pytest.fixture(scope="module")
+def jax_sweeps(decomp):
+    """:func:`_jax_sweeps` at h = 1, computed once."""
+    return _jax_sweeps(decomp, 1)
+
+
+@pytest.fixture(scope="module")
+def jax_sweeps_h2(decomp):
+    """:func:`_jax_sweeps` at h = 2, computed once."""
+    return _jax_sweeps(decomp, 2)
+
+
+def port_sweeps(key, dtype, smoother=None, h=1):
     cls, problems, omega = PROBLEMS[key]
     fs, rhos, rr = problem_arrays(key, dtype)
     solver = getattr(tmg, cls)(
-        problems(pt), halo_shape=1, dtype=dtype, smoother=smoother,
+        problems(pt), halo_shape=h, dtype=dtype, smoother=smoother,
         fixed_parameters=dict(omega=omega), device="cpu")
     level = LevelSpec(GRID, (DX,) * 3, False)
     return {"smooth": solver.smooth(level, fs, rhos, {}, 3),
@@ -211,19 +222,32 @@ def port_sweeps(key, dtype, smoother=None):
             "tau": solver.tau_rhs(level, fs, rr, {})}
 
 
-@pytest.mark.parametrize("kind", ["smooth", "residual", "tau"])
-@pytest.mark.parametrize("tier", ["pallas-f64", "xla-f64", "xla-f32"])
-@pytest.mark.parametrize("key", list(PROBLEMS))
-def test_sweeps_match_jax(jax_sweeps, key, tier, kind):
+def _check_sweeps(sweeps, key, tier, kind, h):
     smoother, dtype = tier.split("-")
     dtype = {"f64": np.float64, "f32": np.float32}[dtype]
-    ref = jax_sweeps[key, smoother, dtype][kind]
-    got = port_sweeps(key, dtype)[kind]
+    ref = sweeps[key, smoother, dtype][kind]
+    got = port_sweeps(key, dtype, h=h)[kind]
     assert set(got) == set(ref)
     for n in ref:
         assert got[n].dtype == pt.convert.torch_dtype(dtype)
         err = rel(got[n].numpy(), ref[n])
         assert err <= SWEEP_TOL[dtype], (n, kind)
+
+
+@pytest.mark.parametrize("kind", ["smooth", "residual", "tau"])
+@pytest.mark.parametrize("tier", ["pallas-f64", "xla-f64", "xla-f32"])
+@pytest.mark.parametrize("key", list(PROBLEMS))
+def test_sweeps_match_jax(jax_sweeps, key, tier, kind):
+    _check_sweeps(jax_sweeps, key, tier, kind, 1)
+
+
+@pytest.mark.parametrize("kind", ["smooth", "residual", "tau"])
+@pytest.mark.parametrize("tier", ["pallas-f64", "xla-f64", "xla-f32"])
+@pytest.mark.parametrize("key", list(PROBLEMS))
+def test_sweeps_match_jax_h2(jax_sweeps_h2, key, tier, kind):
+    """:func:`test_sweeps_match_jax` at stencil radius 2: the order-4
+    Laplacian the sweeps' march taps from two planes on either side."""
+    _check_sweeps(jax_sweeps_h2, key, tier, kind, 2)
 
 
 @pytest.mark.parametrize("key", list(PROBLEMS))
