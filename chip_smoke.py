@@ -156,7 +156,8 @@ MG_CONVERGED_TOL, MG_CYCLE_TOL = 5e-14, 1e-12
 #: the stencil radii whose operator kernels are built and checked
 FD_HALOS = (1, 2, 4)
 #: the spill bytes (the larger of stores and loads) ptxas gives each float
-#: instantiation of the register-queue marches (fd_lap, fd_grad_lap, K11)
+#: instantiation of the register-queue marches (fd_lap, fd_grad, fd_grad_lap,
+#: fd_div, K11)
 #: that spills at all, by demangled name and stencil radius or problem, as
 #: an H100 build measured them: a few bytes at 40-48 registers, mostly in
 #: padded instantiations; a register floor removed fd_lap's at a 10% cost
@@ -170,6 +171,11 @@ QUEUE_MARCH_F32_SPILLS = {
     "pk_fd_grad_lap_kernel<float, 3> (h=1)": 12,
     "pk_fd_grad_lap_kernel<float, 2> (h=1)": 12,
     "pk_fd_grad_lap_kernel<float, 3> (h=4)": 4,
+    "pk_fd_grad_kernel<float, 2> (h=1)": 12,
+    "pk_fd_grad_kernel<float, 0> (h=4)": 4,
+    "pk_fd_div_kernel<float, 2> (h=1)": 12,
+    "pk_fd_div_kernel<float, 2> (h=4)": 12,
+    "pk_fd_div_kernel<float, 3> (h=4)": 12,
     "mg_relax_march_kernel<float, 0, 2> (newton)": 4,
     "mg_relax_march_kernel<float, 2, 2> (jacobi)": 8,
     "mg_relax_march_kernel<float, 1, 2> (jacobi)": 8,
@@ -178,10 +184,10 @@ QUEUE_MARCH_F32_SPILLS = {
 FD_KERNELS = ("fd_lap", "fd_grad", "fd_grad_lap", "fd_pdx", "fd_pdy",
               "fd_pdz", "fd_div")
 MG_KERNELS = ("mg_smooth", "mg_residual", "mg_tau")
-#: the operators that march (pk_queue_march), and the defines of the build
-#: whose fd_lap and fd_grad_lap run per site: the marches are timed beside
-#: it and held to it bit for bit
-FD_MARCHED = ("lap", "grad_lap")
+#: the operators that march (fd_lap's loop, pk_queue_march), and the
+#: defines of the build whose marching operators run per site: the marches
+#: are timed beside it and held to it bit for bit
+FD_MARCHED = ("lap", "grad", "grad_lap", "div")
 FD_PER_SITE = "\n#define PK_FD_PER_SITE 1\n"
 #: the defines of K11 builds that run every launch per site (the site
 #: threshold past any level) and that march every launch, however small
@@ -1265,9 +1271,9 @@ def fd_input(op, shape, dtype, seed, C=None):
 
 def fd_kernels_vs_plain(phase, cases, errs):
     """Each K12 operator's kernel vs its plain version at every (shape,
-    dtype, h) of ``cases``; the marches (fd_lap, fd_grad_lap) also bit for
-    bit against the per-site build's, fd_lap against fd_grad_lap's
-    Laplacian, and fd_grad_lap's outputs against fd_grad's and fd_lap's."""
+    dtype, h) of ``cases``; the marches (FD_MARCHED) also bit for bit
+    against the per-site build's, fd_lap against fd_grad_lap's Laplacian,
+    and fd_grad_lap's outputs against fd_grad's and fd_lap's."""
     import pystella_tpu_torch as pt
     from pystella_tpu_torch.ops import derivs
     for shape, dtype, h in cases:
@@ -1321,50 +1327,80 @@ FD_OUT_PER_IN = {"lap": 1, "grad": 3, "grad_lap": 4, "pdx": 1, "pdy": 1,
                  "pdz": 1, "div": 1 / 3}
 
 
+#: the library call against the kernel, f32 with cuDNN's TF32 off: its
+#: sums run in another order (3e-7 measured)
+LIBRARY_TOL = 1e-5
 #: the K12 operators one PyTorch call also computes: a convolution with
-#: circular padding, (output channels, kernel extent per axis)
-FD_LIBRARY = {"lap": (1, (1, 1, 1)), "grad": (3, (1, 1, 1)),
-              "pdx": (1, (1, 0, 0)), "pdy": (1, (0, 1, 0)),
-              "pdz": (1, (0, 0, 1))}
+#: circular padding, (input channels, output channels, kernel extent per
+#: axis). div reads its (n, 3, X, Y, Z) input as it is; grad_lap's channels
+#: are the three derivatives, then the Laplacian
+FD_LIBRARY = {"lap": (1, 1, (1, 1, 1)), "grad": (1, 3, (1, 1, 1)),
+              "pdx": (1, 1, (1, 0, 0)), "pdy": (1, 1, (0, 1, 0)),
+              "pdz": (1, 1, (0, 0, 1)), "div": (3, 1, (1, 1, 1)),
+              "grad_lap": (1, 4, (1, 1, 1))}
 
 
-def fd_library_conv(fd, op):
+def fd_library_conv(fd, op, device="cuda", dtype=torch.float32):
     """The yardstick of K12 operator ``op``: ``torch.nn.Conv3d`` with
     ``padding_mode="circular"`` (one call; the port never calls it) whose
     weights are the operator's stencil -- cross-correlation, so weight h + s
-    of an axis multiplies the tap at +s. Input (C, 1, X, Y, Z), output (C,
-    channels, X, Y, Z). cuDNN's default TF32 is off for it (the caller sets
+    of an axis multiplies the tap at +s. Input (C, channels in, X, Y, Z),
+    output (C, channels out, X, Y, Z) (:func:`fd_library_io`). cuDNN's
+    default TF32 is off for it (the caller sets
     ``torch.backends.cudnn.allow_tf32 = False``)."""
-    nout, axes = FD_LIBRARY[op]
+    nin, nout, axes = FD_LIBRARY[op]
     h = fd.h
     size = tuple(2 * h + 1 if a else 1 for a in axes)
-    conv = torch.nn.Conv3d(1, nout, size, padding=tuple(h * a for a in axes),
+    conv = torch.nn.Conv3d(nin, nout, size,
+                           padding=tuple(h * a for a in axes),
                            padding_mode="circular", bias=False,
-                           device="cuda", dtype=torch.float32)
-    w = torch.zeros((nout, 1) + size, dtype=torch.float64)
+                           device=device, dtype=dtype)
+    w = torch.zeros((nout, nin) + size, dtype=torch.float64)
     centre = tuple(h * a for a in axes)
 
     def at(d, s):  # the weight index of offset s along axis d
         i = list(centre)
         i[d] += s
         return tuple(i)
-    if op == "lap":
+
+    def lap(k):
         for s, c in fd.second.coefs.items():
             for d in range(3):
                 if s == 0:
-                    w[(0, 0) + centre] = c * sum(fd._inv_dx2)
+                    w[(k, 0) + centre] = c * sum(fd._inv_dx2)
                 else:
-                    w[(0, 0) + at(d, s)] += c * fd._inv_dx2[d]
-                    w[(0, 0) + at(d, -s)] += c * fd._inv_dx2[d]
-    else:
-        dirs = range(3) if op == "grad" else [axes.index(1)]
-        for k, d in enumerate(dirs):
-            for s, c in fd.first.coefs.items():
-                w[(k, 0) + at(d, s)] += c * fd._inv_dx[d]
-                w[(k, 0) + at(d, -s)] -= c * fd._inv_dx[d]
+                    w[(k, 0) + at(d, s)] += c * fd._inv_dx2[d]
+                    w[(k, 0) + at(d, -s)] += c * fd._inv_dx2[d]
+
+    def derivative(k, j, d):  # output k, input j, along axis d
+        for s, c in fd.first.coefs.items():
+            w[(k, j) + at(d, s)] += c * fd._inv_dx[d]
+            w[(k, j) + at(d, -s)] -= c * fd._inv_dx[d]
+    if op in ("lap", "grad_lap"):
+        lap(nout - 1)
+    if op in ("grad", "grad_lap"):
+        for d in range(3):
+            derivative(d, 0, d)
+    elif op == "div":
+        for d in range(3):
+            derivative(0, d, d)
+    elif op != "lap":
+        derivative(0, 0, axes.index(1))
     with torch.no_grad():
-        conv.weight.copy_(w.to(torch.float32))
+        conv.weight.copy_(w.to(dtype))
     return conv
+
+
+def fd_library_io(op, x, outs):
+    """The convolution's input for the kernel's (C, X, Y, Z) input ``x``,
+    and the kernel's outputs ``outs`` laid out as the convolution's
+    output."""
+    nin = FD_LIBRARY[op][0]
+    lat = tuple(x.shape[1:])
+    xin = x.view((x.shape[0] // nin, nin) + lat)
+    if op == "grad_lap":
+        return xin, torch.cat([outs[0], outs[1].unsqueeze(1)], dim=1)
+    return xin, outs[0].view((xin.shape[0], -1) + lat)
 
 
 #: fd_lap's row at the shape the wave path launches it (one component,
@@ -1420,20 +1456,21 @@ def time_fd_op(phase, fd, op, x, name, timing):
     library = {"library_ms": None}
     if op in FD_LIBRARY:
         conv = fd_library_conv(fd, op)
-        xin = x.view((x.shape[0], 1) + tuple(x.shape[1:]))
+        xin, ref = fd_library_io(op, x, fd.launch(op, x))
         with torch.no_grad():
             library["library_ms"] = cuda_ms(lambda: conv(xin), reps=5)
             got = conv(xin)
-        ref = fd.launch(op, x)[0]
-        if op != "grad":
-            ref = ref.view(got.shape)
         library["library_call"] = (
-            f"torch.nn.Conv3d(1, {FD_LIBRARY[op][0]}, "
+            f"torch.nn.Conv3d({conv.in_channels}, {conv.out_channels}, "
             f"{tuple(conv.kernel_size)}, padding_mode='circular')")
         library["library_rel_err_vs_kernel"] = rel_err(got, ref)[0]
         library["cudnn_allow_tf32"] = torch.backends.cudnn.allow_tf32
         del conv, got, ref
         torch.cuda.empty_cache()
+        # a yardstick that computes another function times nothing
+        if not library["library_rel_err_vs_kernel"] <= LIBRARY_TOL:
+            raise SystemExit(f"{name}: the library call disagrees with the "
+                             f"kernel: {library}")
     C = x.shape[0]
     nbytes = round(C * (1 + FD_OUT_PER_IN[op])) * sites * 4
     ops = C * FD_OPS_PER_COMPONENT[op](HALO) * sites
@@ -2465,15 +2502,17 @@ def march_ptxas(report):
     ``pk_coupled_pair_kernel``, K8 ``pk_preheat_pair_kernel``, K9
     ``pk_preheat_coupled_pair_kernel``, K10
     ``pk_fused_chunk_march_kernel``, K5', K7 and K5
-    ``pk_stage_march_kernel``, fd_lap ``pk_fd_lap_kernel``, fd_grad_lap
-    ``pk_fd_grad_lap_kernel``, K11 ``mg_relax_march_kernel``), with their
+    ``pk_stage_march_kernel``, fd_lap ``pk_fd_lap_kernel``, fd_grad
+    ``pk_fd_grad_kernel``, fd_grad_lap ``pk_fd_grad_lap_kernel``, fd_div
+    ``pk_fd_div_kernel``, K11 ``mg_relax_march_kernel``), with their
     registers and spill bytes."""
     rows = {}
     for usage in report.values():
         for name, u in usage.items():
             m = re.search(r"((?:pk_(?:(?:fused_|coupled_|preheat_|"
                           r"preheat_coupled_)pair|fused_chunk_march|"
-                          r"stage_march|fd_lap|fd_grad_lap)|mg_relax_march)"
+                          r"stage_march|fd_lap|fd_grad|fd_grad_lap|fd_div)|"
+                          r"mg_relax_march)"
                           r"_kernel<[^<>]*>)", name)
             if m:
                 rows[m.group(1)] = u
@@ -2504,6 +2543,8 @@ CHUNK_MARCH_KERNELS = ("fused_chunk",)
 STAGE_MARCH_KERNELS = ("preheat_stage_energy", "preheat_stage")
 SCALAR_STAGE_MARCH_KERNELS = ("fused_stage_energy",)
 MARCH_ROUNDS, MARCH_REPS = 3, 5
+#: a shell launch takes tens of microseconds: more rounds of more launches
+SHELL_ROUNDS, SHELL_REPS = 5, 40
 
 
 def march_defines(lx, nh):
@@ -2530,10 +2571,10 @@ def fd_lap_defines(lx):
     return f"\n#define PK_FD_LAP_LX {lx}\n"
 
 
-#: the variants of K11's and fd_grad_lap's marches: run length and whether
-#: the next plane's loads go a step ahead (MG_MARCH_LX, MG_MARCH_AHEAD;
-#: PK_FD_GRAD_LAP_LX, PK_FD_GRAD_LAP_AHEAD); each family is also timed
-#: with the per-site kernel ("per_site")
+#: the variants of K11's march and of fd_ops.cu's queue marches: run length
+#: and whether the next plane's loads go a step ahead (MG_MARCH_LX,
+#: MG_MARCH_AHEAD; PK_FD_<OP>_LX, PK_FD_<OP>_AHEAD); each family is also
+#: timed with the per-site kernel ("per_site")
 QUEUE_VARIANTS = tuple((lx, ahead) for ahead in (1, 0)
                        for lx in STAGE_VARIANTS)
 #: the multigrid path's levels on which K11's march (a build that marches
@@ -2551,14 +2592,21 @@ def mg_defines(variant):
     return f"\n#define MG_MARCH_LX {lx}\n#define MG_MARCH_AHEAD {ahead}\n"
 
 
-def fd_grad_lap_defines(variant):
-    """The defines of an fd_grad_lap variant ``(lx, ahead)`` or
-    ``"per_site"``."""
+#: fd_ops.cu's operators on pk_queue_march: one build a variant ``(lx,
+#: ahead)`` of QUEUE_VARIANTS sets each one's run length and look-ahead
+FD_QUEUE_OPS = ("grad", "grad_lap", "div")
+FD_QUEUE_VARIANTS = QUEUE_VARIANTS
+
+
+def fd_queue_defines(variant):
+    """The defines of a variant ``(lx, ahead)`` of every FD_QUEUE_OPS
+    march, or of the per-site build (``"per_site"``)."""
     if variant == "per_site":
         return FD_PER_SITE
     lx, ahead = variant
-    return (f"\n#define PK_FD_GRAD_LAP_LX {lx}\n"
-            f"#define PK_FD_GRAD_LAP_AHEAD {ahead}\n")
+    return "\n" + "".join(f"#define PK_FD_{op.upper()}_LX {lx}\n"
+                          f"#define PK_FD_{op.upper()}_AHEAD {ahead}\n"
+                          for op in FD_QUEUE_OPS)
 
 
 def march_variants(phase, sector, gw_sector, dx):
@@ -2567,8 +2615,8 @@ def march_variants(phase, sector, gw_sector, dx):
     length of MARCH_VARIANTS; K10 through each run length and first-rung
     rows of CHUNK_VARIANTS; K5' and K7 through each run length of
     STAGE_VARIANTS, and K5 through each of SCALAR_STAGE_VARIANTS (fd_lap,
-    fd_grad_lap and K11: :func:`fd_lap_variants`,
-    :func:`fd_grad_lap_variants`, :func:`mg_variants`). Each variant is
+    fd_grad, fd_grad_lap, fd_div and K11: :func:`fd_lap_variants`,
+    :func:`fd_queue_variants`, :func:`mg_variants`). Each variant is
     built from the same sources into libraries of its own (the model
     header with the variant's
     defines: one nvcc a source and variant, all of a family at once), its
@@ -2633,7 +2681,7 @@ def march_variants(phase, sector, gw_sector, dx):
              SCALAR_STAGE_MARCH_KERNELS, pair_family(0, values=1))):
         march_family(f"{phase}_{label}", make, kernels, *family)
     fd_lap_variants(f"{phase}_fd_lap")
-    fd_grad_lap_variants(f"{phase}_fd_grad_lap")
+    fd_queue_variants(f"{phase}_fd")
     mg_variants(f"{phase}_mg")
 
 
@@ -2646,73 +2694,99 @@ def variant_row(label, rounds, equal):
 
 
 def queue_label(v):
-    return {"per_site": True} if v == "per_site" else {"lx": v[0],
-                                                       "ahead": v[1]}
+    if v == "per_site":
+        return {"per_site": True}
+    return dict(zip(("lx", "ahead"), v))
 
 
-def fd_grad_lap_variants(phase):
-    """fd_grad_lap at h = 2 on (2, 512^3) f32 through each variant of
-    QUEUE_VARIANTS and the per-site build: each built from the same source
-    into a library of its own (one nvcc a variant, all at once), its tile
-    held to ops/derivs.py:grad_lap_tile, its registers and spills from
-    ptxas, its outputs the default build's bit for bit; then the variants
-    timed in turns (MARCH_ROUNDS rounds of MARCH_REPS launches each) on
-    one input."""
+def fd_queue_variants(phase):
+    """fd_grad, fd_grad_lap and fd_div (FD_QUEUE_OPS) at h = 2 on (2,
+    512^3) f32 (fd_div on (2, 3, 512^3)) through each variant of
+    FD_QUEUE_VARIANTS and the per-site build: one build a variant for all
+    three (one nvcc a variant, all at once), each tile held to its mirror
+    in ops/derivs.py (QUEUE_TILES), registers and spills from ptxas, every
+    output the default build's bit for bit; then the variants timed in
+    turns (MARCH_ROUNDS rounds of MARCH_REPS launches each) on one input
+    an operator. Last, each operator's x shell (the overlapped path's
+    ``(C, 3h, 512, 512)`` window, ``:shell``) through the default build and
+    the per-site one, in turns: where the per-site kernel wins, a shell
+    should not march."""
     import pystella_tpu_torch as pt
     from pystella_tpu_torch.ops import derivs
     from pystella_tpu_torch.ops import stencil
     header = derivs.kernel_header(HALO)
-    variants = QUEUE_VARIANTS + ("per_site",)
+    variants = FD_QUEUE_VARIANTS + ("per_site",)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(variants)) as pool:
         libs = list(pool.map(lambda v: stencil.build_kernels(
-            ["fd_ops.cu"], header + fd_grad_lap_defines(v))["fd_ops.cu"],
+            ["fd_ops.cu"], header + fd_queue_defines(v))["fd_ops.cu"],
             variants))
     build_s = time.perf_counter() - t0
     builds = {}
     for v, lib in zip(variants, libs):
-        got = derivs.reported_grad_lap_tile(lib.pk_fd_grad_lap_tile,
-                                            torch.float32)
-        want = (derivs.grad_lap_tile(HALO, 4) if v == "per_site" else
-                derivs.grad_lap_tile(HALO, 4, lx=v[0], ahead=v[1]))
-        if v == "per_site":
-            want = (0,) + want[1:]
-        builds[v] = {"fns": derivs.bind_kernels(lib), "tile": got,
+        tiles = {}
+        for op in FD_QUEUE_OPS:
+            query, mirror = derivs.QUEUE_TILES[op]
+            got = derivs.reported_queue_tile(getattr(lib, query),
+                                             torch.float32)
+            want = (mirror(HALO, 4) if v == "per_site" else
+                    mirror(HALO, 4, lx=v[0], ahead=v[1]))
+            if v == "per_site":
+                want = (0,) + want[1:]
+            if got != want:
+                raise SystemExit(f"fd_{op} variant {v}: the library's tile "
+                                 f"{got}, the mirror's {want}")
+            tiles[op] = got
+        builds[v] = {"fns": derivs.bind_kernels(lib), "tiles": tiles,
                      "ptxas": march_ptxas({"fd_ops": demangled(
                          stencil.ptxas_usage(stencil.build_log(
-                             "fd_ops.cu", header
-                             + fd_grad_lap_defines(v))))})}
-        if got != want:
-            raise SystemExit(f"fd_grad_lap variant {v}: the library's tile "
-                             f"{got}, the mirror's {want}")
+                             "fd_ops.cu", header + fd_queue_defines(v))))})}
     emit({"phase": phase + "_build", "seconds": build_s,
-          "variants": [{**queue_label(v), "tile": b["tile"],
+          "variants": [{**queue_label(v), "tiles": b["tiles"],
                         "ptxas": b["ptxas"]} for v, b in builds.items()]})
     fd = pt.FiniteDifferencer(HALO, WAVE_BOX / GRID[0])
     fns = derivs.build_kernels(HALO)
-    keys = [("grad_lap", torch.float32, 0)]
-    x = fd_input("grad_lap", GRID, torch.float32, 74)
-    ref = [t.clone() for t in fd.launch("grad_lap", x)]
-    equal, rounds = {}, {v: [] for v in builds}
-    for v, b in builds.items():
-        with swapped(fns, b["fns"], keys):
-            equal[v] = all(torch.equal(a, r) for a, r in zip(
-                fd.launch("grad_lap", x), ref))
-    for _ in range(MARCH_ROUNDS):
+    for seed, op in enumerate(FD_QUEUE_OPS):
+        keys = [(op, torch.float32, 0)]
+        x = fd_input(op, GRID, torch.float32, 74 + seed)
+        ref = [t.clone() for t in fd.launch(op, x)]
+        equal, rounds = {}, {v: [] for v in builds}
         for v, b in builds.items():
             with swapped(fns, b["fns"], keys):
-                rounds[v].append(cuda_ms(lambda: fd.launch("grad_lap", x),
-                                         reps=MARCH_REPS, warmup=1))
-    emit({"phase": phase, "kernel": "fd_grad_lap", "shape": tuple(x.shape),
-          "dtype": "torch.float32", "h": HALO,
-          "bound_ms": 5 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
-          "variants": [variant_row(queue_label(v), r, equal[v])
-                       for v, r in rounds.items()]})
-    if not all(equal.values()):
-        raise SystemExit(f"fd_grad_lap: a march variant's output differs "
-                         f"from the default build's: {equal}")
-    del x, ref
-    torch.cuda.empty_cache()
+                equal[v] = all(torch.equal(a, r) for a, r in zip(
+                    fd.launch(op, x), ref))
+        for _ in range(MARCH_ROUNDS):
+            for v, b in builds.items():
+                with swapped(fns, b["fns"], keys):
+                    rounds[v].append(cuda_ms(lambda: fd.launch(op, x),
+                                             reps=MARCH_REPS, warmup=1))
+        emit({"phase": f"{phase}_{op}", "kernel": "fd_" + op,
+              "shape": tuple(x.shape), "dtype": "torch.float32", "h": HALO,
+              "bound_ms": round(x.shape[0] * (1 + FD_OUT_PER_IN[op]))
+              * math.prod(GRID) * 4 / HBM_BYTES_PER_S * 1e3,
+              "variants": [variant_row(queue_label(v), r, equal[v])
+                           for v, r in rounds.items()]})
+        if not all(equal.values()):
+            raise SystemExit(f"fd_{op}: a march variant's output differs "
+                             f"from the default build's: {equal}")
+        # the x shell: the default build against the per-site one
+        win = x[:, :3 * HALO].contiguous()
+        outs = [torch.empty_like(t) for t in ref]
+        del x, ref
+        keys = [(op, torch.float32, 1)]
+        shell = {"march": [], "per_site": []}
+        for _ in range(SHELL_ROUNDS):
+            for b, other in (("march", fns), ("per_site",
+                                              builds["per_site"]["fns"])):
+                with swapped(fns, other, keys):
+                    shell[b].append(cuda_ms(lambda: fd.launch_block(
+                        op, "shell", win, outs), reps=SHELL_REPS, warmup=5))
+        emit({"phase": f"{phase}_{op}_shell", "kernel": f"fd_{op}:shell",
+              "shape": tuple(win.shape), "dtype": "torch.float32",
+              **{f"{b}_ms": sum(r) / len(r) for b, r in shell.items()},
+              **{f"{b}_ms_rounds": r for b, r in shell.items()}})
+        del win, outs
+        torch.cuda.empty_cache()
 
 
 def mg_variants(phase):
@@ -3844,9 +3918,9 @@ PHASE_DEPS = {"sharded_mg": ("mg",), "sharded": ("scalar",),
               "sharded_bf16": ("scalar", "gw")}
 #: phases a run takes only when selected: march_variants builds the x-march
 #: variants of K3 and K6, of K8 and K9, of K10, of K5' and K7, of K5, of
-#: fd_lap, of fd_grad_lap and of K11 into libraries of their own and times
-#: them (fd_grad_lap and K11 beside their per-site builds, K11 also on the
-#: multigrid path's levels)
+#: fd_lap, of fd_grad, fd_grad_lap and fd_div and of K11 into libraries of
+#: their own and times them (fd_ops.cu's queue marches and K11 beside their
+#: per-site builds, on the x shells and on the multigrid path's levels)
 OPT_IN_PHASES = ("march_variants",)
 PHASE_HELP = {
     "scalar": "the scalar system: kernels vs plain, identities, references, "
@@ -3865,9 +3939,10 @@ PHASE_HELP = {
     "sharded_bf16": "the sharded bf16-carry launches and paths",
     "march_variants": "the x-march tile variants of K3 and K6 deferred, "
                       "of K8 and K9 deferred, of K10, of K5' and K7, of K5, "
-                      "of fd_lap, of fd_grad_lap and of K11, built apart "
-                      "and timed against each other (fd_grad_lap and K11 "
-                      "beside their per-site builds, K11 on each level)"}
+                      "of fd_lap, of fd_grad, fd_grad_lap and fd_div and "
+                      "of K11, built apart and timed against each other "
+                      "(beside the per-site builds; the fd x shells, K11 "
+                      "on each level)"}
 
 
 def selected_phases(argv):
@@ -3940,7 +4015,7 @@ def main(argv=None):
     from pystella_tpu_torch.multigrid import relax as trelax
     from pystella_tpu_torch.ops import derivs as tderivs
     from pystella_tpu_torch.ops import stencil as tstencil
-    # the per-site builds beside the marches (fd_lap and fd_grad_lap; K11
+    # the per-site builds beside the marches (fd_ops.cu's; K11
     # on every level) and K11's build that marches every level, each its
     # own nvcc beside the others
     variant_builds = {
@@ -4029,7 +4104,8 @@ def main(argv=None):
     # held it to the host mirror), and each instantiation's registers and
     # spills; none of the float ones may spill
     march_rows = march_ptxas(ptxas)
-    # the register-queue marches (fd_lap, fd_grad_lap, K11): their float
+    # the register-queue marches (fd_lap, fd_grad, fd_grad_lap, fd_div,
+    # K11): their float
     # instantiations may spill no more than QUEUE_MARCH_F32_SPILLS allows
     queue_rows = {f"{k} (h={h})": u for h in FD_HALOS
                    for k, u in march_ptxas({"fd_ops": demangled(ptxas_of(
@@ -4058,8 +4134,9 @@ def main(argv=None):
               "fused_chunk.cu (scalar)": tiles,
               **{f"fd_ops.cu (h={h})": {
                   str(d): {"lap": tderivs.lap_kernel_tile(h, d),
-                           "grad_lap": tderivs.reported_grad_lap_tile(
-                               tderivs.build_kernels(h)["grad_lap_tile"], d)}
+                           **{op: tderivs.reported_queue_tile(
+                               tderivs.build_kernels(h)[op + "_tile"], d)
+                              for op in tderivs.QUEUE_TILES}}
                   for d in (torch.float32, torch.float64)}
                  for h in FD_HALOS},
               **{f"mg_relax.cu ({k})": t for k, t in mg_tiles.items()}},
@@ -4067,8 +4144,8 @@ def main(argv=None):
           "queue_march_kernels": queue_rows,
           "queue_march_f32_spill_bytes_allowed": QUEUE_MARCH_F32_SPILLS})
     if f32_spills:
-        raise SystemExit(f"float x-march instantiations spill (fd_lap, "
-                         f"fd_grad_lap, K11: beyond QUEUE_MARCH_F32_SPILLS): "
+        raise SystemExit(f"float x-march instantiations spill (fd_ops.cu's, "
+                         f"K11: beyond QUEUE_MARCH_F32_SPILLS): "
                          f"{f32_spills}")
     del nonpoly_st, gwb_st
     if main_st.kernel_names() != scalar_kernels:

@@ -25,34 +25,37 @@
 // Bound: memory. Each input component-array is read once and each output
 // written once (lap 2C, grad 4C, grad_lap 5C, pd 2C, div 4n arrays of
 // sites * sizeof(T) bytes) against 3 + 9h (lap) or 9h (grad) operations a
-// site and component. Design of grad, pd* and div: one thread per site, z
-// fastest, so the centre loads and every store are coalesced; the 6h
-// neighbour taps are re-read through L1/L2; periodic wrap by index
-// arithmetic on all three axes, so any lattice shape runs; the components
-// are a loop inside the thread (the wrapped neighbour indices do not depend
-// on the component), with 64-bit offsets (C * 512^3 passes 2^31 at C = 16).
-// grad writes (C, 3, X, Y, Z), div reads (n, 3, X, Y, Z). Built with
-// -fmad=false: no multiply-add is contracted where the plain PyTorch
-// version rounds twice.
+// site and component. Design of pd*: one thread per site, z fastest, so the
+// centre loads and every store are coalesced; the 2h neighbour taps are
+// re-read through L1/L2; periodic wrap by index arithmetic on all three
+// axes, so any lattice shape runs; the components are a loop inside the
+// thread (the wrapped neighbour indices do not depend on the component),
+// with 64-bit offsets (C * 512^3 passes 2^31 at C = 16). grad writes (C, 3,
+// X, Y, Z), div reads (n, 3, X, Y, Z). Built with -fmad=false: no
+// multiply-add is contracted where the plain PyTorch version rounds twice.
 //
-// lap and grad_lap march instead (pk_fd_lap_kernel, pk_fd_grad_lap_kernel):
-// the TPU builder's x ring (StreamingStencil._build,
+// lap, grad, grad_lap and div march instead (pk_fd_lap_kernel,
+// pk_fd_grad_kernel, pk_fd_grad_lap_kernel, pk_fd_div_kernel): the x ring
+// of the streaming Pallas kernel (StreamingStencil._build,
 // pystella_tpu/ops/pallas_stencil.py:709) carried to a block. A block owns
-// one y-z tile of one component and walks it along x over a run of
-// PK_FD_LAP_LX (PK_FD_GRAD_LAP_LX) planes, the centre plane with its y-z
-// halo in static shared memory (under 5 KB at f64 and h = 4), the +-x taps
-// in a queue of 2h+1 values in each thread's registers, the next plane's
-// loads a step ahead (grad_lap: with PK_FD_GRAD_LAP_AHEAD). grad_lap runs
-// pk_queue_march of pk_common.cuh, the march K11 shares; lap keeps its own
-// loop of the same design, since the shared template changed its
-// registers and spills on an H100 (PERF.md). pk_lap and pk_grad run over
-// the planes in box coordinates, so each march equals the per-site
-// arithmetic bit for bit, and grad_lap's outputs equal grad's and lap's.
-// Components go in grid-sized groups. ops/derivs.py:lap_tile and
-// grad_lap_tile mirror the tiles; pk_fd_lap_tile and pk_fd_grad_lap_tile
-// report them.
-// PK_FD_PER_SITE 1 builds both per site, as pk_fd_kernel runs the other
-// operators: the yardstick the smoke times them against.
+// one y-z tile of one component (div: of one vector) and walks it along x
+// over a run of PK_FD_LAP_LX (PK_FD_GRAD_LX, PK_FD_GRAD_LAP_LX,
+// PK_FD_DIV_LX) planes, per tapped array the centre plane with its y-z halo
+// in static shared memory (div's three under 15 KB at f64 and h = 4, each
+// holding only the halo its array's derivative taps), the
+// +-x taps in a queue of 2h+1 values in each thread's registers, the next
+// plane's loads a step ahead (with PK_FD_GRAD_AHEAD, PK_FD_GRAD_LAP_AHEAD,
+// PK_FD_DIV_AHEAD). grad, grad_lap and div run pk_queue_march of
+// pk_common.cuh, the march K11 shares (div with its three arrays, NA = 3);
+// lap keeps its own loop of the same design, since the shared template
+// changed its registers and spills on an H100 (PERF.md). pk_lap, pk_grad
+// and pk_pd run over the planes in box coordinates, so each march equals
+// the per-site arithmetic bit for bit, and grad_lap's outputs equal grad's
+// and lap's. Components go in grid-sized groups. ops/derivs.py:lap_tile,
+// grad_tile, grad_lap_tile and div_tile mirror the tiles; pk_fd_lap_tile,
+// pk_fd_grad_tile, pk_fd_grad_lap_tile and pk_fd_div_tile report them.
+// PK_FD_PER_SITE 1 builds all four per site, as pk_fd_kernel runs pd*: the
+// yardstick the smoke times them against.
 //
 // The sharded tier (the _xpad, _ypad, _xypad entry points) replaces the
 // halo-input kernel StreamingStencil._build_xhalo
@@ -80,12 +83,14 @@ struct PkFdWeights {
 };
 
 // The derivative along one axis (AXIS = 0, 1, 2): acc = 0, then per offset
-// acc + w * (tap(+s) - tap(-s)).
+// acc + w * (tap(+s) - tap(-s)). PAD as pk_grad's (PK_BOX: a march's
+// loader, nothing wrapped).
 template <typename T, int AXIS, int PAD, typename Load>
 __device__ __forceinline__ T pk_pd(const Load& load, int x, int y, int z,
                                    int X, int Y, int Z,
                                    const PkGradWeights<T>& w, T acc) {
   constexpr bool PX = PAD & PK_PAD_X, PY = PAD & PK_PAD_Y;
+  constexpr bool PZ = PAD & PK_PAD_Z;
 #pragma unroll
   for (int s = 1; s <= PK_H; ++s) {
     if (AXIS == 0)
@@ -95,8 +100,8 @@ __device__ __forceinline__ T pk_pd(const Load& load, int x, int y, int z,
       acc = acc + w.wy[s - 1] * (load(x, pk_tap<PY>(y + s, Y), z)
                                  - load(x, pk_tap<PY>(y - s, Y), z));
     else
-      acc = acc + w.wz[s - 1] * (load(x, y, pk_wrap(z + s, Z))
-                                 - load(x, y, pk_wrap(z - s, Z)));
+      acc = acc + w.wz[s - 1] * (load(x, y, pk_tap<PZ>(z + s, Z))
+                                 - load(x, y, pk_tap<PZ>(z - s, Z)));
   }
   return acc;
 }
@@ -113,9 +118,23 @@ __device__ __forceinline__ T pk_pd(const Load& load, int x, int y, int z,
 #ifndef PK_FD_GRAD_LAP_AHEAD
 #define PK_FD_GRAD_LAP_AHEAD 1
 #endif
-// 1: lap and grad_lap run per site too (pk_fd_kernel), as the other
-// operators do: the yardstick the smoke times the marches against and the
-// card tests hold them to
+// grad's and div's, in the same form (grad's run of 16 beat 32 by 1-2% in
+// four march_variants runs; div's 64 came within 0.3% of 32)
+#ifndef PK_FD_GRAD_LX
+#define PK_FD_GRAD_LX 16
+#endif
+#ifndef PK_FD_GRAD_AHEAD
+#define PK_FD_GRAD_AHEAD 1
+#endif
+#ifndef PK_FD_DIV_LX
+#define PK_FD_DIV_LX 32
+#endif
+#ifndef PK_FD_DIV_AHEAD
+#define PK_FD_DIV_AHEAD 1
+#endif
+// 1: lap, grad, grad_lap and div run per site too (pk_fd_kernel), as the
+// pd* operators do: the yardstick the smoke times the marches against and
+// the card tests hold them to
 #ifndef PK_FD_PER_SITE
 #define PK_FD_PER_SITE 0
 #endif
@@ -124,6 +143,15 @@ template <typename T>
 using PkFdLapTile = PkQueueTile<T, 1, PK_FD_LAP_LX>;
 template <typename T>
 using PkFdGradLapTile = PkQueueTile<T, 1, PK_FD_GRAD_LAP_LX>;
+template <typename T>
+using PkFdGradTile = PkQueueTile<T, 1, PK_FD_GRAD_LX>;
+// div taps the three arrays of a vector: three centre planes, 15 KB at f64
+// and h = 4
+template <typename T>
+using PkFdDivTile = PkQueueTile<T, 3, PK_FD_DIV_LX>;
+static_assert(PkFdDivTile<double>::FITS,
+              "div's three centre planes exceed a block's static shared "
+              "memory");
 
 // The Laplacian's march: block (z tile, y tile, run + nruns * component)
 // over an (X, Y, Z) region; window geometry as pk_fd_kernel's.
@@ -226,6 +254,68 @@ pk_fd_grad_lap_kernel(const T* __restrict__ in, T* __restrict__ out0,
       });
 }
 
+// grad's march: grad_lap's without the Laplacian.
+template <typename T, int PAD>
+__global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
+pk_fd_grad_kernel(const T* __restrict__ in, T* __restrict__ out0, int X,
+                  int Y, int Z, int nruns, PkGradWeights<T> w, PkGeom g) {
+  using Tl = PkFdGradTile<T>;
+  const int c = blockIdx.z / nruns;
+  const int xs = (blockIdx.z - c * nruns) * Tl::LX;
+  const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
+  const int64_t Nw = PAD ? g.Nw : N;
+  T* __restrict__ grad = out0 + 3 * c * N;
+  const int z = blockIdx.x * Tl::TZ + threadIdx.x;
+  const int y = blockIdx.y * Tl::TY + threadIdx.y;
+  const bool valid = z < Z && y < Y;
+  pk_queue_march<T, 1, PAD, PK_FD_GRAD_AHEAD>(
+      PkQueueSrc<T, 1>{{in + c * Nw}}, X, Y, Z, PAD ? g.Ys : Y, xs,
+      min(Tl::LX, X - xs), [](int) { return PkNoSite{}; },
+      [&](int x, const PkQueueLoad<T> (&col)[1], PkNoSite) {
+        if (!valid) return;
+        const int64_t site = ((int64_t)x * Y + y) * Z + z;
+        T g3[3];
+        pk_queue_grad(col[0], w, g3);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) grad[d * N + site] = g3[d];
+      });
+}
+
+// div's march over vector c, its three arrays tapped together (NA = 3):
+// one accumulator from 0, v_x's x pairs, then v_y's y pairs, then v_z's z
+// pairs (div_body's order, pk_fd_kernel's PK_FD_DIV branch).
+template <typename T, int PAD>
+__global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
+pk_fd_div_kernel(const T* __restrict__ in, T* __restrict__ out0, int X,
+                 int Y, int Z, int nruns, PkGradWeights<T> w, PkGeom g) {
+  using Tl = PkFdDivTile<T>;
+  const int c = blockIdx.z / nruns;
+  const int xs = (blockIdx.z - c * nruns) * Tl::LX;
+  const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
+  const int64_t Nw = PAD ? g.Nw : N;
+  const T* v = in + 3 * c * Nw;
+  T* __restrict__ div = out0 + c * N;
+  const int z = blockIdx.x * Tl::TZ + threadIdx.x;
+  const int y = blockIdx.y * Tl::TY + threadIdx.y;
+  const bool valid = z < Z && y < Y;
+  // each array loads only the halo its derivative taps: v_x none, not even
+  // its centre plane, v_y the frame's rows, v_z its columns (14% faster than
+  // full frames on an H100, PERF.md)
+  constexpr unsigned halo = (1u << 2) | (1u << 5);
+  pk_queue_march<T, 3, PAD, PK_FD_DIV_AHEAD, halo>(
+      PkQueueSrc<T, 3>{{v, v + Nw, v + 2 * Nw}}, X, Y, Z, PAD ? g.Ys : Y,
+      xs, min(Tl::LX, X - xs), [](int) { return PkNoSite{}; },
+      [&](int x, const PkQueueLoad<T> (&col)[3], PkNoSite) {
+        if (!valid) return;
+        const int by = threadIdx.y + PK_H, bz = threadIdx.x + PK_H;
+        T acc = T(0);
+        acc = pk_pd<T, 0, PK_BOX>(col[0], PK_H, by, bz, 0, 0, 0, w, acc);
+        acc = pk_pd<T, 1, PK_BOX>(col[1], PK_H, by, bz, 0, 0, 0, w, acc);
+        acc = pk_pd<T, 2, PK_BOX>(col[2], PK_H, by, bz, 0, 0, 0, w, acc);
+        div[((int64_t)x * Y + y) * Z + z] = acc;
+      });
+}
+
 template <typename T, int OP, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_fd_kernel(const T* __restrict__ in, T* __restrict__ out0,
@@ -295,31 +385,43 @@ static int pk_launch_fd(const void* in, void* out0, void* out1, int64_t C,
   PkFdWeights<T> w;
   w.lap = pk_lap_weights<T>(weights);
   w.grad = pk_grad_weights<T>(weights + PK_NLAPW);
-  if constexpr (!PK_FD_PER_SITE
-                && (OP == PK_FD_LAP || OP == PK_FD_GRAD_LAP)) {
-    // the marches: components in groups that keep the grid's z extent in
-    // range, each group's pointers at its first component
-    constexpr int LX = OP == PK_FD_LAP ? PkFdLapTile<T>::LX
-                                       : PkFdGradLapTile<T>::LX;
+  if constexpr (!PK_FD_PER_SITE && OP != PK_FD_PDX && OP != PK_FD_PDY
+                && OP != PK_FD_PDZ) {
+    // the marches: components (div: vectors of three) in groups that keep
+    // the grid's z extent in range, each group's pointers at its first
+    constexpr int LX = OP == PK_FD_LAP        ? PkFdLapTile<T>::LX
+                       : OP == PK_FD_GRAD_LAP ? PkFdGradLapTile<T>::LX
+                       : OP == PK_FD_GRAD     ? PkFdGradTile<T>::LX
+                                              : PkFdDivTile<T>::LX;
+    // input arrays and output arrays a marched component has
+    constexpr int NIN = OP == PK_FD_DIV ? 3 : 1;
+    constexpr int NOUT = OP == PK_FD_GRAD || OP == PK_FD_GRAD_LAP ? 3 : 1;
     using Tl = PkTileGeo;
     const int nruns = (X + LX - 1) / LX;
     const int64_t most = 65535 / nruns;
     const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
     const int64_t Nw = PAD ? g.Nw : N;
-    for (int64_t c0 = 0; c0 < C; c0 += most) {
-      const int nc = (int)(C - c0 < most ? C - c0 : most);
+    const int64_t nv = C / NIN;
+    for (int64_t c0 = 0; c0 < nv; c0 += most) {
+      const int nc = (int)(nv - c0 < most ? nv - c0 : most);
       const dim3 grid((Z + Tl::TZ - 1) / Tl::TZ, (Y + Tl::TY - 1) / Tl::TY,
                       nc * nruns);
+      const T* src = (const T*)in + NIN * c0 * Nw;
+      T* dst = (T*)out0 + NOUT * c0 * N;
+      const dim3 block(Tl::TZ, Tl::TY, 1);
+      const cudaStream_t s = (cudaStream_t)stream;
       if constexpr (OP == PK_FD_LAP)
-        pk_fd_lap_kernel<T, PAD>
-            <<<grid, dim3(Tl::TZ, Tl::TY, 1), 0, (cudaStream_t)stream>>>(
-                (const T*)in + c0 * Nw, (T*)out0 + c0 * N, X, Y, Z, nruns,
-                w.lap, g);
+        pk_fd_lap_kernel<T, PAD><<<grid, block, 0, s>>>(
+            src, dst, X, Y, Z, nruns, w.lap, g);
+      else if constexpr (OP == PK_FD_GRAD_LAP)
+        pk_fd_grad_lap_kernel<T, PAD><<<grid, block, 0, s>>>(
+            src, dst, (T*)out1 + c0 * N, X, Y, Z, nruns, w, g);
+      else if constexpr (OP == PK_FD_GRAD)
+        pk_fd_grad_kernel<T, PAD><<<grid, block, 0, s>>>(
+            src, dst, X, Y, Z, nruns, w.grad, g);
       else
-        pk_fd_grad_lap_kernel<T, PAD>
-            <<<grid, dim3(Tl::TZ, Tl::TY, 1), 0, (cudaStream_t)stream>>>(
-                (const T*)in + c0 * Nw, (T*)out0 + 3 * c0 * N,
-                (T*)out1 + c0 * N, X, Y, Z, nruns, w, g);
+        pk_fd_div_kernel<T, PAD><<<grid, block, 0, s>>>(
+            src, dst, X, Y, Z, nruns, w.grad, g);
       const int err = (int)cudaGetLastError();
       if (err != 0) return err;
     }
@@ -367,14 +469,27 @@ extern "C" int pk_fd_lap_tile(int f64, int* out) {
   return 0;
 }
 
-// grad_lap's, in the same form, then 1 if its loads go a step ahead. x
-// planes 0 in both: a per-site build (PK_FD_PER_SITE).
-extern "C" int pk_fd_grad_lap_tile(int f64, int* out) {
-  out[0] = PK_FD_PER_SITE ? 0 : PkFdGradLapTile<float>::LX;
-  out[1] = f64 ? PkFdGradLapTile<double>::SMEM
-               : PkFdGradLapTile<float>::SMEM;
-  out[2] = PK_FD_GRAD_LAP_AHEAD;
+// A queue march's tile in the same form, then 1 if its loads go a step
+// ahead. x planes 0: a per-site build (PK_FD_PER_SITE).
+template <template <typename> class Tile>
+static int pk_fd_queue_tile(int f64, int ahead, int* out) {
+  out[0] = PK_FD_PER_SITE ? 0 : Tile<float>::LX;
+  out[1] = f64 ? Tile<double>::SMEM : Tile<float>::SMEM;
+  out[2] = ahead;
   return 0;
+}
+
+// grad_lap's, grad's and div's
+extern "C" int pk_fd_grad_lap_tile(int f64, int* out) {
+  return pk_fd_queue_tile<PkFdGradLapTile>(f64, PK_FD_GRAD_LAP_AHEAD, out);
+}
+
+extern "C" int pk_fd_grad_tile(int f64, int* out) {
+  return pk_fd_queue_tile<PkFdGradTile>(f64, PK_FD_GRAD_AHEAD, out);
+}
+
+extern "C" int pk_fd_div_tile(int f64, int* out) {
+  return pk_fd_queue_tile<PkFdDivTile>(f64, PK_FD_DIV_AHEAD, out);
 }
 
 PK_FD_ENTRIES(lap, PK_FD_LAP)

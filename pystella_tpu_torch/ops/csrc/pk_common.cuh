@@ -72,7 +72,7 @@ __device__ __forceinline__ int pk_wrap(int i, int n) {
 #define PK_PAD_X 1
 #define PK_PAD_Y 2
 // A loader in box coordinates (the x-march's shared planes, below): no axis
-// wraps. Only pk_lap and pk_grad take this bit.
+// wraps. Only pk_lap, pk_grad and fd_ops.cu's pk_pd take this bit.
 #define PK_PAD_Z 4
 #define PK_BOX (PK_PAD_X | PK_PAD_Y | PK_PAD_Z)
 
@@ -441,10 +441,10 @@ __device__ __forceinline__ void pk_frame_at(int k, int& yy, int& zz) {
 // The register-queue x-march (pk_queue_march): the TPU builder's x ring
 // (StreamingStencil._build, pystella_tpu/ops/pallas_stencil.py:709, the ring
 // :719-742) for kernels that tap NA arrays as they are, one value each:
-// fd_grad_lap (fd_ops.cu, whose fd_lap keeps its own loop of this design)
-// and the multigrid sweeps (mg_relax.cu, NA = MG_NF). A block of 32 (z) x 8
-// (y) threads owns one y-z
-// tile and walks it along x over a run of planes. Per tapped array the
+// fd_grad, fd_grad_lap and fd_div (fd_ops.cu, NA = 1, 1 and 3; its fd_lap
+// keeps its own loop of this design) and the multigrid sweeps (mg_relax.cu,
+// NA = MG_NF). A block of 32 (z) x 8 (y) threads owns one y-z tile and
+// walks it along x over a run of planes. Per tapped array the
 // centre plane with its y-z halo sits in static shared memory (the y and z
 // taps) and the +-x taps of a thread's own column in a queue of 2h+1 values
 // in its registers (a ring of 2h+1 shared planes, as pk_march keeps, ran
@@ -517,8 +517,13 @@ __device__ __forceinline__ void pk_queue_grad(const PkQueueLoad<T>& col,
 // pre's result) runs, col the NA loaders; a barrier ends the step. AHEAD:
 // those loads are issued a step ahead, so each step stores the loads the
 // step before issued and they are in flight across its barriers and body.
-template <typename T, int NA, int PAD, bool AHEAD, typename Pre,
-          typename Body>
+// HALO: per tapped array a, bit 2a loads the rows of its centre plane's
+// frame (h above and below the tile, corners included) and bit 2a + 1 its
+// columns (h either side of each row); an array with neither is tapped
+// through its queue alone, and its centre plane is not stored either. Every
+// bit set (the default): the full frames.
+template <typename T, int NA, int PAD, bool AHEAD, unsigned HALO = ~0u,
+          typename Pre, typename Body>
 __device__ __forceinline__ void pk_queue_march(const PkQueueSrc<T, NA> src,
                                                int X, int Y, int Z, int Yw,
                                                int xs, int nx, Pre&& pre,
@@ -541,6 +546,16 @@ __device__ __forceinline__ void pk_queue_march(const PkQueueSrc<T, NA> src,
     return p[a][((int64_t)x * Yw + yy) * Z + pk_wrap(zz, Z)];
   };
   const int ctr = (ty + PK_H) * Tl::SZ + tz + PK_H;
+  // whether array a stores its centre plane, and loads frame element k
+  auto planed = [](int a) {
+    if constexpr (HALO == ~0u) return true;
+    else return ((HALO >> (2 * a)) & 3u) != 0;
+  };
+  auto framed = [](int a, int k) {
+    if constexpr (HALO == ~0u) return true;
+    else return ((HALO >> (2 * a + (k < 2 * PK_H * Tl::SZ ? 0 : 1))) & 1u)
+                != 0;
+  };
   // this thread's first frame element, at the same place every plane
   const bool first = own < Tl::FRAME;
   int fy = 0, fz = 0;
@@ -561,7 +576,8 @@ __device__ __forceinline__ void pk_queue_march(const PkQueueSrc<T, NA> src,
 #pragma unroll
     for (int a = 0; a < NA; ++a) {
       next[a] = at(a, xs + PK_H, y, z);
-      edge[a] = first ? at(a, xs, y0 - PK_H + fy, z0 - PK_H + fz) : T(0);
+      edge[a] = first && framed(a, own)
+                    ? at(a, xs, y0 - PK_H + fy, z0 - PK_H + fz) : T(0);
     }
     site = pre(xs);
   }
@@ -571,7 +587,8 @@ __device__ __forceinline__ void pk_queue_march(const PkQueueSrc<T, NA> src,
 #pragma unroll
       for (int a = 0; a < NA; ++a) {
         next[a] = at(a, x + PK_H, y, z);
-        if (first) edge[a] = at(a, x, y0 - PK_H + fy, z0 - PK_H + fz);
+        if (first && framed(a, own))
+          edge[a] = at(a, x, y0 - PK_H + fy, z0 - PK_H + fz);
       }
     }
     const auto cur = AHEAD ? site : pre(x);
@@ -581,14 +598,16 @@ __device__ __forceinline__ void pk_queue_march(const PkQueueSrc<T, NA> src,
 #pragma unroll
       for (int k = 0; k < 2 * PK_H; ++k) q[k] = q[k + 1];
       q[2 * PK_H] = next[a];
-      sm[a * Tl::CENTRE + ctr] = q[PK_H];
-      if (first) sm[a * Tl::CENTRE + fy * Tl::SZ + fz] = edge[a];
+      if (planed(a)) sm[a * Tl::CENTRE + ctr] = q[PK_H];
+      if (first && framed(a, own))
+        sm[a * Tl::CENTRE + fy * Tl::SZ + fz] = edge[a];
     }
     if (AHEAD && i + 1 < nx) {
 #pragma unroll
       for (int a = 0; a < NA; ++a) {
         next[a] = at(a, x + PK_H + 1, y, z);
-        if (first) edge[a] = at(a, x + 1, y0 - PK_H + fy, z0 - PK_H + fz);
+        if (first && framed(a, own))
+          edge[a] = at(a, x + 1, y0 - PK_H + fy, z0 - PK_H + fz);
       }
       site = pre(x + 1);
     }
@@ -598,8 +617,9 @@ __device__ __forceinline__ void pk_queue_march(const PkQueueSrc<T, NA> src,
       pk_frame_at(k, yy, zz);
 #pragma unroll
       for (int a = 0; a < NA; ++a)
-        sm[a * Tl::CENTRE + yy * Tl::SZ + zz] =
-            at(a, x, y0 - PK_H + yy, z0 - PK_H + zz);
+        if (framed(a, k))
+          sm[a * Tl::CENTRE + yy * Tl::SZ + zz] =
+              at(a, x, y0 - PK_H + yy, z0 - PK_H + zz);
     }
     __syncthreads();
     body(x, (const PkQueueLoad<T>(&)[NA])col, cur);

@@ -7,11 +7,12 @@ the stencils' eigenvalues, and a :class:`FiniteDifferencer` with ``lap``,
 
 On a CUDA tensor every operator is one launch of a hand-written kernel
 (``ops/csrc/fd_ops.cu``, K12: the JAX package's
-``FiniteDifferencer._pallas_bodies``): ``lap`` and ``grad_lap`` an x-march
-of a shared-memory y-z tile (:func:`lap_tile`, :func:`grad_lap_tile`), the
-others one thread per site, with periodic wrap by index arithmetic. Beside
-it sits its plain PyTorch version: the
-same sums in the same order (``lap_from_taps`` / ``grad_from_taps`` and the
+``FiniteDifferencer._pallas_bodies``): ``lap``, ``grad``, ``grad_lap`` and
+``divergence`` an x-march of a shared-memory y-z tile (:func:`lap_tile`,
+:func:`grad_tile`, :func:`grad_lap_tile`, :func:`div_tile`), ``pdx`` /
+``pdy`` / ``pdz`` one thread per site, with periodic wrap by index
+arithmetic. Beside it sits its plain PyTorch version: the same sums in the
+same order (``lap_from_taps`` / ``grad_from_taps`` and the
 ``pd`` / ``div`` bodies) on :class:`~pystella_tpu_torch.ops.stencil.RollTaps`,
 which a CPU tensor takes. ``mode="roll"`` asks for the JAX package's
 ``mode="roll"`` bodies instead (per-axis ``torch.roll`` sums) on any
@@ -133,9 +134,15 @@ def reported_lap_tile(query, dtype):
 
 #: the x planes a block of ``grad_lap``'s march covers, and whether its
 #: next plane's loads go a step ahead (fd_ops.cu: PkFdGradLapTile,
-#: PK_FD_GRAD_LAP_LX, PK_FD_GRAD_LAP_AHEAD)
+#: PK_FD_GRAD_LAP_LX, PK_FD_GRAD_LAP_AHEAD); ``grad``'s and ``div``'s
+#: (PkFdGradTile, PK_FD_GRAD_LX, PK_FD_GRAD_AHEAD; PkFdDivTile,
+#: PK_FD_DIV_LX, PK_FD_DIV_AHEAD)
 GRAD_LAP_LX = 32
 GRAD_LAP_AHEAD = 1
+GRAD_LX = 16
+GRAD_AHEAD = 1
+DIV_LX = 32
+DIV_AHEAD = 1
 
 
 def grad_lap_tile(h, itemsize, lx=None, ahead=None):
@@ -149,10 +156,34 @@ def grad_lap_tile(h, itemsize, lx=None, ahead=None):
     return lap_tile(h, itemsize, lx) + (ahead,)
 
 
-def reported_grad_lap_tile(query, dtype):
-    """What a library's ``pk_fd_grad_lap_tile`` entry point ``query``
-    reports for working type ``dtype``, in :func:`grad_lap_tile`'s form
-    (x planes 0: a build whose ``grad_lap`` runs per site)."""
+def grad_tile(h, itemsize, lx=None, ahead=None):
+    """``grad``'s x-march tile, in :func:`grad_lap_tile`'s form: one tapped
+    array at ``grad``'s own run length and look-ahead."""
+    return grad_lap_tile(h, itemsize, GRAD_LX if lx is None else lx,
+                         GRAD_AHEAD if ahead is None else ahead)
+
+
+def div_tile(h, itemsize, lx=None, ahead=None):
+    """``div``'s x-march tile, in :func:`grad_lap_tile`'s form: the three
+    arrays of a vector tapped together, so three centre planes a block
+    (15,360 bytes at f64 and h = 4)."""
+    lx, nbytes, ahead = grad_lap_tile(h, itemsize,
+                                      DIV_LX if lx is None else lx,
+                                      DIV_AHEAD if ahead is None else ahead)
+    return lx, 3 * nbytes, ahead
+
+
+#: the queue marches' tiles: operator -> (the library's report, the mirror)
+QUEUE_TILES = {"grad": ("pk_fd_grad_tile", grad_tile),
+               "grad_lap": ("pk_fd_grad_lap_tile", grad_lap_tile),
+               "div": ("pk_fd_div_tile", div_tile)}
+
+
+def reported_queue_tile(query, dtype):
+    """What a library's ``pk_fd_grad_tile``, ``pk_fd_grad_lap_tile`` or
+    ``pk_fd_div_tile`` entry point ``query`` reports for working type
+    ``dtype``, in :func:`grad_lap_tile`'s form (x planes 0: a build whose
+    operators run per site)."""
     query.argtypes = [ctypes.c_int, ctypes.c_void_p]
     query.restype = ctypes.c_int
     out = (ctypes.c_int * 3)()
@@ -173,16 +204,17 @@ def build_kernels(h):
         lib = _stencil.build_kernels([_SOURCE], kernel_header(h))[_SOURCE]
         fns = bind_kernels(lib)
         fns["tile"] = lib.pk_fd_lap_tile
-        fns["grad_lap_tile"] = lib.pk_fd_grad_lap_tile
+        for op, (query, _) in QUEUE_TILES.items():
+            fns[op + "_tile"] = getattr(lib, query)
         for dtype in _SUFFIX:
             # the kernels' compile-time march tiles must be the ones
-            # lap_tile and grad_lap_tile predict
-            for op, got, want in (
-                    ("lap", reported_lap_tile(fns["tile"], dtype),
-                     lap_tile(h, dtype.itemsize)),
-                    ("grad_lap", reported_grad_lap_tile(
-                        fns["grad_lap_tile"], dtype),
-                     grad_lap_tile(h, dtype.itemsize))):
+            # lap_tile, grad_tile, grad_lap_tile and div_tile predict
+            checks = [("lap", reported_lap_tile(fns["tile"], dtype),
+                       lap_tile(h, dtype.itemsize))] + [
+                (op, reported_queue_tile(fns[op + "_tile"], dtype),
+                 mirror(h, dtype.itemsize))
+                for op, (_, mirror) in QUEUE_TILES.items()]
+            for op, got, want in checks:
                 if got != want:
                     raise RuntimeError(
                         f"fd_ops.cu instantiates {op}'s tile {got} for "

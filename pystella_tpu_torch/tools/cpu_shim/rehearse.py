@@ -16,12 +16,13 @@ carries and, for K5' and K5, the ``_bf16_fin`` carries, every padding, K7's
 interior and shell launches) likewise; K5''s lattice outputs also equal
 K7's bit for bit, its scalar outputs and sums K5's, K5's scalar outputs
 the per-site K2's, and two x blocks' partials the unsharded sums. With
-``--fd`` the finite-difference marches ``fd_lap`` and ``fd_grad_lap`` (h =
-1-4, f32 and f64, every padding, the interior and shell launches) are
-held to their plain versions, their padded, interior and shell launches to
-the unpadded one, and every launch to a per-site build's
-(``PK_FD_PER_SITE 1``) bit for bit; ``fd_grad_lap``'s outputs also equal
-``fd_grad``'s and ``fd_lap``'s. With ``--mg`` the multigrid sweeps K11
+``--fd`` the finite-difference marches ``fd_lap``, ``fd_grad``,
+``fd_grad_lap`` and ``fd_div`` (h = 1-4, f32 and f64, every padding, the
+interior and shell launches) are held to their plain versions, their
+padded, interior and shell launches to the unpadded one, and every launch
+to a per-site build's (``PK_FD_PER_SITE 1``) bit for bit;
+``fd_grad_lap``'s outputs also equal the marching ``fd_grad``'s and
+``fd_lap``'s. With ``--mg`` the multigrid sweeps K11
 (``mg_smooth`` one and three sweeps, ``mg_residual``, ``mg_tau``; the
 Newton problem, the Jacobi pair and a Newton problem with a lattice and two
 scalar auxiliary inputs; h = 1, 2 and, for the first two, 4; f32 and f64;
@@ -41,7 +42,8 @@ at h = 1 and 3, and 2^3, where the +-taps wrap onto one site. ``--lx`` is
 the run length the kernels are built with (PK_SCALAR_MARCH_LX;
 PK_MARCH_LX with ``--gw``, PK_CHUNK_LX with ``--chunk``,
 PK_STAGE_MARCH_LX and PK_SCALAR_STAGE_MARCH_LX with ``--stage``,
-PK_FD_LAP_LX and PK_FD_GRAD_LAP_LX with ``--fd``, MG_MARCH_LX with
+PK_FD_LAP_LX, PK_FD_GRAD_LX, PK_FD_GRAD_LAP_LX and PK_FD_DIV_LX with
+``--fd``, MG_MARCH_LX with
 ``--mg``): the default 4 cuts runs short at every shape and keeps the run
 to a few minutes. Exits 1 if a check fails::
 
@@ -350,10 +352,11 @@ def stage(args):
 
 
 class FdCase:
-    """``fd_lap`` and ``fd_grad_lap`` at stencil radius ``h`` on a seeded
-    ``(C, X, Y, Z)`` input: this checkout's library, one built with both
-    per site (``PK_FD_PER_SITE 1``) and, with ``--against``, another
-    checkout's."""
+    """The marching operators ``fd_lap``, ``fd_grad``, ``fd_grad_lap`` and
+    ``fd_div`` at stencil radius ``h`` on a seeded ``(C, X, Y, Z)`` input
+    (``fd_div``: ``(3 C, X, Y, Z)``, C vectors): this checkout's library,
+    one built with all four per site (``PK_FD_PER_SITE 1``) and, with
+    ``--against``, another checkout's."""
 
     def __init__(self, args, h, grid, dtype, C=2):
         header = tderivs.kernel_header(h)
@@ -364,16 +367,17 @@ class FdCase:
                  + "#define PK_FD_PER_SITE 1\n")] + ([
                 (Path(args.against) / "pystella_tpu_torch" / "ops" / "csrc",
                  "fd_ops.cu", header)] if args.against else [])))
+        isz = dtype.itemsize
         tiles = [(tderivs.reported_lap_tile(libs[0].pk_fd_lap_tile, dtype),
-                  tderivs.lap_tile(h, dtype.itemsize)),
-                 (tderivs.reported_grad_lap_tile(
-                     libs[0].pk_fd_grad_lap_tile, dtype),
-                  tderivs.grad_lap_tile(h, dtype.itemsize)),
+                  tderivs.lap_tile(h, isz)),
                  (tderivs.reported_lap_tile(libs[1].pk_fd_lap_tile, dtype),
-                  (0,) + tderivs.lap_tile(h, dtype.itemsize)[1:]),
-                 (tderivs.reported_grad_lap_tile(
-                     libs[1].pk_fd_grad_lap_tile, dtype),
-                  (0,) + tderivs.grad_lap_tile(h, dtype.itemsize)[1:])]
+                  (0,) + tderivs.lap_tile(h, isz)[1:])]
+        for query, mirror in tderivs.QUEUE_TILES.values():
+            want = mirror(h, isz)
+            tiles += [(tderivs.reported_queue_tile(getattr(libs[0], query),
+                                                   dtype), want),
+                      (tderivs.reported_queue_tile(getattr(libs[1], query),
+                                                   dtype), (0,) + want[1:])]
         for got, want in tiles:
             if got != want:
                 raise RuntimeError(f"fd_ops.cu's tile {got}, the mirror's "
@@ -386,16 +390,20 @@ class FdCase:
         self.tol = 1e-5 if dtype == torch.float32 else 1e-13
         g = torch.Generator().manual_seed(h)
         self.x = torch.randn((C,) + grid, generator=g, dtype=dtype)
-        self.name = (f"h{h} {(C,) + grid} {str(dtype)[6:]} tile "
-                     f"{tiles[0][0]} {tiles[1][0]}")
+        self.v = torch.randn((3 * C,) + grid, generator=g, dtype=dtype)
+        self.name = (f"h{h} {(C,) + grid} {str(dtype)[6:]} tiles "
+                     f"{[t[0] for t in tiles[::2]]}")
+
+    def input(self, op):
+        return self.v if op == "div" else self.x
 
     def nans(self, op):
-        """Fresh outputs of ``op`` (lap, grad or grad_lap), all NaN."""
+        """Fresh outputs of ``op`` (an operator of OPS), all NaN."""
         x = self.x
         grad = torch.full((x.shape[0], 3) + self.grid, float("nan"),
                           dtype=x.dtype)
         lap = torch.full_like(x, float("nan"))
-        return {"lap": [lap], "grad": [grad], "grad_lap": [grad, lap]}[op]
+        return {"grad": [grad], "grad_lap": [grad, lap]}.get(op, [lap])
 
     def launch(self, op, kind, win, x0=0, outs=None, libs=None):
         """Every library's (or ``libs``') launch of ``op``, into fresh
@@ -412,11 +420,12 @@ class FdCase:
         return got
 
     def run(self):
-        h, x, X = self.h, self.x, self.grid[0]
+        h, X = self.h, self.grid[0]
         other = " and other checkout" if len(self.libs) > 1 else ""
         res = {}
-        for op in ("lap", "grad_lap"):
+        for op in ("lap", "grad", "grad_lap", "div"):
             tag = f"fd_{op} {self.name}"
+            x = self.input(op)
             a = self.launch(op, None, x)
             if other:
                 check(f"{tag} == other checkout", same(*a))
@@ -446,12 +455,11 @@ class FdCase:
                     check(f"{tag} interior + shells == unpadded",
                           same(o, a))
                 tderivs._LIBS.pop(h)
-        grad = self.launch("grad", None, x, libs=self.libs[:1])[0]
-        ps = self.launch("grad_lap", None, x, libs=[self.per_site])[0]
+        ps = self.launch("grad_lap", None, self.x, libs=[self.per_site])[0]
         check(f"fd_lap {self.name} == the per-site fd_grad_lap's Laplacian",
               same(res["lap"], ps[1:]))
         check(f"fd_grad_lap {self.name} == (fd_grad, fd_lap)",
-              same(res["grad_lap"], grad + res["lap"]))
+              same(res["grad_lap"], res["grad"] + res["lap"]))
 
 
 def fd(args):
@@ -619,7 +627,8 @@ def main():
                         help="the stage marches K5', K7 and K5 instead of "
                         "K3 and K6")
     family.add_argument("--fd", action="store_true",
-                        help="fd_lap and fd_grad_lap instead of K3 and K6")
+                        help="fd_lap, fd_grad, fd_grad_lap and fd_div "
+                        "instead of K3 and K6")
     family.add_argument("--mg", action="store_true",
                         help="the multigrid sweeps K11 instead of K3 and K6")
     parser.add_argument("--lx", type=int, default=4,
@@ -639,8 +648,10 @@ def main():
                         f"#define PK_SCALAR_STAGE_MARCH_LX {args.lx}\n")
     elif args.fd:
         tderivs.LAP_LX = tderivs.GRAD_LAP_LX = args.lx
-        args.defines = (f"\n#define PK_FD_LAP_LX {args.lx}\n"
-                        f"#define PK_FD_GRAD_LAP_LX {args.lx}\n")
+        tderivs.GRAD_LX = tderivs.DIV_LX = args.lx
+        args.defines = "\n" + "".join(
+            f"#define PK_FD_{op}_LX {args.lx}\n"
+            for op in ("LAP", "GRAD", "GRAD_LAP", "DIV"))
     elif args.mg:
         args.defines = f"\n#define MG_MARCH_LX {args.lx}\n"
     else:

@@ -817,7 +817,8 @@ def _mg_lib(solver, defines):
 @contextlib.contextmanager
 def _fd_per_site(h):
     """Within, the operators of stencil radius ``h`` run the build whose
-    fd_lap and fd_grad_lap run per site."""
+    marching operators (fd_lap, fd_grad, fd_grad_lap, fd_div) run per
+    site."""
     keep = tderivs.build_kernels(h)
     header = tderivs.kernel_header(h) + FD_PER_SITE
     if header not in _BUILDS:
@@ -2078,10 +2079,10 @@ def test_fd_lap_march_equals_per_site(cuda, h, grid, dtype):
 @pytest.mark.parametrize("h", [1, 2, 3, 4])
 def test_fd_grad_lap_march_equals_per_site(cuda, h, grid, dtype):
     """fd_grad_lap (the x-march) equals the per-site build's fd_grad_lap
-    and, output by output, fd_grad's gradient and fd_lap's Laplacian bit
-    for bit; unpadded, x-, y- and xy-padded on windows padded by hand, and
-    as an interior launch plus two x shells, at the march's edges and on
-    2^3."""
+    and, output by output, the marching fd_grad's gradient and fd_lap's
+    Laplacian bit for bit; unpadded, x-, y- and xy-padded on windows padded
+    by hand (the padded fd_grad too), and as an interior launch plus two x
+    shells (fd_grad's too), at the march's edges and on 2^3."""
     fd = pt.FiniteDifferencer(h, (0.3, 0.25, 0.2))
     g = torch.Generator(device=cuda).manual_seed(h)
     x = torch.randn((3,) + grid, generator=g, device=cuda, dtype=dtype)
@@ -2100,20 +2101,80 @@ def test_fd_grad_lap_march_equals_per_site(cuda, h, grid, dtype):
         return
     for kind, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
                            ("xypad", (h, h))):
-        out = fd.launch_block("grad_lap", kind, _pad_periodic(x, hx, hy),
-                              nans())
+        win = _pad_periodic(x, hx, hy)
+        out = fd.launch_block("grad_lap", kind, win, nans())
+        out_grad = fd.launch_block("grad", kind, win, nans()[:1])
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(out, got))
+        assert torch.equal(out_grad[0], got[0])
     if X <= 2 * h:
         return
     xpad = _pad_periodic(x, h, 0)
-    out = nans()
-    fd.launch_block("grad_lap", "interior", x, out, x0=h)
-    for x0 in (0, X - h):
-        fd.launch_block("grad_lap", "shell",
-                        xpad.narrow(1, x0, 3 * h).contiguous(), out, x0=x0)
+    out, out_grad = nans(), nans()[:1]
+    for op, o in (("grad_lap", out), ("grad", out_grad)):
+        fd.launch_block(op, "interior", x, o, x0=h)
+        for x0 in (0, X - h):
+            fd.launch_block(op, "shell",
+                            xpad.narrow(1, x0, 3 * h).contiguous(), o, x0=x0)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(out, got))
+    assert torch.equal(out_grad[0], got[0])
+
+
+#: the fd_grad and fd_div marches at their edges: 16^3, 48x40x36, 8^3,
+#: 2^3 (the +-taps wrap onto one site) and 70 x rows (not a multiple of
+#: the run length)
+FD_MARCH_GRIDS = [(16, 16, 16), (48, 40, 36), (8, 8, 8), (2, 2, 2),
+                  (70, 12, 40)]
+FD_MARCH_IDS = ["16cubed", "48x40x36", "8cubed", "2cubed", "70x12x40"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", FD_MARCH_GRIDS, ids=FD_MARCH_IDS)
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+@pytest.mark.parametrize("op", ["grad", "div"])
+def test_fd_grad_div_march_equals_per_site(cuda, op, h, grid, dtype):
+    """fd_grad and fd_div (the x-marches on pk_queue_march, div's three
+    arrays of a vector tapped together, each with its own halo) equal the
+    per-site build's kernels bit for bit: unpadded, x-, y- and xy-padded on
+    windows padded by hand, and as an interior launch plus two x shells;
+    each padded launch and the split equal the unpadded one. Two vectors
+    (six components) for div, three components for grad."""
+    fd = pt.FiniteDifferencer(h, (0.3, 0.25, 0.2))
+    g = torch.Generator(device=cuda).manual_seed(20 + h)
+    x = torch.randn((6 if op == "div" else 3,) + grid, generator=g,
+                    device=cuda, dtype=dtype)
+    X, Y, _ = grid
+
+    def launches():
+        out = {None: fd.launch(op, x)}
+        if min(X, Y) >= h:
+            for kind, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
+                                   ("xypad", (h, h))):
+                out[kind] = fd.launch_block(
+                    op, kind, _pad_periodic(x, hx, hy),
+                    [torch.full_like(o, float("nan")) for o in out[None]])
+        if X > 2 * h:
+            xpad = _pad_periodic(x, h, 0)
+            o = [torch.full_like(t, float("nan")) for t in out[None]]
+            fd.launch_block(op, "interior", x, o, x0=h)
+            for x0 in (0, X - h):
+                fd.launch_block(op, "shell",
+                                xpad.narrow(1, x0, 3 * h).contiguous(), o,
+                                x0=x0)
+            out["split"] = o
+        torch.cuda.synchronize()
+        return out
+
+    march = launches()
+    with _fd_per_site(h):
+        per_site = launches()
+    assert set(march) == set(per_site)
+    for key, got in march.items():
+        assert torch.equal(got[0], per_site[key][0]), key
+        assert torch.equal(got[0], march[None][0]), key
 
 
 #: K11's march at its edges: runs cut short (70 rows: not a multiple of

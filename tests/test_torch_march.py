@@ -331,14 +331,15 @@ def test_mg_tile(h, dtype, nf):
 
 
 @pytest.mark.parametrize("src,kernels", [
-    ("fd_ops.cu", ("pk_fd_grad_lap_kernel",)),
+    ("fd_ops.cu", ("pk_fd_grad_kernel", "pk_fd_grad_lap_kernel",
+                   "pk_fd_div_kernel")),
     ("mg_relax.cu", ("mg_relax_march_kernel",))], ids=["fd", "mg"])
 def test_queue_march_sources_launch_the_shared_march(src, kernels):
-    """fd_ops.cu's fd_grad_lap and mg_relax.cu's sweeps march through
-    pk_common.cuh's register-queue march, defined outside the fused
-    sources' PK_F guard (neither header defines PK_F); the queue loader
-    and tile live there alone. fd_lap keeps its own loop (the shared one
-    changed its registers on the card); K11 has none."""
+    """fd_ops.cu's fd_grad, fd_grad_lap and fd_div and mg_relax.cu's
+    sweeps march through pk_common.cuh's register-queue march, defined
+    outside the fused sources' PK_F guard (neither header defines PK_F);
+    the queue loader and tile live there alone. fd_lap keeps its own loop
+    (the shared one changed its registers on the card); K11 has none."""
     csrc = Path(tderivs.__file__).resolve().parent / "csrc"
     common = (csrc / "pk_common.cuh").read_text()
     defined = common.index("pk_queue_march(const PkQueueSrc")
@@ -352,6 +353,23 @@ def test_queue_march_sources_launch_the_shared_march(src, kernels):
     assert "struct PkQueueLoad" not in text and "PkFdLapTile :" not in text
     if src == "mg_relax.cu":
         assert "__syncthreads" not in text
+    else:
+        # div taps its vector's three arrays in one march
+        body = text[text.index("pk_fd_div_kernel("):]
+        assert "pk_queue_march<T, 3," in body[:body.index("\n}\n")]
+
+
+def test_fd_pd_z_tap_takes_the_padding():
+    """fd_ops.cu's one-axis derivative (pk_pd, pd* and div) takes its z
+    tap through pk_tap, as pk_grad does: unwrapped on a march's box
+    loader (PK_BOX), pk_wrap's expression on a lattice."""
+    csrc = Path(tderivs.__file__).resolve().parent / "csrc"
+    text = (csrc / "fd_ops.cu").read_text()
+    body = text[text.index("__device__ __forceinline__ T pk_pd("):]
+    body = body[:body.index("\n}\n")]
+    assert "pk_tap<PZ>(z + s, Z)" in body and "pk_tap<PZ>(z - s, Z)" in body
+    assert "pk_wrap" not in body
+    assert "constexpr bool PZ = PAD & PK_PAD_Z;" in body
 
 
 def _smoke():
@@ -372,8 +390,10 @@ def _smoke():
     ([], "sharded_gw,fd", {"sharded_gw", "gw", "fd"}),
     (["--phases", "march_variants,sharded_mg"], None,
      {"march_variants", "sharded_mg", "mg"}),
+    (["--phases", "fd,march_variants"], None, {"fd", "march_variants"}),
+    (["--phases", "sharded,fd"], None, {"sharded", "scalar", "fd"}),
 ], ids=["default", "one", "two", "deps", "mg-deps", "opt-in", "env",
-        "opt-in-mg"])
+        "opt-in-mg", "opt-in-fd", "sharded-fd"])
 def test_smoke_phase_selection(monkeypatch, argv, env, want):
     """``--phases`` (or ``PYSTELLA_SMOKE_PHASES``) selects phase groups and
     every group whose results they read; with neither, every group of
@@ -414,39 +434,52 @@ def test_smoke_stage_variants():
     ("pk_reduce_partials_kernel<float>", False),
     ("pk_fd_lap_kernel<float, 3>", True),
     ("pk_fd_grad_lap_kernel<double, 1>", True),
+    ("pk_fd_grad_kernel<float, 0>", True),
+    ("pk_fd_grad_kernel<double, 3>", True),
+    ("pk_fd_div_kernel<float, 2>", True),
+    ("pk_fd_div_kernel<double, 0>", True),
     ("mg_relax_march_kernel<float, 0, 0>", True),
     ("mg_relax_march_kernel<double, 2, 3>", True),
     ("mg_relax_kernel<float, 0, 0>", False),
     ("pk_fd_kernel<float, 1, 0>", False),
+    ("pk_fd_kernel<double, 6, 3>", False),
 ], ids=["k5prime", "k7-xpad", "k5-bf16-fin-xypad", "k3", "k2", "finish",
-        "fd-lap-xypad", "fd-grad-lap-xpad", "k11-smooth", "k11-tau-xypad",
-        "k11-per-site", "fd-per-site"])
+        "fd-lap-xypad", "fd-grad-lap-xpad", "fd-grad", "fd-grad-xypad",
+        "fd-div-ypad", "fd-div-f64", "k11-smooth", "k11-tau-xypad",
+        "k11-per-site", "fd-per-site", "fd-div-per-site"])
 def test_smoke_march_ptxas_rows(name, gated):
     """The smoke's build gate reads the spills of every x-marching
     instantiation -- K5', K7 and K5 (``pk_stage_march_kernel``), fd_lap,
-    fd_grad_lap and K11's march, padded ones included -- and not the
-    per-site K2, K11, K12 kernels or the sums' finish."""
+    fd_grad, fd_grad_lap, fd_div and K11's march, padded ones included --
+    and not the per-site K2, K11, K12 kernels or the sums' finish."""
     smoke = _smoke()
     rows = smoke.march_ptxas({"fused_stage": {name: {"registers": 90}}})
     assert (name in rows) == gated
 
 
 def test_smoke_queue_variants():
-    """march_variants times fd_grad_lap and K11's sweep at run lengths 16,
-    32 and 64, each with and without the next plane's loads a step ahead,
-    beside their per-site builds, and K11 on the multigrid path's levels
-    from 512^3 down; a variant's defines set both knobs, a per-site
-    build's the threshold (K11) or the per-site switch (K12)."""
+    """march_variants times fd_grad, fd_grad_lap, fd_div and K11's sweep at
+    run lengths 16, 32 and 64, each with and without the next plane's
+    loads a step ahead, beside their per-site builds, and K11 on the
+    multigrid path's levels from 512^3 down; a variant's defines set both
+    knobs (one fd_ops.cu build a variant sets them for every queue march),
+    a per-site build's the threshold (K11) or the per-site switch (K12)."""
     smoke = _smoke()
     assert set(smoke.QUEUE_VARIANTS) == {
         (lx, a) for lx in (16, 32, 64) for a in (0, 1)}
     assert smoke.mg_defines((16, 0)).split() == [
         "#define", "MG_MARCH_LX", "16", "#define", "MG_MARCH_AHEAD", "0"]
-    assert smoke.fd_grad_lap_defines((64, 1)).split() == [
-        "#define", "PK_FD_GRAD_LAP_LX", "64", "#define",
-        "PK_FD_GRAD_LAP_AHEAD", "1"]
+    assert smoke.FD_QUEUE_OPS == ("grad", "grad_lap", "div")
+    assert set(smoke.FD_QUEUE_OPS) == set(tderivs.QUEUE_TILES)
+    assert smoke.fd_queue_defines((64, 1)).split() == [
+        w for op in ("GRAD", "GRAD_LAP", "DIV")
+        for w in ("#define", f"PK_FD_{op}_LX", "64", "#define",
+                  f"PK_FD_{op}_AHEAD", "1")]
+    assert smoke.FD_QUEUE_VARIANTS == smoke.QUEUE_VARIANTS
+    assert smoke.queue_label((32, 1)) == {"lx": 32, "ahead": 1}
+    assert smoke.queue_label((16, 0)) == {"lx": 16, "ahead": 0}
     assert smoke.mg_defines("per_site") == smoke.MG_PER_SITE
-    assert smoke.fd_grad_lap_defines("per_site") == smoke.FD_PER_SITE
+    assert smoke.fd_queue_defines("per_site") == smoke.FD_PER_SITE
     assert int(smoke.MG_PER_SITE.split()[-1]) > 512 * 512
     assert int(smoke.MG_MARCH_ALL.split()[-1]) == 1
     assert smoke.MG_LEVELS[0] == smoke.GRID
@@ -466,6 +499,84 @@ def test_grad_lap_tile(h, dtype, lx):
     assert got == ((tderivs.GRAD_LAP_LX if lx is None else lx),
                    (8 + 2 * h) * (32 + 2 * h) * isz, tderivs.GRAD_LAP_AHEAD)
     assert tderivs.grad_lap_tile(h, isz, lx=lx, ahead=0)[2] == 0
+
+
+@pytest.mark.parametrize("lx", [None, 16, 64], ids=["default", "lx16",
+                                                    "lx64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+def test_grad_tile(h, dtype, lx):
+    """fd_grad's march tile: fd_grad_lap's (one tapped array, its centre
+    plane with the y-z halo in static shared memory) at fd_grad's own run
+    length and look-ahead."""
+    isz = dtype.itemsize
+    got = tderivs.grad_tile(h, isz, lx=lx)
+    assert got == ((tderivs.GRAD_LX if lx is None else lx),
+                   (8 + 2 * h) * (32 + 2 * h) * isz, tderivs.GRAD_AHEAD)
+    assert got[1] <= STATIC_SMEM_MAX
+    assert tderivs.grad_tile(h, isz, lx=lx, ahead=0)[2] == 0
+    assert tderivs.QUEUE_TILES["grad"] == ("pk_fd_grad_tile",
+                                           tderivs.grad_tile)
+
+
+@pytest.mark.parametrize("lx", [None, 16, 64], ids=["default", "lx16",
+                                                    "lx64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+def test_div_tile(h, dtype, lx):
+    """fd_div's march tile: the three arrays of a vector tapped together,
+    three haloed centre planes in static shared memory, within the 48 KB a
+    block may declare statically, at fd_div's own run length and
+    look-ahead."""
+    isz = dtype.itemsize
+    got = tderivs.div_tile(h, isz, lx=lx)
+    assert got == ((tderivs.DIV_LX if lx is None else lx),
+                   3 * (8 + 2 * h) * (32 + 2 * h) * isz, tderivs.DIV_AHEAD)
+    assert got[1] <= STATIC_SMEM_MAX
+    assert tderivs.div_tile(h, isz, lx=lx, ahead=0)[2] == 0
+    assert tderivs.QUEUE_TILES["div"] == ("pk_fd_div_tile", tderivs.div_tile)
+
+
+def test_div_tile_fits_three_planes_at_f64_h4():
+    """The largest div tile, f64 at h = 4: three planes of 16 x 40
+    elements, 15,360 bytes, fit a block's static shared memory
+    (fd_ops.cu's static_assert on PkFdDivTile<double>::FITS)."""
+    assert tderivs.div_tile(4, 8) == (tderivs.DIV_LX, 15360,
+                                      tderivs.DIV_AHEAD)
+    assert 15360 <= STATIC_SMEM_MAX
+    text = (Path(tderivs.__file__).resolve().parent / "csrc"
+            / "fd_ops.cu").read_text()
+    assert "using PkFdDivTile = PkQueueTile<T, 3, PK_FD_DIV_LX>;" in text
+    assert "static_assert(PkFdDivTile<double>::FITS" in text
+
+
+#: the operators the smoke's circular convolution computes, by the plain
+#: version's outputs
+LIBRARY_OPS = ["lap", "grad", "pdx", "pdy", "pdz", "div", "grad_lap"]
+
+
+@pytest.mark.parametrize("op", LIBRARY_OPS)
+def test_smoke_library_conv_is_the_operator(op):
+    """The smoke's yardstick (``fd_library_conv``: one
+    ``torch.nn.Conv3d(padding_mode="circular")``; div reads (n, 3, X, Y, Z)
+    as it is, grad_lap's channels are the gradient, then the Laplacian)
+    computes the operator: at 16^3 f64 on the CPU, within 1e-12 of the
+    plain version, laid out as ``fd_library_io`` lays the kernel's
+    outputs."""
+    smoke = _smoke()
+    nin, nout, _ = smoke.FD_LIBRARY[op]
+    fd = pt.FiniteDifferencer(2, (0.3, 0.25, 0.2), device="cpu")
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((2 * nin, 16, 16, 16), generator=g, dtype=torch.float64)
+    conv = smoke.fd_library_conv(fd, op, device="cpu", dtype=torch.float64)
+    assert (conv.in_channels, conv.out_channels) == (nin, nout)
+    xin, ref = smoke.fd_library_io(op, x, fd.plain(op, x))
+    with torch.no_grad():
+        got = conv(xin)
+    assert got.shape == ref.shape == (2, nout, 16, 16, 16)
+    assert (got - ref).abs().max() <= 1e-12 * ref.abs().max()
 
 
 def test_smoke_unknown_phase_exits_nonzero(monkeypatch, capsys):
