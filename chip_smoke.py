@@ -157,7 +157,7 @@ MG_CONVERGED_TOL, MG_CYCLE_TOL = 5e-14, 1e-12
 FD_HALOS = (1, 2, 4)
 #: the spill bytes (the larger of stores and loads) ptxas gives each float
 #: instantiation of the register-queue marches (fd_lap, fd_grad, fd_grad_lap,
-#: fd_div, K11)
+#: fd_pd*, fd_div, K11)
 #: that spills at all, by demangled name and stencil radius or problem, as
 #: an H100 build measured them: a few bytes at 40-48 registers, mostly in
 #: padded instantiations; a register floor removed fd_lap's at a 10% cost
@@ -184,11 +184,14 @@ QUEUE_MARCH_F32_SPILLS = {
 FD_KERNELS = ("fd_lap", "fd_grad", "fd_grad_lap", "fd_pdx", "fd_pdy",
               "fd_pdz", "fd_div")
 MG_KERNELS = ("mg_smooth", "mg_residual", "mg_tau")
-#: the operators that march (fd_lap's loop, pk_queue_march), and the
-#: defines of the build whose marching operators run per site: the marches
-#: are timed beside it and held to it bit for bit
-FD_MARCHED = ("lap", "grad", "grad_lap", "div")
+#: the operators that march (fd_lap's loop, pk_queue_march; pdy and pdz
+#: run per site), and the defines of the build whose operators run per
+#: site: the marches are timed beside it and held to it bit for bit
+FD_MARCHED = ("lap", "grad", "grad_lap", "pdx", "div")
 FD_PER_SITE = "\n#define PK_FD_PER_SITE 1\n"
+#: the defines of the fused_stage.cu build whose K2 runs per site: K2's
+#: march is timed beside it and held to it bit for bit
+STAGE_PER_SITE = "\n#define PK_STAGE_PER_SITE 1\n"
 #: the defines of K11 builds that run every launch per site (the site
 #: threshold past any level) and that march every launch, however small
 #: its region
@@ -615,7 +618,8 @@ def identities(phase, make_stepper, gw=False):
     """On the card, at 256^3 in f64 and f32: one pair launch == two
     single-stage launches; the energy stage's lattice outputs == the
     stage's, bitwise; the coupled pair + finalize == the pair with hubble2
-    = hubfix."""
+    = hubfix; K2's march == the per-site build's K2 (the scalar system),
+    bitwise."""
     for dtype in (torch.float64, torch.float32):
         shape = ALT_SHAPES[0]
         st = make_stepper(shape, dtype)
@@ -630,6 +634,15 @@ def identities(phase, make_stepper, gw=False):
         torch.cuda.synchronize()
         worst = max(rel_err(a, b)[0] for a, b in zip(pair, two))
         energy_bitwise = all(torch.equal(a, b) for a, b in zip(energy, mid))
+        per_site = {}
+        if not gw:
+            key = (kn["stage"], dtype, None, False)
+            with swapped(st._libs, stage_per_site(st), [key]):
+                ref = st.launch(kn["stage"], ins, new(), p[:5])
+            torch.cuda.synchronize()
+            per_site["stage_bitwise_per_site_build"] = all(
+                torch.equal(a, b) for a, b in zip(mid, ref))
+            del ref
         del mid, two, energy
         cp = kernel_params("coupled_pair", BOX / shape[0])
         hubfix = 0.49
@@ -644,13 +657,16 @@ def identities(phase, make_stepper, gw=False):
             st._inputs((state, k)), ref))
         emit({"phase": phase, "dtype": str(dtype), "shape": shape,
               "max_rel_err": worst, "tol": IDENTITY_TOL[dtype],
-              "energy_stage_bitwise_stage": energy_bitwise,
+              "energy_stage_bitwise_stage": energy_bitwise, **per_site,
               "deferred_pair_vs_pair_rel_err": deferred,
               "deferred_tol": DEFERRED_TOL[dtype]})
         if not worst <= IDENTITY_TOL[dtype]:
             raise SystemExit(f"pair != two singles ({dtype}): {worst}")
         if not energy_bitwise:
             raise SystemExit(f"{kn['stage_energy']} != {kn['stage']} "
+                             f"({dtype})")
+        if not all(per_site.values()):
+            raise SystemExit(f"{kn['stage']}'s march != its per-site build "
                              f"({dtype})")
         if not deferred <= DEFERRED_TOL[dtype]:
             raise SystemExit(f"coupled pair + finalize != fused pair "
@@ -662,8 +678,8 @@ def identities(phase, make_stepper, gw=False):
 def stage_march_identity(phase, gw_stepper, scalar_stepper):
     """On the card, at 256^3 in f64, f32 and f32 with bfloat16 carries (and
     on finalized velocity carries): the stage marches (K5', K7, K5: one
-    template) held to each other and to the per-site K2 on the same inputs,
-    bit for bit -- K5''s scalar outputs and sums K5's (``fused_stage_energy``
+    template with K2) held to each other and to K2 on the same inputs, bit
+    for bit -- K5''s scalar outputs and sums K5's (``fused_stage_energy``
     of the same sector's scalar stepper); and, on carries that are not
     finalized (which K7, K2 and K8 do not take), K5''s lattice outputs K7's
     (``preheat_stage``), K5's scalar outputs K2's (``fused_stage``) and one
@@ -711,7 +727,7 @@ def stage_march_identity(phase, gw_stepper, scalar_stepper):
               "carry_dtype": str(cd or dtype), "finalized": fin, **row})
         if not all(row.values()):
             raise SystemExit(f"{phase}: the stage marches differ from each "
-                             f"other or from the per-site K2 ({dtype}, "
+                             f"other or from K2 ({dtype}, "
                              f"{cd}, fin={fin}): {row}")
         del gst, sst, ins, k5p, k5
         torch.cuda.empty_cache()
@@ -963,6 +979,10 @@ def time_kernels(phase, st, names, seed0, timing):
             n[0] += 1
             st.launch(name, ins, sets[n[0] % 2], params)
         ms = cuda_ms(launch, reps=20, warmup=2)
+        # K2's per-site build beside its march
+        per_site = {} if name != "fused_stage" else {
+            "per_site_ms": per_site_ms(st._libs, stage_per_site(st), [
+                (name, torch.float32, st.carry_dtype, fin)], launch, 20)}
         del sets
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -984,7 +1004,7 @@ def time_kernels(phase, st, names, seed0, timing):
                        "bound_by": "bytes" if bytes_ms >= ops_ms
                        else "operations",
                        "bytes": nbytes, "ops": ops,
-                       "share_of_bound": bound / ms}
+                       "share_of_bound": bound / ms, **per_site}
         row = dict(timing[key])
         if gw:
             row["plain_peak_memory_GiB"] = plain_peak
@@ -1250,6 +1270,23 @@ def per_site_ms(fns, other, keys, run, reps):
         return cuda_ms(run, reps=reps, warmup=2)
 
 
+def stage_per_site(st):
+    """The entry points of stepper ``st``'s bound kernels (``st._libs``)
+    that launch K2, from fused_stage.cu built with STAGE_PER_SITE after
+    ``st``'s model header (from the build cache when the build phase made
+    it), bound as ``st`` binds its own."""
+    from pystella_tpu_torch.ops import stencil
+    lib = stencil.build_kernels(["fused_stage.cu"], st.kernel_header()
+                                + STAGE_PER_SITE)["fused_stage.cu"]
+    fns = {}
+    for key, fn in st._libs.items():
+        if key[0] == "fused_stage":
+            other = getattr(lib, fn.__name__)
+            other.argtypes, other.restype = fn.argtypes, fn.restype
+            fns[key] = other
+    return fns
+
+
 def ptxas_of(source, header):
     """Registers and spill bytes of the kernels of one built library."""
     from pystella_tpu_torch.ops import stencil
@@ -1273,7 +1310,8 @@ def fd_kernels_vs_plain(phase, cases, errs):
     """Each K12 operator's kernel vs its plain version at every (shape,
     dtype, h) of ``cases``; the marches (FD_MARCHED) also bit for bit
     against the per-site build's, fd_lap against fd_grad_lap's Laplacian,
-    and fd_grad_lap's outputs against fd_grad's and fd_lap's."""
+    fd_grad_lap's outputs against fd_grad's and fd_lap's, and fd_pdx's,
+    fd_pdy's and fd_pdz's against fd_grad's three."""
     import pystella_tpu_torch as pt
     from pystella_tpu_torch.ops import derivs
     for shape, dtype, h in cases:
@@ -1303,6 +1341,9 @@ def fd_kernels_vs_plain(phase, cases, errs):
                     outs[0], fd.launch("grad", x)[0])
                 row["bitwise_fd_lap"] = torch.equal(
                     outs[1], fd.launch("lap", x)[0])
+            if op in ("pdx", "pdy", "pdz"):
+                row["bitwise_fd_grad"] = torch.equal(
+                    outs[0], fd.launch("grad", x)[0][:, "xyz".index(op[2])])
             errs.setdefault("fd_" + op, {})[tag] = row
             emit({"phase": phase, "kernel": "fd_" + op, "shape": shape,
                   "dtype": str(dtype), "h": h, **row})
@@ -2502,16 +2543,17 @@ def march_ptxas(report):
     ``pk_coupled_pair_kernel``, K8 ``pk_preheat_pair_kernel``, K9
     ``pk_preheat_coupled_pair_kernel``, K10
     ``pk_fused_chunk_march_kernel``, K5', K7 and K5
-    ``pk_stage_march_kernel``, fd_lap ``pk_fd_lap_kernel``, fd_grad
-    ``pk_fd_grad_kernel``, fd_grad_lap ``pk_fd_grad_lap_kernel``, fd_div
-    ``pk_fd_div_kernel``, K11 ``mg_relax_march_kernel``), with their
-    registers and spill bytes."""
+    ``pk_stage_march_kernel`` (K2 too), fd_lap ``pk_fd_lap_kernel``,
+    fd_grad ``pk_fd_grad_kernel``, fd_grad_lap ``pk_fd_grad_lap_kernel``,
+    fd_pd* ``pk_fd_pd_kernel``, fd_div ``pk_fd_div_kernel``, K11
+    ``mg_relax_march_kernel``), with their registers and spill bytes."""
     rows = {}
     for usage in report.values():
         for name, u in usage.items():
             m = re.search(r"((?:pk_(?:(?:fused_|coupled_|preheat_|"
                           r"preheat_coupled_)pair|fused_chunk_march|"
-                          r"stage_march|fd_lap|fd_grad|fd_grad_lap|fd_div)|"
+                          r"stage_march|fd_lap|fd_grad|fd_grad_lap|fd_pd|"
+                          r"fd_div)|"
                           r"mg_relax_march)"
                           r"_kernel<[^<>]*>)", name)
             if m:
@@ -2528,20 +2570,21 @@ MARCH_VARIANTS = (16, 24, 32, 64)
 CHUNK_VARIANTS = tuple((lx, rows) for rows in (8, 16)
                        for lx in MARCH_VARIANTS)
 #: the run lengths of the stage march (PK_STAGE_MARCH_LX for K5' and K7,
-#: PK_SCALAR_STAGE_MARCH_LX for K5) and of fd_lap's (PK_FD_LAP_LX); K5's
-#: also without the next plane's loads a step ahead
-#: (PK_SCALAR_STAGE_AHEAD 0)
+#: PK_SCALAR_STAGE_MARCH_LX for K5 and K2) and of fd_lap's (PK_FD_LAP_LX);
+#: K5's and K2's also without the next plane's loads a step ahead
+#: (PK_SCALAR_STAGE_AHEAD 0), and beside the build whose K2 runs per site
+#: ("per_site")
 STAGE_VARIANTS = (16, 32, 64)
 FD_LAP_VARIANTS = STAGE_VARIANTS
 SCALAR_STAGE_VARIANTS = tuple((lx, ahead) for ahead in (1, 0)
-                              for lx in STAGE_VARIANTS)
+                              for lx in STAGE_VARIANTS) + ("per_site",)
 #: the kernels of each family (each with f32 and with bf16 carries), and
 #: the rounds of launches each variant gets in turn
 MARCH_KERNELS = ("preheat_pair", "preheat_coupled_pair_deferred")
 SCALAR_MARCH_KERNELS = ("fused_pair", "coupled_pair_deferred")
 CHUNK_MARCH_KERNELS = ("fused_chunk",)
 STAGE_MARCH_KERNELS = ("preheat_stage_energy", "preheat_stage")
-SCALAR_STAGE_MARCH_KERNELS = ("fused_stage_energy",)
+SCALAR_STAGE_MARCH_KERNELS = ("fused_stage_energy", "fused_stage")
 MARCH_ROUNDS, MARCH_REPS = 3, 5
 #: a shell launch takes tens of microseconds: more rounds of more launches
 SHELL_ROUNDS, SHELL_REPS = 5, 40
@@ -2560,7 +2603,11 @@ def chunk_defines(variant):
 
 
 def stage_defines(variant):
-    """The defines of a variant ``(lx, ahead)`` of K5's march."""
+    """The defines of a variant ``(lx, ahead)`` of K5's and K2's march
+    (K2 with bf16 carries never looks ahead), or of the build whose K2 runs
+    per site (``"per_site"``)."""
+    if variant == "per_site":
+        return STAGE_PER_SITE
     lx, ahead = variant
     return (f"\n#define PK_SCALAR_STAGE_MARCH_LX {lx}\n"
             f"#define PK_SCALAR_STAGE_AHEAD {ahead}\n")
@@ -2593,20 +2640,23 @@ def mg_defines(variant):
 
 
 #: fd_ops.cu's operators on pk_queue_march: one build a variant ``(lx,
-#: ahead)`` of QUEUE_VARIANTS sets each one's run length and look-ahead
-FD_QUEUE_OPS = ("grad", "grad_lap", "div")
+#: ahead)`` of QUEUE_VARIANTS sets each tile's (ops/derivs.py:QUEUE_TILES)
+#: run length and look-ahead
+FD_QUEUE_OPS = ("grad", "grad_lap", "div", "pdx")
 FD_QUEUE_VARIANTS = QUEUE_VARIANTS
 
 
 def fd_queue_defines(variant):
-    """The defines of a variant ``(lx, ahead)`` of every FD_QUEUE_OPS
-    march, or of the per-site build (``"per_site"``)."""
+    """The defines of a variant ``(lx, ahead)`` of every queue march's
+    tile, or of the per-site build (``"per_site"``)."""
+    from pystella_tpu_torch.ops import derivs
     if variant == "per_site":
         return FD_PER_SITE
     lx, ahead = variant
-    return "\n" + "".join(f"#define PK_FD_{op.upper()}_LX {lx}\n"
-                          f"#define PK_FD_{op.upper()}_AHEAD {ahead}\n"
-                          for op in FD_QUEUE_OPS)
+    return "\n" + "".join(
+        f"#define PK_FD_{t.upper()}_LX {lx}\n"
+        f"#define PK_FD_{t.upper()}_AHEAD {ahead}\n"
+        for t in derivs.QUEUE_TILES)
 
 
 def march_variants(phase, sector, gw_sector, dx):
@@ -2614,8 +2664,9 @@ def march_variants(phase, sector, gw_sector, dx):
     carries: K3 and K6 deferred, and K8 and K9 deferred, through each run
     length of MARCH_VARIANTS; K10 through each run length and first-rung
     rows of CHUNK_VARIANTS; K5' and K7 through each run length of
-    STAGE_VARIANTS, and K5 through each of SCALAR_STAGE_VARIANTS (fd_lap,
-    fd_grad, fd_grad_lap, fd_div and K11: :func:`fd_lap_variants`,
+    STAGE_VARIANTS, and K5 and K2 through each of SCALAR_STAGE_VARIANTS
+    (and K2's per-site build; fd_lap, fd_grad, fd_grad_lap, fd_pd*, fd_div
+    and K11: :func:`fd_lap_variants`,
     :func:`fd_queue_variants`, :func:`mg_variants`). Each variant is
     built from the same sources into libraries of its own (the model
     header with the variant's
@@ -2636,7 +2687,8 @@ def march_variants(phase, sector, gw_sector, dx):
 
     def pair_family(nh, values=2):
         def tile(st, lib, v):
-            lx = v[0] if isinstance(v, tuple) else v
+            lx = (v[0] if isinstance(v, tuple) else None if v == "per_site"
+                  else v)
             query = getattr(lib, ("pk_stage_march_tile" if nh
                                   else "pk_scalar_stage_march_tile")
                             if values == 1 else "pk_preheat_march_tile"
@@ -2648,8 +2700,7 @@ def march_variants(phase, sector, gw_sector, dx):
                     tfused.march_tile(st.F, st.h, 4, nh, lx=lx,
                                       values=values))
         if values == 1 and not nh:
-            return (SCALAR_STAGE_VARIANTS, stage_defines, tile,
-                    lambda v: {"lx": v[0], "ahead": v[1]})
+            return (SCALAR_STAGE_VARIANTS, stage_defines, tile, queue_label)
         if values == 1:
             return (STAGE_VARIANTS,
                     lambda lx: f"\n#define PK_STAGE_MARCH_LX {lx}\n", tile,
@@ -2700,11 +2751,11 @@ def queue_label(v):
 
 
 def fd_queue_variants(phase):
-    """fd_grad, fd_grad_lap and fd_div (FD_QUEUE_OPS) at h = 2 on (2,
-    512^3) f32 (fd_div on (2, 3, 512^3)) through each variant of
+    """fd_grad, fd_grad_lap, fd_div and fd_pdx (FD_QUEUE_OPS) at h = 2 on
+    (2, 512^3) f32 (fd_div on (2, 3, 512^3)) through each variant of
     FD_QUEUE_VARIANTS and the per-site build: one build a variant for all
-    three (one nvcc a variant, all at once), each tile held to its mirror
-    in ops/derivs.py (QUEUE_TILES), registers and spills from ptxas, every
+    (one nvcc a variant, all at once), each tile held to its mirror in
+    ops/derivs.py (QUEUE_TILES), registers and spills from ptxas, every
     output the default build's bit for bit; then the variants timed in
     turns (MARCH_ROUNDS rounds of MARCH_REPS launches each) on one input
     an operator. Last, each operator's x shell (the overlapped path's
@@ -2725,8 +2776,7 @@ def fd_queue_variants(phase):
     builds = {}
     for v, lib in zip(variants, libs):
         tiles = {}
-        for op in FD_QUEUE_OPS:
-            query, mirror = derivs.QUEUE_TILES[op]
+        for op, (query, mirror) in derivs.QUEUE_TILES.items():
             got = derivs.reported_queue_tile(getattr(lib, query),
                                              torch.float32)
             want = (mirror(HALO, 4) if v == "per_site" else
@@ -3349,6 +3399,11 @@ def time_sharded_kernels(phase, timing, sharded):
                 derivs.build_kernels(h), fd_build(h, FD_PER_SITE),
                 [(case.op, torch.float32, bits)],
                 lambda: case.run(kind, ins, outs, x0), 20)
+        elif kernel == "fused_stage":
+            per_site["per_site_ms"] = per_site_ms(
+                case.st._libs, stage_per_site(case.st),
+                [(kernel, torch.float32, case.st.carry_dtype, False, bits)],
+                lambda: case.run(kind, ins, outs, x0), 20)
         rows = {"interior": X - 2 * h, "shell": h}.get(kind)
         plain_ms = cuda_ms(lambda: case.plain(ins, pad, x0, rows),
                            reps=2 if kernel.startswith("preheat") else 3)
@@ -3917,10 +3972,11 @@ PHASE_DEPS = {"sharded_mg": ("mg",), "sharded": ("scalar",),
               "sharded_coupled": ("scalar",), "sharded_gw": ("gw",),
               "sharded_bf16": ("scalar", "gw")}
 #: phases a run takes only when selected: march_variants builds the x-march
-#: variants of K3 and K6, of K8 and K9, of K10, of K5' and K7, of K5, of
-#: fd_lap, of fd_grad, fd_grad_lap and fd_div and of K11 into libraries of
-#: their own and times them (fd_ops.cu's queue marches and K11 beside their
-#: per-site builds, on the x shells and on the multigrid path's levels)
+#: variants of K3 and K6, of K8 and K9, of K10, of K5' and K7, of K5 and K2
+#: (beside K2's per-site build), of fd_lap, of fd_grad, fd_grad_lap, fd_div
+#: and fd_pd* and of K11 into libraries of their own and times them
+#: (fd_ops.cu's queue marches and K11 beside their per-site builds, on the
+#: x shells and on the multigrid path's levels)
 OPT_IN_PHASES = ("march_variants",)
 PHASE_HELP = {
     "scalar": "the scalar system: kernels vs plain, identities, references, "
@@ -3938,9 +3994,10 @@ PHASE_HELP = {
     "sharded_gw": "the sharded GW multi_step and coupled driver",
     "sharded_bf16": "the sharded bf16-carry launches and paths",
     "march_variants": "the x-march tile variants of K3 and K6 deferred, "
-                      "of K8 and K9 deferred, of K10, of K5' and K7, of K5, "
-                      "of fd_lap, of fd_grad, fd_grad_lap and fd_div and "
-                      "of K11, built apart and timed against each other "
+                      "of K8 and K9 deferred, of K10, of K5' and K7, of K5 "
+                      "and K2, of fd_lap, of fd_grad, fd_grad_lap, fd_div "
+                      "and fd_pd* and of K11, built apart and timed "
+                      "against each other "
                       "(beside the per-site builds; the fd x shells, K11 "
                       "on each level)"}
 
@@ -4015,13 +4072,17 @@ def main(argv=None):
     from pystella_tpu_torch.multigrid import relax as trelax
     from pystella_tpu_torch.ops import derivs as tderivs
     from pystella_tpu_torch.ops import stencil as tstencil
-    # the per-site builds beside the marches (fd_ops.cu's; K11
-    # on every level) and K11's build that marches every level, each its
-    # own nvcc beside the others
+    # the per-site builds beside the marches (fd_ops.cu's, K2's of the
+    # bench model; K11 on every level) and K11's build that marches every
+    # level, each its own nvcc beside the others
     variant_builds = {
         f"fd_ops.cu (h={h}, per site)": (
             ["fd_ops.cu"], tderivs.kernel_header(h) + FD_PER_SITE)
         for h in FD_HALOS}
+    variant_builds["fused_stage.cu (bench, K2 per site)"] = (
+        ["fused_stage.cu"], pt.FusedScalarStepper(
+            sector, SMALL, dx, HALO, device="cpu").kernel_header()
+        + STAGE_PER_SITE)
     variant_builds.update({
         f"mg_relax.cu ({k}, {label})": (
             ["mg_relax.cu"], mg_solver(k, device="cpu").kernel_header() + d)

@@ -25,37 +25,44 @@
 // Bound: memory. Each input component-array is read once and each output
 // written once (lap 2C, grad 4C, grad_lap 5C, pd 2C, div 4n arrays of
 // sites * sizeof(T) bytes) against 3 + 9h (lap) or 9h (grad) operations a
-// site and component. Design of pd*: one thread per site, z fastest, so the
-// centre loads and every store are coalesced; the 2h neighbour taps are
-// re-read through L1/L2; periodic wrap by index arithmetic on all three
-// axes, so any lattice shape runs; the components are a loop inside the
-// thread (the wrapped neighbour indices do not depend on the component),
-// with 64-bit offsets (C * 512^3 passes 2^31 at C = 16). grad writes (C, 3,
-// X, Y, Z), div reads (n, 3, X, Y, Z). Built with -fmad=false: no
-// multiply-add is contracted where the plain PyTorch version rounds twice.
+// site and component. grad writes (C, 3, X, Y, Z), div reads (n, 3, X, Y,
+// Z). Offsets are 64-bit (C * 512^3 passes 2^31 at C = 16). Built with
+// -fmad=false: no multiply-add is contracted where the plain PyTorch
+// version rounds twice.
 //
-// lap, grad, grad_lap and div march instead (pk_fd_lap_kernel,
-// pk_fd_grad_kernel, pk_fd_grad_lap_kernel, pk_fd_div_kernel): the x ring
-// of the streaming Pallas kernel (StreamingStencil._build,
-// pystella_tpu/ops/pallas_stencil.py:709) carried to a block. A block owns
-// one y-z tile of one component (div: of one vector) and walks it along x
-// over a run of PK_FD_LAP_LX (PK_FD_GRAD_LX, PK_FD_GRAD_LAP_LX,
-// PK_FD_DIV_LX) planes, per tapped array the centre plane with its y-z halo
-// in static shared memory (div's three under 15 KB at f64 and h = 4, each
-// holding only the halo its array's derivative taps), the
-// +-x taps in a queue of 2h+1 values in each thread's registers, the next
-// plane's loads a step ahead (with PK_FD_GRAD_AHEAD, PK_FD_GRAD_LAP_AHEAD,
-// PK_FD_DIV_AHEAD). grad, grad_lap and div run pk_queue_march of
-// pk_common.cuh, the march K11 shares (div with its three arrays, NA = 3);
-// lap keeps its own loop of the same design, since the shared template
-// changed its registers and spills on an H100 (PERF.md). pk_lap, pk_grad
-// and pk_pd run over the planes in box coordinates, so each march equals
-// the per-site arithmetic bit for bit, and grad_lap's outputs equal grad's
-// and lap's. Components go in grid-sized groups. ops/derivs.py:lap_tile,
-// grad_tile, grad_lap_tile and div_tile mirror the tiles; pk_fd_lap_tile,
-// pk_fd_grad_tile, pk_fd_grad_lap_tile and pk_fd_div_tile report them.
-// PK_FD_PER_SITE 1 builds all four per site, as pk_fd_kernel runs pd*: the
-// yardstick the smoke times them against.
+// lap, grad, grad_lap, pdx and div march (pk_fd_lap_kernel,
+// pk_fd_grad_kernel, pk_fd_grad_lap_kernel, pk_fd_pd_kernel,
+// pk_fd_div_kernel): the x ring of the streaming Pallas kernel
+// (StreamingStencil._build, pystella_tpu/ops/pallas_stencil.py:709) carried
+// to a block. A block owns one y-z tile of one component (div: of one
+// vector) and walks it along x over a run of PK_FD_LAP_LX (PK_FD_GRAD_LX,
+// PK_FD_GRAD_LAP_LX, PK_FD_PD_LX, PK_FD_DIV_LX) planes, per tapped array
+// the centre plane with its y-z halo in static shared memory (div's three
+// under 15 KB at f64 and h = 4; div's arrays each holding only the halo its
+// derivative taps: none for an x derivative, not even the centre plane, and
+// so none for pdx), the +-x taps in a queue of 2h+1 values in each thread's
+// registers, the next plane's loads a step ahead (with PK_FD_GRAD_AHEAD,
+// PK_FD_GRAD_LAP_AHEAD, PK_FD_PD_AHEAD, PK_FD_DIV_AHEAD). grad, grad_lap,
+// pdx and div run pk_queue_march of pk_common.cuh, the march K11 shares
+// (div with its three arrays, NA = 3); lap keeps its own loop of the same
+// design, since the shared template changed its registers and spills on an
+// H100 (PERF.md). pk_lap, pk_grad and pk_pd run over the planes in box
+// coordinates, so each march equals the per-site arithmetic bit for bit,
+// grad_lap's outputs equal grad's and lap's, and grad's three pdx's, pdy's
+// and pdz's. Components go in grid-sized groups. ops/derivs.py:lap_tile,
+// grad_tile, grad_lap_tile, pd_tile and div_tile mirror the tiles;
+// pk_fd_lap_tile, pk_fd_grad_tile, pk_fd_grad_lap_tile, pk_fd_pd_tile and
+// pk_fd_div_tile report them.
+//
+// PK_FD_PER_SITE 1 builds every operator per site instead (pk_fd_kernel):
+// the yardstick the smoke times the marches against and the card tests hold
+// them to. pdy and pdz run so in every build: a march that took their y or
+// z taps from a shared plane lost to this kernel, whose y and z taps are
+// neighbours in L1, by 4% and 8% on an H100 (PERF.md). One thread per
+// site, z fastest, so the centre loads and every store are coalesced; the
+// neighbour taps are re-read through L1/L2; periodic wrap by index
+// arithmetic on all three axes; the components are a loop inside the thread
+// (the wrapped neighbour indices do not depend on the component).
 //
 // The sharded tier (the _xpad, _ypad, _xypad entry points) replaces the
 // halo-input kernel StreamingStencil._build_xhalo
@@ -132,9 +139,15 @@ __device__ __forceinline__ T pk_pd(const Load& load, int x, int y, int z,
 #ifndef PK_FD_DIV_AHEAD
 #define PK_FD_DIV_AHEAD 1
 #endif
-// 1: lap, grad, grad_lap and div run per site too (pk_fd_kernel), as the
-// pd* operators do: the yardstick the smoke times the marches against and
-// the card tests hold them to
+// pdx's, in the same form
+#ifndef PK_FD_PD_LX
+#define PK_FD_PD_LX 32
+#endif
+#ifndef PK_FD_PD_AHEAD
+#define PK_FD_PD_AHEAD 1
+#endif
+// 1: every operator runs per site (pk_fd_kernel): the yardstick the smoke
+// times the marches against and the card tests hold them to
 #ifndef PK_FD_PER_SITE
 #define PK_FD_PER_SITE 0
 #endif
@@ -145,6 +158,9 @@ template <typename T>
 using PkFdGradLapTile = PkQueueTile<T, 1, PK_FD_GRAD_LAP_LX>;
 template <typename T>
 using PkFdGradTile = PkQueueTile<T, 1, PK_FD_GRAD_LX>;
+// pdx stores no plane: no shared memory
+template <typename T>
+using PkFdPdTile = PkQueueTile<T, 0, PK_FD_PD_LX>;
 // div taps the three arrays of a vector: three centre planes, 15 KB at f64
 // and h = 4
 template <typename T>
@@ -316,6 +332,34 @@ pk_fd_div_kernel(const T* __restrict__ in, T* __restrict__ out0, int X,
       });
 }
 
+// pdx's march, one array tapped as it is (NA = 1): its x taps come from the
+// thread's queue alone (HALO 0: no centre plane stored, and so no barrier).
+// The sum is pk_pd's from 0 (pd_body's, pk_fd_kernel's order).
+template <typename T, int PAD>
+__global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
+pk_fd_pd_kernel(const T* __restrict__ in, T* __restrict__ out0, int X,
+                int Y, int Z, int nruns, PkGradWeights<T> w, PkGeom g) {
+  using Tl = PkFdPdTile<T>;
+  const int c = blockIdx.z / nruns;
+  const int xs = (blockIdx.z - c * nruns) * Tl::LX;
+  const int64_t N = PAD ? g.Nb : (int64_t)X * Y * Z;
+  const int64_t Nw = PAD ? g.Nw : N;
+  T* __restrict__ pd = out0 + c * N;
+  const int z = blockIdx.x * Tl::TZ + threadIdx.x;
+  const int y = blockIdx.y * Tl::TY + threadIdx.y;
+  const bool valid = z < Z && y < Y;
+  pk_queue_march<T, 1, PAD, PK_FD_PD_AHEAD, 0u>(
+      PkQueueSrc<T, 1>{{in + c * Nw}}, X, Y, Z, PAD ? g.Ys : Y, xs,
+      min(Tl::LX, X - xs), [](int) { return PkNoSite{}; },
+      [&](int x, const PkQueueLoad<T> (&col)[1], PkNoSite) {
+        if (!valid) return;
+        const int by = threadIdx.y + PK_H, bz = threadIdx.x + PK_H;
+        pd[((int64_t)x * Y + y) * Z + z] =
+            pk_pd<T, 0, PK_BOX>(col[0], PK_H, by, bz, 0, 0, 0, w, T(0));
+      });
+}
+
+// The per-site template (PK_FD_PER_SITE 1; see the file comment).
 template <typename T, int OP, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_fd_kernel(const T* __restrict__ in, T* __restrict__ out0,
@@ -385,13 +429,13 @@ static int pk_launch_fd(const void* in, void* out0, void* out1, int64_t C,
   PkFdWeights<T> w;
   w.lap = pk_lap_weights<T>(weights);
   w.grad = pk_grad_weights<T>(weights + PK_NLAPW);
-  if constexpr (!PK_FD_PER_SITE && OP != PK_FD_PDX && OP != PK_FD_PDY
-                && OP != PK_FD_PDZ) {
+  if constexpr (!PK_FD_PER_SITE && OP != PK_FD_PDY && OP != PK_FD_PDZ) {
     // the marches: components (div: vectors of three) in groups that keep
     // the grid's z extent in range, each group's pointers at its first
     constexpr int LX = OP == PK_FD_LAP        ? PkFdLapTile<T>::LX
                        : OP == PK_FD_GRAD_LAP ? PkFdGradLapTile<T>::LX
                        : OP == PK_FD_GRAD     ? PkFdGradTile<T>::LX
+                       : OP == PK_FD_PDX      ? PkFdPdTile<T>::LX
                                               : PkFdDivTile<T>::LX;
     // input arrays and output arrays a marched component has
     constexpr int NIN = OP == PK_FD_DIV ? 3 : 1;
@@ -418,6 +462,9 @@ static int pk_launch_fd(const void* in, void* out0, void* out1, int64_t C,
             src, dst, (T*)out1 + c0 * N, X, Y, Z, nruns, w, g);
       else if constexpr (OP == PK_FD_GRAD)
         pk_fd_grad_kernel<T, PAD><<<grid, block, 0, s>>>(
+            src, dst, X, Y, Z, nruns, w.grad, g);
+      else if constexpr (OP == PK_FD_PDX)
+        pk_fd_pd_kernel<T, PAD><<<grid, block, 0, s>>>(
             src, dst, X, Y, Z, nruns, w.grad, g);
       else
         pk_fd_div_kernel<T, PAD><<<grid, block, 0, s>>>(
@@ -479,13 +526,17 @@ static int pk_fd_queue_tile(int f64, int ahead, int* out) {
   return 0;
 }
 
-// grad_lap's, grad's and div's
+// grad_lap's, grad's, pdx's and div's
 extern "C" int pk_fd_grad_lap_tile(int f64, int* out) {
   return pk_fd_queue_tile<PkFdGradLapTile>(f64, PK_FD_GRAD_LAP_AHEAD, out);
 }
 
 extern "C" int pk_fd_grad_tile(int f64, int* out) {
   return pk_fd_queue_tile<PkFdGradTile>(f64, PK_FD_GRAD_AHEAD, out);
+}
+
+extern "C" int pk_fd_pd_tile(int f64, int* out) {
+  return pk_fd_queue_tile<PkFdPdTile>(f64, PK_FD_PD_AHEAD, out);
 }
 
 extern "C" int pk_fd_div_tile(int f64, int* out) {

@@ -51,37 +51,39 @@
 // uses -fmad=false, so no multiply-add is contracted where the plain
 // PyTorch version rounds twice.
 //
-// K2 keeps the per-site template (pk_fused_stage_kernel): one thread per
-// site with z fastest, so every load and store is coalesced; the 6h
-// neighbour taps of f are re-read through L1/L2; periodic wrap by index
-// arithmetic on all three axes, so any lattice shape runs (the JAX package
-// needed a second, VMEM-resident kernel for small lattices).
+// Every variant marches, one template (pk_stage_march_kernel over
+// pk_march, pk_common.cuh, with V = 1; K2 is K5 without the sums): the TPU
+// builder's x ring (StreamingStencil._build, pystella_tpu/ops/
+// pallas_stencil.py:709, the ring :719-742) carried to a block, as the
+// pairs K8 and K9 carry it. A block walks a 32 x 8 (z, y) tile along x in
+// runs of PK_STAGE_MARCH_LX planes (K2 and K5: PK_SCALAR_STAGE_MARCH_LX)
+// and holds, per tapped array -- f of each field, h of each tensor
+// component (none for K2 and K5) -- a ring of 2h+1 planes of the tile and
+// the centre plane with its y-z halo in shared memory (joint: F + 6
+// arrays, 54,784 bytes at f32, h = 2, F = 2; K2 and K5 F arrays, 13,696
+// bytes). Lap f, grad f and lap h run pk_lap / pk_grad over those planes in
+// box coordinates (PK_BOX), so their order is lap_from_taps' and
+// grad_from_taps', and each tapped element is read from device memory
+// about once. The energy variants reduce each plane's sum terms per 32 x 8
+// tile in a fixed tree and write them where the per-site block of that
+// plane wrote them (pk_march_sums; PkGeom's x0, yb0, GYb on a padded
+// launch), before the tensor stage, so the terms do not stay live through
+// it; the partials and the second launch are the per-site ones, and so are
+// the sums, bit for bit. K2 and K5 do little between their barriers, so
+// they load the next plane's ring and frame a step ahead
+// (PK_SCALAR_STAGE_AHEAD), as fd_ops.cu's march does; K2 with bfloat16
+// carries does not. A model whose f and h arrays do not fit one block
+// marches once per group of components or, wider still, in the split layout
+// (scalar passes that park grad f for the tensor passes), as the pairs do;
+// ops/fused.py:march_tile(values=1) mirrors the tile. A shell launch's
+// region of h planes is a run cut short.
 //
-// K5', K7 and K5 march instead, one template (pk_stage_march_kernel over
-// pk_march, pk_common.cuh, with V = 1): the TPU builder's x ring
-// (StreamingStencil._build, pystella_tpu/ops/pallas_stencil.py:709, the
-// ring :719-742) carried to a block, as the pairs K8 and K9 carry it. A
-// block walks a 32 x 8 (z, y) tile along x in runs of PK_STAGE_MARCH_LX
-// planes (K5: PK_SCALAR_STAGE_MARCH_LX) and holds, per tapped array -- f
-// of each field, h of each tensor component (none for K5) -- a ring of
-// 2h+1 planes of the tile and the centre plane with its y-z halo in shared
-// memory (joint: F + 6 arrays, 54,784 bytes at f32, h = 2, F = 2; K5 F
-// arrays, 13,696 bytes). Lap f, grad f and lap h run pk_lap / pk_grad over
-// those planes in box coordinates (PK_BOX), so their order is
-// lap_from_taps' and grad_from_taps', and each tapped element is read from
-// device memory about once. The energy variants reduce each plane's sum
-// terms per 32 x 8 tile in a fixed tree and write them where the per-site
-// block of that plane wrote them (pk_march_sums; PkGeom's x0, yb0, GYb on
-// a padded launch), before the tensor stage, so the terms do not stay live
-// through it; the partials and the second launch are the per-site ones,
-// and so are the sums, bit for bit. K5 does little between its barriers,
-// so it loads the next plane's ring and frame a step ahead
-// (PK_SCALAR_STAGE_AHEAD), as fd_ops.cu's march does. A model whose f and
-// h arrays do not fit one block marches once per group of components or,
-// wider still, in the split layout (scalar passes that park grad f for the
-// tensor passes), as the pairs do; ops/fused.py:march_tile(values=1)
-// mirrors the tile. A shell launch's region of h planes is a run cut
-// short.
+// PK_STAGE_PER_SITE 1 runs K2 per site instead (pk_fused_stage_kernel):
+// the yardstick the smoke times K2's march against and the card tests hold
+// every stage march to (K5, K7 and K5' through K2's outputs). One thread
+// per site with z fastest, so every load and store is coalesced; the 6h
+// neighbour taps of f are re-read through L1/L2; periodic wrap by index
+// arithmetic on all three axes.
 //
 // The sharded tier (the _xpad, _ypad, _xypad entry points of every variant)
 // replaces StreamingStencil._build_xhalo (pystella_tpu/ops/pallas_stencil.py:
@@ -112,7 +114,7 @@ struct PkStageParams {
   PkGradWeights<T> g;  // the GW variants only
 };
 
-// K2: the per-site template (see the file comment).
+// K2 per site (PK_STAGE_PER_SITE 1; see the file comment).
 template <typename T, typename C, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y)
 pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
@@ -169,11 +171,16 @@ pk_fused_stage_kernel(PkArrays<T> io, int X, int Y, int Z,
 #define PK_STAGE_NH(GW) 0
 #endif
 
-// K5 marches with the next plane's ring and frame loads a step ahead
+// K2 and K5 march with the next plane's ring and frame loads a step ahead
 // (pk_march's AHEAD): faster than without at every run length of
-// chip_smoke.py --phases march_variants on an H100
+// chip_smoke.py --phases march_variants on an H100; K2 with bfloat16
+// carries never does (4% faster without at each run length)
 #ifndef PK_SCALAR_STAGE_AHEAD
 #define PK_SCALAR_STAGE_AHEAD 1
+#endif
+// 1: K2 runs per site (pk_fused_stage_kernel), the yardstick build
+#ifndef PK_STAGE_PER_SITE
+#define PK_STAGE_PER_SITE 0
 #endif
 
 // The site values of the stage march, read from device memory with a
@@ -186,10 +193,10 @@ struct PkStageSite {
   T dh[G ? G : 1], kh[G ? G : 1], kdh[G ? G : 1];
 };
 
-// K5', K7 and K5: the x-march (see the file comment), one template. ENERGY:
-// the scalar sector's sum terms, per 32 x 8 tile (pk_march_sums); GW: the
-// tensor stage. The shared arrays of a pass: f of each field it holds,
-// then (GW) h of each component it holds.
+// K5', K7, K5 and K2: the x-march (see the file comment), one template.
+// ENERGY: the scalar sector's sum terms, per 32 x 8 tile (pk_march_sums);
+// GW: the tensor stage. The shared arrays of a pass: f of each field it
+// holds, then (GW) h of each component it holds.
 template <typename T, typename C, typename KD, bool ENERGY, bool GW, int PAD>
 __global__ void __launch_bounds__(PK_BLOCK_Z * PK_BLOCK_Y, 1)
 pk_stage_march_kernel(PkArrays<T> io, int X, int Y, int Z,
@@ -241,7 +248,11 @@ pk_stage_march_kernel(PkArrays<T> io, int X, int Y, int Z,
     }
     return s;
   };
-  pk_march<T, NH, PAD, 1, !GW && PK_SCALAR_STAGE_AHEAD>(
+  // K5's and K2's look-ahead; none for K2 with carries narrower than T
+  // (bfloat16)
+  constexpr bool AHEAD = !GW && PK_SCALAR_STAGE_AHEAD
+                         && (ENERGY || sizeof(C) == sizeof(T));
+  pk_march<T, NH, PAD, 1, AHEAD>(
       in, X, Y, Z, Nw, Yw, pre, [&](
       int x, int px, const Pass ps, const PkMarchView<T>& v,
       const PkStageSite<T, Tl::G>& s) {
@@ -347,17 +358,17 @@ static int pk_launch_stage(const void* const* ins, void* const* outs, int X,
   if (GW) p.g = pk_grad_weights<T>(params + 5 + PK_NLAPW);
   if (!PAD) nblocks = pk_num_blocks(X, Y, Z);
   int rc;
-  if constexpr (ENERGY || GW) {
-    rc = pk_march_launch<T, PK_STAGE_NH(GW), 1>(
-        pk_stage_march_kernel<T, C, KD, ENERGY, GW, PAD>, X, Y, Z, stream,
-        pk_arrays<T>(ins, outs, GW ? 8 : 4), X, Y, Z, p, (T*)partials,
-        nblocks, g);
-  } else {
+  if constexpr (PK_STAGE_PER_SITE && !ENERGY && !GW) {
     pk_fused_stage_kernel<T, C, PAD>
         <<<pk_grid(X, Y, Z), dim3(PK_BLOCK_Z, PK_BLOCK_Y, 1), 0,
            (cudaStream_t)stream>>>(pk_arrays<T>(ins, outs, 4), X, Y, Z, p,
                                    g);
     rc = (int)cudaGetLastError();
+  } else {
+    rc = pk_march_launch<T, PK_STAGE_NH(GW), 1>(
+        pk_stage_march_kernel<T, C, KD, ENERGY, GW, PAD>, X, Y, Z, stream,
+        pk_arrays<T>(ins, outs, GW ? 8 : 4), X, Y, Z, p, (T*)partials,
+        nblocks, g);
   }
   if (!ENERGY || PAD || rc != 0) return rc;
   return pk_finish_sums<T>(partials, sums, PK_NT, nblocks,

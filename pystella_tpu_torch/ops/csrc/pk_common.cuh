@@ -441,10 +441,10 @@ __device__ __forceinline__ void pk_frame_at(int k, int& yy, int& zz) {
 // The register-queue x-march (pk_queue_march): the TPU builder's x ring
 // (StreamingStencil._build, pystella_tpu/ops/pallas_stencil.py:709, the ring
 // :719-742) for kernels that tap NA arrays as they are, one value each:
-// fd_grad, fd_grad_lap and fd_div (fd_ops.cu, NA = 1, 1 and 3; its fd_lap
-// keeps its own loop of this design) and the multigrid sweeps (mg_relax.cu,
-// NA = MG_NF). A block of 32 (z) x 8 (y) threads owns one y-z tile and
-// walks it along x over a run of planes. Per tapped array the
+// fd_grad, fd_grad_lap, fd_pd* and fd_div (fd_ops.cu, NA = 1, 1, 1 and 3;
+// its fd_lap keeps its own loop of this design) and the multigrid sweeps
+// (mg_relax.cu, NA = MG_NF). A block of 32 (z) x 8 (y) threads owns one
+// y-z tile and walks it along x over a run of planes. Per tapped array the
 // centre plane with its y-z halo sits in static shared memory (the y and z
 // taps) and the +-x taps of a thread's own column in a queue of 2h+1 values
 // in its registers (a ring of 2h+1 shared planes, as pk_march keeps, ran
@@ -521,7 +521,9 @@ __device__ __forceinline__ void pk_queue_grad(const PkQueueLoad<T>& col,
 // frame (h above and below the tile, corners included) and bit 2a + 1 its
 // columns (h either side of each row); an array with neither is tapped
 // through its queue alone, and its centre plane is not stored either. Every
-// bit set (the default): the full frames.
+// bit set (the default): the full frames. No bit set (fd_pdx): nothing is
+// stored in shared memory (none is declared), no thread reads another's
+// value, and the march takes no barrier.
 template <typename T, int NA, int PAD, bool AHEAD, unsigned HALO = ~0u,
           typename Pre, typename Body>
 __device__ __forceinline__ void pk_queue_march(const PkQueueSrc<T, NA> src,
@@ -529,7 +531,7 @@ __device__ __forceinline__ void pk_queue_march(const PkQueueSrc<T, NA> src,
                                                int xs, int nx, Pre&& pre,
                                                Body&& body) {
   using Tl = PkTileGeo;
-  __shared__ T sm[NA * Tl::CENTRE];
+  __shared__ T sm[HALO ? NA * Tl::CENTRE : 1];
   const int tz = threadIdx.x, ty = threadIdx.y;
   const int own = ty * Tl::TZ + tz;
   const int z0 = blockIdx.x * Tl::TZ, y0 = blockIdx.y * Tl::TY;
@@ -621,9 +623,9 @@ __device__ __forceinline__ void pk_queue_march(const PkQueueSrc<T, NA> src,
           sm[a * Tl::CENTRE + yy * Tl::SZ + zz] =
               at(a, x, y0 - PK_H + yy, z0 - PK_H + zz);
     }
-    __syncthreads();
+    if constexpr (HALO != 0u) __syncthreads();
     body(x, (const PkQueueLoad<T>(&)[NA])col, cur);
-    __syncthreads();
+    if constexpr (HALO != 0u) __syncthreads();
   }
 }
 

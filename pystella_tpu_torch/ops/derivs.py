@@ -7,14 +7,15 @@ the stencils' eigenvalues, and a :class:`FiniteDifferencer` with ``lap``,
 
 On a CUDA tensor every operator is one launch of a hand-written kernel
 (``ops/csrc/fd_ops.cu``, K12: the JAX package's
-``FiniteDifferencer._pallas_bodies``): ``lap``, ``grad``, ``grad_lap`` and
-``divergence`` an x-march of a shared-memory y-z tile (:func:`lap_tile`,
-:func:`grad_tile`, :func:`grad_lap_tile`, :func:`div_tile`), ``pdx`` /
-``pdy`` / ``pdz`` one thread per site, with periodic wrap by index
-arithmetic. Beside it sits its plain PyTorch version: the same sums in the
-same order (``lap_from_taps`` / ``grad_from_taps`` and the
-``pd`` / ``div`` bodies) on :class:`~pystella_tpu_torch.ops.stencil.RollTaps`,
-which a CPU tensor takes. ``mode="roll"`` asks for the JAX package's
+``FiniteDifferencer._pallas_bodies``): ``lap``, ``grad``, ``grad_lap``,
+``pdx`` and ``divergence`` an x-march of a y-z tile (:func:`lap_tile`,
+:func:`grad_tile`, :func:`grad_lap_tile`, :func:`pd_tile`,
+:func:`div_tile`), ``pdy`` / ``pdz`` one thread per site (a march of
+theirs lost to it), with periodic wrap by index arithmetic. Beside it sits its plain PyTorch
+version: the same sums in the same order (``lap_from_taps`` /
+``grad_from_taps`` and the ``pd`` / ``div`` bodies) on
+:class:`~pystella_tpu_torch.ops.stencil.RollTaps`, which a CPU tensor
+takes. ``mode="roll"`` asks for the JAX package's
 ``mode="roll"`` bodies instead (per-axis ``torch.roll`` sums) on any
 device. Kernel and plain version agree to rounding: both round every
 multiply and add separately (``-fmad=false``), in the same order.
@@ -134,13 +135,15 @@ def reported_lap_tile(query, dtype):
 
 #: the x planes a block of ``grad_lap``'s march covers, and whether its
 #: next plane's loads go a step ahead (fd_ops.cu: PkFdGradLapTile,
-#: PK_FD_GRAD_LAP_LX, PK_FD_GRAD_LAP_AHEAD); ``grad``'s and ``div``'s
-#: (PkFdGradTile, PK_FD_GRAD_LX, PK_FD_GRAD_AHEAD; PkFdDivTile,
-#: PK_FD_DIV_LX, PK_FD_DIV_AHEAD)
+#: PK_FD_GRAD_LAP_LX, PK_FD_GRAD_LAP_AHEAD); ``grad``'s, ``pdx``'s and
+#: ``div``'s (PkFdGradTile, PK_FD_GRAD_LX, PK_FD_GRAD_AHEAD; PkFdPdTile,
+#: PK_FD_PD_LX, PK_FD_PD_AHEAD; PkFdDivTile, PK_FD_DIV_LX, PK_FD_DIV_AHEAD)
 GRAD_LAP_LX = 32
 GRAD_LAP_AHEAD = 1
 GRAD_LX = 16
 GRAD_AHEAD = 1
+PD_LX = 32
+PD_AHEAD = 1
 DIV_LX = 32
 DIV_AHEAD = 1
 
@@ -163,6 +166,14 @@ def grad_tile(h, itemsize, lx=None, ahead=None):
                          GRAD_AHEAD if ahead is None else ahead)
 
 
+def pd_tile(h, itemsize, lx=None, ahead=None):
+    """``pdx``'s x-march tile, in :func:`grad_lap_tile`'s form: one tapped
+    array at its own run length and look-ahead, whose taps all come from a
+    thread's register queue, so no shared memory."""
+    return (PD_LX if lx is None else lx, 0,
+            PD_AHEAD if ahead is None else ahead)
+
+
 def div_tile(h, itemsize, lx=None, ahead=None):
     """``div``'s x-march tile, in :func:`grad_lap_tile`'s form: the three
     arrays of a vector tapped together, so three centre planes a block
@@ -176,14 +187,15 @@ def div_tile(h, itemsize, lx=None, ahead=None):
 #: the queue marches' tiles: operator -> (the library's report, the mirror)
 QUEUE_TILES = {"grad": ("pk_fd_grad_tile", grad_tile),
                "grad_lap": ("pk_fd_grad_lap_tile", grad_lap_tile),
+               "pd": ("pk_fd_pd_tile", pd_tile),
                "div": ("pk_fd_div_tile", div_tile)}
 
 
 def reported_queue_tile(query, dtype):
-    """What a library's ``pk_fd_grad_tile``, ``pk_fd_grad_lap_tile`` or
-    ``pk_fd_div_tile`` entry point ``query`` reports for working type
-    ``dtype``, in :func:`grad_lap_tile`'s form (x planes 0: a build whose
-    operators run per site)."""
+    """What a library's ``pk_fd_grad_tile``, ``pk_fd_grad_lap_tile``,
+    ``pk_fd_pd_tile`` or ``pk_fd_div_tile`` entry point ``query`` reports
+    for working type ``dtype``, in :func:`grad_lap_tile`'s form (x planes
+    0: a build whose operators run per site)."""
     query.argtypes = [ctypes.c_int, ctypes.c_void_p]
     query.restype = ctypes.c_int
     out = (ctypes.c_int * 3)()
@@ -208,7 +220,8 @@ def build_kernels(h):
             fns[op + "_tile"] = getattr(lib, query)
         for dtype in _SUFFIX:
             # the kernels' compile-time march tiles must be the ones
-            # lap_tile, grad_tile, grad_lap_tile and div_tile predict
+            # lap_tile, grad_tile, grad_lap_tile, pd_tile and div_tile
+            # predict
             checks = [("lap", reported_lap_tile(fns["tile"], dtype),
                        lap_tile(h, dtype.itemsize))] + [
                 (op, reported_queue_tile(fns[op + "_tile"], dtype),

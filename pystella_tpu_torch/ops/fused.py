@@ -14,7 +14,8 @@ kernel, ``S_ij`` printed from the gradients of the same f window.
 
 Hand-written CUDA kernels (``ops/csrc``):
 
-- ``fused_stage`` (K2): one stage;
+- ``fused_stage`` (K2): one stage (an x-march, the tile K5 shares:
+  :func:`march_tile` with ``nh=0, values=1``);
 - ``fused_pair`` (K3): two consecutive stages in one pass, the second
   stage's Laplacian recomposed from the raw taps. :meth:`multi_step` pairs
   stages across step boundaries (legal when ``A[0] == 0``), so RK54 runs
@@ -35,7 +36,7 @@ Hand-written CUDA kernels (``ops/csrc``):
   (K9): the same five for the scalar + gravitational-wave system, a
   template flag on each scalar kernel that adds the tensor stages after the
   scalar ones (K7 and K5', like the pairs, an x-march: :func:`march_tile`
-  with ``values=1``; K5', K7 and K5 one template).
+  with ``values=1``; K5', K7, K5 and K2 one template).
 
 Every kernel also comes with ``carry_dtype=torch.bfloat16``: the same kernel
 storing the k-carries in bfloat16 (widened on load, rounded on store, the
@@ -282,7 +283,8 @@ def chunk_tile(F, h, itemsize, depth, lx=None, rows=None):
 #: (pk_common.cuh: PkMarchTile): the x planes a block of the GW pairs K8, K9
 #: marches (PK_MARCH_LX), those of the scalar pairs K3, K6
 #: (PK_SCALAR_MARCH_LX), those of K5' and K7 (PK_STAGE_MARCH_LX) and those
-#: of K5 (PK_SCALAR_STAGE_MARCH_LX); a tile is 32 z columns by 8 y rows
+#: of K5 and K2 (PK_SCALAR_STAGE_MARCH_LX); a tile is 32 z columns by 8 y
+#: rows
 MARCH_LX = 32
 SCALAR_MARCH_LX = 24
 STAGE_MARCH_LX = 16
@@ -293,9 +295,9 @@ def march_tile(F, h, itemsize, nh=6, lx=None, values=2):
     """The x-march tile of the pair kernels for ``F`` fields, ``nh``
     tensor components (6: the GW pairs; 0: the scalar pairs), stencil
     radius ``h`` and a working type of ``itemsize`` bytes -- or, with
-    ``values=1``, of the single stages that march (K5' and K7 with ``nh``
-    components, K5 with none), which hold one array per tapped value (f,
-    h) where a pair holds two (f and f1, h and h1):
+    ``values=1``, of the single stages (K5' and K7 with ``nh``
+    components, K5 and K2 with none), which hold one array per tapped
+    value (f, h) where a pair holds two (f and f1, h and h1):
     ``((lx, gf, g, joint), bytes)`` -- the x planes a block marches, the
     fields a scalar pass holds, the tensor components a pass holds, the
     layout (1 joint, 0 split) and the dynamic shared memory a block.
@@ -666,7 +668,7 @@ class FusedScalarStepper(_step.Stepper):
         """The built sources of this stepper's x-marching kernels, each
         with the values its march holds per tapped array (:func:`
         march_tile`): the pairs' (K3 and K6; for the GW system K8 and K9)
-        2, the energy stage's (K5; for the GW system K5' and K7) 1."""
+        2, the stages' (K5 and K2; for the GW system K5' and K7) 1."""
         srcs = [(KERNELS[n][0], 2) for n in self._kernel_bases()
                 if n in (self._KERNEL["pair"], self._KERNEL["coupled_pair"])]
         srcs.append((KERNELS[self._KERNEL["stage_energy"]][0], 1))
@@ -676,7 +678,7 @@ class FusedScalarStepper(_step.Stepper):
         """The x-march tile of this stepper's built kernels in ``source``
         for working type ``dtype``, as the library reports it
         (``pk_scalar_march_tile``, and ``pk_scalar_stage_march_tile`` in
-        fused_stage.cu, that of K5; for the GW system
+        fused_stage.cu, that of K5 and K2; for the GW system
         ``pk_preheat_march_tile`` and ``pk_stage_march_tile``, that of K5'
         and K7): ``((lx, gf, g, joint), bytes)`` (:func:`march_tile`)."""
         lib = self._built[source]

@@ -10,26 +10,29 @@ sums. With ``--gw`` the GW pairs K8 and K9 (both inputs) are held to
 their plain versions and their padded launches to the unpadded ones.
 With ``--chunk`` the whole-RK chunk K10 (f32, f64, bf16 carries) is held
 to its plain version and to two K3 launches bit for bit, state and
-carries. With ``--stage`` the single stages that march, the GW energy
-stage K5', the GW stage K7 and the scalar energy stage K5 (f32, f64, bf16
-carries and, for K5' and K5, the ``_bf16_fin`` carries, every padding, K7's
-interior and shell launches) likewise; K5''s lattice outputs also equal
-K7's bit for bit, its scalar outputs and sums K5's, K5's scalar outputs
-the per-site K2's, and two x blocks' partials the unsharded sums. With
-``--fd`` the finite-difference marches ``fd_lap``, ``fd_grad``,
-``fd_grad_lap`` and ``fd_div`` (h = 1-4, f32 and f64, every padding, the
-interior and shell launches) are held to their plain versions, their
-padded, interior and shell launches to the unpadded one, and every launch
-to a per-site build's (``PK_FD_PER_SITE 1``) bit for bit;
-``fd_grad_lap``'s outputs also equal the marching ``fd_grad``'s and
-``fd_lap``'s. With ``--mg`` the multigrid sweeps K11
-(``mg_smooth`` one and three sweeps, ``mg_residual``, ``mg_tau``; the
+carries. With ``--stage`` the single stages, which all march, the GW
+energy stage K5', the GW stage K7, the scalar energy stage K5 and the
+stage K2 (f32, f64, bf16 carries and, for K5' and K5, the ``_bf16_fin``
+carries, every padding, K7's and K2's interior and shell launches)
+likewise; K5''s lattice outputs also equal K7's bit for bit, its scalar
+outputs and sums K5's, K5's scalar outputs K2's, K2's every launch that of
+a per-site build (``PK_STAGE_PER_SITE 1``), and two x blocks' partials the
+unsharded sums. With ``--fd`` the finite-difference operators ``fd_lap``,
+``fd_grad``, ``fd_grad_lap``, ``fd_pdx``, ``fd_pdy``, ``fd_pdz`` and
+``fd_div`` (h = 1-4, f32 and f64, every padding, the interior and shell
+launches; all but ``fd_pdy`` and ``fd_pdz`` march) are held to their plain
+versions, their padded, interior and shell launches to the unpadded one,
+and every launch to a per-site build's (``PK_FD_PER_SITE 1``) bit for
+bit; ``fd_grad_lap``'s outputs also equal
+the marching ``fd_grad``'s and ``fd_lap``'s, and ``fd_grad``'s d-th output
+``fd_pdx``'s, ``fd_pdy``'s or ``fd_pdz``'s. With ``--mg`` the multigrid sweeps
+K11 (``mg_smooth`` one and three sweeps, ``mg_residual``, ``mg_tau``; the
 Newton problem, the Jacobi pair and a Newton problem with a lattice and two
-scalar auxiliary inputs; h = 1, 2 and, for the first two, 4; f32 and f64;
-every padding, the interior and shell launches) are held to their plain
-versions from a build that marches every launch (``MG_MARCH_MIN_SITES
-1``), and bit for bit to one that runs every launch per site and to the
-default build; padded, interior and shell launches equal the unpadded one.
+scalar auxiliary inputs; h = 1, 2 and, for the first two, 4; f32 and f64; every
+padding, the interior and shell launches) are held to their plain versions from
+a build that marches every launch (``MG_MARCH_MIN_SITES 1``), and bit for bit
+to one that runs every launch per site and to the default build; padded,
+interior and shell launches equal the unpadded one.
 With ``--against DIR``, the root of another checkout (a parent commit
 unpacked with ``git archive``, say), every launch must also equal that
 checkout's kernels bit for bit, sums included.
@@ -42,8 +45,8 @@ at h = 1 and 3, and 2^3, where the +-taps wrap onto one site. ``--lx`` is
 the run length the kernels are built with (PK_SCALAR_MARCH_LX;
 PK_MARCH_LX with ``--gw``, PK_CHUNK_LX with ``--chunk``,
 PK_STAGE_MARCH_LX and PK_SCALAR_STAGE_MARCH_LX with ``--stage``,
-PK_FD_LAP_LX, PK_FD_GRAD_LX, PK_FD_GRAD_LAP_LX and PK_FD_DIV_LX with
-``--fd``, MG_MARCH_LX with
+PK_FD_LAP_LX, PK_FD_GRAD_LX, PK_FD_GRAD_LAP_LX, PK_FD_PD_LX and
+PK_FD_DIV_LX with ``--fd``, MG_MARCH_LX with
 ``--mg``): the default 4 cuts runs short at every shape and keeps the run
 to a few minutes. Exits 1 if a check fails::
 
@@ -152,6 +155,7 @@ class Case:
             # the other checkout has no chunk kernel for this model
             self.old = None
         self.grid, self.h, self.F = grid, h, F
+        self.defines = args.defines
         self.tol = 1e-5 if dtype == torch.float32 else 1e-13
         g = torch.Generator().manual_seed(0)
         amps = (1e-3, 1e-4, 1e-5, 1e-3, 1e-3, 1e-4, 1e-5, 1e-4)
@@ -199,17 +203,19 @@ class Case:
                                    ("xypad", (h, h))):
                 pa, ok = self.launch(K, self.window(K, hx, hy, ins), p, kind)
                 check(f"{tag}:{kind} == unpadded{other}", ok and same(pa, a))
-            if K in ("fused_pair", "preheat_stage") and X > 2 * h:
+            if K in ("fused_pair", "fused_stage", "preheat_stage") \
+                    and X > 2 * h:
                 self.shells(K, p, a)
             if tfused.SUM_SETS[K] and X % 2 == 0:
                 self.two_blocks(K, p, a, ins)
 
     def run_stage(self, sc):
-        """K5' and K7, and K5 of the scalar case ``sc`` (the same model,
-        lattice and inputs; K5' and K5 also on finalized velocity carries):
-        each vs its plain version, padded, K7's interior and shells, two x
-        blocks; K5''s lattice outputs bit for bit K7's, its scalar outputs
-        and sums K5's, and K5's scalar outputs the per-site K2's."""
+        """K5' and K7, and K5 and K2 of the scalar case ``sc`` (the same
+        model, lattice and inputs; K5' and K5 also on finalized velocity
+        carries): each vs its plain version, padded, K7's and K2's interior
+        and shells, two x blocks; K5''s lattice outputs bit for bit K7's, its
+        scalar outputs and sums K5's, K5's scalar outputs K2's, and K2's
+        launches the per-site build's (:meth:`per_site_stage`)."""
         K5p, K7, K5, K2 = ("preheat_stage_energy", "preheat_stage",
                            "fused_stage_energy", "fused_stage")
         n, st = len(self.new._comps), self.new
@@ -220,7 +226,7 @@ class Case:
         kinds = self.grid != (2, 2, 2)
         for label, ins in sets:
             self.run([K5p] + ([] if label else [K7]), kinds, ins, label)
-            sc.run([K5], kinds, ins[:4], label)
+            sc.run([K5] + ([] if label else [K2]), kinds, ins[:4], label)
             p = params(K5, self.dx)
             with shim():
                 a = st.launch(K5p, ins, nans(st), p)
@@ -235,6 +241,49 @@ class Case:
                       same(c[:4], d))
             check(f"{self.name} {K5p}{label} scalar outputs and sums == "
                   "K5's", same(a[:4] + a[n:], c))
+        sc.per_site_stage(self.ins[:4], kinds)
+
+    def per_site_stage(self, ins, kinds):
+        """K2 (the march) equals the K2 of this checkout's
+        ``PK_STAGE_PER_SITE 1`` build bit for bit: unpadded, padded and as
+        an interior launch plus two shells."""
+        st, X, h, K2 = self.new, self.grid[0], self.h, "fused_stage"
+        lib = ctypes.CDLL(str(build(CSRC, "fused_stage.cu",
+                                    st.kernel_header() + self.defines
+                                    + "#define PK_STAGE_PER_SITE 1\n")))
+        march = dict(st._libs)
+        per_site = dict(march)
+        for key, fn in march.items():
+            if key[0] == K2:
+                other = getattr(lib, fn.__name__)
+                other.argtypes, other.restype = fn.argtypes, fn.restype
+                per_site[key] = other
+        p = params(K2, self.dx)
+        got = {}
+        for label, fns in (("march", march), ("per site", per_site)):
+            st._libs = fns
+            with shim():
+                got[label] = [st.launch(K2, ins, nans(st), p)]
+                if kinds:
+                    for kind, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
+                                           ("xypad", (h, h))):
+                        got[label].append(st.launch_block(
+                            K2, kind, self.window(K2, hx, hy, ins), nans(st),
+                            p))
+                if kinds and X > 2 * h:
+                    xpad = self.window(K2, h, 0, ins)
+                    outs = nans(st)
+                    st.launch_block(K2, "interior", ins, outs, p, x0=h)
+                    for x0 in (0, X - h):
+                        st.launch_block(K2, "shell", [
+                            t.narrow(1, x0, 3 * h).contiguous()
+                            if j in tfused._WINDOWS[K2] else t
+                            for j, t in enumerate(xpad)], outs, p, x0=x0)
+                    got[label].append(outs)
+        st._libs = march
+        check(f"{self.name} {K2} == the per-site build's, "
+              f"{len(got['march'])} launches",
+              all(same(a, b) for a, b in zip(got["march"], got["per site"])))
 
     def run_chunk(self):
         """K10 vs its plain version, vs two K3 launches and, with
@@ -352,11 +401,11 @@ def stage(args):
 
 
 class FdCase:
-    """The marching operators ``fd_lap``, ``fd_grad``, ``fd_grad_lap`` and
-    ``fd_div`` at stencil radius ``h`` on a seeded ``(C, X, Y, Z)`` input
-    (``fd_div``: ``(3 C, X, Y, Z)``, C vectors): this checkout's library,
-    one built with all four per site (``PK_FD_PER_SITE 1``) and, with
-    ``--against``, another checkout's."""
+    """The operators, which all march, at stencil radius ``h`` on a
+    seeded ``(C, X, Y, Z)`` input (``fd_div``: ``(3 C, X, Y, Z)``, C
+    vectors): this checkout's library, one built with every operator per
+    site (``PK_FD_PER_SITE 1``) and, with ``--against``, another
+    checkout's."""
 
     def __init__(self, args, h, grid, dtype, C=2):
         header = tderivs.kernel_header(h)
@@ -423,7 +472,7 @@ class FdCase:
         h, X = self.h, self.grid[0]
         other = " and other checkout" if len(self.libs) > 1 else ""
         res = {}
-        for op in ("lap", "grad", "grad_lap", "div"):
+        for op in tderivs.OPS:
             tag = f"fd_{op} {self.name}"
             x = self.input(op)
             a = self.launch(op, None, x)
@@ -460,6 +509,9 @@ class FdCase:
               same(res["lap"], ps[1:]))
         check(f"fd_grad_lap {self.name} == (fd_grad, fd_lap)",
               same(res["grad_lap"], res["grad"] + res["lap"]))
+        check(f"fd_grad {self.name} == (fd_pdx, fd_pdy, fd_pdz)",
+              all(torch.equal(res["grad"][0][:, d], res[op][0])
+                  for d, op in enumerate(("pdx", "pdy", "pdz"))))
 
 
 def fd(args):
@@ -624,11 +676,11 @@ def main():
     family.add_argument("--chunk", action="store_true",
                         help="the whole-RK chunk K10 instead of K3 and K6")
     family.add_argument("--stage", action="store_true",
-                        help="the stage marches K5', K7 and K5 instead of "
-                        "K3 and K6")
+                        help="the stage marches K5', K7, K5 and K2 instead "
+                        "of K3 and K6")
     family.add_argument("--fd", action="store_true",
-                        help="fd_lap, fd_grad, fd_grad_lap and fd_div "
-                        "instead of K3 and K6")
+                        help="the operators fd_lap, fd_grad, fd_grad_lap, "
+                        "fd_pd* and fd_div instead of K3 and K6")
     family.add_argument("--mg", action="store_true",
                         help="the multigrid sweeps K11 instead of K3 and K6")
     parser.add_argument("--lx", type=int, default=4,
@@ -648,10 +700,10 @@ def main():
                         f"#define PK_SCALAR_STAGE_MARCH_LX {args.lx}\n")
     elif args.fd:
         tderivs.LAP_LX = tderivs.GRAD_LAP_LX = args.lx
-        tderivs.GRAD_LX = tderivs.DIV_LX = args.lx
+        tderivs.GRAD_LX = tderivs.PD_LX = tderivs.DIV_LX = args.lx
         args.defines = "\n" + "".join(
             f"#define PK_FD_{op}_LX {args.lx}\n"
-            for op in ("LAP", "GRAD", "GRAD_LAP", "DIV"))
+            for op in ("LAP", "GRAD", "GRAD_LAP", "PD", "DIV"))
     elif args.mg:
         args.defines = f"\n#define MG_MARCH_LX {args.lx}\n"
     else:

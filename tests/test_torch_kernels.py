@@ -782,10 +782,12 @@ MG_TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
 
 #: the defines of K11 builds that march every launch, however small its
 #: level, and that run every launch per site (the site threshold past any
-#: level); of the K12 build whose fd_lap and fd_grad_lap run per site
+#: level); of the K12 build whose operators run per site, and of the
+#: fused_stage.cu build whose K2 runs per site
 MG_MARCH_ALL = "\n#define MG_MARCH_MIN_SITES 1\n"
 MG_PER_SITE = f"\n#define MG_MARCH_MIN_SITES {2**31 - 1}\n"
 FD_PER_SITE = "\n#define PK_FD_PER_SITE 1\n"
+STAGE_PER_SITE = "\n#define PK_STAGE_PER_SITE 1\n"
 _BUILDS = {}
 
 
@@ -815,12 +817,38 @@ def _mg_lib(solver, defines):
 
 
 @contextlib.contextmanager
+def _stage_per_site(st):
+    """Within, stepper ``st``'s K2 launches (every entry point) run the
+    fused_stage.cu build whose K2 runs per site (``PK_STAGE_PER_SITE``),
+    bound as ``st`` binds its own."""
+    header = st.kernel_header() + STAGE_PER_SITE
+    if header not in _BUILDS:
+        _BUILDS[header] = tstencil.build_kernels(["fused_stage.cu"],
+                                                 header)["fused_stage.cu"]
+    keep = dict(st._libs)
+    for key, fn in keep.items():
+        if key[0] == "fused_stage":
+            other = getattr(_BUILDS[header], fn.__name__)
+            other.argtypes, other.restype = fn.argtypes, fn.restype
+            st._libs[key] = other
+    try:
+        yield
+    finally:
+        st._libs.update(keep)
+
+
 def _fd_per_site(h):
     """Within, the operators of stencil radius ``h`` run the build whose
-    marching operators (fd_lap, fd_grad, fd_grad_lap, fd_div) run per
-    site."""
+    operators run per site."""
+    return _fd_lib(h, FD_PER_SITE)
+
+
+@contextlib.contextmanager
+def _fd_lib(h, defines):
+    """Within, the operators of stencil radius ``h`` run the fd_ops.cu
+    build with ``defines`` after the generated header."""
     keep = tderivs.build_kernels(h)
-    header = tderivs.kernel_header(h) + FD_PER_SITE
+    header = tderivs.kernel_header(h) + defines
     if header not in _BUILDS:
         _BUILDS[header] = tderivs.bind_kernels(tstencil.build_kernels(
             ["fd_ops.cu"], header)["fd_ops.cu"])
@@ -1953,11 +1981,13 @@ def _stage_launches(cuda, st, kernel, ins, params, grid, h):
 
 def _stage_vs_per_site(cuda, st, sst, ins, params, grid, h):
     """The stage marches on ``ins`` (:func:`_stage_launches` each, every
-    padding, K7's interior and shells, two x blocks' partials of K5' and
-    K5), held to each other and to the per-site K2 bit for bit: K5''s
-    scalar outputs and sums are K5's (``sst``'s fused_stage_energy); on
-    carries that are not finalized K5''s lattice outputs are K7's and K5's
-    scalar outputs K2's."""
+    padding, K7's and K2's interior and shells, two x blocks' partials of
+    K5' and K5), held to each other and to the per-site K2 (the
+    ``PK_STAGE_PER_SITE`` build's, :func:`_stage_per_site`, in every
+    entry point) bit for bit: K5''s scalar outputs and sums are K5's
+    (``sst``'s fused_stage_energy); on carries that are not finalized
+    K5''s lattice outputs are K7's, K5's scalar outputs K2's march's, and
+    K2's march the per-site K2's."""
     n = len(ins)
     fin = st._finalized("preheat_stage_energy", ins)
     one = _stage_launches(cuda, st, "preheat_stage_energy", ins, params,
@@ -1969,11 +1999,15 @@ def _stage_vs_per_site(cuda, st, sst, ins, params, grid, h):
     if fin:
         return
     k7 = _stage_launches(cuda, st, "preheat_stage", ins, params, grid, h)
-    k2 = sst.launch("fused_stage", ins[:4], sst._new_set(cuda), params)
-    torch.cuda.synchronize()
+    k2 = _stage_launches(cuda, sst, "fused_stage", ins[:4], params, grid, h)
+    with _stage_per_site(sst):
+        per_site = _stage_launches(cuda, sst, "fused_stage", ins[:4], params,
+                                   grid, h)
     for a, b in zip(one[:n], k7):
         assert torch.equal(a, b)
     for a, b in zip(k5[:4], k2):
+        assert torch.equal(a, b)
+    for a, b in zip(k2, per_site):
         assert torch.equal(a, b)
 
 
@@ -1982,12 +2016,12 @@ def _stage_vs_per_site(cuda, st, sst, ins, params, grid, h):
 @pytest.mark.parametrize("carry", ["f32", "f64", "f32-bf16", "f64-bf16",
                                    "f32-bf16-fin", "f64-bf16-fin"])
 def test_stage_march_equals_per_site(cuda, carry, grid):
-    """K5', K7 and K5 (one x-march template) in every entry point --
+    """K5', K7, K5 and K2 (one x-march template) in every entry point --
     carries in the working type, in bf16 and, for K5' and K5, on finalized
     velocity carries (``_bf16_fin``), unpadded, x-, y- and xy-padded, K7's
-    interior and shells, two x blocks -- held to each other and to the
-    per-site K2 bit for bit (:func:`_stage_vs_per_site`) at the march's
-    edges and on 2^3."""
+    and K2's interior and shells, two x blocks -- held to each other and
+    to the per-site K2 build bit for bit (:func:`_stage_vs_per_site`) at
+    the march's edges and on 2^3."""
     fin = carry.endswith("-fin")
     dtype, carry_dtype = CARRIES[carry[:-4] if fin else carry]
     st, ins, params = _bf16_case(cuda, "preheat_stage_energy", fin, grid,
@@ -2004,9 +2038,9 @@ def test_stage_march_equals_per_site(cuda, carry, grid):
 def test_stage_march_split_layout_equals_per_site(cuda, carry):
     """Ten fields at h = 4: the K5' and K7 march in f64 takes the split
     layout (scalar passes of nine fields and one, grad f parked for a
-    tensor pass of the six components), in f32 the joint one; K5 in f64
-    scalar passes of nine fields and one, in f32 one pass. Each is held
-    as :func:`_stage_vs_per_site` holds it."""
+    tensor pass of the six components), in f32 the joint one; K5 and K2
+    in f64 scalar passes of nine fields and one, in f32 one pass. Each is
+    held as :func:`_stage_vs_per_site` holds it."""
     dtype, carry_dtype = CARRIES[carry]
     F, h, grid = STAGE_SPLIT_F, 4, (13, 12, 40)
     sector = pt.ScalarSector(F, potential=many_potential(F))
@@ -2146,35 +2180,69 @@ def test_fd_grad_div_march_equals_per_site(cuda, op, h, grid, dtype):
     g = torch.Generator(device=cuda).manual_seed(20 + h)
     x = torch.randn((6 if op == "div" else 3,) + grid, generator=g,
                     device=cuda, dtype=dtype)
-    X, Y, _ = grid
-
-    def launches():
-        out = {None: fd.launch(op, x)}
-        if min(X, Y) >= h:
-            for kind, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
-                                   ("xypad", (h, h))):
-                out[kind] = fd.launch_block(
-                    op, kind, _pad_periodic(x, hx, hy),
-                    [torch.full_like(o, float("nan")) for o in out[None]])
-        if X > 2 * h:
-            xpad = _pad_periodic(x, h, 0)
-            o = [torch.full_like(t, float("nan")) for t in out[None]]
-            fd.launch_block(op, "interior", x, o, x0=h)
-            for x0 in (0, X - h):
-                fd.launch_block(op, "shell",
-                                xpad.narrow(1, x0, 3 * h).contiguous(), o,
-                                x0=x0)
-            out["split"] = o
-        torch.cuda.synchronize()
-        return out
-
-    march = launches()
+    march = _fd_launches(fd, op, x)
     with _fd_per_site(h):
-        per_site = launches()
+        per_site = _fd_launches(fd, op, x)
     assert set(march) == set(per_site)
     for key, got in march.items():
         assert torch.equal(got[0], per_site[key][0]), key
         assert torch.equal(got[0], march[None][0]), key
+
+
+def _fd_launches(fd, op, x):
+    """``op`` on ``x`` in every launch of the operator's kernel: unpadded
+    (key None), x-, y- and xy-padded on windows padded by hand where a
+    neighbour holds h rows, and an interior launch plus two x shells
+    (``"split"``) where the block is more than 2h rows long."""
+    h = fd.h
+    X, Y, _ = x.shape[1:]
+    out = {None: fd.launch(op, x)}
+    if min(X, Y) >= h:
+        for kind, (hx, hy) in (("xpad", (h, 0)), ("ypad", (0, h)),
+                               ("xypad", (h, h))):
+            out[kind] = fd.launch_block(
+                op, kind, _pad_periodic(x, hx, hy),
+                [torch.full_like(o, float("nan")) for o in out[None]])
+    if X > 2 * h:
+        xpad = _pad_periodic(x, h, 0)
+        o = [torch.full_like(t, float("nan")) for t in out[None]]
+        fd.launch_block(op, "interior", x, o, x0=h)
+        for x0 in (0, X - h):
+            fd.launch_block(op, "shell",
+                            xpad.narrow(1, x0, 3 * h).contiguous(), o,
+                            x0=x0)
+        out["split"] = o
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", FD_MARCH_GRIDS, ids=FD_MARCH_IDS)
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+@pytest.mark.parametrize("op", ["pdx", "pdy", "pdz"])
+def test_fd_pd_march_equals_per_site(cuda, op, h, grid, dtype):
+    """fd_pdx (the x-march on pk_queue_march, one array and no plane
+    stored), fd_pdy and fd_pdz (the per-site kernel) of the default build
+    equal the per-site build's kernels bit for bit, and fd_grad's matching
+    output (the march) on the same input: unpadded, x-, y- and xy-padded
+    on windows padded by hand, and as an interior launch plus two x
+    shells; each padded launch and the split equal the unpadded one. Three
+    components."""
+    fd = pt.FiniteDifferencer(h, (0.3, 0.25, 0.2))
+    g = torch.Generator(device=cuda).manual_seed(30 + h)
+    x = torch.randn((3,) + grid, generator=g, device=cuda, dtype=dtype)
+    default = _fd_launches(fd, op, x)
+    grad = _fd_launches(fd, "grad", x)
+    with _fd_per_site(h):
+        per_site = _fd_launches(fd, op, x)
+    assert set(per_site) == set(grad) == set(default)
+    d = "xyz".index(op[2])
+    for key, got in default.items():
+        assert torch.equal(got[0], per_site[key][0]), key
+        assert torch.equal(got[0], default[None][0]), key
+        assert torch.equal(got[0], grad[key][0][:, d]), key
 
 
 #: K11's march at its edges: runs cut short (70 rows: not a multiple of

@@ -332,14 +332,14 @@ def test_mg_tile(h, dtype, nf):
 
 @pytest.mark.parametrize("src,kernels", [
     ("fd_ops.cu", ("pk_fd_grad_kernel", "pk_fd_grad_lap_kernel",
-                   "pk_fd_div_kernel")),
+                   "pk_fd_pd_kernel", "pk_fd_div_kernel")),
     ("mg_relax.cu", ("mg_relax_march_kernel",))], ids=["fd", "mg"])
 def test_queue_march_sources_launch_the_shared_march(src, kernels):
-    """fd_ops.cu's fd_grad, fd_grad_lap and fd_div and mg_relax.cu's
-    sweeps march through pk_common.cuh's register-queue march, defined
-    outside the fused sources' PK_F guard (neither header defines PK_F);
-    the queue loader and tile live there alone. fd_lap keeps its own loop
-    (the shared one changed its registers on the card); K11 has none."""
+    """fd_ops.cu's fd_grad, fd_grad_lap, fd_pd* and fd_div and
+    mg_relax.cu's sweeps march through pk_common.cuh's register-queue march,
+    defined outside the fused sources' PK_F guard (neither header defines
+    PK_F); the queue loader and tile live there alone. fd_lap keeps its own
+    loop (the shared one changed its registers on the card); K11 has none."""
     csrc = Path(tderivs.__file__).resolve().parent / "csrc"
     common = (csrc / "pk_common.cuh").read_text()
     defined = common.index("pk_queue_march(const PkQueueSrc")
@@ -357,6 +357,64 @@ def test_queue_march_sources_launch_the_shared_march(src, kernels):
         # div taps its vector's three arrays in one march
         body = text[text.index("pk_fd_div_kernel("):]
         assert "pk_queue_march<T, 3," in body[:body.index("\n}\n")]
+
+
+def _body(text, name):
+    """The source of the function ``name`` in ``text``, to its closing
+    brace."""
+    body = text[text.index(name + "("):]
+    return body[:body.index("\n}\n")]
+
+
+def test_fd_pd_kernel_marches_its_own_halo():
+    """fd_ops.cu's pdx marches through pk_queue_march with one tapped array
+    and the halo mask 0u: its x taps come from the thread's queue alone, so
+    no plane is stored; its sum is pk_pd's along x in box coordinates from
+    0. The default build launches it for pdx; pdy and pdz (whose march lost
+    to the per-site kernel) and every operator of the per-site build
+    (PK_FD_PER_SITE) run pk_fd_kernel."""
+    csrc = Path(tderivs.__file__).resolve().parent / "csrc"
+    text = (csrc / "fd_ops.cu").read_text()
+    body = _body(text, "pk_fd_pd_kernel")
+    assert "pk_queue_march<T, 1, PAD, PK_FD_PD_AHEAD, 0u>(" in body
+    assert "pk_pd<T, 0, PK_BOX>(col[0], PK_H, by, bz, 0, 0, 0, w, T(0))" \
+        in body
+    assert "template <typename T, int PAD>\n" in text[
+        text.index("pk_fd_pd_kernel(") - 120:text.index("pk_fd_pd_kernel(")]
+    assert "PK_FD_PD_MARCH" not in text
+    assert "using PkFdPdTile = PkQueueTile<T, 0, PK_FD_PD_LX>;" in text
+    launch = _body(text, "static int pk_launch_fd")
+    march = launch[:launch.index("} else {")]
+    assert ("if constexpr (!PK_FD_PER_SITE && OP != PK_FD_PDY "
+            "&& OP != PK_FD_PDZ) {") in march
+    assert "pk_fd_pd_kernel<T, PAD><<<" in march
+    assert "pk_fd_kernel<" not in march
+    assert "pk_fd_kernel<T, OP, PAD>" in launch[len(march):]
+    # with no plane stored the march declares no shared plane and takes no
+    # barrier; with one, two a plane
+    common = (csrc / "pk_common.cuh").read_text()
+    queue = _body(common, "pk_queue_march")
+    assert "__shared__ T sm[HALO ? NA * Tl::CENTRE : 1];" in queue
+    assert queue.count("if constexpr (HALO != 0u) __syncthreads();") == 2
+    assert queue.count("__syncthreads()") == 2
+
+
+def test_stage_launch_runs_per_site_only_under_the_define():
+    """fused_stage.cu sends every stage to the stage march
+    (pk_stage_march_kernel; K2 with ENERGY and GW false) and reaches the
+    per-site K2 (pk_fused_stage_kernel) only in a build with
+    PK_STAGE_PER_SITE set, which defaults to 0."""
+    csrc = Path(tderivs.__file__).resolve().parent / "csrc"
+    text = (csrc / "fused_stage.cu").read_text()
+    assert "#ifndef PK_STAGE_PER_SITE\n#define PK_STAGE_PER_SITE 0\n#endif" \
+        in text
+    launch = _body(text, "static int pk_launch_stage")
+    per_site, march = launch.split("} else {")
+    assert "if constexpr (PK_STAGE_PER_SITE && !ENERGY && !GW) {" in per_site
+    assert "pk_fused_stage_kernel<T, C, PAD>" in per_site
+    assert "pk_stage_march_kernel<T, C, KD, ENERGY, GW, PAD>" in march
+    assert "pk_fused_stage_kernel" not in march
+    assert text.count("pk_fused_stage_kernel<") == 1
 
 
 def test_fd_pd_z_tap_takes_the_padding():
@@ -410,18 +468,31 @@ def test_smoke_phase_selection(monkeypatch, argv, env, want):
 
 def test_smoke_stage_variants():
     """march_variants times the stage march at run lengths 16, 32 and 64
-    (K5' and K7), and K5 at each with and without the next plane's loads a
-    step ahead; a variant's defines set both."""
+    (K5' and K7), and K5 and K2 at each with and without the next plane's
+    loads a step ahead; a variant's defines set both (K2 with bf16 carries
+    never looks ahead, in no build)."""
     smoke = _smoke()
     assert smoke.STAGE_VARIANTS == (16, 32, 64)
-    assert set(smoke.SCALAR_STAGE_VARIANTS) == {
+    assert set(smoke.SCALAR_STAGE_VARIANTS[:-1]) == {
         (lx, a) for lx in (16, 32, 64) for a in (0, 1)}
     assert set(smoke.STAGE_MARCH_KERNELS) == {"preheat_stage_energy",
                                               "preheat_stage"}
-    assert smoke.SCALAR_STAGE_MARCH_KERNELS == ("fused_stage_energy",)
+    assert smoke.SCALAR_STAGE_MARCH_KERNELS == ("fused_stage_energy",
+                                                "fused_stage")
     assert smoke.stage_defines((32, 0)).split() == [
         "#define", "PK_SCALAR_STAGE_MARCH_LX", "32", "#define",
         "PK_SCALAR_STAGE_AHEAD", "0"]
+    csrc = Path(tderivs.__file__).resolve().parent / "csrc"
+    stage = (csrc / "fused_stage.cu").read_text()
+    assert "BF16_AHEAD" not in stage
+    assert ("constexpr bool AHEAD = !GW && PK_SCALAR_STAGE_AHEAD\n"
+            "                         && (ENERGY || sizeof(C) == sizeof(T));"
+            in stage)
+    # K2's per-site build, timed beside the marches
+    assert smoke.SCALAR_STAGE_VARIANTS[-1] == "per_site"
+    assert smoke.stage_defines("per_site") == smoke.STAGE_PER_SITE
+    assert smoke.STAGE_PER_SITE.split() == ["#define", "PK_STAGE_PER_SITE",
+                                            "1"]
 
 
 @pytest.mark.parametrize("name,gated", [
@@ -438,6 +509,8 @@ def test_smoke_stage_variants():
     ("pk_fd_grad_kernel<double, 3>", True),
     ("pk_fd_div_kernel<float, 2>", True),
     ("pk_fd_div_kernel<double, 0>", True),
+    ("pk_fd_pd_kernel<float, 0>", True),
+    ("pk_fd_pd_kernel<double, 3>", True),
     ("mg_relax_march_kernel<float, 0, 0>", True),
     ("mg_relax_march_kernel<double, 2, 3>", True),
     ("mg_relax_kernel<float, 0, 0>", False),
@@ -445,12 +518,14 @@ def test_smoke_stage_variants():
     ("pk_fd_kernel<double, 6, 3>", False),
 ], ids=["k5prime", "k7-xpad", "k5-bf16-fin-xypad", "k3", "k2", "finish",
         "fd-lap-xypad", "fd-grad-lap-xpad", "fd-grad", "fd-grad-xypad",
-        "fd-div-ypad", "fd-div-f64", "k11-smooth", "k11-tau-xypad",
+        "fd-div-ypad", "fd-div-f64", "fd-pdx", "fd-pdx-f64-xypad",
+        "k11-smooth", "k11-tau-xypad",
         "k11-per-site", "fd-per-site", "fd-div-per-site"])
 def test_smoke_march_ptxas_rows(name, gated):
     """The smoke's build gate reads the spills of every x-marching
-    instantiation -- K5', K7 and K5 (``pk_stage_march_kernel``), fd_lap,
-    fd_grad, fd_grad_lap, fd_div and K11's march, padded ones included --
+    instantiation -- K5', K7, K5 and K2 (``pk_stage_march_kernel``),
+    fd_lap, fd_grad, fd_grad_lap, fd_pdx, fd_div and K11's march, padded
+    ones included --
     and not the per-site K2, K11, K12 kernels or the sums' finish."""
     smoke = _smoke()
     rows = smoke.march_ptxas({"fused_stage": {name: {"registers": 90}}})
@@ -458,23 +533,32 @@ def test_smoke_march_ptxas_rows(name, gated):
 
 
 def test_smoke_queue_variants():
-    """march_variants times fd_grad, fd_grad_lap, fd_div and K11's sweep at
-    run lengths 16, 32 and 64, each with and without the next plane's
-    loads a step ahead, beside their per-site builds, and K11 on the
-    multigrid path's levels from 512^3 down; a variant's defines set both
-    knobs (one fd_ops.cu build a variant sets them for every queue march),
-    a per-site build's the threshold (K11) or the per-site switch (K12)."""
+    """march_variants times fd_grad, fd_grad_lap, fd_div, fd_pdx and K11's
+    sweep at run lengths 16, 32 and 64, each with and without the next
+    plane's loads a step ahead, beside their per-site builds, and K11 on
+    the multigrid path's levels from 512^3 down; a variant's defines set
+    both knobs (one fd_ops.cu build a variant sets them for every queue
+    march's tile), a per-site build's the threshold (K11) or the per-site
+    switch (K12, and K2's in fused_stage.cu); every operator but pdy and
+    pdz marches, and every one that does is timed beside its per-site
+    build."""
     smoke = _smoke()
     assert set(smoke.QUEUE_VARIANTS) == {
         (lx, a) for lx in (16, 32, 64) for a in (0, 1)}
     assert smoke.mg_defines((16, 0)).split() == [
         "#define", "MG_MARCH_LX", "16", "#define", "MG_MARCH_AHEAD", "0"]
-    assert smoke.FD_QUEUE_OPS == ("grad", "grad_lap", "div")
-    assert set(smoke.FD_QUEUE_OPS) == set(tderivs.QUEUE_TILES)
+    assert smoke.FD_QUEUE_OPS == ("grad", "grad_lap", "div", "pdx")
+    assert {op[:2] if op == "pdx" else op
+            for op in smoke.FD_QUEUE_OPS} == set(tderivs.QUEUE_TILES)
+    assert not hasattr(smoke, "FD_PD_MARCH_ALL")
     assert smoke.fd_queue_defines((64, 1)).split() == [
-        w for op in ("GRAD", "GRAD_LAP", "DIV")
+        w for op in ("GRAD", "GRAD_LAP", "PD", "DIV")
         for w in ("#define", f"PK_FD_{op}_LX", "64", "#define",
                   f"PK_FD_{op}_AHEAD", "1")]
+    # pdy and pdz run per site
+    assert set(smoke.FD_MARCHED) == set(tderivs.OPS) - {"pdy", "pdz"}
+    assert smoke.STAGE_PER_SITE.split() == ["#define", "PK_STAGE_PER_SITE",
+                                            "1"]
     assert smoke.FD_QUEUE_VARIANTS == smoke.QUEUE_VARIANTS
     assert smoke.queue_label((32, 1)) == {"lx": 32, "ahead": 1}
     assert smoke.queue_label((16, 0)) == {"lx": 16, "ahead": 0}
@@ -537,6 +621,23 @@ def test_div_tile(h, dtype, lx):
     assert got[1] <= STATIC_SMEM_MAX
     assert tderivs.div_tile(h, isz, lx=lx, ahead=0)[2] == 0
     assert tderivs.QUEUE_TILES["div"] == ("pk_fd_div_tile", tderivs.div_tile)
+
+
+@pytest.mark.parametrize("lx", [None, 16, 64], ids=["default", "lx16",
+                                                    "lx64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+def test_pd_tile(h, dtype, lx):
+    """fd_pdx's march tile, in fd_grad_lap's form: its own run length and
+    look-ahead, and no shared memory (its x taps come from a thread's
+    register queue alone)."""
+    isz = dtype.itemsize
+    got = tderivs.pd_tile(h, isz, lx=lx)
+    assert got == ((tderivs.PD_LX if lx is None else lx), 0,
+                   tderivs.PD_AHEAD)
+    assert tderivs.pd_tile(h, isz, lx=lx, ahead=0)[2] == 0
+    assert tderivs.QUEUE_TILES["pd"] == ("pk_fd_pd_tile", tderivs.pd_tile)
 
 
 def test_div_tile_fits_three_planes_at_f64_h4():
