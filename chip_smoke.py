@@ -70,6 +70,17 @@ entry points a user calls, at 512^3 in float32:
   with a sharded tier, and ``fused_stage_energy:bf16_fin:<kind>``,
   ``preheat_stage_energy:bf16_fin:<kind>``).
 
+- the science example's start and measurement step
+  (examples/scalar_preheating.py, examples/torch_scalar_preheating.py):
+  ``RayleighGenerator.init_WKB_fields`` for both fields, four steps of
+  ``coupled_multi_step``, then ``FieldStatistics``,
+  ``FiniteDifferencer.grad``, rho through ``ElementWiseMap``,
+  ``FieldHistogrammer(1000)(rho)``, ``PowerSpectra`` of the two fields and
+  of rho, and ``PowerSpectra.gw`` on a GW stepper's state (kernels
+  ``bincount``, ``spectra_bin`` and ``bin_finish``: the deterministic
+  binning of ``ops/csrc/histogram.cu``); its spectra and histogram on
+  ``(2, 2, 1)`` bit-equal to the single device's.
+
 A non-polynomial potential (exp, tanh, sqrt, cos, powers 2.5 and -2, a
 quotient) compiles the printer's math-function paths into K2, K3 and K5 and
 holds them against their plain versions. Every phase prints one JSON line;
@@ -135,6 +146,20 @@ CONSTRAINT_TOL = 1e-4
 #: H100 SXM data sheet: HBM3 bandwidth and the non-tensor FP32 peak
 HBM_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS = 67e12
+
+#: the science example's measurement step (examples/scalar_preheating.py:
+#: 243-292): the 1000-bin rho histogram and the scalar, rho and GW spectra
+#: of the 2-field model at 512^3 f32, after its WKB start (seed 49279,
+#: :337-349) and 4 coupled steps; the binning kernels it runs
+SPECTRA_KERNELS = ("bincount", "spectra_bin", "bin_finish")
+HIST_BINS, SPECTRA_SEED, SPECTRA_STEPS = 1000, 49279, 4
+#: the example's background (:214-215)
+F0, DF0 = (0.193, 0.0), (-0.142231, 0.0)
+#: K13 / K14 vs their plain versions, relative to the largest bin: float64
+#: sums in another order (float32 inputs: the weights' own rounding too)
+HIST_TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
+#: the binning meshes held bit for bit to the whole lattice's launch
+HIST_MESHES = ((2, 1, 1), (2, 2, 1))
 
 #: the wave path (bench.py:run_wave): box (2 pi)^3, order-4 Laplacian,
 #: RungeKutta4, dt = 0.1 dx, 5 warm-up and 50 timed steps
@@ -3964,10 +3989,430 @@ def sharded_fd_kernel_time(phase):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the spectra group: K13, K14, the finish, and the measurement step
+# ---------------------------------------------------------------------------
+
+def spectra_binner(shape, dtype, device="cuda"):
+    """The K14 binner of PowerSpectra on a lattice ``shape`` (box 5^3) for
+    a real ``dtype`` (the host arrays at 512^3 take a few seconds)."""
+    import pystella_tpu_torch as pt
+    ndt = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    lat = pt.Lattice(shape, (BOX,) * 3, dtype=ndt)
+    fft = pt.DFT(None, grid_shape=shape, dtype=ndt, device=device)
+    return pt.PowerSpectra(None, fft, lat.dk, lat.volume)
+
+
+def hist_row(errs, name, tag, got, ref, dtype, exact):
+    """Hold a binning result to its plain version: equal (``exact``) or
+    within HIST_TOL of the largest bin; the row goes into ``errs``."""
+    rel, abs_ = rel_err(got, ref)
+    ok = torch.equal(got, ref) if exact else rel <= HIST_TOL[dtype]
+    row = {"max_rel_err": rel, "max_abs_err": abs_, "exact": exact,
+           "equal": torch.equal(got, ref), "ok": ok,
+           "tol": 0.0 if exact else HIST_TOL[dtype]}
+    prev = errs.setdefault(name, {}).get(tag)
+    if prev is None or abs_ >= prev["max_abs_err"]:
+        errs[name][tag] = row
+    return row
+
+
+def histogram_kernels_vs_plain(phase, errs):
+    """K13 (counts, float32 and float64 weights) and K14 (the spectra's
+    weighting and binning) against their plain versions at 512^3 and
+    48x40x36, f32 and f64, 1, 2 and 6 outer slices: counts and K14's bins
+    (unit modes, k^0) equal, sums within HIST_TOL of the largest bin, the
+    same launch twice equal bits, and on HIST_MESHES (where the blocks
+    hold whole units) the sharded launches equal the whole lattice's bit
+    for bit. The finish launch alone against a sum over the units."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import histogram as thist
+    g = torch.Generator(device="cuda").manual_seed(21)
+    fails = []
+    for shape in (GRID, ALT_SHAPES[1]):
+        for dtype in (torch.float32, torch.float64):
+            tag = case_tag(shape, dtype)
+            sp = spectra_binner(shape, dtype)
+            for outer in (1, 2, 6):
+                bins = torch.randint(-1, HIST_BINS + 1, (outer,) + shape,
+                                     generator=g, device="cuda",
+                                     dtype=torch.int32)
+                w = torch.randn((outer,) + shape, generator=g,
+                                device="cuda", dtype=dtype)
+                rows = {}
+                for label, weights in (("counts", None), ("weights", w)):
+                    one = thist.bincount(bins, weights, HIST_BINS)
+                    two = thist.bincount(bins, weights, HIST_BINS)
+                    ref = thist.bincount_plain(bins, weights, HIST_BINS)
+                    rows[label] = hist_row(errs, "bincount", tag, one, ref,
+                                           dtype, weights is None)
+                    rows[label]["repeat_equal"] = torch.equal(one, two)
+                    for mesh in HIST_MESHES:
+                        if shape[1] // mesh[1] % thist.unit_rows(shape[1]):
+                            continue
+                        d = pt.DomainDecomposition(mesh)
+                        sh = thist.bincount(
+                            d.shard(bins), None if weights is None
+                            else d.shard(weights), HIST_BINS)
+                        rows[label][f"sharded_{''.join(map(str, mesh))}"] \
+                            = torch.equal(sh, one)
+                        del sh
+                del bins, w
+                torch.cuda.empty_cache()
+                cdt = {torch.float32: torch.complex64,
+                       torch.float64: torch.complex128}[dtype]
+                kshape = sp.kshape
+                fk = torch.randn((outer,) + kshape, generator=g,
+                                 device="cuda", dtype=cdt)
+                one = sp.binner(fk, 3)
+                two = sp.binner(fk, 3)
+                rows["spectra"] = hist_row(errs, "spectra_bin", tag, one,
+                                           sp.binner.plain(fk, 3), dtype,
+                                           False)
+                rows["spectra"]["repeat_equal"] = torch.equal(one, two)
+                ones = torch.ones_like(fk)
+                rows["spectra_bins"] = hist_row(
+                    errs, "spectra_bin:bins", tag, sp.binner(ones, 0),
+                    sp.binner.plain(ones, 0), dtype, True)
+                del ones
+                for mesh in HIST_MESHES:
+                    if kshape[1] // mesh[1] % thist.unit_rows(kshape[1]):
+                        continue
+                    d = pt.DomainDecomposition(mesh)
+                    rows["spectra"][f"sharded_{''.join(map(str, mesh))}"] \
+                        = torch.equal(sp.binner(d.shard(fk), 3), one)
+                del fk, one, two
+                torch.cuda.empty_cache()
+                emit({"phase": phase, "shape": shape, "dtype": str(dtype),
+                      "outer": outer, "bins": HIST_BINS,
+                      "spectra_bins": sp.num_bins,
+                      "unit_rows": thist.unit_rows(shape[1]), **rows})
+                for label, row in rows.items():
+                    if not (row["ok"] and row.get("repeat_equal", True)
+                            and all(v for k, v in row.items()
+                                    if k.startswith("sharded_"))):
+                        fails.append((tag, outer, label))
+            del sp
+    # the finish alone: random partials of the 512^3 layout (8192 units)
+    fns = thist.build_kernels()
+    nunits = GRID[0] * (GRID[1] // thist.unit_rows(GRID[1]))
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, pdt, entry in (("sums", torch.float64, "pk_bin_finish_sum"),
+                              ("counts", torch.int32,
+                               "pk_bin_finish_count")):
+        parts = (torch.randn((2, nunits, HIST_BINS), generator=g,
+                             device="cuda", dtype=torch.float64)
+                 if pdt == torch.float64 else torch.randint(
+                     0, 2**20, (2, nunits, HIST_BINS), generator=g,
+                     device="cuda", dtype=torch.int32))
+        out = torch.empty((2, HIST_BINS), device="cuda", dtype=(
+            torch.float64 if pdt == torch.float64 else torch.int64))
+        rc = fns[entry](parts.data_ptr(), out.data_ptr(), 2, HIST_BINS,
+                        nunits, stream)
+        torch.cuda.synchronize()
+        row = hist_row(errs, "bin_finish", case_tag(GRID, torch.float32),
+                       out, parts.to(out.dtype).sum(dim=1), torch.float64,
+                       pdt != torch.float64)
+        emit({"phase": phase, "kernel": "bin_finish", "partials": label,
+              "rc": rc, **row})
+        if rc or not row["ok"]:
+            fails.append(("bin_finish", label))
+        del parts, out
+    torch.cuda.empty_cache()
+    if fails:
+        raise SystemExit(f"{phase}: the binning kernels disagree with their "
+                         f"plain versions, do not repeat or shard bit for "
+                         f"bit: {fails}")
+
+
+def hist_timing(name, ms, plain_ms, nbytes, library_ms, library_call):
+    """A kernels-line row of a binning kernel: its bound is bytes (each
+    input read once over the HBM rate); the operations per site are a few
+    and the binning's compares none of the FP32 peak."""
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "bytes": nbytes,
+            "share_of_bound": bound / ms, "library_ms": library_ms,
+            "library_call": library_call}
+
+
+def time_binning(rho_bins, fk, sp, timing):
+    """K13's, K14's and the finish's ms per launch on the main path's
+    inputs (the linear rho histogram's int32 bins; the two fields' half
+    spectrum), each against its bytes bound, its plain version and
+    ``torch.bincount`` (the finish: ``torch.sum`` over the units)."""
+    from pystella_tpu_torch.ops import histogram as thist
+    fns = thist.build_kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    _, X, Y, Z = rho_bins.shape
+    ry = thist.unit_rows(Y)
+    nyr, nunits = Y // ry, X * (Y // ry)
+    p13 = torch.empty((1, nunits, HIST_BINS), device="cuda",
+                      dtype=torch.int32)
+
+    def k13():
+        fns["pk_bincount_count"](rho_bins.data_ptr(), p13.data_ptr(), 1, X,
+                                 Y, Z, HIST_BINS, ry, 0, 0, nyr, nunits,
+                                 stream)
+    nb, outer = sp.num_bins, fk.shape[0]
+    p14 = torch.empty((outer, nunits, nb), device="cuda",
+                      dtype=torch.float64)
+    sx, sy, sz = sp.binner.tables(fk.device)
+
+    def k14():
+        fns["pk_spectra_bin_f32"](
+            fk.data_ptr(), sx.data_ptr(), sy.data_ptr(), sz.data_ptr(),
+            sp.bin_width, 3, 3.0, GRID[2], 1, 0, 0, p14.data_ptr(), outer,
+            X, Y, fk.shape[-1], nb, ry, 0, 0, nyr, nunits, stream)
+    out14 = torch.empty((outer, nb), device="cuda", dtype=torch.float64)
+
+    def finish():
+        fns["pk_bin_finish_sum"](p14.data_ptr(), out14.data_ptr(), outer,
+                                 nb, nunits, stream)
+    k13(), k14(), finish()
+    torch.cuda.synchronize()
+    # the direct launches agree with the wrappers'
+    same = (torch.equal(p13.to(torch.int64).sum(dim=1)[0],
+                        thist.bincount(rho_bins, None, HIST_BINS)[0])
+            and torch.equal(out14, sp.binner(fk, 3)))
+    flat = rho_bins.reshape(-1).to(torch.int64)
+    kmag, kb, counts = sp.binner.site_arrays(fk.device, 0, 0, X, Y)
+    w = (counts * kmag**3 * torch.abs(fk)**2).reshape(outer, -1)
+    kflat = (kb.reshape(1, -1).to(torch.int64)
+             + nb * torch.arange(outer, device="cuda")[:, None]).reshape(-1)
+    timing["bincount"] = hist_timing(
+        "bincount", cuda_ms(k13, reps=20, warmup=2),
+        cuda_ms(lambda: thist.bincount_plain(rho_bins, None, HIST_BINS),
+                reps=3), rho_bins.numel() * 4,
+        cuda_ms(lambda: torch.bincount(flat, minlength=HIST_BINS), reps=5),
+        "torch.bincount(bins.long().flatten(), minlength=1000) (atomics)")
+    timing["spectra_bin"] = hist_timing(
+        "spectra_bin", cuda_ms(k14, reps=20, warmup=2),
+        cuda_ms(lambda: sp.binner.plain(fk, 3), reps=3),
+        fk.numel() * fk.element_size(),
+        cuda_ms(lambda: torch.bincount(kflat, weights=w.reshape(-1),
+                                       minlength=outer * nb), reps=5),
+        "torch.bincount(bins, weights=counts*|k|^3*|fk|^2, "
+        "minlength=2*num_bins) on precomputed bins and weights (float "
+        "atomics)")
+    timing["bin_finish"] = hist_timing(
+        "bin_finish", cuda_ms(finish, reps=20, warmup=2),
+        cuda_ms(lambda: p14.sum(dim=1), reps=5), p14.numel() * 8,
+        cuda_ms(lambda: torch.sum(p14, dim=1), reps=5),
+        "torch.sum(partials, dim=1) (also the plain version)")
+    for name in SPECTRA_KERNELS:
+        timing[name]["launch_matches_wrapper"] = same
+        timing[name]["unit_rows"] = ry
+        timing[name]["partials_bytes"] = {
+            "bincount": p13.numel() * 4, "spectra_bin": p14.numel() * 8,
+            "bin_finish": p14.numel() * 8}[name]
+    del p13, p14, out14, flat, kmag, kb, counts, w, kflat
+    torch.cuda.empty_cache()
+    return same
+
+
+def spectra_main_path(phase, timing, launches):
+    """The science example's start and measurement step at 512^3 f32, two
+    fields, through the port's entry points: the WKB initial state
+    (RayleighGenerator.init_WKB_fields, seed 49279), SPECTRA_STEPS steps of
+    coupled_multi_step, then FieldStatistics, FiniteDifferencer.grad, rho
+    through ElementWiseMap, FieldHistogrammer(1000)(rho), PowerSpectra of
+    the two fields and of rho, and, on a GW stepper's state after two
+    steps, PowerSpectra.gw. Each piece's ms per call (CUDA events after a
+    warm-up), torch.fft.rfftn's own time on the same arrays, the binning
+    kernels' launches (counts set to 0 just before the measurement step,
+    read just after) and times, peak memory; every result finite, and the
+    spectra and histogram of (2, 2, 1) bit for bit the single device's."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import derivs as tderivs
+    from pystella_tpu_torch.ops import fused as tfused
+    from pystella_tpu_torch.ops import histogram as thist
+    t0 = time.perf_counter()
+    lattice = pt.Lattice(GRID, (BOX,) * 3, dtype=np.float32)
+    dx, sites = lattice.dx[0], math.prod(GRID)
+    dt = 0.1 * dx
+    sector = pt.ScalarSector(2, potential=potential)
+    fd = pt.FiniteDifferencer(HALO, lattice.dx)
+    fft = pt.DFT(None, grid_shape=GRID, dtype=np.float32, device="cuda")
+    reduce_energy = pt.Reduction(sector, callback=pt.get_rho_and_p,
+                                 grid_size=float(sites))
+
+    def energy_of(state, a):
+        return reduce_energy(f=state["f"], dfdt=state["dfdt"],
+                             lap_f=fd.lap(state["f"]), a=np.float64(a))
+
+    torch.cuda.reset_peak_memory_stats()
+    state = {k: torch.stack([torch.full(GRID, v[i], device="cuda",
+                                        dtype=torch.float32)
+                             for i in range(2)])
+             for k, v in (("f", F0), ("dfdt", DF0))}
+    energy = energy_of(state, 1.0)
+    expand = pt.Expansion(energy["total"], pt.LowStorageRK54, mpl=1.0)
+    addot = expand.addot_friedmann_2(expand.a, energy["total"],
+                                     energy["pressure"])
+    fsym = pt.Field("f0_bg", shape=(2,))
+    eff_mass = [float(pt.evaluate(pt.diff(potential(fsym), fsym[i], fsym[i]),
+                                  {"f0_bg": np.array(F0)})) - addot / expand.a
+                for i in range(2)]
+    modes = pt.RayleighGenerator(fft=fft, dk=lattice.dk,
+                                 volume=lattice.volume, seed=SPECTRA_SEED)
+    torch.cuda.synchronize()
+    init0 = time.perf_counter()
+    for fld in range(2):
+        fx, dfx = modes.init_WKB_fields(
+            norm=MPHI**2, hubble=expand.hubble,
+            omega_k=lambda k, m=eff_mass[fld]: torch.sqrt(k**2 + m))
+        state["f"][fld] += fx
+        state["dfdt"][fld] += dfx
+        del fx, dfx
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - init0
+    energy = energy_of(state, expand.a)
+    expand = pt.Expansion(energy["total"], pt.LowStorageRK54, mpl=1.0)
+    st = pt.FusedScalarStepper(sector, GRID, dx, HALO, dtype=torch.float32,
+                               device="cuda")
+    state = {k: v.clone() for k, v in st.coupled_multi_step(
+        state, SPECTRA_STEPS, expand, 0.0, dt).items()}
+    del st
+    torch.cuda.empty_cache()
+    f, dfdt = state["f"], state["dfdt"]
+
+    stats = pt.FieldStatistics(grid_size=float(sites))
+    spectra = pt.PowerSpectra(None, fft, lattice.dk, lattice.volume)
+    projector = pt.Projector(fft, HALO, lattice.dk, lattice.dx)
+    hist = pt.FieldHistogrammer(None, HIST_BINS)
+    hubble_var = pt.Var("hubble")
+    compute_rho = pt.ElementWiseMap(
+        {pt.Field("rho"): sector.stress_tensor(0, 0)
+         / (3 * hubble_var**2 / 8 / np.pi)})
+    a, hub = np.float64(expand.a), np.float64(expand.hubble)
+
+    # the measurement step, once, with the launch counts set to 0 just
+    # before it and read just after
+    for mod in (tfused, tderivs, thist):
+        mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    step0 = time.perf_counter()
+    f_stats = stats(f)
+    dfdx = fd.grad(f)
+    rho = compute_rho(a=a, hubble=hub, f=f, dfdt=dfdt, dfdx=dfdx)["rho"]
+    rho_hist = hist(rho)
+    spec_f, spec_rho = spectra(f), spectra(rho)
+    step_s = time.perf_counter() - step0
+    step_launches = {n: c for mod in (tfused, tderivs, thist)
+                     for n, c in mod.LAUNCHES.items() if c}
+    for name in SPECTRA_KERNELS:
+        launches[name] = thist.LAUNCHES[name]
+
+    # each piece's time per call
+    pieces = {
+        "FieldStatistics": lambda: stats(f),
+        "FiniteDifferencer.grad": lambda: fd.grad(f),
+        "ElementWiseMap(rho)": lambda: compute_rho(
+            a=a, hubble=hub, f=f, dfdt=dfdt, dfdx=dfdx),
+        "FieldHistogrammer(1000)(rho)": lambda: hist(rho),
+        "PowerSpectra(f)": lambda: spectra(f),
+        "PowerSpectra(rho)": lambda: spectra(rho),
+        "torch.fft.rfftn(f)": lambda: torch.fft.rfftn(f, dim=(-3, -2, -1)),
+        "torch.fft.rfftn(rho)": lambda: torch.fft.rfftn(rho,
+                                                        dim=(-3, -2, -1))}
+    ms = {k: cuda_ms(fn, reps=3) for k, fn in pieces.items()}
+    # a shell numpy's histogram leaves empty (the last at 512^3 f32, as in
+    # the JAX package) divides by 0: finite is asked of the others
+    shells = spectra.bin_counts > 0
+    finite = bool(all(np.all(np.isfinite(v)) for v in f_stats.values())
+                  and all(np.all(np.isfinite(v)) for v in rho_hist.values())
+                  and np.all(np.isfinite(spec_f[..., shells]))
+                  and np.all(np.isfinite(spec_rho[shells]))
+                  and bool(torch.isfinite(rho).all()))
+    shapes = (spec_f.shape == (2, spectra.num_bins)
+              and spec_rho.shape == (spectra.num_bins,)
+              and rho_hist["linear"].shape == (HIST_BINS,)
+              and int(rho_hist["linear"].sum()) == sites)
+
+    # the binning kernels alone, on these inputs
+    bins = hist._prepare({"f": rho, **{
+        k: torch.as_tensor(np.reshape(v, np.shape(v) + (1, 1, 1)),
+                           device="cuda")
+        for k, v in hist._sanitize_bounds(hist._auto_bounds(rho),
+                                          np.float32).items()}})["linear"][0]
+    fk = torch.fft.rfftn(f, dim=(-3, -2, -1))
+    direct_ok = time_binning(bins[None].contiguous(), fk, spectra, timing)
+    del bins, fk, dfdx
+    torch.cuda.empty_cache()
+
+    # (2, 2, 1): the spectra and the histogram bit for bit
+    d = pt.DomainDecomposition((2, 2, 1))
+    fs = pt.DFT(d, grid_shape=GRID, dtype=np.float32)
+    ss = pt.PowerSpectra(d, fs, lattice.dk, lattice.volume)
+    sharded_equal = {
+        "spectra_f": np.array_equal(ss(d.shard(f)), spec_f, equal_nan=True),
+        "spectra_rho": np.array_equal(ss(d.shard(rho)), spec_rho,
+                                      equal_nan=True),
+        "rho_histogram": all(np.array_equal(v, rho_hist[k]) for k, v in
+                             pt.FieldHistogrammer(d, HIST_BINS)(
+                                 d.shard(rho)).items())}
+    del ss, fs, d
+    torch.cuda.empty_cache()
+
+    # the GW spectrum of a GW stepper's state, two steps from hij = 0
+    gw_sector = pt.TensorPerturbationSector([sector])
+    gst = pt.FusedPreheatStepper(sector, gw_sector, GRID, dx, HALO,
+                                 dtype=torch.float32, device="cuda")
+    zeros = torch.zeros((6,) + GRID, device="cuda", dtype=torch.float32)
+    gstate = gst.multi_step({"f": f, "dfdt": dfdt, "hij": zeros,
+                             "dhijdt": zeros.clone()}, 2, 0.0, dt,
+                            {"a": float(a), "hubble": float(hub)})
+    dhijdt = gstate["dhijdt"].clone()
+    del gst, gstate, zeros
+    torch.cuda.empty_cache()
+    thist.reset_launch_counts()
+    spec_gw = spectra.gw(dhijdt, projector, hub)
+    gw_launches = dict(thist.LAUNCHES)
+    ms["PowerSpectra.gw(dhijdt)"] = cuda_ms(
+        lambda: spectra.gw(dhijdt, projector, hub), reps=2)
+    ms["torch.fft.rfftn(dhijdt)"] = cuda_ms(
+        lambda: torch.fft.rfftn(dhijdt, dim=(-3, -2, -1)), reps=3)
+    finite = finite and bool(np.all(np.isfinite(spec_gw[shells])))
+    sourced = bool(np.any(spec_gw[shells] > 0))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del dhijdt
+    torch.cuda.empty_cache()
+    row = {"phase": phase, "grid": GRID, "dtype": "torch.float32",
+           "steps": SPECTRA_STEPS, "init_WKB_s": init_s,
+           "measurement_step_host_s": step_s, "ms_per_call": ms,
+           "launches_per_measurement_step": step_launches,
+           "launches_gw_spectrum": {k: v for k, v in gw_launches.items()
+                                    if v},
+           "peak_memory_GiB": peak, "a": float(a), "hubble": float(hub),
+           "spectra_bins": spectra.num_bins,
+           "empty_shells": np.flatnonzero(~shells).tolist(),
+           "constraint": float(expand.constraint(
+               energy_of(state, expand.a)["total"])),
+           "f_mean": f_stats["mean"].tolist(),
+           "f_variance": f_stats["variance"].tolist(),
+           "finite": finite, "shapes_ok": shapes, "gw_sourced": sourced,
+           "direct_launch_matches_wrapper": direct_ok,
+           "sharded_221_equal": sharded_equal,
+           "binning": {k: timing[k] for k in SPECTRA_KERNELS},
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    if not (finite and shapes and sourced and direct_ok
+            and all(sharded_equal.values())):
+        raise SystemExit(f"{phase}: a non-finite or misshapen result, an "
+                         "unsourced GW spectrum, or a (2, 2, 1) result that "
+                         f"differs from the single device's: {row}")
+    for name in SPECTRA_KERNELS:
+        if launches[name] < 1:
+            raise SystemExit(f"{phase} never launched {name}")
+    del state, f, dfdt, rho
+    torch.cuda.empty_cache()
+
+
 #: the phase groups of a run, in run order, each with the groups whose
 #: results it reads; with no selection a run takes every one of PHASES
 PHASES = ("scalar", "gw", "fd", "mg", "sharded_mg", "sharded",
-          "sharded_coupled", "sharded_gw", "sharded_bf16")
+          "sharded_coupled", "sharded_gw", "sharded_bf16", "spectra")
 PHASE_DEPS = {"sharded_mg": ("mg",), "sharded": ("scalar",),
               "sharded_coupled": ("scalar",), "sharded_gw": ("gw",),
               "sharded_bf16": ("scalar", "gw")}
@@ -3993,6 +4438,9 @@ PHASE_HELP = {
     "sharded_coupled": "the sharded coupled driver and its trace",
     "sharded_gw": "the sharded GW multi_step and coupled driver",
     "sharded_bf16": "the sharded bf16-carry launches and paths",
+    "spectra": "the binning kernels (K13, K14, the finish) vs plain, and "
+               "the science example's start and measurement step (rho "
+               "histogram, scalar, rho and GW spectra) at 512^3 f32",
     "march_variants": "the x-march tile variants of K3 and K6 deferred, "
                       "of K8 and K9 deferred, of K10, of K5' and K7, of K5 "
                       "and K2, of fd_lap, of fd_grad, fd_grad_lap, fd_div "
@@ -4071,6 +4519,7 @@ def main(argv=None):
     #       solvers' (one a set of equations), each source its own nvcc
     from pystella_tpu_torch.multigrid import relax as trelax
     from pystella_tpu_torch.ops import derivs as tderivs
+    from pystella_tpu_torch.ops import histogram as thist
     from pystella_tpu_torch.ops import stencil as tstencil
     # the per-site builds beside the marches (fd_ops.cu's, K2's of the
     # bench model; K11 on every level) and K11's build that marches every
@@ -4111,6 +4560,7 @@ def main(argv=None):
             pool.submit(mg_solver, "newton"),
             pool.submit(mg_solver, "jacobi"),
             *(pool.submit(tderivs.build_kernels, h) for h in FD_HALOS),
+            pool.submit(thist.build_kernels),
             *(pool.submit(tstencil.build_kernels, *b)
               for b in variant_builds.values())]]
     build_s = time.perf_counter() - t0
@@ -4118,7 +4568,7 @@ def main(argv=None):
                                     dtype=torch.float32, device="cuda")
     tiles = {str(d): chunk_st.chunk_kernel_tile(d)
              for d in (torch.float32, torch.float64)}
-    new_kernels = {**tderivs.KERNELS, **trelax.KERNELS}
+    new_kernels = {**tderivs.KERNELS, **trelax.KERNELS, **thist.KERNELS}
     # each nvcc's wall seconds (they ran together), by source and model
     source_s = {}
     for label, st in (("bench", chunk_st), ("nonpoly", nonpoly_st),
@@ -4136,6 +4586,8 @@ def main(argv=None):
             "mg_relax.cu", solver.kernel_header())
     for label, ((src,), header) in variant_builds.items():
         source_s[label] = pt.ops.stencil.build_seconds(src, header)
+    source_s["histogram.cu"] = pt.ops.stencil.build_seconds(
+        "histogram.cu", thist._HEADER)
     ptxas = ptxas_report(chunk_st, gw_st)
     emit({"phase": "build", "seconds": build_s,
           "sources": sorted({src for src, _ in tfused.KERNELS.values()}
@@ -4153,7 +4605,8 @@ def main(argv=None):
                     **{f"mg_relax {kind}": ptxas_of(
                         "mg_relax.cu", solver.kernel_header())
                        for kind, solver in (("newton", newton),
-                                            ("jacobi", jacobi))}},
+                                            ("jacobi", jacobi))},
+                    "histogram": ptxas_of("histogram.cu", thist._HEADER)},
           # K10's x-march: run length, y-z tile and bytes a block
           "fused_chunk_tile": {d: {"lx": t[0][0], "tile": t[0][1:],
                                    "smem_bytes_per_block": t[1]}
@@ -4216,7 +4669,7 @@ def main(argv=None):
         raise SystemExit("the chunk stepper did not build the chunk kernel")
     if gw_st.kernel_names() != list(GW_KERNELS):
         raise SystemExit("the GW model did not build every kernel")
-    if tuple(new_kernels) != FD_KERNELS + MG_KERNELS:
+    if tuple(new_kernels) != FD_KERNELS + MG_KERNELS + SPECTRA_KERNELS:
         raise SystemExit("the operator and multigrid kernels are not the "
                          "ones this run checks")
     del newton, jacobi
@@ -4716,6 +5169,15 @@ def main(argv=None):
             single=True)
         del cgw_bf16_ref
         PATH_ROWS["coupled_gw_bf16_main_path"].pop("single_final")
+
+    # -- 28. the binning kernels (K13, K14, the finish) vs plain, and the
+    #        science example's start and measurement step at 512^3 f32 ------
+    if "spectra" in phases:
+        spectra_s = time.perf_counter()
+        histogram_kernels_vs_plain("histogram_kernel_vs_plain", errs)
+        spectra_main_path("spectra_main_path", timing, launches)
+        emit({"phase": "spectra_seconds",
+              "seconds": time.perf_counter() - spectra_s})
 
     kernels = []
     sharded = sharded_kernel_names() + sharded_bf16_kernel_names()

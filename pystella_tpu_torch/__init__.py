@@ -17,6 +17,15 @@ shards per card allowed) the fused scalar stepper, :class:`FiniteDifferencer`
 and :class:`Reduction` take :class:`ShardedArray` s: halo-padded and
 overlapped (interior + shell) launches of the same kernels.
 
+The science example's measurement step is ported too: :class:`ElementWiseMap`,
+:class:`Histogrammer` / :class:`FieldHistogrammer` and the Fourier stack
+(:class:`DFT` on ``torch.fft``, :class:`Projector`, :class:`PowerSpectra`,
+:class:`RayleighGenerator`, :class:`SpectralCollocator`,
+:class:`SpectralPoissonSolver`, :class:`FFTStencil`), with the histograms and
+the spectra binned by hand-written deterministic kernels
+(``ops/csrc/histogram.cu``), and :class:`OutputFile` (h5py, imported when a
+file is opened).
+
 Entry points run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); without CUDA and without that request they raise.
 """
@@ -32,6 +41,10 @@ from pystella_tpu_torch.field import (
     simplify, substitute,
     exp, log, sin, cos, tan, sinh, cosh, tanh, sqrt, fabs, sign,
     t, x, y, z,
+)
+from pystella_tpu_torch.fourier import (
+    DFT, PowerSpectra, Projector, RayleighGenerator, SpectralCollocator,
+    SpectralPoissonSolver, make_dft,
 )
 from pystella_tpu_torch.grid import Lattice
 from pystella_tpu_torch import multigrid
@@ -49,12 +62,15 @@ from pystella_tpu_torch.ops.derivs import (
     FiniteDifferencer, FirstCenteredDifference, SecondCenteredDifference,
     centered_diff, expand_stencil,
 )
+from pystella_tpu_torch.ops.elementwise import ElementWiseMap
+from pystella_tpu_torch.ops.fft_stencil import FFTStencil, fft_laplacian
 from pystella_tpu_torch.ops.fused import (
     FusedPreheatStepper, FusedScalarStepper,
 )
+from pystella_tpu_torch.ops.histogram import FieldHistogrammer, Histogrammer
 from pystella_tpu_torch.ops.reduction import FieldStatistics, Reduction
 from pystella_tpu_torch.parallel import (
-    DomainDecomposition, HaloShells, ShardedArray,
+    DomainDecomposition, HaloShells, ShardedArray, blockwise,
 )
 from pystella_tpu_torch.step import (
     LowStorageRK3Inhomogeneous, LowStorageRK3PredictorCorrector,
@@ -65,11 +81,12 @@ from pystella_tpu_torch.step import (
     RungeKutta3Ralston, RungeKutta3SSP, RungeKutta4, RungeKuttaStepper,
     Stepper, all_steppers, compile_rhs_dict,
 )
+from pystella_tpu_torch.utils.output import OutputFile
 
 __all__ = [
     "resolve_device", "state_from_numpy", "carry_from_numpy", "to_numpy",
     "expansion_from_numpy", "shard_state", "DomainDecomposition",
-    "HaloShells", "ShardedArray", "Expansion", "Reduction",
+    "HaloShells", "ShardedArray", "blockwise", "Expansion", "Reduction",
     "FieldStatistics",
     "Expr", "Constant", "Sum", "Product", "Quotient", "Power", "Call", "Var",
     "Field", "Indexed", "Shifted", "DynamicField", "diff", "evaluate",
@@ -93,4 +110,8 @@ __all__ = [
     "LowStorageRK124", "LowStorageRK3Williamson",
     "LowStorageRK3Inhomogeneous", "LowStorageRK3Symmetric",
     "LowStorageRK3PredictorCorrector", "LowStorageRK3SSP", "all_steppers",
+    "ElementWiseMap", "Histogrammer", "FieldHistogrammer", "DFT",
+    "make_dft", "Projector", "PowerSpectra", "RayleighGenerator",
+    "SpectralCollocator", "SpectralPoissonSolver", "FFTStencil",
+    "fft_laplacian", "OutputFile",
 ]

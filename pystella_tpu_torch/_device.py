@@ -36,11 +36,15 @@ _NUMPY_TO_TORCH = {
     np.dtype(np.float16): torch.float16,
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
+    np.dtype(np.complex64): torch.complex64,
+    np.dtype(np.complex128): torch.complex128,
 }
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """Normalize a numpy or torch floating dtype to a :class:`torch.dtype`.
+    """Normalize a numpy or torch floating or complex dtype to a
+    :class:`torch.dtype` (complex64 and complex128: the k-space arrays of
+    :mod:`~pystella_tpu_torch.fourier`).
 
     bfloat16 is recognized by name: numpy has no bfloat16 of its own, and
     the one a JAX array converts to (``np.asarray`` of a bf16 array)

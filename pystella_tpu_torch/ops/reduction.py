@@ -6,10 +6,14 @@ Each reduction is a plain ``torch`` reduction over the whole lattice tensor
 to the host as numpy values, as there. No Pallas kernel is involved, so
 there is no kernel here either.
 
-A :class:`~pystella_tpu_torch.parallel.ShardedArray` argument is reduced
-block by block, and the per-block partials are combined in rank order (the
-JAX package's reductions over a sharded global array, where XLA inserts
-the cross-device reduce).
+Every reduction runs in two steps: along z first, one partial per
+``(x, y)`` row, then over the rows (and any leading axes). A
+:class:`~pystella_tpu_torch.parallel.ShardedArray` argument on a mesh that
+does not shard z has its blocks' row partials placed at their global
+``(x, y)`` on rank 0's device and reduced once, so it gives the
+single-device result bit for bit (the JAX package's reductions over a
+sharded global array, where XLA inserts the cross-device reduce). On a
+mesh that shards z the per-block results are combined in rank order.
 """
 
 from __future__ import annotations
@@ -51,15 +55,55 @@ def _to_numpy(v):
 _COMBINE = {"avg": "sum", "sum": "sum", "prod": "prod", "max": "max",
             "min": "min"}
 
+#: the per-row (along z) step of each op
+_ROWS = {"avg": torch.sum, "sum": torch.sum, "prod": torch.prod,
+         "max": torch.amax, "min": torch.amin}
+
+
+def _rows(arr, op):
+    """Row partials of a lattice array: ``op`` along z, ``(..., X, Y)``."""
+    return _ROWS[op](arr, dim=-1)
+
+
+#: the reduce over the rows keeping the leading axes (FieldStatistics)
+_OUTER = {"sum": lambda x: torch.sum(x, dim=(-2, -1)),
+          "max": lambda x: torch.amax(x, dim=(-2, -1)),
+          "min": lambda x: torch.amin(x, dim=(-2, -1))}
+
+
+def _reduce_rows(parts, decomp, op, per_outer=False):
+    """``op``-reduction of per-block row partials (``(..., bx, by)`` each,
+    in rank order) over every axis (``per_outer``: over the rows only,
+    per leading index): placed at their global ``(x, y)`` on rank 0's
+    device and reduced once; on a mesh that shards z, each block reduced
+    and the results combined in rank order."""
+    reduce = _OUTER[op] if per_outer else _OPS[op]
+    if decomp is None:
+        return reduce(parts[0])
+    if decomp.proc_shape[2] > 1:
+        return decomp._combine([reduce(p) for p in parts], _COMBINE[op])
+    b = parts[0].shape
+    whole = torch.empty(b[:-2] + (b[-2] * decomp.proc_shape[0],
+                                  b[-1] * decomp.proc_shape[1]),
+                        dtype=parts[0].dtype, device=decomp.devices[0])
+    for r, p in enumerate(parts):
+        cx, cy, _ = decomp.coords(r)
+        whole[..., cx * b[-2]:(cx + 1) * b[-2],
+              cy * b[-1]:(cy + 1) * b[-1]].copy_(p)
+    return reduce(whole)
+
 
 def _reduce(env, fn, op):
-    """``op``-reduction of ``fn(env)`` over the lattice: directly, or, when
-    ``env`` holds :class:`ShardedArray` s, block by block (a value with no
-    lattice axes once, from rank 0) with the partials combined in rank
-    order."""
+    """``op``-reduction of ``fn(env)`` over the lattice, row partials
+    first (:func:`_rows`, :func:`_reduce_rows`); when ``env`` holds
+    :class:`ShardedArray` s, ``fn`` runs block by block (a value with no
+    lattice axes once, from rank 0)."""
     sharded = [v for v in env.values() if isinstance(v, ShardedArray)]
     if not sharded:
-        return _OPS[op](torch.as_tensor(fn(env)))
+        arr = torch.as_tensor(fn(env))
+        if arr.ndim < 3:
+            return _OPS[op](arr)
+        return _reduce_rows([_rows(arr, op)], None, op)
     decomp = sharded[0].decomp
     parts = []
     for r in range(decomp.nshards):
@@ -67,8 +111,8 @@ def _reduce(env, fn, op):
             v, ShardedArray) else v for k, v in env.items()}))
         if arr.ndim < 3:
             return _OPS[op](arr)
-        parts.append(_OPS[op](arr))
-    return decomp._combine(parts, _COMBINE[op])
+        parts.append(_rows(arr, op))
+    return _reduce_rows(parts, decomp, op)
 
 
 class Reduction:
@@ -143,8 +187,9 @@ class FieldStatistics(Reduction):
     """Mean and variance (plus optional extrema) of a field, per outer-axis
     component.
 
-    Call with ``stats(f=tensor)`` (or a :class:`ShardedArray`, reduced
-    block by block, the partials combined in rank order); returns a dict
+    Call with ``stats(f=tensor)`` (or a :class:`ShardedArray`: its blocks'
+    row partials reduced once, the single-device result bit for bit where
+    z is not sharded); returns a dict
     with keys ``mean``,
     ``variance`` and, if requested, ``max``, ``min``, ``abs_max``,
     ``abs_min``, each a numpy array over the outer axes.
@@ -157,25 +202,20 @@ class FieldStatistics(Reduction):
 
     def __call__(self, f):
         grid_size = self.grid_size or int(np.prod(f.shape[-3:]))
-        lat = (-3, -2, -1)
         if isinstance(f, ShardedArray):
-            blocks, combine = f.blocks, f.decomp._combine
+            blocks, decomp = f.blocks, f.decomp
         else:
-            blocks = [f]
-
-            def combine(parts, op):
-                return parts[0]
+            blocks, decomp = [f], None
 
         def red(fn, op):
-            return combine([fn(b) for b in blocks], op)
-        mean = red(lambda b: torch.sum(b, dim=lat), "sum") / grid_size
-        mean_sq = red(lambda b: torch.sum(b * b, dim=lat), "sum") / grid_size
+            return _reduce_rows([_rows(fn(b), op) for b in blocks], decomp,
+                                op, per_outer=True)
+        mean = red(lambda b: b, "sum") / grid_size
+        mean_sq = red(lambda b: b * b, "sum") / grid_size
         out = {"mean": mean, "variance": mean_sq - mean * mean}
         if self.max_min:
-            out["max"] = red(lambda b: torch.amax(b, dim=lat), "max")
-            out["min"] = red(lambda b: torch.amin(b, dim=lat), "min")
-            out["abs_max"] = red(lambda b: torch.amax(torch.abs(b), dim=lat),
-                                 "max")
-            out["abs_min"] = red(lambda b: torch.amin(torch.abs(b), dim=lat),
-                                 "min")
+            out["max"] = red(lambda b: b, "max")
+            out["min"] = red(lambda b: b, "min")
+            out["abs_max"] = red(torch.abs, "max")
+            out["abs_min"] = red(torch.abs, "min")
         return {k: _to_numpy(v) for k, v in out.items()}

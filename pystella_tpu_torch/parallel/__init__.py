@@ -1,7 +1,7 @@
 """Domain decomposition of the port: one process drives every shard."""
 
 from pystella_tpu_torch.parallel.decomp import (
-    DomainDecomposition, HaloShells, ShardedArray,
+    DomainDecomposition, HaloShells, ShardedArray, blockwise,
 )
 
-__all__ = ["DomainDecomposition", "HaloShells", "ShardedArray"]
+__all__ = ["DomainDecomposition", "HaloShells", "ShardedArray", "blockwise"]

@@ -45,7 +45,8 @@ from torch.profiler import record_function
 from pystella_tpu_torch._device import resolve_device, torch_dtype
 from pystella_tpu_torch.parallel.overlap import MIN_INTERIOR_FACTOR
 
-__all__ = ["DomainDecomposition", "HaloPlan", "HaloShells", "ShardedArray"]
+__all__ = ["DomainDecomposition", "HaloPlan", "HaloShells", "ShardedArray",
+           "blockwise"]
 
 
 class ShardedArray:
@@ -101,6 +102,13 @@ class ShardedArray:
         """Blockwise difference."""
         return self._zip(other, torch.sub)
 
+    def __mul__(self, other):
+        """Blockwise product with a number (the generic steppers' ``a * x``
+        and ``x * 0``)."""
+        return self.map(lambda b: b * other)
+
+    __rmul__ = __mul__
+
     def __repr__(self):
         return (f"ShardedArray(shape={self.shape}, dtype={self.dtype}, "
                 f"proc_shape={self.decomp.proc_shape})")
@@ -138,6 +146,35 @@ def _lattice_map(fn, tree):
             return a.map(fn)
         return fn(a) if getattr(a, "ndim", 0) >= 3 else a
     return _tree_map(one, tree)
+
+
+def blockwise(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` once per block when any argument (a leaf of
+    a dict, list or tuple) is a :class:`ShardedArray`: each call sees its
+    rank's block of every sharded leaf and every other leaf as it is, and
+    the tensor leaves of the results (``ndim >= 3``) are assembled into
+    :class:`ShardedArray` s (other leaves from rank 0). Without a sharded
+    argument, one plain call. For elementwise functions, so each block's
+    result is the whole lattice's at its sites, bit for bit."""
+    sharded = [a for a in _leaves((args, kwargs))
+               if isinstance(a, ShardedArray)]
+    if not sharded:
+        return fn(*args, **kwargs)
+    decomp = sharded[0].decomp
+    outs = [fn(*_block_of(args, r), **_block_of(kwargs, r))
+            for r in range(decomp.nshards)]
+
+    def assemble(path_outs):
+        first = path_outs[0]
+        if isinstance(first, dict):
+            return {k: assemble([o[k] for o in path_outs]) for k in first}
+        if isinstance(first, (list, tuple)):
+            return type(first)(assemble([o[i] for o in path_outs])
+                               for i in range(len(first)))
+        if isinstance(first, torch.Tensor) and first.ndim >= 3:
+            return ShardedArray(path_outs, decomp)
+        return first
+    return assemble(outs)
 
 
 def _slice_region(tree, region):

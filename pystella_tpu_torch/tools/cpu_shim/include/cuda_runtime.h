@@ -86,6 +86,29 @@ inline T __shfl_down_sync(unsigned, T v, int o) {
   return r;
 }
 
+// the warp's votes go through a per-block array like the shuffles; every
+// thread of a block reaches each call (the kernels that use them keep the
+// step count uniform), so __syncwarp can be the block-wide switch
+inline void __syncwarp(unsigned = 0xffffffffu) { __syncthreads(); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline thread_local long long pk_match_buf[2][1024];
+inline thread_local int pk_match_par = 0;
+template <class T>
+inline unsigned __match_any_sync(unsigned, T v) {
+  const int tid = threadIdx.x + threadIdx.y * blockDim.x
+                  + threadIdx.z * blockDim.x * blockDim.y;
+  long long* buf = pk_match_buf[pk_match_par];
+  buf[tid] = (long long)v;
+  __syncthreads();
+  const int base = tid - tid % 32;
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l)
+    if (buf[base + l] == (long long)v) m |= 1u << l;
+  pk_match_par ^= 1;
+  return m;
+}
+
 inline void pk_entry() {
   (*pk_fn)();
   (*pk_fibs)[pk_cur].done = true;
@@ -112,6 +135,7 @@ inline void pk_run_block(dim3 block, size_t smem) {
     makecontext(&f.ctx, pk_entry, 0);
   }
   pk_shfl_par = 0;
+  pk_match_par = 0;
   bool live = true;
   while (live) {
     live = false;

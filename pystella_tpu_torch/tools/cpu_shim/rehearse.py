@@ -33,6 +33,13 @@ padding, the interior and shell launches) are held to their plain versions from
 a build that marches every launch (``MG_MARCH_MIN_SITES 1``), and bit for bit
 to one that runs every launch per site and to the default build; padded,
 interior and shell launches equal the unpadded one.
+With ``--hist`` the binning kernels K13 (``bincount``: counts, float32
+and float64 weights; 1, 2 and 6 outer slices; 7 and 1000 bins, some out
+of range) and K14 (``spectra_bin``: r2c and c2c, float32 and float64,
+k powers 3 and 0) and their finish launch are held to their plain
+versions (counts and K14's bins exactly, sums within 1e-13 / 1e-6 of the
+largest bin), launched twice for equal bits, and on (2, 1, 1) and
+(2, 2, 1) blocks equal to the whole lattice's launch bit for bit.
 With ``--against DIR``, the root of another checkout (a parent commit
 unpacked with ``git archive``, say), every launch must also equal that
 checkout's kernels bit for bit, sums included.
@@ -51,7 +58,8 @@ PK_FD_DIV_LX with ``--fd``, MG_MARCH_LX with
 to a few minutes. Exits 1 if a check fails::
 
     python pystella_tpu_torch/tools/cpu_shim/rehearse.py
-        [--gw | --chunk | --stage | --fd | --mg] [--lx N] [--against DIR]
+        [--gw | --chunk | --stage | --fd | --mg | --hist] [--lx N]
+        [--against DIR]
 """
 
 import argparse
@@ -64,7 +72,8 @@ from pathlib import Path
 
 import torch
 
-from shim import CSRC, build, built, pt, shim, tderivs, tfused, trelax
+from shim import (CSRC, build, built, pt, shim, tderivs, tfused, thist,
+                  trelax)
 
 A, B = pt.LowStorageRK54._A, pt.LowStorageRK54._B
 RESULTS = []
@@ -668,6 +677,84 @@ def mg(args):
         MgCase(args, problem, 4, (13, 12, 40), torch.float64).run()
 
 
+def hist(args):
+    """K13, K14 and the finish launch against their plain versions."""
+    def build_kernels(sources, header):
+        return {s: ctypes.CDLL(str(build(CSRC, s, header))) for s in sources}
+    keep = thist._stencil.build_kernels
+    thist._stencil.build_kernels = build_kernels
+    try:
+        thist.build_kernels()
+    finally:
+        thist._stencil.build_kernels = keep
+    g = torch.Generator().manual_seed(5)
+    for grid, outer, nbins, wdt in itertools.product(
+            ((16, 16, 16), (48, 40, 36), (5, 9, 33)), (1, 2, 6), (7, 1000),
+            (None, torch.float32, torch.float64)):
+        tag = f"bincount {grid} outer {outer} bins {nbins} {wdt}"
+        b = torch.randint(-1, nbins + 1, (outer,) + grid, generator=g,
+                          dtype=torch.int32)
+        w = None if wdt is None else torch.randn(
+            (outer,) + grid, generator=g, dtype=torch.float64).to(wdt)
+        plain = thist.bincount_plain(b, w, nbins)
+        with shim():
+            one = thist.bincount(b, w, nbins)
+            two = thist.bincount(b, w, nbins)
+        tol = 1e-13 if wdt is not torch.float32 else 1e-6
+        check(tag, (torch.equal(one, plain) if w is None
+                    else rel(one, plain) <= tol) and torch.equal(one, two))
+        for mesh in ((2, 1, 1), (2, 2, 1)):
+            if grid[1] // mesh[1] % thist.unit_rows(grid[1]) or \
+                    grid[0] % mesh[0] or grid[1] % mesh[1]:
+                continue
+            d = pt.DomainDecomposition(mesh, devices=["cpu"] * 4
+                                       if mesh[1] == 2 else ["cpu"] * 2)
+            with shim():
+                sharded = thist.bincount(d.shard(b), None if w is None
+                                         else d.shard(w), nbins)
+            check(f"{tag} {mesh}", torch.equal(sharded, one))
+    for grid, dtype, real in itertools.product(
+            ((16, 16, 16), (48, 40, 36), (5, 9, 33)),
+            (torch.float32, torch.float64), (True, False)):
+        ndt = {torch.float32: "float32", torch.float64: "float64"}[dtype]
+        if not real:
+            ndt = {"float32": "complex64", "float64": "complex128"}[ndt]
+        lat = pt.Lattice(grid, (5.0, 4.0, 7.0))
+        ft = pt.DFT(None, grid_shape=grid, dtype=ndt, device="cpu")
+        sp = pt.PowerSpectra(None, ft, lat.dk, lat.volume)
+        cdt = {torch.float32: torch.complex64,
+               torch.float64: torch.complex128}[dtype]
+        fk = torch.randn((2,) + ft.shape(True), generator=g,
+                         dtype=cdt)
+        for kp in (3, 0):
+            tag = f"spectra_bin {grid} {dtype} {'r2c' if real else 'c2c'} " \
+                  f"k^{kp}"
+            plain = sp.binner.plain(fk, kp)
+            with shim():
+                one = sp.binner(fk, kp)
+                two = sp.binner(fk, kp)
+            tol = 1e-13 if dtype == torch.float64 else 1e-6
+            check(tag, rel(one, plain) <= tol and torch.equal(one, two))
+        # unit modes and no k weight: the shells' counts, exact
+        ones = torch.ones_like(fk)
+        with shim():
+            counts = sp.binner(ones, 0)
+        check(f"spectra_bin {grid} {dtype} bins exact",
+              torch.equal(counts, sp.binner.plain(ones, 0)))
+        for mesh in ((2, 1, 1), (2, 2, 1)):
+            ks = ft.shape(True)
+            if ks[1] // mesh[1] % thist.unit_rows(ks[1]) or \
+                    ks[0] % mesh[0] or ks[1] % mesh[1]:
+                continue
+            d = pt.DomainDecomposition(mesh, devices=["cpu"] * (
+                2 * mesh[1]))
+            with shim():
+                sharded = sp.binner(d.shard(fk), 3)
+                whole = sp.binner(fk, 3)
+            check(f"spectra_bin {grid} {dtype} {mesh}",
+                  torch.equal(sharded, whole))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     family = parser.add_mutually_exclusive_group()
@@ -683,6 +770,9 @@ def main():
                         "fd_pd* and fd_div instead of K3 and K6")
     family.add_argument("--mg", action="store_true",
                         help="the multigrid sweeps K11 instead of K3 and K6")
+    family.add_argument("--hist", action="store_true",
+                        help="the binning kernels K13 and K14 instead of K3 "
+                        "and K6")
     parser.add_argument("--lx", type=int, default=4,
                         help="the march's run length to build with")
     parser.add_argument("--against", metavar="DIR",
@@ -706,12 +796,15 @@ def main():
             for op in ("LAP", "GRAD", "GRAD_LAP", "PD", "DIV"))
     elif args.mg:
         args.defines = f"\n#define MG_MARCH_LX {args.lx}\n"
+    elif args.hist:
+        args.defines = ""
     else:
         tfused.SCALAR_MARCH_LX = args.lx
         args.defines = f"\n#define PK_SCALAR_MARCH_LX {args.lx}\n"
     t0 = time.time()
     (gw if args.gw else chunk if args.chunk else stage if args.stage
-     else fd if args.fd else mg if args.mg else scalar)(args)
+     else fd if args.fd else mg if args.mg else hist if args.hist
+     else scalar)(args)
     failed = RESULTS.count(False)
     print(f"{len(RESULTS) - failed} ok, {failed} failed, "
           f"{time.time() - t0:.0f} s")

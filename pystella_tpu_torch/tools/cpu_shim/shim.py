@@ -11,14 +11,15 @@ block, so a read of an element no thread wrote shows as NaN),
 ``kernel<<<grid, block, smem, stream>>>(args)`` becomes ``pk_launch(grid,
 block, smem, stream, lambda)``. With ``-ffp-contract=off`` the kernels
 then round as the card's ``-fmad=false`` builds do. The port's package is
-copied and its ``ops/fused.py``, ``ops/derivs.py`` and
-``multigrid/relax.py`` patched so that their card branches also take CPU
-tensors; everything is written under
+copied and its ``ops/fused.py``, ``ops/derivs.py``,
+``ops/histogram.py`` and ``multigrid/relax.py`` patched so that their
+card branches also take CPU tensors; everything is written under
 ``pystella_tpu_torch/ops/_build/cpu_shim/`` of the checkout.
 
 Importing this module sets that up and exposes ``pt``, ``tfused``,
-``tderivs`` and ``trelax`` (the patched package, its ``ops.fused``,
-``ops.derivs`` and ``multigrid.relax``), :func:`build`, :func:`built` and
+``tderivs``, ``thist`` and ``trelax`` (the patched package, its
+``ops.fused``, ``ops.derivs``, ``ops.histogram`` and
+``multigrid.relax``), :func:`build`, :func:`built` and
 :func:`shim`.
 """
 
@@ -88,8 +89,8 @@ def build(csrc, source, header):
 
 def _package():
     """Copy the port's package and let the card branches of ops/fused.py,
-    ops/derivs.py and multigrid/relax.py take CPU tensors while
-    :func:`shim` is on."""
+    ops/derivs.py, ops/histogram.py and multigrid/relax.py take CPU
+    tensors while :func:`shim` is on."""
     dst = OUT / "pkg" / "pystella_tpu_torch"
     if dst.exists():
         shutil.rmtree(dst)
@@ -103,6 +104,8 @@ def _package():
                            'd.devices[0].type in ("cuda", "cpu")'))),
             ("derivs.py", (flag, ('if win.device.type == "cuda":',
                                   'if win.device.type == "cuda" or _SHIM:'))),
+            ("histogram.py", (flag, ('return types.pop() == "cuda"',
+                                     'return types.pop() == "cuda" or _SHIM'))),
             ("../multigrid/relax.py", (
                 flag, ('if dev.type == "cpu" or hz is not None:',
                        'if (dev.type == "cpu" and not _SHIM) '
@@ -130,6 +133,7 @@ import pystella_tpu_torch as pt  # noqa: E402
 from pystella_tpu_torch.multigrid import relax as trelax  # noqa: E402
 from pystella_tpu_torch.ops import derivs as tderivs  # noqa: E402
 from pystella_tpu_torch.ops import fused as tfused  # noqa: E402
+from pystella_tpu_torch.ops import histogram as thist  # noqa: E402
 
 
 def built(stepper, csrc=CSRC, defines=""):
@@ -163,8 +167,8 @@ def shim(on=True):
     """Within, a stepper's (a FiniteDifferencer's, a relaxation
     solver's) launches on CPU tensors run its built libraries instead of
     its plain versions."""
-    tfused._SHIM = tderivs._SHIM = trelax._SHIM = on
+    tfused._SHIM = tderivs._SHIM = trelax._SHIM = thist._SHIM = on
     try:
         yield
     finally:
-        tfused._SHIM = tderivs._SHIM = trelax._SHIM = False
+        tfused._SHIM = tderivs._SHIM = trelax._SHIM = thist._SHIM = False

@@ -2323,3 +2323,131 @@ def test_mg_march_equals_per_site(cuda, problem, h, grid, dtype):
         if isinstance(key, tuple):
             assert all(torch.equal(a, b) for a, b in zip(
                 got, march[key[0], None])), key
+
+
+# -- the binning kernels K13 (bincount), K14 (spectra_bin), the finish ------
+
+#: K13 / K14 vs their plain versions, relative to the largest bin: float64
+#: sums in another order (float32 inputs: their weights' own rounding too)
+HIST_TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
+HIST_GRIDS = [(16, 16, 16), (48, 40, 36)]
+
+
+def _spectra(cuda, grid, dtype, real=True):
+    ndt = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    if not real:
+        ndt = {np.float32: np.complex64, np.float64: np.complex128}[ndt]
+    lat = pt.Lattice(grid, (5.0, 4.0, 7.0))
+    fft = pt.DFT(None, grid_shape=grid, dtype=ndt, device=cuda)
+    return pt.PowerSpectra(None, fft, lat.dk, lat.volume)
+
+
+def _hist_rel(got, ref):
+    return ((got.double() - ref.double()).abs().max()
+            / ref.double().abs().max().clamp_min(1e-300)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", [None, torch.float32, torch.float64],
+                         ids=["counts", "f32", "f64"])
+@pytest.mark.parametrize("outer", [1, 2, 6])
+@pytest.mark.parametrize("grid", HIST_GRIDS, ids=["16cubed", "48x40x36"])
+def test_bincount_matches_plain(cuda, grid, outer, weights):
+    """K13 against its plain version (counts equal, sums within HIST_TOL),
+    the same launch twice equal bits, one launch and one finish counted,
+    and (2, 1, 1) / (2, 2, 1) blocks equal to the whole lattice's launch
+    bit for bit where they hold whole units."""
+    from pystella_tpu_torch.ops import histogram as thist
+    g = torch.Generator(device=cuda).manual_seed(outer)
+    b = torch.randint(-1, 1001, (outer,) + grid, generator=g, device=cuda,
+                      dtype=torch.int32)
+    w = None if weights is None else torch.randn(
+        (outer,) + grid, generator=g, device=cuda, dtype=weights)
+    before = dict(thist.LAUNCHES)
+    one = thist.bincount(b, w, 1000)
+    torch.cuda.synchronize()
+    assert thist.LAUNCHES["bincount"] == before["bincount"] + 1
+    assert thist.LAUNCHES["bin_finish"] == before["bin_finish"] + 1
+    ref = thist.bincount_plain(b, w, 1000)
+    if w is None:
+        assert torch.equal(one, ref)
+    else:
+        assert _hist_rel(one, ref) <= HIST_TOL[weights]
+    assert torch.equal(thist.bincount(b, w, 1000), one)
+    for mesh in ((2, 1, 1), (2, 2, 1)):
+        if grid[1] // mesh[1] % thist.unit_rows(grid[1]):
+            continue
+        d = pt.DomainDecomposition(mesh)
+        got = thist.bincount(d.shard(b), None if w is None else d.shard(w),
+                             1000)
+        assert torch.equal(got, one), mesh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("real", [True, False], ids=["r2c", "c2c"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", HIST_GRIDS + [(5, 9, 33)],
+                         ids=["16cubed", "48x40x36", "5x9x33"])
+def test_spectra_bin_matches_plain(cuda, grid, dtype, real):
+    """K14 against its plain version within HIST_TOL (k powers 3 and 2),
+    its bins exact (unit modes at k^0 give the shells' count weights,
+    whole numbers, equal), repeat bits, the sharded k-space launches equal
+    the whole lattice's."""
+    from pystella_tpu_torch.ops import histogram as thist
+    sp = _spectra(cuda, grid, dtype, real)
+    cdt = {torch.float32: torch.complex64,
+           torch.float64: torch.complex128}[dtype]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    fk = torch.randn((2,) + sp.kshape, generator=g, device=cuda, dtype=cdt)
+    for kp in (3, 2):
+        got = sp.binner(fk, kp)
+        assert _hist_rel(got, sp.binner.plain(fk, kp)) <= HIST_TOL[dtype]
+        assert torch.equal(sp.binner(fk, kp), got)
+    ones = torch.ones_like(fk)
+    assert torch.equal(sp.binner(ones, 0), sp.binner.plain(ones, 0))
+    whole = sp.binner(fk, 3)
+    for mesh in ((2, 1, 1), (2, 2, 1)):
+        if sp.kshape[1] // mesh[1] % thist.unit_rows(sp.kshape[1]) or \
+                sp.kshape[0] % mesh[0] or sp.kshape[1] % mesh[1]:
+            continue
+        d = pt.DomainDecomposition(mesh)
+        assert torch.equal(sp.binner(d.shard(fk), 3), whole), mesh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_measurement_step_on_card_matches_cpu(cuda, dtype):
+    """PowerSpectra (K14) and FieldHistogrammer (K13) on the card against
+    the same entry points on the CPU (the plain versions): spectra within
+    1e-5 / 1e-12 (cuFFT against pocketfft), the histograms' counts equal
+    where the bins are formed alike (float64)."""
+    grid = (32, 32, 32)
+    ndt = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    rng = np.random.default_rng(4)
+    f = rng.standard_normal((2,) + grid).astype(ndt)
+    lat = pt.Lattice(grid, (5.0,) * 3)
+    out = {}
+    for dev in (cuda, "cpu"):
+        fft = pt.DFT(None, grid_shape=grid, dtype=ndt, device=dev)
+        sp = pt.PowerSpectra(None, fft, lat.dk, lat.volume)
+        x = torch.from_numpy(f).to(dev)
+        out[str(dev)[:3]] = (sp(x), pt.FieldHistogrammer(None, 1000)(x))
+    (sg, hg), (sc, hc) = out["cud"], out["cpu"]
+    assert np.max(np.abs(sg - sc)) / np.max(np.abs(sc)) <= (
+        1e-5 if dtype == torch.float32 else 1e-12)
+    if dtype == torch.float64:
+        for k in hc:
+            np.testing.assert_array_equal(hg[k], hc[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_binning_refuses_too_many_bins(cuda):
+    from pystella_tpu_torch.ops import histogram as thist
+    b = torch.zeros((8, 8, 8), device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most"):
+        thist.bincount(b, None, thist.max_bins(False) + 1)
+    thist.bincount(b, None, thist.max_bins(False))
+    with pytest.raises(ValueError, match="at most"):
+        thist.bincount(b, b.double(), thist.max_bins(True) + 1)
