@@ -160,6 +160,41 @@ F0, DF0 = (0.193, 0.0), (-0.142231, 0.0)
 HIST_TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
 #: the binning meshes held bit for bit to the whole lattice's launch
 HIST_MESHES = ((2, 1, 1), (2, 2, 1))
+#: the histogram.cu build that bins counts and K14 every site through the
+#: warp grouping: the yardstick K13 and K14 are timed beside and held to
+#: (counts and K14's bins equal, K14's sums within HIST_TOL)
+HIST_MATCH = "\n#define PK_HIST_MATCH 1\n"
+#: the entry points whose design the yardstick build changes
+HIST_MATCH_ENTRIES = ("pk_bincount_count", "pk_spectra_bin_f32",
+                      "pk_spectra_bin_f64")
+#: the study builds of the opt-in hist_variants group, each histogram.cu
+#: with (old, new) patches applied to a copy of its text, timed beside the
+#: default build on the main path's inputs (k13_*: K13's rows, k14_*:
+#: K14's): K13 with 1 and 2 interleaved copies of its count histogram (the
+#: default 4); K14 with its registers fitted to 1, 3 and 5 blocks an SM
+#: (the default 4), and three builds that leave out a part of K14's work
+#: to time what it costs (the histogram adds, the hypot, the IEEE
+#: division: their sums are not K14's and are never compared)
+HIST_STUDY = {
+    **{f"k13_copies={c}": [("#define PK_COUNT_COPIES 4",
+                            f"#define PK_COUNT_COPIES {c}")] for c in (1, 2)},
+    **{f"k14_min_blocks={b}": [("#define PK_SPECTRA_MINB 4",
+                                f"#define PK_SPECTRA_MINB {b}")]
+       for b in (1, 3, 5)},
+    "k14_without_adds": [(
+        "if ((unsigned)b < (unsigned)nbins) mine[b] += s;",
+        "if ((unsigned)b < (unsigned)nbins && s == -1.0) mine[b] += s;")],
+    "k14_without_hypot": [(
+        "const R mod = pk_hypot(v.x, v.y);\n"
+        "  return (double)((cnt * pk_kpow(kmag, a.ipow, a.p)) * (mod * mod));",
+        "return (double)((cnt * pk_kpow(kmag, a.ipow, a.p))\n"
+        "                  * (v.x * v.x + v.y * v.y));")],
+    "k14_without_division": [(
+        "  return (int)pk_rint(kmag / a.bin_width);\n}",
+        "  return (int)pk_rint(kmag * (R(1) / a.bin_width));\n}")]}
+#: the bound entry points of the HIST_STUDY builds, by label (filled where
+#: the hist_variants group is selected)
+HIST_STUDY_BUILDS = {}
 
 #: the wave path (bench.py:run_wave): box (2 pi)^3, order-4 Laplacian,
 #: RungeKutta4, dt = 0.1 dx, 5 warm-up and 50 timed steps
@@ -4017,6 +4052,29 @@ def hist_row(errs, name, tag, got, ref, dtype, exact):
     return row
 
 
+def hist_build(defines):
+    """The bound entry points of histogram.cu built with ``defines`` after
+    its header (from the build cache when the build phase made it)."""
+    from pystella_tpu_torch.ops import histogram as thist
+    from pystella_tpu_torch.ops import stencil
+    return thist.bind_kernels(stencil.build_kernels(
+        ["histogram.cu"], thist._HEADER + defines)["histogram.cu"])
+
+
+def hot_bins(kind, shape, g):
+    """Hot-bin int32 bins of ``shape``: every site in bin 500 (``hot1``),
+    or 90% of the sites in bins 333 and 999 and the rest uniform
+    (``hot2``)."""
+    if kind == "hot1":
+        return torch.full(shape, HIST_BINS // 2, device="cuda",
+                          dtype=torch.int32)
+    u = torch.rand(shape, generator=g, device="cuda")
+    b = torch.randint(0, HIST_BINS, shape, generator=g, device="cuda",
+                      dtype=torch.int32)
+    return torch.where(u < 0.45, HIST_BINS // 3, torch.where(
+        u < 0.9, HIST_BINS - 1, b)).to(torch.int32)
+
+
 def histogram_kernels_vs_plain(phase, errs):
     """K13 (counts, float32 and float64 weights) and K14 (the spectra's
     weighting and binning) against their plain versions at 512^3 and
@@ -4024,10 +4082,17 @@ def histogram_kernels_vs_plain(phase, errs):
     (unit modes, k^0) equal, sums within HIST_TOL of the largest bin, the
     same launch twice equal bits, and on HIST_MESHES (where the blocks
     hold whole units) the sharded launches equal the whole lattice's bit
-    for bit. The finish launch alone against a sum over the units."""
+    for bit; counts (hot bins too) and K14's bins equal the grouping
+    build's (HIST_MATCH), K14's sums within HIST_TOL of it. The finish
+    launch alone against a sum over the units."""
     import pystella_tpu_torch as pt
     from pystella_tpu_torch.ops import histogram as thist
     g = torch.Generator(device="cuda").manual_seed(21)
+    fns, match = thist.build_kernels(), hist_build(HIST_MATCH)
+
+    def grouped(fn, *a):
+        with swapped(fns, match, HIST_MATCH_ENTRIES):
+            return fn(*a)
     fails = []
     for shape in (GRID, ALT_SHAPES[1]):
         for dtype in (torch.float32, torch.float64):
@@ -4047,6 +4112,8 @@ def histogram_kernels_vs_plain(phase, errs):
                     rows[label] = hist_row(errs, "bincount", tag, one, ref,
                                            dtype, weights is None)
                     rows[label]["repeat_equal"] = torch.equal(one, two)
+                    rows[label]["match_equal"] = torch.equal(grouped(
+                        thist.bincount, bins, weights, HIST_BINS), one)
                     for mesh in HIST_MESHES:
                         if shape[1] // mesh[1] % thist.unit_rows(shape[1]):
                             continue
@@ -4058,6 +4125,16 @@ def histogram_kernels_vs_plain(phase, errs):
                             = torch.equal(sh, one)
                         del sh
                 del bins, w
+                for kind in ("hot1", "hot2") if outer == 1 else ():
+                    bins = hot_bins(kind, (outer,) + shape, g)
+                    one = thist.bincount(bins, None, HIST_BINS)
+                    rows[f"counts_{kind}"] = hist_row(
+                        errs, "bincount", tag, one,
+                        thist.bincount_plain(bins, None, HIST_BINS), dtype,
+                        True)
+                    rows[f"counts_{kind}"]["match_equal"] = torch.equal(
+                        grouped(thist.bincount, bins, None, HIST_BINS), one)
+                    del bins, one
                 torch.cuda.empty_cache()
                 cdt = {torch.float32: torch.complex64,
                        torch.float64: torch.complex128}[dtype]
@@ -4070,11 +4147,18 @@ def histogram_kernels_vs_plain(phase, errs):
                                            sp.binner.plain(fk, 3), dtype,
                                            False)
                 rows["spectra"]["repeat_equal"] = torch.equal(one, two)
+                rows["spectra"]["match_rel_err"] = rel_err(
+                    grouped(sp.binner, fk, 3), one)[0]
+                rows["spectra"]["match_ok"] = \
+                    rows["spectra"]["match_rel_err"] <= HIST_TOL[dtype]
                 ones = torch.ones_like(fk)
+                shells = sp.binner(ones, 0)
                 rows["spectra_bins"] = hist_row(
-                    errs, "spectra_bin:bins", tag, sp.binner(ones, 0),
+                    errs, "spectra_bin:bins", tag, shells,
                     sp.binner.plain(ones, 0), dtype, True)
-                del ones
+                rows["spectra_bins"]["match_equal"] = torch.equal(
+                    grouped(sp.binner, ones, 0), shells)
+                del ones, shells
                 for mesh in HIST_MESHES:
                     if kshape[1] // mesh[1] % thist.unit_rows(kshape[1]):
                         continue
@@ -4089,6 +4173,8 @@ def histogram_kernels_vs_plain(phase, errs):
                       "unit_rows": thist.unit_rows(shape[1]), **rows})
                 for label, row in rows.items():
                     if not (row["ok"] and row.get("repeat_equal", True)
+                            and row.get("match_equal", True)
+                            and row.get("match_ok", True)
                             and all(v for k, v in row.items()
                                     if k.startswith("sharded_"))):
                         fails.append((tag, outer, label))
@@ -4121,8 +4207,8 @@ def histogram_kernels_vs_plain(phase, errs):
     torch.cuda.empty_cache()
     if fails:
         raise SystemExit(f"{phase}: the binning kernels disagree with their "
-                         f"plain versions, do not repeat or shard bit for "
-                         f"bit: {fails}")
+                         f"plain versions or the grouping build, do not "
+                         f"repeat or shard bit for bit: {fails}")
 
 
 def hist_timing(name, ms, plain_ms, nbytes, library_ms, library_call):
@@ -4136,13 +4222,142 @@ def hist_timing(name, ms, plain_ms, nbytes, library_ms, library_call):
             "library_call": library_call}
 
 
+def in_turns(make, builds, reps=20):
+    """CUDA-event ms per launch of ``make(fns)`` for the default build
+    (``kernel``) and the grouping yardstick (``match``) in turns (match,
+    kernel, kernel, match; each the mean of its two), and of every other
+    build of ``builds`` (the HIST_STUDY ones) once after them."""
+    got = {}
+    for label in ("match", "kernel", "kernel", "match"):
+        got.setdefault(label, []).append(
+            cuda_ms(make(builds[label]), reps=reps, warmup=2))
+    ms = {k: sum(v) / len(v) for k, v in got.items()}
+    ms.update({k: cuda_ms(make(fns), reps=reps, warmup=2)
+               for k, fns in builds.items() if k not in ms})
+    return ms
+
+
+def hist_builds():
+    """The bound entry points of the default histogram.cu build, of its
+    grouping yardstick and of the HIST_STUDY builds where they are built."""
+    from pystella_tpu_torch.ops import histogram as thist
+    return {"kernel": thist.build_kernels(), "match": hist_build(HIST_MATCH),
+            **HIST_STUDY_BUILDS}
+
+
+def hist_study_builds(phase):
+    """Build every HIST_STUDY variant of histogram.cu (a patched copy of
+    its text under the build directory, one nvcc each, all started
+    together, the flags of build_kernels) into HIST_STUDY_BUILDS, and emit
+    each build's registers and spills. A patch whose text the source no
+    longer holds exits."""
+    import ctypes
+    from pystella_tpu_torch.ops import histogram as thist
+    from pystella_tpu_torch.ops import stencil
+    text = (stencil.CSRC_DIR / "histogram.cu").read_text()
+    jobs, t0 = {}, time.perf_counter()
+    for label, patches in HIST_STUDY.items():
+        src = text
+        for old, new in patches:
+            if src.count(old) != 1:
+                raise SystemExit(f"{phase}: {label}: histogram.cu does not "
+                                 f"hold {old!r} once")
+            src = src.replace(old, new)
+        d = stencil.BUILD_DIR / "hist_study" / label
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "pk_model.cuh").write_text(thist._HEADER)
+        (d / "histogram.cu").write_text(src)
+        jobs[label] = (d / "libhistogram.so", subprocess.Popen(
+            [stencil._nvcc(), *stencil.NVCC_FLAGS, f"-I{d}",
+             f"-I{stencil.CSRC_DIR}", "-o", str(d / "libhistogram.so"),
+             str(d / "histogram.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    ptxas = {}
+    for label, (lib, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit(f"{phase}: {label}: nvcc failed:\n{log}")
+        ptxas[label] = stencil.ptxas_usage(log)
+        HIST_STUDY_BUILDS[label] = thist.bind_kernels(ctypes.CDLL(str(lib)))
+    emit({"phase": phase, "seconds": time.perf_counter() - t0,
+          "builds": list(HIST_STUDY), "ptxas": ptxas})
+
+
+def k14_timing(fk, sp, builds, direct, finish=None):
+    """K14's ms per launch on ``fk`` (outer, X, Y, nzk) complex64 by every
+    build (``in_turns``), its bytes bound, its plain version's time and
+    ``torch.bincount``'s on precomputed bins and weights; ``direct`` gets
+    the direct launch's result (sums, finished) against the wrapper's. With
+    a dict ``finish``, the finish's row on K14's own partials (most of a
+    unit's shells are empty: zeros, which the card reads faster) goes into
+    it."""
+    from pystella_tpu_torch.ops import histogram as thist
+    outer, X, Y, nzk = fk.shape
+    ry = thist.unit_rows(Y)
+    nyr, nunits, nb = Y // ry, X * (Y // ry), sp.num_bins
+    stream = torch.cuda.current_stream().cuda_stream
+    p14 = torch.empty((outer, nunits, nb), device="cuda",
+                      dtype=torch.float64)
+    sx, sy, sz = sp.binner.tables(fk.device)
+
+    def k14(fns):
+        return lambda: fns["pk_spectra_bin_f32"](
+            fk.data_ptr(), sx.data_ptr(), sy.data_ptr(), sz.data_ptr(),
+            sp.bin_width, 3, 3.0, GRID[2], 1, 0, 0, p14.data_ptr(), outer,
+            X, Y, nzk, nb, ry, 0, 0, nyr, nunits, stream)
+    k14(builds["kernel"])()
+    out = torch.empty((outer, nb), device="cuda", dtype=torch.float64)
+    builds["kernel"]["pk_bin_finish_sum"](p14.data_ptr(), out.data_ptr(),
+                                          outer, nb, nunits, stream)
+    direct["spectra_bin"] = torch.equal(out, sp.binner(fk, 3))
+    ms = in_turns(k14, {k: v for k, v in builds.items()
+                        if not k.startswith("k13")})
+    kmag, kb, counts = sp.binner.site_arrays(fk.device, 0, 0, X, Y)
+    w = (counts * kmag**3 * torch.abs(fk)**2).reshape(outer, -1)
+    kflat = (kb.reshape(1, -1).to(torch.int64)
+             + nb * torch.arange(outer, device="cuda")[:, None]).reshape(-1)
+    del kmag, kb, counts
+    row = hist_timing(
+        "spectra_bin", ms["kernel"],
+        cuda_ms(lambda: sp.binner.plain(fk, 3), reps=3),
+        fk.numel() * fk.element_size(),
+        cuda_ms(lambda: torch.bincount(kflat, weights=w.reshape(-1),
+                                       minlength=outer * nb), reps=5),
+        f"torch.bincount(bins, weights=counts*|k|^3*|fk|^2, "
+        f"minlength={outer}*num_bins) on precomputed bins and weights "
+        "(float atomics)")
+    row.update({"match_ms": ms["match"],
+                "variants_ms": {k: v for k, v in ms.items()
+                                if k not in ("kernel", "match")},
+                "outer": outer, "partials_bytes": p14.numel() * 8})
+    if finish is not None:
+        k14(builds["kernel"])()
+
+        def fin():
+            builds["kernel"]["pk_bin_finish_sum"](
+                p14.data_ptr(), out.data_ptr(), outer, nb, nunits, stream)
+        finish.update(hist_timing(
+            "bin_finish", cuda_ms(fin, reps=20, warmup=2),
+            cuda_ms(lambda: p14.sum(dim=1), reps=5), p14.numel() * 8,
+            cuda_ms(lambda: torch.sum(p14, dim=1), reps=5),
+            "torch.sum(partials, dim=1) (also the plain version)"))
+        finish["partials_bytes"] = p14.numel() * 8
+    del p14, out, w, kflat
+    torch.cuda.empty_cache()
+    return row
+
+
 def time_binning(rho_bins, fk, sp, timing):
     """K13's, K14's and the finish's ms per launch on the main path's
     inputs (the linear rho histogram's int32 bins; the two fields' half
     spectrum), each against its bytes bound, its plain version and
-    ``torch.bincount`` (the finish: ``torch.sum`` over the units)."""
+    ``torch.bincount`` (the finish: ``torch.sum`` over the units); K13 and
+    K14 beside the grouping yardstick (``match_ms``) and the HIST_STUDY
+    builds where they are built, and K13 also on hot-bin inputs of the same
+    size (every site in one bin, 90% of them in two) by each build."""
     from pystella_tpu_torch.ops import histogram as thist
-    fns = thist.build_kernels()
+    builds = hist_builds()
+    fns = builds["kernel"]
     stream = torch.cuda.current_stream().cuda_stream
     _, X, Y, Z = rho_bins.shape
     ry = thist.unit_rows(Y)
@@ -4150,63 +4365,45 @@ def time_binning(rho_bins, fk, sp, timing):
     p13 = torch.empty((1, nunits, HIST_BINS), device="cuda",
                       dtype=torch.int32)
 
-    def k13():
-        fns["pk_bincount_count"](rho_bins.data_ptr(), p13.data_ptr(), 1, X,
-                                 Y, Z, HIST_BINS, ry, 0, 0, nyr, nunits,
-                                 stream)
-    nb, outer = sp.num_bins, fk.shape[0]
-    p14 = torch.empty((outer, nunits, nb), device="cuda",
-                      dtype=torch.float64)
-    sx, sy, sz = sp.binner.tables(fk.device)
-
-    def k14():
-        fns["pk_spectra_bin_f32"](
-            fk.data_ptr(), sx.data_ptr(), sy.data_ptr(), sz.data_ptr(),
-            sp.bin_width, 3, 3.0, GRID[2], 1, 0, 0, p14.data_ptr(), outer,
-            X, Y, fk.shape[-1], nb, ry, 0, 0, nyr, nunits, stream)
-    out14 = torch.empty((outer, nb), device="cuda", dtype=torch.float64)
-
-    def finish():
-        fns["pk_bin_finish_sum"](p14.data_ptr(), out14.data_ptr(), outer,
-                                 nb, nunits, stream)
-    k13(), k14(), finish()
+    def k13(bins):
+        return lambda fns: lambda: fns["pk_bincount_count"](
+            bins.data_ptr(), p13.data_ptr(), 1, X, Y, Z, HIST_BINS, ry, 0,
+            0, nyr, nunits, stream)
+    k13(rho_bins)(fns)()
     torch.cuda.synchronize()
     # the direct launches agree with the wrappers'
-    same = (torch.equal(p13.to(torch.int64).sum(dim=1)[0],
-                        thist.bincount(rho_bins, None, HIST_BINS)[0])
-            and torch.equal(out14, sp.binner(fk, 3)))
+    direct = {"bincount": torch.equal(
+        p13.to(torch.int64).sum(dim=1)[0],
+        thist.bincount(rho_bins, None, HIST_BINS)[0])}
+    k13_builds = {k: v for k, v in builds.items() if not k.startswith("k14")}
+    ms = in_turns(k13(rho_bins), k13_builds)
+    g = torch.Generator(device="cuda").manual_seed(22)
+    hot = {}
+    for kind in ("hot1", "hot2"):
+        bins = hot_bins(kind, tuple(rho_bins.shape), g)
+        hot[kind] = in_turns(k13(bins), k13_builds)
+        del bins
     flat = rho_bins.reshape(-1).to(torch.int64)
-    kmag, kb, counts = sp.binner.site_arrays(fk.device, 0, 0, X, Y)
-    w = (counts * kmag**3 * torch.abs(fk)**2).reshape(outer, -1)
-    kflat = (kb.reshape(1, -1).to(torch.int64)
-             + nb * torch.arange(outer, device="cuda")[:, None]).reshape(-1)
     timing["bincount"] = hist_timing(
-        "bincount", cuda_ms(k13, reps=20, warmup=2),
+        "bincount", ms["kernel"],
         cuda_ms(lambda: thist.bincount_plain(rho_bins, None, HIST_BINS),
                 reps=3), rho_bins.numel() * 4,
         cuda_ms(lambda: torch.bincount(flat, minlength=HIST_BINS), reps=5),
         "torch.bincount(bins.long().flatten(), minlength=1000) (atomics)")
-    timing["spectra_bin"] = hist_timing(
-        "spectra_bin", cuda_ms(k14, reps=20, warmup=2),
-        cuda_ms(lambda: sp.binner.plain(fk, 3), reps=3),
-        fk.numel() * fk.element_size(),
-        cuda_ms(lambda: torch.bincount(kflat, weights=w.reshape(-1),
-                                       minlength=outer * nb), reps=5),
-        "torch.bincount(bins, weights=counts*|k|^3*|fk|^2, "
-        "minlength=2*num_bins) on precomputed bins and weights (float "
-        "atomics)")
-    timing["bin_finish"] = hist_timing(
-        "bin_finish", cuda_ms(finish, reps=20, warmup=2),
-        cuda_ms(lambda: p14.sum(dim=1), reps=5), p14.numel() * 8,
-        cuda_ms(lambda: torch.sum(p14, dim=1), reps=5),
-        "torch.sum(partials, dim=1) (also the plain version)")
+    timing["bincount"].update({
+        "match_ms": ms["match"],
+        "variants_ms": {k: v for k, v in ms.items()
+                        if k not in ("kernel", "match")},
+        "hot_bins_ms": hot, "copies": thist.HIST_COPIES,
+        "partials_bytes": p13.numel() * 4})
+    del flat, p13
+    timing["bin_finish"] = {}
+    timing["spectra_bin"] = k14_timing(fk, sp, builds, direct,
+                                       timing["bin_finish"])
+    same = all(direct.values())
     for name in SPECTRA_KERNELS:
         timing[name]["launch_matches_wrapper"] = same
         timing[name]["unit_rows"] = ry
-        timing[name]["partials_bytes"] = {
-            "bincount": p13.numel() * 4, "spectra_bin": p14.numel() * 8,
-            "bin_finish": p14.numel() * 8}[name]
-    del p13, p14, out14, flat, kmag, kb, counts, w, kflat
     torch.cuda.empty_cache()
     return same
 
@@ -4221,8 +4418,9 @@ def spectra_main_path(phase, timing, launches):
     steps, PowerSpectra.gw. Each piece's ms per call (CUDA events after a
     warm-up), torch.fft.rfftn's own time on the same arrays, the binning
     kernels' launches (counts set to 0 just before the measurement step,
-    read just after) and times, peak memory; every result finite, and the
-    spectra and histogram of (2, 2, 1) bit for bit the single device's."""
+    read just after) and times (K14 also on the GW spectrum's projected
+    input), peak memory; every result finite, and the spectra and
+    histogram of (2, 2, 1) bit for bit the single device's."""
     import pystella_tpu_torch as pt
     from pystella_tpu_torch.ops import derivs as tderivs
     from pystella_tpu_torch.ops import fused as tfused
@@ -4376,6 +4574,14 @@ def spectra_main_path(phase, timing, launches):
     finite = finite and bool(np.all(np.isfinite(spec_gw[shells])))
     sourced = bool(np.any(spec_gw[shells] > 0))
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # K14 alone on the GW spectrum's input: the six projected components
+    hij_tt = projector.transverse_traceless(
+        spectra._dft_whole(dhijdt)).contiguous()
+    gw_direct = {}
+    timing["spectra_bin"]["gw_input"] = k14_timing(
+        hij_tt, spectra, hist_builds(), gw_direct)
+    direct_ok = direct_ok and gw_direct["spectra_bin"]
+    del hij_tt
     del dhijdt
     torch.cuda.empty_cache()
     row = {"phase": phase, "grid": GRID, "dtype": "torch.float32",
@@ -4415,14 +4621,15 @@ PHASES = ("scalar", "gw", "fd", "mg", "sharded_mg", "sharded",
           "sharded_coupled", "sharded_gw", "sharded_bf16", "spectra")
 PHASE_DEPS = {"sharded_mg": ("mg",), "sharded": ("scalar",),
               "sharded_coupled": ("scalar",), "sharded_gw": ("gw",),
-              "sharded_bf16": ("scalar", "gw")}
+              "sharded_bf16": ("scalar", "gw"), "hist_variants": ("spectra",)}
 #: phases a run takes only when selected: march_variants builds the x-march
 #: variants of K3 and K6, of K8 and K9, of K10, of K5' and K7, of K5 and K2
 #: (beside K2's per-site build), of fd_lap, of fd_grad, fd_grad_lap, fd_div
 #: and fd_pd* and of K11 into libraries of their own and times them
 #: (fd_ops.cu's queue marches and K11 beside their per-site builds, on the
-#: x shells and on the multigrid path's levels)
-OPT_IN_PHASES = ("march_variants",)
+#: x shells and on the multigrid path's levels); hist_variants builds the
+#: HIST_STUDY variants of histogram.cu and times them in the spectra group
+OPT_IN_PHASES = ("march_variants", "hist_variants")
 PHASE_HELP = {
     "scalar": "the scalar system: kernels vs plain, identities, references, "
               "kernel times, the pair, chunk, bf16 and coupled main paths",
@@ -4447,7 +4654,10 @@ PHASE_HELP = {
                       "and fd_pd* and of K11, built apart and timed "
                       "against each other "
                       "(beside the per-site builds; the fd x shells, K11 "
-                      "on each level)"}
+                      "on each level)",
+    "hist_variants": "study builds of histogram.cu (K13's histogram copies, "
+                     "K14's blocks an SM, K14 without a part of its work) "
+                     "timed beside the default in the spectra group"}
 
 
 def selected_phases(argv):
@@ -4538,6 +4748,9 @@ def main(argv=None):
         for k in ("newton", "jacobi")
         for label, d in (("per site", MG_PER_SITE),
                          ("march every level", MG_MARCH_ALL))})
+    # the binning kernels' grouping yardstick
+    variant_builds["histogram.cu (grouping)"] = (
+        ["histogram.cu"], thist._HEADER + HIST_MATCH)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(16) as pool:
         # no future outlives this line: a future would keep its stepper,
@@ -4606,7 +4819,9 @@ def main(argv=None):
                         "mg_relax.cu", solver.kernel_header())
                        for kind, solver in (("newton", newton),
                                             ("jacobi", jacobi))},
-                    "histogram": ptxas_of("histogram.cu", thist._HEADER)},
+                    "histogram": ptxas_of("histogram.cu", thist._HEADER),
+                    "histogram grouping": ptxas_of(
+                        "histogram.cu", thist._HEADER + HIST_MATCH)},
           # K10's x-march: run length, y-z tile and bytes a block
           "fused_chunk_tile": {d: {"lx": t[0][0], "tile": t[0][1:],
                                    "smem_bytes_per_block": t[1]}
@@ -5174,6 +5389,8 @@ def main(argv=None):
     #        science example's start and measurement step at 512^3 f32 ------
     if "spectra" in phases:
         spectra_s = time.perf_counter()
+        if "hist_variants" in phases:
+            hist_study_builds("hist_variants_build")
         histogram_kernels_vs_plain("histogram_kernel_vs_plain", errs)
         spectra_main_path("spectra_main_path", timing, launches)
         emit({"phase": "spectra_seconds",
@@ -5214,9 +5431,11 @@ def main(argv=None):
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"),
-            # a march's per-site build, timed beside it
+            # a march's per-site build, timed beside it; a binning
+            # kernel's grouping yardstick build
             **({"per_site_ms": t["per_site_ms"]} if "per_site_ms" in t
-               else {})})
+               else {}),
+            **({"match_ms": t["match_ms"]} if "match_ms" in t else {})})
     # a subset run holds to it the kernels its selected main paths launch
     never = [k["name"] for k in kernels if k["launches"] < 1
              and (full or k["name"] in launches)]

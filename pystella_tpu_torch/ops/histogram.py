@@ -50,7 +50,7 @@ from pystella_tpu_torch.parallel.decomp import ShardedArray, blockwise
 __all__ = ["Histogrammer", "FieldHistogrammer", "weighted_bincount",
            "fetch_partials", "bincount", "bincount_plain", "SpectraBins",
            "unit_rows", "max_bins", "KERNELS", "LAUNCHES",
-           "reset_launch_counts", "build_kernels"]
+           "reset_launch_counts", "build_kernels", "bind_kernels"]
 
 _SOURCE = "histogram.cu"
 #: kernel name -> (CUDA source in ops/csrc, the JAX site it serves; the JAX
@@ -72,6 +72,9 @@ LAUNCHES = {name: 0 for name in KERNELS}
 
 #: threads and warps of a binning block (histogram.cu: HIST_THREADS)
 HIST_THREADS, HIST_WARPS = 256, 8
+#: interleaved copies of K13's count histogram (histogram.cu:
+#: PK_COUNT_COPIES)
+HIST_COPIES = 4
 #: the dynamic shared memory one block may take on an H100 (227 KB)
 SMEM_LIMIT = 232448
 #: the longest y-run of a unit
@@ -97,58 +100,71 @@ def unit_rows(Y):
 
 def hist_smem(weighted, nbins):
     """Dynamic shared bytes of a binning block (histogram.cu:
-    pk_hist_smem): a histogram a warp (float64 sums or int32 counts) and
-    a float64 staging row a warp."""
-    per = 8 if weighted else 4
-    return (HIST_WARPS * nbins * per + 15) // 16 * 16 + HIST_WARPS * 32 * 8
+    pk_hist_smem): for float64 sums (K13's weighted entry points and K14)
+    a histogram a warp and a float64 staging row a warp; for counts
+    HIST_COPIES interleaved int32 copies of one histogram."""
+    if weighted:
+        return ((HIST_WARPS * nbins * 8 + 15) // 16 * 16
+                + HIST_WARPS * 32 * 8)
+    return (HIST_COPIES * nbins * 4 + 15) // 16 * 16
 
 
 def max_bins(weighted):
     """The most bins the kernels take (float64 sums or int32 counts)."""
-    per = 8 if weighted else 4
-    return (SMEM_LIMIT - HIST_WARPS * 32 * 8) // (HIST_WARPS * per)
+    if weighted:
+        return (SMEM_LIMIT - HIST_WARPS * 32 * 8) // (HIST_WARPS * 8)
+    return SMEM_LIMIT // (HIST_COPIES * 4)
 
 
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
 
-_HEADER = "// histogram.cu reads no generated header\n#pragma once\n"
+#: the generated header histogram.cu includes: no model, so only the
+#: defines of a build (``PK_HIST_MATCH 1``, the grouping yardstick, say)
+_HEADER = "// histogram.cu: the defines of a build follow\n#pragma once\n"
 _LIB = {}
+
+
+def bind_kernels(lib):
+    """The entry points of a loaded histogram library, typed: ``{name: C
+    function}``, with ``pk_hist_smem`` among them."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    units = [vp] + [i32] * 9 + [i64, vp]
+    spectra = [vp] * 4 + [ctypes.c_double, i32, ctypes.c_double] \
+        + [i32] * 4 + units
+    fns = {}
+    for name, args, res in (
+            ("pk_bincount_count", [vp] + units, ctypes.c_int),
+            ("pk_bincount_f32", [vp, vp] + units, ctypes.c_int),
+            ("pk_bincount_f64", [vp, vp] + units, ctypes.c_int),
+            ("pk_spectra_bin_f32", spectra, ctypes.c_int),
+            ("pk_spectra_bin_f64", spectra, ctypes.c_int),
+            ("pk_bin_finish_count", [vp, vp, i32, i32, i64, vp],
+             ctypes.c_int),
+            ("pk_bin_finish_sum", [vp, vp, i32, i32, i64, vp],
+             ctypes.c_int),
+            ("pk_hist_smem", [i32, i32], ctypes.c_size_t)):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
+        fns[name] = fn
+    return fns
 
 
 def build_kernels():
     """Compile (or load from the build cache) ``histogram.cu`` and bind its
-    entry points; raises if ``nvcc`` fails."""
+    entry points; raises if ``nvcc`` fails or the library's shared memory
+    a block is not :func:`hist_smem`'s."""
     if not _LIB:
-        lib = _stencil.build_kernels([_SOURCE], _HEADER)[_SOURCE]
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        units = [vp] + [i32] * 9 + [i64, vp]
-        for name, args in (
-                ("pk_bincount_count", [vp] + units),
-                ("pk_bincount_f32", [vp, vp] + units),
-                ("pk_bincount_f64", [vp, vp] + units),
-                ("pk_spectra_bin_f32", [vp] * 4 + [ctypes.c_double, i32,
-                                                   ctypes.c_double]
-                 + [i32] * 4 + units),
-                ("pk_spectra_bin_f64", [vp] * 4 + [ctypes.c_double, i32,
-                                                   ctypes.c_double]
-                 + [i32] * 4 + units),
-                ("pk_bin_finish_count", [vp, vp, i32, i32, i64, vp]),
-                ("pk_bin_finish_sum", [vp, vp, i32, i32, i64, vp])):
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-            _LIB[name] = fn
-        query = lib.pk_hist_smem
-        query.argtypes = [i32, i32]
-        query.restype = ctypes.c_size_t
+        fns = bind_kernels(_stencil.build_kernels([_SOURCE], _HEADER)[_SOURCE])
         for weighted in (0, 1):
-            got, want = query(weighted, 1000), hist_smem(weighted, 1000)
+            got = fns["pk_hist_smem"](weighted, 1000)
+            want = hist_smem(weighted, 1000)
             if got != want:
                 raise RuntimeError(f"histogram.cu takes {got} shared bytes "
                                    f"a block; ops/histogram.py:hist_smem "
                                    f"predicts {want}")
+        _LIB.update(fns)
     return _LIB
 
 

@@ -1,8 +1,14 @@
-// CPU stand-in for the CUDA runtime: enough to run the port's fused
-// kernels with g++ (see ../shim.py). A block's threads are fibers on one OS
-// thread, so __syncthreads, __shfl_down_sync and shared memory keep their
-// meaning; the blocks of a launch spread over up to 8 OS threads, so the
-// per-thread state and the block's shared memory are thread_local.
+// CPU stand-in for the CUDA runtime: enough to run the port's kernels with
+// g++ (see ../shim.py). A block's threads are fibers on one OS thread, so
+// __syncthreads, the warp's shuffles, votes and __syncwarp and shared memory
+// keep their meaning: a fiber waits at __syncthreads until every thread of
+// its block has reached it, and at a warp step until every thread of its
+// warp has (the warps of a block may take different steps between two
+// __syncthreads, as on the card). The blocks of a launch spread over up to 8
+// OS threads, so the per-thread state and the block's shared memory are
+// thread_local. A fiber runs until it reaches a barrier, so an atomicAdd on
+// shared memory is a plain add here (no other fiber of the block runs in
+// between); the kernels use no atomics on device memory.
 #pragma once
 #include <math.h>
 #include <stdint.h>
@@ -31,6 +37,8 @@ struct pk_uint3 { unsigned x, y, z; };
 struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
+struct alignas(16) int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 inline thread_local pk_uint3 threadIdx;
 inline thread_local pk_uint3 blockIdx;
 inline thread_local dim3 blockDim, gridDim;
@@ -47,9 +55,14 @@ inline int max(int a, int b) { return a > b ? a : b; }
 inline long long min(long long a, long long b) { return a < b ? a : b; }
 inline long long max(long long a, long long b) { return a > b ? a : b; }
 
-// A block's threads are fibers on one OS thread; __syncthreads yields to
-// the scheduler, which runs every fiber to its next barrier in turn.
-struct pk_fiber { ucontext_t ctx; char* stack; pk_uint3 tid; bool done; };
+// A block's threads are fibers on one OS thread; a barrier yields to the
+// scheduler, which resumes every fiber in turn, each to its next yield; a
+// fiber yields again until the threads it waits for have reached the
+// barrier (`bars` counts a fiber's __syncthreads, `calls` its warp steps).
+struct pk_fiber {
+  ucontext_t ctx; char* stack; pk_uint3 tid; bool done;
+  unsigned bars, calls;
+};
 constexpr size_t PK_STACK = 1 << 17;
 struct pk_fiber_set : std::vector<pk_fiber> {
   ~pk_fiber_set() { for (auto& f : *this) free(f.stack); }
@@ -66,47 +79,126 @@ inline thread_local ucontext_t pk_sched;
 inline thread_local const std::function<void()>* pk_fn = nullptr;
 inline thread_local unsigned char* pk_dyn_smem = nullptr;
 
-inline void __syncthreads() {
-  swapcontext(&(*pk_fibs)[pk_cur].ctx, &pk_sched);
+inline thread_local unsigned pk_nfib = 0;
+
+inline void pk_yield() { swapcontext(&(*pk_fibs)[pk_cur].ctx, &pk_sched); }
+
+// yield until fibers [lo, hi) have each ended or counted past `n` in
+// `field`
+inline void pk_wait(unsigned pk_fiber::*field, unsigned n, unsigned lo,
+                    unsigned hi) {
+  for (;;) {
+    pk_yield();
+    const auto& fibs = *pk_fibs;
+    unsigned t = lo;
+    while (t < hi && (fibs[t].done || fibs[t].*field > n)) ++t;
+    if (t == hi) return;
+  }
 }
-inline thread_local double pk_shfl_buf[2][1024];
-inline thread_local int pk_shfl_par = 0;
-template <class T>
-inline T __shfl_down_sync(unsigned, T v, int o) {
+
+inline void __syncthreads() {
+  const unsigned n = (*pk_fibs)[pk_cur].bars++;
+  pk_wait(&pk_fiber::bars, n, 0, pk_nfib);
+}
+
+// a barrier that also returns whether `p` holds on every thread of the
+// block: a fiber's n-th barrier writes array n % 2, which no fiber writes
+// again before every fiber has passed barrier n + 1, after its reading
+inline thread_local int pk_block_buf[2][1024];
+inline int __syncthreads_and(int p) {
+  int* buf = pk_block_buf[(*pk_fibs)[pk_cur].bars & 1];
   const int tid = threadIdx.x + threadIdx.y * blockDim.x
                   + threadIdx.z * blockDim.x * blockDim.y;
-  double* buf = pk_shfl_buf[pk_shfl_par];
-  buf[tid] = (double)v;
+  buf[tid] = p != 0;
   __syncthreads();
-  const int lane = tid % 32;
-  T r = lane + o < 32 ? (T)buf[tid + o] : v;
-  // the next call writes the other buffer; this one's reads all happen
-  // before that call's barrier
-  pk_shfl_par ^= 1;
+  for (unsigned t = 0; t < pk_nfib; ++t)
+    if (!buf[t]) return 0;
+  return 1;
+}
+// The warp's shuffles, votes and __syncwarp: every fiber writes its value
+// into a per-block array and waits until its warp's 32 have written, then
+// reads theirs. A fiber's n-th step uses array n % 2: a fiber that runs on
+// to its next step writes the other array, and cannot pass that step
+// before the slowest of its warp has read this one.
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline thread_local unsigned long long pk_warp_buf[2][1024];
+
+inline int pk_flat_tid() {
+  return threadIdx.x + threadIdx.y * blockDim.x
+         + threadIdx.z * blockDim.x * blockDim.y;
+}
+
+// write `v`, yield, and return the warp's 32 values' array (this fiber's
+// lane 0 at the front)
+template <class T>
+inline const unsigned long long* pk_warp_exchange(T v) {
+  static_assert(sizeof(T) <= sizeof(unsigned long long), "a warp word");
+  const int tid = pk_flat_tid();
+  const unsigned n = (*pk_fibs)[pk_cur].calls++;
+  unsigned long long* buf = pk_warp_buf[n & 1];
+  unsigned long long w = 0;
+  memcpy(&w, &v, sizeof(T));
+  buf[tid] = w;
+  const unsigned lo = pk_cur - pk_cur % 32;
+  pk_wait(&pk_fiber::calls, n, lo, lo + 32 < pk_nfib ? lo + 32 : pk_nfib);
+  return buf + (tid - tid % 32);
+}
+
+inline void __syncwarp(unsigned = 0xffffffffu) { pk_warp_exchange(0); }
+
+template <class T>
+inline T pk_warp_word(const unsigned long long* warp, int lane) {
+  T r;
+  memcpy(&r, warp + lane, sizeof(T));
   return r;
 }
 
-// the warp's votes go through a per-block array like the shuffles; every
-// thread of a block reaches each call (the kernels that use them keep the
-// step count uniform), so __syncwarp can be the block-wide switch
-inline void __syncwarp(unsigned = 0xffffffffu) { __syncthreads(); }
-inline int __popc(unsigned x) { return __builtin_popcount(x); }
-inline int __ffs(int x) { return __builtin_ffs(x); }
-inline thread_local long long pk_match_buf[2][1024];
-inline thread_local int pk_match_par = 0;
 template <class T>
-inline unsigned __match_any_sync(unsigned, T v) {
-  const int tid = threadIdx.x + threadIdx.y * blockDim.x
-                  + threadIdx.z * blockDim.x * blockDim.y;
-  long long* buf = pk_match_buf[pk_match_par];
-  buf[tid] = (long long)v;
-  __syncthreads();
-  const int base = tid - tid % 32;
+inline T __shfl_down_sync(unsigned, T v, int o) {
+  const int lane = pk_flat_tid() % 32;
+  const unsigned long long* warp = pk_warp_exchange(v);
+  return lane + o < 32 ? pk_warp_word<T>(warp, lane + o) : v;
+}
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, int o) {
+  const int lane = pk_flat_tid() % 32;
+  const unsigned long long* warp = pk_warp_exchange(v);
+  return lane - o >= 0 ? pk_warp_word<T>(warp, lane - o) : v;
+}
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src) {
+  const unsigned long long* warp = pk_warp_exchange(v);
+  return pk_warp_word<T>(warp, src & 31);
+}
+inline unsigned __ballot_sync(unsigned, int p) {
+  const unsigned long long* warp = pk_warp_exchange((int)(p != 0));
   unsigned m = 0;
   for (int l = 0; l < 32; ++l)
-    if (buf[base + l] == (long long)v) m |= 1u << l;
-  pk_match_par ^= 1;
+    if (pk_warp_word<int>(warp, l)) m |= 1u << l;
   return m;
+}
+inline int __all_sync(unsigned mask, int p) {
+  return __ballot_sync(mask, p) == 0xffffffffu;
+}
+inline int __any_sync(unsigned mask, int p) {
+  return __ballot_sync(mask, p) != 0u;
+}
+template <class T>
+inline unsigned __match_any_sync(unsigned, T v) {
+  const unsigned long long* warp = pk_warp_exchange((long long)v);
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l)
+    if (pk_warp_word<long long>(warp, l) == (long long)v) m |= 1u << l;
+  return m;
+}
+
+// a shared-memory atomic: a plain add (see the top of this file)
+template <class T>
+inline T atomicAdd(T* a, T v) {
+  const T old = *a;
+  *a = old + v;
+  return old;
 }
 
 inline void pk_entry() {
@@ -124,9 +216,11 @@ inline void pk_run_block(dim3 block, size_t smem) {
     fibs.push_back(f);
   }
   memset(pk_dyn_smem, 0xff, smem > 0 ? smem : 1);
+  pk_nfib = n;
   for (unsigned t = 0; t < n; ++t) {
     pk_fiber& f = fibs[t];
     f.done = false;
+    f.bars = f.calls = 0;
     f.tid = {t % block.x, (t / block.x) % block.y, t / (block.x * block.y)};
     getcontext(&f.ctx);
     f.ctx.uc_stack.ss_sp = f.stack;
@@ -134,8 +228,6 @@ inline void pk_run_block(dim3 block, size_t smem) {
     f.ctx.uc_link = &pk_sched;
     makecontext(&f.ctx, pk_entry, 0);
   }
-  pk_shfl_par = 0;
-  pk_match_par = 0;
   bool live = true;
   while (live) {
     live = false;

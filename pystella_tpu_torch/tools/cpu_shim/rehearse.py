@@ -35,14 +35,21 @@ to one that runs every launch per site and to the default build; padded,
 interior and shell launches equal the unpadded one.
 With ``--hist`` the binning kernels K13 (``bincount``: counts, float32
 and float64 weights; 1, 2 and 6 outer slices; 7 and 1000 bins, some out
-of range) and K14 (``spectra_bin``: r2c and c2c, float32 and float64,
-k powers 3 and 0) and their finish launch are held to their plain
-versions (counts and K14's bins exactly, sums within 1e-13 / 1e-6 of the
-largest bin), launched twice for equal bits, and on (2, 1, 1) and
-(2, 2, 1) blocks equal to the whole lattice's launch bit for bit.
+of range; uniform, hot-bin, sorted and misaligned bins) and K14
+(``spectra_bin``: r2c and c2c, float32 and float64, k powers 3 and 0,
+PowerSpectra's shells and wide ones) and their finish launch are held to
+their plain versions (counts and K14's bins exactly, sums within 1e-13 /
+1e-6 of the largest bin) and to the build that bins counts and K14 every
+site through the warp grouping (``PK_HIST_MATCH 1``: counts, weighted
+sums and K14's bins bit for bit, K14's sums within the same bound),
+launched twice for equal bits, and on (2, 1, 1) and (2, 2, 1) blocks
+equal to the whole lattice's launch bit for bit; ``--small`` keeps the
+16^3 and 5x9x33 lattices (and 2x4x600 for K14).
 With ``--against DIR``, the root of another checkout (a parent commit
 unpacked with ``git archive``, say), every launch must also equal that
-checkout's kernels bit for bit, sums included.
+checkout's kernels bit for bit, sums included; with ``--hist`` K14's sums
+only within the bound above (the order of its float64 additions may
+change between designs), its bins and every K13 result bit for bit.
 
 Shapes: 16^3, 70x12x40 and 5x9x33 (two fields, h = 2), a five-field model
 at h = 4 (f64: the split layout of the pairs, two groups of three
@@ -58,8 +65,8 @@ PK_FD_DIV_LX with ``--fd``, MG_MARCH_LX with
 to a few minutes. Exits 1 if a check fails::
 
     python pystella_tpu_torch/tools/cpu_shim/rehearse.py
-        [--gw | --chunk | --stage | --fd | --mg | --hist] [--lx N]
-        [--against DIR]
+        [--gw | --chunk | --stage | --fd | --mg | --hist [--small]]
+        [--lx N] [--against DIR]
 """
 
 import argparse
@@ -677,45 +684,118 @@ def mg(args):
         MgCase(args, problem, 4, (13, 12, 40), torch.float64).run()
 
 
-def hist(args):
-    """K13, K14 and the finish launch against their plain versions."""
-    def build_kernels(sources, header):
-        return {s: ctypes.CDLL(str(build(CSRC, s, header))) for s in sources}
+#: K13 / K14 sums against their plain versions and the grouping build,
+#: relative to the largest bin: float64 sums in another order
+HIST_TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
+#: the histogram.cu build that bins counts and K14 through the warp grouping
+HIST_MATCH = "\n#define PK_HIST_MATCH 1\n"
+
+
+def hist_libs(args):
+    """The bound entry points of histogram.cu as the port builds it
+    (``kernel``; held to ``hist_smem`` as ``build_kernels`` holds it), of
+    its grouping build (``match``) and, with ``--against``, of the other
+    checkout's (``against``)."""
+    builds = {"kernel": (CSRC, thist._HEADER),
+              "match": (CSRC, thist._HEADER + HIST_MATCH)}
+    if args.against:
+        builds["against"] = (Path(args.against) / "pystella_tpu_torch" / "ops"
+                             / "csrc", thist._HEADER)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        paths = dict(zip(builds, pool.map(
+            lambda b: build(b[0], "histogram.cu", b[1]), builds.values())))
     keep = thist._stencil.build_kernels
-    thist._stencil.build_kernels = build_kernels
+    thist._stencil.build_kernels = lambda sources, header: {
+        "histogram.cu": ctypes.CDLL(str(paths["kernel"]))}
     try:
-        thist.build_kernels()
+        thist._LIB.clear()
+        libs = {"kernel": dict(thist.build_kernels())}
     finally:
         thist._stencil.build_kernels = keep
+    libs.update({k: thist.bind_kernels(ctypes.CDLL(str(v)))
+                 for k, v in paths.items() if k != "kernel"})
+    return libs
+
+
+def hist_run(fns, fn, *a):
+    """``fn(*a)`` under the shim with the entry points ``fns`` bound."""
+    keep = dict(thist._LIB)
+    thist._LIB.update(fns)
+    try:
+        with shim():
+            return fn(*a)
+    finally:
+        thist._LIB.update(keep)
+
+
+def hist_bins(kind, shape, nbins, g):
+    """Seeded int32 bins: uniform over ``[-1, nbins]`` (some out of range),
+    every site one bin (``hot1``), 90% of the sites in two bins (``hot2``),
+    sorted (long runs) or uniform from a 4-byte offset (every unit's first
+    bin off 16-byte alignment: the scalar loads)."""
+    b = torch.randint(-1, nbins + 1, shape, generator=g, dtype=torch.int32)
+    if kind == "hot1":
+        b.fill_(nbins // 2)
+    elif kind == "hot2":
+        u = torch.rand(shape, generator=g)
+        b = torch.where(u < 0.45, nbins // 3, torch.where(
+            u < 0.9, nbins - 1, b)).to(torch.int32)
+    elif kind == "sorted":
+        b = b.reshape(-1).sort().values.reshape(shape)
+    elif kind == "misaligned":
+        b = torch.cat([torch.zeros(1, dtype=torch.int32),
+                       b.reshape(-1)])[1:].view(shape)
+        assert b.is_contiguous() and b.data_ptr() % 16
+    return b
+
+
+def hist(args):
+    """K13, K14 and the finish launch against their plain versions, the
+    grouping build and (``--against``) the other checkout's kernels."""
+    libs = hist_libs(args)
+    others = [k for k in libs if k != "kernel"]
     g = torch.Generator().manual_seed(5)
-    for grid, outer, nbins, wdt in itertools.product(
-            ((16, 16, 16), (48, 40, 36), (5, 9, 33)), (1, 2, 6), (7, 1000),
-            (None, torch.float32, torch.float64)):
-        tag = f"bincount {grid} outer {outer} bins {nbins} {wdt}"
-        b = torch.randint(-1, nbins + 1, (outer,) + grid, generator=g,
-                          dtype=torch.int32)
+    grids = ((16, 16, 16), (5, 9, 33)) if args.small else (
+        (16, 16, 16), (48, 40, 36), (5, 9, 33))
+    wdts = (None, torch.float32, torch.float64)
+    cases = [(grid, "uniform", outer, nbins, wdt) for grid in grids
+             for outer in ((2,) if args.small else (1, 2, 6))
+             for nbins in (7, 1000) for wdt in wdts]
+    # --small: the weights on uniform and hot2 bins only
+    cases += [(grid, kind, 2, 1000, wdt) for grid in grids
+              for kind in ("hot1", "hot2", "sorted", "misaligned")
+              for wdt in (wdts if kind == "hot2" or not args.small
+                          else (None,))]
+    for grid, kind, outer, nbins, wdt in cases:
+        label = "counts" if wdt is None else str(wdt).split(".")[1]
+        tag = f"bincount {label} {kind} {grid} outer {outer} bins {nbins}"
+        b = hist_bins(kind, (outer,) + grid, nbins, g)
         w = None if wdt is None else torch.randn(
             (outer,) + grid, generator=g, dtype=torch.float64).to(wdt)
         plain = thist.bincount_plain(b, w, nbins)
-        with shim():
-            one = thist.bincount(b, w, nbins)
-            two = thist.bincount(b, w, nbins)
-        tol = 1e-13 if wdt is not torch.float32 else 1e-6
+        one, two = (hist_run(libs["kernel"], thist.bincount, b, w, nbins)
+                    for _ in range(2))
         check(tag, (torch.equal(one, plain) if w is None
-                    else rel(one, plain) <= tol) and torch.equal(one, two))
+                    else rel(one, plain) <= HIST_TOL[wdt])
+              and torch.equal(one, two))
+        # counts: any order gives the same integers; the weighted entry
+        # points keep the grouping, every build's bits
+        for other in others:
+            check(f"{tag} == {other}", torch.equal(
+                hist_run(libs[other], thist.bincount, b, w, nbins), one))
         for mesh in ((2, 1, 1), (2, 2, 1)):
             if grid[1] // mesh[1] % thist.unit_rows(grid[1]) or \
                     grid[0] % mesh[0] or grid[1] % mesh[1]:
                 continue
-            d = pt.DomainDecomposition(mesh, devices=["cpu"] * 4
-                                       if mesh[1] == 2 else ["cpu"] * 2)
-            with shim():
-                sharded = thist.bincount(d.shard(b), None if w is None
-                                         else d.shard(w), nbins)
+            d = pt.DomainDecomposition(mesh, devices=["cpu"] * (
+                2 * mesh[1]))
+            sharded = hist_run(libs["kernel"], thist.bincount, d.shard(b),
+                               None if w is None else d.shard(w), nbins)
             check(f"{tag} {mesh}", torch.equal(sharded, one))
+    # r2c and c2c; (2, 4, 600): rows of 301 and 600 sites, in segments
     for grid, dtype, real in itertools.product(
-            ((16, 16, 16), (48, 40, 36), (5, 9, 33)),
-            (torch.float32, torch.float64), (True, False)):
+            grids + ((2, 4, 600),), (torch.float32, torch.float64),
+            (True, False)):
         ndt = {torch.float32: "float32", torch.float64: "float64"}[dtype]
         if not real:
             ndt = {"float32": "complex64", "float64": "complex128"}[ndt]
@@ -726,21 +806,26 @@ def hist(args):
                torch.float64: torch.complex128}[dtype]
         fk = torch.randn((2,) + ft.shape(True), generator=g,
                          dtype=cdt)
+        head = f"spectra_bin {'r2c' if real else 'c2c'} {grid} {dtype}"
         for kp in (3, 0):
-            tag = f"spectra_bin {grid} {dtype} {'r2c' if real else 'c2c'} " \
-                  f"k^{kp}"
+            tag = f"{head} k^{kp}"
             plain = sp.binner.plain(fk, kp)
-            with shim():
-                one = sp.binner(fk, kp)
-                two = sp.binner(fk, kp)
-            tol = 1e-13 if dtype == torch.float64 else 1e-6
-            check(tag, rel(one, plain) <= tol and torch.equal(one, two))
+            one, two = (hist_run(libs["kernel"], sp.binner, fk, kp)
+                        for _ in range(2))
+            check(tag, rel(one, plain) <= HIST_TOL[dtype]
+                  and torch.equal(one, two))
+            # the sums in another order than the other builds': HIST_TOL
+            for other in others:
+                check(f"{tag} ~ {other}", rel(hist_run(
+                    libs[other], sp.binner, fk, kp), one) <= HIST_TOL[dtype])
         # unit modes and no k weight: the shells' counts, exact
         ones = torch.ones_like(fk)
-        with shim():
-            counts = sp.binner(ones, 0)
-        check(f"spectra_bin {grid} {dtype} bins exact",
+        counts = hist_run(libs["kernel"], sp.binner, ones, 0)
+        check(f"{head} bins exact",
               torch.equal(counts, sp.binner.plain(ones, 0)))
+        for other in others:
+            check(f"{head} bins == {other}", torch.equal(
+                hist_run(libs[other], sp.binner, ones, 0), counts))
         for mesh in ((2, 1, 1), (2, 2, 1)):
             ks = ft.shape(True)
             if ks[1] // mesh[1] % thist.unit_rows(ks[1]) or \
@@ -748,11 +833,22 @@ def hist(args):
                 continue
             d = pt.DomainDecomposition(mesh, devices=["cpu"] * (
                 2 * mesh[1]))
-            with shim():
-                sharded = sp.binner(d.shard(fk), 3)
-                whole = sp.binner(fk, 3)
-            check(f"spectra_bin {grid} {dtype} {mesh}",
-                  torch.equal(sharded, whole))
+            sharded = hist_run(libs["kernel"], sp.binner, d.shard(fk), 3)
+            whole = hist_run(libs["kernel"], sp.binner, fk, 3)
+            check(f"{head} {mesh}", torch.equal(sharded, whole))
+        # wide shells (about four a row): runs across many lanes
+        wide = thist.SpectraBins(
+            sp.binner.sq_axes, 4 * sp.bin_width * max(grid) / 8, grid,
+            real, 6)
+        tag = f"{head} wide shells"
+        one = hist_run(libs["kernel"], wide, fk, 3)
+        check(tag, rel(one, wide.plain(fk, 3)) <= HIST_TOL[dtype]
+              and torch.equal(hist_run(libs["kernel"], wide, fk, 3), one))
+        for other in others:
+            check(f"{tag} ~ {other}", rel(hist_run(
+                libs[other], wide, fk, 3), one) <= HIST_TOL[dtype])
+        check(f"{tag} bins exact", torch.equal(
+            hist_run(libs["kernel"], wide, ones, 0), wide.plain(ones, 0)))
 
 
 def main():
@@ -777,6 +873,10 @@ def main():
                         help="the march's run length to build with")
     parser.add_argument("--against", metavar="DIR",
                         help="another checkout's root, held bit for bit")
+    parser.add_argument("--small", action="store_true",
+                        help="with --hist: the 16^3 and 5x9x33 lattices "
+                        "(and 2x4x600 for K14) only, 2 outer slices, "
+                        "weights on uniform and hot2 bins only")
     args = parser.parse_args()
     if args.gw:
         tfused.MARCH_LX = args.lx

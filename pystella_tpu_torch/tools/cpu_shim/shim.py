@@ -23,6 +23,7 @@ Importing this module sets that up and exposes ``pt``, ``tfused``,
 :func:`shim`.
 """
 
+import atexit
 import contextlib
 import ctypes
 import hashlib
@@ -31,6 +32,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -73,17 +75,24 @@ def build(csrc, source, header):
     lib = out / "lib.so"
     if lib.exists():
         return lib
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "src.cpp").write_text(transform(texts[0]))
-    (out / "pk_common.cuh").write_text(transform(texts[1]))
-    (out / "pk_model.cuh").write_text(header)
-    cmd = ["g++"] + GXX_FLAGS + [f"-I{HERE / 'include'}", f"-I{out}",
-                                 str(out / "src.cpp"), "-o",
-                                 str(out / "tmp.so")]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode:
-        raise RuntimeError(f"g++ failed for {source}:\n{r.stderr[-6000:]}")
-    os.replace(out / "tmp.so", lib)
+    # each process compiles in a directory of its own and moves the
+    # finished library into place, so rehearsals may run side by side
+    work = out / f"work-{os.getpid()}-{threading.get_ident()}"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        (work / "src.cpp").write_text(transform(texts[0]))
+        (work / "pk_common.cuh").write_text(transform(texts[1]))
+        (work / "pk_model.cuh").write_text(header)
+        cmd = ["g++"] + GXX_FLAGS + [f"-I{HERE / 'include'}", f"-I{work}",
+                                     str(work / "src.cpp"), "-o",
+                                     str(work / "lib.so")]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(
+                f"g++ failed for {source}:\n{r.stderr[-6000:]}")
+        os.replace(work / "lib.so", lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 
@@ -91,9 +100,12 @@ def _package():
     """Copy the port's package and let the card branches of ops/fused.py,
     ops/derivs.py, ops/histogram.py and multigrid/relax.py take CPU
     tensors while :func:`shim` is on."""
-    dst = OUT / "pkg" / "pystella_tpu_torch"
-    if dst.exists():
-        shutil.rmtree(dst)
+    # a copy for this process alone, removed when it exits
+    root = OUT / "pkg" / str(os.getpid())
+    if root.exists():
+        shutil.rmtree(root)
+    atexit.register(shutil.rmtree, root, True)
+    dst = root / "pystella_tpu_torch"
     shutil.copytree(ROOT / "pystella_tpu_torch", dst, ignore=(
         shutil.ignore_patterns("_build", "__pycache__", "tools")))
     flag = ("\nimport ctypes\n", "\nimport ctypes\n_SHIM = False\n")

@@ -230,4 +230,7 @@ def test_bincount_refusals():
     with pytest.raises(ValueError, match="shard x"):
         thist.bincount(_pdecomp((1, 1, 2)).shard(b), None, 10)
     assert thist.max_bins(True) >= 1000 and thist.max_bins(False) >= 2000
-    assert thist.hist_smem(True, thist.max_bins(True)) <= thist.SMEM_LIMIT
+    for weighted in (True, False):
+        most = thist.max_bins(weighted)
+        assert thist.hist_smem(weighted, most) <= thist.SMEM_LIMIT
+        assert thist.hist_smem(weighted, most + 1) > thist.SMEM_LIMIT

@@ -2451,3 +2451,136 @@ def test_binning_refuses_too_many_bins(cuda):
     thist.bincount(b, None, thist.max_bins(False))
     with pytest.raises(ValueError, match="at most"):
         thist.bincount(b, b.double(), thist.max_bins(True) + 1)
+
+
+#: the histogram.cu build that bins counts and K14 every site through the
+#: warp grouping, the yardstick of the run designs, and the entry points
+#: whose design it changes
+HIST_MATCH = "\n#define PK_HIST_MATCH 1\n"
+HIST_MATCH_ENTRIES = ("pk_bincount_count", "pk_spectra_bin_f32",
+                      "pk_spectra_bin_f64")
+
+
+@contextlib.contextmanager
+def _hist_grouping():
+    """Within, the binning wrappers launch the grouping build's counts and
+    K14."""
+    from pystella_tpu_torch.ops import histogram as thist
+    fns = thist.build_kernels()
+    header = thist._HEADER + HIST_MATCH
+    if header not in _BUILDS:
+        _BUILDS[header] = thist.bind_kernels(tstencil.build_kernels(
+            ["histogram.cu"], header)["histogram.cu"])
+    keep = {k: fns[k] for k in HIST_MATCH_ENTRIES}
+    fns.update({k: _BUILDS[header][k] for k in HIST_MATCH_ENTRIES})
+    try:
+        yield
+    finally:
+        fns.update(keep)
+
+
+def _kind_bins(kind, shape, g, cuda):
+    """Seeded int32 bins over 1000: uniform over [-1, 1000] (some out of
+    range), every site in one bin (``hot1``), 90% of the sites in two bins
+    (``hot2``), sorted (long runs), or uniform from a 4-byte offset (no
+    unit's first bin 16-byte aligned: the scalar loads)."""
+    b = torch.randint(-1, 1001, shape, generator=g, device=cuda,
+                      dtype=torch.int32)
+    if kind == "hot1":
+        b.fill_(500)
+    elif kind == "hot2":
+        u = torch.rand(shape, generator=g, device=cuda)
+        b = torch.where(u < 0.45, 333, torch.where(u < 0.9, 999, b)).to(
+            torch.int32)
+    elif kind == "sorted":
+        b = b.reshape(-1).sort().values.reshape(shape)
+    elif kind == "misaligned":
+        b = torch.cat([b.new_zeros(1), b.reshape(-1)])[1:].view(shape)
+        assert b.is_contiguous() and b.data_ptr() % 16
+    return b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "hot1", "hot2", "sorted",
+                                  "misaligned"])
+@pytest.mark.parametrize("grid", HIST_GRIDS + [(5, 9, 33)],
+                         ids=["16cubed", "48x40x36", "5x9x33"])
+def test_bincount_counts_match_grouping(cuda, grid, kind):
+    """K13's counts, by runs and shared-memory atomics, on hot-bin, sorted
+    and misaligned inputs: equal to the plain version's and to the grouping
+    build's exactly, the same twice, and (2, 1, 1) / (2, 2, 1) blocks equal
+    to the whole lattice's."""
+    from pystella_tpu_torch.ops import histogram as thist
+    g = torch.Generator(device=cuda).manual_seed(7)
+    b = _kind_bins(kind, (2,) + grid, g, cuda)
+    one = thist.bincount(b, None, 1000)
+    assert torch.equal(one, thist.bincount_plain(b, None, 1000))
+    assert torch.equal(thist.bincount(b, None, 1000), one)
+    with _hist_grouping():
+        assert torch.equal(thist.bincount(b, None, 1000), one)
+    if kind == "hot1":
+        assert int(one[:, 500].sum()) == b.numel()
+    for mesh in ((2, 1, 1), (2, 2, 1)):
+        if grid[1] // mesh[1] % thist.unit_rows(grid[1]) or \
+                grid[0] % mesh[0] or grid[1] % mesh[1]:
+            continue
+        d = pt.DomainDecomposition(mesh)
+        assert torch.equal(thist.bincount(d.shard(b), None, 1000), one), mesh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_bincount_weights_match_grouping(cuda, weights):
+    """K13's float64 sums keep the grouping: bit for bit the grouping
+    build's."""
+    from pystella_tpu_torch.ops import histogram as thist
+    g = torch.Generator(device=cuda).manual_seed(8)
+    b = _kind_bins("hot2", (2, 48, 40, 36), g, cuda)
+    w = torch.randn(b.shape, generator=g, device=cuda, dtype=weights)
+    one = thist.bincount(b, w, 1000)
+    with _hist_grouping():
+        assert torch.equal(thist.bincount(b, w, 1000), one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("real", [True, False], ids=["r2c", "c2c"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("grid", HIST_GRIDS + [(5, 9, 33), (2, 4, 600)],
+                         ids=["16cubed", "48x40x36", "5x9x33", "2x4x600"])
+def test_spectra_bin_matches_grouping(cuda, grid, dtype, real):
+    """K14 by runs (a c2c row's bins fall, so it bins site by site; rows of
+    301 and 600 sites go in segments) within HIST_TOL of the plain version
+    and of the grouping build, its bins (unit modes at k^0) equal to both,
+    repeat bits, the sharded k-space launches equal the whole lattice's."""
+    from pystella_tpu_torch.ops import histogram as thist
+    sp = _spectra(cuda, grid, dtype, real)
+    cdt = {torch.float32: torch.complex64,
+           torch.float64: torch.complex128}[dtype]
+    g = torch.Generator(device=cuda).manual_seed(9)
+    fk = torch.randn((3,) + sp.kshape, generator=g, device=cuda, dtype=cdt)
+    ones = torch.ones_like(fk)
+    got, shells = sp.binner(fk, 3), sp.binner(ones, 0)
+    with _hist_grouping():
+        grouped, grouped_shells = sp.binner(fk, 3), sp.binner(ones, 0)
+    assert _hist_rel(got, sp.binner.plain(fk, 3)) <= HIST_TOL[dtype]
+    assert _hist_rel(got, grouped) <= HIST_TOL[dtype]
+    assert torch.equal(shells, sp.binner.plain(ones, 0))
+    assert torch.equal(shells, grouped_shells)
+    assert torch.equal(sp.binner(fk, 3), got)
+    for mesh in ((2, 1, 1), (2, 2, 1)):
+        if sp.kshape[1] // mesh[1] % thist.unit_rows(sp.kshape[1]) or \
+                sp.kshape[0] % mesh[0] or sp.kshape[1] % mesh[1]:
+            continue
+        d = pt.DomainDecomposition(mesh)
+        assert torch.equal(sp.binner(d.shard(fk), 3), got), mesh
+    # wide shells (a few a row): runs across many lanes
+    wide = thist.SpectraBins(sp.binner.sq_axes, 4 * sp.bin_width
+                             * max(grid) / 8, grid, real, 6)
+    got = wide(fk, 3)
+    with _hist_grouping():
+        grouped = wide(fk, 3)
+    assert _hist_rel(got, wide.plain(fk, 3)) <= HIST_TOL[dtype]
+    assert _hist_rel(got, grouped) <= HIST_TOL[dtype]
+    assert torch.equal(wide(ones, 0), wide.plain(ones, 0))
