@@ -80,6 +80,12 @@ entry points a user calls, at 512^3 in float32:
   ``bincount``, ``spectra_bin`` and ``bin_finish``: the deterministic
   binning of ``ops/csrc/histogram.cu``); its spectra and histogram on
   ``(2, 2, 1)`` bit-equal to the single device's.
+- run safety on the coupled-preheat path (examples/scalar_preheating.py
+  ``--checkpoint-dir``, ``--health-every``): ``coupled_multi_step(...,
+  sentinel=)`` in chunks under a ``HealthMonitor`` (kernels ``health`` and
+  ``health_finish``, K15 of ``ops/csrc/health.cu``, beside K6 and K5), a
+  ``Checkpointer`` save, finalize and restore whose resumed run equals the
+  uninterrupted one bit for bit, and a NaN trip with its forensic bundle.
 
 A non-polynomial potential (exp, tanh, sqrt, cos, powers 2.5 and -2, a
 quotient) compiles the printer's math-function paths into K2, K3 and K5 and
@@ -94,6 +100,7 @@ it, it exits non-zero before printing any result.
 """
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -4615,10 +4622,354 @@ def spectra_main_path(phase, timing, launches):
     torch.cuda.empty_cache()
 
 
+#: the health kernel (K15) and its finish (ops/csrc/health.cu)
+HEALTH_KERNELS = ("health", "health_finish")
+#: K15's rms against its plain version, relative: both sum the same
+#: float64 squares, in another order
+HEALTH_TOL = 1e-12
+#: the health path: steps a coupled chunk, the steps run uninterrupted and
+#: the step of the checkpoint that the resumed run restarts from
+HEALTH_CHUNK, HEALTH_STEPS, HEALTH_RESUME = 3, 6, 3
+
+
+def health_poisoned(x, kind):
+    """A copy of ``x`` with a NaN, +inf or -inf site, or scaled to 1e20
+    (finite in f32, its square not: ``overflow``); ``clean`` is ``x``."""
+    if kind == "clean":
+        return x
+    if kind == "overflow":
+        return x * 1e20
+    y = x.clone()
+    y.view(-1)[y.numel() // 3 + 7] = float(kind)
+    return y
+
+
+def health_row(errs, tag, got, ref, again, sharded):
+    """Hold K15's vector to its plain version's (finite and max_abs equal,
+    NaN where NaN; rms within HEALTH_TOL, equal where not finite), a second
+    launch's and a (2, 2, 1) run's bit for bit; the row goes into
+    ``errs["health"]`` and the finish's share into
+    ``errs["health_finish"]``."""
+    g, r = got.view(-1, 3), ref.view(-1, 3)
+    exact = torch.equal(g[:, :2].nan_to_num(7.0), r[:, :2].nan_to_num(7.0))
+    fin = torch.isfinite(r[:, 2])
+    d = (g[:, 2] - r[:, 2]).abs()
+    rel = (d[fin] / r[fin, 2].abs().clamp_min(1e-300)).max().item() \
+        if bool(fin.any()) else 0.0
+    same_nf = torch.equal(g[~fin, 2].nan_to_num(7.0),
+                          r[~fin, 2].nan_to_num(7.0))
+    repeat = torch.equal(got.nan_to_num(7.0), again.nan_to_num(7.0))
+    shard_eq = None if sharded is None else torch.equal(
+        got.nan_to_num(7.0), sharded.nan_to_num(7.0))
+    row = {"max_rel_err": rel, "max_abs_err": d[fin].max().item()
+           if bool(fin.any()) else 0.0,
+           "finite_and_max_abs_equal": exact, "nonfinite_rms_equal": same_nf,
+           "repeat_equal": repeat, "sharded_221_equal": shard_eq,
+           "tol": HEALTH_TOL,
+           "ok": exact and same_nf and repeat and shard_eq is not False
+           and rel <= HEALTH_TOL}
+    for name in HEALTH_KERNELS:
+        errs.setdefault(name, {})[tag] = row
+    return row
+
+
+def health_kernel_vs_plain(phase, errs):
+    """K15 and its finish against their plain version on two fields of
+    (2, X, Y, Z): at 512^3 f32 the coupled-preheat state (the example's
+    background plus fluctuations), with a NaN site in a copy; at 256^3 and
+    48x40x36 in f32 and f64 (and bf16 at 48x40x36) clean and with a NaN,
+    +inf, -inf or overflowing site. Each twice for equal bits, and on
+    (2, 2, 1) blocks on the card equal to the single-device vector (where
+    a block's y-extent holds whole units: not at 48x40x36)."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import health as thealth
+    t0 = time.perf_counter()
+    d221 = pt.DomainDecomposition((2, 2, 1))
+    cases = [(GRID, torch.float32, k) for k in ("clean", "nan")]
+    cases += [(s, dt, k) for s in ALT_SHAPES
+              for dt in (torch.float32, torch.float64)
+              for k in ("clean", "nan", "inf", "-inf", "overflow")]
+    cases += [(ALT_SHAPES[1], torch.bfloat16, k)
+              for k in ("clean", "nan", "overflow")]
+    rows, ok = {}, True
+    for shape, dtype, kind in cases:
+        st = background_state(shape, torch.float32, 5)
+        x, y = (health_poisoned(st[n].to(dtype), kind)
+                for n in ("dfdt", "f"))
+        del st
+        fields = [x, y]
+        ref = thealth.field_stats_plain(fields, torch.float64)
+        got = thealth.field_stats(fields, torch.float64)
+        again = thealth.field_stats(fields, torch.float64)
+        # (2, 2, 1) where a block's y-extent holds whole units (K13's rule)
+        sharded = None if shape[-2] // 2 % thealth.unit_rows(shape[-2]) \
+            else thealth.field_stats([d221.shard(x), d221.shard(y)],
+                                     torch.float64)
+        tag = case_tag(shape, dtype) + ("" if kind == "clean"
+                                        else f":{kind}")
+        row = health_row(errs, tag, got, ref, again, sharded)
+        rows[tag] = row
+        ok = ok and row["ok"]
+        del x, y, fields, sharded
+        torch.cuda.empty_cache()
+    emit({"phase": phase, "cases": rows, "ok": ok,
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise SystemExit(f"{phase}: K15 disagrees with its plain version, "
+                         "with itself or with its (2, 2, 1) launches")
+
+
+def time_health(timing, state):
+    """K15's ms on the coupled-preheat state at 512^3 f32 (its two main
+    launches, one a field, by direct calls to the entry point) and its
+    finish's, each against its bytes bound (the state read once; the
+    partials read once), the plain version's time and the library
+    yardstick's: torch.aminmax and torch.linalg.vector_norm a field, which
+    together give max|x| and the rms."""
+    from pystella_tpu_torch.ops import health as thealth
+    fns = thealth.build_kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    fields = [state["dfdt"], state["f"]]
+    n, X, Y, Z = fields[0].shape
+    ry = thealth.unit_rows(Y)
+    units = n * X * (Y // ry)
+    pmax = torch.empty(2 * units, device="cuda", dtype=torch.float64)
+    psum = torch.empty_like(pmax)
+    out = torch.empty(6, device="cuda", dtype=torch.float32)
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def mains():
+        for k, x in enumerate(fields):
+            fns["pk_health_f32"](x.data_ptr(), pmax.data_ptr(),
+                                 psum.data_ptr(), units, ry, X, Y, Z, X, Y,
+                                 0, 0, k * units, nsm, stream)
+    arr = (lambda t, v: (t * len(v))(*v))
+    fargs = (pmax.data_ptr(), psum.data_ptr(), 2,
+             arr(ctypes.c_int64, [0, units]),
+             arr(ctypes.c_int64, [units] * 2),
+             arr(ctypes.c_double, [float(n * X * Y * Z)] * 2),
+             arr(ctypes.c_int, [0, 3]), out.data_ptr(), stream)
+
+    def finish():
+        fns["pk_health_finish_f32"](*fargs)
+    mains()
+    finish()
+    torch.cuda.synchronize()
+    direct_ok = torch.equal(out, thealth.field_stats(fields))
+    state_bytes = sum(x.numel() * x.element_size() for x in fields)
+    part_bytes = pmax.numel() * 16
+
+    def library():
+        for x in fields:
+            torch.aminmax(x)
+            torch.linalg.vector_norm(x)
+    ms = cuda_ms(mains, reps=10, warmup=2)
+    timing["health"] = {
+        "ms": ms, "plain_ms": cuda_ms(
+            lambda: thealth.field_stats_plain(fields), reps=3),
+        "bound_ms": state_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "bytes": state_bytes,
+        "library_ms": cuda_ms(library, reps=10, warmup=2),
+        "library_call": "torch.aminmax(x) and torch.linalg.vector_norm(x) "
+                        "a field",
+        "call_ms": cuda_ms(lambda: thealth.field_stats(fields), reps=10),
+        "gw_state_bound_ms": 16 * math.prod(GRID) * 4 / HBM_BYTES_PER_S
+        * 1e3, "launch_matches_wrapper": direct_ok,
+        "launches_timed": len(fields), "unit_rows": ry,
+        "partials_bytes": pmax.numel() * 16}
+    timing["health"]["share_of_bound"] = (timing["health"]["bound_ms"]
+                                          / ms)
+    fms = cuda_ms(finish, reps=20, warmup=2)
+    timing["health_finish"] = {
+        "ms": fms, "plain_ms": cuda_ms(
+            lambda: (torch.amax(pmax), torch.sum(psum)), reps=10),
+        "bound_ms": part_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bytes": part_bytes, "library_ms": None,
+        "launch_matches_wrapper": direct_ok}
+    del pmax, psum
+    return direct_ok
+
+
+def health_path(phase, sector, timing, launches):
+    """Run safety on the coupled-preheat path at 512^3 f32 (the example's
+    background plus fluctuations; K6 and K5 through coupled_multi_step):
+    HEALTH_STEPS steps in chunks of HEALTH_CHUNK with
+    ``coupled_multi_step(sentinel=)`` under a HealthMonitor (the main path,
+    launch counts set to 0 just before it and read just after); the same
+    steps again with a synchronous check, a Checkpointer save, finalize
+    and restore at HEALTH_RESUME, the final state, a and adot bit for bit
+    the uninterrupted run's; a NaN in a copy of the state must raise
+    SimulationDiverged at its step, with a forensic bundle that loads and
+    names the last good checkpoint. Prints K15's time against its bound,
+    the library yardstick's, the check's share of a step, and the save,
+    finalize and restore seconds with the bytes written."""
+    import shutil
+    import tempfile
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import fused as tfused
+    from pystella_tpu_torch.ops import health as thealth
+    t_start = time.perf_counter()
+    sites = math.prod(GRID)
+    dx = BOX / GRID[0]
+    dt = 0.1 * dx
+    st = pt.FusedScalarStepper(sector, GRID, dx, HALO, dtype=torch.float32,
+                               device="cuda")
+    fd = pt.FiniteDifferencer(HALO, dx)
+    reduce_energy = pt.Reduction(sector, callback=pt.get_rho_and_p,
+                                 grid_size=float(sites))
+    state0 = background_state(GRID, torch.float32, 11)
+    energy0 = reduce_energy(f=state0["f"], dfdt=state0["dfdt"],
+                            lap_f=fd.lap(state0["f"]), a=np.float64(1.0))
+    del fd
+
+    def expansion(a=None, adot=None):
+        e = pt.Expansion(energy0["total"], pt.LowStorageRK54, mpl=1.0)
+        if a is not None:
+            e.a, e.adot = e.dtype.type(a), e.dtype.type(adot)
+            e.hubble = e.adot / e.a
+        return e
+
+    def run(state, exp, mon, step, nsteps):
+        t = step * dt
+        for _ in range(nsteps // HEALTH_CHUNK):
+            state, hv = st.coupled_multi_step(
+                state, HEALTH_CHUNK, exp, t, dt,
+                sentinel=mon.sentinel_for(state))
+            step += HEALTH_CHUNK
+            t += HEALTH_CHUNK * dt
+            mon.push(step, hv)
+            mon.poll()
+        return state, step
+
+    work = tempfile.mkdtemp(prefix="health_path_")
+    log = os.path.join(work, "events.jsonl")
+    pt.obs.configure(log)
+    try:
+        # the main path: uninterrupted, counts read just after it
+        mon = pt.HealthMonitor(every=HEALTH_CHUNK)
+        exp = expansion()
+        for mod in (tfused, thealth):
+            mod.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, _ = run({k: v.clone() for k, v in state0.items()}, exp, mon,
+                       0, HEALTH_STEPS)
+        mon.flush()
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        path_launches = {n: c for mod in (tfused, thealth)
+                         for n, c in mod.LAUNCHES.items() if c}
+        for name in HEALTH_KERNELS:
+            launches[name] = thealth.LAUNCHES[name]
+        final = {k: v.clone() for k, v in final.items()}
+        a_ref, adot_ref = float(exp.a), float(exp.adot)
+        checked = mon.checked_through
+
+        # the same run, checkpointed and resumed at HEALTH_RESUME
+        ck = pt.Checkpointer(os.path.join(work, "ckpts"), max_to_keep=2)
+        mon = pt.HealthMonitor(every=HEALTH_CHUNK)
+        sink = pt.obs.ForensicSink(os.path.join(work, "forensics"),
+                                   events_path=log, checkpoint=ck,
+                                   label="health_path")
+        mon.forensics = sink
+        exp = expansion()
+        state, step = run({k: v.clone() for k, v in state0.items()}, exp,
+                          mon, 0, HEALTH_RESUME)
+        mon.check_now(state, step=step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(step, state, metadata={"t": step * dt, "a": float(exp.a),
+                                       "adot": float(exp.adot)})
+        save_s = time.perf_counter() - t0
+        last_good_before = ck.last_good
+        t0 = time.perf_counter()
+        ck.finalize()
+        finalize_s = time.perf_counter() - t0
+        nbytes = ck.bytes_written[step]
+        del state
+        t0 = time.perf_counter()
+        rstep, state, meta = ck.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        exp = expansion(meta["a"], meta["adot"])
+        state, step = run(state, exp, mon, rstep,
+                          HEALTH_STEPS - HEALTH_RESUME)
+        mon.flush()
+        resumed_equal = (all(torch.equal(state[k], final[k])
+                             for k in final)
+                         and float(exp.a) == a_ref
+                         and float(exp.adot) == adot_ref)
+
+        # a NaN in a copy of the state trips at its step, with a bundle
+        bad = {k: v.clone() for k, v in state.items()}
+        bad["dfdt"][1, 100, 200, 300] = float("nan")
+        trip_step = step + HEALTH_CHUNK
+        mon.observe(trip_step, bad)
+        tripped = None
+        try:
+            mon.flush()
+        except pt.SimulationDiverged as e:
+            tripped = e
+        bundle = (pt.obs.load_bundle(sink.last_bundle)
+                  if sink.last_bundle else None)
+        trip_ok = (tripped is not None and tripped.step == trip_step
+                   and tripped.bad_fields == ("dfdt",)
+                   and bundle is not None
+                   and bundle["trip"]["step"] == trip_step
+                   and bundle["last_good_checkpoint"]["step"]
+                   == HEALTH_RESUME)
+        ck.close()
+
+        # the check's share of a step: one call of the sentinel on the
+        # state against one coupled step's ms
+        sen = mon.sentinel_for(final)
+        check_ms = cuda_ms(lambda: sen.compute_jit(final), reps=10)
+        exp_t = expansion(a_ref, adot_ref)
+        chunk_ms = cuda_ms(lambda: st.coupled_multi_step(
+            final, HEALTH_CHUNK, exp_t, 0.0, dt), reps=2)
+        step_ms = chunk_ms / HEALTH_CHUNK
+        direct_ok = time_health(timing, final)
+        kinds = sorted({e["kind"] for e in pt.obs.read_events(log)})
+    finally:
+        pt.obs.configure(None)
+        shutil.rmtree(work, ignore_errors=True)
+    t = timing["health"]
+    row = {"phase": phase, "grid": GRID, "dtype": "torch.float32",
+           "steps": HEALTH_STEPS, "chunk_steps": HEALTH_CHUNK,
+           "resume_step": HEALTH_RESUME, "path_s": path_s,
+           "launches": path_launches, "checked_through": checked,
+           "resumed_equal_bitwise": resumed_equal,
+           "trip_step": None if tripped is None else tripped.step,
+           "trip_fields": None if tripped is None else tripped.bad_fields,
+           "bundle_loads": bundle is not None, "trip_ok": trip_ok,
+           "last_good_before_finalize": last_good_before,
+           "save_s": save_s, "finalize_s": finalize_s,
+           "restore_s": restore_s, "bytes_written": nbytes,
+           "k15_ms": t["ms"], "k15_bound_ms": t["bound_ms"],
+           "k15_share_of_bound": t["share_of_bound"],
+           "library_ms": t["library_ms"], "plain_ms": t["plain_ms"],
+           "check_call_ms": check_ms, "step_ms": step_ms,
+           "check_share_of_step": check_ms / step_ms,
+           "event_kinds": kinds, "direct_launch_matches_wrapper": direct_ok,
+           "seconds": time.perf_counter() - t_start}
+    emit(row)
+    del st, state0, final, state, bad
+    torch.cuda.empty_cache()
+    needed = ("coupled_pair", "coupled_pair_deferred", "fused_stage_energy",
+              "health", "health_finish")
+    missing = [n for n in needed if not path_launches.get(n)]
+    if not (resumed_equal and trip_ok and direct_ok
+            and last_good_before is None) or missing:
+        raise SystemExit(f"{phase}: resume not bitwise, the trip or its "
+                         f"bundle wrong, or kernels {missing} never "
+                         f"launched: {row}")
+
+
 #: the phase groups of a run, in run order, each with the groups whose
 #: results it reads; with no selection a run takes every one of PHASES
 PHASES = ("scalar", "gw", "fd", "mg", "sharded_mg", "sharded",
-          "sharded_coupled", "sharded_gw", "sharded_bf16", "spectra")
+          "sharded_coupled", "sharded_gw", "sharded_bf16", "spectra",
+          "health")
 PHASE_DEPS = {"sharded_mg": ("mg",), "sharded": ("scalar",),
               "sharded_coupled": ("scalar",), "sharded_gw": ("gw",),
               "sharded_bf16": ("scalar", "gw"), "hist_variants": ("spectra",)}
@@ -4655,6 +5006,11 @@ PHASE_HELP = {
                       "against each other "
                       "(beside the per-site builds; the fd x shells, K11 "
                       "on each level)",
+    "health": "the health kernel (K15, its finish) vs plain, and run "
+              "safety on the coupled-preheat path at 512^3 f32 "
+              "(coupled_multi_step(sentinel=) under a HealthMonitor, "
+              "checkpoint, finalize, restore and resume bit for bit, a NaN "
+              "trip with its forensic bundle)",
     "hist_variants": "study builds of histogram.cu (K13's histogram copies, "
                      "K14's blocks an SM, K14 without a part of its work) "
                      "timed beside the default in the spectra group"}
@@ -4729,6 +5085,7 @@ def main(argv=None):
     #       solvers' (one a set of equations), each source its own nvcc
     from pystella_tpu_torch.multigrid import relax as trelax
     from pystella_tpu_torch.ops import derivs as tderivs
+    from pystella_tpu_torch.ops import health as thealth
     from pystella_tpu_torch.ops import histogram as thist
     from pystella_tpu_torch.ops import stencil as tstencil
     # the per-site builds beside the marches (fd_ops.cu's, K2's of the
@@ -4774,6 +5131,7 @@ def main(argv=None):
             pool.submit(mg_solver, "jacobi"),
             *(pool.submit(tderivs.build_kernels, h) for h in FD_HALOS),
             pool.submit(thist.build_kernels),
+            pool.submit(thealth.build_kernels),
             *(pool.submit(tstencil.build_kernels, *b)
               for b in variant_builds.values())]]
     build_s = time.perf_counter() - t0
@@ -4781,7 +5139,8 @@ def main(argv=None):
                                     dtype=torch.float32, device="cuda")
     tiles = {str(d): chunk_st.chunk_kernel_tile(d)
              for d in (torch.float32, torch.float64)}
-    new_kernels = {**tderivs.KERNELS, **trelax.KERNELS, **thist.KERNELS}
+    new_kernels = {**tderivs.KERNELS, **trelax.KERNELS, **thist.KERNELS,
+                   **thealth.KERNELS}
     # each nvcc's wall seconds (they ran together), by source and model
     source_s = {}
     for label, st in (("bench", chunk_st), ("nonpoly", nonpoly_st),
@@ -4801,6 +5160,8 @@ def main(argv=None):
         source_s[label] = pt.ops.stencil.build_seconds(src, header)
     source_s["histogram.cu"] = pt.ops.stencil.build_seconds(
         "histogram.cu", thist._HEADER)
+    source_s["health.cu"] = pt.ops.stencil.build_seconds(
+        "health.cu", thealth._HEADER)
     ptxas = ptxas_report(chunk_st, gw_st)
     emit({"phase": "build", "seconds": build_s,
           "sources": sorted({src for src, _ in tfused.KERNELS.values()}
@@ -4821,7 +5182,8 @@ def main(argv=None):
                                             ("jacobi", jacobi))},
                     "histogram": ptxas_of("histogram.cu", thist._HEADER),
                     "histogram grouping": ptxas_of(
-                        "histogram.cu", thist._HEADER + HIST_MATCH)},
+                        "histogram.cu", thist._HEADER + HIST_MATCH),
+                    "health": ptxas_of("health.cu", thealth._HEADER)},
           # K10's x-march: run length, y-z tile and bytes a block
           "fused_chunk_tile": {d: {"lx": t[0][0], "tile": t[0][1:],
                                    "smem_bytes_per_block": t[1]}
@@ -4884,9 +5246,10 @@ def main(argv=None):
         raise SystemExit("the chunk stepper did not build the chunk kernel")
     if gw_st.kernel_names() != list(GW_KERNELS):
         raise SystemExit("the GW model did not build every kernel")
-    if tuple(new_kernels) != FD_KERNELS + MG_KERNELS + SPECTRA_KERNELS:
-        raise SystemExit("the operator and multigrid kernels are not the "
-                         "ones this run checks")
+    if tuple(new_kernels) != FD_KERNELS + MG_KERNELS + SPECTRA_KERNELS \
+            + HEALTH_KERNELS:
+        raise SystemExit("the operator, multigrid, binning and health "
+                         "kernels are not the ones this run checks")
     del newton, jacobi
 
     # -- 3. kernels vs plain, at the main path's shape and others; every
@@ -5395,6 +5758,15 @@ def main(argv=None):
         spectra_main_path("spectra_main_path", timing, launches)
         emit({"phase": "spectra_seconds",
               "seconds": time.perf_counter() - spectra_s})
+
+    # -- 29. the health kernel (K15, its finish) vs plain, and run safety on
+    #        the coupled-preheat path at 512^3 f32 ----------------------------
+    if "health" in phases:
+        health_s = time.perf_counter()
+        health_kernel_vs_plain("health_kernel_vs_plain", errs)
+        health_path("health_path", sector, timing, launches)
+        emit({"phase": "health_seconds",
+              "seconds": time.perf_counter() - health_s})
 
     kernels = []
     sharded = sharded_kernel_names() + sharded_bf16_kernel_names()

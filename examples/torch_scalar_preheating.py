@@ -16,13 +16,19 @@ process drives. It prints the same ``final constraint`` line.
 ``h5py`` (imported when the file is opened); without ``--outfile`` the run
 writes ``bench_results/output-N.h5`` as the JAX example does.
 
-Left out, because their modules are not ported yet: ``--checkpoint-dir`` and
-``--checkpoint-interval`` (``utils/checkpoint.py``, ROADMAP queue 1 item 6),
-and ``--health-every``, ``--forensics-dir``, ``--event-log``, ``--profile``,
-``--profile-start``, ``--profile-steps``, ``--perf-report`` and
-``--compile-cache-dir`` (``obs/``, item 7), with the run events the JAX
-example emits (``spectra_time``, ``health``, ``cold_start``, ...). Each
-output step's spectra time is printed instead of emitted.
+Run safety as in the JAX example: ``--checkpoint-dir`` (resume from the
+newest good checkpoint; a synchronous health check before every save, the
+durability barrier one interval later), ``--checkpoint-interval``,
+``--health-every`` (the asynchronous numerics sentinel's poll lag: a health
+vector every iteration, K15 on the card), ``--forensics-dir`` (a bundle on
+a trip) and ``--event-log`` (or ``PYSTELLA_EVENT_LOG``), with the run
+events ``run_start``, ``spectra_time``, ``health``, ``step_time``,
+``step_timer``, ``checkpoint_*``, ``diverged``, ``forensic_bundle``,
+``run_aborted`` and ``run_complete``. Left out, because their modules are
+not ported yet (ROADMAP queue 1 item 7): ``--profile``, ``--profile-start``,
+``--profile-steps`` (``obs/trace``), ``--perf-report`` (``obs/ledger``) and
+``--compile-cache-dir`` with the ``cold_start`` event (``obs/memory``,
+``obs/warmstart``).
 
     python examples/torch_scalar_preheating.py -grid 32 32 32 -end-t 1 \\
         --device cpu
@@ -88,6 +94,25 @@ parser.add_argument("--fft-scheme", type=str, default=None,
                     help="FFT scheme of the spectra/projection transform "
                          "(default PYSTELLA_FFT_SCHEME); 'pencil' is not "
                          "ported and raises")
+parser.add_argument("--checkpoint-dir", type=str, default=None,
+                    help="enable checkpoint/resume under this directory")
+parser.add_argument("--checkpoint-interval", type=int, default=100,
+                    metavar="STEPS")
+parser.add_argument("--health-every", type=int, default=50,
+                    metavar="STEPS",
+                    help="poll lag of the async numerics sentinel: the "
+                    "driver observes a health vector every iteration "
+                    "(no sync) and only ever blocks on one at least "
+                    "this many steps behind")
+parser.add_argument("--forensics-dir", type=str, default="forensics",
+                    metavar="DIR",
+                    help="where a forensic bundle is written when the "
+                    "sentinel trips (last-K health vectors, event-log "
+                    "tail, config/env fingerprint, last-good-checkpoint"
+                    " pointer); only created on divergence")
+parser.add_argument("--event-log", type=str, default=None,
+                    metavar="PATH", help="structured JSONL run-event log; "
+                    "PYSTELLA_EVENT_LOG also works")
 parser.add_argument("--device", type=str, default=None,
                     help="torch device: the GPU by default, 'cpu' for the "
                          "plain PyTorch versions")
@@ -95,6 +120,10 @@ parser.add_argument("--device", type=str, default=None,
 
 def main(argv=None):
     p = parser.parse_args(argv)
+    if p.event_log is not None:
+        # health trips, checkpoint saves and restores, per-step timings
+        # and the StepTimer reports land in one record
+        pt.obs.configure(p.event_log)
     p.grid_shape = tuple(p.grid_shape)
     p.proc_shape = tuple(p.proc_shape)
     p.box_dim = tuple(p.box_dim)
@@ -231,7 +260,11 @@ def main(argv=None):
             if p.gravitational_waves:
                 spec_out["gw"] = spectra.gw(state["dhijdt"], projector,
                                             expand.hubble)
-            output.spectra_ms.append((time.perf_counter() - t_spec0) * 1e3)
+            spec_ms = (time.perf_counter() - t_spec0) * 1e3
+            output.spectra_ms.append(spec_ms)
+            pt.obs.emit("spectra_time", step=step_count, ms=spec_ms,
+                        a=float(expand.a), gw=bool(p.gravitational_waves),
+                        label="scalar_preheating")
 
             if out is not None:
                 out.output("rho_histogram", t=t, a=expand.a, **rho_hist)
@@ -286,13 +319,53 @@ def main(argv=None):
     expand = pt.Expansion(energy["total"], Stepper, mpl=p.mpl)
 
     t, step_count = 0., 0
+
+    ckpt = None
+    if p.checkpoint_dir is not None:
+        ckpt = pt.Checkpointer(p.checkpoint_dir,
+                               save_interval_steps=p.checkpoint_interval,
+                               device=device)
+        if ckpt.latest_step is not None:
+            step_count, state, meta = ckpt.restore(
+                decomp=decomp if sharded else None)
+            t = meta["t"]
+            expand = pt.Expansion(meta["energy_total"], Stepper, mpl=p.mpl)
+            expand.a = expand.dtype.type(meta["a"])
+            expand.adot = expand.dtype.type(meta["adot"])
+            expand.hubble = expand.adot / expand.a
+            energy = compute_energy(state, expand.a)
+            if decomp.rank == 0:
+                print(f"Resumed from checkpoint at step {step_count}")
+
     output(step_count, t, energy, expand, state)
 
     if decomp.rank == 0:
         print("Time evolution beginning")
         print("time\t", "scale factor", "ms/step\t", "steps/second",
               sep="\t")
-    report_t0, report_steps = time.perf_counter(), 0
+    pt.obs.emit("run_start", step=step_count, t=t, a=float(expand.a),
+                grid_shape=p.grid_shape, proc_shape=p.proc_shape,
+                gravitational_waves=p.gravitational_waves,
+                chunk_steps=p.chunk_steps)
+
+    # per-step step_time events cost nothing without an event log
+    steptimer = pt.StepTimer(report_every=30.0, emit_steps=True)
+    # the async numerics sentinel: a health vector every iteration (K15 on
+    # the card, no sync) polled health_every steps behind; a synchronous
+    # check_now still guards every checkpoint save, and a trip writes the
+    # forensic bundle before SimulationDiverged propagates
+    monitor = pt.HealthMonitor(every=p.health_every)
+    monitor.forensics = pt.obs.ForensicSink(
+        p.forensics_dir, events_path=pt.obs.get_log().path,
+        checkpoint=ckpt, config={k: v for k, v in vars(p).items()
+                                 if isinstance(v, (bool, int, float,
+                                                   str, tuple, list,
+                                                   type(None)))},
+        label="scalar_preheating")
+
+    def metadata():
+        return {"t": t, "a": float(expand.a), "adot": float(expand.adot),
+                "energy_total": float(np.sum(energy["total"]))}
 
     carry = None
     try:
@@ -329,18 +402,51 @@ def main(argv=None):
                 t += dt
                 step_count += 1
             output(step_count, t, energy, expand, state)
-            elapsed = time.perf_counter() - report_t0
-            if elapsed >= 30.0 and decomp.rank == 0:
-                steps = step_count - report_steps
+            # the model invariants beside the sentinel's field statistics
+            pt.obs.emit("health", step=step_count, invariants={
+                "constraint": float(expand.constraint(energy["total"])),
+                "energy_total": float(np.sum(energy["total"]))})
+            monitor.observe(step_count, state)
+            monitor.poll()
+            # a NaN state is never checkpointed: every save follows a
+            # synchronous check of the state it saves; a chunked run steps
+            # past interval multiples, so a save is due whenever this
+            # advance crossed one
+            prev = step_count - (p.chunk_steps or 1)
+            if ckpt is not None and step_count // p.checkpoint_interval \
+                    > prev // p.checkpoint_interval:
+                monitor.check_now(state, step=step_count)
+                # the durability barrier of the previous interval's save:
+                # last_good names only checkpoints confirmed on disk
+                ckpt.finalize()
+                ckpt.save(step_count, state, metadata=metadata(),
+                          force=True)
+            telemetry = steptimer.tick()
+            if telemetry is not None and decomp.rank == 0:
+                ms_per_step, steps_per_s = telemetry
                 print(f"{t:<15.3f}", f"{expand.a:<15.3f}",
-                      f"{1e3 * elapsed / steps:<15.3f}",
-                      f"{steps / elapsed:<15.3f}")
-                report_t0, report_steps = time.perf_counter(), step_count
+                      f"{ms_per_step:<15.3f}", f"{steps_per_s:<15.3f}")
 
+        # normal completion: drain the async queue, check the final state
+        # synchronously, then the final checkpoint
+        monitor.flush()
+        monitor.check_now(state, step=step_count)
+        if ckpt is not None and ckpt.latest_step != step_count:
+            ckpt.save(step_count, state, metadata=metadata())
         constraint = expand.constraint(energy["total"])
         if out is not None:
             out.file.attrs["final_constraint"] = constraint
+    except BaseException as e:
+        # the forensic tail of the run record (a diverged event, if any,
+        # directly precedes it)
+        pt.obs.emit("run_aborted", step=step_count, t=t,
+                    error=f"{type(e).__name__}: {e}")
+        raise
     finally:
+        # persistence is finalized on divergence and interrupt too
+        if ckpt is not None:
+            ckpt.wait()
+            ckpt.close()
         if out is not None:
             out.close()
 
@@ -349,6 +455,8 @@ def main(argv=None):
         if output.spectra_ms:
             print(f"spectra ms per output: {np.mean(output.spectra_ms):.3f}")
         print(f"final constraint: {constraint:.16e}")
+    pt.obs.emit("run_complete", step=step_count, t=t, a=float(expand.a),
+                constraint=float(constraint))
     return constraint
 
 

@@ -26,6 +26,12 @@ the spectra binned by hand-written deterministic kernels
 (``ops/csrc/histogram.cu``), and :class:`OutputFile` (h5py, imported when a
 file is opened).
 
+The science driver's run safety is ported too: the run-event log and
+metrics (:mod:`.obs`), the numerics sentinel (:class:`obs.Sentinel`, its
+field statistics by a hand-written kernel, ``ops/csrc/health.cu``) behind
+:class:`HealthMonitor`, forensic bundles, :class:`Checkpointer` with resume
+and :class:`StepTimer`.
+
 Entry points run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); without CUDA and without that request they raise.
 """
@@ -81,7 +87,10 @@ from pystella_tpu_torch.step import (
     RungeKutta3Ralston, RungeKutta3SSP, RungeKutta4, RungeKuttaStepper,
     Stepper, all_steppers, compile_rhs_dict,
 )
-from pystella_tpu_torch.utils.output import OutputFile
+from pystella_tpu_torch import obs
+from pystella_tpu_torch.utils import (
+    Checkpointer, HealthMonitor, OutputFile, SimulationDiverged, StepTimer,
+    timer, trace)
 
 __all__ = [
     "resolve_device", "state_from_numpy", "carry_from_numpy", "to_numpy",
@@ -114,4 +123,6 @@ __all__ = [
     "make_dft", "Projector", "PowerSpectra", "RayleighGenerator",
     "SpectralCollocator", "SpectralPoissonSolver", "FFTStencil",
     "fft_laplacian", "OutputFile",
+    "obs", "Checkpointer", "HealthMonitor", "SimulationDiverged",
+    "StepTimer", "timer", "trace",
 ]

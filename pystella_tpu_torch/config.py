@@ -2,11 +2,15 @@
 
 The pattern of ``pystella_tpu/config.py``, copied rather than loaded: every
 ``PYSTELLA_*`` knob the port reads is declared here with its default and a
-one-line description, and read through :func:`getenv`, :func:`get_int` or :func:`get_float`.
+one-line description, and read through :func:`getenv`, :func:`get_int` or
+:func:`get_float`.
 Reads are live (no caching at import), so a variable set between two
 stepper builds in one process takes effect at the second.
 
-Registered so far: ``PYSTELLA_CHUNK_STAGES`` (the JAX package's autotune
+Registered so far: ``PYSTELLA_EVENT_LOG`` and ``PYSTELLA_EVENT_ROTATE_MB``
+(:mod:`~pystella_tpu_torch.obs.events`, which reads them with
+``os.environ`` as the JAX module does, so that it stays loadable by file),
+``PYSTELLA_CHUNK_STAGES`` (the JAX package's autotune
 table, which may also set the chunk depth there, is not ported),
 ``PYSTELLA_HALO_OVERLAP`` (:mod:`~pystella_tpu_torch.parallel.overlap`),
 ``PYSTELLA_FFT_SCHEME`` (:mod:`~pystella_tpu_torch.fourier.plan`),
@@ -77,6 +81,17 @@ def get_float(name):
     return None if val is None else float(val)
 
 
+register("PYSTELLA_EVENT_LOG", default=None,
+         help="JSONL run-event log path picked up by obs.events.get_log() "
+              "when no explicit obs.configure() call was made; unset "
+              "disables implicit event logging")
+register("PYSTELLA_EVENT_ROTATE_MB", default=None,
+         help="size-triggered event-log rollover in MiB: when the live "
+              "JSONL file reaches this size, obs.events.EventLog "
+              "renames it to <stem>.<n>.jsonl and opens a fresh file, "
+              "so a persistent server cannot grow one unbounded log; "
+              "ledger ingestion reads the whole rotated family; unset "
+              "disables rotation")
 register("PYSTELLA_CHUNK_STAGES", default="0",
          help="default whole-RK-chunk depth of FusedScalarStepper when no "
               "chunk_stages= argument decides it: an even number >= 4 of "

@@ -1,0 +1,675 @@
+"""Structured JSONL run-event log.
+
+PyTorch-package copy of ``pystella_tpu/obs/events.py`` (the module is plain
+Python; the port loads nothing of the JAX package). Every event is one
+JSON object per line, appended and flushed immediately so a killed run
+keeps everything emitted before the kill. Schema (version 2):
+
+===========  ======================================================
+key          meaning
+===========  ======================================================
+``v``        schema version (``2``)
+``ts``       wall-clock POSIX seconds (cross-host correlation)
+``mono``     ``time.monotonic()`` seconds (robust to clock steps;
+             durations within one process difference correctly)
+``host``     this process's ``torch.distributed`` rank (``0`` when no
+             process group is initialized)
+``kind``     event kind, a short snake_case string (``"diverged"``,
+             ``"checkpoint_save"``, ``"health"``, ...). Payload keys
+             must not shadow this schema's own field names. Every kind
+             is registered in :func:`registered_event_kinds`, the same
+             vocabulary as the JAX package's
+``step``     simulation step number, or ``null``
+``trace``    request-scoped trace id (v2, OPTIONAL — present only
+             when a :func:`tracing` context was active at emit time)
+``span``     the causal span this event belongs to (v2, optional)
+``parent``   the span's parent span id (v2, optional)
+``data``     kind-specific payload (flat, JSON-safe)
+===========  ======================================================
+
+The v2 ``trace``/``span``/``parent`` fields ride an ambient thread-local
+context (:func:`tracing`), so ``emit()`` call sites gain them without
+signature changes. The port has no span assembler yet (``obs/spans``,
+ROADMAP queue 1 item 7); the fields are written so that a log of the port
+reads as the JAX package's does.
+
+This module imports neither torch nor anything of the package at import
+time: the host id is resolved lazily from an already-imported
+``torch.distributed`` only.
+
+Usage::
+
+    from pystella_tpu_torch import obs
+    obs.configure("run_events.jsonl")       # or env PYSTELLA_EVENT_LOG
+    obs.emit("checkpoint_save", step=1200, directory="ckpts")
+    ...
+    for ev in obs.read_events("run_events.jsonl"):
+        ...
+
+With no configured path (and no ``PYSTELLA_EVENT_LOG``) the default log
+is a disabled sink and :func:`emit` costs one attribute check.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import secrets
+import sys
+import threading
+import time
+
+__all__ = ["EventLog", "configure", "current_trace", "emit", "get_log",
+           "new_span_id", "new_trace_id", "read_events",
+           "register_event_kind", "registered_event_kinds",
+           "rotated_family", "tracing", "SCHEMA_VERSION"]
+
+SCHEMA_VERSION = 2
+
+
+# ---------------------------------------------------------------------------
+# trace context: the request-scoped causal-span layer (schema v2)
+# ---------------------------------------------------------------------------
+
+def new_trace_id():
+    """A fresh 16-hex-char trace id (one per request lifecycle; a
+    preempted-and-requeued request KEEPS its trace id across leases)."""
+    return secrets.token_hex(8)
+
+
+def new_span_id():
+    """A fresh 8-hex-char span id (one per causal span: the request
+    root, each lease, each recovery incident)."""
+    return secrets.token_hex(4)
+
+
+_trace_tls = threading.local()
+
+
+def current_trace():
+    """The innermost active :func:`tracing` context as a dict
+    (``trace``/``span``/``parent``), or ``None``."""
+    stack = getattr(_trace_tls, "stack", None)
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def tracing(trace=None, span=None, parent=None):
+    """Attach trace/span/parent fields to every event emitted inside
+    (this thread only; telemetry from helper threads degrades to
+    context-less v1-shaped records rather than mis-attributing).
+
+    Fields not given inherit from the enclosing context, with one
+    causal rule: opening a NEW span (``span=`` given, ``parent=`` not)
+    records the enclosing span as its parent — so nesting
+    ``tracing(trace=T, span=ROOT)`` → ``tracing(span=LEASE)`` emits
+    lease-scoped events carrying ``parent=ROOT`` without the inner
+    site knowing the outer ids."""
+    outer = current_trace() or {}
+    ctx = {
+        "trace": trace if trace is not None else outer.get("trace"),
+        "span": span if span is not None else outer.get("span"),
+        "parent": parent if parent is not None else (
+            outer.get("span") if span is not None
+            and span != outer.get("span")
+            else outer.get("parent")),
+    }
+    stack = getattr(_trace_tls, "stack", None)
+    if stack is None:
+        stack = _trace_tls.stack = []
+    stack.append(ctx)
+    try:
+        yield ctx
+    finally:
+        stack.pop()
+
+
+# ---------------------------------------------------------------------------
+# event-kind registry: the emit vocabulary, centrally declared
+# ---------------------------------------------------------------------------
+
+#: kind -> one-line description; seeded below with the JAX package's
+#: vocabulary, so that the two packages' logs share their kinds. (The JAX
+#: package's source lint audits every ``emit("<literal>", ...)`` against
+#: it; the port's lint tier waits for ROADMAP queue 1 item 10, and
+#: tests/test_torch_obs.py checks the port's emit literals instead.)
+_KIND_REGISTRY = {}
+
+
+def register_event_kind(name, help=""):
+    """Register an event kind (idempotent; returns ``name``). Call this
+    for any new ``emit("<kind>", ...)`` literal."""
+    _KIND_REGISTRY.setdefault(str(name), str(help))
+    return name
+
+
+def registered_event_kinds():
+    """The registered kind vocabulary as a ``{name: description}``
+    dict (copy)."""
+    return dict(_KIND_REGISTRY)
+
+
+for _name, _help in (
+    # -- core telemetry (obs) -----------------------------------------------
+    ("step_time", "one step's wall time in ms (StepTimer emit_steps)"),
+    ("step_timer", "StepTimer window report (ms_per_step, steps_per_s)"),
+    ("compile", "one observed program compile (trace/compile split, "
+                "fingerprint, cache and memory_analysis counters)"),
+    ("compile_cache", "persistent XLA compilation cache wired"),
+    ("device_memory", "live allocator stats (TPU backends)"),
+    ("cold_start", "driver time-to-first-step phase breakdown"),
+    ("warmstart_export", "AOT artifact serialized to the store"),
+    ("warmstart_load", "AOT artifact loaded (fingerprint matched)"),
+    ("warmstart_mismatch", "AOT artifact refused (stale fingerprint)"),
+    ("warmstart_gc", "stale AOT artifacts collected"),
+    ("trace_summary", "per-scope duration table from a Perfetto capture"),
+    ("trace_missing", "a profiler capture produced no trace file"),
+    ("service_trace", "assembled service span timeline exported "
+                      "(Perfetto-loadable, obs.spans)"),
+    ("health", "one decoded sentinel health vector"),
+    ("diverged", "sentinel trip (non-finite fields / bound violation)"),
+    ("forensic_bundle", "a sentinel trip wrote a forensic bundle"),
+    ("forensic_failed", "a forensic bundle failed to write"),
+    ("perf_report", "a PerfLedger wrote perf_report.json"),
+    ("gate_verdict", "the perf gate ran (ok, exit_code, reasons)"),
+    # -- numerics / solver hot paths ----------------------------------------
+    ("mg_cycle", "one multigrid cycle (depth, smooths, errors)"),
+    ("assemble_fallback", "explicit assemble='update' fell back to the "
+                          "resident kernel tier"),
+    # -- fused kernel tiers + the persistent autotuner (ops.autotune) -------
+    ("block_choice", "a fused kernel build chose its blocking "
+                     "(bx/by/win_halo + source: autotune table hit, "
+                     "choose_blocks heuristic, env override, explicit)"),
+    ("kernel_fallback", "a fused kernel tier degraded down the ladder "
+                        "(chunk -> pair -> single), with the reason"),
+    ("kernel_tier", "the kernel tier a fused stepper actually "
+                    "dispatched (resident-chunk/streaming-chunk/pair/"
+                    "single/xla) + modeled HBM bytes per step"),
+    ("autotune_record", "a sweep winner persisted to the per-device "
+                        "autotune table"),
+    ("autotune_mismatch", "an autotune-table entry was refused "
+                          "(version/flag-stale or corrupt table)"),
+    ("autotune_gc", "stale autotune entries collected"),
+    ("autotune_sweep", "one autotune sweep's totals (winner + "
+                       "candidate count)"),
+    ("autotune_warm_build", "a table-hit stepper rebuild dispatched "
+                            "with its compile-watch record — "
+                            "backend_compiles == 0 is the "
+                            "zero-extra-compiles proof"),
+    # -- checkpoints (utils.checkpoint) -------------------------------------
+    ("checkpoint_save", "async checkpoint write SCHEDULED (not durable)"),
+    ("checkpoint_durable", "durability barrier passed; last_good advanced"),
+    ("checkpoint_restore", "a checkpoint was restored"),
+    ("checkpoint_fallback", "restore walked back past a torn checkpoint"),
+    # -- elastic runtime (resilience) ---------------------------------------
+    ("fault_injected", "the fault harness fired a scripted fault"),
+    ("fault_detected", "the supervisor detected a fault (triage result)"),
+    ("recovery_attempt", "one recovery attempt (re-dial + restore)"),
+    ("recovery_failed", "recovery gave up (budget / recurrence)"),
+    ("run_resumed", "the run resumed (recovery MTTR or restart)"),
+    ("run_degraded", "the run re-meshed to surviving devices"),
+    ("run_preempted", "SIGTERM/preemption drain to a durable checkpoint"),
+    ("supervisor_start", "a supervised run began"),
+    ("supervisor_done", "supervised-run lifecycle totals"),
+    ("remesh_plan", "one re-mesh decision record (RemeshPlanner)"),
+    ("retry_wait", "one jittered backoff sleep (Retrier)"),
+    ("retry_stop", "the retrier stopped (reason)"),
+    # -- ensemble tier ------------------------------------------------------
+    ("ensemble_run", "ensemble-driver queue grouping"),
+    ("ensemble_chunk", "one batched dispatch window"),
+    ("ensemble_done", "ensemble batch totals (member-steps/s, occupancy)"),
+    ("ensemble_health", "per-chunk health-matrix summary"),
+    ("member_started", "a batch slot was armed with a scenario job"),
+    ("member_finished", "a member retired at its step budget"),
+    ("member_evicted", "a member was evicted by the per-member sentinel"),
+    ("member_preempted", "a driver drain captured a member as a requeue "
+                         "record"),
+    # -- scenario service ---------------------------------------------------
+    ("service_start", "scenario-service serve loop began (policy config)"),
+    ("service_done", "scenario-service serve totals"),
+    ("service_request", "one request entered ingestion (traced root)"),
+    ("service_admit", "admission verdict (warm/cold, fingerprint)"),
+    ("service_reject", "typed rejection (quota / cold_signature)"),
+    ("service_arm", "a warm-pool entry was armed (compile paid here)"),
+    ("service_dispatch", "a request entered a lease (queue latency)"),
+    ("service_lease", "a lease finished or drained (TTFS, compile watch)"),
+    ("service_preempted", "a lease drained for a higher priority class"),
+    ("service_requeue", "an unfinished request re-entered the queue with "
+                        "its restored state"),
+    ("service_lease_failed", "a lease's supervision gave up; requests "
+                             "requeued"),
+    ("member_result", "one retired member's streamed analytics + "
+                      "deadline margin"),
+    ("deadline_missed", "a deadlined request retired after its deadline "
+                        "(margin_s < 0)"),
+    ("service_loadgen", "the synthetic-mix summary"),
+    # -- live operations plane (obs.live / obs.slo) -------------------------
+    ("live_serve", "the in-process telemetry endpoint came up "
+                   "(port, endpoints)"),
+    ("slo_alert", "a rolling-window SLO burn-rate alert FIRED "
+                  "(obs.slo.SLOMonitor; leg, windowed value, bar)"),
+    ("slo_resolved", "a burning SLO leg recovered below its bar "
+                     "(duration_s since the matching slo_alert)"),
+    ("obs_subscriber_error", "an EventLog emit subscriber raised; the "
+                             "emit path degraded it to this one-time "
+                             "event instead of breaking"),
+    # -- continuous-performance plane (obs.perf / obs.stragglers) -----------
+    ("perf_digest", "one signature's step-time digest window report "
+                    "(p50/p95/p99 ms + straggler attribution)"),
+    ("perf_anomaly", "the CUSUM change-point detector fired on a "
+                     "sustained step-time shift (signature, baseline, "
+                     "straggler attribution)"),
+    ("perf_recovered", "an anomalous signature's step times returned "
+                       "to the baseline band (duration_s since the "
+                       "matching perf_anomaly)"),
+    ("perf_capture", "an anomaly-triggered flight-recorder profiler "
+                     "capture closed (Perfetto artifact path, "
+                     "rate-limit suppression count)"),
+    ("perf_loadgen", "the seeded continuous-performance drill summary "
+                     "(service.loadgen.run_perf)"),
+    # -- fleet observability plane (service.registry / obs.fleet) -----------
+    ("fleet_announce", "a serving replica published its registry record "
+                       "(replica id, url, stack fingerprint)"),
+    ("fleet_withdraw", "a replica withdrew its registry record cleanly "
+                       "(tombstone written, heartbeats stopped)"),
+    ("fleet_scrape", "one fleet aggregation pass: per-replica scrape "
+                     "outcomes, merged fleet SLO legs, skew/divergence"),
+    ("fleet_replica_lost", "a previously-live replica went dark without "
+                           "withdrawing (heartbeat expired or endpoint "
+                           "unreachable)"),
+    ("fleet_alert", "a fleet-level SLO burn-rate alert FIRED "
+                    "(obs.fleet.FleetAggregator; leg, value, bar)"),
+    ("fleet_resolved", "a burning fleet SLO leg recovered below its "
+                       "bar (duration_s since the matching "
+                       "fleet_alert)"),
+    ("fleet_loadgen", "the two-replica fleet drill summary "
+                      "(service.loadgen.run_fleet)"),
+    # -- capacity & goodput plane (obs.capacity) ----------------------------
+    ("capacity_footprint", "a program's predicted HBM footprint "
+                           "recorded (fingerprint, bytes, source: "
+                           "memory_analysis or aval_estimate)"),
+    ("capacity_stale", "a persisted footprint was refused "
+                       "(version/flag drift — the warmstart staleness "
+                       "rule) or none existed"),
+    ("capacity_watermark", "one per-chunk live allocator sample "
+                           "(bytes_in_use / peak_bytes_in_use / "
+                           "headroom fraction)"),
+    ("capacity_reject", "memory-aware admission refused a request: "
+                        "resident + predicted footprint exceeded "
+                        "capacity x headroom (CapacityExceeded)"),
+    ("capacity_evict", "the evict admission policy dropped an idle "
+                       "warm-pool entry to make room for a candidate "
+                       "lease"),
+    ("capacity_oom", "a RESOURCE_EXHAUSTED lease failure wrote an OOM "
+                     "forensic bundle (footprint table, watermark "
+                     "series, the admitting decision)"),
+    ("capacity_account", "one request's retire-time chip-second "
+                         "account (phases x chip share, committed "
+                         "steps, waste, goodput)"),
+    ("capacity_usage", "the serve loop's capacity/goodput rollup "
+                       "(per-tenant chargeback table, reconciliation, "
+                       "watermark coverage)"),
+    # -- driver-side kinds (bench.py / examples; outside the package, so
+    # -- not lint-audited, but registered so the vocabulary is one list)
+    ("bench_run", "bench payload run metadata"),
+    ("bench_metric", "one bench headline metric line"),
+    ("run_start", "example-driver run began"),
+    ("run_complete", "example-driver run completed"),
+    ("run_aborted", "example-driver run died (forensic tail)"),
+    ("halo_traffic", "per-device ICI bytes per overlapped halo update"),
+    ("spectra_time", "one spectra output's wall time"),
+    ("fft_spectra", "a driver's sharded-spectra leg totals"),
+    ("lint", "the static-analysis verdict of the run"),
+    ("smoke_supervised_failed", "smoke: supervised payload failed"),
+    ("smoke_autotune_failed", "smoke: fused-tier/autotune payload "
+                              "failed its pins"),
+    ("smoke_remesh_failed", "smoke: remesh drill failed"),
+    ("smoke_service_failed", "smoke: service payload failed"),
+    ("smoke_fleet_failed", "smoke: two-replica fleet drill failed"),
+    ("smoke_capacity_failed", "smoke: capacity/goodput leg failed its "
+                              "pins"),
+):
+    register_event_kind(_name, _help)
+del _name, _help
+
+
+def _rotated_name(path, index):
+    """``run_events.jsonl`` -> ``run_events.<index>.jsonl``."""
+    root, ext = os.path.splitext(path)
+    return f"{root}.{index}{ext or '.jsonl'}"
+
+
+def rotated_family(path):
+    """Every file of a rotated event log, OLDEST FIRST and the live
+    file last: ``[<stem>.0.jsonl, <stem>.1.jsonl, ..., <path>]``
+    (missing members are skipped; an un-rotated log is just
+    ``[path]``). This is the read-side contract of ``rotate_bytes=``:
+    a consumer that wants the whole record reads the family in this
+    order and sees one continuous stream."""
+    family = []
+    index = 0
+    while True:
+        rotated = _rotated_name(path, index)
+        if not os.path.exists(rotated):
+            break
+        family.append(rotated)
+        index += 1
+    family.append(path)
+    return family
+
+
+def _host_id():
+    """This process's rank in a ``torch.distributed`` process group, or 0.
+    Resolved only from an already-imported ``torch.distributed`` with an
+    initialized group, so a process that never set one up emits without
+    touching the device runtime."""
+    dist = sys.modules.get("torch.distributed")
+    if dist is None:
+        return 0
+    try:
+        if dist.is_available() and dist.is_initialized():
+            return int(dist.get_rank())
+    except Exception:
+        pass
+    return 0
+
+
+def _jsonify(obj):
+    """Best-effort JSON coercion for payload values (numpy scalars, 0-d
+    tensors, tuples, paths); unknown types fall back to ``str``."""
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    if isinstance(obj, dict):
+        return {str(k): _jsonify(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple, set, frozenset)):
+        return [_jsonify(v) for v in obj]
+    if hasattr(obj, "item") and getattr(obj, "ndim", None) in (None, 0):
+        try:
+            return _jsonify(obj.item())
+        except Exception:
+            pass
+    if hasattr(obj, "tolist"):
+        try:
+            return _jsonify(obj.tolist())
+        except Exception:
+            pass
+    return str(obj)
+
+
+class EventLog:
+    """Append-only JSONL event sink.
+
+    :arg path: output file (parent directories are created), or ``None``
+        for a disabled sink whose :meth:`emit` is a cheap no-op.
+    :arg host: override the host id (default: the lazy
+        ``torch.distributed`` rank).
+    :arg rotate_bytes: size-triggered rollover for long-lived processes
+        (the scenario service runs for days — one unbounded JSONL is an
+        operational hazard): when the live file reaches this size after
+        a write, it is renamed to the next ``<stem>.<n>.jsonl`` member
+        of the rotated family (:func:`rotated_family`) and a fresh file
+        is opened at ``path``. Default: the registered
+        ``PYSTELLA_EVENT_ROTATE_MB`` (unset disables). Rotation never
+        splits a line — whole events only.
+
+    Thread-safe; every line is flushed on write so concurrently-appending
+    processes (orchestrator + payload) interleave whole lines.
+    """
+
+    def __init__(self, path=None, host=None, rotate_bytes=None):
+        self.path = None if path is None else os.path.abspath(str(path))
+        self._host = host
+        self._lock = threading.Lock()
+        self._file = None
+        self._warned = False
+        self._subscribers = []
+        self._subscriber_errored = False
+        self._notify_tls = threading.local()
+        if rotate_bytes is None:
+            # direct read (not config.getenv), as in the JAX package:
+            # this module stays loadable by file without the package
+            mb = os.environ.get(
+                "PYSTELLA_EVENT_ROTATE_MB")  # env-registry: PYSTELLA_EVENT_ROTATE_MB
+            if mb:
+                try:
+                    rotate_bytes = float(mb) * 2**20
+                except ValueError:
+                    rotate_bytes = None
+        self.rotate_bytes = (int(rotate_bytes)
+                             if rotate_bytes else None)
+        if self.path is not None:
+            parent = os.path.dirname(self.path)
+            if parent:
+                os.makedirs(parent, exist_ok=True)
+            self._file = open(self.path, "a")
+
+    def _maybe_rotate(self):
+        """Roll the live file over once it reached ``rotate_bytes``
+        (caller holds the lock; the just-written line stays whole in
+        the rotated member). Rotation failures degrade to
+        keep-appending — telemetry must never kill the run.
+
+        Concurrent appenders (the orchestrator + payload pattern) are
+        tolerated via an inode check: when ANOTHER process already
+        rotated the live file out from under this one, this writer
+        re-points at the fresh live file instead of renaming it away —
+        otherwise two writers would leapfrog-rotate each other's fresh
+        files. Lines the laggard wrote into the rotated member before
+        noticing remain there (whole, just earlier in the family), so
+        the family read stays lossless; single-writer logs (the normal
+        service deployment) rotate exactly at the threshold."""
+        try:
+            st_fd = os.fstat(self._file.fileno())
+            try:
+                st_path = os.stat(self.path)
+            except FileNotFoundError:
+                st_path = None
+            if st_path is None or (st_path.st_ino, st_path.st_dev) \
+                    != (st_fd.st_ino, st_fd.st_dev):
+                # someone else rotated (or removed) the live file:
+                # follow them instead of rotating their fresh file
+                self._file.close()
+                self._file = open(self.path, "a")
+                return
+            if st_fd.st_size < self.rotate_bytes:
+                return
+            index = 0
+            while os.path.exists(_rotated_name(self.path, index)):
+                index += 1
+            self._file.close()
+            os.replace(self.path, _rotated_name(self.path, index))
+            self._file = open(self.path, "a")
+        except OSError as e:
+            if not self._warned:
+                self._warned = True
+                print(f"pystella_tpu_torch.obs: event log rotation failed "
+                      f"({e}); continuing on the live file",
+                      file=sys.stderr)
+            if self._file is None or self._file.closed:
+                try:
+                    self._file = open(self.path, "a")
+                except OSError:
+                    self._file = None
+
+    @property
+    def enabled(self):
+        return self._file is not None
+
+    # -- subscribers: the in-process push channel (live SLO monitors) -------
+
+    def subscribe(self, fn):
+        """Register ``fn(record)`` to receive every emitted record
+        in-process, immediately after the write — the push channel the
+        JAX package's live SLO monitor rides instead of tailing the log
+        file (the port's ``obs/slo`` waits for ROADMAP queue 1 item 7). Subscribers survive size-triggered
+        rotation (they hang off the log object, not the file handle)
+        but NOT :func:`configure` (which builds a fresh log). A
+        subscriber that raises never breaks the emit path: the failure
+        degrades to a one-time ``obs_subscriber_error`` event and the
+        subscriber stays registered (the fault may be transient).
+        Returns ``fn`` so a lambda can be kept for :meth:`unsubscribe`.
+        """
+        if fn not in self._subscribers:
+            self._subscribers.append(fn)
+        return fn
+
+    def unsubscribe(self, fn):
+        """Remove a subscriber (idempotent)."""
+        try:
+            self._subscribers.remove(fn)
+        except ValueError:
+            pass
+
+    def _notify(self, rec):
+        """Push ``rec`` to subscribers, outside the write lock (a
+        subscriber may itself emit — e.g. the SLO monitor's
+        ``slo_alert``) and re-entrancy-guarded per thread: an emit made
+        FROM a subscriber callback is written normally but not pushed
+        again, so a monitor that emits alerts cannot recurse through
+        its own hook."""
+        if not self._subscribers:
+            return
+        if getattr(self._notify_tls, "active", False):
+            return
+        self._notify_tls.active = True
+        try:
+            for fn in list(self._subscribers):
+                try:
+                    fn(rec)
+                except Exception as e:  # noqa: BLE001 — never break emit
+                    if not self._subscriber_errored:
+                        self._subscriber_errored = True
+                        print("pystella_tpu_torch.obs: event subscriber "
+                              f"{fn!r} raised ({type(e).__name__}: {e});"
+                              " telemetry continues without it",
+                              file=sys.stderr)
+                        self.emit("obs_subscriber_error",
+                                  subscriber=repr(fn),
+                                  error=f"{type(e).__name__}: {e}")
+        finally:
+            self._notify_tls.active = False
+
+    def emit(self, kind, step=None, **data):
+        """Append one event; returns the record dict (``None`` when
+        nothing consumed it: a disabled, subscriber-less sink, or a
+        failed write — telemetry is best-effort by design and must
+        never kill the instrumented run). The ambient :func:`tracing`
+        context, when active on this thread, lands as the v2
+        ``trace``/``span``/``parent`` fields. Registered subscribers
+        (:meth:`subscribe`) receive the record after the write — also
+        on a file-less sink, so a live monitor works without a log."""
+        if self._file is None and not self._subscribers:
+            # cheap pre-check; file re-read under the lock
+            return None
+        rec = {"v": SCHEMA_VERSION, "ts": time.time(),
+               "mono": time.monotonic(),
+               "host": self._host if self._host is not None else _host_id(),
+               "kind": str(kind),
+               "step": None if step is None else int(step),
+               "data": _jsonify(data)}
+        ctx = current_trace()
+        if ctx:
+            for key in ("trace", "span", "parent"):
+                if ctx.get(key) is not None:
+                    rec[key] = ctx[key]
+        written = False
+        if self._file is not None:
+            line = json.dumps(rec)
+            with self._lock:
+                f = self._file  # may have been closed/reconfigured since
+                if f is not None:
+                    try:
+                        f.write(line + "\n")
+                        f.flush()
+                        written = True
+                    except (OSError, ValueError) as e:  # ENOSPC, ...
+                        if not self._warned:
+                            self._warned = True
+                            print("pystella_tpu_torch.obs: event log write "
+                                  f"failed ({e}); further events may "
+                                  "be lost", file=sys.stderr)
+                    if written and self.rotate_bytes:
+                        self._maybe_rotate()
+        self._notify(rec)
+        return rec if (written or self._subscribers) else None
+
+    def close(self):
+        with self._lock:
+            if self._file is not None:
+                self._file.close()
+                self._file = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+#: module default: lazily built from ``PYSTELLA_EVENT_LOG`` on first use
+_default = None
+
+
+def get_log():
+    """The process-default :class:`EventLog` (disabled sink unless
+    :func:`configure` was called or ``PYSTELLA_EVENT_LOG`` is set). An
+    unopenable ``PYSTELLA_EVENT_LOG`` path degrades to the disabled sink
+    with a stderr warning — implicit env-driven telemetry must never
+    kill the instrumented run (an explicit :func:`configure` call still
+    raises, so startup misconfiguration surfaces)."""
+    global _default
+    if _default is None:
+        # direct read, not config.getenv, as in the JAX package: this
+        # module stays loadable by file without the package
+        path = os.environ.get(
+            "PYSTELLA_EVENT_LOG") or None  # env-registry: PYSTELLA_EVENT_LOG
+        try:
+            _default = EventLog(path)
+        except OSError as e:
+            print(f"pystella_tpu_torch.obs: cannot open event log {path!r} "
+                  f"({e}); events disabled", file=sys.stderr)
+            _default = EventLog(None)
+    return _default
+
+
+def configure(path=None, host=None, rotate_bytes=None):
+    """(Re)point the process-default event log at ``path`` (``None``
+    disables). Returns the new log; the previous one is closed."""
+    global _default
+    old, _default = _default, EventLog(path, host=host,
+                                       rotate_bytes=rotate_bytes)
+    if old is not None:
+        old.close()
+    return _default
+
+
+def emit(kind, step=None, **data):
+    """Emit on the process-default log (no-op when unconfigured)."""
+    return get_log().emit(kind, step=step, **data)
+
+
+def read_events(path, kind=None, include_rotated=False):
+    """Load events from a JSONL file (newest last). Torn trailing lines
+    from a killed writer are skipped, like ``bench.py``'s line cache.
+    ``kind`` optionally filters. ``include_rotated=True`` reads the
+    whole rotated family (:func:`rotated_family`) oldest-first, so a
+    size-rotated long-lived log reads as one continuous record — the
+    ledger ingests event logs this way."""
+    out = []
+    paths = rotated_family(path) if include_rotated else [path]
+    for member in paths:
+        try:
+            with open(member) as f:
+                for ln in f:
+                    if not ln.strip():
+                        continue
+                    try:
+                        rec = json.loads(ln)
+                    except ValueError:
+                        continue  # torn line
+                    if kind is None or rec.get("kind") == kind:
+                        out.append(rec)
+        except OSError:
+            continue
+    return out

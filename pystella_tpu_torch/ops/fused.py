@@ -88,6 +88,8 @@ from pystella_tpu_torch import config as _config
 from pystella_tpu_torch import field as _field
 from pystella_tpu_torch import step as _step
 from pystella_tpu_torch._device import resolve_device, torch_dtype
+from pystella_tpu_torch.obs import events as _events
+from pystella_tpu_torch.obs import metrics as _metrics
 from pystella_tpu_torch.ops import codegen as _codegen
 from pystella_tpu_torch.ops import stencil as _stencil
 from torch.profiler import record_function
@@ -507,6 +509,8 @@ class FusedScalarStepper(_step.Stepper):
                 "depth 2 is the pair tier (pair_stages=True)")
         #: the chunk depth multi_step dispatches (0: no chunk kernel)
         self._chunk_depth = 0
+        #: entry points whose kernel_tier event was emitted
+        self._tier_emitted = set()
         self._maybe_build_chunk(depth)
 
         self._buffers = None  # two sets of arrays, made at first use
@@ -1486,11 +1490,16 @@ class FusedScalarStepper(_step.Stepper):
 
     def _chunk_fallback(self, reason):
         """The chunk tier's fallback, in the JAX package's words: a
-        warning, and the stepper runs pairs (or single stages)."""
+        warning and a ``kernel_fallback`` event, and the stepper runs pairs
+        (or single stages)."""
         to = "pair" if self._pair_stages else "single"
         warnings.warn(
             f"whole-RK-chunk fusion disabled ({reason}); step() will run "
             f"{to}-stage fused kernels", stacklevel=4)
+        _events.emit("kernel_fallback", tier="chunk", to=to,
+                     reason=str(reason),
+                     local_shape=list(self.local_shape),
+                     label=type(self).__name__)
 
     def _maybe_build_chunk(self, depth):
         """Put the requested chunk depth in force, or warn and leave the
@@ -1611,6 +1620,17 @@ class FusedScalarStepper(_step.Stepper):
             report["sum_order"] = self.sum_order()
         return report
 
+    def _emit_tier(self, entrypoint):
+        """One ``kernel_tier`` event per (stepper, entry point), emitted at
+        its first dispatch: the record of the tier actually run, not
+        merely built (the JAX package's ``_emit_tier``)."""
+        if entrypoint in self._tier_emitted:
+            return
+        self._tier_emitted.add(entrypoint)
+        _events.emit("kernel_tier", entrypoint=entrypoint,
+                     label=type(self).__name__,
+                     **self.kernel_tier_report())
+
     #: the kernel role (:attr:`_KERNEL`) of each entry of a plan
     _ROLE = {"chunk": "chunk", "pair": "pair", "single": "stage"}
 
@@ -1657,12 +1677,15 @@ class FusedScalarStepper(_step.Stepper):
     def step(self, state, t=0.0, dt=None, rhs_args=None):
         """Advance ``state`` by one full RK step: a chunk, then stage
         pairs, then the odd stage left over (RK54: 2 pair launches + 1
-        single; with ``chunk_stages=4``, 1 chunk + 1 single)."""
+        single; with ``chunk_stages=4``, 1 chunk + 1 single). Counts one
+        on the ``steps`` counter; the first call emits ``kernel_tier``."""
         dt = dt if dt is not None else self.dt
+        _metrics.counter("steps").inc()
+        self._emit_tier("step")
         return self._step_impl(state, t, dt, rhs_args or {})
 
     def multi_step(self, state, nsteps, t=0.0, dt=None, rhs_args=None,
-                   rhs_seq=None):
+                   rhs_seq=None, sentinel=None):
         """Advance ``nsteps`` full RK steps, running chunks, then pairs,
         then single stages ACROSS step boundaries when ``A[0] == 0``: RK54
         runs ``ceil(5 * nsteps / 2)`` pair launches and, for odd
@@ -1672,9 +1695,29 @@ class FusedScalarStepper(_step.Stepper):
 
         ``rhs_seq`` maps scalar names (``"a"``, ``"hubble"``) to per-stage
         values, one per flat stage (``nsteps * num_stages``), overlaying the
-        static ``rhs_args``."""
+        static ``rhs_args``.
+
+        With ``sentinel`` (a :class:`~pystella_tpu_torch.obs.Sentinel`),
+        the health vector of the final state is computed right after the
+        chunk's last launch, on the same stream (K15 and its finish; no host
+        sync), and ``(state, health_vector)`` is returned; the state is
+        the one the call gives without it, bit for bit.
+
+        Counts ``nsteps`` on the ``steps`` counter; the first call emits
+        ``kernel_tier``."""
         dt = dt if dt is not None else self.dt
         nsteps = int(nsteps)
+        _metrics.counter("steps").inc(nsteps)
+        self._emit_tier("multi_step")
+        state = self._multi_step_impl(state, nsteps, t, dt, rhs_args,
+                                      rhs_seq)
+        if sentinel is None:
+            return state
+        return state, sentinel.compute_jit(state)
+
+    def _multi_step_impl(self, state, nsteps, t, dt, rhs_args, rhs_seq):
+        """:meth:`multi_step`'s launches, without its counter, event and
+        sentinel."""
         rhs_args = rhs_args or {}
         nstages = self.num_stages
         seq = {}
@@ -1724,7 +1767,9 @@ class FusedScalarStepper(_step.Stepper):
         nsteps = int(nsteps)
 
         def fn(state, t, dt, rhs_args):
-            return self.multi_step(state, nsteps, t, dt, rhs_args)
+            return self._multi_step_impl(
+                state, nsteps, t, dt if dt is not None else self.dt,
+                rhs_args, None)
         return fn
 
     # -- energy-coupled driver (Friedmann background on the host) -----------
@@ -1863,7 +1908,7 @@ class FusedScalarStepper(_step.Stepper):
         return self.extract(carry), a, adot
 
     def coupled_multi_step(self, state, nsteps, expansion, t=0.0, dt=None,
-                           grid_size=None, pair=None):
+                           grid_size=None, pair=None, sentinel=None):
         """Advance ``nsteps`` steps with the scale factor evolved
         self-consistently: every stage's entry-state energy, summed inside
         the stage kernel, feeds the matching stage of the Friedmann ODE,
@@ -1897,6 +1942,15 @@ class FusedScalarStepper(_step.Stepper):
         the same order, so the chunk equals the single-device one where the
         sums do.
 
+        With ``sentinel``, the health vector of the final state is computed
+        right after the chunk's last launch, on the same stream, with the
+        chunk-end background ``{"a": a, "adot": adot}`` as the sentinel's
+        ``aux`` (so invariants such as
+        :meth:`~pystella_tpu_torch.Expansion.constraint_residual` see it),
+        and ``(state, health_vector)`` is returned; the state is bit for bit
+        the one the call gives without it. Counts ``nsteps`` on the
+        ``steps`` counter.
+
         The returned tensors are the stepper's buffers (see the class
         docstring)."""
         dt = _float(dt if dt is not None else self.dt)
@@ -1910,6 +1964,7 @@ class FusedScalarStepper(_step.Stepper):
                 "pair=True but the deferred-drag coupled pair kernels are "
                 "unavailable on this stepper (pair_stages=False, A[0] != 0, "
                 "or a hubble-referencing potential)")
+        _metrics.counter("steps").inc(nsteps)
         impl = self._coupled_pair_impl if pair else self._coupled_impl
         state, a, adot = impl(state, t, dt, float(expansion.a),
                               float(expansion.adot), nsteps,
@@ -1917,7 +1972,9 @@ class FusedScalarStepper(_step.Stepper):
         expansion.a = expansion.dtype.type(a)
         expansion.adot = expansion.dtype.type(adot)
         expansion.hubble = expansion.adot / expansion.a
-        return state
+        if sentinel is None:
+            return state
+        return state, sentinel.compute_jit(state, {"a": a, "adot": adot})
 
 
 class FusedPreheatStepper(FusedScalarStepper):

@@ -489,7 +489,8 @@ class Histogrammer:
     :arg decomp: a :class:`~pystella_tpu_torch.DomainDecomposition` (or
         ``None``); the layout is read off the arguments.
     :arg histograms: dict mapping names to ``(bin_expr, weight_expr)``; the
-        bin index is ``floor(bin_expr)`` clipped to ``[0, num_bins)``.
+        bin index is ``floor(bin_expr)`` clipped to ``[0, num_bins)`` (a NaN
+        to bin 0).
     :arg num_bins: number of bins.
     :arg dtype: dtype of the output histogram (and of the weights).
 
@@ -522,9 +523,13 @@ class Histogrammer:
         acc = torch_dtype(self.dtype)
         out = {}
         for name, (bin_expr, weight_expr) in self.histograms.items():
-            b = _field.evaluate(bin_expr, env)
-            b = torch.clamp(torch.floor(b), 0, self.num_bins - 1).to(
-                torch.int32)
+            b = torch.floor(_field.evaluate(bin_expr, env))
+            # a NaN site goes to bin 0, as the JAX package's int32 cast of
+            # a NaN gives 0 (torch.clamp keeps the NaN, whose cast is
+            # undefined); +-inf clamp to the last and the first bin
+            b = torch.nan_to_num(b, nan=0.0, posinf=float("inf"),
+                                 neginf=float("-inf"))
+            b = torch.clamp(b, 0, self.num_bins - 1).to(torch.int32)
             if name in self._count_names:
                 out[name] = (b, None)
                 continue

@@ -132,9 +132,29 @@ class Stepper:
     # -- whole-step interface ---------------------------------------------
 
     def step(self, state, t=0.0, dt=None, rhs_args=None):
-        """Advance ``state`` by one full RK step; returns the new state."""
+        """Advance ``state`` by one full RK step; returns the new state.
+        The first call emits a ``kernel_tier`` event with tier ``"eager"``
+        (the JAX package's generic stepper records ``"xla"``, its rung of
+        the fused tiers' fallback ladder)."""
         dt = dt if dt is not None else self.dt
+        if not getattr(self, "_tier_emitted", False):
+            self._tier_emitted = True
+            from pystella_tpu_torch.obs import events as _events
+            _events.emit("kernel_tier", entrypoint="step", tier="eager",
+                         label=type(self).__name__)
         return self._step_impl(state, t, dt, rhs_args or {})
+
+    def step_with_health(self, state, sentinel, t=0.0, dt=None,
+                         rhs_args=None, aux=None):
+        """Like :meth:`step`, additionally returning ``sentinel``'s health
+        vector of the NEW state (:mod:`pystella_tpu_torch.obs.sentinel`):
+        K15 and its finish enqueued right behind the step's last launch,
+        with no host sync. Hand the vector to ``SentinelMonitor.push`` and
+        poll it later. ``aux`` (a dict of scalars, e.g. the expansion
+        background) is forwarded to the sentinel's invariants. Returns
+        ``(new_state, health_vector)``."""
+        new = self.step(state, t, dt, rhs_args)
+        return new, sentinel.compute_jit(new, aux)
 
     # -- ensemble (member-axis) interface ----------------------------------
 

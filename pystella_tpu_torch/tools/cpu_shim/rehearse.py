@@ -45,6 +45,13 @@ sums and K14's bins bit for bit, K14's sums within the same bound),
 launched twice for equal bits, and on (2, 1, 1) and (2, 2, 1) blocks
 equal to the whole lattice's launch bit for bit; ``--small`` keeps the
 16^3 and 5x9x33 lattices (and 2x4x600 for K14).
+With ``--health`` the health kernel K15 and its finish (f32, f64 and bf16
+fields with NaN, +-inf and overflowing sites; aligned and scalar loads;
+rows of several vector passes and more rows than a launch's warps) are
+held to their plain version (``finite`` and ``max_abs`` exactly, ``rms``
+within 1e-13), launched twice for equal bits, and on (2, 1, 1) and
+(2, 2, 1) blocks equal to the whole lattice's launch bit for bit
+(``--small``: three of the four shapes).
 With ``--against DIR``, the root of another checkout (a parent commit
 unpacked with ``git archive``, say), every launch must also equal that
 checkout's kernels bit for bit, sums included; with ``--hist`` K14's sums
@@ -65,7 +72,8 @@ PK_FD_DIV_LX with ``--fd``, MG_MARCH_LX with
 to a few minutes. Exits 1 if a check fails::
 
     python pystella_tpu_torch/tools/cpu_shim/rehearse.py
-        [--gw | --chunk | --stage | --fd | --mg | --hist [--small]]
+        [--gw | --chunk | --stage | --fd | --mg | --hist [--small]
+         | --health]
         [--lx N] [--against DIR]
 """
 
@@ -79,8 +87,8 @@ from pathlib import Path
 
 import torch
 
-from shim import (CSRC, build, built, pt, shim, tderivs, tfused, thist,
-                  trelax)
+from shim import (CSRC, build, built, pt, shim, tderivs, tfused, thealth,
+                  thist, trelax)
 
 A, B = pt.LowStorageRK54._A, pt.LowStorageRK54._B
 RESULTS = []
@@ -687,6 +695,10 @@ def mg(args):
 #: K13 / K14 sums against their plain versions and the grouping build,
 #: relative to the largest bin: float64 sums in another order
 HIST_TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
+#: K15's rms against its plain version, relative (the float64 sums add in
+#: another order)
+HEALTH_TOL = 1e-13
+
 #: the histogram.cu build that bins counts and K14 through the warp grouping
 HIST_MATCH = "\n#define PK_HIST_MATCH 1\n"
 
@@ -851,6 +863,115 @@ def hist(args):
             hist_run(libs["kernel"], wide, ones, 0), wide.plain(ones, 0)))
 
 
+def health_libs(args):
+    """The bound entry points of health.cu as the port builds it
+    (``kernel``) and, with ``--against``, of the other checkout's
+    (``against``, where that checkout has the source)."""
+    builds = {"kernel": CSRC}
+    other = (Path(args.against) / "pystella_tpu_torch" / "ops" / "csrc"
+             if args.against else None)
+    if other is not None and (other / "health.cu").exists():
+        builds["against"] = other
+    return {k: thealth.bind_kernels(ctypes.CDLL(str(
+                build(v, "health.cu", thealth._HEADER))))
+            for k, v in builds.items()}
+
+
+def health_run(fns, *a, **kw):
+    """K15's wrapper under the shim with the entry points ``fns``."""
+    keep = dict(thealth._LIB)
+    thealth._LIB.clear()
+    thealth._LIB.update(fns)
+    try:
+        with shim():
+            return thealth.field_stats(*a, **kw)
+    finally:
+        thealth._LIB.clear()
+        thealth._LIB.update(keep)
+
+
+def health_field(shape, dtype, kind, g):
+    """A seeded field with a poisoned site: ``clean``, ``nan``, ``inf``,
+    ``-inf``, ``overflow`` (finite values whose square overflows f32 and
+    bf16, 1e20) or ``misaligned`` (a view 4 bytes off 16-byte alignment:
+    the scalar loads)."""
+    x = torch.randn(shape, generator=g, dtype=torch.float64)
+    if kind == "overflow":
+        x = x * 1e20
+    elif kind in ("nan", "inf", "-inf"):
+        flat = x.view(-1)
+        flat[int(torch.randint(flat.numel(), (1,), generator=g))] = float(
+            kind)
+    x = x.to(dtype)
+    if kind == "misaligned":
+        x = torch.cat([torch.zeros(16 // x.element_size() + 1,
+                                   dtype=dtype), x.reshape(-1)])[1:]
+        x = x[16 // x.element_size():].view(shape)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    return x
+
+
+def health_agrees(got, ref, tol):
+    """finite and max_abs equal (NaN where NaN), rms within ``tol``
+    relative (equal where not finite)."""
+    got, ref = got.double().view(-1, 3), ref.double().view(-1, 3)
+    exact = torch.equal(got[:, :2].nan_to_num(7.0), ref[:, :2].nan_to_num(7.0))
+    g, r = got[:, 2], ref[:, 2]
+    fin = torch.isfinite(r)
+    close = bool(((g[fin] - r[fin]).abs() <= tol * r[fin].abs()).all())
+    same_nf = torch.equal(g[~fin].nan_to_num(7.0), r[~fin].nan_to_num(7.0))
+    return exact and close and same_nf
+
+
+def health(args):
+    """K15 and its finish against their plain version: NaN, +-inf and
+    overflowing sites, aligned and scalar loads, rows of several vector
+    passes and more rows than a launch's warps, f32, f64 and bf16,
+    launched twice for equal bits and on (2, 1, 1) and (2, 2, 1) blocks
+    equal to the whole lattice's launch."""
+    libs = health_libs(args)
+    g = torch.Generator().manual_seed(15)
+    shapes = ((2, 16, 16, 16), (5, 9, 33), (1, 2, 1200)) if args.small else (
+        (2, 16, 16, 16), (5, 9, 33), (3, 4, 1200), (2, 32, 32, 8))
+    kinds = ("clean", "nan", "inf", "-inf", "overflow", "misaligned")
+    for shape, dtype, kind in itertools.product(
+            shapes, (torch.float32, torch.float64, torch.bfloat16), kinds):
+        tag = f"health {str(dtype).split('.')[1]} {shape} {kind}"
+        x = health_field(shape, dtype, kind, g)
+        y = health_field(shape, dtype, "clean", g)
+        fields = [x, y]
+        for odt in (torch.float64, torch.float32):
+            plain = thealth.field_stats_plain(fields, odt)
+            one, two = (health_run(libs["kernel"], fields, odt)
+                        for _ in range(2))
+            check(f"{tag} out {str(odt).split('.')[1]}",
+                  health_agrees(one, plain, HEALTH_TOL)
+                  and torch.equal(one.nan_to_num(7.0), two.nan_to_num(7.0))
+                  and one.dtype == odt)
+        if "against" in libs:
+            check(f"{tag} == against", torch.equal(
+                health_run(libs["against"], fields).nan_to_num(7.0),
+                health_run(libs["kernel"], fields).nan_to_num(7.0)))
+        if len(shape) < 3 or kind == "misaligned":
+            continue
+        whole = health_run(libs["kernel"], fields, torch.float64)
+        for mesh in ((2, 1, 1), (2, 2, 1)):
+            if shape[-3] % mesh[0] or shape[-2] % mesh[1]:
+                continue
+            d = pt.DomainDecomposition(mesh, devices=["cpu"] * (
+                mesh[0] * mesh[1]))
+            sharded = health_run(libs["kernel"], [d.shard(x), d.shard(y)],
+                                 torch.float64)
+            check(f"{tag} {mesh}", torch.equal(sharded.nan_to_num(7.0),
+                                               whole.nan_to_num(7.0)))
+    # one finish over fields of three dtypes
+    fields = [health_field((2, 16, 16, 16), dt, "clean", g)
+              for dt in (torch.float32, torch.float64, torch.bfloat16)]
+    check("health mixed dtypes", health_agrees(
+        health_run(libs["kernel"], fields, torch.float64),
+        thealth.field_stats_plain(fields, torch.float64), HEALTH_TOL))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     family = parser.add_mutually_exclusive_group()
@@ -869,6 +990,9 @@ def main():
     family.add_argument("--hist", action="store_true",
                         help="the binning kernels K13 and K14 instead of K3 "
                         "and K6")
+    family.add_argument("--health", action="store_true",
+                        help="the health kernel K15 and its finish instead "
+                        "of K3 and K6")
     parser.add_argument("--lx", type=int, default=4,
                         help="the march's run length to build with")
     parser.add_argument("--against", metavar="DIR",
@@ -876,7 +1000,8 @@ def main():
     parser.add_argument("--small", action="store_true",
                         help="with --hist: the 16^3 and 5x9x33 lattices "
                         "(and 2x4x600 for K14) only, 2 outer slices, "
-                        "weights on uniform and hot2 bins only")
+                        "weights on uniform and hot2 bins only; with "
+                        "--health: 16^3, 5x9x33 and 1x2x1200")
     args = parser.parse_args()
     if args.gw:
         tfused.MARCH_LX = args.lx
@@ -896,7 +1021,7 @@ def main():
             for op in ("LAP", "GRAD", "GRAD_LAP", "PD", "DIV"))
     elif args.mg:
         args.defines = f"\n#define MG_MARCH_LX {args.lx}\n"
-    elif args.hist:
+    elif args.hist or args.health:
         args.defines = ""
     else:
         tfused.SCALAR_MARCH_LX = args.lx
@@ -904,7 +1029,7 @@ def main():
     t0 = time.time()
     (gw if args.gw else chunk if args.chunk else stage if args.stage
      else fd if args.fd else mg if args.mg else hist if args.hist
-     else scalar)(args)
+     else health if args.health else scalar)(args)
     failed = RESULTS.count(False)
     print(f"{len(RESULTS) - failed} ok, {failed} failed, "
           f"{time.time() - t0:.0f} s")

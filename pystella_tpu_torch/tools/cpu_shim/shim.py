@@ -12,13 +12,14 @@ block, so a read of an element no thread wrote shows as NaN),
 block, smem, stream, lambda)``. With ``-ffp-contract=off`` the kernels
 then round as the card's ``-fmad=false`` builds do. The port's package is
 copied and its ``ops/fused.py``, ``ops/derivs.py``,
-``ops/histogram.py`` and ``multigrid/relax.py`` patched so that their
-card branches also take CPU tensors; everything is written under
+``ops/histogram.py``, ``ops/health.py`` and ``multigrid/relax.py``
+patched so that their card branches also take CPU tensors; everything is
+written under
 ``pystella_tpu_torch/ops/_build/cpu_shim/`` of the checkout.
 
 Importing this module sets that up and exposes ``pt``, ``tfused``,
-``tderivs``, ``thist`` and ``trelax`` (the patched package, its
-``ops.fused``, ``ops.derivs``, ``ops.histogram`` and
+``tderivs``, ``thist``, ``thealth`` and ``trelax`` (the patched package,
+its ``ops.fused``, ``ops.derivs``, ``ops.histogram``, ``ops.health`` and
 ``multigrid.relax``), :func:`build`, :func:`built` and
 :func:`shim`.
 """
@@ -98,8 +99,8 @@ def build(csrc, source, header):
 
 def _package():
     """Copy the port's package and let the card branches of ops/fused.py,
-    ops/derivs.py, ops/histogram.py and multigrid/relax.py take CPU
-    tensors while :func:`shim` is on."""
+    ops/derivs.py, ops/histogram.py, ops/health.py and multigrid/relax.py
+    take CPU tensors while :func:`shim` is on."""
     # a copy for this process alone, removed when it exits
     root = OUT / "pkg" / str(os.getpid())
     if root.exists():
@@ -118,6 +119,9 @@ def _package():
                                   'if win.device.type == "cuda" or _SHIM:'))),
             ("histogram.py", (flag, ('return types.pop() == "cuda"',
                                      'return types.pop() == "cuda" or _SHIM'))),
+            ("health.py", (flag, ('return types.pop() == "cuda"',
+                                  'return types.pop() == "cuda" '
+                                  'or _SHIM'))),
             ("../multigrid/relax.py", (
                 flag, ('if dev.type == "cpu" or hz is not None:',
                        'if (dev.type == "cpu" and not _SHIM) '
@@ -145,6 +149,7 @@ import pystella_tpu_torch as pt  # noqa: E402
 from pystella_tpu_torch.multigrid import relax as trelax  # noqa: E402
 from pystella_tpu_torch.ops import derivs as tderivs  # noqa: E402
 from pystella_tpu_torch.ops import fused as tfused  # noqa: E402
+from pystella_tpu_torch.ops import health as thealth  # noqa: E402
 from pystella_tpu_torch.ops import histogram as thist  # noqa: E402
 
 
@@ -179,8 +184,11 @@ def shim(on=True):
     """Within, a stepper's (a FiniteDifferencer's, a relaxation
     solver's) launches on CPU tensors run its built libraries instead of
     its plain versions."""
-    tfused._SHIM = tderivs._SHIM = trelax._SHIM = thist._SHIM = on
+    mods = (tfused, tderivs, trelax, thist, thealth)
+    for m in mods:
+        m._SHIM = on
     try:
         yield
     finally:
-        tfused._SHIM = tderivs._SHIM = trelax._SHIM = thist._SHIM = False
+        for m in mods:
+            m._SHIM = False

@@ -130,6 +130,37 @@ def test_histogrammer_matches_jax(dtype):
     assert _rel(got["w"], ref["w"]) < WEIGHTED_TOL[dtype]
 
 
+@pytest.mark.parametrize("nbins", [7, 50, 3000])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+def test_histogrammer_nonfinite_sites_match_jax(dtype, nbins):
+    """A NaN bin value lands in bin 0, as the JAX package's int32 cast
+    puts it there, and +-inf in the last and first bins: the count
+    histogram equal to the JAX package's (every site counted), the
+    weighted one equal where finite and NaN where the JAX one is."""
+    def hists(field):
+        f = field.Field("f")
+        return {"w": ((f + 3) * 8, f * f + 1), "n": (f * 10 + 20, 1)}
+    x = np.random.default_rng(1).standard_normal((2,) + GRID).astype(dtype)
+    x[0, 0, 0, :3] = [np.inf, -np.inf, np.nan]
+    ref = ps.Histogrammer(_jdecomp(), hists(ps), nbins, dtype)(
+        f=jax.numpy.asarray(x))
+    got = pt.Histogrammer(None, hists(pt), nbins, dtype)(
+        f=torch.from_numpy(x))
+    np.testing.assert_array_equal(got["n"], ref["n"])
+    assert got["n"][0].sum() == got["n"][1].sum() == 16**3
+    if nbins == 50:
+        # the site the fix moved: bin 0 of slice 0 (ROADMAP queue 3 item 1)
+        assert got["n"][0, 0] == 115
+    w, wj = np.asarray(got["w"]), np.asarray(ref["w"])
+    assert np.array_equal(np.isnan(w), np.isnan(wj))
+    fin = np.isfinite(wj)
+    assert np.array_equal(np.isfinite(w), fin)
+    np.testing.assert_allclose(w[fin], wj[fin], rtol=0,
+                               atol=WEIGHTED_TOL[dtype] * np.abs(
+                                   wj[fin]).max())
+
+
 def _field_cases(dtype):
     x = _field((2,) + GRID, dtype=dtype)
     zeros = x.copy()

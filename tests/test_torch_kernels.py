@@ -2584,3 +2584,131 @@ def test_spectra_bin_matches_grouping(cuda, grid, dtype, real):
     assert _hist_rel(got, wide.plain(fk, 3)) <= HIST_TOL[dtype]
     assert _hist_rel(got, grouped) <= HIST_TOL[dtype]
     assert torch.equal(wide(ones, 0), wide.plain(ones, 0))
+
+
+# -- the health kernel (K15) and the NaN bin ------------------------------
+
+#: K15's rms against its plain version, relative: the same float64 squares
+#: summed in another order
+HEALTH_TOL = 1e-12
+
+
+def _health_field(cuda, shape, dtype, kind, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=cuda, dtype=torch.float64)
+    if kind == "overflow":
+        x = x * 1e20
+    elif kind in ("nan", "inf", "-inf"):
+        x.view(-1)[x.numel() // 3] = float(kind)
+    return x.to(dtype)
+
+
+def _health_agrees(got, ref):
+    got, ref = got.view(-1, 3).double(), ref.view(-1, 3).double()
+    assert torch.equal(got[:, :2].nan_to_num(7.0), ref[:, :2].nan_to_num(7.0))
+    fin = torch.isfinite(ref[:, 2])
+    assert torch.equal(got[~fin, 2].nan_to_num(7.0),
+                       ref[~fin, 2].nan_to_num(7.0))
+    assert bool(((got[fin, 2] - ref[fin, 2]).abs()
+                 <= HEALTH_TOL * ref[fin, 2].abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["clean", "nan", "inf", "-inf", "overflow"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16],
+                         ids=["f32", "f64", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 16), (48, 40, 36),
+                                   (3, 4, 1200)],
+                         ids=["2x16cubed", "48x40x36", "3x4x1200"])
+def test_health_matches_plain(cuda, shape, dtype, kind):
+    """K15 and its finish: finite and max_abs equal to the plain version's,
+    rms within HEALTH_TOL (equal where not finite), a second launch bit for
+    bit, (2, 2, 1) blocks on the card the single-device vector bit for bit,
+    and a view off 16-byte alignment (the scalar loads) the same."""
+    from pystella_tpu_torch.ops import health as thealth
+    x = _health_field(cuda, shape, dtype, kind, 3)
+    y = _health_field(cuda, shape, dtype, "clean", 4)
+    got = thealth.field_stats([x, y], torch.float64)
+    _health_agrees(got, thealth.field_stats_plain([x, y], torch.float64))
+    assert torch.equal(got.nan_to_num(7.0), thealth.field_stats(
+        [x, y], torch.float64).nan_to_num(7.0))
+    if shape[-3] % 2 == 0 and shape[-2] // 2 % thealth.unit_rows(
+            shape[-2]) == 0:
+        d = pt.DomainDecomposition((2, 2, 1))
+        assert torch.equal(got.nan_to_num(7.0), thealth.field_stats(
+            [d.shard(x), d.shard(y)], torch.float64).nan_to_num(7.0))
+    off = torch.cat([torch.zeros(1, dtype=dtype, device=cuda),
+                     x.reshape(-1)])[1:].view(shape)
+    assert off.data_ptr() % 16
+    assert torch.equal(thealth.field_stats([off, y], torch.float64)
+                       .nan_to_num(7.0), got.nan_to_num(7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gw", [False, True], ids=["scalar", "gw"])
+def test_sentinel_on_fused_chunks(cuda, gw):
+    """multi_step(sentinel=) and coupled_multi_step(sentinel=) on the card:
+    the state bit for bit the one without the sentinel, the vector equal to
+    Sentinel.compute on it, K15 launched."""
+    from pystella_tpu_torch.ops import health as thealth
+    grid, dx = (16, 16, 16), (0.3, 0.25, 0.2)
+
+    def potential(f):
+        # tests/test_fused.py's potential
+        return 0.5 * 1.2e-2 * f[0] ** 2 + 0.125 * f[0] ** 2 * f[1] ** 2
+    sector = pt.ScalarSector(2, potential=potential)
+    if gw:
+        st = pt.FusedPreheatStepper(sector, pt.TensorPerturbationSector(
+            [sector]), grid, dx, H, dtype=torch.float64, dt=0.01,
+            device=cuda)
+    else:
+        st = pt.FusedScalarStepper(sector, grid, dx, H, dtype=torch.float64,
+                                   dt=0.01, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    state = {"f": torch.randn((2,) + grid, generator=g, device=cuda,
+                              dtype=torch.float64),
+             "dfdt": 0.3 * torch.randn((2,) + grid, generator=g,
+                                       device=cuda, dtype=torch.float64)}
+    if gw:
+        state["hij"] = 1e-3 * torch.randn((6,) + grid, generator=g,
+                                          device=cuda, dtype=torch.float64)
+        state["dhijdt"] = 1e-4 * torch.randn((6,) + grid, generator=g,
+                                             device=cuda,
+                                             dtype=torch.float64)
+    sen = pt.obs.Sentinel.for_state(state, dtype=torch.float64)
+    args = {"a": 1.0, "hubble": 0.0}
+    ref = _copy(st.multi_step(_copy(state), 3, rhs_args=args))
+    thealth.reset_launch_counts()
+    got, hv = st.multi_step(_copy(state), 3, rhs_args=args, sentinel=sen)
+    assert thealth.LAUNCHES["health"] == len(state)
+    assert all(bool(torch.isfinite(v).all()) for v in got.values())
+    assert all(torch.equal(got[k], ref[k]) for k in ref)
+    assert torch.equal(hv, sen.compute(got))
+    exp = [pt.Expansion(1.0, pt.LowStorageRK54) for _ in range(2)]
+    cref = _copy(st.coupled_multi_step(_copy(state), 3, exp[0]))
+    cgot, chv = st.coupled_multi_step(_copy(state), 3, exp[1], sentinel=sen)
+    assert all(bool(torch.isfinite(v).all()) for v in cgot.values())
+    assert all(torch.equal(cgot[k], cref[k]) for k in cref)
+    assert (exp[0].a, exp[0].adot) == (exp[1].a, exp[1].adot)
+    assert torch.equal(chv, sen.compute(cgot))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+def test_histogrammer_nan_bin_on_card(cuda, dtype):
+    """A NaN bin value lands in bin 0 on the card too: the K13 path's
+    counts equal the plain version's (on the CPU), every site counted."""
+    def hists():
+        f = pt.Field("f")
+        return {"n": (f * 10 + 20, 1), "w": ((f + 3) * 8, f * f + 1)}
+    x = np.random.default_rng(1).standard_normal((2, 16, 16, 16)).astype(
+        dtype)
+    x[0, 0, 0, :3] = [np.inf, -np.inf, np.nan]
+    hist = pt.Histogrammer(None, hists(), 50, dtype)
+    card = hist(f=torch.from_numpy(x).to(cuda))
+    plain = hist(f=torch.from_numpy(x))
+    np.testing.assert_array_equal(card["n"], plain["n"])
+    assert card["n"][0].sum() == 16**3 and card["n"][0, 0] == 115
+    assert np.array_equal(np.isnan(card["w"]), np.isnan(plain["w"]))
