@@ -86,6 +86,16 @@ entry points a user calls, at 512^3 in float32:
   ``health_finish``, K15 of ``ops/csrc/health.cu``, beside K6 and K5), a
   ``Checkpointer`` save, finalize and restore whose resumed run equals the
   uninterrupted one bit for bit, and a NaN trip with its forensic bundle.
+- the ensemble engine (``pystella_tpu_torch.ensemble``): K15's member
+  matrix (``Sentinel.compute_members``, one read of the batch: kernels
+  ``health:members`` and ``health_finish:members``) against per-member
+  ``compute`` bit for bit and against its plain version; the map tier, four
+  members of the bench model at 512^3 f32 through ``EnsembleDriver`` (K3 and
+  the member matrix; a NaN draw evicted and resampled, slots refilled), each
+  finished member bit for bit its own sequential run in the same chunks;
+  and the vmap tier, ``examples/torch_ensemble_scan.py`` at 8 x 256^3
+  (``fd_lap`` once a stage for the whole batch), its members within the
+  JAX bar of sequential runs.
 
 A non-polynomial potential (exp, tanh, sqrt, cos, powers 2.5 and -2, a
 quotient) compiles the printer's math-function paths into K2, K3 and K5 and
@@ -1718,6 +1728,8 @@ def wave_main_path(phase, launches):
     finite = all(bool(torch.isfinite(v).all()) for v in state.values())
     shapes_ok = all(tuple(v.shape) == GRID for v in state.values())
     ms_step = elapsed / WAVE_STEPS * 1e3
+    PATH_ROWS[phase] = {"site_updates_per_s": sites * WAVE_STEPS / elapsed,
+                        "ms_per_step": ms_step}
     emit({"phase": phase, "grid": GRID, "dtype": "torch.float32",
           "stepper": "RungeKutta4", "h": HALO,
           "source": "bench.py:480-508 at n = 512 (the bench runs 64^3)",
@@ -4644,12 +4656,13 @@ def health_poisoned(x, kind):
     return y
 
 
-def health_row(errs, tag, got, ref, again, sharded):
+def health_row(errs, tag, got, ref, again, sharded,
+               kernels=HEALTH_KERNELS):
     """Hold K15's vector to its plain version's (finite and max_abs equal,
     NaN where NaN; rms within HEALTH_TOL, equal where not finite), a second
-    launch's and a (2, 2, 1) run's bit for bit; the row goes into
-    ``errs["health"]`` and the finish's share into
-    ``errs["health_finish"]``."""
+    launch's and a (2, 2, 1) run's bit for bit; the row goes into the errs
+    of ``kernels``, K15's (``errs["health"]``) and the finish's
+    (``errs["health_finish"]``) by default."""
     g, r = got.view(-1, 3), ref.view(-1, 3)
     exact = torch.equal(g[:, :2].nan_to_num(7.0), r[:, :2].nan_to_num(7.0))
     fin = torch.isfinite(r[:, 2])
@@ -4668,7 +4681,7 @@ def health_row(errs, tag, got, ref, again, sharded):
            "tol": HEALTH_TOL,
            "ok": exact and same_nf and repeat and shard_eq is not False
            and rel <= HEALTH_TOL}
-    for name in HEALTH_KERNELS:
+    for name in kernels:
         errs.setdefault(name, {})[tag] = row
     return row
 
@@ -4965,11 +4978,436 @@ def health_path(phase, sector, timing, launches):
                          f"launched: {row}")
 
 
+#: the ensemble group's kernels: K15 and its finish over a batch of members
+#: (Sentinel.compute_members, one read of the batch; ops/csrc/health.cu)
+ENSEMBLE_HEALTH_KERNELS = ("health:members", "health_finish:members")
+#: the member-matrix batches, (members, lattice, dtype): the first the map
+#: path's (its timed case)
+ENSEMBLE_HEALTH_CASES = ((4, GRID, torch.float32),
+                         (8, ALT_SHAPES[0], torch.float32),
+                         (3, ALT_SHAPES[1], torch.float64))
+#: the member poisoned in a member-matrix batch, by index (the rest clean)
+ENSEMBLE_POISON = {1: "nan", 2: "inf", 3: "overflow"}
+#: the map path: batch members, steps a chunk, jobs, steps a member and the
+#: seed whose draw holds a NaN (evicted, its slot resampled)
+ENSEMBLE_MAP = {"members": 4, "chunk": 8, "jobs": 6, "nsteps": 16,
+                "bad_seed": 2}
+#: the vmap path: examples/torch_ensemble_scan.py's arguments, and the
+#: seeds whose final states are held to sequential runs
+ENSEMBLE_SCAN_ARGS = ["--grid-shape", "256", "256", "256", "--members",
+                      "8", "--jobs", "16", "--nsteps", "16", "--chunk", "8"]
+ENSEMBLE_SCAN_KEEP = (0, 9)
+#: the vmap tier against sequential runs: the JAX bar
+#: (tests/test_ensemble.py:98-123)
+ENSEMBLE_VMAP_RTOL, ENSEMBLE_VMAP_ATOL = 1e-6, 1e-12
+
+
+def ensemble_batch(members, shape, dtype, seed):
+    """``[dfdt, f]`` batches of ``members`` background states (the
+    example's background plus 1e-5 N(0, 1), drawn on the card), the
+    members of ENSEMBLE_POISON poisoned in dfdt."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    leaves = []
+    for mean in (DF0, F0):
+        v = 1e-5 * torch.randn((members, 2) + shape, generator=g,
+                               device="cuda", dtype=dtype)
+        for c, m in enumerate(mean):
+            v[:, c] += m
+        leaves.append(v)
+    for m, kind in ENSEMBLE_POISON.items():
+        if m < members:
+            leaves[0][m].copy_(health_poisoned(leaves[0][m], kind))
+    return leaves
+
+
+def ensemble_health_vs_plain(phase, errs, timing):
+    """K15's member matrix (``field_stats_members``: one K15 launch a leaf
+    over the whole batch, one finish over the member x field segments)
+    against per-member ``field_stats`` bit for bit (float64 and float32
+    vectors), against its plain version (finite and max_abs equal, rms
+    within HEALTH_TOL) and against a second launch, on the batches of
+    ENSEMBLE_HEALTH_CASES with a NaN, an inf and an overflowing member; and
+    ``Sentinel.compute_members`` against ``compute`` per member. Times the
+    first case: the matrix's launches against one read of the batch, the
+    wrapper against the per-member loop it replaces."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import health as thealth
+    t0 = time.perf_counter()
+    rows, ok = {}, True
+    for i, (members, shape, dtype) in enumerate(ENSEMBLE_HEALTH_CASES):
+        leaves = ensemble_batch(members, shape, dtype, 23 + i)
+        got = thealth.field_stats_members(leaves, members, torch.float64)
+        again = thealth.field_stats_members(leaves, members, torch.float64)
+        ref = thealth.field_stats_members_plain(leaves, members,
+                                                torch.float64)
+        lone = {odt: torch.stack([thealth.field_stats(
+            [x[m] for x in leaves], odt) for m in range(members)])
+            for odt in (torch.float64, torch.float32)}
+        mat32 = thealth.field_stats_members(leaves, members)
+        tag = f"{members}x" + case_tag(shape, dtype)
+        row = health_row(errs, tag, got, ref, again, None,
+                         kernels=ENSEMBLE_HEALTH_KERNELS)
+        row["rows_equal_lone_members"] = all(
+            torch.equal(m.nan_to_num(7.0), lone[odt].nan_to_num(7.0))
+            for m, odt in ((got, torch.float64), (mat32, torch.float32)))
+        sen = pt.obs.Sentinel(("dfdt", "f"))
+        state = {"dfdt": leaves[0], "f": leaves[1]}
+        sm = sen.compute_members(state)
+        row["sentinel_rows_equal_compute"] = all(
+            torch.equal(sm[m].nan_to_num(7.0), sen.compute(
+                {k: v[m] for k, v in state.items()}).nan_to_num(7.0))
+            for m in range(members))
+        row["nonfinite_members"] = [
+            m for m, r in enumerate(sen.decode_members(sm))
+            if not all(f["finite"] for f in r["fields"].values())]
+        row["ok"] = (row["ok"] and row["rows_equal_lone_members"]
+                     and row["sentinel_rows_equal_compute"])
+        rows[tag] = row
+        ok = ok and row["ok"]
+        if i == 0:
+            errs.setdefault("health:members", {})[
+                case_tag(shape, dtype)] = row
+            errs.setdefault("health_finish:members", {})[
+                case_tag(shape, dtype)] = row
+            time_health_members(timing, leaves, members)
+        del leaves, got, again, ref, lone, mat32, state, sm
+        torch.cuda.empty_cache()
+    t = timing["health:members"]
+    emit({"phase": phase, "cases": rows, "ok": ok,
+          "matrix_ms": t["ms"], "matrix_bound_ms": t["bound_ms"],
+          "matrix_share_of_bound": t["bound_ms"] / t["ms"],
+          "matrix_call_ms": t["call_ms"],
+          "per_member_loop_ms": t["loop_ms"],
+          "finish_ms": timing["health_finish:members"]["ms"],
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise SystemExit(f"{phase}: the member matrix disagrees with the "
+                         "lone members' vectors, its plain version or "
+                         "itself")
+
+
+def time_health_members(timing, leaves, members):
+    """K15 over a batch of members at the map path's shape (its launches,
+    one a leaf over the whole batch, by direct calls to the entry point)
+    and the finish over the member x field segments, each against its
+    bytes bound (the batch read once; the partials read once), the plain
+    version's time, the library yardstick's (torch.aminmax and
+    torch.linalg.vector_norm over each member's rows) and the per-member
+    loop of the wrapper that the one read replaces."""
+    from pystella_tpu_torch.ops import health as thealth
+    fns = thealth.build_kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    M, n, X, Y, Z = leaves[0].shape
+    ry = thealth.unit_rows(Y)
+    units = M * n * X * (Y // ry)
+    K = len(leaves)
+    pmax = torch.empty(K * units, device="cuda", dtype=torch.float64)
+    psum = torch.empty_like(pmax)
+    out = torch.empty((M, 3 * K), device="cuda", dtype=torch.float32)
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def mains():
+        for k, x in enumerate(leaves):
+            fns["pk_health_f32"](x.data_ptr(), pmax.data_ptr(),
+                                 psum.data_ptr(), units, ry, X, Y, Z, X, Y,
+                                 0, 0, k * units, nsm, stream)
+    segs = [(k * units + m * (units // M), units // M, float(n * X * Y * Z),
+             3 * (m * K + k)) for m in range(M) for k in range(K)]
+    arr = (lambda t, v: (t * len(v))(*v))
+    fargs = (pmax.data_ptr(), psum.data_ptr(), len(segs),
+             arr(ctypes.c_int64, [g[0] for g in segs]),
+             arr(ctypes.c_int64, [g[1] for g in segs]),
+             arr(ctypes.c_double, [g[2] for g in segs]),
+             arr(ctypes.c_int, [g[3] for g in segs]), out.data_ptr(),
+             stream)
+
+    def finish():
+        fns["pk_health_finish_f32"](*fargs)
+    mains()
+    finish()
+    torch.cuda.synchronize()
+    direct_ok = torch.equal(out.nan_to_num(7.0), thealth.field_stats_members(
+        leaves, M).nan_to_num(7.0))
+    batch_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    part_bytes = pmax.numel() * 16
+
+    def library():
+        for x in leaves:
+            torch.aminmax(x.view(M, -1), dim=1)
+            torch.linalg.vector_norm(x.view(M, -1), dim=1)
+
+    def loop():
+        for m in range(M):
+            thealth.field_stats([x[m] for x in leaves])
+    ms = cuda_ms(mains, reps=10, warmup=2)
+    timing["health:members"] = {
+        "ms": ms, "plain_ms": cuda_ms(
+            lambda: thealth.field_stats_members_plain(leaves, M), reps=2),
+        "bound_ms": batch_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "bytes": batch_bytes,
+        "library_ms": cuda_ms(library, reps=5, warmup=1),
+        "library_call": "torch.aminmax(x.view(M, -1), dim=1) and "
+                        "torch.linalg.vector_norm(x.view(M, -1), dim=1) a "
+                        "leaf",
+        "call_ms": cuda_ms(lambda: thealth.field_stats_members(leaves, M),
+                           reps=10),
+        "loop_ms": cuda_ms(loop, reps=5, warmup=1),
+        "members": M, "launches_timed": K, "unit_rows": ry,
+        "launch_matches_wrapper": direct_ok}
+    fms = cuda_ms(finish, reps=20, warmup=2)
+    timing["health_finish:members"] = {
+        "ms": fms, "plain_ms": cuda_ms(
+            lambda: [(torch.amax(pmax[a:a + r]), torch.sum(psum[a:a + r]))
+                     for a, r, _, _ in segs], reps=10),
+        "bound_ms": part_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bytes": part_bytes, "library_ms": None, "segments": len(segs),
+        "launch_matches_wrapper": direct_ok}
+    del pmax, psum
+    if not direct_ok:
+        raise SystemExit("the member matrix's direct launches disagree with "
+                         "its wrapper")
+
+
+def ensemble_map_path(phase, sector, timing, launches):
+    """The map tier on the bench model (ScalarSector(2), LowStorageRK54,
+    h = 2, FusedScalarStepper) at 512^3 f32: ENSEMBLE_MAP's jobs through
+    EnsembleDriver, 4 members a batch, 8-step chunks with the member matrix
+    behind each (the main path, launch counts set to 0 just before it and
+    read just after). Members differ in their seeds and in a and hubble; one
+    draw holds a NaN and is evicted and resampled; finished slots refill.
+    Every finished member must equal its own sequential run in the same
+    chunks (two multi_step calls of 8 steps) bit for bit. Then one batched
+    chunk is timed on the card against 4 single-member chunks. 8-step
+    chunks are 40 stages, 20 pair launches (K3) a member: no single-stage
+    launch (K2) is on this path."""
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import fused as tfused
+    from pystella_tpu_torch.ops import health as thealth
+    cfg = ENSEMBLE_MAP
+    t_start = time.perf_counter()
+    dx = BOX / GRID[0]
+    dt = 0.1 * dx
+    st = pt.FusedScalarStepper(sector, GRID, dx, HALO, dtype=torch.float32,
+                               device="cuda")
+
+    def draw(seed):
+        """One member: the example's background plus fluctuations from its
+        seed, a = 1 + 0.01 seed and hubble = 0.5 - 0.01 seed; the bad
+        seed's dfdt holds a NaN."""
+        state = background_state(GRID, torch.float32, 100 + seed)
+        if seed == cfg["bad_seed"]:
+            state["dfdt"][1, 7, 11, 13] = float("nan")
+        return state, {"a": 1.0 + 0.01 * seed, "hubble": 0.5 - 0.01 * seed}
+
+    scenario = pt.Scenario("bench-512", st, draw, nsteps=cfg["nsteps"],
+                           dt=dt)
+    finals = {}
+    drv = pt.EnsembleDriver(size=cfg["members"], chunk=cfg["chunk"],
+                            device="cuda", label=phase)
+    drv.submit(scenario, range(cfg["jobs"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (tfused, thealth):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = drv.run(on_finish=lambda rec, state: finals.__setitem__(
+        rec["seed"], state))
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    path_launches = {n: c for mod in (tfused, thealth)
+                     for n, c in mod.LAUNCHES.items() if c}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stats = out["stats"]
+    chunks = stats["chunks"]
+    pairs = 5 * cfg["chunk"] // 2
+    expected = {"fused_pair": chunks * cfg["members"] * pairs,
+                "health:members": 2 * chunks,
+                "health_finish:members": chunks}
+    for name in ENSEMBLE_HEALTH_KERNELS:
+        launches[name] = path_launches.get(name, 0)
+    launches.setdefault("fused_pair", path_launches.get("fused_pair", 0))
+
+    # every finished member: its own sequential run in the same chunks
+    equal = {}
+    for seed, host in finals.items():
+        state, args = draw(seed)
+        for c in range(cfg["nsteps"] // cfg["chunk"]):
+            state = st.multi_step(state, cfg["chunk"], c * cfg["chunk"] * dt,
+                                  dt, args)
+        equal[seed] = all(torch.equal(state[k].cpu(), torch.from_numpy(
+            host[k])) for k in state)
+        del state
+    evicted = [e.params.get("seed") for e in out["evictions"]]
+    ev_steps = [e.step for e in out["evictions"]]
+    finished = sorted(finals)
+    del finals
+
+    # one batched chunk on the card against 4 single-member chunks
+    ens = st.batched(cfg["members"], device="cuda")
+    members = [draw(s) for s in (0, 1, 3, 4)]
+    batch = ens.stack([m for m, _ in members])
+    args = {"a": np.array([a["a"] for _, a in members]),
+            "hubble": np.array([a["hubble"] for _, a in members])}
+    chunk_ms = cuda_ms(lambda: ens.multi_step(batch, cfg["chunk"], 0.0, dt,
+                                              args), reps=2)
+    sen = pt.obs.Sentinel.for_state(members[0][0])
+    matrix_ms = cuda_ms(lambda: sen.compute_members(batch), reps=5)
+    single = members[0][0]
+    single_ms = cuda_ms(lambda: st.multi_step(single, cfg["chunk"], 0.0, dt,
+                                              members[0][1]), reps=3)
+    tier = pt.EnsembleStepper(st, 1).via
+    del ens, batch, members, single, st
+    torch.cuda.empty_cache()
+    sites = math.prod(GRID)
+    ms_member_step = chunk_ms / (cfg["members"] * cfg["chunk"])
+    row = {"phase": phase, "grid": GRID, "dtype": "torch.float32",
+           "tier": tier, "members": cfg["members"],
+           "chunk_steps": cfg["chunk"], "jobs": cfg["jobs"],
+           "steps_per_member": cfg["nsteps"], "stats": stats,
+           "path_s": path_s, "launches": path_launches,
+           "expected_launches": expected, "finished_seeds": finished,
+           "evicted_seeds": evicted, "eviction_steps": ev_steps,
+           "members_equal_sequential_bitwise": equal,
+           "peak_memory_GiB": peak,
+           "chunk_ms": chunk_ms, "single_member_chunk_ms": single_ms,
+           "chunk_ms_over_members_x_single": chunk_ms
+           / (cfg["members"] * single_ms),
+           "member_steps_per_s_device": 1e3 / ms_member_step,
+           "site_updates_per_s_device": sites * 1e3 / ms_member_step,
+           "member_matrix_ms": matrix_ms,
+           "member_matrix_share_of_chunk": matrix_ms / chunk_ms,
+           "seconds": time.perf_counter() - t_start}
+    emit(row)
+    want = sorted(set(range(cfg["jobs"])) - {cfg["bad_seed"]}
+                  | {cfg["jobs"]})
+    if not (all(equal.values()) and finished == want
+            and evicted == [cfg["bad_seed"]]
+            and stats["members_completed"] == len(want)
+            and path_launches == expected):
+        raise SystemExit(f"{phase}: members not bit for bit their "
+                         f"sequential runs, wrong seeds finished or evicted, "
+                         f"or launches {path_launches} not {expected}")
+
+
+def ensemble_scan_path(phase, launches):
+    """The vmap tier: examples/torch_ensemble_scan.py with
+    ENSEMBLE_SCAN_ARGS (8 members of 256^3, 16 jobs of 16 steps in 8-step
+    chunks: one lattice of 512^3's sites), driven through its main() (the
+    main path, launch counts set to 0 just before it and read just after):
+    one fd_lap launch a stage for the whole batch, the member matrix behind
+    each chunk. The final states of ENSEMBLE_SCAN_KEEP are held to
+    sequential single-member runs of the same body in the same chunks (the
+    JAX bar); one batched chunk is timed on the card, member-steps/s and
+    site-updates/s beside the single-lattice wave path's."""
+    import importlib.util
+    import pystella_tpu_torch as pt
+    from pystella_tpu_torch.ops import derivs as tderivs
+    from pystella_tpu_torch.ops import health as thealth
+    t_start = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "torch_ensemble_scan", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "examples", "torch_ensemble_scan.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    p = ex.parser.parse_args(ENSEMBLE_SCAN_ARGS)
+    for mod in (tderivs, thealth):
+        mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = ex.main(ENSEMBLE_SCAN_ARGS, keep_seeds=ENSEMBLE_SCAN_KEEP)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    path_launches = {n: c for mod in (tderivs, thealth)
+                     for n, c in mod.LAUNCHES.items() if c}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stats = out["stats"]
+    stages = pt.LowStorageRK54.num_stages
+    expected = {"fd_lap": stats["chunks"] * p.chunk * stages,
+                "health:members": 2 * stats["chunks"],
+                "health_finish:members": stats["chunks"]}
+    launches.setdefault("fd_lap", path_launches.get("fd_lap", 0))
+
+    # sequential single-member runs of the same body in the same chunks
+    scan = ex.build(p)
+    refs = _scan_refs(scan, p, ENSEMBLE_SCAN_KEEP)
+    gaps, bitwise, close = {}, {}, True
+    for seed, ref in refs.items():
+        got = out["states"][seed]
+        gaps[seed] = max(rel_err(torch.from_numpy(got[k]),
+                                 torch.from_numpy(v))[0]
+                         for k, v in ref.items())
+        bitwise[seed] = all(np.array_equal(got[k], v)
+                            for k, v in ref.items())
+        close = close and all(np.allclose(got[k], v,
+                                          rtol=ENSEMBLE_VMAP_RTOL,
+                                          atol=ENSEMBLE_VMAP_ATOL)
+                              for k, v in ref.items())
+    del refs
+    dt = float(scan["dt"])
+
+    # one batched chunk on the card, of the kept members' final states
+    # (no further host draws), each kept member p.members / 2 times
+    ens = pt.EnsembleStepper(scan["stepper"], p.members,
+                             decomp=scan["decomp"])
+    keep = [out["states"][s] for s in ENSEMBLE_SCAN_KEEP]
+    batch = ens.stack([keep[m % len(keep)] for m in range(p.members)])
+    g2 = dict((seed, g) for seed, g, _ in out["finals"])
+    args = {"a": 1.0, "hubble": 0.5, "g2_over_2": np.array(
+        [g2[ENSEMBLE_SCAN_KEEP[m % len(keep)]] for m in range(p.members)])}
+    chunk_ms = cuda_ms(lambda: ens.multi_step(batch, p.chunk, 0.0, dt, args),
+                       reps=2)
+    del ens, batch, keep, scan
+    torch.cuda.empty_cache()
+    member_sites = math.prod(p.grid_shape)
+    ms_member_step = chunk_ms / (p.members * p.chunk)
+    wave = PATH_ROWS.get("wave_main_path", {})
+    row = {"phase": phase, "args": ENSEMBLE_SCAN_ARGS, "tier": "vmap",
+           "stats": stats, "path_s": path_s, "launches": path_launches,
+           "expected_launches": expected, "peak_memory_GiB": peak,
+           "max_rel_gap_to_sequential": gaps,
+           "members_equal_sequential_bitwise": bitwise,
+           "within_jax_bar": close,
+           "chunk_ms": chunk_ms,
+           "member_steps_per_s_device": 1e3 / ms_member_step,
+           "site_updates_per_s_device": member_sites * 1e3 / ms_member_step,
+           "site_updates_per_s_driver": stats["member_steps"] * member_sites
+           / stats["wall_s"],
+           "wave_main_path_site_updates_per_s": wave.get(
+               "site_updates_per_s"),
+           "seconds": time.perf_counter() - t_start}
+    emit(row)
+    if not (close and path_launches == expected
+            and stats["members_completed"] == 16
+            and stats["evictions"] == 0):
+        raise SystemExit(f"{phase}: members outside the JAX bar of "
+                         f"sequential runs, or launches {path_launches} not "
+                         f"{expected}")
+
+
+def _scan_refs(scan, p, seeds):
+    """The scan's members ``seeds`` run one by one through the member body
+    in the scan's chunks, as host arrays."""
+    body = scan["stepper"].multi_step_fn(p.chunk)
+    dt = float(scan["dt"])
+    out = {}
+    for seed in seeds:
+        host, params = scan["sample"](seed)
+        state = {k: torch.from_numpy(v).to("cuda")
+                 for k, v in host.items()}
+        t = 0.0
+        for _ in range(p.nsteps // p.chunk):
+            state = body(state, t, dt, params)
+            t += p.chunk * dt
+        out[seed] = {k: v.cpu().numpy() for k, v in state.items()}
+    return out
+
+
 #: the phase groups of a run, in run order, each with the groups whose
 #: results it reads; with no selection a run takes every one of PHASES
 PHASES = ("scalar", "gw", "fd", "mg", "sharded_mg", "sharded",
           "sharded_coupled", "sharded_gw", "sharded_bf16", "spectra",
-          "health")
+          "health", "ensemble")
 PHASE_DEPS = {"sharded_mg": ("mg",), "sharded": ("scalar",),
               "sharded_coupled": ("scalar",), "sharded_gw": ("gw",),
               "sharded_bf16": ("scalar", "gw"), "hist_variants": ("spectra",)}
@@ -5011,6 +5449,11 @@ PHASE_HELP = {
               "(coupled_multi_step(sentinel=) under a HealthMonitor, "
               "checkpoint, finalize, restore and resume bit for bit, a NaN "
               "trip with its forensic bundle)",
+    "ensemble": "the ensemble engine: K15's member matrix (one read of "
+                "the batch) vs per-member compute and plain, the map tier "
+                "(4 x 512^3 f32 bench members through EnsembleDriver, bit "
+                "for bit sequential) and the vmap tier "
+                "(examples/torch_ensemble_scan.py at 8 x 256^3)",
     "hist_variants": "study builds of histogram.cu (K13's histogram copies, "
                      "K14's blocks an SM, K14 without a part of its work) "
                      "timed beside the default in the spectra group"}
@@ -5247,7 +5690,7 @@ def main(argv=None):
     if gw_st.kernel_names() != list(GW_KERNELS):
         raise SystemExit("the GW model did not build every kernel")
     if tuple(new_kernels) != FD_KERNELS + MG_KERNELS + SPECTRA_KERNELS \
-            + HEALTH_KERNELS:
+            + HEALTH_KERNELS + ENSEMBLE_HEALTH_KERNELS:
         raise SystemExit("the operator, multigrid, binning and health "
                          "kernels are not the ones this run checks")
     del newton, jacobi
@@ -5767,6 +6210,16 @@ def main(argv=None):
         health_path("health_path", sector, timing, launches)
         emit({"phase": "health_seconds",
               "seconds": time.perf_counter() - health_s})
+
+    # -- 30. the ensemble engine: K15's member matrix, the map tier at
+    #        4 x 512^3 f32 and the vmap tier (the coupling scan) ----------
+    if "ensemble" in phases:
+        ensemble_s = time.perf_counter()
+        ensemble_health_vs_plain("ensemble_health_vs_plain", errs, timing)
+        ensemble_map_path("ensemble_map_path", sector, timing, launches)
+        ensemble_scan_path("ensemble_scan_path", launches)
+        emit({"phase": "ensemble_seconds",
+              "seconds": time.perf_counter() - ensemble_s})
 
     kernels = []
     sharded = sharded_kernel_names() + sharded_bf16_kernel_names()

@@ -32,10 +32,19 @@ field statistics by a hand-written kernel, ``ops/csrc/health.cu``) behind
 :class:`HealthMonitor`, forensic bundles, :class:`Checkpointer` with resume
 and :class:`StepTimer`.
 
+The ensemble engine is ported too (:mod:`.ensemble`):
+:class:`EnsembleStepper` (a ``"map"`` tier over the fused steppers, bit for
+bit their sequential runs, and a ``"vmap"`` tier whose operators batch the
+member axis into one launch), :class:`EnsembleDriver` with
+:class:`Scenario`, :class:`EnsembleMonitor` (the per-member health matrix,
+one K15 read of the batch) and the ``(ensemble, x, y, z)`` mesh
+(:func:`ensemble_mesh`, :func:`make_mesh`).
+
 Entry points run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); without CUDA and without that request they raise.
 """
 
+from pystella_tpu_torch import config
 from pystella_tpu_torch._device import resolve_device
 from pystella_tpu_torch.convert import (
     carry_from_numpy, expansion_from_numpy, shard_state, state_from_numpy,
@@ -50,7 +59,7 @@ from pystella_tpu_torch.field import (
 )
 from pystella_tpu_torch.fourier import (
     DFT, PowerSpectra, Projector, RayleighGenerator, SpectralCollocator,
-    SpectralPoissonSolver, make_dft,
+    SpectralPoissonSolver, fftfreq, make_dft, make_hermitian,
 )
 from pystella_tpu_torch.grid import Lattice
 from pystella_tpu_torch import multigrid
@@ -69,14 +78,16 @@ from pystella_tpu_torch.ops.derivs import (
     centered_diff, expand_stencil,
 )
 from pystella_tpu_torch.ops.elementwise import ElementWiseMap
-from pystella_tpu_torch.ops.fft_stencil import FFTStencil, fft_laplacian
+from pystella_tpu_torch.ops.fft_stencil import (
+    FFTStencil, fft_laplacian, use_fft_stencil)
 from pystella_tpu_torch.ops.fused import (
     FusedPreheatStepper, FusedScalarStepper,
 )
 from pystella_tpu_torch.ops.histogram import FieldHistogrammer, Histogrammer
 from pystella_tpu_torch.ops.reduction import FieldStatistics, Reduction
 from pystella_tpu_torch.parallel import (
-    DomainDecomposition, HaloShells, ShardedArray, blockwise,
+    DomainDecomposition, HaloShells, MemberArray, ShardedArray, blockwise,
+    ensemble_mesh, make_mesh,
 )
 from pystella_tpu_torch.step import (
     LowStorageRK3Inhomogeneous, LowStorageRK3PredictorCorrector,
@@ -88,14 +99,47 @@ from pystella_tpu_torch.step import (
     Stepper, all_steppers, compile_rhs_dict,
 )
 from pystella_tpu_torch import obs
+from pystella_tpu_torch import ensemble
+from pystella_tpu_torch.ensemble import (
+    EnsembleDriver, EnsembleMonitor, EnsembleStepper, Scenario)
 from pystella_tpu_torch.utils import (
     Checkpointer, HealthMonitor, OutputFile, SimulationDiverged, StepTimer,
     timer, trace)
 
+
+def choose_device_and_make_context(platform=None):
+    """Parity shim for the reference's device chooser (the JAX package's
+    ``choose_device_and_make_context``): PyTorch has no context to create,
+    so this returns ``(None, device)`` by the port's device rules:
+    ``platform`` ``None`` or ``"gpu"``/``"cuda"`` names the GPU (raising
+    without one), ``"cpu"`` the CPU."""
+    if platform in ("gpu", "cuda"):
+        platform = None
+    return None, resolve_device(platform)
+
+
+class DisableLogging:
+    """Context manager silencing logging (the reference's and the JAX
+    package's ``DisableLogging``)."""
+
+    def __enter__(self):
+        import logging
+        self.previous_level = logging.root.manager.disable
+        logging.disable(logging.CRITICAL)
+
+    def __exit__(self, exception_type, exception_value, traceback):
+        import logging
+        logging.disable(self.previous_level)
+
+
 __all__ = [
     "resolve_device", "state_from_numpy", "carry_from_numpy", "to_numpy",
     "expansion_from_numpy", "shard_state", "DomainDecomposition",
-    "HaloShells", "ShardedArray", "blockwise", "Expansion", "Reduction",
+    "HaloShells", "ShardedArray", "MemberArray", "blockwise",
+    "ensemble_mesh", "make_mesh", "config", "ensemble", "EnsembleStepper",
+    "EnsembleDriver", "Scenario", "EnsembleMonitor",
+    "choose_device_and_make_context", "DisableLogging", "fftfreq",
+    "make_hermitian", "use_fft_stencil", "Expansion", "Reduction",
     "FieldStatistics",
     "Expr", "Constant", "Sum", "Product", "Quotient", "Power", "Call", "Var",
     "Field", "Indexed", "Shifted", "DynamicField", "diff", "evaluate",

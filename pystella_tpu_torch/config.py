@@ -15,7 +15,11 @@ table, which may also set the chunk depth there, is not ported),
 ``PYSTELLA_HALO_OVERLAP`` (:mod:`~pystella_tpu_torch.parallel.overlap`),
 ``PYSTELLA_FFT_SCHEME`` (:mod:`~pystella_tpu_torch.fourier.plan`),
 ``PYSTELLA_FFT_STENCIL`` and ``PYSTELLA_FFT_STENCIL_CROSSOVER``
-(:mod:`~pystella_tpu_torch.ops.fft_stencil`). The JAX package's
+(:mod:`~pystella_tpu_torch.ops.fft_stencil`), and the ensemble tier's
+``PYSTELLA_ENSEMBLE_SIZE``, ``PYSTELLA_ENSEMBLE_AXIS``,
+``PYSTELLA_ENSEMBLE_MAX_EVICTIONS`` and ``PYSTELLA_ENSEMBLE_RESAMPLE``
+(:mod:`~pystella_tpu_torch.ensemble`,
+:func:`~pystella_tpu_torch.parallel.ensemble_mesh`). The JAX package's
 ``PYSTELLA_FFT_REPLICATE_LIMIT`` is not registered: the port's only
 distributed transform gathers to one device (:class:`~pystella_tpu_torch.DFT`),
 so there is no replicate tier to limit.
@@ -26,7 +30,8 @@ from __future__ import annotations
 import dataclasses
 import os
 
-__all__ = ["EnvVar", "register", "getenv", "get_int", "get_float"]
+__all__ = ["EnvVar", "register", "getenv", "get_int", "get_float",
+           "get_bool"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +86,18 @@ def get_float(name):
     return None if val is None else float(val)
 
 
+#: accepted spellings for boolean variables (everything else is False)
+_TRUE = ("1", "true", "on", "yes")
+
+
+def get_bool(name):
+    """A registered variable as a boolean: ``1``, ``true``, ``on`` or
+    ``yes`` (any case) is True, anything else False (``None`` when it is
+    unset and has no default)."""
+    val = getenv(name)
+    return None if val is None else str(val).strip().lower() in _TRUE
+
+
 register("PYSTELLA_EVENT_LOG", default=None,
          help="JSONL run-event log path picked up by obs.events.get_log() "
               "when no explicit obs.configure() call was made; unset "
@@ -121,3 +138,21 @@ register("PYSTELLA_FFT_STENCIL_CROSSOVER", default="1.5",
          help="direct-to-FFT flops ratio the auto FFT-stencil policy "
               "requires before taking the k-space path (margin for the "
               "transpose traffic the flops model does not see)")
+register("PYSTELLA_ENSEMBLE_SIZE", default="8",
+         help="default member count for ensemble (batched-scenario) "
+              "runs: bench.py's smoke ensemble payload and "
+              "EnsembleDriver use it when no explicit size is given")
+register("PYSTELLA_ENSEMBLE_AXIS", default="ensemble",
+         help="name of the leading device-mesh axis the ensemble tier "
+              "packs members along (parallel.decomp.ensemble_mesh); "
+              "the lattice axes keep their x/y/z names after it")
+register("PYSTELLA_ENSEMBLE_MAX_EVICTIONS", default="16",
+         help="evict-and-resample budget per ensemble run: beyond this "
+              "many member evictions the EnsembleMonitor declares the "
+              "whole batch diverged (SimulationDiverged) instead of "
+              "resampling forever — a configuration producing that "
+              "many bad draws is itself broken")
+register("PYSTELLA_ENSEMBLE_RESAMPLE", default="1",
+         help="eviction policy: 1 (default) resamples an evicted "
+              "member's slot from its scenario's sampler (fresh seed), "
+              "0 masks the slot out for the rest of the run instead")

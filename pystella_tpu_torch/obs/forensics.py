@@ -100,8 +100,8 @@ def write_bundle(out_dir, step, reason, bad_fields=(),
     forensic tail (``diverged`` -> ``forensic_bundle`` ->
     ``run_aborted``) links to the full record.
 
-    For an ensemble trip (the JAX package's ``ensemble`` tier; the
-    port's waits for ROADMAP queue 1 item 8) the bundle is PER MEMBER:
+    For an ensemble trip (:class:`~pystella_tpu_torch.ensemble.
+    EnsembleMonitor`) the bundle is PER MEMBER:
     ``member`` is the slot index of the diverged member and
     ``member_params`` its parameter draw (couplings, dt, seed), so the
     record names the bad scenario instead of dumping the whole batch —

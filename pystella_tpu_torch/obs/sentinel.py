@@ -39,7 +39,8 @@ from pystella_tpu_torch.obs import events as _events
 from pystella_tpu_torch.obs import metrics as _metrics
 from pystella_tpu_torch.obs.scope import trace_scope
 from pystella_tpu_torch.ops import health as _health
-from pystella_tpu_torch.parallel.decomp import ShardedArray
+from pystella_tpu_torch.parallel.decomp import (
+    MemberArray, _tree_map, take_index)
 
 __all__ = ["HEALTH_SCHEMA_VERSION", "FIELD_STATS", "Sentinel",
            "SentinelMonitor", "SimulationDiverged", "named_leaves"]
@@ -75,26 +76,25 @@ def named_leaves(state):
     tensor, a :class:`~pystella_tpu_torch.parallel.ShardedArray` or any
     other object is a leaf."""
     out = {}
-
-    def walk(node, path):
-        if node is None:
-            return
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], path + (str(k),))
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(v, path + (str(i),))
-        else:
-            out[".".join(path)] = node
-    walk(state, ())
+    _walk_leaves(state, (), out)
     return out
 
 
-def _device_of(leaf):
-    if isinstance(leaf, ShardedArray):
-        return leaf.blocks[0].device
-    return leaf.device
+def _walk_leaves(node, path, out):
+    """Add the leaves under ``node`` to ``out`` by dotted path. A module
+    function, not a closure: a closure that calls itself is a reference
+    cycle, and it would hold ``out``'s tensors until the cycle collector
+    ran (tens of GiB of device memory at 512^3)."""
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk_leaves(node[k], path + (str(k),), out)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _walk_leaves(v, path + (str(i),), out)
+    else:
+        out[".".join(path)] = node
 
 
 class Sentinel:
@@ -180,27 +180,47 @@ class Sentinel:
 
     def compute_members(self, states, aux=None):
         """The member-axis generalization of :meth:`compute`: ``states``
-        is a batched state whose leaves carry a leading member axis, and
-        the result is a ``(members, size)`` health MATRIX, row i exactly
-        the vector :meth:`compute` gives for member i. ``aux`` leaves, if
-        any, carry the member axis too."""
-        leaves = named_leaves(states)
-        members = int(next(iter(leaves.values())).shape[0])
-
-        def member(node, i):
-            if isinstance(node, dict):
-                return {k: member(v, i) for k, v in node.items()}
-            if isinstance(node, (list, tuple)):
-                return type(node)(member(v, i) for v in node)
-            if node is None:
-                return None
-            if isinstance(node, ShardedArray):
-                return node.map(lambda b: b[i])
-            return node[i]
-        rows = [self.compute(member(states, i),
-                             member(aux, i) if aux else {})
-                for i in range(members)]
-        return torch.stack(rows)
+        is a batched state whose leaves carry a leading member axis
+        (tensors, :class:`ShardedArray` s whose blocks lead with it, or
+        :class:`~pystella_tpu_torch.parallel.MemberArray` s over ensemble
+        slices), and the result is a ``(members, size)`` health MATRIX on
+        the first slice's device, row i bit for bit the vector
+        :meth:`compute` gives for member i. The field slots read each leaf
+        ONCE for the batch (:func:`~pystella_tpu_torch.ops.health.
+        field_stats_members`: one K15 launch a leaf, or a block of it, and
+        the finishes over member x field segments); the invariants run per
+        member, on the member's slice. ``aux`` leaves, if any, carry the
+        member axis too. No host sync."""
+        leaves = self._leaves(states)
+        if isinstance(leaves[0], MemberArray):
+            m = leaves[0].members_per_slice
+            rows = []
+            for e in range(len(leaves[0].parts)):
+                part = _tree_map(lambda a: a.parts[e], states)
+                sub = (_tree_map(lambda a: a[e * m:(e + 1) * m], aux)
+                       if aux else None)
+                rows.append(self.compute_members(part, sub))
+            return torch.cat([r.to(rows[0].device) for r in rows])
+        members = int(leaves[0].shape[0])
+        fields = _health.field_stats_members(leaves, members, self.dtype)
+        if not self.invariants:
+            return fields
+        dev = fields.device
+        inv = []
+        for i in range(members):
+            st = _tree_map(lambda a: take_index(a, i), states)
+            ax = _tree_map(lambda a: a[i], aux) if aux else {}
+            parts = []
+            for fn in self.invariants.values():
+                v = fn(st, ax)
+                if isinstance(v, torch.Tensor):
+                    v = v.to(device=dev, dtype=self.dtype).reshape(1)
+                else:
+                    v = torch.full((1,), float(v), dtype=self.dtype,
+                                   device=dev)
+                parts.append(v)
+            inv.append(torch.cat(parts))
+        return torch.cat([fields, torch.stack(inv)], dim=1)
 
     def decode_members(self, matrix):
         """Host decode of a ``(members, size)`` health matrix: one

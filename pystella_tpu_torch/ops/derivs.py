@@ -33,14 +33,33 @@ writing its rows of the full output block in place. On a mesh that shards z
 the ``mode="roll"`` bodies run on the padded blocks, as the JAX package's
 halo tier there, and no kernel. Every sharded result equals the unsharded
 operator's bit for bit (the same taps, the same sums).
+
+In ``mode="kernel"`` an operator call on a ``torch.func`` transform's
+tensor (a batched one under ``torch.func.vmap``) goes through a PyTorch
+custom operator (``pystella_tpu_torch::fd_op``, and ``::fd_sharded_op`` for
+a :class:`~pystella_tpu_torch.parallel.ShardedArray`, pytree-registered)
+whose batching rule moves the batch axis to the front, where it is one more
+leading (component) axis of the operand, and calls the operator once, so
+one launch serves a whole batch of members, as the JAX package's batched
+``pallas_call`` does (the ensemble tier's ``via="vmap"``,
+:mod:`~pystella_tpu_torch.ensemble`). A call on plain tensors runs the same
+function directly, without the dispatcher's host time. :data:`CALLS`
+counts the operator calls on any device, on both ways.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
+import weakref
 
 import numpy as np
 import torch
+# The first call of a custom operator imports torch._dynamo, whose import
+# (torch.fx's ``wrap``) holds its caller's frames, and every tensor in them,
+# in a reference cycle until the cycle collector runs; imported here, where
+# those frames hold no state.
+import torch._dynamo  # noqa: F401
 
 from torch.profiler import record_function
 
@@ -51,8 +70,8 @@ from pystella_tpu_torch.parallel.decomp import ShardedArray
 
 __all__ = [
     "FirstCenteredDifference", "SecondCenteredDifference",
-    "FiniteDifferencer", "LAUNCHES", "reset_launch_counts", "KERNELS",
-    "OPS", "expand_stencil", "centered_diff",
+    "FiniteDifferencer", "LAUNCHES", "CALLS", "reset_launch_counts",
+    "KERNELS", "OPS", "expand_stencil", "centered_diff",
 ]
 
 #: operator -> index of its kernel in fd_ops.cu (the order of its entry
@@ -88,9 +107,70 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _PAD_SUFFIX = {1: "_xpad", 2: "_ypad", 3: "_xypad"}
 
 
+#: operator -> kernel-mode calls since the last reset, on any device: under
+#: ``torch.func.vmap`` one call serves the whole batch (each call launches
+#: the kernel once a block on the card)
+CALLS = {op: 0 for op in OPS}
+
+
 def reset_launch_counts():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in CALLS:
+        CALLS[name] = 0
+
+
+#: FiniteDifferencer instances by the key the custom operators carry
+_INSTANCES = weakref.WeakValueDictionary()
+_KEYS = itertools.count()
+
+
+def _fd_op(x: torch.Tensor, name: str, key: int) -> list[torch.Tensor]:
+    return _INSTANCES[key]._unsharded(name, x)
+
+
+def _fd_op_vmap(info, in_dims, x, name, key):
+    """The batch axis is one more leading (component) axis: one call."""
+    if in_dims[0] is not None:
+        x = x.movedim(in_dims[0], 0)
+    outs = _fd_op(x, name, key)
+    return outs, [None if in_dims[0] is None else 0] * len(outs)
+
+
+def _fd_sharded_op(blocks: list[torch.Tensor], name: str,
+                   key: int) -> list[torch.Tensor]:
+    fd = _INSTANCES[key]
+    outs = fd._sharded_blocks(name, ShardedArray(blocks, fd.decomp))
+    return [b for out in outs for b in out]
+
+
+def _fd_sharded_op_vmap(info, in_dims, blocks, name, key):
+    dims = in_dims[0]
+    if all(d is None for d in dims):
+        outs = _fd_sharded_op(blocks, name, key)
+        return outs, [None] * len(outs)
+    size = info.batch_size
+    blocks = [b.movedim(d, 0) if d is not None
+              else b.expand((size,) + tuple(b.shape))
+              for b, d in zip(blocks, dims)]
+    outs = _fd_sharded_op(blocks, name, key)
+    return outs, [0] * len(outs)
+
+
+_fd_op = torch.library.custom_op("pystella_tpu_torch::fd_op", _fd_op,
+                                 mutates_args=())
+_fd_op.register_vmap(_fd_op_vmap)
+_fd_sharded_op = torch.library.custom_op(
+    "pystella_tpu_torch::fd_sharded_op", _fd_sharded_op, mutates_args=())
+_fd_sharded_op.register_vmap(_fd_sharded_op_vmap)
+
+
+def _transformed(xs):
+    """Whether any operand is a ``torch.func`` transform's tensor (under
+    ``vmap`` a batched one): only then does a call go through the custom
+    operators, whose dispatch costs host time at every call."""
+    return any(torch._C._functorch.is_functorch_wrapped_tensor(x)
+               for x in xs)
 
 
 def kernel_header(h):
@@ -414,6 +494,8 @@ class FiniteDifferencer:
                for s in offsets]
             + [grd[s] * self._inv_dx[ax] for ax in range(3)
                for s in offsets])
+        self._key = next(_KEYS)
+        _INSTANCES[self._key] = self
 
     def get_eigenvalues(self, k, dx, order=1):
         stencil = self.first if order == 1 else self.second
@@ -569,7 +651,10 @@ class FiniteDifferencer:
         return x.reshape((-1,) + lat).contiguous(), outer
 
     def _dispatch(self, name, x):
-        """Fold, run the operator, and unfold."""
+        """Fold, run the operator (through the custom operator, so that
+        ``torch.func.vmap`` batches it), and unfold."""
+        if name not in OPS:
+            raise ValueError(f"unknown operator {name}")
         if isinstance(x, ShardedArray):
             return self._sharded_dispatch(name, x)
         if x.device != self.device:
@@ -577,10 +662,16 @@ class FiniteDifferencer:
                              f"FiniteDifferencer runs on {self.device}")
         if self.mode == "roll":
             return self._roll_dispatch(name, x)
-        xf, outer = self._fold(name, x)
-        outs = [o.reshape(outer + tuple(o.shape[1:]))
-                for o in self.launch(name, xf)]
+        outs = (_fd_op(x, name, self._key) if _transformed([x])
+                else self._unsharded(name, x))
         return tuple(outs) if name == "grad_lap" else outs[0]
+
+    def _unsharded(self, name, x):
+        """The operator on a plain tensor: the outputs, unfolded."""
+        CALLS[name] += 1
+        xf, outer = self._fold(name, x)
+        return [o.reshape(outer + tuple(o.shape[1:]))
+                for o in self.launch(name, xf)]
 
     # -- the sharded tier -----------------------------------------------------
 
@@ -595,6 +686,20 @@ class FiniteDifferencer:
                              "(decomp=)")
         if self.mode == "roll" or d.proc_shape[2] > 1:
             return self._sharded_roll(name, x)
+        flat = (_fd_sharded_op(x.blocks, name, self._key)
+                if _transformed(x.blocks)
+                else [b for out in self._sharded_blocks(name, x)
+                      for b in out])
+        n = d.nshards
+        res = tuple(ShardedArray(flat[j * n:(j + 1) * n], d)
+                    for j in range(len(flat) // n))
+        return res if name == "grad_lap" else res[0]
+
+    def _sharded_blocks(self, name, x):
+        """The kernel tier of :meth:`_sharded_dispatch` on plain blocks:
+        one list of output blocks per output."""
+        CALLS[name] += 1
+        d = self.decomp
         blocks, outer = [], None
         for b in x.blocks:
             xf, outer = self._fold(name, b)
@@ -628,10 +733,8 @@ class FiniteDifferencer:
                 None)
             for p, o in zip(padded, outs):
                 self.launch_block(name, kind, p, o)
-        res = tuple(ShardedArray(
-            [o[j].reshape(outer + tuple(o[j].shape[1:])) for o in outs], d)
-            for j in range(len(outs[0])))
-        return res if name == "grad_lap" else res[0]
+        return [[o[j].reshape(outer + tuple(o[j].shape[1:])) for o in outs]
+                for j in range(len(outs[0]))]
 
     def _sharded_roll(self, name, x):
         """The ``mode="roll"`` sums on blocks padded by ``h`` along every

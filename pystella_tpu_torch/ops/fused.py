@@ -78,6 +78,7 @@ else is op-for-op identical.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import warnings
 
@@ -1771,6 +1772,27 @@ class FusedScalarStepper(_step.Stepper):
                 state, nsteps, t, dt if dt is not None else self.dt,
                 rhs_args, None)
         return fn
+
+    def on_device(self, device):
+        """This stepper on ``device``: itself where it runs there already,
+        else a twin that shares its model, its tiers and its built kernels
+        (a launch runs on its operands' card) and holds buffers of its own,
+        so that the map tier of an ensemble over several cards runs each
+        slice's members on their card with no copies. A sharded stepper
+        runs on its decomposition's devices only."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        if self.decomp is not None:
+            raise ValueError(
+                f"a sharded fused stepper runs on {self.decomp.devices}; "
+                f"build one for the devices of {device}'s slice")
+        twin = copy.copy(self)
+        twin.device = device
+        twin._buffers = None
+        twin._pad_bufs, twin._shell_bufs = {}, {}
+        twin._fin_carries, twin._partials = {}, {}
+        return twin
 
     # -- energy-coupled driver (Friedmann background on the host) -----------
     #

@@ -17,6 +17,16 @@ kernel (``ops/csrc/health.cu``):
   a fixed order and writes the health vector's field slots ``finite``,
   ``max_abs`` and ``rms`` (:data:`FIELD_STATS`).
 
+For an ensemble batch (:func:`field_stats_members`: each field a
+``(members, ...)`` tensor or :class:`~pystella_tpu_torch.parallel.ShardedArray`
+whose blocks lead with the member axis) K15 reads each field once for the
+whole batch, the member axis folded into its outer rows, so member ``m``'s
+units are one contiguous run of the partials; the finish then reduces one
+segment a member and field (at most :data:`MAX_FIELDS` segments a launch)
+in the order a lone member's finish does, so row ``m`` of the matrix equals
+:func:`field_stats` of member ``m`` bit for bit. These launches count as
+``health:members`` and ``health_finish:members``.
+
 A :class:`~pystella_tpu_torch.parallel.ShardedArray`'s blocks write their
 units at their global places, so a sharded state gives the single-device
 vector bit for bit (each block's y-extent must hold whole units, as for
@@ -40,7 +50,8 @@ from pystella_tpu_torch.parallel.decomp import ShardedArray
 
 __all__ = ["FIELD_STATS", "KERNELS", "LAUNCHES", "reset_launch_counts",
            "build_kernels", "bind_kernels", "field_stats",
-           "field_stats_plain", "field_layout", "MAX_FIELDS"]
+           "field_stats_plain", "field_stats_members",
+           "field_stats_members_plain", "field_layout", "MAX_FIELDS"]
 
 #: per-field statistics, in slot order (the JAX sentinel's FIELD_STATS)
 FIELD_STATS = ("finite", "max_abs", "rms")
@@ -56,6 +67,12 @@ KERNELS = {
                                "(Sentinel.compute: the finite flag, max_abs "
                                "and sqrt(mean_sq) a field; no Pallas "
                                "kernel)"),
+    "health:members": (_SOURCE, "pystella_tpu/obs/sentinel.py:204 "
+                                "(Sentinel.compute_members: a vmap of the "
+                                "variadic reductions; no Pallas kernel)"),
+    "health_finish:members": (_SOURCE, "pystella_tpu/obs/sentinel.py:204 "
+                                       "(Sentinel.compute_members; no "
+                                       "Pallas kernel)"),
 }
 #: kernel name -> number of launches since the last reset; the wrapper adds
 #: one where it launches the kernel, and nowhere else
@@ -211,21 +228,85 @@ def field_stats_plain(fields, dtype=torch.float32):
     return _vector(maxes, sums, counts, dtype)
 
 
-def field_stats(fields, dtype=torch.float32):
-    """The health vector's field slots of ``fields`` (tensors or
-    :class:`ShardedArray` s, each ``(..., X, Y, Z)``; float32, float64 or
-    bfloat16 on the card): ``3 * len(fields)`` values, per field
-    ``finite``, ``max_abs``, ``rms``, in ``dtype`` on the first field's
-    device. K15 on CUDA tensors (one launch a block of a field, then one
-    finish launch), no host sync; the plain version on CPU tensors."""
+def _check_members(layouts, members):
+    """Raise unless every field's outer rows split evenly into
+    ``members``."""
+    for (n, _, _, _), _ in layouts:
+        if n % members:
+            raise ValueError(f"a field of {n} outer rows does not hold "
+                             f"{members} members")
+
+
+def field_stats_members_plain(fields, members, dtype=torch.float32):
+    """The plain version of :func:`field_stats_members`: the row partials
+    of every field once for the batch (as :func:`field_stats_plain` forms
+    them), then per member the reduction of its rows, each from a tensor
+    of its own (so row ``m`` is :func:`field_stats_plain` of member ``m``
+    bit for bit)."""
     layouts = [field_layout(x) for x in fields]
-    if not layouts:
-        raise ValueError("field_stats needs at least one field")
+    _check_members(layouts, members)
+    partials, dev = [], None
+    for (n, X, Y, Z), blocks in layouts:
+        if dev is None:
+            dev = blocks[0][0].device
+        pm = torch.empty((n, X, Y), dtype=torch.float64, device=dev)
+        ps = torch.empty((n, X, Y), dtype=torch.float64, device=dev)
+        for b, x0, y0 in blocks:
+            bx, by = b.shape[1], b.shape[2]
+            pm[:, x0:x0 + bx, y0:y0 + by] = torch.amax(
+                torch.abs(b), dim=-1).to(torch.float64).to(dev)
+            ps[:, x0:x0 + bx, y0:y0 + by] = torch.sum(
+                (b * b).to(torch.float64), dim=-1).to(dev)
+        partials.append((pm, ps, n // members * X * Y * Z, n // members))
+    rows = []
+    for m in range(members):
+        maxes, sums, counts = [], [], []
+        for pm, ps, count, k in partials:
+            maxes.append(torch.amax(pm[m * k:(m + 1) * k].clone()))
+            sums.append(torch.sum(ps[m * k:(m + 1) * k].clone()))
+            counts.append(count)
+        rows.append(_vector(maxes, sums, counts, dtype))
+    return torch.stack(rows)
+
+
+def field_stats_members(fields, members, dtype=torch.float32):
+    """The field slots of every member's health vector, a ``(members, 3 *
+    len(fields))`` matrix in ``dtype`` on the first field's device, from
+    ONE read of each field: ``fields`` are batches (tensors ``(members,
+    ...)``, or :class:`ShardedArray` s whose blocks lead with the member
+    axis). On the card one K15 launch a block of a field over the whole
+    batch, then one finish launch a group of at most :data:`MAX_FIELDS`
+    (member, field) segments; no host sync. Row ``m`` equals
+    :func:`field_stats` of member ``m`` bit for bit. CPU tensors take
+    :func:`field_stats_members_plain`."""
+    members = int(members)
+    layouts = [field_layout(x) for x in fields]
+    if not layouts or members < 1:
+        raise ValueError("field_stats_members needs a field and a member")
     if not _on_card(layouts):
-        return field_stats_plain(fields, dtype)
-    if len(layouts) > MAX_FIELDS:
-        raise ValueError(f"{len(layouts)} fields: one health finish takes "
-                         f"at most {MAX_FIELDS}")
+        return field_stats_members_plain(fields, members, dtype)
+    _check_members(layouts, members)
+    dev, fns, units, offs, pmax, psum = _read_fields(layouts,
+                                                     "health:members")
+    K = len(layouts)
+    odt = dtype if dtype in (torch.float32, torch.float64) else torch.float64
+    out = torch.empty((members, 3 * K), dtype=odt, device=dev)
+    segs = [(offs[k] + m * (units[k] // members), units[k] // members,
+             float(g[0] // members * g[1] * g[2] * g[3]), 3 * (m * K + k))
+            for m in range(members)
+            for k, (g, _) in enumerate(layouts)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for i in range(0, len(segs), MAX_FIELDS):
+            _finish(fns, odt, pmax, psum, segs[i:i + MAX_FIELDS], out,
+                    stream, "health_finish:members")
+    return out if odt == dtype else out.to(dtype)
+
+
+def _read_fields(layouts, label):
+    """K15 over every block of every field into fresh partials (one
+    launch a block, counted under ``label``): ``(device, entry points,
+    units a field, first unit a field, pmax, psum)``."""
     dev = layouts[0][1][0][0].device
     for _, blocks in layouts:
         for b, _, _ in blocks:
@@ -250,8 +331,6 @@ def field_stats(fields, dtype=torch.float32):
     offs = [sum(units[:k]) for k in range(len(units))]
     pmax = torch.empty(sum(units), dtype=torch.float64, device=dev)
     psum = torch.empty(sum(units), dtype=torch.float64, device=dev)
-    odt = dtype if dtype in (torch.float32, torch.float64) else torch.float64
-    out = torch.empty(3 * len(layouts), dtype=odt, device=dev)
     nsm = _sm_count(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -262,17 +341,49 @@ def field_stats(fields, dtype=torch.float32):
                 _check(entry(b.data_ptr(), pmax.data_ptr(), psum.data_ptr(),
                              b.shape[0] * b.shape[1] * (b.shape[2] // ry),
                              ry, b.shape[1], b.shape[2], Z, X, Y, x0, y0,
-                             off, nsm, stream), "health")
-                LAUNCHES["health"] += 1
-        k = len(layouts)
-        arr = (lambda t, v: (t * k)(*v))
-        _check(fns["pk_health_finish_" + ("f32" if odt == torch.float32
-                                          else "f64")](
-            pmax.data_ptr(), psum.data_ptr(), k,
-            arr(ctypes.c_int64, offs), arr(ctypes.c_int64, units),
-            arr(ctypes.c_double, [float(g[0] * g[1] * g[2] * g[3])
-                                  for g, _ in layouts]),
-            arr(ctypes.c_int, [3 * i for i in range(k)]), out.data_ptr(),
-            stream), "health_finish")
-        LAUNCHES["health_finish"] += 1
+                             off, nsm, stream), label)
+                LAUNCHES[label] += 1
+    return dev, fns, units, offs, pmax, psum
+
+
+def _finish(fns, odt, pmax, psum, segs, out, stream, label):
+    """One finish launch over ``segs``, ``(first unit, units, element
+    count, first slot of out)`` each, of the partials ``pmax`` and
+    ``psum``, counted under ``label``."""
+    k = len(segs)
+    arr = (lambda t, v: (t * k)(*v))
+    _check(fns["pk_health_finish_" + ("f32" if odt == torch.float32
+                                      else "f64")](
+        pmax.data_ptr(), psum.data_ptr(), k,
+        arr(ctypes.c_int64, [g[0] for g in segs]),
+        arr(ctypes.c_int64, [g[1] for g in segs]),
+        arr(ctypes.c_double, [g[2] for g in segs]),
+        arr(ctypes.c_int, [g[3] for g in segs]), out.data_ptr(), stream),
+        label)
+    LAUNCHES[label] += 1
+
+
+def field_stats(fields, dtype=torch.float32):
+    """The health vector's field slots of ``fields`` (tensors or
+    :class:`ShardedArray` s, each ``(..., X, Y, Z)``; float32, float64 or
+    bfloat16 on the card): ``3 * len(fields)`` values, per field
+    ``finite``, ``max_abs``, ``rms``, in ``dtype`` on the first field's
+    device. K15 on CUDA tensors (one launch a block of a field, then one
+    finish launch), no host sync; the plain version on CPU tensors."""
+    layouts = [field_layout(x) for x in fields]
+    if not layouts:
+        raise ValueError("field_stats needs at least one field")
+    if not _on_card(layouts):
+        return field_stats_plain(fields, dtype)
+    if len(layouts) > MAX_FIELDS:
+        raise ValueError(f"{len(layouts)} fields: one health finish takes "
+                         f"at most {MAX_FIELDS}")
+    dev, fns, units, offs, pmax, psum = _read_fields(layouts, "health")
+    odt = dtype if dtype in (torch.float32, torch.float64) else torch.float64
+    out = torch.empty(3 * len(layouts), dtype=odt, device=dev)
+    segs = [(offs[k], units[k], float(g[0] * g[1] * g[2] * g[3]), 3 * k)
+            for k, (g, _) in enumerate(layouts)]
+    with torch.cuda.device(dev):
+        _finish(fns, odt, pmax, psum, segs, out,
+                torch.cuda.current_stream(dev).cuda_stream, "health_finish")
     return out if odt == dtype else out.to(dtype)

@@ -23,15 +23,20 @@ JAX verb                   here
 
 The exchange and the overlap regions carry ``torch.profiler`` labels
 (``halo_exchange``, ``halo_overlap``, ``halo_overlap_interior``,
-``halo_overlap_shells``), the counterparts of the JAX ``named_scope``s. They
-are profiler labels only: the JAX package's ``obs`` counters
-(``halo_exchanges``, ``halo_bytes_exchanged``) wait for the port's ``obs``
-(ROADMAP queue 1 item 8); :attr:`DomainDecomposition.bytes_exchanged` and
-:meth:`~DomainDecomposition.traced_halo_bytes` are plain host counts.
+``halo_overlap_shells``), the counterparts of the JAX ``named_scope``s. The
+JAX package's ``obs`` counters count here too: ``halo_exchanges`` (the
+per-axis exchanges of :meth:`~DomainDecomposition.share_halos`) and
+``halo_bytes_exchanged`` (the bytes of one execution of each distinct halo
+program, the first time it runs), with the same counts on the same calls;
+:attr:`DomainDecomposition.bytes_exchanged` counts every execution.
 
-Multi-process runs (``torch.distributed``) come later; so do the ensemble
-mesh (``ensemble_mesh``, ``shard_members``) and ``axis_array``, which wait
-for the port's ``ensemble/`` and ``fourier/``.
+The ensemble mesh is here too: :func:`make_mesh` and :func:`ensemble_mesh`
+return a :class:`Mesh` (a numpy array of torch devices with axis names), and
+a ``DomainDecomposition(mesh=..., ensemble_axis=...)`` describes one member's
+lattice while :meth:`~DomainDecomposition.shard_members` places a batch of
+members over the ensemble slices (:class:`MemberArray`). Multi-process runs
+(``torch.distributed``) come later, and so does ``axis_array``, which serves
+the pencil FFT (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -45,8 +50,9 @@ from torch.profiler import record_function
 from pystella_tpu_torch._device import resolve_device, torch_dtype
 from pystella_tpu_torch.parallel.overlap import MIN_INTERIOR_FACTOR
 
-__all__ = ["DomainDecomposition", "HaloPlan", "HaloShells", "ShardedArray",
-           "blockwise"]
+__all__ = ["DomainDecomposition", "HaloPlan", "HaloShells", "MemberArray",
+           "Mesh", "NamedSharding", "ShardedArray", "blockwise",
+           "ensemble_mesh", "make_mesh"]
 
 
 class ShardedArray:
@@ -114,21 +120,232 @@ class ShardedArray:
                 f"proc_shape={self.decomp.proc_shape})")
 
 
-def _tree_map(fn, tree):
-    """``fn`` over the leaves of dicts, lists and tuples."""
+# a ShardedArray is a pytree node to ``torch.func``: ``vmap`` maps over the
+# leading axis of its blocks, and the body sees ShardedArrays of the blocks'
+# member slices (the ensemble tier's vmap over a spatial mesh)
+torch.utils._pytree.register_pytree_node(
+    ShardedArray, lambda a: (a.blocks, a.decomp),
+    lambda blocks, decomp: ShardedArray(blocks, decomp))
+
+
+class Mesh:
+    """The port's device mesh: ``devices``, a numpy object array of
+    :class:`torch.device` s, one axis per name of ``axis_names`` (the role
+    of a ``jax.sharding.Mesh``; a device may repeat)."""
+
+    def __init__(self, devices, axis_names):
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"a mesh of shape {self.devices.shape} needs "
+                             f"{self.devices.ndim} axis names, got "
+                             f"{self.axis_names}")
+
+    @property
+    def shape(self):
+        """``{axis name: extent}``, in axis order."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self):
+        return int(self.devices.size)
+
+    def __repr__(self):
+        return f"Mesh({self.shape})"
+
+
+def _device_array(devices, shape):
+    arr = np.empty(len(devices), dtype=object)
+    for i, d in enumerate(devices):
+        arr[i] = d
+    return arr.reshape(shape)
+
+
+def _default_devices():
+    """Every visible card (the default device set of a mesh); raises
+    without one, as every entry point does."""
+    resolve_device(None)
+    return [torch.device("cuda", r)
+            for r in range(torch.cuda.device_count())]
+
+
+def make_mesh(proc_shape=None, axis_names=("x", "y", "z"), devices=None):
+    """A :class:`Mesh` over the lattice axes: ``proc_shape`` devices per
+    axis (default every device on the first axis), from ``devices``
+    (default the visible cards; a device may repeat)."""
+    devices = ([resolve_device(d) for d in devices] if devices is not None
+               else _default_devices())
+    if proc_shape is None:
+        proc_shape = (len(devices),) + (1,) * (len(axis_names) - 1)
+    proc_shape = tuple(int(p) for p in proc_shape)
+    if int(np.prod(proc_shape)) != len(devices):
+        raise ValueError(
+            f"proc_shape {proc_shape} does not cover {len(devices)} devices")
+    return Mesh(_device_array(devices, proc_shape),
+                axis_names[:len(proc_shape)])
+
+
+def ensemble_mesh(proc_shape=None, ensemble_devices=None,
+                  axis_names=("x", "y", "z"), ensemble_axis=None,
+                  devices=None):
+    """An ``(ensemble, x, y, z)`` :class:`Mesh`, the ensemble tier's layout
+    (:mod:`~pystella_tpu_torch.ensemble`): small lattices keep
+    ``proc_shape == (1, 1, 1)`` and pack the devices along the leading
+    ensemble axis, large ones keep their spatial sharding with a smaller
+    ensemble extent.
+
+    :arg proc_shape: devices per lattice axis within one ensemble slice
+        (default ``(1, 1, 1)``).
+    :arg ensemble_devices: the slices along the ensemble axis (default
+        ``len(devices) // prod(proc_shape)``). This is the device extent;
+        a batch of E members over D slices places E / D members a slice.
+    :arg ensemble_axis: the leading axis's name (default the registered
+        ``PYSTELLA_ENSEMBLE_AXIS``, normally ``"ensemble"``).
+    :arg devices: default the visible cards; a device may repeat (several
+        slices on one card, as the JAX suite's virtual CPU devices share one
+        host).
+    """
+    from pystella_tpu_torch import config as _config
+    devices = ([resolve_device(d) for d in devices] if devices is not None
+               else _default_devices())
+    if ensemble_axis is None:
+        ensemble_axis = _config.getenv("PYSTELLA_ENSEMBLE_AXIS")
+    if proc_shape is None:
+        proc_shape = (1,) * len(axis_names)
+    proc_shape = tuple(int(p) for p in proc_shape)
+    spatial = int(np.prod(proc_shape))
+    if ensemble_devices is None:
+        if len(devices) % spatial:
+            raise ValueError(
+                f"{len(devices)} devices do not tile proc_shape "
+                f"{proc_shape}; pass ensemble_devices or a device "
+                "subset explicitly")
+        ensemble_devices = len(devices) // spatial
+    ensemble_devices = int(ensemble_devices)
+    need = ensemble_devices * spatial
+    if need > len(devices):
+        raise ValueError(
+            f"ensemble mesh ({ensemble_devices},)+{proc_shape} needs "
+            f"{need} devices, have {len(devices)}")
+    return Mesh(_device_array(devices[:need],
+                              (ensemble_devices,) + proc_shape),
+                (ensemble_axis,) + tuple(axis_names[:len(proc_shape)]))
+
+
+class NamedSharding:
+    """A layout description: a :class:`Mesh` and a spec, one entry per
+    array axis (a mesh axis name, or ``None`` for an axis kept whole), as
+    ``jax.sharding.NamedSharding`` gives it."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+    def __eq__(self, other):
+        return (isinstance(other, NamedSharding) and other.mesh is self.mesh
+                and other.spec == self.spec)
+
+    def __repr__(self):
+        return f"NamedSharding({self.mesh}, spec={self.spec})"
+
+
+class MemberArray:
+    """A batch of members, ``(members, *outer, *lattice)``, over the slices
+    of an ensemble decomposition (:meth:`DomainDecomposition.shard_members`):
+    ``parts[e]`` holds the members ``e * m .. (e + 1) * m - 1`` (``m`` a
+    slice) as a tensor on slice ``e``'s device, or, on a spatial mesh, as a
+    :class:`ShardedArray` whose blocks carry the member axis as their leading
+    outer axis and lie on slice ``e``'s devices. The role of a JAX array
+    sharded over the ensemble axis."""
+
+    def __init__(self, parts, decomp):
+        self.parts = list(parts)
+        self.decomp = decomp
+        if len(self.parts) != decomp.ensemble_devices:
+            raise ValueError(f"{len(self.parts)} parts for "
+                             f"{decomp.ensemble_devices} ensemble slices")
+
+    @property
+    def members_per_slice(self):
+        return int(self.parts[0].shape[0])
+
+    @property
+    def shape(self):
+        first = tuple(self.parts[0].shape)
+        return (first[0] * len(self.parts),) + first[1:]
+
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+    @property
+    def sharding(self):
+        """The layout as :class:`NamedSharding` (the JAX array's
+        ``sharding``)."""
+        return NamedSharding(self.decomp.mesh, self.decomp.member_spec(
+            outer_axes=max(0, self.ndim - 1 - len(self.decomp.axis_names))))
+
+    def locate(self, index):
+        """``(slice, index in the slice)`` of member ``index``."""
+        index = int(index)
+        if not -self.shape[0] <= index < self.shape[0]:
+            raise IndexError(f"member {index} of {self.shape[0]}")
+        return divmod(index % self.shape[0], self.members_per_slice)
+
+    def __getitem__(self, index):
+        """Member ``index``: a view of its slice's tensor, or a
+        :class:`ShardedArray` of views of its blocks."""
+        e, j = self.locate(index)
+        return take_index(self.parts[e], j)
+
+    def map(self, fn):
+        """A new batch of ``fn(part)`` per slice."""
+        return MemberArray([fn(p) for p in self.parts], self.decomp)
+
+    def __repr__(self):
+        return (f"MemberArray(shape={self.shape}, dtype={self.dtype}, "
+                f"slices={len(self.parts)})")
+
+
+def take_index(part, j):
+    """Entry ``j`` along the leading axis of a tensor, or of every block of
+    a :class:`ShardedArray`."""
+    if isinstance(part, ShardedArray):
+        return part.map(lambda b: b[j])
+    return part[j]
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of dict/list/tuple trees of one structure
+    (``None`` stays ``None``)."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return None if tree is None else fn(tree, *rest)
 
 
 def _leaves(tree):
+    """The leaves of a dict/list/tuple tree, ``None`` left out."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _leaves(v)]
-    return [tree]
+    return [] if tree is None else [tree]
+
+
+def _device_of(leaf):
+    """The device of a tensor, or of a :class:`ShardedArray`'s first
+    block."""
+    if isinstance(leaf, ShardedArray):
+        return leaf.blocks[0].device
+    return leaf.device
 
 
 def _block_of(tree, r):
@@ -205,9 +422,41 @@ class DomainDecomposition:
         so a ``proc_shape`` larger than the card count puts several shards
         on each card; without a GPU this raises (nothing falls back to the
         CPU unasked: pass ``devices=["cpu"] * n``).
+    :arg mesh: a :class:`Mesh` (:func:`make_mesh`, :func:`ensemble_mesh`)
+        in place of ``proc_shape`` and ``devices``.
+    :arg ensemble_axis: the name of a LEADING mesh axis that carries an
+        ensemble of members (a mesh from :func:`ensemble_mesh`). The
+        decomposition then describes one member's lattice: ``proc_shape``,
+        ``axis_names`` and ``devices`` are those of the first ensemble slice
+        (a lattice array placed with :meth:`shard` lies there), while
+        :meth:`shard_members` places batched ``(members, ...)`` arrays with
+        the member axis over the slices. A :class:`ShardedArray` of another
+        slice's members names this decomposition too: its blocks lie on that
+        slice's devices, and the operators exchange halos between the blocks
+        where they lie.
     """
 
-    def __init__(self, proc_shape=None, halo_shape=0, devices=None):
+    def __init__(self, proc_shape=None, halo_shape=0, devices=None,
+                 mesh=None, axis_names=("x", "y", "z"),
+                 ensemble_axis=None):
+        self.ensemble_axis = ensemble_axis
+        if mesh is None and ensemble_axis is not None:
+            raise ValueError("an ensemble decomposition needs an explicit "
+                             "mesh (ensemble_mesh(...))")
+        if mesh is not None:
+            names = tuple(mesh.axis_names)
+            grid = mesh.devices
+            if ensemble_axis is not None:
+                if not names or names[0] != ensemble_axis:
+                    raise ValueError(
+                        f"ensemble axis {ensemble_axis!r} must be the "
+                        f"mesh's leading axis; mesh has {names}")
+                names, grid = names[1:], grid[0]
+            proc_shape = tuple(grid.shape)
+            devices = list(grid.reshape(-1))
+            axis_names = names
+        else:
+            axis_names = tuple(axis_names)
         if devices is None:
             resolve_device(None)  # the card, or a RuntimeError
             count = torch.cuda.device_count()
@@ -236,7 +485,9 @@ class DomainDecomposition:
         self._neighbors = {(r, d, s): self._neighbor(r, d, s)
                            for r in range(len(devices)) for d in range(3)
                            for s in (-1, 1)}
-        self.axis_names = ("x", "y", "z")
+        self.axis_names = axis_names
+        self.mesh = mesh if mesh is not None else Mesh(
+            _device_array(devices, proc_shape), axis_names)
         if np.isscalar(halo_shape):
             halo_shape = (halo_shape,) * 3
         self.halo_shape = tuple(int(h) for h in halo_shape)
@@ -244,13 +495,102 @@ class DomainDecomposition:
         #: this decomposition (see :meth:`traced_halo_bytes`)
         self._halo_program_bytes = {}
         #: bytes copied between ranks by every exchange so far, summed over
-        #: the ranks (a host count; the JAX package's ``obs`` counter
-        #: ``halo_bytes_exchanged`` waits for ROADMAP queue 1 item 8)
+        #: the ranks (a host count; the ``obs`` counter
+        #: ``halo_bytes_exchanged`` counts each distinct program once, as
+        #: the JAX package's does)
         self.bytes_exchanged = 0
-        #: per-axis exchanges made by :meth:`share_halos` (the JAX
-        #: ``halo_exchanges`` counter, likewise a host count)
+        #: per-axis exchanges made by :meth:`share_halos` (what the ``obs``
+        #: counter ``halo_exchanges`` adds up)
         self.halo_exchanges = 0
         self._side_streams = {}
+
+    # -- ensemble (member-axis) placement --------------------------------
+
+    @property
+    def ensemble_devices(self):
+        """The slices along the ensemble mesh axis (1 without one)."""
+        if self.ensemble_axis is None:
+            return 1
+        return int(self.mesh.shape[self.ensemble_axis])
+
+    def slice_devices(self, e):
+        """The devices of ensemble slice ``e``, in rank order (without an
+        ensemble axis, slice 0 is the whole mesh)."""
+        if self.ensemble_axis is None:
+            if e != 0:
+                raise IndexError(f"slice {e} of a mesh without an ensemble "
+                                 "axis")
+            return list(self.devices)
+        return list(self.mesh.devices[e].reshape(-1))
+
+    def spec(self, outer_axes=0):
+        """The layout of an array with ``outer_axes`` leading axes kept
+        whole followed by the 3 lattice axes: one entry per axis, a lattice
+        axis's name where the mesh shards it (the JAX ``PartitionSpec``)."""
+        names = [n if self.proc_shape[i] > 1 else None
+                 for i, n in enumerate(self.axis_names)]
+        return (None,) * outer_axes + tuple(names)
+
+    def member_spec(self, outer_axes=0):
+        """The layout of a batched ``(members, *outer, *lattice)`` array:
+        the member axis over the ensemble slices (``None`` with one slice),
+        the lattice axes over each slice's spatial mesh, as
+        :meth:`spec` describes them."""
+        lead = (self.ensemble_axis if self.ensemble_devices > 1 else None,)
+        return lead + self.spec(outer_axes)
+
+    def member_sharding(self, outer_axes=0):
+        """:meth:`member_spec` on this decomposition's mesh."""
+        return NamedSharding(self.mesh, self.member_spec(outer_axes))
+
+    def shard_members(self, array, outer_axes=None):
+        """Place a batched ``(members, ...)`` array (numpy, a tensor, or a
+        :class:`MemberArray` of any decomposition, gathered first) as a
+        :class:`MemberArray`: the members split over the ensemble slices in
+        order, each slice's members a tensor on its device, or with a
+        spatial ``proc_shape`` a :class:`ShardedArray` on its devices whose
+        blocks carry the member axis as their leading outer axis. The slice
+        count must divide the member count. Leaves of fewer than ``1 + 3``
+        axes (per-member scalars or vectors) carry no lattice axes: only
+        the member axis splits them, onto each slice's first device.
+        ``outer_axes`` is accepted for the JAX signature."""
+        if isinstance(array, MemberArray):
+            array = np.concatenate([_host_whole(p) for p in array.parts])
+        elif isinstance(array, ShardedArray):
+            array = array.decomp.gather_array(array)
+        if not isinstance(array, torch.Tensor):
+            array = torch.from_numpy(np.ascontiguousarray(np.asarray(array)))
+        E = self.ensemble_devices
+        if array.shape[0] % E:
+            raise ValueError(
+                f"member count {array.shape[0]} not divisible by the "
+                f"ensemble device extent {E}; pad the batch or choose a "
+                "compatible mesh")
+        m = array.shape[0] // E
+        lattice = array.ndim >= 1 + len(self.axis_names)
+        parts = []
+        for e in range(E):
+            part = array[e * m:(e + 1) * m]
+            devs = self.slice_devices(e)
+            if lattice and self.nshards > 1:
+                parts.append(ShardedArray(self._blocks_of(part, devs), self))
+            else:
+                parts.append(torch.empty(part.shape, dtype=part.dtype,
+                                         device=devs[0]).copy_(part))
+        return MemberArray(parts, self)
+
+    def with_devices(self, devices, proc_shape=None):
+        """A new decomposition with the same halo widths and axis names over
+        another device set (default ``proc_shape``: every device along x),
+        as a re-mesh builds a degraded continuation. An ensemble
+        decomposition cannot be rebuilt so: build an :func:`ensemble_mesh`
+        for the member axis."""
+        if self.ensemble_axis is not None:
+            raise ValueError(
+                "with_devices rebuilds spatial decompositions only; "
+                "build an ensemble_mesh for the member-axis path")
+        return DomainDecomposition(proc_shape, halo_shape=self.halo_shape,
+                                   devices=list(devices))
 
     # -- ranks -----------------------------------------------------------
 
@@ -313,15 +653,17 @@ class DomainDecomposition:
 
     # -- placement -------------------------------------------------------
 
-    def _blocks_of(self, array):
+    def _blocks_of(self, array, devices=None):
         """The blocks of a global array (numpy or tensor), each a new
-        contiguous tensor on its rank's device."""
+        contiguous tensor on its rank's device (of ``devices``, default
+        :attr:`devices`: another ensemble slice's)."""
         if not isinstance(array, torch.Tensor):
             a = np.asarray(array)
             array = torch.from_numpy(np.ascontiguousarray(a))
         lat = self.rank_shape(tuple(array.shape[-3:]))
         blocks = []
-        for r, dev in enumerate(self.devices):
+        for r, dev in enumerate(self.devices if devices is None
+                                else devices):
             idx = [slice(None)] * (array.ndim - 3) + [
                 slice(i * n, (i + 1) * n)
                 for i, n in zip(self.coords(r), lat)]
@@ -496,16 +838,22 @@ class DomainDecomposition:
         return total
 
     def _record_halo_bytes(self, key, nbytes):
+        """Count an exchange: every execution in :attr:`bytes_exchanged`;
+        the first execution of a distinct program (``key``) in the
+        per-program figure and in the ``halo_bytes_exchanged`` counter, as
+        the JAX package counts at trace time."""
         self.bytes_exchanged += nbytes * self.nshards
-        if nbytes:
-            self._halo_program_bytes.setdefault(key, nbytes)
+        if not nbytes or key in self._halo_program_bytes:
+            return
+        self._halo_program_bytes[key] = nbytes
+        from pystella_tpu_torch.obs import metrics as _metrics
+        _metrics.counter("halo_bytes_exchanged").inc(nbytes)
 
     def traced_halo_bytes(self):
         """Per-rank bytes of one execution of each distinct halo exchange
         run through this decomposition so far, summed: the JAX package's
-        per-program figure, as a host count (its ``obs`` counter waits for
-        ROADMAP queue 1 item 8). :attr:`bytes_exchanged` counts every
-        execution on every rank."""
+        per-program figure. :attr:`bytes_exchanged` counts every execution
+        on every rank."""
         return sum(self._halo_program_bytes.values())
 
     def pad_into(self, blocks, outs, halo, exchange=None):
@@ -697,7 +1045,10 @@ class DomainDecomposition:
         """The padded blocks of ``array`` (shape grown by ``2 * halo`` per
         axis and block): :meth:`pad_with_halos` as a standalone verb."""
         halo, _ = self._canon_halo(halo, None)
-        self.halo_exchanges += len(self.comm_axes(halo))
+        n = len(self.comm_axes(halo))
+        self.halo_exchanges += n
+        from pystella_tpu_torch.obs import metrics as _metrics
+        _metrics.counter("halo_exchanges").inc(n)
         return self.pad_with_halos(self.shard(array), halo)
 
     def overlap_stencil(self, xs, halo, apply_fn, extras=None,
@@ -770,7 +1121,16 @@ class DomainDecomposition:
         return ShardedArray(per_rank, self)
 
     def __repr__(self):
-        return f"DomainDecomposition(proc_shape={self.proc_shape})"
+        ens = (f", ensemble_devices={self.ensemble_devices}"
+               if self.ensemble_axis is not None else "")
+        return f"DomainDecomposition(proc_shape={self.proc_shape}{ens})"
+
+
+def _host_whole(part):
+    """One slice's members as a whole host array."""
+    if isinstance(part, ShardedArray):
+        return part.decomp.gather_array(part)
+    return part.detach().cpu().numpy()
 
 
 class HaloPlan:
@@ -910,7 +1270,7 @@ class HaloShells:
         res = interior_out
         for k in range(len(self.comm_axes) - 1, -1, -1):
             d = self.comm_axes[k]
-            res = _zip_map(lambda lo, mid, hi, d=d: _cat(
+            res = _tree_map(lambda lo, mid, hi, d=d: _cat(
                 [lo, mid, hi], d), shell_outs[2 * k], res,
                 shell_outs[2 * k + 1])
         return res
@@ -924,12 +1284,3 @@ def _cat(parts, d):
                             parts[1].decomp)
     return torch.cat(parts, dim=parts[1].ndim - 3 + d)
 
-
-def _zip_map(fn, *trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _zip_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, (list, tuple)):
-        return type(first)(_zip_map(fn, *(t[i] for t in trees))
-                           for i in range(len(first)))
-    return fn(*trees)

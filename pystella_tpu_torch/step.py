@@ -161,10 +161,9 @@ class Stepper:
     def multi_step_fn(self, nsteps):
         """A ``(state, t, dt, rhs_args) -> state`` function advancing
         ``nsteps`` full RK steps, the time argument advanced by ``dt`` per
-        step: the single-member body of the JAX package's ensemble tier.
-        Fused steppers override it with their stage-paired chunk body.
-        (The batched driver, ``batched``, comes with the port's
-        ``ensemble``.)"""
+        step: the single-member body of the ensemble tier. Fused steppers
+        override it with their stage-paired chunk body; :meth:`batched`
+        drives it over a batch of members."""
         nsteps = int(nsteps)
 
         def fn(state, t, dt, rhs_args):
@@ -172,6 +171,21 @@ class Stepper:
                 state = self._step_impl(state, t + i * dt, dt, rhs_args)
             return state
         return fn
+
+    def on_device(self, device):
+        """This stepper for member states on ``device``: the ensemble's map
+        tier runs each slice's members through it. A generic stepper holds
+        no device (its right-hand side follows its operands), so it is
+        itself; the fused steppers return a twin bound to ``device``."""
+        return self
+
+    def batched(self, size, **kwargs):
+        """An :class:`~pystella_tpu_torch.ensemble.EnsembleStepper` driving
+        ``size`` members of this stepper as one batch (per-member t, dt and
+        parameters as batched leaves; see :mod:`~pystella_tpu_torch.
+        ensemble`)."""
+        from pystella_tpu_torch.ensemble import EnsembleStepper
+        return EnsembleStepper(self, size, **kwargs)
 
     # -- per-stage interface (reference-style stepping loops) --------------
 

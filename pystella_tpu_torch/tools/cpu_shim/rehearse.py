@@ -877,14 +877,15 @@ def health_libs(args):
             for k, v in builds.items()}
 
 
-def health_run(fns, *a, **kw):
-    """K15's wrapper under the shim with the entry points ``fns``."""
+def health_run(fns, *a, wrapper=None, **kw):
+    """K15's wrapper (``field_stats``, or ``wrapper``) under the shim with
+    the entry points ``fns``."""
     keep = dict(thealth._LIB)
     thealth._LIB.clear()
     thealth._LIB.update(fns)
     try:
         with shim():
-            return thealth.field_stats(*a, **kw)
+            return (wrapper or thealth.field_stats)(*a, **kw)
     finally:
         thealth._LIB.clear()
         thealth._LIB.update(keep)
@@ -970,6 +971,41 @@ def health(args):
     check("health mixed dtypes", health_agrees(
         health_run(libs["kernel"], fields, torch.float64),
         thealth.field_stats_plain(fields, torch.float64), HEALTH_TOL))
+    health_members(libs, g)
+
+
+def health_members(libs, g):
+    """The ensemble's one-read matrix: every row of
+    ``field_stats_members`` equal to ``field_stats`` of that member bit for
+    bit (a NaN, an inf and an overflowing member among clean ones), its
+    finite flags and maxima equal to the plain matrix's and its rms within
+    the tolerance; more segments than one finish takes (two launches); and
+    a batch sharded on (2, 1, 1) equal to the unsharded batch's."""
+    kinds = ("clean", "nan", "clean", "inf", "overflow")
+    for members, shape, dtype in ((5, (2, 16, 16, 16), torch.float32),
+                                  (5, (2, 5, 9, 33), torch.float64),
+                                  (17, (1, 4, 8, 8), torch.float32)):
+        tag = f"health members {members}x{shape} " \
+              f"{str(dtype).split('.')[1]}"
+        xs = [health_field(shape, dtype, kinds[m % len(kinds)], g)
+              for m in range(members)]
+        ys = [health_field(shape, dtype, "clean", g) for _ in range(members)]
+        bx, by = torch.stack(xs), torch.stack(ys)
+        mat = health_run(libs["kernel"], [bx, by], members,
+                         wrapper=thealth.field_stats_members)
+        rows = torch.stack([health_run(libs["kernel"], [x, y])
+                            for x, y in zip(xs, ys)])
+        check(f"{tag} rows == lone members", torch.equal(
+            mat.nan_to_num(7.0), rows.nan_to_num(7.0)))
+        check(f"{tag} ~ plain", health_agrees(
+            mat, thealth.field_stats_members_plain([bx, by], members),
+            HEALTH_TOL))
+        if shape[-3] % 2 == 0:
+            d = pt.DomainDecomposition((2, 1, 1), devices=["cpu"] * 2)
+            sharded = health_run(libs["kernel"], [d.shard(bx), d.shard(by)],
+                                 members, wrapper=thealth.field_stats_members)
+            check(f"{tag} (2, 1, 1)", torch.equal(sharded.nan_to_num(7.0),
+                                                  mat.nan_to_num(7.0)))
 
 
 def main():

@@ -12,6 +12,13 @@ constraint (tests/test_examples.py:GOLDEN_CONSTRAINT, 32^3 to t = 1, seed
   and the reference's own value sits 0.53% from the golden one.
 - On -proc 2 2 1 the run is the (1, 1, 1) run bit for bit.
 - With -gws at 16^3 to t = 0.3 the HDF5 file holds spectra/gw.
+
+examples/torch_ensemble_scan.py against examples/ensemble_scan.py at 16^3,
+``--members 8 --jobs 16 --nsteps 16`` (8 members: the JAX example packs them
+over the suite's 8 virtual CPU devices, and its shard_members needs a count
+they divide): each seed's final <dfdt^2> within 1e-5 relative.
+examples/torch_wave_equation.py keeps the JAX example's energy bar, drift
+< 1e-3 at 32^3 to t = 1 (tests/test_examples.py:55-59).
 """
 
 import importlib.util
@@ -30,10 +37,9 @@ GOLDEN_CONSTRAINT = 5.6021274619233452e-08
 ARGS = ["-grid", "32", "32", "32", "-end-t", "1", "--device", "cpu"]
 
 
-def _example():
+def _example(name="torch_scalar_preheating"):
     spec = importlib.util.spec_from_file_location(
-        "torch_scalar_preheating",
-        os.path.join(REPO, "examples", "torch_scalar_preheating.py"))
+        name, os.path.join(REPO, "examples", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -102,3 +108,39 @@ def test_gravitational_waves(example, tmp_path):
     with h5py.File(tmp_path / "gw.h5", "r") as f:
         assert "spectra" in f and "gw" in f["spectra"]
         assert np.all(np.isfinite(f["spectra/gw"][:]))
+
+
+SCAN_ARGS = ["--members", "8", "--jobs", "16", "--nsteps", "16"]
+
+
+def test_ensemble_scan_matches_jax(monkeypatch):
+    """Every seed's final <dfdt^2> within 1e-5 relative of the JAX
+    example's (the JAX example prints eight; its driver's on_finish is
+    wrapped to read all sixteen)."""
+    import pystella_tpu as ps
+    jax_finals = {}
+    run = ps.EnsembleDriver.run
+
+    def wrapped(self, on_finish=None):
+        def record(rec, state):
+            jax_finals[rec["seed"]] = float(np.mean(np.square(
+                state["dfdt"])))
+            on_finish(rec, state)
+        return run(self, on_finish=record)
+    monkeypatch.setattr(ps.EnsembleDriver, "run", wrapped)
+    jout = _example("ensemble_scan").main(SCAN_ARGS)
+    out = _example("torch_ensemble_scan").main(SCAN_ARGS
+                                               + ["--device", "cpu"])
+    assert out["stats"]["members_completed"] == 16
+    assert jout["stats"]["members_completed"] == 16
+    assert out["stats"]["evictions"] == jout["stats"]["evictions"] == 0
+    ours = {seed: kin for seed, _, kin in out["finals"]}
+    assert sorted(ours) == sorted(jax_finals) == list(range(16))
+    for seed, kin in ours.items():
+        assert abs(kin - jax_finals[seed]) <= 1e-5 * abs(jax_finals[seed])
+
+
+def test_wave_equation_energy():
+    drift = _example("torch_wave_equation").main(
+        ["-grid", "32", "32", "32", "--end-time", "1", "--device", "cpu"])
+    assert drift < 1e-3

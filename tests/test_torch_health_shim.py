@@ -58,7 +58,7 @@ def checks():
 
 @pytest.mark.parametrize("group", [
     "health float32", "health float64", "health bfloat16",
-    "health mixed dtypes"])
+    "health mixed dtypes", "health members"])
 def test_health_kernel_behind_cpu_shim(checks, group):
     """Every check of one dtype passes: finite and max_abs equal to the
     plain version's, rms within 1e-13, repeat and sharded launches bit for

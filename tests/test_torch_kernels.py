@@ -2712,3 +2712,193 @@ def test_histogrammer_nan_bin_on_card(cuda, dtype):
     np.testing.assert_array_equal(card["n"], plain["n"])
     assert card["n"][0].sum() == 16**3 and card["n"][0, 0] == 115
     assert np.array_equal(np.isnan(card["w"]), np.isnan(plain["w"]))
+
+
+# -- the ensemble engine: the member matrix, the batching rule, the tiers ----
+
+def _member_batch(cuda, members, shape, dtype, seed=5):
+    """``[dfdt, f]`` batches of ``members`` states, member 1 with a NaN,
+    member 2 with an inf (the rest clean)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    leaves = [a * torch.randn((members, 2) + shape, generator=g, device=cuda,
+                              dtype=dtype) for a in (1e-4, 1e-3)]
+    leaves[0][1, 1, 0, 1, 2] = float("nan")
+    leaves[0][2, 0, 3, 2, 1] = float("inf")
+    return leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [(16, 16, 16), (48, 40, 36)],
+                         ids=["16cubed", "48x40x36"])
+@pytest.mark.parametrize("members", [3, 17])
+def test_health_members_rows_equal_lone(cuda, members, shape, dtype):
+    """K15's member matrix: one launch a leaf for the whole batch and
+    ceil(2 members / 32) finishes; row m bit for bit field_stats of member
+    m, a NaN and an inf member included; finite and max_abs equal to the
+    plain matrix's, rms within 1e-12."""
+    from pystella_tpu_torch.ops import health as thealth
+    leaves = _member_batch(cuda, members, shape, dtype)
+    before = dict(thealth.LAUNCHES)
+    mat = thealth.field_stats_members(leaves, members, torch.float64)
+    torch.cuda.synchronize()
+    assert thealth.LAUNCHES["health:members"] - before["health:members"] == 2
+    assert (thealth.LAUNCHES["health_finish:members"]
+            - before["health_finish:members"]) == -(-2 * members // 32)
+    lone = torch.stack([thealth.field_stats([x[m] for x in leaves],
+                                            torch.float64)
+                        for m in range(members)])
+    assert torch.equal(mat.nan_to_num(7.0), lone.nan_to_num(7.0))
+    plain = thealth.field_stats_members_plain(leaves, members,
+                                              torch.float64).view(-1, 3)
+    got = mat.view(-1, 3)
+    assert torch.equal(got[:, :2].nan_to_num(7.0),
+                       plain[:, :2].nan_to_num(7.0))
+    fin = torch.isfinite(plain[:, 2])
+    assert float(((got[fin, 2] - plain[fin, 2]).abs()
+                  / plain[fin, 2].abs()).max()) <= 1e-12
+    sen = pt.obs.Sentinel(("dfdt", "f"))
+    sm = sen.compute_members({"dfdt": leaves[0], "f": leaves[1]})
+    for m in range(members):
+        assert torch.equal(sm[m].nan_to_num(7.0), sen.compute(
+            {"dfdt": leaves[0][m], "f": leaves[1][m]}).nan_to_num(7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["lap", "grad", "grad_lap", "divergence"])
+def test_fd_vmap_one_launch(cuda, op):
+    """torch.func.vmap of an operator over 3 members: one kernel launch
+    (the batching rule folds the member axis into the components), each
+    member's output bit for bit the lone operator's."""
+    from pystella_tpu_torch.ops import derivs as tderivs
+    fd = pt.FiniteDifferencer(H, (0.3, 0.25, 0.2), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    shape = (3, 3, 16, 16, 16)
+    x = torch.randn(shape, generator=g, device=cuda)
+    fn = getattr(fd, op)
+    name = {"divergence": "div"}.get(op, op)
+    before = tderivs.LAUNCHES[f"fd_{name}"]
+    out = torch.func.vmap(fn)(x)
+    torch.cuda.synchronize()
+    assert tderivs.LAUNCHES[f"fd_{name}"] - before == 1
+    outs = out if isinstance(out, tuple) else (out,)
+    for m in range(shape[0]):
+        lone = fn(x[m])
+        lone = lone if isinstance(lone, tuple) else (lone,)
+        for a, b in zip(outs, lone):
+            assert torch.equal(a[m], b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh,overlap", [((2, 1, 1), True),
+                                          ((2, 1, 1), False),
+                                          ((2, 2, 1), False)],
+                         ids=["211-overlap", "211-padded", "221"])
+def test_fd_vmap_sharded(cuda, mesh, overlap):
+    """vmap over the members of a ShardedArray: one sharded operator call
+    (its launches those of one call), each member bit for bit the lone
+    sharded operator's."""
+    from pystella_tpu_torch.ops import derivs as tderivs
+    d = pt.DomainDecomposition(mesh)
+    fd = pt.FiniteDifferencer(H, 0.3, decomp=d, overlap=overlap)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((4, 2, 32, 32, 16), generator=g, device=cuda)
+    batch = d.shard(x)
+    tderivs.reset_launch_counts()
+    lone = [fd.lap(d.shard(x[m])) for m in range(4)]
+    one = {k: v // 4 for k, v in tderivs.LAUNCHES.items() if v}
+    tderivs.reset_launch_counts()
+    out = torch.func.vmap(fd.lap)(batch)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in tderivs.LAUNCHES.items() if v} == one
+    assert tderivs.CALLS["lap"] == 1
+    full = d.gather_array(out)
+    for m in range(4):
+        assert np.array_equal(full[m], d.gather_array(lone[m]))
+
+
+@pytest.mark.cuda
+def test_ensemble_tiers_on_card(cuda):
+    """The map tier bit for bit the fused stepper's sequential multi_step
+    of each member (per-member a, a float32 dt); the vmap tier within the
+    JAX bar (rtol 1e-6, atol 1e-12) of sequential runs with one fd_lap
+    launch a stage for the batch."""
+    from pystella_tpu_torch.ops import derivs as tderivs
+    grid = (16, 16, 16)
+    st = pt.FusedScalarStepper(pt.ScalarSector(2, potential=bench_potential),
+                               grid, 5.0 / 16, H, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    members = [{"f": 1e-3 * torch.randn((2,) + grid, generator=g,
+                                        device=cuda),
+                "dfdt": 1e-4 * torch.randn((2,) + grid, generator=g,
+                                           device=cuda)}
+               for _ in range(3)]
+    ens = st.batched(3)
+    a = np.array([1.0, 1.1, 1.2])
+    dt = np.float32(0.1 * 5.0 / 16)
+    out = ens.multi_step(ens.stack(members), 3, 0.0, dt,
+                         {"a": a, "hubble": 0.5})
+    for m in range(3):
+        ref = st.multi_step(_copy(members[m]), 3, 0.0, dt,
+                            {"a": float(a[m]), "hubble": 0.5})
+        for k in ref:
+            assert torch.equal(out[k][m], ref[k]), (m, k)
+
+    fd = pt.FiniteDifferencer(H, 0.3, device=cuda)
+
+    def rhs(state, t, m2):
+        return {"f": state["dfdt"],
+                "dfdt": fd.lap(state["f"]) - m2 * state["f"]}
+    gen = pt.LowStorageRK54(rhs)
+    vens = gen.batched(3)
+    m2 = np.array([0.1, 0.3, 0.5])
+    dts = np.array([1e-3, 1.5e-3, 2e-3])
+    tderivs.reset_launch_counts()
+    vout = vens.multi_step(vens.stack(members), 2, 0.0, dts, {"m2": m2})
+    torch.cuda.synchronize()
+    assert tderivs.LAUNCHES["fd_lap"] == 2 * gen.num_stages
+    body = gen.multi_step_fn(2)
+    for m in range(3):
+        ref = body(_copy(members[m]), 0.0, float(dts[m]),
+                   {"m2": float(m2[m])})
+        for k in ref:
+            np.testing.assert_allclose(vout[k][m].cpu().numpy(),
+                                       ref[k].cpu().numpy(), rtol=1e-6,
+                                       atol=1e-12)
+
+
+def test_map_tier_over_cards(cuda):
+    """On an ensemble mesh over two cards the map tier runs each slice's
+    members on their card, through the fused stepper's twin there: each
+    member bit for bit its sequential multi_step on that card, and each
+    health-matrix row the member's health vector."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: one ensemble slice a card")
+    cards = [torch.device("cuda", i) for i in range(2)]
+    grid = (16, 16, 16)
+    st = pt.FusedScalarStepper(pt.ScalarSector(2, potential=bench_potential),
+                               grid, 5.0 / 16, H, device=cards[0])
+    mesh = pt.ensemble_mesh(ensemble_devices=2, devices=cards)
+    dec = pt.DomainDecomposition(mesh=mesh, ensemble_axis=mesh.axis_names[0])
+    ens = st.batched(4, decomp=dec)
+    assert ens.steppers[0] is st and ens.steppers[1].device == cards[1]
+    rng = np.random.default_rng(5)
+    members = [{"f": (1e-3 * rng.standard_normal((2,) + grid)).astype(
+                    np.float32),
+                "dfdt": (1e-4 * rng.standard_normal((2,) + grid)).astype(
+                    np.float32)} for _ in range(4)]
+    a = np.array([1.0, 1.1, 1.2, 1.3])
+    dt = np.float32(0.1 * 5.0 / 16)
+    sen = pt.obs.Sentinel.for_state(members[0])
+    out, matrix = ens.multi_step(ens.stack(members), 3, 0.0, dt,
+                                 {"a": a, "hubble": 0.5}, sentinel=sen)
+    assert [p.device for p in out["f"].parts] == cards
+    for m in range(4):
+        card = cards[m // 2]
+        ref = st.on_device(card).multi_step(
+            {k: torch.from_numpy(v).to(card) for k, v in members[m].items()},
+            3, 0.0, dt, {"a": float(a[m]), "hubble": 0.5})
+        for k in ref:
+            assert torch.equal(out[k][m], ref[k]), (m, k)
+        assert torch.equal(matrix[m].cpu(), sen.compute(ref).cpu()), m
